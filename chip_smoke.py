@@ -11,7 +11,8 @@ Phases (any failure raises and the script exits non-zero):
 1. Device and build: prints the card's name and power limit, then builds
    every kernel in ``starflashattention_tpu_torch/csrc`` with ``nvcc`` for
    sm_90a, one process per source, all at once.
-2. Kernel vs plain: each kernel against its plain PyTorch twin on the card,
+2. Kernel vs plain: each kernel against its plain PyTorch twin on the card
+   (the paged decode and the paged append on a shuffled page table),
    in bf16 at the shapes the 7B-GQA path gives it, with the error printed
    beside its tolerance; kernel, plain and library-call times (CUDA events,
    L2 flushed before each launch, the device kept busy while the host
@@ -27,6 +28,20 @@ Phases (any failure raises and the script exits non-zero):
 5. Only with ``--phases ...,5``: bench.py's decode chain (B=16, every
    sequence at 512 cache rows) timed, then traced with torch.profiler for
    device time by kernel and the device's idle share.
+6. Serving: full-width ``ModelConfig.llama_7b_gqa`` (32 layers,
+   max_seq_len 1024, seeded random int8 weights + int8 lm_head, bf16 KV):
+   24 greedy requests (a shared 256-token system prefix plus a ragged
+   16-384-token suffix, 32 new tokens each) through ``Engine`` (8 slots, 8
+   steps a round), then through ``PagedEngine`` (page_size 128,
+   prefill_chunk 256, prefix cache, a pool small enough to preempt). Launch
+   counters are zeroed before and checked after each run (the paged run
+   launches the paged decode and the paged append once per layer and decode
+   step, the contiguous run neither); every request must finish, the paged
+   run must preempt and hit the prefix cache at least once. Prints both
+   ``EngineStats`` summaries, the share of streams the two engines agree on
+   and their largest chosen-token logprob difference over the agreeing
+   prefixes; then a sampled ``PagedEngine`` run (temperature 0.8, top_p
+   0.95) twice with the same seeds must give identical streams.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device,
@@ -43,6 +58,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -54,6 +70,21 @@ SLICE_SEQ = 1024
 SLICE_BATCH = 8
 SLICE_NEW_TOKENS = 32
 SEED = 0
+PAGE_SIZE = 128
+
+SERVE_REQUESTS = 24
+SERVE_PREFIX = 256
+SERVE_NEW_TOKENS = 32
+SERVE_SLOTS = 8
+SERVE_STEPS = 8
+SERVE_CHUNK = 256
+SERVE_PAGES = 33  # 32 usable pages of 128 rows: fewer than 8 slots' worth, so the pool preempts
+# The two engines round bf16 activations at different places (the paged
+# decode folds sm_scale into q and rounds it to bf16; chunked prefill attends
+# a gathered prefix), and a sum rounded on either side of a bf16 tie carries
+# through 32 layers. Phase 4 bounds such drift at 5% of the logit range
+# (|logit| ~5 here): a chosen-token logprob may move by about that much.
+SERVE_LOGPROB_TOL = 0.25
 QMM_ENTRY = {16: "quant_matmul (small-M, decode rows)", 2048: "quant_matmul (tiled, prefill rows)"}
 
 
@@ -143,7 +174,7 @@ def phase_kernels(dev, timer):
     import torch.nn.functional as F
 
     from starflashattention_tpu_torch.core.reference import repeat_kv
-    from starflashattention_tpu_torch.ops.cache_append import append_rows_kv, append_rows_kv_plain
+    from starflashattention_tpu_torch.ops.cache_append import append_rows, append_rows_kv, append_rows_kv_plain
     from starflashattention_tpu_torch.ops.flash_decode import (
         flash_decode, flash_decode_plain, flash_decode_with_stats, flash_decode_with_stats_plain)
     from starflashattention_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_plain
@@ -213,6 +244,22 @@ def phase_kernels(dev, timer):
         ms=timer(lambda: append_rows_kv(ka, va, k_new, v_new, layer, pos)),
         plain_ms=timer(lambda: append_rows_kv_plain(kp, vp, k_new, v_new, layer, pos)),
         bound_ms=bnd, bound_by=by, library_ms=None)
+    # -- the one-table append (K3b: append_rows, no caller on the main path)
+    one = k_tab.clone()
+    one_plain = k_tab.clone()
+    append_rows(one, k_new, layer, pos)
+    append_rows_kv_plain(one_plain, None, k_new, None, layer, pos)
+    _check("append_rows (one table) whole table", 0.0 if torch.equal(one, one_plain) else float("inf"), 0.0)
+    bnd, by = bound_ms(2 * b * hkv * d * 2 + b * 4, 0)
+    k3b = dict(ms=timer(lambda: append_rows(one, k_new, layer, pos)),
+               plain_ms=timer(lambda: append_rows_kv_plain(one_plain, None, k_new, None, layer, pos)),
+               bound_ms=bnd, bound_by=by)
+    log(f"[time] append_rows (K3b, not on the main path): kernel {k3b['ms']:.4f} ms, plain "
+        f"{k3b['plain_ms']:.4f} ms, library none, bound {bnd:.6f} ms ({by}), max_abs_err 0.000e+00")
+    del one, one_plain
+
+    res.update(_paged_kernels(dev, timer, gen, q, k_tab, v_tab, lengths, layer, dec_bytes, dec_ops,
+                              k_new, v_new))
     del k_tab, v_tab, ka, va, kp, vp, kv_rep
 
     # -- quant_matmul: the five projection shapes, stacked L=4, layer 3
@@ -293,8 +340,66 @@ def phase_kernels(dev, timer):
         library_ms=timer(lambda: F.scaled_dot_product_attention(q, kk, vv, attn_mask=mask)))
     for name, r in res.items():
         log(f"[time] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-            f"{'n/a' if r['library_ms'] is None else format(r['library_ms'], '.4f') + ' ms'}, "
+            f"{'none' if r['library_ms'] is None else format(r['library_ms'], '.4f') + ' ms'}, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']:.3e}")
+    return res
+
+
+def _paged_kernels(dev, timer, gen, q, k_tab, v_tab, lengths, layer, dec_bytes, dec_ops, k_new, v_new):
+    """K7 and K8 at the decode shapes: the rows of the contiguous table laid
+    out in pages of 128 rows under a shuffled page table (pages_per_seq 8),
+    so K1 on the table is the yardstick for K7 on the pools."""
+    from starflashattention_tpu_torch.ops.cache_append import (
+        append_rows_paged_kv, append_rows_paged_kv_plain)
+    from starflashattention_tpu_torch.ops.flash_decode import flash_decode
+    from starflashattention_tpu_torch.ops.paged_decode import paged_flash_decode, paged_flash_decode_plain
+
+    n_layers, b, hkv, s, d = k_tab.shape
+    ps = PAGE_SIZE
+    pps = s // ps
+    num_pages = b * pps + 1  # page 0 is the null page
+    perm = torch.randperm(num_pages - 1, generator=torch.Generator().manual_seed(SEED)) + 1
+    table = perm.reshape(b, pps).to(device=dev, dtype=torch.int32)
+    pools = []
+    for tab in (k_tab, v_tab):
+        pool = torch.zeros((n_layers, hkv, num_pages, ps, d), dtype=tab.dtype, device=dev)
+        # (L, B, Hkv, S, D) -> (L, Hkv, B * pps, ps, D), page (b, i) at table[b, i]
+        pool[:, :, table.reshape(-1).long()] = tab.reshape(n_layers, b, hkv, pps, ps, d).transpose(
+            1, 2).reshape(n_layers, hkv, b * pps, ps, d)
+        pools.append(pool)
+    k_pool, v_pool = pools
+    res = {}
+    out = paged_flash_decode(q, k_pool, v_pool, table, lengths, layer=layer)
+    ref = paged_flash_decode_plain(q, k_pool, v_pool, table, lengths, layer=layer)
+    err = (out.float() - ref.float()).abs().max().item()
+    # as for K1: two fp32 computations over the same bf16 inputs, each
+    # rounded once to bf16, may differ by one bf16 ulp of |o| <= 4
+    _check(f"paged_flash_decode B={b} Hq={q.shape[1]} Hkv={hkv} D={d} page_size={ps} "
+           f"pages_per_seq={pps} shuffled table, lengths 1..{s}", err, 2.0**-8 * 4)
+    bnd, by = bound_ms(dec_bytes + table.numel() * 4, dec_ops)
+    yard = timer(lambda: flash_decode(q, k_tab, v_tab, lengths, layer=layer, num_splits=1, block_k=256))
+    res["paged_flash_decode"] = dict(
+        max_abs_err=err,
+        ms=timer(lambda: paged_flash_decode(q, k_pool, v_pool, table, lengths, layer=layer)),
+        plain_ms=timer(lambda: paged_flash_decode_plain(q, k_pool, v_pool, table, lengths, layer=layer),
+                       iters=5),
+        bound_ms=bnd, bound_by=by, library_ms=None)
+    log(f"[time] paged_flash_decode yardstick: flash_decode (1 split) on the same rows laid out "
+        f"contiguously {yard:.4f} ms")
+
+    pos = torch.clamp(lengths, max=s - 1)
+    ka, va = k_pool.clone(), v_pool.clone()
+    kp, vp = k_pool.clone(), v_pool.clone()
+    append_rows_paged_kv(ka, va, k_new, v_new, layer, table, pos)
+    append_rows_paged_kv_plain(kp, vp, k_new, v_new, layer, table, pos)
+    same = torch.equal(ka, kp) and torch.equal(va, vp)
+    _check("append_rows_paged_kv whole pools", 0.0 if same else float("inf"), 0.0)
+    bnd, by = bound_ms(2 * 2 * b * hkv * d * 2 + b * 4 + b * 4, 0)
+    res["append_rows_paged_kv"] = dict(
+        max_abs_err=0.0,
+        ms=timer(lambda: append_rows_paged_kv(ka, va, k_new, v_new, layer, table, pos)),
+        plain_ms=timer(lambda: append_rows_paged_kv_plain(kp, vp, k_new, v_new, layer, table, pos)),
+        bound_ms=bnd, bound_by=by, library_ms=None)
     return res
 
 
@@ -302,13 +407,15 @@ def phase_kernels(dev, timer):
 
 
 def _counters():
-    from starflashattention_tpu_torch.ops.cache_append import append_rows_kv
+    from starflashattention_tpu_torch.ops.cache_append import append_rows_kv, append_rows_paged_kv
     from starflashattention_tpu_torch.ops.flash_decode import flash_decode
     from starflashattention_tpu_torch.ops.flash_prefill import flash_prefill
+    from starflashattention_tpu_torch.ops.paged_decode import paged_flash_decode
     from starflashattention_tpu_torch.ops.quant_matmul import quant_matmul
 
     return {"append_rows_kv": append_rows_kv, "flash_decode": flash_decode,
-            "flash_prefill": flash_prefill, "quant_matmul": quant_matmul}
+            "flash_prefill": flash_prefill, "quant_matmul": quant_matmul,
+            "append_rows_paged_kv": append_rows_paged_kv, "paged_flash_decode": paged_flash_decode}
 
 
 def reset_counts():
@@ -359,7 +466,7 @@ def phase_slice(dev):
     # one attention and four projections a layer, plus the lm_head
     expected = {"flash_prefill": n_layers, "append_rows_kv": steps * n_layers,
                 "flash_decode": steps * n_layers, "quant_matmul": (4 * n_layers + 1) * (steps + 1),
-                "quant_matmul_tiled": 4 * n_layers}
+                "quant_matmul_tiled": 4 * n_layers, "append_rows_paged_kv": 0, "paged_flash_decode": 0}
     runs, streams = {}, {}
     for splits in (1, base.num_splits):
         cfg = ModelConfig.llama_7b_gqa(num_layers=SLICE_LAYERS, max_seq_len=SLICE_SEQ, num_splits=splits)
@@ -477,6 +584,139 @@ def phase_path_vs_path(dev):
     return err, tol
 
 
+# ---------------------------------------------------------------- phase 6
+
+
+def _serving_prompts(vocab):
+    """24 prompts: a shared 256-token system prefix plus a ragged 16-384-token
+    suffix, all from a seeded generator."""
+    rng = np.random.default_rng(SEED)
+    system = rng.integers(0, vocab, SERVE_PREFIX).tolist()
+    lens = rng.integers(16, 385, SERVE_REQUESTS)
+    return [system + rng.integers(0, vocab, int(n)).tolist() for n in lens]
+
+
+def _serve(make_engine, prompts, expect, sampling=None):
+    """One engine run with the counters zeroed just before and read just
+    after; checks the counts against ``expect(stats)`` and that every
+    request finished with its full budget."""
+    from starflashattention_tpu_torch.serving import GREEDY, Request
+
+    torch.cuda.synchronize()
+    reset_counts()
+    eng = make_engine()
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=SERVE_NEW_TOKENS, sampling=s)
+            for i, (p, s) in enumerate(zip(prompts, sampling or [GREEDY] * len(prompts)))]
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    want = expect(eng.stats)
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"launch counts {got} != expected {want}")
+    if eng.stats.finished != len(reqs) or any(len(r.output) != SERVE_NEW_TOKENS for r in reqs):
+        raise AssertionError(f"{len(reqs) - eng.stats.finished} requests did not finish")
+    for r in reqs:
+        if not all(0 <= t < eng.cfg.vocab_size for t in r.output):
+            raise AssertionError(f"request {r.uid}: token out of range")
+    return eng, reqs, wall, counts
+
+
+def phase_serving(dev):
+    """Full-width 7B-GQA serving through both engines (see the module doc)."""
+    from starflashattention_tpu_torch.runtime.params import ModelConfig
+    from starflashattention_tpu_torch.serving import Engine, PagedEngine, SamplingParams
+    from starflashattention_tpu_torch.utils import native
+
+    cfg = ModelConfig.llama_7b_gqa(num_layers=SLICE_LAYERS, max_seq_len=SLICE_SEQ)
+    t0 = time.perf_counter()
+    params, _ = build_model(cfg, dev)
+    torch.cuda.synchronize()
+    log(f"[serve] llama_7b_gqa L={cfg.num_layers} max_seq_len={cfg.max_seq_len}, int8 weights + int8 "
+        f"lm_head, bf16 KV, built in {time.perf_counter() - t0:.1f} s")
+    prompts = _serving_prompts(cfg.vocab_size)
+    log(f"[serve] {len(prompts)} requests, prompt lengths {min(map(len, prompts))}.."
+        f"{max(map(len, prompts))} ({sum(map(len, prompts))} tokens, shared prefix {SERVE_PREFIX}), "
+        f"{SERVE_NEW_TOKENS} new tokens each, {SERVE_SLOTS} slots, {SERVE_STEPS} steps a round")
+    n_layers, steps = cfg.num_layers, SERVE_STEPS
+
+    def expect(paged):
+        def counts(st):
+            dec = st.decode_rounds * steps * n_layers
+            return {"flash_prefill": st.prefill_rounds * n_layers,
+                    "flash_decode": 0 if paged else dec, "append_rows_kv": 0 if paged else dec,
+                    "paged_flash_decode": dec if paged else 0, "append_rows_paged_kv": dec if paged else 0,
+                    "quant_matmul": (st.prefill_rounds + st.decode_rounds * steps) * (4 * n_layers + 1)}
+        return counts
+
+    def contiguous_engine():
+        return Engine(params, cfg, num_slots=SERVE_SLOTS, steps_per_round=steps, return_logprobs=True,
+                      device=dev)
+
+    def paged_engine(**kw):
+        return PagedEngine(params, cfg, num_slots=SERVE_SLOTS, steps_per_round=steps,
+                           page_size=PAGE_SIZE, prefill_chunk=SERVE_CHUNK, prefix_cache=True,
+                           num_pages=SERVE_PAGES, device=dev, **kw)
+
+    runs = {}
+    ceng, creqs, cwall, ccounts = _serve(contiguous_engine, prompts, expect(False))
+    log(f"[serve] Engine: {cwall:.2f} s, {json.dumps(ceng.stats.summary())}")
+    log(f"[serve] Engine launches {ccounts}")
+    runs["contiguous"] = dict(wall_s=cwall, stats=ceng.stats.summary(), counts=ccounts)
+    del ceng
+    torch.cuda.empty_cache()
+
+    peng, preqs, pwall, pcounts = _serve(lambda: paged_engine(return_logprobs=True), prompts, expect(True))
+    pool_kind = "native C++ page pool" if isinstance(peng.pool, native.NativePagePool) else "Python SeqPagePool"
+    log(f"[serve] PagedEngine: page_size {PAGE_SIZE}, num_pages {SERVE_PAGES} (page 0 null), "
+        f"prefill_chunk {SERVE_CHUNK}, prefix cache on, {pool_kind}")
+    log(f"[serve] PagedEngine: {pwall:.2f} s, {json.dumps(peng.stats.summary())}")
+    log(f"[serve] PagedEngine launches {pcounts}")
+    if peng.stats.preemptions < 1 or peng.stats.prefix_hits < 1:
+        raise AssertionError(f"the paged run needs >= 1 preemption and >= 1 prefix hit, got "
+                             f"{peng.stats.preemptions} and {peng.stats.prefix_hits}")
+    runs["paged"] = dict(wall_s=pwall, stats=peng.stats.summary(), counts=pcounts, pool=pool_kind)
+    del peng
+    torch.cuda.empty_cache()
+
+    same = sum(c.output == p.output for c, p in zip(creqs, preqs))
+    agree_tokens, lp_diff = 0, 0.0
+    for c, p in zip(creqs, preqs):
+        n = next((i for i, (a, b) in enumerate(zip(c.output, p.output)) if a != b), len(c.output))
+        agree_tokens += n
+        if n:
+            lp_diff = max(lp_diff, max(abs(a - b) for a, b in zip(c.logprobs[:n], p.logprobs[:n])))
+    ok = lp_diff <= SERVE_LOGPROB_TOL
+    log(f"[serve] streams equal token for token between the engines: {same}/{len(prompts)} "
+        f"({same / len(prompts):.3f}); agreeing prefix tokens {agree_tokens}/"
+        f"{len(prompts) * SERVE_NEW_TOKENS}; largest chosen-token logprob difference over them "
+        f"{lp_diff:.4e} (tolerance {SERVE_LOGPROB_TOL:.1e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"engine logprobs differ by {lp_diff} > {SERVE_LOGPROB_TOL}")
+    runs["agreement"] = dict(streams_equal=same, requests=len(prompts), logprob_diff=lp_diff)
+
+    sampled = [SamplingParams(temperature=0.8, top_p=0.95, seed=1000 + i) for i in range(len(prompts))]
+    streams = []
+    for rep in range(2):
+        eng, reqs, wall, _ = _serve(lambda: paged_engine(enable_sampling=True), prompts, expect(True),
+                                    sampling=sampled)
+        streams.append([r.output for r in reqs])
+        log(f"[serve] sampled PagedEngine run {rep + 1} (temperature 0.8, top_p 0.95): {wall:.2f} s, "
+            f"preemptions {eng.stats.preemptions}, prefix hits {eng.stats.prefix_hits}")
+        del eng
+    if streams[0] != streams[1]:
+        raise AssertionError("the two sampled runs with the same seeds gave different streams")
+    greedy_same = sum(a == p.output for a, p in zip(streams[0], preqs))
+    log(f"[serve] the two sampled runs gave identical streams; {greedy_same}/{len(prompts)} equal the greedy ones")
+    del params
+    torch.cuda.empty_cache()
+    return runs
+
+
 # ---------------------------------------------------------------- phase 5
 
 
@@ -556,13 +796,15 @@ REPLACES = {
     "quant_matmul (small-M, decode rows)": ("starflashattention_tpu/ops/quant_matmul.py:35", "quant_matmul.cu"),
     "quant_matmul (tiled, prefill rows)": ("starflashattention_tpu/ops/quant_matmul.py:35", "quant_matmul.cu"),
     "flash_prefill": ("starflashattention_tpu/ops/flash_prefill.py:67", "flash_prefill.cu"),
+    "paged_flash_decode": ("starflashattention_tpu/ops/paged_decode.py:74", "flash_decode.cu"),
+    "append_rows_paged_kv": ("starflashattention_tpu/ops/cache_append.py:219", "cache_append.cu"),
 }
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4",
-                        help="comma-separated phases to run (default 1,2,3,4; phase 5, "
+    parser.add_argument("--phases", default="1,2,3,4,6",
+                        help="comma-separated phases to run (default 1,2,3,4,6; phase 5, "
                              "a profile of bench.py's decode chain, runs only when named)")
     args = parser.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -581,6 +823,7 @@ def main(argv=None):
     runs = phase_slice(dev) if 3 in phases else {}
     if 4 in phases:
         phase_path_vs_path(dev)
+    serving = phase_serving(dev) if 6 in phases else {}
     if 5 in phases:
         phase_decode_profile(dev)
 
@@ -593,6 +836,10 @@ def main(argv=None):
                     "quant_matmul (small-M, decode rows)": split["quant_matmul"] - split["quant_matmul_tiled"],
                     "quant_matmul (tiled, prefill rows)": split["quant_matmul_tiled"],
                     "flash_prefill": split["flash_prefill"]}
+    if serving:
+        paged = serving["paged"]["counts"]
+        launches.update({"paged_flash_decode": paged["paged_flash_decode"],
+                         "append_rows_paged_kv": paged["append_rows_paged_kv"]})
     line = []
     for name, r in kernels.items():
         replaces, src = REPLACES[name]

@@ -112,30 +112,41 @@ def append_decode(cache: KVCache, layer: int, k_new: torch.Tensor, v_new: torch.
     return cache
 
 
-def check_prefill_window(cache: KVCache, sq: int) -> None:
+def check_prefill_window(cache: KVCache, sq: int, rows: torch.Tensor | None = None) -> None:
     """Raise when an Sq-row prompt window at ``lengths`` would run past the
     cache: the JAX package's ``dynamic_update_slice`` would shift it left
-    over valid rows instead."""
-    top = int(cache.lengths.max())
+    over valid rows instead. ``rows`` (a long tensor of row indices)
+    restricts the check to the rows being written; None checks every row."""
+    lengths = cache.lengths if rows is None else cache.lengths[rows]
+    if lengths.numel() == 0:
+        return
+    top = int(lengths.max())
     if top + sq > cache.max_seq_len:
         raise ValueError(
             f"prefill window of {sq} rows at lengths up to {top} "
             f"overruns the cache ({cache.max_seq_len} rows)")
 
 
-def append_prefill(cache: KVCache, layer: int, k_new: torch.Tensor, v_new: torch.Tensor) -> KVCache:
+def append_prefill(cache: KVCache, layer: int, k_new: torch.Tensor, v_new: torch.Tensor,
+                   rows: torch.Tensor | None = None, check: bool = True) -> KVCache:
     """Write a prompt chunk (B, Hkv, Sq, D) at rows ``[lengths[b],
-    lengths[b] + Sq)`` of ``layer``, IN PLACE. Raises when a window would
-    run past the cache (:func:`check_prefill_window`)."""
+    lengths[b] + Sq)`` of ``layer``, IN PLACE. ``rows`` (a long tensor of
+    row indices) writes only those sequences: every other row's cache stays
+    byte for byte as it was (the serving engine's busy slots). Raises when a
+    written window would run past the cache (:func:`check_prefill_window`);
+    ``check=False`` skips that check (and its host sync) for a caller that
+    made it once for all layers."""
     _check_unquantized(cache)
     b, _, sq, _ = k_new.shape
-    check_prefill_window(cache, sq)
-    pos = cache.lengths.long()[:, None] + torch.arange(sq, device=cache.k.device)[None, :]
-    bidx = torch.arange(b, device=cache.k.device)[:, None]
-    # advanced indices (B, 1) x (B, Sq) around the head slice address a
-    # (B, Sq, Hkv, D) block
-    cache.k[layer][bidx, :, pos] = k_new.transpose(1, 2).to(cache.k.dtype)
-    cache.v[layer][bidx, :, pos] = v_new.transpose(1, 2).to(cache.v.dtype)
+    if check:
+        check_prefill_window(cache, sq, rows)
+    if rows is None:
+        rows = torch.arange(b, device=cache.k.device)
+    pos = cache.lengths.long()[rows][:, None] + torch.arange(sq, device=cache.k.device)[None, :]
+    # advanced indices (R, 1) x (R, Sq) around the head slice address an
+    # (R, Sq, Hkv, D) block
+    cache.k[layer][rows[:, None], :, pos] = k_new[rows].transpose(1, 2).to(cache.k.dtype)
+    cache.v[layer][rows[:, None], :, pos] = v_new[rows].transpose(1, 2).to(cache.v.dtype)
     return cache
 
 

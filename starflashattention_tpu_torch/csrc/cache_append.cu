@@ -2,36 +2,53 @@
 //
 // Replaces: starflashattention_tpu/ops/cache_append.py::_append_kernel_kv
 // (entry append_rows_kv); the one-table form _append_kernel_one
-// (append_rows) is the same kernel with the V table left out.
+// (append_rows) is the same kernel with the V table left out; and
+// ::_append_kernel_paged (entry append_rows_paged_kv), the same kernel with
+// the row address read through a page table.
 //
 // Computes table[layer, b, h, pos[b], :] = new[b, h, :] for the K and the V
-// table, in place.
+// table, in place; in paged mode pool[layer, h, page_table[b, pos[b] / ps],
+// pos[b] % ps, :] = new[b, h, :] for the K and the V page pools.
 //
 // Bound: 2 * B * Hkv * D elements read and written (64 KiB at B=16, Hkv=8,
 // D=128, bf16) — far too little to load the memory system, so the kernel is
 // bound by launch latency. Design: one block per (b, kv head) copies its
 // row(s) with 16-byte vector accesses when the row width allows it, and
 // bytes otherwise, so every cache dtype (bf16, fp32, int8, fp8) takes the
-// same code. The TPU kernel's 16/32-row read-modify-write window and its
-// head_dim % 128 check exist only for the TPU's tiled DMAs and are not
-// carried over. The layer is a pointer offset into the (L, B, Hkv, S, D)
-// table. Positions outside [0, S) are skipped (the caller clamps them).
+// same code. The TPU kernels' 16/32-row read-modify-write window
+// (_window_for, _rmw_body) and their head_dim % 128 check exist only for the
+// TPU's tiled DMAs and are not carried over. The layer is a pointer offset
+// into the (L, B, Hkv, S, D) table or the (L, Hkv, P, ps, D) pool; in paged
+// mode the block reads its physical page from the (B, pages_per_seq) table.
+// Positions outside [0, S) (paged: [0, pages_per_seq * ps)) are skipped (the
+// caller clamps them). A table entry of 0 (the null page of an inactive
+// slot) is written like any other page.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+// page_table null: contiguous (L, B, Hkv, S, D) tables. Otherwise paged
+// (L, Hkv, num_pages, page_size, D) pools, S = pages_per_seq * page_size.
 __global__ void append_rows_kernel(char* __restrict__ k_table, char* __restrict__ v_table,
                                    const char* __restrict__ k_new,
                                    const char* __restrict__ v_new,
-                                   const int* __restrict__ pos, long long layer, int B,
-                                   int Hkv, int S, int row_bytes, int vec16) {
+                                   const int* __restrict__ pos,
+                                   const int* __restrict__ page_table, long long layer, int B,
+                                   int Hkv, int S, int num_pages, int page_size,
+                                   int pages_per_seq, int row_bytes, int vec16) {
   const int bh = blockIdx.x;  // b * Hkv + h
-  const int b = bh / Hkv;
+  const int b = bh / Hkv, h = bh % Hkv;
   const int p = pos[b];
   if (p < 0 || p >= S) return;
-  const long long row = ((layer * B + b) * (long long)Hkv + (bh % Hkv)) * S + p;
+  long long row;
+  if (page_table) {
+    const long long page = page_table[(long long)b * pages_per_seq + p / page_size];
+    row = ((layer * Hkv + h) * num_pages + page) * page_size + p % page_size;
+  } else {
+    row = ((layer * B + b) * (long long)Hkv + h) * S + p;
+  }
   char* dst_k = k_table + row * row_bytes;
   const char* src_k = k_new + (long long)bh * row_bytes;
   char* dst_v = v_table ? v_table + row * row_bytes : nullptr;
@@ -50,6 +67,12 @@ __global__ void append_rows_kernel(char* __restrict__ k_table, char* __restrict_
   }
 }
 
+int threads_for(int row_bytes, int vec16) {
+  const int units = vec16 ? row_bytes / 16 : row_bytes;
+  const int threads = units < 128 ? ((units + 31) / 32) * 32 : 128;
+  return threads < 32 ? 32 : threads;
+}
+
 }  // namespace
 
 extern "C" {
@@ -63,13 +86,27 @@ const char* error_string(int e) { return cudaGetErrorString(static_cast<cudaErro
 int append_rows(void* k_table, void* v_table, const void* k_new, const void* v_new,
                 const void* pos, int layer, int B, int Hkv, int S, int row_bytes,
                 int vec16, void* stream) {
-  const int units = vec16 ? row_bytes / 16 : row_bytes;
-  int threads = units < 128 ? ((units + 31) / 32) * 32 : 128;
-  if (threads < 32) threads = 32;
-  append_rows_kernel<<<B * Hkv, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  append_rows_kernel<<<B * Hkv, threads_for(row_bytes, vec16), 0,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<char*>(k_table), static_cast<char*>(v_table),
       static_cast<const char*>(k_new), static_cast<const char*>(v_new),
-      static_cast<const int*>(pos), layer, B, Hkv, S, row_bytes, vec16);
+      static_cast<const int*>(pos), nullptr, layer, B, Hkv, S, 0, 0, 0, row_bytes, vec16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// k_pool/v_pool: (L, Hkv, num_pages, page_size, D) contiguous; k_new/v_new:
+// (B, Hkv, D) contiguous, same dtype; pos: (B,) int32 logical positions;
+// page_table: (B, pages_per_seq) int32 physical page ids, all on the device.
+int append_rows_paged(void* k_pool, void* v_pool, const void* k_new, const void* v_new,
+                      const void* pos, const void* page_table, int layer, int B, int Hkv,
+                      int num_pages, int page_size, int pages_per_seq, int row_bytes,
+                      int vec16, void* stream) {
+  append_rows_kernel<<<B * Hkv, threads_for(row_bytes, vec16), 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<char*>(k_pool), static_cast<char*>(v_pool),
+      static_cast<const char*>(k_new), static_cast<const char*>(v_new),
+      static_cast<const int*>(pos), static_cast<const int*>(page_table), layer, B, Hkv,
+      pages_per_seq * page_size, num_pages, page_size, pages_per_seq, row_bytes, vec16);
   return static_cast<int>(cudaGetLastError());
 }
 

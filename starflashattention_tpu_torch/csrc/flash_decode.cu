@@ -1,9 +1,12 @@
-// Decode attention over a multi-layer contiguous KV cache, for Hopper (sm_90a).
+// Decode attention over a multi-layer contiguous KV cache or a paged KV pool,
+// for Hopper (sm_90a).
 //
 // Replaces: starflashattention_tpu/ops/flash_decode.py::_decode_kernel_fused
 // (single split, entry flash_decode with num_splits = 1) and ::_decode_kernel
-// (split-KV partials, entry flash_decode_with_stats). One kernel, two output
-// modes:
+// (split-KV partials, entry flash_decode_with_stats); and
+// starflashattention_tpu/ops/paged_decode.py::_paged_decode_kernel (entry
+// paged_flash_decode). One kernel, templated on where a KV row lives, with two
+// output modes:
 //  * fused (num_splits == 1): the normalized output in q's dtype, with the
 //    l == 0 -> 1 guard;
 //  * partials: unnormalized o (B, Hq, N, D) fp32 and the natural-log
@@ -14,6 +17,18 @@
 // q: (B, Hq, D); k/v: the (B, Hkv, S, D) table of one layer (the wrapper
 // offsets the pointer into the (L, B, Hkv, S, D) table, so no per-layer copy
 // exists); lengths: (B,) int32. Query head h reads KV head h / G.
+//
+// Paged (PAGED = true, fused mode only): k/v point at one layer's
+// (Hkv, num_pages, page_size, D) slice of the (L, Hkv, P, ps, D) pools, and
+// KV row j of sequence b lives at row j % ps of page page_table[b, j / ps]
+// ((B, pages_per_seq) int32). At the start of each tile, the first 32
+// threads resolve the tile's rows through the table into shared memory, so
+// any page size works (a tile may span pages) and the null page 0 of an
+// unmapped entry is never read below lengths[b]. As the JAX wrapper does, the
+// paged mode folds sm_scale into q and rounds the scaled q to q's dtype
+// before the dot products. The TPU kernel's DMA double buffer (_PageCopies),
+// its pages_per_compute_block grid and its prefetch-chain rule are TPU
+// scheduling and are not carried over.
 //
 // Bound: the K/V bytes read — lengths[b] * Hkv * D * 2 tables * 2 bytes per
 // sequence in bf16, 33.5 MB per layer at B = 16, Hkv = 8, D = 128 and a mean
@@ -42,6 +57,11 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void from_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void from_f(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+// v rounded to T's precision (the tag pointer picks the overload)
+__device__ __forceinline__ float round_to(float v, const float*) { return v; }
+__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(v));
+}
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -69,17 +89,31 @@ size_t smem_bytes(int G) {
          sizeof(float) * ((size_t)2 * G * D + (size_t)G * BK + 3 * (size_t)G);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-    flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_layer,
-                        const T* __restrict__ v_layer, const int* __restrict__ lengths,
-                        T* __restrict__ out, float* __restrict__ o_part,
-                        float* __restrict__ m_part, float* __restrict__ l_part, int Hq, int Hkv,
-                        int S, int num_splits, int split_len, float scale, int fused) {
+template <typename T>
+struct DecodeArgs {
+  const T* q;
+  const T* k;  // one layer: (B, Hkv, S, D) table, or (Hkv, P, ps, D) pool slice
+  const T* v;
+  const int* lengths;
+  const int* page_table;  // paged only: (B, pages_per_seq)
+  T* out;                 // fused mode
+  float* o_part;          // partials mode
+  float* m_part;
+  float* l_part;
+  int Hq, Hkv, S;  // S: table rows, or pages_per_seq * page_size
+  int num_splits, split_len;
+  int pages_per_seq, page_size, num_pages;
+  float scale;
+  int fold_scale;  // 1: q * scale rounded to T before the dots (paged)
+};
+
+template <typename T, int D, bool PAGED>
+__global__ void __launch_bounds__(THREADS) flash_decode_kernel(const DecodeArgs<T> a) {
   using TL = Tile<T, D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ long long row_off[BK];  // paged: element offset of each tile row
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int G = Hq / Hkv;
+  const int G = a.Hq / a.Hkv;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   constexpr int NWARPS = THREADS / 32;
 
@@ -92,25 +126,43 @@ __global__ void __launch_bounds__(THREADS)
   float* l_s = m_s + G;                          // [G]
   float* a_s = l_s + G;                          // [G] rescale factor of this tile
 
-  const size_t head0 = (size_t)b * Hq + (size_t)kvh * G;  // first q head of the group
+  const size_t head0 = (size_t)b * a.Hq + (size_t)kvh * G;  // first q head of the group
   for (int i = tid; i < G * D; i += THREADS) {
-    q_s[i] = to_f(q[head0 * D + i]);
+    const float x = to_f(a.q[head0 * D + i]);
+    q_s[i] = a.fold_scale ? round_to(x * a.scale, a.q) : x;
     acc[i] = 0.f;
   }
+  const float s_scale = a.fold_scale ? 1.f : a.scale;
   for (int g = tid; g < G; g += THREADS) {
     m_s[g] = NEG_INF;
     l_s[g] = 0.f;
   }
   __syncthreads();
 
-  const int len = min(lengths[b], S);
-  const int start = split * split_len;
-  const int end = min(start + split_len, len);
-  const T* kb = k_layer + ((size_t)b * Hkv + kvh) * (size_t)S * D;
-  const T* vb = v_layer + ((size_t)b * Hkv + kvh) * (size_t)S * D;
+  const int len = min(a.lengths[b], a.S);
+  const int start = split * a.split_len;
+  const int end = min(start + a.split_len, len);
+  const T* kb = a.k;
+  const T* vb = a.v;
+  if constexpr (!PAGED) {
+    kb += ((size_t)b * a.Hkv + kvh) * (size_t)a.S * D;
+    vb += ((size_t)b * a.Hkv + kvh) * (size_t)a.S * D;
+  }
 
   for (int j0 = start; j0 < end; j0 += BK) {
     const int nrows = min(BK, end - j0);
+    if constexpr (PAGED) {
+      if (tid < BK) {
+        long long off = 0;
+        if (tid < nrows) {
+          const int j = j0 + tid;
+          const long long page = a.page_table[(size_t)b * a.pages_per_seq + j / a.page_size];
+          off = (((long long)kvh * a.num_pages + page) * a.page_size + j % a.page_size) * D;
+        }
+        row_off[tid] = off;
+      }
+      __syncthreads();
+    }
     // Stage the K and V tiles (rows past nrows are zero-filled so that
     // p = 0 never meets uninitialized memory).
     const uint4* ksrc = reinterpret_cast<const uint4*>(kb + (size_t)j0 * D);
@@ -119,8 +171,13 @@ __global__ void __launch_bounds__(THREADS)
       const int row = (i * TL::VEC) / D, col = (i * TL::VEC) % D;
       uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
       if (row < nrows) {
-        kv = ksrc[i];
-        vv = vsrc[i];
+        if constexpr (PAGED) {
+          kv = *reinterpret_cast<const uint4*>(kb + row_off[row] + col);
+          vv = *reinterpret_cast<const uint4*>(vb + row_off[row] + col);
+        } else {
+          kv = ksrc[i];
+          vv = vsrc[i];
+        }
       }
       uint32_t* kd = reinterpret_cast<uint32_t*>(k_s + row * TL::KS + col);
       kd[0] = kv.x;
@@ -137,10 +194,10 @@ __global__ void __launch_bounds__(THREADS)
       if (j < nrows) {
         const float* qg = q_s + g * D;
         const T* kj = k_s + j * TL::KS;
-        float a = 0.f;
+        float acc_s = 0.f;
 #pragma unroll 16
-        for (int d = 0; d < D; ++d) a += qg[d] * to_f(kj[d]);
-        s = a * scale;
+        for (int d = 0; d < D; ++d) acc_s += qg[d] * to_f(kj[d]);
+        s = acc_s * s_scale;
       }
       s_s[i] = s;
     }
@@ -165,67 +222,69 @@ __global__ void __launch_bounds__(THREADS)
     for (int i = tid; i < G * D; i += THREADS) {
       const int g = i / D, d = i % D;
       const float* pg = s_s + g * BK;
-      float a = acc[i] * a_s[g];
-      for (int j = 0; j < nrows; ++j) a += pg[j] * to_f(v_s[j * D + d]);
-      acc[i] = a;
+      float o = acc[i] * a_s[g];
+      for (int j = 0; j < nrows; ++j) o += pg[j] * to_f(v_s[j * D + d]);
+      acc[i] = o;
     }
     __syncthreads();
   }
 
-  if (fused) {
+  if (a.out != nullptr) {
     for (int i = tid; i < G * D; i += THREADS) {
       const float l = l_s[i / D];
-      from_f(out + head0 * D + i, acc[i] / (l == 0.f ? 1.f : l));
+      from_f(a.out + head0 * D + i, acc[i] / (l == 0.f ? 1.f : l));
     }
   } else {
     for (int i = tid; i < G * D; i += THREADS) {
       const size_t h = head0 + i / D;
-      o_part[(h * num_splits + split) * D + i % D] = acc[i];
+      a.o_part[(h * a.num_splits + split) * D + i % D] = acc[i];
     }
     for (int g = tid; g < G; g += THREADS) {
       const size_t h = head0 + g;
-      m_part[h * num_splits + split] = m_s[g];
-      l_part[h * num_splits + split] = l_s[g];
+      a.m_part[h * a.num_splits + split] = m_s[g];
+      a.l_part[h * a.num_splits + split] = l_s[g];
     }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* lengths, void* out,
-                   void* o_part, void* m_part, void* l_part, int B, int Hq, int Hkv, int S,
-                   int num_splits, int split_len, float scale, cudaStream_t stream) {
-  const int G = Hq / Hkv;
-  const size_t smem = smem_bytes<T, D>(G);
-  auto kernel = flash_decode_kernel<T, D>;
-  if (smem > 48 * 1024) {
+template <typename T, int D, bool PAGED>
+cudaError_t launch(const DecodeArgs<T>& a, int B, cudaStream_t stream) {
+  const size_t smem = smem_bytes<T, D>(a.Hq / a.Hkv);
+  auto kernel = flash_decode_kernel<T, D, PAGED>;
+  if (smem + BK * sizeof(long long) > 48 * 1024) {  // dynamic + the static row_off
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  dim3 grid(num_splits, Hkv, B);
-  kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(lengths), static_cast<T*>(out), static_cast<float*>(o_part),
-      static_cast<float*>(m_part), static_cast<float*>(l_part), Hq, Hkv, S, num_splits,
-      split_len, scale, out != nullptr ? 1 : 0);
+  dim3 grid(a.num_splits, a.Hkv, B);
+  kernel<<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const void* lengths,
-                     void* out, void* o_part, void* m_part, void* l_part, int B, int Hq,
-                     int Hkv, int S, int num_splits, int split_len, float scale,
-                     cudaStream_t stream) {
+template <typename T, bool PAGED>
+cudaError_t launch_d(int D, const DecodeArgs<T>& a, int B, cudaStream_t stream) {
   switch (D) {
     case 64:
-      return launch<T, 64>(q, k, v, lengths, out, o_part, m_part, l_part, B, Hq, Hkv, S,
-                           num_splits, split_len, scale, stream);
+      return launch<T, 64, PAGED>(a, B, stream);
     case 128:
-      return launch<T, 128>(q, k, v, lengths, out, o_part, m_part, l_part, B, Hq, Hkv, S,
-                            num_splits, split_len, scale, stream);
+      return launch<T, 128, PAGED>(a, B, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+template <typename T>
+DecodeArgs<T> make_args(const void* q, const void* k, const void* v, const void* lengths,
+                        const void* page_table, void* out, void* o_part, void* m_part,
+                        void* l_part, int Hq, int Hkv, int S, int num_splits, int split_len,
+                        int pages_per_seq, int page_size, int num_pages, float scale,
+                        int fold_scale) {
+  return DecodeArgs<T>{static_cast<const T*>(q), static_cast<const T*>(k),
+                       static_cast<const T*>(v), static_cast<const int*>(lengths),
+                       static_cast<const int*>(page_table), static_cast<T*>(out),
+                       static_cast<float*>(o_part), static_cast<float*>(m_part),
+                       static_cast<float*>(l_part), Hq, Hkv, S, num_splits, split_len,
+                       pages_per_seq, page_size, num_pages, scale, fold_scale};
 }
 
 }  // namespace
@@ -242,11 +301,40 @@ int flash_decode(const void* q, const void* k, const void* v, const void* length
                  void* o_part, void* m_part, void* l_part, int B, int Hq, int Hkv, int S, int D,
                  int num_splits, int split_len, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = dtype == 1
-                      ? launch_d<__nv_bfloat16>(D, q, k, v, lengths, out, o_part, m_part, l_part,
-                                                B, Hq, Hkv, S, num_splits, split_len, scale, s)
-                      : launch_d<float>(D, q, k, v, lengths, out, o_part, m_part, l_part, B, Hq,
-                                        Hkv, S, num_splits, split_len, scale, s);
+  cudaError_t e =
+      dtype == 1
+          ? launch_d<__nv_bfloat16, false>(
+                D, make_args<__nv_bfloat16>(q, k, v, lengths, nullptr, out, o_part, m_part, l_part,
+                                            Hq, Hkv, S, num_splits, split_len, 0, 1, 0, scale, 0),
+                B, s)
+          : launch_d<float, false>(
+                D, make_args<float>(q, k, v, lengths, nullptr, out, o_part, m_part, l_part, Hq,
+                                    Hkv, S, num_splits, split_len, 0, 1, 0, scale, 0),
+                B, s);
+  return static_cast<int>(e);
+}
+
+// q (B, Hq, D); k, v: one layer's (Hkv, num_pages, page_size, D) slice of
+// the pools; page_table (B, pages_per_seq) int32; lengths (B,) int32;
+// out (B, Hq, D), normalized, rows of length 0 give 0. dtype as above.
+int paged_flash_decode(const void* q, const void* k, const void* v, const void* lengths,
+                       const void* page_table, void* out, int B, int Hq, int Hkv, int num_pages,
+                       int page_size, int pages_per_seq, int D, float scale, int dtype,
+                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int S = pages_per_seq * page_size;
+  cudaError_t e =
+      dtype == 1
+          ? launch_d<__nv_bfloat16, true>(
+                D, make_args<__nv_bfloat16>(q, k, v, lengths, page_table, out, nullptr, nullptr,
+                                            nullptr, Hq, Hkv, S, 1, S, pages_per_seq, page_size,
+                                            num_pages, scale, 1),
+                B, s)
+          : launch_d<float, true>(
+                D, make_args<float>(q, k, v, lengths, page_table, out, nullptr, nullptr, nullptr,
+                                    Hq, Hkv, S, 1, S, pages_per_seq, page_size, num_pages, scale,
+                                    1),
+                B, s);
   return static_cast<int>(e);
 }
 

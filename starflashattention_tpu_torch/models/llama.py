@@ -1,20 +1,24 @@
 """Llama-family GQA transformer, dense-GQA subset — twin of the JAX
 ``models/llama.py``.
 
-Greedy ``generate`` = ``prefill`` + repeated ``decode_step``, with the JAX
+Greedy ``generate`` = ``prefill`` + repeated ``decode_step``; the serving
+engines' entry points ``prefill_serving`` / ``decode_multi`` (contiguous
+cache) and ``prefill_serving_paged`` / ``decode_multi_paged`` (paged
+pools) take per-row ``active`` / ``reset`` masks. All use the JAX
 package's parameter layout: layer weights stacked on a leading (L, ...) axis
 and used as ``x @ w`` (so weights bridge by copy, never by transpose).
 Quantized projections stay stacked and reach ``quant_matmul`` with a layer
 index, so no per-layer copy is made. Layers run in a Python loop (PyTorch
 is eager; the JAX package scans).
 
-The cache is updated IN PLACE: ``prefill`` and ``decode_step`` write the
-new K/V rows into ``cache.k``/``cache.v`` and advance ``cache.lengths``,
-where the JAX package donates the cache to its jitted step and returns a
-new one. Both return the same cache object for call-site parity.
+The cache is updated IN PLACE: every entry point writes the new K/V rows
+into the cache's tensors and advances ``cache.lengths``, where the JAX
+package donates the cache to its jitted step and returns a new one. Each
+returns the same cache object for call-site parity.
 
-On CUDA tensors every projection of a quantized model, the cache append
-and both attentions run on the hand-written kernels of ``ops/``; on CPU
+On CUDA tensors every projection of a quantized model, the cache appends
+(contiguous and paged) and the attentions (prefill, contiguous and paged
+decode) run on the hand-written kernels of ``ops/``; on CPU
 tensors the same code runs their plain versions. Config fields outside
 this slice raise ``NotImplementedError`` (:func:`check_supported`).
 """
@@ -27,11 +31,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from starflashattention_tpu_torch.cache import contiguous
+from starflashattention_tpu_torch.cache import contiguous, paged
 from starflashattention_tpu_torch.core import quant
+from starflashattention_tpu_torch.core import sampling as core_sampling
 from starflashattention_tpu_torch.core.rope import apply_rope, rope_table
 from starflashattention_tpu_torch.ops.flash_decode import flash_decode
 from starflashattention_tpu_torch.ops.flash_prefill import flash_prefill
+from starflashattention_tpu_torch.ops.paged_decode import paged_flash_decode
 from starflashattention_tpu_torch.ops.quant_matmul import quant_matmul
 from starflashattention_tpu_torch.runtime.params import ModelConfig
 from starflashattention_tpu_torch.utils.device import resolve_device
@@ -270,51 +276,38 @@ def _mlp_residual(x, layers, lidx, proj, cfg):
 
 
 # ---------------------------------------------------------------------------
-# Decode step (one token per sequence, whole model)
+# One layer (shared by the contiguous and the paged cache)
 # ---------------------------------------------------------------------------
 
 
-def _decode_layer(x, cache: contiguous.KVCache, lidx: int, layers: Params, cfg: ModelConfig,
-                  cos, sin, pos, att_lengths) -> torch.Tensor:
-    """One decoder layer of the decode step: appends this token's K/V to
-    layer ``lidx`` of the cache in place and returns the new residual."""
+def _rope_positions(pos: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
+    """Positions for the RoPE table lookup, clamped to its last row as the
+    JAX package's gather clamps. Only rows that do not really decode or
+    prefill (the serving engines' idle slots) can reach past it."""
+    return torch.clamp(pos, max=cos.shape[0] - 1)
+
+
+def _decode_layer(x, lidx: int, layers: Params, cfg: ModelConfig, cos, sin, pos,
+                  attend) -> torch.Tensor:
+    """One decoder layer of the decode step; ``attend(lidx, q, k_new,
+    v_new)`` appends this token's K/V to the cache in place and returns the
+    attention output (B, Hq, D)."""
     proj = _make_proj(layers, lidx)
     h = rms_norm(x, layers["attn_norm"][lidx], cfg.rms_norm_eps)
     q, k_new, v_new = _split_heads_decode(_qkv(h, layers, lidx, proj, cfg, x.dtype), cfg)
     q, k_new = _apply_qk_norm(q, k_new, layers, lidx, cfg)
     q = apply_rope(q, pos, cos, sin, style=cfg.rope_style)
     k_new = apply_rope(k_new, pos, cos, sin, style=cfg.rope_style)
-
-    contiguous.append_decode(cache, lidx, k_new, v_new)  # at lengths, clamped below S
-    o = flash_decode(q, cache.k, cache.v, att_lengths, layer=lidx, sm_scale=cfg.sm_scale(),
-                     num_splits=cfg.num_splits, block_k=cfg.block_k)  # (B, Hq, D)
+    o = attend(lidx, q, k_new, v_new)
     x = x + proj(o.reshape(o.shape[0], -1), "wo").to(x.dtype)
     return _mlp_residual(x, layers, lidx, proj, cfg)
 
 
-def decode_step(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor,
-                cos: torch.Tensor, sin: torch.Tensor, cfg: ModelConfig):
-    """One decode step: (B,) token ids -> (B, V) fp32 logits. Writes each
-    layer's new K/V row into ``cache`` and advances ``cache.lengths`` IN
-    PLACE; returns ``(logits, cache)``. Runs on the device of the tensors."""
-    check_supported(cfg)
-    x = _embed_tokens(params, tokens)  # (B, H)
-    pos = cache.lengths.clone()
-    att_lengths = pos + 1
-    layers = params["layers"]
-    for lidx in range(cfg.num_layers):
-        x = _decode_layer(x, cache, lidx, layers, cfg, cos, sin, pos, att_lengths)
-    cache.lengths.copy_(att_lengths)
-    return _logits(x, params, cfg), cache
-
-
-# ---------------------------------------------------------------------------
-# Prefill (prompt chunk, whole model)
-# ---------------------------------------------------------------------------
-
-
-def _prefill_layer(x, cache: contiguous.KVCache, lidx: int, layers: Params, cfg: ModelConfig,
-                   cos, sin, start, pos, kv_lengths) -> torch.Tensor:
+def _prefill_layer(x, lidx: int, layers: Params, cfg: ModelConfig, cos, sin, pos,
+                   attend) -> torch.Tensor:
+    """One decoder layer of the prefill; ``attend(lidx, q, k_new, v_new)``
+    writes the chunk's K/V into the cache in place and returns the attention
+    output (B, Hq, Sq, D)."""
     b, sq = pos.shape
     proj = _make_proj(layers, lidx)
     h = rms_norm(x, layers["attn_norm"][lidx], cfg.rms_norm_eps)
@@ -322,14 +315,111 @@ def _prefill_layer(x, cache: contiguous.KVCache, lidx: int, layers: Params, cfg:
     q, k_new = _apply_qk_norm(q, k_new, layers, lidx, cfg)
     q = apply_rope(q, pos[:, None, :], cos, sin, style=cfg.rope_style)
     k_new = apply_rope(k_new, pos[:, None, :], cos, sin, style=cfg.rope_style)
-
-    contiguous.append_prefill(cache, lidx, k_new, v_new)  # rows [start, start + Sq)
-
-    o = flash_prefill(q, cache.k[lidx], cache.v[lidx], lengths=kv_lengths, causal=True,
-                      q_offsets=start, sm_scale=cfg.sm_scale())  # (B, Hq, Sq, D)
+    o = attend(lidx, q, k_new, v_new)
     o = o.transpose(1, 2).reshape(b, sq, -1)
     x = x + proj(o, "wo").to(x.dtype)
     return _mlp_residual(x, layers, lidx, proj, cfg)
+
+
+def _step_lengths(lengths: torch.Tensor, active: torch.Tensor | None):
+    """(write position, lengths after the step, attended lengths) of one
+    decode step. ``active=False`` rows neither advance nor attend: their
+    stale length would make the kernel walk a dead range, and their output
+    is discarded, so they attend zero rows (JAX llama.py:698-707)."""
+    pos = lengths.clone()
+    if active is None:
+        now = pos + 1
+        return pos, now, now
+    now = pos + active.to(torch.int32)
+    return pos, now, torch.where(active, now, torch.zeros_like(now))
+
+
+def _decode_run(params: Params, tokens: torch.Tensor, pos: torch.Tensor, cos, sin,
+                cfg: ModelConfig, attend) -> torch.Tensor:
+    x = _embed_tokens(params, tokens)  # (B, H)
+    rope_pos = _rope_positions(pos, cos)
+    layers = params["layers"]
+    for lidx in range(cfg.num_layers):
+        x = _decode_layer(x, lidx, layers, cfg, cos, sin, rope_pos, attend)
+    return _logits(x, params, cfg)
+
+
+def _prefill_run(params: Params, tokens: torch.Tensor, new_lengths: torch.Tensor,
+                 start: torch.Tensor, cos, sin, cfg: ModelConfig, attend) -> torch.Tensor:
+    """Every layer over a (B, Sq) chunk at positions ``start[b] + i`` ->
+    (B, V) fp32 logits at each row's last valid token."""
+    b, sq = tokens.shape
+    pos = start[:, None] + torch.arange(sq, device=start.device, dtype=torch.int32)[None, :]
+    rope_pos = _rope_positions(pos, cos)
+    x = _embed_tokens(params, tokens)  # (B, Sq, H)
+    layers = params["layers"]
+    for lidx in range(cfg.num_layers):
+        x = _prefill_layer(x, lidx, layers, cfg, cos, sin, rope_pos, attend)
+    last = torch.clamp(new_lengths - 1, min=0).long()
+    x_last = x[torch.arange(b, device=x.device), last]
+    return _logits(x_last, params, cfg)
+
+
+def _as_mask(mask, device) -> torch.Tensor:
+    return torch.as_tensor(mask).to(device=device, dtype=torch.bool)
+
+
+# ---------------------------------------------------------------------------
+# Decode step (one token per sequence, whole model), contiguous cache
+# ---------------------------------------------------------------------------
+
+
+def decode_step(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor,
+                cos: torch.Tensor, sin: torch.Tensor, cfg: ModelConfig,
+                active: torch.Tensor | None = None):
+    """One decode step: (B,) token ids -> (B, V) fp32 logits. Writes each
+    layer's new K/V row into ``cache`` and advances ``cache.lengths`` IN
+    PLACE; returns ``(logits, cache)``. ``active`` (B,) bool: rows that
+    really decode; the others still write a row at their stale length (past
+    their valid rows) but neither advance nor attend. Runs on the device of
+    the tensors."""
+    check_supported(cfg)
+    if active is not None:
+        active = _as_mask(active, cache.lengths.device)
+    pos, lengths_now, att_lengths = _step_lengths(cache.lengths, active)
+
+    def attend(lidx, q, k_new, v_new):
+        contiguous.append_decode(cache, lidx, k_new, v_new)  # at lengths, clamped below S
+        return flash_decode(q, cache.k, cache.v, att_lengths, layer=lidx, sm_scale=cfg.sm_scale(),
+                            num_splits=cfg.num_splits, block_k=cfg.block_k)
+
+    logits = _decode_run(params, tokens, pos, cos, sin, cfg, attend)
+    cache.lengths.copy_(lengths_now)
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Prefill (prompt chunk, whole model), contiguous cache
+# ---------------------------------------------------------------------------
+
+
+def _prefill_contiguous(params, cache: contiguous.KVCache, tokens, new_lengths, cos, sin,
+                        cfg: ModelConfig, active):
+    check_supported(cfg)
+    b, sq = tokens.shape
+    start = cache.lengths.clone()
+    new_lengths = new_lengths.to(device=start.device, dtype=torch.int32)
+    rows = None
+    if active is not None:
+        active = _as_mask(active, start.device)
+        new_lengths = torch.where(active, new_lengths, torch.zeros_like(new_lengths))
+        rows = active.nonzero().flatten()  # one host sync; busy rows stay untouched
+    contiguous.check_prefill_window(cache, sq, rows)  # before RoPE indexes past its table
+    kv_lengths = start + new_lengths
+
+    def attend(lidx, q, k_new, v_new):
+        contiguous.append_prefill(cache, lidx, k_new, v_new, rows, check=False)
+        return flash_prefill(q, cache.k[lidx], cache.v[lidx], lengths=kv_lengths, causal=True,
+                             q_offsets=start, sm_scale=cfg.sm_scale())  # (B, Hq, Sq, D)
+
+    logits = _prefill_run(params, tokens, new_lengths, start, cos, sin, cfg, attend)
+    cache.lengths.copy_(kv_lengths)
+    return logits, cache
 
 
 def prefill(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor,
@@ -344,21 +434,171 @@ def prefill(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor,
     Raises if ``cache.lengths + Sq`` exceeds the cache: the JAX package's
     ``dynamic_update_slice`` would shift such a window left over valid rows
     instead."""
+    return _prefill_contiguous(params, cache, tokens, new_lengths, cos, sin, cfg, active=None)
+
+
+def prefill_serving(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor,
+                    new_lengths: torch.Tensor, active, reset, cos: torch.Tensor,
+                    sin: torch.Tensor, cfg: ModelConfig):
+    """Masked prefill for admission (JAX llama.py:1182-1229): ``reset``
+    rows restart their cache at length 0 first; ``active`` rows append this
+    chunk's tokens; every other row's cache and length stay exactly as they
+    were. Whole-prompt admission passes reset == active; chunked prefill
+    resets only on a prompt's first chunk. Returns each active row's
+    last-valid-position logits (other rows' logits are meaningless) and the
+    cache, updated IN PLACE. Raises if an active window runs past the
+    cache."""
+    cache.lengths.masked_fill_(_as_mask(reset, cache.lengths.device), 0)
+    return _prefill_contiguous(params, cache, tokens, new_lengths, cos, sin, cfg, active=active)
+
+
+# ---------------------------------------------------------------------------
+# Paged cache: decode step and prefill
+# ---------------------------------------------------------------------------
+
+
+def decode_step_paged(params: Params, cache: paged.PagedKVCache, tokens: torch.Tensor,
+                      cos: torch.Tensor, sin: torch.Tensor, cfg: ModelConfig,
+                      active: torch.Tensor | None = None):
+    """One decode step against the page pools (JAX llama.py:1632-1747): each
+    layer appends through the page table with kernel K8 at
+    ``min(pos, S_logical - 1)`` (``cache.paged.append_decode_paged``) and
+    attends with kernel K7. Inactive rows' table rows point at the null
+    page 0, so their appends land there harmlessly. Updates the pools and
+    ``cache.lengths`` IN PLACE."""
     check_supported(cfg)
+    paged._check_unquantized(cache)
+    if active is not None:
+        active = _as_mask(active, cache.lengths.device)
+    pos, lengths_now, att_lengths = _step_lengths(cache.lengths, active)
+
+    def attend(lidx, q, k_new, v_new):
+        paged.append_decode_paged(cache, lidx, k_new, v_new)  # at lengths, clamped below S
+        return paged_flash_decode(q, cache.k_pages, cache.v_pages, cache.page_table, att_lengths,
+                                  layer=lidx, sm_scale=cfg.sm_scale(),
+                                  pages_per_compute_block=cfg.pages_per_compute_block)
+
+    logits = _decode_run(params, tokens, pos, cos, sin, cfg, attend)
+    cache.lengths.copy_(lengths_now)
+    return logits, cache
+
+
+def prefill_serving_paged(params: Params, cache: paged.PagedKVCache, tokens: torch.Tensor,
+                          new_lengths: torch.Tensor, active, reset, cos: torch.Tensor,
+                          sin: torch.Tensor, cfg: ModelConfig, prefix_len: int = 0):
+    """Paged admission prefill (JAX llama.py:1750-1890, 1973-2020); masks as
+    in :func:`prefill_serving`. Each active row's chunk is scattered into
+    its pages first (inactive rows write nothing). With ``prefix_len == 0``
+    (whole prompts into fresh slots) attention runs on the chunk's own K/V;
+    with ``prefix_len > 0`` (chunked continuation and prefix-cache hits)
+    each row's first ``prefix_len + Sq`` pooled positions are gathered back
+    contiguous, so KV index == absolute position, and attended with
+    ``q_offsets = start``. ``prefix_len`` bounds every active row's start,
+    as the engine quantizes it."""
+    check_supported(cfg)
+    paged._check_unquantized(cache)
+    dev = cache.lengths.device
     b, sq = tokens.shape
-    contiguous.check_prefill_window(cache, sq)  # before RoPE indexes past its table
+    cache.lengths.masked_fill_(_as_mask(reset, dev), 0)
     start = cache.lengths.clone()
-    new_lengths = new_lengths.to(device=start.device, dtype=torch.int32)
-    pos = start[:, None] + torch.arange(sq, device=start.device, dtype=torch.int32)[None, :]
+    active = _as_mask(active, dev)
+    new_lengths = new_lengths.to(device=dev, dtype=torch.int32)
+    new_lengths = torch.where(active, new_lengths, torch.zeros_like(new_lengths))
     kv_lengths = start + new_lengths
-    x = _embed_tokens(params, tokens)  # (B, Sq, H)
-    layers = params["layers"]
-    for lidx in range(cfg.num_layers):
-        x = _prefill_layer(x, cache, lidx, layers, cfg, cos, sin, start, pos, kv_lengths)
+    index = paged.chunk_index(cache.page_table, start, new_lengths, sq, cache.page_size)
+    span = min(prefix_len + sq, cache.pages_per_seq * cache.page_size)
+
+    def attend(lidx, q, k_new, v_new):
+        kv = []
+        for pool, new in ((cache.k_pages, k_new), (cache.v_pages, v_new)):
+            new = new.to(pool.dtype)
+            paged.scatter_prefill_chunk(pool, lidx, new, cache.page_table, start, new_lengths,
+                                        index=index)
+            if prefix_len > 0:
+                new = paged.gather_prefix(pool, lidx, cache.page_table, span).to(q.dtype)
+            kv.append(new)
+        return flash_prefill(q, kv[0], kv[1], lengths=kv_lengths, causal=True, q_offsets=start,
+                             sm_scale=cfg.sm_scale())
+
+    logits = _prefill_run(params, tokens, new_lengths, start, cos, sin, cfg, attend)
     cache.lengths.copy_(kv_lengths)
-    last = torch.clamp(new_lengths - 1, min=0).long()
-    x_last = x[torch.arange(b, device=x.device), last]
-    return _logits(x_last, params, cfg), cache
+    return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Serving decode rounds
+# ---------------------------------------------------------------------------
+
+
+def token_logprob(logits: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+    """log P(tok) under log_softmax(logits) -> (B,) fp32."""
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    return lp.gather(1, tok.long()[:, None])[:, 0]
+
+
+def topk_token_logprobs(logits: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k alternatives per row under the unmodified distribution ->
+    ((B, k) fp32 logprobs, descending; (B, k) int32 token ids)."""
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    v, i = torch.topk(lp, k, dim=-1)
+    return v, i.to(torch.int32)
+
+
+def _decode_rounds(step, tok, cache, n_steps, sampling, with_logprobs, topk_logprobs):
+    """``n_steps`` calls of ``step(tok) -> logits`` with the next token
+    chosen on the device each time: no host sync inside the loop."""
+    toks, lps, tk_v, tk_i = [], [], [], []
+    for _ in range(n_steps):
+        logits = step(tok)
+        if sampling is None:
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        else:
+            # the post-step length IS the new token's absolute position
+            nxt = core_sampling.sample_tokens(logits, sampling, cache.lengths)
+        toks.append(nxt)
+        if with_logprobs:
+            lps.append(token_logprob(logits, nxt))
+        if topk_logprobs:
+            v, i = topk_token_logprobs(logits, topk_logprobs)
+            tk_v.append(v)
+            tk_i.append(i)
+        tok = nxt
+    res = (torch.stack(toks, dim=1), tok, cache)  # (B, n), (B,), cache
+    if with_logprobs:
+        res = res + (torch.stack(lps, dim=1),)  # (B, n)
+    if topk_logprobs:
+        res = res + (torch.stack(tk_v, dim=1), torch.stack(tk_i, dim=1))  # (B, n, K) each
+    return res
+
+
+def decode_multi(params: Params, cache: contiguous.KVCache, tok: torch.Tensor, cos, sin, active,
+                 cfg: ModelConfig, n_steps: int, sampling: dict | None = None,
+                 with_logprobs: bool = False, topk_logprobs: int = 0,
+                 max_len_hint: int | None = None) -> tuple:
+    """``n_steps`` decode steps (JAX llama.py:1071-1179) -> (tokens (B, n)
+    int32, next pending token (B,), cache[, chosen-token logprobs (B, n)]
+    [, top-k logprobs (B, n, K), top-k ids (B, n, K)]), all on the device:
+    the caller reads them back once. ``sampling`` (tensors from
+    ``core.sampling.state_tensors``) switches argmax to per-slot sampling
+    keyed on (seed, position); logprobs are under the unmodified
+    distribution. ``max_len_hint`` sizes the TPU grid and is unused here
+    (the kernels walk each row's own length)."""
+    del max_len_hint
+    active = _as_mask(active, cache.lengths.device)
+    return _decode_rounds(lambda t: decode_step(params, cache, t, cos, sin, cfg, active=active)[0],
+                          tok, cache, n_steps, sampling, with_logprobs, topk_logprobs)
+
+
+def decode_multi_paged(params: Params, cache: paged.PagedKVCache, tok: torch.Tensor, cos, sin,
+                       active, cfg: ModelConfig, n_steps: int, sampling: dict | None = None,
+                       with_logprobs: bool = False, topk_logprobs: int = 0,
+                       max_len_hint: int | None = None) -> tuple:
+    """Paged twin of :func:`decode_multi` (JAX llama.py:1893-1970)."""
+    del max_len_hint
+    active = _as_mask(active, cache.lengths.device)
+    return _decode_rounds(
+        lambda t: decode_step_paged(params, cache, t, cos, sin, cfg, active=active)[0],
+        tok, cache, n_steps, sampling, with_logprobs, topk_logprobs)
 
 
 # ---------------------------------------------------------------------------
@@ -368,8 +608,8 @@ def prefill(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor,
 
 def sample(logits: torch.Tensor) -> torch.Tensor:
     """Greedy sampling -> (B,) int32: the first maximum, as ``jnp.argmax``
-    takes it. Temperature sampling comes with the serving port (ROADMAP
-    Queue 1 item 9)."""
+    takes it. Per-request temperature / top-k / top-p / min-p sampling is
+    ``core.sampling.sample_tokens``, which the serving engines use."""
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 

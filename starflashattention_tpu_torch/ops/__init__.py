@@ -1,3 +1,4 @@
 """Ops with a hand-written Hopper kernel each (sources in ``csrc/``) and a
-plain PyTorch twin: ``cache_append``, ``quant_matmul``, ``flash_decode``,
-``flash_prefill``. A CPU tensor takes the twin, a CUDA tensor the kernel."""
+plain PyTorch twin: ``cache_append`` (contiguous and paged), ``quant_matmul``,
+``flash_decode``, ``paged_decode`` (the paged mode of ``csrc/flash_decode.cu``)
+and ``flash_prefill``. A CPU tensor takes the twin, a CUDA tensor the kernel."""

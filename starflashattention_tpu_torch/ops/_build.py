@@ -88,12 +88,15 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
-        for fn, argtypes in signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
         lib.error_string.argtypes = [ctypes.c_int]
         lib.error_string.restype = ctypes.c_char_p
         _libs[name] = lib
+    # one source may serve several wrapper modules, each naming its entries
+    for fn, argtypes in signatures.items():
+        entry = getattr(lib, fn)
+        if entry.argtypes is None:
+            entry.argtypes = argtypes
+            entry.restype = ctypes.c_int
     return lib
 
 

@@ -1,10 +1,12 @@
 """In-place KV-cache row append — twin of the JAX ``ops/cache_append.py``.
 
 ``append_rows_kv`` writes ``table[layer, b, :, pos[b], :] = new[b]`` for the
-K and the V table in place; ``append_rows`` does the same for one table.
-On CUDA tensors both launch ``csrc/cache_append.cu`` (which replaces the TPU
-kernels ``_append_kernel_kv`` and ``_append_kernel_one``); on CPU tensors
-they run :func:`append_rows_kv_plain`.
+K and the V table in place; ``append_rows`` does the same for one table;
+``append_rows_paged_kv`` writes ``pool[layer, :, page_table[b, pos[b] // ps],
+pos[b] % ps, :] = new[b]`` into the K and V page pools. On CUDA tensors all
+three launch ``csrc/cache_append.cu`` (which replaces the TPU kernels
+``_append_kernel_kv``, ``_append_kernel_one`` and ``_append_kernel_paged``);
+on CPU tensors they run the plain versions below.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ _SIGNATURES = {
     "append_rows": [_build.P, _build.P, _build.P, _build.P, _build.P,
                     _build.I, _build.I, _build.I, _build.I, _build.I,
                     _build.I, _build.P],
+    "append_rows_paged": [_build.P] * 6 + [_build.I] * 8 + [_build.P],
 }
 
 
@@ -103,3 +106,67 @@ def append_rows(table, new, layer, pos):
 
 
 append_rows.launches = 0
+
+
+# ----------------------------------------------------------------- paged pools
+
+
+def append_rows_paged_kv_plain(k_pages, v_pages, k_new, v_new, layer, page_table, pos):
+    """Plain PyTorch version of :func:`append_rows_paged_kv`."""
+    ps = k_pages.shape[3]
+    pos = pos.to(device=k_pages.device, dtype=torch.long)
+    phys = page_table.to(k_pages.device).long()[torch.arange(pos.shape[0], device=pos.device), pos // ps]
+    for pool, new in ((k_pages, k_new), (v_pages, v_new)):
+        # (B, Hkv, D) rows -> the (Hkv, B, D) block the page/slot indices address
+        pool[int(layer)][:, phys, pos % ps] = new.transpose(0, 1).to(pool.dtype)
+    return k_pages, v_pages
+
+
+def append_rows_paged_kv(
+    k_pages: torch.Tensor,  # (L, Hkv, P, page_size, D)
+    v_pages: torch.Tensor,
+    k_new: torch.Tensor,  # (B, Hkv, D), same dtype as the pools
+    v_new: torch.Tensor,
+    layer: int,
+    page_table: torch.Tensor,  # (B, pages_per_seq) int32
+    pos: torch.Tensor,  # (B,) int32 logical position; the caller clamps it below pages_per_seq * ps
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``pool[layer, :, page_table[b, pos[b] // ps], pos[b] % ps, :] =
+    new[b]`` for both pools, IN PLACE (kernel K8). A row whose table entry
+    is the null page 0 writes there, harmlessly. Returns the (same) pools."""
+    if k_pages.device.type == "cpu":
+        return append_rows_paged_kv_plain(k_pages, v_pages, k_new, v_new, layer, page_table, pos)
+    if k_pages.device.type != "cuda":
+        raise ValueError(f"append_rows_paged_kv: unsupported device {k_pages.device}")
+    l, hkv, num_pages, ps, d = k_pages.shape
+    b = k_new.shape[0]
+    if v_pages.shape != k_pages.shape or not (k_pages.is_contiguous() and v_pages.is_contiguous()):
+        raise ValueError("K and V pools must be contiguous and of one shape")
+    for new, pool in ((k_new, k_pages), (v_new, v_pages)):
+        if new.shape != (b, hkv, d) or new.dtype != pool.dtype:
+            raise ValueError(f"new rows {tuple(new.shape)} {new.dtype} do not match pool "
+                             f"{tuple(pool.shape)} {pool.dtype}")
+    if page_table.dim() != 2 or page_table.shape[0] != b or pos.shape != (b,):
+        raise ValueError(f"page_table {tuple(page_table.shape)} / pos {tuple(pos.shape)} "
+                         f"do not match {b} rows")
+    if not 0 <= int(layer) < l:
+        raise ValueError(f"layer {layer} out of range for {l} layers")
+    k_new, v_new = k_new.contiguous(), v_new.contiguous()
+    pos = pos.to(device=k_pages.device, dtype=torch.int32).contiguous()
+    table = page_table.to(device=k_pages.device, dtype=torch.int32).contiguous()
+    row_bytes = d * k_pages.element_size()
+    tensors = (k_pages, v_pages, k_new, v_new)
+    vec16 = int(row_bytes % 16 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+    lib = _build.load("cache_append", _SIGNATURES)
+    with torch.cuda.device(k_pages.device):
+        err = lib.append_rows_paged(
+            _build.ptr(k_pages), _build.ptr(v_pages), _build.ptr(k_new), _build.ptr(v_new),
+            _build.ptr(pos), _build.ptr(table), int(layer), b, hkv, num_pages, ps,
+            table.shape[1], row_bytes, vec16, _build.stream_ptr(k_pages.device),
+        )
+    _build.check(lib, err, "append_rows_paged")
+    append_rows_paged_kv.launches += 1
+    return k_pages, v_pages
+
+
+append_rows_paged_kv.launches = 0

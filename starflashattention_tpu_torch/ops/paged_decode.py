@@ -1,0 +1,148 @@
+"""Paged flash decode — twin of the JAX ``ops/paged_decode.py``.
+
+``paged_flash_decode`` attends one query token per sequence against the
+first ``lengths[b]`` positions of its sequence, read from the
+(L, Hkv, P, page_size, D) page pools through the (B, pages_per_seq) page
+table. On CUDA tensors it launches the paged mode of
+``csrc/flash_decode.cu`` (which replaces the TPU kernel
+``_paged_decode_kernel``): the same tile loop and online softmax as the
+contiguous decode (K1), with each KV row's address resolved through the
+table. On CPU tensors it runs :func:`paged_flash_decode_plain`.
+
+As the JAX wrapper does, ``sm_scale`` is folded into q and the scaled q is
+rounded to q's dtype before the dot products. A row of length 0 gives
+exactly 0 (the JAX kernel also gives 0 there). Options this slice does not
+port (sliding window, sinks, softcap, a traced window, int8/fp8 pages)
+raise ``NotImplementedError``; ``pages_per_compute_block`` and
+``max_len_hint`` size the TPU grid and are accepted and unused (each block
+walks its own row's length).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from starflashattention_tpu_torch.core.reference import NEG_INF, repeat_kv
+from starflashattention_tpu_torch.ops import _build
+
+_SIGNATURES = {
+    "paged_flash_decode": [_build.P] * 6 + [_build.I] * 7 + [_build.F, _build.I, _build.P],
+}
+_CUDA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _reject_unported(window, sinks, softcap, k_scales, v_scales):
+    if window is not None or sinks:
+        raise NotImplementedError(
+            "sliding-window / sink paged decode is not ported yet (ROADMAP Queue 2, K7 options)")
+    if softcap is not None:
+        raise NotImplementedError(
+            "attention softcap in paged decode is not ported yet (ROADMAP Queue 2, K7 options)")
+    if k_scales is not None or v_scales is not None:
+        raise NotImplementedError(
+            "int8/fp8 KV pages are not ported yet (ROADMAP Queue 2, K7 options)")
+
+
+def _as_stack(k_pages, v_pages, layer):
+    """(Hkv, P, ps, D) pools become a one-layer stack at layer 0."""
+    if k_pages.dim() == 4:
+        return k_pages[None], v_pages[None], 0
+    if layer is None:
+        raise ValueError("layer index required for a stacked (L, ...) page pool")
+    return k_pages, v_pages, int(layer)
+
+
+def _scaled_q(q, sm_scale):
+    d = q.shape[-1]
+    scale = 1.0 / d**0.5 if sm_scale is None else float(sm_scale)
+    return (q.float() * scale).to(q.dtype)
+
+
+def paged_flash_decode_plain(q, k_pages, v_pages, page_table, lengths, *, layer=None,
+                             sm_scale=None):
+    """Plain PyTorch version: gather each sequence's pages into a dense
+    (B, Hkv, S, D) copy and run a masked fp32 softmax -> (B, Hq, D) in q's
+    dtype."""
+    k_pages, v_pages, layer = _as_stack(k_pages, v_pages, layer)
+    b, hq, d = q.shape
+    _, hkv, _, ps, _ = k_pages.shape
+    table = page_table.to(q.device).long()
+    s = table.shape[1] * ps
+
+    def dense(pool):  # (Hkv, B, pages_per_seq, ps, D) -> (B, Hkv, S, D)
+        return pool[layer][:, table].permute(1, 0, 2, 3, 4).reshape(b, hkv, s, d)
+
+    k = repeat_kv(dense(k_pages), hq // hkv).float()
+    v = repeat_kv(dense(v_pages), hq // hkv).float()
+    scores = torch.einsum("bhd,bhkd->bhk", _scaled_q(q, sm_scale).float(), k)
+    mask = torch.arange(s, device=q.device)[None, None, :] < lengths.to(q.device)[:, None, None]
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True)) * mask
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhk,bhkd->bhd", p, v) / torch.where(l == 0, torch.ones_like(l), l)
+    return o.to(q.dtype)
+
+
+def paged_flash_decode(
+    q: torch.Tensor,  # (B, Hq, D)
+    k_pages: torch.Tensor,  # (Hkv, P, ps, D) or (L, Hkv, P, ps, D) with `layer`
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,  # (B, pages_per_seq) int32
+    lengths: torch.Tensor,  # (B,) int32
+    *,
+    layer: int | None = None,
+    sm_scale: float | None = None,
+    pages_per_compute_block: int = 4,
+    k_scales=None,
+    v_scales=None,
+    max_len_hint: int | None = None,
+    window=None,
+    sinks: int = 0,
+    softcap: float | None = None,
+) -> torch.Tensor:
+    """Paged decode attention -> (B, Hq, D) in q's dtype (kernel K7). Each
+    launch counts once in ``paged_flash_decode.launches``."""
+    _reject_unported(window, sinks, softcap, k_scales, v_scales)
+    del pages_per_compute_block, max_len_hint  # TPU grid sizing; see the module doc
+    if q.device.type == "cpu":
+        return paged_flash_decode_plain(q, k_pages, v_pages, page_table, lengths, layer=layer,
+                                        sm_scale=sm_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_flash_decode: unsupported device {q.device}")
+    k_pages, v_pages, layer = _as_stack(k_pages, v_pages, layer)
+    l_, hkv, num_pages, ps, d = k_pages.shape
+    b, hq, _ = q.shape
+    if q.shape != (b, hq, d) or hq % hkv:
+        raise ValueError(f"q {tuple(q.shape)} does not match pools {tuple(k_pages.shape)}")
+    if q.dtype not in _CUDA_DTYPES or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise ValueError(f"the CUDA kernel takes q and pools both fp32 or bf16, got "
+                         f"{q.dtype} / {k_pages.dtype}")
+    if d not in (64, 128):
+        raise ValueError(f"the CUDA kernel takes head_dim 64 or 128, got {d}")
+    if v_pages.shape != k_pages.shape or not (k_pages.is_contiguous() and v_pages.is_contiguous()):
+        raise ValueError("K and V pools must be contiguous and of one shape")
+    if page_table.dim() != 2 or page_table.shape[0] != b or lengths.shape != (b,):
+        raise ValueError(f"page_table {tuple(page_table.shape)} / lengths {tuple(lengths.shape)} "
+                         f"do not match {b} rows")
+    if not 0 <= layer < l_:
+        raise ValueError(f"layer {layer} out of range for {l_} layers")
+    q = q.contiguous()
+    lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
+    layer_bytes = hkv * num_pages * ps * d * k_pages.element_size()
+    out = torch.empty_like(q)
+    scale = 1.0 / d**0.5 if sm_scale is None else float(sm_scale)
+    lib = _build.load("flash_decode", _SIGNATURES)
+    with torch.cuda.device(q.device):
+        err = lib.paged_flash_decode(
+            _build.ptr(q), _build.P(k_pages.data_ptr() + layer * layer_bytes),
+            _build.P(v_pages.data_ptr() + layer * layer_bytes), _build.ptr(lengths),
+            _build.ptr(table), _build.ptr(out), b, hq, hkv, num_pages, ps, table.shape[1], d,
+            scale, _CUDA_DTYPES[q.dtype], _build.stream_ptr(q.device),
+        )
+    _build.check(lib, err, "paged_flash_decode")
+    paged_flash_decode.launches += 1
+    return out
+
+
+paged_flash_decode.launches = 0

@@ -1,0 +1,751 @@
+"""Continuous-batching engines: contiguous-cache and paged-cache serving —
+twin of the JAX ``serving/engine.py``.
+
+Loop shape (host): admit -> masked (or chunked) prefill of new slots -> one
+fixed-size decode round of ``steps_per_round`` steps with the tokens kept
+on the device -> ONE readback -> record / retire -> repeat.
+
+- :class:`Engine`: contiguous per-slot KV windows (``cache/contiguous.py``).
+- :class:`PagedEngine`: paged pools + per-sequence page tables
+  (``cache/paged.py``). Pages are allocated at admission, grown ahead of
+  each decode round and freed at retirement; under pool exhaustion the
+  youngest running request is PREEMPTED (pages freed, request requeued) and
+  later resumes by re-prefilling ``prompt + output`` (greedy decoding is
+  deterministic, and sampled draws are keyed on (seed, position)). With
+  ``prefix_cache=True`` full prompt pages are shared between requests
+  (``serving/prefix_cache.py``). The allocator is the C++ page pool
+  (``utils/native.py``) when it builds, else its Python twin.
+
+Both record serving metrics (TTFT, decode throughput, rounds, preemptions)
+in :class:`EngineStats`.
+
+Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
+item: ``mesh`` (multi-GPU, Queue 1 item 16), ``spec_decode`` /
+``draft_model`` (item 12), ``lora_adapters`` / request adapters (item 14),
+``run_resilient`` / ``recover_device_state`` (item 17). The sliding-window
+page reclamation and sink pages of the JAX ``PagedEngine`` wait with K7's
+window option: ``check_supported`` refuses sliding-window configs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from starflashattention_tpu_torch.cache import contiguous, paged
+from starflashattention_tpu_torch.core import sampling as core_sampling
+from starflashattention_tpu_torch.models import llama
+from starflashattention_tpu_torch.runtime.params import ModelConfig
+from starflashattention_tpu_torch.serving.scheduler import Request, Scheduler
+from starflashattention_tpu_torch.utils.device import resolve_device
+
+
+@dataclasses.dataclass
+class EngineStats:
+    """Serving counters (host-side, updated once per round — not hot-path)."""
+
+    ttfts_s: list[float] = dataclasses.field(default_factory=list)
+    decode_tokens: int = 0
+    decode_seconds: float = 0.0
+    prefill_rounds: int = 0
+    decode_rounds: int = 0
+    preemptions: int = 0
+    finished: int = 0
+    # prefix cache (paged engine, serving/prefix_cache.py)
+    prefix_hits: int = 0
+    prefix_tokens_reused: int = 0
+
+    def p50_ttft_ms(self) -> float:
+        return float(np.median(self.ttfts_s) * 1e3) if self.ttfts_s else 0.0
+
+    def mean_ttft_ms(self) -> float:
+        return float(np.mean(self.ttfts_s) * 1e3) if self.ttfts_s else 0.0
+
+    def decode_tokens_per_s(self) -> float:
+        return self.decode_tokens / self.decode_seconds if self.decode_seconds else 0.0
+
+    def summary(self) -> dict:
+        return {
+            "p50_ttft_ms": round(self.p50_ttft_ms(), 2),
+            "mean_ttft_ms": round(self.mean_ttft_ms(), 2),
+            "decode_tokens_per_s": round(self.decode_tokens_per_s(), 1),
+            "decode_tokens": self.decode_tokens,
+            "prefill_rounds": self.prefill_rounds,
+            "decode_rounds": self.decode_rounds,
+            "preemptions": self.preemptions,
+            "finished": self.finished,
+            "prefix_hits": self.prefix_hits,
+            "prefix_tokens_reused": self.prefix_tokens_reused,
+        }
+
+
+def _unported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+
+
+class Engine:
+    """Contiguous-cache continuous-batching engine on ``device`` (default
+    ``cuda``; ``params`` must already live there)."""
+
+    def __init__(
+        self,
+        params,
+        cfg: ModelConfig,
+        num_slots: int = 8,
+        steps_per_round: int = 8,
+        prefill_pad: int = 64,
+        prefill_chunk: int | None = None,
+        mesh=None,
+        enable_sampling: bool = False,
+        return_logprobs: bool = False,
+        spec_decode: int | None = None,
+        draft_model: tuple | None = None,
+        debug_validate: bool = False,
+        lora_adapters: list | None = None,
+        topk_logprobs: int = 0,
+        device: torch.device | str | None = None,
+    ):
+        if mesh is not None:
+            raise _unported("sharded serving (mesh)", "16")
+        if spec_decode is not None or draft_model is not None:
+            raise _unported("speculative decoding (spec_decode, draft_model)", "12")
+        if lora_adapters is not None:
+            raise _unported("multi-LoRA serving (lora_adapters)", "14")
+        llama.check_supported(cfg)
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params live on {params['embed'].device}, the engine runs on "
+                             f"{self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.num_slots = num_slots
+        self.steps_per_round = steps_per_round
+        self.prefill_pad = prefill_pad
+        # Chunked prefill: admitted prompts are ingested in fixed
+        # (num_slots, prefill_chunk) slices, so a long prompt cannot
+        # monopolize a round. Output-identical to whole-prompt prefill.
+        self.prefill_chunk = prefill_chunk
+        self.enable_sampling = enable_sampling
+        self._slot_sampling = [core_sampling.GREEDY] * num_slots
+        self.return_logprobs = return_logprobs
+        self._last_logprobs = None  # (B, n) host array of the latest round
+        self.topk_logprobs = int(topk_logprobs)
+        self._last_topk = None  # ((B, n, K) f32, (B, n, K) i32) host arrays
+        self.debug_validate = debug_validate
+        # Rounds are fixed-size; the slack reserves cache room for the final
+        # round's discarded overshoot tokens.
+        self.sched = Scheduler(num_slots, cfg.max_seq_len, capacity_slack=steps_per_round - 1)
+        self.cos, self.sin = llama.rope_tables(cfg, device=self.device)
+        self.pending_tok = torch.zeros((num_slots,), dtype=torch.int32, device=self.device)
+        self.stats = EngineStats()
+        self._submit_time: dict[int, float] = {}
+        self._first_token_seen: set[int] = set()
+        # Host mirror of each live slot's cache length (set at admission,
+        # advanced per round): feeds _round_len_hint.
+        self._slot_len = np.zeros((num_slots,), np.int64)
+        self.cache = self._init_cache()
+
+    # -- cache-backend hooks (overridden by PagedEngine) ----------------------
+
+    def _init_cache(self):
+        hkv, d = self.cfg.kv_cache_dims()
+        return contiguous.init_cache(
+            self.cfg.num_layers, self.num_slots, hkv, self.cfg.max_seq_len, d,
+            dtype=llama.torch_dtype(self.cfg.dtype), device=self.device,
+        )
+
+    def _prepare_admit(self, admitted: list[tuple[int, Request]]) -> list[tuple[int, Request]]:
+        """Reserve backend capacity for admitted requests; may trim the list
+        (rejected entries must be returned to the scheduler by the override)."""
+        return admitted
+
+    def _admission_offsets(self, texts) -> np.ndarray:
+        """Per-slot count of tokens ALREADY in the cache for each admitted
+        text (prefix-cache hits, paged backend). Base engine: always 0."""
+        return np.zeros((self.num_slots,), np.int32)
+
+    def _after_prefill(self, texts) -> None:
+        """Backend hook: admitted prompts are fully ingested."""
+
+    def _before_decode(self, active: np.ndarray) -> np.ndarray:
+        """Ensure backend capacity for one decode round; returns the possibly
+        reduced active mask (the paged backend may preempt)."""
+        return active
+
+    def _on_retired(self, slot: int) -> None:
+        """Backend hook: release per-slot resources."""
+
+    def _prefill_call(self, toks, new_lengths, admit_mask, reset_mask, prefix_len=0):
+        # the contiguous prefill attends the whole cache table; prefix_len
+        # matters to the paged backend only
+        logits, self.cache = llama.prefill_serving(
+            self.params, self.cache, toks, new_lengths, admit_mask, reset_mask,
+            self.cos, self.sin, self.cfg,
+        )
+        return logits
+
+    def _decode_call(self, active, n, max_len_hint=None):
+        out = llama.decode_multi(
+            self.params, self.cache, self.pending_tok, self.cos, self.sin, active, self.cfg, n,
+            sampling=self._sampling_state(), with_logprobs=self.return_logprobs,
+            topk_logprobs=self.topk_logprobs, max_len_hint=max_len_hint,
+        )
+        return self._unpack_decode(out)
+
+    _HINT_QUANTUM = 512
+
+    def _round_len_hint(self, active: np.ndarray, n: int) -> int | None:
+        """Bound on every active slot's cache length at the END of an n-step
+        round, quantized to ``_HINT_QUANTUM``; None when the whole cache is
+        needed anyway. The port's kernels walk each row's own length, so
+        the hint is passed along and unused."""
+        if not active.any():
+            return None
+        mx = int(self._slot_len[active].max()) + n + 1
+        q = self._HINT_QUANTUM
+        bucket = -(-mx // q) * q
+        return bucket if bucket < self.cfg.max_seq_len else None
+
+    def _unpack_decode(self, out):
+        """Split decode_multi's outputs; the round's ONE readback happens
+        here (tokens, and logprobs when asked for)."""
+        toks, self.pending_tok, self.cache = out[:3]
+        host = [t.cpu().numpy() for t in (toks,) + tuple(out[3:])]
+        toks, rest = host[0], host[1:]
+        self._last_logprobs = rest.pop(0) if self.return_logprobs else None
+        self._last_topk = (rest[0], rest[1]) if self.topk_logprobs else None
+        return toks
+
+    # -- sampling -------------------------------------------------------------
+
+    def _sampling_state(self) -> dict | None:
+        """Per-slot sampling tensors, or None for the greedy (argmax) path."""
+        if not self.enable_sampling:
+            return None
+        return core_sampling.state_tensors(self._slot_sampling, self.device)
+
+    def _first_logprobs(self, logits, first) -> np.ndarray | None:
+        if not self.return_logprobs:
+            return None
+        return llama.token_logprob(logits, first).cpu().numpy()
+
+    def _first_topk(self, logits):
+        if not self.topk_logprobs:
+            return None
+        v, i = llama.topk_token_logprobs(logits, self.topk_logprobs)
+        return v.cpu().numpy(), i.cpu().numpy()
+
+    def _first_tokens(self, logits, positions: np.ndarray) -> torch.Tensor:
+        """Token choice on prefill logits; ``positions`` is each slot's
+        post-prefill length (= the drawn token's absolute position, the same
+        key the decode loop uses, so trajectories replay exactly)."""
+        state = self._sampling_state()
+        if state is None:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        return core_sampling.sample_tokens(logits, state,
+                                           torch.from_numpy(positions).to(self.device))
+
+    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(arr).to(self.device)
+
+    # -- one scheduling round -------------------------------------------------
+
+    def _record(self, slot: int, tokens: list[int], logprobs=None, topk=None) -> None:
+        req = self.sched.slots[slot].request
+        uid = req.uid if req is not None else None
+        before = len(req.output) if req is not None else 0
+        if self.sched.record_tokens(slot, tokens):
+            self.stats.finished += 1
+            self._on_retired(slot)
+        if req is not None and logprobs is not None:
+            # keep the logprob list aligned with the tokens record_tokens kept
+            # (a stop match may make the net change negative: nothing to add)
+            kept = len(req.output) - before
+            if kept > 0:
+                req.logprobs.extend(float(lp) for lp in logprobs[:kept])
+        if req is not None and topk is not None:
+            kept = len(req.output) - before
+            if kept > 0:
+                vals, ids = topk
+                req.topk.extend(
+                    ([int(t) for t in ids[j]], [float(v) for v in vals[j]])
+                    for j in range(min(kept, len(ids)))
+                )
+        if uid is not None and uid not in self._first_token_seen:
+            self._first_token_seen.add(uid)
+            t0 = self._submit_time.get(uid)
+            if t0 is not None:
+                self.stats.ttfts_s.append(time.time() - t0)
+
+    def _validate_prefill(self, logits, admit_mask, where: str) -> None:
+        if self.debug_validate:
+            from starflashattention_tpu_torch.utils import sanitize
+
+            # only admitted rows: an inactive slot's row owes no numeric contract
+            rows = self._to_device(np.nonzero(admit_mask)[0])
+            sanitize.check_finite({"prefill_logits": logits[rows]}, where)
+
+    def _take_first_tokens(self, logits, texts, slots) -> None:
+        """Choose, store as pending and record the first token of every
+        slot in ``slots`` from these prefill logits (one readback)."""
+        positions = np.zeros((self.num_slots,), np.int32)
+        for slot, _req, text in texts:
+            positions[slot] = len(text)
+        first = self._first_tokens(logits, positions)
+        mask = np.zeros((self.num_slots,), bool)
+        mask[slots] = True
+        self.pending_tok = torch.where(self._to_device(mask), first, self.pending_tok)
+        first_host = first.cpu().numpy()
+        first_lp = self._first_logprobs(logits, first)
+        first_tk = self._first_topk(logits)
+        for slot in slots:
+            self._record(
+                slot, [int(first_host[slot])],
+                logprobs=None if first_lp is None else [first_lp[slot]],
+                topk=None if first_tk is None else (first_tk[0][slot][None], first_tk[1][slot][None]),
+            )
+
+    def _admit_and_prefill(self) -> None:
+        admitted = self._prepare_admit(self.sched.admit())
+        if not admitted:
+            return
+        for slot, req in admitted:
+            if req.adapter is not None:
+                raise _unported(f"request {req.uid}: LoRA adapters", "14")
+            self._slot_sampling[slot] = req.sampling
+        # A re-admitted (preempted) request prefills prompt + generated-so-far.
+        texts = [(slot, r, r.prompt + r.output) for slot, r in admitted]
+        for slot, _r, text in texts:
+            self._slot_len[slot] = len(text)  # post-prefill cache length
+        # offs[slot] tokens are already cached (prefix-cache hits): those
+        # slots prefill only their SUFFIX and keep their (pre-set) length;
+        # the prefix bound covers the largest offset, quantized to the pad
+        # grid as the JAX engine quantizes its static shapes.
+        offs = self._admission_offsets(texts)
+        if self.prefill_chunk is not None:
+            self._prefill_chunked(texts, offs)
+            return
+        pad = max(len(t) - offs[slot] for slot, _, t in texts)
+        pad = -(-pad // self.prefill_pad) * self.prefill_pad
+        toks = np.zeros((self.num_slots, pad), np.int32)
+        new_lengths = np.zeros((self.num_slots,), np.int32)
+        admit_mask = np.zeros((self.num_slots,), bool)
+        reset_mask = np.zeros((self.num_slots,), bool)
+        for slot, _req, text in texts:
+            suffix = text[int(offs[slot]):]
+            toks[slot, : len(suffix)] = suffix
+            new_lengths[slot] = len(suffix)
+            admit_mask[slot] = True
+            reset_mask[slot] = offs[slot] == 0
+        max_off = int(offs.max()) if len(texts) else 0
+        prefix_bound = -(-max_off // self.prefill_pad) * self.prefill_pad
+        logits = self._prefill_call(
+            self._to_device(toks), self._to_device(new_lengths), self._to_device(admit_mask),
+            self._to_device(reset_mask), prefix_len=prefix_bound,
+        )
+        self._validate_prefill(logits, admit_mask, "prefill")
+        self.stats.prefill_rounds += 1
+        self._after_prefill(texts)
+        self._take_first_tokens(logits, texts, [slot for slot, _, _ in texts])
+
+    def _prefill_chunked(self, texts, offs) -> None:
+        """Ingest admitted prompts in fixed-width chunks. A slot goes inactive
+        once its prompt is exhausted; its first token comes from the chunk
+        that consumed its last prompt token. ``offs[slot]`` tokens are already
+        cached; the prefix bound of each call covers the deepest row
+        position, quantized to the chunk grid."""
+        chunk = self.prefill_chunk
+        longest = max(len(t) - offs[slot] for slot, _, t in texts)
+        max_off = max(int(offs[slot]) for slot, _, t in texts)
+        for lo in range(0, longest, chunk):
+            toks = np.zeros((self.num_slots, chunk), np.int32)
+            new_lengths = np.zeros((self.num_slots,), np.int32)
+            admit_mask = np.zeros((self.num_slots,), bool)
+            reset_mask = np.zeros((self.num_slots,), bool)
+            finishing = []
+            for slot, _req, text in texts:
+                suffix = text[int(offs[slot]):]
+                if lo >= len(suffix):
+                    continue
+                n = min(chunk, len(suffix) - lo)
+                toks[slot, :n] = suffix[lo : lo + n]
+                new_lengths[slot] = n
+                admit_mask[slot] = True
+                reset_mask[slot] = lo == 0 and offs[slot] == 0
+                if lo + n == len(suffix):
+                    finishing.append(slot)
+            prefix_bound = -(-(max_off + lo) // chunk) * chunk if (max_off or lo) else 0
+            logits = self._prefill_call(
+                self._to_device(toks), self._to_device(new_lengths),
+                self._to_device(admit_mask), self._to_device(reset_mask),
+                prefix_len=prefix_bound,
+            )
+            self._validate_prefill(logits, admit_mask, f"prefill_chunk@{lo}")
+            self.stats.prefill_rounds += 1
+            if lo + chunk >= longest:
+                self._after_prefill(texts)
+            if finishing:
+                self._take_first_tokens(logits, texts, finishing)
+
+    def _decode_round(self) -> None:
+        active = np.asarray(self.sched.active_mask())
+        if not active.any():
+            return
+        active = self._before_decode(active)
+        if not active.any():
+            return
+        n = self.steps_per_round
+        t0 = time.time()
+        hint = self._round_len_hint(active, n)
+        toks_host = self._decode_call(self._to_device(active), n, max_len_hint=hint)
+        self.stats.decode_seconds += time.time() - t0
+        self._slot_len[active] += n
+        self.stats.decode_rounds += 1
+        self.stats.decode_tokens += int(active.sum()) * n
+        for i in range(self.num_slots):
+            if active[i]:
+                # record_tokens caps at the slot's budget; the final round's
+                # overshoot is discarded (its appends sit in the reserved slack)
+                self._record(
+                    i, [int(t) for t in toks_host[i]],
+                    logprobs=None if self._last_logprobs is None else self._last_logprobs[i],
+                    topk=None if self._last_topk is None
+                    else (self._last_topk[0][i], self._last_topk[1][i]),
+                )
+
+    # -- failure recovery -------------------------------------------------------
+
+    def recover_device_state(self) -> None:
+        raise _unported("failure recovery (recover_device_state)", "17")
+
+    def run_resilient(self, **kwargs) -> int:
+        raise _unported("failure recovery (run_resilient)", "17")
+
+    # -- public API -----------------------------------------------------------
+
+    def reset_stats(self) -> None:
+        """Zero the counters (e.g. after a warm-up pass)."""
+        self.stats = EngineStats()
+        self._submit_time.clear()
+        self._first_token_seen.clear()
+
+    def submit(self, req: Request) -> None:
+        if not req.sampling.is_greedy and not self.enable_sampling:
+            raise ValueError(
+                f"request {req.uid} asks for sampling "
+                f"(temperature={req.sampling.temperature}) but the engine was "
+                "built with enable_sampling=False (greedy only)")
+        self.sched.submit(req)
+        self._submit_time[req.uid] = time.time()
+
+    def run(self) -> None:
+        """Drive until all submitted requests complete."""
+        while self.sched.has_work:
+            self._admit_and_prefill()
+            self._decode_round()
+
+    def generate(
+        self, prompts: list[list[int]], max_new_tokens: int, eos_token=None,
+        sampling: core_sampling.SamplingParams | list | None = None,
+        stop: list[list[int]] | None = None,
+        on_token=None,
+        adapters: list | None = None,
+    ):
+        """Submit + run + collect outputs in order. ``sampling`` is one
+        SamplingParams for all prompts or a per-prompt list; ``stop``
+        sequences apply to every prompt (matched tokens are truncated);
+        ``on_token(request, token)`` streams tokens as they are recorded."""
+        if adapters is not None and any(a is not None for a in adapters):
+            raise _unported("multi-LoRA serving (adapters)", "14")
+        if sampling is None:
+            samp = [core_sampling.GREEDY] * len(prompts)
+        elif isinstance(sampling, core_sampling.SamplingParams):
+            samp = [sampling] * len(prompts)
+        else:
+            samp = list(sampling)
+        if len(samp) != len(prompts):
+            raise ValueError(f"sampling has {len(samp)} entries for {len(prompts)} prompts")
+        reqs = [
+            Request(uid=i, prompt=list(p), max_new_tokens=max_new_tokens, eos_token=eos_token,
+                    sampling=s, stop=stop, on_token=on_token)
+            for i, (p, s) in enumerate(zip(prompts, samp))
+        ]
+        for r in reqs:
+            self.submit(r)
+        self.run()
+        return [r.output for r in reqs]
+
+
+class PagedEngine(Engine):
+    """Paged-KV continuous-batching engine: decode reads pages through the
+    page table with kernel K7 and appends through it with kernel K8;
+    physical pages come from a per-sequence allocator, the C++ page pool
+    when it builds (``native=None``, the default, or ``native=True``, which
+    raises if it cannot) else ``cache.paged.SeqPagePool``."""
+
+    def __init__(
+        self,
+        params,
+        cfg: ModelConfig,
+        num_slots: int = 8,
+        steps_per_round: int = 8,
+        prefill_pad: int = 64,
+        prefill_chunk: int | None = None,
+        page_size: int = 128,
+        num_pages: int | None = None,
+        native: bool | None = None,
+        mesh=None,
+        enable_sampling: bool = False,
+        return_logprobs: bool = False,
+        prefix_cache: bool = False,
+        debug_validate: bool = False,
+        lora_adapters: list | None = None,
+        topk_logprobs: int = 0,
+        device: torch.device | str | None = None,
+    ):
+        """``prefix_cache=True`` enables automatic prefix caching: admissions
+        whose prompt prefix matches full pages already in the pool reuse
+        them and prefill only the suffix. Refcount-0 cached pages stay warm
+        and are evicted (LRU) only under pool pressure, before any
+        preemption."""
+        self.page_size = page_size
+        self.pages_per_seq = -(-cfg.max_seq_len // page_size)
+        # Default pool: every slot can hold a full sequence (+ null page 0).
+        self.num_pages = num_pages or num_slots * self.pages_per_seq + 1
+        self.pool = self._make_pool(self.num_pages, native)
+        self._handles: dict[int, int] = {}  # slot -> pool handle
+        self._admit_order: list[int] = []  # slots by admission recency
+        self._host_table = np.zeros((num_slots, self.pages_per_seq), np.int32)
+        self._host_len = np.zeros((num_slots,), np.int64)
+        self._table_dirty = False
+        if prefix_cache:
+            from starflashattention_tpu_torch.serving.prefix_cache import PrefixCache
+
+            self._prefix = PrefixCache(page_size)
+        else:
+            self._prefix = None
+        # pages the slot references but the PREFIX STORE owns (refcounted);
+        # they precede the slot's private (handle-owned) pages in its table
+        self._cached_pages: list[list[int]] = [[] for _ in range(num_slots)]
+        self._cached_len = np.zeros((num_slots,), np.int64)
+        super().__init__(
+            params, cfg, num_slots, steps_per_round, prefill_pad, prefill_chunk=prefill_chunk,
+            mesh=mesh, enable_sampling=enable_sampling, return_logprobs=return_logprobs,
+            debug_validate=debug_validate, lora_adapters=lora_adapters,
+            topk_logprobs=topk_logprobs, device=device,
+        )
+
+    @staticmethod
+    def _make_pool(num_pages: int, native: bool | None):
+        if native is not False:
+            from starflashattention_tpu_torch.utils.native import NativePagePool
+
+            try:
+                return NativePagePool(num_pages)
+            except RuntimeError:  # the C++ pool did not build here
+                if native:
+                    raise
+        return paged.SeqPagePool(num_pages)
+
+    # -- backend hooks --------------------------------------------------------
+
+    def _init_cache(self):
+        hkv, d = self.cfg.kv_cache_dims()
+        return paged.init_paged_cache(
+            self.cfg.num_layers, self.num_slots, hkv, d, num_pages=self.num_pages,
+            page_size=self.page_size, pages_per_seq=self.pages_per_seq,
+            dtype=llama.torch_dtype(self.cfg.dtype), device=self.device,
+        )
+
+    def _sync_table(self) -> None:
+        """Copy the host table into the cache's persistent device table: one
+        blocking ``copy_`` on the current stream, so every kernel queued
+        before it has read the old table and every kernel after reads the
+        new one."""
+        if self._table_dirty:
+            self.cache.page_table.copy_(torch.from_numpy(self._host_table))
+            self._table_dirty = False
+
+    def _write_row(self, slot: int) -> None:
+        row = np.zeros((self.pages_per_seq,), np.int32)
+        shared = self._cached_pages[slot]
+        row[: len(shared)] = shared
+        if slot in self._handles:
+            pages = self.pool.seq_pages(self._handles[slot])
+            row[len(shared) : len(shared) + len(pages)] = pages
+        self._host_table[slot] = row
+        self._table_dirty = True
+
+    def _grow(self, slot: int, new_len: int) -> bool:
+        """Extend the slot's private pages to cover ``new_len`` tokens
+        (prefix-cache pages already cover its first ``_cached_len``); on
+        exhaustion evict warm cached pages first, then return False (the
+        caller decides whom to preempt)."""
+        private = max(int(new_len) - int(self._cached_len[slot]), 0)
+        while True:
+            try:
+                self.pool.seq_extend(self._handles[slot], private, self.page_size)
+                break
+            except MemoryError:
+                if self._prefix is None:
+                    return False
+                evicted = self._prefix.evict_lru(8)
+                if not evicted:
+                    return False
+                self.pool.free_raw(evicted)
+        self._write_row(slot)
+        return True
+
+    def _release(self, slot: int) -> None:
+        handle = self._handles.pop(slot, None)
+        if handle is not None:
+            self.pool.seq_free(handle)
+        if self._prefix is not None and self._cached_pages[slot]:
+            self._prefix.release(self._cached_pages[slot])
+        self._cached_pages[slot] = []
+        self._cached_len[slot] = 0
+        if slot in self._admit_order:
+            self._admit_order.remove(slot)
+        self._host_len[slot] = 0
+        # zero row -> null page 0; synced before the next device call, so a
+        # reused physical page never receives a stale slot's append
+        self._write_row(slot)
+
+    def _on_retired(self, slot: int) -> None:
+        self._release(slot)
+
+    def _preempt_youngest(self, but_not: int | None = None) -> int | None:
+        """Free the most recently admitted running slot's pages and requeue
+        its request; returns the slot, or None if there is no candidate."""
+        for slot in reversed(self._admit_order):
+            if slot == but_not:
+                continue
+            self.sched.preempt(slot)
+            self._release(slot)
+            self.stats.preemptions += 1
+            return slot
+        return None
+
+    def _prepare_admit(self, admitted):
+        """Allocate pages for each admitted prompt; on the first miss, this
+        and every later admission goes back to the queue front in FCFS order.
+        With the prefix cache on, each prompt first reuses its longest run of
+        resident full pages and allocates only the remainder."""
+        accepted, rejected = [], []
+        exhausted = False
+        for slot, req in admitted:
+            if not exhausted:
+                text = req.prompt + req.output
+                if self._prefix is not None:
+                    pages, matched = self._prefix.match(text)
+                    self._cached_pages[slot] = pages
+                    self._cached_len[slot] = matched
+                self._handles[slot] = self.pool.seq_new()
+                need = len(text)
+                if self._grow(slot, need):
+                    self._admit_order.append(slot)
+                    self._host_len[slot] = need
+                    accepted.append((slot, req))
+                    continue
+                self.pool.seq_free(self._handles.pop(slot))
+                if self._prefix is not None and self._cached_pages[slot]:
+                    self._prefix.release(self._cached_pages[slot])
+                self._cached_pages[slot] = []
+                self._cached_len[slot] = 0
+                exhausted = True
+            rejected.append(slot)
+        for slot in reversed(rejected):
+            self.sched.preempt(slot)  # back to the queue front, slot freed
+        self.stats.prefix_hits = self._prefix.hits if self._prefix else 0
+        self.stats.prefix_tokens_reused = self._prefix.tokens_reused if self._prefix else 0
+        return accepted
+
+    def _admission_offsets(self, texts) -> np.ndarray:
+        """Prefix-cache hits skip their cached tokens at prefill; their device
+        length must equal the cached token count BEFORE the (reset=False)
+        suffix prefill reads it as the write offset."""
+        offs = np.zeros((self.num_slots,), np.int32)
+        if self._prefix is None:
+            return offs
+        for slot, _req, _text in texts:
+            offs[slot] = int(self._cached_len[slot])
+        mask = offs > 0
+        if mask.any():
+            self.cache.lengths.copy_(torch.where(self._to_device(mask), self._to_device(offs),
+                                                 self.cache.lengths))
+        return offs
+
+    def _after_prefill(self, texts) -> None:
+        """Publish each admitted prompt's freshly written full pages to the
+        prefix store (ownership moves out of the slot's handle; the slot keeps
+        a reference). Keys cover PROMPT tokens only."""
+        if self._prefix is None:
+            return
+        for slot, req, _text in texts:
+            if slot not in self._handles:
+                continue
+            have = len(self._cached_pages[slot])
+            n_full = len(req.prompt) // self.page_size
+            run = self._prefix.insert_run(req.prompt, have, n_full - have)
+            if run <= 0:
+                continue
+            transfer = self.pool.seq_release_prefix(self._handles[slot], run)
+            adopted = self._prefix.insert(req.prompt, have, transfer)
+            assert len(adopted) == run, "insert_run promised these keys were new"
+            self._cached_pages[slot].extend(adopted)
+            self._cached_len[slot] += run * self.page_size
+            # the table row is unchanged (same physical ids, same order)
+
+    def _before_decode(self, active: np.ndarray) -> np.ndarray:
+        """Grow every active slot to cover this round's appends; preempt the
+        youngest slots on exhaustion (their requests resume later)."""
+        active = active.copy()
+        for slot in list(self._admit_order):  # oldest first
+            if not active[slot]:
+                continue
+            need = int(self._host_len[slot]) + self.steps_per_round
+            while not self._grow(slot, need):
+                victim = self._preempt_youngest(but_not=slot)
+                if victim is None:
+                    raise MemoryError(
+                        f"paged pool too small for one sequence: slot {slot} needs {need} "
+                        f"tokens, pool {self.num_pages - 1} pages x {self.page_size}")
+                active[victim] = False
+        for slot in range(self.num_slots):
+            if active[slot]:
+                self._host_len[slot] += self.steps_per_round
+        if self.debug_validate:
+            self._validate_tables(active)
+        self._sync_table()
+        return active
+
+    def _validate_tables(self, active: np.ndarray) -> None:
+        """Sanitizer pass on the exact host table the next round consumes."""
+        from starflashattention_tpu_torch.utils import sanitize
+
+        sanitize.check_page_table(
+            self._host_table, self._host_len, self.page_size, self.num_pages, active=active,
+            shared_ok=self._prefix.resident_set() if self._prefix else None,
+        )
+        pre = np.where(active, self._host_len - self.steps_per_round, 0)
+        sanitize.check_append_window(pre, self.steps_per_round,
+                                     self.pages_per_seq * self.page_size)
+
+    def _prefill_call(self, toks, new_lengths, admit_mask, reset_mask, prefix_len=0):
+        self._sync_table()
+        logits, self.cache = llama.prefill_serving_paged(
+            self.params, self.cache, toks, new_lengths, admit_mask, reset_mask,
+            self.cos, self.sin, self.cfg, prefix_len=prefix_len,
+        )
+        return logits
+
+    def _decode_call(self, active, n, max_len_hint=None):
+        out = llama.decode_multi_paged(
+            self.params, self.cache, self.pending_tok, self.cos, self.sin, active, self.cfg, n,
+            sampling=self._sampling_state(), with_logprobs=self.return_logprobs,
+            topk_logprobs=self.topk_logprobs, max_len_hint=max_len_hint,
+        )
+        return self._unpack_decode(out)

@@ -1,4 +1,4 @@
-"""Numpy <-> torch bridge for parameter trees and KV caches.
+"""Numpy <-> torch bridge for parameter trees, KV caches and paged pools.
 
 The JAX package's arrays reach the port as numpy arrays (the caller does
 ``np.asarray(jax_array)``), so the port never sees JAX. bf16 arrives as
@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from starflashattention_tpu_torch.cache.contiguous import KVCache
+from starflashattention_tpu_torch.cache.paged import PagedKVCache
 
 # numpy dtype name -> (integer view of the same width, torch dtype)
 _VIEWED = {
@@ -71,3 +72,21 @@ def cache_from_numpy(
         k=conv(k), v=conv(v), lengths=conv(lengths).to(torch.int32),
         k_scales=conv(k_scales), v_scales=conv(v_scales),
     )
+
+
+def paged_cache_from_numpy(
+    k_pages, v_pages, page_table, lengths, device: torch.device | str = "cpu",
+) -> PagedKVCache:
+    """A JAX ``PagedKVCache``'s arrays (given as numpy) -> the port's
+    PagedKVCache (pools (L, Hkv, P, ps, D), table and lengths int32)."""
+    return PagedKVCache(
+        k_pages=tensor_from_numpy(k_pages, device), v_pages=tensor_from_numpy(v_pages, device),
+        page_table=tensor_from_numpy(page_table, device).to(torch.int32),
+        lengths=tensor_from_numpy(lengths, device).to(torch.int32),
+    )
+
+
+def paged_cache_to_numpy(cache: PagedKVCache) -> dict[str, np.ndarray]:
+    """The port's PagedKVCache -> numpy arrays named like the JAX fields."""
+    return {name: tensor_to_numpy(getattr(cache, name))
+            for name in ("k_pages", "v_pages", "page_table", "lengths")}

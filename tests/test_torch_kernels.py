@@ -13,7 +13,10 @@ Tolerances, each against the plain twin on the same card and inputs:
   (as the TPU kernel does), so 2e-2 absolute;
 - quant_matmul, fp32 out: fp32 sums of the same exact products in another
   order, 1e-5 of the output's peak; bf16 out adds one bf16 rounding;
-- cache append: equal bytes.
+- cache append (contiguous and paged): equal bytes.
+
+Paged tests use a shuffled page table (physical page != logical page), a
+row of length 0 and a row that fills all ``pages_per_seq`` pages.
 """
 
 import pytest
@@ -22,8 +25,10 @@ import torch
 from starflashattention_tpu_torch.cache import contiguous
 from starflashattention_tpu_torch.core import quant
 from starflashattention_tpu_torch.models import llama
-from starflashattention_tpu_torch.ops import cache_append, flash_decode, flash_prefill, quant_matmul
+from starflashattention_tpu_torch.ops import (cache_append, flash_decode, flash_prefill, paged_decode,
+                                              quant_matmul)
 from starflashattention_tpu_torch.runtime.params import ModelConfig
+from starflashattention_tpu_torch.serving import Engine, PagedEngine, SamplingParams
 
 pytestmark = pytest.mark.cuda
 
@@ -112,6 +117,51 @@ def test_append_rows_kv_kernel_matches_plain(cuda, dtype):
     assert torch.equal(one, k2)
 
 
+def _paged_setup(dev, dtype, page_size, d=128, b=4, hkv=2, pages_per_seq=6, layers=2):
+    """Pools with a shuffled page table; lengths: 0, a full table, ragged."""
+    gen = _gen(dev)
+    num_pages = b * pages_per_seq + 3  # page 0 is the null page; a few spare
+    shape = (layers, hkv, num_pages, page_size, d)
+    k = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    v = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    perm = torch.randperm(num_pages - 1, generator=torch.Generator().manual_seed(1))[: b * pages_per_seq] + 1
+    table = perm.reshape(b, pages_per_seq).to(device=dev, dtype=torch.int32)
+    full = pages_per_seq * page_size
+    lengths = torch.tensor([0, full, 1 + page_size // 2, full - page_size - 3][:b], dtype=torch.int32,
+                           device=dev)
+    return k, v, table, lengths
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("page_size", [16, 128])
+def test_paged_flash_decode_kernel_matches_plain(cuda, dtype, page_size):
+    k, v, table, lengths = _paged_setup(cuda, dtype, page_size)
+    q = torch.randn((4, 8, 128), generator=_gen(cuda), device=cuda).to(dtype)
+    before = paged_decode.paged_flash_decode.launches
+    out = paged_decode.paged_flash_decode(q, k, v, table, lengths, layer=1)
+    assert paged_decode.paged_flash_decode.launches == before + 1
+    ref = paged_decode.paged_flash_decode_plain(q, k, v, table, lengths, layer=1)
+    tol = 4 * BF16_ULP if dtype == torch.bfloat16 else 1e-5
+    assert out.dtype == dtype and _max_err(out, ref) <= tol
+    assert torch.all(out[0] == 0)  # the row of length 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("page_size", [16, 128])
+def test_append_rows_paged_kernel_matches_plain(cuda, dtype, page_size):
+    k, v, table, lengths = _paged_setup(cuda, dtype, page_size)
+    gen = _gen(cuda)
+    kn = torch.randn((4, 2, 128), generator=gen, device=cuda).to(dtype)
+    vn = torch.randn((4, 2, 128), generator=gen, device=cuda).to(dtype)
+    pos = torch.clamp(lengths, max=table.shape[1] * page_size - 1)  # the full row writes its last slot
+    k2, v2 = k.clone(), v.clone()
+    before = cache_append.append_rows_paged_kv.launches
+    cache_append.append_rows_paged_kv(k, v, kn, vn, 1, table, pos)
+    assert cache_append.append_rows_paged_kv.launches == before + 1
+    cache_append.append_rows_paged_kv_plain(k2, v2, kn, vn, 1, table, pos)
+    assert torch.equal(k, k2) and torch.equal(v, v2)
+
+
 @pytest.mark.parametrize("mode", ["int8", "fp8"])
 @pytest.mark.parametrize("rows", [1, 16, 40, 64, 65, 200])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
@@ -180,3 +230,40 @@ def test_generate_runs_on_the_kernels(cuda):
 
     kern, plain = logits_on(cuda), logits_on(torch.device("cpu"))
     assert _max_err(kern, plain) <= 0.05 * plain.abs().max().item()
+
+
+def test_serving_engines_run_on_the_kernels(cuda):
+    """Both engines serve a narrow bf16 model on the card: the paged engine
+    launches the paged decode and the paged append once per layer and decode
+    step (and the contiguous ones never), preempts, hits its prefix cache
+    and replays sampled streams exactly; every request finishes."""
+    cfg = ModelConfig.tiny(hidden_size=256, intermediate_size=512, num_q_heads=4, num_kv_heads=2,
+                           head_dim=64, max_seq_len=256, dtype="bfloat16")
+    params = llama.quantize_model_weights(
+        llama.init_params(cfg, _gen(cuda), device=cuda), "int8", lm_head=True)
+    g = torch.Generator().manual_seed(3)
+    prefix = torch.randint(0, cfg.vocab_size, (32,), generator=g).tolist()
+    prompts = [prefix + torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist() for n in (5, 40, 9, 70, 17)]
+    counters = (cache_append.append_rows_kv, flash_decode.flash_decode,
+                cache_append.append_rows_paged_kv, paged_decode.paged_flash_decode)
+
+    def run(engine):
+        before = [fn.launches for fn in counters]
+        out = engine.generate(prompts, 12, sampling=samp if engine.enable_sampling else None)
+        assert engine.stats.finished == len(prompts) and all(len(o) == 12 for o in out)
+        return out, [fn.launches - b for fn, b in zip(counters, before)]
+
+    samp = [SamplingParams(temperature=0.9, top_p=0.9, seed=i) for i in range(len(prompts))]
+    _, grew = run(Engine(params, cfg, num_slots=2, steps_per_round=4, device=cuda))
+    assert grew[2:] == [0, 0] and grew[0] == grew[1] > 0
+
+    def paged(**kw):
+        return PagedEngine(params, cfg, num_slots=2, steps_per_round=4, page_size=16, num_pages=10,
+                           prefill_chunk=32, prefix_cache=True, device=cuda, **kw)
+
+    eng = paged()
+    _, grew = run(eng)
+    steps = eng.stats.decode_rounds * 4 * cfg.num_layers
+    assert grew == [0, 0, steps, steps]
+    assert eng.stats.preemptions > 0 and eng.stats.prefix_hits > 0
+    assert run(paged(enable_sampling=True))[0] == run(paged(enable_sampling=True))[0]
