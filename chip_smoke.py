@@ -16,7 +16,12 @@ Phases (any failure raises and the script exits non-zero):
    in bf16 at the shapes the 7B-GQA path gives it, with the error printed
    beside its tolerance; kernel, plain and library-call times (CUDA events,
    L2 flushed before each launch, the device kept busy while the host
-   enqueues it) beside the byte / operation bound.
+   enqueues it) beside the byte / operation bound. The quantized kernels
+   too: int4 weight-only matmul (small-M at 16 rows, tiled at 2048) on the
+   five 7B shapes with g128 scales, W8A8 and W4A8 at 2048 rows on the four
+   layer shapes (bound at the int8 tensor-core rate), decode attention
+   (fused and split) and paged decode on int8 and on fp8 KV (scales 5/127
+   and 5/448), and the appends on 1-byte rows.
 3. Slice: full-width ``ModelConfig.llama_7b_gqa`` (32 layers,
    max_seq_len 1024, random int8 weights and int8 lm_head from a seeded
    generator, bf16 KV cache): greedy ``generate`` on 8 ragged prompts for
@@ -25,9 +30,15 @@ Phases (any failure raises and the script exits non-zero):
    counts just after; prefill and decode are then timed on their own.
 4. Path vs path: 4 layers at full width, one prefill and 4 decode steps
    through the kernels and through the plain versions; logits compared.
-5. Only with ``--phases ...,5``: bench.py's decode chain (B=16, every
-   sequence at 512 cache rows) timed, then traced with torch.profiler for
-   device time by kernel and the device's idle share.
+   Twice: int8 weights with a bf16 cache, then int4 g128 weights + int4
+   lm_head with an int8 cache and ``w8a8_prefill`` on (W4A8 prefill; the
+   KV quantization, scale folds and dequantized prefill rows run on the
+   card around the kernels or their twins).
+5. Only with ``--phases ...,5``: bench.py's decode chains (B=16, every
+   sequence at 512 cache rows: int8 weights with a bf16 cache at one and at
+   four splits, then int4 g128 weights and lm_head with an int8 cache)
+   timed, then traced with torch.profiler for device time by kernel and
+   the device's idle share.
 6. Serving: full-width ``ModelConfig.llama_7b_gqa`` (32 layers,
    max_seq_len 1024, seeded random int8 weights + int8 lm_head, bf16 KV):
    24 greedy requests (a shared 256-token system prefix plus a ragged
@@ -42,6 +53,18 @@ Phases (any failure raises and the script exits non-zero):
    and their largest chosen-token logprob difference over the agreeing
    prefixes; then a sampled ``PagedEngine`` run (temperature 0.8, top_p
    0.95) twice with the same seeds must give identical streams.
+7. Quantized slice: full-width ``ModelConfig.llama_7b_gqa`` (32 layers,
+   max_seq_len 1024, int8 KV cache) with seeded random int4 g128 weights
+   and an int4 lm_head, greedy ``generate`` on phase 3's 8 prompts for 32
+   tokens three times: ``w8a8_prefill`` off (one split: fused decode
+   attention), on (the 2048-row prefill on W4A8), and with int8 weights,
+   ``w8a8_prefill`` on and an fp8 KV cache (the prefill on W8A8). Launch
+   counters are zeroed before and checked after each run (per decode step
+   129 int4 or int8 weight-only launches and 32 quantized attentions; per
+   prefill 128 W4A8 / W8A8 or tiled launches); prefill and decode are
+   timed apart. Then ``PagedEngine`` with int8 pages and int4 weights on
+   phase 6's 24 requests: every request finishes, the paged decode and
+   append launch on the int8 pools.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device,
@@ -63,6 +86,7 @@ import torch
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+PEAK_INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores
 L2_FLUSH_BYTES = 128 * 1024 * 1024  # > the 50 MB L2
 
 SLICE_LAYERS = 32
@@ -86,6 +110,10 @@ SERVE_PAGES = 33  # 32 usable pages of 128 rows: fewer than 8 slots' worth, so t
 # (|logit| ~5 here): a chosen-token logprob may move by about that much.
 SERVE_LOGPROB_TOL = 0.25
 QMM_ENTRY = {16: "quant_matmul (small-M, decode rows)", 2048: "quant_matmul (tiled, prefill rows)"}
+INT4_ENTRY = {16: "quant_matmul_int4 (small-M, decode rows)",
+              2048: "quant_matmul_int4 (tiled, prefill rows)"}
+A8_ENTRY = {"w8a8": "quant_matmul_w8a8 (prefill rows)", "w4a8": "quant_matmul_w4a8 (prefill rows)"}
+KV_SCALE = {"int8": 5.0 / 127.0, "fp8": 5.0 / 448.0}  # ModelConfig.kv_calibration_scale / qmax
 
 
 def log(*args):
@@ -126,11 +154,11 @@ class Timer:
         return times[len(times) // 2]
 
 
-def bound_ms(n_bytes, n_ops):
+def bound_ms(n_bytes, n_ops, ops_per_s=PEAK_BF16_OPS_PER_S):
     """Least time for the work: the larger of bytes over HBM rate and
-    operations over the bf16 tensor-core rate."""
+    operations over the tensor-core rate of their type (bf16 by default)."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_BF16_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -161,11 +189,29 @@ def phase_device_and_build():
 # ---------------------------------------------------------------- phase 2
 
 
-def _check(name, err, tol):
+def _check(name, err, tol, what="max_abs_err"):
     ok = err <= tol
-    log(f"[kernel] {name}: max_abs_err {err:.3e} (tolerance {tol:.3e}) {'ok' if ok else 'FAIL'}")
+    log(f"[kernel] {name}: {what} {err:.3e} (tolerance {tol:.3e}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version ({err} > {tol})")
+
+
+def _ulps(out, ref):
+    """Largest |out - ref| in bf16 ulps of each element's own value: over
+    2^-7 |ref| (an upper bound of its ulp) plus a floor of 1e-3 of the peak
+    of its (sequence, head) row, for elements near 0, where the two sides'
+    fp32 sums in different orders dominate."""
+    out, ref = out.float(), ref.float()
+    floor = 1e-3 * ref.abs().amax(dim=-1, keepdim=True)
+    return ((out - ref).abs() / (2.0**-7 * ref.abs() + floor).clamp(min=1e-30)).max().item()
+
+
+def _check_ulps(name, out, ref, roundings):
+    """Decode attention, elementwise: each bf16 rounding on either side of
+    the other's may cost one ulp of the element's own value, so ``roundings``
+    + 1 ulps at most (an error in part of a long row's tiles moves its
+    elements by far more)."""
+    _check(name, _ulps(out, ref), roundings + 1.0, what="largest error in bf16 ulps of each element")
 
 
 def phase_kernels(dev, timer):
@@ -211,6 +257,7 @@ def phase_kernels(dev, timer):
         ref = flash_decode_plain(q, k_tab, v_tab, lengths, **kw)
         _check(f"{entry} B={b} Hq={hq} Hkv={hkv} S={s} D={d}",
                (out.float() - ref.float()).abs().max().item(), tol)
+        _check_ulps(entry, out, ref, 1)
         bnd, by = bound_ms(dec_bytes, dec_ops)  # the wrapper's inputs and output
         res[entry] = dict(
             max_abs_err=(out.float() - ref.float()).abs().max().item(),
@@ -239,11 +286,18 @@ def phase_kernels(dev, timer):
     same = torch.equal(ka, kp) and torch.equal(va, vp)
     _check("append_rows_kv whole table", 0.0 if same else float("inf"), 0.0)
     bnd, by = bound_ms(2 * 2 * b * hkv * d * 2 + b * 4, 0)
+    bidx = torch.arange(b, device=dev)
+    pos_l = pos.long()
+
+    def index_put_kv():  # the library call: one advanced-index assignment a table
+        kp[layer, bidx, :, pos_l] = k_new
+        vp[layer, bidx, :, pos_l] = v_new
+
     res["append_rows_kv"] = dict(
         max_abs_err=0.0,
         ms=timer(lambda: append_rows_kv(ka, va, k_new, v_new, layer, pos)),
         plain_ms=timer(lambda: append_rows_kv_plain(kp, vp, k_new, v_new, layer, pos)),
-        bound_ms=bnd, bound_by=by, library_ms=None)
+        bound_ms=bnd, bound_by=by, library_ms=timer(index_put_kv))
     # -- the one-table append (K3b: append_rows, no caller on the main path)
     one = k_tab.clone()
     one_plain = k_tab.clone()
@@ -253,13 +307,16 @@ def phase_kernels(dev, timer):
     bnd, by = bound_ms(2 * b * hkv * d * 2 + b * 4, 0)
     k3b = dict(ms=timer(lambda: append_rows(one, k_new, layer, pos)),
                plain_ms=timer(lambda: append_rows_kv_plain(one_plain, None, k_new, None, layer, pos)),
+               library_ms=timer(lambda: one_plain.__setitem__((layer, bidx, slice(None), pos_l), k_new)),
                bound_ms=bnd, bound_by=by)
     log(f"[time] append_rows (K3b, not on the main path): kernel {k3b['ms']:.4f} ms, plain "
-        f"{k3b['plain_ms']:.4f} ms, library none, bound {bnd:.6f} ms ({by}), max_abs_err 0.000e+00")
+        f"{k3b['plain_ms']:.4f} ms, library (index assignment) {k3b['library_ms']:.4f} ms, "
+        f"bound {bnd:.6f} ms ({by}), max_abs_err 0.000e+00")
     del one, one_plain
 
     res.update(_paged_kernels(dev, timer, gen, q, k_tab, v_tab, lengths, layer, dec_bytes, dec_ops,
-                              k_new, v_new))
+                              k_new, v_new, lib_ms))
+    res.update(_quantized_kv_kernels(dev, timer, q, k_tab, v_tab, lengths, layer, k_new, v_new))
     del k_tab, v_tab, ka, va, kp, vp, kv_rep
 
     # -- quant_matmul: the five projection shapes, stacked L=4, layer 3
@@ -311,6 +368,7 @@ def phase_kernels(dev, timer):
     for rows in (16, 2048):
         agg = res[QMM_ENTRY[rows]]
         agg["bound_ms"], agg["bound_by"] = bound_ms(agg.pop("n_bytes"), agg.pop("n_ops"))
+    res.update(_quantized_matmuls(dev, timer, gen, shapes))
 
     # -- prefill attention: B=2, Sq=512, Skv=1024, q_offsets [0, 300]
     b, sq, skv = 2, 512, 1024
@@ -345,10 +403,12 @@ def phase_kernels(dev, timer):
     return res
 
 
-def _paged_kernels(dev, timer, gen, q, k_tab, v_tab, lengths, layer, dec_bytes, dec_ops, k_new, v_new):
+def _paged_kernels(dev, timer, gen, q, k_tab, v_tab, lengths, layer, dec_bytes, dec_ops, k_new, v_new,
+                   sdpa_ms):
     """K7 and K8 at the decode shapes: the rows of the contiguous table laid
     out in pages of 128 rows under a shuffled page table (pages_per_seq 8),
-    so K1 on the table is the yardstick for K7 on the pools."""
+    so K1 on the table is the yardstick for K7 on the pools. K7's library
+    call is SDPA on the same rows laid out contiguously (``sdpa_ms``)."""
     from starflashattention_tpu_torch.ops.cache_append import (
         append_rows_paged_kv, append_rows_paged_kv_plain)
     from starflashattention_tpu_torch.ops.flash_decode import flash_decode
@@ -360,14 +420,7 @@ def _paged_kernels(dev, timer, gen, q, k_tab, v_tab, lengths, layer, dec_bytes, 
     num_pages = b * pps + 1  # page 0 is the null page
     perm = torch.randperm(num_pages - 1, generator=torch.Generator().manual_seed(SEED)) + 1
     table = perm.reshape(b, pps).to(device=dev, dtype=torch.int32)
-    pools = []
-    for tab in (k_tab, v_tab):
-        pool = torch.zeros((n_layers, hkv, num_pages, ps, d), dtype=tab.dtype, device=dev)
-        # (L, B, Hkv, S, D) -> (L, Hkv, B * pps, ps, D), page (b, i) at table[b, i]
-        pool[:, :, table.reshape(-1).long()] = tab.reshape(n_layers, b, hkv, pps, ps, d).transpose(
-            1, 2).reshape(n_layers, hkv, b * pps, ps, d)
-        pools.append(pool)
-    k_pool, v_pool = pools
+    k_pool, v_pool = _pools_from(k_tab, table, ps), _pools_from(v_tab, table, ps)
     res = {}
     out = paged_flash_decode(q, k_pool, v_pool, table, lengths, layer=layer)
     ref = paged_flash_decode_plain(q, k_pool, v_pool, table, lengths, layer=layer)
@@ -376,6 +429,7 @@ def _paged_kernels(dev, timer, gen, q, k_tab, v_tab, lengths, layer, dec_bytes, 
     # rounded once to bf16, may differ by one bf16 ulp of |o| <= 4
     _check(f"paged_flash_decode B={b} Hq={q.shape[1]} Hkv={hkv} D={d} page_size={ps} "
            f"pages_per_seq={pps} shuffled table, lengths 1..{s}", err, 2.0**-8 * 4)
+    _check_ulps("paged_flash_decode", out, ref, 1)
     bnd, by = bound_ms(dec_bytes + table.numel() * 4, dec_ops)
     yard = timer(lambda: flash_decode(q, k_tab, v_tab, lengths, layer=layer, num_splits=1, block_k=256))
     res["paged_flash_decode"] = dict(
@@ -383,7 +437,7 @@ def _paged_kernels(dev, timer, gen, q, k_tab, v_tab, lengths, layer, dec_bytes, 
         ms=timer(lambda: paged_flash_decode(q, k_pool, v_pool, table, lengths, layer=layer)),
         plain_ms=timer(lambda: paged_flash_decode_plain(q, k_pool, v_pool, table, lengths, layer=layer),
                        iters=5),
-        bound_ms=bnd, bound_by=by, library_ms=None)
+        bound_ms=bnd, bound_by=by, library_ms=sdpa_ms)
     log(f"[time] paged_flash_decode yardstick: flash_decode (1 split) on the same rows laid out "
         f"contiguously {yard:.4f} ms")
 
@@ -395,11 +449,221 @@ def _paged_kernels(dev, timer, gen, q, k_tab, v_tab, lengths, layer, dec_bytes, 
     same = torch.equal(ka, kp) and torch.equal(va, vp)
     _check("append_rows_paged_kv whole pools", 0.0 if same else float("inf"), 0.0)
     bnd, by = bound_ms(2 * 2 * b * hkv * d * 2 + b * 4 + b * 4, 0)
+    bidx, pos_l = torch.arange(b, device=dev), pos.long()
+
+    def index_put_paged():  # the library call: one advanced-index assignment a pool
+        phys = table[bidx, pos_l // ps].long()
+        kp[layer, :, phys, pos_l % ps] = k_new.transpose(0, 1)
+        vp[layer, :, phys, pos_l % ps] = v_new.transpose(0, 1)
+
     res["append_rows_paged_kv"] = dict(
         max_abs_err=0.0,
         ms=timer(lambda: append_rows_paged_kv(ka, va, k_new, v_new, layer, table, pos)),
         plain_ms=timer(lambda: append_rows_paged_kv_plain(kp, vp, k_new, v_new, layer, table, pos)),
-        bound_ms=bnd, bound_by=by, library_ms=None)
+        bound_ms=bnd, bound_by=by, library_ms=timer(index_put_paged))
+    return res
+
+
+def _pools_from(tab, table, ps):
+    """(L, B, Hkv, S, D) table -> (L, Hkv, B * S / ps + 1, ps, D) pools with
+    page (b, i) at table[b, i] (page 0 is the null page). Moves bytes, so
+    1-byte tables go through a uint8 view."""
+    n_layers, b, hkv, s, d = tab.shape
+    pps = s // ps
+    pool = torch.zeros((n_layers, hkv, b * pps + 1, ps, d), dtype=tab.dtype, device=tab.device)
+    view = (lambda t: t.view(torch.uint8)) if tab.element_size() == 1 else (lambda t: t)
+    view(pool)[:, :, table.reshape(-1).long()] = view(tab).reshape(n_layers, b, hkv, pps, ps, d).transpose(
+        1, 2).reshape(n_layers, hkv, b * pps, ps, d)
+    return pool
+
+
+def _quantized_kv_kernels(dev, timer, q, k_tab, v_tab, lengths, layer, k_new, v_new):
+    """K1 (fused), K2 (split) and K7 on int8 and fp8 copies of the decode
+    tables (quantized against the calibration scales), and K3 / K8 on 1-byte
+    rows. The library call is SDPA on the dequantized bf16 rows (the
+    dequantization itself not timed)."""
+    import torch.nn.functional as F
+
+    from starflashattention_tpu_torch.core.quant import quantize_value
+    from starflashattention_tpu_torch.core.reference import repeat_kv
+    from starflashattention_tpu_torch.ops.cache_append import (
+        append_rows_kv, append_rows_kv_plain, append_rows_paged_kv, append_rows_paged_kv_plain)
+    from starflashattention_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
+    from starflashattention_tpu_torch.ops.paged_decode import paged_flash_decode, paged_flash_decode_plain
+
+    n_layers, b, hkv, s, d = k_tab.shape
+    hq = q.shape[1]
+    ps = PAGE_SIZE
+    perm = torch.randperm(b * (s // ps), generator=torch.Generator().manual_seed(SEED + 1)) + 1
+    table = perm.reshape(b, s // ps).to(device=dev, dtype=torch.int32)
+    n_valid = int(lengths.sum())
+    sdpa_mask = (torch.arange(s, device=dev)[None, :] < lengths[:, None])[:, None, None, :]
+    res = {}
+    for mode in ("int8", "fp8"):
+        scales = torch.full((hkv,), KV_SCALE[mode], dtype=torch.float32, device=dev)
+        kq = quantize_value(k_tab, scales, mode, head_axis=2)
+        vq = quantize_value(v_tab, scales, mode, head_axis=2)
+        kw = dict(layer=layer, k_scales=scales, v_scales=scales)
+        deq = [repeat_kv((t[layer].float() * KV_SCALE[mode]).to(q.dtype), hq // hkv) for t in (kq, vq)]
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(q[:, :, None], deq[0], deq[1],
+                                                              attn_mask=sdpa_mask))
+        # 1-byte K/V rows, the q and output rows, the scales and lengths
+        n_bytes = 2 * n_valid * hkv * d + 2 * q.numel() * 2 + 2 * hkv * 4 + b * 4
+        bnd, by = bound_ms(n_bytes, 4 * hq * d * n_valid)
+        # both sides fold the same scales into the same q and compute in
+        # fp32, so they differ by at most an ulp of each element's own value
+        # at each bf16 rounding: two on the fused path (the output, then
+        # times v_scale), one on the split and paged paths
+        for splits, entry in ((1, f"flash_decode {mode} KV (1 split, fused)"),
+                              (4, f"flash_decode {mode} KV (split-KV partials)")):
+            kws = dict(kw, num_splits=splits, block_k=256)
+            out = flash_decode(q, kq, vq, lengths, **kws)
+            ref = flash_decode_plain(q, kq, vq, lengths, **kws)
+            err = (out.float() - ref.float()).abs().max().item()
+            log(f"[kernel] {entry}: max_abs_err {err:.3e}")
+            _check_ulps(f"{entry} B={b} Hq={hq} Hkv={hkv} S={s} D={d} scale {KV_SCALE[mode]:.5f}", out, ref,
+                        2 if splits == 1 else 1)
+            res[entry] = dict(max_abs_err=err, ms=timer(lambda: flash_decode(q, kq, vq, lengths, **kws)),
+                              plain_ms=timer(lambda: flash_decode_plain(q, kq, vq, lengths, **kws), iters=5),
+                              bound_ms=bnd, bound_by=by, library_ms=lib_ms)
+        kp, vp = _pools_from(kq, table, ps), _pools_from(vq, table, ps)
+        out = paged_flash_decode(q, kp, vp, table, lengths, **kw)
+        ref = paged_flash_decode_plain(q, kp, vp, table, lengths, **kw)
+        err = (out.float() - ref.float()).abs().max().item()
+        entry = f"paged_flash_decode {mode} KV"
+        log(f"[kernel] {entry}: max_abs_err {err:.3e}")
+        _check_ulps(f"{entry} page_size={ps} shuffled table", out, ref, 1)
+        bnd_p, by_p = bound_ms(n_bytes + table.numel() * 4, 4 * hq * d * n_valid)
+        res[entry] = dict(max_abs_err=err, ms=timer(lambda: paged_flash_decode(q, kp, vp, table, lengths, **kw)),
+                          plain_ms=timer(lambda: paged_flash_decode_plain(q, kp, vp, table, lengths, **kw),
+                                         iters=5),
+                          bound_ms=bnd_p, bound_by=by_p, library_ms=lib_ms)
+
+        # the appends move 1-byte rows: whole tables and pools equal
+        kn = quantize_value(k_new, scales, mode, head_axis=1)
+        vn = quantize_value(v_new, scales, mode, head_axis=1)
+        pos = torch.clamp(lengths, max=s - 1)
+        tabs = [t.clone() for t in (kq, vq, kq, vq)]
+        append_rows_kv(tabs[0], tabs[1], kn, vn, layer, pos)
+        append_rows_kv_plain(tabs[2], tabs[3], kn, vn, layer, pos)
+        same = all(torch.equal(a.view(torch.uint8), b_.view(torch.uint8))
+                   for a, b_ in ((tabs[0], tabs[2]), (tabs[1], tabs[3])))
+        _check(f"append_rows_kv {mode} rows, whole table", 0.0 if same else float("inf"), 0.0)
+        pools = [t.clone() for t in (kp, vp, kp, vp)]
+        append_rows_paged_kv(pools[0], pools[1], kn, vn, layer, table, pos)
+        append_rows_paged_kv_plain(pools[2], pools[3], kn, vn, layer, table, pos)
+        same = all(torch.equal(a.view(torch.uint8), b_.view(torch.uint8))
+                   for a, b_ in ((pools[0], pools[2]), (pools[1], pools[3])))
+        _check(f"append_rows_paged_kv {mode} rows, whole pools", 0.0 if same else float("inf"), 0.0)
+        log(f"[time] append_rows_kv on {mode} rows: {timer(lambda: append_rows_kv(tabs[0], tabs[1], kn, vn, layer, pos)):.4f} ms; "
+            f"append_rows_paged_kv on {mode} rows: "
+            f"{timer(lambda: append_rows_paged_kv(pools[0], pools[1], kn, vn, layer, table, pos)):.4f} ms")
+        del kq, vq, kp, vp, tabs, pools, deq
+    return res
+
+
+def _int_mm_fn(x8, w):
+    """``torch._int_mm`` on this card's layout rules (the library yardstick
+    of W8A8), or None where it refuses both row- and column-major weights."""
+    for wl in (w, w.t().contiguous().t()):
+        try:
+            torch._int_mm(x8, wl)
+        except RuntimeError:
+            continue
+        return lambda: torch._int_mm(x8, wl)
+    return None
+
+
+def _quantized_matmuls(dev, timer, gen, shapes):
+    """K6 (int4 weight-only, small-M at 16 rows and tiled at 2048) on the
+    five 7B shapes with g128 scales, and K10 / K11 (W8A8 / W4A8) at 2048
+    rows on the four layer shapes, each against its plain twin. Library
+    calls: ``torch.matmul`` on bf16 dequantized weights (K6, K11), and
+    ``torch._int_mm`` plus the two scale multiplies after the same row
+    quantization (K10). The W8A8 / W4A8 entries include their row
+    quantization (plain torch), as the main path runs them."""
+    from starflashattention_tpu_torch.core.quant import dequantize_weight, quantize_weight
+    from starflashattention_tpu_torch.ops import quant_matmul as qmm
+
+    bf16 = torch.bfloat16
+    res = {}
+
+    def add(entry, err, t, t_plain, t_lib, n_bytes, n_ops):
+        agg = res.setdefault(entry, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+                                         n_bytes=0, n_ops=0))
+        agg["max_abs_err"] = max(agg["max_abs_err"], err)
+        agg["ms"] += t
+        agg["plain_ms"] += t_plain
+        if t_lib is None or agg["library_ms"] is None:
+            agg["library_ms"] = None
+        else:
+            agg["library_ms"] += t_lib
+        agg["n_bytes"] += n_bytes
+        agg["n_ops"] += n_ops
+
+    for name, (kdim, ndim, out_dtype) in shapes.items():
+        w4 = quantize_weight(torch.randn((2, kdim, ndim), generator=gen, device=dev), "int4")
+        deq = dequantize_weight({"w": w4["w"][1], "scale": w4["scale"][1]}, bf16)
+        scale_bytes = w4["scale"][1].numel() * 4
+        for rows in (16, 2048):
+            x = torch.randn((rows, kdim), generator=gen, device=dev, dtype=bf16)
+            out = qmm.quant_matmul_int4(x, w4["w"], w4["scale"], layer=1, out_dtype=out_dtype)
+            ref = qmm.quant_matmul_int4_plain(x, w4["w"], w4["scale"], layer=1, out_dtype=out_dtype)
+            err = (out.float() - ref.float()).abs().max().item()
+            peak = ref.float().abs().max().item()
+            # fp32 sums of the same exact products (nibble x bf16) in another
+            # order, group by group; plus one bf16 rounding each side (bf16 out)
+            rel = 2.0**-7 if out_dtype == bf16 else 1e-4
+            _check(f"quant_matmul_int4 g128 {name} rows={rows} K={kdim} N={ndim} out={out_dtype}",
+                   err, rel * peak)
+            t = timer(lambda: qmm.quant_matmul_int4(x, w4["w"], w4["scale"], layer=1, out_dtype=out_dtype))
+            t_plain = timer(lambda: qmm.quant_matmul_int4_plain(x, w4["w"], w4["scale"], layer=1,
+                                                                out_dtype=out_dtype), iters=5)
+            t_lib = timer(lambda: torch.matmul(x, deq))
+            n_bytes = x.numel() * 2 + kdim * ndim // 2 + scale_bytes + rows * ndim * out.element_size()
+            n_ops = 2 * rows * kdim * ndim
+            log(f"[time] quant_matmul_int4 {name} rows={rows}: kernel {t:.4f} ms, plain {t_plain:.4f} ms, "
+                f"torch.matmul(bf16 dequantized) {t_lib:.4f} ms, bound {bound_ms(n_bytes, n_ops)[0]:.4f} ms")
+            add(INT4_ENTRY[rows], err, t, t_plain, t_lib, n_bytes, n_ops)
+        if name == "lm_head":  # the lm_head stays weight-only under w8a8_prefill
+            continue
+        w8 = quantize_weight(torch.randn((2, kdim, ndim), generator=gen, device=dev), "int8")
+        x = torch.randn((2048, kdim), generator=gen, device=dev, dtype=bf16)
+        x8, rs = qmm.quantize_rows(x)
+        for entry, w, plain in (("w8a8", w8, qmm.quant_matmul_w8a8_plain),
+                                ("w4a8", w4, qmm.quant_matmul_w4a8_plain)):
+            fn = getattr(qmm, "quant_matmul_" + entry)
+            out = fn(x, w["w"], w["scale"], layer=1, out_dtype=out_dtype)
+            ref = plain(x, w["w"], w["scale"], layer=1, out_dtype=out_dtype)
+            err = (out.float() - ref.float()).abs().max().item()
+            peak = ref.float().abs().max().item()
+            # exact int32 sums on both sides; fp32 epilogues in another
+            # order (K11's group sums); one bf16 rounding each side
+            rel = 2.0**-7 if out_dtype == bf16 else 1e-5
+            _check(f"quant_matmul_{entry} {name} rows=2048 K={kdim} N={ndim} out={out_dtype}", err, rel * peak)
+            t = timer(lambda: fn(x, w["w"], w["scale"], layer=1, out_dtype=out_dtype))
+            t_plain = timer(lambda: plain(x, w["w"], w["scale"], layer=1, out_dtype=out_dtype), iters=5)
+            if entry == "w8a8":
+                mm = _int_mm_fn(x8, w["w"][1])
+                s1 = w["scale"][1]
+                t_lib = None if mm is None else timer(
+                    lambda: (mm().float() * qmm.quantize_rows(x)[1] * s1).to(out_dtype))
+                w_bytes = kdim * ndim + ndim * 4
+            else:
+                t_lib = timer(lambda: torch.matmul(x, deq))
+                w_bytes = kdim * ndim // 2 + scale_bytes
+            n_bytes = x.numel() * 2 + w_bytes + 2048 * ndim * out.element_size()
+            n_ops = 2 * 2048 * kdim * ndim
+            bnd, by = bound_ms(n_bytes, n_ops, PEAK_INT8_OPS_PER_S)
+            log(f"[time] quant_matmul_{entry} {name} rows=2048: kernel {t:.4f} ms, plain {t_plain:.4f} ms, "
+                f"library {'none' if t_lib is None else format(t_lib, '.4f') + ' ms'}, bound {bnd:.4f} ms "
+                f"({by}, int8 rate; {bound_ms(n_bytes, n_ops)[0]:.4f} ms at the bf16 rate)")
+            add(A8_ENTRY[entry], err, t, t_plain, t_lib, n_bytes, n_ops)
+        del w8, x8, rs
+        del w4, deq
+    for entry, r in res.items():
+        rate = PEAK_INT8_OPS_PER_S if entry in A8_ENTRY.values() else PEAK_BF16_OPS_PER_S
+        r["bound_ms"], r["bound_by"] = bound_ms(r.pop("n_bytes"), r.pop("n_ops"), rate)
     return res
 
 
@@ -407,27 +671,39 @@ def _paged_kernels(dev, timer, gen, q, k_tab, v_tab, lengths, layer, dec_bytes, 
 
 
 def _counters():
+    from starflashattention_tpu_torch.ops import quant_matmul as qmm
     from starflashattention_tpu_torch.ops.cache_append import append_rows_kv, append_rows_paged_kv
     from starflashattention_tpu_torch.ops.flash_decode import flash_decode
     from starflashattention_tpu_torch.ops.flash_prefill import flash_prefill
     from starflashattention_tpu_torch.ops.paged_decode import paged_flash_decode
-    from starflashattention_tpu_torch.ops.quant_matmul import quant_matmul
 
     return {"append_rows_kv": append_rows_kv, "flash_decode": flash_decode,
-            "flash_prefill": flash_prefill, "quant_matmul": quant_matmul,
-            "append_rows_paged_kv": append_rows_paged_kv, "paged_flash_decode": paged_flash_decode}
+            "flash_prefill": flash_prefill, "quant_matmul": qmm.quant_matmul,
+            "append_rows_paged_kv": append_rows_paged_kv, "paged_flash_decode": paged_flash_decode,
+            "quant_matmul_int4": qmm.quant_matmul_int4, "quant_matmul_w8a8": qmm.quant_matmul_w8a8,
+            "quant_matmul_w4a8": qmm.quant_matmul_w4a8}
+
+
+_TILED = ("quant_matmul", "quant_matmul_int4")  # entries that also count their tiled launches
 
 
 def reset_counts():
     for fn in _counters().values():
         fn.launches = 0
-    _counters()["quant_matmul"].launches_tiled = 0
+    for name in _TILED:
+        _counters()[name].launches_tiled = 0
 
 
 def read_counts():
     counts = {name: fn.launches for name, fn in _counters().items()}
-    counts["quant_matmul_tiled"] = _counters()["quant_matmul"].launches_tiled
+    for name in _TILED:
+        counts[name + "_tiled"] = _counters()[name].launches_tiled
     return counts
+
+
+def zero_counts(**nonzero):
+    """Every counter at 0 but those given."""
+    return {**{k: 0 for k in read_counts()}, **nonzero}
 
 
 def _prompts(cfg, dev, gen):
@@ -438,17 +714,70 @@ def _prompts(cfg, dev, gen):
     return prompts, lengths.to(dev)
 
 
-def build_model(cfg, dev):
+def build_model(cfg, dev, mode="int8"):
+    """Seeded random weights, quantized (``mode`` "int8" or "int4" with g128
+    scales) one layer at a time, and a quantized lm_head."""
     from starflashattention_tpu_torch.models import llama
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    params = llama.init_params(cfg, gen, quantize="int8", device=dev)
-    return llama.quantize_model_weights(params, "int8", lm_head=True, consume=True), gen
+    params = llama.init_params(cfg, gen, quantize=mode, device=dev)
+    return llama.quantize_model_weights(params, mode, lm_head=True, consume=True), gen
+
+
+def time_prefill_decode(params, cfg, prompts, lengths, dev, steps):
+    """A prefill, then ``steps`` greedy decode steps, each timed on the host
+    clock after a synchronize; the logits must stay finite."""
+    from starflashattention_tpu_torch.cache import contiguous
+    from starflashattention_tpu_torch.models import llama
+
+    hkv, d = cfg.kv_cache_dims()
+    cache = contiguous.init_cache(cfg.num_layers, prompts.shape[0], hkv, cfg.max_seq_len, d,
+                                  quant_mode=cfg.quant_mode, calibration_scale=cfg.kv_calibration_scale,
+                                  device=dev)
+    cos, sin = llama.rope_tables(cfg, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = llama.prefill(params, cache, prompts, lengths, cos, sin, cfg)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite prefill logits")
+    tok = llama.sample(logits)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, cache = llama.decode_step(params, cache, tok, cos, sin, cfg)
+        tok = llama.sample(logits)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite decode logits")
+    return dict(prefill_ms=prefill_ms, decode_ms_per_step=step_ms,
+                decode_tok_s=prompts.shape[0] / step_ms * 1e3,
+                prefill_tok_s=int(lengths.sum()) / prefill_ms * 1e3)
+
+
+def run_generate(params, cfg, prompts, lengths, dev, expected, tag):
+    """Greedy ``generate`` with the counters zeroed just before and checked
+    just after; returns (tokens, counts)."""
+    from starflashattention_tpu_torch.models import llama
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    toks = llama.generate(params, cfg, prompts, lengths, SLICE_NEW_TOKENS, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"[{tag}] generate {wall * 1e3:.1f} ms; launches {counts}")
+    if counts != expected:
+        raise AssertionError(f"launch counts {counts} != expected {expected}")
+    if toks.shape != (SLICE_BATCH, SLICE_NEW_TOKENS) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"bad token stream {toks.shape}")
+    return toks, counts
 
 
 def phase_slice(dev):
-    from starflashattention_tpu_torch.cache import contiguous
-    from starflashattention_tpu_torch.models import llama
     from starflashattention_tpu_torch.runtime.params import ModelConfig
 
     base = ModelConfig.llama_7b_gqa(num_layers=SLICE_LAYERS, max_seq_len=SLICE_SEQ)
@@ -464,60 +793,101 @@ def phase_slice(dev):
     # per prefill: one attention and four projections a layer, plus the
     # lm_head (8 rows: the small-M kernel); per decode step: one append,
     # one attention and four projections a layer, plus the lm_head
-    expected = {"flash_prefill": n_layers, "append_rows_kv": steps * n_layers,
-                "flash_decode": steps * n_layers, "quant_matmul": (4 * n_layers + 1) * (steps + 1),
-                "quant_matmul_tiled": 4 * n_layers, "append_rows_paged_kv": 0, "paged_flash_decode": 0}
+    expected = zero_counts(flash_prefill=n_layers, append_rows_kv=steps * n_layers,
+                           flash_decode=steps * n_layers,
+                           quant_matmul=(4 * n_layers + 1) * (steps + 1),
+                           quant_matmul_tiled=4 * n_layers)
     runs, streams = {}, {}
     for splits in (1, base.num_splits):
         cfg = ModelConfig.llama_7b_gqa(num_layers=SLICE_LAYERS, max_seq_len=SLICE_SEQ, num_splits=splits)
-        torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        toks = llama.generate(params, cfg, prompts, lengths, SLICE_NEW_TOKENS, device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = read_counts()
-        log(f"[slice] num_splits={splits}: generate {wall * 1e3:.1f} ms; launches {counts}")
-        if counts != expected:
-            raise AssertionError(f"launch counts {counts} != expected {expected}")
-        if toks.shape != (SLICE_BATCH, SLICE_NEW_TOKENS) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
-            raise AssertionError(f"bad token stream {toks.shape}")
-        streams[splits] = toks
-
-        # timing on its own: prefill, then decode steps
-        hkv, d = cfg.kv_cache_dims()
-        cache = contiguous.init_cache(cfg.num_layers, SLICE_BATCH, hkv, cfg.max_seq_len, d, device=dev)
-        cos, sin = llama.rope_tables(cfg, device=dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, cache = llama.prefill(params, cache, prompts, lengths, cos, sin, cfg)
-        torch.cuda.synchronize()
-        prefill_ms = (time.perf_counter() - t0) * 1e3
-        if not bool(torch.isfinite(logits).all()):
-            raise AssertionError("non-finite prefill logits")
-        tok = llama.sample(logits)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            logits, cache = llama.decode_step(params, cache, tok, cos, sin, cfg)
-            tok = llama.sample(logits)
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) * 1e3 / steps
-        if not bool(torch.isfinite(logits).all()):
-            raise AssertionError("non-finite decode logits")
-        runs[splits] = dict(prefill_ms=prefill_ms, decode_ms_per_step=step_ms,
-                            decode_tok_s=SLICE_BATCH / step_ms * 1e3,
-                            prefill_tok_s=int(lengths.sum()) / prefill_ms * 1e3, counts=counts)
-        log(f"[slice] num_splits={splits}: prefill {prefill_ms:.1f} ms "
-            f"({runs[splits]['prefill_tok_s']:.0f} prompt tok/s), decode {step_ms:.3f} ms/step "
-            f"({runs[splits]['decode_tok_s']:.1f} tok/s at B={SLICE_BATCH}), "
+        streams[splits], counts = run_generate(params, cfg, prompts, lengths, dev, expected,
+                                               f"slice num_splits={splits}")
+        runs[splits] = dict(time_prefill_decode(params, cfg, prompts, lengths, dev, steps), counts=counts)
+        r = runs[splits]
+        log(f"[slice] num_splits={splits}: prefill {r['prefill_ms']:.1f} ms "
+            f"({r['prefill_tok_s']:.0f} prompt tok/s), decode {r['decode_ms_per_step']:.3f} ms/step "
+            f"({r['decode_tok_s']:.1f} tok/s at B={SLICE_BATCH}), "
             f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-        del cache
     agree = (streams[1] == streams[base.num_splits]).float().mean().item()
     log(f"[slice] token agreement between num_splits=1 and {base.num_splits}: {agree:.3f}")
     del params
     torch.cuda.empty_cache()
     return runs
+
+
+# ---------------------------------------------------------------- phase 7
+
+
+def phase_quant_slice(dev):
+    """The quantized deployment at full 7B-GQA width (see the module doc)."""
+    from starflashattention_tpu_torch.runtime.params import ModelConfig
+    from starflashattention_tpu_torch.serving import PagedEngine
+
+    base = ModelConfig.llama_7b_gqa(num_layers=SLICE_LAYERS, max_seq_len=SLICE_SEQ, quant_mode="int8")
+    n, steps = base.num_layers, SLICE_NEW_TOKENS - 1
+    t0 = time.perf_counter()
+    params, gen = build_model(base, dev, "int4")
+    torch.cuda.synchronize()
+    log(f"[quant] llama_7b_gqa L={n} max_seq_len={base.max_seq_len}: int4 g128 weights + int4 lm_head, "
+        f"int8 KV (calibration {base.kv_calibration_scale}), built in {time.perf_counter() - t0:.1f} s")
+    prompts, lengths = _prompts(base, dev, gen)
+    attend = dict(flash_prefill=n, append_rows_kv=steps * n, flash_decode=steps * n)
+    # per decode step 4 projections a layer + the lm_head (small-M); per
+    # prefill 4 projections a layer at 2048 rows, and the lm_head at 8 rows
+    per_run = (4 * n + 1) * steps + 1
+    plan = [  # (key, description, config overrides, expected counts)
+        ("off", "int4, w8a8_prefill off, int8 KV, 1 split", dict(num_splits=1),
+         zero_counts(**attend, quant_matmul_int4=per_run + 4 * n, quant_matmul_int4_tiled=4 * n)),
+        ("w4a8", "int4, w8a8_prefill on (W4A8), int8 KV", dict(w8a8_prefill=True),
+         zero_counts(**attend, quant_matmul_int4=per_run, quant_matmul_w4a8=4 * n)),
+        ("w8a8", "int8, w8a8_prefill on (W8A8), fp8 KV", dict(w8a8_prefill=True, quant_mode="fp8"),
+         zero_counts(**attend, quant_matmul=per_run, quant_matmul_w8a8=4 * n)),
+    ]
+    runs = {}
+    for key, tag, overrides, expected in plan:
+        if key == "w8a8":  # the int4 model's last use was the paged run below
+            del params
+            torch.cuda.empty_cache()
+            params, _ = build_model(base, dev, "int8")
+        cfg = ModelConfig.llama_7b_gqa(num_layers=SLICE_LAYERS, max_seq_len=SLICE_SEQ,
+                                       **{"quant_mode": "int8", **overrides})
+        _, counts = run_generate(params, cfg, prompts, lengths, dev, expected, f"quant {tag}")
+        r = dict(time_prefill_decode(params, cfg, prompts, lengths, dev, steps), counts=counts)
+        runs[key] = r
+        log(f"[quant] {tag}: prefill {r['prefill_ms']:.1f} ms ({r['prefill_tok_s']:.0f} prompt tok/s), "
+            f"decode {r['decode_ms_per_step']:.3f} ms/step ({r['decode_tok_s']:.1f} tok/s at "
+            f"B={SLICE_BATCH}), peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        if key == "w4a8":
+            runs["paged"] = _quant_paged_serving(params, base, dev, PagedEngine)
+    del params
+    torch.cuda.empty_cache()
+    return runs
+
+
+def _quant_paged_serving(params, cfg, dev, engine_cls):
+    """Phase 6's 24 requests through ``PagedEngine`` on int8 pages with the
+    int4 model: every request finishes, K7 and K8 run on the int8 pools."""
+    prompts = _serving_prompts(cfg.vocab_size)
+    n, steps = cfg.num_layers, SERVE_STEPS
+
+    def expect(st):
+        dec = st.decode_rounds * steps * n
+        # every prefill call holds 8 slots of >= 16 rows: the tiled kernel
+        return zero_counts(flash_prefill=st.prefill_rounds * n, paged_flash_decode=dec,
+                           append_rows_paged_kv=dec,
+                           quant_matmul_int4=(st.prefill_rounds + st.decode_rounds * steps) * (4 * n + 1),
+                           quant_matmul_int4_tiled=st.prefill_rounds * 4 * n)
+
+    def make():
+        return engine_cls(params, cfg, num_slots=SERVE_SLOTS, steps_per_round=steps, page_size=PAGE_SIZE,
+                          prefill_chunk=SERVE_CHUNK, prefix_cache=True, num_pages=SERVE_PAGES, device=dev)
+
+    eng, _, wall, counts = _serve(make, prompts, expect)
+    if eng.cache.k_pages.dtype != torch.int8 or eng.cache.k_scales is None:
+        raise AssertionError(f"the paged run did not hold int8 pages ({eng.cache.k_pages.dtype})")
+    log(f"[quant] PagedEngine int8 pages, int4 weights: {wall:.2f} s, {json.dumps(eng.stats.summary())}")
+    log(f"[quant] PagedEngine launches {counts}")
+    return dict(wall_s=wall, stats=eng.stats.summary(), counts=counts)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -532,8 +902,9 @@ def plain_ops():
 
     swaps = [(llama, "flash_decode", flash_decode.flash_decode_plain),
              (llama, "flash_prefill", flash_prefill.flash_prefill_plain),
-             (llama, "quant_matmul", quant_matmul.quant_matmul_plain),
              (contiguous, "append_rows_kv", cache_append.append_rows_kv_plain)]
+    swaps += [(llama, name, getattr(quant_matmul, name + "_plain"))
+              for name in ("quant_matmul", "quant_matmul_int4", "quant_matmul_w8a8", "quant_matmul_w4a8")]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, fn in swaps:
         setattr(mod, name, fn)
@@ -545,43 +916,79 @@ def plain_ops():
 
 
 def phase_path_vs_path(dev):
-    from starflashattention_tpu_torch.cache import contiguous
-    from starflashattention_tpu_torch.models import llama
+    """4 layers at full width, prefill + 4 decode steps, through the kernels
+    and through the plain twins: int8 weights with a bf16 cache, then the
+    quantized deployment (int4 g128 weights + int4 lm_head, int8 KV,
+    ``w8a8_prefill`` on: the 2048-row prefill on W4A8)."""
     from starflashattention_tpu_torch.runtime.params import ModelConfig
 
-    cfg = ModelConfig.llama_7b_gqa(num_layers=4, max_seq_len=SLICE_SEQ)
-    params, gen = build_model(cfg, dev)
+    attend = ("flash_prefill", "flash_decode", "append_rows_kv")
+    for tag, mode, overrides, kernels in (
+            ("int8 weights, bf16 KV", "int8", {}, attend + ("quant_matmul",)),
+            ("int4 weights, int8 KV, W4A8 prefill", "int4", dict(quant_mode="int8", w8a8_prefill=True),
+             attend + ("quant_matmul_int4", "quant_matmul_w4a8"))):
+        cfg = ModelConfig.llama_7b_gqa(num_layers=4, max_seq_len=SLICE_SEQ, **overrides)
+        _path_vs_path(dev, cfg, mode, tag, kernels)
+
+
+def _path_vs_path(dev, cfg, mode, tag, kernels):
+    """One configuration through the kernels, then the plain twins; the
+    kernel run must launch each of ``kernels``, the plain run none."""
+    from starflashattention_tpu_torch.cache import contiguous
+    from starflashattention_tpu_torch.models import llama
+
+    params, gen = build_model(cfg, dev, mode)
     prompts, lengths = _prompts(cfg, dev, gen)
     cos, sin = llama.rope_tables(cfg, device=dev)
 
-    def run():
+    def run(feed=None):
+        """Prefill + 4 decode steps -> (logits, cache, tokens fed). The
+        decode feeds this run's own greedy tokens, or ``feed``: random
+        weights give near-ties in the logits, and a flipped argmax would
+        send the two routes down different streams."""
         hkv, d = cfg.kv_cache_dims()
-        cache = contiguous.init_cache(cfg.num_layers, SLICE_BATCH, hkv, cfg.max_seq_len, d, device=dev)
+        cache = contiguous.init_cache(cfg.num_layers, SLICE_BATCH, hkv, cfg.max_seq_len, d,
+                                      quant_mode=cfg.quant_mode, calibration_scale=cfg.kv_calibration_scale,
+                                      device=dev)
         logits, cache = llama.prefill(params, cache, prompts, lengths, cos, sin, cfg)
-        out = [logits]
-        tok = llama.sample(logits)
-        for _ in range(4):
-            logits, cache = llama.decode_step(params, cache, tok, cos, sin, cfg)
+        out, fed = [logits], []
+        for i in range(4):
+            fed.append(llama.sample(logits) if feed is None else feed[i])
+            logits, cache = llama.decode_step(params, cache, fed[-1], cos, sin, cfg)
             out.append(logits)
-            tok = llama.sample(logits)
-        return torch.stack(out), cache
+        return torch.stack(out), cache, fed
 
-    kern, kcache = run()
+    reset_counts()
+    kern, kcache, fed = run()
+    counts = read_counts()
     with plain_ops():
-        plain, pcache = run()
+        plain, pcache, _ = run(feed=fed)
+    if read_counts() != counts or not all(counts[k] for k in kernels):
+        raise AssertionError(f"{tag}: kernel launches {counts}, then {read_counts()} after the plain run; "
+                             f"the kernel run must launch each of {kernels}")
     err = (kern - plain).abs().max().item()
     peak = plain.abs().max().item()
     # bf16 activations: where the kernel and the plain version round a sum
     # to bf16 on either side of a tie, the flip propagates through the
-    # layers; a few percent of the logit range bounds that at 4 layers.
+    # layers (and, under W4A8, can move a row-quantized activation by one
+    # int8 step); a few percent of the logit range bounds that at 4 layers.
     tol = 0.05 * peak
-    _check(f"path vs path (4 layers, prefill + 4 decode steps) logits (max |logit| {peak:.2f})", err, tol)
+    _check(f"path vs path, {tag} (4 layers, prefill + 4 decode steps) logits (max |logit| {peak:.2f})",
+           err, tol)
     same_argmax = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
-    log(f"[path] argmax agreement {same_argmax:.3f}; cache lengths {kcache.lengths.tolist()} "
-        f"vs {pcache.lengths.tolist()}")
+    log(f"[path] {tag}: argmax agreement {same_argmax:.3f} (both routes decode the kernel route's "
+        f"greedy tokens); cache lengths {kcache.lengths.tolist()} "
+        f"vs {pcache.lengths.tolist()}; kernel launches {counts}")
     if not torch.equal(kcache.lengths, pcache.lengths):
         raise AssertionError("cache lengths differ")
-    return err, tol
+    if cfg.quant_mode != "none":  # the 1-byte caches written through K3 and its plain twin
+        for a, b in ((kcache.k, pcache.k), (kcache.v, pcache.v)):
+            if a.dtype != torch.int8:
+                raise AssertionError(f"{tag}: the cache is {a.dtype}, not int8")
+            diff = (a.int() - b.int()).abs().max().item()
+            log(f"[path] {tag}: int8 cache bytes, largest difference {diff}")
+    del params
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- phase 6
@@ -721,9 +1128,10 @@ def phase_serving(dev):
 
 
 def phase_decode_profile(dev):
-    """bench.py's canonical decode chain on the port: full-width 7B-GQA,
-    B=16, every sequence at 512 of 1024 cache rows, int8 weights and
-    lm_head, greedy steps. Times the step on the host clock, then traces a
+    """bench.py's decode chains on the port: full-width 7B-GQA, B=16, every
+    sequence at 512 of 1024 cache rows, greedy steps; int8 weights and
+    lm_head with a bf16 cache (at one split and at four), then bench.py's
+    second chain, int4 g128 weights and lm_head with an int8 cache. Times the step on the host clock, then traces a
     few steps with torch.profiler for device time by kernel and the device's
     idle share. Not part of the default run."""
     from torch.autograd import DeviceType
@@ -734,11 +1142,16 @@ def phase_decode_profile(dev):
     from starflashattention_tpu_torch.runtime.params import ModelConfig
 
     batch, start_len, steps, traced = 16, 512, 32, 8
-    for splits in (1, ModelConfig.llama_7b_gqa().num_splits):
-        cfg = ModelConfig.llama_7b_gqa(max_seq_len=SLICE_SEQ, num_splits=splits)
-        params, _ = build_model(cfg, dev)
+    chains = (("num_splits=1", "int8", dict(num_splits=1)),
+              (f"num_splits={ModelConfig.llama_7b_gqa().num_splits}", "int8", {}),
+              ("int4w+int8kv", "int4", dict(quant_mode="int8")))
+    for label, mode, overrides in chains:
+        cfg = ModelConfig.llama_7b_gqa(max_seq_len=SLICE_SEQ, **overrides)
+        params, _ = build_model(cfg, dev, mode)
         hkv, d = cfg.kv_cache_dims()
-        cache = contiguous.init_cache(cfg.num_layers, batch, hkv, cfg.max_seq_len, d, device=dev)
+        cache = contiguous.init_cache(cfg.num_layers, batch, hkv, cfg.max_seq_len, d,
+                                      quant_mode=cfg.quant_mode,
+                                      calibration_scale=cfg.kv_calibration_scale, device=dev)
         cos, sin = llama.rope_tables(cfg, device=dev)
         tok = torch.zeros((batch,), dtype=torch.int32, device=dev)
 
@@ -756,7 +1169,7 @@ def phase_decode_profile(dev):
         tok = run(steps, tok)
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3 / steps
-        log(f"[profile] num_splits={splits}: decode B={batch} at {start_len}+ rows: {step_ms:.3f} ms/step "
+        log(f"[profile] {label}: decode B={batch} at {start_len}+ rows: {step_ms:.3f} ms/step "
             f"({batch / step_ms * 1e3:.1f} tok/s), host clock over {steps} steps")
 
         cache.lengths.fill_(start_len)
@@ -774,11 +1187,11 @@ def phase_decode_profile(dev):
             us = evt.self_cuda_time_total if us is None else us
             kernels[evt.key] = (us / 1e3 / traced, evt.count / traced)
         if not kernels:
-            log(f"[profile] num_splits={splits}: the profiler saw no device time; kernel breakdown not measured")
+            log(f"[profile] {label}: the profiler saw no device time; kernel breakdown not measured")
         else:
             busy = sum(ms for ms, _ in kernels.values())
             launches = sum(n for _, n in kernels.values())
-            log(f"[profile] num_splits={splits}: traced {traced} steps, {wall_ms / traced:.3f} ms/step wall, "
+            log(f"[profile] {label}: traced {traced} steps, {wall_ms / traced:.3f} ms/step wall, "
                 f"device busy {busy:.3f} ms/step in {launches:.0f} kernel launches/step, "
                 f"idle share {1 - busy * traced / wall_ms:.3f}")
             for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]:
@@ -798,14 +1211,30 @@ REPLACES = {
     "flash_prefill": ("starflashattention_tpu/ops/flash_prefill.py:67", "flash_prefill.cu"),
     "paged_flash_decode": ("starflashattention_tpu/ops/paged_decode.py:74", "flash_decode.cu"),
     "append_rows_paged_kv": ("starflashattention_tpu/ops/cache_append.py:219", "cache_append.cu"),
+    "quant_matmul_int4 (small-M, decode rows)": ("starflashattention_tpu/ops/quant_matmul.py:178",
+                                                 "quant_matmul.cu"),
+    "quant_matmul_int4 (tiled, prefill rows)": ("starflashattention_tpu/ops/quant_matmul.py:178",
+                                                "quant_matmul.cu"),
+    "quant_matmul_w8a8 (prefill rows)": ("starflashattention_tpu/ops/quant_matmul.py:500", "quant_matmul_a8.cu"),
+    "quant_matmul_w4a8 (prefill rows)": ("starflashattention_tpu/ops/quant_matmul.py:346", "quant_matmul_a8.cu"),
+    **{f"flash_decode {m} KV (1 split, fused)": ("starflashattention_tpu/ops/flash_decode.py:213",
+                                                 "flash_decode.cu") for m in ("int8", "fp8")},
+    **{f"flash_decode {m} KV (split-KV partials)": ("starflashattention_tpu/ops/flash_decode.py:141",
+                                                    "flash_decode.cu") for m in ("int8", "fp8")},
+    **{f"paged_flash_decode {m} KV": ("starflashattention_tpu/ops/paged_decode.py:74", "flash_decode.cu")
+       for m in ("int8", "fp8")},
 }
+# measured in phase 2 but launched by no main-path run (the quantized slice
+# runs the fp8 cache only in split mode and pages only in int8): logged, not
+# in the kernels line
+OFF_PATH = ("flash_decode fp8 KV (1 split, fused)", "paged_flash_decode fp8 KV")
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,6",
-                        help="comma-separated phases to run (default 1,2,3,4,6; phase 5, "
-                             "a profile of bench.py's decode chain, runs only when named)")
+    parser.add_argument("--phases", default="1,2,3,4,6,7",
+                        help="comma-separated phases to run (default 1,2,3,4,6,7; phase 5, "
+                             "a profile of bench.py's decode chains, runs only when named)")
     args = parser.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -824,6 +1253,7 @@ def main(argv=None):
     if 4 in phases:
         phase_path_vs_path(dev)
     serving = phase_serving(dev) if 6 in phases else {}
+    quant = phase_quant_slice(dev) if 7 in phases else {}
     if 5 in phases:
         phase_decode_profile(dev)
 
@@ -840,8 +1270,21 @@ def main(argv=None):
         paged = serving["paged"]["counts"]
         launches.update({"paged_flash_decode": paged["paged_flash_decode"],
                          "append_rows_paged_kv": paged["append_rows_paged_kv"]})
+    if quant:
+        off, w4a8, w8a8 = (quant[key]["counts"] for key in ("off", "w4a8", "w8a8"))
+        launches.update({
+            "quant_matmul_int4 (small-M, decode rows)": off["quant_matmul_int4"] - off["quant_matmul_int4_tiled"],
+            "quant_matmul_int4 (tiled, prefill rows)": off["quant_matmul_int4_tiled"],
+            "quant_matmul_w4a8 (prefill rows)": w4a8["quant_matmul_w4a8"],
+            "quant_matmul_w8a8 (prefill rows)": w8a8["quant_matmul_w8a8"],
+            "flash_decode int8 KV (1 split, fused)": off["flash_decode"],
+            "flash_decode int8 KV (split-KV partials)": w4a8["flash_decode"],
+            "flash_decode fp8 KV (split-KV partials)": w8a8["flash_decode"],
+            "paged_flash_decode int8 KV": quant["paged"]["counts"]["paged_flash_decode"]})
     line = []
     for name, r in kernels.items():
+        if name in OFF_PATH:
+            continue
         replaces, src = REPLACES[name]
         line.append({"name": name, "route": "cuda", "source": f"starflashattention_tpu_torch/csrc/{src}",
                      "replaces": replaces, "launches": launches.get(name),

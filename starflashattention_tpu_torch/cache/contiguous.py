@@ -4,6 +4,10 @@ Layers stack on one leading axis: ``k``/``v`` are (L, B, Hkv, S, D). The
 port updates these tensors IN PLACE (the JAX package donates the cache to
 its jitted step instead); the ops in ``ops/`` take the whole table plus a
 ``layer`` index, so no per-layer copy is ever made.
+
+Quantized caches hold int8 / fp8 values with per-(layer, KV head) fp32
+scales fixed at allocation (calibration), so appended rows quantize against
+the existing scales without a rescan (``core/quant.quantize_value``).
 """
 
 from __future__ import annotations
@@ -57,6 +61,28 @@ class KVCache:
             return "fp8"
         return "none"
 
+    def layer_scales(self, layer: int):
+        """(k_scales, v_scales) (Hkv,) of one layer, or (None, None)."""
+        if self.k_scales is None:
+            return None, None
+        return self.k_scales[layer], self.v_scales[layer]
+
+
+def kv_storage(quant_mode: str, dtype: torch.dtype, num_layers: int, num_kv_heads: int,
+               calibration_scale: float, device: torch.device):
+    """(element dtype, k_scales, v_scales) of a cache: ``dtype`` and no
+    scales unquantized, else int8 / fp8 with (L, Hkv) scales of
+    ``calibration_scale / qmax``."""
+    if quant_mode == "none":
+        return dtype, None, None
+    if quant_mode not in ("int8", "fp8"):
+        raise ValueError(f"unknown KV quant mode {quant_mode!r}")
+    qdtype = torch.int8 if quant_mode == "int8" else torch.float8_e4m3fn
+    qmax = quant.INT8_MAX if quant_mode == "int8" else quant.FP8_MAX
+    scales = torch.full((num_layers, num_kv_heads), calibration_scale / qmax,
+                        dtype=torch.float32, device=device)
+    return qdtype, scales, scales.clone()
+
 
 def init_cache(
     num_layers: int,
@@ -73,30 +99,32 @@ def init_cache(
     Quantized modes get per-head scales of ``calibration_scale / qmax``."""
     dev = resolve_device(device)
     shape = (num_layers, batch_size, num_kv_heads, max_seq_len, head_dim)
-    lengths = torch.zeros((batch_size,), dtype=torch.int32, device=dev)
-    if quant_mode == "none":
-        return KVCache(
-            k=torch.zeros(shape, dtype=dtype, device=dev),
-            v=torch.zeros(shape, dtype=dtype, device=dev),
-            lengths=lengths,
-        )
-    qdtype = torch.int8 if quant_mode == "int8" else torch.float8_e4m3fn
-    qmax = quant.INT8_MAX if quant_mode == "int8" else quant.FP8_MAX
-    scales = torch.full((num_layers, num_kv_heads), calibration_scale / qmax,
-                        dtype=torch.float32, device=dev)
+    qdtype, k_scales, v_scales = kv_storage(quant_mode, dtype, num_layers, num_kv_heads,
+                                            calibration_scale, dev)
     return KVCache(
         k=torch.zeros(shape, dtype=qdtype, device=dev),
         v=torch.zeros(shape, dtype=qdtype, device=dev),
-        lengths=lengths,
-        k_scales=scales,
-        v_scales=scales.clone(),
+        lengths=torch.zeros((batch_size,), dtype=torch.int32, device=dev),
+        k_scales=k_scales,
+        v_scales=v_scales,
     )
 
 
-def _check_unquantized(cache: KVCache) -> None:
-    if cache.k_scales is not None:
-        raise NotImplementedError(
-            "quantized KV caches are not ported yet (ROADMAP Queue 2, K1 options)")
+def quantize_new(x: torch.Tensor, scales: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor:
+    """New K/V rows (B, Hkv, ...) in the cache's dtype: quantized against
+    the fixed per-head ``scales`` when there are any (JAX ``_quantize_new``)."""
+    if scales is None:
+        return x.to(dtype)
+    return quant.quantize_value(x, scales, "int8" if dtype == torch.int8 else "fp8", head_axis=1)
+
+
+def dequantize_rows(table: torch.Tensor, scales: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor:
+    """(B, Hkv, S, D) rows of one layer in ``dtype``: ``values * scale[h]`` in
+    fp32, then one cast (the JAX prefill's dequant); unquantized rows are
+    only cast."""
+    if scales is None:
+        return table.to(dtype)
+    return (table.float() * scales.float()[None, :, None, None]).to(dtype)
 
 
 def append_decode(cache: KVCache, layer: int, k_new: torch.Tensor, v_new: torch.Tensor) -> KVCache:
@@ -104,11 +132,12 @@ def append_decode(cache: KVCache, layer: int, k_new: torch.Tensor, v_new: torch.
     ``lengths[b]`` slot of ``layer``, IN PLACE, through the
     ``append_rows_kv`` kernel. Positions clamp to the last slot, as the JAX
     package's ``dynamic_update_slice`` does. ``lengths`` is not advanced:
-    call :func:`advance` once after all layers."""
-    _check_unquantized(cache)
+    call :func:`advance` once after all layers. A quantized cache gets the
+    rows quantized against its scales first."""
+    ks, vs = cache.layer_scales(layer)
     pos = torch.clamp(cache.lengths, max=cache.max_seq_len - 1)
-    append_rows_kv(cache.k, cache.v, k_new.to(cache.k.dtype), v_new.to(cache.v.dtype),
-                   layer, pos)
+    append_rows_kv(cache.k, cache.v, quantize_new(k_new, ks, cache.k.dtype),
+                   quantize_new(v_new, vs, cache.v.dtype), layer, pos)
     return cache
 
 
@@ -135,8 +164,8 @@ def append_prefill(cache: KVCache, layer: int, k_new: torch.Tensor, v_new: torch
     byte for byte as it was (the serving engine's busy slots). Raises when a
     written window would run past the cache (:func:`check_prefill_window`);
     ``check=False`` skips that check (and its host sync) for a caller that
-    made it once for all layers."""
-    _check_unquantized(cache)
+    made it once for all layers. A quantized cache gets the rows quantized
+    against its scales first."""
     b, _, sq, _ = k_new.shape
     if check:
         check_prefill_window(cache, sq, rows)
@@ -145,8 +174,9 @@ def append_prefill(cache: KVCache, layer: int, k_new: torch.Tensor, v_new: torch
     pos = cache.lengths.long()[rows][:, None] + torch.arange(sq, device=cache.k.device)[None, :]
     # advanced indices (R, 1) x (R, Sq) around the head slice address an
     # (R, Sq, Hkv, D) block
-    cache.k[layer][rows[:, None], :, pos] = k_new[rows].transpose(1, 2).to(cache.k.dtype)
-    cache.v[layer][rows[:, None], :, pos] = v_new[rows].transpose(1, 2).to(cache.v.dtype)
+    ks, vs = cache.layer_scales(layer)
+    for table, new, scales in ((cache.k, k_new, ks), (cache.v, v_new, vs)):
+        table[layer][rows[:, None], :, pos] = quantize_new(new[rows], scales, table.dtype).transpose(1, 2)
     return cache
 
 

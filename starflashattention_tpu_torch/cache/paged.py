@@ -8,6 +8,9 @@ device; the allocators below are host-side bookkeeping that produce it.
 Page 0 is the null page: fresh table rows point at it, so a kernel may
 read or write through an unmapped entry without leaving the pool.
 
+Quantized pools hold int8 / fp8 values with per-(layer, KV head) fp32
+scales fixed at allocation, as the contiguous cache does.
+
 The port updates the pools IN PLACE (the JAX package donates them to its
 jitted step instead). :func:`append_decode_paged` goes through the K8
 kernel (``ops/cache_append.append_rows_paged_kv``); the prompt-chunk
@@ -21,15 +24,17 @@ import dataclasses
 
 import torch
 
+from starflashattention_tpu_torch.cache.contiguous import kv_storage, quantize_new
 from starflashattention_tpu_torch.ops.cache_append import append_rows_paged_kv
 from starflashattention_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
 class PagedKVCache:
-    """``k_pages``/``v_pages``: (L, Hkv, P, page_size, D) bf16/fp32;
-    ``page_table``: (B, pages_per_seq) int32; ``lengths``: (B,) int32.
-    ``k_scales``/``v_scales`` stay None (quantized pages are not ported)."""
+    """``k_pages``/``v_pages``: (L, Hkv, P, page_size, D) bf16/fp32, or
+    int8/float8_e4m3fn when quantized; ``page_table``: (B, pages_per_seq)
+    int32; ``lengths``: (B,) int32. ``k_scales``/``v_scales``: (L, Hkv)
+    fp32 or None."""
 
     k_pages: torch.Tensor
     v_pages: torch.Tensor
@@ -68,7 +73,17 @@ class PagedKVCache:
 
     @property
     def quant_mode(self) -> str:
+        if self.k_pages.dtype == torch.int8:
+            return "int8"
+        if self.k_pages.dtype == torch.float8_e4m3fn:
+            return "fp8"
         return "none"
+
+    def layer_scales(self, layer: int):
+        """(k_scales, v_scales) (Hkv,) of one layer, or (None, None)."""
+        if self.k_scales is None:
+            return None, None
+        return self.k_scales[layer], self.v_scales[layer]
 
 
 def init_paged_cache(
@@ -82,23 +97,25 @@ def init_paged_cache(
     pages_per_seq: int,
     dtype: torch.dtype = torch.bfloat16,
     quant_mode: str = "none",
+    calibration_scale: float = 1.0,
     device: torch.device | str | None = None,
 ) -> PagedKVCache:
     """Zeroed pools, a null page table and zero lengths on ``device``
-    (default ``cuda``). Quantized pages raise (the contiguous cache can
-    allocate them but not append to them)."""
-    if quant_mode != "none":
-        raise NotImplementedError(
-            "quantized KV pages are not ported yet (ROADMAP Queue 2, K7 options)")
-    if dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"paged pools hold bf16 or fp32, got {dtype}")
+    (default ``cuda``). ``quant_mode`` "int8" / "fp8" allocates 1-byte pools
+    with per-head scales of ``calibration_scale / qmax``."""
     dev = resolve_device(device)
+    if quant_mode == "none" and dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"paged pools hold bf16 or fp32, got {dtype}")
+    qdtype, k_scales, v_scales = kv_storage(quant_mode, dtype, num_layers, num_kv_heads,
+                                            calibration_scale, dev)
     shape = (num_layers, num_kv_heads, num_pages, page_size, head_dim)
     return PagedKVCache(
-        k_pages=torch.zeros(shape, dtype=dtype, device=dev),
-        v_pages=torch.zeros(shape, dtype=dtype, device=dev),
+        k_pages=torch.zeros(shape, dtype=qdtype, device=dev),
+        v_pages=torch.zeros(shape, dtype=qdtype, device=dev),
         page_table=torch.zeros((batch_size, pages_per_seq), dtype=torch.int32, device=dev),
         lengths=torch.zeros((batch_size,), dtype=torch.int32, device=dev),
+        k_scales=k_scales,
+        v_scales=v_scales,
     )
 
 
@@ -180,22 +197,17 @@ class SeqPagePool:
         self._alloc.free(pages)
 
 
-def _check_unquantized(cache: PagedKVCache) -> None:
-    if cache.k_scales is not None:
-        raise NotImplementedError(
-            "quantized KV pages are not ported yet (ROADMAP Queue 2, K7 options)")
-
-
 def append_decode_paged(cache: PagedKVCache, layer: int, k_new: torch.Tensor,
                         v_new: torch.Tensor) -> PagedKVCache:
     """Write one token's K/V rows (B, Hkv, D) at each sequence's
     ``lengths[b]`` through its page table, IN PLACE (kernel K8). Positions
     clamp to the last logical slot, as the JAX decode step clamps them.
-    ``lengths`` is not advanced."""
-    _check_unquantized(cache)
+    ``lengths`` is not advanced. Quantized pools get the rows quantized
+    against their scales first."""
+    ks, vs = cache.layer_scales(layer)
     pos = torch.clamp(cache.lengths, max=cache.pages_per_seq * cache.page_size - 1)
-    append_rows_paged_kv(cache.k_pages, cache.v_pages, k_new.to(cache.k_pages.dtype),
-                         v_new.to(cache.v_pages.dtype), layer, cache.page_table, pos)
+    append_rows_paged_kv(cache.k_pages, cache.v_pages, quantize_new(k_new, ks, cache.k_pages.dtype),
+                         quantize_new(v_new, vs, cache.v_pages.dtype), layer, cache.page_table, pos)
     return cache
 
 

@@ -30,9 +30,18 @@
 // its pages_per_compute_block grid and its prefetch-chain rule are TPU
 // scheduling and are not carried over.
 //
+// Quantized KV: the K/V tables or pools may hold int8 or fp8-e4m3 values
+// (a KV element type apart from q's T). Tiles are staged with the same
+// 16-byte loads and each value is converted to float where it is read
+// (exact, as the TPU kernel's upcast to q's dtype is). The dequant scales do
+// not enter the kernel: as the JAX wrappers do, ops/flash_decode.py and
+// ops/paged_decode.py fold sm_scale * k_scale[h] into q (the kernel then
+// scales the scores by 1) and multiply v_scale[h] into the output or the
+// partials. The paged mode can write its output in fp32 for that.
+//
 // Bound: the K/V bytes read — lengths[b] * Hkv * D * 2 tables * 2 bytes per
-// sequence in bf16, 33.5 MB per layer at B = 16, Hkv = 8, D = 128 and a mean
-// length of 512, i.e. ~10 us at 3.35 TB/s; the 4 * len * Hq * D operations
+// sequence in bf16 (1 byte in int8 / fp8), 33.5 MB per layer at B = 16,
+// Hkv = 8, D = 128 and a mean length of 512, i.e. ~10 us at 3.35 TB/s; the 4 * len * Hq * D operations
 // are far below the tensor-core rate. Design against that bound: one block
 // per (split, kv head, b) holds all G = Hq / Hkv query rows of the group, so
 // every K/V tile is read from device memory once per group, not G times;
@@ -44,6 +53,7 @@
 // p = 0 exactly, so a row of length 0 gives 0.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,6 +65,8 @@ constexpr float NEG_INF = -0.7f * 3.4028234663852886e38f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(int8_t v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 v) { return static_cast<float>(v); }
 __device__ __forceinline__ void from_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void from_f(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 // v rounded to T's precision (the tag pointer picks the overload)
@@ -83,20 +95,21 @@ struct Tile {
   static constexpr int VEC = 16 / sizeof(T);
 };
 
-template <typename T, int D>
+template <typename KV, int D>
 size_t smem_bytes(int G) {
-  return sizeof(T) * (size_t)BK * (Tile<T, D>::KS + D) +
+  return sizeof(KV) * (size_t)BK * (Tile<KV, D>::KS + D) +
          sizeof(float) * ((size_t)2 * G * D + (size_t)G * BK + 3 * (size_t)G);
 }
 
-template <typename T>
+template <typename T, typename KV>
 struct DecodeArgs {
   const T* q;
-  const T* k;  // one layer: (B, Hkv, S, D) table, or (Hkv, P, ps, D) pool slice
-  const T* v;
+  const KV* k;  // one layer: (B, Hkv, S, D) table, or (Hkv, P, ps, D) pool slice
+  const KV* v;
   const int* lengths;
   const int* page_table;  // paged only: (B, pages_per_seq)
-  T* out;                 // fused mode
+  T* out;                 // fused mode, in q's dtype
+  float* out_f32;         // fused mode, in fp32 (instead of out)
   float* o_part;          // partials mode
   float* m_part;
   float* l_part;
@@ -107,9 +120,9 @@ struct DecodeArgs {
   int fold_scale;  // 1: q * scale rounded to T before the dots (paged)
 };
 
-template <typename T, int D, bool PAGED>
-__global__ void __launch_bounds__(THREADS) flash_decode_kernel(const DecodeArgs<T> a) {
-  using TL = Tile<T, D>;
+template <typename T, typename KV, int D, bool PAGED>
+__global__ void __launch_bounds__(THREADS) flash_decode_kernel(const DecodeArgs<T, KV> a) {
+  using TL = Tile<KV, D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ long long row_off[BK];  // paged: element offset of each tile row
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
@@ -117,8 +130,8 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const DecodeArgs<
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   constexpr int NWARPS = THREADS / 32;
 
-  T* k_s = reinterpret_cast<T*>(smem_raw);       // [BK][KS]
-  T* v_s = k_s + BK * TL::KS;                    // [BK][D]
+  KV* k_s = reinterpret_cast<KV*>(smem_raw);     // [BK][KS]
+  KV* v_s = k_s + BK * TL::KS;                   // [BK][D]
   float* q_s = reinterpret_cast<float*>(v_s + BK * D);  // [G][D]
   float* acc = q_s + G * D;                      // [G][D]
   float* s_s = acc + G * D;                      // [G][BK]
@@ -142,8 +155,8 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const DecodeArgs<
   const int len = min(a.lengths[b], a.S);
   const int start = split * a.split_len;
   const int end = min(start + a.split_len, len);
-  const T* kb = a.k;
-  const T* vb = a.v;
+  const KV* kb = a.k;
+  const KV* vb = a.v;
   if constexpr (!PAGED) {
     kb += ((size_t)b * a.Hkv + kvh) * (size_t)a.S * D;
     vb += ((size_t)b * a.Hkv + kvh) * (size_t)a.S * D;
@@ -193,7 +206,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const DecodeArgs<
       float s = NEG_INF;
       if (j < nrows) {
         const float* qg = q_s + g * D;
-        const T* kj = k_s + j * TL::KS;
+        const KV* kj = k_s + j * TL::KS;
         float acc_s = 0.f;
 #pragma unroll 16
         for (int d = 0; d < D; ++d) acc_s += qg[d] * to_f(kj[d]);
@@ -229,10 +242,15 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const DecodeArgs<
     __syncthreads();
   }
 
-  if (a.out != nullptr) {
+  if (a.out != nullptr || a.out_f32 != nullptr) {
     for (int i = tid; i < G * D; i += THREADS) {
       const float l = l_s[i / D];
-      from_f(a.out + head0 * D + i, acc[i] / (l == 0.f ? 1.f : l));
+      const float o = acc[i] / (l == 0.f ? 1.f : l);
+      if (a.out_f32 != nullptr) {
+        a.out_f32[head0 * D + i] = o;
+      } else {
+        from_f(a.out + head0 * D + i, o);
+      }
     }
   } else {
     for (int i = tid; i < G * D; i += THREADS) {
@@ -247,10 +265,10 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const DecodeArgs<
   }
 }
 
-template <typename T, int D, bool PAGED>
-cudaError_t launch(const DecodeArgs<T>& a, int B, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T, D>(a.Hq / a.Hkv);
-  auto kernel = flash_decode_kernel<T, D, PAGED>;
+template <typename T, typename KV, int D, bool PAGED>
+cudaError_t launch(const DecodeArgs<T, KV>& a, int B, cudaStream_t stream) {
+  const size_t smem = smem_bytes<KV, D>(a.Hq / a.Hkv);
+  auto kernel = flash_decode_kernel<T, KV, D, PAGED>;
   if (smem + BK * sizeof(long long) > 48 * 1024) {  // dynamic + the static row_off
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -261,30 +279,51 @@ cudaError_t launch(const DecodeArgs<T>& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, bool PAGED>
-cudaError_t launch_d(int D, const DecodeArgs<T>& a, int B, cudaStream_t stream) {
-  switch (D) {
+// The untyped arguments of one call, as the C entry points receive them.
+struct RawArgs {
+  const void *q, *k, *v, *lengths, *page_table;
+  void *out, *out_f32, *o_part, *m_part, *l_part;
+  int B, Hq, Hkv, S, D, num_splits, split_len, pages_per_seq, page_size, num_pages;
+  float scale;
+  int fold_scale;
+};
+
+template <typename T, typename KV, bool PAGED>
+cudaError_t run(const RawArgs& r, cudaStream_t stream) {
+  const DecodeArgs<T, KV> a{static_cast<const T*>(r.q), static_cast<const KV*>(r.k),
+                            static_cast<const KV*>(r.v), static_cast<const int*>(r.lengths),
+                            static_cast<const int*>(r.page_table), static_cast<T*>(r.out),
+                            static_cast<float*>(r.out_f32), static_cast<float*>(r.o_part),
+                            static_cast<float*>(r.m_part), static_cast<float*>(r.l_part),
+                            r.Hq, r.Hkv, r.S, r.num_splits, r.split_len, r.pages_per_seq,
+                            r.page_size, r.num_pages, r.scale, r.fold_scale};
+  switch (r.D) {
     case 64:
-      return launch<T, 64, PAGED>(a, B, stream);
+      return launch<T, KV, 64, PAGED>(a, r.B, stream);
     case 128:
-      return launch<T, 128, PAGED>(a, B, stream);
+      return launch<T, KV, 128, PAGED>(a, r.B, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-DecodeArgs<T> make_args(const void* q, const void* k, const void* v, const void* lengths,
-                        const void* page_table, void* out, void* o_part, void* m_part,
-                        void* l_part, int Hq, int Hkv, int S, int num_splits, int split_len,
-                        int pages_per_seq, int page_size, int num_pages, float scale,
-                        int fold_scale) {
-  return DecodeArgs<T>{static_cast<const T*>(q), static_cast<const T*>(k),
-                       static_cast<const T*>(v), static_cast<const int*>(lengths),
-                       static_cast<const int*>(page_table), static_cast<T*>(out),
-                       static_cast<float*>(o_part), static_cast<float*>(m_part),
-                       static_cast<float*>(l_part), Hq, Hkv, S, num_splits, split_len,
-                       pages_per_seq, page_size, num_pages, scale, fold_scale};
+// dtype: 0 = fp32 q, 1 = bf16 q; kv_dtype: 0 = q's dtype, 1 = int8, 2 = fp8-e4m3.
+template <bool PAGED>
+cudaError_t dispatch(int dtype, int kv_dtype, const RawArgs& r, cudaStream_t s) {
+  if (dtype == 1) {
+    switch (kv_dtype) {
+      case 0: return run<__nv_bfloat16, __nv_bfloat16, PAGED>(r, s);
+      case 1: return run<__nv_bfloat16, int8_t, PAGED>(r, s);
+      case 2: return run<__nv_bfloat16, __nv_fp8_e4m3, PAGED>(r, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  switch (kv_dtype) {
+    case 0: return run<float, float, PAGED>(r, s);
+    case 1: return run<float, int8_t, PAGED>(r, s);
+    case 2: return run<float, __nv_fp8_e4m3, PAGED>(r, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -294,48 +333,34 @@ extern "C" {
 const char* error_string(int e) { return cudaGetErrorString(static_cast<cudaError_t>(e)); }
 
 // q (B, Hq, D); k, v: one layer's (B, Hkv, S, D); lengths (B,) int32.
-// Fused mode: out (B, Hq, D) non-null, partial pointers null, num_splits 1.
-// Partials mode: out null; o_part (B, Hq, N, D), m_part/l_part (B, Hq, N).
-// dtype: 0 = fp32, 1 = bf16 (q and the cache share it). D is 64 or 128.
+// Fused mode: out (B, Hq, D) in q's dtype non-null, partial pointers null,
+// num_splits 1. Partials mode: out null; o_part (B, Hq, N, D),
+// m_part/l_part (B, Hq, N). dtype: 0 = fp32, 1 = bf16 (q's dtype); kv_dtype:
+// 0 = q's dtype, 1 = int8, 2 = fp8-e4m3. D is 64 or 128. ``scale``
+// multiplies the scores (the quantized path passes 1 with q prescaled).
 int flash_decode(const void* q, const void* k, const void* v, const void* lengths, void* out,
                  void* o_part, void* m_part, void* l_part, int B, int Hq, int Hkv, int S, int D,
-                 int num_splits, int split_len, float scale, int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e =
-      dtype == 1
-          ? launch_d<__nv_bfloat16, false>(
-                D, make_args<__nv_bfloat16>(q, k, v, lengths, nullptr, out, o_part, m_part, l_part,
-                                            Hq, Hkv, S, num_splits, split_len, 0, 1, 0, scale, 0),
-                B, s)
-          : launch_d<float, false>(
-                D, make_args<float>(q, k, v, lengths, nullptr, out, o_part, m_part, l_part, Hq,
-                                    Hkv, S, num_splits, split_len, 0, 1, 0, scale, 0),
-                B, s);
-  return static_cast<int>(e);
+                 int num_splits, int split_len, float scale, int dtype, int kv_dtype,
+                 void* stream) {
+  const RawArgs r{q, k, v, lengths, nullptr, out, nullptr, o_part, m_part, l_part, B, Hq, Hkv,
+                  S, D, num_splits, split_len, 0, 1, 0, scale, 0};
+  return static_cast<int>(dispatch<false>(dtype, kv_dtype, r, static_cast<cudaStream_t>(stream)));
 }
 
 // q (B, Hq, D); k, v: one layer's (Hkv, num_pages, page_size, D) slice of
 // the pools; page_table (B, pages_per_seq) int32; lengths (B,) int32;
-// out (B, Hq, D), normalized, rows of length 0 give 0. dtype as above.
+// out (B, Hq, D), normalized, in q's dtype, or in fp32 when out_f32; rows
+// of length 0 give 0. dtype, kv_dtype as above. q * scale is rounded to q's
+// dtype in the kernel.
 int paged_flash_decode(const void* q, const void* k, const void* v, const void* lengths,
                        const void* page_table, void* out, int B, int Hq, int Hkv, int num_pages,
                        int page_size, int pages_per_seq, int D, float scale, int dtype,
-                       void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                       int kv_dtype, int out_f32, void* stream) {
   const int S = pages_per_seq * page_size;
-  cudaError_t e =
-      dtype == 1
-          ? launch_d<__nv_bfloat16, true>(
-                D, make_args<__nv_bfloat16>(q, k, v, lengths, page_table, out, nullptr, nullptr,
-                                            nullptr, Hq, Hkv, S, 1, S, pages_per_seq, page_size,
-                                            num_pages, scale, 1),
-                B, s)
-          : launch_d<float, true>(
-                D, make_args<float>(q, k, v, lengths, page_table, out, nullptr, nullptr, nullptr,
-                                    Hq, Hkv, S, 1, S, pages_per_seq, page_size, num_pages, scale,
-                                    1),
-                B, s);
-  return static_cast<int>(e);
+  const RawArgs r{q, k, v, lengths, page_table, out_f32 ? nullptr : out, out_f32 ? out : nullptr,
+                  nullptr, nullptr, nullptr, B, Hq, Hkv, S, D, 1, S, pages_per_seq, page_size,
+                  num_pages, scale, 1};
+  return static_cast<int>(dispatch<true>(dtype, kv_dtype, r, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

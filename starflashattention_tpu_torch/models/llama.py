@@ -7,9 +7,17 @@ cache) and ``prefill_serving_paged`` / ``decode_multi_paged`` (paged
 pools) take per-row ``active`` / ``reset`` masks. All use the JAX
 package's parameter layout: layer weights stacked on a leading (L, ...) axis
 and used as ``x @ w`` (so weights bridge by copy, never by transpose).
-Quantized projections stay stacked and reach ``quant_matmul`` with a layer
-index, so no per-layer copy is made. Layers run in a Python loop (PyTorch
-is eager; the JAX package scans).
+Quantized projections stay stacked and reach their kernel with a layer
+index, so no per-layer copy is made: int8 / fp8 weights ``quant_matmul``,
+int4 weights ``quant_matmul_int4``; with ``cfg.w8a8_prefill``, prefill rows
+(>= 256) of int8 and int4 weights take ``quant_matmul_w8a8`` /
+``quant_matmul_w4a8`` instead. Layers run in a Python loop (PyTorch is
+eager; the JAX package scans).
+
+With ``cfg.quant_mode`` "int8" / "fp8" the KV cache holds quantized values
+with fixed per-head scales: new rows are quantized before the appends, the
+decode attentions fold the scales around their kernels, and the prefill
+attends dequantized rows.
 
 The cache is updated IN PLACE: every entry point writes the new K/V rows
 into the cache's tensors and advances ``cache.lengths``, where the JAX
@@ -38,13 +46,15 @@ from starflashattention_tpu_torch.core.rope import apply_rope, rope_table
 from starflashattention_tpu_torch.ops.flash_decode import flash_decode
 from starflashattention_tpu_torch.ops.flash_prefill import flash_prefill
 from starflashattention_tpu_torch.ops.paged_decode import paged_flash_decode
-from starflashattention_tpu_torch.ops.quant_matmul import quant_matmul
+from starflashattention_tpu_torch.ops.quant_matmul import (quant_matmul, quant_matmul_int4,
+                                                          quant_matmul_w4a8, quant_matmul_w8a8)
 from starflashattention_tpu_torch.runtime.params import ModelConfig
 from starflashattention_tpu_torch.utils.device import resolve_device
 
 Params = dict[str, Any]
 
 _QUANT_WEIGHTS = ("wqkv", "wo", "w_gate_up", "w_down")
+W8A8_MIN_ROWS = 256  # prefill rows from which cfg.w8a8_prefill takes the int8-activation kernels
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
@@ -64,8 +74,6 @@ def check_supported(cfg: ModelConfig) -> None:
         "post_norms": cfg.post_norms,
         "embed_scale": cfg.embed_scale,
         f"mlp_activation={cfg.mlp_activation!r}": cfg.mlp_activation != "silu",
-        f"quant_mode={cfg.quant_mode!r} (quantized KV cache)": cfg.quant_mode != "none",
-        "w8a8_prefill (kernel K10)": cfg.w8a8_prefill,
     }
     bad = [name for name, on in unported.items() if on]
     if bad:
@@ -83,28 +91,36 @@ def _stack_quantized(per_layer: list[dict]) -> dict:
             "scale": torch.stack([p["scale"] for p in per_layer])}
 
 
-def _quantize_stacked(w: torch.Tensor, mode: str) -> dict:
+def _quantize(w: torch.Tensor, mode: str, int4_group: int | None = None) -> dict:
+    if mode == "int4":
+        return quant.quantize_weight_int4(w, int4_group)
+    return quant.quantize_weight(w, mode)
+
+
+def _quantize_stacked(w: torch.Tensor, mode: str, int4_group: int | None = None) -> dict:
     """Quantize an (L, H, O) stack one layer at a time (the fp32
     intermediate is one layer's worth)."""
-    return _stack_quantized([quant.quantize_weight(w[i], mode) for i in range(w.shape[0])])
+    return _stack_quantized([_quantize(w[i], mode, int4_group) for i in range(w.shape[0])])
 
 
 def quantize_model_weights(params: Params, mode: str = "int8", lm_head: bool = False,
-                           consume: bool = False) -> Params:
+                           consume: bool = False, int4_group: int | None = None) -> Params:
     """Weight-only quantization of the projection stacks (and the lm_head
-    with ``lm_head=True``) with per-output-channel scales; the embedding
-    stays dense. ``consume=True`` drops each dense stack from ``params`` as
-    it is quantized. Same weight bytes as the JAX package; the scales agree
-    with it to one fp32 ulp, because the JAX package jit-compiles this step
-    and XLA multiplies by ``1 / qmax`` where the division here (and JAX's
-    eager ``quantize_weight``) divides by ``qmax``."""
+    with ``lm_head=True``): per-output-channel scales for "int8" / "fp8",
+    nibble-packed grouped scales for "int4" (``int4_group`` caps the group,
+    default 128); the embedding stays dense. ``consume=True`` drops each
+    dense stack from ``params`` as it is quantized. Same weight bytes as the
+    JAX package; the scales agree with it to one fp32 ulp, because the JAX
+    package jit-compiles this step and XLA multiplies by ``1 / qmax`` where
+    the division here (and JAX's eager ``quantize_weight``) divides by
+    ``qmax``."""
     src_layers = params["layers"]
     layers = dict(src_layers)
     for name in (n for n in _QUANT_WEIGHTS if n in src_layers):
         if isinstance(src_layers[name], dict):
             continue
         w = src_layers.pop(name) if consume else src_layers[name]
-        layers[name] = _quantize_stacked(w, mode)
+        layers[name] = _quantize_stacked(w, mode, int4_group)
         del w
     out = dict(params)
     out["layers"] = layers
@@ -112,7 +128,7 @@ def quantize_model_weights(params: Params, mode: str = "int8", lm_head: bool = F
         w = out.pop("lm_head")
         if consume:
             params.pop("lm_head")
-        out["lm_head"] = quant.quantize_weight(w, mode)
+        out["lm_head"] = _quantize(w, mode, int4_group)
         del w
     return out
 
@@ -122,6 +138,7 @@ def init_params(
     generator: torch.Generator | None = None,
     *,
     quantize: str | None = None,
+    int4_group: int | None = None,
     device: torch.device | str | None = None,
 ) -> Params:
     """Random-init parameters on ``device`` (default ``cuda``) from
@@ -129,8 +146,9 @@ def init_params(
     Layer params are stacked on a leading L axis, as in the JAX package,
     in ``cfg.dtype``.
 
-    ``quantize`` ("int8" / "fp8") generates each big projection one layer
-    at a time and quantizes it at once, so the dense stack never exists;
+    ``quantize`` ("int8" / "fp8" / "int4", with ``int4_group``) generates
+    each big projection one layer at a time and quantizes it at once, so the
+    dense stack never exists;
     the lm_head stays dense (quantize it with
     ``quantize_model_weights(..., lm_head=True)``). The values differ from
     the JAX package's (another generator): tests bridge JAX's params with
@@ -150,7 +168,7 @@ def init_params(
     def big(shape, fan_in):
         if quantize is None:
             return norm01(shape, fan_in)
-        return _stack_quantized([quant.quantize_weight(norm01(shape[1:], fan_in), quantize)
+        return _stack_quantized([_quantize(norm01(shape[1:], fan_in), quantize, int4_group)
                                  for _ in range(shape[0])])
 
     ones = lambda *shape: torch.ones(shape, dtype=dtype, device=dev)  # noqa: E731
@@ -196,19 +214,30 @@ def _embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _wq_matmul(x2d: torch.Tensor, w: dict, layer, out_dtype=None) -> torch.Tensor:
-    return quant_matmul(x2d, w["w"], w["scale"], layer=layer, out_dtype=out_dtype)
+    """Weight-only kernel for a quantized dict: int4 (grouped scales; the
+    scale's rank tags the format) or int8 / fp8."""
+    fn = quant_matmul_int4 if quant.is_int4_weight(w) else quant_matmul
+    return fn(x2d, w["w"], w["scale"], layer=layer, out_dtype=out_dtype)
 
 
-def _make_proj(layers: Params, lidx: int):
+def _make_proj(layers: Params, lidx: int, cfg: ModelConfig):
     """Projection closure for one layer -> fp32 outputs (or ``out_dtype``
-    written by the quantized kernel). Quantized stacks go to
-    ``quant_matmul`` with the layer index; dense ones to ``torch.matmul``
-    at fp32 (the JAX package's ``jnp.dot`` outside Pallas)."""
+    written by the quantized kernel). Quantized stacks go to their kernel
+    with the layer index; dense ones to ``torch.matmul`` at fp32 (the JAX
+    package's ``jnp.dot`` outside Pallas). With ``cfg.w8a8_prefill``, at
+    least ``W8A8_MIN_ROWS`` rows and int8-dtype weights (int8, or packed
+    int4), the int8-activation kernels take the rows (JAX llama.py:75-104);
+    fp8 weights and decode rows stay weight-only."""
 
     def proj(x: torch.Tensor, name: str, out_dtype=None) -> torch.Tensor:
         w = layers[name]
         if isinstance(w, dict):
-            out = _wq_matmul(x.reshape(-1, x.shape[-1]), w, lidx, out_dtype=out_dtype)
+            flat = x.reshape(-1, x.shape[-1])
+            if cfg.w8a8_prefill and flat.shape[0] >= W8A8_MIN_ROWS and w["w"].dtype == torch.int8:
+                fn = quant_matmul_w4a8 if quant.is_int4_weight(w) else quant_matmul_w8a8
+                out = fn(flat, w["w"], w["scale"], layer=lidx, out_dtype=out_dtype)
+            else:
+                out = _wq_matmul(flat, w, lidx, out_dtype=out_dtype)
             return out.reshape(*x.shape[:-1], out.shape[-1])
         return torch.matmul(x.float(), w[lidx].float())
 
@@ -256,6 +285,7 @@ def _qkv(h, layers, lidx, proj, cfg, x_dtype):
 
 
 def _logits(x: torch.Tensor, params: Params, cfg: ModelConfig) -> torch.Tensor:
+    """Final norm and lm_head; a quantized lm_head is always weight-only."""
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     if isinstance(head, dict):
@@ -292,7 +322,7 @@ def _decode_layer(x, lidx: int, layers: Params, cfg: ModelConfig, cos, sin, pos,
     """One decoder layer of the decode step; ``attend(lidx, q, k_new,
     v_new)`` appends this token's K/V to the cache in place and returns the
     attention output (B, Hq, D)."""
-    proj = _make_proj(layers, lidx)
+    proj = _make_proj(layers, lidx, cfg)
     h = rms_norm(x, layers["attn_norm"][lidx], cfg.rms_norm_eps)
     q, k_new, v_new = _split_heads_decode(_qkv(h, layers, lidx, proj, cfg, x.dtype), cfg)
     q, k_new = _apply_qk_norm(q, k_new, layers, lidx, cfg)
@@ -309,7 +339,7 @@ def _prefill_layer(x, lidx: int, layers: Params, cfg: ModelConfig, cos, sin, pos
     writes the chunk's K/V into the cache in place and returns the attention
     output (B, Hq, Sq, D)."""
     b, sq = pos.shape
-    proj = _make_proj(layers, lidx)
+    proj = _make_proj(layers, lidx, cfg)
     h = rms_norm(x, layers["attn_norm"][lidx], cfg.rms_norm_eps)
     q, k_new, v_new = _split_heads_prefill(_qkv(h, layers, lidx, proj, cfg, x.dtype), cfg)
     q, k_new = _apply_qk_norm(q, k_new, layers, lidx, cfg)
@@ -385,8 +415,10 @@ def decode_step(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor,
 
     def attend(lidx, q, k_new, v_new):
         contiguous.append_decode(cache, lidx, k_new, v_new)  # at lengths, clamped below S
+        ks, vs = cache.layer_scales(lidx)
         return flash_decode(q, cache.k, cache.v, att_lengths, layer=lidx, sm_scale=cfg.sm_scale(),
-                            num_splits=cfg.num_splits, block_k=cfg.block_k)
+                            num_splits=cfg.num_splits, block_k=cfg.block_k, k_scales=ks,
+                            v_scales=vs)
 
     logits = _decode_run(params, tokens, pos, cos, sin, cfg, attend)
     cache.lengths.copy_(lengths_now)
@@ -411,11 +443,19 @@ def _prefill_contiguous(params, cache: contiguous.KVCache, tokens, new_lengths, 
         rows = active.nonzero().flatten()  # one host sync; busy rows stay untouched
     contiguous.check_prefill_window(cache, sq, rows)  # before RoPE indexes past its table
     kv_lengths = start + new_lengths
+    # a quantized cache is attended through a dequantized copy of the rows
+    # K5 reads (every row's first kv_lengths[b]; one host sync a prefill)
+    span = int(kv_lengths.max()) if cache.k_scales is not None else None
 
     def attend(lidx, q, k_new, v_new):
         contiguous.append_prefill(cache, lidx, k_new, v_new, rows, check=False)
-        return flash_prefill(q, cache.k[lidx], cache.v[lidx], lengths=kv_lengths, causal=True,
-                             q_offsets=start, sm_scale=cfg.sm_scale())  # (B, Hq, Sq, D)
+        k, v = cache.k[lidx], cache.v[lidx]
+        if span is not None:
+            ks, vs = cache.layer_scales(lidx)
+            k = contiguous.dequantize_rows(k[:, :, :span], ks, q.dtype)
+            v = contiguous.dequantize_rows(v[:, :, :span], vs, q.dtype)
+        return flash_prefill(q, k, v, lengths=kv_lengths, causal=True, q_offsets=start,
+                             sm_scale=cfg.sm_scale())  # (B, Hq, Sq, D)
 
     logits = _prefill_run(params, tokens, new_lengths, start, cos, sin, cfg, attend)
     cache.lengths.copy_(kv_lengths)
@@ -467,16 +507,17 @@ def decode_step_paged(params: Params, cache: paged.PagedKVCache, tokens: torch.T
     page 0, so their appends land there harmlessly. Updates the pools and
     ``cache.lengths`` IN PLACE."""
     check_supported(cfg)
-    paged._check_unquantized(cache)
     if active is not None:
         active = _as_mask(active, cache.lengths.device)
     pos, lengths_now, att_lengths = _step_lengths(cache.lengths, active)
 
     def attend(lidx, q, k_new, v_new):
         paged.append_decode_paged(cache, lidx, k_new, v_new)  # at lengths, clamped below S
+        ks, vs = cache.layer_scales(lidx)
         return paged_flash_decode(q, cache.k_pages, cache.v_pages, cache.page_table, att_lengths,
                                   layer=lidx, sm_scale=cfg.sm_scale(),
-                                  pages_per_compute_block=cfg.pages_per_compute_block)
+                                  pages_per_compute_block=cfg.pages_per_compute_block,
+                                  k_scales=ks, v_scales=vs)
 
     logits = _decode_run(params, tokens, pos, cos, sin, cfg, attend)
     cache.lengths.copy_(lengths_now)
@@ -494,9 +535,11 @@ def prefill_serving_paged(params: Params, cache: paged.PagedKVCache, tokens: tor
     each row's first ``prefix_len + Sq`` pooled positions are gathered back
     contiguous, so KV index == absolute position, and attended with
     ``q_offsets = start``. ``prefix_len`` bounds every active row's start,
-    as the engine quantizes it."""
+    as the engine quantizes it. Quantized pools: the chunk is quantized
+    before the scatter, and attention reads the quantize -> dequantize
+    round trip of the chunk, or the dequantized gathered prefix (JAX
+    llama.py:1821-1853)."""
     check_supported(cfg)
-    paged._check_unquantized(cache)
     dev = cache.lengths.device
     b, sq = tokens.shape
     cache.lengths.masked_fill_(_as_mask(reset, dev), 0)
@@ -510,13 +553,14 @@ def prefill_serving_paged(params: Params, cache: paged.PagedKVCache, tokens: tor
 
     def attend(lidx, q, k_new, v_new):
         kv = []
-        for pool, new in ((cache.k_pages, k_new), (cache.v_pages, v_new)):
-            new = new.to(pool.dtype)
+        for pool, new, scales in zip((cache.k_pages, cache.v_pages), (k_new, v_new),
+                                     cache.layer_scales(lidx)):
+            new = contiguous.quantize_new(new, scales, pool.dtype)
             paged.scatter_prefill_chunk(pool, lidx, new, cache.page_table, start, new_lengths,
                                         index=index)
             if prefix_len > 0:
-                new = paged.gather_prefix(pool, lidx, cache.page_table, span).to(q.dtype)
-            kv.append(new)
+                new = paged.gather_prefix(pool, lidx, cache.page_table, span)
+            kv.append(contiguous.dequantize_rows(new, scales, q.dtype))
         return flash_prefill(q, kv[0], kv[1], lengths=kv_lengths, causal=True, q_offsets=start,
                              sm_scale=cfg.sm_scale())
 
@@ -640,7 +684,8 @@ def generate(
     if cache is None:
         hkv, d = cfg.kv_cache_dims()
         cache = contiguous.init_cache(cfg.num_layers, b, hkv, cfg.max_seq_len, d,
-                                      dtype=torch_dtype(cfg.dtype), device=dev)
+                                      dtype=torch_dtype(cfg.dtype), quant_mode=cfg.quant_mode,
+                                      calibration_scale=cfg.kv_calibration_scale, device=dev)
     cos, sin = rope_tables(cfg, device=dev)
     logits, cache = prefill(params, cache, prompts, prompt_lengths, cos, sin, cfg)
     out = []

@@ -10,8 +10,15 @@ modes (it replaces the TPU kernels ``_decode_kernel_fused`` and
 The split boundaries come from :func:`_split_geometry`, a copy of the JAX
 one, so the partials compare one to one.
 
-Options this slice does not port (sliding window, sinks, softcap, quantized
-caches, verify with ``qspan > 1``) raise ``NotImplementedError``.
+Quantized caches (int8 / fp8 tables with (Hkv,) ``k_scales`` /
+``v_scales``) take the JAX wrapper's scale handling, outside the kernel:
+``sm_scale * k_scale[h]`` is folded into q in fp32 and rounded to q's dtype,
+and the kernel scales its scores by 1. The single-split output comes back
+in q's dtype and is multiplied by ``v_scale[h]`` and rounded again (two
+roundings, as in JAX); with splits, ``v_scale`` multiplies the fp32
+partials before the merge. Options this slice does not port (sliding
+window, sinks, softcap, verify with ``qspan > 1``) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,9 +29,36 @@ from starflashattention_tpu_torch.core.reference import NEG_INF, repeat_kv
 from starflashattention_tpu_torch.ops import _build
 
 _SIGNATURES = {
-    "flash_decode": [_build.P] * 8 + [_build.I] * 7 + [_build.F, _build.I, _build.P],
+    "flash_decode": [_build.P] * 8 + [_build.I] * 7 + [_build.F, _build.I, _build.I, _build.P],
 }
 _CUDA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+QUANT_KV_DTYPES = {torch.int8: 1, torch.float8_e4m3fn: 2}  # the kernel's kv_dtype codes
+
+
+def kv_dtype_code(q_dtype: torch.dtype, kv_dtype: torch.dtype) -> int:
+    """The kernels' KV element code: 0 for q's own dtype, else int8 / fp8."""
+    if kv_dtype == q_dtype:
+        return 0
+    if kv_dtype not in QUANT_KV_DTYPES:
+        raise ValueError(f"the CUDA kernel takes a KV cache in q's dtype ({q_dtype}) or int8 / "
+                         f"fp8, got {kv_dtype}")
+    return QUANT_KV_DTYPES[kv_dtype]
+
+
+def scale_heads(x: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` (B, Hq, ...) times ``scales[h // G]``, the (Hkv,) scale of
+    each query head's KV head."""
+    hkv = scales.shape[0]
+    grouped = x.float().reshape(x.shape[0], hkv, x.shape[1] // hkv, *x.shape[2:])
+    return (grouped * scales.float().reshape(1, hkv, *[1] * (x.dim() - 1))).reshape(x.shape)
+
+
+def fold_k_scale(q: torch.Tensor, sm_scale: float | None, k_scales: torch.Tensor) -> torch.Tensor:
+    """q * (sm_scale * k_scale[kv head of each q head]) in fp32, rounded to
+    q's dtype (JAX flash_decode.py:400-409). sm_scale is rounded to fp32 on
+    the host, so nothing here waits for the device."""
+    sm = torch.tensor(1.0 / q.shape[-1]**0.5 if sm_scale is None else sm_scale, dtype=torch.float32)
+    return scale_heads(q, k_scales.float() * sm.item()).to(q.dtype)
 
 
 def _split_geometry(s: int, num_splits: int, block_k: int) -> tuple[int, int, int]:
@@ -49,15 +83,22 @@ def _split_geometry(s: int, num_splits: int, block_k: int) -> tuple[int, int, in
     return num_splits, block_k, s // (num_splits * block_k)
 
 
-def _reject_unported(window, sinks, softcap, k_scales, v_scales, max_len_hint=None):
+def _reject_unported(window, sinks, softcap, max_len_hint=None):
     if window is not None or sinks:
         raise NotImplementedError(
             "sliding-window / sink decode is not ported yet (ROADMAP Queue 2, K1 options)")
     if softcap is not None:
         raise NotImplementedError("attention softcap is not ported yet (ROADMAP Queue 2, K1 options)")
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError("quantized KV caches are not ported yet (ROADMAP Queue 2, K1 options)")
     del max_len_hint  # a grid-size hint for the TPU kernel; the CUDA kernel walks each row's own length
+
+
+def _quantized(k_cache, k_scales, v_scales) -> bool:
+    """Whether the cache is int8 / fp8; such a cache needs both scale vectors."""
+    if k_cache.dtype not in QUANT_KV_DTYPES:
+        return False
+    if k_scales is None or v_scales is None:
+        raise ValueError(f"a {k_cache.dtype} KV cache needs k_scales and v_scales")
+    return True
 
 
 def _as_table(k_cache, v_cache, layer):
@@ -83,8 +124,8 @@ def _scores(q, k_layer, lengths, sm_scale):
     return scores, mask
 
 
-def flash_decode_with_stats_plain(q, k_cache, v_cache, lengths, *, layer=None,
-                                  sm_scale=None, num_splits=4, block_k=256):
+def _stats_plain(q, k_cache, v_cache, lengths, *, layer=None, sm_scale=None, num_splits=4,
+                 block_k=256):
     """Plain PyTorch partials: per split, the running max ``m``, exp-sum
     ``l`` and unnormalized ``o`` over that split's valid positions. A split
     with none gives (0, NEG_INF, 0)."""
@@ -104,16 +145,8 @@ def flash_decode_with_stats_plain(q, k_cache, v_cache, lengths, *, layer=None,
     return o, m, l
 
 
-def flash_decode_plain(q, k_cache, v_cache, lengths, *, layer=None, sm_scale=None,
-                       num_splits=4, block_k=256):
-    """Plain PyTorch decode attention -> (B, Hq, D) in q's dtype. A row of
-    length 0 gives 0."""
-    k_cache, v_cache, layer = _as_table(k_cache, v_cache, layer)
-    if _split_geometry(k_cache.shape[3], num_splits, block_k)[0] != 1:
-        o, m, l = flash_decode_with_stats_plain(
-            q, k_cache, v_cache, lengths, layer=layer, sm_scale=sm_scale,
-            num_splits=num_splits, block_k=block_k)
-        return lse_combine_splits(o, m, l, dtype=q.dtype)
+def _fused_plain(q, k_cache, v_cache, lengths, *, layer, sm_scale):
+    """Plain single-split decode attention -> (B, Hq, D) in q's dtype."""
     scores, mask = _scores(q, k_cache[layer], lengths, sm_scale)
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     p = torch.exp(scores - scores.amax(dim=-1, keepdim=True)) * mask
@@ -121,6 +154,46 @@ def flash_decode_plain(q, k_cache, v_cache, lengths, *, layer=None, sm_scale=Non
     v = repeat_kv(v_cache[layer], q.shape[1] // v_cache.shape[2]).float()
     o = torch.einsum("bhk,bhkd->bhd", p, v) / torch.where(l == 0, torch.ones_like(l), l)
     return o.to(q.dtype)
+
+
+def flash_decode_with_stats_plain(q, k_cache, v_cache, lengths, *, layer=None, sm_scale=None,
+                                  num_splits=4, block_k=256, k_scales=None, v_scales=None):
+    """Plain twin of :func:`flash_decode_with_stats` (quantized caches
+    included)."""
+    return _decode(q, k_cache, v_cache, lengths, layer, sm_scale, num_splits, block_k, k_scales,
+                   v_scales, None, _stats_plain, partials=True)
+
+
+def flash_decode_plain(q, k_cache, v_cache, lengths, *, layer=None, sm_scale=None,
+                       num_splits=4, block_k=256, k_scales=None, v_scales=None):
+    """Plain PyTorch decode attention -> (B, Hq, D) in q's dtype (quantized
+    caches included). A row of length 0 gives 0."""
+    return _decode(q, k_cache, v_cache, lengths, layer, sm_scale, num_splits, block_k, k_scales,
+                   v_scales, _fused_plain, _stats_plain)
+
+
+def _decode(q, k_cache, v_cache, lengths, layer, sm_scale, num_splits, block_k, k_scales,
+            v_scales, fused, stats, partials=False):
+    """The wrapper logic shared by the kernel and the plain route: the split
+    choice and, for a quantized cache, the scale folding around ``fused`` /
+    ``stats`` (functions of q, tables, lengths, layer=, sm_scale=[,
+    num_splits=, block_k=])."""
+    k_cache, v_cache, layer = _as_table(k_cache, v_cache, layer)
+    if _quantized(k_cache, k_scales, v_scales):
+        q, sm_scale = fold_k_scale(q, sm_scale, k_scales), 1.0
+    else:
+        v_scales = None
+    n = _split_geometry(k_cache.shape[3], num_splits, block_k)[0]
+    if n == 1 and not partials:
+        o = fused(q, k_cache, v_cache, lengths, layer=layer, sm_scale=sm_scale)
+        if v_scales is not None:  # the second rounding, as in JAX
+            o = scale_heads(o, v_scales).to(q.dtype)
+        return o
+    o, m, l = stats(q, k_cache, v_cache, lengths, layer=layer, sm_scale=sm_scale,
+                    num_splits=num_splits, block_k=block_k)
+    if v_scales is not None:  # linear in the partials: commutes with the merge
+        o = scale_heads(o, v_scales)
+    return (o, m, l) if partials else lse_combine_splits(o, m, l, dtype=q.dtype)
 
 
 def lse_combine_splits(o_parts, m_parts, l_parts, dtype=None):
@@ -146,9 +219,10 @@ def _launch(q, k_cache, v_cache, lengths, layer, sm_scale, n, split_len, fused):
     hq = q.shape[1]
     if q.shape != (b, hq, d) or hq % hkv:
         raise ValueError(f"q {tuple(q.shape)} does not match cache {tuple(k_cache.shape)}")
-    if q.dtype not in _CUDA_DTYPES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
-        raise ValueError(f"the CUDA kernel takes q and cache both fp32 or bf16, got "
-                         f"{q.dtype} / {k_cache.dtype}")
+    if q.dtype not in _CUDA_DTYPES or v_cache.dtype != k_cache.dtype:
+        raise ValueError(f"the CUDA kernel takes fp32 or bf16 q and one cache dtype, got "
+                         f"{q.dtype} / {k_cache.dtype} / {v_cache.dtype}")
+    kv_code = kv_dtype_code(q.dtype, k_cache.dtype)
     if d not in (64, 128):
         raise ValueError(f"the CUDA kernel takes head_dim 64 or 128, got {d}")
     if v_cache.shape != k_cache.shape or not (k_cache.is_contiguous() and v_cache.is_contiguous()):
@@ -176,11 +250,26 @@ def _launch(q, k_cache, v_cache, lengths, layer, sm_scale, n, split_len, fused):
             _build.ptr(q), k_ptr, v_ptr, _build.ptr(lengths),
             _build.ptr(out) if fused else None,
             *(None if t is None else _build.ptr(t) for t in parts),
-            b, hq, hkv, s, d, n, split_len, scale, _CUDA_DTYPES[q.dtype],
+            b, hq, hkv, s, d, n, split_len, scale, _CUDA_DTYPES[q.dtype], kv_code,
             _build.stream_ptr(q.device),
         )
     _build.check(lib, err, "flash_decode")
     return out if fused else parts
+
+
+def _fused_kernel(q, k_cache, v_cache, lengths, *, layer, sm_scale):
+    s = k_cache.shape[3]
+    out = _launch(q, k_cache, v_cache, lengths, layer, sm_scale, 1, s, fused=True)
+    flash_decode.launches += 1
+    return out
+
+
+def _stats_kernel(q, k_cache, v_cache, lengths, *, layer, sm_scale, num_splits, block_k):
+    s = k_cache.shape[3]
+    n, _, _ = _split_geometry(s, num_splits, block_k)
+    parts = _launch(q, k_cache, v_cache, lengths, layer, sm_scale, n, s // n, fused=False)
+    flash_decode.launches += 1
+    return parts
 
 
 def flash_decode_with_stats(
@@ -193,22 +282,18 @@ def flash_decode_with_stats(
     sm_scale: float | None = None,
     num_splits: int = 4,
     block_k: int = 256,
-    k_scales=None,
-    v_scales=None,
+    k_scales: torch.Tensor | None = None,  # (Hkv,) fp32 for an int8 / fp8 cache
+    v_scales: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Split-KV decode -> unnormalized ``o`` (B, Hq, N, D) and natural-log
-    ``m``, ``l`` (B, Hq, N), all fp32."""
-    _reject_unported(None, 0, None, k_scales, v_scales)
+    """Split-KV decode -> unnormalized ``o`` (B, Hq, N, D) (times v_scale
+    for a quantized cache) and natural-log ``m``, ``l`` (B, Hq, N), all
+    fp32."""
     if q.device.type == "cpu":
         return flash_decode_with_stats_plain(
             q, k_cache, v_cache, lengths, layer=layer, sm_scale=sm_scale,
-            num_splits=num_splits, block_k=block_k)
-    k_cache, v_cache, layer = _as_table(k_cache, v_cache, layer)
-    s = k_cache.shape[3]
-    n, _, _ = _split_geometry(s, num_splits, block_k)
-    parts = _launch(q, k_cache, v_cache, lengths, layer, sm_scale, n, s // n, fused=False)
-    flash_decode.launches += 1
-    return parts
+            num_splits=num_splits, block_k=block_k, k_scales=k_scales, v_scales=v_scales)
+    return _decode(q, k_cache, v_cache, lengths, layer, sm_scale, num_splits, block_k, k_scales,
+                   v_scales, None, _stats_kernel, partials=True)
 
 
 def flash_decode(
@@ -221,8 +306,8 @@ def flash_decode(
     sm_scale: float | None = None,
     num_splits: int = 4,
     block_k: int = 256,
-    k_scales=None,
-    v_scales=None,
+    k_scales: torch.Tensor | None = None,
+    v_scales: torch.Tensor | None = None,
     max_len_hint: int | None = None,
     window=None,
     sinks: int = 0,
@@ -232,22 +317,16 @@ def flash_decode(
     whole (L, B, Hkv, S, D) table plus ``layer`` — -> (B, Hq, D) in q's
     dtype. When the split geometry gives one split, the kernel normalizes in
     place; otherwise it writes partials and :func:`lse_combine_splits`
-    merges them. Each launch (either mode) counts once in
-    ``flash_decode.launches``."""
-    _reject_unported(window, sinks, softcap, k_scales, v_scales, max_len_hint)
+    merges them. An int8 / fp8 cache needs its (Hkv,) ``k_scales`` and
+    ``v_scales`` (see the module doc). Each launch (either mode) counts once
+    in ``flash_decode.launches``."""
+    _reject_unported(window, sinks, softcap, max_len_hint)
     if q.device.type == "cpu":
-        return flash_decode_plain(q, k_cache, v_cache, lengths, layer=layer,
-                                  sm_scale=sm_scale, num_splits=num_splits, block_k=block_k)
-    k_cache, v_cache, layer = _as_table(k_cache, v_cache, layer)
-    s = k_cache.shape[3]
-    n, _, _ = _split_geometry(s, num_splits, block_k)
-    if n == 1:
-        out = _launch(q, k_cache, v_cache, lengths, layer, sm_scale, 1, s, fused=True)
-        flash_decode.launches += 1
-        return out
-    o, m, l = _launch(q, k_cache, v_cache, lengths, layer, sm_scale, n, s // n, fused=False)
-    flash_decode.launches += 1
-    return lse_combine_splits(o, m, l, dtype=q.dtype)
+        return flash_decode_plain(q, k_cache, v_cache, lengths, layer=layer, sm_scale=sm_scale,
+                                  num_splits=num_splits, block_k=block_k, k_scales=k_scales,
+                                  v_scales=v_scales)
+    return _decode(q, k_cache, v_cache, lengths, layer, sm_scale, num_splits, block_k, k_scales,
+                   v_scales, _fused_kernel, _stats_kernel)
 
 
 flash_decode.launches = 0

@@ -10,12 +10,15 @@ contiguous decode (K1), with each KV row's address resolved through the
 table. On CPU tensors it runs :func:`paged_flash_decode_plain`.
 
 As the JAX wrapper does, ``sm_scale`` is folded into q and the scaled q is
-rounded to q's dtype before the dot products. A row of length 0 gives
-exactly 0 (the JAX kernel also gives 0 there). Options this slice does not
-port (sliding window, sinks, softcap, a traced window, int8/fp8 pages)
-raise ``NotImplementedError``; ``pages_per_compute_block`` and
-``max_len_hint`` size the TPU grid and are accepted and unused (each block
-walks its own row's length).
+rounded to q's dtype before the dot products. Int8 / fp8 pools fold
+``sm_scale * k_scale[h]`` into q the same way (in the wrapper, the kernel
+then multiplies by 1); the kernel writes its output in fp32, which is
+multiplied by ``v_scale[h]`` and cast to q's dtype once (JAX
+paged_decode.py:341-346, :404-406). A row of length 0 gives exactly 0 (the
+JAX kernel also gives 0 there). Options this slice does not port (sliding
+window, sinks, softcap, a traced window) raise ``NotImplementedError``;
+``pages_per_compute_block`` and ``max_len_hint`` size the TPU grid and are
+accepted and unused (each block walks its own row's length).
 """
 
 from __future__ import annotations
@@ -24,23 +27,22 @@ import torch
 
 from starflashattention_tpu_torch.core.reference import NEG_INF, repeat_kv
 from starflashattention_tpu_torch.ops import _build
+from starflashattention_tpu_torch.ops.flash_decode import (_quantized, fold_k_scale, kv_dtype_code,
+                                                           scale_heads)
 
 _SIGNATURES = {
-    "paged_flash_decode": [_build.P] * 6 + [_build.I] * 7 + [_build.F, _build.I, _build.P],
+    "paged_flash_decode": [_build.P] * 6 + [_build.I] * 7 + [_build.F] + [_build.I] * 3 + [_build.P],
 }
 _CUDA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _reject_unported(window, sinks, softcap, k_scales, v_scales):
+def _reject_unported(window, sinks, softcap):
     if window is not None or sinks:
         raise NotImplementedError(
             "sliding-window / sink paged decode is not ported yet (ROADMAP Queue 2, K7 options)")
     if softcap is not None:
         raise NotImplementedError(
             "attention softcap in paged decode is not ported yet (ROADMAP Queue 2, K7 options)")
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(
-            "int8/fp8 KV pages are not ported yet (ROADMAP Queue 2, K7 options)")
 
 
 def _as_stack(k_pages, v_pages, layer):
@@ -58,12 +60,10 @@ def _scaled_q(q, sm_scale):
     return (q.float() * scale).to(q.dtype)
 
 
-def paged_flash_decode_plain(q, k_pages, v_pages, page_table, lengths, *, layer=None,
-                             sm_scale=None):
-    """Plain PyTorch version: gather each sequence's pages into a dense
-    (B, Hkv, S, D) copy and run a masked fp32 softmax -> (B, Hq, D) in q's
-    dtype."""
-    k_pages, v_pages, layer = _as_stack(k_pages, v_pages, layer)
+def _core_plain(q, k_pages, v_pages, page_table, lengths, layer, sm_scale):
+    """Gather each sequence's pages into a dense (B, Hkv, S, D) copy and run
+    a masked fp32 softmax over q * sm_scale rounded to q's dtype -> fp32
+    (B, Hq, D)."""
     b, hq, d = q.shape
     _, hkv, _, ps, _ = k_pages.shape
     table = page_table.to(q.device).long()
@@ -79,44 +79,40 @@ def paged_flash_decode_plain(q, k_pages, v_pages, page_table, lengths, *, layer=
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     p = torch.exp(scores - scores.amax(dim=-1, keepdim=True)) * mask
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhk,bhkd->bhd", p, v) / torch.where(l == 0, torch.ones_like(l), l)
-    return o.to(q.dtype)
+    return torch.einsum("bhk,bhkd->bhd", p, v) / torch.where(l == 0, torch.ones_like(l), l)
 
 
-def paged_flash_decode(
-    q: torch.Tensor,  # (B, Hq, D)
-    k_pages: torch.Tensor,  # (Hkv, P, ps, D) or (L, Hkv, P, ps, D) with `layer`
-    v_pages: torch.Tensor,
-    page_table: torch.Tensor,  # (B, pages_per_seq) int32
-    lengths: torch.Tensor,  # (B,) int32
-    *,
-    layer: int | None = None,
-    sm_scale: float | None = None,
-    pages_per_compute_block: int = 4,
-    k_scales=None,
-    v_scales=None,
-    max_len_hint: int | None = None,
-    window=None,
-    sinks: int = 0,
-    softcap: float | None = None,
-) -> torch.Tensor:
-    """Paged decode attention -> (B, Hq, D) in q's dtype (kernel K7). Each
-    launch counts once in ``paged_flash_decode.launches``."""
-    _reject_unported(window, sinks, softcap, k_scales, v_scales)
-    del pages_per_compute_block, max_len_hint  # TPU grid sizing; see the module doc
-    if q.device.type == "cpu":
-        return paged_flash_decode_plain(q, k_pages, v_pages, page_table, lengths, layer=layer,
-                                        sm_scale=sm_scale)
+def _paged(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, k_scales, v_scales, core):
+    """Shared by the kernel and the plain route: ``core(q, pools, table,
+    lengths, layer, sm_scale, out_f32)`` attends; quantized pools fold their
+    scales around it as the JAX wrapper does."""
+    k_pages, v_pages, layer = _as_stack(k_pages, v_pages, layer)
+    if not _quantized(k_pages, k_scales, v_scales):
+        return core(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, False).to(q.dtype)
+    o = core(fold_k_scale(q, sm_scale, k_scales), k_pages, v_pages, page_table, lengths, layer,
+             1.0, True)
+    return scale_heads(o, v_scales).to(q.dtype)  # one cast
+
+
+def paged_flash_decode_plain(q, k_pages, v_pages, page_table, lengths, *, layer=None,
+                             sm_scale=None, k_scales=None, v_scales=None):
+    """Plain PyTorch version -> (B, Hq, D) in q's dtype (quantized pools
+    included)."""
+    return _paged(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, k_scales, v_scales,
+                  lambda *a: _core_plain(*a[:-1]))
+
+
+def _core_kernel(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, out_f32):
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_decode: unsupported device {q.device}")
-    k_pages, v_pages, layer = _as_stack(k_pages, v_pages, layer)
     l_, hkv, num_pages, ps, d = k_pages.shape
     b, hq, _ = q.shape
     if q.shape != (b, hq, d) or hq % hkv:
         raise ValueError(f"q {tuple(q.shape)} does not match pools {tuple(k_pages.shape)}")
-    if q.dtype not in _CUDA_DTYPES or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise ValueError(f"the CUDA kernel takes q and pools both fp32 or bf16, got "
-                         f"{q.dtype} / {k_pages.dtype}")
+    if q.dtype not in _CUDA_DTYPES or v_pages.dtype != k_pages.dtype:
+        raise ValueError(f"the CUDA kernel takes fp32 or bf16 q and one pool dtype, got "
+                         f"{q.dtype} / {k_pages.dtype} / {v_pages.dtype}")
+    kv_code = kv_dtype_code(q.dtype, k_pages.dtype)
     if d not in (64, 128):
         raise ValueError(f"the CUDA kernel takes head_dim 64 or 128, got {d}")
     if v_pages.shape != k_pages.shape or not (k_pages.is_contiguous() and v_pages.is_contiguous()):
@@ -130,7 +126,7 @@ def paged_flash_decode(
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
     layer_bytes = hkv * num_pages * ps * d * k_pages.element_size()
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=torch.float32 if out_f32 else q.dtype, device=q.device)
     scale = 1.0 / d**0.5 if sm_scale is None else float(sm_scale)
     lib = _build.load("flash_decode", _SIGNATURES)
     with torch.cuda.device(q.device):
@@ -138,11 +134,39 @@ def paged_flash_decode(
             _build.ptr(q), _build.P(k_pages.data_ptr() + layer * layer_bytes),
             _build.P(v_pages.data_ptr() + layer * layer_bytes), _build.ptr(lengths),
             _build.ptr(table), _build.ptr(out), b, hq, hkv, num_pages, ps, table.shape[1], d,
-            scale, _CUDA_DTYPES[q.dtype], _build.stream_ptr(q.device),
+            scale, _CUDA_DTYPES[q.dtype], kv_code, int(out_f32), _build.stream_ptr(q.device),
         )
     _build.check(lib, err, "paged_flash_decode")
     paged_flash_decode.launches += 1
     return out
+
+
+def paged_flash_decode(
+    q: torch.Tensor,  # (B, Hq, D)
+    k_pages: torch.Tensor,  # (Hkv, P, ps, D) or (L, Hkv, P, ps, D) with `layer`
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,  # (B, pages_per_seq) int32
+    lengths: torch.Tensor,  # (B,) int32
+    *,
+    layer: int | None = None,
+    sm_scale: float | None = None,
+    pages_per_compute_block: int = 4,
+    k_scales: torch.Tensor | None = None,  # (Hkv,) fp32 for int8 / fp8 pools
+    v_scales: torch.Tensor | None = None,
+    max_len_hint: int | None = None,
+    window=None,
+    sinks: int = 0,
+    softcap: float | None = None,
+) -> torch.Tensor:
+    """Paged decode attention -> (B, Hq, D) in q's dtype (kernel K7). Each
+    launch counts once in ``paged_flash_decode.launches``."""
+    _reject_unported(window, sinks, softcap)
+    del pages_per_compute_block, max_len_hint  # TPU grid sizing; see the module doc
+    if q.device.type == "cpu":
+        return paged_flash_decode_plain(q, k_pages, v_pages, page_table, lengths, layer=layer,
+                                        sm_scale=sm_scale, k_scales=k_scales, v_scales=v_scales)
+    return _paged(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, k_scales, v_scales,
+                  _core_kernel)
 
 
 paged_flash_decode.launches = 0

@@ -1,25 +1,43 @@
-"""Weight-only INT8 / FP8 matmul — twin of the JAX ``ops/quant_matmul.py``.
+"""Quantized matmuls — twin of the JAX ``ops/quant_matmul.py``.
 
-``quant_matmul(x, w, scale, layer=, out_dtype=)`` computes
-``x @ (w[layer] * scale[layer])`` with fp32 accumulation. On CUDA tensors it
-launches ``csrc/quant_matmul.cu`` (which replaces the TPU kernel
-``_qmm_kernel``): the layer is a pointer offset into the (L, H, O) stack and
-the 8-bit weights are converted in registers, never into a dequantized copy.
-On CPU tensors it runs :func:`quant_matmul_plain`.
+- ``quant_matmul(x, w, scale, layer=, out_dtype=)``: int8 / fp8 weight-only,
+  ``x @ (w[layer] * scale[layer])`` with fp32 accumulation. On CUDA tensors
+  it launches ``csrc/quant_matmul.cu`` (replaces the TPU kernel
+  ``_qmm_kernel``): the layer is a pointer offset into the (L, H, O) stack
+  and the 8-bit weights are converted in registers, never into a
+  dequantized copy.
+- ``quant_matmul_int4``: nibble-packed int4 weights with grouped scales
+  (``core/quant.quantize_weight_int4``); the int4 mode of the same source
+  (replaces ``_qmm_int4_kernel``). Both nibbles of a byte are unpacked in
+  registers, and each group's fp32 partial product is multiplied by its
+  scale before it joins the accumulator.
+- ``quant_matmul_w8a8`` / ``quant_matmul_w4a8``: the activations are
+  quantized per row (:func:`quantize_rows`, plain torch, as XLA computed it
+  outside any kernel), then int8 x int8 products accumulate in int32 on the
+  tensor cores' int8 path: ``csrc/quant_matmul_a8.cu`` (replaces
+  ``_qmm_w8a8_kernel`` and ``_qmm_w4a8_kernel``).
+
+On CPU tensors every entry runs its ``*_plain`` twin. Each launch counts
+once in the entry's ``launches``; ``launches_tiled`` counts the launches of
+the weight-only entries that took the tiled (more than 64 rows) kernel.
+Tensor-parallel activation scales (the JAX ``axis_name``) are not ported.
 """
 
 from __future__ import annotations
 
 import torch
 
+from starflashattention_tpu_torch.core.quant import unpack_int4
 from starflashattention_tpu_torch.ops import _build
 
 _SIGNATURES = {
     "quant_matmul": [_build.P, _build.P, _build.P, _build.P, _build.I, _build.I,
                      _build.I, _build.I, _build.I, _build.P],
+    "quant_matmul_int4": [_build.P] * 4 + [_build.I] * 5 + [_build.P],
 }
+_A8_SIGNATURES = {"quant_matmul_a8": [_build.P] * 5 + [_build.I] * 5 + [_build.P]}
 _WEIGHT_DTYPES = (torch.int8, torch.float8_e4m3fn)
-SMALL_M_MAX = 64  # rows up to which csrc/quant_matmul.cu runs its small-M kernel
+SMALL_M_MAX = 64  # rows up to which csrc/quant_matmul.cu runs its small-M kernels
 
 
 def _stack(w, scale, layer):
@@ -30,11 +48,103 @@ def _stack(w, scale, layer):
     return w, scale, int(layer)
 
 
+def _int_dot(a8: torch.Tensor, b8: torch.Tensor) -> torch.Tensor:
+    """Exact integer product of int8 matrices (float64 holds every int32 sum)."""
+    return torch.matmul(a8.double(), b8.double())
+
+
+def _int4_groups(w, scale, layer):
+    """(x column slices, lo, hi nibble matrices, scale row) per group of one layer."""
+    packed, s = w[layer], scale[layer]
+    g = s.shape[0]
+    hp, o = packed.shape
+    half = hp // g
+    lo, hi = unpack_int4(packed.reshape(g, half, o))
+    for gi in range(g):
+        c0 = 2 * half * gi
+        yield slice(c0, c0 + half), slice(c0 + half, c0 + 2 * half), lo[gi], hi[gi], s[gi]
+
+
+# ----------------------------------------------------------------- plain versions
+
+
 def quant_matmul_plain(x, w, scale, *, layer=None, out_dtype=None):
     """Plain PyTorch version: upcast the layer's weights, fp32 matmul, scale."""
     w, scale, layer = _stack(w, scale, layer)
     y = torch.matmul(x.float(), w[layer].float()) * scale[layer].float()
     return y.to(out_dtype or torch.float32)
+
+
+def quant_matmul_int4_plain(x, w, scale, *, layer=None, out_dtype=None):
+    """Plain int4 version: per group, the two nibble halves against their
+    activation slices in fp32, times the group's scale, summed over groups."""
+    w, scale, layer = _stack(w, scale, layer)
+    xf = x.float()
+    acc = torch.zeros((x.shape[0], w.shape[-1]), dtype=torch.float32, device=x.device)
+    for lo_cols, hi_cols, lo, hi, s in _int4_groups(w, scale, layer):
+        acc += (xf[:, lo_cols] @ lo.float() + xf[:, hi_cols] @ hi.float()) * s
+    return acc.to(out_dtype or torch.float32)
+
+
+def quantize_rows(x: torch.Tensor, eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 quantization of activations -> (x int8 (M, H),
+    row scale (M, 1) fp32). Same bytes as the JAX package's eager
+    ``quantize_rows``."""
+    xf = x.float()
+    rs = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=eps) / 127.0
+    return torch.round(xf / rs).clamp(-127, 127).to(torch.int8), rs
+
+
+def quant_matmul_w8a8_plain(x, w, scale, *, layer=None, out_dtype=None):
+    """Plain W8A8: exact int8 x int8 sums, then ``f32(acc) * rs * s``."""
+    w, scale, layer = _stack(w, scale, layer)
+    x8, rs = quantize_rows(x)
+    y = _int_dot(x8, w[layer]).float() * rs * scale[layer].float()
+    return y.to(out_dtype or torch.float32)
+
+
+def quant_matmul_w4a8_plain(x, w, scale, *, layer=None, out_dtype=None):
+    """Plain W4A8: exact int8 x int4 sums per group, each times its group
+    scale in fp32, summed over groups, times the row scale at the end."""
+    w, scale, layer = _stack(w, scale, layer)
+    x8, rs = quantize_rows(x)
+    acc = torch.zeros((x.shape[0], w.shape[-1]), dtype=torch.float32, device=x.device)
+    for lo_cols, hi_cols, lo, hi, s in _int4_groups(w, scale, layer):
+        acc += (_int_dot(x8[:, lo_cols], lo) + _int_dot(x8[:, hi_cols], hi)).float() * s
+    return (acc * rs).to(out_dtype or torch.float32)
+
+
+# ----------------------------------------------------------------- kernels
+
+
+def _prepare(name, x, w, scale, layer, out_dtype, x_dtype=torch.bfloat16):
+    """Shared wrapper checks -> (x, stacked w, scale, layer, out_dtype)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    w, scale, layer = _stack(w, scale, layer)
+    out_dtype = out_dtype or torch.float32
+    if x.dim() != 2:
+        raise ValueError(f"{name}: x must be (M, H), got {tuple(x.shape)}")
+    if x.dtype != x_dtype:
+        raise ValueError(f"{name}: the CUDA kernel takes {x_dtype} activations, got {x.dtype}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: unsupported out_dtype {out_dtype}")
+    if not (w.is_contiguous() and scale.is_contiguous()) or scale.dtype != torch.float32:
+        raise ValueError(f"{name}: weights and fp32 scales must be contiguous")
+    if not 0 <= layer < w.shape[0]:
+        raise ValueError(f"{name}: layer {layer} out of range for {w.shape[0]} layers")
+    if w.data_ptr() % 16:
+        raise ValueError(f"{name}: weights must be 16-byte aligned")
+    x = x.contiguous()
+    if x.data_ptr() % 16:  # a view at an odd offset: the kernels load 16 bytes at a time
+        x = x.clone()
+    return x, w, scale, layer, out_dtype
+
+
+def _layer_ptrs(w, scale, layer):
+    """This layer's slices of the (L, ...) weight and scale stacks."""
+    per_w, per_s = w[0].numel() * w.element_size(), scale[0].numel() * 4
+    return _build.P(w.data_ptr() + layer * per_w), _build.P(scale.data_ptr() + layer * per_s)
 
 
 def quant_matmul(
@@ -50,41 +160,22 @@ def quant_matmul(
         raise ValueError(f"quant_matmul takes int8/fp8 weights, got {w.dtype}")
     if x.device.type == "cpu":
         return quant_matmul_plain(x, w, scale, layer=layer, out_dtype=out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"quant_matmul: unsupported device {x.device}")
-    w, scale, layer = _stack(w, scale, layer)
+    x, w, scale, layer, out_dtype = _prepare("quant_matmul", x, w, scale, layer, out_dtype)
     n_layers, h, o = w.shape
     m = x.shape[0]
-    out_dtype = out_dtype or torch.float32
-    if x.dim() != 2 or x.shape[1] != h:
+    if x.shape[1] != h:
         raise ValueError(f"x {tuple(x.shape)} does not match weights {tuple(w.shape)}")
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"the CUDA kernel takes bf16 activations, got {x.dtype}")
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"unsupported out_dtype {out_dtype}")
     if h % 32 or o % 32:
         raise ValueError(f"the CUDA kernel needs H and O multiples of 32, got H={h}, O={o}")
-    if not (w.is_contiguous() and scale.is_contiguous()) or scale.dtype != torch.float32:
-        raise ValueError("weights and fp32 scales must be contiguous")
     if scale.shape != (n_layers, o):
         raise ValueError(f"scale {tuple(scale.shape)} does not match weights {tuple(w.shape)}")
-    if not 0 <= layer < n_layers:
-        raise ValueError(f"layer {layer} out of range for {n_layers} layers")
-    if w.data_ptr() % 16:
-        raise ValueError("weights must be 16-byte aligned")
-    x = x.contiguous()
-    if x.data_ptr() % 16:  # a view at an odd offset: the kernel loads 16 bytes at a time
-        x = x.clone()
     out = torch.empty((m, o), dtype=out_dtype, device=x.device)
     if m == 0:
         return out
     lib = _build.load("quant_matmul", _SIGNATURES)
     with torch.cuda.device(x.device):
         err = lib.quant_matmul(
-            _build.ptr(x),
-            _build.P(w.data_ptr() + layer * h * o),  # this layer's (H, O) slice
-            _build.P(scale.data_ptr() + layer * o * 4),
-            _build.ptr(out), m, h, o,
+            _build.ptr(x), *_layer_ptrs(w, scale, layer), _build.ptr(out), m, h, o,
             int(w.dtype == torch.float8_e4m3fn), int(out_dtype == torch.bfloat16),
             _build.stream_ptr(x.device),
         )
@@ -97,3 +188,123 @@ def quant_matmul(
 
 quant_matmul.launches = 0  # every launch
 quant_matmul.launches_tiled = 0  # those that took the tiled (prefill-row) kernel
+
+
+def _int4_geometry(name, x, w, scale, multiple):
+    """(M, H, O, half) of an int4 call; raises for a geometry the kernels do
+    not take (``multiple`` is the packed rows one kernel step consumes)."""
+    n_layers, hp, o = w.shape
+    g = scale.shape[1]
+    if w.dtype != torch.int8 or scale.shape != (n_layers, g, o) or hp % g:
+        raise ValueError(f"{name}: packed int8 weights (L, H/2, O) with (L, G, O) scales expected, "
+                         f"got {tuple(w.shape)} {w.dtype} / {tuple(scale.shape)}")
+    half = hp // g
+    if x.shape[1] != 2 * hp:
+        raise ValueError(f"{name}: x {tuple(x.shape)} does not match packed weights {tuple(w.shape)}")
+    if half % multiple or o % 32:
+        raise ValueError(f"{name}: the CUDA kernel needs group/2 a multiple of {multiple} and O a "
+                         f"multiple of 32, got group {2 * half}, O={o}")
+    return x.shape[0], 2 * hp, o, half
+
+
+def quant_matmul_int4(
+    x: torch.Tensor,  # (M, H) activations
+    w: torch.Tensor,  # (H/2, O) or (L, H/2, O) int8, packed nibble pairs
+    scale: torch.Tensor,  # (G, O) or (L, G, O) fp32 per-(group, output-channel) scales
+    *,
+    layer: int | None = None,
+    out_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """``x @ dequant_int4(w[layer])`` -> (M, O) in ``out_dtype`` (default
+    fp32): kernel K6, small-M (<= 64 rows) or tiled."""
+    if x.device.type == "cpu":
+        return quant_matmul_int4_plain(x, w, scale, layer=layer, out_dtype=out_dtype)
+    x, w, scale, layer, out_dtype = _prepare("quant_matmul_int4", x, w, scale, layer, out_dtype)
+    m, h, o, half = _int4_geometry("quant_matmul_int4", x, w, scale, 16)
+    out = torch.empty((m, o), dtype=out_dtype, device=x.device)
+    if m == 0:
+        return out
+    lib = _build.load("quant_matmul", _SIGNATURES)
+    with torch.cuda.device(x.device):
+        err = lib.quant_matmul_int4(
+            _build.ptr(x), *_layer_ptrs(w, scale, layer), _build.ptr(out), m, h, o, half,
+            int(out_dtype == torch.bfloat16), _build.stream_ptr(x.device),
+        )
+    _build.check(lib, err, "quant_matmul_int4")
+    quant_matmul_int4.launches += 1
+    if m > SMALL_M_MAX:
+        quant_matmul_int4.launches_tiled += 1
+    return out
+
+
+quant_matmul_int4.launches = 0
+quant_matmul_int4.launches_tiled = 0
+
+
+def _launch_a8(entry, x, w, scale, layer, out_dtype, half):
+    """Quantize the rows, then csrc/quant_matmul_a8.cu: ``half`` 0 for int8
+    weights (W8A8), else the packed rows per int4 half group (W4A8). Counts
+    the launch in ``entry.launches``."""
+    x8, rs = quantize_rows(x)
+    m, o = x.shape[0], w.shape[-1]
+    out = torch.empty((m, o), dtype=out_dtype, device=x.device)
+    if m == 0:
+        return out
+    lib = _build.load("quant_matmul_a8", _A8_SIGNATURES)
+    with torch.cuda.device(x.device):
+        err = lib.quant_matmul_a8(
+            _build.ptr(x8), _build.ptr(rs.contiguous()), *_layer_ptrs(w, scale, layer),
+            _build.ptr(out), m, x.shape[1], o, half, int(out_dtype == torch.bfloat16),
+            _build.stream_ptr(x.device),
+        )
+    _build.check(lib, err, entry.__name__)
+    entry.launches += 1
+    return out
+
+
+def quant_matmul_w8a8(
+    x: torch.Tensor,  # (M, H) activations, quantized per row here
+    w: torch.Tensor,  # (H, O) or (L, H, O) int8
+    scale: torch.Tensor,  # (O,) or (L, O) fp32
+    *,
+    layer: int | None = None,
+    out_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """W8A8: per-row int8 activations x int8 weights, int32 sums,
+    ``f32(acc) * rs[row] * s[col]`` -> (M, O) (kernel K10)."""
+    if w.dtype != torch.int8:
+        raise ValueError(f"W8A8 requires int8 weights, got {w.dtype}")
+    if x.device.type == "cpu":
+        return quant_matmul_w8a8_plain(x, w, scale, layer=layer, out_dtype=out_dtype)
+    x, w, scale, layer, out_dtype = _prepare("quant_matmul_w8a8", x, w, scale, layer, out_dtype)
+    n_layers, h, o = w.shape
+    if x.shape[1] != h or scale.shape != (n_layers, o):
+        raise ValueError(f"x {tuple(x.shape)} / scale {tuple(scale.shape)} do not match weights "
+                         f"{tuple(w.shape)}")
+    if h % 64 or o % 32:
+        raise ValueError(f"the CUDA kernel needs H a multiple of 64 and O of 32, got H={h}, O={o}")
+    return _launch_a8(quant_matmul_w8a8, x, w, scale, layer, out_dtype, 0)
+
+
+quant_matmul_w8a8.launches = 0
+
+
+def quant_matmul_w4a8(
+    x: torch.Tensor,  # (M, H) activations, quantized per row here
+    w: torch.Tensor,  # (H/2, O) or (L, H/2, O) int8, packed nibble pairs
+    scale: torch.Tensor,  # (G, O) or (L, G, O) fp32 grouped scales
+    *,
+    layer: int | None = None,
+    out_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """W4A8: per-row int8 activations x int4 weights unpacked to int8, int32
+    sums per group, each times its group scale in fp32, times the row scale
+    at the store -> (M, O) (kernel K11)."""
+    if x.device.type == "cpu":
+        return quant_matmul_w4a8_plain(x, w, scale, layer=layer, out_dtype=out_dtype)
+    x, w, scale, layer, out_dtype = _prepare("quant_matmul_w4a8", x, w, scale, layer, out_dtype)
+    _, _, _, half = _int4_geometry("quant_matmul_w4a8", x, w, scale, 32)
+    return _launch_a8(quant_matmul_w4a8, x, w, scale, layer, out_dtype, half)
+
+
+quant_matmul_w4a8.launches = 0

@@ -49,16 +49,20 @@ def attention_decode_step(
 ):
     """One layer's decode attention: RoPE(q, k_new) at position
     ``lengths``, append into the layer's cache IN PLACE, attend over
-    ``lengths + 1`` positions. Returns ``(o (B, Hq, D), cache)``."""
-    if cfg.sliding_window is not None or cfg.quant_mode != "none":
+    ``lengths + 1`` positions. Returns ``(o (B, Hq, D), cache)``. An int8 /
+    fp8 cache quantizes the new rows against its scales and attends with
+    them folded around the kernel."""
+    if cfg.sliding_window is not None:
         raise NotImplementedError(
-            "sliding-window and quantized-KV decode are not ported yet (ROADMAP Queue 2, K1 options)")
+            "sliding-window decode is not ported yet (ROADMAP Queue 2, K1 options)")
     pos = cache.lengths
     q = apply_rope(q, pos, cos_table, sin_table, style=cfg.rope_style)
     k_new = apply_rope(k_new, pos, cos_table, sin_table, style=cfg.rope_style)
     contiguous.append_decode(cache, layer, k_new, v_new)
+    ks, vs = cache.layer_scales(layer)
     o = flash_decode(q, cache.k, cache.v, cache.lengths + 1, layer=layer,
-                     sm_scale=cfg.sm_scale, num_splits=cfg.num_splits, block_k=cfg.block_k)
+                     sm_scale=cfg.sm_scale, num_splits=cfg.num_splits, block_k=cfg.block_k,
+                     k_scales=ks, v_scales=vs)
     return o, cache
 
 

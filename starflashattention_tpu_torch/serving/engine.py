@@ -154,7 +154,8 @@ class Engine:
         hkv, d = self.cfg.kv_cache_dims()
         return contiguous.init_cache(
             self.cfg.num_layers, self.num_slots, hkv, self.cfg.max_seq_len, d,
-            dtype=llama.torch_dtype(self.cfg.dtype), device=self.device,
+            dtype=llama.torch_dtype(self.cfg.dtype), quant_mode=self.cfg.quant_mode,
+            calibration_scale=self.cfg.kv_calibration_scale, device=self.device,
         )
 
     def _prepare_admit(self, admitted: list[tuple[int, Request]]) -> list[tuple[int, Request]]:
@@ -557,7 +558,8 @@ class PagedEngine(Engine):
         return paged.init_paged_cache(
             self.cfg.num_layers, self.num_slots, hkv, d, num_pages=self.num_pages,
             page_size=self.page_size, pages_per_seq=self.pages_per_seq,
-            dtype=llama.torch_dtype(self.cfg.dtype), device=self.device,
+            dtype=llama.torch_dtype(self.cfg.dtype), quant_mode=self.cfg.quant_mode,
+            calibration_scale=self.cfg.kv_calibration_scale, device=self.device,
         )
 
     def _sync_table(self) -> None:

@@ -5,7 +5,9 @@ The JAX package's arrays reach the port as numpy arrays (the caller does
 ``ml_dtypes.bfloat16`` and fp8 as ``ml_dtypes.float8_e4m3fn``, which
 ``torch.from_numpy`` refuses; both cross as same-width integer views, which
 is exact. The layouts stay the JAX package's: weights are (L, H, O) and used
-as ``x @ w``, so nothing is transposed.
+as ``x @ w``, so nothing is transposed. Int4 weights are plain int8 payloads
+with fp32 (..., G, O) scales and cross like any other dict; quantized caches
+and pools cross with their ``k_scales`` / ``v_scales``, both ways.
 """
 
 from __future__ import annotations
@@ -37,13 +39,29 @@ def tensor_from_numpy(arr, device: torch.device | str = "cpu") -> torch.Tensor:
     return t.to(device)
 
 
-def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+def tensor_to_numpy(t: torch.Tensor, exact: bool = False) -> np.ndarray:
     """torch tensor -> numpy. bf16 and fp8 come back as float32 (an exact
-    upcast), so no numpy extension dtype is needed."""
+    upcast), so no numpy extension dtype is needed; ``exact=True`` keeps
+    their dtype through ``ml_dtypes`` (which the JAX package brings)."""
     t = t.detach().cpu()
     if t.dtype in (torch.bfloat16, torch.float8_e4m3fn):
+        if exact:
+            import ml_dtypes
+
+            name = "bfloat16" if t.dtype == torch.bfloat16 else "float8_e4m3fn"
+            return t.view(_TORCH_VIEW[t.dtype]).numpy().view(getattr(ml_dtypes, name))
         t = t.float()
     return t.numpy()
+
+
+_TORCH_VIEW = {torch.bfloat16: torch.int16, torch.float8_e4m3fn: torch.uint8}
+CACHE_FIELDS = ("k", "v", "lengths", "k_scales", "v_scales")
+PAGED_FIELDS = ("k_pages", "v_pages", "page_table", "lengths", "k_scales", "v_scales")
+
+
+def _fields_to_numpy(cache, names) -> dict:
+    return {n: None if getattr(cache, n) is None else tensor_to_numpy(getattr(cache, n), exact=True)
+            for n in names}
 
 
 def params_from_numpy(tree: Any, device: torch.device | str = "cpu") -> Any:
@@ -74,19 +92,30 @@ def cache_from_numpy(
     )
 
 
+def cache_to_numpy(cache: KVCache) -> dict[str, np.ndarray | None]:
+    """The port's KVCache -> numpy arrays named like the JAX fields, in
+    their own dtypes (scales None when unquantized)."""
+    return _fields_to_numpy(cache, CACHE_FIELDS)
+
+
 def paged_cache_from_numpy(
-    k_pages, v_pages, page_table, lengths, device: torch.device | str = "cpu",
+    k_pages, v_pages, page_table, lengths, k_scales=None, v_scales=None,
+    device: torch.device | str = "cpu",
 ) -> PagedKVCache:
     """A JAX ``PagedKVCache``'s arrays (given as numpy) -> the port's
-    PagedKVCache (pools (L, Hkv, P, ps, D), table and lengths int32)."""
+    PagedKVCache (pools (L, Hkv, P, ps, D), table and lengths int32, (L, Hkv)
+    scales of quantized pools)."""
+    def conv(a):
+        return None if a is None else tensor_from_numpy(a, device)
+
     return PagedKVCache(
-        k_pages=tensor_from_numpy(k_pages, device), v_pages=tensor_from_numpy(v_pages, device),
-        page_table=tensor_from_numpy(page_table, device).to(torch.int32),
-        lengths=tensor_from_numpy(lengths, device).to(torch.int32),
+        k_pages=conv(k_pages), v_pages=conv(v_pages),
+        page_table=conv(page_table).to(torch.int32), lengths=conv(lengths).to(torch.int32),
+        k_scales=conv(k_scales), v_scales=conv(v_scales),
     )
 
 
-def paged_cache_to_numpy(cache: PagedKVCache) -> dict[str, np.ndarray]:
-    """The port's PagedKVCache -> numpy arrays named like the JAX fields."""
-    return {name: tensor_to_numpy(getattr(cache, name))
-            for name in ("k_pages", "v_pages", "page_table", "lengths")}
+def paged_cache_to_numpy(cache: PagedKVCache) -> dict[str, np.ndarray | None]:
+    """The port's PagedKVCache -> numpy arrays named like the JAX fields, in
+    their own dtypes (scales None when unquantized)."""
+    return _fields_to_numpy(cache, PAGED_FIELDS)

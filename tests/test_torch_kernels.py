@@ -6,9 +6,14 @@ nor the JAX package, so on a machine with a card and no JAX it runs alone::
 
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -o addopts="" -p no:cacheprovider
 
+Quantized cases: K6 (int4 weight-only), K10 / K11 (W8A8 / W4A8), the
+int8 / fp8 options of K1, K2 and K7, and K8 on 1-byte pools; quantized
+deployments through ``generate`` and both engines.
+
 Tolerances, each against the plain twin on the same card and inputs:
 - bf16 attention outputs: both sides compute in fp32 and round once to
   bf16, so they may differ by one bf16 ulp (2^-8 relative) of |o| <= 4;
+  on int8 / fp8 KV also elementwise, in ulps of each element's own value;
 - prefill attention: the kernel also rounds P to bf16 for the PV product
   (as the TPU kernel does), so 2e-2 absolute;
 - quant_matmul, fp32 out: fp32 sums of the same exact products in another
@@ -50,6 +55,16 @@ def _gen(dev):
 
 def _max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
+
+
+def _ulps(out, ref):
+    """Largest |out - ref| in bf16 ulps of each element's own |ref| (2^-7
+    |ref|, an upper bound of its ulp), with a floor of 1e-3 of the peak of
+    its (sequence, head) row for elements near 0, where the two sides' fp32
+    sums in different orders dominate."""
+    out, ref = out.float(), ref.float()
+    floor = 1e-3 * ref.abs().amax(dim=-1, keepdim=True)
+    return ((out - ref).abs() / (2.0**-7 * ref.abs() + floor).clamp(min=1e-30)).max().item()
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -176,6 +191,126 @@ def test_quant_matmul_kernel_matches_plain(cuda, mode, rows, out_dtype):
     assert _max_err(out, ref) <= rel * ref.float().abs().max().item()
 
 
+@pytest.mark.parametrize("rows", [1, 16, 40, 64, 65, 200])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", [128, 32])
+def test_quant_matmul_int4_kernel_matches_plain(cuda, rows, out_dtype, group):
+    """K6, small-M and tiled: 3 (g128) or 12 (g32) groups."""
+    gen = _gen(cuda)
+    wq = quant.quantize_weight_int4(torch.randn((2, 384, 96), generator=gen, device=cuda), group)
+    x = torch.randn((rows, 384), generator=gen, device=cuda, dtype=torch.bfloat16)
+    before = quant_matmul.quant_matmul_int4.launches
+    out = quant_matmul.quant_matmul_int4(x, wq["w"], wq["scale"], layer=1, out_dtype=out_dtype)
+    assert quant_matmul.quant_matmul_int4.launches == before + 1
+    ref = quant_matmul.quant_matmul_int4_plain(x, wq["w"], wq["scale"], layer=1, out_dtype=out_dtype)
+    assert out.dtype == out_dtype and out.shape == (rows, 96)
+    rel = 1e-5 if out_dtype == torch.float32 else BF16_ULP
+    assert _max_err(out, ref) <= rel * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("entry", ["w8a8", "w4a8"])
+@pytest.mark.parametrize("rows", [1, 63, 256, 300])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_quant_matmul_a8_kernels_match_plain(cuda, entry, rows, out_dtype):
+    """K10 and K11: exact int32 sums on both sides; the fp32 epilogue in
+    another order (K11's group sums), so 1e-5 of the peak (f32 out)."""
+    gen = _gen(cuda)
+    w = torch.randn((2, 512, 160), generator=gen, device=cuda)
+    wq = quant.quantize_weight(w, "int8") if entry == "w8a8" else quant.quantize_weight_int4(w)
+    x = torch.randn((rows, 512), generator=gen, device=cuda, dtype=torch.bfloat16)
+    fn = getattr(quant_matmul, "quant_matmul_" + entry)
+    before = fn.launches
+    out = fn(x, wq["w"], wq["scale"], layer=1, out_dtype=out_dtype)
+    assert fn.launches == before + 1
+    ref = getattr(quant_matmul, f"quant_matmul_{entry}_plain")(x, wq["w"], wq["scale"], layer=1,
+                                                                out_dtype=out_dtype)
+    rel = 1e-5 if out_dtype == torch.float32 else BF16_ULP
+    assert out.dtype == out_dtype and _max_err(out, ref) <= rel * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("entry", ["quant_matmul", "quant_matmul_int4", "quant_matmul_w8a8",
+                                   "quant_matmul_w4a8"])
+def test_quant_matmul_zero_rows_launch_nothing(cuda, entry):
+    """A call with no rows returns an empty output and counts no launch."""
+    w = torch.randn((512, 160), generator=_gen(cuda), device=cuda)
+    wq = quant.quantize_weight_int4(w) if entry.endswith(("int4", "w4a8")) else quant.quantize_weight(w, "int8")
+    fn = getattr(quant_matmul, entry)
+    before = fn.launches
+    out = fn(torch.zeros((0, 512), device=cuda, dtype=torch.bfloat16), wq["w"], wq["scale"])
+    assert out.shape == (0, 160) and fn.launches == before
+
+
+def test_quant_matmul_int4_refuses_geometry(cuda):
+    wq = quant.quantize_weight_int4(torch.randn((384, 64), device=cuda), 48)  # group/2 = 24
+    with pytest.raises(ValueError, match="group/2"):
+        quant_matmul.quant_matmul_int4(torch.zeros((4, 384), device=cuda, dtype=torch.bfloat16),
+                                       wq["w"], wq["scale"])
+
+
+def _quantized(t, mode, scales, head_axis):
+    return quant.quantize_value(t, scales, mode, head_axis=head_axis)
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("num_splits", [1, 4])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_decode_quantized_kernel_matches_plain(cuda, mode, num_splits, d):
+    """K1 / K2 on int8 / fp8 tables: the kernel reads 1-byte values; the
+    scale folding is the wrapper's, shared with the plain route."""
+    gen = _gen(cuda)
+    b, hq, hkv, s = 4, 8, 2, 512
+    qmax = 127.0 if mode == "int8" else 448.0
+    ks = torch.tensor([5.0 / qmax, 6.0 / qmax], device=cuda)
+    vs = torch.tensor([4.0 / qmax, 5.0 / qmax], device=cuda)
+    q = torch.randn((b, hq, d), generator=gen, device=cuda, dtype=torch.bfloat16)
+    k = _quantized(torch.randn((2, b, hkv, s, d), generator=gen, device=cuda), mode, ks, 2)
+    v = _quantized(torch.randn((2, b, hkv, s, d), generator=gen, device=cuda), mode, vs, 2)
+    lengths = torch.tensor([1, 512, 77, 300], dtype=torch.int32, device=cuda)
+    kw = dict(layer=1, num_splits=num_splits, block_k=128, k_scales=ks, v_scales=vs)
+    before = flash_decode.flash_decode.launches
+    out = flash_decode.flash_decode(q, k, v, lengths, **kw)
+    assert flash_decode.flash_decode.launches == before + 1
+    ref = flash_decode.flash_decode_plain(q, k, v, lengths, **kw)
+    assert _max_err(out, ref) <= 4 * BF16_ULP
+    # elementwise: one bf16 rounding (split partials) or two (fused: the
+    # output, then times v_scale), each of which may fall either side
+    assert _ulps(out, ref) <= (3 if num_splits == 1 else 2)
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("page_size", [16, 128])
+def test_paged_flash_decode_quantized_kernel_matches_plain(cuda, mode, page_size):
+    k, v, table, lengths = _paged_setup(cuda, torch.float32, page_size)
+    qmax = 127.0 if mode == "int8" else 448.0
+    ks = torch.tensor([5.0 / qmax, 6.0 / qmax], device=cuda)
+    vs = torch.tensor([4.0 / qmax, 5.0 / qmax], device=cuda)
+    k, v = _quantized(k, mode, ks, 1), _quantized(v, mode, vs, 1)  # pools: (L, Hkv, P, ps, D)
+    q = torch.randn((4, 8, 128), generator=_gen(cuda), device=cuda).to(torch.bfloat16)
+    kw = dict(layer=1, k_scales=ks, v_scales=vs)
+    out = paged_decode.paged_flash_decode(q, k, v, table, lengths, **kw)
+    ref = paged_decode.paged_flash_decode_plain(q, k, v, table, lengths, **kw)
+    assert out.dtype == torch.bfloat16 and _max_err(out, ref) <= 4 * BF16_ULP
+    assert _ulps(out, ref) <= 2  # fp32 output times v_scale, one rounding
+    assert torch.all(out[0] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float8_e4m3fn])
+@pytest.mark.parametrize("page_size", [16, 128])
+def test_append_rows_paged_kernel_moves_one_byte_rows(cuda, dtype, page_size):
+    """K8 on int8 / fp8 pools (K3 takes them too, see above): equal bytes."""
+    k, v, table, lengths = _paged_setup(cuda, torch.float32, page_size)
+    k, v = k.to(dtype), v.to(dtype)
+    gen = _gen(cuda)
+    kn = torch.randn((4, 2, 128), generator=gen, device=cuda).to(dtype)
+    vn = torch.randn((4, 2, 128), generator=gen, device=cuda).to(dtype)
+    pos = torch.clamp(lengths, max=table.shape[1] * page_size - 1)
+    k2, v2 = k.clone(), v.clone()
+    cache_append.append_rows_paged_kv(k, v, kn, vn, 1, table, pos)
+    cache_append.append_rows_paged_kv_plain(k2, v2, kn, vn, 1, table, pos)
+    assert torch.equal(k.view(torch.uint8), k2.view(torch.uint8))
+    assert torch.equal(v.view(torch.uint8), v2.view(torch.uint8))
+
+
 @pytest.mark.parametrize("hq,hkv,d", [(8, 2, 128), (8, 8, 64), (16, 2, 128)])
 def test_flash_prefill_kernel_matches_plain(cuda, hq, hkv, d):
     gen = _gen(cuda)
@@ -220,6 +355,51 @@ def test_generate_runs_on_the_kernels(cuda):
         p = to(params, dev)
         cache = contiguous.init_cache(n_layers, 3, cfg.num_kv_heads, cfg.max_seq_len, cfg.head_dim,
                                       dtype=torch.bfloat16, device=dev)
+        cos, sin = llama.rope_tables(cfg, device=dev)
+        logits, cache = llama.prefill(p, cache, prompts.to(dev), lengths.to(dev), cos, sin, cfg)
+        out = [logits]
+        for tok in toks[:, :2].T:
+            logits, cache = llama.decode_step(p, cache, tok.to(dev), cos, sin, cfg)
+            out.append(logits)
+        return torch.stack(out).float().cpu()
+
+    kern, plain = logits_on(cuda), logits_on(torch.device("cpu"))
+    assert _max_err(kern, plain) <= 0.05 * plain.abs().max().item()
+
+
+@pytest.mark.parametrize("weights,overrides", [("int4", dict(quant_mode="int8")),
+                                               ("int4", dict(w8a8_prefill=True, quant_mode="fp8")),
+                                               ("int8", dict(w8a8_prefill=True))])
+def test_quantized_generate_runs_on_the_kernels(cuda, weights, overrides):
+    """Quantized deployments on the card: every projection on K6 (or K4),
+    the 256-row prefill on K11 / K10 under w8a8_prefill, attention on the
+    quantized K1; logits agree with the CPU run of the plain twins within
+    5% of the logit range, as above."""
+    cfg = ModelConfig.tiny(hidden_size=256, intermediate_size=512, num_q_heads=4, num_kv_heads=2,
+                           head_dim=64, max_seq_len=256, dtype="bfloat16", **overrides)
+    params = llama.init_params(cfg, _gen(cuda), quantize=weights, device=cuda)
+    params = llama.quantize_model_weights(params, weights, lm_head=True)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 64), generator=_gen(cuda), device=cuda,
+                            dtype=torch.int32)
+    lengths = torch.tensor([64, 17, 1, 50], dtype=torch.int32, device=cuda)
+    wo = quant_matmul.quant_matmul_int4 if weights == "int4" else quant_matmul.quant_matmul
+    a8 = quant_matmul.quant_matmul_w4a8 if weights == "int4" else quant_matmul.quant_matmul_w8a8
+    counters = (flash_decode.flash_decode, wo, a8)
+    before = [fn.launches for fn in counters]
+    toks = llama.generate(params, cfg, prompts, lengths, 3, device=cuda)
+    grew = [fn.launches - b for fn, b in zip(counters, before)]
+    n = cfg.num_layers
+    prefill_a8 = 4 * n if cfg.w8a8_prefill else 0
+    assert toks.shape == (4, 3) and grew == [2 * n, 3 * (4 * n + 1) - prefill_a8, prefill_a8]
+
+    def to(tree, dev):
+        return {k: to(v, dev) for k, v in tree.items()} if isinstance(tree, dict) else tree.to(dev)
+
+    def logits_on(dev):
+        p = to(params, dev)
+        cache = contiguous.init_cache(n, 4, cfg.num_kv_heads, cfg.max_seq_len, cfg.head_dim,
+                                      dtype=torch.bfloat16, quant_mode=cfg.quant_mode,
+                                      calibration_scale=cfg.kv_calibration_scale, device=dev)
         cos, sin = llama.rope_tables(cfg, device=dev)
         logits, cache = llama.prefill(p, cache, prompts.to(dev), lengths.to(dev), cos, sin, cfg)
         out = [logits]

@@ -120,6 +120,43 @@ def test_generate_streams_match_jax(splits):
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
 
+# quantized deployments: (config overrides, weight mode); the weight mode
+# also quantizes the lm_head. Prompts are 4 x 64 = 256 rows, so the
+# w8a8_prefill cases really take W8A8 / W4A8 in the prefill.
+QUANT_CASES = {
+    "int4_weights": (dict(), "int4"),
+    "int8_kv": (dict(quant_mode="int8"), "int8"),
+    "int8_kv_four_splits": (dict(quant_mode="int8", block_k=32), "int8"),
+    "fp8_kv": (dict(quant_mode="fp8"), "int8"),
+    "w8a8_prefill_int8": (dict(w8a8_prefill=True), "int8"),
+    "w4a8_prefill_int4_int8_kv": (dict(w8a8_prefill=True, quant_mode="int8"), "int4"),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _weights(mode):
+    jc, _ = _cfgs("float32", 256)
+    params = j_llama.quantize_model_weights(
+        j_llama.init_params(jc, jax.random.PRNGKey(0)), mode, lm_head=True)
+    return params, bridge.params_from_numpy(jax.tree.map(np.asarray, params))
+
+
+@pytest.mark.parametrize("case", sorted(QUANT_CASES))
+def test_quantized_generate_streams_match_jax(case):
+    """Greedy streams of the quantized deployments equal JAX's token for
+    token (float32 at tiny; 4 ragged prompts in a 64-column batch)."""
+    overrides, mode = QUANT_CASES[case]
+    jc = j_params.ModelConfig.tiny(dtype="float32", **overrides)
+    tc = t_params.ModelConfig.tiny(dtype="float32", **overrides)
+    jp, tp = _weights(mode)
+    rng = np.random.default_rng(5)
+    prompts = rng.integers(0, 256, (4, 64)).astype(np.int32)
+    lengths = np.array([64, 41, 7, 60], np.int32)
+    ref = j_llama.generate(jp, jc, jnp.asarray(prompts), jnp.asarray(lengths), max_new_tokens=6)
+    out = t_llama.generate(tp, tc, prompts, lengths, 6, device="cpu")
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
 def test_bf16_logits_match_jax():
     jax_logits, toks, _ = _jax_prefill_and_decode("bfloat16", 32, steps=2)
     port_logits, _ = _port_prefill_and_decode("bfloat16", 32, toks)
@@ -189,6 +226,36 @@ def test_decode_at_a_full_cache_clamps_like_jax():
     out, tcache = t_llama.decode_step(tp, tcache, torch.from_numpy(tok), tcos, tsin, tc)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=LOGIT_ATOL_F32, rtol=0)
     np.testing.assert_allclose(tcache.k.numpy(), np.asarray(jcache.k), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_attention_decode_step_quantized_matches_jax(mode):
+    """The reference-API step on an int8 / fp8 cache: the row is quantized
+    against the cache's scales and attention folds them in."""
+    acfg_kw = dict(num_q_heads=4, num_kv_heads=2, head_dim=16, num_splits=4, block_k=32,
+                   quant_mode=mode)
+    jcfg, tcfg = j_params.AttentionConfig(**acfg_kw), t_params.AttentionConfig(**acfg_kw)
+    rng = np.random.default_rng(6)
+    jcache = j_cache.init_cache(2, 2, 2, 128, 16, quant_mode=mode, calibration_scale=5.0)
+    chunk = rng.standard_normal((2, 2, 40, 16), dtype=np.float32)
+    jcache = j_cache.advance(j_cache.append_prefill(jcache, 1, jnp.asarray(chunk),
+                                                    jnp.asarray(-chunk)), 40)
+    tcache = bridge.cache_from_numpy(**bridge_fields(jcache))
+    q = rng.standard_normal((2, 4, 16), dtype=np.float32)
+    kv = rng.standard_normal((2, 2, 16), dtype=np.float32)
+    cos, sin = j_steps._rope_tables(jcfg, 128)
+    ref, jcache = j_steps.attention_decode_step(jcfg, jcache, 1, jnp.asarray(q), jnp.asarray(kv),
+                                                jnp.asarray(kv * 2), cos, sin)
+    tcos, tsin = t_steps.rope_tables(tcfg, 128, device="cpu")
+    out, tcache = t_steps.attention_decode_step(tcfg, tcache, 1, torch.from_numpy(q),
+                                                torch.from_numpy(kv), torch.from_numpy(kv * 2),
+                                                tcos, tsin)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(tcache.k.view(torch.uint8).numpy(), np.asarray(jcache.k).view(np.uint8))
+
+
+def bridge_fields(jcache):
+    return {name: np.asarray(getattr(jcache, name)) for name in bridge.CACHE_FIELDS}
 
 
 @pytest.mark.parametrize("bias", [False, True])

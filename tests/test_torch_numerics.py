@@ -120,8 +120,14 @@ def test_quantize_value_bytes_identical(rng, mode):
 
 
 def test_quantize_weight_int4_not_ported():
-    with pytest.raises(NotImplementedError):
-        t_quant.quantize_weight(torch.zeros(8, 8), "int4")
+    """``quantize_weight(mode="int4")`` used to raise here; it now routes to
+    the grouped scheme, as the JAX package's does, and an unknown mode
+    raises."""
+    w = torch.randn(64, 8)
+    got, want = t_quant.quantize_weight(w, "int4"), t_quant.quantize_weight_int4(w)
+    assert torch.equal(got["w"], want["w"]) and torch.equal(got["scale"], want["scale"])
+    with pytest.raises(ValueError):
+        t_quant.quantize_weight(w, "int2")
 
 
 # ------------------------------------------------------------------ reference attention
@@ -212,7 +218,7 @@ def test_unported_config_fields_raise(preset):
         t_llama.check_supported(getattr(t_params.ModelConfig, preset)())
 
 
-@pytest.mark.parametrize("overrides", [dict(quant_mode="int8"), dict(w8a8_prefill=True),
+@pytest.mark.parametrize("overrides", [dict(post_norms=True), dict(final_softcap=30.0),
                                        dict(mlp_activation="gelu_tanh"), dict(embed_scale=True)])
 def test_unported_tiny_options_raise(overrides):
     with pytest.raises(NotImplementedError):

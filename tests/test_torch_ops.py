@@ -99,12 +99,69 @@ def test_length_zero_row_gives_zero(rng):
         assert torch.all(torch.isfinite(out))
 
 
-@pytest.mark.parametrize("kwargs", [dict(window=8), dict(softcap=30.0),
-                                    dict(k_scales=torch.ones(2), v_scales=torch.ones(2))])
+@pytest.mark.parametrize("kwargs", [dict(window=8), dict(softcap=30.0), dict(window=8, sinks=2)])
 def test_flash_decode_unported_options_raise(rng, kwargs):
     q, k, v, lengths = _decode_inputs(rng)
     with pytest.raises(NotImplementedError):
         t_fd.flash_decode(_t(q), _t(k), _t(v), _t(lengths), layer=0, num_splits=1, **kwargs)
+
+
+def _quantized_kv(rng, k, v, mode):
+    """K/V quantized by the JAX package against calibration scales 5/qmax
+    (per KV head, a little apart so a wrong head shows), as numpy."""
+    hkv = k.shape[2]
+    qmax = 127.0 if mode == "int8" else 448.0
+    ks = (5.0 / qmax * (1.0 + 0.1 * np.arange(hkv))).astype(np.float32)
+    vs = (5.0 / qmax * (1.0 - 0.05 * np.arange(hkv))).astype(np.float32)
+    kq = np.asarray(j_quant.quantize_value(jnp.asarray(k), jnp.asarray(ks), mode, head_axis=2))
+    vq = np.asarray(j_quant.quantize_value(jnp.asarray(v), jnp.asarray(vs), mode, head_axis=2))
+    return kq, vq, ks, vs
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("num_splits", [1, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_quantized_matches_jax(rng, mode, num_splits, dtype):
+    """K1 / K2 on int8 and fp8 caches: sm_scale * k_scale folded into q and
+    rounded to q's dtype, v_scale on the output (fused: a second rounding)
+    or on the fp32 partials (split). In bf16 the JAX kernel also rounds P to
+    bf16 for the PV product where the port keeps fp32: up to about one bf16
+    ulp of |o| beside the two output roundings, so 4 ulps of the peak."""
+    q, k, v, lengths = _decode_inputs(rng)
+    kq, vq, ks, vs = _quantized_kv(rng, k, v, mode)
+    q = q.astype(jnp.dtype(dtype))
+    kw = dict(layer=1, num_splits=num_splits, block_k=32)
+    ref = j_fd.flash_decode(jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq), jnp.asarray(lengths),
+                            k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs), **kw)
+    out = t_fd.flash_decode(tensor_from_numpy(q), tensor_from_numpy(kq), tensor_from_numpy(vq),
+                            _t(lengths), k_scales=_t(ks), v_scales=_t(vs), **kw)
+    ref = np.asarray(ref).astype(np.float32)
+    assert out.dtype == getattr(torch, dtype)
+    tol = ATOL if dtype == "float32" else 4 * 2.0**-8 * np.abs(ref).max()
+    np.testing.assert_allclose(tensor_to_numpy(out), ref, atol=tol, rtol=0)
+
+
+def test_flash_decode_partials_carry_v_scale(rng):
+    """The split partials of a quantized cache hold o * v_scale (JAX
+    flash_decode.py:486-489) and merge to the same output."""
+    q, k, v, lengths = _decode_inputs(rng)
+    kq, vq, ks, vs = _quantized_kv(rng, k, v, "int8")
+    kw = dict(layer=0, num_splits=4, block_k=32)
+    ref = j_fd.flash_decode_with_stats(jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq),
+                                       jnp.asarray(lengths), k_scales=jnp.asarray(ks),
+                                       v_scales=jnp.asarray(vs), **kw)
+    out = t_fd.flash_decode_with_stats(_t(q), _t(kq), _t(vq), _t(lengths), k_scales=_t(ks),
+                                       v_scales=_t(vs), **kw)
+    live = np.asarray(ref[1]) > -1e30  # splits that hold a valid position
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(o.numpy()[live], np.asarray(r)[live], atol=ATOL, rtol=0)
+
+
+def test_flash_decode_quantized_cache_needs_scales(rng):
+    q, k, v, lengths = _decode_inputs(rng)
+    kq, vq, _, _ = _quantized_kv(rng, k, v, "int8")
+    with pytest.raises(ValueError, match="k_scales"):
+        t_fd.flash_decode(_t(q), _t(kq), _t(vq), _t(lengths), layer=0, num_splits=1)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

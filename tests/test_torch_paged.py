@@ -14,6 +14,7 @@ summation order only) and logprobs; logits within 1e-4 as in
 tests/test_torch_llama.py.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -23,6 +24,7 @@ import pytest
 import torch
 
 from starflashattention_tpu.cache import paged as j_paged
+from starflashattention_tpu.core import quant as j_quant
 from starflashattention_tpu.models import llama as j_llama
 from starflashattention_tpu.ops import cache_append as j_append
 from starflashattention_tpu.ops import paged_decode as j_pdec
@@ -96,6 +98,39 @@ def test_paged_decode_plain_matches_jax(layer):
                                     pages_per_compute_block=2)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL_F32, rtol=0)
     assert np.all(out.numpy()[0] == 0) and np.all(np.asarray(ref)[0] == 0)
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_quantized_matches_jax(mode, dtype):
+    """K7 on int8 / fp8 pools: sm_scale * k_scale folded into q (one
+    rounding to q's dtype), fp32 output times v_scale, one cast (JAX
+    paged_decode.py:341-346, :404-406). In bf16 the JAX kernel rounds P to
+    bf16 for the PV product where the port keeps fp32: 4 bf16 ulps of the
+    peak."""
+    rng = np.random.default_rng(1)
+    k, v = _pools(rng)
+    qmax = 127.0 if mode == "int8" else 448.0
+    ks = np.array([5.0 / qmax, 6.0 / qmax], np.float32)
+    vs = np.array([4.0 / qmax, 5.0 / qmax], np.float32)
+    kq = np.asarray(j_quant.quantize_value(jnp.asarray(k), jnp.asarray(ks), mode, head_axis=1))
+    vq = np.asarray(j_quant.quantize_value(jnp.asarray(v), jnp.asarray(vs), mode, head_axis=1))
+    table = _shuffled_table(rng, 4, 6, 29)
+    lengths = np.array([0, 6 * PAGE, 17, 40], np.int32)
+    q = rng.standard_normal((4, 4, 16), dtype=np.float32).astype(jnp.dtype(dtype))
+    ref = j_pdec.paged_flash_decode(jnp.asarray(q), jnp.asarray(kq), jnp.asarray(vq),
+                                    jnp.asarray(table), jnp.asarray(lengths), layer=1,
+                                    pages_per_compute_block=2, k_scales=jnp.asarray(ks),
+                                    v_scales=jnp.asarray(vs))
+    out = t_pdec.paged_flash_decode(bridge.tensor_from_numpy(q), bridge.tensor_from_numpy(kq),
+                                    bridge.tensor_from_numpy(vq), torch.from_numpy(table),
+                                    torch.from_numpy(lengths), layer=1, pages_per_compute_block=2,
+                                    k_scales=torch.from_numpy(ks), v_scales=torch.from_numpy(vs))
+    ref = np.asarray(ref).astype(np.float32)
+    tol = ATOL_F32 if dtype == "float32" else 4 * 2.0**-8 * np.abs(ref).max()
+    assert out.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(bridge.tensor_to_numpy(out), ref, atol=tol, rtol=0)
+    assert np.all(bridge.tensor_to_numpy(out)[0] == 0)
 
 
 def test_paged_decode_equals_contiguous_decode_on_the_same_rows():
@@ -208,9 +243,14 @@ def test_page_pools_allocate_like_jax(pool_kind):
 
 
 def test_init_paged_cache_refuses_quantized_pages():
-    with pytest.raises(NotImplementedError, match="K7 options"):
+    """int8 / fp8 pages are ported; a quant mode the pools do not know, or
+    a 1-byte dtype without one, is refused."""
+    with pytest.raises(ValueError, match="quant mode"):
         t_paged.init_paged_cache(1, 1, 1, 16, num_pages=3, page_size=PAGE, pages_per_seq=2,
-                                 quant_mode="int8", device="cpu")
+                                 quant_mode="int4", device="cpu")
+    with pytest.raises(ValueError, match="bf16 or fp32"):
+        t_paged.init_paged_cache(1, 1, 1, 16, num_pages=3, page_size=PAGE, pages_per_seq=2,
+                                 dtype=torch.int8, device="cpu")
 
 
 def test_page_table_sanitizer_matches_jax():
@@ -376,6 +416,33 @@ def test_paged_engine_matches_jax(kind):
     if kind == "interleaved":
         for r, j in zip(reqs, ref):
             np.testing.assert_allclose(r.logprobs, j.logprobs, atol=ATOL_F32, rtol=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _int4_models():
+    jc, _ = _cfgs()
+    params = j_llama.quantize_model_weights(
+        j_llama.init_params(jc, jax.random.PRNGKey(0)), "int4", lm_head=True)
+    return params, bridge.params_from_numpy(jax.tree.map(np.asarray, params))
+
+
+@pytest.mark.parametrize("kind", ["preempt", "prefix"])
+def test_paged_engine_int8_pages_int4_weights_matches_jax(kind):
+    """A quantized deployment through the paged engine: int8 pages (chunk
+    quantized before the scatter, prefixes dequantized after the gather),
+    int4 weights. Streams, counters and the page table after every round
+    equal the JAX engine's."""
+    jc, tc = (dataclasses.replace(c, quant_mode="int8") for c in _cfgs())
+    jp, tp = _int4_models()
+    _, ref, ref_stats, ref_tables = _run(JPagedEngine, JRequest, jp, jc, kind)
+    eng, reqs, stats, tables = _run(PagedEngine, Request, tp, tc, kind, device="cpu")
+    assert eng.cache.k_pages.dtype == torch.int8 and eng.cache.k_scales is not None
+    assert [r.output for r in reqs] == [r.output for r in ref]
+    assert stats == ref_stats
+    assert len(tables) == len(ref_tables)
+    for got, want in zip(tables, ref_tables):
+        np.testing.assert_array_equal(got, want)
+    assert stats["preemptions" if kind == "preempt" else "prefix_hits"] > 0
 
 
 def test_paged_engine_equals_contiguous_engine():

@@ -1,0 +1,342 @@
+"""The port's quantized slice against the JAX package's, on the CPU: int4
+weights (kernel K6), W8A8 / W4A8 prefill (K10, K11) and int8 / fp8 KV
+caches, at tiny sizes.
+
+The same numpy inputs go through the JAX function (its Pallas kernels in
+interpret mode) and the port's (the plain twins a CPU tensor takes).
+
+Tolerances:
+- quantized bytes and scales (``quantize_weight_int4``, ``quantize_rows``
+  against eager JAX, KV appends): identical;
+- the matmul entries in fp32: both sides sum the same exact products (int4
+  nibbles times fp32 activations; int8 x int8 in exact integer sums) and
+  differ only in the order of the fp32 group sums, so 1e-5 of the output's
+  peak; bf16 outputs add one bf16 rounding on each side (2^-8 of the peak);
+- model logits in fp32: 1e-4, as tests/test_torch_llama.py holds them. Under
+  ``w8a8_prefill`` JAX's jitted model quantizes the rows with XLA, which may
+  turn ``absmax / 127`` into a multiply by 1/127 (one fp32 ulp of a row
+  scale, and so one int8 step of an activation that sits on a rounding
+  boundary); the streams are still required to be equal.
+"""
+
+import dataclasses
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from starflashattention_tpu.cache import contiguous as j_cache
+from starflashattention_tpu.cache import paged as j_paged
+from starflashattention_tpu.core import quant as j_quant
+from starflashattention_tpu.models import llama as j_llama
+from starflashattention_tpu.runtime import params as j_params
+from starflashattention_tpu_torch.cache import contiguous as t_cache
+from starflashattention_tpu_torch.cache import paged as t_paged
+from starflashattention_tpu_torch.core import quant as t_quant
+from starflashattention_tpu_torch.models import llama as t_llama
+from starflashattention_tpu_torch.ops import quant_matmul as t_qmm
+from starflashattention_tpu_torch.runtime import params as t_params
+from starflashattention_tpu_torch.utils import bridge
+
+j_qmm = importlib.import_module("starflashattention_tpu.ops.quant_matmul")
+
+torch.set_num_threads(1)
+
+REL_F32 = 1e-5
+REL_BF16 = 2.0**-8
+LOGIT_ATOL = 1e-4
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+# ------------------------------------------------------------------ quantization bytes
+
+
+@pytest.mark.parametrize("shape,group", [((2, 256, 48), None),  # g128, 2 groups a layer
+                                         ((384, 40), None),  # 3 groups: an odd count
+                                         ((96, 24), 32),  # an explicit cap
+                                         ((2, 192, 16), None)])  # 192: largest even divisor 96
+def test_quantize_weight_int4_bytes_identical(rng, shape, group):
+    w = rng.standard_normal(shape, dtype=np.float32)
+    w[..., 0] = 0.0  # an all-zero column takes scale 1
+    ref = j_quant.quantize_weight_int4(jnp.asarray(w), group)
+    out = t_quant.quantize_weight_int4(_t(w), group)
+    assert out["w"].dtype == torch.int8 and out["scale"].dtype == torch.float32
+    np.testing.assert_array_equal(out["w"].numpy(), np.asarray(ref["w"]))
+    np.testing.assert_array_equal(out["scale"].numpy(), np.asarray(ref["scale"]))
+    assert t_quant.is_int4_weight(out) and j_quant.is_int4_weight(ref)
+    np.testing.assert_array_equal(t_quant.dequantize_weight(out).numpy(),
+                                  np.asarray(j_quant.dequantize_weight(ref)))
+
+
+def test_default_int4_group_and_unpack_match_jax(rng):
+    for h in (64, 128, 192, 384, 11008, 4096, 22):
+        assert t_quant.default_int4_group(h) == j_quant.default_int4_group(h)
+    packed = rng.integers(-128, 128, (8, 5)).astype(np.int8)
+    for got, want in zip(t_quant.unpack_int4(_t(packed)), j_quant.unpack_int4(jnp.asarray(packed))):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_rows_bytes_identical(rng, dtype):
+    x = (rng.standard_normal((7, 96), dtype=np.float32) * np.array([[1e-3], [1], [30], [0], [1],
+                                                                    [5], [1e-8]], np.float32))
+    x = x.astype(jnp.dtype(dtype))
+    x8_ref, rs_ref = j_qmm.quantize_rows(jnp.asarray(x))
+    x8, rs = t_qmm.quantize_rows(bridge.tensor_from_numpy(x))
+    np.testing.assert_array_equal(x8.numpy(), np.asarray(x8_ref))
+    np.testing.assert_array_equal(rs.numpy(), np.asarray(rs_ref))
+
+
+# ------------------------------------------------------------------ matmul entries
+
+
+def _compare(out, ref, out_dtype):
+    ref = np.asarray(ref).astype(np.float32)
+    rel = REL_F32 if out_dtype == "float32" else REL_BF16
+    assert out.dtype == getattr(torch, out_dtype)
+    np.testing.assert_allclose(bridge.tensor_to_numpy(out), ref, atol=rel * np.abs(ref).max(), rtol=0)
+
+
+@pytest.mark.parametrize("entry", ["int4", "w4a8"])
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_int4_matmuls_match_jax(rng, entry, stacked, out_dtype):
+    """Weight-only int4 (K6) and W4A8 (K11), three groups of 128."""
+    m, h, o = 6, 384, 40
+    w = rng.standard_normal((2, h, o) if stacked else (h, o), dtype=np.float32)
+    x = rng.standard_normal((m, h), dtype=np.float32)
+    jw = j_quant.quantize_weight_int4(jnp.asarray(w))
+    tw = t_quant.quantize_weight_int4(_t(w))
+    layer = 1 if stacked else None
+    name = "quant_matmul_" + entry
+    ref = getattr(j_qmm, name)(jnp.asarray(x), jw["w"], jw["scale"], layer=layer,
+                               out_dtype=jnp.dtype(out_dtype))
+    out = getattr(t_qmm, name)(_t(x), tw["w"], tw["scale"], layer=layer,
+                               out_dtype=getattr(torch, out_dtype))
+    _compare(out, ref, out_dtype)
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_w8a8_matches_jax(rng, stacked, out_dtype):
+    """K10: exact integer sums on both sides, then the same two fp32 multiplies."""
+    m, h, o = 9, 128, 48
+    w = rng.standard_normal((3, h, o) if stacked else (h, o), dtype=np.float32)
+    x = rng.standard_normal((m, h), dtype=np.float32)
+    jw = j_quant.quantize_weight(jnp.asarray(w), "int8")
+    tw = t_quant.quantize_weight(_t(w), "int8")
+    layer = 2 if stacked else None
+    ref = j_qmm.quant_matmul_w8a8(jnp.asarray(x), jw["w"], jw["scale"], layer=layer,
+                                  out_dtype=jnp.dtype(out_dtype))
+    out = t_qmm.quant_matmul_w8a8(_t(x), tw["w"], tw["scale"], layer=layer,
+                                  out_dtype=getattr(torch, out_dtype))
+    _compare(out, ref, out_dtype)
+
+
+def test_w8a8_refuses_fp8_weights(rng):
+    tw = t_quant.quantize_weight(_t(rng.standard_normal((64, 32), dtype=np.float32)), "fp8")
+    with pytest.raises(ValueError, match="int8"):
+        t_qmm.quant_matmul_w8a8(torch.zeros(2, 64), tw["w"], tw["scale"])
+
+
+@pytest.mark.parametrize("group,multiple,ok", [(128, 16, True), (64, 32, True), (32, 32, False),
+                                               (48, 16, False)])
+def test_int4_kernel_geometry_checks(group, multiple, ok):
+    """The CUDA wrappers' geometry rule (checked before any launch): group/2
+    a multiple of 16 (K6) or 32 (K11), O a multiple of 32."""
+    w = t_quant.quantize_weight_int4(torch.randn(2, 384, 64), group)
+    x = torch.zeros(4, 384)
+    if ok:
+        assert t_qmm._int4_geometry("k", x, w["w"], w["scale"], multiple) == (4, 384, 64, group // 2)
+    else:
+        with pytest.raises(ValueError, match="group/2"):
+            t_qmm._int4_geometry("k", x, w["w"], w["scale"], multiple)
+
+
+# ------------------------------------------------------------------ model: int4, W8A8 / W4A8 prefill
+
+
+def _cfgs(**kw):
+    return j_params.ModelConfig.tiny(dtype="float32", **kw), t_params.ModelConfig.tiny(dtype="float32", **kw)
+
+
+def _quantized_models(mode):
+    jc, _ = _cfgs()
+    params = j_llama.quantize_model_weights(j_llama.init_params(jc, jax.random.PRNGKey(0)), mode,
+                                            lm_head=True)
+    return params, bridge.params_from_numpy(jax.tree.map(np.asarray, params))
+
+
+def test_quantize_model_weights_int4_matches_jax():
+    """Bytes identical; scales within one fp32 ulp (JAX jit-compiles this
+    step, see tests/test_torch_llama.py)."""
+    jc, _ = _cfgs()
+    dense = j_llama.init_params(jc, jax.random.PRNGKey(0))
+    ref = j_llama.quantize_model_weights(dense, "int4", lm_head=True, int4_group=32)
+    out = t_llama.quantize_model_weights(bridge.params_from_numpy(jax.tree.map(np.asarray, dense)),
+                                         "int4", lm_head=True, int4_group=32)
+    pairs = [(out["layers"][n], ref["layers"][n]) for n in ("wqkv", "wo", "w_gate_up", "w_down")]
+    for got, want in pairs + [(out["lm_head"], ref["lm_head"])]:
+        assert got["scale"].shape == tuple(want["scale"].shape)
+        np.testing.assert_array_equal(got["w"].numpy(), np.asarray(want["w"]))
+        np.testing.assert_array_max_ulp(got["scale"].numpy(), np.asarray(want["scale"]), maxulp=1)
+
+
+def test_init_params_int4_layout_matches_jax():
+    jc, tc = _cfgs()
+    jp = j_llama.init_params(jc, jax.random.PRNGKey(0), quantize="int4", int4_group=64)
+    tp = t_llama.init_params(tc, torch.Generator().manual_seed(0), quantize="int4", int4_group=64,
+                             device="cpu")
+    shapes = jax.tree.map(lambda a: (tuple(a.shape), str(a.dtype)), jp)
+    assert jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype).replace("torch.", "")), tp) == shapes
+
+
+def _prefill_logits(mode, w8a8):
+    """Prefill logits of a 4 x 64-row prompt batch (256 rows: W8A8 routes)."""
+    jc, tc = _cfgs(w8a8_prefill=w8a8)
+    jp, tp = _quantized_models(mode)
+    prompts = np.random.default_rng(3).integers(0, 256, (4, 64)).astype(np.int32)
+    lengths = np.array([64, 50, 9, 33], np.int32)
+    jcache = j_cache.init_cache(2, 4, 2, 128, 16, dtype=jnp.float32)
+    ref, _ = j_llama.prefill(jp, jcache, jnp.asarray(prompts), jnp.asarray(lengths),
+                             *j_llama.rope_tables(jc), jc)
+    tcache = t_cache.init_cache(2, 4, 2, 128, 16, dtype=torch.float32, device="cpu")
+    out, _ = t_llama.prefill(tp, tcache, _t(prompts), _t(lengths), *t_llama.rope_tables(tc, "cpu"), tc)
+    return out.numpy(), np.asarray(ref)
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_w8a8_prefill_logits_match_jax(mode):
+    """W8A8 (int8 weights) and W4A8 (int4) prefill logits, and that the
+    option really changes them (the rows took the int8-activation path)."""
+    out, ref = _prefill_logits(mode, True)
+    np.testing.assert_allclose(out, ref, atol=LOGIT_ATOL, rtol=0)
+    weight_only, _ = _prefill_logits(mode, False)
+    assert np.abs(out - weight_only).max() > 10 * LOGIT_ATOL
+
+
+def test_w8a8_routing_counts_launch_sites():
+    """Which entry each projection takes: >= 256 rows and int8-dtype weights
+    go to W8A8 / W4A8 under the option; decode rows, the lm_head and fp8
+    weights stay weight-only."""
+    calls = []
+    names = ("quant_matmul", "quant_matmul_int4", "quant_matmul_w8a8", "quant_matmul_w4a8")
+    saved = {n: getattr(t_llama, n) for n in names}
+
+    def spy(name):
+        def fn(x, *a, **k):
+            calls.append((name, x.shape[0]))
+            return saved[name](x, *a, **k)
+        return fn
+
+    for n in names:
+        setattr(t_llama, n, spy(n))
+    try:
+        for mode, want in (("int8", "quant_matmul_w8a8"), ("int4", "quant_matmul_w4a8"),
+                           ("fp8", "quant_matmul")):
+            _, tc = _cfgs(w8a8_prefill=True)
+            tp = t_llama.init_params(tc, torch.Generator().manual_seed(0), quantize=mode,
+                                     device="cpu")
+            tp = t_llama.quantize_model_weights(tp, mode, lm_head=True)
+            calls.clear()
+            t_llama.generate(tp, tc, np.zeros((4, 64), np.int32), np.full((4,), 64), 2, device="cpu")
+            prefill_layers = [c for c in calls if c[1] == 256]
+            assert {c[0] for c in prefill_layers} == {want} and len(prefill_layers) == 4 * tc.num_layers
+            weight_only = "quant_matmul_int4" if mode == "int4" else "quant_matmul"
+            assert {c[0] for c in calls if c[1] == 4} == {weight_only}  # lm_head and decode rows
+    finally:
+        for n, fn in saved.items():
+            setattr(t_llama, n, fn)
+
+
+# ------------------------------------------------------------------ quantized KV caches
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_quantized_appends_match_jax(rng, mode):
+    """Decode and prefill appends quantize against the fixed scales: the
+    same bytes as the JAX cache."""
+    jc = j_cache.init_cache(2, 3, 2, 32, 16, quant_mode=mode, calibration_scale=5.0)
+    tc = t_cache.init_cache(2, 3, 2, 32, 16, quant_mode=mode, calibration_scale=5.0, device="cpu")
+    np.testing.assert_array_equal(tc.k_scales.numpy(), np.asarray(jc.k_scales))
+    chunk = rng.standard_normal((3, 2, 8, 16), dtype=np.float32) * 3.0  # some values clip
+    jc = j_cache.append_prefill(jc, 1, jnp.asarray(chunk), jnp.asarray(chunk[::-1].copy()))
+    t_cache.append_prefill(tc, 1, _t(chunk), _t(chunk[::-1].copy()))
+    jc = j_cache.advance(jc, 8)
+    t_cache.advance(tc, 8)
+    row = rng.standard_normal((3, 2, 16), dtype=np.float32) * 3.0
+    jc = j_cache.append_decode(jc, 0, jnp.asarray(row), jnp.asarray(-row))
+    t_cache.append_decode(tc, 0, _t(row), _t(-row))
+    for got, want in ((tc.k, jc.k), (tc.v, jc.v)):
+        assert got.dtype == (torch.int8 if mode == "int8" else torch.float8_e4m3fn)
+        np.testing.assert_array_equal(got.view(torch.uint8).numpy(), np.asarray(want).view(np.uint8))
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_quantized_page_pools_match_jax(rng, mode):
+    jc = j_paged.init_paged_cache(2, 2, 2, 16, num_pages=9, page_size=8, pages_per_seq=4,
+                                  quant_mode=mode, calibration_scale=5.0)
+    tc = t_paged.init_paged_cache(2, 2, 2, 16, num_pages=9, page_size=8, pages_per_seq=4,
+                                  quant_mode=mode, calibration_scale=5.0, device="cpu")
+    assert tc.quant_mode == mode and tc.k_pages.dtype == bridge.tensor_from_numpy(
+        np.asarray(jc.k_pages)).dtype
+    np.testing.assert_array_equal(tc.v_scales.numpy(), np.asarray(jc.v_scales))
+    table = np.array([[3, 1, 0, 0], [5, 2, 7, 0]], np.int32)
+    lengths = np.array([9, 17], np.int32)
+    jc = dataclasses.replace(jc, page_table=jnp.asarray(table), lengths=jnp.asarray(lengths))
+    tc.page_table.copy_(_t(table))
+    tc.lengths.copy_(_t(lengths))
+    row = rng.standard_normal((2, 2, 16), dtype=np.float32) * 3.0
+    jc = j_paged.append_decode_paged(jc, 1, jnp.asarray(row), jnp.asarray(row * 0.5))
+    t_paged.append_decode_paged(tc, 1, _t(row), _t(row * 0.5))
+    for got, want in ((tc.k_pages, jc.k_pages), (tc.v_pages, jc.v_pages)):
+        np.testing.assert_array_equal(got.view(torch.uint8).numpy(), np.asarray(want).view(np.uint8))
+
+
+def test_unknown_kv_quant_mode_raises():
+    with pytest.raises(ValueError, match="quant mode"):
+        t_paged.init_paged_cache(1, 1, 1, 16, num_pages=3, page_size=8, pages_per_seq=2,
+                                 quant_mode="int4", device="cpu")
+
+
+# ------------------------------------------------------------------ bridge
+
+
+def test_bridge_round_trips_int4_params():
+    jp, tp = _quantized_models("int4")
+    back = bridge.params_to_numpy(tp)
+    for name in ("wqkv", "w_down"):
+        np.testing.assert_array_equal(back["layers"][name]["w"], np.asarray(jp["layers"][name]["w"]))
+        np.testing.assert_array_equal(back["layers"][name]["scale"], np.asarray(jp["layers"][name]["scale"]))
+    assert t_quant.is_int4_weight(tp["lm_head"]) and tp["lm_head"]["w"].dtype == torch.int8
+    again = bridge.params_from_numpy(back)
+    assert torch.equal(again["lm_head"]["w"], tp["lm_head"]["w"])
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_bridge_round_trips_quantized_caches(rng, mode):
+    jc = j_cache.init_cache(2, 3, 2, 16, 8, quant_mode=mode, calibration_scale=5.0)
+    jc = j_cache.append_prefill(jc, 0, jnp.asarray(rng.standard_normal((3, 2, 4, 8), dtype=np.float32)),
+                                jnp.asarray(rng.standard_normal((3, 2, 4, 8), dtype=np.float32)))
+    tc = bridge.cache_from_numpy(np.asarray(jc.k), np.asarray(jc.v), np.asarray(jc.lengths),
+                                 np.asarray(jc.k_scales), np.asarray(jc.v_scales))
+    assert tc.quant_mode == mode
+    back = bridge.cache_to_numpy(tc)
+    for name in ("k", "v", "lengths", "k_scales", "v_scales"):
+        np.testing.assert_array_equal(back[name], np.asarray(getattr(jc, name)))
+    again = bridge.cache_from_numpy(**back)
+    assert torch.equal(again.k.view(torch.uint8), tc.k.view(torch.uint8))
+
+    jp = j_paged.init_paged_cache(2, 3, 2, 8, num_pages=5, page_size=4, pages_per_seq=2,
+                                  quant_mode=mode, calibration_scale=5.0)
+    tp = bridge.paged_cache_from_numpy(**{n: np.asarray(getattr(jp, n)) for n in bridge.PAGED_FIELDS})
+    assert tp.quant_mode == mode and tp.k_scales is not None
+    back = bridge.paged_cache_to_numpy(tp)
+    for name in bridge.PAGED_FIELDS:
+        np.testing.assert_array_equal(back[name], np.asarray(getattr(jp, name)))

@@ -15,6 +15,7 @@ port's noise is its own counter-based hash): sampled tokens are held to
 JAX's threshold set instead.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -109,6 +110,36 @@ def test_engine_streams_and_stats_match_jax(kind):
     assert [r.output for r in reqs] == [r.output for r in ref]
     assert _stats(eng.stats) == ref_stats
     assert eng.stats.finished == len(reqs) and len(eng.stats.ttfts_s) == len(reqs)
+
+
+@functools.lru_cache(maxsize=None)
+def _quantized_models():
+    """int4 weights (grouped scales, int4 lm_head) for the int8-KV engines."""
+    jc, _ = _cfgs()
+    params = j_llama.quantize_model_weights(
+        j_llama.init_params(jc, jax.random.PRNGKey(0)), "int4", lm_head=True)
+    return params, bridge.params_from_numpy(jax.tree.map(np.asarray, params))
+
+
+def test_engine_int8_kv_int4_weights_matches_jax():
+    """A quantized deployment through the contiguous engine: int8 KV cache,
+    int4 weights, more requests than slots; streams and counters equal."""
+    kw, prompts, n_new = _SCENARIOS["interleaved"]
+    jc, tc = (dataclasses.replace(c, quant_mode="int8") for c in _cfgs())
+    jp, tp = _quantized_models()
+    runs = []
+    for eng_cls, req_cls, params, cfg, extra in ((JEngine, JRequest, jp, jc, {}),
+                                                 (Engine, Request, tp, tc, dict(device="cpu"))):
+        eng = eng_cls(params, cfg, **kw, **extra)
+        reqs = [req_cls(uid=i, prompt=p, max_new_tokens=n_new) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        runs.append(([r.output for r in reqs], _stats(eng.stats), [r.logprobs for r in reqs]))
+    (out, stats, lps), (ref, ref_stats, ref_lps) = runs[1], runs[0]
+    assert out == ref and stats == ref_stats
+    for a, b in zip(lps, ref_lps):
+        np.testing.assert_allclose(a, b, atol=LOGPROB_ATOL, rtol=0)
 
 
 def test_engine_logprobs_match_jax():
