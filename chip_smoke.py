@@ -21,7 +21,10 @@ Phases (any failure raises and the script exits non-zero):
    five 7B shapes with g128 scales, W8A8 and W4A8 at 2048 rows on the four
    layer shapes (bound at the int8 tensor-core rate), decode attention
    (fused and split) and paged decode on int8 and on fp8 KV (scales 5/127
-   and 5/448), and the appends on 1-byte rows.
+   and 5/448), and the appends on 1-byte rows. Speculative decoding's
+   kernels at its verify step's shapes (B=8, T=5): the verify mode of the
+   decode attention on bf16 and int8 KV, each query token also held bit for
+   bit to the fused decode at lengths + j, and the block append.
 3. Slice: full-width ``ModelConfig.llama_7b_gqa`` (32 layers,
    max_seq_len 1024, random int8 weights and int8 lm_head from a seeded
    generator, bf16 KV cache): greedy ``generate`` on 8 ragged prompts for
@@ -65,6 +68,21 @@ Phases (any failure raises and the script exits non-zero):
    timed apart. Then ``PagedEngine`` with int8 pages and int4 weights on
    phase 6's 24 requests: every request finishes, the paged decode and
    append launch on the int8 pools.
+8. Speculative decoding: full-width ``ModelConfig.llama_7b_gqa`` (32
+   layers, max_seq_len 1024, seeded int8 weights + int8 lm_head, bf16 KV,
+   one split), 16 structured requests (a 24-token motif, an 8-token body,
+   the motif, half the body, the motif) for 64 new tokens each, through a
+   plain ``Engine`` (8 slots, 4 steps a round), then ``Engine(spec_decode=4,
+   spec_ngram=4)``, the same with a 2-layer draft model of the same width
+   (int8, another seed), and ``spec_decode=4`` on an int8 KV cache. Launch
+   counters are zeroed before and checked after each run (per verify step
+   32 verify attentions, 32 block appends and 129 small-M projections; no
+   one-row append from the target); every request finishes and every spec
+   run takes speculative steps. A teacher-forced tie check feeds each spec
+   run's streams to the plain decode route on the kernels: every emitted
+   token's logit lies within 2% of its row's logit range of the row's
+   maximum. Prints the stats, the accept-per-step, the share of streams
+   equal to the plain run's, the exact-argmax share and decode tokens/s.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device,
@@ -75,6 +93,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import re
 import subprocess
@@ -109,6 +128,19 @@ SERVE_PAGES = 33  # 32 usable pages of 128 rows: fewer than 8 slots' worth, so t
 # through 32 layers. Phase 4 bounds such drift at 5% of the logit range
 # (|logit| ~5 here): a chosen-token logprob may move by about that much.
 SERVE_LOGPROB_TOL = 0.25
+SPEC_REQUESTS = 16
+SPEC_NEW_TOKENS = 64
+SPEC_SLOTS = 8
+SPEC_STEPS = 4
+SPEC_DRAFTS = 4  # T = 5 query tokens a verify step
+SPEC_NGRAM = 4
+SPEC_DRAFT_LAYERS = 2
+# Random weights give near-tied logits, and the verify step's projections
+# run B * T rows where decode runs B (another reduction order in K4's
+# tiled path past 64 rows, and in rms_norm), so a spec stream may take the
+# other side of a near-tie; the tie check bounds how near: 2% of the row's
+# logit range below its maximum.
+SPEC_TIE_TOL = 0.02
 QMM_ENTRY = {16: "quant_matmul (small-M, decode rows)", 2048: "quant_matmul (tiled, prefill rows)"}
 INT4_ENTRY = {16: "quant_matmul_int4 (small-M, decode rows)",
               2048: "quant_matmul_int4 (tiled, prefill rows)"}
@@ -316,6 +348,7 @@ def phase_kernels(dev, timer):
 
     res.update(_paged_kernels(dev, timer, gen, q, k_tab, v_tab, lengths, layer, dec_bytes, dec_ops,
                               k_new, v_new, lib_ms))
+    res.update(_spec_kernels(dev, timer, gen))
     res.update(_quantized_kv_kernels(dev, timer, q, k_tab, v_tab, lengths, layer, k_new, v_new))
     del k_tab, v_tab, ka, va, kp, vp, kv_rep
 
@@ -461,6 +494,107 @@ def _paged_kernels(dev, timer, gen, q, k_tab, v_tab, lengths, layer, dec_bytes, 
         ms=timer(lambda: append_rows_paged_kv(ka, va, k_new, v_new, layer, table, pos)),
         plain_ms=timer(lambda: append_rows_paged_kv_plain(kp, vp, k_new, v_new, layer, table, pos)),
         bound_ms=bnd, bound_by=by, library_ms=timer(index_put_paged))
+    return res
+
+
+def _spec_kernels(dev, timer, gen):
+    """K1's verify mode and K9 at a verify step's shapes: B=8 slots, Hq=32,
+    Hkv=8, S=1024, D=128, T=5 tokens, ragged lengths, a 2-layer table at
+    layer 1. Verify on bf16 and int8 KV against its plain twin (in bf16
+    ulps), every query token j bit for bit against the fused decode at
+    lengths + j; K9 whole tables equal (bf16 and int8 rows), one row
+    inactive (n_valid 0). Library calls: SDPA with the staircase mask, an
+    advanced-index assignment a table."""
+    import torch.nn.functional as F
+
+    from starflashattention_tpu_torch.core.quant import quantize_value
+    from starflashattention_tpu_torch.core.reference import repeat_kv
+    from starflashattention_tpu_torch.ops.cache_append import append_block_kv, append_block_kv_plain
+    from starflashattention_tpu_torch.ops.flash_decode import flash_decode, flash_verify, flash_verify_plain
+
+    b, hq, hkv, s, d, t, layer = SPEC_SLOTS, 32, 8, 1024, 128, SPEC_DRAFTS + 1, 1
+    bf16 = torch.bfloat16
+    q = torch.randn((b, hq, t, d), generator=gen, device=dev, dtype=bf16)
+    k_tab = torch.randn((2, b, hkv, s, d), generator=gen, device=dev, dtype=bf16)
+    v_tab = torch.randn((2, b, hkv, s, d), generator=gen, device=dev, dtype=bf16)
+    lengths = torch.randint(1, s - t + 2, (b,), generator=gen, device=dev, dtype=torch.int32)
+    lengths[0], lengths[1] = 1, s - t + 1  # the last token of row 1 attends the whole table
+    tok_len = lengths[:, None] + torch.arange(t, device=dev, dtype=torch.int32)[None, :]  # (B, T)
+    mask = (torch.arange(s, device=dev)[None, None, :] < tok_len[:, :, None])[:, None]  # (B, 1, T, S)
+    n_pairs = int(tok_len.sum())
+    n_rows = int((lengths + t - 1).sum())  # K/V rows the step reads: its last token's
+    res = {}
+    for mode in ("bf16", "int8"):
+        kw = dict(layer=layer)
+        kq, vq = k_tab, v_tab
+        if mode == "int8":
+            scales = torch.full((hkv,), KV_SCALE["int8"], dtype=torch.float32, device=dev)
+            kq, vq = (quantize_value(x, scales, "int8", head_axis=2) for x in (k_tab, v_tab))
+            kw.update(k_scales=scales, v_scales=scales)
+        entry = "flash_verify" if mode == "bf16" else "flash_verify int8 KV"
+        out = flash_verify(q, kq, vq, lengths, **kw)
+        ref = flash_verify_plain(q, kq, vq, lengths, **kw)
+        err = (out.float() - ref.float()).abs().max().item()
+        log(f"[kernel] {entry}: max_abs_err {err:.3e}")
+        # as the fused decode: one bf16 rounding each side (two with int8 KV)
+        _check_ulps(f"{entry} B={b} Hq={hq} Hkv={hkv} S={s} D={d} T={t}", out, ref, 1 if mode == "bf16" else 2)
+        bitwise = max((out[:, :, j].float() - flash_decode(q[:, :, j], kq, vq, lengths + j, num_splits=1,
+                                                           **kw).float()).abs().max().item()
+                      for j in range(t))
+        _check(f"{entry} token j vs fused flash_decode at lengths + j (bit for bit)", bitwise, 0.0)
+        elt = kq.element_size()
+        n_bytes = 2 * n_rows * hkv * d * elt + 2 * q.numel() * 2 + b * 4 + (2 * hkv * 4 if mode == "int8" else 0)
+        bnd, by = bound_ms(n_bytes, 4 * hq * d * n_pairs)
+        deq = [repeat_kv((x[layer].float() * (KV_SCALE["int8"] if mode == "int8" else 1.0)).to(bf16),
+                         hq // hkv) for x in (kq, vq)]
+        res[entry] = dict(
+            max_abs_err=err, ms=timer(lambda: flash_verify(q, kq, vq, lengths, **kw)),
+            plain_ms=timer(lambda: flash_verify_plain(q, kq, vq, lengths, **kw), iters=5),
+            bound_ms=bnd, bound_by=by,
+            library_ms=timer(lambda: F.scaled_dot_product_attention(q, deq[0], deq[1], attn_mask=mask)))
+        if mode == "bf16":  # the same table's one-token decode, at the longest token's length
+            q0, last = q[:, :, 0].contiguous(), lengths + t - 1
+            yard = timer(lambda: flash_decode(q0, kq, vq, last, num_splits=1, **kw))
+            log(f"[time] flash_verify yardstick: fused flash_decode of one token a sequence at lengths + "
+                f"T - 1 on the same table {yard:.4f} ms (verify / decode {res[entry]['ms'] / yard:.2f}x "
+                f"for T = {t} tokens)")
+        del deq
+
+    # K9: rows at min(lengths, S - T) as the verify step writes them; row 2 inactive
+    k_new = torch.randn((b, hkv, t, d), generator=gen, device=dev, dtype=bf16)
+    v_new = torch.randn((b, hkv, t, d), generator=gen, device=dev, dtype=bf16)
+    pos = torch.clamp(lengths, max=s - t)
+    n_valid = torch.full((b,), t, dtype=torch.int32, device=dev)
+    n_valid[2] = 0
+    for mode in ("bf16", "int8"):
+        kn, vn, kt, vt = k_new, v_new, k_tab, v_tab
+        if mode == "int8":
+            kn, vn, kt, vt = (x.to(torch.int8) for x in (k_new, v_new, k_tab, v_tab))
+        tabs = [x.clone() for x in (kt, vt, kt, vt)]
+        append_block_kv(tabs[0], tabs[1], kn, vn, layer, pos, n_valid)
+        append_block_kv_plain(tabs[2], tabs[3], kn, vn, layer, pos, n_valid)
+        same = all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+                   for x, y in ((tabs[0], tabs[2]), (tabs[1], tabs[3])))
+        _check(f"append_block_kv {mode} rows B={b} Hkv={hkv} T={t} D={d}, whole tables", 0.0 if same else
+               float("inf"), 0.0)
+        ms = timer(lambda: append_block_kv(tabs[0], tabs[1], kn, vn, layer, pos, n_valid))
+        if mode == "int8":
+            log(f"[time] append_block_kv on int8 rows: {ms:.4f} ms")
+            continue
+        jj = torch.arange(t, device=dev)[None, :]
+        bi, ji = (jj < n_valid[:, None]).nonzero(as_tuple=True)
+        rows = (pos[:, None].long() + jj)[bi, ji]
+
+        def index_put_block():  # the library call: one advanced-index assignment a table
+            tabs[2][layer][bi, :, rows] = kn[bi, :, ji]
+            tabs[3][layer][bi, :, rows] = vn[bi, :, ji]
+
+        bnd, by = bound_ms(2 * 2 * int(n_valid.sum()) * hkv * d * 2 + 2 * b * 4, 0)
+        res["append_block_kv"] = dict(
+            max_abs_err=0.0, ms=ms,
+            plain_ms=timer(lambda: append_block_kv_plain(tabs[2], tabs[3], kn, vn, layer, pos, n_valid)),
+            bound_ms=bnd, bound_by=by, library_ms=timer(index_put_block))
+        del tabs
     return res
 
 
@@ -672,8 +806,9 @@ def _quantized_matmuls(dev, timer, gen, shapes):
 
 def _counters():
     from starflashattention_tpu_torch.ops import quant_matmul as qmm
-    from starflashattention_tpu_torch.ops.cache_append import append_rows_kv, append_rows_paged_kv
-    from starflashattention_tpu_torch.ops.flash_decode import flash_decode
+    from starflashattention_tpu_torch.ops.cache_append import (append_block_kv, append_rows_kv,
+                                                               append_rows_paged_kv)
+    from starflashattention_tpu_torch.ops.flash_decode import flash_decode, flash_verify
     from starflashattention_tpu_torch.ops.flash_prefill import flash_prefill
     from starflashattention_tpu_torch.ops.paged_decode import paged_flash_decode
 
@@ -681,7 +816,8 @@ def _counters():
             "flash_prefill": flash_prefill, "quant_matmul": qmm.quant_matmul,
             "append_rows_paged_kv": append_rows_paged_kv, "paged_flash_decode": paged_flash_decode,
             "quant_matmul_int4": qmm.quant_matmul_int4, "quant_matmul_w8a8": qmm.quant_matmul_w8a8,
-            "quant_matmul_w4a8": qmm.quant_matmul_w4a8}
+            "quant_matmul_w4a8": qmm.quant_matmul_w4a8, "flash_verify": flash_verify,
+            "append_block_kv": append_block_kv}
 
 
 _TILED = ("quant_matmul", "quant_matmul_int4")  # entries that also count their tiled launches
@@ -1003,7 +1139,7 @@ def _serving_prompts(vocab):
     return [system + rng.integers(0, vocab, int(n)).tolist() for n in lens]
 
 
-def _serve(make_engine, prompts, expect, sampling=None):
+def _serve(make_engine, prompts, expect, sampling=None, new_tokens=SERVE_NEW_TOKENS):
     """One engine run with the counters zeroed just before and read just
     after; checks the counts against ``expect(stats)`` and that every
     request finished with its full budget."""
@@ -1012,7 +1148,7 @@ def _serve(make_engine, prompts, expect, sampling=None):
     torch.cuda.synchronize()
     reset_counts()
     eng = make_engine()
-    reqs = [Request(uid=i, prompt=p, max_new_tokens=SERVE_NEW_TOKENS, sampling=s)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=new_tokens, sampling=s)
             for i, (p, s) in enumerate(zip(prompts, sampling or [GREEDY] * len(prompts)))]
     t0 = time.perf_counter()
     for r in reqs:
@@ -1025,7 +1161,7 @@ def _serve(make_engine, prompts, expect, sampling=None):
     got = {k: counts[k] for k in want}
     if got != want:
         raise AssertionError(f"launch counts {got} != expected {want}")
-    if eng.stats.finished != len(reqs) or any(len(r.output) != SERVE_NEW_TOKENS for r in reqs):
+    if eng.stats.finished != len(reqs) or any(len(r.output) != new_tokens for r in reqs):
         raise AssertionError(f"{len(reqs) - eng.stats.finished} requests did not finish")
     for r in reqs:
         if not all(0 <= t < eng.cfg.vocab_size for t in r.output):
@@ -1124,6 +1260,146 @@ def phase_serving(dev):
     return runs
 
 
+# ---------------------------------------------------------------- phase 8
+
+
+def _spec_prompts(vocab):
+    """16 structured prompts, as the JAX package's spec benchmark builds its
+    serving workload: a shared 24-token motif, an 8-token body, the motif,
+    half the body, the motif (84 tokens), from a seeded generator."""
+    rng = np.random.default_rng(SEED)
+    m, nb, hi = 24, 8, min(2000, vocab - 1)
+    motif = rng.integers(100, hi, size=m).tolist()
+    out = []
+    for _ in range(SPEC_REQUESTS):
+        body = rng.integers(100, hi, size=nb).tolist()
+        out.append(motif + body + motif + body[: nb // 2] + motif)
+    return out
+
+
+def _teacher_forced(params, cfg, prompts, streams, dev):
+    """Feed each stream to the plain decode route on the kernels (prefill,
+    then one ``decode_step`` a token) -> (largest gap between a row's
+    maximum logit and the emitted token's, as a share of the row's logit
+    range; the share of emitted tokens that are the row's argmax)."""
+    from starflashattention_tpu_torch.cache import contiguous
+    from starflashattention_tpu_torch.models import llama
+
+    b, n_new = len(prompts), len(streams[0])
+    hkv, d = cfg.kv_cache_dims()
+    cache = contiguous.init_cache(cfg.num_layers, b, hkv, cfg.max_seq_len, d, quant_mode=cfg.quant_mode,
+                                  calibration_scale=cfg.kv_calibration_scale, device=dev)
+    cos, sin = llama.rope_tables(cfg, device=dev)
+    toks = torch.tensor(streams, dtype=torch.int32, device=dev)  # (B, n_new)
+    plens = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=dev)
+    padded = torch.zeros((b, int(plens.max())), dtype=torch.int32, device=dev)
+    for i, p in enumerate(prompts):
+        padded[i, : len(p)] = torch.tensor(p, dtype=torch.int32)
+    logits, cache = llama.prefill(params, cache, padded, plens, cos, sin, cfg)
+    gaps, hits = [], []
+    for i in range(n_new):
+        row_max, row_min = logits.amax(dim=-1), logits.amin(dim=-1)
+        chosen = logits.gather(1, toks[:, i : i + 1].long())[:, 0]
+        gaps.append((row_max - chosen) / (row_max - row_min))
+        hits.append(chosen == row_max)
+        if i + 1 < n_new:
+            logits, cache = llama.decode_step(params, cache, toks[:, i], cos, sin, cfg)
+    return torch.stack(gaps).max().item(), torch.stack(hits).float().mean().item()
+
+
+def phase_spec(dev):
+    """Speculative decoding at full 7B-GQA width (see the module doc)."""
+    from starflashattention_tpu_torch.models import llama
+    from starflashattention_tpu_torch.runtime.params import ModelConfig
+    from starflashattention_tpu_torch.serving import Engine
+
+    cfg = ModelConfig.llama_7b_gqa(num_layers=SLICE_LAYERS, max_seq_len=SLICE_SEQ, num_splits=1)
+    dcfg = ModelConfig.llama_7b_gqa(num_layers=SPEC_DRAFT_LAYERS, max_seq_len=SLICE_SEQ, num_splits=1)
+    t0 = time.perf_counter()
+    params, _ = build_model(cfg, dev)
+    dgen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    dparams = llama.quantize_model_weights(llama.init_params(dcfg, dgen, quantize="int8", device=dev),
+                                           "int8", lm_head=True, consume=True)
+    torch.cuda.synchronize()
+    prompts = _spec_prompts(cfg.vocab_size)
+    log(f"[spec] llama_7b_gqa L={cfg.num_layers} max_seq_len={cfg.max_seq_len}, int8 weights + int8 "
+        f"lm_head, 1 split; draft L={dcfg.num_layers} of the same width (int8, seed {SEED + 1}); built in "
+        f"{time.perf_counter() - t0:.1f} s; {len(prompts)} requests of {len(prompts[0])} tokens, "
+        f"{SPEC_NEW_TOKENS} new tokens each, {SPEC_SLOTS} slots, {SPEC_STEPS} steps a round, "
+        f"k={SPEC_DRAFTS} drafts")
+    n, dn, k = cfg.num_layers, dcfg.num_layers, SPEC_DRAFTS
+    proj = 4 * n + 1
+
+    def expect(kind):
+        def counts(st):
+            steps = st.decode_rounds * SPEC_STEPS  # decode or verify steps
+            pre = st.prefill_rounds
+            if kind == "plain":
+                return zero_counts(flash_prefill=pre * n, flash_decode=steps * n, append_rows_kv=steps * n,
+                                   quant_matmul=(pre + steps) * proj, quant_matmul_tiled=pre * 4 * n)
+            want = zero_counts(flash_prefill=pre * n, flash_verify=steps * n, append_block_kv=steps * n,
+                               quant_matmul=(pre + steps) * proj, quant_matmul_tiled=pre * 4 * n)
+            if kind == "draft":  # the draft prefills beside the target and decodes k+1 steps a verify step
+                dsteps = steps * (k + 1)
+                want.update(flash_prefill=pre * (n + dn), flash_decode=dsteps * dn,
+                            append_rows_kv=dsteps * dn,
+                            quant_matmul=(pre + steps) * proj + (pre + dsteps) * (4 * dn + 1),
+                            quant_matmul_tiled=pre * 4 * (n + dn))
+            return want
+        return counts
+
+    plan = [("plain", "plain Engine", cfg, {}),
+            ("lookup", f"spec_decode={k}, spec_ngram={SPEC_NGRAM}", cfg,
+             dict(spec_decode=k, spec_ngram=SPEC_NGRAM)),
+            ("draft", f"spec_decode={k}, {dn}-layer draft model", cfg,
+             dict(spec_decode=k, draft_model=(dparams, dcfg))),
+            ("int8_kv", f"spec_decode={k}, int8 KV cache", dataclasses.replace(cfg, quant_mode="int8"),
+             dict(spec_decode=k, spec_ngram=SPEC_NGRAM))]
+    runs, streams = {}, {}
+    for key, tag, run_cfg, kw in plan:
+        def make():
+            return Engine(params, run_cfg, num_slots=SPEC_SLOTS, steps_per_round=SPEC_STEPS, device=dev, **kw)
+
+        eng, reqs, wall, counts = _serve(make, prompts, expect("draft" if key == "draft" else
+                                                               "plain" if key == "plain" else "spec"),
+                                         new_tokens=SPEC_NEW_TOKENS)
+        st = eng.stats.summary()
+        streams[key] = [r.output for r in reqs]
+        runs[key] = dict(wall_s=wall, stats=st, counts=counts,
+                         decode_tok_s=eng.stats.decode_tokens_per_s(), spec_steps=eng.stats.spec_steps)
+        log(f"[spec] {tag}: {wall:.2f} s, {json.dumps(st)}")
+        log(f"[spec] {tag}: launches {counts}")
+        if key != "plain":
+            if eng.stats.spec_steps <= 0:
+                raise AssertionError(f"{tag}: no speculative step")
+            steps = eng.stats.decode_rounds * SPEC_STEPS
+            log(f"[spec] {tag}: accept-per-step {st['spec_accept_per_step']} ({eng.stats.decode_tokens} "
+                f"tokens over {eng.stats.spec_steps} slot verify steps); per verify step "
+                f"{counts['flash_verify'] / steps:.0f} flash_verify, {counts['append_block_kv'] / steps:.0f} "
+                f"append_block_kv launches")
+        del eng
+        torch.cuda.empty_cache()
+
+    plain_tok_s = runs["plain"]["decode_tok_s"]
+    for key, tag, run_cfg, _ in plan[1:]:
+        same = sum(a == p for a, p in zip(streams[key], streams["plain"]))
+        gap, exact = _teacher_forced(params, run_cfg, prompts, streams[key], dev)
+        ok = gap <= SPEC_TIE_TOL
+        runs[key].update(streams_equal=same, tie_gap=gap, exact_argmax=exact)
+        note = " (the plain run holds a bf16 cache)" if run_cfg.quant_mode != "none" else ""
+        log(f"[spec] {tag}: streams equal to the plain run's{note} {same}/{len(prompts)} "
+            f"({same / len(prompts):.3f}); "
+            f"teacher-forced on the plain decode route: exact-argmax share {exact:.4f}, largest gap below "
+            f"the row maximum {gap:.4e} of the row's logit range (tolerance {SPEC_TIE_TOL}) "
+            f"{'ok' if ok else 'FAIL'}; decode {runs[key]['decode_tok_s']:.1f} tok/s against plain "
+            f"{plain_tok_s:.1f} ({runs[key]['decode_tok_s'] / plain_tok_s:.3f}x)")
+        if not ok:
+            raise AssertionError(f"{tag}: an emitted token is {gap:.4f} of its row's range below the maximum")
+    del params, dparams
+    torch.cuda.empty_cache()
+    return runs
+
+
 # ---------------------------------------------------------------- phase 5
 
 
@@ -1211,6 +1487,9 @@ REPLACES = {
     "flash_prefill": ("starflashattention_tpu/ops/flash_prefill.py:67", "flash_prefill.cu"),
     "paged_flash_decode": ("starflashattention_tpu/ops/paged_decode.py:74", "flash_decode.cu"),
     "append_rows_paged_kv": ("starflashattention_tpu/ops/cache_append.py:219", "cache_append.cu"),
+    "flash_verify": ("starflashattention_tpu/ops/flash_decode.py:213", "flash_decode.cu"),
+    "flash_verify int8 KV": ("starflashattention_tpu/ops/flash_decode.py:213", "flash_decode.cu"),
+    "append_block_kv": ("starflashattention_tpu/ops/cache_append.py:331", "cache_append.cu"),
     "quant_matmul_int4 (small-M, decode rows)": ("starflashattention_tpu/ops/quant_matmul.py:178",
                                                  "quant_matmul.cu"),
     "quant_matmul_int4 (tiled, prefill rows)": ("starflashattention_tpu/ops/quant_matmul.py:178",
@@ -1232,8 +1511,8 @@ OFF_PATH = ("flash_decode fp8 KV (1 split, fused)", "paged_flash_decode fp8 KV")
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,6,7",
-                        help="comma-separated phases to run (default 1,2,3,4,6,7; phase 5, "
+    parser.add_argument("--phases", default="1,2,3,4,6,7,8",
+                        help="comma-separated phases to run (default 1,2,3,4,6,7,8; phase 5, "
                              "a profile of bench.py's decode chains, runs only when named)")
     args = parser.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -1254,6 +1533,7 @@ def main(argv=None):
         phase_path_vs_path(dev)
     serving = phase_serving(dev) if 6 in phases else {}
     quant = phase_quant_slice(dev) if 7 in phases else {}
+    spec = phase_spec(dev) if 8 in phases else {}
     if 5 in phases:
         phase_decode_profile(dev)
 
@@ -1281,6 +1561,10 @@ def main(argv=None):
             "flash_decode int8 KV (split-KV partials)": w4a8["flash_decode"],
             "flash_decode fp8 KV (split-KV partials)": w8a8["flash_decode"],
             "paged_flash_decode int8 KV": quant["paged"]["counts"]["paged_flash_decode"]})
+    if spec:
+        launches.update({"flash_verify": spec["lookup"]["counts"]["flash_verify"],
+                         "append_block_kv": spec["lookup"]["counts"]["append_block_kv"],
+                         "flash_verify int8 KV": spec["int8_kv"]["counts"]["flash_verify"]})
     line = []
     for name, r in kernels.items():
         if name in OFF_PATH:

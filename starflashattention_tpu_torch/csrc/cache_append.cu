@@ -4,11 +4,17 @@
 // (entry append_rows_kv); the one-table form _append_kernel_one
 // (append_rows) is the same kernel with the V table left out; and
 // ::_append_kernel_paged (entry append_rows_paged_kv), the same kernel with
-// the row address read through a page table.
+// the row address read through a page table; and ::_append_block_kernel_kv
+// (entry append_block_kv, speculative decoding's verify step), the T-row
+// form below (append_block_kernel).
 //
 // Computes table[layer, b, h, pos[b], :] = new[b, h, :] for the K and the V
 // table, in place; in paged mode pool[layer, h, page_table[b, pos[b] / ps],
-// pos[b] % ps, :] = new[b, h, :] for the K and the V page pools.
+// pos[b] % ps, :] = new[b, h, :] for the K and the V page pools; in block
+// mode table[layer, b, h, pos[b] + j, :] = new[b, h, j, :] for j < n_valid[b].
+// The block mode moves T times the bytes of the one-row mode (2 tables *
+// B * Hkv * T * D elements, 160 KiB at T = 5, B = 8, bf16) and is as
+// launch-bound.
 //
 // Bound: 2 * B * Hkv * D elements read and written (64 KiB at B=16, Hkv=8,
 // D=128, bf16) — far too little to load the memory system, so the kernel is
@@ -67,6 +73,47 @@ __global__ void append_rows_kernel(char* __restrict__ k_table, char* __restrict_
   }
 }
 
+// Block mode (replaces ::_append_block_kernel_kv, entry append_block_kv):
+// table[layer, b, h, pos[b] + j, :] = new[b, h, j, :] for j < n_valid[b],
+// for the K and the V table. The rows of one (b, h) are contiguous on both
+// sides, so one block per (b, kv head) copies one span of n * row_bytes
+// bytes (16-byte vectors when vec16, else bytes). Rows at pos + j outside
+// [0, S) are skipped. The TPU kernel's 2-window read-modify-write slab, its
+// pre-shift of the new rows into a zero block and its T <= window limit
+// exist for VMEM tiling only and are not carried over.
+__global__ void append_block_kernel(char* __restrict__ k_table, char* __restrict__ v_table,
+                                    const char* __restrict__ k_new,
+                                    const char* __restrict__ v_new,
+                                    const int* __restrict__ pos,
+                                    const int* __restrict__ n_valid, long long layer, int B,
+                                    int Hkv, int S, int T, int row_bytes, int vec16) {
+  const int bh = blockIdx.x;  // b * Hkv + h
+  const int b = bh / Hkv;
+  const int p = pos[b];
+  const int lo = max(0, -p);                          // first row inside the table
+  const int hi = min(min(n_valid[b], T), S - p);      // one past the last
+  if (hi <= lo) return;
+  const long long dst_row = ((layer * B + b) * (long long)Hkv + bh % Hkv) * S + p + lo;
+  const long long src_row = (long long)bh * T + lo;
+  const long long n_bytes = (long long)(hi - lo) * row_bytes;
+  char* dk = k_table + dst_row * row_bytes;
+  char* dv = v_table + dst_row * row_bytes;
+  const char* sk = k_new + src_row * row_bytes;
+  const char* sv = v_new + src_row * row_bytes;
+  if (vec16) {
+    const long long n = n_bytes / 16;
+    for (long long i = threadIdx.x; i < n; i += blockDim.x) {
+      reinterpret_cast<uint4*>(dk)[i] = reinterpret_cast<const uint4*>(sk)[i];
+      reinterpret_cast<uint4*>(dv)[i] = reinterpret_cast<const uint4*>(sv)[i];
+    }
+  } else {
+    for (long long i = threadIdx.x; i < n_bytes; i += blockDim.x) {
+      dk[i] = sk[i];
+      dv[i] = sv[i];
+    }
+  }
+}
+
 int threads_for(int row_bytes, int vec16) {
   const int units = vec16 ? row_bytes / 16 : row_bytes;
   const int threads = units < 128 ? ((units + 31) / 32) * 32 : 128;
@@ -107,6 +154,21 @@ int append_rows_paged(void* k_pool, void* v_pool, const void* k_new, const void*
       static_cast<const char*>(k_new), static_cast<const char*>(v_new),
       static_cast<const int*>(pos), static_cast<const int*>(page_table), layer, B, Hkv,
       pages_per_seq * page_size, num_pages, page_size, pages_per_seq, row_bytes, vec16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// k_table/v_table: (L, B, Hkv, S, D) contiguous; k_new/v_new: (B, Hkv, T, D)
+// contiguous, same dtype; pos, n_valid: (B,) int32 on the device. Writes
+// rows pos[b] + j for j < n_valid[b] (and inside [0, S)) of layer `layer`.
+int append_block(void* k_table, void* v_table, const void* k_new, const void* v_new,
+                 const void* pos, const void* n_valid, int layer, int B, int Hkv, int S, int T,
+                 int row_bytes, int vec16, void* stream) {
+  append_block_kernel<<<B * Hkv, threads_for(T * row_bytes, vec16), 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<char*>(k_table), static_cast<char*>(v_table),
+      static_cast<const char*>(k_new), static_cast<const char*>(v_new),
+      static_cast<const int*>(pos), static_cast<const int*>(n_valid), layer, B, Hkv, S, T,
+      row_bytes, vec16);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,8 +2,9 @@
 // for Hopper (sm_90a).
 //
 // Replaces: starflashattention_tpu/ops/flash_decode.py::_decode_kernel_fused
-// (single split, entry flash_decode with num_splits = 1) and ::_decode_kernel
-// (split-KV partials, entry flash_decode_with_stats); and
+// (single split, entry flash_decode with num_splits = 1, and its verify mode
+// qspan > 1, entry flash_verify) and ::_decode_kernel (split-KV partials,
+// entry flash_decode_with_stats); and
 // starflashattention_tpu/ops/paged_decode.py::_paged_decode_kernel (entry
 // paged_flash_decode). One kernel, templated on where a KV row lives, with two
 // output modes:
@@ -17,6 +18,21 @@
 // q: (B, Hq, D); k/v: the (B, Hkv, S, D) table of one layer (the wrapper
 // offsets the pointer into the (L, B, Hkv, S, D) table, so no per-layer copy
 // exists); lengths: (B,) int32. Query head h reads KV head h / G.
+//
+// Verify (qspan = T > 1, fused contiguous mode only; speculative decoding):
+// q and out are (B, Hq, T, D), and query token j of sequence b attends KV
+// positions < lengths[b] + j (the staircase mask). The block of (kv head,
+// b) stages all G * T query rows, row r = g * T + j (head kvh * G + g,
+// token j), and walks the tiles below lengths[b] + T - 1; each row masks by
+// its own length (staged in shared memory once). It is an instantiation
+// of the decode kernel (VERIFY = true) with the decode's tile, score,
+// softmax and P @ V loops, so a tile a row sees none of leaves its (m, l,
+// acc) bit-unchanged (alpha = 1, p = 0), and row j equals a decode at
+// lengths + j bit for bit; the decode instantiations keep their own code.
+// A verify block runs 512 threads (a decode block 128) for its T-fold work
+// a tile: with B * Hkv blocks (64 at 7B shapes and 8 slots) the card is
+// not full, so the block's own width sets the step's time. Shared memory
+// grows with G * T (about 95 KB at G = 4, T = 17).
 //
 // Paged (PAGED = true, fused mode only): k/v point at one layer's
 // (Hkv, num_pages, page_size, D) slice of the (L, Hkv, P, ps, D) pools, and
@@ -59,7 +75,8 @@
 
 namespace {
 
-constexpr int THREADS = 128;
+constexpr int THREADS = 128;         // decode block
+constexpr int VERIFY_THREADS = 512;  // verify block: G * T rows, T times the work a tile
 constexpr int BK = 32;  // KV rows per tile (= warp size: one score per lane)
 constexpr float NEG_INF = -0.7f * 3.4028234663852886e38f;
 
@@ -95,10 +112,11 @@ struct Tile {
   static constexpr int VEC = 16 / sizeof(T);
 };
 
+// R: query rows a block holds (G, or G * T in verify mode)
 template <typename KV, int D>
-size_t smem_bytes(int G) {
+size_t smem_bytes(int R) {
   return sizeof(KV) * (size_t)BK * (Tile<KV, D>::KS + D) +
-         sizeof(float) * ((size_t)2 * G * D + (size_t)G * BK + 3 * (size_t)G);
+         sizeof(float) * ((size_t)2 * R * D + (size_t)R * BK + 3 * (size_t)R) + sizeof(int) * R;
 }
 
 template <typename T, typename KV>
@@ -115,44 +133,56 @@ struct DecodeArgs {
   float* l_part;
   int Hq, Hkv, S;  // S: table rows, or pages_per_seq * page_size
   int num_splits, split_len;
+  int qspan;  // T query tokens per sequence (verify), else 1
   int pages_per_seq, page_size, num_pages;
   float scale;
   int fold_scale;  // 1: q * scale rounded to T before the dots (paged)
 };
 
-template <typename T, typename KV, int D, bool PAGED>
-__global__ void __launch_bounds__(THREADS) flash_decode_kernel(const DecodeArgs<T, KV> a) {
+// VERIFY: the qspan > 1 instantiation. The decode instantiations
+// (VERIFY = false) compile with one query token a head and the tile's own
+// row count, so the verify mode costs the decode nothing.
+template <typename T, typename KV, int D, bool PAGED, bool VERIFY>
+__global__ void __launch_bounds__(VERIFY ? VERIFY_THREADS : THREADS)
+    flash_decode_kernel(const DecodeArgs<T, KV> a) {
+  constexpr int NT = VERIFY ? VERIFY_THREADS : THREADS;
   using TL = Tile<KV, D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ long long row_off[BK];  // paged: element offset of each tile row
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int G = a.Hq / a.Hkv;
+  const int span = VERIFY ? a.qspan : 1;  // T query tokens a sequence
+  const int R = G * span;    // query rows: r = g * T + j
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  constexpr int NWARPS = THREADS / 32;
+  constexpr int NWARPS = NT / 32;
 
   KV* k_s = reinterpret_cast<KV*>(smem_raw);     // [BK][KS]
   KV* v_s = k_s + BK * TL::KS;                   // [BK][D]
-  float* q_s = reinterpret_cast<float*>(v_s + BK * D);  // [G][D]
-  float* acc = q_s + G * D;                      // [G][D]
-  float* s_s = acc + G * D;                      // [G][BK]
-  float* m_s = s_s + G * BK;                     // [G]
-  float* l_s = m_s + G;                          // [G]
-  float* a_s = l_s + G;                          // [G] rescale factor of this tile
+  float* q_s = reinterpret_cast<float*>(v_s + BK * D);  // [R][D]
+  float* acc = q_s + R * D;                      // [R][D]
+  float* s_s = acc + R * D;                      // [R][BK]
+  float* m_s = s_s + R * BK;                     // [R]
+  float* l_s = m_s + R;                          // [R]
+  float* a_s = l_s + R;                          // [R] rescale factor of this tile
+  int* len_s = reinterpret_cast<int*>(a_s + R);  // [R] valid KV rows of each query row
 
-  const size_t head0 = (size_t)b * a.Hq + (size_t)kvh * G;  // first q head of the group
-  for (int i = tid; i < G * D; i += THREADS) {
-    const float x = to_f(a.q[head0 * D + i]);
+  // first query row of the group: q head (b, kvh * G), token 0
+  const size_t row0 = ((size_t)b * a.Hq + (size_t)kvh * G) * span;
+  for (int i = tid; i < R * D; i += NT) {
+    const float x = to_f(a.q[row0 * D + i]);
     q_s[i] = a.fold_scale ? round_to(x * a.scale, a.q) : x;
     acc[i] = 0.f;
   }
   const float s_scale = a.fold_scale ? 1.f : a.scale;
-  for (int g = tid; g < G; g += THREADS) {
-    m_s[g] = NEG_INF;
-    l_s[g] = 0.f;
+  const int len0 = a.lengths[b];  // valid KV of query token 0
+  for (int r = tid; r < R; r += NT) {
+    m_s[r] = NEG_INF;
+    l_s[r] = 0.f;
+    if (VERIFY) len_s[r] = min(len0 + r % span, a.S);  // token j = r % T: len0 + j rows
   }
   __syncthreads();
 
-  const int len = min(a.lengths[b], a.S);
+  const int len = min(len0 + span - 1, a.S);
   const int start = split * a.split_len;
   const int end = min(start + a.split_len, len);
   const KV* kb = a.k;
@@ -180,7 +210,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const DecodeArgs<
     // p = 0 never meets uninitialized memory).
     const uint4* ksrc = reinterpret_cast<const uint4*>(kb + (size_t)j0 * D);
     const uint4* vsrc = reinterpret_cast<const uint4*>(vb + (size_t)j0 * D);
-    for (int i = tid; i < BK * D / TL::VEC; i += THREADS) {
+    for (int i = tid; i < BK * D / TL::VEC; i += NT) {
       const int row = (i * TL::VEC) / D, col = (i * TL::VEC) % D;
       uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
       if (row < nrows) {
@@ -201,10 +231,12 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const DecodeArgs<
     }
     __syncthreads();
 
-    for (int i = tid; i < G * BK; i += THREADS) {
+    for (int i = tid; i < R * BK; i += NT) {
       const int g = i / BK, j = i % BK;
+      // the row's own valid count in this tile (<= 0: the tile is all past it)
+      const int nr = VERIFY ? min(nrows, len_s[g] - j0) : nrows;
       float s = NEG_INF;
-      if (j < nrows) {
+      if (j < nr) {
         const float* qg = q_s + g * D;
         const KV* kj = k_s + j * TL::KS;
         float acc_s = 0.f;
@@ -216,11 +248,12 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const DecodeArgs<
     }
     __syncthreads();
 
-    for (int g = warp; g < G; g += NWARPS) {
+    for (int g = warp; g < R; g += NWARPS) {
+      const int nr = VERIFY ? min(nrows, len_s[g] - j0) : nrows;
       const float s = s_s[g * BK + lane];
       const float m_old = m_s[g];
       const float m_new = fmaxf(m_old, warp_max(s));
-      const float p = lane < nrows ? expf(s - m_new) : 0.f;
+      const float p = lane < nr ? expf(s - m_new) : 0.f;
       const float sum = warp_sum(p);
       s_s[g * BK + lane] = p;
       if (lane == 0) {
@@ -232,7 +265,7 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const DecodeArgs<
     }
     __syncthreads();
 
-    for (int i = tid; i < G * D; i += THREADS) {
+    for (int i = tid; i < R * D; i += NT) {
       const int g = i / D, d = i % D;
       const float* pg = s_s + g * BK;
       float o = acc[i] * a_s[g];
@@ -243,39 +276,39 @@ __global__ void __launch_bounds__(THREADS) flash_decode_kernel(const DecodeArgs<
   }
 
   if (a.out != nullptr || a.out_f32 != nullptr) {
-    for (int i = tid; i < G * D; i += THREADS) {
+    for (int i = tid; i < R * D; i += NT) {
       const float l = l_s[i / D];
       const float o = acc[i] / (l == 0.f ? 1.f : l);
       if (a.out_f32 != nullptr) {
-        a.out_f32[head0 * D + i] = o;
+        a.out_f32[row0 * D + i] = o;
       } else {
-        from_f(a.out + head0 * D + i, o);
+        from_f(a.out + row0 * D + i, o);
       }
     }
-  } else {
-    for (int i = tid; i < G * D; i += THREADS) {
-      const size_t h = head0 + i / D;
+  } else {  // partials: qspan 1, so row0 is the group's first q head
+    for (int i = tid; i < G * D; i += NT) {
+      const size_t h = row0 + i / D;
       a.o_part[(h * a.num_splits + split) * D + i % D] = acc[i];
     }
-    for (int g = tid; g < G; g += THREADS) {
-      const size_t h = head0 + g;
+    for (int g = tid; g < G; g += NT) {
+      const size_t h = row0 + g;
       a.m_part[h * a.num_splits + split] = m_s[g];
       a.l_part[h * a.num_splits + split] = l_s[g];
     }
   }
 }
 
-template <typename T, typename KV, int D, bool PAGED>
+template <typename T, typename KV, int D, bool PAGED, bool VERIFY>
 cudaError_t launch(const DecodeArgs<T, KV>& a, int B, cudaStream_t stream) {
-  const size_t smem = smem_bytes<KV, D>(a.Hq / a.Hkv);
-  auto kernel = flash_decode_kernel<T, KV, D, PAGED>;
+  const size_t smem = smem_bytes<KV, D>(a.Hq / a.Hkv * a.qspan);
+  auto kernel = flash_decode_kernel<T, KV, D, PAGED, VERIFY>;
   if (smem + BK * sizeof(long long) > 48 * 1024) {  // dynamic + the static row_off
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   dim3 grid(a.num_splits, a.Hkv, B);
-  kernel<<<grid, THREADS, smem, stream>>>(a);
+  kernel<<<grid, VERIFY ? VERIFY_THREADS : THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -283,7 +316,7 @@ cudaError_t launch(const DecodeArgs<T, KV>& a, int B, cudaStream_t stream) {
 struct RawArgs {
   const void *q, *k, *v, *lengths, *page_table;
   void *out, *out_f32, *o_part, *m_part, *l_part;
-  int B, Hq, Hkv, S, D, num_splits, split_len, pages_per_seq, page_size, num_pages;
+  int B, Hq, Hkv, S, D, num_splits, split_len, qspan, pages_per_seq, page_size, num_pages;
   float scale;
   int fold_scale;
 };
@@ -295,13 +328,25 @@ cudaError_t run(const RawArgs& r, cudaStream_t stream) {
                             static_cast<const int*>(r.page_table), static_cast<T*>(r.out),
                             static_cast<float*>(r.out_f32), static_cast<float*>(r.o_part),
                             static_cast<float*>(r.m_part), static_cast<float*>(r.l_part),
-                            r.Hq, r.Hkv, r.S, r.num_splits, r.split_len, r.pages_per_seq,
-                            r.page_size, r.num_pages, r.scale, r.fold_scale};
+                            r.Hq, r.Hkv, r.S, r.num_splits, r.split_len, r.qspan,
+                            r.pages_per_seq, r.page_size, r.num_pages, r.scale, r.fold_scale};
+  if constexpr (!PAGED) {
+    if (r.qspan > 1) {
+      switch (r.D) {
+        case 64:
+          return launch<T, KV, 64, false, true>(a, r.B, stream);
+        case 128:
+          return launch<T, KV, 128, false, true>(a, r.B, stream);
+        default:
+          return cudaErrorInvalidValue;
+      }
+    }
+  }
   switch (r.D) {
     case 64:
-      return launch<T, KV, 64, PAGED>(a, r.B, stream);
+      return launch<T, KV, 64, PAGED, false>(a, r.B, stream);
     case 128:
-      return launch<T, KV, 128, PAGED>(a, r.B, stream);
+      return launch<T, KV, 128, PAGED, false>(a, r.B, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -332,18 +377,20 @@ extern "C" {
 
 const char* error_string(int e) { return cudaGetErrorString(static_cast<cudaError_t>(e)); }
 
-// q (B, Hq, D); k, v: one layer's (B, Hkv, S, D); lengths (B,) int32.
-// Fused mode: out (B, Hq, D) in q's dtype non-null, partial pointers null,
-// num_splits 1. Partials mode: out null; o_part (B, Hq, N, D),
+// q (B, Hq, D), or (B, Hq, qspan, D) in verify mode; k, v: one layer's
+// (B, Hkv, S, D); lengths (B,) int32 (valid KV of query token 0).
+// Fused mode: out (q's shape) in q's dtype non-null, partial pointers null,
+// num_splits 1. Partials mode (qspan 1): out null; o_part (B, Hq, N, D),
 // m_part/l_part (B, Hq, N). dtype: 0 = fp32, 1 = bf16 (q's dtype); kv_dtype:
 // 0 = q's dtype, 1 = int8, 2 = fp8-e4m3. D is 64 or 128. ``scale``
 // multiplies the scores (the quantized path passes 1 with q prescaled).
 int flash_decode(const void* q, const void* k, const void* v, const void* lengths, void* out,
                  void* o_part, void* m_part, void* l_part, int B, int Hq, int Hkv, int S, int D,
-                 int num_splits, int split_len, float scale, int dtype, int kv_dtype,
+                 int num_splits, int split_len, int qspan, float scale, int dtype, int kv_dtype,
                  void* stream) {
+  if (qspan < 1 || (qspan > 1 && (out == nullptr || num_splits != 1))) return cudaErrorInvalidValue;
   const RawArgs r{q, k, v, lengths, nullptr, out, nullptr, o_part, m_part, l_part, B, Hq, Hkv,
-                  S, D, num_splits, split_len, 0, 1, 0, scale, 0};
+                  S, D, num_splits, split_len, qspan, 0, 1, 0, scale, 0};
   return static_cast<int>(dispatch<false>(dtype, kv_dtype, r, static_cast<cudaStream_t>(stream)));
 }
 
@@ -358,7 +405,7 @@ int paged_flash_decode(const void* q, const void* k, const void* v, const void* 
                        int kv_dtype, int out_f32, void* stream) {
   const int S = pages_per_seq * page_size;
   const RawArgs r{q, k, v, lengths, page_table, out_f32 ? nullptr : out, out_f32 ? out : nullptr,
-                  nullptr, nullptr, nullptr, B, Hq, Hkv, S, D, 1, S, pages_per_seq, page_size,
+                  nullptr, nullptr, nullptr, B, Hq, Hkv, S, D, 1, S, 1, pages_per_seq, page_size,
                   num_pages, scale, 1};
   return static_cast<int>(dispatch<true>(dtype, kv_dtype, r, static_cast<cudaStream_t>(stream)));
 }

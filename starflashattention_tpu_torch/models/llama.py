@@ -4,7 +4,10 @@
 Greedy ``generate`` = ``prefill`` + repeated ``decode_step``; the serving
 engines' entry points ``prefill_serving`` / ``decode_multi`` (contiguous
 cache) and ``prefill_serving_paged`` / ``decode_multi_paged`` (paged
-pools) take per-row ``active`` / ``reset`` masks. All use the JAX
+pools) take per-row ``active`` / ``reset`` masks, and so do the
+speculative rounds ``spec_decode_multi`` (prompt-lookup drafts) and
+``spec_decode_multi_draft`` (a draft model), whose verify step attends T
+tokens a sequence at once. All use the JAX
 package's parameter layout: layer weights stacked on a leading (L, ...) axis
 and used as ``x @ w`` (so weights bridge by copy, never by transpose).
 Quantized projections stay stacked and reach their kernel with a layer
@@ -25,8 +28,9 @@ package donates the cache to its jitted step and returns a new one. Each
 returns the same cache object for call-site parity.
 
 On CUDA tensors every projection of a quantized model, the cache appends
-(contiguous and paged) and the attentions (prefill, contiguous and paged
-decode) run on the hand-written kernels of ``ops/``; on CPU
+(contiguous, paged and the verify step's block) and the attentions
+(prefill, contiguous and paged decode, verify) run on the hand-written
+kernels of ``ops/``; on CPU
 tensors the same code runs their plain versions. Config fields outside
 this slice raise ``NotImplementedError`` (:func:`check_supported`).
 """
@@ -40,10 +44,11 @@ import torch
 import torch.nn.functional as F
 
 from starflashattention_tpu_torch.cache import contiguous, paged
-from starflashattention_tpu_torch.core import quant
+from starflashattention_tpu_torch.core import drafting, quant
 from starflashattention_tpu_torch.core import sampling as core_sampling
 from starflashattention_tpu_torch.core.rope import apply_rope, rope_table
-from starflashattention_tpu_torch.ops.flash_decode import flash_decode
+from starflashattention_tpu_torch.ops.cache_append import append_block_kv
+from starflashattention_tpu_torch.ops.flash_decode import flash_decode, flash_verify
 from starflashattention_tpu_torch.ops.flash_prefill import flash_prefill
 from starflashattention_tpu_torch.ops.paged_decode import paged_flash_decode
 from starflashattention_tpu_torch.ops.quant_matmul import (quant_matmul, quant_matmul_int4,
@@ -643,6 +648,150 @@ def decode_multi_paged(params: Params, cache: paged.PagedKVCache, tok: torch.Ten
     return _decode_rounds(
         lambda t: decode_step_paged(params, cache, t, cos, sin, cfg, active=active)[0],
         tok, cache, n_steps, sampling, with_logprobs, topk_logprobs)
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding (prompt-lookup or draft-model drafts + multi-token verify)
+# ---------------------------------------------------------------------------
+
+
+def _verify_core(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor, cos, sin,
+                 cfg: ModelConfig, active: torch.Tensor | None = None) -> torch.Tensor:
+    """T consecutive tokens per sequence in one step (JAX llama.py:1237-1328)
+    -> fp32 logits at EVERY position (B, T, V); the cache gains T rows per
+    active row, IN PLACE. Structurally the prefill layer (``_prefill_layer``)
+    with an ``attend`` that appends the T rows with kernel K9 at ``pos_w =
+    min(start, S - T)`` (the JAX clamp, copied) and attends them with K1's
+    verify mode at ``start + 1``. Inactive rows write no row and keep their
+    length; their attention output is discarded. The caller rolls
+    ``cache.lengths`` back to the accepted prefix."""
+    check_supported(cfg)
+    b, t = tokens.shape
+    start = cache.lengths.clone()
+    if active is None:
+        n_valid = torch.full_like(start, t)
+    else:
+        n_valid = torch.where(active, torch.full_like(start, t), torch.zeros_like(start))
+    pos_w = torch.clamp(start, max=cache.max_seq_len - t)
+    att_lengths = start + 1
+
+    def attend(lidx, q, k_new, v_new):
+        ks, vs = cache.layer_scales(lidx)
+        append_block_kv(cache.k, cache.v, contiguous.quantize_new(k_new, ks, cache.k.dtype),
+                        contiguous.quantize_new(v_new, vs, cache.v.dtype), lidx, pos_w, n_valid)
+        return flash_verify(q, cache.k, cache.v, att_lengths, layer=lidx, sm_scale=cfg.sm_scale(),
+                            block_k=cfg.block_k, k_scales=ks, v_scales=vs)  # (B, Hq, T, D)
+
+    pos = start[:, None] + torch.arange(t, device=start.device, dtype=torch.int32)[None, :]
+    rope_pos = _rope_positions(pos, cos)
+    x = _embed_tokens(params, tokens)  # (B, T, H)
+    layers = params["layers"]
+    for lidx in range(cfg.num_layers):
+        x = _prefill_layer(x, lidx, layers, cfg, cos, sin, rope_pos, attend)
+    cache.lengths.copy_(start + n_valid)
+    return _logits(x.reshape(b * t, -1), params, cfg).reshape(b, t, -1)
+
+
+def _accept(logits: torch.Tensor, draft: torch.Tensor, active: torch.Tensor):
+    """Accept-longest-prefix on the verify logits (JAX llama.py:1367-1391):
+    -> (this round's tokens (B, T), emitted counts (B,), accepted counts
+    (B,), bonus tokens (B,)). Row b's first ``n_emit[b]`` tokens are its
+    accepted drafts and the model's own next token."""
+    preds = torch.argmax(logits, dim=-1).to(torch.int32)  # (B, T), the first maximum
+    match = (preds[:, :-1] == draft).to(torch.int32)
+    acc = torch.cumprod(match, dim=1).sum(dim=1).to(torch.int32)  # longest accepted prefix
+    acc = torch.where(active, acc, torch.zeros_like(acc))
+    bonus = preds.gather(1, acc[:, None].long())[:, 0]
+    n_emit = torch.where(active, acc + 1, torch.zeros_like(acc))
+    t = preds.shape[1]
+    cols = torch.arange(t, dtype=torch.int32, device=preds.device)[None, :]
+    draft_pad = torch.cat([draft, torch.zeros_like(draft[:, :1])], dim=1)
+    out = torch.where(cols < acc[:, None], draft_pad,
+                      torch.where(cols == acc[:, None], bonus[:, None], torch.zeros_like(draft_pad)))
+    return out, n_emit, acc, bonus
+
+
+def _spec_step(params: Params, cache: contiguous.KVCache, history: torch.Tensor,
+               pending: torch.Tensor, cos, sin, active: torch.Tensor, cfg: ModelConfig,
+               num_draft: int, ngram: int):
+    """One prompt-lookup round (JAX llama.py:1331-1392): draft -> verify ->
+    accept. Returns (history, pending, tokens (B, k+1), n_emit (B,)); the
+    cache is updated IN PLACE and rolled back to ``start + n_emit``.
+    Inactive rows keep their cache, history and pending token."""
+    start = cache.lengths.clone()
+    history0 = history
+    history = drafting.write_token(history, start, pending)
+    draft = drafting.propose_drafts(history, start, pending, num_draft=num_draft, ngram=ngram)
+    tokens = torch.cat([pending[:, None], draft], dim=1)  # (B, T)
+    logits = _verify_core(params, cache, tokens, cos, sin, cfg, active=active)
+    out, n_emit, acc, bonus = _accept(logits, draft, active)
+    cache.lengths.copy_(start + n_emit)
+    hist_new = drafting.write_block(history, start + 1, draft)
+    hist_new = drafting.write_token(hist_new, start + acc + 1, bonus)
+    history = torch.where(active[:, None], hist_new, history0)
+    return history, torch.where(active, bonus, pending), out, n_emit
+
+
+def spec_decode_multi(params: Params, cache: contiguous.KVCache, history: torch.Tensor,
+                      tok: torch.Tensor, cos, sin, active, cfg: ModelConfig, n_steps: int,
+                      num_draft: int = 4, ngram: int = 4, max_len_hint: int | None = None) -> tuple:
+    """``n_steps`` prompt-lookup speculative rounds (JAX llama.py:1430-1465)
+    -> (tokens (B, n, k+1), counts (B, n), next pending (B,), cache,
+    history), all on the device: row b of round i emitted ``counts[b, i]``
+    tokens ``tokens[b, i, :counts[b, i]]``. Greedy only; the cache is updated
+    IN PLACE and the history (B, S_hist) int32 comes back as a new tensor.
+    ``max_len_hint`` sizes the TPU grid and is unused here."""
+    del max_len_hint
+    active = _as_mask(active, cache.lengths.device)
+    outs, counts = [], []
+    for _ in range(n_steps):
+        history, tok, out, n_emit = _spec_step(params, cache, history, tok, cos, sin, active, cfg,
+                                               num_draft, ngram)
+        outs.append(out)
+        counts.append(n_emit)
+    return torch.stack(outs, dim=1), torch.stack(counts, dim=1), tok, cache, history
+
+
+def _spec_step_draft_model(params: Params, cache: contiguous.KVCache, dparams: Params,
+                           dcache: contiguous.KVCache, pending: torch.Tensor, cos, sin, dcos,
+                           dsin, active: torch.Tensor, cfg: ModelConfig, dcfg: ModelConfig,
+                           num_draft: int):
+    """One draft-model round (JAX llama.py:1468-1552): k+1 draft decode
+    steps feed [pending, d_1..d_k] (step j's argmax is d_j; the last step
+    only appends d_k's row), the target verifies them in one step, both
+    caches roll back to ``start + n_emit`` in lockstep. Returns (pending,
+    tokens (B, k+1), n_emit (B,))."""
+    start = cache.lengths.clone()
+    tok, drafts = pending, []
+    for _ in range(num_draft + 1):
+        logits, _ = decode_step(dparams, dcache, tok, dcos, dsin, dcfg, active=active)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        drafts.append(tok)
+    draft = torch.stack(drafts[:num_draft], dim=1)  # (B, k)
+    tokens = torch.cat([pending[:, None], draft], dim=1)
+    logits = _verify_core(params, cache, tokens, cos, sin, cfg, active=active)
+    out, n_emit, _, bonus = _accept(logits, draft, active)
+    cache.lengths.copy_(start + n_emit)
+    dcache.lengths.copy_(start + n_emit)  # inactive rows never advanced: start is their length
+    return torch.where(active, bonus, pending), out, n_emit
+
+
+def spec_decode_multi_draft(params: Params, cache: contiguous.KVCache, dparams: Params,
+                            dcache: contiguous.KVCache, tok: torch.Tensor, cos, sin, dcos, dsin,
+                            active, cfg: ModelConfig, dcfg: ModelConfig, n_steps: int,
+                            num_draft: int = 4, max_len_hint: int | None = None) -> tuple:
+    """``n_steps`` draft-model speculative rounds (JAX llama.py:1594-1624)
+    -> (tokens (B, n, k+1), counts (B, n), next pending, cache, draft
+    cache); both caches are updated IN PLACE."""
+    del max_len_hint
+    active = _as_mask(active, cache.lengths.device)
+    outs, counts = [], []
+    for _ in range(n_steps):
+        tok, out, n_emit = _spec_step_draft_model(params, cache, dparams, dcache, tok, cos, sin,
+                                                  dcos, dsin, active, cfg, dcfg, num_draft)
+        outs.append(out)
+        counts.append(n_emit)
+    return torch.stack(outs, dim=1), torch.stack(counts, dim=1), tok, cache, dcache
 
 
 # ---------------------------------------------------------------------------

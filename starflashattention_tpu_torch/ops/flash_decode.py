@@ -3,12 +3,15 @@ JAX ``ops/flash_decode.py``.
 
 ``flash_decode`` attends one query token per sequence against its cache
 prefix; ``flash_decode_with_stats`` returns the per-split unnormalized
-partials ``(o, m, l)`` that :func:`lse_combine_splits` merges. On CUDA
-tensors both launch ``csrc/flash_decode.cu``, one kernel with two output
-modes (it replaces the TPU kernels ``_decode_kernel_fused`` and
-``_decode_kernel``); on CPU tensors they run the plain versions below.
-The split boundaries come from :func:`_split_geometry`, a copy of the JAX
-one, so the partials compare one to one.
+partials ``(o, m, l)`` that :func:`lse_combine_splits` merges;
+``flash_verify`` attends T consecutive query tokens per sequence under the
+staircase mask of speculative decoding's verify step (token j sees
+``lengths[b] + j`` rows). On CUDA tensors all three launch
+``csrc/flash_decode.cu``, one kernel with two output modes and a verify
+span (it replaces the TPU kernels ``_decode_kernel_fused``, in both its
+modes, and ``_decode_kernel``); on CPU tensors they run the plain versions
+below. The split boundaries come from :func:`_split_geometry`, a copy of
+the JAX one, so the partials compare one to one.
 
 Quantized caches (int8 / fp8 tables with (Hkv,) ``k_scales`` /
 ``v_scales``) take the JAX wrapper's scale handling, outside the kernel:
@@ -16,9 +19,9 @@ Quantized caches (int8 / fp8 tables with (Hkv,) ``k_scales`` /
 and the kernel scales its scores by 1. The single-split output comes back
 in q's dtype and is multiplied by ``v_scale[h]`` and rounded again (two
 roundings, as in JAX); with splits, ``v_scale`` multiplies the fp32
-partials before the merge. Options this slice does not port (sliding
-window, sinks, softcap, verify with ``qspan > 1``) raise
-``NotImplementedError``.
+partials before the merge. The verify path takes the single-split handling
+on its (B, Hq, T, D) q and output. Options this slice does not port
+(sliding window, sinks, softcap) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from starflashattention_tpu_torch.core.reference import NEG_INF, repeat_kv
 from starflashattention_tpu_torch.ops import _build
 
 _SIGNATURES = {
-    "flash_decode": [_build.P] * 8 + [_build.I] * 7 + [_build.F, _build.I, _build.I, _build.P],
+    "flash_decode": [_build.P] * 8 + [_build.I] * 8 + [_build.F, _build.I, _build.I, _build.P],
 }
 _CUDA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 QUANT_KV_DTYPES = {torch.int8: 1, torch.float8_e4m3fn: 2}  # the kernel's kv_dtype codes
@@ -146,7 +149,12 @@ def _stats_plain(q, k_cache, v_cache, lengths, *, layer=None, sm_scale=None, num
 
 
 def _fused_plain(q, k_cache, v_cache, lengths, *, layer, sm_scale):
-    """Plain single-split decode attention -> (B, Hq, D) in q's dtype."""
+    """Plain single-split decode attention -> (B, Hq, D) in q's dtype; a
+    (B, Hq, T, D) q is the verify mode: token j is a decode at ``lengths +
+    j``, computed by the same function, so row for row the same numbers."""
+    if q.dim() == 4:
+        return torch.stack([_fused_plain(q[:, :, j], k_cache, v_cache, lengths + j, layer=layer,
+                                         sm_scale=sm_scale) for j in range(q.shape[2])], dim=2)
     scores, mask = _scores(q, k_cache[layer], lengths, sm_scale)
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     p = torch.exp(scores - scores.amax(dim=-1, keepdim=True)) * mask
@@ -212,13 +220,17 @@ def lse_combine_splits(o_parts, m_parts, l_parts, dtype=None):
 
 def _launch(q, k_cache, v_cache, lengths, layer, sm_scale, n, split_len, fused):
     """Run csrc/flash_decode.cu on one layer of the table; returns the
-    normalized output (fused) or the (o, m, l) partials."""
+    normalized output (fused; q (B, Hq, D), or (B, Hq, T, D) to verify) or
+    the (o, m, l) partials."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
     l_, b, hkv, s, d = k_cache.shape
     hq = q.shape[1]
-    if q.shape != (b, hq, d) or hq % hkv:
+    qspan = q.shape[2] if q.dim() == 4 else 1
+    if q.shape != ((b, hq, qspan, d) if q.dim() == 4 else (b, hq, d)) or hq % hkv or qspan < 1:
         raise ValueError(f"q {tuple(q.shape)} does not match cache {tuple(k_cache.shape)}")
+    if qspan > 1 and not fused:
+        raise ValueError("the verify span takes the single-split (fused) mode only")
     if q.dtype not in _CUDA_DTYPES or v_cache.dtype != k_cache.dtype:
         raise ValueError(f"the CUDA kernel takes fp32 or bf16 q and one cache dtype, got "
                          f"{q.dtype} / {k_cache.dtype} / {v_cache.dtype}")
@@ -250,7 +262,7 @@ def _launch(q, k_cache, v_cache, lengths, layer, sm_scale, n, split_len, fused):
             _build.ptr(q), k_ptr, v_ptr, _build.ptr(lengths),
             _build.ptr(out) if fused else None,
             *(None if t is None else _build.ptr(t) for t in parts),
-            b, hq, hkv, s, d, n, split_len, scale, _CUDA_DTYPES[q.dtype], kv_code,
+            b, hq, hkv, s, d, n, split_len, qspan, scale, _CUDA_DTYPES[q.dtype], kv_code,
             _build.stream_ptr(q.device),
         )
     _build.check(lib, err, "flash_decode")
@@ -330,3 +342,60 @@ def flash_decode(
 
 
 flash_decode.launches = 0
+
+
+# ----------------------------------------------------------------- verify
+
+
+def _verify_kernel(q, k_cache, v_cache, lengths, *, layer, sm_scale):
+    s = k_cache.shape[3]
+    out = _launch(q, k_cache, v_cache, lengths, layer, sm_scale, 1, s, fused=True)
+    flash_verify.launches += 1
+    return out
+
+
+def flash_verify_plain(q, k_cache, v_cache, lengths, *, layer=None, sm_scale=None, block_k=256,
+                       k_scales=None, v_scales=None):
+    """Plain twin of :func:`flash_verify`: token j is :func:`flash_decode_plain`
+    (one split) at ``lengths + j``, exactly."""
+    _check_span(q)
+    return _decode(q, k_cache, v_cache, lengths, layer, sm_scale, 1, block_k, k_scales, v_scales,
+                   _fused_plain, None)
+
+
+def _check_span(q):
+    if q.dim() != 4:
+        raise ValueError(f"flash_verify takes q (B, Hq, T, D), got {tuple(q.shape)}")
+
+
+def flash_verify(
+    q: torch.Tensor,  # (B, Hq, T, D): T consecutive query tokens per sequence
+    k_cache: torch.Tensor,  # (B, Hkv, S, D) or (L, B, Hkv, S, D) with `layer`
+    v_cache: torch.Tensor,
+    lengths: torch.Tensor,  # (B,) int32 — valid KV for query token 0 (incl. its row)
+    *,
+    layer: int | None = None,
+    sm_scale: float | None = None,
+    block_k: int = 256,
+    k_scales: torch.Tensor | None = None,
+    v_scales: torch.Tensor | None = None,
+    max_len_hint: int | None = None,
+    window=None,
+    sinks: int = 0,
+    softcap: float | None = None,
+) -> torch.Tensor:
+    """Multi-query decode attention for speculative decoding's verify step
+    (JAX ``flash_verify``): ``q[:, :, j]`` is the query at absolute position
+    ``lengths[b] - 1 + j`` and attends KV positions ``< lengths[b] + j``.
+    Returns (B, Hq, T, D) in q's dtype. Always one split (the JAX op has
+    none); an int8 / fp8 cache folds its scales as :func:`flash_decode`
+    does. ``max_len_hint`` sizes the TPU grid and is unused. Each launch
+    counts once in ``flash_verify.launches``."""
+    _reject_unported(window, sinks, softcap, max_len_hint)
+    _check_span(q)
+    fused = _fused_plain if q.device.type == "cpu" else _verify_kernel
+    return _decode(q, k_cache, v_cache, lengths, layer, sm_scale, 1, block_k, k_scales, v_scales,
+                   fused, None)
+
+
+flash_verify.launches = 0

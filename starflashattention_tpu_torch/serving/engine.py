@@ -16,13 +16,20 @@ on the device -> ONE readback -> record / retire -> repeat.
   (``serving/prefix_cache.py``). The allocator is the C++ page pool
   (``utils/native.py``) when it builds, else its Python twin.
 
-Both record serving metrics (TTFT, decode throughput, rounds, preemptions)
-in :class:`EngineStats`.
+With ``spec_decode=k`` the contiguous :class:`Engine` decodes
+speculatively: each round runs ``steps_per_round`` verify steps that
+propose k draft tokens a slot, from prompt lookup in the slot's token
+history (``spec_ngram``) or from a small ``draft_model=(params, cfg)``
+whose cache advances beside the target's, and emit 1 to k+1 tokens a slot
+(``models/llama.spec_decode_multi(_draft)``). Greedy only.
+
+Both record serving metrics (TTFT, decode throughput, rounds, preemptions,
+speculative steps) in :class:`EngineStats`.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: ``mesh`` (multi-GPU, Queue 1 item 16), ``spec_decode`` /
-``draft_model`` (item 12), ``lora_adapters`` / request adapters (item 14),
-``run_resilient`` / ``recover_device_state`` (item 17). The sliding-window
+item: ``mesh`` (multi-GPU, with or without ``spec_decode``: Queue 1 item
+16), ``lora_adapters`` / request adapters (item 14), ``run_resilient`` /
+``recover_device_state`` (item 17). The sliding-window
 page reclamation and sink pages of the JAX ``PagedEngine`` wait with K7's
 window option: ``check_supported`` refuses sliding-window configs.
 """
@@ -57,6 +64,9 @@ class EngineStats:
     # prefix cache (paged engine, serving/prefix_cache.py)
     prefix_hits: int = 0
     prefix_tokens_reused: int = 0
+    # speculative decoding: per-slot verify steps that kept a token;
+    # decode_tokens / spec_steps - 1 = mean accepted drafts per step
+    spec_steps: int = 0
 
     def p50_ttft_ms(self) -> float:
         return float(np.median(self.ttfts_s) * 1e3) if self.ttfts_s else 0.0
@@ -79,6 +89,8 @@ class EngineStats:
             "finished": self.finished,
             "prefix_hits": self.prefix_hits,
             "prefix_tokens_reused": self.prefix_tokens_reused,
+            "spec_accept_per_step": (round(self.decode_tokens / self.spec_steps - 1.0, 3)
+                                     if self.spec_steps else 0.0),
         }
 
 
@@ -102,6 +114,7 @@ class Engine:
         enable_sampling: bool = False,
         return_logprobs: bool = False,
         spec_decode: int | None = None,
+        spec_ngram: int = 4,
         draft_model: tuple | None = None,
         debug_validate: bool = False,
         lora_adapters: list | None = None,
@@ -109,9 +122,8 @@ class Engine:
         device: torch.device | str | None = None,
     ):
         if mesh is not None:
-            raise _unported("sharded serving (mesh)", "16")
-        if spec_decode is not None or draft_model is not None:
-            raise _unported("speculative decoding (spec_decode, draft_model)", "12")
+            spec = " speculative decoding" if spec_decode is not None else " serving"
+            raise _unported(f"sharded{spec} (mesh)", "16")
         if lora_adapters is not None:
             raise _unported("multi-LoRA serving (lora_adapters)", "14")
         llama.check_supported(cfg)
@@ -119,6 +131,36 @@ class Engine:
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the engine runs on "
                              f"{self.device}")
+        # Speculative decoding (JAX engine.py:136-195): the acceptance rule is
+        # exact-argmax-match, so greedy only, and the verify step is the
+        # single-split kernel, so the plain path must be too.
+        self.spec_decode = spec_decode
+        self.spec_ngram = spec_ngram
+        self.draft_model = draft_model
+        if draft_model is not None:
+            if spec_decode is None:
+                raise ValueError("draft_model requires spec_decode=<num drafts>")
+            dparams, dcfg = draft_model
+            if dcfg.vocab_size != cfg.vocab_size:
+                raise ValueError(f"draft vocab {dcfg.vocab_size} != target vocab {cfg.vocab_size} "
+                                 "(argmax token ids must be comparable)")
+            if dcfg.max_seq_len < cfg.max_seq_len:
+                raise ValueError("draft max_seq_len must cover the target's (the caches advance "
+                                 "in lockstep)")
+            llama.check_supported(dcfg)
+            if dparams["embed"].device.type != self.device.type:
+                raise ValueError(f"draft params live on {dparams['embed'].device}, the engine runs "
+                                 f"on {self.device}")
+        if spec_decode is not None:
+            if enable_sampling or return_logprobs:
+                raise ValueError("spec_decode is greedy-only: it composes with neither "
+                                 "enable_sampling nor return_logprobs")
+            if cfg.num_splits != 1:
+                raise ValueError("spec_decode requires cfg.num_splits == 1: verify and plain decode "
+                                 "must use the same (fused single-split) kernel for the accepted "
+                                 "stream to be bit-identical")
+            if topk_logprobs:
+                raise ValueError("topk_logprobs does not compose with spec_decode")
         self.cfg = cfg
         self.params = params
         self.num_slots = num_slots
@@ -136,10 +178,16 @@ class Engine:
         self._last_topk = None  # ((B, n, K) f32, (B, n, K) i32) host arrays
         self.debug_validate = debug_validate
         # Rounds are fixed-size; the slack reserves cache room for the final
-        # round's discarded overshoot tokens.
-        self.sched = Scheduler(num_slots, cfg.max_seq_len, capacity_slack=steps_per_round - 1)
+        # round's discarded overshoot tokens (a spec round appends up to
+        # steps * (k+1) rows a slot).
+        round_append = steps_per_round * (1 if spec_decode is None else spec_decode + 1)
+        self.sched = Scheduler(num_slots, cfg.max_seq_len, capacity_slack=round_append - 1)
         self.cos, self.sin = llama.rope_tables(cfg, device=self.device)
         self.pending_tok = torch.zeros((num_slots,), dtype=torch.int32, device=self.device)
+        # token history for prompt-lookup drafting: prompts written at
+        # admission, generated tokens by the spec rounds themselves
+        self.history = (torch.zeros((num_slots, cfg.max_seq_len), dtype=torch.int32, device=self.device)
+                        if spec_decode is not None and draft_model is None else None)
         self.stats = EngineStats()
         self._submit_time: dict[int, float] = {}
         self._first_token_seen: set[int] = set()
@@ -147,6 +195,11 @@ class Engine:
         # advanced per round): feeds _round_len_hint.
         self._slot_len = np.zeros((num_slots,), np.int64)
         self.cache = self._init_cache()
+        self.draft_cache = None
+        if draft_model is not None:
+            self.draft_params, self.draft_cfg = draft_model
+            self.dcos, self.dsin = llama.rope_tables(self.draft_cfg, device=self.device)
+            self.draft_cache = self._init_draft_cache()
 
     # -- cache-backend hooks (overridden by PagedEngine) ----------------------
 
@@ -156,6 +209,16 @@ class Engine:
             self.cfg.num_layers, self.num_slots, hkv, self.cfg.max_seq_len, d,
             dtype=llama.torch_dtype(self.cfg.dtype), quant_mode=self.cfg.quant_mode,
             calibration_scale=self.cfg.kv_calibration_scale, device=self.device,
+        )
+
+    def _init_draft_cache(self):
+        """The draft model's cache: the target's slots and capacity, since
+        the two advance in lockstep."""
+        d = self.draft_cfg
+        return contiguous.init_cache(
+            d.num_layers, self.num_slots, d.num_kv_heads, self.cfg.max_seq_len, d.head_dim,
+            dtype=llama.torch_dtype(d.dtype), quant_mode=d.quant_mode,
+            calibration_scale=d.kv_calibration_scale, device=self.device,
         )
 
     def _prepare_admit(self, admitted: list[tuple[int, Request]]) -> list[tuple[int, Request]]:
@@ -186,6 +249,10 @@ class Engine:
             self.params, self.cache, toks, new_lengths, admit_mask, reset_mask,
             self.cos, self.sin, self.cfg,
         )
+        if self.draft_cache is not None:
+            # the draft ingests the same windows; only its cache matters
+            llama.prefill_serving(self.draft_params, self.draft_cache, toks, new_lengths, admit_mask,
+                                  reset_mask, self.dcos, self.dsin, self.draft_cfg)
         return logits
 
     def _decode_call(self, active, n, max_len_hint=None):
@@ -321,6 +388,7 @@ class Engine:
         texts = [(slot, r, r.prompt + r.output) for slot, r in admitted]
         for slot, _r, text in texts:
             self._slot_len[slot] = len(text)  # post-prefill cache length
+        self._update_history(texts)
         # offs[slot] tokens are already cached (prefix-cache hits): those
         # slots prefill only their SUFFIX and keep their (pre-set) length;
         # the prefix bound covers the largest offset, quantized to the pad
@@ -391,6 +459,58 @@ class Engine:
             if finishing:
                 self._take_first_tokens(logits, texts, finishing)
 
+    def _update_history(self, texts) -> None:
+        """Write admitted prompts (+ resumed output) into the drafting
+        history (prompt-lookup engines only), whole rows, so a reused slot
+        carries no stale tokens; one host-to-device copy, no readback."""
+        if self.history is None:
+            return
+        s_hist = self.history.shape[1]
+        mask = np.zeros((self.num_slots,), bool)
+        rows = np.zeros((self.num_slots, s_hist), np.int32)
+        for slot, _req, text in texts:
+            mask[slot] = True
+            rows[slot, : min(len(text), s_hist)] = text[:s_hist]
+        self.history = torch.where(self._to_device(mask)[:, None], self._to_device(rows), self.history)
+
+    def _spec_decode_round(self, active: np.ndarray, n: int) -> None:
+        """One round of ``n`` verify steps (JAX engine.py:716-785) with one
+        readback; counts only the tokens ``record_tokens`` keeps, and a
+        verify step only if it kept one."""
+        t0 = time.time()
+        hint = self._round_len_hint(active, n * (self.spec_decode + 1))
+        act = self._to_device(active)
+        if self.draft_cache is not None:
+            toks, counts, self.pending_tok, self.cache, self.draft_cache = llama.spec_decode_multi_draft(
+                self.params, self.cache, self.draft_params, self.draft_cache, self.pending_tok,
+                self.cos, self.sin, self.dcos, self.dsin, act, self.cfg, self.draft_cfg, n,
+                num_draft=self.spec_decode, max_len_hint=hint)
+        else:
+            toks, counts, self.pending_tok, self.cache, self.history = llama.spec_decode_multi(
+                self.params, self.cache, self.history, self.pending_tok, self.cos, self.sin, act,
+                self.cfg, n, num_draft=self.spec_decode, ngram=self.spec_ngram, max_len_hint=hint)
+        toks_host = toks.cpu().numpy()  # (B, n, k+1): the round's readback
+        counts_host = counts.cpu().numpy()  # (B, n)
+        self.stats.decode_seconds += time.time() - t0
+        self._slot_len[active] += counts_host[active].sum(axis=1)
+        self.stats.decode_rounds += 1
+        for i in range(self.num_slots):
+            if not active[i]:
+                continue
+            emitted = [int(t) for s in range(n) for t in toks_host[i, s, : counts_host[i, s]]]
+            # a slot may hit its budget / EOS mid-round and discard the rest
+            req = self.sched.slots[i].request
+            before = len(req.output) if req is not None else 0
+            self._record(i, emitted)
+            kept = len(req.output) - before if req is not None else 0
+            self.stats.decode_tokens += kept
+            remaining = kept
+            for s in range(n):
+                if remaining <= 0:
+                    break
+                self.stats.spec_steps += 1
+                remaining -= int(counts_host[i, s])
+
     def _decode_round(self) -> None:
         active = np.asarray(self.sched.active_mask())
         if not active.any():
@@ -399,6 +519,9 @@ class Engine:
         if not active.any():
             return
         n = self.steps_per_round
+        if self.spec_decode is not None:
+            self._spec_decode_round(active, n)
+            return
         t0 = time.time()
         hint = self._round_len_hint(active, n)
         toks_host = self._decode_call(self._to_device(active), n, max_len_hint=hint)

@@ -447,3 +447,99 @@ def test_serving_engines_run_on_the_kernels(cuda):
     assert grew == [0, 0, steps, steps]
     assert eng.stats.preemptions > 0 and eng.stats.prefix_hits > 0
     assert run(paged(enable_sampling=True))[0] == run(paged(enable_sampling=True))[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.int8, torch.float8_e4m3fn])
+@pytest.mark.parametrize("d", [64, 128])
+def test_append_block_kv_kernel_matches_plain(cuda, dtype, d):
+    """K9: partial, zero, full and table-edge rows, a block across a 32-row
+    boundary and one hanging past the table (skipped): equal bytes."""
+    gen = _gen(cuda)
+    b, hkv, s, t = 5, 2, 64, 5
+    k = torch.randn((2, b, hkv, s, d), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((2, b, hkv, s, d), generator=gen, device=cuda).to(dtype)
+    kn = torch.randn((b, hkv, t, d), generator=gen, device=cuda).to(dtype)
+    vn = torch.randn((b, hkv, t, d), generator=gen, device=cuda).to(dtype)
+    pos = torch.tensor([0, 30, 59, 12, 62], dtype=torch.int32, device=cuda)
+    n_valid = torch.tensor([t, 4, 5, 0, 5], dtype=torch.int32, device=cuda)
+    k2, v2 = k.clone(), v.clone()
+    before = cache_append.append_block_kv.launches
+    cache_append.append_block_kv(k, v, kn, vn, 1, pos, n_valid)
+    assert cache_append.append_block_kv.launches == before + 1
+    cache_append.append_block_kv_plain(k2, v2, kn, vn, 1, pos, n_valid)
+    assert torch.equal(k.view(torch.uint8), k2.view(torch.uint8))
+    assert torch.equal(v.view(torch.uint8), v2.view(torch.uint8))
+
+
+def test_append_block_kv_zero_rows_launch_nothing(cuda):
+    """B == 0, T == 0 or an all-zero host n_valid: no launch, no write."""
+    k = torch.randn((1, 2, 2, 64, 128), device=cuda, dtype=torch.bfloat16)
+    ref = k.clone()
+    before = cache_append.append_block_kv.launches
+    for b, t, n_valid in ((0, 3, None), (2, 0, None), (2, 3, torch.zeros(2, dtype=torch.int32))):
+        new = torch.ones((b, 2, t, 128), device=cuda, dtype=torch.bfloat16)
+        kt = k[:, :b].contiguous() if b == 0 else k
+        cache_append.append_block_kv(kt, kt.clone(), new, new, 0,
+                                     torch.zeros(b, dtype=torch.int32, device=cuda), n_valid)
+    assert cache_append.append_block_kv.launches == before and torch.equal(k, ref)
+
+
+@pytest.mark.parametrize("kv", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("t", [2, 5, 17])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_verify_kernel_matches_plain_and_decode(cuda, kv, t, d):
+    """K1's verify mode against its twin, and token j against the fused K1
+    decode at lengths + j: bit for bit (the same tile loop; a tile past a
+    token's length leaves its running state unchanged). T = 17 at G = 4
+    takes about 95 KB of shared memory, above the default 48 KB."""
+    gen = _gen(cuda)
+    b, hq, hkv, s = 4, 16, 4, 512
+    q = torch.randn((b, hq, t, d), generator=gen, device=cuda, dtype=torch.bfloat16)
+    k = torch.randn((2, b, hkv, s, d), generator=gen, device=cuda)
+    v = torch.randn((2, b, hkv, s, d), generator=gen, device=cuda)
+    kw = dict(layer=1)
+    if kv == "bf16":
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    else:
+        qmax = 127.0 if kv == "int8" else 448.0
+        ks = torch.tensor([5.0, 6.0, 4.0, 5.5], device=cuda) / qmax
+        k, v = _quantized(k, kv, ks, 2), _quantized(v, kv, ks, 2)
+        kw.update(k_scales=ks, v_scales=ks)
+    lengths = torch.tensor([1, 31, 300, s - t + 1], dtype=torch.int32, device=cuda)
+    before = flash_decode.flash_verify.launches
+    out = flash_decode.flash_verify(q, k, v, lengths, **kw)
+    assert flash_decode.flash_verify.launches == before + 1
+    ref = flash_decode.flash_verify_plain(q, k, v, lengths, **kw)
+    assert out.shape == q.shape and _max_err(out, ref) <= 4 * BF16_ULP
+    assert _ulps(out, ref) <= (3 if kv != "bf16" else 2)
+    for j in range(t):
+        dec = flash_decode.flash_decode(q[:, :, j], k, v, lengths + j, num_splits=1, **kw)
+        assert _max_err(out[:, :, j], dec) == 0.0
+
+
+def test_spec_engines_run_on_the_kernels(cuda):
+    """Both draft sources serve a narrow bf16 model on the card: every verify
+    step launches K9 and K1's verify mode once a layer and the one-row
+    append never (the draft model's decode steps do, on its own cache);
+    every request finishes."""
+    cfg = ModelConfig.tiny(hidden_size=256, intermediate_size=512, num_q_heads=4, num_kv_heads=2,
+                           head_dim=64, max_seq_len=256, dtype="bfloat16", num_splits=1)
+    params = llama.quantize_model_weights(
+        llama.init_params(cfg, _gen(cuda), device=cuda), "int8", lm_head=True)
+    dcfg = ModelConfig.tiny(hidden_size=256, intermediate_size=512, num_q_heads=4, num_kv_heads=2,
+                            head_dim=64, max_seq_len=256, dtype="bfloat16", num_splits=1, num_layers=1)
+    dparams = llama.init_params(dcfg, torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    motif = torch.randint(0, cfg.vocab_size, (12,), generator=torch.Generator().manual_seed(3)).tolist()
+    prompts = [motif + [i, i + 1] + motif for i in range(5)]
+    counters = (flash_decode.flash_verify, cache_append.append_block_kv, cache_append.append_rows_kv)
+    for draft, k in ((None, 3), ((dparams, dcfg), 2)):
+        eng = Engine(params, cfg, num_slots=2, steps_per_round=3, spec_decode=k, draft_model=draft,
+                     device=cuda)
+        before = [fn.launches for fn in counters]
+        out = eng.generate(prompts, 12)
+        grew = [fn.launches - b for fn, b in zip(counters, before)]
+        steps = eng.stats.decode_rounds * 3
+        draft_rows = 0 if draft is None else steps * (k + 1) * dcfg.num_layers
+        assert grew == [steps * cfg.num_layers, steps * cfg.num_layers, draft_rows]
+        assert eng.stats.finished == len(prompts) and all(len(o) == 12 for o in out)
+        assert eng.stats.spec_steps > 0

@@ -375,7 +375,7 @@ def test_sampled_engine_keeps_tokens_in_jax_threshold_set():
 def test_engine_refuses_what_is_not_ported():
     _, tc = _cfgs()
     _, tp = _models()
-    for kw, item in ((dict(mesh=object()), "16"), (dict(spec_decode=2), "12"),
+    for kw, item in ((dict(mesh=object()), "16"), (dict(mesh=object(), spec_decode=2), "16"),
                      (dict(lora_adapters=[{}]), "14")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             Engine(tp, tc, device="cpu", **kw)
