@@ -24,7 +24,13 @@ Phases (any failure raises and the script exits non-zero):
    and 5/448), and the appends on 1-byte rows. Speculative decoding's
    kernels at its verify step's shapes (B=8, T=5): the verify mode of the
    decode attention on bf16 and int8 KV, each query token also held bit for
-   bit to the fused decode at lengths + j, and the block append.
+   bit to the fused decode at lengths + j, and the block append. The
+   training kernels: the prefill attention with the base-2 LSE (checked
+   causal and not, on ragged lengths with a zero-length sequence and q
+   offsets, then timed at phase 9a's shapes against SDPA's forward) and the
+   two FA2 backward kernels (dq; dk/dv), checked on the same inputs and at
+   B=2, S=2048, run twice for equal bytes, timed against SDPA's backward
+   (its forward + backward less its forward).
 3. Slice: full-width ``ModelConfig.llama_7b_gqa`` (32 layers,
    max_seq_len 1024, random int8 weights and int8 lm_head from a seeded
    generator, bf16 KV cache): greedy ``generate`` on 8 ragged prompts for
@@ -83,6 +89,22 @@ Phases (any failure raises and the script exits non-zero):
    token's logit lies within 2% of its row's logit range of the row's
    maximum. Prints the stats, the accept-per-step, the share of streams
    equal to the plain run's, the exact-argmax share and decode tokens/s.
+9. Training: ``ModelConfig.llama_7b_gqa(max_seq_len=2048)`` in bf16 (32
+   layers, seeded random init), one seeded (2, 2049) token batch. 9a: three
+   ``train.train_step`` (SGD, momentum 0.9, lr 1.0, remat): finite losses
+   that fall, and per step 64 attention forwards with the LSE (remat reruns
+   each layer's forward), 32 dq and 32 dk/dv launches and nothing else;
+   ms a step, tokens/s, peak memory, then one step under torch.profiler
+   (device time: attention forward, attention backward, matmuls, other;
+   the idle share). 9c: LoRA rank 16 on wqkv, wo, w_gate_up and w_down
+   (fp32 adapters on the frozen bf16 base), three plain SGD steps (lr 1)
+   on the factors: the loss falls and the base's bytes do not change; then
+   ``lora.merge``, whose ``llama.prefill`` logits at each prompt's last
+   position agree with the adapted ``forward_train`` within 5% of the
+   largest logit, and greedy ``llama.generate`` on phase 3's 8 prompts for
+   16 tokens through the kernels. 9b: a 2-layer model of the same width at
+   B=1: every parameter's gradient through the kernels against plain
+   attention's, within 5e-2 of its peak.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device,
@@ -141,6 +163,26 @@ SPEC_DRAFT_LAYERS = 2
 # other side of a near-tie; the tie check bounds how near: 2% of the row's
 # logit range below its maximum.
 SPEC_TIE_TOL = 0.02
+TRAIN_SEQ = 2048
+TRAIN_BATCH = 2
+TRAIN_STEPS = 3
+# bf16 SGD: an update far below a weight's bf16 ulp rounds away. The
+# lm_head's target columns move by lr * xn / (B * S) a step, about 2.4e-4
+# at lr 1 (2 to 4 ulps of weights near 1/64), and raise each target logit
+# by about lr * hidden / (B * S) = lr: a visible fall in the loss.
+TRAIN_LR = 1.0
+LORA_RANK = 16
+# fp32 adapters; plain SGD on the factors. At lr 20 the losses went
+# 10.857, 9.868, 10.856 and at lr 5 10.857, 9.985, 10.771 (this script on
+# an H100 80GB HBM3 at 700 W): the first step gains almost as much at 5 as
+# at 20, far past the linear range, and the second overshoots; lr 1 keeps
+# the steps nearer the linear range.
+LORA_LR = 1.0
+LORA_NEW_TOKENS = 16
+# bf16 weights and activations on both routes; the kernels round P and dS
+# to bf16 (the plain attention keeps fp32) and the differences run back
+# through 2 layers of bf16 matmuls: a few bf16 ulps (2^-8) of each peak
+TRAIN_GRAD_TOL = 5e-2
 QMM_ENTRY = {16: "quant_matmul (small-M, decode rows)", 2048: "quant_matmul (tiled, prefill rows)"}
 INT4_ENTRY = {16: "quant_matmul_int4 (small-M, decode rows)",
               2048: "quant_matmul_int4 (tiled, prefill rows)"}
@@ -429,10 +471,136 @@ def phase_kernels(dev, timer):
         plain_ms=timer(lambda: flash_prefill_plain(q, k, v, lens, q_offsets=q_off), iters=5),
         bound_ms=bnd, bound_by=by,
         library_ms=timer(lambda: F.scaled_dot_product_attention(q, kk, vv, attn_mask=mask)))
+    del q, k, v, kk, vv, mask
+    res.update(_train_kernels(dev, timer, gen))
     for name, r in res.items():
         log(f"[time] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
             f"{'none' if r['library_ms'] is None else format(r['library_ms'], '.4f') + ' ms'}, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']:.3e}")
+    return res
+
+
+def _train_kernels(dev, timer, gen):
+    """K5 with the LSE and the two K12 kernels. Checks first, at B=3, Hq=32,
+    Hkv=8, Sq=384, Skv=1024, D=128, q_offsets [0, 300, 17] and lengths
+    [384, 684, 0] (a zero-length sequence), causal and not; then each
+    kernel at phase 9a's step shapes (B=2, S=2048, causal, no padding):
+    held to its plain twin, timed beside its twin and a library call, K12
+    run twice for equal bytes."""
+    import torch.nn.functional as F
+
+    from starflashattention_tpu_torch.ops.flash_bwd import (bwd_delta, flash_bwd_dkdv, flash_bwd_dkdv_plain,
+                                                            flash_bwd_dq, flash_bwd_dq_plain)
+    from starflashattention_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_plain
+
+    bf16 = torch.bfloat16
+    hq, hkv, d = 32, 8, 128
+
+    def inputs(b, sq, skv):
+        q, do = (torch.randn((b, hq, sq, d), generator=gen, device=dev, dtype=bf16) for _ in range(2))
+        k, v = (torch.randn((b, hkv, skv, d), generator=gen, device=dev, dtype=bf16) for _ in range(2))
+        return q, k, v, do
+
+    def k12_errors(q, k, v, do, lens, kw):
+        """Both K12 kernels against their plain twins -> (each gradient's
+        max abs error, the same relative to its peak), (dq, dk, dv), delta,
+        o, lse."""
+        o, lse = flash_prefill(q, k, v, lens, return_lse=True, **kw)
+        delta = bwd_delta(o, do)
+        dq = flash_bwd_dq(q, k, v, lse, do, delta, lens, **kw)
+        dk, dv = flash_bwd_dkdv(q, k, v, lse, do, delta, lens, **kw)
+        refs = (flash_bwd_dq_plain(q, k, v, lse, do, delta, lens, **kw),
+                *flash_bwd_dkdv_plain(q, k, v, lse, do, delta, lens, **kw))
+        errs = [(a.float() - b.float()).abs().max().item() for a, b in zip((dq, dk, dv), refs)]
+        rels = [e / b.float().abs().max().item() for e, b in zip(errs, refs)]
+        return errs, rels, (dq, dk, dv), delta, o, lse
+
+    # -- checks: ragged, a zero-length sequence, q offsets, causal and not
+    q, k, v, do = inputs(3, 384, 1024)
+    q_off = torch.tensor([0, 300, 17], dtype=torch.int32, device=dev)
+    lens = torch.tensor([384, 684, 0], dtype=torch.int32, device=dev)
+    for causal in (True, False):
+        kw = dict(causal=causal, q_offsets=q_off)
+        tag = f"B=3 Sq=384 Skv=1024 lengths [384,684,0] q_offsets [0,300,17] causal={causal}"
+        out, lse = flash_prefill(q, k, v, lens, return_lse=True, **kw)
+        ref, lse_ref = flash_prefill_plain(q, k, v, lens, return_lse=True, **kw)
+        empty = lse_ref > 1e38
+        # the output as K5's row holds it (P rounded to bf16 for PV); the LSE:
+        # fp32 sums of the same products in another order, exp2f / log2f
+        _check(f"flash_prefill return_lse output {tag}", (out.float() - ref.float()).abs().max().item(), 2e-2)
+        _check(f"flash_prefill return_lse lse {tag}", (lse - lse_ref)[~empty].abs().max().item(), 1e-4)
+        _check("flash_prefill return_lse: the zero-length sequence's rows hold 3e38, and only they",
+               0.0 if bool(empty[2].all()) and not bool(empty[:2].any()) and bool((lse[empty] == 3e38).all())
+               else float("inf"), 0.0)
+        _check("flash_prefill without the LSE: the same output bytes",
+               0.0 if torch.equal(out, flash_prefill(q, k, v, lens, **kw)) else float("inf"), 0.0)
+        _, rels, (dq, _, _), _, _, _ = k12_errors(q, k, v, do, lens, kw)
+        # the kernels round P and dS to bf16 before their products (as the TPU
+        # kernels do) and write bf16; the twins keep fp32 and round once
+        for name, rel in zip(("dq", "dk", "dv"), rels):
+            _check(f"flash_prefill_bwd {name} {tag}", rel, 2e-2, what="max abs error over the peak")
+        _check("flash_prefill_bwd dq of the zero-length sequence is 0", dq[2].abs().max().item(), 0.0)
+    del q, k, v, do
+
+    # -- phase 9a's step shapes: B=2, S=2048, causal
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    q, k, v, do = inputs(b, s, s)
+    lens = torch.full((b,), s, dtype=torch.int32, device=dev)
+    kw = dict(causal=True)
+    errs, rels, grads, delta, o, lse = k12_errors(q, k, v, do, lens, kw)
+    tag = f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal"
+    for name, rel in zip(("dq", "dk", "dv"), rels):
+        _check(f"flash_prefill_bwd {name} {tag}", rel, 2e-2, what="max abs error over the peak")
+    again = (flash_bwd_dq(q, k, v, lse, do, delta, lens, **kw), *flash_bwd_dkdv(q, k, v, lse, do, delta, lens, **kw))
+    _check(f"flash_prefill_bwd two runs, bytes that differ ({tag})",
+           float(sum(int((a.view(torch.int16) != g.view(torch.int16)).sum()) for a, g in zip(again, grads))), 0.0)
+    out_ref, lse_ref = flash_prefill_plain(q, k, v, lens, return_lse=True, **kw)
+    k5_err = (o.float() - out_ref.float()).abs().max().item()
+    _check(f"flash_prefill return_lse output {tag}", k5_err, 2e-2)
+    _check(f"flash_prefill return_lse lse {tag}", (lse - lse_ref).abs().max().item(), 1e-4)
+    del lse_ref, out_ref
+
+    pairs = b * hq * s * (s + 1) // 2  # (query, key) pairs in band
+    qb, kvb, rowb = q.numel() * 2, k.numel() * 2, b * hq * s * 4  # bf16 (B,Hq,S,D), (B,Hkv,S,D); fp32 rows
+    # the library yardstick: SDPA (its own fused causal kernels, enable_gqa);
+    # its backward timed as forward + backward minus the forward
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), leaves, do)
+
+    sdpa_fwd = timer(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True))
+    sdpa_bwd = timer(sdpa_fwd_bwd) - timer(sdpa)
+    res = {}
+    bnd, by = bound_ms(qb + 2 * kvb + qb + rowb, 4 * d * pairs)  # q, k, v in; o, lse out
+    res["flash_prefill (return_lse, training)"] = dict(
+        max_abs_err=k5_err,
+        ms=timer(lambda: flash_prefill(q, k, v, lens, return_lse=True, **kw)),
+        plain_ms=timer(lambda: flash_prefill_plain(q, k, v, lens, return_lse=True, **kw), iters=5),
+        bound_ms=bnd, bound_by=by, library_ms=sdpa_fwd)
+    t_no_lse = timer(lambda: flash_prefill(q, k, v, lens, **kw))  # the serving instantiation
+    # dq: the S and dP recompute and ds @ k, 6 D a pair; dk/dv: the recompute,
+    # p^T @ do and ds^T @ q, 8 D a pair (the two kernels together: 14 D, where
+    # one fused pass would do 10 D)
+    ins = qb + 2 * kvb + qb + 2 * rowb  # q, k, v, do, lse, delta
+    for name, fn, plain, n_out, ops_per_pair, err in (
+            ("flash_bwd_dq", flash_bwd_dq, flash_bwd_dq_plain, qb, 6 * d, errs[0]),
+            ("flash_bwd_dkdv", flash_bwd_dkdv, flash_bwd_dkdv_plain, 2 * kvb, 8 * d, max(errs[1:]))):
+        bnd, by = bound_ms(ins + n_out, ops_per_pair * pairs)
+        res[name] = dict(max_abs_err=err,
+                         ms=timer(lambda: fn(q, k, v, lse, do, delta, lens, **kw)),
+                         plain_ms=timer(lambda: plain(q, k, v, lse, do, delta, lens, **kw), iters=5),
+                         bound_ms=bnd, bound_by=by, library_ms=sdpa_bwd)
+    log(f"[time] K5 at {tag}: with the LSE {res['flash_prefill (return_lse, training)']['ms']:.4f} ms, "
+        f"without it {t_no_lse:.4f} ms")
+    log(f"[time] K12 at {tag}: library (SDPA) forward {sdpa_fwd:.4f} ms, backward {sdpa_bwd:.4f} ms; "
+        f"max abs errors dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} (relative to each peak "
+        f"{rels[0]:.3e}, {rels[1]:.3e}, {rels[2]:.3e})")
+    del q, k, v, do, o, lse, delta, grads, again, leaves
+    torch.cuda.empty_cache()
     return res
 
 
@@ -808,6 +976,7 @@ def _counters():
     from starflashattention_tpu_torch.ops import quant_matmul as qmm
     from starflashattention_tpu_torch.ops.cache_append import (append_block_kv, append_rows_kv,
                                                                append_rows_paged_kv)
+    from starflashattention_tpu_torch.ops.flash_bwd import flash_bwd_dkdv, flash_bwd_dq
     from starflashattention_tpu_torch.ops.flash_decode import flash_decode, flash_verify
     from starflashattention_tpu_torch.ops.flash_prefill import flash_prefill
     from starflashattention_tpu_torch.ops.paged_decode import paged_flash_decode
@@ -817,23 +986,29 @@ def _counters():
             "append_rows_paged_kv": append_rows_paged_kv, "paged_flash_decode": paged_flash_decode,
             "quant_matmul_int4": qmm.quant_matmul_int4, "quant_matmul_w8a8": qmm.quant_matmul_w8a8,
             "quant_matmul_w4a8": qmm.quant_matmul_w4a8, "flash_verify": flash_verify,
-            "append_block_kv": append_block_kv}
+            "append_block_kv": append_block_kv, "flash_bwd_dq": flash_bwd_dq,
+            "flash_bwd_dkdv": flash_bwd_dkdv}
 
 
-_TILED = ("quant_matmul", "quant_matmul_int4")  # entries that also count their tiled launches
+# entries that also count a subset of their launches: (entry, attribute, count name)
+_SUBSETS = (("quant_matmul", "launches_tiled", "quant_matmul_tiled"),
+            ("quant_matmul_int4", "launches_tiled", "quant_matmul_int4_tiled"),
+            ("flash_prefill", "launches_lse", "flash_prefill_lse"))
 
 
 def reset_counts():
-    for fn in _counters().values():
+    fns = _counters()
+    for fn in fns.values():
         fn.launches = 0
-    for name in _TILED:
-        _counters()[name].launches_tiled = 0
+    for name, attr, _ in _SUBSETS:
+        setattr(fns[name], attr, 0)
 
 
 def read_counts():
-    counts = {name: fn.launches for name, fn in _counters().items()}
-    for name in _TILED:
-        counts[name + "_tiled"] = _counters()[name].launches_tiled
+    fns = _counters()
+    counts = {name: fn.launches for name, fn in fns.items()}
+    for name, attr, key in _SUBSETS:
+        counts[key] = getattr(fns[name], attr)
     return counts
 
 
@@ -1400,6 +1575,197 @@ def phase_spec(dev):
     return runs
 
 
+# ---------------------------------------------------------------- phase 9
+
+
+def _train_counts_ok(counts, n_layers):
+    """One training step's counts: the attention forward with the LSE 2 L
+    times (remat reruns it in the backward), each K12 kernel L times,
+    nothing else."""
+    want = zero_counts(flash_prefill=2 * n_layers, flash_prefill_lse=2 * n_layers,
+                       flash_bwd_dq=n_layers, flash_bwd_dkdv=n_layers)
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != expected {want}")
+
+
+def _kernel_times(prof):
+    """Device time by kernel from a torch.profiler run: [(name, ms, launches)],
+    the most time first."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) == DeviceType.CUDA:
+            us = getattr(evt, "self_device_time_total", None)
+            rows.append((evt.key, (evt.self_cuda_time_total if us is None else us) / 1e3, evt.count))
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def _device_split(rows):
+    """Device ms by kind of kernel."""
+    split = {"attention forward": 0.0, "attention backward": 0.0, "matmuls": 0.0, "other": 0.0}
+    for name, ms, _ in rows:
+        name = name.lower()
+        kind = ("attention forward" if "flash_prefill_kernel" in name else
+                "attention backward" if "flash_bwd" in name else
+                "matmuls" if any(w in name for w in ("gemm", "xmma", "cutlass", "nvjet", "cublas")) else
+                "other")
+        split[kind] += ms
+    return split
+
+
+def phase_training(dev):
+    """Training at full 7B-GQA width (see the module doc)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from starflashattention_tpu_torch.models import llama, lora, train
+    from starflashattention_tpu_torch.runtime.params import ModelConfig
+
+    out = {}
+    cfg = ModelConfig.llama_7b_gqa(max_seq_len=TRAIN_SEQ)
+    n = cfg.num_layers
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = llama.init_params(cfg, gen, device=dev)
+    batch = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1), generator=gen, device=dev)
+    cos, sin = llama.rope_tables(cfg, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in train.tree_leaves(params))
+    log(f"[train] llama_7b_gqa L={n} bf16, {n_params / 1e9:.3f} B parameters, seeded random init, "
+        f"batch ({TRAIN_BATCH}, {TRAIN_SEQ + 1}); built in {time.perf_counter() - t0:.1f} s")
+
+    # -- 9c: LoRA on the fresh base, rank 16 on all four targets, fp32
+    # adapters on the frozen bf16 base
+    base_copy = train.tree_map(torch.clone, params)
+    adapters = lora.init_lora(cfg, gen, rank=LORA_RANK, device=dev)
+    lora_losses, lora_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        loss, grads = lora.loss_and_grads(params, adapters, batch, cfg, cos, sin)
+        with torch.no_grad():  # the factors; alpha / r stays fixed
+            for a, g in zip(train.tree_leaves(adapters["layers"]), train.tree_leaves(grads["layers"])):
+                a.add_(g, alpha=-LORA_LR)
+        lora_losses.append(float(loss))  # synchronizes
+        lora_ms.append((time.perf_counter() - t0) * 1e3)
+        _train_counts_ok(read_counts(), n)
+    same = all(torch.equal(a, b) for a, b in zip(train.tree_leaves(params), train.tree_leaves(base_copy)))
+    log(f"[train] LoRA rank {LORA_RANK} (wqkv, wo, w_gate_up, w_down), plain SGD lr {LORA_LR}: losses "
+        f"{lora_losses}; ms per step {[round(t, 1) for t in lora_ms]} (the first is the process's first "
+        f"training step); base bytes unchanged: {same}")
+    if not same:
+        raise AssertionError("LoRA training changed the base weights")
+    if not all(np.isfinite(lora_losses)) or not lora_losses[-1] < lora_losses[0]:
+        raise AssertionError(f"LoRA: the loss did not fall: {lora_losses}")
+    del base_copy, grads
+    torch.cuda.empty_cache()
+    merged = lora.merge(params, adapters, cfg)
+    prompts, lengths = _prompts(cfg, dev, gen)
+    rows = torch.arange(len(lengths), device=dev), lengths.long() - 1
+    with torch.no_grad():
+        want = train.forward_train(params, prompts, cfg, cos, sin, remat=False, lora=adapters)[rows]
+        folded = train.forward_train(merged, prompts, cfg, cos, sin, remat=False)[rows]
+        hkv, d = cfg.kv_cache_dims()
+        from starflashattention_tpu_torch.cache import contiguous
+
+        cache = contiguous.init_cache(n, len(lengths), hkv, cfg.max_seq_len, d, device=dev)
+        got, _ = llama.prefill(merged, cache, prompts, lengths, cos, sin, cfg)
+        del cache
+    err, peak_logit = (got - want).abs().max().item(), want.abs().max().item()
+    log(f"[train] merged against adapted: the merge's bf16 rounding alone (forward_train on both) "
+        f"{(folded - want).abs().max().item():.3e}; the serving prefill (fp32 projections) against "
+        f"forward_train (bf16 projections) on the merged model {(got - folded).abs().max().item():.3e}")
+    _check(f"merged model's prefill logits against the adapted forward_train (max |logit| {peak_logit:.2f})",
+           err, 0.05 * peak_logit)
+    steps = LORA_NEW_TOKENS - 1
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    toks = llama.generate(merged, cfg, prompts, lengths, LORA_NEW_TOKENS, device=dev)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    want_counts = zero_counts(flash_prefill=n, flash_decode=steps * n, append_rows_kv=steps * n)
+    if read_counts() != want_counts:
+        raise AssertionError(f"merged generate: launch counts {read_counts()} != expected {want_counts}")
+    if toks.shape != (len(lengths), LORA_NEW_TOKENS) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"merged generate: bad token stream {toks.shape}")
+    log(f"[train] merged model: generate {len(lengths)} prompts x {LORA_NEW_TOKENS} tokens in {gen_s:.2f} s "
+        f"through the kernels (K5, K1, K3; dense bf16 projections)")
+    out["lora"] = dict(losses=lora_losses, ms=lora_ms, logit_err=err, logit_peak=peak_logit)
+    del merged, adapters
+    torch.cuda.empty_cache()
+
+    # -- 9a: full fine-tuning of the same base, 32 layers, B=2, S=2048
+    momentum = train.tree_map(torch.zeros_like, params)
+    log(f"[train] full fine-tuning: SGD momentum {train.MOMENTUM}, lr {TRAIN_LR}, remat")
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, counts = [], [], {}
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        params, momentum, loss = train.train_step(params, momentum, batch, cfg, cos, sin, TRAIN_LR)
+        losses.append(float(loss))  # synchronizes
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        _train_counts_ok(read_counts(), n)
+        counts = {k: counts.get(k, 0) + v for k, v in read_counts().items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f"[train] full fine-tuning: losses {losses}; ms per step {[round(t, 1) for t in step_ms]} "
+        f"(the first includes allocation); {tokens / step_ms[-1] * 1e3:.0f} tokens/s at the last step; "
+        f"peak memory {peak:.1f} GiB; launches in the {TRAIN_STEPS} steps {counts}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"full fine-tuning: the loss did not fall: {losses}")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, momentum, loss = train.train_step(params, momentum, batch, cfg, cos, sin, TRAIN_LR)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = _kernel_times(prof)
+    split = _device_split(kernels)
+    busy = sum(split.values())
+    if busy == 0:
+        log("[train] the profiler saw no device time; the device split is not measured")
+    else:
+        log(f"[train] one step under torch.profiler: {wall_ms:.1f} ms wall, device busy {busy:.1f} ms, "
+            f"idle share {1 - busy / wall_ms:.3f}; device ms: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in split.items()))
+        for name, ms, count in kernels[:12]:
+            log(f"[train]   {ms:8.2f} ms  {count:5d} launches  {name[:110]}")
+    out["full"] = dict(losses=losses, step_ms=step_ms, tokens_per_s=tokens / step_ms[-1] * 1e3,
+                       peak_gib=peak, counts=counts, profile=split, profile_wall_ms=wall_ms)
+    del params, momentum
+    torch.cuda.empty_cache()
+
+    # -- 9b: gradients through the kernels against plain attention, 2 layers, B=1
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    params = llama.init_params(cfg2, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    reset_counts()
+    l_k, g_k = train.loss_and_grads(params, batch[:1], cfg2, cos, sin, use_flash=True)
+    _train_counts_ok(read_counts(), cfg2.num_layers)
+    l_p, g_p = train.loss_and_grads(params, batch[:1], cfg2, cos, sin, use_flash=False)
+    worst = ("", 0.0)
+    for (name, a), b in zip(_named_leaves(g_k), train.tree_leaves(g_p)):
+        rel = (a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1e-30)
+        worst = max(worst, (name, rel), key=lambda x: x[1])
+    log(f"[train] 2 layers, B=1, S={TRAIN_SEQ}: loss through the kernels {float(l_k):.6f}, plain attention "
+        f"{float(l_p):.6f}")
+    _check(f"gradients through the kernels against plain attention, worst leaf {worst[0]} "
+           "(max abs error over its peak)", worst[1], TRAIN_GRAD_TOL)
+    out["grads"] = dict(worst_leaf=worst[0], worst_rel=worst[1])
+    del params, g_k, g_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [item for k, v in tree.items() for item in _named_leaves(v, f"{prefix}{k}.")]
+    return [(prefix[:-1], tree)]
+
+
 # ---------------------------------------------------------------- phase 5
 
 
@@ -1490,6 +1856,9 @@ REPLACES = {
     "flash_verify": ("starflashattention_tpu/ops/flash_decode.py:213", "flash_decode.cu"),
     "flash_verify int8 KV": ("starflashattention_tpu/ops/flash_decode.py:213", "flash_decode.cu"),
     "append_block_kv": ("starflashattention_tpu/ops/cache_append.py:331", "cache_append.cu"),
+    "flash_prefill (return_lse, training)": ("starflashattention_tpu/ops/flash_prefill.py:67", "flash_prefill.cu"),
+    "flash_bwd_dq": ("starflashattention_tpu/ops/flash_bwd.py:173", "flash_bwd.cu"),
+    "flash_bwd_dkdv": ("starflashattention_tpu/ops/flash_bwd.py:254", "flash_bwd.cu"),
     "quant_matmul_int4 (small-M, decode rows)": ("starflashattention_tpu/ops/quant_matmul.py:178",
                                                  "quant_matmul.cu"),
     "quant_matmul_int4 (tiled, prefill rows)": ("starflashattention_tpu/ops/quant_matmul.py:178",
@@ -1511,8 +1880,8 @@ OFF_PATH = ("flash_decode fp8 KV (1 split, fused)", "paged_flash_decode fp8 KV")
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,6,7,8",
-                        help="comma-separated phases to run (default 1,2,3,4,6,7,8; phase 5, "
+    parser.add_argument("--phases", default="1,2,3,4,6,7,8,9",
+                        help="comma-separated phases to run (default 1,2,3,4,6,7,8,9; phase 5, "
                              "a profile of bench.py's decode chains, runs only when named)")
     args = parser.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -1534,6 +1903,7 @@ def main(argv=None):
     serving = phase_serving(dev) if 6 in phases else {}
     quant = phase_quant_slice(dev) if 7 in phases else {}
     spec = phase_spec(dev) if 8 in phases else {}
+    training = phase_training(dev) if 9 in phases else {}
     if 5 in phases:
         phase_decode_profile(dev)
 
@@ -1565,6 +1935,10 @@ def main(argv=None):
         launches.update({"flash_verify": spec["lookup"]["counts"]["flash_verify"],
                          "append_block_kv": spec["lookup"]["counts"]["append_block_kv"],
                          "flash_verify int8 KV": spec["int8_kv"]["counts"]["flash_verify"]})
+    if training:
+        full = training["full"]["counts"]
+        launches.update({"flash_prefill (return_lse, training)": full["flash_prefill_lse"],
+                         "flash_bwd_dq": full["flash_bwd_dq"], "flash_bwd_dkdv": full["flash_bwd_dkdv"]})
     line = []
     for name, r in kernels.items():
         if name in OFF_PATH:

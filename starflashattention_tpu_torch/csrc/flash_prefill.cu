@@ -1,15 +1,25 @@
-// Causal prefill attention (FlashAttention-2 forward) for Hopper (sm_90a).
+// Prefill attention (FlashAttention-2 forward) for Hopper (sm_90a).
 //
 // Replaces: starflashattention_tpu/ops/flash_prefill.py::_prefill_kernel
-// (entry flash_prefill) in the form the model's prefill uses: causal, with
-// per-sequence lengths and q_offsets, no window, sinks, softcap or LSE.
+// (entry flash_prefill) in the forms the model's prefill and the training
+// path use: causal or not, with per-sequence lengths and q_offsets, and
+// optionally the per-row base-2 log-sum-exp (return_lse); no window, sinks
+// or softcap.
 //
 // q: (B, Hq, Sq, D) bf16; k, v: (B, Hkv, Skv, D) bf16 (in the model, one
 // layer of the cache table, passed as a pointer into it); lengths and
 // q_offsets: (B,) int32. Query row i of sequence b sits at absolute
-// position q_offsets[b] + i and attends KV positions j <= q_offsets[b] + i
-// with j < lengths[b]. Query head h reads KV head h / G. A row with no
-// valid position gives 0; rows past Sq are never written.
+// position q_offsets[b] + i and attends KV positions j < lengths[b], and
+// with causal also j <= q_offsets[b] + i. Query head h reads KV head h / G.
+// A row with no valid position gives 0; rows past Sq are never written.
+//
+// Scores are in base-2 units, as in the TPU kernel: s2 = scale_log2 * q.k
+// with scale_log2 = sm_scale * log2(e), computed in fp32 from the fp32
+// product (the TPU kernel folds the scale into q and rounds it to q's
+// dtype first), and the softmax runs on exp2. With LSE the kernel also
+// writes lse[b, h, i] = m2 + log2(l) (B, Hq, Sq) fp32, or 3e38 for a row
+// that saw no valid position, so that the backward's exp2(s2 - lse) is 0
+// there. flash_bwd.cu recomputes s2 with the same scale_log2.
 //
 // Bound: at the model's prefill shapes (a few hundred rows per sequence,
 // D = 128) the 4 * D operations per (query, key) pair under the causal mask
@@ -23,8 +33,10 @@
 // ldmatrix.trans, and P goes from the score accumulators to the PV operand
 // without touching memory. The online softmax runs in fp32 (quad shuffles
 // for the row max; the row sum is reduced once at the end). The block walks
-// KV tiles only up to min(lengths[b], last position of its rows); a warp
-// whose rows all precede a tile skips its arithmetic. Not yet: copies
+// KV tiles only up to lengths[b] (causal: and the last position of its
+// rows); a warp whose rows all precede a tile skips its arithmetic. CAUSAL
+// and LSE are template flags, so the serving prefill's instantiation
+// carries neither the non-causal branch nor the LSE store. Not yet: copies
 // overlapped with compute (cp.async / TMA), wgmma.
 
 #include <cuda_bf16.h>
@@ -36,6 +48,7 @@ namespace {
 constexpr int BK = 64;  // KV rows per shared-memory tile
 constexpr int MAX_THREADS = 256;  // 8 warps: up to 255 registers a thread
 constexpr float NEG_INF = -0.7f * 3.4028234663852886e38f;
+constexpr float LSE_EMPTY = 3e38f;  // the LSE of a row with no valid position
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
@@ -60,12 +73,13 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
                : "r"(addr));
 }
 
-template <int D>
+template <int D, bool CAUSAL, bool LSE>
 __global__ void __launch_bounds__(MAX_THREADS)
     flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
                          const int* __restrict__ q_offsets, __nv_bfloat16* __restrict__ out,
-                         int Hq, int Hkv, int Sq, int Skv, int bq, float scale) {
+                         float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv, int bq,
+                         float scale_log2) {
   constexpr int ST = D + 8;  // padded smem row (elements): conflict-free fragment loads
   constexpr int KT = D / 16;  // k-steps of the QK product
   constexpr int NT = D / 8;   // n-tiles of the PV product
@@ -105,7 +119,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
 
   const size_t kv_base = ((size_t)b * Hkv + kvh) * (size_t)Skv * D;
   const int block_last_row = min(qt * bq + bq, Sq) - 1;
-  const int kv_end = min(len, qoff + block_last_row + 1);
+  const int kv_end = CAUSAL ? min(len, qoff + block_last_row + 1) : len;
 
   for (int j0 = 0; j0 < kv_end; j0 += BK) {
     for (int i = threadIdx.x; i < BK * D / 8; i += blockDim.x) {
@@ -120,7 +134,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
     }
     __syncthreads();
 
-    if (r0 < Sq && j0 <= warp_last) {  // warp-uniform
+    if (r0 < Sq && (!CAUSAL || j0 <= warp_last)) {  // warp-uniform
       float s[ST_N][4];
 #pragma unroll
       for (int n = 0; n < ST_N; ++n) {
@@ -141,8 +155,8 @@ __global__ void __launch_bounds__(MAX_THREADS)
         for (int e = 0; e < 4; ++e) {
           const int col = j0 + n * 8 + 2 * t + (e & 1);
           const int pos = e < 2 ? pa : pb;
-          const bool valid = col < len && col <= pos;
-          s[n][e] = valid ? s[n][e] * scale : NEG_INF;
+          const bool valid = col < len && (!CAUSAL || col <= pos);
+          s[n][e] = valid ? s[n][e] * scale_log2 : NEG_INF;
         }
         mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
         mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
@@ -153,16 +167,16 @@ __global__ void __launch_bounds__(MAX_THREADS)
         mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
       }
       const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-      const float alpha_a = expf(m_a - mn_a), alpha_b = expf(m_b - mn_b);
+      const float alpha_a = exp2f(m_a - mn_a), alpha_b = exp2f(m_b - mn_b);
       m_a = mn_a;
       m_b = mn_b;
       float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
       for (int n = 0; n < ST_N; ++n) {
-        s[n][0] = s[n][0] == NEG_INF ? 0.f : expf(s[n][0] - mn_a);
-        s[n][1] = s[n][1] == NEG_INF ? 0.f : expf(s[n][1] - mn_a);
-        s[n][2] = s[n][2] == NEG_INF ? 0.f : expf(s[n][2] - mn_b);
-        s[n][3] = s[n][3] == NEG_INF ? 0.f : expf(s[n][3] - mn_b);
+        s[n][0] = s[n][0] == NEG_INF ? 0.f : exp2f(s[n][0] - mn_a);
+        s[n][1] = s[n][1] == NEG_INF ? 0.f : exp2f(s[n][1] - mn_a);
+        s[n][2] = s[n][2] == NEG_INF ? 0.f : exp2f(s[n][2] - mn_b);
+        s[n][3] = s[n][3] == NEG_INF ? 0.f : exp2f(s[n][3] - mn_b);
         sum_a += s[n][0] + s[n][1];
         sum_b += s[n][2] + s[n][3];
       }
@@ -206,6 +220,11 @@ __global__ void __launch_bounds__(MAX_THREADS)
   }
   const float inv_a = 1.f / (l_a == 0.f ? 1.f : l_a);
   const float inv_b = 1.f / (l_b == 0.f ? 1.f : l_b);
+  if (LSE && t == 0) {  // one lane of the quad writes its two rows
+    float* lh = lse + ((size_t)b * Hq + head) * (size_t)Sq;
+    if (ra < Sq) lh[ra] = l_a > 0.f ? m_a + log2f(l_a) : LSE_EMPTY;
+    if (rb < Sq) lh[rb] = l_b > 0.f ? m_b + log2f(l_b) : LSE_EMPTY;
+  }
   __nv_bfloat16* oh = out + ((size_t)b * Hq + head) * (size_t)Sq * D;
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
@@ -219,22 +238,37 @@ __global__ void __launch_bounds__(MAX_THREADS)
   }
 }
 
-template <int D>
+template <int D, bool CAUSAL, bool LSE>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* lengths,
-                   const void* q_offsets, void* out, int B, int Hq, int Hkv, int Sq, int Skv,
-                   float scale, cudaStream_t stream) {
+                   const void* q_offsets, void* out, void* lse, int B, int Hq, int Hkv, int Sq,
+                   int Skv, float scale_log2, cudaStream_t stream) {
   const int G = Hq / Hkv;
   // 16 rows per warp; about 8 warps per block share each K/V tile.
   const int bq = G >= 8 ? 16 : 16 * (8 / G);
   const int threads = 32 * G * (bq / 16);
   if (threads > MAX_THREADS) return cudaErrorInvalidConfiguration;
   dim3 grid((Sq + bq - 1) / bq, Hkv, B);
-  flash_prefill_kernel<D><<<grid, threads, 0, stream>>>(
+  flash_prefill_kernel<D, CAUSAL, LSE><<<grid, threads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lengths),
-      static_cast<const int*>(q_offsets), static_cast<__nv_bfloat16*>(out), Hq, Hkv, Sq, Skv,
-      bq, scale);
+      static_cast<const int*>(q_offsets), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), Hq, Hkv, Sq, Skv, bq, scale_log2);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_d(const void* q, const void* k, const void* v, const void* lengths,
+                     const void* q_offsets, void* out, void* lse, int B, int Hq, int Hkv, int Sq,
+                     int Skv, int causal, float scale_log2, cudaStream_t s) {
+  if (causal)
+    return lse ? launch<D, true, true>(q, k, v, lengths, q_offsets, out, lse, B, Hq, Hkv, Sq, Skv,
+                                       scale_log2, s)
+               : launch<D, true, false>(q, k, v, lengths, q_offsets, out, lse, B, Hq, Hkv, Sq, Skv,
+                                        scale_log2, s);
+  return lse ? launch<D, false, true>(q, k, v, lengths, q_offsets, out, lse, B, Hq, Hkv, Sq, Skv,
+                                      scale_log2, s)
+             : launch<D, false, false>(q, k, v, lengths, q_offsets, out, lse, B, Hq, Hkv, Sq, Skv,
+                                       scale_log2, s);
 }
 
 }  // namespace
@@ -244,18 +278,22 @@ extern "C" {
 const char* error_string(int e) { return cudaGetErrorString(static_cast<cudaError_t>(e)); }
 
 // q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D), out (B, Hq, Sq, D): bf16,
-// contiguous. lengths, q_offsets: (B,) int32. D is 64 or 128; Hq / Hkv <= 8.
+// contiguous. lengths, q_offsets: (B,) int32. lse: (B, Hq, Sq) fp32, or
+// null for no LSE. D is 64 or 128; Hq / Hkv <= 8. scale_log2 is
+// sm_scale * log2(e).
 int flash_prefill(const void* q, const void* k, const void* v, const void* lengths,
-                  const void* q_offsets, void* out, int B, int Hq, int Hkv, int Sq, int Skv,
-                  int D, float scale, void* stream) {
+                  const void* q_offsets, void* out, void* lse, int B, int Hq, int Hkv, int Sq,
+                  int Skv, int D, int causal, float scale_log2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (D) {
     case 64:
-      e = launch<64>(q, k, v, lengths, q_offsets, out, B, Hq, Hkv, Sq, Skv, scale, s);
+      e = launch_d<64>(q, k, v, lengths, q_offsets, out, lse, B, Hq, Hkv, Sq, Skv, causal,
+                       scale_log2, s);
       break;
     case 128:
-      e = launch<128>(q, k, v, lengths, q_offsets, out, B, Hq, Hkv, Sq, Skv, scale, s);
+      e = launch_d<128>(q, k, v, lengths, q_offsets, out, lse, B, Hq, Hkv, Sq, Skv, causal,
+                        scale_log2, s);
       break;
     default:
       e = cudaErrorInvalidValue;

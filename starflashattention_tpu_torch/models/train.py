@@ -1,0 +1,221 @@
+"""Training forward, loss and SGD step — twin of the JAX ``models/train.py``
+(single device, dense-GQA Llama; full fine-tuning and LoRA).
+
+``forward_train`` gives fp32 logits at every position, built from the
+serving model's blocks (``models/llama``: ``rms_norm``, the fused-QKV
+split, RoPE, QK-norm, the embedding). Its projections are ``torch.matmul``
+in the params' dtype and only the head runs in fp32, as JAX's ``jnp.dot``
+calls do; the serving path's ``_make_proj`` upcasts weights to fp32, which
+under autograd would keep an fp32 copy of every weight for the backward.
+Attention is ``ops.flash_bwd.flash_attention`` (K5 with the LSE forward,
+K12 backward) by default, or :func:`_attn_plain` (``use_flash=False``),
+which materializes the (B, H, S, S) scores. ``remat=True`` (the default)
+runs each layer under ``torch.utils.checkpoint``, as JAX wraps its layer
+body in ``jax.checkpoint``: the backward reruns each layer's forward, so a
+step launches the attention forward twice a layer.
+
+Gradients: ``loss_and_grads`` (``jax.value_and_grad(loss_fn)``) returns a
+tree shaped like ``params``; ``train_step`` is JAX's SGD with momentum 0.9,
+updating ``params`` and the momentum IN PLACE. Each layer's weights are
+taken from the (L, ...) stacks with ``unbind``, whose backward stacks the
+per-layer gradients once.
+
+Not ported, each raising ``NotImplementedError``: ``axis_name`` and
+``seq_axis_name`` (multi-GPU, ROADMAP item 16), MoE (``_moe_mlp_train``,
+item 14) and every config field ``llama.check_supported`` refuses.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from starflashattention_tpu_torch.core.rope import apply_rope
+from starflashattention_tpu_torch.models import llama, lora as _lora
+from starflashattention_tpu_torch.ops.flash_bwd import flash_attention
+from starflashattention_tpu_torch.runtime.params import ModelConfig
+
+MOMENTUM = 0.9
+
+
+# ---------------------------------------------------------------------------
+# Trees of tensors (nested dicts), as JAX's pytrees
+# ---------------------------------------------------------------------------
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(tree, leaves):
+    """A tree shaped like ``tree`` holding ``leaves`` in its leaf order."""
+    it = iter(leaves)
+
+    def build(t):
+        return {k: build(v) for k, v in t.items()} if isinstance(t, dict) else next(it)
+
+    return build(tree)
+
+
+def tree_map(fn, tree):
+    return tree_unflatten(tree, [fn(leaf) for leaf in tree_leaves(tree)])
+
+
+def value_and_grad(fn, tree):
+    """``(fn(tree), d fn / d tree)`` with the gradient shaped like ``tree``;
+    a leaf the loss does not reach gets zeros, as in JAX. The leaves enter
+    as detached views (no copy), so ``tree`` itself is untouched."""
+    leaves = [leaf.detach().requires_grad_() for leaf in tree_leaves(tree)]
+    loss = fn(tree_unflatten(tree, leaves))
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    return loss.detach(), tree_unflatten(tree, grads)
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _check_trainable(params, cfg: ModelConfig, axis_name, seq_axis_name) -> None:
+    if axis_name is not None or seq_axis_name is not None:
+        raise NotImplementedError("tensor- and context-parallel training (axis_name / "
+                                  "seq_axis_name) are not ported yet (ROADMAP Queue 1 item 16)")
+    if cfg.num_experts:
+        raise NotImplementedError("MoE training (_moe_mlp_train) is not ported yet "
+                                  "(ROADMAP Queue 1 item 14)")
+    llama.check_supported(cfg)
+    quantized = [name for name, w in params["layers"].items() if isinstance(w, dict)]
+    if quantized or isinstance(params.get("lm_head"), dict):
+        raise ValueError(f"training takes dense weights; quantized: {quantized or ['lm_head']}")
+
+
+def _attn_plain(q, k, v, cfg: ModelConfig):
+    """Plain causal attention, the twin of JAX's ``_attn_jnp`` for the
+    dense subset: explicit (B, Hq, S, S) scores, differentiated by autograd.
+    Scores and softmax run in fp32 and the output is cast to q's dtype (JAX
+    runs them in the activations' dtype: the same at fp32, and the fp32
+    form is the yardstick for the bf16 kernels on the card)."""
+    s = q.shape[2]
+    g = cfg.num_q_heads // cfg.num_kv_heads
+    kq = torch.repeat_interleave(k, g, dim=1).float()
+    vq = torch.repeat_interleave(v, g, dim=1).float()
+    scale = cfg.sm_scale() or cfg.head_dim**-0.5
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), kq) * scale
+    pos = torch.arange(s, device=q.device)
+    scores = torch.where(pos[None, :] <= pos[:, None], scores, -1e30)
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(scores, dim=-1), vq).to(q.dtype)
+
+
+def _proj(x, layers, ll, i, name, lscale):
+    """``x @ w`` of layer ``i`` in the params' dtype, plus the delta of its
+    adapter in the layer's adapter slice ``ll``."""
+    out = x @ layers[name][i]
+    d = _lora.delta(x, ll, name, lscale)
+    return out if d is None else out + d
+
+
+def _layer(x, i: int, layers: dict, adapters: dict, lscale, pos, cos, sin, cfg: ModelConfig,
+           use_flash: bool):
+    """Decoder layer ``i`` on (B, S, H) activations; ``layers`` and
+    ``adapters`` hold per-layer sequences of weights and adapter factors."""
+    b, s, _ = x.shape
+    eps = cfg.rms_norm_eps
+    ll = {n: {"a": ab["a"][i], "b": ab["b"][i]} for n, ab in adapters.items()} or None
+    h = llama.rms_norm(x, layers["attn_norm"][i], eps)
+    qkv = _proj(h, layers, ll, i, "wqkv", lscale)
+    if "bqkv" in layers:
+        qkv = qkv + layers["bqkv"][i]
+    q, k, v = llama._split_heads_prefill(qkv, cfg)
+    q, k = llama._apply_qk_norm(q, k, layers, i, cfg)
+    q = apply_rope(q, pos, cos, sin, style=cfg.rope_style)
+    k = apply_rope(k, pos, cos, sin, style=cfg.rope_style)
+    if use_flash:
+        o = flash_attention(q, k, v, causal=True, sm_scale=cfg.sm_scale())
+    else:
+        o = _attn_plain(q, k, v, cfg)
+    o = o.transpose(1, 2).reshape(b, s, -1)
+    x = x + _proj(o, layers, ll, i, "wo", lscale).to(x.dtype)
+    h = llama.rms_norm(x, layers["mlp_norm"][i], eps)
+    gu = _proj(h, layers, ll, i, "w_gate_up", lscale)
+    inter = gu.shape[-1] // 2
+    act = F.silu(gu[..., :inter]) * gu[..., inter:]
+    return x + _proj(act, layers, ll, i, "w_down", lscale).to(x.dtype)
+
+
+def forward_train(
+    params,
+    tokens: torch.Tensor,  # (B, S) int
+    cfg: ModelConfig,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    *,
+    use_flash: bool = True,
+    remat: bool = True,
+    axis_name: str | None = None,
+    seq_axis_name: str | None = None,
+    lora: dict | None = None,
+) -> torch.Tensor:
+    """All-position fp32 logits (B, S, V): the training twin of the serving
+    prefill, cache-free and differentiable. Runs on the device of
+    ``params``."""
+    _check_trainable(params, cfg, axis_name, seq_axis_name)
+    b, s = tokens.shape
+    if s > cos.shape[0]:
+        raise ValueError(f"sequence length {s} exceeds the RoPE table ({cos.shape[0]} rows)")
+    tokens = torch.as_tensor(tokens, device=params["embed"].device)
+    x = llama._embed_tokens(params, tokens)
+    pos = torch.arange(s, device=x.device)[None, None, :]  # (1, 1, S): every sequence and head
+    layers = {name: w.unbind(0) for name, w in params["layers"].items()}
+    adapters, lscale = {}, None
+    if lora is not None:
+        adapters = {name: {"a": ab["a"].unbind(0), "b": ab["b"].unbind(0)}
+                    for name, ab in lora["layers"].items()}
+        lscale = lora["scale"]
+    for i in range(cfg.num_layers):
+        args = (x, i, layers, adapters, lscale, pos, cos, sin, cfg, use_flash)
+        x = checkpoint(_layer, *args, use_reentrant=False) if remat else _layer(*args)
+    xn = llama.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return torch.matmul(xn.float(), head.float())  # jnp.dot(..., preferred_element_type=f32)
+
+
+def loss_tokens(params, inp, tgt, cfg: ModelConfig, cos, sin, *, use_flash=True, remat=True,
+                axis_name=None, seq_axis_name=None, lora=None) -> torch.Tensor:
+    """Next-token cross-entropy (mean over every position) with inputs and
+    targets as separate (B, S) arrays."""
+    logits = forward_train(params, inp, cfg, cos, sin, use_flash=use_flash, remat=remat,
+                           axis_name=axis_name, seq_axis_name=seq_axis_name, lora=lora)
+    logp = torch.log_softmax(logits, dim=-1)
+    tgt = torch.as_tensor(tgt, device=logp.device).long()
+    return -logp.gather(-1, tgt[..., None])[..., 0].mean()
+
+
+def loss_fn(params, batch, cfg: ModelConfig, cos, sin, *, use_flash=True, remat=True,
+            axis_name=None, lora=None) -> torch.Tensor:
+    """Next-token cross-entropy over a (B, S + 1) token batch."""
+    batch = torch.as_tensor(batch)
+    return loss_tokens(params, batch[:, :-1], batch[:, 1:], cfg, cos, sin, use_flash=use_flash,
+                       remat=remat, axis_name=axis_name, lora=lora)
+
+
+def loss_and_grads(params, batch, cfg: ModelConfig, cos, sin, *, use_flash=True, remat=True):
+    """``(loss, grads)`` of :func:`loss_fn` with respect to ``params``,
+    the grads shaped like ``params`` (``jax.value_and_grad(loss_fn)``)."""
+    return value_and_grad(
+        lambda p: loss_fn(p, batch, cfg, cos, sin, use_flash=use_flash, remat=remat), params)
+
+
+def train_step(params, momentum, batch, cfg: ModelConfig, cos, sin, lr: float, *, use_flash=True,
+               remat=True):
+    """One SGD-with-momentum step, JAX's ``m = 0.9 m + g; p = p - lr m`` in
+    the params' own dtype, applied IN PLACE to ``params`` and ``momentum``
+    (no copy of the model is made). Returns ``(params, momentum, loss)``."""
+    loss, grads = loss_and_grads(params, batch, cfg, cos, sin, use_flash=use_flash, remat=remat)
+    with torch.no_grad():
+        for p, m, g in zip(tree_leaves(params), tree_leaves(momentum), tree_leaves(grads)):
+            m.mul_(MOMENTUM).add_(g)
+            p.add_(m, alpha=-lr)
+    return params, momentum, loss

@@ -1,0 +1,225 @@
+"""Differentiable flash attention — twin of the JAX ``ops/flash_bwd.py``.
+
+``flash_prefill_bwd(q, k, v, o, lse, do, lengths, q_offsets)`` -> (dq, dk,
+dv), the FlashAttention-2 backward of :func:`ops.flash_prefill.flash_prefill`
+from its output ``o`` and its base-2 LSE. It recomputes, in fp32,
+
+    s2 = sm_scale * log2(e) * q.k,   p = 2^(s2 - lse)   (0 off the mask)
+    delta = rowsum(do * o),   dp = do.v,   ds = p * (dp - delta)
+    dq = sm_scale * ds @ k,   dk = sm_scale * ds^T @ q,   dv = p^T @ do
+
+with dk and dv summed over the GQA group. The JAX package folds
+``sm_scale * log2(e)`` into q and rounds it to q's dtype before both passes,
+so its dk carries ``ln 2`` where this one carries ``sm_scale``; the port
+scales the fp32 scores in both kernels by the same fp32 ``sm_scale *
+log2(e)``. ``delta`` is a torch reduction (:func:`bwd_delta`), as XLA
+computes it outside Pallas; then :func:`flash_bwd_dq` and
+:func:`flash_bwd_dkdv` launch the two kernels of ``csrc/flash_bwd.cu``
+(which replace the TPU kernels ``_dq_kernel`` and ``_dkdv_kernel``) on
+CUDA tensors, each counting its launches, and run their plain versions on
+CPU tensors.
+
+:func:`flash_attention` is the training entry: a ``torch.autograd.Function``
+whose forward is ``flash_prefill(return_lse=True)`` and whose backward is
+``flash_prefill_bwd``. Sliding window, sinks, softcap and ``kv_offset``
+raise ``NotImplementedError`` (ROADMAP Queue 2).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from starflashattention_tpu_torch.core.reference import repeat_kv
+from starflashattention_tpu_torch.ops import _build
+from starflashattention_tpu_torch.ops.flash_prefill import (_defaults, attention_mask, check_card_inputs,
+                                                            check_unported, flash_prefill, scales,
+                                                            scores_log2)
+
+_ARGS = [_build.P] * 8
+_SIGNATURES = {
+    "flash_bwd_dq": _ARGS + [_build.P] + [_build.I] * 7 + [_build.F, _build.F, _build.P],
+    "flash_bwd_dkdv": _ARGS + [_build.P, _build.P] + [_build.I] * 7 + [_build.F, _build.F, _build.P],
+}
+
+
+def _group_sum(x: torch.Tensor, hkv: int) -> torch.Tensor:
+    """(B, Hq, S, D) -> (B, Hkv, S, D): the sum over each KV head's group."""
+    b, hq, s, d = x.shape
+    return x.reshape(b, hkv, hq // hkv, s, d).sum(dim=2)
+
+
+def bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(do * o)`` (B, Hq, Sq) in fp32."""
+    return (do.float() * o.float()).sum(dim=-1)
+
+
+def _p_ds_plain(q, k, v, lse, do, delta, lengths, q_offsets, causal, sm_scale):
+    """fp32 P and dS (B, Hq, Sq, Skv) recomputed from the LSE."""
+    lengths, q_offsets = _defaults(q, k, lengths, q_offsets)
+    mask = attention_mask(q.shape[2], k.shape[2], lengths, q_offsets, causal, q.device)
+    p = torch.where(mask, torch.exp2(scores_log2(q, k, sm_scale) - lse.float()[..., None]), 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), repeat_kv(v, q.shape[1] // v.shape[1]).float())
+    return p, p * (dp - delta[..., None])
+
+
+def flash_bwd_dq_plain(q, k, v, lse, do, delta, lengths=None, q_offsets=None, *, causal=True,
+                       sm_scale=None):
+    """Plain version of the dq kernel: ``sm_scale * ds @ k`` in fp32."""
+    _, ds = _p_ds_plain(q, k, v, lse, do, delta, lengths, q_offsets, causal, sm_scale)
+    kf = repeat_kv(k, q.shape[1] // k.shape[1]).float()
+    return (scales(q.shape[-1], sm_scale)[0] * torch.einsum("bhqk,bhkd->bhqd", ds, kf)).to(q.dtype)
+
+
+def flash_bwd_dkdv_plain(q, k, v, lse, do, delta, lengths=None, q_offsets=None, *, causal=True,
+                         sm_scale=None):
+    """Plain version of the dk/dv kernel: ``sm_scale * ds^T @ q`` and
+    ``p^T @ do`` in fp32, summed over each KV head's group."""
+    p, ds = _p_ds_plain(q, k, v, lse, do, delta, lengths, q_offsets, causal, sm_scale)
+    hkv = k.shape[1]
+    dk = scales(q.shape[-1], sm_scale)[0] * _group_sum(torch.einsum("bhqk,bhqd->bhkd", ds, q.float()), hkv)
+    dv = _group_sum(torch.einsum("bhqk,bhqd->bhkd", p, do.float()), hkv)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_prefill_bwd_plain(q, k, v, o, lse, do, lengths=None, q_offsets=None, *, causal=True,
+                            sm_scale=None):
+    """Plain PyTorch version of :func:`flash_prefill_bwd`: the same formulas
+    in fp32 on explicit (B, Hq, Sq, Skv) tensors, each gradient in its
+    input's dtype."""
+    delta = bwd_delta(o, do)
+    kw = dict(causal=causal, sm_scale=sm_scale)
+    dq = flash_bwd_dq_plain(q, k, v, lse, do, delta, lengths, q_offsets, **kw)
+    return (dq, *flash_bwd_dkdv_plain(q, k, v, lse, do, delta, lengths, q_offsets, **kw))
+
+
+def _card_args(what, q, k, v, lse, do, delta, lengths, q_offsets):
+    """Checks for the kernels, and their contiguous inputs."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    check_card_inputs(what, q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"{what}: do {tuple(do.shape)} {do.dtype} must match q {tuple(q.shape)} {q.dtype}")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if x.shape != q.shape[:3] or x.dtype != torch.float32:
+            raise ValueError(f"{what}: {name} must be fp32 {tuple(q.shape[:3])}, got {x.dtype} "
+                             f"{tuple(x.shape)}")
+    lengths, q_offsets = _defaults(q, k, lengths, q_offsets)
+    return [x.contiguous() for x in (q, k, v, do, lse, delta, lengths, q_offsets)]
+
+
+def _launch(entry, ins, outs, causal, sm_scale):
+    q, k = ins[0], ins[1]
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    lib = _build.load("flash_bwd", _SIGNATURES)
+    with torch.cuda.device(q.device):
+        err = getattr(lib, entry)(*[_build.ptr(x) for x in ins + outs], b, hq, hkv, sq, skv, d,
+                                  int(causal), *scales(d, sm_scale), _build.stream_ptr(q.device))
+    _build.check(lib, err, entry)
+
+
+def flash_bwd_dq(q, k, v, lse, do, delta, lengths=None, q_offsets=None, *, causal=True,
+                 sm_scale=None) -> torch.Tensor:
+    """dq (B, Hq, Sq, D) in q's dtype: the dq kernel of ``csrc/flash_bwd.cu``
+    on CUDA tensors (replaces ``_dq_kernel``), :func:`flash_bwd_dq_plain`
+    on CPU tensors. ``delta`` is :func:`bwd_delta` of the forward's output."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_plain(q, k, v, lse, do, delta, lengths, q_offsets, causal=causal,
+                                  sm_scale=sm_scale)
+    ins = _card_args("flash_bwd_dq", q, k, v, lse, do, delta, lengths, q_offsets)
+    dq = torch.empty_like(ins[0])
+    if not (dq.numel() and k.numel()):
+        return dq.zero_()
+    _launch("flash_bwd_dq", ins, [dq], causal, sm_scale)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkdv(q, k, v, lse, do, delta, lengths=None, q_offsets=None, *, causal=True,
+                   sm_scale=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) (B, Hkv, Skv, D) in k's / v's dtype: the dk/dv kernel of
+    ``csrc/flash_bwd.cu`` on CUDA tensors (replaces ``_dkdv_kernel``),
+    :func:`flash_bwd_dkdv_plain` on CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkdv_plain(q, k, v, lse, do, delta, lengths, q_offsets, causal=causal,
+                                    sm_scale=sm_scale)
+    ins = _card_args("flash_bwd_dkdv", q, k, v, lse, do, delta, lengths, q_offsets)
+    dk, dv = torch.empty_like(ins[1]), torch.empty_like(ins[2])
+    if not (dk.numel() and q.numel()):
+        return dk.zero_(), dv.zero_()
+    _launch("flash_bwd_dkdv", ins, [dk, dv], causal, sm_scale)
+    flash_bwd_dkdv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dq.launches = 0
+flash_bwd_dkdv.launches = 0
+
+
+def flash_prefill_bwd(
+    q: torch.Tensor,  # (B, Hq, Sq, D)
+    k: torch.Tensor,  # (B, Hkv, Skv, D)
+    v: torch.Tensor,
+    o: torch.Tensor,  # (B, Hq, Sq, D) the forward's output
+    lse: torch.Tensor,  # (B, Hq, Sq) fp32, base-2 (flash_prefill(return_lse=True))
+    do: torch.Tensor,  # (B, Hq, Sq, D) cotangent of o
+    lengths: torch.Tensor | None = None,  # (B,)
+    q_offsets: torch.Tensor | None = None,  # (B,)
+    *,
+    causal: bool = True,
+    sm_scale: float | None = None,
+    window=None,
+    sinks: int = 0,
+    kv_offset: int = 0,
+    softcap: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of the flash prefill attention, in q's / k's / v's
+    dtype: ``delta`` as a torch reduction, then the dq and the dk/dv kernels
+    (their plain versions on CPU tensors)."""
+    check_unported(window, sinks, softcap, kv_offset)
+    delta = bwd_delta(o, do)
+    kw = dict(causal=causal, sm_scale=sm_scale)
+    dq = flash_bwd_dq(q, k, v, lse, do, delta, lengths, q_offsets, **kw)
+    return (dq, *flash_bwd_dkdv(q, k, v, lse, do, delta, lengths, q_offsets, **kw))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: K5 with the LSE; backward: K12. On CPU tensors both run
+    their plain versions (the wrappers choose by device)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, q_offsets, causal, sm_scale):
+        o, lse = flash_prefill(q, k, v, lengths, causal=causal, q_offsets=q_offsets,
+                               sm_scale=sm_scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse, lengths, q_offsets)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, lengths, q_offsets = ctx.saved_tensors
+        dq, dk, dv = flash_prefill_bwd(q, k, v, o, lse, do, lengths, q_offsets, causal=ctx.causal,
+                                       sm_scale=ctx.sm_scale)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,  # (B, Hq, Sq, D)
+    k: torch.Tensor,  # (B, Hkv, Skv, D)
+    v: torch.Tensor,
+    lengths: torch.Tensor | None = None,
+    *,
+    causal: bool = True,
+    q_offsets: torch.Tensor | None = None,
+    sm_scale: float | None = None,
+    window=None,
+    sinks: int = 0,
+    softcap: float | None = None,
+) -> torch.Tensor:
+    """Differentiable flash attention (the training entry point): the
+    forward of :func:`flash_prefill` with gradients for q, k and v through
+    :func:`flash_prefill_bwd`; O(S) memory both ways (one fp32 LSE a row is
+    kept, the score tiles are recomputed)."""
+    check_unported(window, sinks, softcap, 0)
+    lengths, q_offsets = _defaults(q, k, lengths, q_offsets)
+    return _FlashAttention.apply(q, k, v, lengths, q_offsets, causal, sm_scale)

@@ -1,27 +1,50 @@
-"""Causal flash-attention prefill — twin of the JAX ``ops/flash_prefill.py``.
+"""Flash-attention prefill — twin of the JAX ``ops/flash_prefill.py``.
 
 ``flash_prefill(q, k, v, lengths, q_offsets=...)`` -> (B, Hq, Sq, D): query
 row i of sequence b sits at absolute position ``q_offsets[b] + i`` and
-attends KV positions ``j <= q_offsets[b] + i`` with ``j < lengths[b]``. On
-CUDA tensors it launches ``csrc/flash_prefill.cu`` (which replaces the TPU
-kernel ``_prefill_kernel``); on CPU tensors it runs
-:func:`flash_prefill_plain`. Padded query rows (past a sequence's valid
-tokens) still produce values, which the caller discards.
+attends KV positions ``j < lengths[b]``, and with ``causal`` (the default)
+also ``j <= q_offsets[b] + i``. ``return_lse=True`` also returns the per-row
+log-sum-exp (B, Hq, Sq) fp32 in base-2 units of the scaled scores,
+``m2 + log2(l)`` with ``s2 = sm_scale * log2(e) * q.k``, and 3e38 for a row
+that saw no valid position (the JAX contract, which the backward in
+``ops/flash_bwd.py`` reads). On CUDA tensors it launches
+``csrc/flash_prefill.cu`` (which replaces the TPU kernel
+``_prefill_kernel``); on CPU tensors it runs :func:`flash_prefill_plain`.
+Padded query rows (past a sequence's valid tokens) still produce values,
+which the caller discards.
 
-Options this slice does not port (sliding window, sinks, softcap,
-``kv_offset``, ``return_lse``, non-causal) raise ``NotImplementedError``.
+Options this port does not have yet (sliding window, sinks, softcap,
+``kv_offset``) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from starflashattention_tpu_torch.core.reference import mha_reference
+from starflashattention_tpu_torch.core.reference import NEG_INF, mha_reference, repeat_kv
 from starflashattention_tpu_torch.ops import _build
 
+LOG2E = math.log2(math.e)
+LSE_EMPTY = 3e38  # the LSE of a row with no valid KV position
+
 _SIGNATURES = {
-    "flash_prefill": [_build.P] * 6 + [_build.I] * 6 + [_build.F, _build.P],
+    "flash_prefill": [_build.P] * 7 + [_build.I] * 7 + [_build.F, _build.P],
 }
+
+
+def check_unported(window, sinks, softcap, kv_offset) -> None:
+    if window is not None or sinks or softcap is not None or kv_offset:
+        raise NotImplementedError(
+            "prefill window / sinks / softcap / kv_offset are not ported yet "
+            "(ROADMAP Queue 2, K5 and K12 options)")
+
+
+def scales(d: int, sm_scale: float | None) -> tuple[float, float]:
+    """(sm_scale, sm_scale * log2 e) as the kernels take them."""
+    scale = 1.0 / d**0.5 if sm_scale is None else float(sm_scale)
+    return scale, scale * LOG2E
 
 
 def _defaults(q, k, lengths, q_offsets):
@@ -34,11 +57,56 @@ def _defaults(q, k, lengths, q_offsets):
     return lengths, q_offsets.to(device=q.device, dtype=torch.int32)
 
 
-def flash_prefill_plain(q, k, v, lengths=None, *, causal=True, q_offsets=None, sm_scale=None):
-    """Plain PyTorch version: full-softmax attention at fp32."""
+def attention_mask(sq, skv, lengths, q_offsets, causal, device) -> torch.Tensor:
+    """(B, 1, Sq, Skv) bool: KV position j is valid for query row i."""
+    kv_pos = torch.arange(skv, device=device)[None, None, None, :]
+    mask = kv_pos < lengths[:, None, None, None]
+    if causal:
+        q_pos = torch.arange(sq, device=device)[None, None, :, None] + q_offsets[:, None, None, None]
+        mask = mask & (kv_pos <= q_pos)
+    return mask
+
+
+def scores_log2(q, k, sm_scale) -> torch.Tensor:
+    """fp32 base-2 scores (B, Hq, Sq, Skv): ``sm_scale * log2(e) * q.k``."""
+    kf = repeat_kv(k, q.shape[1] // k.shape[1]).float()
+    return torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * scales(q.shape[-1], sm_scale)[1]
+
+
+def prefill_lse_plain(q, k, lengths, q_offsets, *, causal, sm_scale) -> torch.Tensor:
+    """The base-2 LSE (B, Hq, Sq) fp32 of :func:`flash_prefill_plain`'s
+    scores; 3e38 for a row with no valid position."""
+    mask = attention_mask(q.shape[2], k.shape[2], lengths, q_offsets, causal, q.device)
+    s2 = torch.where(mask, scores_log2(q, k, sm_scale), NEG_INF)
+    m = s2.amax(dim=-1)
+    l = (torch.exp2(s2 - m[..., None]) * mask).sum(dim=-1)
+    return torch.where(l > 0, m + torch.log2(l.clamp(min=1e-37)), LSE_EMPTY)
+
+
+def flash_prefill_plain(q, k, v, lengths=None, *, causal=True, q_offsets=None, sm_scale=None,
+                        return_lse=False):
+    """Plain PyTorch version: full-softmax attention at fp32 (and its LSE)."""
     lengths, q_offsets = _defaults(q, k, lengths, q_offsets)
-    return mha_reference(q, k, v, lengths=lengths, causal=causal,
-                         q_offset=q_offsets, sm_scale=sm_scale)
+    out = mha_reference(q, k, v, lengths=lengths, causal=causal, q_offset=q_offsets,
+                        sm_scale=sm_scale)
+    if not return_lse:
+        return out
+    return out, prefill_lse_plain(q, k, lengths, q_offsets, causal=causal, sm_scale=sm_scale)
+
+
+def check_card_inputs(what, q, k, v) -> None:
+    """The shapes and types the CUDA kernels of K5 and K12 take."""
+    b, hq, _, d = q.shape
+    _, hkv, _, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != d or v.shape != k.shape or hq % hkv:
+        raise ValueError(f"{what}: q {tuple(q.shape)} does not match k/v {tuple(k.shape)}")
+    if hq // hkv > 8:
+        raise ValueError(f"{what}: the CUDA kernel takes at most 8 query heads per KV head, "
+                         f"got {hq // hkv}")
+    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
+        raise ValueError(f"{what}: the CUDA kernel takes bf16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if d not in (64, 128):
+        raise ValueError(f"{what}: the CUDA kernel takes head_dim 64 or 128, got {d}")
 
 
 def flash_prefill(
@@ -55,44 +123,38 @@ def flash_prefill(
     kv_offset: int = 0,
     return_lse: bool = False,
     softcap: float | None = None,
-) -> torch.Tensor:
-    """Blockwise causal prefill attention -> (B, Hq, Sq, D) in q's dtype."""
-    if not causal:
-        raise NotImplementedError("non-causal prefill is not ported yet (ROADMAP Queue 2, K5 options)")
-    if window is not None or sinks or softcap is not None or return_lse or kv_offset:
-        raise NotImplementedError(
-            "prefill window / sinks / softcap / return_lse / kv_offset are not ported yet "
-            "(ROADMAP Queue 2, K5 options)")
+):
+    """Blockwise prefill attention -> (B, Hq, Sq, D) in q's dtype, and with
+    ``return_lse`` also the base-2 LSE (B, Hq, Sq) fp32."""
+    check_unported(window, sinks, softcap, kv_offset)
     if q.device.type == "cpu":
-        return flash_prefill_plain(q, k, v, lengths, causal=True, q_offsets=q_offsets,
-                                   sm_scale=sm_scale)
+        return flash_prefill_plain(q, k, v, lengths, causal=causal, q_offsets=q_offsets,
+                                   sm_scale=sm_scale, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill: unsupported device {q.device}")
+    check_card_inputs("flash_prefill", q, k, v)
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
-    if k.shape[0] != b or k.shape[3] != d or v.shape != k.shape or hq % hkv:
-        raise ValueError(f"q {tuple(q.shape)} does not match k/v {tuple(k.shape)}")
-    if hq // hkv > 8:
-        raise ValueError(f"the CUDA kernel takes at most 8 query heads per KV head, got {hq // hkv}")
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise ValueError(f"the CUDA kernel takes bf16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if d not in (64, 128):
-        raise ValueError(f"the CUDA kernel takes head_dim 64 or 128, got {d}")
     lengths, q_offsets = _defaults(q, k, lengths, q_offsets)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     lengths, q_offsets = lengths.contiguous(), q_offsets.contiguous()
     out = torch.empty_like(q)
-    scale = 1.0 / d**0.5 if sm_scale is None else float(sm_scale)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if return_lse else None
     lib = _build.load("flash_prefill", _SIGNATURES)
     with torch.cuda.device(q.device):
         err = lib.flash_prefill(
             _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(lengths),
-            _build.ptr(q_offsets), _build.ptr(out), b, hq, hkv, sq, skv, d, scale,
+            _build.ptr(q_offsets), _build.ptr(out), None if lse is None else _build.ptr(lse),
+            b, hq, hkv, sq, skv, d, int(causal), scales(d, sm_scale)[1],
             _build.stream_ptr(q.device),
         )
     _build.check(lib, err, "flash_prefill")
     flash_prefill.launches += 1
-    return out
+    if not return_lse:
+        return out
+    flash_prefill.launches_lse += 1
+    return out, lse
 
 
 flash_prefill.launches = 0
+flash_prefill.launches_lse = 0  # the launches with return_lse (the training forward)

@@ -22,6 +22,13 @@ Tolerances, each against the plain twin on the same card and inputs:
 
 Paged tests use a shuffled page table (physical page != logical page), a
 row of length 0 and a row that fills all ``pages_per_seq`` pages.
+
+Training: K5 with the LSE (causal and not) and the two K12 kernels at G in
+{1, 4, 8} and D in {64, 128}, lengths that are no tile multiple, q offsets
+and a zero-length sequence, K12's bytes across two runs, gradients through
+``flash_attention`` against autograd of the plain forward, and a bf16
+training step of a 2-layer model (launch counts, falling loss). Each
+tolerance is stated at its test.
 """
 
 import pytest
@@ -29,9 +36,9 @@ import torch
 
 from starflashattention_tpu_torch.cache import contiguous
 from starflashattention_tpu_torch.core import quant
-from starflashattention_tpu_torch.models import llama
-from starflashattention_tpu_torch.ops import (cache_append, flash_decode, flash_prefill, paged_decode,
-                                              quant_matmul)
+from starflashattention_tpu_torch.models import llama, train
+from starflashattention_tpu_torch.ops import (cache_append, flash_bwd, flash_decode, flash_prefill,
+                                              paged_decode, quant_matmul)
 from starflashattention_tpu_torch.runtime.params import ModelConfig
 from starflashattention_tpu_torch.serving import Engine, PagedEngine, SamplingParams
 
@@ -543,3 +550,116 @@ def test_spec_engines_run_on_the_kernels(cuda):
         assert grew == [steps * cfg.num_layers, steps * cfg.num_layers, draft_rows]
         assert eng.stats.finished == len(prompts) and all(len(o) == 12 for o in out)
         assert eng.stats.spec_steps > 0
+
+
+# ---------------------------------------------------------------- training: K5 with the LSE, K12
+
+_TRAIN_Q_OFF = [0, 50, 7]
+_TRAIN_LENGTHS = [90, 150, 0]  # ragged; the last sequence has no valid position
+
+
+def _train_inputs(cuda, g, d, sq=100, skv=200, hkv=2):
+    gen = _gen(cuda)
+    shape_q, shape_kv = (3, g * hkv, sq, d), (3, hkv, skv, d)
+    q, do = (torch.randn(shape_q, generator=gen, device=cuda, dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(shape_kv, generator=gen, device=cuda, dtype=torch.bfloat16) for _ in range(2))
+    q_off = torch.tensor(_TRAIN_Q_OFF, dtype=torch.int32, device=cuda)
+    lengths = torch.tensor(_TRAIN_LENGTHS, dtype=torch.int32, device=cuda)
+    return q, k, v, do, lengths, q_off
+
+
+def _rel_peak(out, ref):
+    return _max_err(out, ref) / max(ref.float().abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 4, 8])
+def test_flash_prefill_lse_kernel_matches_plain(cuda, g, d, causal):
+    """K5 with the LSE (Sq = 100 and Skv = 200, not tile multiples; q
+    offsets; a zero-length row): the output as K5's other test holds it, the
+    LSE within 1e-4 (fp32 sums of the same products in another order, and
+    exp2f / log2f against torch's) and exactly 3e38 on the empty rows; the
+    output equals the call without the LSE bit for bit."""
+    q, k, v, _, lengths, q_off = _train_inputs(cuda, g, d)
+    kw = dict(causal=causal, q_offsets=q_off)
+    out, lse = flash_prefill.flash_prefill(q, k, v, lengths, return_lse=True, **kw)
+    ref, lse_ref = flash_prefill.flash_prefill_plain(q, k, v, lengths, return_lse=True, **kw)
+    assert torch.equal(out, flash_prefill.flash_prefill(q, k, v, lengths, **kw))
+    assert _max_err(out, ref) <= 2e-2
+    empty = lse_ref > 1e38
+    assert empty[2].all() and not empty[:2].any()
+    assert bool((lse[empty] == lse_ref[empty]).all())
+    assert _max_err(lse[~empty], lse_ref[~empty]) <= 1e-4
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [1, 4, 8])
+def test_flash_bwd_kernels_match_plain(cuda, g, d, causal):
+    """K12 against its plain version on the same o, lse and do: the kernels
+    round P and dS to bf16 before their products (as the TPU kernels do)
+    and write bf16, the plain version keeps fp32 and rounds once: 2e-2 of
+    each gradient's peak. Two runs give the same bytes."""
+    q, k, v, do, lengths, q_off = _train_inputs(cuda, g, d)
+    kw = dict(causal=causal, q_offsets=q_off)
+    o, lse = flash_prefill.flash_prefill(q, k, v, lengths, return_lse=True, **kw)
+    before = (flash_bwd.flash_bwd_dq.launches, flash_bwd.flash_bwd_dkdv.launches)
+    got = flash_bwd.flash_prefill_bwd(q, k, v, o, lse, do, lengths, **kw)
+    assert (flash_bwd.flash_bwd_dq.launches, flash_bwd.flash_bwd_dkdv.launches) == (before[0] + 1,
+                                                                                    before[1] + 1)
+    ref = flash_bwd.flash_prefill_bwd_plain(q, k, v, o, lse, do, lengths, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert _rel_peak(a, b) <= 2e-2, (name, _rel_peak(a, b))
+    assert float(got[0][2].abs().max()) == 0.0  # the zero-length sequence
+    again = flash_bwd.flash_prefill_bwd(q, k, v, o, lse, do, lengths, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_autograd_matches_plain(cuda, causal):
+    """Gradients through ``flash_attention`` (K5 with the LSE, then K12)
+    against autograd through the plain forward on the card, for a loss that
+    reads the valid rows: 2e-2 of each gradient's peak."""
+    q, k, v, do, lengths, q_off = _train_inputs(cuda, 4, 128)
+    q_pos = q_off[:, None] + torch.arange(q.shape[2], device=cuda)[None, :]
+    rowmask = (q_pos < lengths[:, None])[:, None, :, None]
+
+    def grads(fn):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = fn(*leaves, lengths, causal=causal, q_offsets=q_off)
+        return torch.autograd.grad((torch.where(rowmask, out, 0.0).float() * do.float()).sum(), leaves)
+
+    for name, a, b in zip(("dq", "dk", "dv"), grads(flash_bwd.flash_attention),
+                          grads(flash_prefill.flash_prefill_plain)):
+        assert _rel_peak(a, b) <= 2e-2, (name, _rel_peak(a, b))
+
+
+def test_training_step_runs_on_the_kernels(cuda):
+    """A narrow 2-layer bf16 model: each SGD step launches the attention
+    forward with the LSE 2 L times (remat reruns it) and each K12 kernel L
+    times; the loss falls over 3 steps (lr 1.0); its gradients agree with
+    the plain attention's within 5e-2 of each gradient's peak (bf16
+    activations and the kernels' bf16 P and dS)."""
+    cfg = ModelConfig.tiny(hidden_size=256, intermediate_size=512, num_q_heads=4, num_kv_heads=2,
+                           head_dim=64, max_seq_len=256, dtype="bfloat16")
+    params = llama.init_params(cfg, _gen(cuda), device=cuda)
+    cos, sin = llama.rope_tables(cfg, device=cuda)
+    batch = torch.randint(0, cfg.vocab_size, (2, 129), generator=_gen(cuda), device=cuda)
+    _, g_kernels = train.loss_and_grads(params, batch, cfg, cos, sin, use_flash=True)
+    _, g_plain = train.loss_and_grads(params, batch, cfg, cos, sin, use_flash=False)
+    for a, b in zip(train.tree_leaves(g_kernels), train.tree_leaves(g_plain)):
+        assert _rel_peak(a, b) <= 5e-2
+    momentum = train.tree_map(torch.zeros_like, params)
+    counters = (flash_prefill.flash_prefill, flash_bwd.flash_bwd_dq, flash_bwd.flash_bwd_dkdv)
+    losses = []
+    for _ in range(3):
+        before = [flash_prefill.flash_prefill.launches_lse] + [fn.launches for fn in counters]
+        params, momentum, loss = train.train_step(params, momentum, batch, cfg, cos, sin, 1.0)
+        grew = [flash_prefill.flash_prefill.launches_lse - before[0]] + [
+            fn.launches - b for fn, b in zip(counters, before[1:])]
+        n = cfg.num_layers
+        assert grew == [2 * n, 2 * n, n, n]
+        losses.append(float(loss))
+    assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0]

@@ -233,7 +233,8 @@ def test_flash_prefill_matches_jax(rng):
 
 
 @pytest.mark.parametrize("kwargs", [dict(window=8), dict(sinks=2, window=8), dict(softcap=30.0),
-                                    dict(return_lse=True), dict(kv_offset=4), dict(causal=False)])
+                                    dict(sinks=2, return_lse=True), dict(kv_offset=4),
+                                    dict(window=8, causal=False)])
 def test_flash_prefill_unported_options_raise(rng, kwargs):
     q, k, v, q_off, lengths = _prefill_inputs(rng)
     with pytest.raises(NotImplementedError):
