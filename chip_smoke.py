@@ -30,7 +30,25 @@ Phases (any failure raises and the script exits non-zero):
    offsets, then timed at phase 9a's shapes against SDPA's forward) and the
    two FA2 backward kernels (dq; dk/dv), checked on the same inputs and at
    B=2, S=2048, run twice for equal bytes, timed against SDPA's backward
-   (its forward + backward less its forward).
+   (its forward + backward less its forward). The attention variants at
+   S = 8192 with lengths 5,000-8,000 (past the 4096 window): K1 with the
+   window and 4 sinks at Mistral-7B's shapes, K1 at head_dim 256 with
+   softcap 50 on a sliding and a full Gemma-2-9B layer, K1's verify mode
+   with both (token j bit for bit the decode at lengths + j), K2 at head_dim
+   256 with 4 splits (Gemma-7B), K7 on both families' rows in 128-row pages
+   and K5 on 2048-row chunks (PagedEngine's) at offsets 4608 and 6144, each
+   within 2 (decode) or 3 (K5) bf16 ulps of each element of its twin.
+   Gemma-2's q is scaled so that its scores reach several times the cap,
+   and the kernel without the cap (K1, K7, K5), or without the sinks
+   (Mistral's K1 and K5), must lie over 4x that tolerance from the twin,
+   so the check sees each option. Each windowed one also passes a band
+   check: every whole 256-row block below each row's band (sink blocks
+   spared) is filled with NaN, or for K7 its pages are set to the null
+   page filled with NaN, and the output must be finite and bit for bit the
+   clean cache's. The bounds count only the in-band rows and pairs; the
+   library call is SDPA with the band mask, or with a softcap one compiled
+   ``flex_attention`` call (the cap as its score_mod, the band as its
+   block mask), held to the twin like the kernel.
 3. Slice: full-width ``ModelConfig.llama_7b_gqa`` (32 layers,
    max_seq_len 1024, random int8 weights and int8 lm_head from a seeded
    generator, bf16 KV cache): greedy ``generate`` on 8 ragged prompts for
@@ -105,6 +123,31 @@ Phases (any failure raises and the script exits non-zero):
    16 tokens through the kernels. 9b: a 2-layer model of the same width at
    B=1: every parameter's gradient through the kernels against plain
    attention's, within 5e-2 of its peak.
+10. Attention variants at full width (seeded random init, int8 projection
+   weights, bf16 KV, max_seq_len 8192). (a) ``ModelConfig.gemma2_9b`` (42
+   layers, hidden 3584, 16 / 8 heads at head_dim 256, vocab 256000, tied
+   head, softcaps 50 / 30, a 4096 window on every second layer): 4 prompts
+   of 4,500-6,000 tokens, 16 greedy tokens each, through ``generate``,
+   ``Engine`` (4 slots, 8 steps a round), ``PagedEngine`` (page 128,
+   prefill chunk 2048) and ``Engine(spec_decode=4)`` with prompt lookup;
+   launch counts checked per run (the sliding layers' launches apart), the
+   two engines' streams compared as in phase 6, the spec streams
+   teacher-forced as in phase 8, no page reclaimed. (b)
+   ``ModelConfig.mistral_7b(attention_sinks=4, num_splits=1)`` (window
+   4096): 4 prompts of 5,200-5,800 tokens through ``Engine`` and
+   ``PagedEngine`` (``debug_validate`` on): each round's reclaimed pages and
+   pinned sink pages are recorded; at least one walk block of pages must be
+   reclaimed and each reclaiming slot must hold its sink pages at the head
+   of its table row with null entries behind them; the paged streams are
+   compared with the Engine's and teacher-forced on the contiguous route;
+   then ``Engine`` once more with its decode attention fed the paged
+   kernel's rounding of q * sm_scale to bf16: its streams must equal
+   ``PagedEngine``'s.
+   (c) ``ModelConfig.gemma_7b`` (head_dim 256, 16 / 16 heads, 4 splits):
+   ``generate`` on 4 prompts of 1,000-1,500 tokens (K2). (d) 4 Gemma-2
+   layers, phase 4's check on 2 prompts of 4,500 and 4,700 tokens (sliding
+   and full layers past the window). Prints TTFT, decode tokens/s and each
+   sub-phase's seconds.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device,
@@ -117,6 +160,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -163,6 +207,11 @@ SPEC_DRAFT_LAYERS = 2
 # other side of a near-tie; the tie check bounds how near: 2% of the row's
 # logit range below its maximum.
 SPEC_TIE_TOL = 0.02
+VAR_PROMPTS = 4
+VAR_NEW_TOKENS = 16
+VAR_SLOTS = 4
+VAR_STEPS = 8
+VAR_CHUNK = 2048  # PagedEngine's prefill chunk: a 6000-token prompt in three
 TRAIN_SEQ = 2048
 TRAIN_BATCH = 2
 TRAIN_STEPS = 3
@@ -188,6 +237,25 @@ INT4_ENTRY = {16: "quant_matmul_int4 (small-M, decode rows)",
               2048: "quant_matmul_int4 (tiled, prefill rows)"}
 A8_ENTRY = {"w8a8": "quant_matmul_w8a8 (prefill rows)", "w4a8": "quant_matmul_w4a8 (prefill rows)"}
 KV_SCALE = {"int8": 5.0 / 127.0, "fp8": 5.0 / 448.0}  # ModelConfig.kv_calibration_scale / qmax
+VARIANT_SEQ = 8192  # the families' max_seq_len
+VARIANT_WINDOW = 4096  # Mistral-7B's window, Gemma-2's sliding layers'
+VARIANT_SINKS = 4
+VARIANT_BATCH = 8
+GEMMA2_SOFTCAP = 50.0
+LIBRARY_ULPS = 8.0  # flex_attention against the twins (its own bf16 roundings)
+GEMMA2_Q_SCALE = 40.0  # phase 2's Gemma-2 q: scores of standard deviation 40 at sm_scale 1/16, so the cap bends them
+POISON_BLOCK = 256  # the band check poisons whole blocks of this many rows
+VARIANT_ENTRIES = {
+    "mistral_decode": "flash_decode window 4096 + 4 sinks (Mistral-7B)",
+    "gemma2_decode": "flash_decode D256 softcap, window 4096 (Gemma-2 sliding layers)",
+    "gemma2_decode_full": "flash_decode D256 softcap, full (Gemma-2 full layers)",
+    "gemma2_verify": "flash_verify D256 softcap + window 4096 (Gemma-2)",
+    "gemma_split": "flash_decode D256 (split-KV partials, Gemma-7B)",
+    "mistral_paged": "paged_flash_decode window 4096 + 4 sinks (Mistral-7B)",
+    "gemma2_paged": "paged_flash_decode D256 softcap + window 4096 (Gemma-2)",
+    "gemma2_prefill": "flash_prefill D256 softcap + window 4096 (Gemma-2)",
+    "mistral_prefill": "flash_prefill window 4096 + 4 sinks (Mistral-7B)",
+}
 
 
 def log(*args):
@@ -393,6 +461,7 @@ def phase_kernels(dev, timer):
     res.update(_spec_kernels(dev, timer, gen))
     res.update(_quantized_kv_kernels(dev, timer, q, k_tab, v_tab, lengths, layer, k_new, v_new))
     del k_tab, v_tab, ka, va, kp, vp, kv_rep
+    res.update(_variant_kernels(dev, timer, gen))
 
     # -- quant_matmul: the five projection shapes, stacked L=4, layer 3
     h, inter, vocab = 4096, 11008, 32000
@@ -766,6 +835,315 @@ def _spec_kernels(dev, timer, gen):
     return res
 
 
+def _attended_rows(lengths, window, sinks):
+    """KV rows a decode row of each length attends: its band, min(len,
+    window), plus the sinks below it."""
+    lens = lengths.long()
+    if window is None:
+        return lens
+    return torch.clamp(lens, max=window) + torch.clamp(lens - window, min=0).clamp(max=sinks)
+
+
+def _poison_below(tab, starts, sinks):
+    """A copy of a (1, B, Hkv, S, D) table whose whole POISON_BLOCK-row
+    blocks below each sequence's band start ``starts[b]`` hold NaN; the
+    blocks that hold sinks are spared. Returns (copy, rows poisoned)."""
+    out, n = tab.clone(), 0
+    first = -(-sinks // POISON_BLOCK) * POISON_BLOCK
+    for b, lo in enumerate(starts.tolist()):
+        end = max(lo, 0) // POISON_BLOCK * POISON_BLOCK
+        if end > first:
+            out[:, b, :, first:end] = float("nan")
+            n += end - first
+    return out, n
+
+
+def _reclaim_below(table, starts, sinks, ps):
+    """The page table with every page inside a whole POISON_BLOCK-row block
+    below the band set to the null page 0, sink pages kept (the engine's
+    reclamation, at block granularity). Returns (table, pages nulled)."""
+    out, n = table.clone(), 0
+    first = -(-sinks // POISON_BLOCK) * POISON_BLOCK // ps
+    for b, lo in enumerate(starts.tolist()):
+        end = max(lo, 0) // POISON_BLOCK * POISON_BLOCK // ps
+        if end > first:
+            out[b, first:end] = 0
+            n += end - first
+    return out, n
+
+
+def _band_check(name, kernel_clean, kernel_poisoned, n_poisoned):
+    """The kernel never reads below the band: NaN there changes no bit of
+    its output."""
+    if n_poisoned <= 0:
+        raise AssertionError(f"{name}: the band check poisoned nothing")
+    finite = bool(torch.isfinite(kernel_poisoned).all())
+    same = finite and torch.equal(kernel_poisoned, kernel_clean)
+    log(f"[kernel] {name} band check: {n_poisoned} rows or pages below the band set to NaN (the null "
+        f"page for pages), output finite {finite}, bit for bit the clean cache's {same} "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError(f"{name}: the kernel read below its band")
+
+
+def _sensitive(name, what, changed, ref, roundings):
+    """The check above can fail: the kernel run without ``what`` lies more
+    than 4x the tolerance away from the twin."""
+    tol = roundings + 1.0
+    err = _ulps(changed, ref)
+    ok = err > 4 * tol
+    log(f"[kernel] {name} without {what}: {err:.3e} bf16 ulps from the twin, over 4x the tolerance "
+        f"{tol:.1f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: {what} does not move the output past the check's tolerance")
+
+
+_FLEX = []
+
+
+def _flex_call(q, k, v, base, window, sinks, softcap, scale):
+    """One ``flex_attention`` call (compiled) computing a variant kernel's
+    function: query row i of sequence b attends the KV rows below
+    ``base[b] + i`` that lie in its band or are sinks (the block mask, built
+    here once), and ``softcap`` caps the scaled scores (the score_mod).
+    q (B, Hq, Lq, D); k, v (B, Hkv, S, D). Returns the call."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    if not _FLEX:
+        _FLEX.append(torch.compile(flex_attention, dynamic=False))
+    window = k.shape[2] + 2 if window is None else window
+
+    def band(b, h, qi, kv):
+        n = base[b] + qi
+        return (kv < n) & ((kv >= n - window) | (kv < sinks))
+
+    def cap(score, b, h, qi, kv):
+        return softcap * torch.tanh(score / softcap)
+
+    mask = create_block_mask(band, q.shape[0], None, q.shape[2], k.shape[2], device=q.device)
+    return lambda: _FLEX[0](q, k, v, score_mod=cap, block_mask=mask, scale=scale, enable_gqa=True)
+
+
+def _variant_kernels(dev, timer, gen):
+    """The attention variants at the phase 10 families' shapes, S = 8192
+    cache rows and lengths 5,000-8,000 (past the 4096 window): K1 with the
+    window and 4 sinks (Mistral-7B: Hq 32, Hkv 8, D 128), K1 at D 256 with
+    softcap 50 on a sliding (4096) and a full layer (Gemma-2-9B: Hq 16,
+    Hkv 8), K1 verify (T = 5) with both, K2 at D 256 with 4 splits
+    (Gemma-7B: Hq = Hkv = 16), K7 on both families' rows in 128-row pages,
+    K5 on 2048-row chunks (PagedEngine's) at offsets 4608 and 6144. Each
+    against its plain twin in bf16 ulps of each element, the windowed ones
+    also through the NaN band check. Gemma-2's q is scaled so that its
+    scores reach the cap, and K1, K7 and K5 are run once without the cap
+    (and Mistral's K1 and K5 without the sinks) to show that the check sees
+    the option. Library: SDPA with the band mask; with a softcap,
+    flex_attention with the cap as its score_mod and the band as its block
+    mask, itself held to the twin."""
+    import torch.nn.functional as F
+
+    from starflashattention_tpu_torch.core.reference import repeat_kv
+    from starflashattention_tpu_torch.ops.flash_decode import (flash_decode, flash_decode_plain,
+                                                               flash_verify, flash_verify_plain)
+    from starflashattention_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_plain
+    from starflashattention_tpu_torch.ops.paged_decode import paged_flash_decode, paged_flash_decode_plain
+
+    bf16, s, w, sk, cap = torch.bfloat16, VARIANT_SEQ, VARIANT_WINDOW, VARIANT_SINKS, GEMMA2_SOFTCAP
+    b = VARIANT_BATCH
+    res = {}
+    kpos = torch.arange(s, device=dev)
+
+    def tables(hkv, d):
+        return [torch.randn((1, b, hkv, s, d), generator=gen, device=dev, dtype=bf16) for _ in range(2)]
+
+    def flex_library(entry, q4, k, v, base, kw, ref):
+        """Library ms of a softcap row: flex_attention, first held to the
+        twin (within LIBRARY_ULPS: it rounds its scores or P to bf16 on its
+        own terms; a wrong mask or cap is off by hundreds)."""
+        call = _flex_call(q4, k, v, base, kw.get("window"), kw.get("sinks", 0), kw["softcap"],
+                          kw["sm_scale"])
+        _check_ulps(f"{entry} library call (flex_attention)", call().reshape(ref.shape), ref, LIBRARY_ULPS - 1)
+        return timer(call)
+
+    lengths = torch.randint(5000, 8001, (b,), generator=gen, device=dev, dtype=torch.int32)
+    lengths[0], lengths[1] = 5000, 8000
+
+    def decode_row(entry, q, k_tab, v_tab, lens, kw, band, library, drop=None):
+        """K1 (or K2) against its twin; ``band`` = (window, sinks) for the
+        NaN check and the in-band bound, else None; ``library(ref)`` -> ms;
+        ``drop`` = (what, option overrides) for the sensitivity check."""
+        hq, d = q.shape[1], q.shape[-1]
+        hkv = k_tab.shape[2]
+        out = flash_decode(q, k_tab, v_tab, lens, **kw)
+        ref = flash_decode_plain(q, k_tab, v_tab, lens, **kw)
+        err = (out.float() - ref.float()).abs().max().item()
+        _check_ulps(f"{entry} B={b} Hq={hq} Hkv={hkv} S={s} D={d} lengths {lens.min().item()}.."
+                    f"{lens.max().item()}", out, ref, 1)
+        if drop is not None:
+            _sensitive(entry, drop[0], flash_decode(q, k_tab, v_tab, lens, **{**kw, **drop[1]}), ref, 1)
+        rows = int(_attended_rows(lens, *(band or (None, 0))).sum())
+        bnd, by = bound_ms(2 * q.numel() * 2 + 2 * rows * hkv * d * 2 + b * 4, 4 * hq * d * rows)
+        if band is not None:
+            kp, n = _poison_below(k_tab, lens - band[0], band[1])
+            vp, _ = _poison_below(v_tab, lens - band[0], band[1])
+            _band_check(entry, out, flash_decode(q, kp, vp, lens, **kw), n)
+            del kp, vp
+        res[entry] = dict(max_abs_err=err, ms=timer(lambda: flash_decode(q, k_tab, v_tab, lens, **kw)),
+                          plain_ms=timer(lambda: flash_decode_plain(q, k_tab, v_tab, lens, **kw), iters=5),
+                          bound_ms=bnd, bound_by=by, library_ms=library(ref) if library else None)
+
+    def band_mask(lens, window, sinks):  # (B, 1, 1, S): the decode row's attended rows
+        m = (kpos[None, :] < lens[:, None]) & (kpos[None, :] >= lens[:, None] - window)
+        return (m | (kpos[None, :] < sinks))[:, None, None]
+
+    def paged_row(entry, q, k_tab, v_tab, lens, kw, band, library, drop=None):
+        hq, d = q.shape[1], q.shape[-1]
+        hkv = k_tab.shape[2]
+        ps, pps = PAGE_SIZE, s // PAGE_SIZE
+        perm = torch.randperm(b * pps, generator=torch.Generator().manual_seed(SEED)) + 1
+        table = perm.reshape(b, pps).to(device=dev, dtype=torch.int32)
+        kpool, vpool = _pools_from(k_tab, table, ps), _pools_from(v_tab, table, ps)
+        out = paged_flash_decode(q, kpool, vpool, table, lens, layer=0, **kw)
+        ref = paged_flash_decode_plain(q, kpool, vpool, table, lens, layer=0, **kw)
+        err = (out.float() - ref.float()).abs().max().item()
+        _check_ulps(f"{entry} B={b} Hq={hq} Hkv={hkv} D={d} page_size={ps} pages_per_seq={pps} shuffled",
+                    out, ref, 1)
+        if drop is not None:
+            _sensitive(entry, drop[0], paged_flash_decode(q, kpool, vpool, table, lens, layer=0,
+                                                          **{**kw, **drop[1]}), ref, 1)
+        reclaimed, n = _reclaim_below(table, lens - band[0], band[1], ps)
+        kpool[:, :, 0], vpool[:, :, 0] = float("nan"), float("nan")  # the null page
+        _band_check(entry, out, paged_flash_decode(q, kpool, vpool, reclaimed, lens, layer=0, **kw), n)
+        kpool[:, :, 0], vpool[:, :, 0] = 0.0, 0.0
+        rows = int(_attended_rows(lens, *band).sum())
+        bnd, by = bound_ms(2 * q.numel() * 2 + 2 * rows * hkv * d * 2 + b * 4 + table.numel() * 4,
+                           4 * hq * d * rows)
+        res[entry] = dict(
+            max_abs_err=err, ms=timer(lambda: paged_flash_decode(q, kpool, vpool, table, lens, layer=0, **kw)),
+            plain_ms=timer(lambda: paged_flash_decode_plain(q, kpool, vpool, table, lens, layer=0, **kw),
+                           iters=5),
+            bound_ms=bnd, bound_by=by, library_ms=library(ref) if library else None)
+        del kpool, vpool
+
+    # -- Mistral-7B: window 4096 + 4 sinks, D 128
+    hq, hkv, d = 32, 8, 128
+    q = torch.randn((b, hq, d), generator=gen, device=dev, dtype=bf16)
+    k_tab, v_tab = tables(hkv, d)
+    kw = dict(layer=0, num_splits=1, window=w, sinks=sk)
+    kr, vr = (repeat_kv(x[0], hq // hkv) for x in (k_tab, v_tab))
+    mask = band_mask(lengths, w, sk)
+    sdpa = lambda ref: timer(lambda: F.scaled_dot_product_attention(q[:, :, None], kr, vr,  # noqa: E731
+                                                                    attn_mask=mask))
+    decode_row(VARIANT_ENTRIES["mistral_decode"], q, k_tab, v_tab, lengths, kw, (w, sk), sdpa,
+               drop=("the sinks", dict(sinks=0)))
+    paged_row(VARIANT_ENTRIES["mistral_paged"], q, k_tab, v_tab, lengths, dict(window=w, sinks=sk),
+              (w, sk), sdpa)
+    del kr, vr, k_tab, v_tab
+
+    # -- Gemma-2-9B: D 256, softcap 50, query_scale 256; sliding and full
+    # layers. q is scaled by GEMMA2_Q_SCALE so that the scores (sm_scale
+    # 1/16) spread over several times the cap and the tanh bends them.
+    hq, hkv, d = 16, 8, 256
+    sm = 256.0**-0.5
+    q = (torch.randn((b, hq, d), generator=gen, device=dev) * GEMMA2_Q_SCALE).to(bf16)
+    k_tab, v_tab = tables(hkv, d)
+    no_cap = ("the softcap", dict(softcap=None))
+    for key, win in (("gemma2_decode", w), ("gemma2_decode_full", s + 2)):
+        kw = dict(layer=0, num_splits=1, sm_scale=sm, window=win, softcap=cap)
+        entry = VARIANT_ENTRIES[key]
+        decode_row(entry, q, k_tab, v_tab, lengths, kw, (win, 0) if win < s else None,
+                   lambda ref, entry=entry, kw=kw: flex_library(entry, q[:, :, None], k_tab[0], v_tab[0],
+                                                                lengths, kw, ref),
+                   drop=no_cap if win < s else None)
+    kw = dict(sm_scale=sm, window=w, softcap=cap)
+    entry = VARIANT_ENTRIES["gemma2_paged"]
+    paged_row(entry, q, k_tab, v_tab, lengths, kw, (w, 0),
+              lambda ref: flex_library(entry, q[:, :, None], k_tab[0], v_tab[0], lengths, kw, ref),
+              drop=no_cap)
+    # verify: T = 5 tokens, token 0 at the lengths above (its last token's band ends at lengths + 4)
+    t = SPEC_DRAFTS + 1
+    qv = (torch.randn((b, hq, t, d), generator=gen, device=dev) * GEMMA2_Q_SCALE).to(bf16)
+    vlens = torch.clamp(lengths, max=s - t + 1)
+    kw = dict(layer=0, sm_scale=sm, window=w, softcap=cap)
+    entry = VARIANT_ENTRIES["gemma2_verify"]
+    out = flash_verify(qv, k_tab, v_tab, vlens, **kw)
+    ref = flash_verify_plain(qv, k_tab, v_tab, vlens, **kw)
+    err = (out.float() - ref.float()).abs().max().item()
+    _check_ulps(f"{entry} B={b} Hq={hq} Hkv={hkv} S={s} D={d} T={t}", out, ref, 1)
+    bitwise = max((out[:, :, j].float() - flash_decode(qv[:, :, j], k_tab, v_tab, vlens + j, num_splits=1,
+                                                       **kw).float()).abs().max().item() for j in range(t))
+    _check(f"{entry} token j vs fused flash_decode at lengths + j (bit for bit)", bitwise, 0.0)
+    kp, n = _poison_below(k_tab, vlens - w, 0)
+    vp, _ = _poison_below(v_tab, vlens - w, 0)
+    _band_check(entry, out, flash_verify(qv, kp, vp, vlens, **kw), n)
+    del kp, vp
+    tok_len = vlens[:, None] + torch.arange(t, device=dev, dtype=torch.int32)[None, :]
+    n_pairs = int(_attended_rows(tok_len.flatten(), w, 0).sum())
+    n_rows = int((torch.clamp(vlens + t - 1, max=s) - torch.clamp(vlens - w, min=0)).sum())
+    bnd, by = bound_ms(2 * qv.numel() * 2 + 2 * n_rows * hkv * d * 2 + b * 4, 4 * hq * d * n_pairs)
+    res[entry] = dict(max_abs_err=err, ms=timer(lambda: flash_verify(qv, k_tab, v_tab, vlens, **kw)),
+                      plain_ms=timer(lambda: flash_verify_plain(qv, k_tab, v_tab, vlens, **kw), iters=5),
+                      bound_ms=bnd, bound_by=by,
+                      library_ms=flex_library(entry, qv, k_tab[0], v_tab[0], vlens, kw, ref))
+    del k_tab, v_tab, qv
+
+    # -- Gemma-7B: D 256, Hq = Hkv = 16, 4 splits (K2), no band
+    hq, hkv, d = 16, 16, 256
+    q = torch.randn((b, hq, d), generator=gen, device=dev, dtype=bf16)
+    k_tab, v_tab = tables(hkv, d)
+    mask = (kpos[None, :] < lengths[:, None])[:, None, None]
+    decode_row(VARIANT_ENTRIES["gemma_split"], q, k_tab, v_tab, lengths,
+               dict(layer=0, num_splits=4, block_k=256), None,
+               lambda ref: timer(lambda: F.scaled_dot_product_attention(q[:, :, None], k_tab[0], v_tab[0],
+                                                                        attn_mask=mask)))
+    del k_tab, v_tab
+
+    # -- prefill: 2048-row chunks (PagedEngine's) at offsets 4608 and 6144 of S = 8192
+    sq = VAR_CHUNK
+    q_off = torch.tensor([4608, 6144], dtype=torch.int32, device=dev)
+    lens = q_off + sq
+    for key, (hq, hkv, d, kw, drop) in (
+            ("gemma2_prefill", (16, 8, 256, dict(sm_scale=256.0**-0.5, window=w, softcap=cap), no_cap)),
+            ("mistral_prefill", (32, 8, 128, dict(window=w, sinks=sk), ("the sinks", dict(sinks=0))))):
+        entry = VARIANT_ENTRIES[key]
+        sinks = kw.get("sinks", 0)
+        scale = GEMMA2_Q_SCALE if "softcap" in kw else 1.0
+        q = (torch.randn((2, hq, sq, d), generator=gen, device=dev) * scale).to(bf16)
+        k, v = (torch.randn((2, hkv, s, d), generator=gen, device=dev, dtype=bf16) for _ in range(2))
+        out = flash_prefill(q, k, v, lens, q_offsets=q_off, **kw)
+        ref = flash_prefill_plain(q, k, v, lens, q_offsets=q_off, **kw)
+        err = (out.float() - ref.float()).abs().max().item()
+        # two roundings on the kernel's side (P to bf16 for P @ V, the output), one on the twin's
+        _check_ulps(f"{entry} B=2 Hq={hq} Hkv={hkv} D={d} Sq={sq} Skv={s} q_offsets=[4608,6144]", out, ref, 2)
+        _sensitive(entry, drop[0], flash_prefill(q, k, v, lens, q_offsets=q_off, **{**kw, **drop[1]}), ref, 2)
+        starts = q_off - w + 1  # the band start of each chunk's first row
+        kp, n = _poison_below(k[None], starts, sinks)
+        vp, _ = _poison_below(v[None], starts, sinks)
+        _band_check(entry, out, flash_prefill(q, kp[0], vp[0], lens, q_offsets=q_off, **kw), n)
+        del kp, vp
+        pos = (q_off[:, None] + torch.arange(sq, device=dev)[None, :]).flatten()
+        n_pairs = int(_attended_rows(pos + 1, w, sinks).sum())
+        # rows read: each chunk's band from its first row's start, plus the sinks below it
+        n_rows = sum(int(n) - max(int(lo), 0) + min(max(int(lo), 0), sinks)
+                     for n, lo in zip(lens.tolist(), starts.tolist()))
+        bnd, by = bound_ms(2 * q.numel() * 2 + 2 * n_rows * hkv * d * 2, 4 * d * hq * n_pairs)
+        if "softcap" in kw:
+            library = flex_library(entry, q, k, v, q_off + 1, kw, ref)
+        else:
+            kk, vv = repeat_kv(k, hq // hkv), repeat_kv(v, hq // hkv)
+            qpos = q_off[:, None] + torch.arange(sq, device=dev)[None, :]
+            m = ((kpos[None, None, :] <= qpos[:, :, None]) & (kpos[None, None, :] < lens[:, None, None])
+                 & ((kpos[None, None, :] > qpos[:, :, None] - w) | (kpos[None, None, :] < sinks)))[:, None]
+            library = timer(lambda: F.scaled_dot_product_attention(q, kk, vv, attn_mask=m))
+            del kk, vv, m
+        res[entry] = dict(max_abs_err=err, ms=timer(lambda: flash_prefill(q, k, v, lens, q_offsets=q_off, **kw)),
+                          plain_ms=timer(lambda: flash_prefill_plain(q, k, v, lens, q_offsets=q_off, **kw),
+                                         iters=5),
+                          bound_ms=bnd, bound_by=by, library_ms=library)
+        del q, k, v
+    torch.cuda.empty_cache()
+    return res
+
+
 def _pools_from(tab, table, ps):
     """(L, B, Hkv, S, D) table -> (L, Hkv, B * S / ps + 1, ps, D) pools with
     page (b, i) at table[b, i] (page 0 is the null page). Moves bytes, so
@@ -991,7 +1369,8 @@ def _counters():
 
 
 # entries that also count a subset of their launches: (entry, attribute, count name)
-_SUBSETS = (("quant_matmul", "launches_tiled", "quant_matmul_tiled"),
+_SUBSETS = (("flash_decode", "launches_banded", "flash_decode_banded"),
+            ("quant_matmul", "launches_tiled", "quant_matmul_tiled"),
             ("quant_matmul_int4", "launches_tiled", "quant_matmul_int4_tiled"),
             ("flash_prefill", "launches_lse", "flash_prefill_lse"))
 
@@ -1242,14 +1621,20 @@ def phase_path_vs_path(dev):
         _path_vs_path(dev, cfg, mode, tag, kernels)
 
 
-def _path_vs_path(dev, cfg, mode, tag, kernels):
+def _path_vs_path(dev, cfg, mode, tag, kernels, prompt_lengths=None):
     """One configuration through the kernels, then the plain twins; the
-    kernel run must launch each of ``kernels``, the plain run none."""
+    kernel run must launch each of ``kernels``, the plain run none. Phase
+    3's 8 prompts, or seeded prompts of ``prompt_lengths``."""
     from starflashattention_tpu_torch.cache import contiguous
     from starflashattention_tpu_torch.models import llama
 
     params, gen = build_model(cfg, dev, mode)
-    prompts, lengths = _prompts(cfg, dev, gen)
+    if prompt_lengths is None:
+        prompts, lengths = _prompts(cfg, dev, gen)
+    else:
+        lengths = torch.tensor(prompt_lengths, dtype=torch.int32, device=dev)
+        prompts = torch.randint(0, cfg.vocab_size, (len(prompt_lengths), max(prompt_lengths)),
+                                generator=gen, device=dev, dtype=torch.int32)
     cos, sin = llama.rope_tables(cfg, device=dev)
 
     def run(feed=None):
@@ -1258,7 +1643,7 @@ def _path_vs_path(dev, cfg, mode, tag, kernels):
         weights give near-ties in the logits, and a flipped argmax would
         send the two routes down different streams."""
         hkv, d = cfg.kv_cache_dims()
-        cache = contiguous.init_cache(cfg.num_layers, SLICE_BATCH, hkv, cfg.max_seq_len, d,
+        cache = contiguous.init_cache(cfg.num_layers, prompts.shape[0], hkv, cfg.max_seq_len, d,
                                       quant_mode=cfg.quant_mode, calibration_scale=cfg.kv_calibration_scale,
                                       device=dev)
         logits, cache = llama.prefill(params, cache, prompts, lengths, cos, sin, cfg)
@@ -1575,6 +1960,270 @@ def phase_spec(dev):
     return runs
 
 
+# ---------------------------------------------------------------- phase 10
+
+
+def _variant_prompts(vocab, lo, hi, n=VAR_PROMPTS, seed=SEED):
+    """``n`` seeded random prompts with lengths spread over [lo, hi]."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, int(k)).tolist() for k in np.linspace(lo, hi, n).round()]
+
+
+def _record_pages(eng):
+    """After every decode round of a PagedEngine: (reclaimed pages per
+    slot, pinned sink pages per slot, the host table)."""
+    rounds = []
+    decode_round = eng._decode_round
+
+    def recorded():
+        decode_round()
+        rounds.append((eng._reclaimed.copy(), [list(p) for p in eng._sink_pages],
+                       eng._host_table.copy()))
+
+    eng._decode_round = recorded
+    return rounds
+
+
+def _engine_counts(n_layers, steps, banded_layers, kind, lm_head):
+    """Launch counts of one engine run from its stats: ``kind`` "contiguous",
+    "paged" or "spec"; ``banded_layers`` layers a step whose window is
+    narrower than the cache; ``lm_head`` 1 for a quantized head, 0 for a
+    tied dense one."""
+    def counts(st):
+        dec = st.decode_rounds * steps  # decode or verify steps
+        proj = (st.prefill_rounds + dec) * (4 * n_layers + lm_head)
+        want = {"flash_prefill": st.prefill_rounds * n_layers, "quant_matmul": proj,
+                "flash_decode": 0, "flash_decode_banded": 0, "append_rows_kv": 0, "paged_flash_decode": 0,
+                "append_rows_paged_kv": 0, "flash_verify": 0, "append_block_kv": 0}
+        if kind == "contiguous":
+            want.update(flash_decode=dec * n_layers, flash_decode_banded=dec * banded_layers,
+                        append_rows_kv=dec * n_layers)
+        elif kind == "paged":
+            want.update(paged_flash_decode=dec * n_layers, append_rows_paged_kv=dec * n_layers)
+        else:
+            want.update(flash_verify=dec * n_layers, append_block_kv=dec * n_layers)
+        return want
+    return counts
+
+
+def _greedy_agreement(tag, a_reqs, b_reqs):
+    """Share of equal streams, and the largest chosen-token logprob
+    difference over the agreeing prefixes (both runs return logprobs)."""
+    same = sum(x.output == y.output for x, y in zip(a_reqs, b_reqs))
+    diff = 0.0
+    for x, y in zip(a_reqs, b_reqs):
+        n = next((i for i, (p, q) in enumerate(zip(x.output, y.output)) if p != q), len(x.output))
+        if n:
+            diff = max(diff, max(abs(p - q) for p, q in zip(x.logprobs[:n], y.logprobs[:n])))
+    ok = diff <= SERVE_LOGPROB_TOL
+    log(f"[variants] {tag}: streams equal {same}/{len(a_reqs)}; largest chosen-token logprob difference "
+        f"over the agreeing prefixes {diff:.4e} (tolerance {SERVE_LOGPROB_TOL:.1e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: logprobs differ by {diff}")
+    return same
+
+
+def _tie_check(tag, params, cfg, prompts, streams, dev):
+    """Phase 8's teacher-forced check on the plain decode route."""
+    gap, exact = _teacher_forced(params, cfg, prompts, streams, dev)
+    ok = gap <= SPEC_TIE_TOL
+    log(f"[variants] {tag}: teacher-forced on the contiguous decode route: exact-argmax share {exact:.4f}, "
+        f"largest gap below the row maximum {gap:.4e} of the row's logit range (tolerance "
+        f"{SPEC_TIE_TOL}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: an emitted token is {gap:.4f} of its row's range below the maximum")
+    return gap, exact
+
+
+def _variant_generate(tag, params, cfg, prompts, dev, banded_layers, lm_head):
+    """Greedy ``generate`` with its launch counts checked."""
+    n, steps = cfg.num_layers, VAR_NEW_TOKENS - 1
+    lengths = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=dev)
+    padded = torch.zeros((len(prompts), int(lengths.max())), dtype=torch.int32, device=dev)
+    for i, p in enumerate(prompts):
+        padded[i, : len(p)] = torch.tensor(p, dtype=torch.int32)
+    expected = zero_counts(flash_prefill=n, flash_decode=steps * n, flash_decode_banded=steps * banded_layers,
+                           append_rows_kv=steps * n, quant_matmul=(4 * n + lm_head) * (steps + 1),
+                           quant_matmul_tiled=4 * n)
+    from starflashattention_tpu_torch.models import llama
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    toks = llama.generate(params, cfg, padded, lengths, VAR_NEW_TOKENS, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"[variants] {tag} generate: {wall:.2f} s for {int(lengths.sum())} prompt tokens and "
+        f"{VAR_NEW_TOKENS} tokens x {len(prompts)}; launches {counts}")
+    if counts != expected:
+        raise AssertionError(f"{tag}: launch counts {counts} != expected {expected}")
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"{tag}: token out of range")
+    return dict(wall_s=wall, counts=counts, streams=toks.tolist())
+
+
+@contextlib.contextmanager
+def _k1_on_rounded_q():
+    """Inside: the model's contiguous decode attention (K1) takes q *
+    sm_scale rounded to q's dtype and an sm_scale of 1, the paged kernel
+    K7's scale fold (in fp32, then rounded), so both routes score the same
+    rounded q."""
+    from starflashattention_tpu_torch.models import llama
+
+    k1 = llama.flash_decode
+
+    def rounded(q, *args, sm_scale=None, **kw):
+        scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
+        return k1((q.float() * scale).to(q.dtype), *args, sm_scale=1.0, **kw)
+
+    llama.flash_decode = rounded
+    try:
+        yield
+    finally:
+        llama.flash_decode = k1
+
+
+def _variant_serve(tag, make, prompts, expect):
+    eng, reqs, wall, counts = _serve(make, prompts, expect, new_tokens=VAR_NEW_TOKENS)
+    st = eng.stats.summary()
+    log(f"[variants] {tag}: {wall:.2f} s, {json.dumps(st)}")
+    log(f"[variants] {tag}: launches {counts}")
+    return eng, reqs, dict(wall_s=wall, stats=st, counts=counts)
+
+
+def phase_variants(dev):
+    """The attention-variant families at full width (see the module doc)."""
+    from starflashattention_tpu_torch.runtime.params import ModelConfig
+    from starflashattention_tpu_torch.serving import Engine, PagedEngine
+
+    out, t_phase = {}, time.perf_counter()
+
+    # (a) Gemma-2-9B: generate, Engine, PagedEngine, prompt-lookup spec
+    t0 = time.perf_counter()
+    cfg = ModelConfig.gemma2_9b()
+    params, _ = build_model(cfg, dev)
+    torch.cuda.synchronize()
+    n = cfg.num_layers
+    sliding = sum((i + 1) % cfg.sliding_window_pattern != 0 for i in range(n))
+    prompts = _variant_prompts(cfg.vocab_size, 4500, 6000)
+    log(f"[variants] gemma2_9b L={n} H={cfg.hidden_size} Hq={cfg.num_q_heads} Hkv={cfg.num_kv_heads} "
+        f"D={cfg.head_dim} V={cfg.vocab_size} max_seq_len={cfg.max_seq_len}, softcaps "
+        f"{cfg.attn_softcap} / {cfg.final_softcap}, window {cfg.sliding_window} on {sliding} of {n} layers, "
+        f"int8 weights, tied bf16 head, bf16 KV; built in {time.perf_counter() - t0:.1f} s; prompts "
+        f"{[len(p) for p in prompts]}")
+    g2 = {"generate": _variant_generate("gemma2 (a)", params, cfg, prompts, dev, sliding, 0)}
+    common = dict(num_slots=VAR_SLOTS, steps_per_round=VAR_STEPS, device=dev)
+    eng, creqs, g2["engine"] = _variant_serve(
+        "gemma2 (a) Engine", lambda: Engine(params, cfg, return_logprobs=True, **common), prompts,
+        _engine_counts(n, VAR_STEPS, sliding, "contiguous", 0))
+    del eng
+    eng, preqs, g2["paged"] = _variant_serve(
+        "gemma2 (a) PagedEngine", lambda: PagedEngine(params, cfg, return_logprobs=True, page_size=PAGE_SIZE,
+                                                      prefill_chunk=VAR_CHUNK, **common),
+        prompts, _engine_counts(n, VAR_STEPS, sliding, "paged", 0))
+    if eng._reclaimed.any() or any(eng._sink_pages):
+        raise AssertionError("gemma2 (a): alternating full layers must reclaim no page")
+    del eng
+    g2["paged"]["streams_equal"] = _greedy_agreement("gemma2 (a) Engine vs PagedEngine", creqs, preqs)
+    eng, sreqs, g2["spec"] = _variant_serve(
+        "gemma2 (a) spec", lambda: Engine(params, cfg, spec_decode=SPEC_DRAFTS, spec_ngram=SPEC_NGRAM,
+                                          **common),
+        prompts, _engine_counts(n, VAR_STEPS, sliding, "spec", 0))
+    if eng.stats.spec_steps <= 0:
+        raise AssertionError("gemma2 (a) spec: no speculative step")
+    del eng
+    streams = [r.output for r in sreqs]
+    g2["spec"]["streams_equal"] = sum(a == c.output for a, c in zip(streams, creqs))
+    g2["spec"]["tie_gap"], _ = _tie_check("gemma2 (a) spec", params, cfg, prompts, streams, dev)
+    gen_equal = sum(a == c.output for a, c in zip(g2["generate"]["streams"], creqs))
+    log(f"[variants] gemma2 (a): generate's streams equal Engine's {gen_equal}/{len(prompts)}; spec's "
+        f"{g2['spec']['streams_equal']}/{len(prompts)}; TTFT p50 {g2['engine']['stats']['p50_ttft_ms']} ms "
+        f"(Engine), decode {g2['engine']['stats']['decode_tokens_per_s']} tok/s (Engine), "
+        f"{g2['paged']['stats']['decode_tokens_per_s']} (PagedEngine), {g2['spec']['stats']['decode_tokens_per_s']} (spec); "
+        f"{time.perf_counter() - t0:.1f} s")
+    out["gemma2"] = g2
+    del params
+    torch.cuda.empty_cache()
+
+    # (b) Mistral-7B with 4 attention sinks: Engine, then PagedEngine's rolling buffer
+    t0 = time.perf_counter()
+    cfg = ModelConfig.mistral_7b(attention_sinks=VARIANT_SINKS, num_splits=1)
+    params, _ = build_model(cfg, dev)
+    torch.cuda.synchronize()
+    n = cfg.num_layers
+    prompts = _variant_prompts(cfg.vocab_size, 5200, 5800, seed=SEED + 1)
+    log(f"[variants] mistral_7b L={n} window {cfg.sliding_window}, {cfg.attention_sinks} sinks, int8 weights "
+        f"+ int8 lm_head, bf16 KV; built in {time.perf_counter() - t0:.1f} s; prompts {[len(p) for p in prompts]}")
+    mi = {}
+    eng, creqs, mi["engine"] = _variant_serve(
+        "mistral (b) Engine", lambda: Engine(params, cfg, return_logprobs=True, **common), prompts,
+        _engine_counts(n, VAR_STEPS, n, "contiguous", 1))
+    del eng
+    rounds = []
+
+    def paged():
+        e = PagedEngine(params, cfg, return_logprobs=True, page_size=PAGE_SIZE, prefill_chunk=VAR_CHUNK,
+                        debug_validate=True, **common)
+        rounds.append(_record_pages(e))
+        return e
+
+    eng, preqs, mi["paged"] = _variant_serve("mistral (b) PagedEngine", paged, prompts,
+                                             _engine_counts(n, VAR_STEPS, n, "paged", 1))
+    sink_lp = -(-cfg.attention_sinks // (eng._walk_block_pages * PAGE_SIZE)) * eng._walk_block_pages
+    reclaimed = max(int(r.max()) for r, _, _ in rounds[0])
+    pinned_ok = all(len(sp[i]) == sink_lp and list(table[i, :sink_lp]) == sp[i]
+                    and not table[i, sink_lp:sink_lp + int(r[i])].any()
+                    for r, sp, table in rounds[0] for i in range(VAR_SLOTS) if r[i])
+    log(f"[variants] mistral (b) PagedEngine: walk block {eng._walk_block_pages} pages of {PAGE_SIZE}; "
+        f"largest reclaimed count a slot {reclaimed} pages; sink pages pinned ({sink_lp} a slot, at the "
+        f"table's head, reclaimed entries null behind them) {pinned_ok}")
+    if reclaimed <= 0 or not pinned_ok:
+        raise AssertionError("mistral (b): no page was reclaimed, or the sink pages were not pinned")
+    mi["paged"].update(reclaimed_max=reclaimed, sink_pages=sink_lp)
+    del eng
+    mi["paged"]["streams_equal"] = _greedy_agreement("mistral (b) Engine vs PagedEngine", creqs, preqs)
+    mi["paged"]["tie_gap"], _ = _tie_check("mistral (b) PagedEngine", params, cfg, prompts,
+                                           [r.output for r in preqs], dev)
+    # why the engines can differ: K7 rounds q * sm_scale to bf16 (as JAX's
+    # paged kernel does), K1 scales its fp32 scores. Fed K7's rounded q, K1
+    # must give PagedEngine's streams exactly.
+    with _k1_on_rounded_q():
+        eng, rreqs, mi["engine_rounded_q"] = _variant_serve(
+            "mistral (b) Engine, K1 on K7's rounded q", lambda: Engine(params, cfg, return_logprobs=True, **common),
+            prompts, _engine_counts(n, VAR_STEPS, n, "contiguous", 1))
+    del eng
+    same = _greedy_agreement("mistral (b) Engine on K7's rounded q vs PagedEngine", rreqs, preqs)
+    if same != len(prompts):
+        raise AssertionError(f"mistral (b): on K7's rounded q the Engine's streams equal PagedEngine's "
+                             f"{same}/{len(prompts)}, not all")
+    out["mistral"] = mi
+    log(f"[variants] mistral (b): TTFT p50 {mi['engine']['stats']['p50_ttft_ms']} ms, decode "
+        f"{mi['engine']['stats']['decode_tokens_per_s']} tok/s (Engine), {mi['paged']['stats']['decode_tokens_per_s']} "
+        f"(PagedEngine); {time.perf_counter() - t0:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) Gemma-7B generate at its 4 splits (K2 at D 256)
+    t0 = time.perf_counter()
+    cfg = ModelConfig.gemma_7b()
+    params, _ = build_model(cfg, dev)
+    prompts = _variant_prompts(cfg.vocab_size, 1000, 1500, seed=SEED + 2)
+    log(f"[variants] gemma_7b L={cfg.num_layers} Hq=Hkv={cfg.num_q_heads} D={cfg.head_dim}, "
+        f"num_splits {cfg.num_splits}, int8 weights, tied bf16 head; prompts {[len(p) for p in prompts]}")
+    out["gemma"] = {"generate": _variant_generate("gemma (c)", params, cfg, prompts, dev, 0, 0)}
+    log(f"[variants] gemma (c): {time.perf_counter() - t0:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+
+    # (d) 4 Gemma-2 layers: kernels against the plain twins, past the window
+    t0 = time.perf_counter()
+    _path_vs_path(dev, ModelConfig.gemma2_9b(num_layers=4), "int8", "gemma2 4 layers, int8 weights, bf16 KV",
+                  ("flash_prefill", "flash_decode", "append_rows_kv", "quant_matmul"),
+                  prompt_lengths=[4500, 4700])
+    log(f"[variants] gemma2 (d): {time.perf_counter() - t0:.1f} s; phase 10 {time.perf_counter() - t_phase:.1f} s")
+    return out
+
 # ---------------------------------------------------------------- phase 9
 
 
@@ -1871,6 +2520,13 @@ REPLACES = {
                                                     "flash_decode.cu") for m in ("int8", "fp8")},
     **{f"paged_flash_decode {m} KV": ("starflashattention_tpu/ops/paged_decode.py:74", "flash_decode.cu")
        for m in ("int8", "fp8")},
+    **{VARIANT_ENTRIES[k]: ("starflashattention_tpu/ops/flash_decode.py:213", "flash_decode_variants.cu")
+       for k in ("mistral_decode", "gemma2_decode", "gemma2_decode_full", "gemma2_verify")},
+    VARIANT_ENTRIES["gemma_split"]: ("starflashattention_tpu/ops/flash_decode.py:141", "flash_decode.cu"),
+    **{VARIANT_ENTRIES[k]: ("starflashattention_tpu/ops/paged_decode.py:74", "flash_decode_variants.cu")
+       for k in ("mistral_paged", "gemma2_paged")},
+    **{VARIANT_ENTRIES[k]: ("starflashattention_tpu/ops/flash_prefill.py:67", "flash_prefill.cu")
+       for k in ("gemma2_prefill", "mistral_prefill")},
 }
 # measured in phase 2 but launched by no main-path run (the quantized slice
 # runs the fp8 cache only in split mode and pages only in int8): logged, not
@@ -1880,8 +2536,8 @@ OFF_PATH = ("flash_decode fp8 KV (1 split, fused)", "paged_flash_decode fp8 KV")
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,6,7,8,9",
-                        help="comma-separated phases to run (default 1,2,3,4,6,7,8,9; phase 5, "
+    parser.add_argument("--phases", default="1,2,3,4,6,7,8,9,10",
+                        help="comma-separated phases to run (default 1,2,3,4,6,7,8,9,10; phase 5, "
                              "a profile of bench.py's decode chains, runs only when named)")
     args = parser.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -1889,6 +2545,11 @@ def main(argv=None):
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     import starflashattention_tpu_torch  # noqa: F401  (fails outside a checkout)
+    from starflashattention_tpu_torch.ops._build import BUILD_DIR
+
+    # the compiled library calls (flex_attention) cache their kernels in the checkout's build directory
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(BUILD_DIR / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1904,6 +2565,7 @@ def main(argv=None):
     quant = phase_quant_slice(dev) if 7 in phases else {}
     spec = phase_spec(dev) if 8 in phases else {}
     training = phase_training(dev) if 9 in phases else {}
+    variants = phase_variants(dev) if 10 in phases else {}
     if 5 in phases:
         phase_decode_profile(dev)
 
@@ -1939,6 +2601,20 @@ def main(argv=None):
         full = training["full"]["counts"]
         launches.update({"flash_prefill (return_lse, training)": full["flash_prefill_lse"],
                          "flash_bwd_dq": full["flash_bwd_dq"], "flash_bwd_dkdv": full["flash_bwd_dkdv"]})
+    if variants:
+        g2, mi = variants["gemma2"], variants["mistral"]
+        gen = g2["generate"]["counts"]
+        e = VARIANT_ENTRIES
+        launches.update({
+            e["gemma2_decode"]: gen["flash_decode_banded"],
+            e["gemma2_decode_full"]: gen["flash_decode"] - gen["flash_decode_banded"],
+            e["gemma2_prefill"]: gen["flash_prefill"],
+            e["gemma2_verify"]: g2["spec"]["counts"]["flash_verify"],
+            e["gemma2_paged"]: g2["paged"]["counts"]["paged_flash_decode"],
+            e["mistral_decode"]: mi["engine"]["counts"]["flash_decode"],
+            e["mistral_prefill"]: mi["engine"]["counts"]["flash_prefill"],
+            e["mistral_paged"]: mi["paged"]["counts"]["paged_flash_decode"],
+            e["gemma_split"]: variants["gemma"]["generate"]["counts"]["flash_decode"]})
     line = []
     for name, r in kernels.items():
         if name in OFF_PATH:

@@ -1,7 +1,8 @@
 """Plain PyTorch reference attention — the port's numerics spec.
 
 Twin of the JAX package's ``core/reference.py``: full-softmax attention at
-fp32 with GQA, ragged lengths, causal prefill and the split-KV LSE merge.
+fp32 with GQA, ragged lengths, causal prefill, the sliding window, sinks
+and softcap, and the split-KV LSE merge.
 The plain versions of the kernels in ``ops/`` are built on these.
 
 One deliberate difference: a row with no valid KV position (length 0)
@@ -43,10 +44,15 @@ def mha_reference(
     causal: bool = False,
     q_offset: torch.Tensor | None = None,  # (B,) absolute position of q[:, :, 0]
     sm_scale: float | None = None,
+    sliding_window: int | None = None,  # row p attends [p - W + 1, p]
+    attention_sinks: int = 0,  # first-k positions always attendable (with a window)
+    softcap: float | None = None,  # cap * tanh(s / cap) on the scaled scores
 ) -> torch.Tensor:
     """Full-softmax multi-head attention at fp32 -> (B, Hq, Sq, D) in q's
     dtype. Query row i sits at ``q_offset + i``; with ``causal`` it attends
-    KV positions ``j <= q_offset + i``, and always ``j < lengths``."""
+    KV positions ``j <= q_offset + i``, and always ``j < lengths``; with
+    ``sliding_window`` also ``j > q_offset + i - W`` or ``j <
+    attention_sinks``."""
     b, hq, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     assert hq % hkv == 0, (hq, hkv)
@@ -55,16 +61,23 @@ def mha_reference(
     if sm_scale is None:
         sm_scale = 1.0 / (d**0.5)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k) * sm_scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
 
     kv_pos = torch.arange(skv, device=q.device)[None, None, None, :]
     mask = torch.ones((b, 1, sq, skv), dtype=torch.bool, device=q.device)
     if lengths is not None:
         mask = mask & (kv_pos < lengths.to(q.device)[:, None, None, None])
+    q_pos = torch.arange(sq, device=q.device)[None, None, :, None]
+    if q_offset is not None:
+        q_pos = q_pos + q_offset.to(q.device)[:, None, None, None]
     if causal:
-        q_pos = torch.arange(sq, device=q.device)[None, None, :, None]
-        if q_offset is not None:
-            q_pos = q_pos + q_offset.to(q.device)[:, None, None, None]
         mask = mask & (kv_pos <= q_pos)
+    if sliding_window is not None:
+        band = kv_pos > q_pos - sliding_window
+        if attention_sinks:
+            band = band | (kv_pos < attention_sinks)
+        mask = mask & band
     p = _masked_softmax(s, mask)
     return torch.einsum("bhqk,bhkd->bhqd", p, v).to(q.dtype)
 
@@ -76,10 +89,17 @@ def decode_reference(
     lengths: torch.Tensor,  # (B,) valid cache positions (incl. the new token)
     *,
     sm_scale: float | None = None,
+    sliding_window: int | None = None,
+    attention_sinks: int = 0,
+    softcap: float | None = None,
 ) -> torch.Tensor:
-    """Decode attention: one query per sequence against its cache prefix."""
+    """Decode attention: one query per sequence against its cache prefix;
+    the query sits at ``lengths - 1``, so a window keeps ``[lengths - W,
+    lengths)`` (and the sinks)."""
     o = mha_reference(
         q[:, :, None, :], k_cache, v_cache, lengths=lengths, sm_scale=sm_scale,
+        q_offset=lengths.to(q.device) - 1, sliding_window=sliding_window,
+        attention_sinks=attention_sinks, softcap=softcap,
     )
     return o[:, :, 0, :]
 

@@ -2,9 +2,29 @@
 //
 // Replaces: starflashattention_tpu/ops/flash_prefill.py::_prefill_kernel
 // (entry flash_prefill) in the forms the model's prefill and the training
-// path use: causal or not, with per-sequence lengths and q_offsets, and
-// optionally the per-row base-2 log-sum-exp (return_lse); no window, sinks
-// or softcap.
+// path use: causal or not, with per-sequence lengths and q_offsets,
+// optionally the per-row base-2 log-sum-exp (return_lse), and for the
+// serving prefill (causal, no LSE) the sliding window, sinks and softcap.
+//
+// Window and sinks (JAX _prefill_kernel :128-146, :181-184): row p attends
+// col > p - window, or col < sinks. The block walks the sink tiles that lie
+// below its band's first tile, then its band from the tile that holds its
+// first row's band start (no tile twice); a warp skips a tile wholly below
+// its own band unless it holds sinks; rows below the block's band that are
+// not sinks are never loaded (zero-filled). Window and sinks are runtime
+// ints behind a BAND template flag, so the unbanded prefill compiles to the
+// kernel it was before them (with the band tests as runtime branches it ran
+// 5-8% slower at the serving shapes). Softcap (a template flag, since it
+// acts on every score in the unrolled fragment loop): the fp32 score is scaled by sm_scale,
+// capped as cap * tanh(s / cap), and only then converted to base 2 (JAX
+// folds sm_scale alone into q for this, :162-166, :314-316).
+//
+// head_dim 256: the output accumulators alone take 128 registers a thread,
+// so the Q fragments (64 more) are not kept in registers: each warp stages
+// its 16 query rows in its own slice of dynamic shared memory and reads one
+// 16-deep fragment per k-step; the K/V tile is 32 rows (not 64), which
+// halves the score registers. Shared memory is dynamic for every D (101 KB
+// a block at D = 256 with 8 warps).
 //
 // q: (B, Hq, Sq, D) bf16; k, v: (B, Hkv, Skv, D) bf16 (in the model, one
 // layer of the cache table, passed as a pointer into it); lengths and
@@ -28,8 +48,8 @@
 // b) holds all G query heads of the group, so each K/V tile staged in
 // shared memory serves G heads. Each warp owns 16 query rows of one head
 // and runs both products on the tensor cores with mma.sync.m16n8k16 (bf16
-// in, fp32 accumulate): Q fragments stay in registers for the whole walk,
-// K fragments load straight from shared memory, V fragments through
+// in, fp32 accumulate): Q fragments stay in registers for the whole walk
+// (D <= 128), K fragments load straight from shared memory, V fragments through
 // ldmatrix.trans, and P goes from the score accumulators to the PV operand
 // without touching memory. The online softmax runs in fp32 (quad shuffles
 // for the row max; the row sum is reduced once at the end). The block walks
@@ -45,10 +65,11 @@
 
 namespace {
 
-constexpr int BK = 64;  // KV rows per shared-memory tile
 constexpr int MAX_THREADS = 256;  // 8 warps: up to 255 registers a thread
 constexpr float NEG_INF = -0.7f * 3.4028234663852886e38f;
 constexpr float LSE_EMPTY = 3e38f;  // the LSE of a row with no valid position
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int NO_WINDOW = 1 << 30;  // the window argument without a window
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
@@ -73,19 +94,75 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
                : "r"(addr));
 }
 
-template <int D, bool CAUSAL, bool LSE>
+// KV rows per shared-memory tile: 64, and 32 at D = 256 (fewer score
+// registers beside the 128 of the output accumulators).
+template <int D>
+struct Geom {
+  static constexpr int BK = D > 128 ? 32 : 64;
+  static constexpr int ST = D + 8;  // padded smem row (elements): conflict-free fragment loads
+  static constexpr bool QSMEM = D > 128;  // Q fragments read from shared memory, not registers
+};
+
+template <int D>
+size_t smem_bytes(int threads) {
+  using GM = Geom<D>;
+  const size_t kv = 2 * (size_t)GM::BK * GM::ST;
+  const size_t qs = GM::QSMEM ? (size_t)(threads / 32) * 16 * GM::ST : 0;
+  return (kv + qs) * sizeof(__nv_bfloat16);
+}
+
+struct Options {
+  int window;     // row at position p attends cols > p - window; 1 << 30 for none
+  int sinks;      // cols < sinks stay attendable (with a window)
+  float sm_scale;       // natural units (the softcap's input)
+  float scale_log2;     // sm_scale * log2(e)
+  float softcap;        // > 0 with SOFTCAP
+};
+
+// One tile's scores of a lane's two rows: scale (SOFTCAP: cap * tanh(s *
+// sm_scale / cap) in natural units, then base 2), mask (the length, the
+// diagonal and, with BAND, the window and sinks) and fold into the row
+// maxima. col0 is the lane's first column.
+template <int ST_N, bool CAUSAL, bool SOFTCAP, bool BAND>
+__device__ __forceinline__ void scale_mask(float (&s)[ST_N][4], int col0, int pa, int pb, int len,
+                                           const Options& opt, float& mx_a, float& mx_b) {
+#pragma unroll
+  for (int n = 0; n < ST_N; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = col0 + n * 8 + (e & 1);
+      const int pos = e < 2 ? pa : pb;
+      bool valid = col < len && (!CAUSAL || col <= pos);
+      if constexpr (BAND) valid = valid && (col > pos - opt.window || col < opt.sinks);
+      float x;
+      if constexpr (SOFTCAP) {
+        x = opt.softcap * tanhf(s[n][e] * opt.sm_scale / opt.softcap) * LOG2E;
+      } else {
+        x = s[n][e] * opt.scale_log2;
+      }
+      s[n][e] = valid ? x : NEG_INF;
+    }
+    mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
+    mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
+  }
+}
+
+template <int D, bool CAUSAL, bool LSE, bool SOFTCAP, bool BAND>
 __global__ void __launch_bounds__(MAX_THREADS)
     flash_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
                          const int* __restrict__ q_offsets, __nv_bfloat16* __restrict__ out,
                          float* __restrict__ lse, int Hq, int Hkv, int Sq, int Skv, int bq,
-                         float scale_log2) {
-  constexpr int ST = D + 8;  // padded smem row (elements): conflict-free fragment loads
+                         const Options opt) {
+  using GM = Geom<D>;
+  constexpr int BK = GM::BK;
+  constexpr int ST = GM::ST;
   constexpr int KT = D / 16;  // k-steps of the QK product
   constexpr int NT = D / 8;   // n-tiles of the PV product
   constexpr int ST_N = BK / 8;  // n-tiles of the QK product
-  __shared__ __align__(16) __nv_bfloat16 k_s[BK * ST];
-  __shared__ __align__(16) __nv_bfloat16 v_s[BK * ST];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BK][ST]
+  __nv_bfloat16* v_s = k_s + BK * ST;                                 // [BK][ST]
 
   const int qt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hkv;
@@ -99,17 +176,30 @@ __global__ void __launch_bounds__(MAX_THREADS)
   const int qoff = q_offsets[b];
   const int pa = qoff + ra, pb = qoff + rb;                // their absolute positions
   const int warp_last = qoff + min(r0 + 15, Sq - 1);       // last position of the warp
+  const int W = opt.window, SK = opt.sinks;  // read only with BAND
 
-  // The Q fragments of this warp's 16 rows, for the whole walk.
+  // The Q fragments of this warp's 16 rows, for the whole walk: in
+  // registers, or (D = 256) in this warp's slice of shared memory.
   const __nv_bfloat16* qh = q + ((size_t)b * Hq + head) * (size_t)Sq * D;
-  uint32_t qa[KT][4];
+  uint32_t qa[GM::QSMEM ? 1 : KT][4];
+  __nv_bfloat16* q_s = v_s + BK * ST + (size_t)warp * 16 * ST;  // [16][ST], QSMEM only
+  if constexpr (GM::QSMEM) {
+    for (int i = lane; i < 16 * D / 8; i += 32) {
+      const int row = i / (D / 8), col = (i % (D / 8)) * 8;
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (r0 + row < Sq) x = *reinterpret_cast<const uint4*>(qh + (size_t)(r0 + row) * D + col);
+      *reinterpret_cast<uint4*>(q_s + row * ST + col) = x;
+    }
+    __syncwarp();
+  } else {
 #pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qa[kk][0] = ra < Sq ? *reinterpret_cast<const uint32_t*>(qh + (size_t)ra * D + c) : 0u;
-    qa[kk][1] = rb < Sq ? *reinterpret_cast<const uint32_t*>(qh + (size_t)rb * D + c) : 0u;
-    qa[kk][2] = ra < Sq ? *reinterpret_cast<const uint32_t*>(qh + (size_t)ra * D + c + 8) : 0u;
-    qa[kk][3] = rb < Sq ? *reinterpret_cast<const uint32_t*>(qh + (size_t)rb * D + c + 8) : 0u;
+    for (int kk = 0; kk < KT; ++kk) {
+      const int c = kk * 16 + 2 * t;
+      qa[kk][0] = ra < Sq ? *reinterpret_cast<const uint32_t*>(qh + (size_t)ra * D + c) : 0u;
+      qa[kk][1] = rb < Sq ? *reinterpret_cast<const uint32_t*>(qh + (size_t)rb * D + c) : 0u;
+      qa[kk][2] = ra < Sq ? *reinterpret_cast<const uint32_t*>(qh + (size_t)ra * D + c + 8) : 0u;
+      qa[kk][3] = rb < Sq ? *reinterpret_cast<const uint32_t*>(qh + (size_t)rb * D + c + 8) : 0u;
+    }
   }
 
   float o[NT][4];
@@ -118,49 +208,70 @@ __global__ void __launch_bounds__(MAX_THREADS)
   float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
 
   const size_t kv_base = ((size_t)b * Hkv + kvh) * (size_t)Skv * D;
+  const int block_first = qoff + qt * bq;  // first position of the block's rows
   const int block_last_row = min(qt * bq + bq, Sq) - 1;
   const int kv_end = CAUSAL ? min(len, qoff + block_last_row + 1) : len;
+  // Window: the block's lowest band start is its first row's; tiles wholly
+  // below it are skipped, except the sink tiles, which come first.
+  const int lo = BAND ? max(block_first - W + 1, 0) : 0;
+  const int band0 = lo / BK * BK;
+  const int sink_tiles_end = BAND ? (min(SK, band0) + BK - 1) / BK * BK : 0;
+  const int warp_lo = qoff + r0 - W + 1;  // this warp's lowest band start
 
-  for (int j0 = 0; j0 < kv_end; j0 += BK) {
+  for (int j0 = sink_tiles_end ? 0 : band0; j0 < kv_end;
+       j0 = j0 + BK < sink_tiles_end ? j0 + BK : max(j0 + BK, band0)) {
+    // Rows below the block's band that are not sinks, and rows past the
+    // length, are zero-filled and never read.
     for (int i = threadIdx.x; i < BK * D / 8; i += blockDim.x) {
       const int row = i / (D / 8), col = (i % (D / 8)) * 8;
+      const int j = j0 + row;
       uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (j0 + row < Skv) {
-        kv = *reinterpret_cast<const uint4*>(k + kv_base + (size_t)(j0 + row) * D + col);
-        vv = *reinterpret_cast<const uint4*>(v + kv_base + (size_t)(j0 + row) * D + col);
+      if (j < len && (!BAND || j >= lo || j < SK)) {
+        kv = *reinterpret_cast<const uint4*>(k + kv_base + (size_t)j * D + col);
+        vv = *reinterpret_cast<const uint4*>(v + kv_base + (size_t)j * D + col);
       }
       *reinterpret_cast<uint4*>(k_s + row * ST + col) = kv;
       *reinterpret_cast<uint4*>(v_s + row * ST + col) = vv;
     }
     __syncthreads();
 
-    if (r0 < Sq && (!CAUSAL || j0 <= warp_last)) {  // warp-uniform
+    // warp-uniform: the warp has rows, the tile is not wholly above its
+    // diagonal, and not wholly below its band unless it holds sinks
+    if (r0 < Sq && (!CAUSAL || j0 <= warp_last) && (!BAND || j0 + BK - 1 >= warp_lo || j0 < SK)) {
       float s[ST_N][4];
 #pragma unroll
-      for (int n = 0; n < ST_N; ++n) {
-        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-        const __nv_bfloat16* krow = k_s + (n * 8 + g) * ST + 2 * t;
+      for (int n = 0; n < ST_N; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      if constexpr (GM::QSMEM) {  // one Q fragment from shared memory a k-step
 #pragma unroll
         for (int kk = 0; kk < KT; ++kk) {
-          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
-          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
-          mma_bf16(s[n], qa[kk], b0, b1);
+          const __nv_bfloat16* qr = q_s + g * ST + kk * 16 + 2 * t;
+          uint32_t af[4];
+          af[0] = *reinterpret_cast<const uint32_t*>(qr);
+          af[1] = *reinterpret_cast<const uint32_t*>(qr + 8 * ST);
+          af[2] = *reinterpret_cast<const uint32_t*>(qr + 8);
+          af[3] = *reinterpret_cast<const uint32_t*>(qr + 8 * ST + 8);
+#pragma unroll
+          for (int n = 0; n < ST_N; ++n) {
+            const __nv_bfloat16* krow = k_s + (n * 8 + g) * ST + 2 * t + kk * 16;
+            mma_bf16(s[n], af, *reinterpret_cast<const uint32_t*>(krow),
+                     *reinterpret_cast<const uint32_t*>(krow + 8));
+          }
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < ST_N; ++n) {
+          const __nv_bfloat16* krow = k_s + (n * 8 + g) * ST + 2 * t;
+#pragma unroll
+          for (int kk = 0; kk < KT; ++kk) {
+            const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
+            const uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
+            mma_bf16(s[n], qa[kk], b0, b1);
+          }
         }
       }
       // Scale and mask; row maxima over the quad of lanes sharing a row.
       float mx_a = NEG_INF, mx_b = NEG_INF;
-#pragma unroll
-      for (int n = 0; n < ST_N; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = j0 + n * 8 + 2 * t + (e & 1);
-          const int pos = e < 2 ? pa : pb;
-          const bool valid = col < len && (!CAUSAL || col <= pos);
-          s[n][e] = valid ? s[n][e] * scale_log2 : NEG_INF;
-        }
-        mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
-        mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
-      }
+      scale_mask<ST_N, CAUSAL, SOFTCAP, BAND>(s, j0 + 2 * t, pa, pb, len, opt, mx_a, mx_b);
 #pragma unroll
       for (int off = 1; off < 4; off <<= 1) {
         mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
@@ -238,37 +349,59 @@ __global__ void __launch_bounds__(MAX_THREADS)
   }
 }
 
-template <int D, bool CAUSAL, bool LSE>
+template <int D, bool CAUSAL, bool LSE, bool SOFTCAP, bool BAND>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* lengths,
                    const void* q_offsets, void* out, void* lse, int B, int Hq, int Hkv, int Sq,
-                   int Skv, float scale_log2, cudaStream_t stream) {
+                   int Skv, const Options& opt, cudaStream_t stream) {
   const int G = Hq / Hkv;
   // 16 rows per warp; about 8 warps per block share each K/V tile.
   const int bq = G >= 8 ? 16 : 16 * (8 / G);
   const int threads = 32 * G * (bq / 16);
   if (threads > MAX_THREADS) return cudaErrorInvalidConfiguration;
+  auto kernel = flash_prefill_kernel<D, CAUSAL, LSE, SOFTCAP, BAND>;
+  const size_t smem = smem_bytes<D>(threads);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
   dim3 grid((Sq + bq - 1) / bq, Hkv, B);
-  flash_prefill_kernel<D, CAUSAL, LSE><<<grid, threads, 0, stream>>>(
+  kernel<<<grid, threads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lengths),
       static_cast<const int*>(q_offsets), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), Hq, Hkv, Sq, Skv, bq, scale_log2);
+      static_cast<float*>(lse), Hq, Hkv, Sq, Skv, bq, opt);
   return cudaGetLastError();
 }
 
+// The LSE and non-causal forms are the training forward's, which takes no
+// window, sinks or softcap (the wrapper refuses them), so SOFTCAP and BAND
+// instantiate only causal without LSE: 7 kernels a head_dim.
 template <int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, const void* lengths,
                      const void* q_offsets, void* out, void* lse, int B, int Hq, int Hkv, int Sq,
-                     int Skv, int causal, float scale_log2, cudaStream_t s) {
+                     int Skv, int causal, const Options& o, cudaStream_t s) {
+  const bool band = o.window < NO_WINDOW, cap = o.softcap > 0.f;
+  if (band || cap) {
+    if (!causal || lse) return cudaErrorInvalidValue;
+    if (band && cap)
+      return launch<D, true, false, true, true>(q, k, v, lengths, q_offsets, out, lse, B, Hq, Hkv,
+                                                Sq, Skv, o, s);
+    if (band)
+      return launch<D, true, false, false, true>(q, k, v, lengths, q_offsets, out, lse, B, Hq, Hkv,
+                                                 Sq, Skv, o, s);
+    return launch<D, true, false, true, false>(q, k, v, lengths, q_offsets, out, lse, B, Hq, Hkv, Sq,
+                                               Skv, o, s);
+  }
   if (causal)
-    return lse ? launch<D, true, true>(q, k, v, lengths, q_offsets, out, lse, B, Hq, Hkv, Sq, Skv,
-                                       scale_log2, s)
-               : launch<D, true, false>(q, k, v, lengths, q_offsets, out, lse, B, Hq, Hkv, Sq, Skv,
-                                        scale_log2, s);
-  return lse ? launch<D, false, true>(q, k, v, lengths, q_offsets, out, lse, B, Hq, Hkv, Sq, Skv,
-                                      scale_log2, s)
-             : launch<D, false, false>(q, k, v, lengths, q_offsets, out, lse, B, Hq, Hkv, Sq, Skv,
-                                       scale_log2, s);
+    return lse ? launch<D, true, true, false, false>(q, k, v, lengths, q_offsets, out, lse, B, Hq,
+                                                     Hkv, Sq, Skv, o, s)
+               : launch<D, true, false, false, false>(q, k, v, lengths, q_offsets, out, lse, B, Hq,
+                                                      Hkv, Sq, Skv, o, s);
+  return lse ? launch<D, false, true, false, false>(q, k, v, lengths, q_offsets, out, lse, B, Hq, Hkv,
+                                                    Sq, Skv, o, s)
+             : launch<D, false, false, false, false>(q, k, v, lengths, q_offsets, out, lse, B, Hq,
+                                                     Hkv, Sq, Skv, o, s);
 }
 
 }  // namespace
@@ -279,21 +412,27 @@ const char* error_string(int e) { return cudaGetErrorString(static_cast<cudaErro
 
 // q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D), out (B, Hq, Sq, D): bf16,
 // contiguous. lengths, q_offsets: (B,) int32. lse: (B, Hq, Sq) fp32, or
-// null for no LSE. D is 64 or 128; Hq / Hkv <= 8. scale_log2 is
-// sm_scale * log2(e).
+// null for no LSE. D is 64, 128 or 256; Hq / Hkv <= 8. sm_scale is the
+// score scale and scale_log2 = sm_scale * log2(e) (rounded by the caller as
+// flash_bwd.cu's is); window (>= 1, 1 << 30 for none), sinks (>= 0), softcap (0 for
+// none; causal and without LSE only).
 int flash_prefill(const void* q, const void* k, const void* v, const void* lengths,
                   const void* q_offsets, void* out, void* lse, int B, int Hq, int Hkv, int Sq,
-                  int Skv, int D, int causal, float scale_log2, void* stream) {
+                  int Skv, int D, int causal, float sm_scale, float scale_log2, int window,
+                  int sinks, float softcap, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (window < 1 || sinks < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Options o{window, sinks, sm_scale, scale_log2, softcap};
   cudaError_t e;
   switch (D) {
     case 64:
-      e = launch_d<64>(q, k, v, lengths, q_offsets, out, lse, B, Hq, Hkv, Sq, Skv, causal,
-                       scale_log2, s);
+      e = launch_d<64>(q, k, v, lengths, q_offsets, out, lse, B, Hq, Hkv, Sq, Skv, causal, o, s);
       break;
     case 128:
-      e = launch_d<128>(q, k, v, lengths, q_offsets, out, lse, B, Hq, Hkv, Sq, Skv, causal,
-                        scale_log2, s);
+      e = launch_d<128>(q, k, v, lengths, q_offsets, out, lse, B, Hq, Hkv, Sq, Skv, causal, o, s);
+      break;
+    case 256:
+      e = launch_d<256>(q, k, v, lengths, q_offsets, out, lse, B, Hq, Hkv, Sq, Skv, causal, o, s);
       break;
     default:
       e = cudaErrorInvalidValue;

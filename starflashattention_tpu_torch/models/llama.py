@@ -31,8 +31,14 @@ On CUDA tensors every projection of a quantized model, the cache appends
 (contiguous, paged and the verify step's block) and the attentions
 (prefill, contiguous and paged decode, verify) run on the hand-written
 kernels of ``ops/``; on CPU
-tensors the same code runs their plain versions. Config fields outside
-this slice raise ``NotImplementedError`` (:func:`check_supported`).
+tensors the same code runs their plain versions.
+
+The attention variants of the Mistral, Gemma and Gemma-2 families ride
+along: a sliding window (per layer with ``sliding_window_pattern > 1``, a
+Python int each layer, :func:`_layer_window`), attention sinks and the
+attention softcap go to every attention call; GeGLU, the embedding scale,
+Gemma-2's post-norms and the final logit softcap are plain torch ops.
+MoE and MLA raise ``NotImplementedError`` (:func:`check_supported`).
 """
 
 from __future__ import annotations
@@ -67,23 +73,24 @@ def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+_GATE_ACTS = {
+    "silu": F.silu,
+    "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),  # HF gelu_pytorch_tanh
+    "gelu_exact": F.gelu,
+}
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for config fields this slice does not
-    port; each names the ROADMAP queue that holds it."""
+    """Raise ``NotImplementedError`` for config fields the port does not run
+    yet; each names its ROADMAP Queue 1 item."""
     unported = {
-        "num_experts (MoE)": cfg.num_experts != 0,
-        "mla": cfg.mla,
-        "sliding_window": cfg.sliding_window is not None,
-        "attn_softcap": cfg.attn_softcap is not None,
-        "final_softcap": cfg.final_softcap is not None,
-        "post_norms": cfg.post_norms,
-        "embed_scale": cfg.embed_scale,
-        f"mlp_activation={cfg.mlp_activation!r}": cfg.mlp_activation != "silu",
+        "num_experts (MoE, item 14b)": cfg.num_experts != 0,
+        "mla (item 14c)": cfg.mla,
+        f"mlp_activation={cfg.mlp_activation!r}": cfg.mlp_activation not in _GATE_ACTS,
     }
     bad = [name for name, on in unported.items() if on]
     if bad:
-        raise NotImplementedError(
-            f"not ported yet: {', '.join(bad)} (ROADMAP Queue 1 item 10 onward, Queue 2)")
+        raise NotImplementedError(f"not ported yet: {', '.join(bad)} (ROADMAP Queue 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -196,6 +203,9 @@ def init_params(
     if cfg.qk_norm:
         params["layers"]["q_norm"] = ones(n_layers, d)
         params["layers"]["k_norm"] = ones(n_layers, d)
+    if cfg.post_norms:  # Gemma-2: mlp_norm doubles as the pre-feedforward norm
+        params["layers"]["post_attn_norm"] = ones(n_layers, h)
+        params["layers"]["post_mlp_norm"] = ones(n_layers, h)
     if not cfg.tie_embeddings:
         params["lm_head"] = norm01((h, cfg.vocab_size), h)
     return params
@@ -214,8 +224,44 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
-def _embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()]
+def _embed_tokens(params: Params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Embedding gather, with Gemma's sqrt(hidden) scaling of the OUTPUT (a
+    tied lm_head stays unscaled; JAX llama.py:389-397)."""
+    x = params["embed"][tokens.long()]
+    if cfg.embed_scale:
+        x = (x.float() * cfg.hidden_size**0.5).to(x.dtype)
+    return x
+
+
+def _layer_window(cfg: ModelConfig, lidx: int) -> int | None:
+    """Layer ``lidx``'s sliding window (JAX llama.py:353-366): the config's
+    window on every layer with pattern 1; with pattern P > 1 (Gemma-2)
+    layer L slides iff (L + 1) % P != 0 and the full layers pass a window
+    beyond any length, ``max_seq_len + 2``. A per-layer window with sinks
+    raises ``ValueError``, as the JAX kernels refuse sinks with a traced
+    window."""
+    w = cfg.sliding_window
+    if w is None or cfg.sliding_window_pattern == 1:
+        return w
+    if cfg.attention_sinks:
+        raise ValueError("attention sinks need a STATIC window: a per-layer window "
+                         "(sliding_window_pattern > 1) does not take them")
+    return w if (lidx + 1) % cfg.sliding_window_pattern else cfg.max_seq_len + 2
+
+
+def _attn_options(cfg: ModelConfig, lidx: int) -> dict:
+    """The attention variants of layer ``lidx`` as the ops take them."""
+    return {"window": _layer_window(cfg, lidx), "sinks": cfg.attention_sinks,
+            "softcap": cfg.attn_softcap}
+
+
+def _residual_add(x, out, layers: Params, lidx: int, post_key: str, eps: float):
+    """x + out, with Gemma-2's post-norm of the sublayer output before the
+    add when the layers carry ``post_key`` (JAX llama.py:369-375)."""
+    out = out.to(x.dtype)
+    if post_key in layers:
+        out = rms_norm(out, layers[post_key][lidx], eps)
+    return x + out
 
 
 def _wq_matmul(x2d: torch.Tensor, w: dict, layer, out_dtype=None) -> torch.Tensor:
@@ -256,13 +302,14 @@ def _apply_qk_norm(q, k, layers, lidx, cfg):
             rms_norm(k, layers["k_norm"][lidx], cfg.rms_norm_eps))
 
 
-def _swiglu(x: torch.Tensor, proj) -> torch.Tensor:
-    """SwiGLU MLP -> fp32: gate_up written in x's dtype, ``silu(gate) * up``
-    cast to x's dtype, w_down written in fp32."""
+def _swiglu(x: torch.Tensor, proj, cfg: ModelConfig) -> torch.Tensor:
+    """Gated MLP -> fp32: gate_up written in x's dtype, ``act(gate) * up``
+    cast to x's dtype (SwiGLU's silu, or Gemma's GeGLU), w_down written in
+    fp32."""
     gu = proj(x, "w_gate_up", out_dtype=x.dtype)
     inter = gu.shape[-1] // 2
     gate, up = gu[..., :inter], gu[..., inter:]
-    act = (F.silu(gate) * up).to(x.dtype)
+    act = (_GATE_ACTS[cfg.mlp_activation](gate) * up).to(x.dtype)
     return proj(act, "w_down")
 
 
@@ -290,12 +337,17 @@ def _qkv(h, layers, lidx, proj, cfg, x_dtype):
 
 
 def _logits(x: torch.Tensor, params: Params, cfg: ModelConfig) -> torch.Tensor:
-    """Final norm and lm_head; a quantized lm_head is always weight-only."""
+    """Final norm and lm_head (a quantized lm_head is always weight-only),
+    then Gemma-2's final logit softcap when configured."""
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     if isinstance(head, dict):
-        return _wq_matmul(x, head, 0)
-    return torch.matmul(x.float(), head.float())
+        logits = _wq_matmul(x, head, 0)
+    else:
+        logits = torch.matmul(x.float(), head.float())
+    if cfg.final_softcap is not None:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    return logits
 
 
 def rope_tables(cfg: ModelConfig, device: torch.device | str | None = None):
@@ -307,7 +359,7 @@ def rope_tables(cfg: ModelConfig, device: torch.device | str | None = None):
 
 def _mlp_residual(x, layers, lidx, proj, cfg):
     h = rms_norm(x, layers["mlp_norm"][lidx], cfg.rms_norm_eps)
-    return x + _swiglu(h, proj).to(x.dtype)
+    return _residual_add(x, _swiglu(h, proj, cfg), layers, lidx, "post_mlp_norm", cfg.rms_norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -334,7 +386,8 @@ def _decode_layer(x, lidx: int, layers: Params, cfg: ModelConfig, cos, sin, pos,
     q = apply_rope(q, pos, cos, sin, style=cfg.rope_style)
     k_new = apply_rope(k_new, pos, cos, sin, style=cfg.rope_style)
     o = attend(lidx, q, k_new, v_new)
-    x = x + proj(o.reshape(o.shape[0], -1), "wo").to(x.dtype)
+    x = _residual_add(x, proj(o.reshape(o.shape[0], -1), "wo"), layers, lidx, "post_attn_norm",
+                      cfg.rms_norm_eps)
     return _mlp_residual(x, layers, lidx, proj, cfg)
 
 
@@ -352,7 +405,7 @@ def _prefill_layer(x, lidx: int, layers: Params, cfg: ModelConfig, cos, sin, pos
     k_new = apply_rope(k_new, pos[:, None, :], cos, sin, style=cfg.rope_style)
     o = attend(lidx, q, k_new, v_new)
     o = o.transpose(1, 2).reshape(b, sq, -1)
-    x = x + proj(o, "wo").to(x.dtype)
+    x = _residual_add(x, proj(o, "wo"), layers, lidx, "post_attn_norm", cfg.rms_norm_eps)
     return _mlp_residual(x, layers, lidx, proj, cfg)
 
 
@@ -371,7 +424,7 @@ def _step_lengths(lengths: torch.Tensor, active: torch.Tensor | None):
 
 def _decode_run(params: Params, tokens: torch.Tensor, pos: torch.Tensor, cos, sin,
                 cfg: ModelConfig, attend) -> torch.Tensor:
-    x = _embed_tokens(params, tokens)  # (B, H)
+    x = _embed_tokens(params, tokens, cfg)  # (B, H)
     rope_pos = _rope_positions(pos, cos)
     layers = params["layers"]
     for lidx in range(cfg.num_layers):
@@ -386,7 +439,7 @@ def _prefill_run(params: Params, tokens: torch.Tensor, new_lengths: torch.Tensor
     b, sq = tokens.shape
     pos = start[:, None] + torch.arange(sq, device=start.device, dtype=torch.int32)[None, :]
     rope_pos = _rope_positions(pos, cos)
-    x = _embed_tokens(params, tokens)  # (B, Sq, H)
+    x = _embed_tokens(params, tokens, cfg)  # (B, Sq, H)
     layers = params["layers"]
     for lidx in range(cfg.num_layers):
         x = _prefill_layer(x, lidx, layers, cfg, cos, sin, rope_pos, attend)
@@ -423,7 +476,7 @@ def decode_step(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor,
         ks, vs = cache.layer_scales(lidx)
         return flash_decode(q, cache.k, cache.v, att_lengths, layer=lidx, sm_scale=cfg.sm_scale(),
                             num_splits=cfg.num_splits, block_k=cfg.block_k, k_scales=ks,
-                            v_scales=vs)
+                            v_scales=vs, **_attn_options(cfg, lidx))
 
     logits = _decode_run(params, tokens, pos, cos, sin, cfg, attend)
     cache.lengths.copy_(lengths_now)
@@ -460,7 +513,7 @@ def _prefill_contiguous(params, cache: contiguous.KVCache, tokens, new_lengths, 
             k = contiguous.dequantize_rows(k[:, :, :span], ks, q.dtype)
             v = contiguous.dequantize_rows(v[:, :, :span], vs, q.dtype)
         return flash_prefill(q, k, v, lengths=kv_lengths, causal=True, q_offsets=start,
-                             sm_scale=cfg.sm_scale())  # (B, Hq, Sq, D)
+                             sm_scale=cfg.sm_scale(), **_attn_options(cfg, lidx))  # (B, Hq, Sq, D)
 
     logits = _prefill_run(params, tokens, new_lengths, start, cos, sin, cfg, attend)
     cache.lengths.copy_(kv_lengths)
@@ -522,7 +575,7 @@ def decode_step_paged(params: Params, cache: paged.PagedKVCache, tokens: torch.T
         return paged_flash_decode(q, cache.k_pages, cache.v_pages, cache.page_table, att_lengths,
                                   layer=lidx, sm_scale=cfg.sm_scale(),
                                   pages_per_compute_block=cfg.pages_per_compute_block,
-                                  k_scales=ks, v_scales=vs)
+                                  k_scales=ks, v_scales=vs, **_attn_options(cfg, lidx))
 
     logits = _decode_run(params, tokens, pos, cos, sin, cfg, attend)
     cache.lengths.copy_(lengths_now)
@@ -567,7 +620,7 @@ def prefill_serving_paged(params: Params, cache: paged.PagedKVCache, tokens: tor
                 new = paged.gather_prefix(pool, lidx, cache.page_table, span)
             kv.append(contiguous.dequantize_rows(new, scales, q.dtype))
         return flash_prefill(q, kv[0], kv[1], lengths=kv_lengths, causal=True, q_offsets=start,
-                             sm_scale=cfg.sm_scale())
+                             sm_scale=cfg.sm_scale(), **_attn_options(cfg, lidx))
 
     logits = _prefill_run(params, tokens, new_lengths, start, cos, sin, cfg, attend)
     cache.lengths.copy_(kv_lengths)
@@ -680,11 +733,12 @@ def _verify_core(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor
         append_block_kv(cache.k, cache.v, contiguous.quantize_new(k_new, ks, cache.k.dtype),
                         contiguous.quantize_new(v_new, vs, cache.v.dtype), lidx, pos_w, n_valid)
         return flash_verify(q, cache.k, cache.v, att_lengths, layer=lidx, sm_scale=cfg.sm_scale(),
-                            block_k=cfg.block_k, k_scales=ks, v_scales=vs)  # (B, Hq, T, D)
+                            block_k=cfg.block_k, k_scales=ks, v_scales=vs,
+                            **_attn_options(cfg, lidx))  # (B, Hq, T, D)
 
     pos = start[:, None] + torch.arange(t, device=start.device, dtype=torch.int32)[None, :]
     rope_pos = _rope_positions(pos, cos)
-    x = _embed_tokens(params, tokens)  # (B, T, H)
+    x = _embed_tokens(params, tokens, cfg)  # (B, T, H)
     layers = params["layers"]
     for lidx in range(cfg.num_layers):
         x = _prefill_layer(x, lidx, layers, cfg, cos, sin, rope_pos, attend)

@@ -22,7 +22,9 @@ per-layer gradients once.
 
 Not ported, each raising ``NotImplementedError``: ``axis_name`` and
 ``seq_axis_name`` (multi-GPU, ROADMAP item 16), MoE (``_moe_mlp_train``,
-item 14) and every config field ``llama.check_supported`` refuses.
+item 14), the Mistral / Gemma / Gemma-2 variants the serving path runs
+(sliding window, sinks, softcaps, post-norms, the embedding scale, GeGLU:
+item 14a-train) and every config field ``llama.check_supported`` refuses.
 """
 
 from __future__ import annotations
@@ -87,6 +89,19 @@ def _check_trainable(params, cfg: ModelConfig, axis_name, seq_axis_name) -> None
         raise NotImplementedError("MoE training (_moe_mlp_train) is not ported yet "
                                   "(ROADMAP Queue 1 item 14)")
     llama.check_supported(cfg)
+    variants = {
+        "sliding_window": cfg.sliding_window is not None,
+        "attention_sinks": cfg.attention_sinks != 0,
+        "attn_softcap": cfg.attn_softcap is not None,
+        "final_softcap": cfg.final_softcap is not None,
+        "post_norms": cfg.post_norms,
+        "embed_scale": cfg.embed_scale,
+        f"mlp_activation={cfg.mlp_activation!r}": cfg.mlp_activation != "silu",
+    }
+    bad = [name for name, on in variants.items() if on]
+    if bad:
+        raise NotImplementedError(f"training with {', '.join(bad)} is not ported yet (ROADMAP "
+                                  "Queue 1 item 14a-train)")
     quantized = [name for name, w in params["layers"].items() if isinstance(w, dict)]
     if quantized or isinstance(params.get("lm_head"), dict):
         raise ValueError(f"training takes dense weights; quantized: {quantized or ['lm_head']}")
@@ -166,7 +181,7 @@ def forward_train(
     if s > cos.shape[0]:
         raise ValueError(f"sequence length {s} exceeds the RoPE table ({cos.shape[0]} rows)")
     tokens = torch.as_tensor(tokens, device=params["embed"].device)
-    x = llama._embed_tokens(params, tokens)
+    x = llama._embed_tokens(params, tokens, cfg)
     pos = torch.arange(s, device=x.device)[None, None, :]  # (1, 1, S): every sequence and head
     layers = {name: w.unbind(0) for name, w in params["layers"].items()}
     adapters, lscale = {}, None

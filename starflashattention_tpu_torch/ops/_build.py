@@ -1,8 +1,8 @@
 """Build the CUDA sources in ``csrc/`` with ``nvcc`` and load them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own into
-``_build/<name>-<hash>.so`` (the hash is of the source, so an edited source
-never loads a stale library). ``build`` starts one ``nvcc`` per source, all
+``_build/<name>-<hash>.so`` (the hash is of the source and the ``csrc/``
+headers, so an edited source never loads a stale library). ``build`` starts one ``nvcc`` per source, all
 at once, and waits for them together. Nothing here runs at import time:
 importing the package needs neither ``nvcc`` nor a card.
 
@@ -27,8 +27,8 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("cache_append", "quant_matmul", "quant_matmul_a8", "flash_decode", "flash_prefill",
-           "flash_bwd")
+SOURCES = ("cache_append", "quant_matmul", "quant_matmul_a8", "flash_decode",
+           "flash_decode_variants", "flash_prefill", "flash_bwd")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -46,8 +46,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of the source and
+    of the headers in ``csrc/`` it may include."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names=SOURCES) -> dict[str, dict]:

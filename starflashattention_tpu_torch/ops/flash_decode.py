@@ -9,7 +9,8 @@ staircase mask of speculative decoding's verify step (token j sees
 ``lengths[b] + j`` rows). On CUDA tensors all three launch
 ``csrc/flash_decode.cu``, one kernel with two output modes and a verify
 span (it replaces the TPU kernels ``_decode_kernel_fused``, in both its
-modes, and ``_decode_kernel``); on CPU tensors they run the plain versions
+modes, and ``_decode_kernel``), or its build with the attention variants,
+``csrc/flash_decode_variants.cu``; on CPU tensors they run the plain versions
 below. The split boundaries come from :func:`_split_geometry`, a copy of
 the JAX one, so the partials compare one to one.
 
@@ -20,8 +21,16 @@ and the kernel scales its scores by 1. The single-split output comes back
 in q's dtype and is multiplied by ``v_scale[h]`` and rounded again (two
 roundings, as in JAX); with splits, ``v_scale`` multiplies the fp32
 partials before the merge. The verify path takes the single-split handling
-on its (B, Hq, T, D) q and output. Options this slice does not port
-(sliding window, sinks, softcap) raise ``NotImplementedError``.
+on its (B, Hq, T, D) q and output.
+
+The single-split forms (decode and verify) take the attention variants of
+the JAX kernel: a sliding ``window`` (the query at position ``len - 1``
+attends ``[len - window, len)``), attention ``sinks`` (the first ``sinks``
+positions stay attendable; they need a window) and a ``softcap``
+(``cap * tanh(s / cap)`` on the scaled score, before the mask). The window
+is a Python int per call, so a model whose window differs from layer to
+layer passes each layer's own. As in JAX, a window or softcap with more
+than one split raises ``ValueError``. head_dim is 64, 128 or 256.
 """
 
 from __future__ import annotations
@@ -32,7 +41,8 @@ from starflashattention_tpu_torch.core.reference import NEG_INF, repeat_kv
 from starflashattention_tpu_torch.ops import _build
 
 _SIGNATURES = {
-    "flash_decode": [_build.P] * 8 + [_build.I] * 8 + [_build.F, _build.I, _build.I, _build.P],
+    "flash_decode": [_build.P] * 8 + [_build.I] * 8 + [_build.F, _build.I, _build.I, _build.I,
+                                                       _build.I, _build.F, _build.P],
 }
 _CUDA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 QUANT_KV_DTYPES = {torch.int8: 1, torch.float8_e4m3fn: 2}  # the kernel's kv_dtype codes
@@ -86,13 +96,56 @@ def _split_geometry(s: int, num_splits: int, block_k: int) -> tuple[int, int, in
     return num_splits, block_k, s // (num_splits * block_k)
 
 
-def _reject_unported(window, sinks, softcap, max_len_hint=None):
-    if window is not None or sinks:
-        raise NotImplementedError(
-            "sliding-window / sink decode is not ported yet (ROADMAP Queue 2, K1 options)")
-    if softcap is not None:
-        raise NotImplementedError("attention softcap is not ported yet (ROADMAP Queue 2, K1 options)")
-    del max_len_hint  # a grid-size hint for the TPU kernel; the CUDA kernel walks each row's own length
+NO_WINDOW = 1 << 30  # the kernels' window without one: every row below the length is in band
+KERNEL_HEAD_DIMS = (64, 128, 256)
+
+
+def variant_options(window, sinks, softcap) -> dict:
+    """The checked attention variants as keyword arguments of the plain and
+    kernel cores: ``window`` (int >= 1 or None), ``sinks`` (needs a window)
+    and ``softcap`` (> 0 or None)."""
+    if window is not None:
+        window = int(window)
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+    if sinks and window is None:
+        raise ValueError("attention sinks require a sliding window")
+    if sinks < 0:
+        raise ValueError(f"sinks must be >= 0, got {sinks}")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"softcap must be > 0, got {softcap}")
+    return {"window": window, "sinks": int(sinks), "softcap": softcap}
+
+
+def in_band(kv_pos, lengths, window, sinks):
+    """Whether KV position ``kv_pos`` is attended by a query row with
+    ``lengths`` valid rows (broadcasting): below the length and, with a
+    window, in ``[lengths - window, lengths)`` or a sink."""
+    valid = kv_pos < lengths
+    if window is not None:
+        band = kv_pos >= lengths - window
+        if sinks:
+            band = band | (kv_pos < sinks)
+        valid = valid & band
+    return valid
+
+
+def cap_scores(scores, softcap):
+    """Gemma-2's ``cap * tanh(s / cap)`` on scaled scores (identity without)."""
+    return scores if softcap is None else softcap * torch.tanh(scores / softcap)
+
+
+def library(window, sinks, softcap) -> str:
+    """The decode kernel's build: ``flash_decode_variants`` for a call with
+    a window, sinks or softcap, else ``flash_decode`` (the same kernel
+    without their tests in its loops)."""
+    plain = window is None and not sinks and softcap is None
+    return "flash_decode" if plain else "flash_decode_variants"
+
+
+def kernel_options(window, sinks, softcap) -> tuple[int, int, float]:
+    """(window, sinks, softcap) as the CUDA kernels take them."""
+    return (NO_WINDOW if window is None else window), sinks, (0.0 if softcap is None else softcap)
 
 
 def _quantized(k_cache, k_scales, v_scales) -> bool:
@@ -116,14 +169,15 @@ def _as_table(k_cache, v_cache, layer):
 # ----------------------------------------------------------------- plain versions
 
 
-def _scores(q, k_layer, lengths, sm_scale):
-    """fp32 scores (B, Hq, S) and the validity mask of one layer."""
+def _scores(q, k_layer, lengths, sm_scale, window=None, sinks=0, softcap=None):
+    """fp32 scores (B, Hq, S), capped, and the validity mask of one layer."""
     b, hq, d = q.shape
     hkv, s = k_layer.shape[1], k_layer.shape[2]
     k = repeat_kv(k_layer, hq // hkv).float()
     scale = 1.0 / d**0.5 if sm_scale is None else sm_scale
-    scores = torch.einsum("bhd,bhkd->bhk", q.float(), k) * scale
-    mask = torch.arange(s, device=q.device)[None, None, :] < lengths.to(q.device)[:, None, None]
+    scores = cap_scores(torch.einsum("bhd,bhkd->bhk", q.float(), k) * scale, softcap)
+    kv_pos = torch.arange(s, device=q.device)[None, None, :]
+    mask = in_band(kv_pos, lengths.to(q.device)[:, None, None], window, sinks)
     return scores, mask
 
 
@@ -148,14 +202,17 @@ def _stats_plain(q, k_cache, v_cache, lengths, *, layer=None, sm_scale=None, num
     return o, m, l
 
 
-def _fused_plain(q, k_cache, v_cache, lengths, *, layer, sm_scale):
+def _fused_plain(q, k_cache, v_cache, lengths, *, layer, sm_scale, window=None, sinks=0,
+                 softcap=None):
     """Plain single-split decode attention -> (B, Hq, D) in q's dtype; a
     (B, Hq, T, D) q is the verify mode: token j is a decode at ``lengths +
     j``, computed by the same function, so row for row the same numbers."""
+    opts = dict(window=window, sinks=sinks, softcap=softcap)
     if q.dim() == 4:
         return torch.stack([_fused_plain(q[:, :, j], k_cache, v_cache, lengths + j, layer=layer,
-                                         sm_scale=sm_scale) for j in range(q.shape[2])], dim=2)
-    scores, mask = _scores(q, k_cache[layer], lengths, sm_scale)
+                                         sm_scale=sm_scale, **opts) for j in range(q.shape[2])],
+                           dim=2)
+    scores, mask = _scores(q, k_cache[layer], lengths, sm_scale, **opts)
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     p = torch.exp(scores - scores.amax(dim=-1, keepdim=True)) * mask
     l = p.sum(dim=-1, keepdim=True)
@@ -173,27 +230,37 @@ def flash_decode_with_stats_plain(q, k_cache, v_cache, lengths, *, layer=None, s
 
 
 def flash_decode_plain(q, k_cache, v_cache, lengths, *, layer=None, sm_scale=None,
-                       num_splits=4, block_k=256, k_scales=None, v_scales=None):
+                       num_splits=4, block_k=256, k_scales=None, v_scales=None, window=None,
+                       sinks=0, softcap=None):
     """Plain PyTorch decode attention -> (B, Hq, D) in q's dtype (quantized
-    caches included). A row of length 0 gives 0."""
+    caches and the variants included). A row of length 0 gives 0."""
     return _decode(q, k_cache, v_cache, lengths, layer, sm_scale, num_splits, block_k, k_scales,
-                   v_scales, _fused_plain, _stats_plain)
+                   v_scales, _fused_plain, _stats_plain, opts=variant_options(window, sinks, softcap))
 
 
 def _decode(q, k_cache, v_cache, lengths, layer, sm_scale, num_splits, block_k, k_scales,
-            v_scales, fused, stats, partials=False):
+            v_scales, fused, stats, partials=False, opts=None):
     """The wrapper logic shared by the kernel and the plain route: the split
     choice and, for a quantized cache, the scale folding around ``fused`` /
     ``stats`` (functions of q, tables, lengths, layer=, sm_scale=[,
-    num_splits=, block_k=])."""
+    num_splits=, block_k=]; ``fused`` also takes the variant ``opts``).
+    A window or softcap needs one split, as in JAX."""
     k_cache, v_cache, layer = _as_table(k_cache, v_cache, layer)
+    opts = opts or variant_options(None, 0, None)
+    n = _split_geometry(k_cache.shape[3], num_splits, block_k)[0]
+    if n != 1:
+        if opts["window"] is not None:
+            raise ValueError("sliding-window attention requires num_splits=1 (the fused kernel); "
+                             "splitting a windowed band across the cache buys nothing")
+        if opts["softcap"] is not None:
+            raise ValueError("attention softcapping requires num_splits=1 (the fused kernel); "
+                             "use num_splits=1 for Gemma-2-class models")
     if _quantized(k_cache, k_scales, v_scales):
         q, sm_scale = fold_k_scale(q, sm_scale, k_scales), 1.0
     else:
         v_scales = None
-    n = _split_geometry(k_cache.shape[3], num_splits, block_k)[0]
     if n == 1 and not partials:
-        o = fused(q, k_cache, v_cache, lengths, layer=layer, sm_scale=sm_scale)
+        o = fused(q, k_cache, v_cache, lengths, layer=layer, sm_scale=sm_scale, **opts)
         if v_scales is not None:  # the second rounding, as in JAX
             o = scale_heads(o, v_scales).to(q.dtype)
         return o
@@ -218,7 +285,8 @@ def lse_combine_splits(o_parts, m_parts, l_parts, dtype=None):
 # ----------------------------------------------------------------- kernel
 
 
-def _launch(q, k_cache, v_cache, lengths, layer, sm_scale, n, split_len, fused):
+def _launch(q, k_cache, v_cache, lengths, layer, sm_scale, n, split_len, fused, window=None,
+            sinks=0, softcap=None):
     """Run csrc/flash_decode.cu on one layer of the table; returns the
     normalized output (fused; q (B, Hq, D), or (B, Hq, T, D) to verify) or
     the (o, m, l) partials."""
@@ -235,8 +303,8 @@ def _launch(q, k_cache, v_cache, lengths, layer, sm_scale, n, split_len, fused):
         raise ValueError(f"the CUDA kernel takes fp32 or bf16 q and one cache dtype, got "
                          f"{q.dtype} / {k_cache.dtype} / {v_cache.dtype}")
     kv_code = kv_dtype_code(q.dtype, k_cache.dtype)
-    if d not in (64, 128):
-        raise ValueError(f"the CUDA kernel takes head_dim 64 or 128, got {d}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head_dim 64, 128 or 256, got {d}")
     if v_cache.shape != k_cache.shape or not (k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError("K and V tables must be contiguous and of one shape")
     if not 0 <= layer < l_:
@@ -256,23 +324,25 @@ def _launch(q, k_cache, v_cache, lengths, layer, sm_scale, n, split_len, fused):
         l = torch.empty((b, hq, n), dtype=torch.float32, device=q.device)
         parts = (o, m, l)
     scale = 1.0 / d**0.5 if sm_scale is None else float(sm_scale)
-    lib = _build.load("flash_decode", _SIGNATURES)
+    lib = _build.load(library(window, sinks, softcap), _SIGNATURES)
     with torch.cuda.device(q.device):
         err = lib.flash_decode(
             _build.ptr(q), k_ptr, v_ptr, _build.ptr(lengths),
             _build.ptr(out) if fused else None,
             *(None if t is None else _build.ptr(t) for t in parts),
             b, hq, hkv, s, d, n, split_len, qspan, scale, _CUDA_DTYPES[q.dtype], kv_code,
-            _build.stream_ptr(q.device),
+            *kernel_options(window, sinks, softcap), _build.stream_ptr(q.device),
         )
     _build.check(lib, err, "flash_decode")
     return out if fused else parts
 
 
-def _fused_kernel(q, k_cache, v_cache, lengths, *, layer, sm_scale):
+def _fused_kernel(q, k_cache, v_cache, lengths, *, layer, sm_scale, **opts):
     s = k_cache.shape[3]
-    out = _launch(q, k_cache, v_cache, lengths, layer, sm_scale, 1, s, fused=True)
+    out = _launch(q, k_cache, v_cache, lengths, layer, sm_scale, 1, s, fused=True, **opts)
     flash_decode.launches += 1
+    if opts["window"] is not None and opts["window"] < s:
+        flash_decode.launches_banded += 1
     return out
 
 
@@ -330,37 +400,42 @@ def flash_decode(
     dtype. When the split geometry gives one split, the kernel normalizes in
     place; otherwise it writes partials and :func:`lse_combine_splits`
     merges them. An int8 / fp8 cache needs its (Hkv,) ``k_scales`` and
-    ``v_scales`` (see the module doc). Each launch (either mode) counts once
-    in ``flash_decode.launches``."""
-    _reject_unported(window, sinks, softcap, max_len_hint)
+    ``v_scales`` (see the module doc). ``window``, ``sinks`` and ``softcap``
+    take one split. ``max_len_hint`` sizes the TPU grid and is unused (each
+    block walks its own row's length). Each launch (either mode) counts once
+    in ``flash_decode.launches``, and once more in ``launches_banded`` when
+    its window is narrower than the table (a sliding layer's band)."""
+    del max_len_hint
     if q.device.type == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, lengths, layer=layer, sm_scale=sm_scale,
                                   num_splits=num_splits, block_k=block_k, k_scales=k_scales,
-                                  v_scales=v_scales)
+                                  v_scales=v_scales, window=window, sinks=sinks, softcap=softcap)
     return _decode(q, k_cache, v_cache, lengths, layer, sm_scale, num_splits, block_k, k_scales,
-                   v_scales, _fused_kernel, _stats_kernel)
+                   v_scales, _fused_kernel, _stats_kernel,
+                   opts=variant_options(window, sinks, softcap))
 
 
 flash_decode.launches = 0
+flash_decode.launches_banded = 0  # those whose window band is narrower than the table
 
 
 # ----------------------------------------------------------------- verify
 
 
-def _verify_kernel(q, k_cache, v_cache, lengths, *, layer, sm_scale):
+def _verify_kernel(q, k_cache, v_cache, lengths, *, layer, sm_scale, **opts):
     s = k_cache.shape[3]
-    out = _launch(q, k_cache, v_cache, lengths, layer, sm_scale, 1, s, fused=True)
+    out = _launch(q, k_cache, v_cache, lengths, layer, sm_scale, 1, s, fused=True, **opts)
     flash_verify.launches += 1
     return out
 
 
 def flash_verify_plain(q, k_cache, v_cache, lengths, *, layer=None, sm_scale=None, block_k=256,
-                       k_scales=None, v_scales=None):
+                       k_scales=None, v_scales=None, window=None, sinks=0, softcap=None):
     """Plain twin of :func:`flash_verify`: token j is :func:`flash_decode_plain`
     (one split) at ``lengths + j``, exactly."""
     _check_span(q)
     return _decode(q, k_cache, v_cache, lengths, layer, sm_scale, 1, block_k, k_scales, v_scales,
-                   _fused_plain, None)
+                   _fused_plain, None, opts=variant_options(window, sinks, softcap))
 
 
 def _check_span(q):
@@ -389,13 +464,15 @@ def flash_verify(
     ``lengths[b] - 1 + j`` and attends KV positions ``< lengths[b] + j``.
     Returns (B, Hq, T, D) in q's dtype. Always one split (the JAX op has
     none); an int8 / fp8 cache folds its scales as :func:`flash_decode`
-    does. ``max_len_hint`` sizes the TPU grid and is unused. Each launch
-    counts once in ``flash_verify.launches``."""
-    _reject_unported(window, sinks, softcap, max_len_hint)
+    does; ``window``, ``sinks`` and ``softcap`` as in :func:`flash_decode`
+    (token j's band ends at ``lengths[b] + j``). ``max_len_hint`` sizes the
+    TPU grid and is unused. Each launch counts once in
+    ``flash_verify.launches``."""
+    del max_len_hint
     _check_span(q)
     fused = _fused_plain if q.device.type == "cpu" else _verify_kernel
     return _decode(q, k_cache, v_cache, lengths, layer, sm_scale, 1, block_k, k_scales, v_scales,
-                   fused, None)
+                   fused, None, opts=variant_options(window, sinks, softcap))
 
 
 flash_verify.launches = 0

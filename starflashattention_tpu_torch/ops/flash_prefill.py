@@ -13,8 +13,13 @@ that saw no valid position (the JAX contract, which the backward in
 Padded query rows (past a sequence's valid tokens) still produce values,
 which the caller discards.
 
-Options this port does not have yet (sliding window, sinks, softcap,
-``kv_offset``) raise ``NotImplementedError``.
+The serving prefill (causal, without the LSE) takes the attention variants:
+a sliding ``window`` (row p attends ``j > p - window``), ``sinks`` (``j <
+sinks`` stays attendable, with a window) and a ``softcap`` (``cap *
+tanh(s / cap)`` on the natural-unit scaled score, before the base-2
+conversion). Those options with ``return_lse`` or ``causal=False`` are the
+training forward's and raise ``NotImplementedError``, as ``kv_offset``
+(ring context parallelism) does. head_dim is 64, 128 or 256.
 """
 
 from __future__ import annotations
@@ -25,20 +30,37 @@ import torch
 
 from starflashattention_tpu_torch.core.reference import NEG_INF, mha_reference, repeat_kv
 from starflashattention_tpu_torch.ops import _build
+from starflashattention_tpu_torch.ops.flash_decode import (KERNEL_HEAD_DIMS, kernel_options,
+                                                           variant_options)
 
 LOG2E = math.log2(math.e)
 LSE_EMPTY = 3e38  # the LSE of a row with no valid KV position
 
 _SIGNATURES = {
-    "flash_prefill": [_build.P] * 7 + [_build.I] * 7 + [_build.F, _build.P],
+    "flash_prefill": [_build.P] * 7 + [_build.I] * 7 + [_build.F, _build.F, _build.I, _build.I,
+                                                      _build.F, _build.P],
 }
 
 
 def check_unported(window, sinks, softcap, kv_offset) -> None:
+    """The training attention (K5 with the LSE, K12) takes none of the
+    variants yet."""
     if window is not None or sinks or softcap is not None or kv_offset:
         raise NotImplementedError(
-            "prefill window / sinks / softcap / kv_offset are not ported yet "
-            "(ROADMAP Queue 2, K5 and K12 options)")
+            "training attention with window / sinks / softcap / kv_offset is not ported yet "
+            "(ROADMAP Queue 1 item 14a-train, Queue 2 K5 and K12 options)")
+
+
+def prefill_options(window, sinks, softcap, kv_offset, causal, return_lse) -> dict:
+    """The checked variants of a prefill call (see the module doc)."""
+    if kv_offset:
+        raise NotImplementedError("prefill kv_offset (ring context parallelism) is not ported "
+                                  "yet (ROADMAP Queue 1 item 16)")
+    if (return_lse or not causal) and (window is not None or sinks or softcap is not None):
+        raise NotImplementedError(
+            "window / sinks / softcap with return_lse or causal=False (the training forward) are "
+            "not ported yet (ROADMAP Queue 1 item 14a-train, Queue 2 K5 options)")
+    return variant_options(window, sinks, softcap)
 
 
 def scales(d: int, sm_scale: float | None) -> tuple[float, float]:
@@ -84,18 +106,22 @@ def prefill_lse_plain(q, k, lengths, q_offsets, *, causal, sm_scale) -> torch.Te
 
 
 def flash_prefill_plain(q, k, v, lengths=None, *, causal=True, q_offsets=None, sm_scale=None,
-                        return_lse=False):
-    """Plain PyTorch version: full-softmax attention at fp32 (and its LSE)."""
+                        return_lse=False, window=None, sinks=0, softcap=None):
+    """Plain PyTorch version: full-softmax attention at fp32 (and its LSE),
+    with the serving variants."""
+    opts = prefill_options(window, sinks, softcap, 0, causal, return_lse)
     lengths, q_offsets = _defaults(q, k, lengths, q_offsets)
     out = mha_reference(q, k, v, lengths=lengths, causal=causal, q_offset=q_offsets,
-                        sm_scale=sm_scale)
+                        sm_scale=sm_scale, sliding_window=opts["window"],
+                        attention_sinks=opts["sinks"], softcap=opts["softcap"])
     if not return_lse:
         return out
     return out, prefill_lse_plain(q, k, lengths, q_offsets, causal=causal, sm_scale=sm_scale)
 
 
-def check_card_inputs(what, q, k, v) -> None:
-    """The shapes and types the CUDA kernels of K5 and K12 take."""
+def check_card_inputs(what, q, k, v, head_dims=(64, 128)) -> None:
+    """The shapes and types the CUDA kernels of K5 (``head_dims`` 64, 128
+    and 256) and K12 (64 and 128) take."""
     b, hq, _, d = q.shape
     _, hkv, _, _ = k.shape
     if k.shape[0] != b or k.shape[3] != d or v.shape != k.shape or hq % hkv:
@@ -105,8 +131,9 @@ def check_card_inputs(what, q, k, v) -> None:
                          f"got {hq // hkv}")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise ValueError(f"{what}: the CUDA kernel takes bf16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if d not in (64, 128):
-        raise ValueError(f"{what}: the CUDA kernel takes head_dim 64 or 128, got {d}")
+    if d not in head_dims:
+        raise ValueError(f"{what}: the CUDA kernel takes head_dim {' or '.join(map(str, head_dims))}, "
+                         f"got {d}")
 
 
 def flash_prefill(
@@ -125,14 +152,15 @@ def flash_prefill(
     softcap: float | None = None,
 ):
     """Blockwise prefill attention -> (B, Hq, Sq, D) in q's dtype, and with
-    ``return_lse`` also the base-2 LSE (B, Hq, Sq) fp32."""
-    check_unported(window, sinks, softcap, kv_offset)
+    ``return_lse`` also the base-2 LSE (B, Hq, Sq) fp32; ``window``,
+    ``sinks`` and ``softcap`` as in the module doc."""
+    opts = prefill_options(window, sinks, softcap, kv_offset, causal, return_lse)
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, lengths, causal=causal, q_offsets=q_offsets,
-                                   sm_scale=sm_scale, return_lse=return_lse)
+                                   sm_scale=sm_scale, return_lse=return_lse, **opts)
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill: unsupported device {q.device}")
-    check_card_inputs("flash_prefill", q, k, v)
+    check_card_inputs("flash_prefill", q, k, v, KERNEL_HEAD_DIMS)
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     lengths, q_offsets = _defaults(q, k, lengths, q_offsets)
@@ -145,8 +173,8 @@ def flash_prefill(
         err = lib.flash_prefill(
             _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(lengths),
             _build.ptr(q_offsets), _build.ptr(out), None if lse is None else _build.ptr(lse),
-            b, hq, hkv, sq, skv, d, int(causal), scales(d, sm_scale)[1],
-            _build.stream_ptr(q.device),
+            b, hq, hkv, sq, skv, d, int(causal), *scales(d, sm_scale),
+            *kernel_options(**opts), _build.stream_ptr(q.device),
         )
     _build.check(lib, err, "flash_prefill")
     flash_prefill.launches += 1

@@ -4,7 +4,8 @@
 first ``lengths[b]`` positions of its sequence, read from the
 (L, Hkv, P, page_size, D) page pools through the (B, pages_per_seq) page
 table. On CUDA tensors it launches the paged mode of
-``csrc/flash_decode.cu`` (which replaces the TPU kernel
+``csrc/flash_decode.cu`` (or, with a window, sinks or softcap, of its
+variants build ``csrc/flash_decode_variants.cu``; it replaces the TPU kernel
 ``_paged_decode_kernel``): the same tile loop and online softmax as the
 contiguous decode (K1), with each KV row's address resolved through the
 table. On CPU tensors it runs :func:`paged_flash_decode_plain`.
@@ -15,10 +16,13 @@ rounded to q's dtype before the dot products. Int8 / fp8 pools fold
 then multiplies by 1); the kernel writes its output in fp32, which is
 multiplied by ``v_scale[h]`` and cast to q's dtype once (JAX
 paged_decode.py:341-346, :404-406). A row of length 0 gives exactly 0 (the
-JAX kernel also gives 0 there). Options this slice does not port (sliding
-window, sinks, softcap, a traced window) raise ``NotImplementedError``;
-``pages_per_compute_block`` and ``max_len_hint`` size the TPU grid and are
-accepted and unused (each block walks its own row's length).
+JAX kernel also gives 0 there). ``window``, ``sinks`` and ``softcap`` act as
+in ``ops/flash_decode.py`` (the softcap on the scaled, rounded q's scores);
+the kernel never reads a page table entry below a row's band that is not a
+sink, so pages the engine has reclaimed (entries set to the null page 0)
+are never read. ``pages_per_compute_block`` and ``max_len_hint`` size the
+TPU grid and are accepted and unused (each block walks its own row's
+length).
 """
 
 from __future__ import annotations
@@ -27,22 +31,16 @@ import torch
 
 from starflashattention_tpu_torch.core.reference import NEG_INF, repeat_kv
 from starflashattention_tpu_torch.ops import _build
-from starflashattention_tpu_torch.ops.flash_decode import (_quantized, fold_k_scale, kv_dtype_code,
-                                                           scale_heads)
+from starflashattention_tpu_torch.ops.flash_decode import (KERNEL_HEAD_DIMS, _quantized, cap_scores,
+                                                           fold_k_scale, in_band, kernel_options,
+                                                           kv_dtype_code, library, scale_heads,
+                                                           variant_options)
 
 _SIGNATURES = {
-    "paged_flash_decode": [_build.P] * 6 + [_build.I] * 7 + [_build.F] + [_build.I] * 3 + [_build.P],
+    "paged_flash_decode": [_build.P] * 6 + [_build.I] * 7 + [_build.F] + [_build.I] * 5
+    + [_build.F, _build.P],
 }
 _CUDA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _reject_unported(window, sinks, softcap):
-    if window is not None or sinks:
-        raise NotImplementedError(
-            "sliding-window / sink paged decode is not ported yet (ROADMAP Queue 2, K7 options)")
-    if softcap is not None:
-        raise NotImplementedError(
-            "attention softcap in paged decode is not ported yet (ROADMAP Queue 2, K7 options)")
 
 
 def _as_stack(k_pages, v_pages, layer):
@@ -60,7 +58,8 @@ def _scaled_q(q, sm_scale):
     return (q.float() * scale).to(q.dtype)
 
 
-def _core_plain(q, k_pages, v_pages, page_table, lengths, layer, sm_scale):
+def _core_plain(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, window=None, sinks=0,
+                softcap=None):
     """Gather each sequence's pages into a dense (B, Hkv, S, D) copy and run
     a masked fp32 softmax over q * sm_scale rounded to q's dtype -> fp32
     (B, Hq, D)."""
@@ -74,35 +73,41 @@ def _core_plain(q, k_pages, v_pages, page_table, lengths, layer, sm_scale):
 
     k = repeat_kv(dense(k_pages), hq // hkv).float()
     v = repeat_kv(dense(v_pages), hq // hkv).float()
-    scores = torch.einsum("bhd,bhkd->bhk", _scaled_q(q, sm_scale).float(), k)
-    mask = torch.arange(s, device=q.device)[None, None, :] < lengths.to(q.device)[:, None, None]
+    scores = cap_scores(torch.einsum("bhd,bhkd->bhk", _scaled_q(q, sm_scale).float(), k), softcap)
+    mask = in_band(torch.arange(s, device=q.device)[None, None, :],
+                   lengths.to(q.device)[:, None, None], window, sinks)
     scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
     p = torch.exp(scores - scores.amax(dim=-1, keepdim=True)) * mask
     l = p.sum(dim=-1, keepdim=True)
     return torch.einsum("bhk,bhkd->bhd", p, v) / torch.where(l == 0, torch.ones_like(l), l)
 
 
-def _paged(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, k_scales, v_scales, core):
+def _paged(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, k_scales, v_scales, core,
+           opts):
     """Shared by the kernel and the plain route: ``core(q, pools, table,
-    lengths, layer, sm_scale, out_f32)`` attends; quantized pools fold their
-    scales around it as the JAX wrapper does."""
+    lengths, layer, sm_scale, out_f32, **opts)`` attends; quantized pools
+    fold their scales around it as the JAX wrapper does."""
     k_pages, v_pages, layer = _as_stack(k_pages, v_pages, layer)
     if not _quantized(k_pages, k_scales, v_scales):
-        return core(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, False).to(q.dtype)
+        return core(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, False,
+                    **opts).to(q.dtype)
     o = core(fold_k_scale(q, sm_scale, k_scales), k_pages, v_pages, page_table, lengths, layer,
-             1.0, True)
+             1.0, True, **opts)
     return scale_heads(o, v_scales).to(q.dtype)  # one cast
 
 
 def paged_flash_decode_plain(q, k_pages, v_pages, page_table, lengths, *, layer=None,
-                             sm_scale=None, k_scales=None, v_scales=None):
-    """Plain PyTorch version -> (B, Hq, D) in q's dtype (quantized pools
-    included)."""
+                             sm_scale=None, k_scales=None, v_scales=None, window=None, sinks=0,
+                             softcap=None):
+    """Plain PyTorch version -> (B, Hq, D) in q's dtype (quantized pools and
+    the variants included)."""
     return _paged(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, k_scales, v_scales,
-                  lambda *a: _core_plain(*a[:-1]))
+                  lambda *a, **kw: _core_plain(*a[:-1], **kw),
+                  variant_options(window, sinks, softcap))
 
 
-def _core_kernel(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, out_f32):
+def _core_kernel(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, out_f32, window=None,
+                 sinks=0, softcap=None):
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_decode: unsupported device {q.device}")
     l_, hkv, num_pages, ps, d = k_pages.shape
@@ -113,8 +118,8 @@ def _core_kernel(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, out_
         raise ValueError(f"the CUDA kernel takes fp32 or bf16 q and one pool dtype, got "
                          f"{q.dtype} / {k_pages.dtype} / {v_pages.dtype}")
     kv_code = kv_dtype_code(q.dtype, k_pages.dtype)
-    if d not in (64, 128):
-        raise ValueError(f"the CUDA kernel takes head_dim 64 or 128, got {d}")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head_dim 64, 128 or 256, got {d}")
     if v_pages.shape != k_pages.shape or not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ValueError("K and V pools must be contiguous and of one shape")
     if page_table.dim() != 2 or page_table.shape[0] != b or lengths.shape != (b,):
@@ -128,13 +133,14 @@ def _core_kernel(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, out_
     layer_bytes = hkv * num_pages * ps * d * k_pages.element_size()
     out = torch.empty(q.shape, dtype=torch.float32 if out_f32 else q.dtype, device=q.device)
     scale = 1.0 / d**0.5 if sm_scale is None else float(sm_scale)
-    lib = _build.load("flash_decode", _SIGNATURES)
+    lib = _build.load(library(window, sinks, softcap), _SIGNATURES)
     with torch.cuda.device(q.device):
         err = lib.paged_flash_decode(
             _build.ptr(q), _build.P(k_pages.data_ptr() + layer * layer_bytes),
             _build.P(v_pages.data_ptr() + layer * layer_bytes), _build.ptr(lengths),
             _build.ptr(table), _build.ptr(out), b, hq, hkv, num_pages, ps, table.shape[1], d,
-            scale, _CUDA_DTYPES[q.dtype], kv_code, int(out_f32), _build.stream_ptr(q.device),
+            scale, _CUDA_DTYPES[q.dtype], kv_code, int(out_f32),
+            *kernel_options(window, sinks, softcap), _build.stream_ptr(q.device),
         )
     _build.check(lib, err, "paged_flash_decode")
     paged_flash_decode.launches += 1
@@ -158,15 +164,16 @@ def paged_flash_decode(
     sinks: int = 0,
     softcap: float | None = None,
 ) -> torch.Tensor:
-    """Paged decode attention -> (B, Hq, D) in q's dtype (kernel K7). Each
-    launch counts once in ``paged_flash_decode.launches``."""
-    _reject_unported(window, sinks, softcap)
+    """Paged decode attention -> (B, Hq, D) in q's dtype (kernel K7), with
+    the optional ``window`` / ``sinks`` / ``softcap``. Each launch counts
+    once in ``paged_flash_decode.launches``."""
     del pages_per_compute_block, max_len_hint  # TPU grid sizing; see the module doc
     if q.device.type == "cpu":
         return paged_flash_decode_plain(q, k_pages, v_pages, page_table, lengths, layer=layer,
-                                        sm_scale=sm_scale, k_scales=k_scales, v_scales=v_scales)
+                                        sm_scale=sm_scale, k_scales=k_scales, v_scales=v_scales,
+                                        window=window, sinks=sinks, softcap=softcap)
     return _paged(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, k_scales, v_scales,
-                  _core_kernel)
+                  _core_kernel, variant_options(window, sinks, softcap))
 
 
 paged_flash_decode.launches = 0

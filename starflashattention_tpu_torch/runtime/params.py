@@ -3,9 +3,9 @@
 A copy of the JAX package's ``runtime/params.py`` (``AttentionConfig`` and
 ``ModelConfig`` with every field and preset) that needs neither JAX nor
 PyTorch, so configs built on either side compare field for field. Fields
-the port's first slice does not run (MoE, MLA, sliding windows, softcaps,
-post-norms, embedding scale, non-silu activations) are still carried here;
-``models/llama.check_supported`` rejects them at the model's entry points.
+the port does not run yet (MoE, MLA) are still carried here;
+``models/llama.check_supported`` rejects them at the model's entry points,
+and ``models/train`` also the attention variants it does not train on.
 """
 
 from __future__ import annotations

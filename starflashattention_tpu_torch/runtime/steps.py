@@ -54,7 +54,8 @@ def attention_decode_step(
     them folded around the kernel."""
     if cfg.sliding_window is not None:
         raise NotImplementedError(
-            "sliding-window decode is not ported yet (ROADMAP Queue 2, K1 options)")
+            "attention_decode_step with a sliding window: the JAX step attends the whole cache "
+            "there (ROADMAP Queue 3), so it has no reference yet; models/llama decodes windows")
     pos = cache.lengths
     q = apply_rope(q, pos, cos_table, sin_table, style=cfg.rope_style)
     k_new = apply_rope(k_new, pos, cos_table, sin_table, style=cfg.rope_style)

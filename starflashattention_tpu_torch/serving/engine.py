@@ -29,9 +29,16 @@ speculative steps) in :class:`EngineStats`.
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
 item: ``mesh`` (multi-GPU, with or without ``spec_decode``: Queue 1 item
 16), ``lora_adapters`` / request adapters (item 14), ``run_resilient`` /
-``recover_device_state`` (item 17). The sliding-window
-page reclamation and sink pages of the JAX ``PagedEngine`` wait with K7's
-window option: ``check_supported`` refuses sliding-window configs.
+``recover_device_state`` (item 17).
+
+Sliding-window models on :class:`PagedEngine` keep a rolling buffer (JAX
+engine.py:985-1000, :1255-1305): before each decode round, the private
+pages that lie wholly below every future page walk are freed and their
+table entries set to the null page 0, and with attention sinks the pages
+that back the sink walk blocks are pinned instead (owned by the engine,
+kept in the table for good). Models whose window differs from layer to
+layer (``sliding_window_pattern != 1``) reclaim nothing: their full layers
+read every page.
 """
 
 from __future__ import annotations
@@ -655,6 +662,18 @@ class PagedEngine(Engine):
         # they precede the slot's private (handle-owned) pages in its table
         self._cached_pages: list[list[int]] = [[] for _ in range(num_slots)]
         self._cached_len = np.zeros((num_slots,), np.int64)
+        # Sliding-window rolling buffer: the count of leading private pages
+        # reclaimed per slot (null table entries the windowed walk never
+        # reads), and the pinned pages backing each slot's sink blocks.
+        self._reclaimed = np.zeros((num_slots,), np.int64)
+        self._sink_pages: list[list[int]] = [[] for _ in range(num_slots)]
+        # The JAX kernel's walk block (pages_per_compute_block adjusted to
+        # divide pages_per_seq): reclamation stays a whole block below its
+        # walk, so the page tables equal JAX's.
+        ppcb = min(cfg.pages_per_compute_block, self.pages_per_seq)
+        while self.pages_per_seq % ppcb:
+            ppcb -= 1
+        self._walk_block_pages = ppcb
         super().__init__(
             params, cfg, num_slots, steps_per_round, prefill_pad, prefill_chunk=prefill_chunk,
             mesh=mesh, enable_sampling=enable_sampling, return_logprobs=return_logprobs,
@@ -695,21 +714,28 @@ class PagedEngine(Engine):
             self._table_dirty = False
 
     def _write_row(self, slot: int) -> None:
+        """The slot's table row: shared prefix pages, pinned sink pages, null
+        entries for reclaimed pages, then the handle's surviving pages."""
         row = np.zeros((self.pages_per_seq,), np.int32)
         shared = self._cached_pages[slot]
         row[: len(shared)] = shared
+        sink = self._sink_pages[slot]
+        row[len(shared) : len(shared) + len(sink)] = sink
         if slot in self._handles:
             pages = self.pool.seq_pages(self._handles[slot])
-            row[len(shared) : len(shared) + len(pages)] = pages
+            off = len(shared) + len(sink) + int(self._reclaimed[slot])
+            row[off : off + len(pages)] = pages
         self._host_table[slot] = row
         self._table_dirty = True
 
     def _grow(self, slot: int, new_len: int) -> bool:
         """Extend the slot's private pages to cover ``new_len`` tokens
-        (prefix-cache pages already cover its first ``_cached_len``); on
-        exhaustion evict warm cached pages first, then return False (the
-        caller decides whom to preempt)."""
-        private = max(int(new_len) - int(self._cached_len[slot]), 0)
+        (prefix-cache pages already cover its first ``_cached_len``, and
+        pinned sink pages and reclaimed pages need no backing); on exhaustion
+        evict warm cached pages first, then return False (the caller decides
+        whom to preempt)."""
+        held = (len(self._sink_pages[slot]) + int(self._reclaimed[slot])) * self.page_size
+        private = max(int(new_len) - int(self._cached_len[slot]) - held, 0)
         while True:
             try:
                 self.pool.seq_extend(self._handles[slot], private, self.page_size)
@@ -728,10 +754,14 @@ class PagedEngine(Engine):
         handle = self._handles.pop(slot, None)
         if handle is not None:
             self.pool.seq_free(handle)
+        if self._sink_pages[slot]:
+            self.pool.free_raw(self._sink_pages[slot])
+            self._sink_pages[slot] = []
         if self._prefix is not None and self._cached_pages[slot]:
             self._prefix.release(self._cached_pages[slot])
         self._cached_pages[slot] = []
         self._cached_len[slot] = 0
+        self._reclaimed[slot] = 0
         if slot in self._admit_order:
             self._admit_order.remove(slot)
         self._host_len[slot] = 0
@@ -824,10 +854,46 @@ class PagedEngine(Engine):
             self._cached_len[slot] += run * self.page_size
             # the table row is unchanged (same physical ids, same order)
 
+    def _reclaim_window(self, active: np.ndarray) -> None:
+        """Sliding-window rolling buffer (JAX engine.py:1255-1305): free the
+        private pages below each active slot's current walk start, ``max(len
+        - window, 0) // bk`` walk blocks (bk = walk_block_pages * page_size;
+        the start only grows with the length, so those pages are dead for
+        good), and pin the ones that back the sink walk blocks. Runs before
+        the round's growth, so freed pages back this round's allocations."""
+        w = self.cfg.sliding_window
+        if w is None or self.cfg.sliding_window_pattern != 1:
+            return  # alternating full layers still read every page
+        wp = self._walk_block_pages
+        bk = wp * self.page_size
+        sinks = self.cfg.attention_sinks
+        sink_lp = -(-sinks // bk) * wp if sinks else 0  # logical pages the sink walk visits
+        for slot in list(self._admit_order):
+            if not active[slot] or slot not in self._handles:
+                continue
+            freeable = max(int(self._host_len[slot]) - w, 0) // bk * wp  # pre-round length
+            handle = self._handles[slot]
+            owned = len(self.pool.seq_pages(handle))
+            # first logical page the handle still owns
+            cur = (int(self._cached_len[slot]) // self.page_size + len(self._sink_pages[slot])
+                   + int(self._reclaimed[slot]))
+            pin = min(max(min(freeable, sink_lp) - cur, 0), owned)
+            if pin > 0:
+                self._sink_pages[slot].extend(self.pool.seq_release_prefix(handle, pin))
+                cur += pin
+            n = min(max(freeable - max(cur, sink_lp), 0), owned - pin)
+            if n > 0:
+                self.pool.free_raw(self.pool.seq_release_prefix(handle, n))
+                self._reclaimed[slot] += n
+            if pin > 0 or n > 0:
+                self._write_row(slot)
+
     def _before_decode(self, active: np.ndarray) -> np.ndarray:
-        """Grow every active slot to cover this round's appends; preempt the
-        youngest slots on exhaustion (their requests resume later)."""
+        """Reclaim out-of-window pages, then grow every active slot to cover
+        this round's appends; preempt the youngest slots on exhaustion (their
+        requests resume later)."""
         active = active.copy()
+        self._reclaim_window(active)
         for slot in list(self._admit_order):  # oldest first
             if not active[slot]:
                 continue
@@ -848,12 +914,19 @@ class PagedEngine(Engine):
         return active
 
     def _validate_tables(self, active: np.ndarray) -> None:
-        """Sanitizer pass on the exact host table the next round consumes."""
+        """Sanitizer pass on the exact host table the next round consumes;
+        reclaimed (null) entries sit between the shared prefix and pinned
+        sink pages and the first surviving private page."""
         from starflashattention_tpu_torch.utils import sanitize
 
+        reclaimed_below = None
+        if self.cfg.sliding_window is not None:
+            sink_kept = np.asarray([len(p) for p in self._sink_pages], np.int64)
+            reclaimed_below = self._cached_len // self.page_size + sink_kept + self._reclaimed
         sanitize.check_page_table(
             self._host_table, self._host_len, self.page_size, self.num_pages, active=active,
             shared_ok=self._prefix.resident_set() if self._prefix else None,
+            reclaimed_below=reclaimed_below,
         )
         pre = np.where(active, self._host_len - self.steps_per_round, 0)
         sanitize.check_append_window(pre, self.steps_per_round,

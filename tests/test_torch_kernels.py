@@ -663,3 +663,216 @@ def test_training_step_runs_on_the_kernels(cuda):
         assert grew == [2 * n, 2 * n, n, n]
         losses.append(float(loss))
     assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0]
+
+
+# ------------------------------------------------------------ attention variants
+
+# (window, sinks, softcap): a band, a band with sinks (inside and past the
+# first 32-row tile), a softcap, all of them
+VARIANTS = [(100, 0, None), (100, 4, None), (64, 40, None), (None, 0, 30.0), (100, 4, 50.0)]
+
+
+def _poison_below(x, starts, sinks, block=64):
+    """A copy of a (L, B, Hkv, S, D) table whose whole ``block``-row blocks
+    below each sequence's band start hold NaN (the sink blocks spared)."""
+    out = x.clone()
+    first = -(-sinks // block) * block
+    for b, lo in enumerate(starts.tolist()):
+        end = max(lo, 0) // block * block
+        if end > first:
+            out[:, b, :, first:end] = float("nan")
+    return out
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_decode_variants_match_plain(cuda, variant, d, dtype):
+    """K1 with a window, sinks and softcap at every head_dim; the rows
+    below each band hold NaN and change no bit of the output."""
+    w, sk, cap = variant
+    gen = _gen(cuda)
+    b, hq, hkv, s = 4, 8, 2, 512
+    q = torch.randn((b, hq, d), generator=gen, device=cuda, dtype=dtype)
+    k = torch.randn((2, b, hkv, s, d), generator=gen, device=cuda, dtype=dtype)
+    v = torch.randn((2, b, hkv, s, d), generator=gen, device=cuda, dtype=dtype)
+    lengths = torch.tensor([3, 512, 177, 300], dtype=torch.int32, device=cuda)
+    kw = dict(layer=1, num_splits=1, window=w, sinks=sk, softcap=cap)
+    out = flash_decode.flash_decode(q, k, v, lengths, **kw)
+    ref = flash_decode.flash_decode_plain(q, k, v, lengths, **kw)
+    tol = 4 * BF16_ULP if dtype == torch.bfloat16 else 1e-5
+    assert _max_err(out, ref) <= tol
+    if w is not None:
+        kp, vp = (_poison_below(x, lengths - w, sk) for x in (k, v))
+        assert torch.equal(flash_decode.flash_decode(q, kp, vp, lengths, **kw), out)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("d", [128, 256])
+def test_flash_verify_variants_match_plain_and_decode(cuda, variant, d):
+    w, sk, cap = variant
+    gen = _gen(cuda)
+    b, hq, hkv, s, t = 4, 8, 4, 512, 5
+    q = torch.randn((b, hq, t, d), generator=gen, device=cuda, dtype=torch.bfloat16)
+    k = torch.randn((1, b, hkv, s, d), generator=gen, device=cuda, dtype=torch.bfloat16)
+    v = torch.randn_like(k)
+    lengths = torch.tensor([1, 130, 300, s - t + 1], dtype=torch.int32, device=cuda)
+    kw = dict(layer=0, window=w, sinks=sk, softcap=cap)
+    out = flash_decode.flash_verify(q, k, v, lengths, **kw)
+    ref = flash_decode.flash_verify_plain(q, k, v, lengths, **kw)
+    assert _max_err(out, ref) <= 4 * BF16_ULP
+    for j in range(t):
+        dec = flash_decode.flash_decode(q[:, :, j], k, v, lengths + j, num_splits=1, **kw)
+        assert _max_err(out[:, :, j], dec) == 0.0
+    if w is not None:
+        kp, vp = (_poison_below(x, lengths - w, sk) for x in (k, v))
+        assert torch.equal(flash_decode.flash_verify(q, kp, vp, lengths, **kw), out)
+
+
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+def test_flash_decode_variants_on_quantized_kv_match_plain(cuda, kv):
+    gen = _gen(cuda)
+    b, hq, hkv, s, d = 4, 8, 2, 512, 256
+    q = torch.randn((b, hq, d), generator=gen, device=cuda, dtype=torch.bfloat16)
+    qmax = 127.0 if kv == "int8" else 448.0
+    ks = torch.tensor([5.0, 6.0], device=cuda) / qmax
+    k, v = (_quantized(torch.randn((1, b, hkv, s, d), generator=gen, device=cuda), kv, ks, 2)
+            for _ in range(2))
+    lengths = torch.tensor([3, 512, 177, 300], dtype=torch.int32, device=cuda)
+    kw = dict(layer=0, num_splits=1, window=100, sinks=4, softcap=50.0, k_scales=ks, v_scales=ks)
+    out = flash_decode.flash_decode(q, k, v, lengths, **kw)
+    ref = flash_decode.flash_decode_plain(q, k, v, lengths, **kw)
+    assert _ulps(out, ref) <= 3
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_decode_partials_head_dim_256_match_plain(cuda, dtype):
+    """K2 at Gemma-7B's head_dim (Hq = Hkv), 4 splits."""
+    gen = _gen(cuda)
+    q = torch.randn((3, 4, 256), generator=gen, device=cuda, dtype=dtype)
+    k = torch.randn((1, 3, 4, 1024, 256), generator=gen, device=cuda, dtype=dtype)
+    v = torch.randn_like(k)
+    lengths = torch.tensor([1, 600, 1024], dtype=torch.int32, device=cuda)
+    kw = dict(layer=0, num_splits=4, block_k=256)
+    o, m, l = flash_decode.flash_decode_with_stats(q, k, v, lengths, **kw)
+    o_r, m_r, l_r = flash_decode.flash_decode_with_stats_plain(q, k, v, lengths, **kw)
+    live = m_r > -1e30
+    assert (m - m_r)[live].abs().max().item() <= 1e-4
+    assert ((o - o_r) / l_r.clamp(min=1)[..., None])[live].abs().max().item() <= 1e-4
+    out = flash_decode.flash_decode(q, k, v, lengths, **kw)
+    tol = 4 * BF16_ULP if dtype == torch.bfloat16 else 1e-5
+    assert _max_err(out, flash_decode.flash_decode_plain(q, k, v, lengths, **kw)) <= tol
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("page_size", [16, 128])
+def test_paged_flash_decode_variants_match_plain(cuda, variant, d, page_size):
+    """K7 with the variants; the entries below each band (past the sink
+    pages) become the null page, which holds NaN: no bit of the output
+    moves."""
+    w, sk, cap = variant
+    k, v, table, lengths = _paged_setup(cuda, torch.bfloat16, page_size, d=d, pages_per_seq=512 // page_size)
+    lengths = torch.tensor([0, 512, 177, 300], dtype=torch.int32, device=cuda)
+    q = torch.randn((4, 8, d), generator=_gen(cuda), device=cuda, dtype=torch.bfloat16)
+    kw = dict(layer=1, window=w, sinks=sk, softcap=cap)
+    out = paged_decode.paged_flash_decode(q, k, v, table, lengths, **kw)
+    ref = paged_decode.paged_flash_decode_plain(q, k, v, table, lengths, **kw)
+    assert _max_err(out, ref) <= 4 * BF16_ULP and torch.all(out[0] == 0)
+    if w is not None:
+        nulled = table.clone()
+        first = -(-sk // page_size)
+        for b, n in enumerate(lengths.tolist()):
+            end = max(n - w, 0) // page_size
+            if end > first:
+                nulled[b, first:end] = 0
+        kp, vp = k.clone(), v.clone()
+        kp[:, :, 0], vp[:, :, 0] = float("nan"), float("nan")
+        assert torch.equal(paged_decode.paged_flash_decode(q, kp, vp, nulled, lengths, **kw), out)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("hq,hkv,d", [(8, 2, 128), (8, 4, 256), (4, 4, 256), (16, 2, 64)])
+def test_flash_prefill_variants_match_plain(cuda, variant, hq, hkv, d):
+    """K5 with the variants (D 256 stages Q in shared memory); the rows
+    below every chunk row's band hold NaN and change no bit."""
+    w, sk, cap = variant
+    gen = _gen(cuda)
+    q = torch.randn((2, hq, 100, d), generator=gen, device=cuda, dtype=torch.bfloat16)
+    k = torch.randn((2, hkv, 512, d), generator=gen, device=cuda, dtype=torch.bfloat16)
+    v = torch.randn_like(k)
+    q_off = torch.tensor([0, 330], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([90, 430], dtype=torch.int32, device=cuda)  # row 0: 10 padded queries
+    kw = dict(window=w, sinks=sk, softcap=cap)
+    if cap is not None:
+        kw["sm_scale"] = d**-0.5 * 1.5
+    out = flash_prefill.flash_prefill(q, k, v, lengths, q_offsets=q_off, **kw)
+    ref = flash_prefill.flash_prefill_plain(q, k, v, lengths, q_offsets=q_off, **kw)
+    for bi, n in enumerate([90, 100]):
+        assert _max_err(out[bi, :, :n], ref[bi, :, :n]) <= 2e-2
+    if w is not None:
+        kp, vp = (_poison_below(x[None], q_off - w + 1, sk)[0] for x in (k, v))
+        assert torch.equal(flash_prefill.flash_prefill(q, kp, vp, lengths, q_offsets=q_off, **kw), out)
+
+
+@pytest.mark.parametrize("kernel", ["decode", "verify", "paged", "prefill"])
+@pytest.mark.parametrize("drop", ["softcap", "sinks"])
+def test_variant_checks_see_the_softcap_and_the_sinks(cuda, kernel, drop):
+    """Each kernel agrees with its twin within 2 bf16 ulps of each element
+    (3 for K5, which rounds P to bf16), and the same kernel without the cap
+    of 50, or without the 4 sinks, lies over 10x that far from the twin, so
+    the check sees each option. For the cap, q is scaled so that the scores
+    (sm_scale 1/16) spread over several times the cap; the sinks are
+    checked on unscaled scores, where they hold a share of each row's
+    weight (with scores bent to the cap they may hold none)."""
+    gen = _gen(cuda)
+    b, hq, hkv, s, d, w = 2, 8, 4, 1024, 256, 256
+    kw = dict(sm_scale=1 / 16, window=w, sinks=4, softcap=50.0)
+    q_shape = {"verify": (b, hq, 5, d), "prefill": (b, hq, 128, d)}.get(kernel, (b, hq, d))
+    q = (torch.randn(q_shape, generator=gen, device=cuda) * (40 if drop == "softcap" else 1)).to(torch.bfloat16)
+    k = torch.randn((1, b, hkv, s, d), generator=gen, device=cuda, dtype=torch.bfloat16)
+    v = torch.randn_like(k)
+    lengths = torch.tensor([700, 1000], dtype=torch.int32, device=cuda)
+    if kernel == "paged":
+        k_pool, v_pool, table, _ = _paged_setup(cuda, torch.bfloat16, 64, d=d, b=b, hkv=hkv,
+                                                pages_per_seq=s // 64, layers=1)
+        run = lambda **o: paged_decode.paged_flash_decode(q, k_pool, v_pool, table, lengths,  # noqa: E731
+                                                         layer=0, **o)
+        plain = paged_decode.paged_flash_decode_plain(q, k_pool, v_pool, table, lengths, layer=0, **kw)
+    elif kernel == "prefill":
+        q_off = lengths - 128
+        run = lambda **o: flash_prefill.flash_prefill(q, k[0], v[0], lengths, q_offsets=q_off,  # noqa: E731
+                                                      **o)
+        plain = flash_prefill.flash_prefill_plain(q, k[0], v[0], lengths, q_offsets=q_off, **kw)
+    else:
+        fn = flash_decode.flash_verify if kernel == "verify" else flash_decode.flash_decode
+        extra = {} if kernel == "verify" else dict(num_splits=1)
+        run = lambda **o: fn(q, k, v, lengths, layer=0, **extra, **o)  # noqa: E731
+        plain = (flash_decode.flash_verify_plain if kernel == "verify" else flash_decode.flash_decode_plain)(
+            q, k, v, lengths, layer=0, **extra, **kw)
+    tol = 3 if kernel == "prefill" else 2
+    assert _ulps(run(**kw), plain) <= tol
+    dropped = {**kw, **({"softcap": None} if drop == "softcap" else {"sinks": 0})}
+    assert _ulps(run(**dropped), plain) > 10 * tol
+
+
+def test_variant_families_generate_on_the_kernels(cuda):
+    """Narrow Gemma-2 (softcaps, alternating windows, post-norms, D 256)
+    and Mistral (window + sinks) models: greedy generate on the card
+    launches the windowed kernels, and the engines agree with it."""
+    for cfg in (ModelConfig.gemma2_9b(vocab_size=512, hidden_size=256, intermediate_size=512,
+                                      num_layers=4, max_seq_len=512, sliding_window=64),
+                ModelConfig.mistral_7b(vocab_size=512, hidden_size=256, intermediate_size=512,
+                                       num_layers=2, num_q_heads=4, num_kv_heads=2, max_seq_len=512,
+                                       sliding_window=64, attention_sinks=4, num_splits=1)):
+        params = llama.init_params(cfg, _gen(cuda), device=cuda)
+        prompts = torch.randint(0, cfg.vocab_size, (2, 200), generator=_gen(cuda), device=cuda,
+                                dtype=torch.int32)
+        before = flash_decode.flash_decode.launches_banded
+        toks = llama.generate(params, cfg, prompts, torch.tensor([200, 150], device=cuda), 6, device=cuda)
+        assert flash_decode.flash_decode.launches_banded - before == 5 * sum(
+            llama._layer_window(cfg, i) < cfg.max_seq_len for i in range(cfg.num_layers))
+        eng = PagedEngine(params, cfg, num_slots=2, steps_per_round=2, page_size=16, device=cuda)
+        got = eng.generate([prompts[0].tolist(), prompts[1, :150].tolist()], max_new_tokens=6)
+        assert all(0 <= t < cfg.vocab_size for row in got for t in row)
+        assert toks.shape == (2, 6)

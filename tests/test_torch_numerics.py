@@ -29,6 +29,7 @@ from starflashattention_tpu_torch.core import quant as t_quant
 from starflashattention_tpu_torch.core import reference as t_ref
 from starflashattention_tpu_torch.core import rope as t_rope
 from starflashattention_tpu_torch.models import llama as t_llama
+from starflashattention_tpu_torch.models import train as t_train
 from starflashattention_tpu_torch.runtime import params as t_params
 from starflashattention_tpu_torch.utils import bridge
 
@@ -214,15 +215,26 @@ def test_config_fields_and_validation_match_jax():
 
 @pytest.mark.parametrize("preset", ["mixtral_8x7b", "deepseek_v2_lite", "gemma2_9b", "mistral_7b"])
 def test_unported_config_fields_raise(preset):
-    with pytest.raises(NotImplementedError):
-        t_llama.check_supported(getattr(t_params.ModelConfig, preset)())
+    """MoE and MLA are not served; Gemma-2 and Mistral are, but not trained."""
+    cfg = getattr(t_params.ModelConfig, preset)()
+    if preset in ("gemma2_9b", "mistral_7b"):
+        t_llama.check_supported(cfg)
+        with pytest.raises(NotImplementedError, match="14a-train"):
+            t_train._check_trainable({"layers": {}}, cfg, None, None)
+    else:
+        with pytest.raises(NotImplementedError):
+            t_llama.check_supported(cfg)
 
 
 @pytest.mark.parametrize("overrides", [dict(post_norms=True), dict(final_softcap=30.0),
                                        dict(mlp_activation="gelu_tanh"), dict(embed_scale=True)])
 def test_unported_tiny_options_raise(overrides):
-    with pytest.raises(NotImplementedError):
-        t_llama.init_params(t_params.ModelConfig.tiny(**overrides), device="cpu")
+    """Served, but training on them is not ported."""
+    cfg = t_params.ModelConfig.tiny(dtype="float32", **overrides)
+    params = t_llama.init_params(cfg, device="cpu")
+    cos, sin = t_llama.rope_tables(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="14a-train"):
+        t_train.forward_train(params, torch.zeros((1, 4), dtype=torch.int32), cfg, cos, sin)
 
 
 # ------------------------------------------------------------------ bridge

@@ -101,9 +101,12 @@ def test_length_zero_row_gives_zero(rng):
 
 @pytest.mark.parametrize("kwargs", [dict(window=8), dict(softcap=30.0), dict(window=8, sinks=2)])
 def test_flash_decode_unported_options_raise(rng, kwargs):
+    """The variants run on one split only: over several (K2) they raise
+    JAX's ValueError."""
     q, k, v, lengths = _decode_inputs(rng)
-    with pytest.raises(NotImplementedError):
-        t_fd.flash_decode(_t(q), _t(k), _t(v), _t(lengths), layer=0, num_splits=1, **kwargs)
+    with pytest.raises(ValueError, match="num_splits=1"):
+        t_fd.flash_decode(_t(q), _t(k), _t(v), _t(lengths), layer=0, num_splits=4, block_k=32,
+                          **kwargs)
 
 
 def _quantized_kv(rng, k, v, mode):
@@ -232,10 +235,14 @@ def test_flash_prefill_matches_jax(rng):
         np.testing.assert_allclose(out.numpy()[bi, :, :valid], ref[bi, :, :valid], atol=ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("kwargs", [dict(window=8), dict(sinks=2, window=8), dict(softcap=30.0),
+@pytest.mark.parametrize("kwargs", [dict(window=8, return_lse=True),
+                                    dict(sinks=2, window=8, return_lse=True),
+                                    dict(softcap=30.0, return_lse=True),
                                     dict(sinks=2, return_lse=True), dict(kv_offset=4),
                                     dict(window=8, causal=False)])
 def test_flash_prefill_unported_options_raise(rng, kwargs):
+    """The variants with the training forward's options (the LSE, non-causal)
+    and ``kv_offset`` are not ported."""
     q, k, v, q_off, lengths = _prefill_inputs(rng)
     with pytest.raises(NotImplementedError):
         t_fp.flash_prefill(_t(q), _t(k), _t(v), _t(lengths), q_offsets=_t(q_off), **kwargs)

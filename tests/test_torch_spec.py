@@ -179,9 +179,10 @@ def test_verify_token_j_is_decode_at_lengths_plus_j(rng, kv):
 
 
 def test_flash_verify_refuses_what_is_not_ported(rng):
+    """Sinks need a window (as in JAX); the span needs a (B, Hq, T, D) q."""
     q, k, v, lengths = _verify_inputs(rng, 2)
-    for kw in (dict(window=8), dict(softcap=30.0)):
-        with pytest.raises(NotImplementedError):
+    for kw in (dict(sinks=4), dict(window=0)):
+        with pytest.raises(ValueError):
             t_fd.flash_verify(_t(q), _t(k), _t(v), _t(lengths), layer=0, **kw)
     with pytest.raises(ValueError, match=r"\(B, Hq, T, D\)"):
         t_fd.flash_verify(_t(q[:, :, 0]), _t(k), _t(v), _t(lengths), layer=0)

@@ -415,7 +415,7 @@ def test_training_refuses_unported_paths():
     moe = t_params.ModelConfig.tiny(dtype="float32", num_experts=4, num_experts_per_tok=2)
     with pytest.raises(NotImplementedError, match="item 14"):
         t_train.forward_train(params, tokens, moe, cos, sin)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="14a-train"):
         t_train.forward_train(params, tokens, t_params.ModelConfig.tiny(dtype="float32", sliding_window=8),
                               cos, sin)
     with pytest.raises(ValueError, match="dense weights"):
