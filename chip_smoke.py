@@ -48,7 +48,20 @@ Phases (any failure raises and the script exits non-zero):
    clean cache's. The bounds count only the in-band rows and pairs; the
    library call is SDPA with the band mask, or with a softcap one compiled
    ``flex_attention`` call (the cap as its score_mod, the band as its
-   block mask), held to the twin like the kernel.
+   block mask), held to the twin like the kernel. The training forms of
+   the variants at phase 11's shapes (B=1, causal rows from 0): K5 with
+   the LSE and both K12 kernels with window 4096 and 4 sinks (Mistral-7B,
+   S 8192; the sinks made heavy, see ``_sink_heavy``), with softcap 50 at
+   head_dim 256 on a sliding (window 4096) and a full Gemma-2-9B layer (S
+   6144, q scaled so that the cap bends the scores) and at head_dim 256
+   without options (Gemma-7B, Hq = Hkv = 16, S 4608): each held to its
+   twin (the output within 3 bf16 ulps of each element, the LSE within
+   1e-4, each gradient within 2e-2 of its peak), K12 run twice for equal
+   bytes, and each option shown to move the result (the same kernels
+   without it lie over 4x each tolerance from the twins); timed beside a
+   compiled ``flex_attention`` forward and forward + backward (SDPA's for
+   Gemma-7B), the bounds counting the in-band pairs; the banded K12's
+   time is printed beside the unbanded one's at Mistral's shape.
 3. Slice: full-width ``ModelConfig.llama_7b_gqa`` (32 layers,
    max_seq_len 1024, random int8 weights and int8 lm_head from a seeded
    generator, bf16 KV cache): greedy ``generate`` on 8 ragged prompts for
@@ -147,6 +160,32 @@ Phases (any failure raises and the script exits non-zero):
    ``generate`` on 4 prompts of 1,000-1,500 tokens (K2). (d) 4 Gemma-2
    layers, phase 4's check on 2 prompts of 4,500 and 4,700 tokens (sliding
    and full layers past the window). Prints TTFT, decode tokens/s and each
+   sub-phase's seconds.
+11. Training on the attention variants at full width (bf16, seeded random
+   init; each model freed before the next). (a) ``ModelConfig.mistral_7b()``
+   as published (32 layers, window 4096): three ``train.train_step`` (SGD,
+   momentum 0.9, lr 1.0, remat) on one seeded (1, 8193) batch, so that the
+   rows past 4096 attend a band: finite losses that fall, and per step 64
+   banded K5 forwards with the LSE, 32 banded dq and 32 banded dk/dv
+   launches and nothing else; ms a step, tokens/s, peak memory, then one
+   step under torch.profiler (device time by kind, the idle share). (b)
+   ``ModelConfig.gemma2_9b()`` (42 layers, 21 sliding at window 4096, 21
+   full; softcaps 50 / 30, head_dim 256, vocab 256000): LoRA rank 16 on the
+   four targets, three SGD steps (lr 1) on a seeded (1, 6145) batch: the
+   loss falls, the base's bytes do not change (checksums), and per step
+   the sliding layers launch 42 banded K5 forwards and 21 banded dq and
+   dk/dv, the full layers as many unbanded; then ``lora.merge``: the
+   merged model, cut to its first 4 layers, gives ``llama.prefill`` logits at the
+   last positions of 2 prompts of 4,500 and 4,700 tokens within 5% of the
+   largest logit of the adapted ``forward_train``'s (see
+   MERGE_CHECK_LAYERS); printed beside it, at all 42 layers, the serving
+   prefill (fp32 projections) against ``forward_train`` (bf16 projections)
+   on the base and on the merged model and the merge's rounding; then
+   greedy ``llama.generate`` of 8 tokens on the prompts through the
+   kernels. (c) 2 layers at full width, B=1, S=4608: every
+   parameter's gradient through the kernels against plain attention's,
+   within 5e-2 of its peak, for Mistral-7B with 4 sinks, Gemma-2-9B (layer
+   0 sliding, layer 1 full) and Gemma-7B (head_dim 256, G 1). Prints each
    sub-phase's seconds.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
@@ -256,6 +295,28 @@ VARIANT_ENTRIES = {
     "gemma2_prefill": "flash_prefill D256 softcap + window 4096 (Gemma-2)",
     "mistral_prefill": "flash_prefill window 4096 + 4 sinks (Mistral-7B)",
 }
+TRAIN_VARIANT_SEQ = {"mistral": 8192, "gemma2": 6144, "gemma": 4608}  # phase 11's (a), (b), (c)
+TRAIN_MERGE_PROMPTS = (4500, 4700)  # 11b's merged-model prompts: past the 4096 window
+# 11b's merge check runs the first 4 layers (2 sliding, 2 full): through all
+# 42 layers of the random-init bf16 Gemma-2-9B, one bf16 rounding moved its
+# last-position logits by 1.7-1.9 of 30 whichever route (the serving prefill
+# against forward_train on the base model alone: 1.887; this script on an
+# H100 80GB HBM3 at 700 W), as much as the adapters' own effect (2.891)
+MERGE_CHECK_LAYERS = 4
+TRAIN_VARIANT_ENTRIES = {
+    "mistral_fwd": "flash_prefill return_lse window 4096 + 4 sinks (Mistral-7B training)",
+    "mistral_dq": "flash_bwd_dq window 4096 + 4 sinks (Mistral-7B)",
+    "mistral_dkdv": "flash_bwd_dkdv window 4096 + 4 sinks (Mistral-7B)",
+    "gemma2_fwd": "flash_prefill return_lse D256 softcap + window 4096 (Gemma-2 training, sliding layers)",
+    "gemma2_dq": "flash_bwd_dq D256 softcap + window 4096 (Gemma-2 sliding layers)",
+    "gemma2_dkdv": "flash_bwd_dkdv D256 softcap + window 4096 (Gemma-2 sliding layers)",
+    "gemma2_full_fwd": "flash_prefill return_lse D256 softcap (Gemma-2 training, full layers)",
+    "gemma2_full_dq": "flash_bwd_dq D256 softcap (Gemma-2 full layers)",
+    "gemma2_full_dkdv": "flash_bwd_dkdv D256 softcap (Gemma-2 full layers)",
+    "gemma_fwd": "flash_prefill return_lse D256 (Gemma-7B training)",
+    "gemma_dq": "flash_bwd_dq D256 (Gemma-7B)",
+    "gemma_dkdv": "flash_bwd_dkdv D256 (Gemma-7B)",
+}
 
 
 def log(*args):
@@ -325,7 +386,30 @@ def phase_device_and_build():
         spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill stores", r["ptxas"]))
         log(f"[build] {name}: {len(regs)} kernels, registers per thread up to {max(regs, default=0)}, "
             f"spill stores {spills} bytes")
+        if name in ("flash_prefill", "flash_bwd"):
+            for kernel, regs, spill in _kernel_resources(r["ptxas"]):
+                if kernel.split("<")[1].startswith("256") or spill:
+                    log(f"[build]   {kernel}: {regs} registers, spill stores {spill} bytes")
     return smi
+
+
+def _kernel_resources(ptxas):
+    """[(kernel<template args>, registers, spill store bytes)] from ``nvcc
+    -Xptxas -v`` output (args: head_dim, then the flags as 0 / 1)."""
+    out, kernel, spill = [], None, 0
+    for line in ptxas.splitlines():
+        m = re.search(r"Compiling entry function '\S*?\d(flash_[a-z_]*_kernel)I((?:L[ib]-?\d+E)+)", line)
+        if m:
+            kernel = f"{m.group(1)}<{','.join(re.findall(r'L[ib](-?[0-9]+)E', m.group(2)))}>"
+            spill = 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and kernel:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            out.append((kernel, int(m.group(1)), spill))
+            kernel = None
+    return out
 
 
 # ---------------------------------------------------------------- phase 2
@@ -542,6 +626,7 @@ def phase_kernels(dev, timer):
         library_ms=timer(lambda: F.scaled_dot_product_attention(q, kk, vv, attn_mask=mask)))
     del q, k, v, kk, vv, mask
     res.update(_train_kernels(dev, timer, gen))
+    res.update(_train_variant_kernels(dev, timer, gen))
     for name, r in res.items():
         log(f"[time] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
             f"{'none' if r['library_ms'] is None else format(r['library_ms'], '.4f') + ' ms'}, "
@@ -669,6 +754,230 @@ def _train_kernels(dev, timer, gen):
         f"max abs errors dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} (relative to each peak "
         f"{rels[0]:.3e}, {rels[1]:.3e}, {rels[2]:.3e})")
     del q, k, v, do, o, lse, delta, grads, again, leaves
+    torch.cuda.empty_cache()
+    return res
+
+
+def _sink_heavy(q, k, sinks, gen):
+    """q and k with the sinks made heavy, as trained models' sinks are: every
+    query gains a shared direction u (half a typical row) and the sink keys
+    lie along u, so that each row gives its sinks a share of its weight
+    (with random q and k, 4 sinks beside 4096 band keys hold a thousandth,
+    which no check at these tolerances could see)."""
+    d = q.shape[-1]
+    u = torch.randn((d,), generator=gen, device=q.device)
+    u = u / u.norm() * d**0.5
+    q = (q.float() + 0.5 * u).to(q.dtype)
+    k = k.clone()
+    k[:, :, :sinks] = u.to(k.dtype)
+    return q, k
+
+
+def _flex_train(q, k, v, do, window, sinks, softcap, scale):
+    """One compiled ``flex_attention`` call on a training step's causal
+    rows (the band and the sinks as the block mask, the cap as the
+    score_mod): (forward, forward + backward -> the gradients)."""
+    base = torch.ones((q.shape[0],), dtype=torch.int32, device=q.device)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    call = _flex_call(*leaves, base, window, sinks, softcap, scale)
+
+    def fwd():
+        with torch.no_grad():
+            return call()
+
+    def fwd_bwd():
+        return torch.autograd.grad(call(), leaves, do)
+
+    return fwd, fwd_bwd
+
+
+def _train_variant_kernels(dev, timer, gen):
+    """K5 with the LSE and K12 with the variants at phase 11's shapes: the
+    training step's causal rows (B=1, q_offsets 0, no padding). Mistral-7B
+    (Hq 32, Hkv 8, D 128, S 8192, window 4096, 4 sinks), Gemma-2-9B (Hq 16,
+    Hkv 8, D 256, softcap 50, sm_scale 1/16, S 6144; a sliding layer's
+    window 4096 and a full layer's none) and Gemma-7B (Hq = Hkv = 16, D 256,
+    S 4608, no option). Each form is held to its plain twin (the output in
+    bf16 ulps of each element, the LSE within 1e-4, each gradient within
+    2e-2 of its peak), K12 run twice for equal bytes, and each option is
+    shown to move the result: the same kernels run without it lie over 4x
+    each tolerance from the twin (dq over the rows the option acts on,
+    past the window for the window and the sinks, against their own peak;
+    Gemma-2's q is scaled so that the cap bends its scores, and unscaled
+    for its window; Mistral's sinks are made heavy, see _sink_heavy).
+    Timed beside the twins and one library call: a compiled
+    ``flex_attention`` forward, and forward + backward less the forward for
+    K12 (SDPA's for Gemma-7B, which has no option); the bounds count the
+    in-band pairs. Prints the banded K12 against the unbanded one at
+    Mistral's shape (ratio expected near the 0.75 of the pairs)."""
+    import torch.nn.functional as F
+
+    from starflashattention_tpu_torch.ops.flash_bwd import (bwd_delta, flash_bwd_dkdv, flash_bwd_dkdv_plain,
+                                                            flash_bwd_dq, flash_bwd_dq_plain)
+    from starflashattention_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_plain
+
+    bf16, e, res = torch.bfloat16, TRAIN_VARIANT_ENTRIES, {}
+    tol = 2e-2  # of each gradient's peak: P and dS rounded to bf16 on the kernels' side
+
+    def grads(q, k, v, do, lens, kw):
+        o, lse = flash_prefill(q, k, v, lens, return_lse=True, **kw)
+        delta = bwd_delta(o, do)
+        return o, lse, delta, (flash_bwd_dq(q, k, v, lse, do, delta, lens, **kw),
+                               *flash_bwd_dkdv(q, k, v, lse, do, delta, lens, **kw))
+
+    def rel(got, refs):
+        return [(a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1e-30)
+                for a, b in zip(got, refs)]
+
+    def group(tag, keys, q, k, v, do, kw, drops, library):
+        """One form: checks, the options' sensitivity, times. ``keys`` =
+        (forward, dq, dk/dv) entries; ``drops`` = [(what, overrides, a
+        factor for q or None, the first q row the option acts on)];
+        ``library(out_ref)`` -> (forward ms, backward ms) or None."""
+        b, hq, s, d = q.shape
+        hkv = k.shape[1]
+        lens = torch.full((b,), s, dtype=torch.int32, device=dev)
+        shape = f"B={b} Hq={hq} Hkv={hkv} D={d} S={s}"
+        o, lse, delta, got = grads(q, k, v, do, lens, kw)
+        ref, lse_ref = flash_prefill_plain(q, k, v, lens, return_lse=True, **kw)
+        _check_ulps(f"{keys[0]} {shape} output", o, ref, 2)
+        lse_err = (lse - lse_ref).abs().max().item()
+        _check(f"{keys[0]} {shape} lse", lse_err, 1e-4)
+        _check(f"{keys[0]}: output bytes equal to the call without the LSE",
+               0.0 if torch.equal(o, flash_prefill(q, k, v, lens, **kw)) else float("inf"), 0.0)
+        refs = (flash_bwd_dq_plain(q, k, v, lse, do, delta, lens, **kw),
+                *flash_bwd_dkdv_plain(q, k, v, lse, do, delta, lens, **kw))
+        rels = rel(got, refs)
+        for name, r in zip(("dq", "dk", "dv"), rels):
+            _check(f"{keys[1 if name == 'dq' else 2]} {shape} {name}", r, tol, what="max abs error over the peak")
+        again = (flash_bwd_dq(q, k, v, lse, do, delta, lens, **kw),
+                 *flash_bwd_dkdv(q, k, v, lse, do, delta, lens, **kw))
+        _check(f"{tag} K12 two runs, bytes that differ",
+               float(sum(int((a.view(torch.int16) != g.view(torch.int16)).sum()) for a, g in zip(again, got))), 0.0)
+        del again
+        for what, over, q_scale, r0 in drops:
+            if q_scale is None:
+                qd, ref_d, refs_d = q, ref, refs
+            else:  # another q, on which the option holds weight: its own twins
+                qd = (q.float() * q_scale).to(q.dtype)
+                _, lse_d, delta_d, _ = grads(qd, k, v, do, lens, kw)
+                ref_d = flash_prefill_plain(qd, k, v, lens, **kw)
+                refs_d = (flash_bwd_dq_plain(qd, k, v, lse_d, do, delta_d, lens, **kw),
+                          *flash_bwd_dkdv_plain(qd, k, v, lse_d, do, delta_d, lens, **kw))
+            o2, _, _, got2 = grads(qd, k, v, do, lens, {**kw, **over})
+            # dq from row r0 on, the rows the option acts on, against their own peak
+            fwd_ulps = _ulps(o2, ref_d)
+            bwd_rel = max(rel((got2[0][:, :, r0:], *got2[1:]), (refs_d[0][:, :, r0:], *refs_d[1:])))
+            ok = fwd_ulps > 4 * 3.0 and bwd_rel > 4 * tol
+            log(f"[kernel] {tag} without {what}: the output {fwd_ulps:.3e} bf16 ulps and the gradients "
+                f"{bwd_rel:.3e} of their peaks from the twins, over 4x the tolerances (3 ulps, {tol}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{tag}: {what} does not move the result past the checks' tolerances")
+            del o2, got2, qd, ref_d, refs_d
+        pos = torch.arange(s, device=dev) + 1
+        pairs = b * hq * int(_attended_rows(pos, kw.get("window"), kw.get("sinks", 0)).sum())
+        qb, kvb, rowb = q.numel() * 2, k.numel() * 2, b * hq * s * 4
+        lib = library(ref, refs)
+        fwd_bnd = bound_ms(qb + 2 * kvb + qb + rowb, 4 * d * pairs)
+        res[keys[0]] = dict(
+            max_abs_err=(o.float() - ref.float()).abs().max().item(),
+            ms=timer(lambda: flash_prefill(q, k, v, lens, return_lse=True, **kw)),
+            plain_ms=timer(lambda: flash_prefill_plain(q, k, v, lens, return_lse=True, **kw), iters=5),
+            bound_ms=fwd_bnd[0], bound_by=fwd_bnd[1], library_ms=None if lib is None else lib[0])
+        ins = qb + 2 * kvb + qb + 2 * rowb  # q, k, v, do, lse, delta
+        abs_errs = [(a.float() - r.float()).abs().max().item() for a, r in zip(got, refs)]
+        for key, fn, plain, n_out, ops, err in (
+                (keys[1], flash_bwd_dq, flash_bwd_dq_plain, qb, 6 * d, abs_errs[0]),
+                (keys[2], flash_bwd_dkdv, flash_bwd_dkdv_plain, 2 * kvb, 8 * d, max(abs_errs[1:]))):
+            bnd, by = bound_ms(ins + n_out, ops * pairs)
+            res[key] = dict(max_abs_err=err,
+                            ms=timer(lambda fn=fn: fn(q, k, v, lse, do, delta, lens, **kw)),
+                            plain_ms=timer(lambda plain=plain: plain(q, k, v, lse, do, delta, lens, **kw), iters=5),
+                            bound_ms=bnd, bound_by=by, library_ms=None if lib is None else lib[1])
+        log(f"[time] {tag} {shape}: K5 with the LSE {res[keys[0]]['ms']:.4f} ms, K12 dq {res[keys[1]]['ms']:.4f} "
+            f"ms, dk/dv {res[keys[2]]['ms']:.4f} ms (bounds {res[keys[0]]['bound_ms']:.4f} / "
+            f"{res[keys[1]]['bound_ms']:.4f} / {res[keys[2]]['bound_ms']:.4f} ms, {pairs / (b * hq):.0f} pairs a head); "
+            f"library {'none' if lib is None else f'forward {lib[0]:.4f} ms, backward {lib[1]:.4f} ms'}")
+        del o, lse, delta, got, ref, lse_ref, refs
+        torch.cuda.empty_cache()
+        return lens
+
+    def flex_library(tag, q, k, v, do, kw, scale):
+        def library(ref, refs):
+            """flex_attention held to the twins (its forward within
+            LIBRARY_ULPS, its gradients within 5e-2 of each peak: its own
+            bf16 roundings; a wrong mask or cap is off by far more)."""
+            try:
+                fwd, fwd_bwd = _flex_train(q, k, v, do, kw.get("window"), kw.get("sinks", 0),
+                                           kw.get("softcap"), scale)
+                out, g = fwd(), fwd_bwd()
+            except Exception as exc:  # noqa: BLE001 (the yardstick only: the kernels' checks stand)
+                log(f"[time] {tag}: flex_attention does not run here ({type(exc).__name__}: "
+                    f"{str(exc).splitlines()[0][:160]}); library_ms null")
+                return None
+            _check_ulps(f"{tag} library call (flex_attention) output", out, ref, LIBRARY_ULPS - 1)
+            _check(f"{tag} library call (flex_attention) gradients", max(rel(g, refs)), 5e-2,
+                   what="max abs error over the peak")
+            del out, g
+            t_fwd = timer(fwd)
+            return t_fwd, timer(fwd_bwd) - t_fwd
+        return library
+
+    # -- Mistral-7B: window 4096 + 4 sinks, D 128, S 8192
+    hq, hkv, d, s = 32, 8, 128, TRAIN_VARIANT_SEQ["mistral"]
+    w, sk = VARIANT_WINDOW, VARIANT_SINKS
+    q, do = (torch.randn((1, hq, s, d), generator=gen, device=dev, dtype=bf16) for _ in range(2))
+    k, v = (torch.randn((1, hkv, s, d), generator=gen, device=dev, dtype=bf16) for _ in range(2))
+    q, k = _sink_heavy(q, k, sk, gen)
+    kw = dict(window=w, sinks=sk)
+    lens = group("Mistral-7B training", (e["mistral_fwd"], e["mistral_dq"], e["mistral_dkdv"]), q, k, v, do, kw,
+                 [("the sinks", dict(sinks=0), None, w), ("the window", dict(window=None, sinks=0), None, w)],
+                 flex_library("Mistral-7B training", q, k, v, do, kw, d**-0.5))
+    o, lse = flash_prefill(q, k, v, lens, return_lse=True)
+    delta = bwd_delta(o, do)
+    t_full = (timer(lambda: flash_bwd_dq(q, k, v, lse, do, delta, lens)),
+              timer(lambda: flash_bwd_dkdv(q, k, v, lse, do, delta, lens)))
+    band = res[e["mistral_dq"]]["ms"], res[e["mistral_dkdv"]]["ms"]
+    pos = torch.arange(s, device=dev) + 1
+    share = int(_attended_rows(pos, w, sk).sum()) / (s * (s + 1) // 2)
+    log(f"[time] K12 at Mistral-7B's shape: banded dq {band[0]:.4f} / dk/dv {band[1]:.4f} ms, unbanded causal "
+        f"{t_full[0]:.4f} / {t_full[1]:.4f} ms: ratios {band[0] / t_full[0]:.3f} / {band[1] / t_full[1]:.3f} "
+        f"(in-band share of the causal pairs {share:.3f})")
+    del q, k, v, do, o, lse, delta
+
+    # -- Gemma-2-9B: D 256, softcap 50, sm_scale 1/16, S 6144; sliding and full layers
+    hq, hkv, d, s = 16, 8, 256, TRAIN_VARIANT_SEQ["gemma2"]
+    sm = 256.0**-0.5
+    q = (torch.randn((1, hq, s, d), generator=gen, device=dev) * GEMMA2_Q_SCALE).to(bf16)
+    do = torch.randn((1, hq, s, d), generator=gen, device=dev, dtype=bf16)
+    k, v = (torch.randn((1, hkv, s, d), generator=gen, device=dev, dtype=bf16) for _ in range(2))
+    for tag, keys, win in (
+            ("Gemma-2-9B training, sliding layer", ("gemma2_fwd", "gemma2_dq", "gemma2_dkdv"), w),
+            ("Gemma-2-9B training, full layer", ("gemma2_full_fwd", "gemma2_full_dq", "gemma2_full_dkdv"), None)):
+        kw = dict(sm_scale=sm, window=win, softcap=GEMMA2_SOFTCAP)
+        # the window on unscaled q: scores bent to the cap put nearly all of a
+        # row's weight on its few largest keys, wherever they lie
+        drops = [("the softcap", dict(softcap=None), None, 0)] + (
+            [("the window", dict(window=None), 1 / GEMMA2_Q_SCALE, win)] if win else [])
+        group(tag, tuple(e[x] for x in keys), q, k, v, do, kw, drops, flex_library(tag, q, k, v, do, kw, sm))
+    del q, k, v, do
+
+    # -- Gemma-7B: D 256, Hq = Hkv = 16, S 4608, no option (library: SDPA)
+    hq, hkv, d, s = 16, 16, 256, TRAIN_VARIANT_SEQ["gemma"]
+    q, do = (torch.randn((1, hq, s, d), generator=gen, device=dev, dtype=bf16) for _ in range(2))
+    k, v = (torch.randn((1, hkv, s, d), generator=gen, device=dev, dtype=bf16) for _ in range(2))
+
+    def sdpa_library(ref, refs):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        t_fwd = timer(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+        t_all = timer(lambda: torch.autograd.grad(F.scaled_dot_product_attention(*leaves, is_causal=True),
+                                                  leaves, do))
+        return t_fwd, t_all - t_fwd
+
+    group("Gemma-7B training", (e["gemma_fwd"], e["gemma_dq"], e["gemma_dkdv"]), q, k, v, do, {}, [],
+          sdpa_library)
+    del q, k, v, do
     torch.cuda.empty_cache()
     return res
 
@@ -905,11 +1214,15 @@ def _flex_call(q, k, v, base, window, sinks, softcap, scale):
     """One ``flex_attention`` call (compiled) computing a variant kernel's
     function: query row i of sequence b attends the KV rows below
     ``base[b] + i`` that lie in its band or are sinks (the block mask, built
-    here once), and ``softcap`` caps the scaled scores (the score_mod).
+    here once), and ``softcap`` (if any) caps the scaled scores (the
+    score_mod).
     q (B, Hq, Lq, D); k, v (B, Hkv, S, D). Returns the call."""
     from torch.nn.attention.flex_attention import create_block_mask, flex_attention
 
     if not _FLEX:
+        # one compiled program per row's shapes and closures; past dynamo's
+        # default of 8 the call would quietly run eagerly
+        torch._dynamo.config.cache_size_limit = 64
         _FLEX.append(torch.compile(flex_attention, dynamic=False))
     window = k.shape[2] + 2 if window is None else window
 
@@ -921,7 +1234,8 @@ def _flex_call(q, k, v, base, window, sinks, softcap, scale):
         return softcap * torch.tanh(score / softcap)
 
     mask = create_block_mask(band, q.shape[0], None, q.shape[2], k.shape[2], device=q.device)
-    return lambda: _FLEX[0](q, k, v, score_mod=cap, block_mask=mask, scale=scale, enable_gqa=True)
+    score_mod = None if softcap is None else cap
+    return lambda: _FLEX[0](q, k, v, score_mod=score_mod, block_mask=mask, scale=scale, enable_gqa=True)
 
 
 def _variant_kernels(dev, timer, gen):
@@ -1372,7 +1686,10 @@ def _counters():
 _SUBSETS = (("flash_decode", "launches_banded", "flash_decode_banded"),
             ("quant_matmul", "launches_tiled", "quant_matmul_tiled"),
             ("quant_matmul_int4", "launches_tiled", "quant_matmul_int4_tiled"),
-            ("flash_prefill", "launches_lse", "flash_prefill_lse"))
+            ("flash_prefill", "launches_lse", "flash_prefill_lse"),
+            ("flash_prefill", "launches_lse_banded", "flash_prefill_lse_banded"),
+            ("flash_bwd_dq", "launches_banded", "flash_bwd_dq_banded"),
+            ("flash_bwd_dkdv", "launches_banded", "flash_bwd_dkdv_banded"))
 
 
 def reset_counts():
@@ -2415,6 +2732,258 @@ def _named_leaves(tree, prefix=""):
     return [(prefix[:-1], tree)]
 
 
+# ---------------------------------------------------------------- phase 11
+
+
+def _train_variant_counts(n_layers, banded_layers):
+    """One training step's counts on a variant model: K5 with the LSE 2 L
+    times (remat reruns it), each K12 kernel L times, the sliding layers'
+    launches apart, nothing else."""
+    return zero_counts(flash_prefill=2 * n_layers, flash_prefill_lse=2 * n_layers,
+                       flash_prefill_lse_banded=2 * banded_layers, flash_bwd_dq=n_layers,
+                       flash_bwd_dq_banded=banded_layers, flash_bwd_dkdv=n_layers,
+                       flash_bwd_dkdv_banded=banded_layers)
+
+
+def _sliding_layers(cfg):
+    from starflashattention_tpu_torch.models import train
+
+    return sum(train._train_window(cfg, i) is not None for i in range(cfg.num_layers))
+
+
+def _checksums(tree):
+    """Per leaf and layer slice, the sum and the sum of squares of the raw
+    16-bit words: any update of a weight moves them."""
+    from starflashattention_tpu_torch.models import train
+
+    sums = []
+    for leaf in train.tree_leaves(tree):
+        for part in (leaf if leaf.dim() > 2 else [leaf]):
+            words = part.view(torch.int16).to(torch.int64)
+            sums.append((int(words.sum()), int((words * words).sum())))
+    return sums
+
+
+def _traced_step(tag, step):
+    """One step under torch.profiler: wall ms, device ms by kind and the
+    idle share (the profiler may see no device time: then not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = _kernel_times(prof)
+    split = _device_split(kernels)
+    busy = sum(split.values())
+    if busy == 0:
+        log(f"[train-variants] {tag}: the profiler saw no device time; the device split is not measured")
+        return dict(wall_ms=wall_ms)
+    log(f"[train-variants] {tag}: one step under torch.profiler: {wall_ms:.1f} ms wall, device busy "
+        f"{busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}; device ms: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in split.items()))
+    for name, ms, count in kernels[:10]:
+        log(f"[train-variants]   {ms:8.2f} ms  {count:5d} launches  {name[:110]}")
+    return dict(wall_ms=wall_ms, profile=split, idle_share=1 - busy / wall_ms)
+
+
+def phase_train_variants(dev):
+    """Training on the attention variants at full width (see the module doc)."""
+    from starflashattention_tpu_torch.cache import contiguous
+    from starflashattention_tpu_torch.models import llama, lora, train
+    from starflashattention_tpu_torch.runtime.params import ModelConfig
+
+    out = {}
+    torch.cuda.empty_cache()
+
+    # -- 11a: Mistral-7B as published, full fine-tuning, one (1, 8193) batch
+    t_sub = time.perf_counter()
+    cfg = ModelConfig.mistral_7b()
+    n, s = cfg.num_layers, TRAIN_VARIANT_SEQ["mistral"]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = llama.init_params(cfg, gen, device=dev)
+    batch = torch.randint(0, cfg.vocab_size, (1, s + 1), generator=gen, device=dev)
+    cos, sin = llama.rope_tables(cfg, device=dev)
+    momentum = train.tree_map(torch.zeros_like, params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want = _train_variant_counts(n, _sliding_layers(cfg))
+    losses, step_ms, total = [], [], {}
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        params, momentum, loss = train.train_step(params, momentum, batch, cfg, cos, sin, TRAIN_LR)
+        losses.append(float(loss))  # synchronizes
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        if counts != want:
+            raise AssertionError(f"Mistral-7B training: launch counts {counts} != expected {want}")
+        total = {k: total.get(k, 0) + c for k, c in counts.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[train-variants] Mistral-7B (L={n}, window {cfg.sliding_window}) full fine-tuning at B=1, S={s}: "
+        f"losses {losses}; ms per step {[round(t, 1) for t in step_ms]}; {s / step_ms[-1] * 1e3:.0f} "
+        f"tokens/s at the last step; peak memory {peak:.1f} GiB; launches a step {counts}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"Mistral-7B training: the loss did not fall: {losses}")
+    traced = _traced_step("Mistral-7B", lambda: train.train_step(params, momentum, batch, cfg, cos, sin,
+                                                                  TRAIN_LR))
+    out["mistral"] = dict(losses=losses, step_ms=step_ms, tokens_per_s=s / step_ms[-1] * 1e3, peak_gib=peak,
+                          counts=total, seconds=time.perf_counter() - t_sub, **traced)
+    log(f"[train-variants] 11a took {out['mistral']['seconds']:.1f} s")
+    del params, momentum, batch
+    torch.cuda.empty_cache()
+
+    # -- 11b: Gemma-2-9B, LoRA rank 16 on the four targets, B=1, S=6144
+    t_sub = time.perf_counter()
+    cfg = ModelConfig.gemma2_9b()
+    n, s = cfg.num_layers, TRAIN_VARIANT_SEQ["gemma2"]
+    sliding = _sliding_layers(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = llama.init_params(cfg, gen, device=dev)
+    batch = torch.randint(0, cfg.vocab_size, (1, s + 1), generator=gen, device=dev)
+    cos, sin = llama.rope_tables(cfg, device=dev)
+    adapters = lora.init_lora(cfg, gen, rank=LORA_RANK, device=dev)
+    before = _checksums(params)
+    want = _train_variant_counts(n, sliding)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, total = [], [], {}
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        loss, grads = lora.loss_and_grads(params, adapters, batch, cfg, cos, sin)
+        with torch.no_grad():
+            for a, g in zip(train.tree_leaves(adapters["layers"]), train.tree_leaves(grads["layers"])):
+                a.add_(g, alpha=-LORA_LR)
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        if counts != want:
+            raise AssertionError(f"Gemma-2-9B LoRA: launch counts {counts} != expected {want}")
+        total = {k: total.get(k, 0) + c for k, c in counts.items()}
+        del grads
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    same = _checksums(params) == before
+    log(f"[train-variants] Gemma-2-9B (L={n}: {sliding} sliding layers at window {cfg.sliding_window}, "
+        f"{n - sliding} full) LoRA rank {LORA_RANK}, plain SGD lr {LORA_LR}, B=1, S={s}: losses {losses}; ms "
+        f"per step {[round(t, 1) for t in step_ms]}; {s / step_ms[-1] * 1e3:.0f} tokens/s at the last step; "
+        f"peak memory {peak:.1f} GiB; base weights unchanged {same}; launches a step {counts}")
+    if not same:
+        raise AssertionError("Gemma-2-9B LoRA training changed the base weights")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"Gemma-2-9B LoRA: the loss did not fall: {losses}")
+    out["gemma2"] = dict(losses=losses, step_ms=step_ms, tokens_per_s=s / step_ms[-1] * 1e3, peak_gib=peak,
+                         counts=total)
+    prompts = _variant_prompts(cfg.vocab_size, *TRAIN_MERGE_PROMPTS, n=2)
+    lengths = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=dev)
+    tokens = torch.zeros((2, int(lengths.max())), dtype=torch.int32, device=dev)
+    for i, p in enumerate(prompts):
+        tokens[i, : len(p)] = torch.tensor(p, dtype=torch.int32)
+    rows = torch.arange(2, device=dev), lengths.long() - 1
+
+    def last_logits(p, **kw):
+        with torch.no_grad():
+            return train.forward_train(p, tokens, cfg, cos, sin, remat=False, **kw)[rows]
+
+    def served(p):  # the serving prefill: fp32 projections, a contiguous cache
+        with torch.no_grad():
+            hkv, d = cfg.kv_cache_dims()
+            cache = contiguous.init_cache(n, 2, hkv, cfg.max_seq_len, d, device=dev)
+            return llama.prefill(p, cache, tokens, lengths, cos, sin, cfg)[0]
+
+    def first_layers(p, k):  # the model cut to its first k layers (views of the stacks)
+        return dict(p, layers={name: w[:k] for name, w in p["layers"].items()})
+
+    adapted, base_train, base_served = last_logits(params, lora=adapters), last_logits(params), served(params)
+    short = dataclasses.replace(cfg, num_layers=MERGE_CHECK_LAYERS)
+    short_adapters = dict(adapters, layers={name: {"a": ab["a"][:MERGE_CHECK_LAYERS],
+                                                   "b": ab["b"][:MERGE_CHECK_LAYERS]}
+                                            for name, ab in adapters["layers"].items()})
+    with torch.no_grad():
+        want = train.forward_train(first_layers(params, MERGE_CHECK_LAYERS), tokens, short, cos, sin,
+                                   remat=False, lora=short_adapters)[rows]
+    merged = lora.merge(params, adapters, cfg)
+    del params
+    torch.cuda.empty_cache()
+    merged_train, merged_served = last_logits(merged), served(merged)
+    with torch.no_grad():
+        hkv, d = cfg.kv_cache_dims()
+        cache = contiguous.init_cache(MERGE_CHECK_LAYERS, 2, hkv, cfg.max_seq_len, d, device=dev)
+        got = llama.prefill(first_layers(merged, MERGE_CHECK_LAYERS), cache, tokens, lengths, cos, sin, short)[0]
+        del cache
+    peak_logit = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    route = {"base": (base_served - base_train).abs().max().item(),
+             "merged": (merged_served - merged_train).abs().max().item(),
+             "served_vs_adapted": (merged_served - adapted).abs().max().item(),
+             "adapters": (adapted - base_train).abs().max().item()}
+    route["merge_rounding"] = (merged_train - adapted).abs().max().item()
+    log(f"[train-variants] Gemma-2-9B merged, all {n} layers, last positions of prompts of {lengths.tolist()} "
+        f"tokens (max |logit| {adapted.abs().max().item():.2f}): the serving prefill (fp32 projections) "
+        f"against forward_train (bf16 projections) on the base {route['base']:.3e} and on the merged model "
+        f"{route['merged']:.3e}; forward_train on the merged model against the adapted one (the merge's bf16 "
+        f"rounding) {route['merge_rounding']:.3e}; the served merged model against the adapted forward_train "
+        f"{route['served_vs_adapted']:.3e}; the adapters' own effect {route['adapters']:.3e}")
+    _check(f"Gemma-2-9B merged model cut to its first {MERGE_CHECK_LAYERS} layers: prefill logits against the "
+           f"adapted forward_train's (max |logit| {peak_logit:.2f})", err, 0.05 * peak_logit)
+    out["gemma2"].update(logit_err=err, logit_peak=peak_logit, route=route)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    toks = llama.generate(merged, cfg, tokens, lengths, 8, device=dev)
+    torch.cuda.synchronize()
+    steps = 8 - 1
+    want = zero_counts(flash_prefill=n, flash_decode=steps * n, flash_decode_banded=steps * sliding,
+                       append_rows_kv=steps * n)
+    if read_counts() != want:
+        raise AssertionError(f"Gemma-2-9B merged generate: launch counts {read_counts()} != expected {want}")
+    if toks.shape != (2, 8) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError(f"Gemma-2-9B merged generate: bad token stream {toks.shape}")
+    log(f"[train-variants] Gemma-2-9B merged: generate 2 prompts ({lengths.tolist()} tokens) x 8 tokens in "
+        f"{time.perf_counter() - t0:.2f} s through the kernels: {toks.tolist()}")
+    out["gemma2"]["seconds"] = time.perf_counter() - t_sub
+    log(f"[train-variants] 11b took {out['gemma2']['seconds']:.1f} s")
+    del merged, adapters, batch
+    torch.cuda.empty_cache()
+
+    # -- 11c: every parameter's gradient through the kernels against plain
+    # attention's, 2 layers at full width, B=1, S=4608
+    t_sub = time.perf_counter()
+    s = TRAIN_VARIANT_SEQ["gemma"]
+    out["grads"] = {}
+    for tag, cfg in (("Mistral-7B + 4 sinks", ModelConfig.mistral_7b(num_layers=2, attention_sinks=VARIANT_SINKS)),
+                     ("Gemma-2-9B", ModelConfig.gemma2_9b(num_layers=2)),
+                     ("Gemma-7B", ModelConfig.gemma_7b(num_layers=2))):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = llama.init_params(cfg, gen, device=dev)
+        batch = torch.randint(0, cfg.vocab_size, (1, s + 1), generator=gen, device=dev)
+        cos, sin = llama.rope_tables(cfg, device=dev)
+        reset_counts()
+        l_k, g_k = train.loss_and_grads(params, batch, cfg, cos, sin, use_flash=True)
+        want = _train_variant_counts(2, _sliding_layers(cfg))
+        if read_counts() != want:
+            raise AssertionError(f"{tag}: launch counts {read_counts()} != expected {want}")
+        l_p, g_p = train.loss_and_grads(params, batch, cfg, cos, sin, use_flash=False)
+        worst = ("", 0.0)
+        for (name, a), b in zip(_named_leaves(g_k), train.tree_leaves(g_p)):
+            r = (a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1e-30)
+            worst = max(worst, (name, r), key=lambda x: x[1])
+        log(f"[train-variants] {tag}, 2 layers, B=1, S={s}: loss through the kernels {float(l_k):.6f}, "
+            f"plain attention {float(l_p):.6f}")
+        _check(f"{tag}: gradients through the kernels against plain attention, worst leaf {worst[0]} (max abs "
+               "error over its peak)", worst[1], TRAIN_GRAD_TOL)
+        out["grads"][tag] = dict(worst_leaf=worst[0], worst_rel=worst[1], counts=want)
+        del params, g_k, g_p, batch
+        torch.cuda.empty_cache()
+    out["grads_seconds"] = time.perf_counter() - t_sub
+    log(f"[train-variants] 11c took {out['grads_seconds']:.1f} s")
+    return out
+
+
 # ---------------------------------------------------------------- phase 5
 
 
@@ -2527,6 +3096,11 @@ REPLACES = {
        for k in ("mistral_paged", "gemma2_paged")},
     **{VARIANT_ENTRIES[k]: ("starflashattention_tpu/ops/flash_prefill.py:67", "flash_prefill.cu")
        for k in ("gemma2_prefill", "mistral_prefill")},
+    **{TRAIN_VARIANT_ENTRIES[k]: (site, src) for k in TRAIN_VARIANT_ENTRIES
+       for suffix, site, src in (("_fwd", "starflashattention_tpu/ops/flash_prefill.py:67", "flash_prefill.cu"),
+                                 ("_dq", "starflashattention_tpu/ops/flash_bwd.py:173", "flash_bwd.cu"),
+                                 ("_dkdv", "starflashattention_tpu/ops/flash_bwd.py:254", "flash_bwd.cu"))
+       if k.endswith(suffix)},
 }
 # measured in phase 2 but launched by no main-path run (the quantized slice
 # runs the fp8 cache only in split mode and pages only in int8): logged, not
@@ -2536,8 +3110,8 @@ OFF_PATH = ("flash_decode fp8 KV (1 split, fused)", "paged_flash_decode fp8 KV")
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,6,7,8,9,10",
-                        help="comma-separated phases to run (default 1,2,3,4,6,7,8,9,10; phase 5, "
+    parser.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11",
+                        help="comma-separated phases to run (default 1,2,3,4,6,7,8,9,10,11; phase 5, "
                              "a profile of bench.py's decode chains, runs only when named)")
     args = parser.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -2566,6 +3140,7 @@ def main(argv=None):
     spec = phase_spec(dev) if 8 in phases else {}
     training = phase_training(dev) if 9 in phases else {}
     variants = phase_variants(dev) if 10 in phases else {}
+    train_variants = phase_train_variants(dev) if 11 in phases else {}
     if 5 in phases:
         phase_decode_profile(dev)
 
@@ -2615,6 +3190,20 @@ def main(argv=None):
             e["mistral_prefill"]: mi["engine"]["counts"]["flash_prefill"],
             e["mistral_paged"]: mi["paged"]["counts"]["paged_flash_decode"],
             e["gemma_split"]: variants["gemma"]["generate"]["counts"]["flash_decode"]})
+    if train_variants:
+        mi, g2 = train_variants["mistral"]["counts"], train_variants["gemma2"]["counts"]
+        g7 = train_variants["grads"]["Gemma-7B"]["counts"]
+        e = TRAIN_VARIANT_ENTRIES
+        launches.update({
+            e["mistral_fwd"]: mi["flash_prefill_lse_banded"], e["mistral_dq"]: mi["flash_bwd_dq_banded"],
+            e["mistral_dkdv"]: mi["flash_bwd_dkdv_banded"],
+            e["gemma2_fwd"]: g2["flash_prefill_lse_banded"], e["gemma2_dq"]: g2["flash_bwd_dq_banded"],
+            e["gemma2_dkdv"]: g2["flash_bwd_dkdv_banded"],
+            e["gemma2_full_fwd"]: g2["flash_prefill_lse"] - g2["flash_prefill_lse_banded"],
+            e["gemma2_full_dq"]: g2["flash_bwd_dq"] - g2["flash_bwd_dq_banded"],
+            e["gemma2_full_dkdv"]: g2["flash_bwd_dkdv"] - g2["flash_bwd_dkdv_banded"],
+            e["gemma_fwd"]: g7["flash_prefill_lse"], e["gemma_dq"]: g7["flash_bwd_dq"],
+            e["gemma_dkdv"]: g7["flash_bwd_dkdv"]})
     line = []
     for name, r in kernels.items():
         if name in OFF_PATH:

@@ -4,7 +4,9 @@
 // (entry flash_prefill) in the forms the model's prefill and the training
 // path use: causal or not, with per-sequence lengths and q_offsets,
 // optionally the per-row base-2 log-sum-exp (return_lse), and for the
-// serving prefill (causal, no LSE) the sliding window, sinks and softcap.
+// causal form the sliding window, sinks and softcap (the serving prefill,
+// and with the LSE the training forward of the attention variants, whose
+// backward flash_bwd.cu recomputes the same capped scores).
 //
 // Window and sinks (JAX _prefill_kernel :128-146, :181-184): row p attends
 // col > p - window, or col < sinks. The block walks the sink tiles that lie
@@ -374,34 +376,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* leng
   return cudaGetLastError();
 }
 
-// The LSE and non-causal forms are the training forward's, which takes no
-// window, sinks or softcap (the wrapper refuses them), so SOFTCAP and BAND
-// instantiate only causal without LSE: 7 kernels a head_dim.
+// BAND and SOFTCAP instantiate for causal only, with and without the LSE
+// (the serving prefill and the training forward of the variants); the
+// non-causal forms take no option: 10 kernels a head_dim.
 template <int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, const void* lengths,
                      const void* q_offsets, void* out, void* lse, int B, int Hq, int Hkv, int Sq,
                      int Skv, int causal, const Options& o, cudaStream_t s) {
   const bool band = o.window < NO_WINDOW, cap = o.softcap > 0.f;
-  if (band || cap) {
-    if (!causal || lse) return cudaErrorInvalidValue;
-    if (band && cap)
-      return launch<D, true, false, true, true>(q, k, v, lengths, q_offsets, out, lse, B, Hq, Hkv,
-                                                Sq, Skv, o, s);
-    if (band)
-      return launch<D, true, false, false, true>(q, k, v, lengths, q_offsets, out, lse, B, Hq, Hkv,
-                                                 Sq, Skv, o, s);
-    return launch<D, true, false, true, false>(q, k, v, lengths, q_offsets, out, lse, B, Hq, Hkv, Sq,
-                                               Skv, o, s);
-  }
-  if (causal)
-    return lse ? launch<D, true, true, false, false>(q, k, v, lengths, q_offsets, out, lse, B, Hq,
-                                                     Hkv, Sq, Skv, o, s)
-               : launch<D, true, false, false, false>(q, k, v, lengths, q_offsets, out, lse, B, Hq,
-                                                      Hkv, Sq, Skv, o, s);
-  return lse ? launch<D, false, true, false, false>(q, k, v, lengths, q_offsets, out, lse, B, Hq, Hkv,
-                                                    Sq, Skv, o, s)
-             : launch<D, false, false, false, false>(q, k, v, lengths, q_offsets, out, lse, B, Hq,
-                                                     Hkv, Sq, Skv, o, s);
+  if ((band || cap) && !causal) return cudaErrorInvalidValue;
+#define SFA_LAUNCH(C, L, SC, BD) \
+  launch<D, C, L, SC, BD>(q, k, v, lengths, q_offsets, out, lse, B, Hq, Hkv, Sq, Skv, o, s)
+  if (band && cap) return lse ? SFA_LAUNCH(true, true, true, true) : SFA_LAUNCH(true, false, true, true);
+  if (band) return lse ? SFA_LAUNCH(true, true, false, true) : SFA_LAUNCH(true, false, false, true);
+  if (cap) return lse ? SFA_LAUNCH(true, true, true, false) : SFA_LAUNCH(true, false, true, false);
+  if (causal) return lse ? SFA_LAUNCH(true, true, false, false) : SFA_LAUNCH(true, false, false, false);
+  return lse ? SFA_LAUNCH(false, true, false, false) : SFA_LAUNCH(false, false, false, false);
+#undef SFA_LAUNCH
 }
 
 }  // namespace
@@ -415,7 +406,7 @@ const char* error_string(int e) { return cudaGetErrorString(static_cast<cudaErro
 // null for no LSE. D is 64, 128 or 256; Hq / Hkv <= 8. sm_scale is the
 // score scale and scale_log2 = sm_scale * log2(e) (rounded by the caller as
 // flash_bwd.cu's is); window (>= 1, 1 << 30 for none), sinks (>= 0), softcap (0 for
-// none; causal and without LSE only).
+// none): causal only, with or without the LSE.
 int flash_prefill(const void* q, const void* k, const void* v, const void* lengths,
                   const void* q_offsets, void* out, void* lse, int B, int Hq, int Hkv, int Sq,
                   int Skv, int D, int causal, float sm_scale, float scale_log2, int window,

@@ -9,7 +9,12 @@ calls do; the serving path's ``_make_proj`` upcasts weights to fp32, which
 under autograd would keep an fp32 copy of every weight for the backward.
 Attention is ``ops.flash_bwd.flash_attention`` (K5 with the LSE forward,
 K12 backward) by default, or :func:`_attn_plain` (``use_flash=False``),
-which materializes the (B, H, S, S) scores. ``remat=True`` (the default)
+which materializes the (B, H, S, S) scores. Both take the attention
+variants of the Mistral, Gemma and Gemma-2 families: the sliding window of
+each layer (:func:`_train_window`: on a full layer of a pattern > 1 config
+no window at all, the unbanded kernels), the sinks and the softcap; the
+layers take the post-norms and GeGLU, the embedding its scale and the head
+the final softcap, as the serving model does. ``remat=True`` (the default)
 runs each layer under ``torch.utils.checkpoint``, as JAX wraps its layer
 body in ``jax.checkpoint``: the backward reruns each layer's forward, so a
 step launches the attention forward twice a layer.
@@ -22,15 +27,12 @@ per-layer gradients once.
 
 Not ported, each raising ``NotImplementedError``: ``axis_name`` and
 ``seq_axis_name`` (multi-GPU, ROADMAP item 16), MoE (``_moe_mlp_train``,
-item 14), the Mistral / Gemma / Gemma-2 variants the serving path runs
-(sliding window, sinks, softcaps, post-norms, the embedding scale, GeGLU:
-item 14a-train) and every config field ``llama.check_supported`` refuses.
+item 14) and every config field ``llama.check_supported`` refuses.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from starflashattention_tpu_torch.core.rope import apply_rope
@@ -89,38 +91,44 @@ def _check_trainable(params, cfg: ModelConfig, axis_name, seq_axis_name) -> None
         raise NotImplementedError("MoE training (_moe_mlp_train) is not ported yet "
                                   "(ROADMAP Queue 1 item 14)")
     llama.check_supported(cfg)
-    variants = {
-        "sliding_window": cfg.sliding_window is not None,
-        "attention_sinks": cfg.attention_sinks != 0,
-        "attn_softcap": cfg.attn_softcap is not None,
-        "final_softcap": cfg.final_softcap is not None,
-        "post_norms": cfg.post_norms,
-        "embed_scale": cfg.embed_scale,
-        f"mlp_activation={cfg.mlp_activation!r}": cfg.mlp_activation != "silu",
-    }
-    bad = [name for name, on in variants.items() if on]
-    if bad:
-        raise NotImplementedError(f"training with {', '.join(bad)} is not ported yet (ROADMAP "
-                                  "Queue 1 item 14a-train)")
     quantized = [name for name, w in params["layers"].items() if isinstance(w, dict)]
     if quantized or isinstance(params.get("lm_head"), dict):
         raise ValueError(f"training takes dense weights; quantized: {quantized or ['lm_head']}")
 
 
-def _attn_plain(q, k, v, cfg: ModelConfig):
-    """Plain causal attention, the twin of JAX's ``_attn_jnp`` for the
-    dense subset: explicit (B, Hq, S, S) scores, differentiated by autograd.
-    Scores and softmax run in fp32 and the output is cast to q's dtype (JAX
-    runs them in the activations' dtype: the same at fp32, and the fp32
-    form is the yardstick for the bf16 kernels on the card)."""
+def _train_window(cfg: ModelConfig, i: int) -> int | None:
+    """Layer ``i``'s window as JAX's ``_windowed_attn`` picks it: the
+    config's on every layer with pattern 1; with pattern P > 1 (Gemma-2) on
+    the sliding layers, ``(i + 1) % P != 0``, and none on the full layers.
+    Unlike ``llama._layer_window`` it takes sinks with a pattern, as JAX
+    training does (they ride the sliding layers' window)."""
+    w = cfg.sliding_window
+    if w is None or cfg.sliding_window_pattern == 1 or (i + 1) % cfg.sliding_window_pattern:
+        return w
+    return None
+
+
+def _attn_plain(q, k, v, cfg: ModelConfig, i: int):
+    """Plain causal attention of layer ``i``, the twin of JAX's
+    ``_attn_jnp``: explicit (B, Hq, S, S) scores with the softcap, the
+    layer's window and the sinks, differentiated by autograd. Scores and
+    softmax run in fp32 and the output is cast to q's dtype (JAX runs them
+    in the activations' dtype: the same at fp32, and the fp32 form is the
+    yardstick for the bf16 kernels on the card)."""
     s = q.shape[2]
     g = cfg.num_q_heads // cfg.num_kv_heads
     kq = torch.repeat_interleave(k, g, dim=1).float()
     vq = torch.repeat_interleave(v, g, dim=1).float()
     scale = cfg.sm_scale() or cfg.head_dim**-0.5
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), kq) * scale
+    if cfg.attn_softcap is not None:
+        scores = cfg.attn_softcap * torch.tanh(scores / cfg.attn_softcap)
     pos = torch.arange(s, device=q.device)
-    scores = torch.where(pos[None, :] <= pos[:, None], scores, -1e30)
+    mask = pos[None, :] <= pos[:, None]
+    window = _train_window(cfg, i)
+    if window is not None:
+        mask = mask & ((pos[None, :] > pos[:, None] - window) | (pos[None, :] < cfg.attention_sinks))
+    scores = torch.where(mask, scores, -1e30)
     return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(scores, dim=-1), vq).to(q.dtype)
 
 
@@ -148,16 +156,18 @@ def _layer(x, i: int, layers: dict, adapters: dict, lscale, pos, cos, sin, cfg: 
     q = apply_rope(q, pos, cos, sin, style=cfg.rope_style)
     k = apply_rope(k, pos, cos, sin, style=cfg.rope_style)
     if use_flash:
-        o = flash_attention(q, k, v, causal=True, sm_scale=cfg.sm_scale())
+        window = _train_window(cfg, i)
+        o = flash_attention(q, k, v, causal=True, sm_scale=cfg.sm_scale(), window=window,
+                            sinks=0 if window is None else cfg.attention_sinks, softcap=cfg.attn_softcap)
     else:
-        o = _attn_plain(q, k, v, cfg)
+        o = _attn_plain(q, k, v, cfg, i)
     o = o.transpose(1, 2).reshape(b, s, -1)
-    x = x + _proj(o, layers, ll, i, "wo", lscale).to(x.dtype)
+    x = llama._residual_add(x, _proj(o, layers, ll, i, "wo", lscale), layers, i, "post_attn_norm", eps)
     h = llama.rms_norm(x, layers["mlp_norm"][i], eps)
     gu = _proj(h, layers, ll, i, "w_gate_up", lscale)
     inter = gu.shape[-1] // 2
-    act = F.silu(gu[..., :inter]) * gu[..., inter:]
-    return x + _proj(act, layers, ll, i, "w_down", lscale).to(x.dtype)
+    act = llama._GATE_ACTS[cfg.mlp_activation](gu[..., :inter]) * gu[..., inter:]
+    return llama._residual_add(x, _proj(act, layers, ll, i, "w_down", lscale), layers, i, "post_mlp_norm", eps)
 
 
 def forward_train(
@@ -194,7 +204,10 @@ def forward_train(
         x = checkpoint(_layer, *args, use_reentrant=False) if remat else _layer(*args)
     xn = llama.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return torch.matmul(xn.float(), head.float())  # jnp.dot(..., preferred_element_type=f32)
+    logits = torch.matmul(xn.float(), head.float())  # jnp.dot(..., preferred_element_type=f32)
+    if cfg.final_softcap is not None:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    return logits
 
 
 def loss_tokens(params, inp, tgt, cfg: ModelConfig, cos, sin, *, use_flash=True, remat=True,

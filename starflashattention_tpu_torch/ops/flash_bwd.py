@@ -12,17 +12,21 @@ with dk and dv summed over the GQA group. The JAX package folds
 ``sm_scale * log2(e)`` into q and rounds it to q's dtype before both passes,
 so its dk carries ``ln 2`` where this one carries ``sm_scale``; the port
 scales the fp32 scores in both kernels by the same fp32 ``sm_scale *
-log2(e)``. ``delta`` is a torch reduction (:func:`bwd_delta`), as XLA
-computes it outside Pallas; then :func:`flash_bwd_dq` and
-:func:`flash_bwd_dkdv` launch the two kernels of ``csrc/flash_bwd.cu``
-(which replace the TPU kernels ``_dq_kernel`` and ``_dkdv_kernel``) on
-CUDA tensors, each counting its launches, and run their plain versions on
-CPU tensors.
+log2(e)``. The causal form takes the forward's variants: the mask gains
+the band and the sinks (``window``, ``sinks``), and with a ``softcap`` the
+scores are K5's capped ones, ``s2 = cap * t * log2(e)`` with ``t =
+tanh(sm_scale * q.k / cap)``, and ``ds`` carries the tanh chain rule ``1 -
+t^2``. ``delta`` is a torch reduction (:func:`bwd_delta`), as XLA computes
+it outside Pallas; then :func:`flash_bwd_dq` and :func:`flash_bwd_dkdv`
+launch the two kernels of ``csrc/flash_bwd.cu`` (which replace the TPU
+kernels ``_dq_kernel`` and ``_dkdv_kernel``) on CUDA tensors, each counting
+its launches, and run their plain versions on CPU tensors.
 
 :func:`flash_attention` is the training entry: a ``torch.autograd.Function``
 whose forward is ``flash_prefill(return_lse=True)`` and whose backward is
-``flash_prefill_bwd``. Sliding window, sinks, softcap and ``kv_offset``
-raise ``NotImplementedError`` (ROADMAP Queue 2).
+``flash_prefill_bwd``, both with the same options. ``kv_offset`` (ring
+context parallelism) raises ``NotImplementedError`` (ROADMAP item 16), as
+the variants with ``causal=False`` do.
 """
 
 from __future__ import annotations
@@ -31,14 +35,16 @@ import torch
 
 from starflashattention_tpu_torch.core.reference import repeat_kv
 from starflashattention_tpu_torch.ops import _build
+from starflashattention_tpu_torch.ops.flash_decode import kernel_options
 from starflashattention_tpu_torch.ops.flash_prefill import (_defaults, attention_mask, check_card_inputs,
-                                                            check_unported, flash_prefill, scales,
-                                                            scores_log2)
+                                                            check_unported, flash_prefill, prefill_options,
+                                                            scales, scores_log2)
 
 _ARGS = [_build.P] * 8
+_OPTIONS = [_build.F, _build.F, _build.I, _build.I, _build.F, _build.P]  # scales, window, sinks, cap, stream
 _SIGNATURES = {
-    "flash_bwd_dq": _ARGS + [_build.P] + [_build.I] * 7 + [_build.F, _build.F, _build.P],
-    "flash_bwd_dkdv": _ARGS + [_build.P, _build.P] + [_build.I] * 7 + [_build.F, _build.F, _build.P],
+    "flash_bwd_dq": _ARGS + [_build.P] + [_build.I] * 7 + _OPTIONS,
+    "flash_bwd_dkdv": _ARGS + [_build.P, _build.P] + [_build.I] * 7 + _OPTIONS,
 }
 
 
@@ -53,28 +59,33 @@ def bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (do.float() * o.float()).sum(dim=-1)
 
 
-def _p_ds_plain(q, k, v, lse, do, delta, lengths, q_offsets, causal, sm_scale):
-    """fp32 P and dS (B, Hq, Sq, Skv) recomputed from the LSE."""
+def _p_ds_plain(q, k, v, lse, do, delta, lengths, q_offsets, causal, sm_scale, window, sinks, softcap):
+    """fp32 P and dS (B, Hq, Sq, Skv) recomputed from the LSE, on K5's
+    scores and mask."""
     lengths, q_offsets = _defaults(q, k, lengths, q_offsets)
-    mask = attention_mask(q.shape[2], k.shape[2], lengths, q_offsets, causal, q.device)
-    p = torch.where(mask, torch.exp2(scores_log2(q, k, sm_scale) - lse.float()[..., None]), 0.0)
+    mask = attention_mask(q.shape[2], k.shape[2], lengths, q_offsets, causal, q.device, window, sinks)
+    s2, t = scores_log2(q, k, sm_scale, softcap)
+    p = torch.where(mask, torch.exp2(s2 - lse.float()[..., None]), 0.0)
     dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), repeat_kv(v, q.shape[1] // v.shape[1]).float())
-    return p, p * (dp - delta[..., None])
+    ds = p * (dp - delta[..., None])
+    return p, ds if t is None else ds * (1.0 - t * t)
 
 
 def flash_bwd_dq_plain(q, k, v, lse, do, delta, lengths=None, q_offsets=None, *, causal=True,
-                       sm_scale=None):
+                       sm_scale=None, window=None, sinks=0, softcap=None):
     """Plain version of the dq kernel: ``sm_scale * ds @ k`` in fp32."""
-    _, ds = _p_ds_plain(q, k, v, lse, do, delta, lengths, q_offsets, causal, sm_scale)
+    _, ds = _p_ds_plain(q, k, v, lse, do, delta, lengths, q_offsets, causal, sm_scale, window, sinks,
+                        softcap)
     kf = repeat_kv(k, q.shape[1] // k.shape[1]).float()
     return (scales(q.shape[-1], sm_scale)[0] * torch.einsum("bhqk,bhkd->bhqd", ds, kf)).to(q.dtype)
 
 
 def flash_bwd_dkdv_plain(q, k, v, lse, do, delta, lengths=None, q_offsets=None, *, causal=True,
-                         sm_scale=None):
+                         sm_scale=None, window=None, sinks=0, softcap=None):
     """Plain version of the dk/dv kernel: ``sm_scale * ds^T @ q`` and
     ``p^T @ do`` in fp32, summed over each KV head's group."""
-    p, ds = _p_ds_plain(q, k, v, lse, do, delta, lengths, q_offsets, causal, sm_scale)
+    p, ds = _p_ds_plain(q, k, v, lse, do, delta, lengths, q_offsets, causal, sm_scale, window, sinks,
+                        softcap)
     hkv = k.shape[1]
     dk = scales(q.shape[-1], sm_scale)[0] * _group_sum(torch.einsum("bhqk,bhqd->bhkd", ds, q.float()), hkv)
     dv = _group_sum(torch.einsum("bhqk,bhqd->bhkd", p, do.float()), hkv)
@@ -82,12 +93,12 @@ def flash_bwd_dkdv_plain(q, k, v, lse, do, delta, lengths=None, q_offsets=None, 
 
 
 def flash_prefill_bwd_plain(q, k, v, o, lse, do, lengths=None, q_offsets=None, *, causal=True,
-                            sm_scale=None):
+                            sm_scale=None, window=None, sinks=0, softcap=None):
     """Plain PyTorch version of :func:`flash_prefill_bwd`: the same formulas
     in fp32 on explicit (B, Hq, Sq, Skv) tensors, each gradient in its
     input's dtype."""
     delta = bwd_delta(o, do)
-    kw = dict(causal=causal, sm_scale=sm_scale)
+    kw = dict(causal=causal, sm_scale=sm_scale, **prefill_options(window, sinks, softcap, 0, causal))
     dq = flash_bwd_dq_plain(q, k, v, lse, do, delta, lengths, q_offsets, **kw)
     return (dq, *flash_bwd_dkdv_plain(q, k, v, lse, do, delta, lengths, q_offsets, **kw))
 
@@ -107,53 +118,61 @@ def _card_args(what, q, k, v, lse, do, delta, lengths, q_offsets):
     return [x.contiguous() for x in (q, k, v, do, lse, delta, lengths, q_offsets)]
 
 
-def _launch(entry, ins, outs, causal, sm_scale):
+def _launch(entry, ins, outs, causal, sm_scale, opts):
     q, k = ins[0], ins[1]
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     lib = _build.load("flash_bwd", _SIGNATURES)
     with torch.cuda.device(q.device):
         err = getattr(lib, entry)(*[_build.ptr(x) for x in ins + outs], b, hq, hkv, sq, skv, d,
-                                  int(causal), *scales(d, sm_scale), _build.stream_ptr(q.device))
+                                  int(causal), *scales(d, sm_scale), *kernel_options(**opts),
+                                  _build.stream_ptr(q.device))
     _build.check(lib, err, entry)
 
 
 def flash_bwd_dq(q, k, v, lse, do, delta, lengths=None, q_offsets=None, *, causal=True,
-                 sm_scale=None) -> torch.Tensor:
+                 sm_scale=None, window=None, sinks=0, softcap=None) -> torch.Tensor:
     """dq (B, Hq, Sq, D) in q's dtype: the dq kernel of ``csrc/flash_bwd.cu``
     on CUDA tensors (replaces ``_dq_kernel``), :func:`flash_bwd_dq_plain`
-    on CPU tensors. ``delta`` is :func:`bwd_delta` of the forward's output."""
+    on CPU tensors. ``delta`` is :func:`bwd_delta` of the forward's output;
+    the options are the forward's."""
+    opts = prefill_options(window, sinks, softcap, 0, causal)
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, lse, do, delta, lengths, q_offsets, causal=causal,
-                                  sm_scale=sm_scale)
+                                  sm_scale=sm_scale, **opts)
     ins = _card_args("flash_bwd_dq", q, k, v, lse, do, delta, lengths, q_offsets)
     dq = torch.empty_like(ins[0])
     if not (dq.numel() and k.numel()):
         return dq.zero_()
-    _launch("flash_bwd_dq", ins, [dq], causal, sm_scale)
+    _launch("flash_bwd_dq", ins, [dq], causal, sm_scale, opts)
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.launches_banded += opts["window"] is not None
     return dq
 
 
 def flash_bwd_dkdv(q, k, v, lse, do, delta, lengths=None, q_offsets=None, *, causal=True,
-                   sm_scale=None) -> tuple[torch.Tensor, torch.Tensor]:
+                   sm_scale=None, window=None, sinks=0, softcap=None) -> tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) (B, Hkv, Skv, D) in k's / v's dtype: the dk/dv kernel of
     ``csrc/flash_bwd.cu`` on CUDA tensors (replaces ``_dkdv_kernel``),
     :func:`flash_bwd_dkdv_plain` on CPU tensors."""
+    opts = prefill_options(window, sinks, softcap, 0, causal)
     if q.device.type == "cpu":
         return flash_bwd_dkdv_plain(q, k, v, lse, do, delta, lengths, q_offsets, causal=causal,
-                                    sm_scale=sm_scale)
+                                    sm_scale=sm_scale, **opts)
     ins = _card_args("flash_bwd_dkdv", q, k, v, lse, do, delta, lengths, q_offsets)
     dk, dv = torch.empty_like(ins[1]), torch.empty_like(ins[2])
     if not (dk.numel() and q.numel()):
         return dk.zero_(), dv.zero_()
-    _launch("flash_bwd_dkdv", ins, [dk, dv], causal, sm_scale)
+    _launch("flash_bwd_dkdv", ins, [dk, dv], causal, sm_scale, opts)
     flash_bwd_dkdv.launches += 1
+    flash_bwd_dkdv.launches_banded += opts["window"] is not None
     return dk, dv
 
 
 flash_bwd_dq.launches = 0
 flash_bwd_dkdv.launches = 0
+flash_bwd_dq.launches_banded = 0  # the launches with a window (a sliding layer's)
+flash_bwd_dkdv.launches_banded = 0
 
 
 def flash_prefill_bwd(
@@ -175,32 +194,34 @@ def flash_prefill_bwd(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of the flash prefill attention, in q's / k's / v's
     dtype: ``delta`` as a torch reduction, then the dq and the dk/dv kernels
-    (their plain versions on CPU tensors)."""
-    check_unported(window, sinks, softcap, kv_offset)
+    (their plain versions on CPU tensors), with the forward's ``window``,
+    ``sinks`` and ``softcap``."""
+    check_unported(kv_offset)
     delta = bwd_delta(o, do)
-    kw = dict(causal=causal, sm_scale=sm_scale)
+    kw = dict(causal=causal, sm_scale=sm_scale, window=window, sinks=sinks, softcap=softcap)
     dq = flash_bwd_dq(q, k, v, lse, do, delta, lengths, q_offsets, **kw)
     return (dq, *flash_bwd_dkdv(q, k, v, lse, do, delta, lengths, q_offsets, **kw))
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward: K5 with the LSE; backward: K12. On CPU tensors both run
-    their plain versions (the wrappers choose by device)."""
+    """Forward: K5 with the LSE; backward: K12, both with the options in
+    ``ctx.opts``. On CPU tensors both run their plain versions (the
+    wrappers choose by device)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, lengths, q_offsets, causal, sm_scale):
+    def forward(ctx, q, k, v, lengths, q_offsets, causal, sm_scale, opts):
         o, lse = flash_prefill(q, k, v, lengths, causal=causal, q_offsets=q_offsets,
-                               sm_scale=sm_scale, return_lse=True)
+                               sm_scale=sm_scale, return_lse=True, **opts)
         ctx.save_for_backward(q, k, v, o, lse, lengths, q_offsets)
-        ctx.causal, ctx.sm_scale = causal, sm_scale
+        ctx.causal, ctx.sm_scale, ctx.opts = causal, sm_scale, opts
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse, lengths, q_offsets = ctx.saved_tensors
         dq, dk, dv = flash_prefill_bwd(q, k, v, o, lse, do, lengths, q_offsets, causal=ctx.causal,
-                                       sm_scale=ctx.sm_scale)
-        return dq, dk, dv, None, None, None, None
+                                       sm_scale=ctx.sm_scale, **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(
@@ -218,8 +239,9 @@ def flash_attention(
 ) -> torch.Tensor:
     """Differentiable flash attention (the training entry point): the
     forward of :func:`flash_prefill` with gradients for q, k and v through
-    :func:`flash_prefill_bwd`; O(S) memory both ways (one fp32 LSE a row is
-    kept, the score tiles are recomputed)."""
-    check_unported(window, sinks, softcap, 0)
+    :func:`flash_prefill_bwd`, with the sliding ``window``, ``sinks`` and
+    ``softcap`` of both (causal only); O(S) memory both ways (one fp32 LSE a
+    row is kept, the score tiles are recomputed)."""
+    opts = prefill_options(window, sinks, softcap, 0, causal)
     lengths, q_offsets = _defaults(q, k, lengths, q_offsets)
-    return _FlashAttention.apply(q, k, v, lengths, q_offsets, causal, sm_scale)
+    return _FlashAttention.apply(q, k, v, lengths, q_offsets, causal, sm_scale, opts)

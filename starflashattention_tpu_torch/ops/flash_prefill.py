@@ -13,13 +13,14 @@ that saw no valid position (the JAX contract, which the backward in
 Padded query rows (past a sequence's valid tokens) still produce values,
 which the caller discards.
 
-The serving prefill (causal, without the LSE) takes the attention variants:
-a sliding ``window`` (row p attends ``j > p - window``), ``sinks`` (``j <
-sinks`` stays attendable, with a window) and a ``softcap`` (``cap *
-tanh(s / cap)`` on the natural-unit scaled score, before the base-2
-conversion). Those options with ``return_lse`` or ``causal=False`` are the
-training forward's and raise ``NotImplementedError``, as ``kv_offset``
-(ring context parallelism) does. head_dim is 64, 128 or 256.
+The causal prefill, with or without the LSE (the serving prefill and the
+training forward), takes the attention variants: a sliding ``window`` (row
+p attends ``j > p - window``), ``sinks`` (``j < sinks`` stays attendable,
+with a window) and a ``softcap`` (``cap * tanh(s / cap)`` on the
+natural-unit scaled score, before the base-2 conversion; the LSE is then
+that of the capped scores). With ``causal=False`` they raise
+``NotImplementedError``, as ``kv_offset`` (ring context parallelism) does.
+head_dim is 64, 128 or 256.
 """
 
 from __future__ import annotations
@@ -42,24 +43,20 @@ _SIGNATURES = {
 }
 
 
-def check_unported(window, sinks, softcap, kv_offset) -> None:
-    """The training attention (K5 with the LSE, K12) takes none of the
-    variants yet."""
-    if window is not None or sinks or softcap is not None or kv_offset:
-        raise NotImplementedError(
-            "training attention with window / sinks / softcap / kv_offset is not ported yet "
-            "(ROADMAP Queue 1 item 14a-train, Queue 2 K5 and K12 options)")
-
-
-def prefill_options(window, sinks, softcap, kv_offset, causal, return_lse) -> dict:
-    """The checked variants of a prefill call (see the module doc)."""
+def check_unported(kv_offset) -> None:
+    """``kv_offset`` (ring context parallelism) is not ported."""
     if kv_offset:
-        raise NotImplementedError("prefill kv_offset (ring context parallelism) is not ported "
-                                  "yet (ROADMAP Queue 1 item 16)")
-    if (return_lse or not causal) and (window is not None or sinks or softcap is not None):
+        raise NotImplementedError("attention with kv_offset (ring context parallelism) is not ported "
+                                  "yet (ROADMAP Queue 1 item 16, Queue 2 K5 and K12 options)")
+
+
+def prefill_options(window, sinks, softcap, kv_offset, causal) -> dict:
+    """The checked variants of a prefill call (see the module doc)."""
+    check_unported(kv_offset)
+    if not causal and (window is not None or sinks or softcap is not None):
         raise NotImplementedError(
-            "window / sinks / softcap with return_lse or causal=False (the training forward) are "
-            "not ported yet (ROADMAP Queue 1 item 14a-train, Queue 2 K5 options)")
+            "window / sinks / softcap with causal=False are not ported yet (ROADMAP Queue 2, K5 "
+            "and K12 options)")
     return variant_options(window, sinks, softcap)
 
 
@@ -79,27 +76,41 @@ def _defaults(q, k, lengths, q_offsets):
     return lengths, q_offsets.to(device=q.device, dtype=torch.int32)
 
 
-def attention_mask(sq, skv, lengths, q_offsets, causal, device) -> torch.Tensor:
-    """(B, 1, Sq, Skv) bool: KV position j is valid for query row i."""
+def attention_mask(sq, skv, lengths, q_offsets, causal, device, window=None, sinks=0) -> torch.Tensor:
+    """(B, 1, Sq, Skv) bool: KV position j is valid for query row i (below
+    the length; with ``causal`` at most the row's position; with a
+    ``window`` in its band or a sink)."""
     kv_pos = torch.arange(skv, device=device)[None, None, None, :]
     mask = kv_pos < lengths[:, None, None, None]
-    if causal:
+    if causal or window is not None:
         q_pos = torch.arange(sq, device=device)[None, None, :, None] + q_offsets[:, None, None, None]
-        mask = mask & (kv_pos <= q_pos)
+        if causal:
+            mask = mask & (kv_pos <= q_pos)
+        if window is not None:
+            mask = mask & ((kv_pos > q_pos - window) | (kv_pos < sinks))
     return mask
 
 
-def scores_log2(q, k, sm_scale) -> torch.Tensor:
-    """fp32 base-2 scores (B, Hq, Sq, Skv): ``sm_scale * log2(e) * q.k``."""
+def scores_log2(q, k, sm_scale, softcap=None):
+    """fp32 base-2 scores (B, Hq, Sq, Skv) as K5 computes them from the raw
+    fp32 ``q.k``: ``sm_scale * log2(e) * q.k``, or with a ``softcap``
+    ``cap * t * log2(e)`` with ``t = tanh(sm_scale * q.k / cap)``. Returns
+    (scores, t), t None without a cap."""
     kf = repeat_kv(k, q.shape[1] // k.shape[1]).float()
-    return torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) * scales(q.shape[-1], sm_scale)[1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf)
+    scale, scale_log2 = scales(q.shape[-1], sm_scale)
+    if softcap is None:
+        return s * scale_log2, None
+    t = torch.tanh(s * scale / softcap)
+    return softcap * t * LOG2E, t
 
 
-def prefill_lse_plain(q, k, lengths, q_offsets, *, causal, sm_scale) -> torch.Tensor:
+def prefill_lse_plain(q, k, lengths, q_offsets, *, causal, sm_scale, window=None, sinks=0,
+                      softcap=None) -> torch.Tensor:
     """The base-2 LSE (B, Hq, Sq) fp32 of :func:`flash_prefill_plain`'s
     scores; 3e38 for a row with no valid position."""
-    mask = attention_mask(q.shape[2], k.shape[2], lengths, q_offsets, causal, q.device)
-    s2 = torch.where(mask, scores_log2(q, k, sm_scale), NEG_INF)
+    mask = attention_mask(q.shape[2], k.shape[2], lengths, q_offsets, causal, q.device, window, sinks)
+    s2 = torch.where(mask, scores_log2(q, k, sm_scale, softcap)[0], NEG_INF)
     m = s2.amax(dim=-1)
     l = (torch.exp2(s2 - m[..., None]) * mask).sum(dim=-1)
     return torch.where(l > 0, m + torch.log2(l.clamp(min=1e-37)), LSE_EMPTY)
@@ -108,20 +119,20 @@ def prefill_lse_plain(q, k, lengths, q_offsets, *, causal, sm_scale) -> torch.Te
 def flash_prefill_plain(q, k, v, lengths=None, *, causal=True, q_offsets=None, sm_scale=None,
                         return_lse=False, window=None, sinks=0, softcap=None):
     """Plain PyTorch version: full-softmax attention at fp32 (and its LSE),
-    with the serving variants."""
-    opts = prefill_options(window, sinks, softcap, 0, causal, return_lse)
+    with the variants."""
+    opts = prefill_options(window, sinks, softcap, 0, causal)
     lengths, q_offsets = _defaults(q, k, lengths, q_offsets)
     out = mha_reference(q, k, v, lengths=lengths, causal=causal, q_offset=q_offsets,
                         sm_scale=sm_scale, sliding_window=opts["window"],
                         attention_sinks=opts["sinks"], softcap=opts["softcap"])
     if not return_lse:
         return out
-    return out, prefill_lse_plain(q, k, lengths, q_offsets, causal=causal, sm_scale=sm_scale)
+    return out, prefill_lse_plain(q, k, lengths, q_offsets, causal=causal, sm_scale=sm_scale, **opts)
 
 
-def check_card_inputs(what, q, k, v, head_dims=(64, 128)) -> None:
-    """The shapes and types the CUDA kernels of K5 (``head_dims`` 64, 128
-    and 256) and K12 (64 and 128) take."""
+def check_card_inputs(what, q, k, v, head_dims=KERNEL_HEAD_DIMS) -> None:
+    """The shapes and types the CUDA kernels of K5 and K12 take: head_dim in
+    ``head_dims``, at most 8 query heads a KV head, bf16."""
     b, hq, _, d = q.shape
     _, hkv, _, _ = k.shape
     if k.shape[0] != b or k.shape[3] != d or v.shape != k.shape or hq % hkv:
@@ -154,13 +165,13 @@ def flash_prefill(
     """Blockwise prefill attention -> (B, Hq, Sq, D) in q's dtype, and with
     ``return_lse`` also the base-2 LSE (B, Hq, Sq) fp32; ``window``,
     ``sinks`` and ``softcap`` as in the module doc."""
-    opts = prefill_options(window, sinks, softcap, kv_offset, causal, return_lse)
+    opts = prefill_options(window, sinks, softcap, kv_offset, causal)
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, lengths, causal=causal, q_offsets=q_offsets,
                                    sm_scale=sm_scale, return_lse=return_lse, **opts)
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill: unsupported device {q.device}")
-    check_card_inputs("flash_prefill", q, k, v, KERNEL_HEAD_DIMS)
+    check_card_inputs("flash_prefill", q, k, v)
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     lengths, q_offsets = _defaults(q, k, lengths, q_offsets)
@@ -181,8 +192,10 @@ def flash_prefill(
     if not return_lse:
         return out
     flash_prefill.launches_lse += 1
+    flash_prefill.launches_lse_banded += opts["window"] is not None
     return out, lse
 
 
 flash_prefill.launches = 0
 flash_prefill.launches_lse = 0  # the launches with return_lse (the training forward)
+flash_prefill.launches_lse_banded = 0  # those of them with a window

@@ -13,7 +13,9 @@ perturbed from 1 so that the post-norms and QK-norms carry weight.
 Held exactly: greedy token streams, and ``PagedEngine``'s host page table,
 its reclaimed-page counts and its pinned sink pages after every decode
 round. Held within 1e-4: the prefill logits (as in
-tests/test_torch_llama.py).
+tests/test_torch_llama.py). Each family also trains: LoRA gradients
+through the flash path within 5e-4 of each peak of JAX's
+(tests/test_torch_train_variants.py holds the rest of training).
 """
 
 import dataclasses
@@ -27,13 +29,14 @@ import torch
 
 from starflashattention_tpu.cache import contiguous as j_contig
 from starflashattention_tpu.models import llama as j_llama
+from starflashattention_tpu.models import lora as j_lora
 from starflashattention_tpu.runtime import params as j_params
 from starflashattention_tpu.serving import Engine as JEngine
 from starflashattention_tpu.serving import PagedEngine as JPagedEngine
 from starflashattention_tpu.serving import Request as JRequest
 from starflashattention_tpu_torch.cache import contiguous as t_contig
 from starflashattention_tpu_torch.models import llama as t_llama
-from starflashattention_tpu_torch.models import train as t_train
+from starflashattention_tpu_torch.models import lora as t_lora
 from starflashattention_tpu_torch.runtime import params as t_params
 from starflashattention_tpu_torch.serving import Engine, PagedEngine, Request
 from starflashattention_tpu_torch.utils import bridge
@@ -267,11 +270,27 @@ def test_dense_knob_streams_match_jax(knob):
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 def test_training_refuses_the_variants(family):
-    _, tc = _cfgs(family)
-    _, tp = _models(family)
+    """Each family trains: LoRA (rank 4 on the four targets, the JAX
+    package's adapters with b moved off zero) on a (2, 41) batch, past
+    Mistral's window of 32, through the flash path: the loss within 1e-5 of
+    JAX's and every adapter gradient within 5e-4 of its peak
+    (tests/test_torch_train.py's tolerances)."""
+    jc, tc = _cfgs(family)
+    jp, tp = _models(family)
+    ad = j_lora.init_lora(jc, jax.random.PRNGKey(1), rank=4)
+    ad["layers"] = jax.tree.map(
+        lambda x: x + 0.02 * jax.random.normal(jax.random.PRNGKey(2), x.shape), ad["layers"])
+    batch = np.random.default_rng(3).integers(0, jc.vocab_size, (2, 41)).astype(np.int32)
+    jcos, jsin = j_llama.rope_tables(jc)
+    fn = jax.jit(jax.value_and_grad(j_lora.loss_fn, argnums=1), static_argnames=("cfg",))
+    want_loss, want = fn(jp, ad, jnp.asarray(batch), jc, jcos, jsin)
     cos, sin = t_llama.rope_tables(tc, device="cpu")
-    with pytest.raises(NotImplementedError, match="14a-train"):
-        t_train.forward_train(tp, torch.zeros((1, 8), dtype=torch.int32), tc, cos, sin)
+    loss, grads = t_lora.loss_and_grads(tp, bridge.params_from_numpy(jax.tree.map(np.asarray, ad)),
+                                        torch.from_numpy(batch), tc, cos, sin)
+    assert abs(float(loss) - float(want_loss)) < 1e-5
+    got = jax.tree.leaves(bridge.params_to_numpy(grads))
+    for g, w in zip(got, jax.tree.leaves(jax.tree.map(np.asarray, want)), strict=True):
+        assert np.abs(g - w).max() <= 5e-4 * np.abs(w).max()
 
 
 def test_sinks_with_a_per_layer_window_raise():

@@ -27,8 +27,12 @@ Training: K5 with the LSE (causal and not) and the two K12 kernels at G in
 {1, 4, 8} and D in {64, 128}, lengths that are no tile multiple, q offsets
 and a zero-length sequence, K12's bytes across two runs, gradients through
 ``flash_attention`` against autograd of the plain forward, and a bf16
-training step of a 2-layer model (launch counts, falling loss). Each
-tolerance is stated at its test.
+training step of a 2-layer model (launch counts, falling loss); with the
+attention variants, K5's LSE and K12 under the window, sinks and softcap
+at D 64, 128 and 256 (K/V rows below every band set to NaN change no bit
+of dq), K12 at D 256 without options, each option's visible effect on the
+gradients, and training steps of narrow Gemma-2, Mistral with sinks and
+Gemma models. Each tolerance is stated at its test.
 """
 
 import pytest
@@ -876,3 +880,153 @@ def test_variant_families_generate_on_the_kernels(cuda):
         got = eng.generate([prompts[0].tolist(), prompts[1, :150].tolist()], max_new_tokens=6)
         assert all(0 <= t < cfg.vocab_size for row in got for t in row)
         assert toks.shape == (2, 6)
+
+
+# ------------------------------------------------- training with the attention variants
+
+
+def _variant_train_inputs(cuda, hq, hkv, d, cap, sq=200, skv=512, scale=1.0):
+    """Two sequences: a whole one at offset 0 (190 valid rows, then 10
+    padded queries) and a chunk at offset 300 of a 500-row sequence, whose
+    band leaves whole 64-row tiles below it: bands, sinks and skipped tiles
+    in both kernels."""
+    gen = _gen(cuda)
+    q = (torch.randn((2, hq, sq, d), generator=gen, device=cuda) * scale).to(torch.bfloat16)
+    do = torch.randn((2, hq, sq, d), generator=gen, device=cuda, dtype=torch.bfloat16)
+    k, v = (torch.randn((2, hkv, skv, d), generator=gen, device=cuda, dtype=torch.bfloat16) for _ in range(2))
+    q_off = torch.tensor([0, 300], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([190, 500], dtype=torch.int32, device=cuda)
+    sm = d**-0.5 * (1.5 if cap is not None else 1.0)
+    return q, k, v, do, lengths, q_off, sm
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("hq,hkv,d", [(8, 2, 128), (8, 4, 256), (4, 4, 256), (16, 2, 64)])
+def test_flash_prefill_lse_variants_match_plain(cuda, variant, hq, hkv, d):
+    """K5 with the LSE and the variants: the output within 2e-2 (P rounded
+    to bf16 for PV) and bit for bit the call without the LSE; the LSE of the
+    capped, banded scores within 1e-4 (fp32 sums in another order, tanhf /
+    exp2f / log2f against torch's), 3e38 exactly on rows with nothing in
+    band; two runs give the same bytes."""
+    w, sk, cap = variant
+    q, k, v, _, lengths, q_off, sm = _variant_train_inputs(cuda, hq, hkv, d, cap)
+    kw = dict(q_offsets=q_off, sm_scale=sm, window=w, sinks=sk, softcap=cap)
+    out, lse = flash_prefill.flash_prefill(q, k, v, lengths, return_lse=True, **kw)
+    ref, lse_ref = flash_prefill.flash_prefill_plain(q, k, v, lengths, return_lse=True, **kw)
+    assert torch.equal(out, flash_prefill.flash_prefill(q, k, v, lengths, **kw))
+    valid = (q_off[:, None] + torch.arange(q.shape[2], device=cuda)[None, :]) < lengths[:, None]
+    assert _max_err(out[valid[:, None].expand(-1, hq, -1)], ref[valid[:, None].expand(-1, hq, -1)]) <= 2e-2
+    empty = lse_ref > 1e38
+    assert bool((lse[empty] == 3e38).all()) and not bool(empty[valid[:, None].expand(-1, hq, -1)].any())
+    assert _max_err(lse[~empty], lse_ref[~empty]) <= 1e-4
+    again = flash_prefill.flash_prefill(q, k, v, lengths, return_lse=True, **kw)
+    assert torch.equal(again[0], out) and torch.equal(again[1], lse)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("hq,hkv,d", [(8, 2, 128), (8, 4, 256), (4, 4, 256), (16, 2, 64)])
+def test_flash_bwd_variant_kernels_match_plain(cuda, variant, hq, hkv, d):
+    """K12 with the variants against its plain version on the same o, lse
+    and do: 2e-2 of each gradient's peak (P and dS rounded to bf16 before
+    their products); one launch of each kernel; two runs give the same
+    bytes; and K/V rows below every q row's band (sinks spared) set to NaN
+    change no bit of dq and no bit of dk / dv outside those rows."""
+    w, sk, cap = variant
+    q, k, v, do, lengths, q_off, sm = _variant_train_inputs(cuda, hq, hkv, d, cap)
+    kw = dict(q_offsets=q_off, sm_scale=sm, window=w, sinks=sk, softcap=cap)
+    o, lse = flash_prefill.flash_prefill(q, k, v, lengths, return_lse=True, **kw)
+    before = (flash_bwd.flash_bwd_dq.launches, flash_bwd.flash_bwd_dkdv.launches)
+    got = flash_bwd.flash_prefill_bwd(q, k, v, o, lse, do, lengths, **kw)
+    assert (flash_bwd.flash_bwd_dq.launches, flash_bwd.flash_bwd_dkdv.launches) == (before[0] + 1,
+                                                                                    before[1] + 1)
+    ref = flash_bwd.flash_prefill_bwd_plain(q, k, v, o, lse, do, lengths, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert _rel_peak(a, b) <= 2e-2, (name, _rel_peak(a, b))
+    again = flash_bwd.flash_prefill_bwd(q, k, v, o, lse, do, lengths, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if w is not None:
+        starts = q_off - w + 1  # each sequence's lowest band start
+        kp, vp = (_poison_below(x[None], starts, sk)[0] for x in (k, v))
+        poisoned = torch.isnan(kp[:, 0, :, 0])  # (B, Skv)
+        assert bool(poisoned.any())
+        dq, dk, dv = flash_bwd.flash_prefill_bwd(q, kp, vp, o, lse, do, lengths, **kw)
+        assert torch.equal(dq, got[0])
+        keep = ~poisoned[:, None, :, None].expand_as(dk)
+        assert torch.equal(dk[keep], got[1][keep]) and torch.equal(dv[keep], got[2][keep])
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g", [1, 2, 8])
+def test_flash_bwd_head_dim_256_matches_plain(cuda, g, causal):
+    """K12 at head_dim 256 without options (Gemma-7B's G 1, Gemma-2's 2,
+    and 8) on the ragged inputs of the D 64 / 128 test: 2e-2 of each peak,
+    0 on the zero-length sequence, the same bytes twice."""
+    q, k, v, do, lengths, q_off = _train_inputs(cuda, g, 256)
+    kw = dict(causal=causal, q_offsets=q_off)
+    o, lse = flash_prefill.flash_prefill(q, k, v, lengths, return_lse=True, **kw)
+    got = flash_bwd.flash_prefill_bwd(q, k, v, o, lse, do, lengths, **kw)
+    ref = flash_bwd.flash_prefill_bwd_plain(q, k, v, o, lse, do, lengths, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert _rel_peak(a, b) <= 2e-2, (name, _rel_peak(a, b))
+    assert float(got[0][2].abs().max()) == 0.0
+    assert all(torch.equal(a, b) for a, b in zip(got, flash_bwd.flash_prefill_bwd(q, k, v, o, lse, do,
+                                                                                   lengths, **kw)))
+
+
+@pytest.mark.parametrize("drop", ["softcap", "sinks", "window"])
+def test_flash_attention_gradients_see_each_option(cuda, drop):
+    """Gradients through ``flash_attention`` (K5 with the LSE, K12) with a
+    window of 64, 4 sinks and a softcap of 50 at D 256 agree with autograd
+    through the plain forward within 2e-2 of each peak; the same kernels
+    run without one option lie over 5x that far (for the cap, q is scaled
+    so that the scores reach several times the cap)."""
+    q, k, v, do, lengths, q_off, _ = _variant_train_inputs(cuda, 8, 4, 256, None,
+                                                           scale=40.0 if drop == "softcap" else 1.0)
+    kw = dict(q_offsets=q_off, sm_scale=1 / 16, window=64, sinks=4, softcap=50.0)
+    rowmask = ((q_off[:, None] + torch.arange(q.shape[2], device=cuda)[None, :]) < lengths[:, None])[:, None, :, None]
+
+    def grads(fn, **opts):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = fn(*leaves, lengths, **opts)
+        return torch.autograd.grad((torch.where(rowmask, out, 0.0).float() * do.float()).sum(), leaves)
+
+    ref = grads(flash_prefill.flash_prefill_plain, **kw)
+    worst = max(_rel_peak(a, b) for a, b in zip(grads(flash_bwd.flash_attention, **kw), ref))
+    assert worst <= 2e-2
+    dropped = {**kw, **{"softcap": {"softcap": None}, "sinks": {"sinks": 0},
+                        "window": {"window": None, "sinks": 0}}[drop]}
+    assert max(_rel_peak(a, b) for a, b in zip(grads(flash_bwd.flash_attention, **dropped), ref)) > 0.1
+
+
+def test_variant_training_steps_run_on_the_kernels(cuda):
+    """Narrow Gemma-2 (D 256, softcaps, alternating windows, post-norms,
+    GeGLU), Mistral with sinks and Gemma (G 1): each layer's flash path
+    against its plain path within 5e-2 of each gradient's peak, and three
+    SGD steps (lr 0.2) whose loss falls, each launching K5 with the LSE 2 L
+    times and K12's dq L times."""
+    cfgs = (ModelConfig.gemma2_9b(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,
+                                  max_seq_len=256, sliding_window=64, dtype="bfloat16"),
+            ModelConfig.mistral_7b(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,
+                                   num_q_heads=4, num_kv_heads=2, max_seq_len=256, sliding_window=64,
+                                   attention_sinks=4, dtype="bfloat16"),
+            ModelConfig.gemma_7b(vocab_size=512, hidden_size=256, intermediate_size=512, num_layers=2,
+                                 num_q_heads=2, num_kv_heads=2, max_seq_len=256, dtype="bfloat16"))
+    for cfg in cfgs:
+        params = llama.init_params(cfg, _gen(cuda), device=cuda)
+        cos, sin = llama.rope_tables(cfg, device=cuda)
+        batch = torch.randint(0, cfg.vocab_size, (2, 201), generator=_gen(cuda), device=cuda)
+        _, g_kernels = train.loss_and_grads(params, batch, cfg, cos, sin, use_flash=True)
+        _, g_plain = train.loss_and_grads(params, batch, cfg, cos, sin, use_flash=False)
+        for a, b in zip(train.tree_leaves(g_kernels), train.tree_leaves(g_plain)):
+            assert _rel_peak(a, b) <= 5e-2
+        momentum = train.tree_map(torch.zeros_like, params)
+        losses = []
+        for _ in range(3):
+            before = (flash_prefill.flash_prefill.launches_lse, flash_bwd.flash_bwd_dq.launches)
+            params, momentum, loss = train.train_step(params, momentum, batch, cfg, cos, sin, 0.2)
+            n = cfg.num_layers
+            assert (flash_prefill.flash_prefill.launches_lse - before[0],
+                    flash_bwd.flash_bwd_dq.launches - before[1]) == (2 * n, n)
+            losses.append(float(loss))
+        assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0], (cfg, losses)

@@ -241,8 +241,24 @@ def test_flash_prefill_matches_jax(rng):
                                     dict(sinks=2, return_lse=True), dict(kv_offset=4),
                                     dict(window=8, causal=False)])
 def test_flash_prefill_unported_options_raise(rng, kwargs):
-    """The variants with the training forward's options (the LSE, non-causal)
-    and ``kv_offset`` are not ported."""
+    """The variants with the LSE (the training forward) give JAX's output
+    and LSE; sinks without a window raise ``ValueError``, as they do
+    without the LSE; ``kv_offset`` and the variants with ``causal=False``
+    are not ported."""
     q, k, v, q_off, lengths = _prefill_inputs(rng)
-    with pytest.raises(NotImplementedError):
-        t_fp.flash_prefill(_t(q), _t(k), _t(v), _t(lengths), q_offsets=_t(q_off), **kwargs)
+    args = (_t(q), _t(k), _t(v), _t(lengths))
+    if kwargs.get("kv_offset") or kwargs.get("causal") is False:
+        with pytest.raises(NotImplementedError):
+            t_fp.flash_prefill(*args, q_offsets=_t(q_off), **kwargs)
+        return
+    if kwargs.get("sinks") and "window" not in kwargs:
+        with pytest.raises(ValueError, match="sliding window"):
+            t_fp.flash_prefill(*args, q_offsets=_t(q_off), **kwargs)
+        return
+    jo, jlse = j_fp.flash_prefill(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lengths),
+                                  q_offsets=jnp.asarray(q_off), block_q=8, block_k=128, **kwargs)
+    o, lse = t_fp.flash_prefill(*args, q_offsets=_t(q_off), **kwargs)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=ATOL, rtol=0)
+    for bi in range(q.shape[0]):
+        valid = lengths[bi] - q_off[bi]
+        np.testing.assert_allclose(o.numpy()[bi, :, :valid], np.asarray(jo)[bi, :, :valid], atol=ATOL, rtol=0)

@@ -5,7 +5,10 @@ not), the FA2 backward K12 (``flash_prefill_bwd`` through its plain twin,
 fed JAX's own ``o`` and ``lse``), the differentiable ``flash_attention``,
 ``models/train`` (``forward_train``, ``loss_fn``, ``loss_and_grads``,
 ``train_step``, remat) and ``models/lora`` (``init_lora``, ``loss_fn``,
-``merge``), at ``ModelConfig.tiny(dtype="float32")``. The JAX side runs its
+``merge``), at ``ModelConfig.tiny(dtype="float32")``; the attention options
+of the variants (window, sinks, softcap) through the backward and
+``flash_attention`` (tests/test_torch_train_variants.py trains the
+families). The JAX side runs its
 Pallas kernels in interpret mode; the model and the adapters are built by
 the JAX package and reach the port through the numpy bridge, the inputs
 come from a seeded numpy generator.
@@ -144,18 +147,13 @@ def _bwd_inputs(rng, case):
 @pytest.mark.parametrize("case", list(_BWD_CASES))
 def test_bwd_plain_matches_jax(rng, case):
     q, k, v, do, lengths, q_off, causal, window = _bwd_inputs(rng, case)
-    if window is not None:
-        with pytest.raises(NotImplementedError, match="Queue 2"):
-            t_fb.flash_prefill_bwd(_t(q), _t(k), _t(v), _t(q), _t(q[..., 0]), _t(do), _t(lengths),
-                                   _t(q_off), causal=causal, window=window)
-        return
     args = [jnp.asarray(a) for a in (q, k, v, lengths)]
     jo, jlse = j_flash_prefill(*args, causal=causal, q_offsets=jnp.asarray(q_off), block_q=16,
-                               block_k=16, return_lse=True)
+                               block_k=16, return_lse=True, window=window)
     want = j_flash_prefill_bwd(*args[:3], jo, jlse, jnp.asarray(do), args[3], jnp.asarray(q_off),
-                               causal=causal, block_q=16, block_k=16)
+                               causal=causal, block_q=16, block_k=16, window=window)
     got = t_fb.flash_prefill_bwd(_t(q), _t(k), _t(v), _t(jo), _t(jlse), _t(do), _t(lengths), _t(q_off),
-                                 causal=causal)
+                                 causal=causal, window=window)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.shape == w.shape and g.dtype == torch.float32
         assert _rel_err(g.numpy(), w) < BWD_RTOL, (name, _rel_err(g.numpy(), w))
@@ -415,22 +413,46 @@ def test_training_refuses_unported_paths():
     moe = t_params.ModelConfig.tiny(dtype="float32", num_experts=4, num_experts_per_tok=2)
     with pytest.raises(NotImplementedError, match="item 14"):
         t_train.forward_train(params, tokens, moe, cos, sin)
-    with pytest.raises(NotImplementedError, match="14a-train"):
-        t_train.forward_train(params, tokens, t_params.ModelConfig.tiny(dtype="float32", sliding_window=8),
-                              cos, sin)
+    mla = t_params.ModelConfig.tiny(dtype="float32", mla=True, head_dim=24, qk_nope_head_dim=16,
+                                    qk_rope_head_dim=8, kv_lora_rank=32, v_head_dim=16, num_kv_heads=1)
+    with pytest.raises(NotImplementedError, match="14c"):
+        t_train.forward_train(params, tokens, mla, cos, sin)
     with pytest.raises(ValueError, match="dense weights"):
         t_train.forward_train(t_llama.quantize_model_weights(params, "int8"), tokens, tc, cos, sin)
 
 
 @pytest.mark.parametrize("kwargs", [dict(window=8), dict(sinks=2, window=8), dict(softcap=30.0)])
 def test_flash_attention_refuses_unported_options(rng, kwargs):
-    q, k, v, do, lengths, q_off, _, _ = _bwd_inputs(rng, "gqa")
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        t_fb.flash_attention(_t(q), _t(k), _t(v), _t(lengths), **kwargs)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        t_fb.flash_prefill_bwd(_t(q), _t(k), _t(v), _t(q), _t(q[..., 0]), _t(do), **kwargs)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
+    """The options the variants train with: gradients through
+    ``flash_attention`` against JAX's (``test_flash_attention_grads_match_jax``
+    with the option on, on the chunked case: JAX gives a padded row whose
+    band holds no valid key an LSE of -2.4e38 and NaN gradients, the port
+    3e38 and zeros)."""
+    q, k, v, _, lengths, q_off, causal, _ = _bwd_inputs(rng, "chunked_q_offsets")
+    w = rng.standard_normal((q.shape[-1],), dtype=np.float32)
+    rowmask = ((q_off[:, None] + np.arange(q.shape[2])[None, :]) < lengths[:, None])[:, None, :, None]
+
+    def j_loss(q, k, v):
+        o = j_flash_attention(q, k, v, jnp.asarray(lengths), causal=causal, q_offsets=jnp.asarray(q_off),
+                              block_q=16, block_k=16, bwd_block_q=16, bwd_block_k=16, **kwargs)
+        return jnp.sum(jnp.where(rowmask, o, 0.0) * w)
+
+    want = jax.grad(j_loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (_t(a).requires_grad_() for a in (q, k, v))
+    o = t_fb.flash_attention(tq, tk, tv, _t(lengths), causal=causal, q_offsets=_t(q_off), **kwargs)
+    got = torch.autograd.grad((torch.where(_t(rowmask), o, 0.0) * _t(w)).sum(), (tq, tk, tv))
+    for name, g, wnt in zip(("dq", "dk", "dv"), got, want):
+        assert _rel_err(g.numpy(), wnt) < BWD_RTOL, (name, _rel_err(g.numpy(), wnt))
+
+
+def test_flash_attention_refuses_kv_offset(rng):
+    """``kv_offset`` (ring context parallelism) and the variants with
+    ``causal=False`` are not ported."""
+    q, k, v, do, lengths, _, _, _ = _bwd_inputs(rng, "gqa")
+    with pytest.raises(NotImplementedError, match="item 16"):
         t_fb.flash_prefill_bwd(_t(q), _t(k), _t(v), _t(q), _t(q[..., 0]), _t(do), kv_offset=4)
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        t_fb.flash_attention(_t(q), _t(k), _t(v), _t(lengths), causal=False, window=8)
 
 
 def test_init_lora_does_not_fall_back_to_the_cpu():
