@@ -61,7 +61,17 @@ Phases (any failure raises and the script exits non-zero):
    without it lie over 4x each tolerance from the twins); timed beside a
    compiled ``flex_attention`` forward and forward + backward (SDPA's for
    Gemma-7B), the bounds counting the in-band pairs; the banded K12's
-   time is printed beside the unbanded one's at Mistral's shape.
+   time is printed beside the unbanded one's at Mistral's shape. MLA's
+   latent geometry (DeepSeek-V2-Lite: 16 query heads on one 640-lane latent
+   KV head, sm_scale 192 ** -0.5): K1 at B 4, S 4096, lengths 2,000-4,064,
+   K7 on the same rows in 128-row shuffled pages and K5 on 2048-row causal
+   chunks at offsets 0 and 2048, each within 2 (decode) or 3 (K5) bf16
+   ulps of each element of its twin, and each shown to see the shape (with
+   q's rope lanes zeroed, or its heads rolled by 8, the kernel lies over 4x
+   that tolerance from the twin); library SDPA with the mask. The expert
+   stacks at 4 decode rows through the (L * E, ...) view at index lidx * E
+   + e: K6 on DeepSeek-V2-Lite's int4 g128 experts and K4 on Mixtral-8x7B's
+   int8 experts, against their twins (``EXPERT_STACKS``).
 3. Slice: full-width ``ModelConfig.llama_7b_gqa`` (32 layers,
    max_seq_len 1024, random int8 weights and int8 lm_head from a seeded
    generator, bf16 KV cache): greedy ``generate`` on 8 ragged prompts for
@@ -188,6 +198,29 @@ Phases (any failure raises and the script exits non-zero):
    0 sliding, layer 1 full) and Gemma-7B (head_dim 256, G 1). Prints each
    sub-phase's seconds.
 
+12. DeepSeek-V2 and Mixtral (MoE, MLA). (a) ``ModelConfig.deepseek_v2_lite
+   (max_seq_len=4096)`` as published (27 layers, hidden 2048, 16 heads on
+   one 640-lane latent KV head, 64 routed experts top-6 with DeepSeek's
+   router, 2 shared experts, a dense first layer of 10944, vocab 102400),
+   seeded random init with its routed experts and ``wo`` quantized to int4
+   g128 and the rest bf16 (the JAX package's bench), a bf16 latent cache:
+   4 prompts of 1,000-3,000 tokens, 32 greedy tokens each, through
+   ``generate``, ``Engine`` (4 slots, 8 steps a round) and ``PagedEngine``
+   (128-row pages, 2048-row prefill chunks), launch counts checked per run
+   (per step 27 K1 or K7 and K3 or K8 launches and 3,355 K6 launches: ``wo``
+   and gate_up and down of each of the 64 experts of the 26 MoE layers);
+   the engines' streams equal generate's, or pass phase 8's teacher-forced
+   tie check; TTFT and launches a step. (b) The JAX package's decode chain
+   (benchmarks/bench_suite.py:1180-1212): B 4 at 4096 - 33 rows, 32 greedy
+   steps on the host clock, then 8 traced (device busy and idle shares),
+   beside its byte accounting's bound; peak memory. Then 4 full-width
+   layers against the plain route (phase 4's check). (c)
+   ``ModelConfig.mixtral_8x7b`` at full width cut to 2 layers, int8
+   weights, experts (K4 at lidx * E + e) and lm_head, bf16 KV: ``generate``
+   and ``Engine`` on 4 prompts of 200-600 tokens, 16 tokens each, counts
+   checked, streams equal or tie-checked. The lines with phase 12's
+   numbers carry the card's name and power limit.
+
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device,
 or when the package is not beside the script.
@@ -295,6 +328,26 @@ VARIANT_ENTRIES = {
     "gemma2_prefill": "flash_prefill D256 softcap + window 4096 (Gemma-2)",
     "mistral_prefill": "flash_prefill window 4096 + 4 sinks (Mistral-7B)",
 }
+LATENT_BATCH = 4  # phase 12's decode batch (JAX's DeepSeek bench)
+DSV2_NEW_TOKENS = 32
+DSV2_CHAIN_STEPS = 32  # phase 12b: greedy steps on the host clock, from 4096 - 33 rows
+DSV2_TRACED_STEPS = 8
+DSV2_CHECK_PROMPTS = (1500, 2500)  # phase 12a's 4-layer check against the plain route
+LATENT_SEQ = 4096  # phase 12's max_seq_len
+LATENT_CHUNK = 2048  # PagedEngine's prefill chunk in phase 12a
+LATENT_ENTRIES = {
+    "decode": "flash_decode D640 G16 (MLA latent row, DeepSeek-V2-Lite)",
+    "paged": "paged_flash_decode D640 G16 (MLA latent row, DeepSeek-V2-Lite)",
+    "prefill": "flash_prefill D640 G16 causal (MLA latent row, DeepSeek-V2-Lite)",
+    "int4_experts": "quant_matmul_int4 experts at lidx*E+e (DeepSeek-V2-Lite int4 g128, 4 rows)",
+    "int8_experts": "quant_matmul experts at lidx*E+e (Mixtral-8x7B int8, 4 rows)",
+}
+# phase 2's expert stacks: (format, experts, layer, expert, ((projection, K, N), ...)), the
+# stack holding layers 0..layer so the index lidx * E + e lies near its end
+EXPERT_STACKS = {
+    "int4_experts": ("int4", 64, 2, 37, (("gate_up", 2048, 2816), ("down", 1408, 2048))),
+    "int8_experts": ("int8", 8, 1, 5, (("gate_up", 4096, 28672), ("down", 14336, 4096))),
+}
 TRAIN_VARIANT_SEQ = {"mistral": 8192, "gemma2": 6144, "gemma": 4608}  # phase 11's (a), (b), (c)
 TRAIN_MERGE_PROMPTS = (4500, 4700)  # 11b's merged-model prompts: past the 4096 window
 # 11b's merge check runs the first 4 layers (2 sliding, 2 full): through all
@@ -390,7 +443,33 @@ def phase_device_and_build():
             for kernel, regs, spill in _kernel_resources(r["ptxas"]):
                 if kernel.split("<")[1].startswith("256") or spill:
                     log(f"[build]   {kernel}: {regs} registers, spill stores {spill} bytes")
+        for kernel, regs, spill in _latent_resources(r["ptxas"]):
+            log(f"[build]   {kernel}: {regs} registers, spill stores {spill} bytes")
     return smi
+
+
+def _latent_resources(ptxas):
+    """[(kernel, registers, spill store bytes)] of the MLA latent-row forms
+    (head_dim 640) in ``nvcc -Xptxas -v`` output."""
+    out, kernel, spill = [], None, 0
+    for line in ptxas.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            kernel = None
+            if "latent" in name:
+                kernel = "flash_prefill_latent_kernel (D 640)"
+            elif "Li640E" in name:
+                kernel = f"flash_decode_kernel<bf16, bf16, 640, {'paged' if 'Lb1ELb0E' in name else 'contiguous'}>"
+            spill = 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and kernel:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            out.append((kernel, int(m.group(1)), spill))
+            kernel = None
+    return out
 
 
 def _kernel_resources(ptxas):
@@ -546,6 +625,7 @@ def phase_kernels(dev, timer):
     res.update(_quantized_kv_kernels(dev, timer, q, k_tab, v_tab, lengths, layer, k_new, v_new))
     del k_tab, v_tab, ka, va, kp, vp, kv_rep
     res.update(_variant_kernels(dev, timer, gen))
+    res.update(_latent_kernels(dev, timer, gen))
 
     # -- quant_matmul: the five projection shapes, stacked L=4, layer 3
     h, inter, vocab = 4096, 11008, 32000
@@ -1458,6 +1538,146 @@ def _variant_kernels(dev, timer, gen):
     return res
 
 
+def _latent_kernels(dev, timer, gen):
+    """MLA's latent geometry (DeepSeek-V2-Lite: 16 query heads on one
+    640-lane latent KV head, sm_scale 192 ** -0.5, bf16): K1 at B 4, S 4096,
+    lengths 2,000-4,064; K7 on the same rows in 128-row shuffled pages; K5
+    on 2048-row causal chunks at offsets 0 and 2048. Each within 1 (decode)
+    or 2 (K5) roundings of each element of its twin, and each shown to see
+    the shape: with q's rope lanes (512-575) zeroed, or its heads rolled by
+    8, the kernel lies over 4x that tolerance from the twin. Library: SDPA
+    with the length (causal) mask on the rows repeated to 16 heads. Then the
+    expert stacks at decode rows (4), through the free (L * E, ...) view at
+    index lidx * E + e: K6 on DeepSeek-V2-Lite's int4 g128 experts (gate_up
+    2048 -> 2816 written in bf16, down 1408 -> 2048 in fp32) and K4 on
+    Mixtral-8x7B's int8 experts (4096 -> 28672, 14336 -> 4096), against
+    their twins, library ``torch.matmul`` on the bf16 dequantized expert."""
+    import torch.nn.functional as F
+
+    from starflashattention_tpu_torch.core.quant import dequantize_weight
+    from starflashattention_tpu_torch.core.reference import repeat_kv
+    from starflashattention_tpu_torch.ops import quant_matmul as qmm
+    from starflashattention_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
+    from starflashattention_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_plain
+    from starflashattention_tpu_torch.ops.paged_decode import paged_flash_decode, paged_flash_decode_plain
+
+    bf16, e = torch.bfloat16, LATENT_ENTRIES
+    b, hq, s, d, sm = LATENT_BATCH, 16, LATENT_SEQ, 640, 192.0**-0.5
+    res = {}
+
+    def shape_checks(entry, run, q, ref, roundings):
+        """The check sees the latent row's rope lanes and each head's own q."""
+        no_rope = q.clone()
+        no_rope[..., 512:576] = 0
+        _sensitive(entry, "q's rope lanes (512-575)", run(no_rope), ref, roundings)
+        _sensitive(entry, "each head's own q (heads rolled by 8)", run(q.roll(8, dims=1)), ref, roundings)
+
+    q = torch.randn((b, hq, d), generator=gen, device=dev, dtype=bf16)
+    k_tab, v_tab = (torch.randn((1, b, 1, s, d), generator=gen, device=dev, dtype=bf16) for _ in range(2))
+    lo, hi = s // 2 - 48, s - 32  # 2,000-4,064 rows at 4096
+    lengths = torch.randint(lo, hi + 1, (b,), generator=gen, device=dev, dtype=torch.int32)
+    lengths[0], lengths[1] = lo, hi
+    n_valid = int(lengths.sum())
+    kr, vr = repeat_kv(k_tab[0], hq), repeat_kv(v_tab[0], hq)
+    mask = (torch.arange(s, device=dev)[None, :] < lengths[:, None])[:, None, None]
+    lib_ms = timer(lambda: F.scaled_dot_product_attention(q[:, :, None], kr, vr, attn_mask=mask, scale=sm))
+    del kr, vr
+    kw = dict(layer=0, num_splits=1, sm_scale=sm)
+    out = flash_decode(q, k_tab, v_tab, lengths, **kw)
+    ref = flash_decode_plain(q, k_tab, v_tab, lengths, **kw)
+    _check_ulps(f"{e['decode']} B={b} Hq={hq} Hkv=1 S={s} lengths {lengths.tolist()}", out, ref, 1)
+    shape_checks(e["decode"], lambda qq: flash_decode(qq, k_tab, v_tab, lengths, **kw), q, ref, 1)
+    bnd, by = bound_ms(2 * q.numel() * 2 + 2 * n_valid * d * 2 + b * 4, 4 * hq * d * n_valid)
+    res[e["decode"]] = dict(
+        max_abs_err=(out.float() - ref.float()).abs().max().item(),
+        ms=timer(lambda: flash_decode(q, k_tab, v_tab, lengths, **kw)),
+        plain_ms=timer(lambda: flash_decode_plain(q, k_tab, v_tab, lengths, **kw), iters=5),
+        bound_ms=bnd, bound_by=by, library_ms=lib_ms)
+
+    pps = s // PAGE_SIZE
+    perm = torch.randperm(b * pps, generator=torch.Generator().manual_seed(SEED)) + 1
+    table = perm.reshape(b, pps).to(device=dev, dtype=torch.int32)
+    kpool, vpool = _pools_from(k_tab, table, PAGE_SIZE), _pools_from(v_tab, table, PAGE_SIZE)
+    kw = dict(layer=0, sm_scale=sm)
+    out = paged_flash_decode(q, kpool, vpool, table, lengths, **kw)
+    ref = paged_flash_decode_plain(q, kpool, vpool, table, lengths, **kw)
+    _check_ulps(f"{e['paged']} page_size={PAGE_SIZE} pages_per_seq={pps} shuffled", out, ref, 1)
+    shape_checks(e["paged"], lambda qq: paged_flash_decode(qq, kpool, vpool, table, lengths, **kw), q, ref, 1)
+    bnd, by = bound_ms(2 * q.numel() * 2 + 2 * n_valid * d * 2 + b * 4 + table.numel() * 4,
+                       4 * hq * d * n_valid)
+    res[e["paged"]] = dict(
+        max_abs_err=(out.float() - ref.float()).abs().max().item(),
+        ms=timer(lambda: paged_flash_decode(q, kpool, vpool, table, lengths, **kw)),
+        plain_ms=timer(lambda: paged_flash_decode_plain(q, kpool, vpool, table, lengths, **kw), iters=5),
+        bound_ms=bnd, bound_by=by, library_ms=lib_ms)
+    del kpool, vpool
+
+    sq = LATENT_CHUNK
+    q_off = torch.tensor([0, sq], dtype=torch.int32, device=dev)
+    lens = q_off + sq
+    qp = torch.randn((2, hq, sq, d), generator=gen, device=dev, dtype=bf16)
+    k, v = k_tab[0, :2].contiguous(), v_tab[0, :2].contiguous()
+    del k_tab, v_tab
+    out = flash_prefill(qp, k, v, lens, q_offsets=q_off, sm_scale=sm)
+    ref = flash_prefill_plain(qp, k, v, lens, q_offsets=q_off, sm_scale=sm)
+    # two roundings on the kernel's side (P to bf16 for P @ V, the output), one on the twin's
+    _check_ulps(f"{e['prefill']} B=2 Sq={sq} Skv={s} q_offsets={q_off.tolist()}", out, ref, 2)
+    shape_checks(e["prefill"], lambda qq: flash_prefill(qq, k, v, lens, q_offsets=q_off, sm_scale=sm), qp,
+                 ref, 2)
+    n_pairs = sum(int(lo) * sq + sq * (sq + 1) // 2 for lo in q_off.tolist())
+    bnd, by = bound_ms(2 * qp.numel() * 2 + 2 * int(lens.sum()) * d * 2, 4 * d * hq * n_pairs)
+    kk, vv = repeat_kv(k, hq), repeat_kv(v, hq)
+    qpos = q_off[:, None] + torch.arange(sq, device=dev)[None, :]
+    kpos = torch.arange(s, device=dev)
+    cmask = ((kpos[None, None, :] <= qpos[:, :, None]) & (kpos[None, None, :] < lens[:, None, None]))[:, None]
+    res[e["prefill"]] = dict(
+        max_abs_err=(out.float() - ref.float()).abs().max().item(),
+        ms=timer(lambda: flash_prefill(qp, k, v, lens, q_offsets=q_off, sm_scale=sm)),
+        plain_ms=timer(lambda: flash_prefill_plain(qp, k, v, lens, q_offsets=q_off, sm_scale=sm), iters=3),
+        bound_ms=bnd, bound_by=by,
+        library_ms=timer(lambda: F.scaled_dot_product_attention(qp, kk, vv, attn_mask=cmask, scale=sm)))
+    del qp, k, v, kk, vv, cmask, out, ref
+    torch.cuda.empty_cache()
+
+    # -- the expert stacks: (L * E, ...) views, expert e of layer lidx at lidx * E + e
+    rows = LATENT_BATCH
+    for key, (mode, n_exp, lidx, ex, projs) in EXPERT_STACKS.items():
+        entry = e[key]
+        agg = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
+        n_bytes = n_ops = 0
+        n_stack, eidx = (lidx + 1) * n_exp, lidx * n_exp + ex
+        fn, plain = ((qmm.quant_matmul_int4, qmm.quant_matmul_int4_plain) if mode == "int4"
+                     else (qmm.quant_matmul, qmm.quant_matmul_plain))
+        for name, kdim, ndim in projs:
+            out_dtype = bf16 if name == "gate_up" else None  # as _moe_mlp writes them
+            if mode == "int4":  # random nibble pairs and g128 scales
+                w = torch.randint(-128, 128, (n_stack, kdim // 2, ndim), generator=gen, device=dev,
+                                  dtype=torch.int8)
+                scale = torch.rand((n_stack, kdim // 128, ndim), generator=gen, device=dev) * 0.01 + 0.005
+            else:
+                w = torch.randint(-127, 128, (n_stack, kdim, ndim), generator=gen, device=dev, dtype=torch.int8)
+                scale = torch.rand((n_stack, ndim), generator=gen, device=dev) * 0.01 + 0.005
+            deq = dequantize_weight({"w": w[eidx], "scale": scale[eidx]}, bf16)
+            x = torch.randn((rows, kdim), generator=gen, device=dev, dtype=bf16)
+            out = fn(x, w, scale, layer=eidx, out_dtype=out_dtype)
+            ref = plain(x, w, scale, layer=eidx, out_dtype=out_dtype)
+            err = (out.float() - ref.float()).abs().max().item()
+            # fp32 sums of the same exact products in another order; one bf16 rounding each side (bf16 out)
+            _check(f"{entry} {name} index {eidx} of {n_stack} K={kdim} N={ndim} out={out_dtype or torch.float32}",
+                   err, (2.0**-7 if out_dtype == bf16 else 1e-4) * ref.float().abs().max().item())
+            agg["max_abs_err"] = max(agg["max_abs_err"], err)
+            agg["ms"] += timer(lambda: fn(x, w, scale, layer=eidx, out_dtype=out_dtype))
+            agg["plain_ms"] += timer(lambda: plain(x, w, scale, layer=eidx, out_dtype=out_dtype), iters=5)
+            agg["library_ms"] += timer(lambda: torch.matmul(x, deq))
+            n_bytes += x.numel() * 2 + w[eidx].numel() + scale[eidx].numel() * 4 + out.numel() * out.element_size()
+            n_ops += 2 * rows * kdim * ndim
+            del w, scale, deq
+        agg["bound_ms"], agg["bound_by"] = bound_ms(n_bytes, n_ops)
+        res[entry] = agg
+    torch.cuda.empty_cache()
+    return res
+
+
 def _pools_from(tab, table, ps):
     """(L, B, Hkv, S, D) table -> (L, Hkv, B * S / ps + 1, ps, D) pools with
     page (b, i) at table[b, i] (page 0 is the null page). Moves bytes, so
@@ -2301,15 +2521,18 @@ def _record_pages(eng):
     return rounds
 
 
-def _engine_counts(n_layers, steps, banded_layers, kind, lm_head):
+def _engine_counts(n_layers, steps, banded_layers, kind, lm_head, projections=None, qmm="quant_matmul"):
     """Launch counts of one engine run from its stats: ``kind`` "contiguous",
     "paged" or "spec"; ``banded_layers`` layers a step whose window is
     narrower than the cache; ``lm_head`` 1 for a quantized head, 0 for a
-    tied dense one."""
+    tied dense one; ``projections`` the ``qmm`` calls a step (default the
+    four projections a layer and the head)."""
+    projections = 4 * n_layers + lm_head if projections is None else projections
+
     def counts(st):
         dec = st.decode_rounds * steps  # decode or verify steps
-        proj = (st.prefill_rounds + dec) * (4 * n_layers + lm_head)
-        want = {"flash_prefill": st.prefill_rounds * n_layers, "quant_matmul": proj,
+        proj = (st.prefill_rounds + dec) * projections
+        want = {"flash_prefill": st.prefill_rounds * n_layers, qmm: proj,
                 "flash_decode": 0, "flash_decode_banded": 0, "append_rows_kv": 0, "paged_flash_decode": 0,
                 "append_rows_paged_kv": 0, "flash_verify": 0, "append_block_kv": 0}
         if kind == "contiguous":
@@ -2323,7 +2546,7 @@ def _engine_counts(n_layers, steps, banded_layers, kind, lm_head):
     return counts
 
 
-def _greedy_agreement(tag, a_reqs, b_reqs):
+def _greedy_agreement(tag, a_reqs, b_reqs, label="variants"):
     """Share of equal streams, and the largest chosen-token logprob
     difference over the agreeing prefixes (both runs return logprobs)."""
     same = sum(x.output == y.output for x, y in zip(a_reqs, b_reqs))
@@ -2333,18 +2556,18 @@ def _greedy_agreement(tag, a_reqs, b_reqs):
         if n:
             diff = max(diff, max(abs(p - q) for p, q in zip(x.logprobs[:n], y.logprobs[:n])))
     ok = diff <= SERVE_LOGPROB_TOL
-    log(f"[variants] {tag}: streams equal {same}/{len(a_reqs)}; largest chosen-token logprob difference "
+    log(f"[{label}] {tag}: streams equal {same}/{len(a_reqs)}; largest chosen-token logprob difference "
         f"over the agreeing prefixes {diff:.4e} (tolerance {SERVE_LOGPROB_TOL:.1e}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{tag}: logprobs differ by {diff}")
     return same
 
 
-def _tie_check(tag, params, cfg, prompts, streams, dev):
+def _tie_check(tag, params, cfg, prompts, streams, dev, label="variants"):
     """Phase 8's teacher-forced check on the plain decode route."""
     gap, exact = _teacher_forced(params, cfg, prompts, streams, dev)
     ok = gap <= SPEC_TIE_TOL
-    log(f"[variants] {tag}: teacher-forced on the contiguous decode route: exact-argmax share {exact:.4f}, "
+    log(f"[{label}] {tag}: teacher-forced on the contiguous decode route: exact-argmax share {exact:.4f}, "
         f"largest gap below the row maximum {gap:.4e} of the row's logit range (tolerance "
         f"{SPEC_TIE_TOL}) {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -2355,24 +2578,30 @@ def _tie_check(tag, params, cfg, prompts, streams, dev):
 def _variant_generate(tag, params, cfg, prompts, dev, banded_layers, lm_head):
     """Greedy ``generate`` with its launch counts checked."""
     n, steps = cfg.num_layers, VAR_NEW_TOKENS - 1
+    expected = zero_counts(flash_prefill=n, flash_decode=steps * n, flash_decode_banded=steps * banded_layers,
+                           append_rows_kv=steps * n, quant_matmul=(4 * n + lm_head) * (steps + 1),
+                           quant_matmul_tiled=4 * n)
+    return _checked_generate(tag, params, cfg, prompts, dev, expected, VAR_NEW_TOKENS)
+
+
+def _checked_generate(tag, params, cfg, prompts, dev, expected, new_tokens, label="variants"):
+    """Greedy ``generate`` of ``new_tokens`` on ``prompts`` with the launch
+    counters zeroed just before and held to ``expected`` just after."""
     lengths = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=dev)
     padded = torch.zeros((len(prompts), int(lengths.max())), dtype=torch.int32, device=dev)
     for i, p in enumerate(prompts):
         padded[i, : len(p)] = torch.tensor(p, dtype=torch.int32)
-    expected = zero_counts(flash_prefill=n, flash_decode=steps * n, flash_decode_banded=steps * banded_layers,
-                           append_rows_kv=steps * n, quant_matmul=(4 * n + lm_head) * (steps + 1),
-                           quant_matmul_tiled=4 * n)
     from starflashattention_tpu_torch.models import llama
 
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    toks = llama.generate(params, cfg, padded, lengths, VAR_NEW_TOKENS, device=dev)
+    toks = llama.generate(params, cfg, padded, lengths, new_tokens, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    log(f"[variants] {tag} generate: {wall:.2f} s for {int(lengths.sum())} prompt tokens and "
-        f"{VAR_NEW_TOKENS} tokens x {len(prompts)}; launches {counts}")
+    log(f"[{label}] {tag} generate: {wall:.2f} s for {int(lengths.sum())} prompt tokens and "
+        f"{new_tokens} tokens x {len(prompts)}; launches {counts}")
     if counts != expected:
         raise AssertionError(f"{tag}: launch counts {counts} != expected {expected}")
     if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
@@ -2401,11 +2630,11 @@ def _k1_on_rounded_q():
         llama.flash_decode = k1
 
 
-def _variant_serve(tag, make, prompts, expect):
-    eng, reqs, wall, counts = _serve(make, prompts, expect, new_tokens=VAR_NEW_TOKENS)
+def _variant_serve(tag, make, prompts, expect, new_tokens=VAR_NEW_TOKENS, label="variants"):
+    eng, reqs, wall, counts = _serve(make, prompts, expect, new_tokens=new_tokens)
     st = eng.stats.summary()
-    log(f"[variants] {tag}: {wall:.2f} s, {json.dumps(st)}")
-    log(f"[variants] {tag}: launches {counts}")
+    log(f"[{label}] {tag}: {wall:.2f} s, {json.dumps(st)}")
+    log(f"[{label}] {tag}: launches {counts}")
     return eng, reqs, dict(wall_s=wall, stats=st, counts=counts)
 
 
@@ -2987,6 +3216,168 @@ def phase_train_variants(dev):
 # ---------------------------------------------------------------- phase 5
 
 
+def _moe_step_projections(cfg, lm_head):
+    """Weight-only kernel calls a prefill or decode step of a quantized MoE
+    model makes: ``wo`` (MLA) or ``wqkv`` and ``wo`` a layer, gate_up and
+    down for every expert of every MoE layer, and ``lm_head`` (1 when the
+    head is quantized)."""
+    attn = 1 if cfg.mla else 2
+    return attn * cfg.num_layers + 2 * cfg.num_experts * (cfg.num_layers - cfg.first_k_dense) + lm_head
+
+
+def _moe_generate_counts(cfg, qmm_name, lm_head, new_tokens):
+    n, steps, p = cfg.num_layers, new_tokens - 1, _moe_step_projections(cfg, lm_head)
+    # the prefill's rows take the tiled kernel, but for the lm_head's (one a prompt)
+    return zero_counts(flash_prefill=n, flash_decode=steps * n, append_rows_kv=steps * n,
+                       **{qmm_name: (steps + 1) * p, qmm_name + "_tiled": p - lm_head})
+
+
+def _param_bytes(tree):
+    if isinstance(tree, dict):
+        return sum(_param_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def _streams_or_ties(tag, params, cfg, prompts, dev, want, runs):
+    """Each engine run's streams equal ``want`` (generate's), or else pass
+    phase 8's teacher-forced tie check on the contiguous decode route."""
+    for name, reqs in runs.items():
+        streams = [r.output for r in reqs]
+        same = sum(a == b for a, b in zip(streams, want))
+        log(f"[deepseek] {tag}: {name}'s streams equal generate's {same}/{len(want)}")
+        if same != len(want):
+            _tie_check(f"{tag} {name}", params, cfg, prompts, streams, dev, label="deepseek")
+
+
+def phase_deepseek(dev, smi):
+    """DeepSeek-V2-Lite and Mixtral-8x7B at full width (see the module doc)."""
+    from starflashattention_tpu_torch.cache import contiguous
+    from starflashattention_tpu_torch.models import llama
+    from starflashattention_tpu_torch.runtime.params import ModelConfig
+    from starflashattention_tpu_torch.serving import Engine, PagedEngine
+
+    out, t_phase = {}, time.perf_counter()
+
+    # (a) DeepSeek-V2-Lite as published: int4 g128 routed experts and wo, the rest bf16
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = ModelConfig.deepseek_v2_lite(max_seq_len=LATENT_SEQ)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = llama.quantize_model_weights(llama.init_params(cfg, gen, quantize="int4", device=dev), "int4",
+                                          consume=True)
+    torch.cuda.synchronize()
+    n, e, proj = cfg.num_layers, cfg.num_experts, _moe_step_projections(cfg, 0)
+    hkv, d = cfg.kv_cache_dims()
+    prompts = _variant_prompts(cfg.vocab_size, 1000, 3000, seed=SEED + 3)
+    weight_bytes = _param_bytes(params) - _param_bytes(params["embed"])
+    log(f"[deepseek] deepseek_v2_lite L={n} H={cfg.hidden_size} Hq={cfg.num_q_heads} latent row {d} lanes "
+        f"(kv_lora_rank {cfg.kv_lora_rank} + rope {cfg.qk_rope_head_dim}), {e} experts top-"
+        f"{cfg.num_experts_per_tok} + {cfg.n_shared_experts} shared, first {cfg.first_k_dense} dense at "
+        f"{cfg.dense_inter_size}, V={cfg.vocab_size}, max_seq_len {cfg.max_seq_len}; int4 g128 experts + wo, "
+        f"bf16 rest, bf16 latent cache; {weight_bytes / 1e9:.3f} GB of weights less the embedding; built in "
+        f"{time.perf_counter() - t0:.1f} s; prompts {[len(p) for p in prompts]}; {smi}")
+    ds = {"generate": _checked_generate(
+        "deepseek (a)", params, cfg, prompts, dev,
+        _moe_generate_counts(cfg, "quant_matmul_int4", 0, DSV2_NEW_TOKENS), DSV2_NEW_TOKENS, label="deepseek")}
+    common = dict(num_slots=LATENT_BATCH, steps_per_round=VAR_STEPS, return_logprobs=True, device=dev)
+    runs = {}
+    eng, runs["Engine"], ds["engine"] = _variant_serve(
+        "deepseek (a) Engine", lambda: Engine(params, cfg, **common), prompts,
+        _engine_counts(n, VAR_STEPS, 0, "contiguous", 0, proj, "quant_matmul_int4"), DSV2_NEW_TOKENS, "deepseek")
+    del eng
+    eng, runs["PagedEngine"], ds["paged"] = _variant_serve(
+        "deepseek (a) PagedEngine", lambda: PagedEngine(params, cfg, page_size=PAGE_SIZE,
+                                                        prefill_chunk=LATENT_CHUNK, **common),
+        prompts, _engine_counts(n, VAR_STEPS, 0, "paged", 0, proj, "quant_matmul_int4"), DSV2_NEW_TOKENS,
+        "deepseek")
+    del eng
+    _greedy_agreement("deepseek (a) Engine vs PagedEngine", runs["Engine"], runs["PagedEngine"], "deepseek")
+    t1 = time.perf_counter()
+    _streams_or_ties("deepseek (a)", params, cfg, prompts, dev, ds["generate"]["streams"], runs)
+    log(f"[deepseek] (a): {t1 - t0:.1f} s, then the stream checks {time.perf_counter() - t1:.1f} s")
+    g, pg = ds["generate"]["counts"], ds["paged"]["counts"]
+    steps, p_steps = DSV2_NEW_TOKENS - 1, ds["paged"]["stats"]["decode_rounds"] * VAR_STEPS
+    log(f"[deepseek] (a) launches a step: K1 {g['flash_decode'] / steps:.0f}, K3 {g['append_rows_kv'] / steps:.0f}, "
+        f"K6 {(g['quant_matmul_int4'] - g['quant_matmul_int4_tiled']) / steps:.0f} (decode), K5 "
+        f"{g['flash_prefill']} and K6 tiled {g['quant_matmul_int4_tiled']} a prefill; PagedEngine: K7 "
+        f"{pg['paged_flash_decode'] / p_steps:.0f}, K8 {pg['append_rows_paged_kv'] / p_steps:.0f}; TTFT p50 "
+        f"{ds['engine']['stats']['p50_ttft_ms']} ms (Engine), {ds['paged']['stats']['p50_ttft_ms']} ms "
+        f"(PagedEngine), generate {ds['generate']['wall_s']:.2f} s; {smi}")
+
+    # (b) JAX's decode chain (bench_suite.py:1180-1212): B 4 at 4096 - 33 rows, greedy
+    t0 = time.perf_counter()
+    cache = contiguous.init_cache(n, LATENT_BATCH, hkv, cfg.max_seq_len, d, device=dev)
+    cos, sin = llama.rope_tables(cfg, device=dev)
+    start = cfg.max_seq_len - DSV2_CHAIN_STEPS - 1
+
+    def chain(k, tok):
+        for _ in range(k):
+            logits, _ = llama.decode_step(params, cache, tok, cos, sin, cfg)
+            tok = llama.sample(logits)
+        return tok
+
+    tok = torch.zeros((LATENT_BATCH,), dtype=torch.int32, device=dev)
+    cache.lengths.fill_(start)
+    tok = chain(2, tok)  # warm-up
+    cache.lengths.fill_(start)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok = chain(DSV2_CHAIN_STEPS, tok)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / DSV2_CHAIN_STEPS
+    mean_len = start + DSV2_CHAIN_STEPS / 2
+    # JAX's byte accounting: weights less the embedding, the K and V latent
+    # tables both read, its append term and the fp32 logits
+    kv_bytes = 2 * LATENT_BATCH * hkv * mean_len * d * 2
+    append_bytes = 4 * n * LATENT_BATCH * hkv * 32 * d * 2
+    step_bytes = weight_bytes + kv_bytes + append_bytes + LATENT_BATCH * cfg.vocab_size * 4
+    bound = step_bytes / PEAK_BYTES_PER_S * 1e3
+    log(f"[deepseek] (b) decode chain B={LATENT_BATCH} at {start}+ rows: {step_ms:.3f} ms/step "
+        f"({LATENT_BATCH / step_ms * 1e3:.1f} tok/s), host clock over {DSV2_CHAIN_STEPS} steps; bytes a step "
+        f"{step_bytes / 1e9:.3f} GB (weights {weight_bytes / 1e9:.3f}, latent K/V {kv_bytes / 1e9:.3f}), bound "
+        f"{bound:.3f} ms at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s, {bound / step_ms:.3f} of it; {smi}")
+    cache.lengths.fill_(start)
+    traced = _traced_steps("deepseek", "(b) decode chain", lambda: chain(DSV2_TRACED_STEPS, tok), DSV2_TRACED_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[deepseek] (b): {time.perf_counter() - t0:.1f} s; (a)-(b) peak memory {peak:.1f} GiB; {smi}")
+    ds["chain"] = dict(step_ms=step_ms, bound_ms=bound, bytes=step_bytes, traced=traced, peak_gib=peak)
+    out["deepseek"] = ds
+    del params, cache
+    torch.cuda.empty_cache()
+
+    # 4 full-width layers against the plain twins (layer 0 dense, 1-3 MoE)
+    t0 = time.perf_counter()
+    _path_vs_path(dev, ModelConfig.deepseek_v2_lite(num_layers=4, max_seq_len=LATENT_SEQ), "int4",
+                  "deepseek_v2_lite 4 layers, int4 experts + wo + lm_head, bf16 latent KV",
+                  ("flash_prefill", "flash_decode", "append_rows_kv", "quant_matmul_int4"),
+                  prompt_lengths=list(DSV2_CHECK_PROMPTS))
+    log(f"[deepseek] 4 layers against the plain route: {time.perf_counter() - t0:.1f} s")
+
+    # (c) Mixtral-8x7B at full width, cut to 2 layers: int8 experts (K4 at lidx * E + e)
+    t0 = time.perf_counter()
+    cfg = ModelConfig.mixtral_8x7b(num_layers=2, max_seq_len=SLICE_SEQ)
+    params, _ = build_model(cfg, dev)
+    prompts = _variant_prompts(cfg.vocab_size, 200, 600, seed=SEED + 4)
+    log(f"[deepseek] mixtral_8x7b L={cfg.num_layers} (of 32) H={cfg.hidden_size} I={cfg.intermediate_size} "
+        f"{cfg.num_experts} experts top-{cfg.num_experts_per_tok}, int8 weights + experts + lm_head, bf16 KV; "
+        f"prompts {[len(p) for p in prompts]}")
+    mx = {"generate": _checked_generate("mixtral (c)", params, cfg, prompts, dev,
+                                        _moe_generate_counts(cfg, "quant_matmul", 1, VAR_NEW_TOKENS),
+                                        VAR_NEW_TOKENS, label="deepseek")}
+    eng, reqs, mx["engine"] = _variant_serve(
+        "mixtral (c) Engine", lambda: Engine(params, cfg, num_slots=LATENT_BATCH, steps_per_round=VAR_STEPS,
+                                             device=dev),
+        prompts, _engine_counts(cfg.num_layers, VAR_STEPS, 0, "contiguous", 1,
+                                _moe_step_projections(cfg, 1)), label="deepseek")
+    del eng
+    _streams_or_ties("mixtral (c)", params, cfg, prompts, dev, mx["generate"]["streams"], {"Engine": reqs})
+    out["mixtral"] = mx
+    del params
+    torch.cuda.empty_cache()
+    log(f"[deepseek] mixtral (c): {time.perf_counter() - t0:.1f} s; phase 12 {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def phase_decode_profile(dev):
     """bench.py's decode chains on the port: full-width 7B-GQA, B=16, every
     sequence at 512 of 1024 cache rows, greedy steps; int8 weights and
@@ -2994,9 +3385,6 @@ def phase_decode_profile(dev):
     second chain, int4 g128 weights and lm_head with an int8 cache. Times the step on the host clock, then traces a
     few steps with torch.profiler for device time by kernel and the device's
     idle share. Not part of the default run."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from starflashattention_tpu_torch.cache import contiguous
     from starflashattention_tpu_torch.models import llama
     from starflashattention_tpu_torch.runtime.params import ModelConfig
@@ -3033,31 +3421,45 @@ def phase_decode_profile(dev):
             f"({batch / step_ms * 1e3:.1f} tok/s), host clock over {steps} steps")
 
         cache.lengths.fill_(start_len)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            tok = run(traced, tok)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = {}
-        for evt in prof.key_averages():
-            if getattr(evt, "device_type", None) != DeviceType.CUDA:
-                continue
-            us = getattr(evt, "self_device_time_total", None)
-            us = evt.self_cuda_time_total if us is None else us
-            kernels[evt.key] = (us / 1e3 / traced, evt.count / traced)
-        if not kernels:
-            log(f"[profile] {label}: the profiler saw no device time; kernel breakdown not measured")
-        else:
-            busy = sum(ms for ms, _ in kernels.values())
-            launches = sum(n for _, n in kernels.values())
-            log(f"[profile] {label}: traced {traced} steps, {wall_ms / traced:.3f} ms/step wall, "
-                f"device busy {busy:.3f} ms/step in {launches:.0f} kernel launches/step, "
-                f"idle share {1 - busy * traced / wall_ms:.3f}")
-            for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]:
-                log(f"[profile]   {ms:8.3f} ms/step  {n:6.1f} launches/step  {name[:110]}")
+        _traced_steps("profile", label, lambda: run(traced, tok), traced)
         del params, cache
         torch.cuda.empty_cache()
+
+
+def _traced_steps(tag, label, run, steps):
+    """``run()`` (``steps`` decode steps) under torch.profiler: logs the wall
+    and device-busy ms a step, the launches a step, the device's idle share
+    and the 12 costliest kernels; returns them, or None where the profiler
+    saw no device time. It records device activity only: with the host's
+    op events too, phase 12b's 8 traced MoE steps (12,850 launches each)
+    took some 70 s more to summarize (an H100 80GB HBM3 at 700 W)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        us = evt.self_cuda_time_total if us is None else us
+        kernels[evt.key] = (us / 1e3 / steps, evt.count / steps)
+    if not kernels:
+        log(f"[{tag}] {label}: the profiler saw no device time; kernel breakdown not measured")
+        return None
+    busy = sum(ms for ms, _ in kernels.values())
+    launches = sum(n for _, n in kernels.values())
+    idle = 1 - busy * steps / wall_ms
+    log(f"[{tag}] {label}: traced {steps} steps, {wall_ms / steps:.3f} ms/step wall, "
+        f"device busy {busy:.3f} ms/step in {launches:.0f} kernel launches/step, idle share {idle:.3f}")
+    for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"[{tag}]   {ms:8.3f} ms/step  {n:6.1f} launches/step  {name[:110]}")
+    return dict(wall_ms=wall_ms / steps, busy_ms=busy, launches=launches, idle_share=idle)
 
 
 # ---------------------------------------------------------------- main
@@ -3096,6 +3498,11 @@ REPLACES = {
        for k in ("mistral_paged", "gemma2_paged")},
     **{VARIANT_ENTRIES[k]: ("starflashattention_tpu/ops/flash_prefill.py:67", "flash_prefill.cu")
        for k in ("gemma2_prefill", "mistral_prefill")},
+    LATENT_ENTRIES["decode"]: ("starflashattention_tpu/ops/flash_decode.py:213", "flash_decode.cu"),
+    LATENT_ENTRIES["paged"]: ("starflashattention_tpu/ops/paged_decode.py:74", "flash_decode.cu"),
+    LATENT_ENTRIES["prefill"]: ("starflashattention_tpu/ops/flash_prefill.py:67", "flash_prefill.cu"),
+    LATENT_ENTRIES["int4_experts"]: ("starflashattention_tpu/ops/quant_matmul.py:178", "quant_matmul.cu"),
+    LATENT_ENTRIES["int8_experts"]: ("starflashattention_tpu/ops/quant_matmul.py:35", "quant_matmul.cu"),
     **{TRAIN_VARIANT_ENTRIES[k]: (site, src) for k in TRAIN_VARIANT_ENTRIES
        for suffix, site, src in (("_fwd", "starflashattention_tpu/ops/flash_prefill.py:67", "flash_prefill.cu"),
                                  ("_dq", "starflashattention_tpu/ops/flash_bwd.py:173", "flash_bwd.cu"),
@@ -3110,8 +3517,8 @@ OFF_PATH = ("flash_decode fp8 KV (1 split, fused)", "paged_flash_decode fp8 KV")
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11",
-                        help="comma-separated phases to run (default 1,2,3,4,6,7,8,9,10,11; phase 5, "
+    parser.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11,12",
+                        help="comma-separated phases to run (default 1,2,3,4,6,7,8,9,10,11,12; phase 5, "
                              "a profile of bench.py's decode chains, runs only when named)")
     args = parser.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -3129,7 +3536,7 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
-    phase_device_and_build()
+    smi = phase_device_and_build()
     timer = Timer(dev)
     kernels = phase_kernels(dev, timer) if 2 in phases else {}
     runs = phase_slice(dev) if 3 in phases else {}
@@ -3141,6 +3548,7 @@ def main(argv=None):
     training = phase_training(dev) if 9 in phases else {}
     variants = phase_variants(dev) if 10 in phases else {}
     train_variants = phase_train_variants(dev) if 11 in phases else {}
+    deepseek = phase_deepseek(dev, smi) if 12 in phases else {}
     if 5 in phases:
         phase_decode_profile(dev)
 
@@ -3204,6 +3612,15 @@ def main(argv=None):
             e["gemma2_full_dkdv"]: g2["flash_bwd_dkdv"] - g2["flash_bwd_dkdv_banded"],
             e["gemma_fwd"]: g7["flash_prefill_lse"], e["gemma_dq"]: g7["flash_bwd_dq"],
             e["gemma_dkdv"]: g7["flash_bwd_dkdv"]})
+    if deepseek:
+        ds, mx = deepseek["deepseek"], deepseek["mixtral"]["generate"]["counts"]
+        gen = ds["generate"]["counts"]
+        e = LATENT_ENTRIES
+        launches.update({
+            e["decode"]: gen["flash_decode"], e["prefill"]: gen["flash_prefill"],
+            e["paged"]: ds["paged"]["counts"]["paged_flash_decode"],
+            e["int4_experts"]: gen["quant_matmul_int4"] - gen["quant_matmul_int4_tiled"],
+            e["int8_experts"]: mx["quant_matmul"] - mx["quant_matmul_tiled"]})
     line = []
     for name, r in kernels.items():
         if name in OFF_PATH:

@@ -43,6 +43,16 @@
 // softcap a runtime float, tested once per score outside the D-long dot
 // product, so neither adds an instantiation. D is 64, 128 or 256.
 //
+// MLA's latent row (D = 640, the plain build only, bf16 q and bf16 K/V,
+// decode and paged, no verify): DeepSeek-V2 caches one 640-lane row a token
+// (kv_lora_rank 512 + rope 64, padded) that all 16 query heads attend, so a
+// block holds G = 16 rows of 640 fp32 accumulators. Shared memory at BK 32:
+// the K tile 32 x 642 and the V tile 32 x 640 in bf16, q and acc 2 x 16 x
+// 640 fp32, about 166 KB (opt-in, under 227 KB). With one latent head the
+// grid is only (1, 1, B) blocks, so this form runs 512 threads a block (128
+// otherwise) to spread a tile's 16 x 32 scores and 16 x 640 outputs; the
+// split-KV partials would add blocks (ROADMAP Queue 2, K2 at D 640).
+//
 // q: (B, Hq, D); k/v: the (B, Hkv, S, D) table of one layer (the wrapper
 // offsets the pointer into the (L, B, Hkv, S, D) table, so no per-layer copy
 // exists); lengths: (B,) int32. Query head h reads KV head h / G.
@@ -101,6 +111,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #ifndef SFA_DECODE_VARIANTS
 #error "include this header from flash_decode.cu or flash_decode_variants.cu"
 #endif
@@ -111,6 +123,19 @@ constexpr bool VARIANTS = SFA_DECODE_VARIANTS;
 
 constexpr int THREADS = 128;         // decode block
 constexpr int VERIFY_THREADS = 512;  // verify block: G * T rows, T times the work a tile
+constexpr int LATENT_D = 640;        // MLA's latent row (see above)
+
+// threads a block: the verify block's and the latent row's are 512 wide
+template <int D, bool VERIFY>
+__host__ __device__ constexpr int block_threads() {
+  return VERIFY || D == LATENT_D ? VERIFY_THREADS : THREADS;
+}
+
+// Whether a q / KV type pair has the latent-row form: bf16 both, plain build.
+template <typename T, typename KV>
+constexpr bool has_latent_form() {
+  return !VARIANTS && std::is_same_v<T, __nv_bfloat16> && std::is_same_v<KV, __nv_bfloat16>;
+}
 constexpr int BK = 32;  // KV rows per tile (= warp size: one score per lane)
 constexpr float NEG_INF = -0.7f * 3.4028234663852886e38f;
 constexpr int NO_WINDOW = 1 << 30;  // the window argument without a window
@@ -234,9 +259,9 @@ __device__ __forceinline__ int fold_scale_of(const A& a) {
 // (VERIFY = false) compile with one query token a head and the tile's own
 // row count, so the verify mode costs the decode nothing.
 template <typename T, typename KV, int D, bool PAGED, bool VERIFY>
-__global__ void __launch_bounds__(VERIFY ? VERIFY_THREADS : THREADS)
+__global__ void __launch_bounds__(block_threads<D, VERIFY>())
     flash_decode_kernel(const DecodeArgs<T, KV> a) {
-  constexpr int NT = VERIFY ? VERIFY_THREADS : THREADS;
+  constexpr int NT = block_threads<D, VERIFY>();
   using TL = Tile<KV, D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ long long row_off[BK];  // paged: element offset of each tile row
@@ -422,7 +447,7 @@ cudaError_t launch(const DecodeArgs<T, KV>& a, int B, cudaStream_t stream) {
     if (e != cudaSuccess) return e;
   }
   dim3 grid(num_splits_of(a), a.Hkv, B);
-  kernel<<<grid, VERIFY ? VERIFY_THREADS : THREADS, smem, stream>>>(a);
+  kernel<<<grid, block_threads<D, VERIFY>(), smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -476,6 +501,9 @@ cudaError_t run(const RawArgs& r, cudaStream_t stream) {
       return launch<T, KV, 128, PAGED, false>(a, r.B, stream);
     case 256:
       return launch<T, KV, 256, PAGED, false>(a, r.B, stream);
+    case LATENT_D:
+      if constexpr (has_latent_form<T, KV>()) return launch<T, KV, LATENT_D, PAGED, false>(a, r.B, stream);
+      return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }
@@ -511,7 +539,8 @@ const char* error_string(int e) { return cudaGetErrorString(static_cast<cudaErro
 // Fused mode: out (q's shape) in q's dtype non-null, partial pointers null,
 // num_splits 1. Partials mode (qspan 1): out null; o_part (B, Hq, N, D),
 // m_part/l_part (B, Hq, N). dtype: 0 = fp32, 1 = bf16 (q's dtype); kv_dtype:
-// 0 = q's dtype, 1 = int8, 2 = fp8-e4m3. D is 64, 128 or 256. ``scale``
+// 0 = q's dtype, 1 = int8, 2 = fp8-e4m3. D is 64, 128 or 256, or 640 for
+// bf16 q and K/V in the plain build, not in verify mode. ``scale``
 // multiplies the scores (the quantized path passes 1 with q prescaled).
 // window (>= 1; 1 << 30 for none), sinks (>= 0), softcap (0 for none).
 int flash_decode(const void* q, const void* k, const void* v, const void* lengths, void* out,

@@ -60,6 +60,22 @@
 // and LSE are template flags, so the serving prefill's instantiation
 // carries neither the non-causal branch nor the LSE store. Not yet: copies
 // overlapped with compute (cp.async / TMA), wgmma.
+//
+// MLA's latent row (flash_prefill_latent_kernel: D = 640, causal, no LSE,
+// no window / sinks / softcap): DeepSeek-V2's 16 query heads attend one
+// 640-lane latent KV head. One warp's 16 rows x 640 fp32 accumulators
+// would be 320 registers a thread, and a block of all 16 heads 512
+// threads; so the output columns are cut into five 128-lane slices, one
+// warp each, and a block holds 16 query rows of HB = 2 heads: 10 warps, 320
+// threads. The 16 x 32 score tile of a head is computed once between its
+// five warps: each takes a 128-deep slice of the 640-deep contraction
+// (its Q fragments stay in registers), writes its partial scores to shared
+// memory, and after a barrier every warp sums the five partials in slice
+// order, so all five hold the same fp32 scores bit for bit and run the
+// same online softmax; each then accumulates P @ V on its own 128 columns
+// (64 accumulator registers a thread). Grid: (q tiles of 16 rows,
+// Hkv * G / 2, B); the K/V tile staged in shared memory serves the block's
+// 2 heads x 16 rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -351,6 +367,199 @@ __global__ void __launch_bounds__(MAX_THREADS)
   }
 }
 
+namespace latent {
+constexpr int D = 640;       // the latent row
+constexpr int SC = 128;      // output columns (and contraction depth) of one warp's slice
+constexpr int SLICES = D / SC;
+constexpr int HB = 2;        // query heads a block
+constexpr int WARPS = SLICES * HB;
+constexpr int THREADS = 32 * WARPS;
+constexpr int BK = 32;       // KV rows a tile
+constexpr int ST = D + 8;    // padded smem row (elements)
+constexpr int SP = BK + 8;   // padded row of a warp's partial scores (floats): conflict-free float2
+constexpr size_t SMEM = 2 * (size_t)BK * ST * sizeof(__nv_bfloat16) + (size_t)WARPS * 16 * SP * sizeof(float);
+}  // namespace latent
+
+__global__ void __launch_bounds__(latent::THREADS, 1)
+    flash_prefill_latent_kernel(const __nv_bfloat16* __restrict__ q,
+                                const __nv_bfloat16* __restrict__ k,
+                                const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
+                                const int* __restrict__ q_offsets, __nv_bfloat16* __restrict__ out,
+                                int Hq, int Hkv, int Sq, int Skv, const Options opt) {
+  using namespace latent;
+  constexpr int KT = SC / 16;    // k-steps of the slice's QK product
+  constexpr int NT = SC / 8;     // n-tiles of the slice's PV product
+  constexpr int ST_N = BK / 8;   // n-tiles of the QK product
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BK][ST]
+  __nv_bfloat16* v_s = k_s + BK * ST;                                 // [BK][ST]
+  float* s_part = reinterpret_cast<float*>(v_s + BK * ST);            // [WARPS][16][SP]
+
+  const int qt = blockIdx.x, b = blockIdx.z;
+  const int G = Hq / Hkv, groups = G / HB;
+  const int kvh = blockIdx.y / groups;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int hl = warp / SLICES, slice = warp % SLICES;  // the warp's head in the block, its columns
+  const int head = kvh * G + (blockIdx.y % groups) * HB + hl;
+  const int col0 = slice * SC;
+  const int r0 = qt * 16;  // the block's first q row (every warp holds the same 16)
+  const int ra = r0 + g, rb = r0 + g + 8;
+  const int len = min(lengths[b], Skv);
+  const int qoff = q_offsets[b];
+  const int pa = qoff + ra, pb = qoff + rb;
+  const int kv_end = min(len, qoff + min(r0 + 15, Sq - 1) + 1);  // causal: through the last row
+
+  const __nv_bfloat16* qh = q + ((size_t)b * Hq + head) * (size_t)Sq * D + col0;
+  uint32_t qa[KT][4];
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) {
+    const int c = kk * 16 + 2 * t;
+    qa[kk][0] = ra < Sq ? *reinterpret_cast<const uint32_t*>(qh + (size_t)ra * D + c) : 0u;
+    qa[kk][1] = rb < Sq ? *reinterpret_cast<const uint32_t*>(qh + (size_t)rb * D + c) : 0u;
+    qa[kk][2] = ra < Sq ? *reinterpret_cast<const uint32_t*>(qh + (size_t)ra * D + c + 8) : 0u;
+    qa[kk][3] = rb < Sq ? *reinterpret_cast<const uint32_t*>(qh + (size_t)rb * D + c + 8) : 0u;
+  }
+  float o[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
+  const size_t kv_base = ((size_t)b * Hkv + kvh) * (size_t)Skv * D;
+  float* my_part = s_part + warp * 16 * SP;
+  const float* head_parts = s_part + hl * SLICES * 16 * SP;
+
+  for (int j0 = 0; j0 < kv_end; j0 += BK) {
+    for (int i = threadIdx.x; i < BK * D / 8; i += THREADS) {  // rows past the length zero-filled
+      const int row = i / (D / 8), col = (i % (D / 8)) * 8;
+      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
+      if (j0 + row < len) {
+        kv = *reinterpret_cast<const uint4*>(k + kv_base + (size_t)(j0 + row) * D + col);
+        vv = *reinterpret_cast<const uint4*>(v + kv_base + (size_t)(j0 + row) * D + col);
+      }
+      *reinterpret_cast<uint4*>(k_s + row * ST + col) = kv;
+      *reinterpret_cast<uint4*>(v_s + row * ST + col) = vv;
+    }
+    __syncthreads();
+
+    // this warp's 128-deep share of the head's scores
+    float s[ST_N][4];
+#pragma unroll
+    for (int n = 0; n < ST_N; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      const __nv_bfloat16* krow = k_s + (n * 8 + g) * ST + col0 + 2 * t;
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        mma_bf16(s[n], qa[kk], *reinterpret_cast<const uint32_t*>(krow + kk * 16),
+                 *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8));
+      }
+      *reinterpret_cast<float2*>(my_part + g * SP + n * 8 + 2 * t) = make_float2(s[n][0], s[n][1]);
+      *reinterpret_cast<float2*>(my_part + (g + 8) * SP + n * 8 + 2 * t) = make_float2(s[n][2], s[n][3]);
+    }
+    __syncthreads();
+    // the full scores: the head's five partials summed in slice order
+#pragma unroll
+    for (int n = 0; n < ST_N; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int sl = 0; sl < SLICES; ++sl) {
+        const float* part = head_parts + sl * 16 * SP + n * 8 + 2 * t;
+        const float2 a = *reinterpret_cast<const float2*>(part + g * SP);
+        const float2 c = *reinterpret_cast<const float2*>(part + (g + 8) * SP);
+        s[n][0] += a.x;
+        s[n][1] += a.y;
+        s[n][2] += c.x;
+        s[n][3] += c.y;
+      }
+    }
+    float mx_a = NEG_INF, mx_b = NEG_INF;
+    scale_mask<ST_N, true, false, false>(s, j0 + 2 * t, pa, pb, len, opt, mx_a, mx_b);
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float alpha_a = exp2f(m_a - mn_a), alpha_b = exp2f(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int n = 0; n < ST_N; ++n) {
+      s[n][0] = s[n][0] == NEG_INF ? 0.f : exp2f(s[n][0] - mn_a);
+      s[n][1] = s[n][1] == NEG_INF ? 0.f : exp2f(s[n][1] - mn_a);
+      s[n][2] = s[n][2] == NEG_INF ? 0.f : exp2f(s[n][2] - mn_b);
+      s[n][3] = s[n][3] == NEG_INF ? 0.f : exp2f(s[n][3] - mn_b);
+      sum_a += s[n][0] + s[n][1];
+      sum_b += s[n][2] + s[n][3];
+    }
+    l_a = l_a * alpha_a + sum_a;
+    l_b = l_b * alpha_b + sum_b;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      o[n][0] *= alpha_a;
+      o[n][1] *= alpha_a;
+      o[n][2] *= alpha_b;
+      o[n][3] *= alpha_b;
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {  // O[:, slice] += P @ V[:, slice]
+      uint32_t pf[4];
+      pf[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pf[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pf[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pf[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      const int mi = lane >> 3, rr = lane & 7;
+      const __nv_bfloat16* vrow = v_s + (kk * 16 + rr + (mi & 1) * 8) * ST + col0 + (mi >> 1) * 8;
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, vrow + np * 16);
+        mma_bf16(o[2 * np], pf, vb[0], vb[1]);
+        mma_bf16(o[2 * np + 1], pf, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float inv_a = 1.f / (l_a == 0.f ? 1.f : l_a);
+  const float inv_b = 1.f / (l_b == 0.f ? 1.f : l_b);
+  __nv_bfloat16* oh = out + ((size_t)b * Hq + head) * (size_t)Sq * D + col0;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int c = n * 8 + 2 * t;
+    if (ra < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)ra * D + c) =
+          __floats2bfloat162_rn(o[n][0] * inv_a, o[n][1] * inv_a);
+    if (rb < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)rb * D + c) =
+          __floats2bfloat162_rn(o[n][2] * inv_b, o[n][3] * inv_b);
+  }
+}
+
+cudaError_t launch_latent(const void* q, const void* k, const void* v, const void* lengths,
+                          const void* q_offsets, void* out, void* lse, int B, int Hq, int Hkv, int Sq,
+                          int Skv, int causal, const Options& opt, cudaStream_t stream) {
+  // the one form: causal, no LSE, no window / sinks / softcap, G a multiple of HB
+  if (!causal || lse != nullptr || opt.window < NO_WINDOW || opt.sinks || opt.softcap > 0.f ||
+      Hq % Hkv || (Hq / Hkv) % latent::HB)
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(flash_prefill_latent_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(latent::SMEM));
+  if (e != cudaSuccess) return e;
+  dim3 grid((Sq + 15) / 16, Hq / latent::HB, B);
+  flash_prefill_latent_kernel<<<grid, latent::THREADS, latent::SMEM, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lengths),
+      static_cast<const int*>(q_offsets), static_cast<__nv_bfloat16*>(out), Hq, Hkv, Sq, Skv, opt);
+  return cudaGetLastError();
+}
+
 template <int D, bool CAUSAL, bool LSE, bool SOFTCAP, bool BAND>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* lengths,
                    const void* q_offsets, void* out, void* lse, int B, int Hq, int Hkv, int Sq,
@@ -403,7 +612,8 @@ const char* error_string(int e) { return cudaGetErrorString(static_cast<cudaErro
 
 // q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D), out (B, Hq, Sq, D): bf16,
 // contiguous. lengths, q_offsets: (B,) int32. lse: (B, Hq, Sq) fp32, or
-// null for no LSE. D is 64, 128 or 256; Hq / Hkv <= 8. sm_scale is the
+// null for no LSE. D is 64, 128 or 256 with Hq / Hkv <= 8, or 640 (causal,
+// no LSE and no options) with Hq / Hkv a multiple of 2. sm_scale is the
 // score scale and scale_log2 = sm_scale * log2(e) (rounded by the caller as
 // flash_bwd.cu's is); window (>= 1, 1 << 30 for none), sinks (>= 0), softcap (0 for
 // none): causal only, with or without the LSE.
@@ -424,6 +634,9 @@ int flash_prefill(const void* q, const void* k, const void* v, const void* lengt
       break;
     case 256:
       e = launch_d<256>(q, k, v, lengths, q_offsets, out, lse, B, Hq, Hkv, Sq, Skv, causal, o, s);
+      break;
+    case latent::D:
+      e = launch_latent(q, k, v, lengths, q_offsets, out, lse, B, Hq, Hkv, Sq, Skv, causal, o, s);
       break;
     default:
       e = cudaErrorInvalidValue;

@@ -38,7 +38,17 @@ along: a sliding window (per layer with ``sliding_window_pattern > 1``, a
 Python int each layer, :func:`_layer_window`), attention sinks and the
 attention softcap go to every attention call; GeGLU, the embedding scale,
 Gemma-2's post-norms and the final logit softcap are plain torch ops.
-MoE and MLA raise ``NotImplementedError`` (:func:`check_supported`).
+
+Mixture-of-experts MLPs (:func:`_mlp_block`) take either router (Mixtral's
+softmax over the top-k logits, or DeepSeek's softmax over all experts, then
+top-k times ``routed_scaling_factor``), DeepSeek's shared experts and its
+dense first layers. Dense experts run JAX's formulation (every expert on
+every row, the routing weights zeroing the unselected pairs); quantized
+experts run one stacked-layer K4 / K6 call per expert at index
+``lidx * E + e`` on a free (L * E, ...) view of the stack. DeepSeek's MLA
+(:func:`_mla_qkv`, :func:`_mla_out`) caches one latent row per token and
+attends it as one KV head of ``kv_cache_dims()[1]`` lanes (640 for
+V2-Lite) with the absorbed queries, on the same attention kernels.
 """
 
 from __future__ import annotations
@@ -64,7 +74,7 @@ from starflashattention_tpu_torch.utils.device import resolve_device
 
 Params = dict[str, Any]
 
-_QUANT_WEIGHTS = ("wqkv", "wo", "w_gate_up", "w_down")
+_QUANT_WEIGHTS = ("wqkv", "wo", "w_gate_up", "w_down", "moe_gate_up", "moe_down")
 W8A8_MIN_ROWS = 256  # prefill rows from which cfg.w8a8_prefill takes the int8-activation kernels
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -81,16 +91,10 @@ _GATE_ACTS = {
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for config fields the port does not run
-    yet; each names its ROADMAP Queue 1 item."""
-    unported = {
-        "num_experts (MoE, item 14b)": cfg.num_experts != 0,
-        "mla (item 14c)": cfg.mla,
-        f"mlp_activation={cfg.mlp_activation!r}": cfg.mlp_activation not in _GATE_ACTS,
-    }
-    bad = [name for name, on in unported.items() if on]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)} (ROADMAP Queue 1)")
+    """Raise ``NotImplementedError`` for an MLP activation the port does not
+    run (the JAX package takes the same three)."""
+    if cfg.mlp_activation not in _GATE_ACTS:
+        raise NotImplementedError(f"mlp_activation={cfg.mlp_activation!r} is not supported")
 
 
 # ---------------------------------------------------------------------------
@@ -159,12 +163,17 @@ def init_params(
     in ``cfg.dtype``.
 
     ``quantize`` ("int8" / "fp8" / "int4", with ``int4_group``) generates
-    each big projection one layer at a time and quantizes it at once, so the
-    dense stack never exists;
+    each big projection (and each layer's (E, H, O) expert stack) one layer
+    at a time and quantizes it at once, so the dense stack never exists;
     the lm_head stays dense (quantize it with
-    ``quantize_model_weights(..., lm_head=True)``). The values differ from
-    the JAX package's (another generator): tests bridge JAX's params with
-    ``utils.bridge.params_from_numpy`` instead."""
+    ``quantize_model_weights(..., lm_head=True)``). The tree is the JAX
+    package's (JAX llama.py:250-335): MoE configs carry the router, the
+    expert stacks, DeepSeek's shared experts and its dense first layers'
+    side stack ``dense_mlp`` (a dict, k-leading) in place of ``w_gate_up`` /
+    ``w_down``; MLA configs carry the latent projections in place of
+    ``wqkv``. The values differ from the JAX package's (another generator):
+    tests bridge JAX's params with ``utils.bridge.params_from_numpy``
+    instead."""
     check_supported(cfg)
     dev = resolve_device(device)
     if generator is None:
@@ -184,20 +193,47 @@ def init_params(
                                  for _ in range(shape[0])])
 
     ones = lambda *shape: torch.ones(shape, dtype=dtype, device=dev)  # noqa: E731
-    params: Params = {
-        "embed": norm01((cfg.vocab_size, h), 1.0),
-        "layers": {
-            "attn_norm": ones(n_layers, h),
-            # wqkv columns: [q (Hq*D) | k (Hkv*D) | v (Hkv*D)], head-major
-            "wqkv": big((n_layers, h, (hq + 2 * hkv) * d), h),
-            "wo": big((n_layers, hq * d, h), hq * d),
-            "mlp_norm": ones(n_layers, h),
-            # w_gate_up columns: [gate (I) | up (I)]
-            "w_gate_up": big((n_layers, h, 2 * inter), h),
-            "w_down": big((n_layers, inter, h), inter),
-        },
-        "final_norm": ones(h),
-    }
+    embed = norm01((cfg.vocab_size, h), 1.0)  # first: the generator's order of the dense configs
+    layers: Params = {"attn_norm": ones(n_layers, h)}
+    if cfg.mla:  # the latent projections replace wqkv; wo takes Hq * v_head_dim rows
+        c, nope, rope_d, v_dim = (cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                                  cfg.v_head_dim)
+        if cfg.q_lora_rank is not None:
+            layers["mla_wq_a"] = norm01((n_layers, h, cfg.q_lora_rank), h)
+            layers["mla_q_a_norm"] = ones(n_layers, cfg.q_lora_rank)
+            layers["mla_wq_b"] = norm01((n_layers, cfg.q_lora_rank, hq * (nope + rope_d)),
+                                        cfg.q_lora_rank)
+        else:
+            layers["mla_wq"] = norm01((n_layers, h, hq * (nope + rope_d)), h)
+        layers["mla_wkv_a"] = norm01((n_layers, h, c + rope_d), h)
+        layers["mla_kv_a_norm"] = ones(n_layers, c)
+        layers["mla_wuk"] = norm01((n_layers, hq, nope, c), c)
+        layers["mla_wuv"] = norm01((n_layers, hq, c, v_dim), c)
+        layers["wo"] = big((n_layers, hq * v_dim, h), hq * v_dim)
+    else:
+        # wqkv columns: [q (Hq*D) | k (Hkv*D) | v (Hkv*D)], head-major
+        layers["wqkv"] = big((n_layers, h, (hq + 2 * hkv) * d), h)
+        layers["wo"] = big((n_layers, hq * d, h), hq * d)
+    layers["mlp_norm"] = ones(n_layers, h)
+    if cfg.num_experts:
+        e = cfg.num_experts
+        layers["moe_router"] = norm01((n_layers, h, e), h)
+        # per expert [gate (I) | up (I)] and down, stacked (L, E, ...)
+        layers["moe_gate_up"] = big((n_layers, e, h, 2 * inter), h)
+        layers["moe_down"] = big((n_layers, e, inter, h), inter)
+        if cfg.n_shared_experts:  # one dense SwiGLU of n_shared * I on every row
+            si = cfg.n_shared_experts * inter
+            layers["moe_shared_gate_up"] = norm01((n_layers, h, 2 * si), h)
+            layers["moe_shared_down"] = norm01((n_layers, si, h), si)
+        if cfg.first_k_dense:  # the dense first layers' side stack, k-leading
+            k, di = cfg.first_k_dense, cfg.dense_inter_size
+            layers["dense_mlp"] = {"w_gate_up": norm01((k, h, 2 * di), h),
+                                   "w_down": norm01((k, di, h), di)}
+    else:
+        # w_gate_up columns: [gate (I) | up (I)]
+        layers["w_gate_up"] = big((n_layers, h, 2 * inter), h)
+        layers["w_down"] = big((n_layers, inter, h), inter)
+    params: Params = {"embed": embed, "layers": layers, "final_norm": ones(h)}
     if cfg.attention_bias:
         params["layers"]["bqkv"] = norm01((n_layers, (hq + 2 * hkv) * d), h)
     if cfg.qk_norm:
@@ -264,6 +300,18 @@ def _residual_add(x, out, layers: Params, lidx: int, post_key: str, eps: float):
     return x + out
 
 
+def _dense_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` at fp32 (the JAX package's ``jnp.dot`` of a dense weight
+    outside Pallas, fp32 accumulate)."""
+    return torch.matmul(x.float(), w.float())
+
+
+def _gated(gu: torch.Tensor, act, dtype: torch.dtype) -> torch.Tensor:
+    """``act(gate) * up`` of a [gate | up] row, cast to ``dtype``."""
+    inter = gu.shape[-1] // 2
+    return (act(gu[..., :inter]) * gu[..., inter:]).to(dtype)
+
+
 def _wq_matmul(x2d: torch.Tensor, w: dict, layer, out_dtype=None) -> torch.Tensor:
     """Weight-only kernel for a quantized dict: int4 (grouped scales; the
     scale's rank tags the format) or int8 / fp8."""
@@ -290,7 +338,7 @@ def _make_proj(layers: Params, lidx: int, cfg: ModelConfig):
             else:
                 out = _wq_matmul(flat, w, lidx, out_dtype=out_dtype)
             return out.reshape(*x.shape[:-1], out.shape[-1])
-        return torch.matmul(x.float(), w[lidx].float())
+        return _dense_dot(x, w[lidx])
 
     return proj
 
@@ -306,10 +354,7 @@ def _swiglu(x: torch.Tensor, proj, cfg: ModelConfig) -> torch.Tensor:
     """Gated MLP -> fp32: gate_up written in x's dtype, ``act(gate) * up``
     cast to x's dtype (SwiGLU's silu, or Gemma's GeGLU), w_down written in
     fp32."""
-    gu = proj(x, "w_gate_up", out_dtype=x.dtype)
-    inter = gu.shape[-1] // 2
-    gate, up = gu[..., :inter], gu[..., inter:]
-    act = (_GATE_ACTS[cfg.mlp_activation](gate) * up).to(x.dtype)
+    act = _gated(proj(x, "w_gate_up", out_dtype=x.dtype), _GATE_ACTS[cfg.mlp_activation], x.dtype)
     return proj(act, "w_down")
 
 
@@ -344,22 +389,174 @@ def _logits(x: torch.Tensor, params: Params, cfg: ModelConfig) -> torch.Tensor:
     if isinstance(head, dict):
         logits = _wq_matmul(x, head, 0)
     else:
-        logits = torch.matmul(x.float(), head.float())
+        logits = _dense_dot(x, head)
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
 
 
 def rope_tables(cfg: ModelConfig, device: torch.device | str | None = None):
-    """fp32 cos/sin tables (max_seq_len, head_dim // 2) on ``device``
-    (default cuda)."""
-    return rope_table(cfg.max_seq_len, cfg.head_dim, base=cfg.rope_base,
+    """fp32 cos/sin tables (max_seq_len, rotary dim // 2) on ``device``
+    (default cuda); the rotary dim is head_dim, or with MLA the decoupled
+    ``qk_rope_head_dim`` (JAX llama.py:661-667)."""
+    rot = cfg.qk_rope_head_dim if cfg.mla else cfg.head_dim
+    return rope_table(cfg.max_seq_len, rot, base=cfg.rope_base,
                       scaling=cfg.rope_scaling, device=resolve_device(device))
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts (JAX llama.py:427-616)
+# ---------------------------------------------------------------------------
+
+
+def _shared_expert(flat: torch.Tensor, layers: Params, lidx: int, cfg: ModelConfig):
+    """DeepSeek's shared experts: a dense SwiGLU on every row -> fp32 (N, H),
+    or 0 without them. silu whatever ``mlp_activation`` says, as JAX
+    llama.py:442 has it."""
+    if not cfg.n_shared_experts:
+        return 0.0
+    act = _gated(_dense_dot(flat, layers["moe_shared_gate_up"][lidx]), F.silu, flat.dtype)
+    return _dense_dot(act, layers["moe_shared_down"][lidx])
+
+
+def _dense_first_mlp(flat: torch.Tensor, dense: Params, lidx: int, cfg: ModelConfig):
+    """A DeepSeek dense first layer (``first_k_dense``): the gated MLP of the
+    side stack's row ``lidx`` -> fp32 (N, H)."""
+    li = min(lidx, cfg.first_k_dense - 1)
+    act = _gated(_dense_dot(flat, dense["w_gate_up"][li]), _GATE_ACTS[cfg.mlp_activation], flat.dtype)
+    return _dense_dot(act, dense["w_down"][li])
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """The ``k`` largest of each row, descending, ties to the lower index
+    (as ``jax.lax.top_k``; a stable sort keeps equal values in index
+    order)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route(flat: torch.Tensor, router: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Routing weights (N, E) fp32, zero for the unselected experts, from the
+    fp32 router logits: Mixtral's softmax over the top-k logits (Qwen3-MoE's
+    too), or with ``router_pre_softmax`` DeepSeek's softmax over all
+    experts, then the top-k probabilities, not renormalized, times
+    ``routed_scaling_factor``."""
+    r = _dense_dot(flat, router)
+    k = cfg.num_experts_per_tok
+    if cfg.router_pre_softmax:
+        top_w, top_idx = _top_k(torch.softmax(r, dim=-1), k)
+        top_w = top_w * cfg.routed_scaling_factor
+    else:
+        top_logit, top_idx = _top_k(r, k)
+        top_w = torch.softmax(top_logit, dim=-1)
+    return torch.zeros_like(r).scatter_(-1, top_idx, top_w)
+
+
+def _expert_view(w: dict) -> dict:
+    """A quantized (L, E, ...) expert stack as the free (L * E, ...) view
+    the stacked-layer kernels index (int4 scales keep their group axis)."""
+    return {key: t.reshape(t.shape[0] * t.shape[1], *t.shape[2:]) for key, t in w.items()}
+
+
+def _moe_mlp(x: torch.Tensor, layers: Params, lidx: int, cfg: ModelConfig) -> torch.Tensor:
+    """Top-k routed MoE MLP of layer ``lidx`` -> fp32 (JAX llama.py:470-576).
+    Every expert runs on every row and the routing weights zero the
+    unselected pairs. Quantized stacks: per expert, gate_up written in x's
+    dtype and down in fp32 by the weight-only kernel at index ``lidx * E +
+    e`` (K4 for int8 / fp8, K6 for int4), summed in expert order."""
+    flat = x.reshape(-1, x.shape[-1])  # (N, H)
+    dense_w = route(flat, layers["moe_router"][lidx], cfg)  # (N, E)
+    wg, wd = layers["moe_gate_up"], layers["moe_down"]
+    if isinstance(wg, dict):
+        n_exp = wg["w"].shape[1]
+        wg_f, wd_f = _expert_view(wg), _expert_view(wd)
+        out = torch.zeros((flat.shape[0], wd["w"].shape[-1]), dtype=torch.float32, device=x.device)
+        for e in range(n_exp):
+            eidx = lidx * n_exp + e
+            act = _gated(_wq_matmul(flat, wg_f, eidx, out_dtype=x.dtype), F.silu, x.dtype)
+            out = out + _wq_matmul(act, wd_f, eidx) * dense_w[:, e][:, None]
+    else:
+        gu = torch.einsum("nh,ehi->eni", flat.float(), wg[lidx].float())  # (E, N, 2I)
+        y = torch.einsum("eni,eih->enh", _gated(gu, F.silu, x.dtype).float(), wd[lidx].float())
+        out = torch.einsum("enh,ne->nh", y, dense_w)
+    out = out + _shared_expert(flat, layers, lidx, cfg)
+    return out.reshape(*x.shape[:-1], out.shape[-1])
+
+
+def _mlp_block(x: torch.Tensor, layers: Params, lidx: int, proj, cfg: ModelConfig):
+    """The layer's MLP -> fp32: the gated dense MLP, or the MoE, with
+    DeepSeek's dense first layers (``lidx < first_k_dense``, a plain Python
+    test where JAX's scan takes a ``lax.cond``; JAX llama.py:579-616)."""
+    if not cfg.num_experts:
+        return _swiglu(x, proj, cfg)
+    if cfg.first_k_dense:
+        if "dense_mlp" not in layers:
+            raise ValueError("cfg.first_k_dense is set but layers['dense_mlp'] is missing")
+        if lidx < cfg.first_k_dense:
+            out = _dense_first_mlp(x.reshape(-1, x.shape[-1]), layers["dense_mlp"], lidx, cfg)
+            return out.reshape(*x.shape[:-1], out.shape[-1])
+    return _moe_mlp(x, layers, lidx, cfg)
 
 
 def _mlp_residual(x, layers, lidx, proj, cfg):
     h = rms_norm(x, layers["mlp_norm"][lidx], cfg.rms_norm_eps)
-    return _residual_add(x, _swiglu(h, proj, cfg), layers, lidx, "post_mlp_norm", cfg.rms_norm_eps)
+    return _residual_add(x, _mlp_block(h, layers, lidx, proj, cfg), layers, lidx, "post_mlp_norm",
+                         cfg.rms_norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek MLA, absorbed latent form (JAX llama.py:742-812)
+# ---------------------------------------------------------------------------
+
+
+def _mla_project_q(h: torch.Tensor, layers: Params, lidx: int, cfg: ModelConfig) -> torch.Tensor:
+    """(..., H) -> per-head queries (..., Hq, nope + rope) in h's dtype: the
+    direct projection (V2-Lite) or q_a -> norm -> q_b."""
+    if "mla_wq_a" in layers:
+        qa = rms_norm(_dense_dot(h, layers["mla_wq_a"][lidx]).to(h.dtype),
+                      layers["mla_q_a_norm"][lidx], cfg.rms_norm_eps)
+        q = _dense_dot(qa, layers["mla_wq_b"][lidx])
+    else:
+        q = _dense_dot(h, layers["mla_wq"][lidx])
+    qk_dim = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    return q.reshape(*h.shape[:-1], cfg.num_q_heads, qk_dim).to(h.dtype)
+
+
+def _mla_qkv(h: torch.Tensor, layers: Params, lidx: int, cfg: ModelConfig, cos, sin, pos):
+    """MLA's projections in absorbed latent form -> (q, k_row, v_row), the
+    head axis inserted at -2 (Hq heads for q, one for the rows). The cache
+    row is ``k_row = [c | k_pe | 0]`` and ``v_row = [c | 0]`` at the width
+    of ``kv_cache_dims()[1]`` (c the normed kv latent, k_pe the decoupled
+    roped key); the query is ``[q_nope @ W_uk | q_pe | 0]``, the absorption
+    in fp32 rounded to h's dtype, so its scores equal the unabsorbed
+    ``q_nope . k_nope + q_pe . k_pe``. MLA ropes interleaved whatever
+    ``cfg.rope_style`` says. ``pos`` has h's leading shape."""
+    c_rank, rope_d, nope = cfg.kv_lora_rank, cfg.qk_rope_head_dim, cfg.qk_nope_head_dim
+    _, d_pad = cfg.kv_cache_dims()
+    q = _mla_project_q(h, layers, lidx, cfg)  # (..., Hq, nope + rope)
+    q_pe = apply_rope(q[..., nope:], pos[..., None], cos, sin, style="interleaved")
+    q_abs = torch.einsum("...hn,hnc->...hc", q[..., :nope].float(),
+                         layers["mla_wuk"][lidx].float()).to(h.dtype)
+    kv = _dense_dot(h, layers["mla_wkv_a"][lidx]).to(h.dtype)  # (..., c + rope)
+    c = rms_norm(kv[..., :c_rank], layers["mla_kv_a_norm"][lidx], cfg.rms_norm_eps)[..., None, :]
+    k_pe = apply_rope(kv[..., None, c_rank:], pos[..., None], cos, sin, style="interleaved")
+    pad = d_pad - c_rank - rope_d
+
+    def zeros(like, n):
+        return torch.zeros((*like.shape[:-1], n), dtype=h.dtype, device=h.device)
+
+    q_cat = torch.cat([q_abs, q_pe.to(h.dtype), zeros(q_abs, pad)], dim=-1)
+    k_row = torch.cat([c, k_pe.to(h.dtype), zeros(c, pad)], dim=-1)
+    v_row = torch.cat([c, zeros(c, rope_d + pad)], dim=-1)
+    return q_cat, k_row, v_row
+
+
+def _mla_out(o: torch.Tensor, layers: Params, lidx: int, cfg: ModelConfig) -> torch.Tensor:
+    """Latent attention output (..., Hq, d_pad) -> (..., Hq * v_head_dim):
+    its first ``kv_lora_rank`` lanes through each head's W_uv in fp32."""
+    out = torch.einsum("...hc,hcv->...hv", o[..., :cfg.kv_lora_rank].float(),
+                       layers["mla_wuv"][lidx].float())
+    return out.reshape(*out.shape[:-2], -1).to(o.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -381,13 +578,16 @@ def _decode_layer(x, lidx: int, layers: Params, cfg: ModelConfig, cos, sin, pos,
     attention output (B, Hq, D)."""
     proj = _make_proj(layers, lidx, cfg)
     h = rms_norm(x, layers["attn_norm"][lidx], cfg.rms_norm_eps)
-    q, k_new, v_new = _split_heads_decode(_qkv(h, layers, lidx, proj, cfg, x.dtype), cfg)
-    q, k_new = _apply_qk_norm(q, k_new, layers, lidx, cfg)
-    q = apply_rope(q, pos, cos, sin, style=cfg.rope_style)
-    k_new = apply_rope(k_new, pos, cos, sin, style=cfg.rope_style)
+    if cfg.mla:  # one shared latent row a token, absorbed queries
+        q, k_new, v_new = _mla_qkv(h, layers, lidx, cfg, cos, sin, pos)
+    else:
+        q, k_new, v_new = _split_heads_decode(_qkv(h, layers, lidx, proj, cfg, x.dtype), cfg)
+        q, k_new = _apply_qk_norm(q, k_new, layers, lidx, cfg)
+        q = apply_rope(q, pos, cos, sin, style=cfg.rope_style)
+        k_new = apply_rope(k_new, pos, cos, sin, style=cfg.rope_style)
     o = attend(lidx, q, k_new, v_new)
-    x = _residual_add(x, proj(o.reshape(o.shape[0], -1), "wo"), layers, lidx, "post_attn_norm",
-                      cfg.rms_norm_eps)
+    o = _mla_out(o, layers, lidx, cfg) if cfg.mla else o.reshape(o.shape[0], -1)
+    x = _residual_add(x, proj(o, "wo"), layers, lidx, "post_attn_norm", cfg.rms_norm_eps)
     return _mlp_residual(x, layers, lidx, proj, cfg)
 
 
@@ -399,12 +599,15 @@ def _prefill_layer(x, lidx: int, layers: Params, cfg: ModelConfig, cos, sin, pos
     b, sq = pos.shape
     proj = _make_proj(layers, lidx, cfg)
     h = rms_norm(x, layers["attn_norm"][lidx], cfg.rms_norm_eps)
-    q, k_new, v_new = _split_heads_prefill(_qkv(h, layers, lidx, proj, cfg, x.dtype), cfg)
-    q, k_new = _apply_qk_norm(q, k_new, layers, lidx, cfg)
-    q = apply_rope(q, pos[:, None, :], cos, sin, style=cfg.rope_style)
-    k_new = apply_rope(k_new, pos[:, None, :], cos, sin, style=cfg.rope_style)
-    o = attend(lidx, q, k_new, v_new)
-    o = o.transpose(1, 2).reshape(b, sq, -1)
+    if cfg.mla:  # (B, Sq, H*, D) from the helper; the kernels take heads first
+        q, k_new, v_new = (t.transpose(1, 2) for t in _mla_qkv(h, layers, lidx, cfg, cos, sin, pos))
+    else:
+        q, k_new, v_new = _split_heads_prefill(_qkv(h, layers, lidx, proj, cfg, x.dtype), cfg)
+        q, k_new = _apply_qk_norm(q, k_new, layers, lidx, cfg)
+        q = apply_rope(q, pos[:, None, :], cos, sin, style=cfg.rope_style)
+        k_new = apply_rope(k_new, pos[:, None, :], cos, sin, style=cfg.rope_style)
+    o = attend(lidx, q, k_new, v_new).transpose(1, 2)  # (B, Sq, Hq, D)
+    o = _mla_out(o, layers, lidx, cfg) if cfg.mla else o.reshape(b, sq, -1)
     x = _residual_add(x, proj(o, "wo"), layers, lidx, "post_attn_norm", cfg.rms_norm_eps)
     return _mlp_residual(x, layers, lidx, proj, cfg)
 

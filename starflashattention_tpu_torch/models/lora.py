@@ -24,6 +24,8 @@ from starflashattention_tpu_torch.utils.device import resolve_device
 
 # projections that accept adapters, with (in, out) shapes derived from cfg
 TARGETS = ("wqkv", "wo", "w_gate_up", "w_down")
+MLA_TRAINING = ("training an MLA model is not ported yet (ROADMAP Queue 1 item 14c-train): the "
+                "JAX training path reads wqkv and has no MLA form")
 
 
 def _target_shapes(cfg: ModelConfig) -> dict:
@@ -51,6 +53,8 @@ def init_lora(
     ``2 * rank``. ``b = 0``: the adapted model starts exactly at the base.
     The values differ from the JAX package's (another generator): tests
     bridge JAX's adapters with ``utils.bridge.params_from_numpy``."""
+    if cfg.mla:
+        raise NotImplementedError(MLA_TRAINING)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)

@@ -27,7 +27,9 @@ per-layer gradients once.
 
 Not ported, each raising ``NotImplementedError``: ``axis_name`` and
 ``seq_axis_name`` (multi-GPU, ROADMAP item 16), MoE (``_moe_mlp_train``,
-item 14) and every config field ``llama.check_supported`` refuses.
+item 14b-train), MLA (item 14c-train: JAX's training path reads ``wqkv``
+and has no MLA form) and every config field ``llama.check_supported``
+refuses.
 """
 
 from __future__ import annotations
@@ -89,7 +91,9 @@ def _check_trainable(params, cfg: ModelConfig, axis_name, seq_axis_name) -> None
                                   "seq_axis_name) are not ported yet (ROADMAP Queue 1 item 16)")
     if cfg.num_experts:
         raise NotImplementedError("MoE training (_moe_mlp_train) is not ported yet "
-                                  "(ROADMAP Queue 1 item 14)")
+                                  "(ROADMAP Queue 1 item 14b-train)")
+    if cfg.mla:
+        raise NotImplementedError(_lora.MLA_TRAINING)
     llama.check_supported(cfg)
     quantized = [name for name, w in params["layers"].items() if isinstance(w, dict)]
     if quantized or isinstance(params.get("lm_head"), dict):

@@ -30,7 +30,10 @@ positions stay attendable; they need a window) and a ``softcap``
 (``cap * tanh(s / cap)`` on the scaled score, before the mask). The window
 is a Python int per call, so a model whose window differs from layer to
 layer passes each layer's own. As in JAX, a window or softcap with more
-than one split raises ``ValueError``. head_dim is 64, 128 or 256.
+than one split raises ``ValueError``. head_dim is 64, 128 or 256, and on
+the card also 640 (MLA's latent row, DeepSeek-V2's 16 query heads on one
+latent KV head) for bf16 q and KV, one split, no variant and no verify span
+(:func:`check_head_dim`).
 """
 
 from __future__ import annotations
@@ -98,6 +101,22 @@ def _split_geometry(s: int, num_splits: int, block_k: int) -> tuple[int, int, in
 
 NO_WINDOW = 1 << 30  # the kernels' window without one: every row below the length is in band
 KERNEL_HEAD_DIMS = (64, 128, 256)
+LATENT_HEAD_DIM = 640  # MLA's cache row: kv_lora_rank 512 + qk_rope 64, padded to 128 lanes
+
+
+def check_head_dim(what, d, q_dtype, kv_dtype, plain_build=True, one_split=True, verify=False):
+    """The head_dims the decode kernels take: 64, 128 or 256, and the latent
+    row's 640 only in its one form (bf16 q and KV, the plain build, one
+    split, no verify span); raises ``ValueError`` naming what is missing."""
+    if d in KERNEL_HEAD_DIMS:
+        return
+    if d != LATENT_HEAD_DIM:
+        raise ValueError(f"{what}: the CUDA kernel takes head_dim 64, 128, 256 or "
+                         f"{LATENT_HEAD_DIM}, got {d}")
+    if not (q_dtype == kv_dtype == torch.bfloat16 and plain_build and one_split and not verify):
+        raise ValueError(f"{what}: head_dim {LATENT_HEAD_DIM} (MLA's latent row) takes bf16 q and KV, "
+                         "one split, no window, sinks, softcap or verify span (ROADMAP Queue 2: K1 "
+                         "verify and K2 at D 640)")
 
 
 def variant_options(window, sinks, softcap) -> dict:
@@ -303,8 +322,8 @@ def _launch(q, k_cache, v_cache, lengths, layer, sm_scale, n, split_len, fused, 
         raise ValueError(f"the CUDA kernel takes fp32 or bf16 q and one cache dtype, got "
                          f"{q.dtype} / {k_cache.dtype} / {v_cache.dtype}")
     kv_code = kv_dtype_code(q.dtype, k_cache.dtype)
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes head_dim 64, 128 or 256, got {d}")
+    check_head_dim("flash_decode", d, q.dtype, k_cache.dtype,
+                   library(window, sinks, softcap) == "flash_decode", fused, qspan > 1)
     if v_cache.shape != k_cache.shape or not (k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError("K and V tables must be contiguous and of one shape")
     if not 0 <= layer < l_:

@@ -20,7 +20,10 @@ with a window) and a ``softcap`` (``cap * tanh(s / cap)`` on the
 natural-unit scaled score, before the base-2 conversion; the LSE is then
 that of the capped scores). With ``causal=False`` they raise
 ``NotImplementedError``, as ``kv_offset`` (ring context parallelism) does.
-head_dim is 64, 128 or 256.
+head_dim is 64, 128 or 256 with at most 8 query heads a KV head, and on the
+card also 640 (MLA's latent row: DeepSeek-V2's 16 query heads on one
+latent KV head) in its one form, causal, without the LSE or the variants,
+with an even number of query heads a KV head (:func:`check_card_inputs`).
 """
 
 from __future__ import annotations
@@ -31,8 +34,8 @@ import torch
 
 from starflashattention_tpu_torch.core.reference import NEG_INF, mha_reference, repeat_kv
 from starflashattention_tpu_torch.ops import _build
-from starflashattention_tpu_torch.ops.flash_decode import (KERNEL_HEAD_DIMS, kernel_options,
-                                                           variant_options)
+from starflashattention_tpu_torch.ops.flash_decode import (KERNEL_HEAD_DIMS, LATENT_HEAD_DIM,
+                                                           kernel_options, variant_options)
 
 LOG2E = math.log2(math.e)
 LSE_EMPTY = 3e38  # the LSE of a row with no valid KV position
@@ -130,14 +133,25 @@ def flash_prefill_plain(q, k, v, lengths=None, *, causal=True, q_offsets=None, s
     return out, prefill_lse_plain(q, k, lengths, q_offsets, causal=causal, sm_scale=sm_scale, **opts)
 
 
-def check_card_inputs(what, q, k, v, head_dims=KERNEL_HEAD_DIMS) -> None:
+def check_card_inputs(what, q, k, v, head_dims=KERNEL_HEAD_DIMS, latent=None) -> None:
     """The shapes and types the CUDA kernels of K5 and K12 take: head_dim in
-    ``head_dims``, at most 8 query heads a KV head, bf16."""
+    ``head_dims``, at most 8 query heads a KV head, bf16. ``latent`` (K5
+    only): the call's ``(causal, return_lse, options)``, with which head_dim
+    640 passes in its one form (causal, no LSE, no options, an even group)."""
     b, hq, _, d = q.shape
     _, hkv, _, _ = k.shape
     if k.shape[0] != b or k.shape[3] != d or v.shape != k.shape or hq % hkv:
         raise ValueError(f"{what}: q {tuple(q.shape)} does not match k/v {tuple(k.shape)}")
-    if hq // hkv > 8:
+    if latent is not None and d == LATENT_HEAD_DIM:
+        causal, return_lse, opts = latent
+        if not causal or return_lse or any(opts.values()):
+            raise ValueError(f"{what}: head_dim {d} (MLA's latent row) takes the causal prefill without "
+                             "the LSE, window, sinks or softcap (ROADMAP Queue 2: K5 / K12 at D 640)")
+        if (hq // hkv) % 2:
+            raise ValueError(f"{what}: head_dim {d} takes an even number of query heads a KV head, "
+                             f"got {hq // hkv}")
+        head_dims = (d,)
+    elif hq // hkv > 8:
         raise ValueError(f"{what}: the CUDA kernel takes at most 8 query heads per KV head, "
                          f"got {hq // hkv}")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
@@ -171,7 +185,7 @@ def flash_prefill(
                                    sm_scale=sm_scale, return_lse=return_lse, **opts)
     if q.device.type != "cuda":
         raise ValueError(f"flash_prefill: unsupported device {q.device}")
-    check_card_inputs("flash_prefill", q, k, v)
+    check_card_inputs("flash_prefill", q, k, v, latent=(causal, return_lse, opts))
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     lengths, q_offsets = _defaults(q, k, lengths, q_offsets)

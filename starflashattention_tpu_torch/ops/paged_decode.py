@@ -22,7 +22,8 @@ the kernel never reads a page table entry below a row's band that is not a
 sink, so pages the engine has reclaimed (entries set to the null page 0)
 are never read. ``pages_per_compute_block`` and ``max_len_hint`` size the
 TPU grid and are accepted and unused (each block walks its own row's
-length).
+length). head_dim as in ``ops/flash_decode.py``: 640 (MLA's latent row) in
+bf16 without the variants.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import torch
 
 from starflashattention_tpu_torch.core.reference import NEG_INF, repeat_kv
 from starflashattention_tpu_torch.ops import _build
-from starflashattention_tpu_torch.ops.flash_decode import (KERNEL_HEAD_DIMS, _quantized, cap_scores,
+from starflashattention_tpu_torch.ops.flash_decode import (_quantized, cap_scores, check_head_dim,
                                                            fold_k_scale, in_band, kernel_options,
                                                            kv_dtype_code, library, scale_heads,
                                                            variant_options)
@@ -118,8 +119,8 @@ def _core_kernel(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, out_
         raise ValueError(f"the CUDA kernel takes fp32 or bf16 q and one pool dtype, got "
                          f"{q.dtype} / {k_pages.dtype} / {v_pages.dtype}")
     kv_code = kv_dtype_code(q.dtype, k_pages.dtype)
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes head_dim 64, 128 or 256, got {d}")
+    check_head_dim("paged_flash_decode", d, q.dtype, k_pages.dtype,
+                   library(window, sinks, softcap) == "flash_decode")
     if v_pages.shape != k_pages.shape or not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ValueError("K and V pools must be contiguous and of one shape")
     if page_table.dim() != 2 or page_table.shape[0] != b or lengths.shape != (b,):

@@ -2,10 +2,10 @@
 
 A copy of the JAX package's ``runtime/params.py`` (``AttentionConfig`` and
 ``ModelConfig`` with every field and preset) that needs neither JAX nor
-PyTorch, so configs built on either side compare field for field. Fields
-the port does not run yet (MoE, MLA) are still carried here;
-``models/llama.check_supported`` rejects them at the model's entry points,
-and ``models/train`` also the attention variants it does not train on.
+PyTorch, so configs built on either side compare field for field,
+``__post_init__``'s refusals and ``kv_cache_dims()`` included. The port
+serves every field; ``models/train`` refuses MoE and MLA, which it does not
+train yet.
 """
 
 from __future__ import annotations

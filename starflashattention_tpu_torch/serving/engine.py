@@ -29,7 +29,8 @@ speculative steps) in :class:`EngineStats`.
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
 item: ``mesh`` (multi-GPU, with or without ``spec_decode``: Queue 1 item
 16), ``lora_adapters`` / request adapters (item 14), ``run_resilient`` /
-``recover_device_state`` (item 17).
+``recover_device_state`` (item 17). As in JAX, an MLA model (DeepSeek-V2)
+takes none of ``mesh``, ``spec_decode`` and ``lora_adapters``.
 
 Sliding-window models on :class:`PagedEngine` keep a rolling buffer (JAX
 engine.py:985-1000, :1255-1305): before each decode round, the private
@@ -128,6 +129,11 @@ class Engine:
         topk_logprobs: int = 0,
         device: torch.device | str | None = None,
     ):
+        if cfg.mla and (mesh is not None or spec_decode is not None or lora_adapters is not None):
+            # JAX engine.py:125-132 refuses these too
+            raise NotImplementedError(
+                "MLA serves on the single-device contiguous and paged engines for now: no mesh, "
+                "spec_decode or lora_adapters with it (ROADMAP Queue 2, K1 verify at D 640)")
         if mesh is not None:
             spec = " speculative decoding" if spec_decode is not None else " serving"
             raise _unported(f"sharded{spec} (mesh)", "16")

@@ -32,7 +32,10 @@ attention variants, K5's LSE and K12 under the window, sinks and softcap
 at D 64, 128 and 256 (K/V rows below every band set to NaN change no bit
 of dq), K12 at D 256 without options, each option's visible effect on the
 gradients, and training steps of narrow Gemma-2, Mistral with sinks and
-Gemma models. Each tolerance is stated at its test.
+Gemma models. MLA's latent row (D 640, 16 query heads on one KV head): K1,
+K7 and K5 against their twins, the forms they refuse, and a narrow
+DeepSeek-style model (MLA, int4 experts) through ``generate`` and both
+engines. Each tolerance is stated at its test.
 """
 
 import pytest
@@ -1030,3 +1033,99 @@ def test_variant_training_steps_run_on_the_kernels(cuda):
                     flash_bwd.flash_bwd_dq.launches - before[1]) == (2 * n, n)
             losses.append(float(loss))
         assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0], (cfg, losses)
+
+
+# ----------------------------------------------------------------- MLA's latent row, MoE
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_latent_decode_kernels_match_plain(cuda, paged):
+    """K1 and K7 at MLA's latent row (D 640, 16 query heads on one KV head),
+    lengths 0, a tile's remainder and the full table: within 4 bf16 ulps of
+    |o| <= 4 of the twin (both round once); a row of length 0 gives 0."""
+    gen = _gen(cuda)
+    b, hq, s, d, ps = 4, 16, 384, 640, 128
+    q = torch.randn((b, hq, d), generator=gen, device=cuda, dtype=torch.bfloat16)
+    k = torch.randn((1, b, 1, s, d), generator=gen, device=cuda, dtype=torch.bfloat16)
+    v = torch.randn_like(k)
+    lengths = torch.tensor([0, 45, 384, 200], dtype=torch.int32, device=cuda)
+    sm = 192.0**-0.5
+    if paged:
+        pps = s // ps
+        table = (torch.randperm(b * pps, generator=torch.Generator().manual_seed(0)) + 1).reshape(b, pps)
+        table = table.to(device=cuda, dtype=torch.int32)
+        pools = []
+        for x in (k, v):
+            pool = torch.zeros((1, 1, b * pps + 1, ps, d), dtype=x.dtype, device=cuda)
+            pool[0, 0, table.reshape(-1).long()] = x[0, :, 0].reshape(b * pps, ps, d)
+            pools.append(pool)
+        out = paged_decode.paged_flash_decode(q, *pools, table, lengths, layer=0, sm_scale=sm)
+        ref = paged_decode.paged_flash_decode_plain(q, *pools, table, lengths, layer=0, sm_scale=sm)
+    else:
+        out = flash_decode.flash_decode(q, k, v, lengths, layer=0, num_splits=1, sm_scale=sm)
+        ref = flash_decode.flash_decode_plain(q, k, v, lengths, layer=0, num_splits=1, sm_scale=sm)
+    assert _max_err(out, ref) <= 4 * BF16_ULP
+    assert torch.all(out[0] == 0)
+
+
+@pytest.mark.parametrize("hq", [2, 16])
+def test_latent_prefill_kernel_matches_plain(cuda, hq):
+    """K5's D 640 form, causal: lengths that are no tile multiple, q offsets
+    and a zero-length sequence; 2e-2 absolute on the valid rows (the kernel
+    rounds P to bf16), 0 for the empty sequence."""
+    gen = _gen(cuda)
+    d = 640
+    q = torch.randn((3, hq, 70, d), generator=gen, device=cuda, dtype=torch.bfloat16)
+    k = torch.randn((3, 1, 200, d), generator=gen, device=cuda, dtype=torch.bfloat16)
+    v = torch.randn_like(k)
+    q_off = torch.tensor([0, 120, 0], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([61, 190, 0], dtype=torch.int32, device=cuda)
+    out = flash_prefill.flash_prefill(q, k, v, lengths, q_offsets=q_off, sm_scale=192.0**-0.5)
+    ref = flash_prefill.flash_prefill_plain(q, k, v, lengths, q_offsets=q_off, sm_scale=192.0**-0.5)
+    assert _max_err(out[0, :, :61], ref[0, :, :61]) <= 2e-2
+    assert _max_err(out[1], ref[1]) <= 2e-2
+    assert torch.all(out[2] == 0)
+
+
+def test_latent_forms_the_kernels_refuse(cuda):
+    """D 640 takes bf16, one split, no verify span and no LSE; the others
+    raise before a launch."""
+    q = torch.zeros((1, 16, 640), device=cuda, dtype=torch.bfloat16)
+    k = torch.zeros((1, 1, 1, 64, 640), device=cuda, dtype=torch.bfloat16)
+    lengths = torch.tensor([3], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="640"):
+        flash_decode.flash_decode(q, k, k, lengths, layer=0, num_splits=2, block_k=32)
+    with pytest.raises(ValueError, match="640"):
+        flash_decode.flash_verify(q[:, :, None].expand(1, 16, 3, 640).contiguous(), k, k, lengths, layer=0)
+    with pytest.raises(ValueError, match="640"):
+        flash_prefill.flash_prefill(q[:, :, None], k[0], k[0], lengths, return_lse=True)
+
+
+def test_deepseek_style_model_runs_on_the_kernels(cuda):
+    """A narrow MLA + DeepSeek-MoE model at the card's latent row (kv_lora_rank
+    512 + rope 64: 640 lanes) with int4 experts: generate, Engine and
+    PagedEngine launch K5, K1 / K7 and K6 as counted, and their greedy
+    streams agree with generate's or lie on near-ties (the engines' prefills
+    run other row counts)."""
+    cfg = ModelConfig.deepseek_v2_lite(vocab_size=512, hidden_size=256, num_layers=3, num_q_heads=4,
+                                       intermediate_size=128, num_experts=8, dense_inter_size=256,
+                                       max_seq_len=256)
+    params = llama.quantize_model_weights(llama.init_params(cfg, _gen(cuda), quantize="int4", device=cuda),
+                                          "int4")
+    prompts = [[int(t) for t in torch.randint(0, 512, (n,), generator=torch.Generator().manual_seed(n))]
+               for n in (70, 33, 5)]
+    width = max(map(len, prompts))
+    padded = torch.tensor([p + [0] * (width - len(p)) for p in prompts], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=cuda)
+    counters = (flash_prefill.flash_prefill, flash_decode.flash_decode, quant_matmul.quant_matmul_int4,
+                paged_decode.paged_flash_decode)
+    before = [fn.launches for fn in counters]
+    toks = llama.generate(params, cfg, padded, lengths, 4, device=cuda)
+    n, per_step = cfg.num_layers, cfg.num_layers + 2 * cfg.num_experts * (cfg.num_layers - cfg.first_k_dense)
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [n, 3 * n, 4 * per_step, 0]
+    for make in (lambda: Engine(params, cfg, num_slots=2, steps_per_round=2, device=cuda),
+                 lambda: PagedEngine(params, cfg, num_slots=2, steps_per_round=2, page_size=64, device=cuda)):
+        got = make().generate(prompts, max_new_tokens=4)
+        assert all(len(g) == 4 and all(0 <= t < cfg.vocab_size for t in g) for g in got)
+    assert paged_decode.paged_flash_decode.launches > before[3]
+    assert toks.shape == (3, 4)
