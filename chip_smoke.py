@@ -71,7 +71,18 @@ Phases (any failure raises and the script exits non-zero):
    that tolerance from the twin); library SDPA with the mask. The expert
    stacks at 4 decode rows through the (L * E, ...) view at index lidx * E
    + e: K6 on DeepSeek-V2-Lite's int4 g128 experts and K4 on Mixtral-8x7B's
-   int8 experts, against their twins (``EXPERT_STACKS``).
+   int8 experts, against their twins (``EXPERT_STACKS``). Ring context
+   parallelism's ``kv_offset``: K5 with the LSE and both K12 kernels at one
+   step of phase 13a's Mistral-7B ring (B=1, the q chunk of rows
+   16384-24575 on the KV chunk of rows 8192-16383: ``q_offsets`` and
+   ``kv_offset`` 8192, window 4096, 4 sinks), after the ring's empty
+   chunks (a KV chunk in the rows' future, a sequence of length 0: 0, the
+   LSE 3e38 and zero gradients, equal to the twins), held to their twins
+   with the offset (the output within 4 bf16 ulps of each element, the LSE
+   within 1e-4, each row of dq, dk and dv within 2e-2 of its own scale),
+   and the kernels given the raw sinks (``kv_offset`` 0) shown to lie far
+   from them (the first keys of every chunk made heavy); the library call
+   is a compiled ``flex_attention`` with the offset sink mask.
 3. Slice: full-width ``ModelConfig.llama_7b_gqa`` (32 layers,
    max_seq_len 1024, random int8 weights and int8 lm_head from a seeded
    generator, bf16 KV cache): greedy ``generate`` on 8 ragged prompts for
@@ -220,6 +231,41 @@ Phases (any failure raises and the script exits non-zero):
    and ``Engine`` on 4 prompts of 200-600 tokens, 16 tokens each, counts
    checked, streams equal or tie-checked. The lines with phase 12's
    numbers carry the card's name and power limit.
+13. Sequence parallelism: a world of 4 processes on this one card over
+   gloo (``torch.multiprocessing.spawn``; every library is built in phase 1,
+   before the spawn, so the ranks only load them; gloo takes CPU tensors,
+   so ``parallel/comm.py`` copies every rotated chunk and reduction through
+   the host). Each check runs on every rank, and a rank that fails fails
+   the phase. (a) ``parallel.ring`` at 7B-GQA's attention widths (Hq 32, Hkv
+   8, D 128, bf16), B=2, S=32768 (8192 rows a rank), lengths [32768, 27000]:
+   the contiguous forward and backward, the zigzag forward, and Mistral-7B's
+   window 4096 with 4 sinks (the first keys of every chunk made heavy)
+   forward and backward; each rank's output (valid rows) within 2e-2 and its
+   dq, dk, dv within 5e-2 of the peak of one process's K5 (with the LSE) and
+   K12 on the whole sequence; the ring given the raw sinks on every chunk
+   (``kv_offset`` ignored) lies over 4x the tolerance away on ranks 1-3;
+   the causal ring's forward and backward once more under torch.profiler
+   (each rank traces its own device work; rank 0 logs it by kind, with the
+   host copies apart). (b)
+   ``parallel.ulysses`` at the same shapes, forward and gradients. (c)
+   ``make_seq_sharded_decode`` at B=16, 7B-GQA heads, 32768 cache rows
+   (8192 a rank), lengths 20,000-32,768, bf16 and int8 KV, head_chunks 1
+   and 2, against K1 and against the plain twin on the whole cache (2 or 3
+   bf16 ulps), and each rank's K2 partials (o, m, l) on its shard against
+   their plain twin (1e-4, as in phase 2). (d)
+   ``make_cp_train_step`` on ``ModelConfig.mistral_7b`` with 4 sinks at full
+   width cut to 2 layers (four ranks share the card's memory), B=1, S=32768:
+   the first step's loss and every gradient within 5e-2 (of each gradient's
+   peak) of rank 0's single-process ``loss_and_grads`` through the kernels,
+   then 2 more SGD steps (lr 1.0): the loss falls, and one more step
+   traced as in (a); then CP x DP on the 2 x 2
+   (data, seq) mesh at B=2, S=16384, held to the single process likewise.
+   Every run checks each rank's launch counts (K5 with the LSE, K12, their
+   banded and ``kv_offset`` launches; K2 in (c)); prints ms a step (host
+   clock), tokens/s, peak memory and the bytes copied through the host a
+   step. Its wall times include the host copies of gloo and are no guide to
+   NCCL, which the same code uses across cards without them (not run here:
+   the machine has one card).
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device,
@@ -356,6 +402,24 @@ TRAIN_MERGE_PROMPTS = (4500, 4700)  # 11b's merged-model prompts: past the 4096 
 # against forward_train on the base model alone: 1.887; this script on an
 # H100 80GB HBM3 at 700 W), as much as the adapters' own effect (2.891)
 MERGE_CHECK_LAYERS = 4
+RING_WORLD = 4  # phase 13's ranks, all on this one card
+RING_SEQ = 32768  # phase 13a / 13b: 8192 rows a rank
+RING_BATCH = 2
+RING_LENGTHS = (32768, 27000)
+RING_TOL = 2e-2  # outputs, of the reference's peak: each chunk's output is rounded to bf16 before the fp32 merge
+# gradients, of each reference's peak: each chunk's dq / dk / dv is rounded to bf16 before the fp32 sum, and
+# with heavy sinks one chunk's partial can be several times the sum (1.8e-2 on dq with the plain twins on the CPU)
+RING_GRAD_TOL = TRAIN_GRAD_TOL
+RING_ENTRIES = {
+    "fwd": "flash_prefill return_lse kv_offset 8192, window 4096 + 4 sinks (ring step, Mistral-7B)",
+    "dq": "flash_bwd_dq kv_offset 8192, window 4096 + 4 sinks (ring step, Mistral-7B)",
+    "dkdv": "flash_bwd_dkdv kv_offset 8192, window 4096 + 4 sinks (ring step, Mistral-7B)",
+}
+SHARDED_DECODE = dict(batch=16, seq=32768, lengths=(20000, 32768), num_splits=4, block_k=256)
+CP_SEQ = 32768  # phase 13d: B=1 over the 4-rank sequence axis
+CP_DP = (2, 16384)  # then (B, S) on the 2 x 2 (data, seq) mesh
+CP_LAYERS = 2
+CP_STEPS = 3
 TRAIN_VARIANT_ENTRIES = {
     "mistral_fwd": "flash_prefill return_lse window 4096 + 4 sinks (Mistral-7B training)",
     "mistral_dq": "flash_bwd_dq window 4096 + 4 sinks (Mistral-7B)",
@@ -511,6 +575,19 @@ def _ulps(out, ref):
     return ((out - ref).abs() / (2.0**-7 * ref.abs() + floor).clamp(min=1e-30)).max().item()
 
 
+def _partial_errors(got, want):
+    """K2's split partials (o, m, l) against the plain twin's: fp32 partials
+    of the same products summed in another order, so m within 1e-4, l and o
+    within 1e-4 relative to l, over the splits that hold a valid position;
+    a split that holds none must give l = 0 (0.0 tolerated)."""
+    (o, m, l), (o_r, m_r, l_r) = got, want
+    live = m_r > -1e30
+    return {"m": (m - m_r)[live].abs().max().item(),
+            "l (relative)": ((l - l_r) / l_r.clamp(min=1))[live].abs().max().item(),
+            "o (relative to l)": ((o - o_r) / l_r.clamp(min=1)[..., None])[live].abs().max().item(),
+            "dead splits": float(l[~live].abs().max().item() if (~live).any() else 0)}
+
+
 def _check_ulps(name, out, ref, roundings):
     """Decode attention, elementwise: each bf16 rounding on either side of
     the other's may cost one ulp of the element's own value, so ``roundings``
@@ -569,16 +646,10 @@ def phase_kernels(dev, timer):
             ms=timer(lambda: flash_decode(q, k_tab, v_tab, lengths, **kw)),
             plain_ms=timer(lambda: flash_decode_plain(q, k_tab, v_tab, lengths, **kw), iters=5),
             bound_ms=bnd, bound_by=by, library_ms=lib_ms)
-    o, m, l = flash_decode_with_stats(q, k_tab, v_tab, lengths, layer=layer, num_splits=4, block_k=256)
-    o_r, m_r, l_r = flash_decode_with_stats_plain(q, k_tab, v_tab, lengths, layer=layer,
-                                                  num_splits=4, block_k=256)
-    live = m_r > -1e30  # splits that hold a valid position
-    # fp32 partials of the same products, summed in another order
-    _check("flash_decode_with_stats m", (m - m_r)[live].abs().max().item(), 1e-4)
-    _check("flash_decode_with_stats l (relative)", ((l - l_r) / l_r.clamp(min=1))[live].abs().max().item(), 1e-4)
-    _check("flash_decode_with_stats o (relative to l)",
-           ((o - o_r) / l_r.clamp(min=1)[..., None])[live].abs().max().item(), 1e-4)
-    _check("flash_decode_with_stats dead splits", float(l[~live].abs().max().item() if (~live).any() else 0), 0.0)
+    got = flash_decode_with_stats(q, k_tab, v_tab, lengths, layer=layer, num_splits=4, block_k=256)
+    want = flash_decode_with_stats_plain(q, k_tab, v_tab, lengths, layer=layer, num_splits=4, block_k=256)
+    for name, err in _partial_errors(got, want).items():
+        _check(f"flash_decode_with_stats {name}", err, 0.0 if name == "dead splits" else 1e-4)
 
     # -- cache append on the same table, whole-table equality
     k_new = torch.randn((b, hkv, d), generator=gen, device=dev, dtype=bf16)
@@ -707,6 +778,7 @@ def phase_kernels(dev, timer):
     del q, k, v, kk, vv, mask
     res.update(_train_kernels(dev, timer, gen))
     res.update(_train_variant_kernels(dev, timer, gen))
+    res.update(_ring_kernels(dev, timer, gen))
     for name, r in res.items():
         log(f"[time] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
             f"{'none' if r['library_ms'] is None else format(r['library_ms'], '.4f') + ' ms'}, "
@@ -853,11 +925,12 @@ def _sink_heavy(q, k, sinks, gen):
     return q, k
 
 
-def _flex_train(q, k, v, do, window, sinks, softcap, scale):
+def _flex_train(q, k, v, do, window, sinks, softcap, scale, q_offset=0):
     """One compiled ``flex_attention`` call on a training step's causal
-    rows (the band and the sinks as the block mask, the cap as the
-    score_mod): (forward, forward + backward -> the gradients)."""
-    base = torch.ones((q.shape[0],), dtype=torch.int32, device=q.device)
+    rows, query row i at position ``q_offset + i`` of the KV rows (the band
+    and the sinks as the block mask, the cap as the score_mod): (forward,
+    forward + backward -> the gradients)."""
+    base = torch.full((q.shape[0],), q_offset + 1, dtype=torch.int32, device=q.device)
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
     call = _flex_call(*leaves, base, window, sinks, softcap, scale)
 
@@ -1058,6 +1131,195 @@ def _train_variant_kernels(dev, timer, gen):
     group("Gemma-7B training", (e["gemma_fwd"], e["gemma_dq"], e["gemma_dkdv"]), q, k, v, do, {}, [],
           sdpa_library)
     del q, k, v, do
+    torch.cuda.empty_cache()
+    return res
+
+
+def _chunk_heavy(q, k, sinks, chunk, gen):
+    """``_sink_heavy`` at the head of EVERY chunk of ``chunk`` rows: the
+    first ``sinks`` keys of each chunk lie along q's shared direction. Only
+    chunk 0's are sinks; a kernel that took the raw ``sinks`` on a later
+    chunk (ignoring ``kv_offset``) would attend that chunk's heavy keys from
+    rows whose band lies far past them, which moves its rows by far."""
+    d = q.shape[-1]
+    u = torch.randn((d,), generator=gen, device=q.device)
+    u = u / u.norm() * d**0.5
+    q = (q.float() + 0.5 * u).to(q.dtype)
+    k = k.clone()
+    for c0 in range(0, k.shape[2], chunk):
+        k[:, :, c0:c0 + sinks] = u.to(k.dtype)
+    return q, k
+
+
+def _bwd_row_errors(got, refs, q, k, v, lse, do, delta, lens, q_off, *, window, sinks, kv_offset):
+    """dq, dk and dv (``got``) against the twins' (``refs``), each row (a
+    query row of dq, a key row of dk and dv) over its own scale: the larger
+    of the row's peak and 2^-8 of the peak of the sums of its terms'
+    magnitudes (``P (|dP| + |delta|) @ |K|`` for dq, its transpose on ``|Q|``
+    for dk, ``P^T @ |dO|`` for dv), the floor at which the bf16 rounding of
+    P and dS shows. The floor serves the rows whose terms cancel (a row of
+    one key: ``dP - delta`` is 0 up to fp32 sums) and the rows no key or
+    row reaches (0 on both sides). Returns the three largest ratios. One KV
+    head's group at a time, on fp32 (Sq, Skv) tensors."""
+    from starflashattention_tpu_torch.ops.flash_prefill import attention_mask, prefill_options, scores_log2
+
+    opts = prefill_options(window, sinks, None, kv_offset, True)
+    mask = attention_mask(q.shape[2], k.shape[2], lens, q_off, True, q.device, opts["window"], opts["sinks"])
+    sm, hkv = q.shape[-1] ** -0.5, k.shape[1]
+    g = q.shape[1] // hkv
+    worst = [0.0, 0.0, 0.0]
+    for h in range(hkv):
+        hs = slice(h * g, (h + 1) * g)
+        qs, dos, kh, vh = q[:, hs].float(), do[:, hs].float(), k[:, h:h + 1].float(), v[:, h:h + 1].float()
+        s2, _ = scores_log2(qs, kh, sm)
+        p = torch.where(mask, torch.exp2(s2 - lse[:, hs].float()[..., None]), 0.0)
+        del s2
+        a = p * ((dos @ vh.transpose(-1, -2)).abs() + delta[:, hs].float().abs()[..., None])
+        terms = (sm * (a @ kh.abs()), sm * (a.transpose(-1, -2) @ qs.abs()).sum(1, keepdim=True),
+                 (p.transpose(-1, -2) @ dos.abs()).sum(1, keepdim=True))
+        del a, p
+        for i, (x, r, t) in enumerate(zip(got, refs, terms)):
+            rows = hs if i == 0 else slice(h, h + 1)
+            x, r = x[:, rows].float(), r[:, rows].float()
+            scale = torch.maximum(r.abs().amax(dim=-1), 2.0**-8 * t.amax(dim=-1)).clamp(min=1e-30)
+            worst[i] = max(worst[i], ((x - r).abs().amax(dim=-1) / scale).max().item())
+    return worst
+
+
+def _ring_kernels(dev, timer, gen):
+    """K5 with the LSE and both K12 kernels with ``kv_offset``, at one step
+    of phase 13a's Mistral-7B ring (Hq 32, Hkv 8, D 128, window 4096, 4
+    sinks; B=1 here so that the plain twins fit): the q chunk of rank 2
+    (rows 16384-24575) against the KV chunk of rank 1 (rows 8192-16383),
+    so ``q_offsets`` 8192 and ``kv_offset`` 8192: the rows' band covers the
+    chunk's last 4095 rows for the first 4096 q rows, and the sinks lie in
+    no row of it. First the ring's empty chunks (a KV chunk wholly in the
+    rows' future, a sequence of length 0): 0, the LSE 3e38 and zero
+    gradients, equal to the twins. Then held to the twins with
+    ``kv_offset``: the output within 4 bf16 ulps of each element, the LSE
+    within 1e-4, each gradient row within 2e-2 of its own scale
+    (``_bwd_row_errors``), K12 run twice for equal bytes; the same kernels
+    given the raw sinks (``kv_offset`` 0) lie over 4x the tolerance from
+    the twins' peaks (the first keys of every chunk are heavy,
+    ``_chunk_heavy``).
+    Timed beside the twins and a compiled ``flex_attention`` with the
+    offset sink mask (forward, and forward + backward less the forward);
+    the bound counts the in-band pairs."""
+    from starflashattention_tpu_torch.ops.flash_bwd import (bwd_delta, flash_bwd_dkdv, flash_bwd_dkdv_plain,
+                                                            flash_bwd_dq, flash_bwd_dq_plain)
+    from starflashattention_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_plain
+
+    bf16, tol = torch.bfloat16, 2e-2
+    hq, hkv, d, c = 32, 8, 128, RING_SEQ // RING_WORLD
+    w, sk = VARIANT_WINDOW, VARIANT_SINKS
+
+    # -- the ring's empty chunks, first: sequence 0's KV chunk lies wholly in
+    # its rows' future (q_offsets -1024) and sequence 1 has length 0; both
+    # kernels walk no tile there: 0, the LSE 3e38 and zero gradients, bit for
+    # bit the twins', with and without the band
+    qe, doe = (torch.randn((2, hq, 1024, d), generator=gen, device=dev, dtype=bf16) for _ in range(2))
+    ke, ve = (torch.randn((2, hkv, 1024, d), generator=gen, device=dev, dtype=bf16) for _ in range(2))
+    lens_e = torch.tensor([1024, 0], dtype=torch.int32, device=dev)
+    off_e = torch.tensor([-1024, 1024], dtype=torch.int32, device=dev)
+    for opts in (dict(kv_offset=1024), dict(window=w, sinks=sk, kv_offset=1024)):
+        o, lse = flash_prefill(qe, ke, ve, lens_e, q_offsets=off_e, return_lse=True, **opts)
+        o_ref, lse_ref = flash_prefill_plain(qe, ke, ve, lens_e, q_offsets=off_e, return_lse=True, **opts)
+        delta = bwd_delta(o, doe)
+        got = (flash_bwd_dq(qe, ke, ve, lse, doe, delta, lens_e, off_e, **opts),
+               *flash_bwd_dkdv(qe, ke, ve, lse, doe, delta, lens_e, off_e, **opts))
+        refs = (flash_bwd_dq_plain(qe, ke, ve, lse, doe, delta, lens_e, off_e, **opts),
+                *flash_bwd_dkdv_plain(qe, ke, ve, lse, doe, delta, lens_e, off_e, **opts))
+        exact = (bool((o == 0).all()) and torch.equal(o, o_ref) and bool((lse == 3e38).all())
+                 and torch.equal(lse, lse_ref) and all(bool((g == 0).all()) and torch.equal(g, r)
+                                                       for g, r in zip(got, refs)))
+        _check(f"K5 / K12 {opts}: a KV chunk in the rows' future and a sequence of length 0 give 0, the LSE "
+               "3e38 and zero gradients, equal to the twins", 0.0 if exact else float("inf"), 0.0)
+    del qe, doe, ke, ve, o, lse, o_ref, lse_ref, delta, got, refs
+    q, do = (torch.randn((1, hq, c, d), generator=gen, device=dev, dtype=bf16) for _ in range(2))
+    k, v = (torch.randn((1, hkv, c, d), generator=gen, device=dev, dtype=bf16) for _ in range(2))
+    q, k = _chunk_heavy(q, k, sk, c, gen)
+    lens = torch.full((1,), c, dtype=torch.int32, device=dev)
+    q_off = torch.full((1,), c, dtype=torch.int32, device=dev)
+    kw = dict(q_offsets=q_off, window=w, sinks=sk, kv_offset=c)
+    bkw = dict(window=w, sinks=sk, kv_offset=c)
+    tag = f"ring step B=1 Hq={hq} Hkv={hkv} D={d}, q rows {2 * c}-{3 * c - 1} on KV rows {c}-{2 * c - 1}"
+
+    def run(opts):
+        o, lse = flash_prefill(q, k, v, lens, return_lse=True, **{**kw, **opts})
+        delta = bwd_delta(o, do)
+        b_opts = {**bkw, **opts}
+        return o, lse, delta, (flash_bwd_dq(q, k, v, lse, do, delta, lens, q_off, **b_opts),
+                               *flash_bwd_dkdv(q, k, v, lse, do, delta, lens, q_off, **b_opts))
+
+    def rel(got, refs):
+        return [(a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(), 1e-30)
+                for a, b in zip(got, refs)]
+
+    o, lse, delta, got = run({})
+    ref, lse_ref = flash_prefill_plain(q, k, v, lens, return_lse=True, **kw)
+    # 4 ulps, one more than the sibling K5 rows' 3: this chunk's rows attend
+    # 1 to 4,095 keys, and a few-key row's output (P rounded to bf16 before
+    # PV, as the TPU kernel does) can cancel below its terms; the kernel and
+    # flex_attention both read 3.06 ulps against the twin on one seed
+    _check_ulps(f"{RING_ENTRIES['fwd']} {tag} output", o, ref, 3)
+    _check(f"{RING_ENTRIES['fwd']} {tag} lse", (lse - lse_ref).abs().max().item(), 1e-4)
+    refs = (flash_bwd_dq_plain(q, k, v, lse, do, delta, lens, q_off, **bkw),
+            *flash_bwd_dkdv_plain(q, k, v, lse, do, delta, lens, q_off, **bkw))
+    for name, r in zip(("dq", "dk", "dv"), _bwd_row_errors(got, refs, q, k, v, lse, do, delta, lens, q_off,
+                                                           **bkw)):
+        _check(f"{RING_ENTRIES['dq' if name == 'dq' else 'dkdv']} {tag} {name}", r, tol,
+               what="largest error of a row over the row's own scale")
+    again = (flash_bwd_dq(q, k, v, lse, do, delta, lens, q_off, **bkw),
+             *flash_bwd_dkdv(q, k, v, lse, do, delta, lens, q_off, **bkw))
+    _check("K12 with kv_offset, two runs, bytes that differ",
+           float(sum(int((a.view(torch.int16) != g.view(torch.int16)).sum()) for a, g in zip(again, got))), 0.0)
+    del again
+    o2, _, _, got2 = run(dict(kv_offset=0))
+    fwd_rel, bwd_rel = rel([o2], [ref])[0], max(rel(got2, refs))
+    ok = fwd_rel > 4 * tol and bwd_rel > 4 * tol
+    log(f"[kernel] {tag} with the raw sinks (kv_offset 0): the output {fwd_rel:.3e} and the gradients "
+        f"{bwd_rel:.3e} of their peaks from the twins, over 4x the tolerance {tol} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("kv_offset does not move the result past the checks' tolerances")
+    del o2, got2
+    pairs = hq * sum(max(0, w - 1 - i) for i in range(min(c, w)))  # row i: the chunk's rows past c + i - w
+    qb, kvb, rowb = q.numel() * 2, k.numel() * 2, hq * c * 4
+    lib = (None, None)
+    try:
+        fwd, fwd_bwd = _flex_train(q, k, v, do, w, max(sk - c, 0), None, d**-0.5, q_offset=c)
+        lib_out, lib_g = fwd(), fwd_bwd()
+    except Exception as exc:  # noqa: BLE001 (the yardstick only: the kernels' checks stand)
+        log(f"[time] {tag}: flex_attention does not run here ({type(exc).__name__}: "
+            f"{str(exc).splitlines()[0][:160]}); library_ms null")
+    else:
+        _check_ulps(f"{tag} library call (flex_attention) output", lib_out, ref, LIBRARY_ULPS - 1)
+        _check(f"{tag} library call (flex_attention) gradients", max(rel(lib_g, refs)), 5e-2,
+               what="max abs error over the peak")
+        del lib_out, lib_g
+        t_fwd = timer(fwd)
+        lib = (t_fwd, timer(fwd_bwd) - t_fwd)
+    res = {}
+    bnd, by = bound_ms(qb + 2 * kvb + qb + rowb, 4 * d * pairs)
+    res[RING_ENTRIES["fwd"]] = dict(
+        max_abs_err=(o.float() - ref.float()).abs().max().item(),
+        ms=timer(lambda: flash_prefill(q, k, v, lens, return_lse=True, **kw)),
+        plain_ms=timer(lambda: flash_prefill_plain(q, k, v, lens, return_lse=True, **kw), iters=5),
+        bound_ms=bnd, bound_by=by, library_ms=lib[0])
+    ins = qb + 2 * kvb + qb + 2 * rowb  # q, k, v, do, lse, delta
+    abs_errs = [(a.float() - r.float()).abs().max().item() for a, r in zip(got, refs)]
+    for key, fn, plain, n_out, ops, err in (
+            ("dq", flash_bwd_dq, flash_bwd_dq_plain, qb, 6 * d, abs_errs[0]),
+            ("dkdv", flash_bwd_dkdv, flash_bwd_dkdv_plain, 2 * kvb, 8 * d, max(abs_errs[1:]))):
+        bnd, by = bound_ms(ins + n_out, ops * pairs)
+        res[RING_ENTRIES[key]] = dict(
+            max_abs_err=err, ms=timer(lambda fn=fn: fn(q, k, v, lse, do, delta, lens, q_off, **bkw)),
+            plain_ms=timer(lambda plain=plain: plain(q, k, v, lse, do, delta, lens, q_off, **bkw), iters=5),
+            bound_ms=bnd, bound_by=by, library_ms=lib[1])
+    log(f"[time] {tag}: K5 with the LSE {res[RING_ENTRIES['fwd']]['ms']:.4f} ms, K12 dq "
+        f"{res[RING_ENTRIES['dq']]['ms']:.4f} ms, dk/dv {res[RING_ENTRIES['dkdv']]['ms']:.4f} ms "
+        f"({pairs // hq} pairs a head in band); library "
+        f"{'none' if lib[0] is None else f'forward {lib[0]:.4f} ms, backward {lib[1]:.4f} ms'}")
+    del q, k, v, do, o, lse, delta, got, ref, lse_ref, refs
     torch.cuda.empty_cache()
     return res
 
@@ -1909,7 +2171,10 @@ _SUBSETS = (("flash_decode", "launches_banded", "flash_decode_banded"),
             ("flash_prefill", "launches_lse", "flash_prefill_lse"),
             ("flash_prefill", "launches_lse_banded", "flash_prefill_lse_banded"),
             ("flash_bwd_dq", "launches_banded", "flash_bwd_dq_banded"),
-            ("flash_bwd_dkdv", "launches_banded", "flash_bwd_dkdv_banded"))
+            ("flash_bwd_dkdv", "launches_banded", "flash_bwd_dkdv_banded"),
+            ("flash_prefill", "launches_kv_offset", "flash_prefill_kv_offset"),
+            ("flash_bwd_dq", "launches_kv_offset", "flash_bwd_dq_kv_offset"),
+            ("flash_bwd_dkdv", "launches_kv_offset", "flash_bwd_dkdv_kv_offset"))
 
 
 def reset_counts():
@@ -3462,6 +3727,431 @@ def _traced_steps(tag, label, run, steps):
     return dict(wall_ms=wall_ms / steps, busy_ms=busy, launches=launches, idle_share=idle)
 
 
+# ---------------------------------------------------------------- phase 13
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+class _Rank:
+    """What one rank of phase 13 checks and records: each check raises on
+    this rank (which fails the world), rank 0 logs, and every number goes
+    to the rank's record for the parent's summary."""
+
+    def __init__(self, rank):
+        self.rank, self.rec = rank, {}
+
+    def log(self, *args):
+        if self.rank == 0:
+            log(*args)
+
+    def check(self, name, err, tol, what="max abs error over the peak"):
+        self.rec.setdefault("checks", {})[name] = (err, tol)
+        self.log(f"[seq-parallel] {name}: {what} {err:.3e} (tolerance {tol:.3e}) {'ok' if err <= tol else 'FAIL'}")
+        if not err <= tol:
+            raise AssertionError(f"rank {self.rank}: {name}: {err} > {tol}")
+
+    def counts(self, name, counts, want):
+        self.rec.setdefault("counts", {})[name] = counts
+        if counts != want:
+            raise AssertionError(f"rank {self.rank}: {name}: launch counts {counts} != expected {want}")
+
+
+def _rel(got, want, mask=None):
+    """max |got - want| over want's peak (over ``mask`` where given)."""
+    err, ref = (got.float() - want.float()).abs(), want.float().abs()
+    if mask is not None:
+        err, ref = err * mask, ref * mask
+    return err.max().item() / max(ref.max().item(), 1e-30)
+
+
+def _timed(fn):
+    """(fn's result, its host-clock ms, with the card synchronized before and after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _rank_trace(r, tag, fn):
+    """``fn()`` under torch.profiler on this rank, device activity only
+    (each rank's profiler sees its own kernels and copies): the rank's wall
+    ms and device ms by kind, recorded; rank 0 logs them with its costliest
+    kernels. Four ranks time-slice the one card, so the ranks' busy times
+    do not add up to the card's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = _kernel_times(prof)
+    split = _device_split(rows)
+    copies = sum(ms for name, ms, _ in rows if "memcpy" in name.lower())  # gloo's host copies, in "other"
+    r.rec[f"trace {tag}"] = dict(wall_ms=wall, split=split, copies_ms=copies)
+    r.log(f"[seq-parallel] {tag} traced on rank 0: {wall:.1f} ms wall, device busy {sum(split.values()):.1f} ms "
+          "(" + ", ".join(f"{k} {v:.1f}" for k, v in split.items()) + f"; of it copies to and from the host "
+          f"{copies:.1f})")
+    for name, ms, count in rows[:6]:
+        r.log(f"[seq-parallel]   {ms:9.2f} ms  {count:5d} launches  {name[:110]}")
+
+
+def _ring_counts(n, fwd_calls=1, bwd_calls=1, banded=False, per_step=1, offset_free=1):
+    """One rank's launch counts for ``fwd_calls`` ring forwards of ``n``
+    steps, each step ``per_step`` K5-with-LSE launches of which
+    ``offset_free`` a call have kv_offset 0, and ``bwd_calls`` ring
+    backwards (n dq and n dk/dv launches, one of each at kv_offset 0);
+    ``banded``: every launch has a window."""
+    f, bq = n * per_step * fwd_calls, n * bwd_calls
+    want = dict(flash_prefill=f, flash_prefill_lse=f, flash_prefill_kv_offset=f - offset_free * fwd_calls,
+                flash_bwd_dq=bq, flash_bwd_dkdv=bq, flash_bwd_dq_kv_offset=bq - bwd_calls,
+                flash_bwd_dkdv_kv_offset=bq - bwd_calls)
+    if banded:
+        want.update(flash_prefill_lse_banded=f, flash_bwd_dq_banded=bq, flash_bwd_dkdv_banded=bq)
+    return zero_counts(**want)
+
+
+def _ring_attention_path(r, mesh, dev):
+    """13a and 13b on this rank: the ring (contiguous forward and backward,
+    zigzag forward, Mistral-7B's window with 4 sinks) and Ulysses against
+    one process's K5 and K12 on the whole sequence."""
+    import torch.distributed as dist
+
+    from starflashattention_tpu_torch.ops.flash_bwd import flash_prefill_bwd
+    from starflashattention_tpu_torch.ops.flash_prefill import flash_prefill
+    from starflashattention_tpu_torch.parallel import comm, make_ring_prefill, make_ulysses_prefill, ring
+    from starflashattention_tpu_torch.parallel.ulysses import ulysses_attention
+
+    seq = mesh.axis("seq")
+    i, n = seq.index, seq.size
+    b, hq, hkv, d, s = RING_BATCH, 32, 8, 128, RING_SEQ
+    c = s // n
+    rows = slice(i * c, (i + 1) * c)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)  # the same tensors on every rank
+    bf16 = torch.bfloat16
+    q, do = (torch.randn((b, hq, s, d), generator=gen, device=dev, dtype=bf16) for _ in range(2))
+    k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev, dtype=bf16) for _ in range(2))
+    lengths = torch.tensor(RING_LENGTHS, dtype=torch.int32, device=dev)
+    valid = (torch.arange(i * c, (i + 1) * c, device=dev)[None, :] < lengths[:, None])[:, None, :, None]
+    tag = f"B={b} Hq={hq} Hkv={hkv} D={d} S={s} over {n} ranks, lengths {list(RING_LENGTHS)}"
+
+    def reference(q, k, kw):
+        """One process's K5 (with the LSE) and K12 on the whole sequence,
+        the ranks in turn, so that each time is the card's alone: the
+        kernel work the ring spreads over the ranks."""
+        for turn in range(n):
+            if turn == i:
+                (o, lse), ms_f = _timed(lambda: flash_prefill(q, k, v, lengths, return_lse=True, **kw))
+                grads, ms_b = _timed(lambda: flash_prefill_bwd(q, k, v, o, lse, do, lengths, **kw))
+            dist.barrier()
+        return o, [g[:, :, rows].clone() for g in grads], ms_f + ms_b
+
+    def ring_run(name, q, k, kw, o_full, ref_grads, ms_ref):
+        mine = [x[:, :, rows].contiguous().requires_grad_() for x in (q, k, v)]
+        reset_counts()
+        h0 = comm.host_bytes
+        o, ms_f = _timed(lambda: ring.ring_attention(*mine, lengths, axis_name=seq, **kw))
+        grads, ms_b = _timed(lambda: torch.autograd.grad(o, mine, do[:, :, rows]))
+        r.counts(f"13a {name}", read_counts(), _ring_counts(n, banded=kw.get("window") is not None))
+        r.check(f"13a ring {name} output (valid rows) vs one process's K5", _rel(o, o_full[:, :, rows], valid),
+                RING_TOL)
+        for g_name, g, want in zip(("dq", "dk", "dv"), grads, ref_grads):
+            r.check(f"13a ring {name} {g_name} vs one process's K12", _rel(g, want), RING_GRAD_TOL)
+        r.rec[f"13a {name}"] = dict(ring_fwd_ms=ms_f, ring_bwd_ms=ms_b, single_ms=ms_ref,
+                                    host_bytes=comm.host_bytes - h0)
+        r.log(f"[seq-parallel] 13a ring {name} at {tag}: forward {ms_f:.1f} ms, backward {ms_b:.1f} ms a rank "
+              f"(host clock; gloo through the host, {(comm.host_bytes - h0) / 2**20:.0f} MiB copied by rank 0); "
+              f"one process's K5 + K12 on the whole sequence, alone on the card, {ms_ref:.1f} ms")
+        return mine
+
+    # -- one untimed ring first, at full size: the rank's first forward and
+    # backward cost seconds more than the next ones (on the CPU too), which
+    # would hide the ring's own time
+    mine = [x[:, :, rows].contiguous().requires_grad_() for x in (q, k, v)]
+    torch.autograd.grad(ring.ring_attention(*mine, lengths, axis_name=seq), mine, do[:, :, rows])
+    del mine
+
+    # -- contiguous, causal; then once more under the profiler
+    o_full, ref_grads, ms_ref = reference(q, k, {})
+    mine = ring_run("causal", q, k, {}, o_full, ref_grads, ms_ref)
+    _rank_trace(r, "13a ring causal forward + backward", lambda: torch.autograd.grad(
+        ring.ring_attention(*mine, lengths, axis_name=seq), mine, do[:, :, rows]))
+    del mine
+
+    # -- zigzag (balanced), forward
+    perm = torch.from_numpy(ring.zigzag_permutation(s, n)[i * c:(i + 1) * c]).to(dev)
+    zig = make_ring_prefill(mesh, seq_axis="seq", balanced=True)
+    reset_counts()
+    o, ms = _timed(lambda: zig(*(x[:, :, perm] for x in (q, k, v)), lengths))
+    r.counts("13a zigzag", read_counts(), _ring_counts(n, bwd_calls=0, per_step=4, offset_free=2))
+    zvalid = (perm[None, :] < lengths[:, None])[:, None, :, None]
+    r.check("13a zigzag output (valid rows) vs one process's K5", _rel(o, o_full[:, :, perm], zvalid), RING_TOL)
+    r.rec["13a zigzag"] = dict(ring_fwd_ms=ms)
+    r.log(f"[seq-parallel] 13a zigzag forward at {tag}: {ms:.1f} ms a rank")
+
+    # -- 13b Ulysses, forward and gradients (the same reference)
+    u = make_ulysses_prefill(mesh, seq_axis="seq")
+    reset_counts()
+    o, ms_f = _timed(lambda: u(*(x[:, :, rows] for x in (q, k, v)), lengths))
+    r.counts("13b forward", read_counts(), zero_counts(flash_prefill=1))
+    r.check("13b Ulysses output (valid rows) vs one process's K5", _rel(o, o_full[:, :, rows], valid), RING_TOL)
+    mine = [x[:, :, rows].contiguous().requires_grad_() for x in (q, k, v)]
+    reset_counts()
+    o = ulysses_attention(*mine, lengths, axis_name=seq, differentiable=True)
+    grads, ms_b = _timed(lambda: torch.autograd.grad(o, mine, do[:, :, rows]))
+    r.counts("13b gradients", read_counts(),
+             zero_counts(flash_prefill=1, flash_prefill_lse=1, flash_bwd_dq=1, flash_bwd_dkdv=1))
+    for g_name, g, want in zip(("dq", "dk", "dv"), grads, ref_grads):
+        r.check(f"13b Ulysses {g_name} vs one process's K12", _rel(g, want), RING_GRAD_TOL)
+    r.rec["13b"] = dict(fwd_ms=ms_f, bwd_ms=ms_b)
+    r.log(f"[seq-parallel] 13b Ulysses at {tag}: forward {ms_f:.1f} ms, backward {ms_b:.1f} ms a rank")
+    del o_full, ref_grads, mine, grads, o
+
+    # -- Mistral-7B: window 4096 + 4 sinks, the first keys of every chunk heavy
+    kw = dict(window=VARIANT_WINDOW, sinks=VARIANT_SINKS)
+    qh, kh = _chunk_heavy(q, k, VARIANT_SINKS, c, gen)
+    o_full, ref_grads, ms_ref = reference(qh, kh, kw)
+    mine = ring_run("window 4096 + 4 sinks", qh, kh, kw, o_full, ref_grads, ms_ref)
+
+    @dataclasses.dataclass(frozen=True)
+    class RawSinks(ring._RingConfig):
+        """Every chunk given the raw sinks: ``kv_offset`` ignored."""
+
+        def kernel_kw(self, kv_offset):
+            return super().kernel_kw(0)
+
+    with torch.no_grad():
+        o_raw, _ = ring._ring_forward(RawSinks(seq, True, None, **kw), *mine, lengths)
+    err = _rel(o_raw, o_full[:, :, rows], valid)
+    r.rec["13a raw sinks error"] = err
+    # rank 0's rows see only its own chunk, where kv_offset is 0: the option
+    # shows on every later rank, whose own chunk's heavy first keys the raw
+    # sinks pull into rows whose band lies far past them
+    r.log(f"[seq-parallel] 13a ring with the raw sinks on every chunk (kv_offset ignored): rank 0's output "
+          f"{err:.3e} of the peak from one process's K5 (its rows see only chunk 0; ranks 1-{n - 1} must lie "
+          f"over 4x the tolerance {RING_TOL}: see the summary)")
+    if i > 0 and not err > 4 * RING_TOL:
+        raise AssertionError(f"rank {r.rank}: the ring check does not see kv_offset ({err} <= {4 * RING_TOL})")
+    del q, k, v, do, qh, kh, o_full, ref_grads, mine, o_raw
+    torch.cuda.empty_cache()
+
+
+def _sharded_decode_path(r, mesh, dev):
+    """13c on this rank: ``make_seq_sharded_decode`` (bf16 and int8 KV,
+    head_chunks 1 and 2) against K1 on the whole cache and against the plain
+    twin on the whole cache; with head_chunks 1, K2's partials on the
+    rank's shard (its 8192 rows in 4 splits) against their plain twin."""
+    from starflashattention_tpu_torch.ops.flash_decode import (flash_decode, flash_decode_plain,
+                                                               flash_decode_with_stats,
+                                                               flash_decode_with_stats_plain)
+    from starflashattention_tpu_torch.parallel import comm, make_seq_sharded_decode
+
+    seq = mesh.axis("seq")
+    i, n = seq.index, seq.size
+    cfg = SHARDED_DECODE
+    b, hq, hkv, d, s = cfg["batch"], 32, 8, 128, cfg["seq"]
+    c = s // n
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    q = torch.randn((b, hq, d), generator=gen, device=dev, dtype=torch.bfloat16)
+    k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(2))
+    lengths = torch.linspace(*cfg["lengths"], b, device=dev).round().to(torch.int32)
+    scales, quant = {}, {}
+    for name, x in (("k", k), ("v", v)):  # per-KV-head absmax int8
+        sc = x.float().abs().amax(dim=(0, 2, 3)) / 127.0
+        scales[name] = sc
+        quant[name] = (x.float() / sc[None, :, None, None]).round().clamp(-127, 127).to(torch.int8)
+    tag = f"B={b} Hq={hq} Hkv={hkv} D={d}, {s} cache rows ({c} a rank), lengths {cfg['lengths'][0]}-{cfg['lengths'][1]}"
+    for kv in ("bf16", "int8"):
+        if kv == "bf16":
+            full, extra = (k, v), {}
+        else:
+            full, extra = (quant["k"], quant["v"]), dict(k_scales=scales["k"], v_scales=scales["v"])
+        shard = tuple(x[:, :, i * c:(i + 1) * c].contiguous() for x in full)  # the rank holds its rows
+        ref, ms_ref = _timed(lambda: flash_decode(q, *full, lengths, num_splits=1, **extra))
+        # the plain twins on (B, Hq, S, D) fp32 copies of the rows: two sequences at a time
+        plain = torch.cat([flash_decode_plain(q[j:j + 2], full[0][j:j + 2], full[1][j:j + 2], lengths[j:j + 2],
+                                              num_splits=1, **extra) for j in range(0, b, 2)])
+        local_len = (lengths - i * c).clamp(0, c).to(torch.int32)
+        stats_kw = dict(num_splits=cfg["num_splits"], block_k=cfg["block_k"], **extra)
+        parts = flash_decode_with_stats(q, *shard, local_len, **stats_kw)
+        parts_plain = [torch.cat(x) for x in zip(*(flash_decode_with_stats_plain(
+            q[j:j + 2], shard[0][j:j + 2], shard[1][j:j + 2], local_len[j:j + 2], **stats_kw)
+            for j in range(0, b, 2)))]
+        for name, err in _partial_errors(parts, parts_plain).items():
+            r.check(f"13c {kv} KV: K2 partials on the rank's shard, {name}, vs the plain twin", err,
+                    0.0 if name == "dead splits" else 1e-4, what="max error")
+        del parts, parts_plain
+        for chunks in (1, 2):
+            fn = make_seq_sharded_decode(mesh, seq_axis="seq", num_splits=cfg["num_splits"],
+                                         block_k=cfg["block_k"], quantized=kv == "int8", head_chunks=chunks)
+            args = (q, *shard, lengths) + ((scales["k"], scales["v"]) if kv == "int8" else ())
+            reset_counts()
+            o = fn(*args)
+            r.counts(f"13c {kv} head_chunks {chunks}", read_counts(), zero_counts(flash_decode=chunks))
+            h0 = comm.host_bytes
+            _, ms = _timed(lambda: fn(*args))  # the second call: the first one loads and counts
+            # fp32 partials merged in another order than K1's one walk, then one bf16 rounding on each side
+            # (int8: K1 rounds its output to bf16 before v_scale, as JAX does: one more)
+            r.check(f"13c {kv} KV head_chunks {chunks} vs K1 on the whole cache", _ulps(o, ref),
+                    3.0 if kv == "int8" else 2.0, what="largest error in bf16 ulps of each element")
+            r.check(f"13c {kv} KV head_chunks {chunks} vs the plain twin on the whole cache", _ulps(o, plain),
+                    3.0 if kv == "int8" else 2.0, what="largest error in bf16 ulps of each element")
+            r.rec[f"13c {kv} {chunks}"] = dict(ms=ms, k1_ms=ms_ref, host_bytes=comm.host_bytes - h0)
+            r.log(f"[seq-parallel] 13c {kv} KV, head_chunks {chunks}, {tag}: {ms:.2f} ms a call (host clock, "
+                  f"merge through the host: {comm.host_bytes - h0} bytes on rank 0); K1 on the whole cache in "
+                  f"one process {ms_ref:.2f} ms")
+    del q, k, v, quant, full, shard, plain
+    torch.cuda.empty_cache()
+
+
+def _cp_training_path(r, mesh, dp_mesh, dev):
+    """13d on this rank: context-parallel training of Mistral-7B with 4
+    sinks (2 layers at full width) at B=1, S=32768, against the single
+    process's gradients on rank 0; 3 SGD steps; then CP x DP on the 2 x 2
+    mesh at B=2, S=16384."""
+    import torch.distributed as dist
+
+    from starflashattention_tpu_torch.models import llama, train
+    from starflashattention_tpu_torch.parallel import comm, init_opt_state, make_cp_train_step
+    from starflashattention_tpu_torch.runtime.params import ModelConfig
+
+    cfg = ModelConfig.mistral_7b(attention_sinks=VARIANT_SINKS, num_layers=CP_LAYERS, max_seq_len=CP_SEQ)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)  # the same params and batches on every rank
+    params = llama.init_params(cfg, gen, device=dev)
+    cos, sin = llama.rope_tables(cfg, device=dev)
+    tag = (f"Mistral-7B + {VARIANT_SINKS} sinks (window {cfg.sliding_window}), {CP_LAYERS} of 32 layers at full "
+           f"width, bf16")
+
+    def run(name, step_mesh, batch, steps, kw):
+        """Rank 0's single-process gradients of the first batch, then
+        ``steps`` CP steps (the first one compared)."""
+        ref = None
+        if r.rank == 0:
+            (loss_ref, grads_ref), ms_ref = _timed(lambda: train.loss_and_grads(params, batch, cfg, cos, sin))
+            ref = (float(loss_ref), grads_ref, ms_ref)
+        dist.barrier()
+        torch.cuda.empty_cache()
+        step = make_cp_train_step(step_mesh, cfg, TRAIN_LR, **kw)
+        state = init_opt_state(params)
+        n_seq = step_mesh.axis("seq").size
+        # remat: two ring forwards a layer, one backward
+        want = _ring_counts(n_seq, fwd_calls=2 * CP_LAYERS, bwd_calls=CP_LAYERS, banded=True)
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms, host = [], [], []
+        for t in range(steps):
+            reset_counts()
+            h0 = comm.host_bytes
+            (_, _, loss), ms = _timed(lambda: step(params, state, batch, cos, sin))
+            losses.append(float(loss))
+            step_ms.append(ms)
+            host.append(comm.host_bytes - h0)
+            r.counts(f"13d {name} step {t}", read_counts(), want)
+            if t == 0 and ref is not None:  # momentum from 0 after one step: the reduced gradients
+                r.check(f"13d {name} first loss vs one process's", abs(losses[0] - ref[0]), TRAIN_GRAD_TOL,
+                        what="abs error")
+                worst = max((_rel(g, gr), key) for (key, g), gr in zip(
+                    _named_leaves(state), train.tree_leaves(ref[1])))
+                r.check(f"13d {name} every gradient vs one process's (worst: {worst[1]})", worst[0],
+                        TRAIN_GRAD_TOL)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if steps > 1:  # one more step, traced
+            _rank_trace(r, f"13d {name} step", lambda: step(params, state, batch, cos, sin))
+        tokens = batch.shape[0] * (batch.shape[1] - 1)
+        if not all(np.isfinite(losses)) or (steps > 1 and not losses[-1] < losses[0]):
+            raise AssertionError(f"rank {r.rank}: 13d {name}: the loss did not fall: {losses}")
+        r.rec[f"13d {name}"] = dict(losses=losses, step_ms=step_ms, tokens_per_s=tokens / step_ms[-1] * 1e3,
+                                    peak_gib=peak, host_bytes_per_step=host[-1],
+                                    single_ms=None if ref is None else ref[2])
+        r.log(f"[seq-parallel] 13d {name}, {tag}, B={batch.shape[0]} S={batch.shape[1] - 1}: losses {losses}; ms a "
+              f"step {[round(x, 1) for x in step_ms]} (host clock); {tokens / step_ms[-1] * 1e3:.0f} tokens/s at the "
+              f"last step; peak memory {peak:.1f} GiB on rank 0; {host[-1] / 2**30:.2f} GiB copied through the host "
+              f"a step by rank 0 (gloo); the single process's loss and gradients "
+              f"{'not run' if ref is None else f'{ref[2]:.1f} ms'}")
+        del state, ref
+        torch.cuda.empty_cache()
+
+    batch = torch.randint(0, cfg.vocab_size, (1, CP_SEQ + 1), generator=gen, device=dev)
+    run("CP (seq 4)", mesh, batch, CP_STEPS, {})
+    b, s = CP_DP
+    batch = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen, device=dev)
+    run("CP x DP (data 2, seq 2)", dp_mesh, batch, 1, dict(data_axis="data"))
+    del params
+
+
+def _seq_parallel_rank(rank, world, port, out_dir):
+    """One rank of phase 13: joins the gloo world on this card, runs 13a-13d
+    and writes its record to ``out_dir/rank<r>.json``."""
+    import torch.distributed as dist
+
+    from starflashattention_tpu_torch.parallel import init_distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_distributed(f"tcp://localhost:{port}", backend="gloo", world_size=world, rank=rank)
+    mesh = make_mesh({"seq": world}, device=dev)
+    dp_mesh = make_mesh({"data": 2, "seq": world // 2}, device=dev)
+    r = _Rank(rank)
+    for name, fn in (("13a-b", lambda: _ring_attention_path(r, mesh, dev)),
+                     ("13c", lambda: _sharded_decode_path(r, mesh, dev)),
+                     ("13d", lambda: _cp_training_path(r, mesh, dp_mesh, dev))):
+        t0 = time.perf_counter()
+        fn()
+        r.rec.setdefault("seconds", {})[name] = time.perf_counter() - t0
+        dist.barrier()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(r.rec, f)
+    dist.destroy_process_group()
+
+
+def phase_seq_parallel(smi):
+    """Phase 13 (see the module doc): RING_WORLD ranks on this one card
+    over gloo. Every library is built (phase 1) before the spawn, so the
+    ranks only load them. Returns the ranks' records."""
+    import torch.multiprocessing as mp
+
+    from starflashattention_tpu_torch.ops._build import BUILD_DIR
+
+    torch.cuda.empty_cache()
+    out_dir = BUILD_DIR / "phase13"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in out_dir.glob("rank*.json"):
+        old.unlink()
+    t0 = time.perf_counter()
+    mp.spawn(_seq_parallel_rank, args=(RING_WORLD, _free_port(), str(out_dir)), nprocs=RING_WORLD, join=True)
+    recs = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(RING_WORLD)]
+    secs = time.perf_counter() - t0
+    worst = {}
+    for rec in recs:
+        for name, (err, tol) in rec["checks"].items():
+            worst[name] = max(worst.get(name, (0.0, tol)), (err, tol))
+    for name, (err, tol) in worst.items():
+        log(f"[seq-parallel] worst of {RING_WORLD} ranks: {name}: {err:.3e} (tolerance {tol:.3e})")
+    totals = {}
+    for rec in recs:
+        for counts in rec["counts"].values():
+            for key, n in counts.items():
+                totals[key] = totals.get(key, 0) + n
+    log(f"[seq-parallel] launches over the {RING_WORLD} ranks' counted runs: "
+        + ", ".join(f"{k} {v}" for k, v in totals.items() if v))
+    log(f"[seq-parallel] raw-sinks errors by rank: {[round(rec['13a raw sinks error'], 4) for rec in recs]}")
+    for key in [k for k in recs[0] if k.startswith("13d ")]:
+        log(f"[seq-parallel] {key} by rank: peak memory {[round(rec[key]['peak_gib'], 2) for rec in recs]} GiB, "
+            f"through the host a step {[round(rec[key]['host_bytes_per_step'] / 2**30, 2) for rec in recs]} GiB, "
+            f"ms a step {[round(rec[key]['step_ms'][-1], 1) for rec in recs]}")
+    log(f"[seq-parallel] phase 13 took {secs:.1f} s ({smi}; the ranks' seconds: "
+        f"{[{k: round(v, 1) for k, v in rec['seconds'].items()} for rec in recs]}); gloo copies every "
+        "rotated chunk and reduction through the host, so these wall times are no guide to NCCL")
+    return dict(records=recs, totals=totals, seconds=secs)
+
+
 # ---------------------------------------------------------------- main
 
 REPLACES = {
@@ -3503,6 +4193,9 @@ REPLACES = {
     LATENT_ENTRIES["prefill"]: ("starflashattention_tpu/ops/flash_prefill.py:67", "flash_prefill.cu"),
     LATENT_ENTRIES["int4_experts"]: ("starflashattention_tpu/ops/quant_matmul.py:178", "quant_matmul.cu"),
     LATENT_ENTRIES["int8_experts"]: ("starflashattention_tpu/ops/quant_matmul.py:35", "quant_matmul.cu"),
+    RING_ENTRIES["fwd"]: ("starflashattention_tpu/ops/flash_prefill.py:67", "flash_prefill.cu"),
+    RING_ENTRIES["dq"]: ("starflashattention_tpu/ops/flash_bwd.py:173", "flash_bwd.cu"),
+    RING_ENTRIES["dkdv"]: ("starflashattention_tpu/ops/flash_bwd.py:254", "flash_bwd.cu"),
     **{TRAIN_VARIANT_ENTRIES[k]: (site, src) for k in TRAIN_VARIANT_ENTRIES
        for suffix, site, src in (("_fwd", "starflashattention_tpu/ops/flash_prefill.py:67", "flash_prefill.cu"),
                                  ("_dq", "starflashattention_tpu/ops/flash_bwd.py:173", "flash_bwd.cu"),
@@ -3517,8 +4210,8 @@ OFF_PATH = ("flash_decode fp8 KV (1 split, fused)", "paged_flash_decode fp8 KV")
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11,12",
-                        help="comma-separated phases to run (default 1,2,3,4,6,7,8,9,10,11,12; phase 5, "
+    parser.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11,12,13",
+                        help="comma-separated phases to run (default 1,2,3,4,6,7,8,9,10,11,12,13; phase 5, "
                              "a profile of bench.py's decode chains, runs only when named)")
     args = parser.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -3549,6 +4242,7 @@ def main(argv=None):
     variants = phase_variants(dev) if 10 in phases else {}
     train_variants = phase_train_variants(dev) if 11 in phases else {}
     deepseek = phase_deepseek(dev, smi) if 12 in phases else {}
+    seq_parallel = phase_seq_parallel(smi) if 13 in phases else {}
     if 5 in phases:
         phase_decode_profile(dev)
 
@@ -3621,6 +4315,11 @@ def main(argv=None):
             e["paged"]: ds["paged"]["counts"]["paged_flash_decode"],
             e["int4_experts"]: gen["quant_matmul_int4"] - gen["quant_matmul_int4_tiled"],
             e["int8_experts"]: mx["quant_matmul"] - mx["quant_matmul_tiled"]})
+    if seq_parallel:
+        tot = seq_parallel["totals"]
+        launches.update({RING_ENTRIES["fwd"]: tot["flash_prefill_kv_offset"],
+                         RING_ENTRIES["dq"]: tot["flash_bwd_dq_kv_offset"],
+                         RING_ENTRIES["dkdv"]: tot["flash_bwd_dkdv_kv_offset"]})
     line = []
     for name, r in kernels.items():
         if name in OFF_PATH:

@@ -31,7 +31,11 @@
 // ds = p * (dp - delta) * (1 - t^2) (JAX _tile_dots / _tile_elem).
 // BAND and SOFTCAP are template flags, instantiated for causal only (as
 // K5's), so the unbanded step runs the kernels it ran without them; the
-// window and sinks are runtime ints.
+// window and sinks are runtime ints. Ring context parallelism (JAX
+// kv_offset, :93, :168) reaches them as flash_prefill.cu's does: the
+// wrapper passes max(sinks - kv_offset, 0) as opt.sinks, and a chunk wholly
+// in the rows' future (a negative q_offsets) or past the length walks no
+// tile: dq, dk and dv are exact zeros (a row's LSE of 3e38 gives p = 0).
 //
 // Bound: 10 * D operations per (query, key) pair in band (the two
 // recomputed products and the three gradient products: 5 matmuls of 2 * D

@@ -21,6 +21,15 @@
 // capped as cap * tanh(s / cap), and only then converted to base 2 (JAX
 // folds sm_scale alone into q for this, :162-166, :314-316).
 //
+// Ring context parallelism (JAX kv_offset, :118, :134, :146, :184): k and
+// v are one chunk of the sequence at global position kv_offset, and only
+// the sinks' boundary is absolute (col < sinks - kv_offset, col local to
+// the chunk); the causal diagonal and the band move with q_offsets. The
+// wrapper passes max(sinks - kv_offset, 0) as opt.sinks, so no form of its
+// own is needed. A chunk wholly in the rows' future comes with a negative
+// q_offsets (kv_end <= 0 below: no tile runs) and one past a sequence's
+// length with lengths clipped to 0: the rows get 0 and the LSE 3e38.
+//
 // head_dim 256: the output accumulators alone take 128 registers a thread,
 // so the Q fragments (64 more) are not kept in registers: each warp stages
 // its 16 query rows in its own slice of dynamic shared memory and reads one

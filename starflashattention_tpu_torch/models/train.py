@@ -25,11 +25,21 @@ updating ``params`` and the momentum IN PLACE. Each layer's weights are
 taken from the (L, ...) stacks with ``unbind``, whose backward stacks the
 per-layer gradients once.
 
-Not ported, each raising ``NotImplementedError``: ``axis_name`` and
-``seq_axis_name`` (multi-GPU, ROADMAP item 16), MoE (``_moe_mlp_train``,
-item 14b-train), MLA (item 14c-train: JAX's training path reads ``wqkv``
-and has no MLA form) and every config field ``llama.check_supported``
-refuses.
+Context parallelism: ``seq_axis_name`` (a ``parallel.mesh.Axis``, where
+JAX takes the axis's name) makes ``tokens`` rank i's contiguous chunk of
+each sequence, positions ``[i * S, (i + 1) * S)``: RoPE takes those global
+positions (``pos0 = i * S``, JAX ``train.py:186-187``) and attention is
+``parallel.ring.ring_attention`` over the axis with each layer's window and
+sinks (JAX ``_windowed_attn``, ``:128-142``, ``:201-208``). It needs the
+flash path, as in JAX. The loss is the chunk's mean and the gradients are
+the chunk's: ``parallel.train.make_cp_train_step`` averages them over the
+axes. Every rank of the axis runs the forward and the backward together.
+
+Not ported, each raising ``NotImplementedError``: ``axis_name`` (tensor
+parallelism, the tensor-parallel half of ROADMAP item 16), MoE
+(``_moe_mlp_train``, item 14b-train), MLA (item 14c-train: JAX's training
+path reads ``wqkv`` and has no MLA form) and every config field
+``llama.check_supported`` refuses.
 """
 
 from __future__ import annotations
@@ -85,10 +95,15 @@ def value_and_grad(fn, tree):
 # ---------------------------------------------------------------------------
 
 
-def _check_trainable(params, cfg: ModelConfig, axis_name, seq_axis_name) -> None:
-    if axis_name is not None or seq_axis_name is not None:
-        raise NotImplementedError("tensor- and context-parallel training (axis_name / "
-                                  "seq_axis_name) are not ported yet (ROADMAP Queue 1 item 16)")
+def _check_trainable(params, cfg: ModelConfig, axis_name, seq_axis_name, use_flash=True) -> None:
+    if axis_name is not None:
+        raise NotImplementedError("tensor-parallel training (axis_name) is not ported yet (ROADMAP Queue 1 "
+                                  "item 16, the tensor-parallel half: parallel/tp.py)")
+    if isinstance(seq_axis_name, str):
+        raise TypeError("seq_axis_name takes a parallel.mesh.Axis (mesh.axis(name)), not an axis's name")
+    if seq_axis_name is not None and not use_flash:
+        raise ValueError("context-parallel training requires the flash path (use_flash=True): the plain "
+                         "attention twin is single-device")
     if cfg.num_experts:
         raise NotImplementedError("MoE training (_moe_mlp_train) is not ported yet "
                                   "(ROADMAP Queue 1 item 14b-train)")
@@ -145,9 +160,10 @@ def _proj(x, layers, ll, i, name, lscale):
 
 
 def _layer(x, i: int, layers: dict, adapters: dict, lscale, pos, cos, sin, cfg: ModelConfig,
-           use_flash: bool):
+           use_flash: bool, seq_axis=None):
     """Decoder layer ``i`` on (B, S, H) activations; ``layers`` and
-    ``adapters`` hold per-layer sequences of weights and adapter factors."""
+    ``adapters`` hold per-layer sequences of weights and adapter factors;
+    with ``seq_axis`` the attention is the ring over it."""
     b, s, _ = x.shape
     eps = cfg.rms_norm_eps
     ll = {n: {"a": ab["a"][i], "b": ab["b"][i]} for n, ab in adapters.items()} or None
@@ -161,8 +177,14 @@ def _layer(x, i: int, layers: dict, adapters: dict, lscale, pos, cos, sin, cfg: 
     k = apply_rope(k, pos, cos, sin, style=cfg.rope_style)
     if use_flash:
         window = _train_window(cfg, i)
-        o = flash_attention(q, k, v, causal=True, sm_scale=cfg.sm_scale(), window=window,
-                            sinks=0 if window is None else cfg.attention_sinks, softcap=cfg.attn_softcap)
+        kw = dict(causal=True, sm_scale=cfg.sm_scale(), window=window,
+                  sinks=0 if window is None else cfg.attention_sinks, softcap=cfg.attn_softcap)
+        if seq_axis is None:
+            o = flash_attention(q, k, v, **kw)
+        else:
+            from starflashattention_tpu_torch.parallel.ring import ring_attention
+
+            o = ring_attention(q, k, v, axis_name=seq_axis, **kw)
     else:
         o = _attn_plain(q, k, v, cfg, i)
     o = o.transpose(1, 2).reshape(b, s, -1)
@@ -189,14 +211,16 @@ def forward_train(
 ) -> torch.Tensor:
     """All-position fp32 logits (B, S, V): the training twin of the serving
     prefill, cache-free and differentiable. Runs on the device of
-    ``params``."""
-    _check_trainable(params, cfg, axis_name, seq_axis_name)
+    ``params``. With ``seq_axis_name`` (context parallelism, see the module
+    doc) ``tokens`` is this rank's chunk and the logits are its rows."""
+    _check_trainable(params, cfg, axis_name, seq_axis_name, use_flash)
     b, s = tokens.shape
-    if s > cos.shape[0]:
-        raise ValueError(f"sequence length {s} exceeds the RoPE table ({cos.shape[0]} rows)")
+    pos0 = 0 if seq_axis_name is None else seq_axis_name.index * s
+    if pos0 + s > cos.shape[0]:
+        raise ValueError(f"sequence length {pos0 + s} exceeds the RoPE table ({cos.shape[0]} rows)")
     tokens = torch.as_tensor(tokens, device=params["embed"].device)
     x = llama._embed_tokens(params, tokens, cfg)
-    pos = torch.arange(s, device=x.device)[None, None, :]  # (1, 1, S): every sequence and head
+    pos = torch.arange(pos0, pos0 + s, device=x.device)[None, None, :]  # (1, 1, S): every sequence and head
     layers = {name: w.unbind(0) for name, w in params["layers"].items()}
     adapters, lscale = {}, None
     if lora is not None:
@@ -204,7 +228,7 @@ def forward_train(
                     for name, ab in lora["layers"].items()}
         lscale = lora["scale"]
     for i in range(cfg.num_layers):
-        args = (x, i, layers, adapters, lscale, pos, cos, sin, cfg, use_flash)
+        args = (x, i, layers, adapters, lscale, pos, cos, sin, cfg, use_flash, seq_axis_name)
         x = checkpoint(_layer, *args, use_reentrant=False) if remat else _layer(*args)
     xn = llama.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -217,7 +241,9 @@ def forward_train(
 def loss_tokens(params, inp, tgt, cfg: ModelConfig, cos, sin, *, use_flash=True, remat=True,
                 axis_name=None, seq_axis_name=None, lora=None) -> torch.Tensor:
     """Next-token cross-entropy (mean over every position) with inputs and
-    targets as separate (B, S) arrays."""
+    targets as separate (B, S) arrays: the shardable form (under context
+    parallelism a chunk's last target lies in the next chunk, so ``inp``
+    and ``tgt`` are cut from the (B, S + 1) batch before it is sharded)."""
     logits = forward_train(params, inp, cfg, cos, sin, use_flash=use_flash, remat=remat,
                            axis_name=axis_name, seq_axis_name=seq_axis_name, lora=lora)
     logp = torch.log_softmax(logits, dim=-1)
@@ -226,18 +252,23 @@ def loss_tokens(params, inp, tgt, cfg: ModelConfig, cos, sin, *, use_flash=True,
 
 
 def loss_fn(params, batch, cfg: ModelConfig, cos, sin, *, use_flash=True, remat=True,
-            axis_name=None, lora=None) -> torch.Tensor:
-    """Next-token cross-entropy over a (B, S + 1) token batch."""
+            axis_name=None, seq_axis_name=None, lora=None) -> torch.Tensor:
+    """Next-token cross-entropy over a (B, S + 1) token batch; with
+    ``seq_axis_name``, rank i's window ``[i * S, (i + 1) * S + 1)`` of the
+    global batch (one token past its chunk: the chunk's last target)."""
     batch = torch.as_tensor(batch)
     return loss_tokens(params, batch[:, :-1], batch[:, 1:], cfg, cos, sin, use_flash=use_flash,
-                       remat=remat, axis_name=axis_name, lora=lora)
+                       remat=remat, axis_name=axis_name, seq_axis_name=seq_axis_name, lora=lora)
 
 
-def loss_and_grads(params, batch, cfg: ModelConfig, cos, sin, *, use_flash=True, remat=True):
+def loss_and_grads(params, batch, cfg: ModelConfig, cos, sin, *, use_flash=True, remat=True,
+                   seq_axis_name=None):
     """``(loss, grads)`` of :func:`loss_fn` with respect to ``params``,
-    the grads shaped like ``params`` (``jax.value_and_grad(loss_fn)``)."""
+    the grads shaped like ``params`` (``jax.value_and_grad(loss_fn)``);
+    with ``seq_axis_name`` this rank's chunk's loss and gradients."""
     return value_and_grad(
-        lambda p: loss_fn(p, batch, cfg, cos, sin, use_flash=use_flash, remat=remat), params)
+        lambda p: loss_fn(p, batch, cfg, cos, sin, use_flash=use_flash, remat=remat,
+                          seq_axis_name=seq_axis_name), params)
 
 
 def train_step(params, momentum, batch, cfg: ModelConfig, cos, sin, lr: float, *, use_flash=True,
@@ -246,8 +277,14 @@ def train_step(params, momentum, batch, cfg: ModelConfig, cos, sin, lr: float, *
     the params' own dtype, applied IN PLACE to ``params`` and ``momentum``
     (no copy of the model is made). Returns ``(params, momentum, loss)``."""
     loss, grads = loss_and_grads(params, batch, cfg, cos, sin, use_flash=use_flash, remat=remat)
+    sgd_update_(params, momentum, grads, lr)
+    return params, momentum, loss
+
+
+def sgd_update_(params, momentum, grads, lr: float) -> None:
+    """JAX's ``m = 0.9 m + g; p = p - lr m``, in place, in each parameter's
+    dtype."""
     with torch.no_grad():
         for p, m, g in zip(tree_leaves(params), tree_leaves(momentum), tree_leaves(grads)):
             m.mul_(MOMENTUM).add_(g)
             p.add_(m, alpha=-lr)
-    return params, momentum, loss

@@ -25,8 +25,11 @@ its launches, and run their plain versions on CPU tensors.
 :func:`flash_attention` is the training entry: a ``torch.autograd.Function``
 whose forward is ``flash_prefill(return_lse=True)`` and whose backward is
 ``flash_prefill_bwd``, both with the same options. ``kv_offset`` (ring
-context parallelism) raises ``NotImplementedError`` (ROADMAP item 16), as
-the variants with ``causal=False`` do.
+context parallelism) moves the sinks' boundary as in the forward (JAX
+``flash_bwd.py:93``, ``:168``): the kernels get ``max(sinks - kv_offset,
+0)``. A chunk wholly in a row's future, or a row whose LSE is 3e38, gives
+exact zeros. The variants with ``causal=False`` raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,8 +40,8 @@ from starflashattention_tpu_torch.core.reference import repeat_kv
 from starflashattention_tpu_torch.ops import _build
 from starflashattention_tpu_torch.ops.flash_decode import kernel_options
 from starflashattention_tpu_torch.ops.flash_prefill import (_defaults, attention_mask, check_card_inputs,
-                                                            check_unported, flash_prefill, prefill_options,
-                                                            scales, scores_log2)
+                                                            flash_prefill, prefill_options, scales,
+                                                            scores_log2)
 
 _ARGS = [_build.P] * 8
 _OPTIONS = [_build.F, _build.F, _build.I, _build.I, _build.F, _build.P]  # scales, window, sinks, cap, stream
@@ -72,20 +75,20 @@ def _p_ds_plain(q, k, v, lse, do, delta, lengths, q_offsets, causal, sm_scale, w
 
 
 def flash_bwd_dq_plain(q, k, v, lse, do, delta, lengths=None, q_offsets=None, *, causal=True,
-                       sm_scale=None, window=None, sinks=0, softcap=None):
+                       sm_scale=None, window=None, sinks=0, softcap=None, kv_offset=0):
     """Plain version of the dq kernel: ``sm_scale * ds @ k`` in fp32."""
-    _, ds = _p_ds_plain(q, k, v, lse, do, delta, lengths, q_offsets, causal, sm_scale, window, sinks,
-                        softcap)
+    opts = prefill_options(window, sinks, softcap, kv_offset, causal)
+    _, ds = _p_ds_plain(q, k, v, lse, do, delta, lengths, q_offsets, causal, sm_scale, **opts)
     kf = repeat_kv(k, q.shape[1] // k.shape[1]).float()
     return (scales(q.shape[-1], sm_scale)[0] * torch.einsum("bhqk,bhkd->bhqd", ds, kf)).to(q.dtype)
 
 
 def flash_bwd_dkdv_plain(q, k, v, lse, do, delta, lengths=None, q_offsets=None, *, causal=True,
-                         sm_scale=None, window=None, sinks=0, softcap=None):
+                         sm_scale=None, window=None, sinks=0, softcap=None, kv_offset=0):
     """Plain version of the dk/dv kernel: ``sm_scale * ds^T @ q`` and
     ``p^T @ do`` in fp32, summed over each KV head's group."""
-    p, ds = _p_ds_plain(q, k, v, lse, do, delta, lengths, q_offsets, causal, sm_scale, window, sinks,
-                        softcap)
+    opts = prefill_options(window, sinks, softcap, kv_offset, causal)
+    p, ds = _p_ds_plain(q, k, v, lse, do, delta, lengths, q_offsets, causal, sm_scale, **opts)
     hkv = k.shape[1]
     dk = scales(q.shape[-1], sm_scale)[0] * _group_sum(torch.einsum("bhqk,bhqd->bhkd", ds, q.float()), hkv)
     dv = _group_sum(torch.einsum("bhqk,bhqd->bhkd", p, do.float()), hkv)
@@ -93,12 +96,12 @@ def flash_bwd_dkdv_plain(q, k, v, lse, do, delta, lengths=None, q_offsets=None, 
 
 
 def flash_prefill_bwd_plain(q, k, v, o, lse, do, lengths=None, q_offsets=None, *, causal=True,
-                            sm_scale=None, window=None, sinks=0, softcap=None):
+                            sm_scale=None, window=None, sinks=0, softcap=None, kv_offset=0):
     """Plain PyTorch version of :func:`flash_prefill_bwd`: the same formulas
     in fp32 on explicit (B, Hq, Sq, Skv) tensors, each gradient in its
     input's dtype."""
     delta = bwd_delta(o, do)
-    kw = dict(causal=causal, sm_scale=sm_scale, **prefill_options(window, sinks, softcap, 0, causal))
+    kw = dict(causal=causal, sm_scale=sm_scale, **prefill_options(window, sinks, softcap, kv_offset, causal))
     dq = flash_bwd_dq_plain(q, k, v, lse, do, delta, lengths, q_offsets, **kw)
     return (dq, *flash_bwd_dkdv_plain(q, k, v, lse, do, delta, lengths, q_offsets, **kw))
 
@@ -131,12 +134,12 @@ def _launch(entry, ins, outs, causal, sm_scale, opts):
 
 
 def flash_bwd_dq(q, k, v, lse, do, delta, lengths=None, q_offsets=None, *, causal=True,
-                 sm_scale=None, window=None, sinks=0, softcap=None) -> torch.Tensor:
+                 sm_scale=None, window=None, sinks=0, softcap=None, kv_offset=0) -> torch.Tensor:
     """dq (B, Hq, Sq, D) in q's dtype: the dq kernel of ``csrc/flash_bwd.cu``
     on CUDA tensors (replaces ``_dq_kernel``), :func:`flash_bwd_dq_plain`
     on CPU tensors. ``delta`` is :func:`bwd_delta` of the forward's output;
     the options are the forward's."""
-    opts = prefill_options(window, sinks, softcap, 0, causal)
+    opts = prefill_options(window, sinks, softcap, kv_offset, causal)
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, lse, do, delta, lengths, q_offsets, causal=causal,
                                   sm_scale=sm_scale, **opts)
@@ -146,16 +149,18 @@ def flash_bwd_dq(q, k, v, lse, do, delta, lengths=None, q_offsets=None, *, causa
         return dq.zero_()
     _launch("flash_bwd_dq", ins, [dq], causal, sm_scale, opts)
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.launches_kv_offset += int(kv_offset) > 0
     flash_bwd_dq.launches_banded += opts["window"] is not None
     return dq
 
 
 def flash_bwd_dkdv(q, k, v, lse, do, delta, lengths=None, q_offsets=None, *, causal=True,
-                   sm_scale=None, window=None, sinks=0, softcap=None) -> tuple[torch.Tensor, torch.Tensor]:
+                   sm_scale=None, window=None, sinks=0, softcap=None,
+                   kv_offset=0) -> tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) (B, Hkv, Skv, D) in k's / v's dtype: the dk/dv kernel of
     ``csrc/flash_bwd.cu`` on CUDA tensors (replaces ``_dkdv_kernel``),
     :func:`flash_bwd_dkdv_plain` on CPU tensors."""
-    opts = prefill_options(window, sinks, softcap, 0, causal)
+    opts = prefill_options(window, sinks, softcap, kv_offset, causal)
     if q.device.type == "cpu":
         return flash_bwd_dkdv_plain(q, k, v, lse, do, delta, lengths, q_offsets, causal=causal,
                                     sm_scale=sm_scale, **opts)
@@ -165,6 +170,7 @@ def flash_bwd_dkdv(q, k, v, lse, do, delta, lengths=None, q_offsets=None, *, cau
         return dk.zero_(), dv.zero_()
     _launch("flash_bwd_dkdv", ins, [dk, dv], causal, sm_scale, opts)
     flash_bwd_dkdv.launches += 1
+    flash_bwd_dkdv.launches_kv_offset += int(kv_offset) > 0
     flash_bwd_dkdv.launches_banded += opts["window"] is not None
     return dk, dv
 
@@ -173,6 +179,8 @@ flash_bwd_dq.launches = 0
 flash_bwd_dkdv.launches = 0
 flash_bwd_dq.launches_banded = 0  # the launches with a window (a sliding layer's)
 flash_bwd_dkdv.launches_banded = 0
+flash_bwd_dq.launches_kv_offset = 0  # the launches on a chunk past position 0 (ring context parallelism)
+flash_bwd_dkdv.launches_kv_offset = 0
 
 
 def flash_prefill_bwd(
@@ -195,10 +203,10 @@ def flash_prefill_bwd(
     """(dq, dk, dv) of the flash prefill attention, in q's / k's / v's
     dtype: ``delta`` as a torch reduction, then the dq and the dk/dv kernels
     (their plain versions on CPU tensors), with the forward's ``window``,
-    ``sinks`` and ``softcap``."""
-    check_unported(kv_offset)
+    ``sinks``, ``softcap`` and ``kv_offset``."""
     delta = bwd_delta(o, do)
-    kw = dict(causal=causal, sm_scale=sm_scale, window=window, sinks=sinks, softcap=softcap)
+    kw = dict(causal=causal, sm_scale=sm_scale, window=window, sinks=sinks, softcap=softcap,
+              kv_offset=kv_offset)
     dq = flash_bwd_dq(q, k, v, lse, do, delta, lengths, q_offsets, **kw)
     return (dq, *flash_bwd_dkdv(q, k, v, lse, do, delta, lengths, q_offsets, **kw))
 

@@ -19,7 +19,14 @@ p attends ``j > p - window``), ``sinks`` (``j < sinks`` stays attendable,
 with a window) and a ``softcap`` (``cap * tanh(s / cap)`` on the
 natural-unit scaled score, before the base-2 conversion; the LSE is then
 that of the capped scores). With ``causal=False`` they raise
-``NotImplementedError``, as ``kv_offset`` (ring context parallelism) does.
+``NotImplementedError``. ``kv_offset`` (ring context parallelism, JAX
+``flash_prefill.py:118``) is the global position of ``k[:, :, 0]``: it moves
+only the sinks' boundary, ``j < sinks - kv_offset`` with ``j`` local to the
+chunk (the causal diagonal moves through ``q_offsets``), so the kernel is
+passed ``max(sinks - kv_offset, 0)`` as its sink bound (:func:`prefill_options`)
+and needs no form of its own. A chunk wholly in a query row's future (a
+negative ``q_offsets``) or past its length gives that row 0 and the LSE
+3e38.
 head_dim is 64, 128 or 256 with at most 8 query heads a KV head, and on the
 card also 640 (MLA's latent row: DeepSeek-V2's 16 query heads on one
 latent KV head) in its one form, causal, without the LSE or the variants,
@@ -46,21 +53,20 @@ _SIGNATURES = {
 }
 
 
-def check_unported(kv_offset) -> None:
-    """``kv_offset`` (ring context parallelism) is not ported."""
-    if kv_offset:
-        raise NotImplementedError("attention with kv_offset (ring context parallelism) is not ported "
-                                  "yet (ROADMAP Queue 1 item 16, Queue 2 K5 and K12 options)")
-
-
 def prefill_options(window, sinks, softcap, kv_offset, causal) -> dict:
-    """The checked variants of a prefill call (see the module doc)."""
-    check_unported(kv_offset)
+    """The checked variants of a prefill call (see the module doc), with the
+    sinks' bound moved into a chunk that starts at global position
+    ``kv_offset``: ``max(sinks - kv_offset, 0)``."""
+    kv_offset = int(kv_offset)
+    if kv_offset < 0:
+        raise ValueError(f"kv_offset must be >= 0, got {kv_offset}")
     if not causal and (window is not None or sinks or softcap is not None):
         raise NotImplementedError(
             "window / sinks / softcap with causal=False are not ported yet (ROADMAP Queue 2, K5 "
             "and K12 options)")
-    return variant_options(window, sinks, softcap)
+    opts = variant_options(window, sinks, softcap)
+    opts["sinks"] = max(opts["sinks"] - kv_offset, 0)
+    return opts
 
 
 def scales(d: int, sm_scale: float | None) -> tuple[float, float]:
@@ -120,10 +126,10 @@ def prefill_lse_plain(q, k, lengths, q_offsets, *, causal, sm_scale, window=None
 
 
 def flash_prefill_plain(q, k, v, lengths=None, *, causal=True, q_offsets=None, sm_scale=None,
-                        return_lse=False, window=None, sinks=0, softcap=None):
+                        return_lse=False, window=None, sinks=0, softcap=None, kv_offset=0):
     """Plain PyTorch version: full-softmax attention at fp32 (and its LSE),
-    with the variants."""
-    opts = prefill_options(window, sinks, softcap, 0, causal)
+    with the variants and ``kv_offset``."""
+    opts = prefill_options(window, sinks, softcap, kv_offset, causal)
     lengths, q_offsets = _defaults(q, k, lengths, q_offsets)
     out = mha_reference(q, k, v, lengths=lengths, causal=causal, q_offset=q_offsets,
                         sm_scale=sm_scale, sliding_window=opts["window"],
@@ -178,7 +184,7 @@ def flash_prefill(
 ):
     """Blockwise prefill attention -> (B, Hq, Sq, D) in q's dtype, and with
     ``return_lse`` also the base-2 LSE (B, Hq, Sq) fp32; ``window``,
-    ``sinks`` and ``softcap`` as in the module doc."""
+    ``sinks``, ``softcap`` and ``kv_offset`` as in the module doc."""
     opts = prefill_options(window, sinks, softcap, kv_offset, causal)
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, lengths, causal=causal, q_offsets=q_offsets,
@@ -203,6 +209,7 @@ def flash_prefill(
         )
     _build.check(lib, err, "flash_prefill")
     flash_prefill.launches += 1
+    flash_prefill.launches_kv_offset += int(kv_offset) > 0
     if not return_lse:
         return out
     flash_prefill.launches_lse += 1
@@ -213,3 +220,4 @@ def flash_prefill(
 flash_prefill.launches = 0
 flash_prefill.launches_lse = 0  # the launches with return_lse (the training forward)
 flash_prefill.launches_lse_banded = 0  # those of them with a window
+flash_prefill.launches_kv_offset = 0  # the launches on a chunk past position 0 (ring context parallelism)

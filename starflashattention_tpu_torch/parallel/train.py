@@ -1,0 +1,159 @@
+"""Sharded training — twin of the JAX ``parallel/train.py``: the
+context-parallel (× data-parallel) step.
+
+:func:`make_cp_train_step` shards each sequence over the ``seq`` axis (and,
+optionally, the batch rows over a ``data`` axis): each rank runs
+``models.train.loss_tokens`` on its chunk with ``seq_axis_name``, whose
+attention is the ring (``parallel/ring.py``: K5 with ``kv_offset`` forward,
+K12 backward), so that no rank holds a whole sequence's activations. The
+parameters and the optimizer state stay replicated: CP shards activations,
+not weights. The loss and the gradients are averaged over every activation
+axis in the gradients' own dtype, as JAX's per-leaf ``pmean`` (a sum
+all-reduce of one flat buffer a dtype and axis, divided by its size; equal
+chunks make that the global mean), and every rank then applies
+the same update in place. The optimizer is the port's SGD with momentum 0.9
+(``models.train.sgd_update_``, as ``models.train.train_step``) where JAX
+takes an optax optimizer; :func:`init_opt_state` gives its zero momentum.
+
+The tensor-parallel builders (:func:`make_tp_dp_value_and_grad`,
+:func:`make_tp_dp_train_step`, :func:`make_tp_cp_train_step`) need
+``parallel/tp.py`` and raise ``NotImplementedError`` (ROADMAP Queue 1 item
+16, the tensor-parallel half).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from starflashattention_tpu_torch.models.train import (loss_tokens, sgd_update_, tree_leaves, tree_map,
+                                                       tree_unflatten, value_and_grad)
+from starflashattention_tpu_torch.parallel import comm
+from starflashattention_tpu_torch.runtime.params import ModelConfig
+
+SEQ = "seq"
+TP_SLICE = ("tensor-parallel training needs parallel/tp.py, which is not ported yet (ROADMAP Queue 1 "
+            "item 16, the tensor-parallel half)")
+
+
+def make_tp_dp_value_and_grad(mesh, cfg: ModelConfig, **kwargs):
+    raise NotImplementedError(TP_SLICE)
+
+
+def make_tp_dp_train_step(mesh, cfg: ModelConfig, optimizer=None, **kwargs):
+    raise NotImplementedError(TP_SLICE)
+
+
+def make_tp_cp_train_step(mesh, cfg: ModelConfig, optimizer=None, **kwargs):
+    raise NotImplementedError(TP_SLICE)
+
+
+def init_opt_state(params):
+    """The SGD-with-momentum state: zeros shaped and typed like ``params``
+    (``models.train.train_step``'s momentum)."""
+    return tree_map(torch.zeros_like, params)
+
+
+def _accumulate(value_and_grad_fn, accum_steps: int):
+    """Microbatch gradient accumulation: split the batch's LEADING axis
+    into ``accum_steps`` equal microbatches, run the gradient on each, and
+    average in fp32 — the full batch's math (a mean of equal microbatch
+    means is the batch mean), with the activations of one microbatch alive
+    at a time."""
+
+    def fn(params, *batch_args):
+        if batch_args[0].shape[0] % accum_steps:
+            raise ValueError(f"grad_accum {accum_steps} does not divide the local batch of "
+                             f"{batch_args[0].shape[0]} rows")
+        loss_acc, grads_acc = None, None
+        for mb in zip(*(a.chunk(accum_steps, dim=0) for a in batch_args)):
+            loss, grads = value_and_grad_fn(params, *mb)
+            leaves = [g.float() for g in tree_leaves(grads)]
+            if grads_acc is None:
+                loss_acc, grads_acc = loss.float(), leaves
+            else:
+                loss_acc = loss_acc + loss.float()
+                for acc, g in zip(grads_acc, leaves):
+                    acc.add_(g)
+        inv = 1.0 / accum_steps
+        return loss_acc * inv, tree_unflatten(params, [g * inv for g in grads_acc])
+
+    return fn
+
+
+def _mean_over(loss, grads, axis):
+    """The loss and the gradients averaged over ``axis``, each gradient in
+    its own dtype as JAX's per-leaf ``pmean`` (bf16 for bf16 params, fp32
+    after ``_accumulate``): one sum all-reduce of a flat buffer a dtype,
+    divided by the axis size."""
+    leaves = tree_leaves(grads)
+    out = [None] * len(leaves)
+    for dtype in dict.fromkeys(g.dtype for g in leaves):
+        idx = [i for i, g in enumerate(leaves) if g.dtype == dtype]
+        flat = comm.all_reduce(torch.cat([leaves[i].reshape(-1) for i in idx]), axis) / axis.size
+        for i, part in zip(idx, flat.split([leaves[i].numel() for i in idx])):
+            out[i] = part.view(leaves[i].shape)
+    loss = comm.all_reduce(loss.float().reshape(1), axis)[0] / axis.size
+    return loss, tree_unflatten(grads, out)
+
+
+def _local_rows(batch, axis, dim):
+    """This rank's equal share of ``batch`` along ``dim`` over ``axis``."""
+    if axis is None:
+        return batch
+    n = batch.shape[dim]
+    if n % axis.size:
+        raise ValueError(f"{axis.name} axis of {axis.size} ranks does not divide dimension {dim} of "
+                         f"{tuple(batch.shape)}")
+    return batch.narrow(dim, axis.index * (n // axis.size), n // axis.size)
+
+
+def make_cp_train_step(
+    mesh,
+    cfg: ModelConfig,
+    lr: float,
+    *,
+    seq_axis: str = SEQ,
+    data_axis: str | None = None,
+    remat: bool = True,
+    grad_accum: int = 1,
+):
+    """Context-parallel (× optional data-parallel) training step:
+    ``step(params, opt_state, batch, cos, sin) -> (params, opt_state,
+    loss)``, one SGD-with-momentum step at learning rate ``lr`` (where JAX
+    takes an optax optimizer).
+
+    ``batch`` is the GLOBAL (B, S+1) int token batch, the same on every
+    rank: the inputs and targets are cut from it BEFORE sharding (a chunk's
+    last target is the next chunk's first input), then rank (d, i) takes
+    rows ``[d B/n_data, (d+1) B/n_data)`` and positions ``[i C, (i+1) C)``
+    with ``C = S / n_seq``. ``params`` and ``opt_state`` (from
+    :func:`init_opt_state`) are replicated and updated IN PLACE, identically
+    on every rank. ``grad_accum`` microbatches the rank's local rows (the
+    sequence stays whole, so the ring sees full chunks). ``loss`` is the
+    global batch mean, the same on every rank.
+    """
+    seq = mesh.axis(seq_axis)
+    data = None if data_axis is None else mesh.axis(data_axis)
+    axes = [a for a in (data, seq) if a is not None]
+
+    def vg(params, inp, tgt, cos, sin):
+        return value_and_grad(
+            lambda p: loss_tokens(p, inp, tgt, cfg, cos, sin, use_flash=True, remat=remat,
+                                  seq_axis_name=seq), params)
+
+    def step(params, opt_state, batch, cos, sin):
+        batch = torch.as_tensor(batch, device=mesh.device)
+        inp, tgt = batch[:, :-1], batch[:, 1:]
+        inp, tgt = (_local_rows(_local_rows(x, data, 0), seq, 1) for x in (inp, tgt))
+        if grad_accum > 1:
+            loss, grads = _accumulate(lambda p, i, t: vg(p, i, t, cos, sin), grad_accum)(params, inp, tgt)
+        else:
+            loss, grads = vg(params, inp, tgt, cos, sin)
+        # equal chunks: the global mean is the mean of the chunk means;
+        # replicated params need it over every activation-sharding axis
+        for axis in axes:
+            loss, grads = _mean_over(loss, grads, axis)
+        sgd_update_(params, opt_state, grads, lr)
+        return params, opt_state, loss
+
+    return step

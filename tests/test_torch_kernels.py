@@ -35,7 +35,10 @@ gradients, and training steps of narrow Gemma-2, Mistral with sinks and
 Gemma models. MLA's latent row (D 640, 16 query heads on one KV head): K1,
 K7 and K5 against their twins, the forms they refuse, and a narrow
 DeepSeek-style model (MLA, int4 experts) through ``generate`` and both
-engines. Each tolerance is stated at its test.
+engines. Ring context parallelism's ``kv_offset``: K5 with the LSE and K12
+on a chunk whose sinks' boundary the offset moves, with a KV chunk in the
+rows' future and a sequence of length 0 beside it. Each tolerance is
+stated at its test.
 """
 
 import pytest
@@ -1129,3 +1132,31 @@ def test_deepseek_style_model_runs_on_the_kernels(cuda):
         assert all(len(g) == 4 and all(0 <= t < cfg.vocab_size for t in g) for g in got)
     assert paged_decode.paged_flash_decode.launches > before[3]
     assert toks.shape == (3, 4)
+
+
+@pytest.mark.parametrize("kv_offset", [0, 64, 128])
+def test_kv_offset_kernels_match_plain(cuda, kv_offset):
+    """K5 with the LSE and K12 with ``kv_offset`` (window 96, 80 sinks: the
+    chunk at 64 keeps 16 sinks, the one at 128 none) against their plain
+    versions: the output and the gradients within 2e-2 of each peak (P and
+    dS rounded to bf16 in the kernels), the LSE within 1e-4. Sequence 1's
+    KV chunk lies wholly in its rows' future (q_offsets -64) and sequence 2
+    has length 0: both give 0, the LSE 3e38 and zero gradients, exactly."""
+    gen = _gen(cuda)
+    q, do = (torch.randn((3, 8, 64, 64), generator=gen, device=cuda, dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((3, 2, 64, 64), generator=gen, device=cuda, dtype=torch.bfloat16) for _ in range(2))
+    lengths = torch.tensor([64, 64, 0], dtype=torch.int32, device=cuda)
+    q_off = torch.tensor([64, -64, 64], dtype=torch.int32, device=cuda)
+    kw = dict(q_offsets=q_off, window=96, sinks=80, kv_offset=kv_offset)
+    o, lse = flash_prefill.flash_prefill(q, k, v, lengths, return_lse=True, **kw)
+    o_ref, lse_ref = flash_prefill.flash_prefill_plain(q, k, v, lengths, return_lse=True, **kw)
+    assert _rel_peak(o, o_ref) <= 2e-2
+    assert _max_err(lse[0], lse_ref[0]) <= 1e-4
+    assert bool((o[1:] == 0).all()) and bool((lse[1:] == 3e38).all())
+    got = flash_bwd.flash_prefill_bwd(q, k, v, o, lse, do, lengths, q_off, window=96, sinks=80,
+                                      kv_offset=kv_offset)
+    ref = flash_bwd.flash_prefill_bwd_plain(q, k, v, o, lse, do, lengths, q_off, window=96, sinks=80,
+                                            kv_offset=kv_offset)
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert _rel_peak(a, b) <= 2e-2, (name, _rel_peak(a, b))
+        assert bool((a[1:] == 0).all()), name

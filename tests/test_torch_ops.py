@@ -238,16 +238,17 @@ def test_flash_prefill_matches_jax(rng):
 @pytest.mark.parametrize("kwargs", [dict(window=8, return_lse=True),
                                     dict(sinks=2, window=8, return_lse=True),
                                     dict(softcap=30.0, return_lse=True),
-                                    dict(sinks=2, return_lse=True), dict(kv_offset=4),
+                                    dict(sinks=2, return_lse=True),
+                                    dict(sinks=6, window=8, kv_offset=4, return_lse=True),
                                     dict(window=8, causal=False)])
 def test_flash_prefill_unported_options_raise(rng, kwargs):
     """The variants with the LSE (the training forward) give JAX's output
-    and LSE; sinks without a window raise ``ValueError``, as they do
-    without the LSE; ``kv_offset`` and the variants with ``causal=False``
-    are not ported."""
+    and LSE, with ``kv_offset`` too (the sinks' boundary moved into the
+    chunk); sinks without a window raise ``ValueError``, as they do
+    without the LSE; the variants with ``causal=False`` are not ported."""
     q, k, v, q_off, lengths = _prefill_inputs(rng)
     args = (_t(q), _t(k), _t(v), _t(lengths))
-    if kwargs.get("kv_offset") or kwargs.get("causal") is False:
+    if kwargs.get("causal") is False:
         with pytest.raises(NotImplementedError):
             t_fp.flash_prefill(*args, q_offsets=_t(q_off), **kwargs)
         return

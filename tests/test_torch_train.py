@@ -408,7 +408,9 @@ def test_training_refuses_unported_paths():
     params, tokens = _port_params(), _t(batch[:, :-1])
     with pytest.raises(NotImplementedError, match="item 16"):
         t_train.forward_train(params, tokens, tc, cos, sin, axis_name="model")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError, match="context-parallel training requires the flash path"):
+        t_train.forward_train(params, tokens, tc, cos, sin, use_flash=False, seq_axis_name=object())
+    with pytest.raises(TypeError, match="parallel.mesh.Axis"):
         t_train.forward_train(params, tokens, tc, cos, sin, seq_axis_name="seq")
     moe = t_params.ModelConfig.tiny(dtype="float32", num_experts=4, num_experts_per_tok=2)
     with pytest.raises(NotImplementedError, match="item 14"):
@@ -446,11 +448,19 @@ def test_flash_attention_refuses_unported_options(rng, kwargs):
 
 
 def test_flash_attention_refuses_kv_offset(rng):
-    """``kv_offset`` (ring context parallelism) and the variants with
-    ``causal=False`` are not ported."""
+    """``kv_offset`` (ring context parallelism) is ported: with a window and
+    sinks the backward's gradients equal JAX's on a chunk whose sinks'
+    boundary it moves; the variants with ``causal=False`` are not ported."""
     q, k, v, do, lengths, _, _, _ = _bwd_inputs(rng, "gqa")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        t_fb.flash_prefill_bwd(_t(q), _t(k), _t(v), _t(q), _t(q[..., 0]), _t(do), kv_offset=4)
+    kw = dict(causal=True, window=8, sinks=6, kv_offset=4)
+    jo, jlse = j_flash_prefill(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lengths),
+                               block_q=8, block_k=128, return_lse=True, **kw)
+    q_off = jnp.zeros((q.shape[0],), jnp.int32)
+    want = j_flash_prefill_bwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jo, jlse, jnp.asarray(do),
+                               jnp.asarray(lengths), q_off, block_q=8, block_k=128, **kw)
+    got = t_fb.flash_prefill_bwd(_t(q), _t(k), _t(v), _t(jo), _t(jlse), _t(do), _t(lengths), **kw)
+    for name, g, wnt in zip(("dq", "dk", "dv"), got, want):
+        assert _rel_err(g.numpy(), wnt) < BWD_RTOL, (name, _rel_err(g.numpy(), wnt))
     with pytest.raises(NotImplementedError, match="Queue 2"):
         t_fb.flash_attention(_t(q), _t(k), _t(v), _t(lengths), causal=False, window=8)
 
