@@ -82,7 +82,14 @@ Phases (any failure raises and the script exits non-zero):
    within 1e-4, each row of dq, dk and dv within 2e-2 of its own scale),
    and the kernels given the raw sinks (``kv_offset`` 0) shown to lie far
    from them (the first keys of every chunk made heavy); the library call
-   is a compiled ``flex_attention`` with the offset sink mask.
+   is a compiled ``flex_attention`` with the offset sink mask. K13
+   (``fused_mlp``) at 7B-GQA's MLP (H 4096, I 11008, an (L 32, ...) stack,
+   layer 16) and a TP-4 shard's (I 2752): B 1, 16 and 64, int8 and fp8
+   weights, fp32 and bf16 x, each within 2e-5 (fp32 x) or 4e-3 (bf16 x: the
+   activation's bf16 rounding) of each row's peak of ``fused_mlp_plain``,
+   timed beside two K4 calls with ``silu * up`` between them and bf16
+   ``torch.matmul`` on dequantized weights, against the 3 H I weight bytes;
+   then K13's own path (the 32 MLPs of a B=16 decode step), counted.
 3. Slice: full-width ``ModelConfig.llama_7b_gqa`` (32 layers,
    max_seq_len 1024, random int8 weights and int8 lm_head from a seeded
    generator, bf16 KV cache): greedy ``generate`` on 8 ragged prompts for
@@ -266,6 +273,24 @@ Phases (any failure raises and the script exits non-zero):
    step. Its wall times include the host copies of gloo and are no guide to
    NCCL, which the same code uses across cards without them (not run here:
    the machine has one card).
+14. Tensor, expert and pipeline parallelism: a world of 4 processes on
+   this one card over gloo, as phase 13. (a) ``ModelConfig.llama_7b_gqa``
+   at full width and depth (int8 weights + int8 lm_head, bf16 KV, one
+   split), TP 4 (``parallel.tp``): prefill and 31 decode steps of phase
+   3's prompts, every rank's streams equal bit for bit and teacher-forced
+   on one process (rank 0); 4 layers against one process (phase 4's 5%);
+   W8A8 and W4A8 (int4 with 64-row groups) prefills at 4 layers: layer
+   0's ``wo`` row scales bit for bit one process's, ``w_down``'s those of
+   the full rows gathered from the shards. (d) PP 4 and PP 2 x TP 2
+   decode steps against one process. (b) ``Engine``, ``Engine(spec_decode
+   =4)`` and ``PagedEngine`` on the (data 2, model 2) mesh, 12 requests
+   with chunked prefill: every request finishes, streams equal one
+   process's engines or pass the tie check. (c) ``mixtral_8x7b`` cut to 2
+   layers, int8 experts, 2 experts a rank: tie-checked. (e) TP x DP (B=2,
+   S=2048) and TP x CP (S=8192) training of 7B-GQA widths cut to 2 layers:
+   the first step's loss and every rank's gradients within 5e-2 of one
+   process's, 3 steps lower the loss. Launch counts checked on every rank;
+   step times, peak memory and bytes through the host printed.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device,
@@ -779,10 +804,124 @@ def phase_kernels(dev, timer):
     res.update(_train_kernels(dev, timer, gen))
     res.update(_train_variant_kernels(dev, timer, gen))
     res.update(_ring_kernels(dev, timer, gen))
+    res.update(_fused_mlp_kernels(dev, timer, gen))
     for name, r in res.items():
         log(f"[time] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
             f"{'none' if r['library_ms'] is None else format(r['library_ms'], '.4f') + ' ms'}, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']:.3e}")
+    return res
+
+
+# ---------------------------------------------------------------- K13 (phase 2)
+
+FUSED_MLP_ENTRY = "fused_mlp (B=16, int8, bf16 x)"  # the K13 row of the kernels line
+FUSED_MLP_LAYERS, FUSED_MLP_LAYER = 32, 16  # 7B-GQA's stack, a middle layer
+FUSED_MLP_HIDDEN, FUSED_MLP_INTERS = 4096, (11008, 2752)  # 7B-GQA's MLP and a TP-4 shard's
+FUSED_MLP_TOL = {torch.float32: 2e-5, torch.bfloat16: 4e-3}  # of each row's peak (see _fused_mlp_kernels)
+
+
+def _fused_mlp_stacks(dev, gen, h, inter, mode):
+    """(w1, s1, w2, s2) stacks of FUSED_MLP_LAYERS layers: random 8-bit
+    bytes with per-channel scales of a unit-variance weight, the checked
+    layer quantized from a seeded normal weight (fp8 random bytes would
+    hold NaN codes)."""
+    from starflashattention_tpu_torch.core.quant import quantize_weight
+
+    out = []
+    for rows, cols in ((h, 2 * inter), (inter, h)):
+        q = quantize_weight(torch.randn((rows, cols), generator=gen, device=dev), mode)
+        w = torch.empty((FUSED_MLP_LAYERS, rows, cols), dtype=q["w"].dtype, device=dev)
+        if mode == "int8":
+            w.copy_(torch.randint(-127, 128, w.shape, generator=gen, device=dev, dtype=torch.int8))
+        else:
+            for i in range(FUSED_MLP_LAYERS):
+                w[i] = q["w"]
+        w[FUSED_MLP_LAYER] = q["w"]
+        s = q["scale"][None].repeat(FUSED_MLP_LAYERS, 1).contiguous()
+        out += [w, s]
+    return out
+
+
+def _fused_mlp_kernels(dev, timer, gen):
+    """K13 at 7B-GQA's MLP (H 4096, I 11008, an (L 32, ...) stack, layer
+    16) and at a TP-4 shard's (I 2752): B 1, 16 and 64, int8 and fp8 e4m3
+    weights, fp32 and bf16 x, each against ``fused_mlp_plain``. fp32 x: the
+    same exact products summed in another order, 2e-5 of the row's peak;
+    bf16 x: ``act`` is rounded to bf16 between the matmuls and an fp32 sum
+    in another order can round it to the other side of a tie, 4e-3 of the
+    peak (the reading is printed). Timed (CUDA events, L2 flushed, median
+    of 20) beside two K4 calls with torch's ``silu * up`` between them (the
+    serving MLP's route) and bf16 ``torch.matmul`` on dequantized weights
+    (two calls and the elementwise: no single PyTorch call computes an MLP,
+    so the row's library time is null), against the bound of its bytes
+    (3 H I weight bytes, 135.3 MB at 7B). Then K13's own path: the 32
+    layers' MLPs of a B=16 decode step through ``fused_mlp`` with the
+    counters zeroed before and read after. Returns the kernels line's row
+    with the path's launches."""
+    import torch.nn.functional as F
+
+    from starflashattention_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
+    from starflashattention_tpu_torch.ops.quant_matmul import quant_matmul
+
+    h, bf16 = FUSED_MLP_HIDDEN, torch.bfloat16
+    res = {}
+    for inter in FUSED_MLP_INTERS:
+        for mode in ("int8", "fp8"):
+            w1, s1, w2, s2 = _fused_mlp_stacks(dev, gen, h, inter, mode)
+            deq1 = (w1[FUSED_MLP_LAYER].float() * s1[FUSED_MLP_LAYER]).to(bf16)
+            deq2 = (w2[FUSED_MLP_LAYER].float() * s2[FUSED_MLP_LAYER]).to(bf16)
+            for b in (1, 16, 64):
+                for x_dtype in (torch.float32, bf16):
+                    x = torch.randn((b, h), generator=gen, device=dev).to(x_dtype)
+                    kw = dict(layer=FUSED_MLP_LAYER)
+                    out = fused_mlp(x, w1, s1, w2, s2, **kw)
+                    ref = fused_mlp_plain(x, w1, s1, w2, s2, **kw)
+                    torch.cuda.synchronize()
+                    err = ((out - ref).abs().amax(dim=-1) / ref.abs().amax(dim=-1).clamp(min=1e-30)).max().item()
+                    tag = f"fused_mlp {mode} I={inter} B={b} x={str(x_dtype)[6:]}"
+                    _check(f"{tag} (error over each row's peak)", err, FUSED_MLP_TOL[x_dtype])
+                    if x_dtype != bf16 or mode != "int8" and b != 16:
+                        continue
+                    n_bytes = 3 * h * inter + (2 * inter + h) * 4 + b * h * (2 + 4)
+                    bnd, by = bound_ms(n_bytes, 6 * b * h * inter)
+
+                    def two_k4():
+                        gu = quant_matmul(x, w1, s1, layer=FUSED_MLP_LAYER, out_dtype=bf16)
+                        act = (F.silu(gu[:, :inter]) * gu[:, inter:]).to(bf16)
+                        return quant_matmul(act, w2, s2, layer=FUSED_MLP_LAYER)
+
+                    def dense_bf16():
+                        gu = torch.matmul(x, deq1)
+                        return torch.matmul((F.silu(gu[:, :inter]) * gu[:, inter:]).to(bf16), deq2)
+
+                    r = dict(max_abs_err=(out - ref).abs().max().item(), ms=timer(lambda: fused_mlp(x, w1, s1, w2, s2, **kw)),
+                             plain_ms=timer(lambda: fused_mlp_plain(x, w1, s1, w2, s2, **kw), iters=5),
+                             two_k4_ms=timer(two_k4), dense_bf16_ms=timer(dense_bf16), bound_ms=bnd, bound_by=by,
+                             library_ms=None)
+                    log(f"[time] {tag}: K13 {r['ms']:.4f} ms, two K4 + silu*up {r['two_k4_ms']:.4f} ms, bf16 "
+                        f"torch.matmul on dequantized weights {r['dense_bf16_ms']:.4f} ms, plain "
+                        f"{r['plain_ms']:.4f} ms, bound {bnd:.4f} ms ({by}, {n_bytes / 1e6:.1f} MB), error over "
+                        f"the peak {err:.3e}")
+                    if inter == FUSED_MLP_INTERS[0] and mode == "int8" and b == 16:
+                        res[FUSED_MLP_ENTRY] = r
+            del w1, s1, w2, s2, deq1, deq2
+            torch.cuda.empty_cache()
+    # K13's own path: a decode step's 32 MLPs (B=16, int8, bf16 x)
+    w1, s1, w2, s2 = _fused_mlp_stacks(dev, gen, h, FUSED_MLP_INTERS[0], "int8")
+    x = torch.randn((16, h), generator=gen, device=dev).to(bf16)
+    torch.cuda.synchronize()
+    reset_counts()
+    outs = [fused_mlp(x, w1, s1, w2, s2, layer=layer) for layer in range(FUSED_MLP_LAYERS)]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = zero_counts(fused_mlp=FUSED_MLP_LAYERS)
+    if counts != want or not all(bool(torch.isfinite(o).all()) for o in outs):
+        raise AssertionError(f"fused_mlp path: launch counts {counts} != {want}, or a non-finite output")
+    log(f"[kernel] fused_mlp path: the {FUSED_MLP_LAYERS} MLPs of a B=16 decode step, one launch each "
+        f"({counts['fused_mlp']} launches)")
+    res[FUSED_MLP_ENTRY]["path_launches"] = counts["fused_mlp"]
+    del w1, s1, w2, s2, outs
+    torch.cuda.empty_cache()
     return res
 
 
@@ -2153,6 +2292,7 @@ def _counters():
     from starflashattention_tpu_torch.ops.flash_bwd import flash_bwd_dkdv, flash_bwd_dq
     from starflashattention_tpu_torch.ops.flash_decode import flash_decode, flash_verify
     from starflashattention_tpu_torch.ops.flash_prefill import flash_prefill
+    from starflashattention_tpu_torch.ops.fused_mlp import fused_mlp
     from starflashattention_tpu_torch.ops.paged_decode import paged_flash_decode
 
     return {"append_rows_kv": append_rows_kv, "flash_decode": flash_decode,
@@ -2161,7 +2301,7 @@ def _counters():
             "quant_matmul_int4": qmm.quant_matmul_int4, "quant_matmul_w8a8": qmm.quant_matmul_w8a8,
             "quant_matmul_w4a8": qmm.quant_matmul_w4a8, "flash_verify": flash_verify,
             "append_block_kv": append_block_kv, "flash_bwd_dq": flash_bwd_dq,
-            "flash_bwd_dkdv": flash_bwd_dkdv}
+            "flash_bwd_dkdv": flash_bwd_dkdv, "fused_mlp": fused_mlp}
 
 
 # entries that also count a subset of their launches: (entry, attribute, count name)
@@ -3739,12 +3879,12 @@ def _free_port():
 
 
 class _Rank:
-    """What one rank of phase 13 checks and records: each check raises on
+    """What one rank of phase 13 or 14 checks and records: each check raises on
     this rank (which fails the world), rank 0 logs, and every number goes
     to the rank's record for the parent's summary."""
 
-    def __init__(self, rank):
-        self.rank, self.rec = rank, {}
+    def __init__(self, rank, tag="seq-parallel"):
+        self.rank, self.rec, self.tag = rank, {}, tag
 
     def log(self, *args):
         if self.rank == 0:
@@ -3752,7 +3892,7 @@ class _Rank:
 
     def check(self, name, err, tol, what="max abs error over the peak"):
         self.rec.setdefault("checks", {})[name] = (err, tol)
-        self.log(f"[seq-parallel] {name}: {what} {err:.3e} (tolerance {tol:.3e}) {'ok' if err <= tol else 'FAIL'}")
+        self.log(f"[{self.tag}] {name}: {what} {err:.3e} (tolerance {tol:.3e}) {'ok' if err <= tol else 'FAIL'}")
         if not err <= tol:
             raise AssertionError(f"rank {self.rank}: {name}: {err} > {tol}")
 
@@ -4152,6 +4292,500 @@ def phase_seq_parallel(smi):
     return dict(records=recs, totals=totals, seconds=secs)
 
 
+# ---------------------------------------------------------------- phase 14
+
+TP_WORLD = 4  # phase 14's ranks, all on this one card
+TP_CHECK_LAYERS = 4  # (a)'s path-vs-path checks
+TP_SERVE = dict(requests=12, slots=4, steps=8, chunk=256, new_tokens=32)
+EP_NEW_TOKENS = 16
+PP_DECODE_STEPS = 4
+TP_TRAIN = dict(layers=2, batch=2, seq=2048, cp_seq=8192, steps=3)
+TP_MESHES = {"tp4": {"model": 4}, "dp2_tp2": {"data": 2, "model": 2}, "pp4": {"pipe": 4},
+             "pp2_tp2": {"pipe": 2, "model": 2}, "tp2_sp2": {"model": 2, "seq": 2}}
+
+
+def _first_layers(params, k):
+    """The model cut to its first k layers (views of the stacks)."""
+    def cut(w):
+        return {key: t[:k] for key, t in w.items()} if isinstance(w, dict) else w[:k]
+
+    return dict(params, layers={name: cut(w) for name, w in params["layers"].items()})
+
+
+def _list_prompts(prompts, lengths):
+    return [prompts[i, :int(n)].tolist() for i, n in enumerate(lengths.tolist())]
+
+
+class _RowScales:
+    """Records what ``quantize_rows`` returns inside the W8A8 / W4A8
+    matmuls (the inputs and row scales of each call, with its axis), by
+    standing in for it in ``ops.quant_matmul`` while in use."""
+
+    def __enter__(self):
+        from starflashattention_tpu_torch.ops import quant_matmul as qmm
+
+        self.qmm, self.orig, self.calls = qmm, qmm.quantize_rows, []
+
+        def record(x, eps=1e-6, axis=None):
+            x8, rs = self.orig(x, eps, axis=axis)
+            self.calls.append((axis is not None, x.detach().clone(), rs.clone()))
+            return x8, rs
+
+        qmm.quantize_rows = record
+        return self
+
+    def __exit__(self, *exc):
+        self.qmm.quantize_rows = self.orig
+
+
+def _tp_generate(r, name, mesh, cfg, params_local, cache, prompts, lengths, steps, want):
+    """TP prefill + ``steps`` greedy decode steps, counters zeroed before
+    and checked after: (streams (B, steps + 1), ms of the prefill, ms a
+    decode step, host bytes a decode step)."""
+    from starflashattention_tpu_torch.models import llama
+    from starflashattention_tpu_torch.parallel import comm, make_tp_decode_step, make_tp_prefill
+
+    cos, sin = llama.rope_tables(cfg, device=mesh.device)
+    pre, step = make_tp_prefill(mesh, cfg), make_tp_decode_step(mesh, cfg)
+    reset_counts()
+    (logits, cache), pre_ms = _timed(lambda: pre(params_local, cache, prompts, lengths, cos, sin))
+    toks = [llama.sample(logits)]
+    h0 = comm.host_bytes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        logits, cache = step(params_local, cache, toks[-1], cos, sin)
+        toks.append(llama.sample(logits))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / max(steps, 1)
+    host = (comm.host_bytes - h0) / max(steps, 1)
+    r.counts(name, read_counts(), want)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"rank {r.rank}: {name}: non-finite logits")
+    return torch.stack(toks, dim=1), pre_ms, step_ms, host
+
+
+def _decode_counts(n_layers, steps, projections, prefill_rows, lm_head=1):
+    """Counts of a prefill and ``steps`` decode steps on one rank (fused
+    decode attention; the prefill's projections tiled past 64 rows, its
+    head on the last positions' rows)."""
+    proj = projections * n_layers + lm_head
+    return zero_counts(flash_prefill=n_layers, flash_decode=steps * n_layers, append_rows_kv=steps * n_layers,
+                       quant_matmul=proj * (steps + 1),
+                       quant_matmul_tiled=projections * n_layers if prefill_rows > 64 else 0)
+
+
+def _tp_dense_paths(r, meshes, dev):
+    """14a, 14d, 14b on this rank: 7B-GQA at full width and depth (int8
+    weights + lm_head, bf16 KV, one split): TP 4 generate with phase 4's
+    check at 4 layers and the W8A8 / W4A8 row scales; PP 4 and PP 2 x TP 2
+    decode against one process; then Engine / PagedEngine on the 2 x 2
+    (data, model) mesh against one process's engines."""
+    import torch.distributed as dist
+
+    from starflashattention_tpu_torch.cache import contiguous
+    from starflashattention_tpu_torch.models import llama
+    from starflashattention_tpu_torch.parallel import comm, pp, tp
+    from starflashattention_tpu_torch.runtime.params import ModelConfig
+    from starflashattention_tpu_torch.serving import Engine, PagedEngine
+
+    cfg = ModelConfig.llama_7b_gqa(num_layers=SLICE_LAYERS, max_seq_len=SLICE_SEQ, num_splits=1)
+    t0 = time.perf_counter()
+    params, gen = build_model(cfg, dev)  # the same seeded model on every rank
+    prompts, lengths = _prompts(cfg, dev, gen)
+    cos, sin = llama.rope_tables(cfg, device=dev)
+    b, n = prompts.shape[0], cfg.num_layers
+    rows = b * prompts.shape[1]
+    r.log(f"[tensor-parallel] llama_7b_gqa L={n} int8 weights + int8 lm_head, bf16 KV, built on each of "
+          f"{TP_WORLD} ranks in {time.perf_counter() - t0:.1f} s")
+
+    def full_cache(c=cfg, rows_=b):
+        return contiguous.init_cache(c.num_layers, rows_, c.num_kv_heads, c.max_seq_len, c.head_dim, device=dev)
+
+    # ---- 14a: TP 4, full depth
+    mesh = meshes["tp4"]
+    local = tp.shard_params(params, mesh, cfg)
+    steps = SLICE_NEW_TOKENS - 1
+    streams, pre_ms, step_ms, host = _tp_generate(
+        r, "14a TP 4 generate", mesh, cfg, local, tp.shard_cache(full_cache(), mesh), prompts, lengths, steps,
+        _decode_counts(n, steps, 4, rows))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    r.rec["14a streams"] = streams.tolist()
+    r.rec["14a"] = dict(prefill_ms=pre_ms, step_ms=step_ms, host_bytes_per_step=host, peak_gib=peak)
+    r.log(f"[tensor-parallel] 14a TP 4, {n} layers: prefill {pre_ms:.1f} ms, {step_ms:.1f} ms a decode step "
+          f"(host clock), {host / 2**20:.2f} MiB through the host a step (gloo), peak memory {peak:.1f} GiB on "
+          f"rank 0 (the full model for the references beside its shard)")
+    if r.rank == 0:
+        _tie_check("14a TP 4 streams", params, cfg, _list_prompts(prompts, lengths), streams.tolist(), dev,
+                   label="tensor-parallel")
+    dist.barrier()
+    del local
+    # 4 layers against one process (phase 4's tolerance), both on the kernels, fed the TP route's tokens
+    short = dataclasses.replace(cfg, num_layers=TP_CHECK_LAYERS)
+    p4 = _first_layers(params, TP_CHECK_LAYERS)
+    tp_logits = _tp_logits(mesh, short, tp.shard_params(p4, mesh, short), tp.shard_cache(full_cache(short), mesh),
+                           prompts, lengths, streams)
+    if r.rank == 0:
+        one = _one_logits(short, p4, full_cache(short), prompts, lengths, streams)
+        r.check("14a TP 4 vs one process, 4 layers, prefill + 4 decode steps", _rel(tp_logits, one), 0.05)
+    dist.barrier()
+    # W8A8 (K10) at 4 layers: the row-parallel scales are the full rows'
+    _row_scale_check(r, mesh, dataclasses.replace(short, w8a8_prefill=True), p4, full_cache(short), prompts,
+                     lengths, "W8A8", "quant_matmul_w8a8")
+    del p4
+    # W4A8 (K11) at 4 layers on int4 weights with 64-row groups: w_down's 11008 rows make 172 groups, which
+    # the model axis divides (g128's 86 would not)
+    p4 = llama.init_params(short, torch.Generator(device=dev).manual_seed(SEED + 17), quantize="int4", int4_group=64,
+                           device=dev)
+    p4 = llama.quantize_model_weights(p4, "int4", lm_head=True, consume=True, int4_group=64)
+    _row_scale_check(r, mesh, dataclasses.replace(short, w8a8_prefill=True), p4, full_cache(short), prompts,
+                     lengths, "W4A8", "quant_matmul_w4a8")
+    del p4
+    # ---- 14d: PP 4 and PP 2 x TP 2 decode against one process
+    cache = full_cache()
+    llama.prefill(params, cache, prompts, lengths, cos, sin, cfg)  # on every rank: the same bytes
+    ref = None
+    if r.rank == 0:  # both routes are fed the TP stream's tokens
+        rc = contiguous.KVCache(cache.k.clone(), cache.v.clone(), cache.lengths.clone())
+        ref = torch.stack([llama.decode_step(params, rc, streams[:, i], cos, sin, cfg)[0]
+                           for i in range(PP_DECODE_STEPS)])
+        del rc
+    for name, m in (("pp4", 4), ("pp2_tp2", 2)):
+        mesh = meshes[name]
+        local = pp.shard_params_pp(params, mesh, cfg)
+        pcache = pp.shard_cache_pp(contiguous.KVCache(cache.k.clone(), cache.v.clone(), cache.lengths.clone()),
+                                   mesh)
+        step = pp.make_pp_decode_step(mesh, cfg, num_microbatches=m)
+        stage_layers = n // mesh.axis("pipe").size
+        last = mesh.axis("pipe").index == mesh.axis("pipe").size - 1
+        reset_counts()
+        h0 = comm.host_bytes
+        out = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(PP_DECODE_STEPS):
+            lg, pcache = step(local, pcache, streams[:, i], cos, sin)
+            out.append(lg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / PP_DECODE_STEPS
+        per_step = stage_layers * m  # each layer of the stage on each microbatch
+        r.counts(f"14d {name}", read_counts(), zero_counts(
+            flash_decode=PP_DECODE_STEPS * per_step, append_rows_kv=PP_DECODE_STEPS * per_step,
+            quant_matmul=PP_DECODE_STEPS * (4 * per_step + (m if last else 0))))
+        r.rec[f"14d {name}"] = dict(step_ms=ms, host_bytes_per_step=(comm.host_bytes - h0) / PP_DECODE_STEPS)
+        if ref is not None:
+            r.check(f"14d {name} (M={m}) logits vs one process, {PP_DECODE_STEPS} steps", _rel(torch.stack(out), ref),
+                    0.05)
+        r.log(f"[tensor-parallel] 14d {name}, {m} microbatches: {ms:.1f} ms a decode step (host clock)")
+        del local, pcache
+        dist.barrier()
+    del cache
+    torch.cuda.empty_cache()
+    # ---- 14b: Engine / PagedEngine on (data 2, model 2)
+    mesh = meshes["dp2_tp2"]
+    serve_prompts = _serving_prompts(cfg.vocab_size)[:TP_SERVE["requests"]]
+    s = TP_SERVE
+    kw = dict(num_slots=s["slots"], steps_per_round=s["steps"], prefill_chunk=s["chunk"], device=dev)
+    runs = {"Engine": lambda m: Engine(params, cfg, mesh=m, **kw),
+            "Engine spec_decode=4": lambda m: Engine(params, cfg, mesh=m, spec_decode=SPEC_DRAFTS,
+                                                     spec_ngram=SPEC_NGRAM, **kw),
+            "PagedEngine": lambda m: PagedEngine(params, cfg, mesh=m, page_size=PAGE_SIZE, **kw)}
+    kinds = {"Engine": "contiguous", "Engine spec_decode=4": "spec", "PagedEngine": "paged"}
+    one_process = {"Engine": lambda: Engine(params, cfg, **kw),
+                   "PagedEngine": lambda: PagedEngine(params, cfg, page_size=PAGE_SIZE, **kw)}
+    ones = {}
+    for name, make in runs.items():
+        h0 = comm.host_bytes
+        eng, reqs, wall, counts = _serve(lambda: make(mesh), serve_prompts,
+                                         _engine_counts(n, s["steps"], 0, kinds[name], 1),
+                                         new_tokens=s["new_tokens"])
+        r.rec.setdefault("counts", {})[f"14b {name}"] = counts
+        streams_b = [q.output for q in reqs]
+        r.rec[f"14b {name} streams"] = streams_b
+        r.rec[f"14b {name}"] = dict(wall_s=wall, decode_tok_s=eng.stats.decode_tokens_per_s(),
+                                    host_bytes=comm.host_bytes - h0, rounds=eng.stats.decode_rounds,
+                                    spec_steps=eng.stats.spec_steps)
+        r.log(f"[tensor-parallel] 14b {name} on (data 2, model 2): {len(reqs)} requests in {wall:.1f} s, "
+              f"{eng.stats.decode_tokens_per_s():.1f} decode tokens/s, {eng.stats.decode_rounds} rounds, "
+              f"{(comm.host_bytes - h0) / 2**20:.1f} MiB through the host (gloo); {eng.stats.summary()}")
+        del eng
+        dist.barrier()
+        if r.rank == 0:
+            base = "PagedEngine" if name == "PagedEngine" else "Engine"
+            if base not in ones:
+                _, one_reqs, _, _ = _serve(one_process[base], serve_prompts,
+                                           _engine_counts(n, s["steps"], 0, kinds[base], 1),
+                                           new_tokens=s["new_tokens"])
+                ones[base] = [q.output for q in one_reqs]
+            same = sum(a == c for a, c in zip(streams_b, ones[base]))
+            r.log(f"[tensor-parallel] 14b {name}: streams equal one process's {base} {same}/{len(reqs)}")
+            if same != len(reqs):
+                _tie_check(f"14b {name}", params, cfg, serve_prompts, streams_b, dev, label="tensor-parallel")
+        dist.barrier()
+    del params
+    torch.cuda.empty_cache()
+
+
+def _tp_logits(mesh, cfg, local, cache, prompts, lengths, streams):
+    """TP prefill + 4 decode steps fed ``streams``' tokens -> (5, B, V)."""
+    from starflashattention_tpu_torch.models import llama
+    from starflashattention_tpu_torch.parallel import make_tp_decode_step, make_tp_prefill
+
+    cos, sin = llama.rope_tables(cfg, device=mesh.device)
+    step = make_tp_decode_step(mesh, cfg)
+    logits, cache = make_tp_prefill(mesh, cfg)(local, cache, prompts, lengths, cos, sin)
+    out = [logits]
+    for i in range(4):
+        logits, cache = step(local, cache, streams[:, i], cos, sin)
+        out.append(logits)
+    return torch.stack(out)
+
+
+def _one_logits(cfg, params, cache, prompts, lengths, streams):
+    """:func:`_tp_logits` on one process."""
+    from starflashattention_tpu_torch.models import llama
+
+    cos, sin = llama.rope_tables(cfg, device=prompts.device)
+    logits, cache = llama.prefill(params, cache, prompts, lengths, cos, sin, cfg)
+    out = [logits]
+    for i in range(4):
+        logits, cache = llama.decode_step(params, cache, streams[:, i], cos, sin, cfg)
+        out.append(logits)
+    return torch.stack(out)
+
+
+def _row_scale_check(r, mesh, cfg, params, cache, prompts, lengths, what, entry):
+    """The prefill of ``params`` (4 layers) with ``cfg.w8a8_prefill`` on
+    TP 4 and on one process: logits within phase 4's tolerance; layer 0's
+    ``wo`` row scales on every rank equal the one process's bit for bit;
+    its ``w_down`` row scales equal (bit for bit) those of the full rows
+    gathered from the ranks' shards, and are reported against the one
+    process's (the input rows follow a sum over the axis in another
+    order)."""
+    import torch.distributed as dist
+
+    from starflashattention_tpu_torch.models import llama
+    from starflashattention_tpu_torch.ops.quant_matmul import quantize_rows
+    from starflashattention_tpu_torch.parallel import comm, make_tp_prefill, tp
+
+    cos, sin = llama.rope_tables(cfg, device=mesh.device)
+    local = tp.shard_params(params, mesh, cfg)
+    local_cache = tp.shard_cache(cache, mesh)
+    reset_counts()
+    with _RowScales() as rec:
+        logits, _ = make_tp_prefill(mesh, cfg)(local, local_cache, prompts, lengths, cos, sin)
+    counts = read_counts()
+    n = cfg.num_layers
+    if counts[entry] != 4 * n:
+        raise AssertionError(f"rank {r.rank}: {what}: {counts[entry]} {entry} launches, expected {4 * n}")
+    r.rec.setdefault("counts", {})[f"14a {what} prefill"] = counts
+    row_calls = [(x, rs) for axis, x, rs in rec.calls if axis]
+    (_, wo_rs), (down_x, down_rs) = row_calls[0], row_calls[1]
+    full_down = comm.all_gather(down_x, mesh.axis("model"), dim=-1)
+    _, full_rs = quantize_rows(full_down)
+    if not torch.equal(down_rs, full_rs):
+        raise AssertionError(f"rank {r.rank}: {what}: layer 0's w_down row scales are not the full rows'")
+    gathered = comm.all_gather(torch.cat([wo_rs, down_rs], dim=1)[None], mesh.axis("model"), dim=0)
+    if not all(torch.equal(g, gathered[0]) for g in gathered):
+        raise AssertionError(f"rank {r.rank}: {what}: the ranks' row scales differ")
+    if r.rank == 0:
+        with _RowScales() as one:
+            ref, _ = llama.prefill(params, cache, prompts, lengths, cos, sin, cfg)
+        one_rs = [rs for _, _, rs in one.calls]  # wqkv, wo, w_gate_up, w_down of layer 0 first
+        wo_equal = torch.equal(wo_rs, one_rs[1])
+        down_rows = (down_rs == one_rs[3]).float().mean().item()
+        r.log(f"[tensor-parallel] 14a {what} prefill, TP 4, {n} layers: layer 0's wo row scales equal one "
+              f"process's bit for bit: {wo_equal}; w_down's equal the full rows' on every rank; the share of "
+              f"w_down rows whose scale equals one process's {down_rows:.4f}; {counts[entry]} {entry} launches a "
+              f"rank")
+        if not wo_equal:
+            raise AssertionError(f"{what}: layer 0's wo row scales differ from one process's")
+        r.check(f"14a {what} prefill logits vs one process, {n} layers", _rel(logits, ref), 0.05)
+    dist.barrier()
+
+
+def _expert_parallel_path(r, meshes, dev):
+    """14c: Mixtral-8x7B at full width cut to 2 layers, int8 experts and
+    weights and lm_head, TP 4 (2 whole experts a rank): generate, the
+    streams equal on every rank and tie-checked on one process."""
+    import torch.distributed as dist
+
+    from starflashattention_tpu_torch.cache import contiguous
+    from starflashattention_tpu_torch.parallel import tp
+    from starflashattention_tpu_torch.runtime.params import ModelConfig
+
+    cfg = ModelConfig.mixtral_8x7b(num_layers=2, max_seq_len=SLICE_SEQ, num_splits=1)
+    mesh = meshes["tp4"]
+    # one rank builds at a time (each expert stack's quantization passes through fp32), and only rank 0,
+    # which runs the reference, keeps the whole model beside its shard
+    params = local = None
+    torch.cuda.empty_cache()
+    for k in range(TP_WORLD):
+        if r.rank == k:
+            params, _ = build_model(cfg, dev)
+            local = tp.shard_params(params, mesh, cfg)
+            if r.rank:
+                params = None
+            torch.cuda.empty_cache()
+        dist.barrier()
+    prompts_l = _variant_prompts(cfg.vocab_size, 200, 600, seed=SEED + 4)
+    lengths = torch.tensor([len(p) for p in prompts_l], dtype=torch.int32, device=dev)
+    prompts = torch.zeros((len(prompts_l), int(lengths.max())), dtype=torch.int32, device=dev)
+    for i, p in enumerate(prompts_l):
+        prompts[i, :len(p)] = torch.tensor(p, dtype=torch.int32)
+    e_local = cfg.num_experts // mesh.axis("model").size
+    cache = tp.shard_cache(contiguous.init_cache(cfg.num_layers, len(prompts_l), cfg.num_kv_heads, cfg.max_seq_len,
+                                                 cfg.head_dim, device=dev), mesh)
+    steps = EP_NEW_TOKENS - 1
+    rows = len(prompts_l) * prompts.shape[1]
+    streams, pre_ms, step_ms, host = _tp_generate(r, "14c EP generate", mesh, cfg, local, cache, prompts, lengths,
+                                                  steps, _decode_counts(cfg.num_layers, steps, 2 + 2 * e_local,
+                                                                        rows))
+    r.rec["14c streams"] = streams.tolist()
+    r.rec["14c"] = dict(prefill_ms=pre_ms, step_ms=step_ms, host_bytes_per_step=host)
+    r.log(f"[tensor-parallel] 14c mixtral_8x7b 2 of 32 layers, {e_local} of {cfg.num_experts} experts a rank: "
+          f"prefill {pre_ms:.1f} ms, {step_ms:.1f} ms a decode step (host clock)")
+    if r.rank == 0:
+        _tie_check("14c EP streams", params, cfg, prompts_l, streams.tolist(), dev, label="tensor-parallel")
+    dist.barrier()
+    del params, local, cache
+    torch.cuda.empty_cache()
+
+
+def _tp_training_path(r, meshes, dev):
+    """14e: TP x DP (data 2, model 2; B=2, S=2048) and TP x CP (model 2,
+    seq 2; B=1, S=8192) training of 7B-GQA at full width cut to 2 layers
+    (bf16): the first step's loss and every rank's gradients within 5e-2
+    (of each gradient's peak) of one process's through the kernels, on the
+    rank's shard, and 3 SGD steps at lr 1.0 lower the loss."""
+    import torch.distributed as dist
+
+    from starflashattention_tpu_torch.models import llama, train
+    from starflashattention_tpu_torch.parallel import (comm, init_opt_state, make_tp_cp_train_step,
+                                                       make_tp_dp_train_step, tp)
+    from starflashattention_tpu_torch.runtime.params import ModelConfig
+
+    t = TP_TRAIN
+    torch.cuda.empty_cache()
+    cfg = ModelConfig.llama_7b_gqa(num_layers=t["layers"], max_seq_len=t["cp_seq"])
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)  # the same params and batches on every rank
+    params = llama.init_params(cfg, gen, device=dev)
+    cos, sin = llama.rope_tables(cfg, device=dev)
+    n = cfg.num_layers
+    for name, mesh_name, (b, s), make, want in (
+            ("TP x DP", "dp2_tp2", (t["batch"], t["seq"]), make_tp_dp_train_step,
+             zero_counts(flash_prefill=2 * n, flash_prefill_lse=2 * n, flash_bwd_dq=n, flash_bwd_dkdv=n)),
+            ("TP x CP", "tp2_sp2", (1, t["cp_seq"]), make_tp_cp_train_step,
+             _ring_counts(2, fwd_calls=2 * n, bwd_calls=n))):
+        mesh = meshes[mesh_name]
+        batch = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen, device=dev)
+        (loss_ref, grads_ref), ref_ms = _timed(lambda: train.loss_and_grads(params, batch, cfg, cos, sin))
+        want_grads = train.tree_leaves(tp.shard_params(grads_ref, mesh, cfg))
+        del grads_ref
+        local = tp.shard_params(params, mesh, cfg)
+        state = init_opt_state(local)
+        step = make(mesh, cfg, TRAIN_LR)
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_ms, host = [], [], []
+        for i in range(t["steps"]):
+            reset_counts()
+            h0 = comm.host_bytes
+            (_, _, loss), ms = _timed(lambda: step(local, state, batch, cos, sin))
+            losses.append(float(loss))
+            step_ms.append(ms)
+            host.append(comm.host_bytes - h0)
+            r.counts(f"14e {name} step {i}", read_counts(), want)
+            if i == 0:  # momentum from 0 after one step: the reduced gradients
+                r.check(f"14e {name} first loss vs one process's", abs(losses[0] - float(loss_ref)),
+                        TRAIN_GRAD_TOL, what="abs error")
+                worst = max((_rel(g, gr), key) for (key, g), gr in zip(_named_leaves(state), want_grads))
+                r.check(f"14e {name} every gradient vs one process's (worst: {worst[1]})", worst[0],
+                        TRAIN_GRAD_TOL)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"rank {r.rank}: 14e {name}: the loss did not fall: {losses}")
+        tokens = b * s
+        r.rec[f"14e {name}"] = dict(losses=losses, step_ms=step_ms, tokens_per_s=tokens / step_ms[-1] * 1e3,
+                                    peak_gib=peak, host_bytes_per_step=host[-1], single_ms=ref_ms)
+        r.log(f"[tensor-parallel] 14e {name}, 7B-GQA width, {n} layers, bf16, B={b} S={s}: losses {losses}; ms a "
+              f"step {[round(x, 1) for x in step_ms]} (host clock); {tokens / step_ms[-1] * 1e3:.0f} tokens/s; peak "
+              f"memory {peak:.1f} GiB on rank 0; {host[-1] / 2**30:.2f} GiB through the host a step by rank 0; one "
+              f"process's loss and gradients {ref_ms:.1f} ms")
+        del local, state, want_grads
+        torch.cuda.empty_cache()
+        dist.barrier()
+    del params
+
+
+def _tensor_parallel_rank(rank, world, port, out_dir):
+    """One rank of phase 14: joins the gloo world on this card, runs
+    14a-14e and writes its record to ``out_dir/rank<r>.json``."""
+    import torch.distributed as dist
+
+    from starflashattention_tpu_torch.parallel import init_distributed, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_distributed(f"tcp://localhost:{port}", backend="gloo", world_size=world, rank=rank)
+    meshes = {name: make_mesh(axes, device=dev) for name, axes in TP_MESHES.items()}
+    r = _Rank(rank, "tensor-parallel")
+    for name, fn in (("14a-b-d", lambda: _tp_dense_paths(r, meshes, dev)),
+                     ("14c", lambda: _expert_parallel_path(r, meshes, dev)),
+                     ("14e", lambda: _tp_training_path(r, meshes, dev))):
+        t0 = time.perf_counter()
+        fn()
+        r.rec.setdefault("seconds", {})[name] = time.perf_counter() - t0
+        r.log(f"[tensor-parallel] {name}: {time.perf_counter() - t0:.1f} s")
+        dist.barrier()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(r.rec, f)
+    dist.destroy_process_group()
+
+
+def phase_tensor_parallel(smi):
+    """Phase 14 (see the module doc): TP_WORLD ranks on this one card over
+    gloo, spawned after phase 1's build. Returns the ranks' records."""
+    import torch.multiprocessing as mp
+
+    from starflashattention_tpu_torch.ops._build import BUILD_DIR
+
+    torch.cuda.empty_cache()
+    out_dir = BUILD_DIR / "phase14"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in out_dir.glob("rank*.json"):
+        old.unlink()
+    t0 = time.perf_counter()
+    mp.spawn(_tensor_parallel_rank, args=(TP_WORLD, _free_port(), str(out_dir)), nprocs=TP_WORLD, join=True)
+    recs = [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(TP_WORLD)]
+    secs = time.perf_counter() - t0
+    for key in [k for k in recs[0] if k.endswith("streams")]:
+        if any(rec[key] != recs[0][key] for rec in recs):
+            raise AssertionError(f"phase 14: {key} differ between ranks")
+    log(f"[tensor-parallel] every rank's streams equal bit for bit: "
+        f"{', '.join(k for k in recs[0] if k.endswith('streams'))}")
+    worst = {}
+    for rec in recs:
+        for name, (err, tol) in rec.get("checks", {}).items():
+            worst[name] = max(worst.get(name, (0.0, tol)), (err, tol))
+    for name, (err, tol) in worst.items():
+        log(f"[tensor-parallel] worst of the ranks: {name}: {err:.3e} (tolerance {tol:.3e})")
+    totals = {}
+    for rec in recs:
+        for counts in rec["counts"].values():
+            for key, n in counts.items():
+                totals[key] = totals.get(key, 0) + n
+    log(f"[tensor-parallel] launches over the {TP_WORLD} ranks' counted runs: "
+        + ", ".join(f"{k} {v}" for k, v in totals.items() if v))
+    for key in [k for k in recs[0] if k.startswith("14") and not k.endswith("streams")]:
+        log(f"[tensor-parallel] {key} by rank: " + "; ".join(
+            ", ".join(f"{f} {round(v, 2) if isinstance(v, float) else v}" for f, v in rec[key].items()
+                      if not isinstance(v, list)) for rec in recs))
+    log(f"[tensor-parallel] phase 14 took {secs:.1f} s ({smi}; the ranks' seconds: "
+        f"{[{k: round(v, 1) for k, v in rec['seconds'].items()} for rec in recs]}); gloo copies every "
+        "collective through the host, so these wall times are no guide to NCCL")
+    return dict(records=recs, totals=totals, seconds=secs)
+
+
 # ---------------------------------------------------------------- main
 
 REPLACES = {
@@ -4196,6 +4830,7 @@ REPLACES = {
     RING_ENTRIES["fwd"]: ("starflashattention_tpu/ops/flash_prefill.py:67", "flash_prefill.cu"),
     RING_ENTRIES["dq"]: ("starflashattention_tpu/ops/flash_bwd.py:173", "flash_bwd.cu"),
     RING_ENTRIES["dkdv"]: ("starflashattention_tpu/ops/flash_bwd.py:254", "flash_bwd.cu"),
+    FUSED_MLP_ENTRY: ("starflashattention_tpu/ops/fused_mlp.py:175", "fused_mlp.cu"),
     **{TRAIN_VARIANT_ENTRIES[k]: (site, src) for k in TRAIN_VARIANT_ENTRIES
        for suffix, site, src in (("_fwd", "starflashattention_tpu/ops/flash_prefill.py:67", "flash_prefill.cu"),
                                  ("_dq", "starflashattention_tpu/ops/flash_bwd.py:173", "flash_bwd.cu"),
@@ -4210,8 +4845,8 @@ OFF_PATH = ("flash_decode fp8 KV (1 split, fused)", "paged_flash_decode fp8 KV")
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11,12,13",
-                        help="comma-separated phases to run (default 1,2,3,4,6,7,8,9,10,11,12,13; phase 5, "
+    parser.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11,12,13,14",
+                        help="comma-separated phases to run (default 1,2,3,4,6,7,8,9,10,11,12,13,14; phase 5, "
                              "a profile of bench.py's decode chains, runs only when named)")
     args = parser.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -4243,6 +4878,7 @@ def main(argv=None):
     train_variants = phase_train_variants(dev) if 11 in phases else {}
     deepseek = phase_deepseek(dev, smi) if 12 in phases else {}
     seq_parallel = phase_seq_parallel(smi) if 13 in phases else {}
+    tensor_parallel = phase_tensor_parallel(smi) if 14 in phases else {}
     if 5 in phases:
         phase_decode_profile(dev)
 
@@ -4320,6 +4956,25 @@ def main(argv=None):
         launches.update({RING_ENTRIES["fwd"]: tot["flash_prefill_kv_offset"],
                          RING_ENTRIES["dq"]: tot["flash_bwd_dq_kv_offset"],
                          RING_ENTRIES["dkdv"]: tot["flash_bwd_dkdv_kv_offset"]})
+    if FUSED_MLP_ENTRY in kernels:
+        launches[FUSED_MLP_ENTRY] = kernels[FUSED_MLP_ENTRY]["path_launches"]
+    if tensor_parallel:  # phase 14's paths add their launches over the ranks to the kernels they run
+        tot = tensor_parallel["totals"]
+        for entry, n in (("flash_decode (1 split, fused)", tot["flash_decode"]),
+                         ("append_rows_kv", tot["append_rows_kv"]),
+                         ("quant_matmul (small-M, decode rows)", tot["quant_matmul"] - tot["quant_matmul_tiled"]),
+                         ("quant_matmul (tiled, prefill rows)", tot["quant_matmul_tiled"]),
+                         ("flash_prefill", tot["flash_prefill"] - tot["flash_prefill_lse"]),
+                         ("paged_flash_decode", tot["paged_flash_decode"]),
+                         ("append_rows_paged_kv", tot["append_rows_paged_kv"]),
+                         ("flash_verify", tot["flash_verify"]), ("append_block_kv", tot["append_block_kv"]),
+                         ("quant_matmul_w8a8 (prefill rows)", tot["quant_matmul_w8a8"]),
+                         ("quant_matmul_w4a8 (prefill rows)", tot["quant_matmul_w4a8"]),
+                         ("flash_prefill (return_lse, training)",
+                          tot["flash_prefill_lse"] - tot["flash_prefill_kv_offset"]),
+                         ("flash_bwd_dq", tot["flash_bwd_dq"] - tot["flash_bwd_dq_kv_offset"]),
+                         ("flash_bwd_dkdv", tot["flash_bwd_dkdv"] - tot["flash_bwd_dkdv_kv_offset"])):
+            launches[entry] = (launches.get(entry) or 0) + n
     line = []
     for name, r in kernels.items():
         if name in OFF_PATH:

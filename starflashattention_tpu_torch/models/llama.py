@@ -49,6 +49,15 @@ experts run one stacked-layer K4 / K6 call per expert at index
 (:func:`_mla_qkv`, :func:`_mla_out`) caches one latent row per token and
 attends it as one KV head of ``kv_cache_dims()[1]`` lanes (640 for
 V2-Lite) with the absorbed queries, on the same attention kernels.
+
+Tensor parallelism: every entry point takes ``axis_name`` (a
+``parallel.mesh.Axis``, where JAX names the axis), with ``params``,
+``cache`` and ``cfg`` this rank's shard (``parallel/tp.py``). The outputs
+of ``wo`` and of the MLP are summed over the axis (two all-reduces a
+layer), the W8A8 / W4A8 row-parallel projections quantize with the full
+row's scale, the vocab-sharded head's logits are all-gathered, MoE
+experts shard whole (global expert ``index * E_local + e``) and
+DeepSeek's shared experts and dense first layers count on index 0 only.
 """
 
 from __future__ import annotations
@@ -319,14 +328,19 @@ def _wq_matmul(x2d: torch.Tensor, w: dict, layer, out_dtype=None) -> torch.Tenso
     return fn(x2d, w["w"], w["scale"], layer=layer, out_dtype=out_dtype)
 
 
-def _make_proj(layers: Params, lidx: int, cfg: ModelConfig):
+_ROW_PARALLEL = ("wo", "w_down")  # input dim sharded under TP: their W8A8 row scales reduce over the axis
+
+
+def _make_proj(layers: Params, lidx: int, cfg: ModelConfig, axis_name=None):
     """Projection closure for one layer -> fp32 outputs (or ``out_dtype``
     written by the quantized kernel). Quantized stacks go to their kernel
     with the layer index; dense ones to ``torch.matmul`` at fp32 (the JAX
     package's ``jnp.dot`` outside Pallas). With ``cfg.w8a8_prefill``, at
     least ``W8A8_MIN_ROWS`` rows and int8-dtype weights (int8, or packed
     int4), the int8-activation kernels take the rows (JAX llama.py:75-104);
-    fp8 weights and decode rows stay weight-only."""
+    fp8 weights and decode rows stay weight-only. Under TP (``axis_name``)
+    the row-parallel projections quantize with the full row's scale
+    (``quantize_rows``'s ``axis``)."""
 
     def proj(x: torch.Tensor, name: str, out_dtype=None) -> torch.Tensor:
         w = layers[name]
@@ -334,7 +348,8 @@ def _make_proj(layers: Params, lidx: int, cfg: ModelConfig):
             flat = x.reshape(-1, x.shape[-1])
             if cfg.w8a8_prefill and flat.shape[0] >= W8A8_MIN_ROWS and w["w"].dtype == torch.int8:
                 fn = quant_matmul_w4a8 if quant.is_int4_weight(w) else quant_matmul_w8a8
-                out = fn(flat, w["w"], w["scale"], layer=lidx, out_dtype=out_dtype)
+                out = fn(flat, w["w"], w["scale"], layer=lidx, out_dtype=out_dtype,
+                         axis=axis_name if name in _ROW_PARALLEL else None)
             else:
                 out = _wq_matmul(flat, w, lidx, out_dtype=out_dtype)
             return out.reshape(*x.shape[:-1], out.shape[-1])
@@ -381,15 +396,21 @@ def _qkv(h, layers, lidx, proj, cfg, x_dtype):
     return qkv
 
 
-def _logits(x: torch.Tensor, params: Params, cfg: ModelConfig) -> torch.Tensor:
+def _logits(x: torch.Tensor, params: Params, cfg: ModelConfig, axis_name=None) -> torch.Tensor:
     """Final norm and lm_head (a quantized lm_head is always weight-only),
-    then Gemma-2's final logit softcap when configured."""
+    then Gemma-2's final logit softcap when configured. Under TP with a
+    vocab-sharded head (``cfg.lm_head_sharded``) the (.., V/T) slices are
+    all-gathered over ``axis_name``: an exact concatenation."""
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     if isinstance(head, dict):
         logits = _wq_matmul(x, head, 0)
     else:
         logits = _dense_dot(x, head)
+    if axis_name is not None and cfg.lm_head_sharded:
+        from starflashattention_tpu_torch.parallel.comm import all_gather
+
+        logits = all_gather(logits, axis_name, dim=-1)
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
@@ -409,19 +430,30 @@ def rope_tables(cfg: ModelConfig, device: torch.device | str | None = None):
 # ---------------------------------------------------------------------------
 
 
-def _shared_expert(flat: torch.Tensor, layers: Params, lidx: int, cfg: ModelConfig):
+def _first_shard_only(axis_name) -> bool:
+    """Under TP a replicated side stack (DeepSeek's shared experts, its dense
+    first layers) contributes on index 0 of the axis only, so that the
+    caller's sum adds one copy (JAX gates it with ``axis_index == 0``; the
+    other ranks skip the work)."""
+    return axis_name is not None and axis_name.index != 0
+
+
+def _shared_expert(flat: torch.Tensor, layers: Params, lidx: int, cfg: ModelConfig, axis_name=None):
     """DeepSeek's shared experts: a dense SwiGLU on every row -> fp32 (N, H),
-    or 0 without them. silu whatever ``mlp_activation`` says, as JAX
-    llama.py:442 has it."""
-    if not cfg.n_shared_experts:
+    or 0 without them (and on every TP rank but the first). silu whatever
+    ``mlp_activation`` says, as JAX llama.py:442 has it."""
+    if not cfg.n_shared_experts or _first_shard_only(axis_name):
         return 0.0
     act = _gated(_dense_dot(flat, layers["moe_shared_gate_up"][lidx]), F.silu, flat.dtype)
     return _dense_dot(act, layers["moe_shared_down"][lidx])
 
 
-def _dense_first_mlp(flat: torch.Tensor, dense: Params, lidx: int, cfg: ModelConfig):
+def _dense_first_mlp(flat: torch.Tensor, dense: Params, lidx: int, cfg: ModelConfig, axis_name=None):
     """A DeepSeek dense first layer (``first_k_dense``): the gated MLP of the
-    side stack's row ``lidx`` -> fp32 (N, H)."""
+    side stack's row ``lidx`` -> fp32 (N, H); zeros on every TP rank but the
+    first."""
+    if _first_shard_only(axis_name):
+        return torch.zeros((flat.shape[0], flat.shape[1]), dtype=torch.float32, device=flat.device)
     li = min(lidx, cfg.first_k_dense - 1)
     act = _gated(_dense_dot(flat, dense["w_gate_up"][li]), _GATE_ACTS[cfg.mlp_activation], flat.dtype)
     return _dense_dot(act, dense["w_down"][li])
@@ -458,17 +490,24 @@ def _expert_view(w: dict) -> dict:
     return {key: t.reshape(t.shape[0] * t.shape[1], *t.shape[2:]) for key, t in w.items()}
 
 
-def _moe_mlp(x: torch.Tensor, layers: Params, lidx: int, cfg: ModelConfig) -> torch.Tensor:
+def _moe_mlp(x: torch.Tensor, layers: Params, lidx: int, cfg: ModelConfig, axis_name=None) -> torch.Tensor:
     """Top-k routed MoE MLP of layer ``lidx`` -> fp32 (JAX llama.py:470-576).
     Every expert runs on every row and the routing weights zero the
     unselected pairs. Quantized stacks: per expert, gate_up written in x's
     dtype and down in fp32 by the weight-only kernel at index ``lidx * E +
-    e`` (K4 for int8 / fp8, K6 for int4), summed in expert order."""
+    e`` (K4 for int8 / fp8, K6 for int4), summed in expert order. Expert
+    parallelism (``axis_name``): the stacks hold this rank's ``E_local``
+    whole experts, global experts ``index * E_local + e``; the router is
+    replicated and routes over all ``cfg.num_experts``, and the caller's
+    sum over the axis completes the routed sum."""
     flat = x.reshape(-1, x.shape[-1])  # (N, H)
     dense_w = route(flat, layers["moe_router"][lidx], cfg)  # (N, E)
     wg, wd = layers["moe_gate_up"], layers["moe_down"]
+    e_local = wg["w"].shape[1] if isinstance(wg, dict) else wg.shape[1]
+    if axis_name is not None and e_local != cfg.num_experts:
+        dense_w = dense_w[:, axis_name.index * e_local:(axis_name.index + 1) * e_local]
     if isinstance(wg, dict):
-        n_exp = wg["w"].shape[1]
+        n_exp = e_local
         wg_f, wd_f = _expert_view(wg), _expert_view(wd)
         out = torch.zeros((flat.shape[0], wd["w"].shape[-1]), dtype=torch.float32, device=x.device)
         for e in range(n_exp):
@@ -479,29 +518,40 @@ def _moe_mlp(x: torch.Tensor, layers: Params, lidx: int, cfg: ModelConfig) -> to
         gu = torch.einsum("nh,ehi->eni", flat.float(), wg[lidx].float())  # (E, N, 2I)
         y = torch.einsum("eni,eih->enh", _gated(gu, F.silu, x.dtype).float(), wd[lidx].float())
         out = torch.einsum("enh,ne->nh", y, dense_w)
-    out = out + _shared_expert(flat, layers, lidx, cfg)
+    out = out + _shared_expert(flat, layers, lidx, cfg, axis_name)
     return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
-def _mlp_block(x: torch.Tensor, layers: Params, lidx: int, proj, cfg: ModelConfig):
+def _mlp_block(x: torch.Tensor, layers: Params, lidx: int, proj, cfg: ModelConfig, axis_name=None):
     """The layer's MLP -> fp32: the gated dense MLP, or the MoE, with
     DeepSeek's dense first layers (``lidx < first_k_dense``, a plain Python
-    test where JAX's scan takes a ``lax.cond``; JAX llama.py:579-616)."""
+    test where JAX's scan takes a ``lax.cond``; JAX llama.py:579-616).
+    Under TP it is this rank's partial sum; the caller reduces it."""
     if not cfg.num_experts:
         return _swiglu(x, proj, cfg)
     if cfg.first_k_dense:
         if "dense_mlp" not in layers:
             raise ValueError("cfg.first_k_dense is set but layers['dense_mlp'] is missing")
         if lidx < cfg.first_k_dense:
-            out = _dense_first_mlp(x.reshape(-1, x.shape[-1]), layers["dense_mlp"], lidx, cfg)
+            out = _dense_first_mlp(x.reshape(-1, x.shape[-1]), layers["dense_mlp"], lidx, cfg, axis_name)
             return out.reshape(*x.shape[:-1], out.shape[-1])
-    return _moe_mlp(x, layers, lidx, cfg)
+    return _moe_mlp(x, layers, lidx, cfg, axis_name)
 
 
-def _mlp_residual(x, layers, lidx, proj, cfg):
+def _reduce(out: torch.Tensor, axis_name) -> torch.Tensor:
+    """The sum over the TP axis of a row-parallel output (JAX's ``psum``;
+    one all-reduce after ``wo`` and one after the MLP)."""
+    if axis_name is None:
+        return out
+    from starflashattention_tpu_torch.parallel.comm import all_reduce
+
+    return all_reduce(out, axis_name)
+
+
+def _mlp_residual(x, layers, lidx, proj, cfg, axis_name=None):
     h = rms_norm(x, layers["mlp_norm"][lidx], cfg.rms_norm_eps)
-    return _residual_add(x, _mlp_block(h, layers, lidx, proj, cfg), layers, lidx, "post_mlp_norm",
-                         cfg.rms_norm_eps)
+    out = _reduce(_mlp_block(h, layers, lidx, proj, cfg, axis_name), axis_name)
+    return _residual_add(x, out, layers, lidx, "post_mlp_norm", cfg.rms_norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -572,11 +622,14 @@ def _rope_positions(pos: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
 
 
 def _decode_layer(x, lidx: int, layers: Params, cfg: ModelConfig, cos, sin, pos,
-                  attend) -> torch.Tensor:
+                  attend, axis_name=None) -> torch.Tensor:
     """One decoder layer of the decode step; ``attend(lidx, q, k_new,
     v_new)`` appends this token's K/V to the cache in place and returns the
-    attention output (B, Hq, D)."""
-    proj = _make_proj(layers, lidx, cfg)
+    attention output (B, Hq, D). Under TP (``axis_name``, a
+    ``parallel.mesh.Axis``) ``layers`` and ``cfg`` are this rank's shard
+    (its heads, its MLP columns) and the outputs of ``wo`` and of the MLP
+    are summed over the axis (JAX llama.py:897-906)."""
+    proj = _make_proj(layers, lidx, cfg, axis_name)
     h = rms_norm(x, layers["attn_norm"][lidx], cfg.rms_norm_eps)
     if cfg.mla:  # one shared latent row a token, absorbed queries
         q, k_new, v_new = _mla_qkv(h, layers, lidx, cfg, cos, sin, pos)
@@ -587,17 +640,17 @@ def _decode_layer(x, lidx: int, layers: Params, cfg: ModelConfig, cos, sin, pos,
         k_new = apply_rope(k_new, pos, cos, sin, style=cfg.rope_style)
     o = attend(lidx, q, k_new, v_new)
     o = _mla_out(o, layers, lidx, cfg) if cfg.mla else o.reshape(o.shape[0], -1)
-    x = _residual_add(x, proj(o, "wo"), layers, lidx, "post_attn_norm", cfg.rms_norm_eps)
-    return _mlp_residual(x, layers, lidx, proj, cfg)
+    x = _residual_add(x, _reduce(proj(o, "wo"), axis_name), layers, lidx, "post_attn_norm", cfg.rms_norm_eps)
+    return _mlp_residual(x, layers, lidx, proj, cfg, axis_name)
 
 
 def _prefill_layer(x, lidx: int, layers: Params, cfg: ModelConfig, cos, sin, pos,
-                   attend) -> torch.Tensor:
+                   attend, axis_name=None) -> torch.Tensor:
     """One decoder layer of the prefill; ``attend(lidx, q, k_new, v_new)``
     writes the chunk's K/V into the cache in place and returns the attention
-    output (B, Hq, Sq, D)."""
+    output (B, Hq, Sq, D). ``axis_name`` as in :func:`_decode_layer`."""
     b, sq = pos.shape
-    proj = _make_proj(layers, lidx, cfg)
+    proj = _make_proj(layers, lidx, cfg, axis_name)
     h = rms_norm(x, layers["attn_norm"][lidx], cfg.rms_norm_eps)
     if cfg.mla:  # (B, Sq, H*, D) from the helper; the kernels take heads first
         q, k_new, v_new = (t.transpose(1, 2) for t in _mla_qkv(h, layers, lidx, cfg, cos, sin, pos))
@@ -608,8 +661,8 @@ def _prefill_layer(x, lidx: int, layers: Params, cfg: ModelConfig, cos, sin, pos
         k_new = apply_rope(k_new, pos[:, None, :], cos, sin, style=cfg.rope_style)
     o = attend(lidx, q, k_new, v_new).transpose(1, 2)  # (B, Sq, Hq, D)
     o = _mla_out(o, layers, lidx, cfg) if cfg.mla else o.reshape(b, sq, -1)
-    x = _residual_add(x, proj(o, "wo"), layers, lidx, "post_attn_norm", cfg.rms_norm_eps)
-    return _mlp_residual(x, layers, lidx, proj, cfg)
+    x = _residual_add(x, _reduce(proj(o, "wo"), axis_name), layers, lidx, "post_attn_norm", cfg.rms_norm_eps)
+    return _mlp_residual(x, layers, lidx, proj, cfg, axis_name)
 
 
 def _step_lengths(lengths: torch.Tensor, active: torch.Tensor | None):
@@ -625,30 +678,37 @@ def _step_lengths(lengths: torch.Tensor, active: torch.Tensor | None):
     return pos, now, torch.where(active, now, torch.zeros_like(now))
 
 
+def _check_axis(axis_name) -> None:
+    if isinstance(axis_name, str):
+        raise TypeError("axis_name takes a parallel.mesh.Axis (mesh.axis(name)), not an axis's name")
+
+
 def _decode_run(params: Params, tokens: torch.Tensor, pos: torch.Tensor, cos, sin,
-                cfg: ModelConfig, attend) -> torch.Tensor:
+                cfg: ModelConfig, attend, axis_name=None) -> torch.Tensor:
+    _check_axis(axis_name)
     x = _embed_tokens(params, tokens, cfg)  # (B, H)
     rope_pos = _rope_positions(pos, cos)
     layers = params["layers"]
     for lidx in range(cfg.num_layers):
-        x = _decode_layer(x, lidx, layers, cfg, cos, sin, rope_pos, attend)
-    return _logits(x, params, cfg)
+        x = _decode_layer(x, lidx, layers, cfg, cos, sin, rope_pos, attend, axis_name)
+    return _logits(x, params, cfg, axis_name)
 
 
 def _prefill_run(params: Params, tokens: torch.Tensor, new_lengths: torch.Tensor,
-                 start: torch.Tensor, cos, sin, cfg: ModelConfig, attend) -> torch.Tensor:
+                 start: torch.Tensor, cos, sin, cfg: ModelConfig, attend, axis_name=None) -> torch.Tensor:
     """Every layer over a (B, Sq) chunk at positions ``start[b] + i`` ->
     (B, V) fp32 logits at each row's last valid token."""
+    _check_axis(axis_name)
     b, sq = tokens.shape
     pos = start[:, None] + torch.arange(sq, device=start.device, dtype=torch.int32)[None, :]
     rope_pos = _rope_positions(pos, cos)
     x = _embed_tokens(params, tokens, cfg)  # (B, Sq, H)
     layers = params["layers"]
     for lidx in range(cfg.num_layers):
-        x = _prefill_layer(x, lidx, layers, cfg, cos, sin, rope_pos, attend)
+        x = _prefill_layer(x, lidx, layers, cfg, cos, sin, rope_pos, attend, axis_name)
     last = torch.clamp(new_lengths - 1, min=0).long()
     x_last = x[torch.arange(b, device=x.device), last]
-    return _logits(x_last, params, cfg)
+    return _logits(x_last, params, cfg, axis_name)
 
 
 def _as_mask(mask, device) -> torch.Tensor:
@@ -662,13 +722,15 @@ def _as_mask(mask, device) -> torch.Tensor:
 
 def decode_step(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor,
                 cos: torch.Tensor, sin: torch.Tensor, cfg: ModelConfig,
-                active: torch.Tensor | None = None):
+                active: torch.Tensor | None = None, axis_name=None):
     """One decode step: (B,) token ids -> (B, V) fp32 logits. Writes each
     layer's new K/V row into ``cache`` and advances ``cache.lengths`` IN
     PLACE; returns ``(logits, cache)``. ``active`` (B,) bool: rows that
     really decode; the others still write a row at their stale length (past
     their valid rows) but neither advance nor attend. Runs on the device of
-    the tensors."""
+    the tensors. ``axis_name`` (a ``parallel.mesh.Axis``): this rank's
+    tensor-parallel shard of the params, the cache and ``cfg``
+    (``parallel.tp``), two all-reduces a layer."""
     check_supported(cfg)
     if active is not None:
         active = _as_mask(active, cache.lengths.device)
@@ -681,7 +743,7 @@ def decode_step(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor,
                             num_splits=cfg.num_splits, block_k=cfg.block_k, k_scales=ks,
                             v_scales=vs, **_attn_options(cfg, lidx))
 
-    logits = _decode_run(params, tokens, pos, cos, sin, cfg, attend)
+    logits = _decode_run(params, tokens, pos, cos, sin, cfg, attend, axis_name)
     cache.lengths.copy_(lengths_now)
     return logits, cache
 
@@ -692,7 +754,7 @@ def decode_step(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor,
 
 
 def _prefill_contiguous(params, cache: contiguous.KVCache, tokens, new_lengths, cos, sin,
-                        cfg: ModelConfig, active):
+                        cfg: ModelConfig, active, axis_name=None):
     check_supported(cfg)
     b, sq = tokens.shape
     start = cache.lengths.clone()
@@ -718,14 +780,14 @@ def _prefill_contiguous(params, cache: contiguous.KVCache, tokens, new_lengths, 
         return flash_prefill(q, k, v, lengths=kv_lengths, causal=True, q_offsets=start,
                              sm_scale=cfg.sm_scale(), **_attn_options(cfg, lidx))  # (B, Hq, Sq, D)
 
-    logits = _prefill_run(params, tokens, new_lengths, start, cos, sin, cfg, attend)
+    logits = _prefill_run(params, tokens, new_lengths, start, cos, sin, cfg, attend, axis_name)
     cache.lengths.copy_(kv_lengths)
     return logits, cache
 
 
 def prefill(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor,
             new_lengths: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-            cfg: ModelConfig):
+            cfg: ModelConfig, axis_name=None):
     """Prompt ingestion: (B, Sq) right-padded tokens with ``new_lengths``
     valid per row -> (B, V) fp32 logits at each row's last valid token.
     Writes the whole Sq-row window of every layer into ``cache`` at
@@ -734,13 +796,14 @@ def prefill(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor,
 
     Raises if ``cache.lengths + Sq`` exceeds the cache: the JAX package's
     ``dynamic_update_slice`` would shift such a window left over valid rows
-    instead."""
-    return _prefill_contiguous(params, cache, tokens, new_lengths, cos, sin, cfg, active=None)
+    instead. ``axis_name`` as in :func:`decode_step`."""
+    return _prefill_contiguous(params, cache, tokens, new_lengths, cos, sin, cfg, active=None,
+                               axis_name=axis_name)
 
 
 def prefill_serving(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor,
                     new_lengths: torch.Tensor, active, reset, cos: torch.Tensor,
-                    sin: torch.Tensor, cfg: ModelConfig):
+                    sin: torch.Tensor, cfg: ModelConfig, axis_name=None):
     """Masked prefill for admission (JAX llama.py:1182-1229): ``reset``
     rows restart their cache at length 0 first; ``active`` rows append this
     chunk's tokens; every other row's cache and length stay exactly as they
@@ -750,7 +813,8 @@ def prefill_serving(params: Params, cache: contiguous.KVCache, tokens: torch.Ten
     cache, updated IN PLACE. Raises if an active window runs past the
     cache."""
     cache.lengths.masked_fill_(_as_mask(reset, cache.lengths.device), 0)
-    return _prefill_contiguous(params, cache, tokens, new_lengths, cos, sin, cfg, active=active)
+    return _prefill_contiguous(params, cache, tokens, new_lengths, cos, sin, cfg, active=active,
+                               axis_name=axis_name)
 
 
 # ---------------------------------------------------------------------------
@@ -760,7 +824,7 @@ def prefill_serving(params: Params, cache: contiguous.KVCache, tokens: torch.Ten
 
 def decode_step_paged(params: Params, cache: paged.PagedKVCache, tokens: torch.Tensor,
                       cos: torch.Tensor, sin: torch.Tensor, cfg: ModelConfig,
-                      active: torch.Tensor | None = None):
+                      active: torch.Tensor | None = None, axis_name=None):
     """One decode step against the page pools (JAX llama.py:1632-1747): each
     layer appends through the page table with kernel K8 at
     ``min(pos, S_logical - 1)`` (``cache.paged.append_decode_paged``) and
@@ -780,14 +844,14 @@ def decode_step_paged(params: Params, cache: paged.PagedKVCache, tokens: torch.T
                                   pages_per_compute_block=cfg.pages_per_compute_block,
                                   k_scales=ks, v_scales=vs, **_attn_options(cfg, lidx))
 
-    logits = _decode_run(params, tokens, pos, cos, sin, cfg, attend)
+    logits = _decode_run(params, tokens, pos, cos, sin, cfg, attend, axis_name)
     cache.lengths.copy_(lengths_now)
     return logits, cache
 
 
 def prefill_serving_paged(params: Params, cache: paged.PagedKVCache, tokens: torch.Tensor,
                           new_lengths: torch.Tensor, active, reset, cos: torch.Tensor,
-                          sin: torch.Tensor, cfg: ModelConfig, prefix_len: int = 0):
+                          sin: torch.Tensor, cfg: ModelConfig, prefix_len: int = 0, axis_name=None):
     """Paged admission prefill (JAX llama.py:1750-1890, 1973-2020); masks as
     in :func:`prefill_serving`. Each active row's chunk is scattered into
     its pages first (inactive rows write nothing). With ``prefix_len == 0``
@@ -825,7 +889,7 @@ def prefill_serving_paged(params: Params, cache: paged.PagedKVCache, tokens: tor
         return flash_prefill(q, kv[0], kv[1], lengths=kv_lengths, causal=True, q_offsets=start,
                              sm_scale=cfg.sm_scale(), **_attn_options(cfg, lidx))
 
-    logits = _prefill_run(params, tokens, new_lengths, start, cos, sin, cfg, attend)
+    logits = _prefill_run(params, tokens, new_lengths, start, cos, sin, cfg, attend, axis_name)
     cache.lengths.copy_(kv_lengths)
     return logits, cache
 
@@ -879,7 +943,7 @@ def _decode_rounds(step, tok, cache, n_steps, sampling, with_logprobs, topk_logp
 def decode_multi(params: Params, cache: contiguous.KVCache, tok: torch.Tensor, cos, sin, active,
                  cfg: ModelConfig, n_steps: int, sampling: dict | None = None,
                  with_logprobs: bool = False, topk_logprobs: int = 0,
-                 max_len_hint: int | None = None) -> tuple:
+                 max_len_hint: int | None = None, axis_name=None) -> tuple:
     """``n_steps`` decode steps (JAX llama.py:1071-1179) -> (tokens (B, n)
     int32, next pending token (B,), cache[, chosen-token logprobs (B, n)]
     [, top-k logprobs (B, n, K), top-k ids (B, n, K)]), all on the device:
@@ -890,19 +954,20 @@ def decode_multi(params: Params, cache: contiguous.KVCache, tok: torch.Tensor, c
     (the kernels walk each row's own length)."""
     del max_len_hint
     active = _as_mask(active, cache.lengths.device)
-    return _decode_rounds(lambda t: decode_step(params, cache, t, cos, sin, cfg, active=active)[0],
-                          tok, cache, n_steps, sampling, with_logprobs, topk_logprobs)
+    return _decode_rounds(
+        lambda t: decode_step(params, cache, t, cos, sin, cfg, active=active, axis_name=axis_name)[0],
+        tok, cache, n_steps, sampling, with_logprobs, topk_logprobs)
 
 
 def decode_multi_paged(params: Params, cache: paged.PagedKVCache, tok: torch.Tensor, cos, sin,
                        active, cfg: ModelConfig, n_steps: int, sampling: dict | None = None,
                        with_logprobs: bool = False, topk_logprobs: int = 0,
-                       max_len_hint: int | None = None) -> tuple:
+                       max_len_hint: int | None = None, axis_name=None) -> tuple:
     """Paged twin of :func:`decode_multi` (JAX llama.py:1893-1970)."""
     del max_len_hint
     active = _as_mask(active, cache.lengths.device)
     return _decode_rounds(
-        lambda t: decode_step_paged(params, cache, t, cos, sin, cfg, active=active)[0],
+        lambda t: decode_step_paged(params, cache, t, cos, sin, cfg, active=active, axis_name=axis_name)[0],
         tok, cache, n_steps, sampling, with_logprobs, topk_logprobs)
 
 
@@ -912,7 +977,7 @@ def decode_multi_paged(params: Params, cache: paged.PagedKVCache, tok: torch.Ten
 
 
 def _verify_core(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor, cos, sin,
-                 cfg: ModelConfig, active: torch.Tensor | None = None) -> torch.Tensor:
+                 cfg: ModelConfig, active: torch.Tensor | None = None, axis_name=None) -> torch.Tensor:
     """T consecutive tokens per sequence in one step (JAX llama.py:1237-1328)
     -> fp32 logits at EVERY position (B, T, V); the cache gains T rows per
     active row, IN PLACE. Structurally the prefill layer (``_prefill_layer``)
@@ -922,6 +987,7 @@ def _verify_core(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor
     length; their attention output is discarded. The caller rolls
     ``cache.lengths`` back to the accepted prefix."""
     check_supported(cfg)
+    _check_axis(axis_name)
     b, t = tokens.shape
     start = cache.lengths.clone()
     if active is None:
@@ -944,9 +1010,9 @@ def _verify_core(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor
     x = _embed_tokens(params, tokens, cfg)  # (B, T, H)
     layers = params["layers"]
     for lidx in range(cfg.num_layers):
-        x = _prefill_layer(x, lidx, layers, cfg, cos, sin, rope_pos, attend)
+        x = _prefill_layer(x, lidx, layers, cfg, cos, sin, rope_pos, attend, axis_name)
     cache.lengths.copy_(start + n_valid)
-    return _logits(x.reshape(b * t, -1), params, cfg).reshape(b, t, -1)
+    return _logits(x.reshape(b * t, -1), params, cfg, axis_name).reshape(b, t, -1)
 
 
 def _accept(logits: torch.Tensor, draft: torch.Tensor, active: torch.Tensor):
@@ -970,7 +1036,7 @@ def _accept(logits: torch.Tensor, draft: torch.Tensor, active: torch.Tensor):
 
 def _spec_step(params: Params, cache: contiguous.KVCache, history: torch.Tensor,
                pending: torch.Tensor, cos, sin, active: torch.Tensor, cfg: ModelConfig,
-               num_draft: int, ngram: int):
+               num_draft: int, ngram: int, axis_name=None):
     """One prompt-lookup round (JAX llama.py:1331-1392): draft -> verify ->
     accept. Returns (history, pending, tokens (B, k+1), n_emit (B,)); the
     cache is updated IN PLACE and rolled back to ``start + n_emit``.
@@ -980,7 +1046,7 @@ def _spec_step(params: Params, cache: contiguous.KVCache, history: torch.Tensor,
     history = drafting.write_token(history, start, pending)
     draft = drafting.propose_drafts(history, start, pending, num_draft=num_draft, ngram=ngram)
     tokens = torch.cat([pending[:, None], draft], dim=1)  # (B, T)
-    logits = _verify_core(params, cache, tokens, cos, sin, cfg, active=active)
+    logits = _verify_core(params, cache, tokens, cos, sin, cfg, active=active, axis_name=axis_name)
     out, n_emit, acc, bonus = _accept(logits, draft, active)
     cache.lengths.copy_(start + n_emit)
     hist_new = drafting.write_block(history, start + 1, draft)
@@ -991,19 +1057,22 @@ def _spec_step(params: Params, cache: contiguous.KVCache, history: torch.Tensor,
 
 def spec_decode_multi(params: Params, cache: contiguous.KVCache, history: torch.Tensor,
                       tok: torch.Tensor, cos, sin, active, cfg: ModelConfig, n_steps: int,
-                      num_draft: int = 4, ngram: int = 4, max_len_hint: int | None = None) -> tuple:
+                      num_draft: int = 4, ngram: int = 4, max_len_hint: int | None = None,
+                      axis_name=None) -> tuple:
     """``n_steps`` prompt-lookup speculative rounds (JAX llama.py:1430-1465)
     -> (tokens (B, n, k+1), counts (B, n), next pending (B,), cache,
     history), all on the device: row b of round i emitted ``counts[b, i]``
     tokens ``tokens[b, i, :counts[b, i]]``. Greedy only; the cache is updated
     IN PLACE and the history (B, S_hist) int32 comes back as a new tensor.
-    ``max_len_hint`` sizes the TPU grid and is unused here."""
+    ``max_len_hint`` sizes the TPU grid and is unused here. ``axis_name``:
+    the verify step is tensor-parallel as :func:`decode_step` (each rank's
+    argmax sees the full-vocab logits, so the accept decisions are equal)."""
     del max_len_hint
     active = _as_mask(active, cache.lengths.device)
     outs, counts = [], []
     for _ in range(n_steps):
         history, tok, out, n_emit = _spec_step(params, cache, history, tok, cos, sin, active, cfg,
-                                               num_draft, ngram)
+                                               num_draft, ngram, axis_name)
         outs.append(out)
         counts.append(n_emit)
     return torch.stack(outs, dim=1), torch.stack(counts, dim=1), tok, cache, history
@@ -1012,7 +1081,7 @@ def spec_decode_multi(params: Params, cache: contiguous.KVCache, history: torch.
 def _spec_step_draft_model(params: Params, cache: contiguous.KVCache, dparams: Params,
                            dcache: contiguous.KVCache, pending: torch.Tensor, cos, sin, dcos,
                            dsin, active: torch.Tensor, cfg: ModelConfig, dcfg: ModelConfig,
-                           num_draft: int):
+                           num_draft: int, axis_name=None, draft_axis_name=None):
     """One draft-model round (JAX llama.py:1468-1552): k+1 draft decode
     steps feed [pending, d_1..d_k] (step j's argmax is d_j; the last step
     only appends d_k's row), the target verifies them in one step, both
@@ -1021,12 +1090,13 @@ def _spec_step_draft_model(params: Params, cache: contiguous.KVCache, dparams: P
     start = cache.lengths.clone()
     tok, drafts = pending, []
     for _ in range(num_draft + 1):
-        logits, _ = decode_step(dparams, dcache, tok, dcos, dsin, dcfg, active=active)
+        logits, _ = decode_step(dparams, dcache, tok, dcos, dsin, dcfg, active=active,
+                                axis_name=draft_axis_name)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         drafts.append(tok)
     draft = torch.stack(drafts[:num_draft], dim=1)  # (B, k)
     tokens = torch.cat([pending[:, None], draft], dim=1)
-    logits = _verify_core(params, cache, tokens, cos, sin, cfg, active=active)
+    logits = _verify_core(params, cache, tokens, cos, sin, cfg, active=active, axis_name=axis_name)
     out, n_emit, _, bonus = _accept(logits, draft, active)
     cache.lengths.copy_(start + n_emit)
     dcache.lengths.copy_(start + n_emit)  # inactive rows never advanced: start is their length
@@ -1036,16 +1106,20 @@ def _spec_step_draft_model(params: Params, cache: contiguous.KVCache, dparams: P
 def spec_decode_multi_draft(params: Params, cache: contiguous.KVCache, dparams: Params,
                             dcache: contiguous.KVCache, tok: torch.Tensor, cos, sin, dcos, dsin,
                             active, cfg: ModelConfig, dcfg: ModelConfig, n_steps: int,
-                            num_draft: int = 4, max_len_hint: int | None = None) -> tuple:
+                            num_draft: int = 4, max_len_hint: int | None = None, axis_name=None,
+                            draft_axis_name=None) -> tuple:
     """``n_steps`` draft-model speculative rounds (JAX llama.py:1594-1624)
     -> (tokens (B, n, k+1), counts (B, n), next pending, cache, draft
-    cache); both caches are updated IN PLACE."""
+    cache); both caches are updated IN PLACE. Under TP the target is
+    sharded over ``axis_name`` and the draft runs whole on every rank
+    (``draft_axis_name`` None, as in JAX's TP engine)."""
     del max_len_hint
     active = _as_mask(active, cache.lengths.device)
     outs, counts = [], []
     for _ in range(n_steps):
         tok, out, n_emit = _spec_step_draft_model(params, cache, dparams, dcache, tok, cos, sin,
-                                                  dcos, dsin, active, cfg, dcfg, num_draft)
+                                                  dcos, dsin, active, cfg, dcfg, num_draft, axis_name,
+                                                  draft_axis_name)
         outs.append(out)
         counts.append(n_emit)
     return torch.stack(outs, dim=1), torch.stack(counts, dim=1), tok, cache, dcache

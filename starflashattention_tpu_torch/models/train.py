@@ -35,10 +35,23 @@ flash path, as in JAX. The loss is the chunk's mean and the gradients are
 the chunk's: ``parallel.train.make_cp_train_step`` averages them over the
 axes. Every rank of the axis runs the forward and the backward together.
 
-Not ported, each raising ``NotImplementedError``: ``axis_name`` (tensor
-parallelism, the tensor-parallel half of ROADMAP item 16), MoE
-(``_moe_mlp_train``, item 14b-train), MLA (item 14c-train: JAX's training
-path reads ``wqkv`` and has no MLA form) and every config field
+Tensor parallelism: ``axis_name`` (a ``parallel.mesh.Axis``) runs the
+Megatron-sharded form (JAX ``train.py:31-98``): ``params`` and ``cfg`` are
+this rank's shard (``parallel.tp.shard_params``, ``tp._shard_cfg``), the
+activations are replicated, Megatron's f (identity forward, a sum of the
+cotangent backward: ``parallel.comm.copy_to_axis``) enters every
+column-parallel branch, g (a sum forward, the identity backward:
+``reduce_from_axis``) completes every row-parallel projection, and the
+vocab-sharded head's logit slices are gathered with an explicit backward
+(``comm.all_gather_grad``, JAX's ``_gather_vocab``). Every collective of
+the training path sits inside such a pair, so autograd transposes none.
+The replicated parameters' gradients come out whole and equal on every
+rank of the axis; the sharded ones stay with their shard.
+Composes with ``seq_axis_name``: the ring rotates head-sharded KV chunks.
+
+Not ported, each raising ``NotImplementedError``: MoE (``_moe_mlp_train``,
+item 14b-train, with or without ``axis_name``), MLA (item 14c-train: JAX's
+training path reads ``wqkv`` and has no MLA form) and every config field
 ``llama.check_supported`` refuses.
 """
 
@@ -53,6 +66,16 @@ from starflashattention_tpu_torch.ops.flash_bwd import flash_attention
 from starflashattention_tpu_torch.runtime.params import ModelConfig
 
 MOMENTUM = 0.9
+
+
+def _comm():
+    """``parallel.comm``, imported when a tensor-parallel path first needs
+    it (``parallel`` imports this module)."""
+    from starflashattention_tpu_torch.parallel import comm
+
+    return comm
+
+
 
 
 # ---------------------------------------------------------------------------
@@ -96,9 +119,8 @@ def value_and_grad(fn, tree):
 
 
 def _check_trainable(params, cfg: ModelConfig, axis_name, seq_axis_name, use_flash=True) -> None:
-    if axis_name is not None:
-        raise NotImplementedError("tensor-parallel training (axis_name) is not ported yet (ROADMAP Queue 1 "
-                                  "item 16, the tensor-parallel half: parallel/tp.py)")
+    if isinstance(axis_name, str):
+        raise TypeError("axis_name takes a parallel.mesh.Axis (mesh.axis(name)), not an axis's name")
     if isinstance(seq_axis_name, str):
         raise TypeError("seq_axis_name takes a parallel.mesh.Axis (mesh.axis(name)), not an axis's name")
     if seq_axis_name is not None and not use_flash:
@@ -160,14 +182,15 @@ def _proj(x, layers, ll, i, name, lscale):
 
 
 def _layer(x, i: int, layers: dict, adapters: dict, lscale, pos, cos, sin, cfg: ModelConfig,
-           use_flash: bool, seq_axis=None):
+           use_flash: bool, seq_axis=None, axis=None):
     """Decoder layer ``i`` on (B, S, H) activations; ``layers`` and
     ``adapters`` hold per-layer sequences of weights and adapter factors;
-    with ``seq_axis`` the attention is the ring over it."""
+    with ``seq_axis`` the attention is the ring over it; with ``axis`` the
+    layer is this rank's tensor-parallel shard (Megatron's f and g)."""
     b, s, _ = x.shape
     eps = cfg.rms_norm_eps
     ll = {n: {"a": ab["a"][i], "b": ab["b"][i]} for n, ab in adapters.items()} or None
-    h = llama.rms_norm(x, layers["attn_norm"][i], eps)
+    h = _comm().copy_to_axis(llama.rms_norm(x, layers["attn_norm"][i], eps), axis)
     qkv = _proj(h, layers, ll, i, "wqkv", lscale)
     if "bqkv" in layers:
         qkv = qkv + layers["bqkv"][i]
@@ -188,12 +211,14 @@ def _layer(x, i: int, layers: dict, adapters: dict, lscale, pos, cos, sin, cfg: 
     else:
         o = _attn_plain(q, k, v, cfg, i)
     o = o.transpose(1, 2).reshape(b, s, -1)
-    x = llama._residual_add(x, _proj(o, layers, ll, i, "wo", lscale), layers, i, "post_attn_norm", eps)
-    h = llama.rms_norm(x, layers["mlp_norm"][i], eps)
+    attn_out = _comm().reduce_from_axis(_proj(o, layers, ll, i, "wo", lscale), axis)
+    x = llama._residual_add(x, attn_out, layers, i, "post_attn_norm", eps)
+    h = _comm().copy_to_axis(llama.rms_norm(x, layers["mlp_norm"][i], eps), axis)
     gu = _proj(h, layers, ll, i, "w_gate_up", lscale)
     inter = gu.shape[-1] // 2
     act = llama._GATE_ACTS[cfg.mlp_activation](gu[..., :inter]) * gu[..., inter:]
-    return llama._residual_add(x, _proj(act, layers, ll, i, "w_down", lscale), layers, i, "post_mlp_norm", eps)
+    mlp_out = _comm().reduce_from_axis(_proj(act, layers, ll, i, "w_down", lscale), axis)
+    return llama._residual_add(x, mlp_out, layers, i, "post_mlp_norm", eps)
 
 
 def forward_train(
@@ -212,7 +237,9 @@ def forward_train(
     """All-position fp32 logits (B, S, V): the training twin of the serving
     prefill, cache-free and differentiable. Runs on the device of
     ``params``. With ``seq_axis_name`` (context parallelism, see the module
-    doc) ``tokens`` is this rank's chunk and the logits are its rows."""
+    doc) ``tokens`` is this rank's chunk and the logits are its rows. With
+    ``axis_name`` (tensor parallelism, see the module doc) ``params`` and
+    ``cfg`` are this rank's shard; the logits are whole on every rank."""
     _check_trainable(params, cfg, axis_name, seq_axis_name, use_flash)
     b, s = tokens.shape
     pos0 = 0 if seq_axis_name is None else seq_axis_name.index * s
@@ -228,11 +255,16 @@ def forward_train(
                     for name, ab in lora["layers"].items()}
         lscale = lora["scale"]
     for i in range(cfg.num_layers):
-        args = (x, i, layers, adapters, lscale, pos, cos, sin, cfg, use_flash, seq_axis_name)
+        args = (x, i, layers, adapters, lscale, pos, cos, sin, cfg, use_flash, seq_axis_name, axis_name)
         x = checkpoint(_layer, *args, use_reentrant=False) if remat else _layer(*args)
     xn = llama.rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    vocab_sharded = axis_name is not None and cfg.lm_head_sharded
+    if vocab_sharded:
+        xn = _comm().copy_to_axis(xn, axis_name)  # the vocab shards are column-parallel in V
     logits = torch.matmul(xn.float(), head.float())  # jnp.dot(..., preferred_element_type=f32)
+    if vocab_sharded:
+        logits = _comm().all_gather_grad(logits, axis_name, dim=-1)
     if cfg.final_softcap is not None:
         logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
     return logits
@@ -262,13 +294,14 @@ def loss_fn(params, batch, cfg: ModelConfig, cos, sin, *, use_flash=True, remat=
 
 
 def loss_and_grads(params, batch, cfg: ModelConfig, cos, sin, *, use_flash=True, remat=True,
-                   seq_axis_name=None):
+                   seq_axis_name=None, axis_name=None):
     """``(loss, grads)`` of :func:`loss_fn` with respect to ``params``,
     the grads shaped like ``params`` (``jax.value_and_grad(loss_fn)``);
-    with ``seq_axis_name`` this rank's chunk's loss and gradients."""
+    with ``seq_axis_name`` this rank's chunk's loss and gradients, with
+    ``axis_name`` this rank's shard's gradients."""
     return value_and_grad(
         lambda p: loss_fn(p, batch, cfg, cos, sin, use_flash=use_flash, remat=remat,
-                          seq_axis_name=seq_axis_name), params)
+                          seq_axis_name=seq_axis_name, axis_name=axis_name), params)
 
 
 def train_step(params, momentum, batch, cfg: ModelConfig, cos, sin, lr: float, *, use_flash=True,

@@ -20,7 +20,13 @@
 On CPU tensors every entry runs its ``*_plain`` twin. Each launch counts
 once in the entry's ``launches``; ``launches_tiled`` counts the launches of
 the weight-only entries that took the tiled (more than 64 rows) kernel.
-Tensor-parallel activation scales (the JAX ``axis_name``) are not ported.
+
+Under tensor parallelism the row-parallel projections (``wo``, ``w_down``)
+see a shard of each activation row: ``axis`` (a ``parallel.mesh.Axis``,
+JAX's ``axis_name``) max-reduces each row's absmax over the axis before
+the scale is taken, so every shard quantizes with the full row's scale,
+the single process's bit for bit (a max is exact). The kernels do not
+change.
 """
 
 from __future__ import annotations
@@ -86,28 +92,34 @@ def quant_matmul_int4_plain(x, w, scale, *, layer=None, out_dtype=None):
     return acc.to(out_dtype or torch.float32)
 
 
-def quantize_rows(x: torch.Tensor, eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_rows(x: torch.Tensor, eps: float = 1e-6, axis=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric int8 quantization of activations -> (x int8 (M, H),
     row scale (M, 1) fp32). Same bytes as the JAX package's eager
-    ``quantize_rows``."""
+    ``quantize_rows``. With ``axis`` (``x`` a shard of each row) the row
+    absmax is max-reduced over the axis first (JAX's ``pmax``)."""
     xf = x.float()
-    rs = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=eps) / 127.0
+    absmax = xf.abs().amax(dim=-1, keepdim=True)
+    if axis is not None:
+        from starflashattention_tpu_torch.parallel.comm import all_reduce
+
+        absmax = all_reduce(absmax, axis, op="max")
+    rs = torch.clamp(absmax, min=eps) / 127.0
     return torch.round(xf / rs).clamp(-127, 127).to(torch.int8), rs
 
 
-def quant_matmul_w8a8_plain(x, w, scale, *, layer=None, out_dtype=None):
+def quant_matmul_w8a8_plain(x, w, scale, *, layer=None, out_dtype=None, axis=None):
     """Plain W8A8: exact int8 x int8 sums, then ``f32(acc) * rs * s``."""
     w, scale, layer = _stack(w, scale, layer)
-    x8, rs = quantize_rows(x)
+    x8, rs = quantize_rows(x, axis=axis)
     y = _int_dot(x8, w[layer]).float() * rs * scale[layer].float()
     return y.to(out_dtype or torch.float32)
 
 
-def quant_matmul_w4a8_plain(x, w, scale, *, layer=None, out_dtype=None):
+def quant_matmul_w4a8_plain(x, w, scale, *, layer=None, out_dtype=None, axis=None):
     """Plain W4A8: exact int8 x int4 sums per group, each times its group
     scale in fp32, summed over groups, times the row scale at the end."""
     w, scale, layer = _stack(w, scale, layer)
-    x8, rs = quantize_rows(x)
+    x8, rs = quantize_rows(x, axis=axis)
     acc = torch.zeros((x.shape[0], w.shape[-1]), dtype=torch.float32, device=x.device)
     for lo_cols, hi_cols, lo, hi, s in _int4_groups(w, scale, layer):
         acc += (_int_dot(x8[:, lo_cols], lo) + _int_dot(x8[:, hi_cols], hi)).float() * s
@@ -241,11 +253,12 @@ quant_matmul_int4.launches = 0
 quant_matmul_int4.launches_tiled = 0
 
 
-def _launch_a8(entry, x, w, scale, layer, out_dtype, half):
-    """Quantize the rows, then csrc/quant_matmul_a8.cu: ``half`` 0 for int8
-    weights (W8A8), else the packed rows per int4 half group (W4A8). Counts
-    the launch in ``entry.launches``."""
-    x8, rs = quantize_rows(x)
+def _launch_a8(entry, x, w, scale, layer, out_dtype, half, axis):
+    """Quantize the rows (their scale max-reduced over ``axis`` when given),
+    then csrc/quant_matmul_a8.cu: ``half`` 0 for int8 weights (W8A8), else
+    the packed rows per int4 half group (W4A8). Counts the launch in
+    ``entry.launches``."""
+    x8, rs = quantize_rows(x, axis=axis)
     m, o = x.shape[0], w.shape[-1]
     out = torch.empty((m, o), dtype=out_dtype, device=x.device)
     if m == 0:
@@ -269,13 +282,15 @@ def quant_matmul_w8a8(
     *,
     layer: int | None = None,
     out_dtype: torch.dtype | None = None,
+    axis=None,
 ) -> torch.Tensor:
     """W8A8: per-row int8 activations x int8 weights, int32 sums,
-    ``f32(acc) * rs[row] * s[col]`` -> (M, O) (kernel K10)."""
+    ``f32(acc) * rs[row] * s[col]`` -> (M, O) (kernel K10). ``axis``: see
+    :func:`quantize_rows` (the row-parallel projections under TP)."""
     if w.dtype != torch.int8:
         raise ValueError(f"W8A8 requires int8 weights, got {w.dtype}")
     if x.device.type == "cpu":
-        return quant_matmul_w8a8_plain(x, w, scale, layer=layer, out_dtype=out_dtype)
+        return quant_matmul_w8a8_plain(x, w, scale, layer=layer, out_dtype=out_dtype, axis=axis)
     x, w, scale, layer, out_dtype = _prepare("quant_matmul_w8a8", x, w, scale, layer, out_dtype)
     n_layers, h, o = w.shape
     if x.shape[1] != h or scale.shape != (n_layers, o):
@@ -283,7 +298,7 @@ def quant_matmul_w8a8(
                          f"{tuple(w.shape)}")
     if h % 64 or o % 32:
         raise ValueError(f"the CUDA kernel needs H a multiple of 64 and O of 32, got H={h}, O={o}")
-    return _launch_a8(quant_matmul_w8a8, x, w, scale, layer, out_dtype, 0)
+    return _launch_a8(quant_matmul_w8a8, x, w, scale, layer, out_dtype, 0, axis)
 
 
 quant_matmul_w8a8.launches = 0
@@ -296,15 +311,16 @@ def quant_matmul_w4a8(
     *,
     layer: int | None = None,
     out_dtype: torch.dtype | None = None,
+    axis=None,
 ) -> torch.Tensor:
     """W4A8: per-row int8 activations x int4 weights unpacked to int8, int32
     sums per group, each times its group scale in fp32, times the row scale
-    at the store -> (M, O) (kernel K11)."""
+    at the store -> (M, O) (kernel K11). ``axis`` as for W8A8."""
     if x.device.type == "cpu":
-        return quant_matmul_w4a8_plain(x, w, scale, layer=layer, out_dtype=out_dtype)
+        return quant_matmul_w4a8_plain(x, w, scale, layer=layer, out_dtype=out_dtype, axis=axis)
     x, w, scale, layer, out_dtype = _prepare("quant_matmul_w4a8", x, w, scale, layer, out_dtype)
     _, _, _, half = _int4_geometry("quant_matmul_w4a8", x, w, scale, 32)
-    return _launch_a8(quant_matmul_w4a8, x, w, scale, layer, out_dtype, half)
+    return _launch_a8(quant_matmul_w4a8, x, w, scale, layer, out_dtype, half, axis)
 
 
 quant_matmul_w4a8.launches = 0

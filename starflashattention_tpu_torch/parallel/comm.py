@@ -11,7 +11,18 @@ Each function takes an :class:`parallel.mesh.Axis` and runs on its group:
   ``.wait()`` gives the received tensors, so that a caller can issue the
   next step's rotation before the kernel of the step in hand;
 - :func:`all_reduce`: ``psum`` (``op="sum"``) or ``pmax`` (``op="max"``),
-  returning a new tensor;
+  returning a new tensor; :func:`copy_to_axis` and
+  :func:`reduce_from_axis` are Megatron's f and g (an all-reduce in the
+  backward or in the forward only), the training path's tensor-parallel
+  collectives;
+- :func:`all_gather`: JAX's tiled ``all_gather`` (every index's tensor
+  concatenated along one dimension, in index order);
+  :func:`all_gather_grad` is the same with a gradient whose backward takes
+  this index's slice of the cotangent (the vocab-sharded head of the
+  training path: its cotangent is replicated);
+- :func:`send`, :func:`recv` and :func:`broadcast`: point-to-point
+  transfers and a broadcast from one index (the pipeline's stage-to-stage
+  activations, ``ppermute`` with an open chain, and its logits);
 - :func:`all_to_all`: JAX's tiled all-to-all, ``split_dim`` cut into n
   chunks, chunk j sent to index j, the received chunks concatenated along
   ``concat_dim`` in index order; :func:`all_to_all_grad` is the same with a
@@ -106,6 +117,106 @@ def all_reduce(x: torch.Tensor, axis, op: str = "sum") -> torch.Tensor:
         buf = buf.clone()
     dist.all_reduce(buf, op=_OPS[op], group=axis.group)
     return _back(buf, x)
+
+
+def all_gather(x: torch.Tensor, axis, dim: int = -1) -> torch.Tensor:
+    """JAX's ``all_gather(x, axis, axis=dim, tiled=True)``: the tensors of
+    every index along the axis, concatenated along ``dim`` in index order
+    (equal shapes on every rank)."""
+    if axis.size == 1:
+        return x
+    buf = _send_form(x, axis)
+    parts = [_empty_like(buf) for _ in range(axis.size)]
+    dist.all_gather(parts, buf, group=axis.group)
+    return torch.cat([_back(p, x) for p in parts], dim=dim)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.n = axis, dim, x.shape[dim]
+        return all_gather(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.axis.index * ctx.n, ctx.n), None, None
+
+
+def all_gather_grad(x: torch.Tensor, axis, dim: int = -1) -> torch.Tensor:
+    """:func:`all_gather` with a gradient: the backward is this index's
+    slice of the cotangent, which every index holds whole (JAX's
+    ``_gather_vocab``)."""
+    return _AllGather.apply(x, axis, dim)
+
+
+class _SumBackward(torch.autograd.Function):
+    """Megatron's f: the identity forward, a sum over the axis backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.axis), None
+
+
+class _SumForward(torch.autograd.Function):
+    """Megatron's g: a sum over the axis forward, the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_axis(x: torch.Tensor, axis) -> torch.Tensor:
+    """Megatron's f on ``axis``: ``x`` forward, its cotangent summed over
+    the axis backward (JAX ``models/train._f``)."""
+    return x if axis is None else _SumBackward.apply(x, axis)
+
+
+def reduce_from_axis(x: torch.Tensor, axis) -> torch.Tensor:
+    """Megatron's g on ``axis``: the sum over the axis forward, the
+    cotangent as it is backward (JAX ``models/train._g``)."""
+    return x if axis is None else _SumForward.apply(x, axis)
+
+
+def _recv_buffer(shape, dtype, device, axis) -> torch.Tensor:
+    if device.type == "cuda" and axis.backend == "gloo":
+        return torch.empty(shape, dtype=dtype, pin_memory=True)
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
+def send(x: torch.Tensor, axis, index: int) -> None:
+    """Send ``x`` to ``index`` along the axis (blocking)."""
+    dist.send(_send_form(x, axis), axis.rank_at(index), group=axis.group)
+
+
+def recv(shape, dtype: torch.dtype, device: torch.device, axis, index: int) -> torch.Tensor:
+    """Receive a tensor of ``shape`` and ``dtype`` from ``index`` along the
+    axis, on ``device`` (blocking)."""
+    buf = _recv_buffer(shape, dtype, device, axis)
+    dist.recv(buf, axis.rank_at(index), group=axis.group)
+    return _back(buf, torch.empty(0, device=device))
+
+
+def broadcast(x: torch.Tensor | None, shape, dtype: torch.dtype, device: torch.device, axis,
+              index: int) -> torch.Tensor:
+    """Index ``index``'s tensor ``x`` on every rank of the axis (the others
+    pass None and the shape and dtype to expect): the same bytes everywhere."""
+    if axis.index == index:
+        buf = _send_form(x, axis)
+        if buf.data_ptr() == x.data_ptr():
+            buf = buf.clone()
+    else:
+        buf = _recv_buffer(shape, dtype, device, axis)
+    dist.broadcast(buf, axis.rank_at(index), group=axis.group)
+    return _back(buf, torch.empty(0, device=device))
 
 
 def all_to_all(x: torch.Tensor, axis, split_dim: int, concat_dim: int) -> torch.Tensor:

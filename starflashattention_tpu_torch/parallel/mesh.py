@@ -13,8 +13,8 @@ Ranks are laid out row-major over the axes, as JAX lays out
 
 Axis names, as in JAX: ``"data"`` (batch rows), ``"seq"`` (sequence shards:
 ring attention, Ulysses, the sequence-sharded decode, context-parallel
-training). ``"model"`` (tensor parallelism) has no user in the port yet
-(ROADMAP Queue 1 item 16, the tensor-parallel half).
+training), ``"model"`` (tensor and expert parallelism, ``parallel/tp.py``)
+and ``"pipe"`` (pipeline stages, ``parallel/pp.py``).
 
 :func:`init_distributed` joins the process group: from ``env://`` (what
 ``torchrun`` sets) or from an explicit address, world size and rank, with

@@ -1,5 +1,5 @@
 """Sharded training — twin of the JAX ``parallel/train.py``: the
-context-parallel (× data-parallel) step.
+context-parallel (× data-parallel) step and the tensor-parallel ones.
 
 :func:`make_cp_train_step` shards each sequence over the ``seq`` axis (and,
 optionally, the batch rows over a ``data`` axis): each rank runs
@@ -15,36 +15,109 @@ the same update in place. The optimizer is the port's SGD with momentum 0.9
 (``models.train.sgd_update_``, as ``models.train.train_step``) where JAX
 takes an optax optimizer; :func:`init_opt_state` gives its zero momentum.
 
-The tensor-parallel builders (:func:`make_tp_dp_value_and_grad`,
-:func:`make_tp_dp_train_step`, :func:`make_tp_cp_train_step`) need
-``parallel/tp.py`` and raise ``NotImplementedError`` (ROADMAP Queue 1 item
-16, the tensor-parallel half).
+The tensor-parallel builders (JAX :36-115, :240-301) keep the params in
+the serving layouts (``parallel.tp.shard_params``: each rank its shard, so
+a model trained on the mesh serves on it without resharding). Each rank
+runs ``models.train`` with ``axis_name`` on its batch rows (Megatron's f
+and g make the backward exact, and leave the replicated parameters'
+gradients whole and equal over ``model``); the loss and the gradients are
+then averaged over ``data`` (and ``seq``) only, in the gradients' own
+dtype: :func:`make_tp_dp_value_and_grad`, :func:`make_tp_dp_train_step`
+(TP x DP) and :func:`make_tp_cp_train_step` (TP x CP x optional DP, the
+ring rotating head-sharded KV chunks). MoE under TP training still raises
+(item 14b-train), as all MoE training does.
 """
 
 from __future__ import annotations
 
 import torch
 
-from starflashattention_tpu_torch.models.train import (loss_tokens, sgd_update_, tree_leaves, tree_map,
+from starflashattention_tpu_torch.models.train import (loss_fn, loss_tokens, sgd_update_, tree_leaves, tree_map,
                                                        tree_unflatten, value_and_grad)
 from starflashattention_tpu_torch.parallel import comm
 from starflashattention_tpu_torch.runtime.params import ModelConfig
 
 SEQ = "seq"
-TP_SLICE = ("tensor-parallel training needs parallel/tp.py, which is not ported yet (ROADMAP Queue 1 "
-            "item 16, the tensor-parallel half)")
+DATA, MODEL = "data", "model"
 
 
-def make_tp_dp_value_and_grad(mesh, cfg: ModelConfig, **kwargs):
-    raise NotImplementedError(TP_SLICE)
+def make_tp_dp_value_and_grad(mesh, cfg: ModelConfig, *, use_flash: bool = True, remat: bool = True,
+                              grad_accum: int = 1):
+    """``(vg, vg)`` with ``vg(params, batch, cos, sin) -> (loss, grads)``
+    over the ``(data, model)`` mesh (JAX returns its jitted and unjitted
+    forms; the port has one). ``params`` is this rank's shard
+    (``tp.shard_params``, dense, the training dtype); ``batch`` the GLOBAL
+    (B, S+1) token batch, the same on every rank, B divisible by the data
+    axis: each rank takes its data shard's rows. ``loss`` is the global
+    batch mean; ``grads`` are shaped like this rank's ``params``."""
+    from starflashattention_tpu_torch.parallel import tp
+
+    tp._check(cfg, mesh)
+    shard_cfg = tp._shard_cfg(cfg, mesh)
+    model, data = mesh.axis(MODEL), mesh.axes.get(DATA)
+
+    def one(params, batch, cos, sin):
+        return value_and_grad(lambda p: loss_fn(p, batch, shard_cfg, cos, sin, use_flash=use_flash,
+                                                remat=remat, axis_name=model), params)
+
+    def vg(params, batch, cos, sin):
+        batch = _local_rows(torch.as_tensor(batch, device=mesh.device), data, 0)
+        if grad_accum > 1:
+            loss, grads = _accumulate(lambda p, b: one(p, b, cos, sin), grad_accum)(params, batch)
+        else:
+            loss, grads = one(params, batch, cos, sin)
+        if data is not None:  # equal data shards: the global mean is the mean of the shards' means
+            loss, grads = _mean_over(loss, grads, data)
+        return loss, grads
+
+    return vg, vg
 
 
-def make_tp_dp_train_step(mesh, cfg: ModelConfig, optimizer=None, **kwargs):
-    raise NotImplementedError(TP_SLICE)
+def make_tp_dp_train_step(mesh, cfg: ModelConfig, lr: float, *, use_flash: bool = True, remat: bool = True,
+                          grad_accum: int = 1):
+    """``step(params, opt_state, batch, cos, sin) -> (params, opt_state,
+    loss)``: one SGD-with-momentum step at ``lr`` (where JAX takes an optax
+    optimizer) over the ``(data, model)`` mesh, ``params`` and
+    ``opt_state`` this rank's shards, updated IN PLACE."""
+    vg, _ = make_tp_dp_value_and_grad(mesh, cfg, use_flash=use_flash, remat=remat, grad_accum=grad_accum)
+
+    def step(params, opt_state, batch, cos, sin):
+        loss, grads = vg(params, batch, cos, sin)
+        sgd_update_(params, opt_state, grads, lr)
+        return params, opt_state, loss
+
+    return step
 
 
-def make_tp_cp_train_step(mesh, cfg: ModelConfig, optimizer=None, **kwargs):
-    raise NotImplementedError(TP_SLICE)
+def make_tp_cp_train_step(mesh, cfg: ModelConfig, lr: float, *, seq_axis: str = SEQ,
+                          data_axis: str | None = None, remat: bool = True):
+    """TP (``model``) x context parallelism (``seq_axis``, the ring) x
+    optional data parallelism: ``step(params, opt_state, batch, cos, sin)
+    -> (params, opt_state, loss)`` with this rank's TP shard of the params
+    (replicated over ``seq`` and ``data``) and the GLOBAL (B, S+1) batch,
+    cut as :func:`make_cp_train_step` cuts it. The gradients are averaged
+    over the seq and data axes; the model axis is Megatron's f and g."""
+    from starflashattention_tpu_torch.parallel import tp
+
+    tp._check(cfg, mesh)
+    shard_cfg = tp._shard_cfg(cfg, mesh)
+    model, seq = mesh.axis(MODEL), mesh.axis(seq_axis)
+    data = None if data_axis is None else mesh.axis(data_axis)
+    axes = [a for a in (data, seq) if a is not None]
+
+    def step(params, opt_state, batch, cos, sin):
+        batch = torch.as_tensor(batch, device=mesh.device)
+        inp, tgt = batch[:, :-1], batch[:, 1:]
+        inp, tgt = (_local_rows(_local_rows(x, data, 0), seq, 1) for x in (inp, tgt))
+        loss, grads = value_and_grad(
+            lambda p: loss_tokens(p, inp, tgt, shard_cfg, cos, sin, use_flash=True, remat=remat,
+                                  axis_name=model, seq_axis_name=seq), params)
+        for axis in axes:
+            loss, grads = _mean_over(loss, grads, axis)
+        sgd_update_(params, opt_state, grads, lr)
+        return params, opt_state, loss
+
+    return step
 
 
 def init_opt_state(params):

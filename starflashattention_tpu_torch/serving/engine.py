@@ -26,11 +26,26 @@ whose cache advances beside the target's, and emit 1 to k+1 tokens a slot
 Both record serving metrics (TTFT, decode throughput, rounds, preemptions,
 speculative steps) in :class:`EngineStats`.
 
+With ``mesh`` (a ``parallel.mesh.Mesh`` with a ``model`` axis and
+optionally a ``data`` axis, JAX engine.py:94-130, :935-960) both engines
+serve tensor- and data-parallel: one process a rank, each running the
+whole engine. The params are sharded at construction
+(``parallel.tp.shard_params``: full params in, this rank's shard kept), the
+cache holds this rank's KV heads of its data shard's slots, and every
+prefill and decode round is a ``parallel.tp`` builder, which returns the
+tokens (and logits) of every data shard to every rank. So each rank's
+scheduler sees the same tokens and makes the same decisions, and every
+rank's streams are equal bit for bit. ``num_slots`` must divide over the
+data axis; slot ``s`` lives on data shard ``s // (num_slots / data)``.
+:class:`PagedEngine` keeps one page allocator per data shard, whose page
+ids are local to that shard's pool partition, and preempts within the
+shard that ran out.
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: ``mesh`` (multi-GPU, with or without ``spec_decode``: Queue 1 item
-16), ``lora_adapters`` / request adapters (item 14), ``run_resilient`` /
-``recover_device_state`` (item 17). As in JAX, an MLA model (DeepSeek-V2)
-takes none of ``mesh``, ``spec_decode`` and ``lora_adapters``.
+item: ``lora_adapters`` / request adapters (item 14; with ``mesh`` item
+14e), ``run_resilient`` / ``recover_device_state`` (item 17). As in JAX, an
+MLA model (DeepSeek-V2) takes none of ``mesh``, ``spec_decode`` and
+``lora_adapters``, and ``prefix_cache`` does not compose with ``mesh``.
 
 Sliding-window models on :class:`PagedEngine` keep a rolling buffer (JAX
 engine.py:985-1000, :1255-1305): before each decode round, the private
@@ -134,11 +149,8 @@ class Engine:
             raise NotImplementedError(
                 "MLA serves on the single-device contiguous and paged engines for now: no mesh, "
                 "spec_decode or lora_adapters with it (ROADMAP Queue 2, K1 verify at D 640)")
-        if mesh is not None:
-            spec = " speculative decoding" if spec_decode is not None else " serving"
-            raise _unported(f"sharded{spec} (mesh)", "16")
         if lora_adapters is not None:
-            raise _unported("multi-LoRA serving (lora_adapters)", "14")
+            raise _unported("multi-LoRA serving (lora_adapters)", "14" if mesh is None else "14e")
         llama.check_supported(cfg)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
@@ -190,6 +202,7 @@ class Engine:
         self.topk_logprobs = int(topk_logprobs)
         self._last_topk = None  # ((B, n, K) f32, (B, n, K) i32) host arrays
         self.debug_validate = debug_validate
+        self.mesh = mesh
         # Rounds are fixed-size; the slack reserves cache room for the final
         # round's discarded overshoot tokens (a spec round appends up to
         # steps * (k+1) rows a slot).
@@ -207,32 +220,71 @@ class Engine:
         # Host mirror of each live slot's cache length (set at admission,
         # advanced per round): feeds _round_len_hint.
         self._slot_len = np.zeros((num_slots,), np.int64)
+        if mesh is not None:
+            self.params = self._shard(params)
         self.cache = self._init_cache()
         self.draft_cache = None
         if draft_model is not None:
-            self.draft_params, self.draft_cfg = draft_model
+            self.draft_params, self.draft_cfg = draft_model  # replicated: whole on every rank
             self.dcos, self.dsin = llama.rope_tables(self.draft_cfg, device=self.device)
             self.draft_cache = self._init_draft_cache()
+
+    # -- tensor + data parallelism (JAX engine.py:283-338) ----------------------
+
+    def _shard(self, params):
+        """This rank's params, after building the sharded round functions."""
+        from starflashattention_tpu_torch.parallel import tp
+
+        data = self.mesh.axes.get(tp.DATA)
+        if data is not None and self.num_slots % data.size:
+            raise ValueError(f"num_slots {self.num_slots} not divisible by data axis {data.size}")
+        self._build_sharded_fns(tp)
+        return tp.shard_params(params, self.mesh, self.cfg)
+
+    def _build_sharded_fns(self, tp) -> None:
+        if self.spec_decode is not None and self.draft_model is not None:
+            # the draft runs whole on every rank (tp.make_tp_spec_decode_multi_draft)
+            self._tp_spec_decode_draft = tp.make_tp_spec_decode_multi_draft(
+                self.mesh, self.cfg, self.draft_model[1], self.steps_per_round, num_draft=self.spec_decode)
+            self._tp_draft_prefill = tp.make_tp_draft_prefill_serving(self.mesh, self.draft_model[1])
+        elif self.spec_decode is not None:
+            self._tp_spec_decode = tp.make_tp_spec_decode_multi(
+                self.mesh, self.cfg, self.steps_per_round, num_draft=self.spec_decode, ngram=self.spec_ngram)
+        self._tp_decode_multi = tp.make_tp_decode_multi(
+            self.mesh, self.cfg, self.steps_per_round, sampling=self.enable_sampling,
+            with_logprobs=self.return_logprobs, topk_logprobs=self.topk_logprobs)
+        self._tp_prefill = tp.make_tp_prefill_serving(self.mesh, self.cfg)
 
     # -- cache-backend hooks (overridden by PagedEngine) ----------------------
 
     def _init_cache(self):
+        """The cache of every slot, or under ``mesh`` this rank's shard of it."""
         hkv, d = self.cfg.kv_cache_dims()
-        return contiguous.init_cache(
+        cache = contiguous.init_cache(
             self.cfg.num_layers, self.num_slots, hkv, self.cfg.max_seq_len, d,
             dtype=llama.torch_dtype(self.cfg.dtype), quant_mode=self.cfg.quant_mode,
             calibration_scale=self.cfg.kv_calibration_scale, device=self.device,
         )
+        if self.mesh is None:
+            return cache
+        from starflashattention_tpu_torch.parallel import tp
+
+        return tp.shard_cache(cache, self.mesh)
 
     def _init_draft_cache(self):
         """The draft model's cache: the target's slots and capacity, since
-        the two advance in lockstep."""
+        the two advance in lockstep (under ``mesh`` this rank's slots)."""
         d = self.draft_cfg
-        return contiguous.init_cache(
+        cache = contiguous.init_cache(
             d.num_layers, self.num_slots, d.num_kv_heads, self.cfg.max_seq_len, d.head_dim,
             dtype=llama.torch_dtype(d.dtype), quant_mode=d.quant_mode,
             calibration_scale=d.kv_calibration_scale, device=self.device,
         )
+        if self.mesh is None:
+            return cache
+        from starflashattention_tpu_torch.parallel import tp
+
+        return tp.shard_draft_cache(cache, self.mesh)
 
     def _prepare_admit(self, admitted: list[tuple[int, Request]]) -> list[tuple[int, Request]]:
         """Reserve backend capacity for admitted requests; may trim the list
@@ -258,6 +310,14 @@ class Engine:
     def _prefill_call(self, toks, new_lengths, admit_mask, reset_mask, prefix_len=0):
         # the contiguous prefill attends the whole cache table; prefix_len
         # matters to the paged backend only
+        if self.mesh is not None:
+            logits, self.cache = self._tp_prefill(self.params, self.cache, toks, new_lengths, admit_mask,
+                                                  reset_mask, self.cos, self.sin)
+            if self.draft_cache is not None:
+                _, self.draft_cache = self._tp_draft_prefill(self.draft_params, self.draft_cache, toks,
+                                                             new_lengths, admit_mask, reset_mask, self.dcos,
+                                                             self.dsin)
+            return logits
         logits, self.cache = llama.prefill_serving(
             self.params, self.cache, toks, new_lengths, admit_mask, reset_mask,
             self.cos, self.sin, self.cfg,
@@ -269,6 +329,8 @@ class Engine:
         return logits
 
     def _decode_call(self, active, n, max_len_hint=None):
+        if self.mesh is not None:
+            return self._unpack_decode(self._tp_decode_call(active))
         out = llama.decode_multi(
             self.params, self.cache, self.pending_tok, self.cos, self.sin, active, self.cfg, n,
             sampling=self._sampling_state(), with_logprobs=self.return_logprobs,
@@ -276,14 +338,21 @@ class Engine:
         )
         return self._unpack_decode(out)
 
+    def _tp_decode_call(self, active):
+        args = (self.params, self.cache, self.pending_tok, self.cos, self.sin, active)
+        if self.enable_sampling:
+            args = args + (self._sampling_state(),)
+        return self._tp_decode_multi(*args)
+
     _HINT_QUANTUM = 512
 
     def _round_len_hint(self, active: np.ndarray, n: int) -> int | None:
         """Bound on every active slot's cache length at the END of an n-step
         round, quantized to ``_HINT_QUANTUM``; None when the whole cache is
-        needed anyway. The port's kernels walk each row's own length, so
-        the hint is passed along and unused."""
-        if not active.any():
+        needed anyway, or on the sharded path (as in JAX). The port's
+        kernels walk each row's own length, so the hint is passed along and
+        unused."""
+        if self.mesh is not None or not active.any():
             return None
         mx = int(self._slot_len[active].max()) + n + 1
         q = self._HINT_QUANTUM
@@ -493,7 +562,14 @@ class Engine:
         t0 = time.time()
         hint = self._round_len_hint(active, n * (self.spec_decode + 1))
         act = self._to_device(active)
-        if self.draft_cache is not None:
+        if self.mesh is not None and self.draft_cache is not None:
+            toks, counts, self.pending_tok, self.cache, self.draft_cache = self._tp_spec_decode_draft(
+                self.params, self.cache, self.draft_params, self.draft_cache, self.pending_tok, self.cos,
+                self.sin, self.dcos, self.dsin, act)
+        elif self.mesh is not None:
+            toks, counts, self.pending_tok, self.cache, self.history = self._tp_spec_decode(
+                self.params, self.cache, self.history, self.pending_tok, self.cos, self.sin, act)
+        elif self.draft_cache is not None:
             toks, counts, self.pending_tok, self.cache, self.draft_cache = llama.spec_decode_multi_draft(
                 self.params, self.cache, self.draft_params, self.draft_cache, self.pending_tok,
                 self.cos, self.sin, self.dcos, self.dsin, act, self.cfg, self.draft_cfg, n,
@@ -647,12 +723,21 @@ class PagedEngine(Engine):
         whose prompt prefix matches full pages already in the pool reuse
         them and prefill only the suffix. Refcount-0 cached pages stay warm
         and are evicted (LRU) only under pool pressure, before any
-        preemption."""
+        preemption. With ``mesh`` the pool's KV heads shard over the model
+        axis and its pages over the data axis: ``num_pages`` is then the
+        pool of ONE data shard, which owns its own allocator (page ids local
+        to the shard); ``prefix_cache`` is refused there, as in JAX."""
+        if prefix_cache and mesh is not None:
+            raise ValueError("prefix_cache is not supported on sharded engines yet (per-data-shard pools use "
+                             "local page ids)")
         self.page_size = page_size
         self.pages_per_seq = -(-cfg.max_seq_len // page_size)
-        # Default pool: every slot can hold a full sequence (+ null page 0).
-        self.num_pages = num_pages or num_slots * self.pages_per_seq + 1
-        self.pool = self._make_pool(self.num_pages, native)
+        data = None if mesh is None else mesh.axes.get("data")
+        self._data_shards = 1 if data is None else data.size
+        self._slots_per_shard = max(num_slots // self._data_shards, 1)
+        # Default pool: every slot of a shard can hold a full sequence (+ null page 0).
+        self.num_pages = num_pages or self._slots_per_shard * self.pages_per_seq + 1
+        self.pools = [self._make_pool(self.num_pages, native) for _ in range(self._data_shards)]
         self._handles: dict[int, int] = {}  # slot -> pool handle
         self._admit_order: list[int] = []  # slots by admission recency
         self._host_table = np.zeros((num_slots, self.pages_per_seq), np.int32)
@@ -687,6 +772,15 @@ class PagedEngine(Engine):
             topk_logprobs=topk_logprobs, device=device,
         )
 
+    @property
+    def pool(self):
+        """The allocator of an engine with one data shard."""
+        assert self._data_shards == 1, "a sharded engine has one pool per data shard"
+        return self.pools[0]
+
+    def _pool_for(self, slot: int):
+        return self.pools[slot // self._slots_per_shard]
+
     @staticmethod
     def _make_pool(num_pages: int, native: bool | None):
         if native is not False:
@@ -701,22 +795,49 @@ class PagedEngine(Engine):
 
     # -- backend hooks --------------------------------------------------------
 
+    def _build_sharded_fns(self, tp) -> None:
+        self._tp_decode_multi = tp.make_tp_decode_multi_paged(
+            self.mesh, self.cfg, self.steps_per_round, sampling=self.enable_sampling,
+            with_logprobs=self.return_logprobs, topk_logprobs=self.topk_logprobs)
+        fns = {}
+
+        def tp_prefill_for(prefix_len: int):  # one function a chunk index, as JAX's programs
+            if prefix_len not in fns:
+                fns[prefix_len] = tp.make_tp_prefill_serving_paged(self.mesh, self.cfg, prefix_len=prefix_len)
+            return fns[prefix_len]
+
+        self._tp_prefill = tp_prefill_for
+
     def _init_cache(self):
+        """The pools (under ``mesh`` the data shards' partitions side by
+        side, then this rank's shard of them)."""
         hkv, d = self.cfg.kv_cache_dims()
-        return paged.init_paged_cache(
-            self.cfg.num_layers, self.num_slots, hkv, d, num_pages=self.num_pages,
+        cache = paged.init_paged_cache(
+            self.cfg.num_layers, self.num_slots, hkv, d, num_pages=self.num_pages * self._data_shards,
             page_size=self.page_size, pages_per_seq=self.pages_per_seq,
             dtype=llama.torch_dtype(self.cfg.dtype), quant_mode=self.cfg.quant_mode,
             calibration_scale=self.cfg.kv_calibration_scale, device=self.device,
         )
+        if self.mesh is None:
+            return cache
+        from starflashattention_tpu_torch.parallel import tp
+
+        return tp.shard_paged_cache(cache, self.mesh)
+
+    def _local_table(self) -> np.ndarray:
+        """The host table rows of this rank's data shard."""
+        if self._data_shards == 1:
+            return self._host_table
+        i = self.mesh.axes["data"].index
+        return self._host_table[i * self._slots_per_shard:(i + 1) * self._slots_per_shard]
 
     def _sync_table(self) -> None:
-        """Copy the host table into the cache's persistent device table: one
-        blocking ``copy_`` on the current stream, so every kernel queued
-        before it has read the old table and every kernel after reads the
-        new one."""
+        """Copy the host table (this rank's rows under ``mesh``) into the
+        cache's persistent device table: one blocking ``copy_`` on the
+        current stream, so every kernel queued before it has read the old
+        table and every kernel after reads the new one."""
         if self._table_dirty:
-            self.cache.page_table.copy_(torch.from_numpy(self._host_table))
+            self.cache.page_table.copy_(torch.from_numpy(self._local_table()))
             self._table_dirty = False
 
     def _write_row(self, slot: int) -> None:
@@ -728,7 +849,7 @@ class PagedEngine(Engine):
         sink = self._sink_pages[slot]
         row[len(shared) : len(shared) + len(sink)] = sink
         if slot in self._handles:
-            pages = self.pool.seq_pages(self._handles[slot])
+            pages = self._pool_for(slot).seq_pages(self._handles[slot])
             off = len(shared) + len(sink) + int(self._reclaimed[slot])
             row[off : off + len(pages)] = pages
         self._host_table[slot] = row
@@ -742,9 +863,10 @@ class PagedEngine(Engine):
         whom to preempt)."""
         held = (len(self._sink_pages[slot]) + int(self._reclaimed[slot])) * self.page_size
         private = max(int(new_len) - int(self._cached_len[slot]) - held, 0)
+        pool = self._pool_for(slot)
         while True:
             try:
-                self.pool.seq_extend(self._handles[slot], private, self.page_size)
+                pool.seq_extend(self._handles[slot], private, self.page_size)
                 break
             except MemoryError:
                 if self._prefix is None:
@@ -752,16 +874,17 @@ class PagedEngine(Engine):
                 evicted = self._prefix.evict_lru(8)
                 if not evicted:
                     return False
-                self.pool.free_raw(evicted)
+                pool.free_raw(evicted)
         self._write_row(slot)
         return True
 
     def _release(self, slot: int) -> None:
+        pool = self._pool_for(slot)
         handle = self._handles.pop(slot, None)
         if handle is not None:
-            self.pool.seq_free(handle)
+            pool.seq_free(handle)
         if self._sink_pages[slot]:
-            self.pool.free_raw(self._sink_pages[slot])
+            pool.free_raw(self._sink_pages[slot])
             self._sink_pages[slot] = []
         if self._prefix is not None and self._cached_pages[slot]:
             self._prefix.release(self._cached_pages[slot])
@@ -778,11 +901,13 @@ class PagedEngine(Engine):
     def _on_retired(self, slot: int) -> None:
         self._release(slot)
 
-    def _preempt_youngest(self, but_not: int | None = None) -> int | None:
+    def _preempt_youngest(self, but_not: int | None = None, shard: int | None = None) -> int | None:
         """Free the most recently admitted running slot's pages and requeue
-        its request; returns the slot, or None if there is no candidate."""
+        its request; ``shard`` restricts the candidates to one data shard's
+        pool (freeing another shard's pages helps nothing). Returns the
+        slot, or None if there is no candidate."""
         for slot in reversed(self._admit_order):
-            if slot == but_not:
+            if slot == but_not or (shard is not None and slot // self._slots_per_shard != shard):
                 continue
             self.sched.preempt(slot)
             self._release(slot)
@@ -804,14 +929,14 @@ class PagedEngine(Engine):
                     pages, matched = self._prefix.match(text)
                     self._cached_pages[slot] = pages
                     self._cached_len[slot] = matched
-                self._handles[slot] = self.pool.seq_new()
+                self._handles[slot] = self._pool_for(slot).seq_new()
                 need = len(text)
                 if self._grow(slot, need):
                     self._admit_order.append(slot)
                     self._host_len[slot] = need
                     accepted.append((slot, req))
                     continue
-                self.pool.seq_free(self._handles.pop(slot))
+                self._pool_for(slot).seq_free(self._handles.pop(slot))
                 if self._prefix is not None and self._cached_pages[slot]:
                     self._prefix.release(self._cached_pages[slot])
                 self._cached_pages[slot] = []
@@ -853,7 +978,7 @@ class PagedEngine(Engine):
             run = self._prefix.insert_run(req.prompt, have, n_full - have)
             if run <= 0:
                 continue
-            transfer = self.pool.seq_release_prefix(self._handles[slot], run)
+            transfer = self._pool_for(slot).seq_release_prefix(self._handles[slot], run)
             adopted = self._prefix.insert(req.prompt, have, transfer)
             assert len(adopted) == run, "insert_run promised these keys were new"
             self._cached_pages[slot].extend(adopted)
@@ -879,17 +1004,18 @@ class PagedEngine(Engine):
                 continue
             freeable = max(int(self._host_len[slot]) - w, 0) // bk * wp  # pre-round length
             handle = self._handles[slot]
-            owned = len(self.pool.seq_pages(handle))
+            pool = self._pool_for(slot)
+            owned = len(pool.seq_pages(handle))
             # first logical page the handle still owns
             cur = (int(self._cached_len[slot]) // self.page_size + len(self._sink_pages[slot])
                    + int(self._reclaimed[slot]))
             pin = min(max(min(freeable, sink_lp) - cur, 0), owned)
             if pin > 0:
-                self._sink_pages[slot].extend(self.pool.seq_release_prefix(handle, pin))
+                self._sink_pages[slot].extend(pool.seq_release_prefix(handle, pin))
                 cur += pin
             n = min(max(freeable - max(cur, sink_lp), 0), owned - pin)
             if n > 0:
-                self.pool.free_raw(self.pool.seq_release_prefix(handle, n))
+                pool.free_raw(pool.seq_release_prefix(handle, n))
                 self._reclaimed[slot] += n
             if pin > 0 or n > 0:
                 self._write_row(slot)
@@ -905,7 +1031,7 @@ class PagedEngine(Engine):
                 continue
             need = int(self._host_len[slot]) + self.steps_per_round
             while not self._grow(slot, need):
-                victim = self._preempt_youngest(but_not=slot)
+                victim = self._preempt_youngest(but_not=slot, shard=slot // self._slots_per_shard)
                 if victim is None:
                     raise MemoryError(
                         f"paged pool too small for one sequence: slot {slot} needs {need} "
@@ -931,7 +1057,7 @@ class PagedEngine(Engine):
             reclaimed_below = self._cached_len // self.page_size + sink_kept + self._reclaimed
         sanitize.check_page_table(
             self._host_table, self._host_len, self.page_size, self.num_pages, active=active,
-            shared_ok=self._prefix.resident_set() if self._prefix else None,
+            shard_of=np.arange(self.num_slots) // self._slots_per_shard, shared_ok=self._prefix.resident_set() if self._prefix else None,
             reclaimed_below=reclaimed_below,
         )
         pre = np.where(active, self._host_len - self.steps_per_round, 0)
@@ -940,6 +1066,10 @@ class PagedEngine(Engine):
 
     def _prefill_call(self, toks, new_lengths, admit_mask, reset_mask, prefix_len=0):
         self._sync_table()
+        if self.mesh is not None:
+            logits, self.cache = self._tp_prefill(prefix_len)(self.params, self.cache, toks, new_lengths,
+                                                              admit_mask, reset_mask, self.cos, self.sin)
+            return logits
         logits, self.cache = llama.prefill_serving_paged(
             self.params, self.cache, toks, new_lengths, admit_mask, reset_mask,
             self.cos, self.sin, self.cfg, prefix_len=prefix_len,
@@ -947,6 +1077,8 @@ class PagedEngine(Engine):
         return logits
 
     def _decode_call(self, active, n, max_len_hint=None):
+        if self.mesh is not None:
+            return self._unpack_decode(self._tp_decode_call(active))
         out = llama.decode_multi_paged(
             self.params, self.cache, self.pending_tok, self.cos, self.sin, active, self.cfg, n,
             sampling=self._sampling_state(), with_logprobs=self.return_logprobs,

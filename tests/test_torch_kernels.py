@@ -264,6 +264,43 @@ def test_quant_matmul_int4_refuses_geometry(cuda):
                                        wq["w"], wq["scale"])
 
 
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 8, 9, 16, 17, 40, 64])
+def test_fused_mlp_kernel_matches_plain(cuda, mode, x_dtype, rows):
+    """K13, one launch a call, on a stacked (L, ...) pair at layer 1 (I 320,
+    an odd number of 64-row chunks of w2), at row counts on both sides of
+    the 8-, 16- and 32-row tiles. fp32 x: the same exact
+    products summed in another order, 2e-5 of the peak; bf16 x: ``act`` is
+    rounded to bf16 between the matmuls and may land on the other side of a
+    tie, 4e-3 of the peak."""
+    from starflashattention_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
+
+    gen = _gen(cuda)
+    h, inter = 256, 320
+    w1 = quant.quantize_weight(torch.randn((3, h, 2 * inter), generator=gen, device=cuda), mode)
+    w2 = quant.quantize_weight(torch.randn((3, inter, h), generator=gen, device=cuda), mode)
+    x = torch.randn((rows, h), generator=gen, device=cuda).to(x_dtype)
+    before = fused_mlp.launches
+    out = fused_mlp(x, w1["w"], w1["scale"], w2["w"], w2["scale"], layer=1)
+    torch.cuda.synchronize()
+    assert fused_mlp.launches == before + 1
+    ref = fused_mlp_plain(x, w1["w"], w1["scale"], w2["w"], w2["scale"], layer=1)
+    rel = 2e-5 if x_dtype == torch.float32 else 4e-3
+    assert out.dtype == torch.float32 and _max_err(out, ref) <= rel * ref.abs().max().item()
+    again = fused_mlp(x, w1["w"], w1["scale"], w2["w"], w2["scale"], layer=1)  # the barrier reset itself
+    assert torch.equal(again, out)
+
+
+def test_fused_mlp_refuses_geometry(cuda):
+    from starflashattention_tpu_torch.ops.fused_mlp import fused_mlp
+
+    w1 = quant.quantize_weight(torch.randn((96, 128), device=cuda), "int8")  # H 96: not a multiple of 64
+    w2 = quant.quantize_weight(torch.randn((64, 96), device=cuda), "int8")
+    with pytest.raises(ValueError, match="multiples of 64"):
+        fused_mlp(torch.zeros((2, 96), device=cuda), w1["w"], w1["scale"], w2["w"], w2["scale"])
+
+
 def _quantized(t, mode, scales, head_axis):
     return quant.quantize_value(t, scales, mode, head_axis=head_axis)
 

@@ -26,6 +26,8 @@ coordinates and errors exact; every rank holds the same replicated results
 bit for bit.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -221,10 +223,33 @@ def test_cp_requires_flash():
         t_train.loss_tokens(params, tinp, tinp, tcfg, cos, sin, use_flash=False, seq_axis_name=object())
 
 
+def _fake_mesh(axes):
+    """A mesh as its rank 0 sees it, without a process group: enough for
+    what raises before any collective."""
+    from starflashattention_tpu_torch.parallel.mesh import Axis, Mesh
+
+    return Mesh({name: Axis(name, size, 0, tuple(range(size)), None, "gloo") for name, size in axes.items()},
+                torch.device("cpu"))
+
+
 @pytest.mark.parametrize("name", ["make_tp_dp_value_and_grad", "make_tp_dp_train_step",
                                   "make_tp_cp_train_step", "make_tp_decode_step", "make_pp_decode_step"])
 def test_tensor_parallel_entries_refused(name):
-    """The tensor-parallel and pipeline entry points are not ported: they
-    raise, citing the roadmap item."""
-    with pytest.raises(NotImplementedError, match="tensor-parallel half"):
-        getattr(t_parallel, name)(None, TConfig.tiny(dtype="float32"))
+    """The tensor-parallel and pipeline entry points are ported
+    (tests/test_torch_tp.py, tests/test_torch_tp_train.py); given KV heads
+    that the model axis does not divide they raise JAX's own error, as the
+    JAX entries do on a mesh of the same shape."""
+    jcfg = JConfig.tiny(dtype="float32", num_kv_heads=2)
+    tcfg = TConfig.tiny(dtype="float32", num_kv_heads=2)
+    axes = {"pipe": 2, "model": 4} if name == "make_pp_decode_step" else {"data": 2, "model": 4}
+    if name == "make_tp_cp_train_step":
+        axes = {"seq": 2, "model": 4}
+    extra = {"make_tp_dp_train_step": (optax.sgd(0.1),), "make_tp_cp_train_step": (optax.sgd(0.1),),
+             "make_pp_decode_step": (j_llama.init_params(jcfg, jax.random.PRNGKey(0)),)}.get(name, ())
+    jmesh = j_make_mesh(axes, devices=jax.devices()[:8])
+    jfn = getattr(importlib.import_module("starflashattention_tpu.parallel"), name)
+    with pytest.raises(ValueError, match="num_kv_heads 2 not divisible by model-axis size 4"):
+        jfn(jmesh, jcfg, *extra)
+    lr = {"make_tp_dp_train_step": (0.1,), "make_tp_cp_train_step": (0.1,)}.get(name, ())
+    with pytest.raises(ValueError, match="num_kv_heads 2 not divisible by model-axis size 4"):
+        getattr(t_parallel, name)(_fake_mesh(axes), tcfg, *lr)

@@ -372,12 +372,27 @@ def test_sampled_engine_keeps_tokens_in_jax_threshold_set():
         assert o[0] in top3
 
 
+def _data3_mesh():
+    """A (data 3, model 1) mesh as its rank 0 sees it, without a process
+    group: enough for what raises before any collective."""
+    from starflashattention_tpu_torch.parallel.mesh import Axis, Mesh
+
+    return Mesh({"data": Axis("data", 3, 0, (0, 1, 2), None, "gloo"),
+                 "model": Axis("model", 1, 0, (0,), None, "gloo")}, torch.device("cpu"))
+
+
 def test_engine_refuses_what_is_not_ported():
+    """What the port still refuses, and the two ``mesh`` cases, which the
+    port now serves: there it refuses what JAX refuses, 8 slots over a data
+    axis of 3, with and without ``spec_decode`` (JAX engine.py:286-290)."""
     _, tc = _cfgs()
     _, tp = _models()
-    for kw, item in ((dict(mesh=object()), "16"), (dict(mesh=object(), spec_decode=2), "16"),
-                     (dict(lora_adapters=[{}]), "14")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+    for kw, exc, match in ((dict(mesh=_data3_mesh()), ValueError, "divisible by data axis"),
+                           (dict(mesh=_data3_mesh(), spec_decode=2), ValueError, "divisible by data axis"),
+                           (dict(lora_adapters=[{}]), NotImplementedError, "item 14")):
+        if "spec_decode" in kw:
+            tc = dataclasses.replace(tc, num_splits=1)
+        with pytest.raises(exc, match=match):
             Engine(tp, tc, device="cpu", **kw)
     eng = Engine(tp, tc, device="cpu")
     with pytest.raises(NotImplementedError, match="item 17"):

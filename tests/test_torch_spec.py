@@ -443,7 +443,16 @@ def test_spec_engine_validation_matches_jax():
                 cfg = dataclasses.replace(cfg, num_splits=4)
             with pytest.raises(exc, match=match):
                 eng_cls(params, cfg, num_slots=2, **kw2)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        Engine(tp, tc, num_slots=2, spec_decode=2, mesh=object(), device="cpu")
+    # sharded speculative decoding is ported (tests/test_torch_tp.py); a mesh
+    # whose data axis does not divide the slots is refused, as JAX refuses it
+    from starflashattention_tpu_torch.parallel.mesh import Axis, Mesh
+
+    jmesh = jax.sharding.Mesh(np.array(jax.devices()[:8]).reshape(2, 4), ("data", "model"))
+    tmesh = Mesh({"data": Axis("data", 2, 0, (0, 4), None, "gloo"),
+                  "model": Axis("model", 4, 0, (0, 1, 2, 3), None, "gloo")}, torch.device("cpu"))
+    for eng_cls, cfg, params, mesh, extra in ((JEngine, jc, jp, jmesh, {}), (Engine, tc, tp, tmesh,
+                                                                              dict(device="cpu"))):
+        with pytest.raises(ValueError, match="divisible by data axis"):
+            eng_cls(params, cfg, num_slots=3, spec_decode=2, mesh=mesh, **extra)
     with pytest.raises(NotImplementedError, match="item 14"):
         Engine(tp, tc, num_slots=2, spec_decode=2, lora_adapters=[{}], device="cpu")

@@ -406,7 +406,7 @@ def test_bridge_carries_adapter_and_grad_trees():
 def test_training_refuses_unported_paths():
     _, tc, _, _, _, (cos, sin), batch = _model()
     params, tokens = _port_params(), _t(batch[:, :-1])
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(TypeError, match="parallel.mesh.Axis"):  # TP trains: the axis, not its name
         t_train.forward_train(params, tokens, tc, cos, sin, axis_name="model")
     with pytest.raises(ValueError, match="context-parallel training requires the flash path"):
         t_train.forward_train(params, tokens, tc, cos, sin, use_flash=False, seq_axis_name=object())

@@ -1,6 +1,8 @@
 """One rank of the port's parallel tests: a world of processes on the CPU
-over gloo, spawned by ``tests/test_torch_ring.py`` and
-``tests/test_torch_parallel.py`` (one world per file, through
+over gloo, spawned by ``tests/test_torch_ring.py``,
+``tests/test_torch_parallel.py``, ``tests/test_torch_tp.py``,
+``tests/test_torch_tp_serving.py``, ``tests/test_torch_pp.py`` and
+``tests/test_torch_tp_train.py`` (one world per file, through
 :func:`run_world`).
 
 Each rank reads the seeded numpy inputs the test wrote (``inputs.npz``),
@@ -58,6 +60,68 @@ TRAIN_CASES = {  # name: (config, mesh axes, step keyword arguments)
 }
 LR = 1e-2
 
+# ---- tensor, expert and pipeline parallelism (tests/test_torch_tp.py, tests/test_torch_pp.py)
+# the JAX tests' model: KV heads divisible by the model axis, fp32
+TP_CFG = dict(num_q_heads=8, num_kv_heads=4, dtype="float32")
+TP_MESHES = {"dp2_tp2": {"data": 2, "model": 2}, "tp4": {"model": 4}}
+PP_MESHES = {"pp4": {"pipe": 4}, "dp2_pp2": {"data": 2, "pipe": 2}, "pp2_tp2": {"pipe": 2, "model": 2}}
+# one-step cases: (config overrides, mesh, batch rows, prompt length or 0 for a decode step)
+TP_STEPS = {
+    "decode": (dict(), "dp2_tp2", 4, 0),
+    "decode_tp4": (dict(), "tp4", 4, 0),
+    "prefill": (dict(), "dp2_tp2", 2, 6),
+    "int8w_decode": (dict(), "dp2_tp2", 2, 0),
+    "int8w_prefill": (dict(), "dp2_tp2", 2, 5),
+    "int8kv_decode": (dict(quant_mode="int8"), "dp2_tp2", 2, 0),
+    "int4_decode": (dict(), "dp2_tp2", 2, 0),
+    "w8a8_prefill": (dict(max_seq_len=512, w8a8_prefill=True), "dp2_tp2", 4, 256),
+    "w4a8_prefill": (dict(max_seq_len=512, w8a8_prefill=True), "tp4", 4, 256),
+    "moe_decode": (dict(num_experts=4, num_experts_per_tok=2, num_splits=1), "tp4", 4, 0),
+    "moe_int8_decode": (dict(num_experts=4, num_experts_per_tok=2, num_splits=1), "dp2_tp2", 4, 0),
+    "deepseek_decode": (dict(num_experts=4, num_experts_per_tok=2, num_splits=1, router_pre_softmax=True,
+                             routed_scaling_factor=1.5, n_shared_experts=1, first_k_dense=1,
+                             dense_inter_size=96), "tp4", 4, 0),
+}
+ROW_SCALES = (64, 128)  # quantize_rows on shards of (rows, H)
+# engines: (config overrides, engine, keyword arguments, prompt lengths, new tokens)
+TP_ENGINES = {
+    "engine": (dict(), "Engine", dict(num_slots=2, steps_per_round=3), (3, 7, 5), 6),
+    "int8w": (dict(), "Engine", dict(num_slots=2, steps_per_round=2), (4, 4, 4), 4),
+    "fp8w_int8kv": (dict(dtype="bfloat16", quant_mode="int8"), "Engine", dict(num_slots=2, steps_per_round=3),
+                    (4, 6, 3), 5),
+    "paged": (dict(pages_per_compute_block=2), "PagedEngine", dict(num_slots=4, steps_per_round=2,
+                                                                   page_size=16), (3, 7, 5, 4), 5),
+    "paged_preempt": (dict(pages_per_compute_block=2), "PagedEngine",
+                      dict(num_slots=4, steps_per_round=3, page_size=16, num_pages=4), (9, 9, 9, 9), 12),
+    "chunked": (dict(), "Engine", dict(num_slots=2, steps_per_round=2, prefill_chunk=4), (3, 9, 6), 4),
+    "chunked_paged": (dict(pages_per_compute_block=2), "PagedEngine",
+                      dict(num_slots=2, steps_per_round=2, page_size=16, prefill_chunk=4), (3, 9, 6), 4),
+    "int8_lm_head": (dict(), "Engine", dict(num_slots=2, steps_per_round=2), (5, 3, 6), 5),
+    "int4": (dict(), "Engine", dict(num_slots=2, steps_per_round=2), (4, 4, 4), 4),
+    "spec_ngram": (dict(num_splits=1), "Engine", dict(num_slots=2, steps_per_round=2, spec_decode=3),
+                   (12, 9, 14), 8),
+    "spec_draft": (dict(num_splits=1), "Engine", dict(num_slots=2, steps_per_round=2, spec_decode=3),
+                   (12, 9, 14), 8),
+    "sampled": (dict(), "Engine", dict(num_slots=2, steps_per_round=3, enable_sampling=True), (3, 7, 5), 6),
+}
+# pipeline decode: (config overrides, mesh, microbatches, weights)
+PP_CASES = {
+    "pp4_m4": (dict(num_splits=1, num_layers=8), "pp4", 4, "dense"),
+    "pp4_m2": (dict(num_splits=1, num_layers=8), "pp4", 2, "dense"),
+    "pp2_m2": (dict(num_splits=1, num_layers=8), "dp2_pp2", 2, "dense"),
+    "pp4_int8": (dict(num_splits=1, num_layers=8), "pp4", 4, "int8"),
+    "pp4_moe": (dict(num_splits=1, num_layers=4, num_experts=4, num_experts_per_tok=2), "pp4", 2, "dense"),
+    "pp2_tp2": (dict(num_splits=1, num_layers=8, num_q_heads=8, num_kv_heads=4), "pp2_tp2", 4, "dense"),
+    "pp2_tp2_int8": (dict(num_splits=1, num_layers=8, num_q_heads=8, num_kv_heads=4), "pp2_tp2", 2, "int8"),
+}
+PP_GEMMA2 = dict(vocab_size=64, hidden_size=32, intermediate_size=64, num_layers=4, num_q_heads=2,
+                 num_kv_heads=1, head_dim=16, max_seq_len=64, dtype="float32", block_k=16, sliding_window=8)
+PP_BATCH, PP_PROMPT, PP_STEPS = 8, 5, 4
+
+# ---- tensor-parallel training (tests/test_torch_tp_train.py)
+TPT_MESHES = {"dp2_tp2": {"data": 2, "model": 2}, "tp2_sp2": {"model": 2, "seq": 2}}
+TPT_BATCH, TPT_SEQ, TPT_STEPS = 4, 16, 6
+
 
 def free_port() -> int:
     with socket.socket() as s:
@@ -113,6 +177,45 @@ def flatten(tree, prefix: str) -> dict:
     if isinstance(tree, dict):
         return {k2: v2 for k, v in tree.items() for k2, v2 in flatten(v, f"{prefix}/{k}").items()}
     return {prefix: tree}
+
+
+_VIEWS = {"bfloat16": np.uint16, "float8_e4m3fn": np.uint8}  # dtypes np.savez cannot name
+
+
+def encode(tree, prefix: str) -> dict:
+    """:func:`flatten`, with bf16 and fp8 leaves stored as integer views
+    under ``key@dtype``."""
+    out = {}
+    for key, arr in flatten(tree, prefix).items():
+        arr = np.asarray(arr)
+        view = _VIEWS.get(arr.dtype.name)
+        out[key if view is None else f"{key}@{arr.dtype.name}"] = arr if view is None else arr.view(view)
+    return out
+
+
+def decode_params(flat: dict, prefix: str):
+    """The port's params tree stored by :func:`encode` under ``prefix``."""
+    import torch
+
+    from starflashattention_tpu_torch.utils import bridge
+
+    views = {"bfloat16": torch.bfloat16, "float8_e4m3fn": torch.float8_e4m3fn}
+    tree: dict = {}
+    for key, arr in flat.items():
+        if not key.startswith(prefix + "/"):
+            continue
+        key, _, dtype = key.partition("@")
+        if dtype:
+            int_view = torch.from_numpy(arr.astype(np.int16) if dtype == "bfloat16" else arr.copy())
+            t = int_view.view(views[dtype])
+        else:
+            t = bridge.tensor_from_numpy(arr)
+        node = tree
+        parts = key[len(prefix) + 1:].split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = t
+    return tree
 
 
 def _chunk(x, idx, n, dim=2):
@@ -202,7 +305,194 @@ def _parallel_suite(inp):
     return out
 
 
-SUITES = {"ring": _ring_suite, "parallel": _parallel_suite}
+def _prompts(inp, key):
+    lens = inp[f"{key}/lens"]
+    flat = inp[f"{key}/prompts"]
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    return [flat[offs[i]:offs[i + 1]].tolist() for i in range(len(lens))]
+
+
+def _tp_suite(inp):
+    import torch
+
+    from starflashattention_tpu_torch import parallel
+    from starflashattention_tpu_torch.cache import contiguous
+    from starflashattention_tpu_torch.models import llama
+    from starflashattention_tpu_torch.ops.quant_matmul import quantize_rows
+    from starflashattention_tpu_torch.parallel import comm, tp
+    from starflashattention_tpu_torch.runtime.params import ModelConfig
+
+    meshes = {name: parallel.make_mesh(axes, device="cpu") for name, axes in TP_MESHES.items()}
+    out = {}
+
+    def cache_for(cfg, b, scale=None):
+        kw = {} if scale is None else dict(calibration_scale=scale)
+        return contiguous.init_cache(cfg.num_layers, b, cfg.num_kv_heads, cfg.max_seq_len, cfg.head_dim,
+                                     dtype=torch.float32, quant_mode=cfg.quant_mode, device="cpu", **kw)
+
+    for case, (over, mesh_name, b, sp) in TP_STEPS.items():
+        cfg = ModelConfig.tiny(**TP_CFG, **over)
+        mesh = meshes[mesh_name]
+        params = tp.shard_params(decode_params(inp, f"{case}/params"), mesh, cfg)
+        cos, sin = llama.rope_tables(cfg, device="cpu")
+        cache = tp.shard_cache(cache_for(cfg, b, 8.0 if cfg.quant_mode != "none" else None), mesh)
+        toks = torch.from_numpy(inp[f"{case}/tokens"])
+        if sp:
+            fn = parallel.make_tp_prefill(mesh, cfg)
+            logits, cache = fn(params, cache, toks, torch.from_numpy(inp[f"{case}/plens"]), cos, sin)
+            out[f"{case}/prefill_logits"] = logits
+            toks = torch.from_numpy(inp[f"{case}/next"])
+        logits, cache = parallel.make_tp_decode_step(mesh, cfg)(params, cache, toks, cos, sin)
+        out[f"{case}/logits"] = logits
+        out[f"{case}/k"], out[f"{case}/lengths"] = cache.k, cache.lengths
+    # W8A8 / W4A8 row scales: a shard of each row quantized with the row's scale
+    model = meshes["tp4"].axis("model")
+    x = torch.from_numpy(inp["rows/x"])
+    c = x.shape[1] // model.size
+    x8, rs = quantize_rows(x[:, model.index * c:(model.index + 1) * c], axis=model)
+    out["rows/x8"], out["rows/rs"] = x8, rs
+    out["host_bytes"] = np.array(comm.host_bytes)  # CPU tensors never go through the host path
+    return out
+
+
+def _tp_serving_suite(inp):
+    from starflashattention_tpu_torch import parallel
+    from starflashattention_tpu_torch.core import sampling
+    from starflashattention_tpu_torch.runtime.params import ModelConfig
+    from starflashattention_tpu_torch.serving import Engine, PagedEngine
+
+    mesh = parallel.make_mesh(TP_MESHES["dp2_tp2"], device="cpu")
+    out = {}
+    for case, (over, eng_name, kw, _lens, n_new) in TP_ENGINES.items():
+        cfg = ModelConfig.tiny(**{**TP_CFG, **over})
+        cls = Engine if eng_name == "Engine" else PagedEngine
+        kw = dict(kw)
+        if case == "spec_draft":
+            dcfg = ModelConfig.tiny(**{**TP_CFG, **over, "num_layers": 1})
+            kw["draft_model"] = (decode_params(inp, f"eng_{case}/draft"), dcfg)
+        eng = cls(decode_params(inp, f"eng_{case}/params"), cfg, mesh=mesh, device="cpu", **kw)
+        samp = None
+        if kw.get("enable_sampling"):
+            samp = [sampling.SamplingParams(temperature=0.8, top_p=0.9, seed=11 + i) for i in range(3)]
+        streams = eng.generate(_prompts(inp, f"eng_{case}"), max_new_tokens=n_new, sampling=samp)
+        out[f"eng_{case}/streams"] = np.array([t for s in streams for t in s + [-1]])
+        out[f"eng_{case}/finished"] = np.array(eng.stats.finished)
+        out[f"eng_{case}/preemptions"] = np.array(eng.stats.preemptions)
+        out[f"eng_{case}/spec_steps"] = np.array(eng.stats.spec_steps)
+        if isinstance(eng, PagedEngine):
+            out[f"eng_{case}/free_pages"] = np.array([p.free_pages for p in eng.pools] + [eng.num_pages])
+    return out
+
+
+def _pp_suite(inp):
+    import torch
+
+    from starflashattention_tpu_torch import parallel
+    from starflashattention_tpu_torch.cache import contiguous
+    from starflashattention_tpu_torch.models import llama
+    from starflashattention_tpu_torch.parallel import pp
+    from starflashattention_tpu_torch.runtime.params import ModelConfig
+
+    meshes = {name: parallel.make_mesh(axes, device="cpu") for name, axes in PP_MESHES.items()}
+    out = {}
+    for case, (over, mesh_name, m, _w) in {**PP_CASES, "pp2_gemma2": (None, "dp2_pp2", 2, "dense")}.items():
+        cfg = ModelConfig.gemma2_9b(**PP_GEMMA2) if over is None else ModelConfig.tiny(dtype="float32", **over)
+        mesh = meshes[mesh_name]
+        full = decode_params(inp, f"{case}/params")
+        cache = contiguous.KVCache(*(torch.from_numpy(inp[f"{case}/cache_{n}"]) for n in ("k", "v", "lengths")))
+        cache = pp.shard_cache_pp(cache, mesh)
+        params = pp.shard_params_pp(full, mesh, cfg)
+        step = pp.make_pp_decode_step(mesh, cfg, full, num_microbatches=m)
+        cos, sin = llama.rope_tables(cfg, device="cpu")
+        tok = torch.from_numpy(inp[f"{case}/next"])
+        toks = [tok]
+        for _ in range(PP_STEPS):
+            logits, cache = step(params, cache, toks[-1], cos, sin)
+            toks.append(torch.argmax(logits, -1).to(torch.int32))
+        out[f"{case}/tokens"] = torch.stack(toks)
+        out[f"{case}/logits"] = logits
+        out[f"{case}/k"], out[f"{case}/lengths"] = cache.k, cache.lengths
+    return out
+
+
+def _tp_train_suite(inp):
+    import dataclasses
+
+    import torch
+
+    from starflashattention_tpu_torch import parallel
+    from starflashattention_tpu_torch.cache import contiguous
+    from starflashattention_tpu_torch.models import llama, train
+    from starflashattention_tpu_torch.parallel import tp
+    from starflashattention_tpu_torch.runtime.params import ModelConfig
+
+    meshes = {name: parallel.make_mesh(axes, device="cpu") for name, axes in TPT_MESHES.items()}
+    cfg = ModelConfig.tiny(**TP_CFG)
+    full = decode_params(inp, "params")
+    cos, sin = llama.rope_tables(cfg, device="cpu")
+    batch = torch.from_numpy(inp["batch"])
+    out = {}
+    mesh = meshes["dp2_tp2"]
+    for name, accum in (("vg", 1), ("vg_accum", 2)):
+        vg, _ = parallel.make_tp_dp_value_and_grad(mesh, cfg, grad_accum=accum)
+        loss, grads = vg(tp.shard_params(full, mesh, cfg), batch, cos, sin)
+        out[f"{name}/loss"] = loss
+        out.update(flatten(grads, f"{name}/grads"))
+    params = tp.shard_params(full, mesh, cfg)
+    state = parallel.init_opt_state(params)
+    step = parallel.make_tp_dp_train_step(mesh, cfg, LR)
+    losses = []
+    for t in range(TPT_STEPS):
+        params, state, loss = step(params, state, batch, cos, sin)
+        losses.append(float(loss))
+        if t == 0:
+            out.update(flatten(train.tree_map(torch.clone, params), "step/params"))  # updated in place later
+            out.update(flatten(train.tree_map(torch.clone, state), "step/grads"))  # momentum from 0: the grads
+    out["step/losses"] = np.array(losses)
+    serve_cfg = dataclasses.replace(cfg, num_splits=1)
+    cache = tp.shard_cache(contiguous.init_cache(cfg.num_layers, 4, cfg.num_kv_heads, cfg.max_seq_len, cfg.head_dim,
+                                                 dtype=torch.float32, device="cpu"), mesh)
+    logits, _ = parallel.make_tp_decode_step(mesh, serve_cfg)(params, cache, torch.zeros(4, dtype=torch.int32),
+                                                              cos, sin)
+    out["serve/logits"] = logits
+    # TP x CP: the ring over seq, Megatron over model
+    mesh = meshes["tp2_sp2"]
+    params = tp.shard_params(full, mesh, cfg)
+    state = parallel.init_opt_state(params)
+    step = parallel.make_tp_cp_train_step(mesh, cfg, LR)
+    params, state, loss = step(params, state, batch, cos, sin)
+    out["tp_cp/loss"] = loss
+    out.update(flatten(params, "tp_cp/params"))
+    out.update(flatten(state, "tp_cp/grads"))
+    return out
+
+
+def fake_mesh(axes: dict, rank: int):
+    """A ``parallel.mesh.Mesh`` as rank ``rank`` sees it, without a process
+    group: enough for what raises before any collective."""
+    import torch
+
+    from starflashattention_tpu_torch.parallel.mesh import Axis, Mesh
+
+    sizes = list(axes.values())
+    grid = np.arange(int(np.prod(sizes))).reshape(sizes)
+    coords = mesh_coords(axes, rank)
+    out = {}
+    for i, name in enumerate(axes):
+        idx = [coords[n] for n in axes]
+        idx[i] = slice(None)
+        out[name] = Axis(name, sizes[i], coords[name], tuple(int(v) for v in grid[tuple(idx)]), None, "gloo")
+    return Mesh(out, torch.device("cpu"))
+
+
+def mesh_coords(axes: dict, rank: int) -> dict:
+    """Rank ``rank``'s index along each axis (ranks row-major over the axes)."""
+    coords = np.argwhere(np.arange(int(np.prod(list(axes.values())))).reshape(tuple(axes.values())) == rank)[0]
+    return dict(zip(axes, coords.tolist()))
+
+
+SUITES = {"ring": _ring_suite, "parallel": _parallel_suite, "tp": _tp_suite, "tp_serving": _tp_serving_suite,
+          "pp": _pp_suite, "tp_train": _tp_train_suite}
 
 
 def main(suite, rank, world, port, workdir):
