@@ -37,7 +37,11 @@ Phases (any failure raises and the script exits non-zero):
    with both (token j bit for bit the decode at lengths + j), K2 at head_dim
    256 with 4 splits (Gemma-7B), K7 on both families' rows in 128-row pages
    and K5 on 2048-row chunks (PagedEngine's) at offsets 4608 and 6144, each
-   within 2 (decode) or 3 (K5) bf16 ulps of each element of its twin.
+   within 2 (decode) or 3 (K5) bf16 ulps of each element of its twin. The
+   head_dim 256 rows run ``csrc/flash_decode_d256.cu`` (the KV walk split
+   into chunks, one block each, merged by the last block) and print their
+   GB/s, share of the bound and chunk grid; the tiled int4 rows print
+   TFLOP/s and share of the bound per shape.
    Gemma-2's q is scaled so that its scores reach several times the cap,
    and the kernel without the cap (K1, K7, K5), or without the sinks
    (Mistral's K1 and K5), must lie over 4x that tolerance from the twin,
@@ -507,6 +511,16 @@ def bound_ms(n_bytes, n_ops, ops_per_s=PEAK_BF16_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def log_rate(entry, ms, n_bytes, n_ops, chunks=None):
+    """A phase 2 row's achieved rate and share of its bound: GB/s for a row
+    the bytes bound, TFLOP/s for one the operations bound; ``chunks`` = (N,
+    C) of a D 256 decode call's chunk grid."""
+    bnd, by = bound_ms(n_bytes, n_ops)
+    rate = f"{n_bytes / ms / 1e6:.1f} GB/s" if by == "bytes" else f"{n_ops / ms / 1e9:.1f} TFLOP/s"
+    grid = "" if chunks is None else f", {chunks[0]} chunks of {chunks[1]} rows a (sequence, KV head)"
+    log(f"[rate] {entry}: {ms:.4f} ms, {rate}, {bnd / ms:.1%} of its bound ({by}){grid}")
+
+
 # ---------------------------------------------------------------- phase 1
 
 
@@ -529,27 +543,37 @@ def phase_device_and_build():
         log(f"[build] {name}: {len(regs)} kernels, registers per thread up to {max(regs, default=0)}, "
             f"spill stores {spills} bytes")
         if name in ("flash_prefill", "flash_bwd"):
-            for kernel, regs, spill in _kernel_resources(r["ptxas"]):
+            for kernel, regs, spill in _entry_resources(r["ptxas"], _kernel_label):
                 if kernel.split("<")[1].startswith("256") or spill:
                     log(f"[build]   {kernel}: {regs} registers, spill stores {spill} bytes")
-        for kernel, regs, spill in _latent_resources(r["ptxas"]):
-            log(f"[build]   {kernel}: {regs} registers, spill stores {spill} bytes")
+        for label in (_latent_label, _d256_or_int4_label):
+            for kernel, regs, spill in _entry_resources(r["ptxas"], label):
+                log(f"[build]   {kernel}: {regs} registers, spill stores {spill} bytes")
     return smi
 
 
-def _latent_resources(ptxas):
-    """[(kernel, registers, spill store bytes)] of the MLA latent-row forms
-    (head_dim 640) in ``nvcc -Xptxas -v`` output."""
+def _latent_label(name):
+    """The display name of an MLA latent-row form (head_dim 640), else None."""
+    if "latent" in name:
+        return "flash_prefill_latent_kernel (D 640)"
+    if "Li640E" in name:
+        return f"flash_decode_kernel<bf16, bf16, 640, {'paged' if 'Lb1ELb0E' in name else 'contiguous'}>"
+    return None
+
+
+def _d256_or_int4_label(name):
+    """The D 256 decode kernels and the tiled int4 matmul, by mangled name."""
+    return name if "decode_d256_kernel" in name or "qmm_int4_tiled" in name else None
+
+
+def _entry_resources(ptxas, label):
+    """[(label(entry), registers, spill store bytes)] of the entries that
+    ``label`` names (not None), from ``nvcc -Xptxas -v`` output."""
     out, kernel, spill = [], None, 0
     for line in ptxas.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = m.group(1)
-            kernel = None
-            if "latent" in name:
-                kernel = "flash_prefill_latent_kernel (D 640)"
-            elif "Li640E" in name:
-                kernel = f"flash_decode_kernel<bf16, bf16, 640, {'paged' if 'Lb1ELb0E' in name else 'contiguous'}>"
+            kernel = label(m.group(1))
             spill = 0
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and kernel:
@@ -561,23 +585,11 @@ def _latent_resources(ptxas):
     return out
 
 
-def _kernel_resources(ptxas):
-    """[(kernel<template args>, registers, spill store bytes)] from ``nvcc
-    -Xptxas -v`` output (args: head_dim, then the flags as 0 / 1)."""
-    out, kernel, spill = [], None, 0
-    for line in ptxas.splitlines():
-        m = re.search(r"Compiling entry function '\S*?\d(flash_[a-z_]*_kernel)I((?:L[ib]-?\d+E)+)", line)
-        if m:
-            kernel = f"{m.group(1)}<{','.join(re.findall(r'L[ib](-?[0-9]+)E', m.group(2)))}>"
-            spill = 0
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m and kernel:
-            spill = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and kernel:
-            out.append((kernel, int(m.group(1)), spill))
-            kernel = None
-    return out
+def _kernel_label(name):
+    """kernel<template args> of a flash_*_kernel entry (args: head_dim, then
+    the flags as 0 / 1), else None."""
+    m = re.search(r"\d(flash_[a-z_]*_kernel)I((?:L[ib]-?\d+E)+)", name)
+    return m and f"{m.group(1)}<{','.join(re.findall(r'L[ib](-?[0-9]+)E', m.group(2)))}>"
 
 
 # ---------------------------------------------------------------- phase 2
@@ -1719,6 +1731,15 @@ def _flex_call(q, k, v, base, window, sinks, softcap, scale):
     return lambda: _FLEX[0](q, k, v, score_mod=score_mod, block_mask=mask, scale=scale, enable_gqa=True)
 
 
+def d256_grid(b, hkv, s):
+    """(N, C) of a merging D 256 decode call on this card: the chunk count
+    and the rows each block walks (ops/flash_decode.d256_chunking)."""
+    from starflashattention_tpu_torch.ops.flash_decode import d256_chunking, sm_count
+
+    c, n = d256_chunking(s, b, hkv, sm_count(torch.device("cuda", 0)))
+    return n, c
+
+
 def _variant_kernels(dev, timer, gen):
     """The attention variants at the phase 10 families' shapes, S = 8192
     cache rows and lengths 5,000-8,000 (past the 4096 window): K1 with the
@@ -1776,7 +1797,8 @@ def _variant_kernels(dev, timer, gen):
         if drop is not None:
             _sensitive(entry, drop[0], flash_decode(q, k_tab, v_tab, lens, **{**kw, **drop[1]}), ref, 1)
         rows = int(_attended_rows(lens, *(band or (None, 0))).sum())
-        bnd, by = bound_ms(2 * q.numel() * 2 + 2 * rows * hkv * d * 2 + b * 4, 4 * hq * d * rows)
+        n_bytes, n_ops = 2 * q.numel() * 2 + 2 * rows * hkv * d * 2 + b * 4, 4 * hq * d * rows
+        bnd, by = bound_ms(n_bytes, n_ops)
         if band is not None:
             kp, n = _poison_below(k_tab, lens - band[0], band[1])
             vp, _ = _poison_below(v_tab, lens - band[0], band[1])
@@ -1785,6 +1807,10 @@ def _variant_kernels(dev, timer, gen):
         res[entry] = dict(max_abs_err=err, ms=timer(lambda: flash_decode(q, k_tab, v_tab, lens, **kw)),
                           plain_ms=timer(lambda: flash_decode_plain(q, k_tab, v_tab, lens, **kw), iters=5),
                           bound_ms=bnd, bound_by=by, library_ms=library(ref) if library else None)
+        if d == 256:
+            splits = kw["num_splits"]
+            grid = d256_grid(b, hkv, s) if splits == 1 else (splits, s // splits)
+            log_rate(entry, res[entry]["ms"], n_bytes, n_ops, grid)
 
     def band_mask(lens, window, sinks):  # (B, 1, 1, S): the decode row's attended rows
         m = (kpos[None, :] < lens[:, None]) & (kpos[None, :] >= lens[:, None] - window)
@@ -1810,13 +1836,15 @@ def _variant_kernels(dev, timer, gen):
         _band_check(entry, out, paged_flash_decode(q, kpool, vpool, reclaimed, lens, layer=0, **kw), n)
         kpool[:, :, 0], vpool[:, :, 0] = 0.0, 0.0
         rows = int(_attended_rows(lens, *band).sum())
-        bnd, by = bound_ms(2 * q.numel() * 2 + 2 * rows * hkv * d * 2 + b * 4 + table.numel() * 4,
-                           4 * hq * d * rows)
+        n_bytes = 2 * q.numel() * 2 + 2 * rows * hkv * d * 2 + b * 4 + table.numel() * 4
+        bnd, by = bound_ms(n_bytes, 4 * hq * d * rows)
         res[entry] = dict(
             max_abs_err=err, ms=timer(lambda: paged_flash_decode(q, kpool, vpool, table, lens, layer=0, **kw)),
             plain_ms=timer(lambda: paged_flash_decode_plain(q, kpool, vpool, table, lens, layer=0, **kw),
                            iters=5),
             bound_ms=bnd, bound_by=by, library_ms=library(ref) if library else None)
+        if d == 256:
+            log_rate(entry, res[entry]["ms"], n_bytes, 4 * hq * d * rows, d256_grid(b, hkv, s))
         del kpool, vpool
 
     # -- Mistral-7B: window 4096 + 4 sinks, D 128
@@ -1874,11 +1902,13 @@ def _variant_kernels(dev, timer, gen):
     tok_len = vlens[:, None] + torch.arange(t, device=dev, dtype=torch.int32)[None, :]
     n_pairs = int(_attended_rows(tok_len.flatten(), w, 0).sum())
     n_rows = int((torch.clamp(vlens + t - 1, max=s) - torch.clamp(vlens - w, min=0)).sum())
-    bnd, by = bound_ms(2 * qv.numel() * 2 + 2 * n_rows * hkv * d * 2 + b * 4, 4 * hq * d * n_pairs)
+    n_bytes = 2 * qv.numel() * 2 + 2 * n_rows * hkv * d * 2 + b * 4
+    bnd, by = bound_ms(n_bytes, 4 * hq * d * n_pairs)
     res[entry] = dict(max_abs_err=err, ms=timer(lambda: flash_verify(qv, k_tab, v_tab, vlens, **kw)),
                       plain_ms=timer(lambda: flash_verify_plain(qv, k_tab, v_tab, vlens, **kw), iters=5),
                       bound_ms=bnd, bound_by=by,
                       library_ms=flex_library(entry, qv, k_tab[0], v_tab[0], vlens, kw, ref))
+    log_rate(entry, res[entry]["ms"], n_bytes, 4 * hq * d * n_pairs, d256_grid(b, hkv, s))
     del k_tab, v_tab, qv
 
     # -- Gemma-7B: D 256, Hq = Hkv = 16, 4 splits (K2), no band
@@ -2239,6 +2269,8 @@ def _quantized_matmuls(dev, timer, gen, shapes):
             n_ops = 2 * rows * kdim * ndim
             log(f"[time] quant_matmul_int4 {name} rows={rows}: kernel {t:.4f} ms, plain {t_plain:.4f} ms, "
                 f"torch.matmul(bf16 dequantized) {t_lib:.4f} ms, bound {bound_ms(n_bytes, n_ops)[0]:.4f} ms")
+            if rows > 64:
+                log_rate(f"quant_matmul_int4 tiled {name} rows={rows} K={kdim} N={ndim}", t, n_bytes, n_ops)
             add(INT4_ENTRY[rows], err, t, t_plain, t_lib, n_bytes, n_ops)
         if name == "lm_head":  # the lm_head stays weight-only under w8a8_prefill
             continue
@@ -2278,7 +2310,10 @@ def _quantized_matmuls(dev, timer, gen, shapes):
         del w4, deq
     for entry, r in res.items():
         rate = PEAK_INT8_OPS_PER_S if entry in A8_ENTRY.values() else PEAK_BF16_OPS_PER_S
-        r["bound_ms"], r["bound_by"] = bound_ms(r.pop("n_bytes"), r.pop("n_ops"), rate)
+        n_bytes, n_ops = r.pop("n_bytes"), r.pop("n_ops")
+        r["bound_ms"], r["bound_by"] = bound_ms(n_bytes, n_ops, rate)
+        if entry == INT4_ENTRY[2048]:
+            log_rate(f"{entry}, the five shapes", r["ms"], n_bytes, n_ops)
     return res
 
 
@@ -4815,11 +4850,14 @@ REPLACES = {
                                                     "flash_decode.cu") for m in ("int8", "fp8")},
     **{f"paged_flash_decode {m} KV": ("starflashattention_tpu/ops/paged_decode.py:74", "flash_decode.cu")
        for m in ("int8", "fp8")},
-    **{VARIANT_ENTRIES[k]: ("starflashattention_tpu/ops/flash_decode.py:213", "flash_decode_variants.cu")
-       for k in ("mistral_decode", "gemma2_decode", "gemma2_decode_full", "gemma2_verify")},
-    VARIANT_ENTRIES["gemma_split"]: ("starflashattention_tpu/ops/flash_decode.py:141", "flash_decode.cu"),
-    **{VARIANT_ENTRIES[k]: ("starflashattention_tpu/ops/paged_decode.py:74", "flash_decode_variants.cu")
-       for k in ("mistral_paged", "gemma2_paged")},
+    VARIANT_ENTRIES["mistral_decode"]: ("starflashattention_tpu/ops/flash_decode.py:213",
+                                        "flash_decode_variants.cu"),
+    **{VARIANT_ENTRIES[k]: ("starflashattention_tpu/ops/flash_decode.py:213", "flash_decode_d256.cu")
+       for k in ("gemma2_decode", "gemma2_decode_full", "gemma2_verify")},
+    VARIANT_ENTRIES["gemma_split"]: ("starflashattention_tpu/ops/flash_decode.py:141", "flash_decode_d256.cu"),
+    VARIANT_ENTRIES["mistral_paged"]: ("starflashattention_tpu/ops/paged_decode.py:74",
+                                       "flash_decode_variants.cu"),
+    VARIANT_ENTRIES["gemma2_paged"]: ("starflashattention_tpu/ops/paged_decode.py:74", "flash_decode_d256.cu"),
     **{VARIANT_ENTRIES[k]: ("starflashattention_tpu/ops/flash_prefill.py:67", "flash_prefill.cu")
        for k in ("gemma2_prefill", "mistral_prefill")},
     LATENT_ENTRIES["decode"]: ("starflashattention_tpu/ops/flash_decode.py:213", "flash_decode.cu"),

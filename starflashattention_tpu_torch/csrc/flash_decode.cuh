@@ -41,7 +41,8 @@
 // each row's dot product and one more term of the softmax's validity.
 // Window and sinks are runtime ints (W = 1 << 30 without a window) and the
 // softcap a runtime float, tested once per score outside the D-long dot
-// product, so neither adds an instantiation. D is 64, 128 or 256.
+// product, so neither adds an instantiation. D is 64 or 128 (D 256 has a kernel of its
+// own, flash_decode_d256.cu, which splits the KV walk across blocks).
 //
 // MLA's latent row (D = 640, the plain build only, bf16 q and bf16 K/V,
 // decode and paged, no verify): DeepSeek-V2 caches one 640-lane row a token
@@ -487,8 +488,6 @@ cudaError_t run(const RawArgs& r, cudaStream_t stream) {
           return launch<T, KV, 64, false, true>(a, r.B, stream);
         case 128:
           return launch<T, KV, 128, false, true>(a, r.B, stream);
-        case 256:
-          return launch<T, KV, 256, false, true>(a, r.B, stream);
         default:
           return cudaErrorInvalidValue;
       }
@@ -499,8 +498,6 @@ cudaError_t run(const RawArgs& r, cudaStream_t stream) {
       return launch<T, KV, 64, PAGED, false>(a, r.B, stream);
     case 128:
       return launch<T, KV, 128, PAGED, false>(a, r.B, stream);
-    case 256:
-      return launch<T, KV, 256, PAGED, false>(a, r.B, stream);
     case LATENT_D:
       if constexpr (has_latent_form<T, KV>()) return launch<T, KV, LATENT_D, PAGED, false>(a, r.B, stream);
       return cudaErrorInvalidValue;
@@ -539,7 +536,7 @@ const char* error_string(int e) { return cudaGetErrorString(static_cast<cudaErro
 // Fused mode: out (q's shape) in q's dtype non-null, partial pointers null,
 // num_splits 1. Partials mode (qspan 1): out null; o_part (B, Hq, N, D),
 // m_part/l_part (B, Hq, N). dtype: 0 = fp32, 1 = bf16 (q's dtype); kv_dtype:
-// 0 = q's dtype, 1 = int8, 2 = fp8-e4m3. D is 64, 128 or 256, or 640 for
+// 0 = q's dtype, 1 = int8, 2 = fp8-e4m3. D is 64 or 128, or 640 for
 // bf16 q and K/V in the plain build, not in verify mode. ``scale``
 // multiplies the scores (the quantized path passes 1 with q prescaled).
 // window (>= 1; 1 << 30 for none), sinks (>= 0), softcap (0 for none).

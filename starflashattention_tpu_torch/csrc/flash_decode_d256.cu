@@ -1,0 +1,578 @@
+// Decode attention at head_dim 256 for Hopper (sm_90a): the contiguous
+// decode and its verify span (K1), the split-KV partials (K2) and the paged
+// decode (K7), with the window, sinks and softcap as runtime arguments.
+//
+// Replaces, at D 256: starflashattention_tpu/ops/flash_decode.py::
+// _decode_kernel_fused (entries flash_decode with num_splits = 1 and
+// flash_verify), ::_decode_kernel (entry flash_decode_with_stats) and
+// starflashattention_tpu/ops/paged_decode.py::_paged_decode_kernel (entry
+// paged_flash_decode). D 64 / 128 (and MLA's 640) stay in flash_decode.cuh,
+// whose 128-byte parameter block this kernel does not share.
+//
+// Bound: the K/V bytes the walk reads, 2 tables x 512 bytes a row and KV
+// head in bf16 (256 in int8 / fp8); the 4 * D operations a (query row, key
+// row) pair are far below the CUDA cores' rate. Gemma-2-9B decodes B = 8
+// sequences on Hkv = 8 heads: one block per (sequence, KV head) is 64
+// blocks on 132 SMs, each walking up to 8,192 rows alone. So the walk is
+// split (flash-decoding): block (chunk i, kv head, b) walks only the tiles
+// of rows [i C, (i + 1) C) that the single-pass walk visits - the sink
+// tiles below the band's first tile, then the band from the tile holding
+// max(len - W, 0) - and writes fp32 (o, m, l) for its R = G * T query rows.
+// The wrapper picks C (a multiple of the 32-row tile) from the table's S
+// and B * Hkv alone, never from the lengths, so that B * Hkv * ceil(S / C)
+// is about 8 blocks an SM. A chunk the walk misses writes the empty partial
+// (m = NEG_INF, l = 0, o = 0). The last block of a (b, kv head) to arrive
+// (an arrival counter bumped after __threadfence, reset by that block, so
+// no memset launch) merges the chunks in chunk order with the natural-log
+// rescale, applies the l == 0 -> 1 guard and rounds once: one launch a call.
+// Because C is fixed in absolute positions and an empty chunk or a tile a
+// row does not see adds exact zeros, verify token j is bit for bit the
+// decode at lengths + j, and the paged and contiguous forms share the
+// chunk grid.
+//
+// Inside a block (256 threads): K and V tiles of 32 rows double-buffered in
+// dynamic shared memory by 16-byte cp.async (rows below the band that are
+// not sinks, and rows past the chunk, are zero-filled and never read, so a
+// reclaimed page or a row below the band is never loaded; a paged row is
+// resolved through the page table by the thread that copies it). Scores are
+// split over D: warp w takes dimensions 32w .. 32w + 31 and writes its
+// partial dot product of every (query row, key row). For bf16 q the warp
+// runs them on the tensor cores (mma.sync m16n8k16 on 16-row blocks of q
+// staged in bf16, K's bf16, int8 or fp8 values converted exactly; the
+// products are exact and the sums fp32); for fp32 q on the CUDA cores, lane
+// l taking key row l. K rows are padded by 16 bytes, so neither reads with
+// bank conflicts; every thread works at G = 1 or 2, with no shuffles. The
+// online softmax takes one warp a query row (a lane a key) and sums the
+// eight partials in a fixed order as it reads them. P @ V: for bf16 q on
+// bf16 V on the tensor cores too (P as two bf16 parts that hold it to about
+// 16 bits, V by ldmatrix.trans from rows padded like K's); otherwise one
+// output column a thread, each V element converted once for all R rows,
+// four rows at a time in independent FMA chains. Scores, softmax and
+// accumulators are fp32.
+//
+// Partials mode (out null): the blocks write the caller's (o, m, l) at the
+// caller's split geometry (C = split_len, N = num_splits) and do not merge.
+//
+// Quantized KV (int8 / fp8-e4m3 tables or pools): converted to float where
+// read; the wrappers fold sm_scale * k_scale into q and apply v_scale
+// outside, as for D 64 / 128. Paged (fold_scale): q * scale is rounded to
+// q's dtype before the dot products, as the JAX wrapper does.
+
+#include <cuda_bf16.h>
+#include <cuda_fp8.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int D = 256;
+constexpr int BK = 32;         // KV rows a tile
+constexpr int THREADS = 256;   // P @ V: one output column a thread
+constexpr int NWARPS = THREADS / 32;
+constexpr int RG = 4;  // query rows a pass of the score and P @ V loops
+constexpr int STAGES = 2;
+constexpr float NEG_INF = -0.7f * 3.4028234663852886e38f;
+static_assert(THREADS == D && D == 32 * NWARPS && BK == 32, "a column a thread, 32 dimensions a warp, a key a lane");
+
+struct Args {
+  const void* q;  // (B, Hq, T, D) in q's dtype
+  const void* k;  // one layer: (B, Hkv, S, D) table, or (Hkv, num_pages, page_size, D) pool slice
+  const void* v;
+  const int* lengths;     // (B,): valid KV of query token 0
+  const int* page_table;  // paged: (B, pages_per_seq)
+  void* out;              // merged output (q's shape) in q's dtype, or fp32 with out_f32; null: partials
+  float* o_part;          // (B, Hq, T, n_chunks, D): the workspace, or the caller's partials
+  float* m_part;          // (B, Hq, T, n_chunks)
+  float* l_part;
+  int* arrivals;          // (B, Hkv) counters, 0 between calls (merging mode)
+  int Hq, Hkv, S, qspan, chunk, n_chunks;
+  int pages_per_seq, page_size, num_pages;
+  float scale;
+  int fold_scale, out_f32;
+  int window, sinks;
+  float softcap;
+};
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(int8_t v) { return static_cast<float>(v); }
+__device__ __forceinline__ float to_f(__nv_fp8_e4m3 v) { return static_cast<float>(v); }
+__device__ __forceinline__ void from_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void from_f(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+__device__ __forceinline__ float round_to(float v, const float*) { return v; }
+__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// 8 consecutive KV elements from shared memory, as floats (fp32 q's score loop)
+__device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+template <typename B8>
+__device__ __forceinline__ void load8_bytes(const B8* p, float (&f)[8]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const B8* h = reinterpret_cast<const B8*>(&u);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) f[e] = to_f(h[e]);
+}
+__device__ __forceinline__ void load8(const int8_t* p, float (&f)[8]) { load8_bytes(p, f); }
+__device__ __forceinline__ void load8(const __nv_fp8_e4m3* p, float (&f)[8]) { load8_bytes(p, f); }
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+
+// A K row in shared memory takes 16 bytes more than its data, so that the
+// 32 lanes of a warp, one key row each, read a column without bank
+// conflicts; V rows are read along D and stay dense.
+template <typename KV>
+__host__ __device__ constexpr int k_row_bytes() {
+  return D * static_cast<int>(sizeof(KV)) + 16;
+}
+template <typename KV>
+__host__ __device__ constexpr int stage_bytes() {
+  return 2 * BK * k_row_bytes<KV>();  // V rows are padded alike, for ldmatrix.trans
+}
+
+// bf16 q: the scores run on the tensor cores (mma.sync, bf16 products are
+// exact, fp32 sums), q staged once more in bf16, in 16-row blocks padded by
+// 16 bytes a row so that ldmatrix reads it without bank conflicts.
+template <typename T>
+__host__ __device__ constexpr bool mma_scores() {
+  return std::is_same_v<T, __nv_bfloat16>;
+}
+// bf16 q on bf16 V: P @ V on the tensor cores too, P (fp32) entering as two
+// bf16 parts, hi = bf16(p) and lo = bf16(p - hi), which hold p to about 16
+// bits (far below the output's bf16 rounding); V by ldmatrix.trans.
+template <typename T, typename KV>
+__host__ __device__ constexpr bool mma_pv() {
+  return std::is_same_v<T, __nv_bfloat16> && std::is_same_v<KV, __nv_bfloat16>;
+}
+constexpr int QB_ROW = D + 8;  // bf16 elements a row of the staged q
+
+// R: query rows a block holds (G, or G * T to verify)
+template <typename T, typename KV>
+size_t smem_bytes(int R) {
+  const size_t q_bf16 = mma_scores<T>() ? (size_t)(R + 15) / 16 * 16 * QB_ROW * 2 : 0;
+  return (size_t)STAGES * stage_bytes<KV>() + q_bf16 +
+         sizeof(float) * ((size_t)2 * R * D + (size_t)(NWARPS + 1) * R * BK + 4 * (size_t)R);
+}
+
+// D = A(16x16, row) * B(16x8, col) + D, bf16 inputs, fp32 accumulators.
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+// Two fp32 values as bf16x2 parts: hi = bf16(p), lo = bf16(p - hi).
+__device__ __forceinline__ void split_bf16(float2 p, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p.x, p.y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(p.x - hf.x, p.y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+// Two consecutive KV elements as a bf16x2 (exact: int8 and fp8-e4m3 values are bf16 values).
+__device__ __forceinline__ uint32_t pair_bf16(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+template <typename B8>
+__device__ __forceinline__ uint32_t pair_bf16(const B8* p) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(to_f(p[0]), to_f(p[1]));
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <typename T, typename KV, bool PAGED>
+__global__ void __launch_bounds__(THREADS) decode_d256_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int is_last;
+  constexpr int KROW = k_row_bytes<KV>(), KT = BK * KROW, SB = stage_bytes<KV>();
+  constexpr int PIECES_ROW = D * sizeof(KV) / 16;  // 16-byte pieces a KV row
+  const int chunk = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int G = a.Hq / a.Hkv, span = a.qspan, R = G * span;  // row r = g * T + j
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const T* q = static_cast<const T*>(a.q);
+  const KV* kbase = static_cast<const KV*>(a.k);
+  const KV* vbase = static_cast<const KV*>(a.v);
+
+  const int RP = (R + 15) / 16 * 16;  // R in 16-row blocks
+  __nv_bfloat16* q_bf = reinterpret_cast<__nv_bfloat16*>(smem + STAGES * SB);  // [RP][QB_ROW] (bf16 q)
+  float* q_s = reinterpret_cast<float*>(smem + STAGES * SB + (mma_scores<T>() ? RP * QB_ROW * 2 : 0));  // [R][D]
+  float* acc = q_s + R * D;                                   // [R][D]
+  float* part = acc + R * D;                                  // [NWARPS][R][BK] partial scores
+  float* s_s = part + NWARPS * R * BK;                        // [R][BK] P
+  float* m_s = s_s + R * BK;
+  float* l_s = m_s + R;
+  float* al_s = l_s + R;                                      // this tile's rescale factor
+  int* len_s = reinterpret_cast<int*>(al_s + R);              // [R] each row's valid rows
+  const uint32_t kv_s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+
+  const size_t row0 = ((size_t)b * a.Hq + (size_t)kvh * G) * span;  // q row of (head kvh * G, token 0)
+  const int len0 = a.lengths[b];                                     // valid KV of token 0
+  const int len = min(len0 + span - 1, a.S);                         // the last token's
+  const int cs = chunk * a.chunk, ce = min(cs + a.chunk, len);       // this chunk's rows
+  // The band walk: token 0 has the lowest band start lo; the sink tiles below
+  // the band's first tile come first, then the band (skip() jumps the gap).
+  const int lo = max(len0 - a.window, 0);
+  const int band0 = lo / BK * BK;
+  const int sink_end = (min(a.sinks, band0) + BK - 1) / BK * BK;
+  auto skip = [&](int j0) { return j0 >= sink_end && j0 < band0 ? band0 : j0; };
+
+  // Stage the tile at j0 into buffer buf: rows past the chunk, and rows below
+  // the band that are not sinks, are zero-filled and not read.
+  auto stage = [&](int j0, int buf) {
+    const uint32_t kd = kv_s + buf * SB, vd = kd + KT;
+    for (int i = tid; i < BK * PIECES_ROW; i += THREADS) {
+      const int row = i / PIECES_ROW, piece = i % PIECES_ROW;
+      const int p = j0 + row;
+      const bool ok = p < ce && (p >= lo || p < a.sinks);
+      size_t off = 0;  // element offset of KV row p
+      if (ok) {
+        if constexpr (PAGED) {
+          const long long page = a.page_table[(size_t)b * a.pages_per_seq + p / a.page_size];
+          off = (((size_t)kvh * a.num_pages + page) * a.page_size + p % a.page_size) * D;
+        } else {
+          off = (((size_t)b * a.Hkv + kvh) * a.S + p) * D;
+        }
+      }
+      const size_t byte = off * sizeof(KV) + piece * 16;
+      cp_async16(kd + row * KROW + piece * 16, reinterpret_cast<const char*>(kbase) + byte, ok ? 16 : 0);
+      cp_async16(vd + row * KROW + piece * 16, reinterpret_cast<const char*>(vbase) + byte, ok ? 16 : 0);
+    }
+  };
+
+  const bool fold = a.fold_scale != 0;
+  const float s_scale = fold ? 1.f : a.scale;
+  int j0 = skip(cs);
+  if (j0 < ce) {
+    stage(j0, 0);
+    cp_async_commit();
+    for (int i = tid; i < R * D; i += THREADS) {
+      const float x = to_f(q[row0 * D + i]);
+      q_s[i] = fold ? round_to(x * a.scale, q) : x;
+    }
+    if constexpr (mma_scores<T>()) {
+      for (int i = tid; i < RP * D; i += THREADS)  // rows past R are zeros
+        q_bf[i / D * QB_ROW + i % D] = __float2bfloat16(i < R * D ? q_s[i] : 0.f);
+    }
+  }
+  for (int i = tid; i < R * D; i += THREADS) acc[i] = 0.f;
+  for (int r = tid; r < R; r += THREADS) {
+    m_s[r] = NEG_INF;
+    l_s[r] = 0.f;
+    len_s[r] = min(len0 + r % span, a.S);  // token j = r % T sees len0 + j rows
+  }
+
+  int buf = 0;
+  while (j0 < ce) {
+    cp_async_wait_all();
+    __syncthreads();  // tile j0 has landed; every thread is done with the other buffer
+    const int jn = skip(j0 + BK);
+    if (jn < ce) {
+      stage(jn, buf ^ 1);
+      cp_async_commit();
+    }
+
+    // scores, split over D: warp w takes dimensions 32w .. 32w + 31 and
+    // writes its partial dot product of every (query row, key row)
+    if constexpr (mma_scores<T>()) {
+      // on the tensor cores: 16 query rows x 32 keys a block of rows, two
+      // k16 steps; lane (g, t) holds rows g, g + 8 and keys 8i + 2t, + 1
+      const int g = lane >> 2, t = lane & 3;
+      const uint32_t q_addr = static_cast<uint32_t>(__cvta_generic_to_shared(q_bf));
+      for (int rb = 0; rb < R; rb += 16) {
+        float c[4][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          const int k0 = 32 * warp + 16 * ks;
+          uint32_t af[4];
+          ldmatrix_x4(af, q_addr + ((rb + (lane & 15)) * QB_ROW + k0 + 8 * (lane >> 4)) * 2);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const KV* kr = reinterpret_cast<const KV*>(smem + buf * SB + (8 * i + g) * KROW) + k0 + 2 * t;
+            const uint32_t bf[2] = {pair_bf16(kr), pair_bf16(kr + 8)};
+            mma_bf16(c[i], af, bf);
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = rb + g + 8 * h;
+          if (r < R) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              *reinterpret_cast<float2*>(part + (warp * R + r) * BK + 8 * i + 2 * t) =
+                  make_float2(c[i][2 * h], c[i][2 * h + 1]);
+          }
+        }
+      }
+    } else {
+      // on the CUDA cores (fp32 q): lane l takes key row l
+      const KV* kr = reinterpret_cast<const KV*>(smem + buf * SB + lane * KROW) + 32 * warp;
+      float kf[4][8];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) load8(kr + 8 * c, kf[c]);
+      for (int r = 0; r < R; ++r) {
+        const float4* qr = reinterpret_cast<const float4*>(q_s + r * D + 32 * warp);
+        float d0 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const float4 qv = qr[c];
+          d0 = fmaf(qv.x, kf[c / 2][4 * (c % 2)], d0);
+          d1 = fmaf(qv.y, kf[c / 2][4 * (c % 2) + 1], d1);
+          d2 = fmaf(qv.z, kf[c / 2][4 * (c % 2) + 2], d2);
+          d3 = fmaf(qv.w, kf[c / 2][4 * (c % 2) + 3], d3);
+        }
+        part[(warp * R + r) * BK + lane] = (d0 + d1) + (d2 + d3);
+      }
+    }
+    __syncthreads();
+
+    // online softmax: a warp a row, a lane a key; the score is the eight
+    // warps' partials summed in a fixed order, the same for every row
+    for (int r = warp; r < R; r += NWARPS) {
+      const float* pr = part + r * BK + lane;
+      const int RB = R * BK;
+      const float dot = ((pr[0] + pr[RB]) + (pr[2 * RB] + pr[3 * RB])) +
+                        ((pr[4 * RB] + pr[5 * RB]) + (pr[6 * RB] + pr[7 * RB]));
+      // the row's own valid rows: its length, the chunk's end, its band
+      const int len_r = len_s[r];
+      const int p = j0 + lane;
+      const bool ok = p < min(ce, len_r) && (p >= len_r - a.window || p < a.sinks);
+      float s = dot * s_scale;
+      if (a.softcap > 0.f) s = a.softcap * tanhf(s / a.softcap);
+      s = ok ? s : NEG_INF;
+      const float m_old = m_s[r];
+      const float m_new = fmaxf(m_old, warp_max(s));
+      const float pr_ = ok ? expf(s - m_new) : 0.f;
+      const float sum = warp_sum(pr_);
+      s_s[r * BK + lane] = pr_;
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        l_s[r] = l_s[r] * alpha + sum;
+        m_s[r] = m_new;
+        al_s[r] = alpha;
+      }
+    }
+    __syncthreads();
+
+    if constexpr (mma_pv<T, KV>()) {
+      // P @ V on the tensor cores: warp w takes dimensions 32w .. 32w + 31
+      // of 16 query rows at a time, two k16 steps of keys; lane (g, t)
+      // holds rows g, g + 8 and dimensions 32w + 8i + 2t, + 1
+      const int g = lane >> 2, t = lane & 3;
+      const uint32_t v_addr = kv_s + buf * SB + KT;
+      for (int rb = 0; rb < R; rb += 16) {
+        float c[4][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          const int k0 = 16 * ks;
+          uint32_t ahi[4], alo[4];  // (g, k0 + 2t), (g + 8, k0 + 2t), (g, k0 + 2t + 8), (g + 8, ...)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = rb + g + 8 * (e & 1), k = k0 + 2 * t + 8 * (e >> 1);
+            const float2 pv = r < R ? *reinterpret_cast<const float2*>(s_s + r * BK + k) : make_float2(0.f, 0.f);
+            split_bf16(pv, ahi[e], alo[e]);
+          }
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {  // n8 tiles 2np, 2np + 1: dimensions 32w + 16np ..
+            const int mtx = lane >> 3;
+            const int key = k0 + (mtx & 1) * 8 + (lane & 7), dim = 32 * warp + 16 * np + (mtx >> 1) * 8;
+            uint32_t bv[4];
+            ldmatrix_x4_trans(bv, v_addr + key * KROW + dim * 2);
+            const uint32_t b0[2] = {bv[0], bv[1]}, b1[2] = {bv[2], bv[3]};
+            mma_bf16(c[2 * np], ahi, b0);
+            mma_bf16(c[2 * np], alo, b0);
+            mma_bf16(c[2 * np + 1], ahi, b1);
+            mma_bf16(c[2 * np + 1], alo, b1);
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = rb + g + 8 * h;
+          if (r < R) {
+            const float al = al_s[r];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              float2* ap = reinterpret_cast<float2*>(acc + r * D + 32 * warp + 8 * i + 2 * t);
+              const float2 o = *ap;
+              *ap = make_float2(o.x * al + c[i][2 * h], o.y * al + c[i][2 * h + 1]);
+            }
+          }
+        }
+      }
+    } else {
+      // P @ V on the CUDA cores: thread d, its V column converted once for
+      // every row; RG rows at a time, each summed in four interleaved chains
+      // (keys j % 4), the same order for every row
+      const KV* vs = reinterpret_cast<const KV*>(smem + buf * SB + KT);
+      float vf[BK];
+#pragma unroll
+      for (int jj = 0; jj < BK; ++jj) vf[jj] = to_f(vs[jj * (KROW / static_cast<int>(sizeof(KV))) + tid]);
+      for (int r0 = 0; r0 < R; r0 += RG) {
+        float o[RG][4];
+#pragma unroll
+        for (int rr = 0; rr < RG; ++rr) {
+          const float4* pr = reinterpret_cast<const float4*>(s_s + min(r0 + rr, R - 1) * BK);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[rr][e] = 0.f;
+#pragma unroll
+          for (int jj = 0; jj < BK / 4; ++jj) {
+            const float4 p = pr[jj];
+            o[rr][0] = fmaf(p.x, vf[4 * jj], o[rr][0]);
+            o[rr][1] = fmaf(p.y, vf[4 * jj + 1], o[rr][1]);
+            o[rr][2] = fmaf(p.z, vf[4 * jj + 2], o[rr][2]);
+            o[rr][3] = fmaf(p.w, vf[4 * jj + 3], o[rr][3]);
+          }
+        }
+#pragma unroll
+        for (int rr = 0; rr < RG; ++rr) {
+          const int r = r0 + rr;
+          if (r < R) acc[r * D + tid] = acc[r * D + tid] * al_s[r] + ((o[rr][0] + o[rr][1]) + (o[rr][2] + o[rr][3]));
+        }
+      }
+    }
+    j0 = jn;
+    buf ^= 1;
+  }
+  __syncthreads();
+
+  // this chunk's partials, at (row0 + r) * n_chunks + chunk
+  const int n = a.n_chunks;
+  for (int i = tid; i < R * D; i += THREADS)
+    a.o_part[((row0 + i / D) * n + chunk) * D + i % D] = acc[i];
+  for (int r = tid; r < R; r += THREADS) {
+    a.m_part[(row0 + r) * n + chunk] = m_s[r];
+    a.l_part[(row0 + r) * n + chunk] = l_s[r];
+  }
+  if (a.out == nullptr) return;  // partials mode
+
+  // merging mode: the last block of (b, kv head) to arrive merges the chunks
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int* counter = a.arrivals + (size_t)b * a.Hkv + kvh;
+    is_last = atomicAdd(counter, 1) == n - 1;
+    if (is_last) *counter = 0;  // every block of this (b, kv head) has arrived: ready for the next call
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  for (int i = tid; i < R * D; i += THREADS) {
+    const size_t h = row0 + i / D;
+    const float* mh = a.m_part + h * n;
+    const float* lh = a.l_part + h * n;
+    const float* oh = a.o_part + h * n * D + i % D;
+    float mg = NEG_INF;
+    for (int c = 0; c < n; ++c) mg = fmaxf(mg, __ldcg(mh + c));
+    float lg = 0.f, o = 0.f;
+    for (int c = 0; c < n; ++c) {
+      const float alpha = expf(__ldcg(mh + c) - mg);
+      lg += alpha * __ldcg(lh + c);
+      o += alpha * __ldcg(oh + (size_t)c * D);
+    }
+    const float res = o / (lg == 0.f ? 1.f : lg);
+    if (a.out_f32) {
+      static_cast<float*>(a.out)[h * D + i % D] = res;
+    } else {
+      from_f(static_cast<T*>(a.out) + h * D + i % D, res);
+    }
+  }
+}
+
+template <typename T, typename KV, bool PAGED>
+cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
+  const size_t smem = smem_bytes<T, KV>(a.Hq / a.Hkv * a.qspan);
+  auto kernel = decode_d256_kernel<T, KV, PAGED>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<dim3(a.n_chunks, a.Hkv, B), THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, typename KV>
+cudaError_t run(const Args& a, int B, int paged, cudaStream_t s) {
+  return paged ? launch<T, KV, true>(a, B, s) : launch<T, KV, false>(a, B, s);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* error_string(int e) { return cudaGetErrorString(static_cast<cudaError_t>(e)); }
+
+// q (B, Hq, qspan, D); k, v: one layer's (B, Hkv, S, D) table (paged 0) or
+// (Hkv, num_pages, page_size, D) pool slice (paged 1, with page_table
+// (B, pages_per_seq) and S = pages_per_seq * page_size); lengths (B,).
+// Merging mode: out non-null (q's dtype, or fp32 with out_f32), o/m/l_part
+// a workspace of (B, Hq, qspan, n_chunks[, D]) fp32 and arrivals (B, Hkv)
+// int32 zeros (left at zero). Partials mode: out null, arrivals null,
+// o/m/l_part the caller's (B, Hq, n_chunks[, D]), chunk = split_len.
+// dtype: 0 = fp32 q, 1 = bf16 q; kv_dtype: 0 = q's dtype, 1 = int8, 2 =
+// fp8-e4m3. window (1 << 30 for none), sinks, softcap (0 for none).
+int flash_decode_d256(const void* q, const void* k, const void* v, const void* lengths,
+                      const void* page_table, void* out, void* o_part, void* m_part, void* l_part,
+                      void* arrivals, int B, int Hq, int Hkv, int S, int qspan, int chunk,
+                      int n_chunks, int pages_per_seq, int page_size, int num_pages, float scale,
+                      int fold_scale, int out_f32, int dtype, int kv_dtype, int paged, int window,
+                      int sinks, float softcap, void* stream) {
+  if (qspan < 1 || chunk < 1 || n_chunks < 1 || window < 1 || sinks < 0 || Hkv < 1 || Hq % Hkv)
+    return cudaErrorInvalidValue;
+  if ((out == nullptr) != (arrivals == nullptr) || (paged && qspan > 1)) return cudaErrorInvalidValue;
+  const Args a{q, k, v, static_cast<const int*>(lengths), static_cast<const int*>(page_table), out,
+               static_cast<float*>(o_part), static_cast<float*>(m_part), static_cast<float*>(l_part),
+               static_cast<int*>(arrivals), Hq, Hkv, S, qspan, chunk, n_chunks, pages_per_seq,
+               page_size, num_pages, scale, fold_scale, out_f32, window, sinks, softcap};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (dtype == 1) {
+    switch (kv_dtype) {
+      case 0: e = run<__nv_bfloat16, __nv_bfloat16>(a, B, paged, s); break;
+      case 1: e = run<__nv_bfloat16, int8_t>(a, B, paged, s); break;
+      case 2: e = run<__nv_bfloat16, __nv_fp8_e4m3>(a, B, paged, s); break;
+      default: e = cudaErrorInvalidValue;
+    }
+  } else {
+    switch (kv_dtype) {
+      case 0: e = run<float, float>(a, B, paged, s); break;
+      case 1: e = run<float, int8_t>(a, B, paged, s); break;
+      case 2: e = run<float, __nv_fp8_e4m3>(a, B, paged, s); break;
+      default: e = cudaErrorInvalidValue;
+    }
+  }
+  return static_cast<int>(e);
+}
+
+}  // extern "C"

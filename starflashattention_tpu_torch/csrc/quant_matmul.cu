@@ -33,9 +33,15 @@
 //    bytes per step, 16 bytes per thread, coalesced), then a deterministic
 //    cross-warp sum in shared memory. The x rows (<= 64) are read straight
 //    from L1/L2 as mma A fragments. int4 splits K by whole groups.
-//  * tiled (M > 64): 64 x 64 output tiles, K in steps of 32 (int4: one
-//    packed 16-row chunk, i.e. 32 rows) through shared memory, 4 warps of
-//    32 x 32 each. No software pipelining yet.
+//  * tiled (M > 64), int8 / fp8: 64 x 64 output tiles, K in steps of 32
+//    through shared memory, 4 warps of 32 x 32 each. No software
+//    pipelining yet.
+//  * tiled (M > 64), int4: 64 x 256 output tiles, 8 warps, a 4-buffer
+//    cp.async ring of 64 packed rows a stage (one g128 group), A fragments
+//    by ldmatrix from a swizzled layout, the packed bytes read as 32-bit
+//    words and unpacked in registers by the magic-number conversion (see
+//    qmm_int4_tiled). Bound at prefill rows by the operations: 2048 rows
+//    through 7B's five shapes are 1.26 TFLOP, 1.28 ms at 989 TFLOP/s.
 //
 // Requirements checked by the wrapper: K % 32 == 0, N % 32 == 0 (int4:
 // group / 2 % 16 == 0), x, w, scale and out contiguous and 16-byte aligned.
@@ -416,78 +422,301 @@ __global__ void __launch_bounds__(SM_WARPS * 32)
   reduce_store<MT>(acc, red, out, M, N, n0, static_cast<const float*>(nullptr));
 }
 
-template <typename OutT>
-__global__ void __launch_bounds__(128)
+// ---------------------------------------------------------------- int4 tiled
+// 64 x 256 output tiles, 8 warps of 64 x 32 side by side along N. K runs in
+// stages of 64 packed rows, each 4 chunks of 16 packed rows; a chunk is 16
+// low-nibble rows against 16 activation columns and 16 high-nibble rows
+// against the 16 columns half a group on. A stage's chunks cover 128
+// activation columns, so at g128 one stage is one scale group (the G128
+// form: its group start and flush sit at fixed chunks, with no branch). A
+// ring of I4_STAGES stages in dynamic shared memory, filled by 16-byte
+// cp.async (rows past M, columns past N and chunks past K zero-filled),
+// keeps two to three stages in flight while one is multiplied. One barrier
+// a stage, in its middle: at the stage's end the group flush then runs into
+// the next stage's products with no barrier between them. Each group's
+// products go to an fp32 group accumulator (its first mma starts from 0),
+// which is multiplied by the group's scale and added to the accumulator
+// when the group ends.
+//  * A (x) is stored 256 bytes a row, its 16-byte pieces XOR-swizzled by
+//    the row (piece ^ (row & 7)), and read with ldmatrix.x4 without bank
+//    conflicts. Piece j * 4 + h * 2 + q of a row holds chunk j's 8 columns
+//    q of its low (h = 0) or high (h = 1) half.
+//  * B (packed bytes) keeps its global layout, 272 bytes a row (16 of
+//    padding: the lanes' rows 2t land in four different bank octets). Each
+//    thread reads 32-bit words: 4 output columns of one packed row. The mma
+//    B fragment needs k pairs (2t, 2t + 1) of one column, so the columns
+//    are permuted: byte i of the word at columns wn * 32 + 4g feeds n8 tile
+//    i, column g; thread (g, t) then holds output columns wn * 32 + 8t + i
+//    and wn * 32 + 8t + 4 + i, i.e. 8 consecutive columns, stored with
+//    16-byte stores. The nibbles become bf16 in registers (nib2_bf16:
+//    prmt, lop3, one bf16x2 FMA) - no per-byte shared reads, no float
+//    conversions.
+//  * S (scales) holds each chunk's group row for the tile's columns (at
+//    g128 only chunk 0's: the stage is one group).
+// What bounds it on the H100: the group accumulator (64 more fp32
+// registers a thread, 205 in all) caps the tile at 64 x 256 with one block
+// an SM, so the tiles' traffic from L2 is large; copies of the kernel with
+// the global reads, the group flush or the unpack taken out each ran
+// faster, the first by most, and the deeper rings and other rasters did
+// not. The rest is mma.sync's rate. wgmma is the next step (ROADMAP).
+// The grid is rastered in bands of I4_BAND_M row tiles, row tiles fastest:
+// the blocks in flight share each packed weight tile and the activations
+// in L2, and every weight byte is read from device memory about once.
+constexpr int I4_MT = 4;                 // m16 tiles a warp: warp tiles of 64 x 32
+constexpr int I4_WARPS = 8;              // side by side along N
+constexpr int I4_BM = I4_MT * 16;
+constexpr int I4_BN = I4_WARPS * 32;
+constexpr int I4_SP = 64;                // packed rows a stage
+constexpr int I4_CHUNKS = I4_SP / 16;    // chunks a stage
+constexpr int I4_STAGES = 4;  // the barrier sits mid-stage, so the ring needs a fourth buffer
+constexpr int I4_THREADS = I4_WARPS * 32;
+constexpr int I4_B_PIECES = I4_BN / 16;  // 16-byte pieces of a packed row
+constexpr int I4_BAND_M = 32;            // row tiles a raster band
+constexpr int I4_A_ROW = 2 * I4_SP * 2;  // bytes: 128 bf16 activations a row
+constexpr int I4_B_ROW = I4_BN + 16;     // bytes: 256 packed bytes + padding
+constexpr int I4_A_BYTES = I4_BM * I4_A_ROW;
+constexpr int I4_B_BYTES = I4_SP * I4_B_ROW;
+constexpr int I4_S_BYTES = I4_CHUNKS * I4_BN * 4;
+constexpr int I4_STAGE_BYTES = I4_A_BYTES + I4_B_BYTES + I4_S_BYTES;
+constexpr int I4_SMEM = I4_STAGES * I4_STAGE_BYTES;  // 151,552 bytes
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros and
+// reads nothing (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// Byte I of word a and byte I of word b -> one bf16x2 (a's value in the low
+// half), of their low nibbles (HIGH false: stored biased +8) or of their
+// high nibbles already shifted into bits 0-3 (HIGH true: signed, so bit 3
+// is flipped to give the same +8 bias). prmt gathers the two bytes; lop3
+// computes (x & 0x000f000f) ^ magic, which puts the biased nibble n into
+// the mantissa of bf16 128.0 (0x4300 | n = 128 + n, exact); one bf16x2 FMA
+// subtracts 136. Exact for every value in [-8, 7].
+template <int I, bool HIGH>
+__device__ __forceinline__ uint32_t nib2_bf16(uint32_t a, uint32_t b) {
+  constexpr uint32_t sel = I | (I << 4) | ((4 + I) << 8) | ((4 + I) << 12);
+  constexpr uint32_t magic = HIGH ? 0x43084308u : 0x43004300u;
+  uint32_t x, y, z;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(x) : "r"(a), "r"(b), "n"(sel));
+  asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n" : "=r"(y) : "r"(x), "n"(0x000f000fu), "n"(magic));
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(z) : "r"(y), "r"(0x3f803f80u), "r"(0xc308c308u));
+  return z;
+}
+
+// The B fragments of one chunk: words w0, w1, w8, w9 hold packed rows 2t,
+// 2t + 1, 2t + 8, 2t + 9 of the thread's 4 columns; lo/hi[i] are the
+// (b0, b1) fragments of n8 tile i for the low and the high nibbles.
+template <int I>
+__device__ __forceinline__ void unpack_tile(uint32_t (&lo)[4][2], uint32_t (&hi)[4][2],
+                                            uint32_t w0, uint32_t w1, uint32_t w8, uint32_t w9) {
+  lo[I][0] = nib2_bf16<I, false>(w0, w1);
+  lo[I][1] = nib2_bf16<I, false>(w8, w9);
+  hi[I][0] = nib2_bf16<I, true>(w0 >> 4, w1 >> 4);
+  hi[I][1] = nib2_bf16<I, true>(w8 >> 4, w9 >> 4);
+}
+
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
+  *reinterpret_cast<uint4*>(p) =
+      make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                 pack_bf16(v[6], v[7]));
+}
+
+// D = A(16x16, row) * B(16x8, col): mma_bf16 with C = 0, a group's first product.
+__device__ __forceinline__ void mma_bf16_first(float* c, const uint32_t* a, const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f));
+}
+
+template <typename OutT, bool G128>
+__global__ void __launch_bounds__(I4_THREADS, 1)
     qmm_int4_tiled(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
                    const float* __restrict__ scale, OutT* __restrict__ out, int M, int K, int N,
                    int half) {
-  // A columns 0..15: the chunk's low-half activations; 16..31: its high half
-  __shared__ __align__(16) __nv_bfloat16 As[LG_BM][AS_STRIDE];
-  __shared__ __align__(16) uint8_t Bs[16][BS_STRIDE];
+  extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int m0 = blockIdx.x * LG_BM, n0 = blockIdx.y * LG_BN;
-  const int groups = K / (2 * half), nch = half / 16;
+  const int wn = warp;  // the warp's columns: wn * 32 ..
 
-  float acc[2][4][4];
-  zero_acc(acc);
+  // raster: bands of I4_BAND_M row tiles, row tiles fastest within a band
+  const int tiles_m = (M + I4_BM - 1) / I4_BM, tiles_n = (N + I4_BN - 1) / I4_BN;
+  const int band = blockIdx.x / (I4_BAND_M * tiles_n);
+  const int band_m = min(tiles_m - band * I4_BAND_M, I4_BAND_M);
+  const int in_band = blockIdx.x - band * I4_BAND_M * tiles_n;
+  const int m0 = (band * I4_BAND_M + in_band % band_m) * I4_BM, n0 = (in_band / band_m) * I4_BN;
 
-  for (int grp = 0; grp < groups; ++grp) {
-    float gacc[2][4][4];
-    zero_acc(gacc);
-    for (int c = 0; c < nch; ++c) {
-      const int klo = grp * 2 * half + c * 16, khi = klo + half;
-      for (int i = tid; i < LG_BM * 4; i += 128) {
-        const int r = i >> 2, part = i & 3;
-        const int col = (part < 2 ? klo : khi) + (part & 1) * 8;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (m0 + r < M) v = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * K + col);
-        *reinterpret_cast<uint4*>(&As[r][part * 8]) = v;
+  const int kp = K / 2, nchunks = kp / 16;
+  const int nstages = (nchunks + I4_CHUNKS - 1) / I4_CHUNKS;
+
+  // This thread's copies. A: piece tid % 16 of rows tid / 16 + (threads /
+  // 16) i; B: piece tid % I4_B_PIECES of packed rows tid / I4_B_PIECES +
+  // (threads / I4_B_PIECES) i; S: 4 columns (tid % (I4_BN / 4)) of chunk
+  // tid / (I4_BN / 4).
+  const int a_piece = tid & 15, a_row0 = tid >> 4;
+  const int a_chunk = a_piece >> 2, a_high = (a_piece >> 1) & 1, a_q = a_piece & 1;
+  const uint32_t smem0 = smem_addr(smem);
+
+  auto load_stage = [&](int s, int buf) {
+    const uint32_t a_s = smem0 + buf * I4_STAGE_BYTES;
+    const uint32_t b_s = a_s + I4_A_BYTES, s_s = b_s + I4_B_BYTES;
+    {
+      const int c = s * I4_CHUNKS + a_chunk;
+      int col = 0;
+      if (c < nchunks) {
+        const int grp = 16 * c / half;
+        col = grp * 2 * half + a_high * half + (16 * c - grp * half) + 8 * a_q;
       }
-      for (int i = tid; i < 16 * (LG_BN / 16); i += 128) {
-        const int r = i >> 2, cc = (i & 3) * 16;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (n0 + cc < N)
-          v = __ldg(reinterpret_cast<const uint4*>(
-              w + (size_t)(grp * half + c * 16 + r) * N + n0 + cc));
-        *reinterpret_cast<uint4*>(&Bs[r][cc]) = v;
+#pragma unroll
+      for (int i = 0; i < I4_BM * 16 / I4_THREADS; ++i) {
+        const int row = a_row0 + I4_THREADS / 16 * i;
+        const bool ok = c < nchunks && m0 + row < M;
+        cp_async16(a_s + row * I4_A_ROW + ((a_piece ^ (row & 7)) << 4),
+                   ok ? x + (size_t)(m0 + row) * K + col : x, ok ? 16 : 0);
       }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < 32; kk += 16) {  // 0: low nibbles, 16: high nibbles
-        uint32_t af[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          const int r = wm * 32 + mt * 16 + g;
-          af[mt][0] = *reinterpret_cast<const uint32_t*>(&As[r][kk + 2 * t]);
-          af[mt][1] = *reinterpret_cast<const uint32_t*>(&As[r + 8][kk + 2 * t]);
-          af[mt][2] = *reinterpret_cast<const uint32_t*>(&As[r][kk + 2 * t + 8]);
-          af[mt][3] = *reinterpret_cast<const uint32_t*>(&As[r + 8][kk + 2 * t + 8]);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = wn * 32 + j * 8 + g;
-          const uint8_t b0 = Bs[2 * t][col], b1 = Bs[2 * t + 1][col];
-          const uint8_t b2 = Bs[2 * t + 8][col], b3 = Bs[2 * t + 9][col];
-          uint32_t bf[2];
-          if (kk == 0) {
-            bf[0] = pack_bf16(lo_nib(b0), lo_nib(b1));
-            bf[1] = pack_bf16(lo_nib(b2), lo_nib(b3));
-          } else {
-            bf[0] = pack_bf16(hi_nib(b0), hi_nib(b1));
-            bf[1] = pack_bf16(hi_nib(b2), hi_nib(b3));
-          }
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) mma_bf16(gacc[mt][j], af[mt], bf);
-        }
-      }
-      __syncthreads();
     }
-    add_group(acc, gacc, scale + (size_t)grp * N, n0 + wn * 32, t, N);
-  }
+#pragma unroll
+    for (int i = 0; i < I4_SP * I4_B_PIECES / I4_THREADS; ++i) {
+      const int row = tid / I4_B_PIECES + I4_THREADS / I4_B_PIECES * i, col = tid % I4_B_PIECES * 16;
+      const int prow = s * I4_SP + row;
+      const bool ok = prow < kp && n0 + col < N;
+      cp_async16(b_s + row * I4_B_ROW + col, ok ? w + (size_t)prow * N + n0 + col : w, ok ? 16 : 0);
+    }
+    for (int i = tid; i < (G128 ? 1 : I4_CHUNKS) * I4_BN / 4; i += I4_THREADS) {  // G128: one group a stage
+      const int j = i / (I4_BN / 4), col = i % (I4_BN / 4) * 4;
+      const int c = s * I4_CHUNKS + j;
+      const bool ok = c < nchunks && n0 + col < N;
+      cp_async16(s_s + (j * I4_BN + col) * 4,
+                 ok ? scale + (size_t)(16 * c / half) * N + n0 + col : scale, ok ? 16 : 0);
+    }
+  };
 
-  store_tile(acc, out, M, N, m0 + wm * 32, n0 + wn * 32, static_cast<const float*>(nullptr));
+  float acc[I4_MT][4][4], gacc[I4_MT][4][4];
+  zero_acc(acc);
+  zero_acc(gacc);
+
+#pragma unroll
+  for (int s = 0; s < I4_STAGES - 1; ++s) {
+    if (s < nstages) load_stage(s, s);
+    cp_async_commit();
+  }
+  cp_async_wait<I4_STAGES - 2>();
+  __syncthreads();  // stage 0 has landed
+  for (int s = 0; s < nstages; ++s) {
+    const int buf = s % I4_STAGES;
+    const uint32_t a_s = smem0 + buf * I4_STAGE_BYTES;
+    const unsigned char* b_s = smem + buf * I4_STAGE_BYTES + I4_A_BYTES;
+    const float* s_s = reinterpret_cast<const float*>(b_s + I4_B_BYTES);
+    float sc0[4], sc1[4];  // the scales of the thread's 8 columns for the group that ends next
+    auto load_scales = [&](int j) {
+      const float* sp = s_s + j * I4_BN + wn * 32 + 8 * t;
+      const float4 s_lo = *reinterpret_cast<const float4*>(sp);
+      const float4 s_hi = *reinterpret_cast<const float4*>(sp + 4);
+      sc0[0] = s_lo.x, sc0[1] = s_lo.y, sc0[2] = s_lo.z, sc0[3] = s_lo.w;
+      sc1[0] = s_hi.x, sc1[1] = s_hi.y, sc1[2] = s_hi.z, sc1[3] = s_hi.w;
+    };
+    if (G128) load_scales(0);  // early, off the flush's path
+#pragma unroll
+    for (int j = 0; j < I4_CHUNKS; ++j) {
+      if (j == I4_CHUNKS / 2) {
+        // mid-stage, away from the group flush at the stage's end: stage
+        // s + 1 has landed, and every warp is past stage s - 1, whose
+        // buffer takes stage s + I4_STAGES - 1
+        cp_async_wait<I4_STAGES - 3>();
+        __syncthreads();
+        if (s + I4_STAGES - 1 < nstages) load_stage(s + I4_STAGES - 1, (s + I4_STAGES - 1) % I4_STAGES);
+        cp_async_commit();
+      }
+      const int c = s * I4_CHUNKS + j;
+      if (!G128 && c >= nchunks) break;  // uniform across the block
+      const unsigned char* bp = b_s + (16 * j + 2 * t) * I4_B_ROW + wn * 32 + 4 * g;
+      const uint32_t w0 = *reinterpret_cast<const uint32_t*>(bp);
+      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(bp + I4_B_ROW);
+      const uint32_t w8 = *reinterpret_cast<const uint32_t*>(bp + 8 * I4_B_ROW);
+      const uint32_t w9 = *reinterpret_cast<const uint32_t*>(bp + 9 * I4_B_ROW);
+      uint32_t blo[4][2], bhi[4][2];
+      unpack_tile<0>(blo, bhi, w0, w1, w8, w9);
+      unpack_tile<1>(blo, bhi, w0, w1, w8, w9);
+      unpack_tile<2>(blo, bhi, w0, w1, w8, w9);
+      unpack_tile<3>(blo, bhi, w0, w1, w8, w9);
+#pragma unroll
+      for (int mt = 0; mt < I4_MT; ++mt) {
+        const int row = mt * 16 + (lane & 15);
+        const uint32_t a_row = a_s + row * I4_A_ROW;
+        uint32_t alo[4], ahi[4];
+        ldmatrix_x4(alo, a_row + (((j * 4 + (lane >> 4)) ^ (row & 7)) << 4));
+        ldmatrix_x4(ahi, a_row + (((j * 4 + 2 + (lane >> 4)) ^ (row & 7)) << 4));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (G128 && j == 0) {  // the group's first products: gacc starts from 0
+            mma_bf16_first(gacc[mt][i], alo, blo[i]);
+          } else {
+            mma_bf16(gacc[mt][i], alo, blo[i]);
+          }
+          mma_bf16(gacc[mt][i], ahi, bhi[i]);
+        }
+      }
+      if (G128 ? j == I4_CHUNKS - 1 : 16 * (c + 1) % half == 0) {  // the chunk ends its group
+        if (!G128) load_scales(j);
+#pragma unroll
+        for (int mt = 0; mt < I4_MT; ++mt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[mt][i][0] += gacc[mt][i][0] * sc0[i];
+            acc[mt][i][1] += gacc[mt][i][1] * sc1[i];
+            acc[mt][i][2] += gacc[mt][i][2] * sc0[i];
+            acc[mt][i][3] += gacc[mt][i][3] * sc1[i];
+            if (!G128) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) gacc[mt][i][e] = 0.f;
+            }
+          }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // thread (g, t) holds columns n0 + wn * 32 + 8t .. + 8: acc[..][i][0 / 2] at
+  // + i, acc[..][i][1 / 3] at + 4 + i, rows g and g + 8 of each m16 tile
+  const int c = n0 + wn * 32 + 8 * t;
+  if (c >= N) return;
+#pragma unroll
+  for (int mt = 0; mt < I4_MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = m0 + mt * 16 + g + 8 * h;
+      if (r < M) {
+        float v[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          v[i] = acc[mt][i][2 * h];
+          v[4 + i] = acc[mt][i][2 * h + 1];
+        }
+        store8(out + (size_t)r * N + c, v);
+      }
+    }
 }
 
 template <typename OutT>
@@ -504,8 +733,12 @@ cudaError_t launch_int4(const void* x, const void* w, const void* scale, void* o
   } else if (M <= 64) {
     qmm_int4_small_m<4, OutT><<<N / SM_BN, SM_WARPS * 32, 0, stream>>>(xp, wp, sp, op, M, K, N, half);
   } else {
-    dim3 grid((M + LG_BM - 1) / LG_BM, (N + LG_BN - 1) / LG_BN);
-    qmm_int4_tiled<OutT><<<grid, 128, 0, stream>>>(xp, wp, sp, op, M, K, N, half);
+    auto kernel = half == I4_SP ? qmm_int4_tiled<OutT, true> : qmm_int4_tiled<OutT, false>;
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, I4_SMEM);
+    if (e != cudaSuccess) return e;
+    const int tiles = ((M + I4_BM - 1) / I4_BM) * ((N + I4_BN - 1) / I4_BN);
+    kernel<<<tiles, I4_THREADS, I4_SMEM, stream>>>(xp, wp, sp, op, M, K, N, half);
   }
   return cudaGetLastError();
 }

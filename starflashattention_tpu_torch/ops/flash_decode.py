@@ -10,9 +10,12 @@ staircase mask of speculative decoding's verify step (token j sees
 ``csrc/flash_decode.cu``, one kernel with two output modes and a verify
 span (it replaces the TPU kernels ``_decode_kernel_fused``, in both its
 modes, and ``_decode_kernel``), or its build with the attention variants,
-``csrc/flash_decode_variants.cu``; on CPU tensors they run the plain versions
-below. The split boundaries come from :func:`_split_geometry`, a copy of
-the JAX one, so the partials compare one to one.
+``csrc/flash_decode_variants.cu``; at head_dim 256 they launch
+``csrc/flash_decode_d256.cu`` instead (:func:`launch_d256`: the KV walk
+split across blocks and merged by the last block, in one launch); on CPU
+tensors they run the plain versions below. The split boundaries come from
+:func:`_split_geometry`, a copy of the JAX one, so the partials compare one
+to one.
 
 Quantized caches (int8 / fp8 tables with (Hkv,) ``k_scales`` /
 ``v_scales``) take the JAX wrapper's scale handling, outside the kernel:
@@ -46,6 +49,10 @@ from starflashattention_tpu_torch.ops import _build
 _SIGNATURES = {
     "flash_decode": [_build.P] * 8 + [_build.I] * 8 + [_build.F, _build.I, _build.I, _build.I,
                                                        _build.I, _build.F, _build.P],
+}
+_D256_SIGNATURES = {
+    "flash_decode_d256": [_build.P] * 10 + [_build.I] * 10 + [_build.F] + [_build.I] * 7
+    + [_build.F, _build.P],
 }
 _CUDA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 QUANT_KV_DTYPES = {torch.int8: 1, torch.float8_e4m3fn: 2}  # the kernel's kv_dtype codes
@@ -101,6 +108,10 @@ def _split_geometry(s: int, num_splits: int, block_k: int) -> tuple[int, int, in
 
 NO_WINDOW = 1 << 30  # the kernels' window without one: every row below the length is in band
 KERNEL_HEAD_DIMS = (64, 128, 256)
+D256 = 256  # the head_dim csrc/flash_decode_d256.cu serves (the others: flash_decode.cuh)
+TILE = 32  # KV rows a tile of the decode kernels
+D256_MIN_CHUNK = 128  # fewest KV rows a block of the D 256 kernel walks
+D256_BLOCKS_PER_SM = 8  # the D 256 chunk grid aims at about this many blocks an SM
 LATENT_HEAD_DIM = 640  # MLA's cache row: kv_lora_rank 512 + qk_rope 64, padded to 128 lanes
 
 
@@ -183,6 +194,115 @@ def _as_table(k_cache, v_cache, layer):
     if layer is None:
         raise ValueError("layer index required for a (L, ...) cache table")
     return k_cache, v_cache, int(layer)
+
+
+# ----------------------------------------------------------------- the D 256 chunk grid
+
+
+def d256_chunking(s: int, b: int, hkv: int, sms: int) -> tuple[int, int]:
+    """(C, N): the KV rows each block of a merging D 256 call walks and the
+    chunk count, N = ceil(S / C). C is a multiple of the 32-row tile, at
+    least ``D256_MIN_CHUNK``, and as small as that allows while B * Hkv * N
+    stays near ``D256_BLOCKS_PER_SM`` blocks an SM. It depends on the
+    table's S and on B * Hkv, never on the lengths, so a verify token and
+    the decode at its length see the same chunks."""
+    target = -(-D256_BLOCKS_PER_SM * sms // (b * hkv))
+    c = -(-s // target)
+    c = max(D256_MIN_CHUNK, -(-c // TILE) * TILE)
+    return c, -(-s // c)
+
+
+def d256_chunk_walk(length: int, *, s: int, chunk: int, qspan: int = 1, window=None,
+                    sinks: int = 0) -> list[list[tuple[int, list[int]]]]:
+    """Each chunk's walk in ``csrc/flash_decode_d256.cu``, as the kernel
+    computes it, for a sequence whose token 0 has ``length`` valid rows:
+    per chunk, [(tile start, KV rows the tile reads)]. The walk visits the
+    sink tiles below the band's first tile, then the band from the tile of
+    ``max(length - window, 0)``, up to the last token's length; a chunk
+    walks the tiles of its own rows, and a tile reads the rows of its chunk
+    that lie in token 0's band or are sinks (the rest stay zero)."""
+    end = min(length + qspan - 1, s)
+    lo = max(length - (NO_WINDOW if window is None else window), 0)
+    band0 = lo // TILE * TILE
+    sink_end = -(-min(sinks, band0) // TILE) * TILE
+
+    def skip(j):  # from the last sink tile to the band's first
+        return band0 if sink_end <= j < band0 else j
+
+    walks = []
+    for cs in range(0, s, chunk):
+        ce = min(cs + chunk, end)
+        tiles, j = [], skip(cs)
+        while j < ce:
+            tiles.append((j, [p for p in range(j, j + TILE) if p < ce and (p >= lo or p < sinks)]))
+            j = skip(j + TILE)
+        walks.append(tiles)
+    return walks
+
+
+_SM_COUNT: dict[int, int] = {}
+_D256_WORKSPACE: dict[tuple[int, int], dict] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors (cached per device)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SM_COUNT:
+        _SM_COUNT[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SM_COUNT[index]
+
+
+def _d256_workspace(device, rows, n, pairs):
+    """fp32 (o, m, l) for ``rows`` query rows of ``n`` chunks and ``pairs``
+    arrival counters (zeros; the kernel leaves them at zero), cached per
+    device and stream and grown when a call needs more. The kernel's
+    launches on one stream run in order, so one workspace serves them all."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device.index, stream)
+    ws = _D256_WORKSPACE.get(key)
+    if ws is None or ws["o"].numel() < rows * n * D256 or ws["arrivals"].numel() < pairs:
+        old_o = 0 if ws is None else ws["o"].numel() // D256
+        old_pairs = 0 if ws is None else ws["arrivals"].numel()
+        cells = max(rows * n, old_o)
+        ws = {"o": torch.empty(cells * D256, dtype=torch.float32, device=device),
+              "m": torch.empty(cells, dtype=torch.float32, device=device),
+              "l": torch.empty(cells, dtype=torch.float32, device=device),
+              "arrivals": torch.zeros(max(pairs, old_pairs), dtype=torch.int32, device=device)}
+        _D256_WORKSPACE[key] = ws
+    return ws["o"], ws["m"], ws["l"], ws["arrivals"]
+
+
+def launch_d256(q, k_ptr, v_ptr, lengths, *, hkv, s, scale, kv_code, out=None, parts=None,
+                split_len=None, pages=None, out_f32=False, window=None, sinks=0, softcap=None):
+    """Launch ``csrc/flash_decode_d256.cu`` on checked, contiguous inputs:
+    q (B, Hq, D) or (B, Hq, T, D), one layer's K/V pointers, int32 lengths.
+    Merging mode (``out``, q's shape): the chunk grid of
+    :func:`d256_chunking` on the cached workspace, one launch. Partials mode
+    (``parts`` = (o, m, l), ``split_len``): the caller's split geometry.
+    ``pages`` = (page_table, num_pages, page_size) selects the paged form,
+    which folds ``scale`` into q and rounds it to q's dtype."""
+    b, hq = q.shape[:2]
+    qspan = q.shape[2] if q.dim() == 4 else 1
+    if out is not None:
+        chunk, n = d256_chunking(s, b, hkv, sm_count(q.device))
+        o, m, l, arrivals = _d256_workspace(q.device, b * hq * qspan, n, b * hkv)
+    else:
+        (o, m, l), arrivals = parts, None
+        chunk, n = split_len, o.shape[2]
+    table, num_pages, page_size = pages if pages is not None else (None, 0, 1)
+    lib = _build.load("flash_decode_d256", _D256_SIGNATURES)
+    with torch.cuda.device(q.device):
+        err = lib.flash_decode_d256(
+            _build.ptr(q), k_ptr, v_ptr, _build.ptr(lengths),
+            None if table is None else _build.ptr(table), None if out is None else _build.ptr(out),
+            _build.ptr(o), _build.ptr(m), _build.ptr(l),
+            None if arrivals is None else _build.ptr(arrivals),
+            b, hq, hkv, s, qspan, chunk, n, 0 if table is None else table.shape[1], page_size,
+            num_pages, scale, int(table is not None), int(out_f32), _CUDA_DTYPES[q.dtype], kv_code,
+            int(table is not None), *kernel_options(window, sinks, softcap),
+            _build.stream_ptr(q.device),
+        )
+    _build.check(lib, err, "flash_decode_d256")
 
 
 # ----------------------------------------------------------------- plain versions
@@ -306,9 +426,9 @@ def lse_combine_splits(o_parts, m_parts, l_parts, dtype=None):
 
 def _launch(q, k_cache, v_cache, lengths, layer, sm_scale, n, split_len, fused, window=None,
             sinks=0, softcap=None):
-    """Run csrc/flash_decode.cu on one layer of the table; returns the
-    normalized output (fused; q (B, Hq, D), or (B, Hq, T, D) to verify) or
-    the (o, m, l) partials."""
+    """Run csrc/flash_decode.cu (csrc/flash_decode_d256.cu at head_dim 256)
+    on one layer of the table; returns the normalized output (fused; q (B,
+    Hq, D), or (B, Hq, T, D) to verify) or the (o, m, l) partials."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
     l_, b, hkv, s, d = k_cache.shape
@@ -343,6 +463,11 @@ def _launch(q, k_cache, v_cache, lengths, layer, sm_scale, n, split_len, fused, 
         l = torch.empty((b, hq, n), dtype=torch.float32, device=q.device)
         parts = (o, m, l)
     scale = 1.0 / d**0.5 if sm_scale is None else float(sm_scale)
+    if d == D256:
+        launch_d256(q, k_ptr, v_ptr, lengths, hkv=hkv, s=s, scale=scale, kv_code=kv_code, out=out,
+                    parts=None if fused else parts, split_len=split_len, window=window, sinks=sinks,
+                    softcap=softcap)
+        return out if fused else parts
     lib = _build.load(library(window, sinks, softcap), _SIGNATURES)
     with torch.cuda.device(q.device):
         err = lib.flash_decode(

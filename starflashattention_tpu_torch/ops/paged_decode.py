@@ -5,10 +5,12 @@ first ``lengths[b]`` positions of its sequence, read from the
 (L, Hkv, P, page_size, D) page pools through the (B, pages_per_seq) page
 table. On CUDA tensors it launches the paged mode of
 ``csrc/flash_decode.cu`` (or, with a window, sinks or softcap, of its
-variants build ``csrc/flash_decode_variants.cu``; it replaces the TPU kernel
-``_paged_decode_kernel``): the same tile loop and online softmax as the
-contiguous decode (K1), with each KV row's address resolved through the
-table. On CPU tensors it runs :func:`paged_flash_decode_plain`.
+variants build ``csrc/flash_decode_variants.cu``; at head_dim 256 the paged
+form of ``csrc/flash_decode_d256.cu``, on the contiguous decode's chunk
+grid; it replaces the TPU kernel ``_paged_decode_kernel``): the same tile
+loop and online softmax as the contiguous decode (K1), with each KV row's
+address resolved through the table. On CPU tensors it runs
+:func:`paged_flash_decode_plain`.
 
 As the JAX wrapper does, ``sm_scale`` is folded into q and the scaled q is
 rounded to q's dtype before the dot products. Int8 / fp8 pools fold
@@ -32,9 +34,10 @@ import torch
 
 from starflashattention_tpu_torch.core.reference import NEG_INF, repeat_kv
 from starflashattention_tpu_torch.ops import _build
-from starflashattention_tpu_torch.ops.flash_decode import (_quantized, cap_scores, check_head_dim,
-                                                           fold_k_scale, in_band, kernel_options,
-                                                           kv_dtype_code, library, scale_heads,
+from starflashattention_tpu_torch.ops.flash_decode import (D256, _quantized, cap_scores,
+                                                           check_head_dim, fold_k_scale, in_band,
+                                                           kernel_options, kv_dtype_code,
+                                                           launch_d256, library, scale_heads,
                                                            variant_options)
 
 _SIGNATURES = {
@@ -134,16 +137,21 @@ def _core_kernel(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, out_
     layer_bytes = hkv * num_pages * ps * d * k_pages.element_size()
     out = torch.empty(q.shape, dtype=torch.float32 if out_f32 else q.dtype, device=q.device)
     scale = 1.0 / d**0.5 if sm_scale is None else float(sm_scale)
-    lib = _build.load(library(window, sinks, softcap), _SIGNATURES)
-    with torch.cuda.device(q.device):
-        err = lib.paged_flash_decode(
-            _build.ptr(q), _build.P(k_pages.data_ptr() + layer * layer_bytes),
-            _build.P(v_pages.data_ptr() + layer * layer_bytes), _build.ptr(lengths),
-            _build.ptr(table), _build.ptr(out), b, hq, hkv, num_pages, ps, table.shape[1], d,
-            scale, _CUDA_DTYPES[q.dtype], kv_code, int(out_f32),
-            *kernel_options(window, sinks, softcap), _build.stream_ptr(q.device),
-        )
-    _build.check(lib, err, "paged_flash_decode")
+    k_ptr = _build.P(k_pages.data_ptr() + layer * layer_bytes)
+    v_ptr = _build.P(v_pages.data_ptr() + layer * layer_bytes)
+    if d == D256:
+        launch_d256(q, k_ptr, v_ptr, lengths, hkv=hkv, s=table.shape[1] * ps, scale=scale,
+                    kv_code=kv_code, out=out, pages=(table, num_pages, ps), out_f32=out_f32,
+                    window=window, sinks=sinks, softcap=softcap)
+    else:
+        lib = _build.load(library(window, sinks, softcap), _SIGNATURES)
+        with torch.cuda.device(q.device):
+            err = lib.paged_flash_decode(
+                _build.ptr(q), k_ptr, v_ptr, _build.ptr(lengths), _build.ptr(table), _build.ptr(out),
+                b, hq, hkv, num_pages, ps, table.shape[1], d, scale, _CUDA_DTYPES[q.dtype], kv_code,
+                int(out_f32), *kernel_options(window, sinks, softcap), _build.stream_ptr(q.device),
+            )
+        _build.check(lib, err, "paged_flash_decode")
     paged_flash_decode.launches += 1
     return out
 

@@ -6,9 +6,12 @@ nor the JAX package, so on a machine with a card and no JAX it runs alone::
 
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -o addopts="" -p no:cacheprovider
 
-Quantized cases: K6 (int4 weight-only), K10 / K11 (W8A8 / W4A8), the
-int8 / fp8 options of K1, K2 and K7, and K8 on 1-byte pools; quantized
-deployments through ``generate`` and both engines.
+Quantized cases: K6 (int4 weight-only; its tiled form at partial tiles and
+groups that end inside a stage), K10 / K11 (W8A8 / W4A8), the int8 / fp8
+options of K1, K2 and K7, and K8 on 1-byte pools; quantized deployments
+through ``generate`` and both engines. Head_dim 256 (its own kernel, the KV
+walk split across blocks): decode, verify and paged decode at the edge
+cases of ``tests/test_torch_split_decode.py``, on bf16, int8 and fp8 KV.
 
 Tolerances, each against the plain twin on the same card and inputs:
 - bf16 attention outputs: both sides compute in fp32 and round once to
@@ -221,6 +224,30 @@ def test_quant_matmul_int4_kernel_matches_plain(cuda, rows, out_dtype, group):
     assert quant_matmul.quant_matmul_int4.launches == before + 1
     ref = quant_matmul.quant_matmul_int4_plain(x, wq["w"], wq["scale"], layer=1, out_dtype=out_dtype)
     assert out.dtype == out_dtype and out.shape == (rows, 96)
+    rel = 1e-5 if out_dtype == torch.float32 else BF16_ULP
+    assert _max_err(out, ref) <= rel * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("rows", [65, 127, 300, 2048])
+@pytest.mark.parametrize("n", [96, 4096])
+@pytest.mark.parametrize("group", [32, 64, 96, 128])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_quant_matmul_int4_tiled_kernel_matches_plain(cuda, rows, n, group, out_dtype):
+    """K6's tiled form (more than 64 rows): 128 x 128 tiles, a partial row
+    tile, a partial column tile (N 96), groups that end inside a stage (32,
+    64, 96: 48 packed rows a group) or fill one (128), K = 384 (3 stages) and
+    K = 416 at group 32 (a last stage of one chunk). One launch a call."""
+    gen = _gen(cuda)
+    k = 416 if group == 32 else 384
+    wq = quant.quantize_weight_int4(torch.randn((2, k, n), generator=gen, device=cuda), group)
+    assert wq["scale"].shape[1] == k // group
+    x = torch.randn((rows, k), generator=gen, device=cuda, dtype=torch.bfloat16)
+    before = (quant_matmul.quant_matmul_int4.launches, quant_matmul.quant_matmul_int4.launches_tiled)
+    out = quant_matmul.quant_matmul_int4(x, wq["w"], wq["scale"], layer=1, out_dtype=out_dtype)
+    after = (quant_matmul.quant_matmul_int4.launches, quant_matmul.quant_matmul_int4.launches_tiled)
+    assert after == (before[0] + 1, before[1] + 1)
+    ref = quant_matmul.quant_matmul_int4_plain(x, wq["w"], wq["scale"], layer=1, out_dtype=out_dtype)
+    assert out.dtype == out_dtype and out.shape == (rows, n)
     rel = 1e-5 if out_dtype == torch.float32 else BF16_ULP
     assert _max_err(out, ref) <= rel * ref.float().abs().max().item()
 
@@ -836,6 +863,113 @@ def test_paged_flash_decode_variants_match_plain(cuda, variant, d, page_size):
         kp, vp = k.clone(), v.clone()
         kp[:, :, 0], vp[:, :, 0] = float("nan"), float("nan")
         assert torch.equal(paged_decode.paged_flash_decode(q, kp, vp, nulled, lengths, **kw), out)
+
+
+# head_dim 256 (csrc/flash_decode_d256.cu): tests/test_torch_split_decode.py's
+# edge cases, name: (lengths of token 0, window, sinks, softcap, tokens T)
+D256_CASES = {
+    "length-0-and-below-a-tile": ((0, 17, 200, 256), None, 0, None, 1),
+    "window-below-a-tile": ((5, 17, 150, 256), 20, 0, None, 1),
+    "sinks-past-the-band-start": ((60, 100, 200, 256), 40, 70, None, 1),
+    "band-across-chunks": ((150, 200, 256, 90), 100, 4, None, 1),
+    "softcap-and-band": ((33, 129, 222, 256), 48, 0, 50.0, 1),
+    "verify-T5": ((1, 17, 150, 252), 48, 4, 50.0, 5),
+    "verify-T5-no-window": ((0, 31, 96, 252), None, 0, None, 5),
+}
+
+
+def _arrivals_at_rest():
+    """The D 256 kernel's arrival counters are back at 0 after its calls."""
+    torch.cuda.synchronize()
+    return all(int(ws["arrivals"].abs().sum()) == 0 for ws in flash_decode._D256_WORKSPACE.values())
+
+
+@pytest.mark.parametrize("case", sorted(D256_CASES))
+@pytest.mark.parametrize("kv", ["bf16", "int8", "fp8"])
+def test_d256_decode_and_verify_edge_cases_match_plain(cuda, case, kv):
+    """The D 256 kernel (split KV walk, one merging launch) on the CPU test's
+    edge cases at S 512 (at least 4 chunks: a band across chunk boundaries,
+    chunks the walk misses, a row of length 0): against the plain twin;
+    verify token j bit for bit the decode at lengths + j; rows below every
+    band poisoned with NaN change no bit; the arrival counters end at 0."""
+    lens, w, sk, cap, t = D256_CASES[case]
+    gen = _gen(cuda)
+    b, hq, hkv, s, d = 4, 8, 2, 512, 256
+    assert flash_decode.d256_chunking(s, b, hkv, flash_decode.sm_count(cuda))[1] >= 4
+    q = torch.randn((b, hq, t, d), generator=gen, device=cuda, dtype=torch.bfloat16)
+    k = torch.randn((1, b, hkv, s, d), generator=gen, device=cuda)
+    v = torch.randn((1, b, hkv, s, d), generator=gen, device=cuda)
+    kw = dict(layer=0, window=w, sinks=sk, softcap=cap, sm_scale=d**-0.5)
+    if kv == "bf16":
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    else:
+        qmax = 127.0 if kv == "int8" else 448.0
+        ks = torch.tensor([5.0, 6.0], device=cuda) / qmax
+        k, v = _quantized(k, kv, ks, 2), _quantized(v, kv, ks, 2)
+        kw.update(k_scales=ks, v_scales=ks)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    roundings = 1 if kv == "bf16" else 2
+    if t == 1:
+        before = flash_decode.flash_decode.launches
+        out = flash_decode.flash_decode(q[:, :, 0], k, v, lengths, num_splits=1, **kw)
+        assert flash_decode.flash_decode.launches == before + 1
+        ref = flash_decode.flash_decode_plain(q[:, :, 0], k, v, lengths, num_splits=1, **kw)
+        run = lambda kk, vv: flash_decode.flash_decode(q[:, :, 0], kk, vv, lengths, num_splits=1, **kw)  # noqa: E731
+        zero_row = out[0]
+    else:
+        before = flash_decode.flash_verify.launches
+        out = flash_decode.flash_verify(q, k, v, lengths, **kw)
+        assert flash_decode.flash_verify.launches == before + 1
+        ref = flash_decode.flash_verify_plain(q, k, v, lengths, **kw)
+        for j in range(t):
+            dec = flash_decode.flash_decode(q[:, :, j], k, v, lengths + j, num_splits=1, **kw)
+            assert _max_err(out[:, :, j], dec) == 0.0
+        run = lambda kk, vv: flash_decode.flash_verify(q, kk, vv, lengths, **kw)  # noqa: E731
+        zero_row = out[0, :, 0]
+    assert _ulps(out, ref) <= roundings + 1
+    assert bool(torch.all(zero_row == 0)) == (lens[0] == 0)
+    if w is not None and kv == "bf16":
+        kp, vp = (_poison_below(x, lengths - w, sk) for x in (k, v))
+        assert torch.equal(run(kp, vp), out)
+    assert _arrivals_at_rest()
+
+
+@pytest.mark.parametrize("case", sorted(c for c in D256_CASES if D256_CASES[c][4] == 1))
+@pytest.mark.parametrize("kv", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("page_size", [16, 128])
+def test_d256_paged_edge_cases_match_plain(cuda, case, kv, page_size):
+    """K7 at D 256 through the same kernel on a shuffled page table, on the
+    contiguous decode's chunk grid; with a window, the entries below each
+    band (past the sink pages) become the null page, which holds NaN."""
+    lens, w, sk, cap, _ = D256_CASES[case]
+    dtype = torch.bfloat16 if kv == "bf16" else torch.float32
+    k, v, table, _ = _paged_setup(cuda, dtype, page_size, d=256, pages_per_seq=512 // page_size,
+                                  layers=1)
+    kw = dict(layer=0, window=w, sinks=sk, softcap=cap)
+    if kv != "bf16":
+        qmax = 127.0 if kv == "int8" else 448.0
+        ks = torch.tensor([5.0, 6.0], device=cuda) / qmax
+        k, v = _quantized(k, kv, ks, 1), _quantized(v, kv, ks, 1)
+        kw.update(k_scales=ks, v_scales=ks)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q = torch.randn((4, 8, 256), generator=_gen(cuda), device=cuda, dtype=torch.bfloat16)
+    before = paged_decode.paged_flash_decode.launches
+    out = paged_decode.paged_flash_decode(q, k, v, table, lengths, **kw)
+    assert paged_decode.paged_flash_decode.launches == before + 1
+    ref = paged_decode.paged_flash_decode_plain(q, k, v, table, lengths, **kw)
+    assert _ulps(out, ref) <= (2 if kv == "bf16" else 3)
+    assert bool(torch.all(out[0] == 0)) == (lens[0] == 0)
+    if w is not None and kv == "bf16":
+        nulled = table.clone()
+        first = -(-sk // page_size)
+        for b, n in enumerate(lens):
+            end = max(n - w, 0) // page_size
+            if end > first:
+                nulled[b, first:end] = 0
+        kp, vp = k.clone(), v.clone()
+        kp[:, :, 0], vp[:, :, 0] = float("nan"), float("nan")
+        assert torch.equal(paged_decode.paged_flash_decode(q, kp, vp, nulled, lengths, **kw), out)
+    assert _arrivals_at_rest()
 
 
 @pytest.mark.parametrize("variant", VARIANTS)

@@ -82,6 +82,43 @@ def test_default_int4_group_and_unpack_match_jax(rng):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def _nib2_bf16(a, b, i, high):
+    """csrc/quant_matmul.cu's nib2_bf16<I, HIGH> in torch integer ops on
+    32-bit words a, b (int64 tensors): prmt puts byte i of a in bytes 0 and
+    1 and byte i of b in bytes 2 and 3; lop3 computes (x & 0x000f000f) ^
+    magic; the bf16x2 FMA adds -136 to each half. Returns the (low, high)
+    halves as bf16."""
+    byte_a, byte_b = (a >> (8 * i)) & 0xFF, (b >> (8 * i)) & 0xFF
+    x = byte_a | (byte_a << 8) | (byte_b << 16) | (byte_b << 24)
+    y = (x & 0x000F000F) ^ (0x43084308 if high else 0x43004300)
+
+    def bf16(bits):  # 16-bit patterns as bf16
+        return torch.as_tensor(bits).to(torch.int32).to(torch.int16).view(torch.bfloat16)
+
+    def half(bits):  # plus bf16(-136) (0xc308), rounded to bf16
+        return (bf16(bits).float() + bf16([0xC308]).float()).to(torch.bfloat16)
+
+    return half(y & 0xFFFF), half(y >> 16)
+
+
+@pytest.mark.parametrize("i", range(4))
+def test_int4_magic_unpack_equals_unpack_int4(rng, i):
+    """The tiled K6 kernel's register unpack, at byte i of its 32-bit words,
+    gives both nibbles of all 256 byte values bit for bit as
+    ``core/quant.unpack_int4`` (the other bytes random; the high nibbles
+    come from the words shifted right by 4, as the kernel shifts them)."""
+    vals = torch.arange(256, dtype=torch.int64)
+    words = torch.from_numpy(rng.integers(0, 2**32, (2, 256), dtype=np.int64))
+    a = (words[0] & ~(0xFF << (8 * i))) | (vals << (8 * i))
+    b = (words[1] & ~(0xFF << (8 * i))) | (vals.flip(0) << (8 * i))
+    lo, hi = t_quant.unpack_int4(torch.stack([vals, vals.flip(0)]).to(torch.uint8).view(torch.int8))
+    for high, want in ((False, lo), (True, hi)):
+        wa, wb = (a >> 4, b >> 4) if high else (a, b)
+        got_a, got_b = _nib2_bf16(wa, wb, i, high)
+        for got, ref in ((got_a, want[0]), (got_b, want[1])):
+            assert torch.equal(got.view(torch.int16), ref.to(torch.bfloat16).view(torch.int16))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_quantize_rows_bytes_identical(rng, dtype):
     x = (rng.standard_normal((7, 96), dtype=np.float32) * np.array([[1e-3], [1], [30], [0], [1],
