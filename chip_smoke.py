@@ -40,8 +40,11 @@ Phases (any failure raises and the script exits non-zero):
    within 2 (decode) or 3 (K5) bf16 ulps of each element of its twin. The
    head_dim 256 rows run ``csrc/flash_decode_d256.cu`` (the KV walk split
    into chunks, one block each, merged by the last block) and print their
-   GB/s, share of the bound and chunk grid; the tiled int4 rows print
-   TFLOP/s and share of the bound per shape.
+   GB/s, share of the bound and chunk grid; the tiled int4 and int8 rows
+   print TFLOP/s and share of the bound per shape, the W8A8 / W4A8 rows TOPS
+   of the kernel alone, and a split of their entry time into the row
+   quantization and the kernel; the tiled int8 matmul is also timed on fp8
+   weights (no path serves those: logged, not in the kernels line).
    Gemma-2's q is scaled so that its scores reach several times the cap,
    and the kernel without the cap (K1, K7, K5), or without the sinks
    (Mistral's K1 and K5), must lie over 4x that tolerance from the twin,
@@ -380,6 +383,7 @@ LORA_NEW_TOKENS = 16
 # through 2 layers of bf16 matmuls: a few bf16 ulps (2^-8) of each peak
 TRAIN_GRAD_TOL = 5e-2
 QMM_ENTRY = {16: "quant_matmul (small-M, decode rows)", 2048: "quant_matmul (tiled, prefill rows)"}
+QMM_FP8_TILED = "quant_matmul fp8 (tiled, prefill rows)"
 INT4_ENTRY = {16: "quant_matmul_int4 (small-M, decode rows)",
               2048: "quant_matmul_int4 (tiled, prefill rows)"}
 A8_ENTRY = {"w8a8": "quant_matmul_w8a8 (prefill rows)", "w4a8": "quant_matmul_w4a8 (prefill rows)"}
@@ -511,12 +515,14 @@ def bound_ms(n_bytes, n_ops, ops_per_s=PEAK_BF16_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def log_rate(entry, ms, n_bytes, n_ops, chunks=None):
+def log_rate(entry, ms, n_bytes, n_ops, chunks=None, int8=False):
     """A phase 2 row's achieved rate and share of its bound: GB/s for a row
-    the bytes bound, TFLOP/s for one the operations bound; ``chunks`` = (N,
-    C) of a D 256 decode call's chunk grid."""
-    bnd, by = bound_ms(n_bytes, n_ops)
-    rate = f"{n_bytes / ms / 1e6:.1f} GB/s" if by == "bytes" else f"{n_ops / ms / 1e9:.1f} TFLOP/s"
+    the bytes bound, TFLOP/s (TOPS on the int8 tensor cores, ``int8``) for
+    one the operations bound; ``chunks`` = (N, C) of a D 256 decode call's
+    chunk grid."""
+    bnd, by = bound_ms(n_bytes, n_ops, PEAK_INT8_OPS_PER_S if int8 else PEAK_BF16_OPS_PER_S)
+    unit = "TOPS" if int8 else "TFLOP/s"
+    rate = f"{n_bytes / ms / 1e6:.1f} GB/s" if by == "bytes" else f"{n_ops / ms / 1e9:.1f} {unit}"
     grid = "" if chunks is None else f", {chunks[0]} chunks of {chunks[1]} rows a (sequence, KV head)"
     log(f"[rate] {entry}: {ms:.4f} ms, {rate}, {bnd / ms:.1%} of its bound ({by}){grid}")
 
@@ -546,7 +552,7 @@ def phase_device_and_build():
             for kernel, regs, spill in _entry_resources(r["ptxas"], _kernel_label):
                 if kernel.split("<")[1].startswith("256") or spill:
                     log(f"[build]   {kernel}: {regs} registers, spill stores {spill} bytes")
-        for label in (_latent_label, _d256_or_int4_label):
+        for label in (_latent_label, _redesign_label):
             for kernel, regs, spill in _entry_resources(r["ptxas"], label):
                 log(f"[build]   {kernel}: {regs} registers, spill stores {spill} bytes")
     return smi
@@ -561,9 +567,11 @@ def _latent_label(name):
     return None
 
 
-def _d256_or_int4_label(name):
-    """The D 256 decode kernels and the tiled int4 matmul, by mangled name."""
-    return name if "decode_d256_kernel" in name or "qmm_int4_tiled" in name else None
+def _redesign_label(name):
+    """The redesigned kernels by mangled name: the D 256 decode and the tiled
+    int4, int8 / fp8 and W4A8 matmuls."""
+    return name if any(k in name for k in ("decode_d256_kernel", "qmm_int4_tiled", "qmm_8bit_tiled",
+                                            "qmm_w4a8_tiled")) else None
 
 
 def _entry_resources(ptxas, label):
@@ -760,7 +768,7 @@ def phase_kernels(dev, timer):
                 rel = 2.0**-7 if out_dtype == bf16 else 1e-4
                 _check(f"quant_matmul {mode} {name} rows={rows} K={kdim} N={ndim} out={out_dtype}",
                        err, rel * peak)
-                if mode != "int8":
+                if mode != "int8" and rows <= 64:  # fp8 is timed on the tiled form only
                     continue
                 fn = lambda: quant_matmul(x, w, scale, layer=3, out_dtype=out_dtype)  # noqa: E731
                 t = timer(fn)
@@ -769,9 +777,11 @@ def phase_kernels(dev, timer):
                 n_bytes = x.numel() * 2 + kdim * ndim + ndim * 4 + rows * ndim * out.element_size()
                 n_ops = 2 * rows * kdim * ndim
                 bnd, by = bound_ms(n_bytes, n_ops)
-                log(f"[time] quant_matmul int8 {name} rows={rows}: kernel {t:.4f} ms, plain {t_plain:.4f} ms, "
+                log(f"[time] quant_matmul {mode} {name} rows={rows}: kernel {t:.4f} ms, plain {t_plain:.4f} ms, "
                     f"torch.matmul(bf16 dequantized) {t_lib:.4f} ms, bound {bnd:.4f} ms ({by})")
-                key = QMM_ENTRY[rows]
+                if rows > 64:
+                    log_rate(f"quant_matmul {mode} tiled {name} rows={rows} K={kdim} N={ndim}", t, n_bytes, n_ops)
+                key = QMM_ENTRY[rows] if mode == "int8" else QMM_FP8_TILED
                 agg = res.setdefault(key, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
                                                n_bytes=0, n_ops=0))
                 agg["max_abs_err"] = max(agg["max_abs_err"], err)
@@ -781,9 +791,12 @@ def phase_kernels(dev, timer):
                 agg["n_bytes"] += n_bytes
                 agg["n_ops"] += n_ops
             del w, scale, w_deq, wq
-    for rows in (16, 2048):
-        agg = res[QMM_ENTRY[rows]]
-        agg["bound_ms"], agg["bound_by"] = bound_ms(agg.pop("n_bytes"), agg.pop("n_ops"))
+    for key in (QMM_ENTRY[16], QMM_ENTRY[2048], QMM_FP8_TILED):
+        agg = res[key]
+        n_bytes, n_ops = agg.pop("n_bytes"), agg.pop("n_ops")
+        agg["bound_ms"], agg["bound_by"] = bound_ms(n_bytes, n_ops)
+        if key != QMM_ENTRY[16]:
+            log_rate(f"{key}, the five shapes", agg["ms"], n_bytes, n_ops)
     res.update(_quantized_matmuls(dev, timer, gen, shapes))
 
     # -- prefill attention: B=2, Sq=512, Skv=1024, q_offsets [0, 300]
@@ -2225,8 +2238,11 @@ def _quantized_matmuls(dev, timer, gen, shapes):
     rows on the four layer shapes, each against its plain twin. Library
     calls: ``torch.matmul`` on bf16 dequantized weights (K6, K11), and
     ``torch._int_mm`` plus the two scale multiplies after the same row
-    quantization (K10). The W8A8 / W4A8 entries include their row
-    quantization (plain torch), as the main path runs them."""
+    quantization (K10). The W8A8 / W4A8 entries run their row quantization
+    (plain torch) before the kernel, as the main path does; each shape's
+    entry time is split into ``quantize_rows`` and the kernel alone
+    (``_launch_a8`` on the same rows), and the kernels line carries the
+    kernel alone."""
     from starflashattention_tpu_torch.core.quant import dequantize_weight, quantize_weight
     from starflashattention_tpu_torch.ops import quant_matmul as qmm
 
@@ -2277,6 +2293,7 @@ def _quantized_matmuls(dev, timer, gen, shapes):
         w8 = quantize_weight(torch.randn((2, kdim, ndim), generator=gen, device=dev), "int8")
         x = torch.randn((2048, kdim), generator=gen, device=dev, dtype=bf16)
         x8, rs = qmm.quantize_rows(x)
+        t_quant = timer(lambda: qmm.quantize_rows(x))
         for entry, w, plain in (("w8a8", w8, qmm.quant_matmul_w8a8_plain),
                                 ("w4a8", w4, qmm.quant_matmul_w4a8_plain)):
             fn = getattr(qmm, "quant_matmul_" + entry)
@@ -2288,7 +2305,12 @@ def _quantized_matmuls(dev, timer, gen, shapes):
             # order (K11's group sums); one bf16 rounding each side
             rel = 2.0**-7 if out_dtype == bf16 else 1e-5
             _check(f"quant_matmul_{entry} {name} rows=2048 K={kdim} N={ndim} out={out_dtype}", err, rel * peak)
-            t = timer(lambda: fn(x, w["w"], w["scale"], layer=1, out_dtype=out_dtype))
+            half = 0 if entry == "w8a8" else w["w"].shape[1] // w["scale"].shape[1]
+            alone = lambda: qmm._launch_a8(fn, x8, rs, w["w"], w["scale"], 1, out_dtype, half)  # noqa: E731
+            if not torch.equal(alone(), out):
+                raise AssertionError(f"quant_matmul_{entry} {name}: the kernel alone differs from the entry")
+            t_entry = timer(lambda: fn(x, w["w"], w["scale"], layer=1, out_dtype=out_dtype))
+            t = timer(alone)
             t_plain = timer(lambda: plain(x, w["w"], w["scale"], layer=1, out_dtype=out_dtype), iters=5)
             if entry == "w8a8":
                 mm = _int_mm_fn(x8, w["w"][1])
@@ -2302,18 +2324,30 @@ def _quantized_matmuls(dev, timer, gen, shapes):
             n_bytes = x.numel() * 2 + w_bytes + 2048 * ndim * out.element_size()
             n_ops = 2 * 2048 * kdim * ndim
             bnd, by = bound_ms(n_bytes, n_ops, PEAK_INT8_OPS_PER_S)
-            log(f"[time] quant_matmul_{entry} {name} rows=2048: kernel {t:.4f} ms, plain {t_plain:.4f} ms, "
+            log(f"[time] quant_matmul_{entry} {name} rows=2048: kernel alone {t:.4f} ms (entry {t_entry:.4f} ms, "
+                f"quantize_rows {t_quant:.4f} ms), plain {t_plain:.4f} ms, "
                 f"library {'none' if t_lib is None else format(t_lib, '.4f') + ' ms'}, bound {bnd:.4f} ms "
                 f"({by}, int8 rate; {bound_ms(n_bytes, n_ops)[0]:.4f} ms at the bf16 rate)")
+            log_rate(f"quant_matmul_{entry} {name} rows=2048 K={kdim} N={ndim}, kernel alone", t, n_bytes, n_ops,
+                     int8=True)
             add(A8_ENTRY[entry], err, t, t_plain, t_lib, n_bytes, n_ops)
+            split = res[A8_ENTRY[entry]]
+            split["entry_ms"] = split.get("entry_ms", 0.0) + t_entry
+            split["quantize_rows_ms"] = split.get("quantize_rows_ms", 0.0) + t_quant
         del w8, x8, rs
         del w4, deq
     for entry, r in res.items():
-        rate = PEAK_INT8_OPS_PER_S if entry in A8_ENTRY.values() else PEAK_BF16_OPS_PER_S
+        int8 = entry in A8_ENTRY.values()
         n_bytes, n_ops = r.pop("n_bytes"), r.pop("n_ops")
-        r["bound_ms"], r["bound_by"] = bound_ms(n_bytes, n_ops, rate)
+        r["bound_ms"], r["bound_by"] = bound_ms(n_bytes, n_ops, PEAK_INT8_OPS_PER_S if int8 else PEAK_BF16_OPS_PER_S)
         if entry == INT4_ENTRY[2048]:
             log_rate(f"{entry}, the five shapes", r["ms"], n_bytes, n_ops)
+        if int8:
+            entry_ms, quant_ms = r.pop("entry_ms"), r.pop("quantize_rows_ms")
+            log_rate(f"{entry}, the four shapes, kernel alone", r["ms"], n_bytes, n_ops, int8=True)
+            log(f"[split] {entry}, the four shapes: entry {entry_ms:.4f} ms = quantize_rows {quant_ms:.4f} ms "
+                f"({quant_ms / entry_ms:.1%}) + kernel alone {r['ms']:.4f} ms (sum of parts "
+                f"{quant_ms + r['ms']:.4f} ms)")
     return res
 
 
@@ -4876,9 +4910,9 @@ REPLACES = {
        if k.endswith(suffix)},
 }
 # measured in phase 2 but launched by no main-path run (the quantized slice
-# runs the fp8 cache only in split mode and pages only in int8): logged, not
-# in the kernels line
-OFF_PATH = ("flash_decode fp8 KV (1 split, fused)", "paged_flash_decode fp8 KV")
+# runs the fp8 cache only in split mode and pages only in int8; no path
+# serves fp8 weights): logged, not in the kernels line
+OFF_PATH = ("flash_decode fp8 KV (1 split, fused)", "paged_flash_decode fp8 KV", QMM_FP8_TILED)
 
 
 def main(argv=None):

@@ -33,9 +33,10 @@
 //    bytes per step, 16 bytes per thread, coalesced), then a deterministic
 //    cross-warp sum in shared memory. The x rows (<= 64) are read straight
 //    from L1/L2 as mma A fragments. int4 splits K by whole groups.
-//  * tiled (M > 64), int8 / fp8: 64 x 64 output tiles, K in steps of 32
-//    through shared memory, 4 warps of 32 x 32 each. No software
-//    pipelining yet.
+//  * tiled (M > 64), int8 / fp8: 128 x 256 output tiles, 8 warps of 64 x
+//    64, a 4-buffer cp.async ring of 64 rows a stage, A fragments by
+//    ldmatrix from a swizzled layout, the weight bytes read as 32-bit words
+//    and converted to bf16 in registers (see qmm_8bit_tiled).
 //  * tiled (M > 64), int4: 64 x 256 output tiles, 8 warps, a 4-buffer
 //    cp.async ring of 64 packed rows a stage (one g128 group), A fragments
 //    by ldmatrix from a swizzled layout, the packed bytes read as 32-bit
@@ -51,7 +52,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "qmm_tiles.cuh"
+
 namespace {
+
+using namespace qmm;
 
 template <typename WT>
 __device__ __forceinline__ float w2f(uint8_t b);
@@ -68,11 +75,6 @@ __device__ __forceinline__ float w2f<__nv_fp8_e4m3>(uint8_t b) {
   return static_cast<float>(v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
 // The two signed nibbles of a packed int4 byte, as floats (exact).
 __device__ __forceinline__ float lo_nib(uint8_t b) { return static_cast<float>((b & 15) - 8); }
 __device__ __forceinline__ float hi_nib(uint8_t b) {
@@ -87,9 +89,6 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
-
-__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 template <int MT>
 __device__ __forceinline__ void zero_acc(float (&acc)[MT][4][4]) {
@@ -228,114 +227,6 @@ __global__ void __launch_bounds__(SM_WARPS * 32)
   reduce_store<MT>(acc, red, out, M, N, n0, scale);
 }
 
-// ---------------------------------------------------------------- tiled
-constexpr int LG_BM = 64;
-constexpr int LG_BN = 64;
-constexpr int LG_BK = 32;
-constexpr int AS_STRIDE = LG_BK + 8;   // bf16 elements per A row (80 bytes)
-constexpr int BS_STRIDE = LG_BN + 16;  // bytes per B row
-
-// The tiled epilogue: one warp's 32 x 32 sub-tile at (r_base, c_base),
-// rows < M and columns < N, times scale[col] unless scale is null.
-template <typename OutT>
-__device__ __forceinline__ void store_tile(const float (&acc)[2][4][4], OutT* __restrict__ out, int M,
-                                           int N, int r_base, int c_base, const float* __restrict__ scale) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r0 = r_base + mt * 16 + g;
-      const int c = c_base + j * 8 + 2 * t;
-      if (c < N) {
-        const float s0 = scale ? scale[c] : 1.f, s1 = scale ? scale[c + 1] : 1.f;
-        if (r0 < M) {
-          store_out(out + (size_t)r0 * N + c, acc[mt][j][0] * s0);
-          store_out(out + (size_t)r0 * N + c + 1, acc[mt][j][1] * s1);
-        }
-        if (r0 + 8 < M) {
-          store_out(out + (size_t)(r0 + 8) * N + c, acc[mt][j][2] * s0);
-          store_out(out + (size_t)(r0 + 8) * N + c + 1, acc[mt][j][3] * s1);
-        }
-      }
-    }
-}
-
-template <typename WT, typename OutT>
-__global__ void __launch_bounds__(128)
-    qmm_tiled(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
-              const float* __restrict__ scale, OutT* __restrict__ out, int M, int K, int N) {
-  __shared__ __align__(16) __nv_bfloat16 As[LG_BM][AS_STRIDE];
-  __shared__ __align__(16) uint8_t Bs[LG_BK][BS_STRIDE];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int m0 = blockIdx.x * LG_BM, n0 = blockIdx.y * LG_BN;
-
-  float acc[2][4][4];
-  zero_acc(acc);
-
-  for (int k0 = 0; k0 < K; k0 += LG_BK) {
-    for (int i = tid; i < LG_BM * (LG_BK / 8); i += 128) {
-      const int r = i >> 2, c = (i & 3) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < M) v = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * K + k0 + c);
-      *reinterpret_cast<uint4*>(&As[r][c]) = v;
-    }
-    for (int i = tid; i < LG_BK * (LG_BN / 16); i += 128) {
-      const int r = i >> 2, c = (i & 3) * 16;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (n0 + c < N) v = __ldg(reinterpret_cast<const uint4*>(w + (size_t)(k0 + r) * N + n0 + c));
-      *reinterpret_cast<uint4*>(&Bs[r][c]) = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < LG_BK; kk += 16) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int r = wm * 32 + mt * 16 + g;
-        af[mt][0] = *reinterpret_cast<const uint32_t*>(&As[r][kk + 2 * t]);
-        af[mt][1] = *reinterpret_cast<const uint32_t*>(&As[r + 8][kk + 2 * t]);
-        af[mt][2] = *reinterpret_cast<const uint32_t*>(&As[r][kk + 2 * t + 8]);
-        af[mt][3] = *reinterpret_cast<const uint32_t*>(&As[r + 8][kk + 2 * t + 8]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = wn * 32 + j * 8 + g;
-        uint32_t bf[2];
-        bf[0] = pack_bf16(w2f<WT>(Bs[kk + 2 * t][col]), w2f<WT>(Bs[kk + 2 * t + 1][col]));
-        bf[1] = pack_bf16(w2f<WT>(Bs[kk + 2 * t + 8][col]), w2f<WT>(Bs[kk + 2 * t + 9][col]));
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt][j], af[mt], bf);
-      }
-    }
-    __syncthreads();
-  }
-
-  store_tile(acc, out, M, N, m0 + wm * 32, n0 + wn * 32, scale);
-}
-
-template <typename WT, typename OutT>
-cudaError_t launch(const void* x, const void* w, const void* scale, void* out, int M, int K,
-                   int N, cudaStream_t stream) {
-  const auto* xp = static_cast<const __nv_bfloat16*>(x);
-  const auto* wp = static_cast<const uint8_t*>(w);
-  const auto* sp = static_cast<const float*>(scale);
-  auto* op = static_cast<OutT*>(out);
-  if (M <= 16) {
-    qmm_small_m<WT, 1, OutT><<<N / SM_BN, SM_WARPS * 32, 0, stream>>>(xp, wp, sp, op, M, K, N);
-  } else if (M <= 32) {
-    qmm_small_m<WT, 2, OutT><<<N / SM_BN, SM_WARPS * 32, 0, stream>>>(xp, wp, sp, op, M, K, N);
-  } else if (M <= 64) {
-    qmm_small_m<WT, 4, OutT><<<N / SM_BN, SM_WARPS * 32, 0, stream>>>(xp, wp, sp, op, M, K, N);
-  } else {
-    dim3 grid((M + LG_BM - 1) / LG_BM, (N + LG_BN - 1) / LG_BN);
-    qmm_tiled<WT, OutT><<<grid, 128, 0, stream>>>(xp, wp, sp, op, M, K, N);
-  }
-  return cudaGetLastError();
-}
-
 // ---------------------------------------------------------------- int4
 constexpr int I4_UNROLL = 4;  // packed 16-row chunks a warp loads per step
 
@@ -459,9 +350,7 @@ __global__ void __launch_bounds__(SM_WARPS * 32)
 // the global reads, the group flush or the unpack taken out each ran
 // faster, the first by most, and the deeper rings and other rasters did
 // not. The rest is mma.sync's rate. wgmma is the next step (ROADMAP).
-// The grid is rastered in bands of I4_BAND_M row tiles, row tiles fastest:
-// the blocks in flight share each packed weight tile and the activations
-// in L2, and every weight byte is read from device memory about once.
+// The grid is rastered in bands of I4_BAND_M row tiles (qmm::raster).
 constexpr int I4_MT = 4;                 // m16 tiles a warp: warp tiles of 64 x 32
 constexpr int I4_WARPS = 8;              // side by side along N
 constexpr int I4_BM = I4_MT * 16;
@@ -479,28 +368,6 @@ constexpr int I4_B_BYTES = I4_SP * I4_B_ROW;
 constexpr int I4_S_BYTES = I4_CHUNKS * I4_BN * 4;
 constexpr int I4_STAGE_BYTES = I4_A_BYTES + I4_B_BYTES + I4_S_BYTES;
 constexpr int I4_SMEM = I4_STAGES * I4_STAGE_BYTES;  // 151,552 bytes
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros and
-// reads nothing (src must still be a valid address).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
 
 // Byte I of word a and byte I of word b -> one bf16x2 (a's value in the low
 // half), of their low nibbles (HIGH false: stored biased +8) or of their
@@ -532,16 +399,6 @@ __device__ __forceinline__ void unpack_tile(uint32_t (&lo)[4][2], uint32_t (&hi)
   hi[I][1] = nib2_bf16<I, true>(w8 >> 4, w9 >> 4);
 }
 
-__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&v)[8]) {
-  *reinterpret_cast<uint4*>(p) =
-      make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
-                 pack_bf16(v[6], v[7]));
-}
-
 // D = A(16x16, row) * B(16x8, col): mma_bf16 with C = 0, a group's first product.
 __device__ __forceinline__ void mma_bf16_first(float* c, const uint32_t* a, const uint32_t* b) {
   asm volatile(
@@ -561,12 +418,8 @@ __global__ void __launch_bounds__(I4_THREADS, 1)
   const int g = lane >> 2, t = lane & 3;
   const int wn = warp;  // the warp's columns: wn * 32 ..
 
-  // raster: bands of I4_BAND_M row tiles, row tiles fastest within a band
-  const int tiles_m = (M + I4_BM - 1) / I4_BM, tiles_n = (N + I4_BN - 1) / I4_BN;
-  const int band = blockIdx.x / (I4_BAND_M * tiles_n);
-  const int band_m = min(tiles_m - band * I4_BAND_M, I4_BAND_M);
-  const int in_band = blockIdx.x - band * I4_BAND_M * tiles_n;
-  const int m0 = (band * I4_BAND_M + in_band % band_m) * I4_BM, n0 = (in_band / band_m) * I4_BN;
+  const int2 origin = raster<I4_BM, I4_BN, I4_BAND_M>(M, N);
+  const int m0 = origin.x, n0 = origin.y;
 
   const int kp = K / 2, nchunks = kp / 16;
   const int nstages = (nchunks + I4_CHUNKS - 1) / I4_CHUNKS;
@@ -739,6 +592,278 @@ cudaError_t launch_int4(const void* x, const void* w, const void* scale, void* o
     if (e != cudaSuccess) return e;
     const int tiles = ((M + I4_BM - 1) / I4_BM) * ((N + I4_BN - 1) / I4_BN);
     kernel<<<tiles, I4_THREADS, I4_SMEM, stream>>>(xp, wp, sp, op, M, K, N, half);
+  }
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- tiled (int8 / fp8)
+// 128 x 256 output tiles, 8 warps of 64 x 64 (2 along M, 4 along N). K runs
+// in stages of 64 rows (4 k16 steps) through a ring of W8_STAGES buffers in
+// dynamic shared memory, filled by 16-byte cp.async (rows past M, columns
+// past N and rows past K zero-filled), with one barrier a stage, mid-stage
+// (so the ring needs a fourth buffer), as in qmm_int4_tiled. One scale a
+// column: there is no group accumulator, so the tile is twice K6's.
+//  * A (x, bf16) is stored 128 bytes a row, its 16-byte pieces XOR-swizzled
+//    by the row, and read with ldmatrix.x4 without bank conflicts.
+//  * B (the 8-bit weights) keeps its global layout, 272 bytes a row (the
+//    lanes' rows 2t land in four different bank octets). Each thread reads
+//    32-bit words at rows 2t, 2t + 1, 2t + 8 and 2t + 9 of a k16 step, 4
+//    output columns each; byte i of the words at columns c0 + 4g feeds n8
+//    tile i, column g, so thread (g, t) holds the 8 consecutive columns c0 +
+//    8t .. + 7 at the store (K6's permutation; `k4_b_fragment` in
+//    ops/quant_matmul.py spells it out). The bytes become bf16 in registers,
+//    exactly and with no conversion instruction: s8x2_bf16 (int8) and
+//    e4m3x2_bf16 (float8_e4m3fn), 4 instructions a bf16 pair. Each k16
+//    step's A fragments and weight words are loaded one step ahead of its
+//    products, and the words converted right after the previous step's
+//    products are issued, so the shared-memory latency and the conversion
+//    run beside the mma.
+// What bounds it on the H100: the 2*M*K*N operations (1.26 TFLOP through
+// 7B's five shapes at 2048 rows: 1.28 ms at 989 TFLOP/s). Its tiles move
+// about 2.8 TB/s from L2 into shared memory at those shapes, as the other
+// tiled matmuls do (PERF.md); the tile cannot grow on mma.sync, whose
+// accumulators fill the registers. wgmma is the next step (ROADMAP).
+constexpr int W8_WARPS_M = 2, W8_WARPS_N = 4;
+constexpr int W8_MT = 4;                        // m16 tiles a warp: warp tiles of 64 x 64
+constexpr int W8_BM = W8_WARPS_M * W8_MT * 16;  // 128
+constexpr int W8_BN = W8_WARPS_N * 64;          // 256
+constexpr int W8_BK = 64;                       // rows a stage
+constexpr int W8_STAGES = 4;
+constexpr int W8_THREADS = W8_WARPS_M * W8_WARPS_N * 32;
+constexpr int W8_B_PIECES = W8_BN / 16;         // 16-byte pieces of a weight row
+constexpr int W8_BAND_M = 16;                   // row tiles a raster band: 2048 rows
+constexpr int W8_A_ROW = W8_BK * 2;             // bytes: 64 bf16 activations a row
+constexpr int W8_B_ROW = W8_BN + 16;            // bytes: 256 weight bytes + padding
+constexpr int W8_A_BYTES = W8_BM * W8_A_ROW;
+constexpr int W8_B_BYTES = W8_BK * W8_B_ROW;
+constexpr int W8_STAGE_BYTES = W8_A_BYTES + W8_B_BYTES;
+constexpr int W8_SMEM = W8_STAGES * W8_STAGE_BYTES;  // 135,168 bytes
+
+// int8: byte I of words a and b -> one bf16x2 (a's value in the low half),
+// exact. prmt puts byte I of each word in the low byte of its 16-bit half;
+// lop3 makes L = 0x4300 | (byte & 0x7F), bf16 128 + the 7 low bits, and C =
+// 0x4300 | (byte & 0x80), bf16 128 or (sign bit set) 256; one bf16x2 FMA
+// gives L - C, the int8 value: an integer in [-128, 127], exact in bf16.
+template <int I>
+__device__ __forceinline__ uint32_t s8x2_bf16(uint32_t a, uint32_t b) {
+  constexpr uint32_t sel = I | (I << 4) | ((4 + I) << 8) | ((4 + I) << 12);
+  uint32_t x, l, c, r;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(x) : "r"(a), "r"(b), "n"(sel));
+  asm("lop3.b32 %0, %1, %2, %3, 0xea;\n" : "=r"(l) : "r"(x), "n"(0x007F007Fu), "n"(0x43004300u));
+  asm("lop3.b32 %0, %1, %2, %3, 0xea;\n" : "=r"(c) : "r"(x), "n"(0x00800080u), "n"(0x43004300u));
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(c), "r"(0xBF80BF80u), "r"(l));
+  return r;
+}
+
+// float8_e4m3fn: byte I of words a and b -> one bf16x2. prmt gives each
+// byte a 16-bit half, the byte low and its sign replicated high; shifted
+// left by 4 and masked with 0x87F0, a half holds the sign in bit 15 and the
+// byte's 4 exponent and 3 mantissa bits in bits 7-10 and 4-6: the bf16 of
+// the e4m3 value times 2^-120 (a bf16 subnormal for an e4m3 subnormal).
+// One bf16x2 multiply by 2^120 (0x7B80) restores it, exact for every
+// finite value.
+template <int I>
+__device__ __forceinline__ uint32_t e4m3x2_bf16(uint32_t a, uint32_t b) {
+  constexpr uint32_t sel = I | ((I | 8) << 4) | ((4 + I) << 8) | ((12 + I) << 12);
+  uint32_t x, r;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(x) : "r"(a), "r"(b), "n"(sel));
+  const uint32_t y = (x << 4) & 0x87F087F0u;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(y), "r"(0x7B807B80u));
+  return r;
+}
+
+// byte I of words a and b (two k of one column) -> one bf16x2, by format
+template <typename WT, int I>
+__device__ __forceinline__ uint32_t bytes2_bf16(uint32_t a, uint32_t b) {
+  if constexpr (std::is_same<WT, int8_t>::value) {
+    return s8x2_bf16<I>(a, b);
+  } else {
+    return e4m3x2_bf16<I>(a, b);
+  }
+}
+
+// The B fragments of n8 tile I from words w[0..3] (rows 2t, 2t + 1, 2t + 8,
+// 2t + 9 of the thread's 4 columns).
+template <typename WT, int I>
+__device__ __forceinline__ void bytes_tile(uint32_t (&bf)[4][2], const uint32_t (&w)[4]) {
+  bf[I][0] = bytes2_bf16<WT, I>(w[0], w[1]);
+  bf[I][1] = bytes2_bf16<WT, I>(w[2], w[3]);
+}
+
+template <typename WT, typename OutT>
+__global__ void __launch_bounds__(W8_THREADS, 1)
+    qmm_8bit_tiled(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
+                   const float* __restrict__ scale, OutT* __restrict__ out, int M, int K, int N) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp / W8_WARPS_N, wn = warp % W8_WARPS_N;
+  const int2 origin = raster<W8_BM, W8_BN, W8_BAND_M>(M, N);
+  const int m0 = origin.x, n0 = origin.y;
+  const int nstages = (K + W8_BK - 1) / W8_BK;
+  const uint32_t smem0 = smem_addr(smem);
+
+  // This thread's copies. A: piece tid % 8 of rows tid / 8 + (threads / 8)
+  // i; B: piece tid % W8_B_PIECES of rows tid / W8_B_PIECES + (threads /
+  // W8_B_PIECES) i.
+  const int a_piece = tid & 7, a_row0 = tid >> 3;
+  const int b_piece = tid % W8_B_PIECES, b_row0 = tid / W8_B_PIECES;
+  auto load_stage = [&](int s, int buf) {
+    const uint32_t a_s = smem0 + buf * W8_STAGE_BYTES, b_s = a_s + W8_A_BYTES;
+    const int k = s * W8_BK + 8 * a_piece;
+#pragma unroll
+    for (int i = 0; i < W8_BM * 8 / W8_THREADS; ++i) {
+      const int row = a_row0 + W8_THREADS / 8 * i;
+      const bool ok = k < K && m0 + row < M;
+      cp_async16(a_s + row * W8_A_ROW + ((a_piece ^ (row & 7)) << 4),
+                 ok ? x + (size_t)(m0 + row) * K + k : x, ok ? 16 : 0);
+    }
+#pragma unroll
+    for (int i = 0; i < W8_BK * W8_B_PIECES / W8_THREADS; ++i) {
+      const int row = b_row0 + W8_THREADS / W8_B_PIECES * i, krow = s * W8_BK + row;
+      const int col = n0 + 16 * b_piece;
+      const bool ok = krow < K && col < N;
+      cp_async16(b_s + row * W8_B_ROW + 16 * b_piece, ok ? w + (size_t)krow * N + col : w,
+                 ok ? 16 : 0);
+    }
+  };
+
+  // One k16 step's fragments: A by ldmatrix, the weight words of each
+  // 32-column half h at rows 2t, 2t + 1, 2t + 8, 2t + 9.
+  auto load_frags = [&](uint32_t (&af)[W8_MT][4], uint32_t (&wd)[2][4], int buf, int j) {
+    const uint32_t a_s = smem0 + buf * W8_STAGE_BYTES;
+#pragma unroll
+    for (int mt = 0; mt < W8_MT; ++mt) {
+      const int row = wm * 64 + mt * 16 + (lane & 15);
+      ldmatrix_x4(af[mt], a_s + row * W8_A_ROW + (((2 * j + (lane >> 4)) ^ (row & 7)) << 4));
+    }
+    const unsigned char* b_s = smem + buf * W8_STAGE_BYTES + W8_A_BYTES;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const unsigned char* bp = b_s + (16 * j + 2 * t) * W8_B_ROW + wn * 64 + h * 32 + 4 * g;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        wd[h][q] = *reinterpret_cast<const uint32_t*>(bp + ((q & 1) + 8 * (q >> 1)) * W8_B_ROW);
+    }
+  };
+
+  float acc[W8_MT][8][4];
+#pragma unroll
+  for (int mt = 0; mt < W8_MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < W8_STAGES - 1; ++s) {
+    if (s < nstages) load_stage(s, s);
+    cp_async_commit();
+  }
+  cp_async_wait<W8_STAGES - 2>();
+  __syncthreads();  // stage 0 has landed
+  // a step's B registers from its words, both halves
+  uint32_t bf[2][4][2];
+  auto convert = [&](const uint32_t (&wd)[2][4]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      bytes_tile<WT, 0>(bf[h], wd[h]);
+      bytes_tile<WT, 1>(bf[h], wd[h]);
+      bytes_tile<WT, 2>(bf[h], wd[h]);
+      bytes_tile<WT, 3>(bf[h], wd[h]);
+    }
+  };
+  uint32_t af[W8_MT][4];
+  {
+    uint32_t wd[2][4];
+    load_frags(af, wd, 0, 0);
+    convert(wd);
+  }
+  for (int s = 0; s < nstages; ++s) {
+    const int buf = s % W8_STAGES;
+#pragma unroll
+    for (int j = 0; j < W8_BK / 16; ++j) {
+      if (j == W8_BK / 32) {
+        // mid-stage: stage s + 1 has landed, and every warp is past stage
+        // s - 1, whose buffer takes stage s + W8_STAGES - 1
+        cp_async_wait<W8_STAGES - 3>();
+        __syncthreads();
+        if (s + W8_STAGES - 1 < nstages) load_stage(s + W8_STAGES - 1, (s + W8_STAGES - 1) % W8_STAGES);
+        cp_async_commit();
+      }
+      // the next step's fragments, one step ahead of the products: step j +
+      // 1 of this stage, or step 0 of the next (it landed before this
+      // stage's mid-stage barrier; past the last stage they go unused); its
+      // words are converted after this step's products are issued
+      uint32_t af_n[W8_MT][4], wd_n[2][4];
+      if (j + 1 < W8_BK / 16) {
+        load_frags(af_n, wd_n, buf, j + 1);
+      } else {
+        load_frags(af_n, wd_n, (s + 1) % W8_STAGES, 0);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)  // the warp's two 32-column halves
+#pragma unroll
+        for (int mt = 0; mt < W8_MT; ++mt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) mma_bf16(acc[mt][4 * h + i], af[mt], bf[h][i]);
+      convert(wd_n);
+#pragma unroll
+      for (int mt = 0; mt < W8_MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) af[mt][e] = af_n[mt][e];
+    }
+  }
+  cp_async_wait<0>();
+
+  // thread (g, t) holds columns c = n0 + wn * 64 + 32h + 8t .. + 8 of each
+  // half h: acc[..][4h + i][0 / 2] at c + i, acc[..][4h + i][1 / 3] at c + 4
+  // + i, rows g and g + 8 of each m16 tile
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c = n0 + wn * 64 + 32 * h + 8 * t;
+    if (c >= N) continue;
+    float sc[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sc[i] = __ldg(scale + c + i);
+#pragma unroll
+    for (int mt = 0; mt < W8_MT; ++mt)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int r = m0 + wm * 64 + mt * 16 + g + 8 * rr;
+        if (r < M) {
+          float v[8];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            v[i] = acc[mt][4 * h + i][2 * rr] * sc[i];
+            v[4 + i] = acc[mt][4 * h + i][2 * rr + 1] * sc[4 + i];
+          }
+          store8(out + (size_t)r * N + c, v);
+        }
+      }
+  }
+}
+
+template <typename WT, typename OutT>
+cudaError_t launch(const void* x, const void* w, const void* scale, void* out, int M, int K,
+                   int N, cudaStream_t stream) {
+  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  const auto* wp = static_cast<const uint8_t*>(w);
+  const auto* sp = static_cast<const float*>(scale);
+  auto* op = static_cast<OutT*>(out);
+  if (M <= 16) {
+    qmm_small_m<WT, 1, OutT><<<N / SM_BN, SM_WARPS * 32, 0, stream>>>(xp, wp, sp, op, M, K, N);
+  } else if (M <= 32) {
+    qmm_small_m<WT, 2, OutT><<<N / SM_BN, SM_WARPS * 32, 0, stream>>>(xp, wp, sp, op, M, K, N);
+  } else if (M <= 64) {
+    qmm_small_m<WT, 4, OutT><<<N / SM_BN, SM_WARPS * 32, 0, stream>>>(xp, wp, sp, op, M, K, N);
+  } else {
+    auto kernel = qmm_8bit_tiled<WT, OutT>;
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W8_SMEM);
+    if (e != cudaSuccess) return e;
+    const int tiles = ((M + W8_BM - 1) / W8_BM) * ((N + W8_BN - 1) / W8_BN);
+    kernel<<<tiles, W8_THREADS, W8_SMEM, stream>>>(xp, wp, sp, op, M, K, N);
   }
   return cudaGetLastError();
 }

@@ -5,7 +5,9 @@
   it launches ``csrc/quant_matmul.cu`` (replaces the TPU kernel
   ``_qmm_kernel``): the layer is a pointer offset into the (L, H, O) stack
   and the 8-bit weights are converted in registers, never into a
-  dequantized copy.
+  dequantized copy. Past 64 rows the tiled form (128 x 256 tiles on a
+  ``cp.async`` ring) reads the weights as 32-bit words of 4 columns;
+  :func:`k4_b_fragment` gives the (k, column) each register holds.
 - ``quant_matmul_int4``: nibble-packed int4 weights with grouped scales
   (``core/quant.quantize_weight_int4``); the int4 mode of the same source
   (replaces ``_qmm_int4_kernel``). Both nibbles of a byte are unpacked in
@@ -15,7 +17,9 @@
   quantized per row (:func:`quantize_rows`, plain torch, as XLA computed it
   outside any kernel), then int8 x int8 products accumulate in int32 on the
   tensor cores' int8 path: ``csrc/quant_matmul_a8.cu`` (replaces
-  ``_qmm_w8a8_kernel`` and ``_qmm_w4a8_kernel``).
+  ``_qmm_w8a8_kernel`` and ``_qmm_w4a8_kernel``). W4A8's kernel transposes
+  4 x 4 blocks of packed bytes in registers; :func:`k11_b_fragment` gives
+  the (k, column) each register byte holds.
 
 On CPU tensors every entry runs its ``*_plain`` twin. Each launch counts
 once in the entry's ``launches``; ``launches_tiled`` counts the launches of
@@ -124,6 +128,46 @@ def quant_matmul_w4a8_plain(x, w, scale, *, layer=None, out_dtype=None, axis=Non
     for lo_cols, hi_cols, lo, hi, s in _int4_groups(w, scale, layer):
         acc += (_int_dot(x8[:, lo_cols], lo) + _int_dot(x8[:, hi_cols], hi)).float() * s
     return (acc * rs).to(out_dtype or torch.float32)
+
+
+# ----------------------------------------------------------------- fragment maps
+
+
+def k4_b_fragment(lane: int) -> dict:
+    """K4's tiled kernel (``qmm_8bit_tiled``): what lane ``lane`` holds in
+    one k16 step of one 32-column band of a warp. Returns ``{"b": {(tile i,
+    register r, half e): (k, column)}, "store": {(tile i, accumulator j):
+    (row, column)}}``, k within the step (0-15), columns within the band
+    (0-31), rows within the m16 tile.
+
+    The lane (g, t) reads 32-bit words at rows 2t, 2t + 1, 2t + 8, 2t + 9,
+    columns 4g .. 4g + 3; byte i feeds n8 tile i, whose mma sees it at
+    column g and k 2t + 8r + e (the m16n8k16 B layout). The mma puts
+    accumulator j of tile i at row g + 8 (j // 2), column 2t + j % 2 of the
+    tile, which is band column 4 (2t + j % 2) + i: the lane stores the 8
+    consecutive columns 8t .. 8t + 7."""
+    g, t = lane >> 2, lane & 3
+    b = {(i, r, e): (2 * t + 8 * r + e, 4 * g + i) for i in range(4) for r in range(2) for e in range(2)}
+    store = {(i, j): (g + 8 * (j // 2), 4 * (2 * t + j % 2) + i) for i in range(4) for j in range(4)}
+    return {"b": b, "store": store}
+
+
+def k11_b_fragment(lane: int) -> dict:
+    """K11's W4A8 kernel (``qmm_w4a8_tiled``): what lane ``lane`` holds in
+    one chunk (32 packed rows) of a warp's 32 columns. Returns ``{"b":
+    {(tile i, register r, byte q): (packed row, column)}, "store": {(tile i,
+    accumulator j): (row, column)}}``. The low nibble of the byte is
+    contraction row ``packed row`` of the chunk's low half, the high nibble
+    the same row of its high half.
+
+    The lane (g, t) reads the words of packed rows 16r + 4t + q (q = 0..3),
+    columns 4g .. 4g + 3, and transposes each 4 x 4 byte block: register r
+    of tile i holds column 4g + i of the four rows, row q in byte q, which
+    the m16n8k32 mma sees at column g and k 16r + 4t + q. The store is
+    K4's: accumulator j of tile i at column 4 (2t + j % 2) + i."""
+    g, t = lane >> 2, lane & 3
+    b = {(i, r, q): (16 * r + 4 * t + q, 4 * g + i) for i in range(4) for r in range(2) for q in range(4)}
+    return {"b": b, "store": k4_b_fragment(lane)["store"]}
 
 
 # ----------------------------------------------------------------- kernels
@@ -253,22 +297,22 @@ quant_matmul_int4.launches = 0
 quant_matmul_int4.launches_tiled = 0
 
 
-def _launch_a8(entry, x, w, scale, layer, out_dtype, half, axis):
-    """Quantize the rows (their scale max-reduced over ``axis`` when given),
-    then csrc/quant_matmul_a8.cu: ``half`` 0 for int8 weights (W8A8), else
-    the packed rows per int4 half group (W4A8). Counts the launch in
-    ``entry.launches``."""
-    x8, rs = quantize_rows(x, axis=axis)
-    m, o = x.shape[0], w.shape[-1]
-    out = torch.empty((m, o), dtype=out_dtype, device=x.device)
+def _launch_a8(entry, x8, rs, w, scale, layer, out_dtype, half):
+    """csrc/quant_matmul_a8.cu on rows quantized by :func:`quantize_rows`
+    (``x8`` (M, H) int8, ``rs`` (M, 1) fp32, on the card; ``w`` / ``scale``
+    stacked and checked by the entry): ``half`` 0 for int8 weights (W8A8),
+    else the packed rows per int4 half group (W4A8). Counts the launch in
+    ``entry.launches``. ``chip_smoke.py`` times the kernel alone through it."""
+    m, o = x8.shape[0], w.shape[-1]
+    out = torch.empty((m, o), dtype=out_dtype, device=x8.device)
     if m == 0:
         return out
     lib = _build.load("quant_matmul_a8", _A8_SIGNATURES)
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x8.device):
         err = lib.quant_matmul_a8(
             _build.ptr(x8), _build.ptr(rs.contiguous()), *_layer_ptrs(w, scale, layer),
-            _build.ptr(out), m, x.shape[1], o, half, int(out_dtype == torch.bfloat16),
-            _build.stream_ptr(x.device),
+            _build.ptr(out), m, x8.shape[1], o, half, int(out_dtype == torch.bfloat16),
+            _build.stream_ptr(x8.device),
         )
     _build.check(lib, err, entry.__name__)
     entry.launches += 1
@@ -298,7 +342,7 @@ def quant_matmul_w8a8(
                          f"{tuple(w.shape)}")
     if h % 64 or o % 32:
         raise ValueError(f"the CUDA kernel needs H a multiple of 64 and O of 32, got H={h}, O={o}")
-    return _launch_a8(quant_matmul_w8a8, x, w, scale, layer, out_dtype, 0, axis)
+    return _launch_a8(quant_matmul_w8a8, *quantize_rows(x, axis=axis), w, scale, layer, out_dtype, 0)
 
 
 quant_matmul_w8a8.launches = 0
@@ -320,7 +364,7 @@ def quant_matmul_w4a8(
         return quant_matmul_w4a8_plain(x, w, scale, layer=layer, out_dtype=out_dtype, axis=axis)
     x, w, scale, layer, out_dtype = _prepare("quant_matmul_w4a8", x, w, scale, layer, out_dtype)
     _, _, _, half = _int4_geometry("quant_matmul_w4a8", x, w, scale, 32)
-    return _launch_a8(quant_matmul_w4a8, x, w, scale, layer, out_dtype, half, axis)
+    return _launch_a8(quant_matmul_w4a8, *quantize_rows(x, axis=axis), w, scale, layer, out_dtype, half)
 
 
 quant_matmul_w4a8.launches = 0

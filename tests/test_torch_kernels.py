@@ -7,8 +7,10 @@ nor the JAX package, so on a machine with a card and no JAX it runs alone::
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -o addopts="" -p no:cacheprovider
 
 Quantized cases: K6 (int4 weight-only; its tiled form at partial tiles and
-groups that end inside a stage), K10 / K11 (W8A8 / W4A8), the int8 / fp8
-options of K1, K2 and K7, and K8 on 1-byte pools; quantized deployments
+groups that end inside a stage), K4's tiled form on int8 and fp8 weights at
+partial tiles and a TP shard's K, K10 / K11 (W8A8 / W4A8; K11 also at
+phase 14's TP-4 shard shapes), the int8 / fp8 options of K1, K2 and K7, and
+K8 on 1-byte pools; quantized deployments
 through ``generate`` and both engines. Head_dim 256 (its own kernel, the KV
 walk split across blocks): decode, verify and paged decode at the edge
 cases of ``tests/test_torch_split_decode.py``, on bf16, int8 and fp8 KV.
@@ -250,6 +252,60 @@ def test_quant_matmul_int4_tiled_kernel_matches_plain(cuda, rows, n, group, out_
     assert out.dtype == out_dtype and out.shape == (rows, n)
     rel = 1e-5 if out_dtype == torch.float32 else BF16_ULP
     assert _max_err(out, ref) <= rel * ref.float().abs().max().item()
+
+
+# The tiled matmuls' tolerance, relative to the output's peak: fp32 sums of
+# the same exact products in another order (fp32 out); bf16 out rounds both
+# sides once, and where their fp32 sums straddle a rounding boundary the two
+# differ by one bf16 ulp of the element, up to 2^-7 of its magnitude (a peak
+# just below a power of two and an element just above half of it).
+_TILED_REL = {torch.float32: 1e-5, torch.bfloat16: 2 * BF16_ULP}
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("rows", [65, 127, 300, 2048])
+@pytest.mark.parametrize("k,n", [(96, 96), (96, 4096), (96, 5504), (2752, 96), (2752, 4096), (2752, 5504)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_quant_matmul_tiled_kernel_matches_plain(cuda, mode, rows, k, n, out_dtype):
+    """K4's tiled form (more than 64 rows): 128 x 256 tiles with a partial
+    row tile, partial column tiles (N 96; 5504 is no multiple of 256), K 96
+    (a last stage of 32 rows) and 2752 (a TP-4 shard of 7B's w_down: 43
+    stages). One launch a call, counted in ``launches_tiled``."""
+    gen = _gen(cuda)
+    wq = quant.quantize_weight(torch.randn((2, k, n), generator=gen, device=cuda), mode)
+    x = torch.randn((rows, k), generator=gen, device=cuda, dtype=torch.bfloat16)
+    fn = quant_matmul.quant_matmul
+    before = (fn.launches, fn.launches_tiled)
+    out = fn(x, wq["w"], wq["scale"], layer=1, out_dtype=out_dtype)
+    assert (fn.launches, fn.launches_tiled) == (before[0] + 1, before[1] + 1)
+    ref = quant_matmul.quant_matmul_plain(x, wq["w"], wq["scale"], layer=1, out_dtype=out_dtype)
+    assert out.dtype == out_dtype and out.shape == (rows, n)
+    assert _max_err(out, ref) <= _TILED_REL[out_dtype] * ref.float().abs().max().item()
+
+
+# phase 14's TP-4 shards of 7B at int4 group 64 (wqkv, wo, w_gate_up, w_down);
+# group 128 where it divides K
+W4A8_SHARDS = [(4096, 1536, 64), (1024, 4096, 64), (4096, 5504, 64), (2752, 4096, 64),
+               (4096, 1536, 128), (1024, 4096, 128), (4096, 5504, 128)]
+
+
+@pytest.mark.parametrize("rows", [65, 127, 300, 2048])
+@pytest.mark.parametrize("k,n,group", W4A8_SHARDS)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_quant_matmul_w4a8_kernel_matches_plain_at_shards(cuda, rows, k, n, group, out_dtype):
+    """K11 (64 x 256 tiles, a chunk of 32 packed rows per k32 pair; the G128
+    form at group 128): exact int32 sums on both sides, the fp32 group sums
+    in another order, so 1e-5 of the peak (fp32 out). N 1536 and 5504 end in
+    a partial column tile, 2752 / 64 = 43 groups an odd count of chunks."""
+    gen = _gen(cuda)
+    wq = quant.quantize_weight_int4(torch.randn((2, k, n), generator=gen, device=cuda), group)
+    x = torch.randn((rows, k), generator=gen, device=cuda, dtype=torch.bfloat16)
+    fn = quant_matmul.quant_matmul_w4a8
+    before = fn.launches
+    out = fn(x, wq["w"], wq["scale"], layer=1, out_dtype=out_dtype)
+    assert fn.launches == before + 1
+    ref = quant_matmul.quant_matmul_w4a8_plain(x, wq["w"], wq["scale"], layer=1, out_dtype=out_dtype)
+    assert out.shape == (rows, n) and _max_err(out, ref) <= _TILED_REL[out_dtype] * ref.float().abs().max().item()
 
 
 @pytest.mark.parametrize("entry", ["w8a8", "w4a8"])

@@ -119,6 +119,227 @@ def test_int4_magic_unpack_equals_unpack_int4(rng, i):
             assert torch.equal(got.view(torch.int16), ref.to(torch.bfloat16).view(torch.int16))
 
 
+def _prmt(a, b, sel):
+    """PTX ``prmt.b32`` (default mode) on 32-bit words a, b (int64 tensors):
+    result byte n is byte ``s & 7`` of the pool (a's bytes 0-3, b's 4-7) for
+    selector nibble s, or that byte's sign replicated when ``s & 8``."""
+    pool = [(a >> (8 * k)) & 0xFF for k in range(4)] + [(b >> (8 * k)) & 0xFF for k in range(4)]
+    out = torch.zeros_like(a)
+    for n in range(4):
+        s = (sel >> (4 * n)) & 0xF
+        byte = pool[s & 7]
+        if s & 8:
+            byte = torch.where(byte >= 0x80, 0xFF, 0)
+        out |= byte << (8 * n)
+    return out
+
+
+def _bf16_halves(word):
+    """The (low, high) 16-bit halves of 32-bit words as bf16."""
+    def bf16(bits):
+        return bits.to(torch.int32).to(torch.int16).view(torch.bfloat16)
+
+    return bf16(word & 0xFFFF), bf16((word >> 16) & 0xFFFF)
+
+
+def _s8x2_bf16(a, b, i):
+    """csrc/quant_matmul.cu's s8x2_bf16<I> on words a, b: prmt byte i of
+    each into its 16-bit half, lop3 into L = 0x4300 | (byte & 0x7F) and C =
+    0x4300 | (byte & 0x80), then the bf16x2 FMA C * -1 + L (exact, so
+    torch's bf16 arithmetic rounds as ``fma.rn.bf16x2``). Returns the
+    (low, high) halves as bf16."""
+    x = _prmt(a, b, i | (i << 4) | ((4 + i) << 8) | ((4 + i) << 12))
+    l_half = _bf16_halves((x & 0x007F007F) | 0x43004300)
+    c_half = _bf16_halves((x & 0x00800080) | 0x43004300)
+    return tuple((lv.float() - cv.float()).to(torch.bfloat16) for lv, cv in zip(l_half, c_half))
+
+
+def _e4m3x2_bf16(a, b, i):
+    """csrc/quant_matmul.cu's e4m3x2_bf16<I>: prmt byte i of a and of b into
+    the two halves with their signs replicated above, shift left 4, mask
+    0x87F087F0, multiply each bf16 half by 2^120 (exact, so torch's bf16
+    product rounds as ``mul.rn.bf16x2``)."""
+    sel = i | ((i | 8) << 4) | ((4 + i) << 8) | ((12 + i) << 12)
+    y = (_prmt(a, b, sel) << 4) & 0x87F087F0
+    two120 = torch.tensor(2.0**120, dtype=torch.bfloat16)
+    return tuple(h * two120 for h in _bf16_halves(y))
+
+
+def _transpose4(r):
+    """csrc/quant_matmul_a8.cu's transpose4 on words r[0..3]."""
+    t0, t1 = _prmt(r[0], r[1], 0x5140), _prmt(r[2], r[3], 0x5140)
+    t2, t3 = _prmt(r[0], r[1], 0x7362), _prmt(r[2], r[3], 0x7362)
+    return [_prmt(t0, t1, 0x5410), _prmt(t0, t1, 0x7632), _prmt(t2, t3, 0x5410), _prmt(t2, t3, 0x7632)]
+
+
+def _nib16(word):
+    """csrc/quant_matmul_a8.cu's (nib_lo16, nib_hi16) on words."""
+    return ((word << 4) & 0xF0F0F0F0) ^ 0x80808080, word & 0xF0F0F0F0
+
+
+def _word_with_byte(rng, vals, i):
+    """Random 32-bit words (int64) with byte i replaced by ``vals``."""
+    words = torch.from_numpy(rng.integers(0, 2**32, vals.shape[0], dtype=np.int64))
+    return (words & ~(0xFF << (8 * i))) | (vals << (8 * i))
+
+
+@pytest.mark.parametrize("i", range(4))
+def test_int8_magic_convert_equals_cast(rng, i):
+    """K4's tiled int8 conversion at byte i of its words gives all 256 byte
+    values, in both halves, bit for bit as ``w.to(torch.bfloat16)``."""
+    vals = torch.arange(256, dtype=torch.int64)
+    a, b = _word_with_byte(rng, vals, i), _word_with_byte(rng, vals.flip(0), i)
+    got_a, got_b = _s8x2_bf16(a, b, i)
+    for got, byte in ((got_a, vals), (got_b, vals.flip(0))):
+        want = byte.to(torch.uint8).view(torch.int8).to(torch.bfloat16)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("i", range(4))
+def test_e4m3_convert_equals_cast(rng, i):
+    """K4's tiled e4m3 conversion at byte i gives every finite e4m3 code
+    (the subnormals and both zeros too), in both halves, bit for bit as
+    ``w.view(torch.float8_e4m3fn).to(torch.bfloat16)``."""
+    vals = torch.tensor([v for v in range(256) if v & 0x7F != 0x7F], dtype=torch.int64)  # 0x7F / 0xFF: NaN
+    a, b = _word_with_byte(rng, vals, i), _word_with_byte(rng, vals.flip(0), i)
+    got_a, got_b = _e4m3x2_bf16(a, b, i)
+    for got, byte in ((got_a, vals), (got_b, vals.flip(0))):
+        want = byte.to(torch.uint8).view(torch.float8_e4m3fn).to(torch.bfloat16)
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("i", range(4))
+def test_w4a8_transpose_and_widen_equal_unpack_int4(rng, i):
+    """K11's B registers: four words (packed rows q = 0..3, columns 0..3)
+    transposed and widened. Every byte value reaches byte i of each row
+    word; byte q of register column c must be 16 times ``unpack_int4``'s
+    low / high nibble of row q, column c (exact in int8)."""
+    vals = torch.arange(256, dtype=torch.int64)
+    rows = [_word_with_byte(rng, (vals + 67 * q) % 256, i) for q in range(4)]
+    packed = torch.stack([torch.stack([(w >> (8 * c)) & 0xFF for c in range(4)], -1) for w in rows], -2)
+    lo, hi = t_quant.unpack_int4(packed.to(torch.uint8).view(torch.int8))  # (256, row q, column c)
+    for c, word in enumerate(_transpose4(rows)):
+        for got, want in zip(_nib16(word), (lo, hi)):
+            got8 = torch.stack([(got >> (8 * q)) & 0xFF for q in range(4)], -1).to(torch.uint8).view(torch.int8)
+            assert torch.equal(got8.to(torch.int32), 16 * want[:, :, c])
+
+
+# ------------------------------------------------------------------ tiled kernels' fragment maps
+
+
+def test_fragment_maps_cover_each_element_once():
+    """Over the 32 lanes, K4's B registers hold each (k, column) of a k16 x
+    32 band once, K11's each (packed row, column) of a 32 x 32 chunk once,
+    and both stores write each (row, column) of a 16 x 32 tile once, with
+    every lane storing 8 consecutive columns."""
+    for fragment, k_rows in ((t_qmm.k4_b_fragment, 16), (t_qmm.k11_b_fragment, 32)):
+        b = [v for lane in range(32) for v in fragment(lane)["b"].values()]
+        assert sorted(b) == [(k, c) for k in range(k_rows) for c in range(32)]
+        stores = [fragment(lane)["store"] for lane in range(32)]
+        assert sorted(v for s in stores for v in s.values()) == [(r, c) for r in range(16) for c in range(32)]
+        for lane, s in enumerate(stores):
+            for row in (lane >> 2, (lane >> 2) + 8):
+                cols = sorted(c for r, c in s.values() if r == row)
+                assert cols == list(range(8 * (lane & 3), 8 * (lane & 3) + 8))
+
+
+def _store_band(out, acc, c0, extra=None):
+    """Each lane's accumulators of one 32-column band (acc: (M, tile i, 16
+    rows of the m16 tile's row offsets folded in M, 8)) to the output
+    columns its store map names: accumulator j of tile i is the mma's row g
+    + 8 (j // 2), column 2t + j % 2."""
+    m16 = out.shape[0] // 16
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for (i, j), (row, col) in t_qmm.k4_b_fragment(lane)["store"].items():
+            vals = acc[:, i, g + 8 * (j // 2), 2 * t + j % 2]
+            out[row::16][:m16, c0 + col] = vals if extra is None else vals * extra[c0 + col]
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_k4_fragment_mma_matches_plain_and_jax(rng, mode):
+    """K4's tiled kernel emulated in numpy through ``k4_b_fragment``: each
+    k16 step's B registers filled by the map, the m16n8k16 product on the
+    mma's own layout, the accumulators stored by the map, times the column
+    scale. Within 1e-5 of the peak (fp32 sums in another order) of the
+    plain twin and of JAX's ``quant_matmul`` in interpret mode."""
+    m, k, n = 80, 256, 96
+    x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).to(torch.bfloat16).float()
+    w = rng.standard_normal((k, n), dtype=np.float32)
+    wq = t_quant.quantize_weight(_t(w), mode)
+    wf, scale = wq["w"].float().numpy(), wq["scale"].numpy()
+    xt = x.numpy().reshape(m // 16, 16, k)
+    out = np.zeros((m, n), np.float32)
+    for c0 in range(0, n, 32):
+        acc = np.zeros((m // 16, 4, 16, 8), np.float32)
+        for k0 in range(0, k, 16):
+            bv = np.zeros((4, 16, 8), np.float32)  # the mma's B of each n8 tile: (k, n)
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                for (i, r, e), (kk, col) in t_qmm.k4_b_fragment(lane)["b"].items():
+                    bv[i, 2 * t + 8 * r + e, g] = wf[k0 + kk, c0 + col]
+            acc += np.einsum("mrk,ikn->mirn", xt[:, :, k0:k0 + 16], bv)
+        _store_band(out, acc, c0, scale)
+    plain = t_qmm.quant_matmul_plain(x, wq["w"], wq["scale"]).numpy()
+    jw = j_quant.quantize_weight(jnp.asarray(w), mode)
+    ref = np.asarray(j_qmm.quant_matmul(jnp.asarray(x.numpy()), jw["w"], jw["scale"]))
+    for want in (plain, ref):
+        np.testing.assert_allclose(out, want, atol=REL_F32 * np.abs(want).max(), rtol=0)
+
+
+@pytest.mark.parametrize("group", [64, 128])
+def test_k11_fragment_mma_matches_plain_and_jax(rng, group):
+    """K11's W4A8 kernel emulated in numpy through ``k11_b_fragment``: each
+    chunk's B registers filled by the map with the widened nibbles (16 n),
+    the m16n8k32 products on the mma's layout in exact integers, each
+    group's sums flushed times its scale in fp32, stored by the map, times
+    rs / 16. The group sums must equal 16 times the exact integer products,
+    and the output the plain twin's and JAX's ``quant_matmul_w4a8`` (in
+    interpret mode) within 1e-5 of the peak."""
+    m, k, n = 80, 256, 96
+    x = rng.standard_normal((m, k), dtype=np.float32)
+    w = rng.standard_normal((k, n), dtype=np.float32)
+    wq = t_quant.quantize_weight_int4(_t(w), group)
+    half = group // 2
+    x8, rs = (v.numpy() for v in t_qmm.quantize_rows(_t(x)))
+    lo, hi = (16 * v.numpy().astype(np.int64) for v in t_quant.unpack_int4(wq["w"]))
+    scale = wq["scale"].numpy()
+    xt = x8.astype(np.int64).reshape(m // 16, 16, k)
+    facc = np.zeros((m, n), np.float32)
+    for c0 in range(0, n, 32):
+        fband = np.zeros((m // 16, 4, 16, 8), np.float32)
+        for grp in range(k // group):
+            gacc = np.zeros((m // 16, 4, 16, 8), np.int64)
+            for off in range(0, half, 32):  # the group's chunks
+                p0, x_lo = grp * half + off, grp * group + off
+                b_lo, b_hi = np.zeros((4, 32, 8), np.int64), np.zeros((4, 32, 8), np.int64)
+                for lane in range(32):
+                    g, t = lane >> 2, lane & 3
+                    for (i, r, q), (prow, col) in t_qmm.k11_b_fragment(lane)["b"].items():
+                        b_lo[i, 16 * r + 4 * t + q, g] = lo[p0 + prow, c0 + col]
+                        b_hi[i, 16 * r + 4 * t + q, g] = hi[p0 + prow, c0 + col]
+                gacc += np.einsum("mrk,ikn->mirn", xt[:, :, x_lo:x_lo + 32], b_lo)
+                gacc += np.einsum("mrk,ikn->mirn", xt[:, :, x_lo + half:x_lo + half + 32], b_hi)
+            sums = np.zeros((m, n), np.int64)
+            _store_band(sums, gacc, c0)
+            exact = (x8[:, grp * group:grp * group + half].astype(np.int64) @ lo[grp * half:(grp + 1) * half]
+                     + x8[:, grp * group + half:(grp + 1) * group].astype(np.int64)
+                     @ hi[grp * half:(grp + 1) * half])
+            np.testing.assert_array_equal(sums[:, c0:c0 + 32], exact[:, c0:c0 + 32])
+            sc = np.zeros((4, 8), np.float32)  # the group's scale at the mma's columns
+            for lane in range(32):
+                for (i, j), (_, col) in t_qmm.k4_b_fragment(lane)["store"].items():
+                    sc[i, 2 * (lane & 3) + j % 2] = scale[grp, c0 + col]
+            fband += gacc.astype(np.float32) * sc[None, :, None, :]
+        _store_band(facc, fband, c0)
+    out = facc * (rs * np.float32(0.0625))
+    plain = t_qmm.quant_matmul_w4a8_plain(_t(x), wq["w"], wq["scale"]).numpy()
+    jw = j_quant.quantize_weight_int4(jnp.asarray(w), group)
+    ref = np.asarray(j_qmm.quant_matmul_w4a8(jnp.asarray(x), jw["w"], jw["scale"]))
+    for want in (plain, ref):
+        np.testing.assert_allclose(out, want, atol=REL_F32 * np.abs(want).max(), rtol=0)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_quantize_rows_bytes_identical(rng, dtype):
     x = (rng.standard_normal((7, 96), dtype=np.float32) * np.array([[1e-3], [1], [30], [0], [1],
