@@ -384,6 +384,8 @@ LORA_NEW_TOKENS = 16
 TRAIN_GRAD_TOL = 5e-2
 QMM_ENTRY = {16: "quant_matmul (small-M, decode rows)", 2048: "quant_matmul (tiled, prefill rows)"}
 QMM_FP8_TILED = "quant_matmul fp8 (tiled, prefill rows)"
+K5_TRAIN_NO_LSE = "flash_prefill without the LSE (training shape)"  # phase 2 only: the LSE's own cost
+K12_SPLIT = "flash_bwd_dkdv (split walks + flash_bwd_dkdv_sum, TP x DP shard)"  # phase 14e's launches
 INT4_ENTRY = {16: "quant_matmul_int4 (small-M, decode rows)",
               2048: "quant_matmul_int4 (tiled, prefill rows)"}
 A8_ENTRY = {"w8a8": "quant_matmul_w8a8 (prefill rows)", "w4a8": "quant_matmul_w4a8 (prefill rows)"}
@@ -550,12 +552,30 @@ def phase_device_and_build():
             f"spill stores {spills} bytes")
         if name in ("flash_prefill", "flash_bwd"):
             for kernel, regs, spill in _entry_resources(r["ptxas"], _kernel_label):
-                if kernel.split("<")[1].startswith("256") or spill:
-                    log(f"[build]   {kernel}: {regs} registers, spill stores {spill} bytes")
+                smem = _attention_smem(kernel)
+                if smem or kernel.split("<")[1].startswith("256") or spill:
+                    log(f"[build]   {kernel}: {regs} registers, spill stores {spill} bytes"
+                        + (f", {smem} bytes of dynamic shared memory" if smem else ""))
         for label in (_latent_label, _redesign_label):
             for kernel, regs, spill in _entry_resources(r["ptxas"], label):
                 log(f"[build]   {kernel}: {regs} registers, spill stores {spill} bytes")
     return smi
+
+
+def _attention_smem(kernel):
+    """The dynamic shared memory (bytes) of a redesigned attention kernel
+    (K5's flash_prefill_kernel, K12's flash_bwd_dkdv_kernel) as its library
+    reports it for the head_dim in its label, else None."""
+    from starflashattention_tpu_torch.ops import _build, flash_bwd
+
+    name, args = kernel.split("<")
+    d = int(args.split(",")[0])
+    if name == "flash_prefill_kernel":
+        lib = _build.load("flash_prefill", {"flash_prefill_smem_bytes": [_build.I]})
+        return lib.flash_prefill_smem_bytes(d)
+    if name == "flash_bwd_dkdv_kernel":
+        return flash_bwd.dkdv_geometry(d)[2]
+    return None
 
 
 def _latent_label(name):
@@ -834,6 +854,11 @@ def phase_kernels(dev, timer):
         log(f"[time] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
             f"{'none' if r['library_ms'] is None else format(r['library_ms'], '.4f') + ' ms'}, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']:.3e}")
+    for name, r in res.items():  # the redesigned attention rows (K5 but MLA's latent row, K12 dk/dv)
+        if (name.startswith("flash_prefill") and name != LATENT_ENTRIES["prefill"]
+                or name.startswith("flash_bwd_dkdv")) and r["bound_by"] == "operations":
+            log(f"[rate] {name}: {r['ms']:.4f} ms, {r['bound_ms'] * PEAK_BF16_OPS_PER_S / r['ms'] / 1e12:.1f} "
+                f"TFLOP/s, {r['bound_ms'] / r['ms']:.1%} of its bound (operations)")
     return res
 
 
@@ -1051,7 +1076,15 @@ def _train_kernels(dev, timer, gen):
         ms=timer(lambda: flash_prefill(q, k, v, lens, return_lse=True, **kw)),
         plain_ms=timer(lambda: flash_prefill_plain(q, k, v, lens, return_lse=True, **kw), iters=5),
         bound_ms=bnd, bound_by=by, library_ms=sdpa_fwd)
-    t_no_lse = timer(lambda: flash_prefill(q, k, v, lens, **kw))  # the serving instantiation
+    # the serving instantiation at the same shape: the LSE's own cost
+    _check(f"flash_prefill without the LSE: the same output bytes ({tag})",
+           0.0 if torch.equal(o, flash_prefill(q, k, v, lens, **kw)) else float("inf"), 0.0)
+    bnd, by = bound_ms(qb + 2 * kvb + qb, 4 * d * pairs)  # q, k, v in; o out
+    res[K5_TRAIN_NO_LSE] = dict(
+        max_abs_err=k5_err, ms=timer(lambda: flash_prefill(q, k, v, lens, **kw)),
+        plain_ms=timer(lambda: flash_prefill_plain(q, k, v, lens, **kw), iters=5),
+        bound_ms=bnd, bound_by=by, library_ms=sdpa_fwd)
+    t_no_lse = res[K5_TRAIN_NO_LSE]["ms"]
     # dq: the S and dP recompute and ds @ k, 6 D a pair; dk/dv: the recompute,
     # p^T @ do and ds^T @ q, 8 D a pair (the two kernels together: 14 D, where
     # one fused pass would do 10 D)
@@ -1071,7 +1104,80 @@ def _train_kernels(dev, timer, gen):
         f"{rels[0]:.3e}, {rels[1]:.3e}, {rels[2]:.3e})")
     del q, k, v, do, o, lse, delta, grads, again, leaves
     torch.cuda.empty_cache()
+    res[K12_SPLIT] = _split_dkdv_row(dev, timer)
     return res
+
+
+def _split_dkdv_row(dev, timer):
+    """K12's dk/dv where its plan cuts the walks into pieces: phase 14e's TP
+    x DP shard of phase 9's step (B=1, Hq=16, Hkv=4, S=2048, D=128,
+    causal). The split held to the twin at 2e-2 of each peak, the same
+    bytes on two runs, the split counted on the wrapper; the same walks in
+    one block each held to the twin too; timed at the plan's piece, at
+    half and twice it, and unsplit, beside SDPA's backward. Its inputs come
+    from a generator of their own, so the rows after it keep theirs."""
+    import torch.nn.functional as F
+
+    from starflashattention_tpu_torch.ops import flash_bwd
+    from starflashattention_tpu_torch.ops.flash_prefill import flash_prefill
+
+    b, hq, hkv, s, d = 1, 16, 4, TRAIN_SEQ, 128
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    q, do = (torch.randn((b, hq, s, d), generator=gen, device=dev, dtype=bf16) for _ in range(2))
+    k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev, dtype=bf16) for _ in range(2))
+    lens = torch.full((b,), s, dtype=torch.int32, device=dev)
+    o, lse = flash_prefill(q, k, v, lens, return_lse=True)
+    delta = flash_bwd.bwd_delta(o, do)
+    args = (q, k, v, lse, do, delta, lens)
+    tag = f"B={b} Hq={hq} Hkv={hkv} S={s} D={d} causal"
+    bkv, bq, _ = flash_bwd.dkdv_geometry(d)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunk, splits = flash_bwd.dkdv_split_plan(b, hkv, hq // hkv, s, s, True, None, 0, sms, bkv, bq)
+    _check(f"flash_bwd_dkdv: the plan cuts the walks into pieces at {tag}", 0.0 if splits > 1 else float("inf"),
+           0.0, what=f"{splits} pieces of {chunk} steps")
+    before = flash_bwd.flash_bwd_dkdv.launches_split
+    got = flash_bwd.flash_bwd_dkdv(*args)
+    _check(f"flash_bwd_dkdv: the split launch counted once at {tag}",
+           float(abs(flash_bwd.flash_bwd_dkdv.launches_split - before - 1)), 0.0, what="counts off by")
+    refs = flash_bwd.flash_bwd_dkdv_plain(*args)
+    errs = [(a.float() - r.float()).abs().max().item() for a, r in zip(got, refs)]
+    for name, e, r in zip(("dk", "dv"), errs, refs):
+        _check(f"flash_bwd_dkdv split walks {name} {tag}", e / r.float().abs().max().item(), 2e-2,
+               what="max abs error over the peak")
+    again = flash_bwd.flash_bwd_dkdv(*args)
+    _check(f"flash_bwd_dkdv split walks, two runs, bytes that differ ({tag})",
+           float(sum(int((a.view(torch.int16) != g.view(torch.int16)).sum()) for a, g in zip(again, got))), 0.0)
+    full = flash_bwd.dkdv_longest_walk(q, k)
+    whole = flash_bwd.flash_bwd_dkdv_split(*args, plan=(full, 1))
+    for name, a, r in zip(("dk", "dv"), whole, refs):
+        _check(f"flash_bwd_dkdv unsplit walks {name} {tag}",
+               (a.float() - r.float()).abs().max().item() / r.float().abs().max().item(), 2e-2,
+               what="max abs error over the peak")
+    del again, whole
+    times = {}
+    for c in (max(chunk // 2, 1), chunk, 2 * chunk, full):  # pieces of c steps; the last: one a walk
+        plan = (c, flash_bwd.dkdv_walk_splits(full, c))
+        times[plan] = timer(lambda plan=plan: flash_bwd.flash_bwd_dkdv_split(*args, plan=plan))
+    log(f"[time] flash_bwd_dkdv at {tag} on {sms} SMs, the plan's {splits} pieces of {chunk} steps: "
+        + ", ".join(f"{n} pieces of {c} {t:.4f} ms" for (c, n), t in times.items())
+        + f" (the last: every walk in one block, {times[(full, 1)] / times[(chunk, splits)]:.2f}x the plan's)")
+
+    pairs = b * hq * s * (s + 1) // 2
+    qb, kvb, rowb = q.numel() * 2, k.numel() * 2, b * hq * s * 4
+    bnd, by = bound_ms(qb + 2 * kvb + qb + 2 * rowb + 2 * kvb, 8 * d * pairs)  # q, k, v, do, lse, delta; dk, dv
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+
+    sdpa_bwd = timer(lambda: torch.autograd.grad(sdpa(), leaves, do)) - timer(sdpa)
+    row = dict(max_abs_err=max(errs), ms=timer(lambda: flash_bwd.flash_bwd_dkdv(*args)),
+               plain_ms=timer(lambda: flash_bwd.flash_bwd_dkdv_plain(*args), iters=5),
+               bound_ms=bnd, bound_by=by, library_ms=sdpa_bwd)
+    del q, k, v, do, o, lse, delta, got, refs, leaves, args
+    torch.cuda.empty_cache()
+    return row
 
 
 def _sink_heavy(q, k, sinks, gen):
@@ -4721,6 +4827,16 @@ def _expert_parallel_path(r, meshes, dev):
     torch.cuda.empty_cache()
 
 
+def _dkdv_splits(b, hkv, g, s, d, dev):
+    """1 if the dk/dv wrapper splits its walks at this causal self-attention
+    shape on this card, else 0."""
+    from starflashattention_tpu_torch.ops import flash_bwd
+
+    bkv, bq, _ = flash_bwd.dkdv_geometry(d)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return int(flash_bwd.dkdv_split_plan(b, hkv, g, s, s, True, None, 0, sms, bkv, bq)[1] > 1)
+
+
 def _tp_training_path(r, meshes, dev):
     """14e: TP x DP (data 2, model 2; B=2, S=2048) and TP x CP (model 2,
     seq 2; B=1, S=8192) training of 7B-GQA at full width cut to 2 layers
@@ -4730,6 +4846,7 @@ def _tp_training_path(r, meshes, dev):
     import torch.distributed as dist
 
     from starflashattention_tpu_torch.models import llama, train
+    from starflashattention_tpu_torch.ops import flash_bwd
     from starflashattention_tpu_torch.parallel import (comm, init_opt_state, make_tp_cp_train_step,
                                                        make_tp_dp_train_step, tp)
     from starflashattention_tpu_torch.runtime.params import ModelConfig
@@ -4747,6 +4864,14 @@ def _tp_training_path(r, meshes, dev):
             ("TP x CP", "tp2_sp2", (1, t["cp_seq"]), make_tp_cp_train_step,
              _ring_counts(2, fwd_calls=2 * n, bwd_calls=n))):
         mesh = meshes[mesh_name]
+        # the rank's attention shard: the model axis halves the heads, the data
+        # or seq axis the batch or the sequence; where the dk/dv plan splits
+        # its walks, every dk/dv launch of the step is a split one (counted
+        # here alone: the other paths' counts leave the split out)
+        size = mesh.shape
+        want = dict(want, flash_bwd_dkdv_split=want["flash_bwd_dkdv"] * _dkdv_splits(
+            b // size.get("data", 1), cfg.num_kv_heads // size["model"], cfg.num_q_heads // cfg.num_kv_heads,
+            s // size.get("seq", 1), cfg.head_dim, dev))
         batch = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=gen, device=dev)
         (loss_ref, grads_ref), ref_ms = _timed(lambda: train.loss_and_grads(params, batch, cfg, cos, sin))
         want_grads = train.tree_leaves(tp.shard_params(grads_ref, mesh, cfg))
@@ -4758,12 +4883,14 @@ def _tp_training_path(r, meshes, dev):
         losses, step_ms, host = [], [], []
         for i in range(t["steps"]):
             reset_counts()
+            flash_bwd.flash_bwd_dkdv.launches_split = 0
             h0 = comm.host_bytes
             (_, _, loss), ms = _timed(lambda: step(local, state, batch, cos, sin))
             losses.append(float(loss))
             step_ms.append(ms)
             host.append(comm.host_bytes - h0)
-            r.counts(f"14e {name} step {i}", read_counts(), want)
+            r.counts(f"14e {name} step {i}",
+                     dict(read_counts(), flash_bwd_dkdv_split=flash_bwd.flash_bwd_dkdv.launches_split), want)
             if i == 0:  # momentum from 0 after one step: the reduced gradients
                 r.check(f"14e {name} first loss vs one process's", abs(losses[0] - float(loss_ref)),
                         TRAIN_GRAD_TOL, what="abs error")
@@ -4872,6 +4999,7 @@ REPLACES = {
     "flash_prefill (return_lse, training)": ("starflashattention_tpu/ops/flash_prefill.py:67", "flash_prefill.cu"),
     "flash_bwd_dq": ("starflashattention_tpu/ops/flash_bwd.py:173", "flash_bwd.cu"),
     "flash_bwd_dkdv": ("starflashattention_tpu/ops/flash_bwd.py:254", "flash_bwd.cu"),
+    K12_SPLIT: ("starflashattention_tpu/ops/flash_bwd.py:254", "flash_bwd.cu"),
     "quant_matmul_int4 (small-M, decode rows)": ("starflashattention_tpu/ops/quant_matmul.py:178",
                                                  "quant_matmul.cu"),
     "quant_matmul_int4 (tiled, prefill rows)": ("starflashattention_tpu/ops/quant_matmul.py:178",
@@ -4912,7 +5040,7 @@ REPLACES = {
 # measured in phase 2 but launched by no main-path run (the quantized slice
 # runs the fp8 cache only in split mode and pages only in int8; no path
 # serves fp8 weights): logged, not in the kernels line
-OFF_PATH = ("flash_decode fp8 KV (1 split, fused)", "paged_flash_decode fp8 KV", QMM_FP8_TILED)
+OFF_PATH = ("flash_decode fp8 KV (1 split, fused)", "paged_flash_decode fp8 KV", QMM_FP8_TILED, K5_TRAIN_NO_LSE)
 
 
 def main(argv=None):
@@ -5047,6 +5175,7 @@ def main(argv=None):
                          ("flash_bwd_dq", tot["flash_bwd_dq"] - tot["flash_bwd_dq_kv_offset"]),
                          ("flash_bwd_dkdv", tot["flash_bwd_dkdv"] - tot["flash_bwd_dkdv_kv_offset"])):
             launches[entry] = (launches.get(entry) or 0) + n
+        launches[K12_SPLIT] = tot["flash_bwd_dkdv_split"]  # of phase 14e's dk/dv launches, the split ones
     line = []
     for name, r in kernels.items():
         if name in OFF_PATH:

@@ -40,13 +40,12 @@
 // Bound: 10 * D operations per (query, key) pair in band (the two
 // recomputed products and the three gradient products: 5 matmuls of 2 * D
 // each) at the tensor-core rate; the bytes are a few times the forward's.
-// Design: both kernels use K5's warp layout, mma.sync.m16n8k16 with bf16
-// inputs and fp32 accumulators, fragments for the A operand straight from
-// registers or shared memory and ldmatrix.trans for the transposed B
-// operands, and skip tiles out of band (causal, ragged length, q offset,
-// window) before any arithmetic, as the TPU's _in_band does.
+// Design: both kernels run mma.sync.m16n8k16 with bf16 inputs and fp32
+// accumulators, and skip tiles out of band (causal, ragged length, q
+// offset, window) before any arithmetic, as the TPU's _in_band does.
 // - dq: one block per (q tile, KV head, sequence) holds the G query heads
-//   of the group (K5's layout); each warp walks the K/V tiles in band, 16
+//   of the group, 16 rows a warp, A fragments straight from registers or
+//   shared memory and ldmatrix.trans for the transposed B operands; each warp walks the K/V tiles in band, 16
 //   keys at a time, with its dq accumulator in registers, so S, dP and dS
 //   never leave registers. The walk is K5's: with BAND the sink tiles below
 //   the block's band first, then the band from the tile that holds its
@@ -57,38 +56,49 @@
 //   past the 255 limit, so (as K5's QSMEM) each warp stages its Q and dO
 //   rows in its own slice of shared memory and reads one fragment of each
 //   a k-step; the K/V tile is 32 rows (169 KB of shared memory a block).
-// - dk/dv: one block per (64-row KV tile, KV head, sequence); each warp owns
-//   16 KV rows and their dk, dv accumulators. The block walks the q tiles
-//   in band of all G heads, staging Q, dO, lse and delta in shared memory;
-//   the group sum falls out of the same walk. With BAND the q walk runs
-//   from the tile's first in-band q tile to the last q row whose band
-//   reaches the tile's last row (j0 + 63 + window - 1), or to the end when
-//   the tile holds sinks. At D = 256 the two fp32 accumulators of 16 x 256
-//   would take 256 registers a thread, so D is split between warp pairs:
-//   8 warps, two for each 16 KV rows, each owning half of the columns of dk
-//   and dv (128 registers, as at D = 128). Both warps of a pair recompute
-//   the same S and dP over the full D (12 D operations a pair where the
-//   unsplit form does 8 D; no exchange through shared memory). 136 KB of dynamic
-//   shared memory a block at D = 256, 70 KB at D = 128.
-// Blocks are numbered so that the longest walks start first (the causal
-// triangle's last q tiles in dq, its first KV tiles in dk/dv, and with
-// sinks the sink tile, which every q row reaches): blocks start in index
-// order, and a long block started in the last wave sets the kernel's time.
-// With the tile as the fastest grid index, the banded dk/dv with sinks ran
-// as slow as the unbanded one at Mistral-7B's shape: the sink tiles of the
-// last KV heads started in the last wave.
-// Not yet: copies overlapped with compute (cp.async / TMA), wgmma.
+// - dk/dv (flash_bwd_dkdv_kernel): one block per (KV tile, KV head,
+//   sequence, split): 128 KV rows (64 at D = 256) in row groups of 32, 8
+//   warps. The block walks the (head, q tile) steps in band of all G heads
+//   (the group sum falls out of the same walk; JAX _in_band decides each
+//   tile, kv_walk below): causal, from the first q tile that reaches the KV
+//   tile; with BAND up to the last q tile whose band reaches the KV tile's
+//   last row, or to the end when the tile holds sinks. Each step's Q, dO,
+//   LSE and delta stream through a two-stage cp.async ring with an mbarrier
+//   a stage and one block barrier a stage (attn_tiles.cuh). The warps of a
+//   row group (2 at D <= 128, 4 at D = 256) first split the step's q columns:
+//   S^T = K Q^T and dP^T = V dO^T on 32 KV rows (each Q / dO fragment read
+//   by ldmatrix serves two m16 tiles), then P^T and dS^T go to shared memory
+//   as bf16 (a barrier of the row group), and the same warps split the D
+//   columns of dV += P^T dO and dK += dS^T Q (the accumulators, 32 rows x
+//   D / 2 or D / 4 a warp, stay in registers for the walk). S and dP are
+//   computed once per (KV row, q row), at every D.
+//   Each KV tile's walk is cut into pieces of `chunk` steps, one block each,
+//   when the plan (ops/flash_bwd.py: dkdv_split_plan, from the static
+//   shapes) finds the longest walk longer than the card's blocks can
+//   balance; a tile whose walk takes one piece writes bf16 dk / dv itself,
+//   and the pieces of a longer walk write fp32 sums to a workspace that
+//   flash_bwd_dkdv_sum adds in piece order (no atomics, a fixed order: the
+//   same bytes on every run). The blocks take the KV tiles from the end
+//   whose first tile has the longer walk (the causal triangle's first KV
+//   tiles; a ring step whose rows lie past the window, its last).
+// dq blocks are numbered so that the longest walks start first (the causal
+// triangle's last q tiles): blocks start in index order, and a long block
+// started in the last wave sets the kernel's time.
+// Not yet: wgmma and TMA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "attn_tiles.cuh"
+
 namespace {
 
+using namespace attn;
+
 constexpr int DQ_MAX_THREADS = 256;      // dq: 8 warps, up to 255 registers a thread
-constexpr int KV_WARPS = 4;              // dk/dv: row groups a block, 16 KV rows each
-constexpr int BKV = 16 * KV_WARPS;       // dk/dv: KV rows a block owns
-constexpr int BQ = 64;                   // dk/dv: q rows per shared-memory tile
 constexpr float LSE_EMPTY = 3e38f;       // the LSE of a row with no valid position
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int NO_WINDOW = 1 << 30;       // the window argument without a window
@@ -111,31 +121,8 @@ struct Args {
   Options opt;
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D = A(16x16, row) * B(16x8, col) + D, bf16 inputs, fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four transposed 8x8 b16 matrices from shared memory; lane l gives the
-// address of row (l % 8) of matrix (l / 8).
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
 }
 
 // The A fragment (16 rows x 16 columns, row-major) at `p`, row stride `st`:
@@ -181,12 +168,13 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, int rows,
 
 // P and dS of one score: `s` is the raw fp32 q.k and `dp` the fp32 dout.v
 // of (query at position `pos`, key `col`); `live` is false for a query row
-// past Sq. The mask and the scores are the forward's (see the header).
-template <bool CAUSAL, bool SOFTCAP, bool BAND>
+// past Sq. The mask and the scores are the forward's (see the header);
+// !MASK: a tile where the mask holds everywhere, not tested.
+template <bool CAUSAL, bool SOFTCAP, bool BAND, bool MASK = true>
 __device__ __forceinline__ void p_ds(float s, float dp, bool live, int col, int pos, int len, float lse,
                                      float dl, const Options& o, float& p, float& ds) {
-  bool valid = live && col < len && (!CAUSAL || col <= pos);
-  if constexpr (BAND) valid = valid && (col > pos - o.window || col < o.sinks);
+  bool valid = !MASK || (live && col < len && (!CAUSAL || col <= pos));
+  if constexpr (BAND && MASK) valid = valid && (col > pos - o.window || col < o.sinks);
   if constexpr (SOFTCAP) {
     const float t = tanhf(s * o.sm_scale / o.softcap);
     p = valid ? exp2f(__fmul_rn(__fmul_rn(o.softcap, t), LOG2E) - lse) : 0.f;
@@ -373,145 +361,368 @@ __global__ void __launch_bounds__(DQ_MAX_THREADS)
   }
 }
 
-// dk/dv: SPLIT warps share each 16 KV rows, each owning DP = D / SPLIT
-// columns of dk and dv.
+// dk/dv tiles (see the header): a block owns BKV KV rows in WR row groups of
+// 32 (two m16 tiles); the WC warps of a row group split the q columns of
+// S^T and dP^T between them, then the D columns of dK and dV. BQ q rows a
+// ring stage.
 template <int D>
 struct KvGeom {
-  static constexpr int SPLIT = D > 128 ? 2 : 1;
-  static constexpr int THREADS = 32 * KV_WARPS * SPLIT;
-  // three blocks an SM at D <= 128 (170 registers a thread): the BAND
-  // forms took 202-218 registers unbounded, two blocks an SM, and ran no
-  // faster than the unbanded form on 0.76 of its q rows
-  static constexpr int MIN_BLOCKS = D > 128 ? 1 : 3;
-  static constexpr int DP = D / SPLIT;
-  static constexpr int ST = D + 8;
+  static constexpr int BKV = D > 128 ? 64 : 128;
+  static constexpr int BQ = 64;
+  static constexpr int WR = BKV / 32;
+  static constexpr int WC = 8 / WR;
+  static constexpr int THREADS = 256;
+  static constexpr int QW = BQ / WC;  // q columns of a warp's S^T / dP^T
+  static constexpr int DW = D / WC;   // columns of a warp's dK / dV
+  static constexpr int ST = D + 8;    // padded smem row (elements): conflict-free ldmatrix
+  static constexpr int PT = BQ + 8;   // padded row of P^T / dS^T
+  static constexpr int STAGES = 2;
+  // a stage: Q and dO (BQ, ST) bf16, then the LSE and delta (BQ,) fp32
+  static constexpr size_t STAGE = (size_t)2 * BQ * ST * sizeof(bf16) + 2 * BQ * sizeof(float);
+  static constexpr size_t SMEM = (size_t)2 * BKV * ST * sizeof(bf16) + STAGES * STAGE +
+                                 (size_t)2 * BKV * PT * sizeof(bf16) + STAGES * sizeof(uint64_t);
+  static_assert(QW % 16 == 0 && DW % 16 == 0 && STAGE % 16 == 0, "whole ldmatrix tiles");
+  static_assert(BKV * D / 8 % THREADS == 0 && BQ * D / 8 % THREADS == 0, "whole copies a thread");
 };
 
-template <int D>
-constexpr int dkdv_smem_bytes() {
-  return (2 * BKV + 2 * BQ) * (D + 8) * 2 + 2 * BQ * 4;
+// The q walk of KV tile kt of sequence b: the q tiles in band (JAX
+// _in_band): none when the tile starts at or past the length; causal, from
+// the first tile whose last row reaches the tile's first KV row; with a
+// window, up to the last tile whose first row's band reaches the tile's last
+// KV row, unless the tile holds sinks. ops/flash_bwd.py's dkdv_walk is its
+// twin.
+struct Walk {
+  int qt0, nq;  // first q tile, number of q tiles
+};
+
+__device__ __forceinline__ Walk kv_walk(const Args& a, int b, int kt, int bkv, int bq, bool causal,
+                                        bool band) {
+  const int j0 = kt * bkv;
+  const int len = min(a.lengths[b], a.Skv), qoff = a.q_offsets[b];
+  const int i_begin = causal ? max(0, j0 - qoff) / bq * bq : 0;
+  int i_end = j0 < len ? a.Sq : 0;
+  if (band && j0 >= a.opt.sinks) i_end = min(i_end, max(0, j0 + bkv - 1 + a.opt.window - 1 - qoff + 1));
+  return Walk{i_begin / bq, i_end > i_begin ? (i_end - i_begin + bq - 1) / bq : 0};
+}
+
+// Splits of a walk of `steps` (head, q tile) steps, `chunk` steps each: 1
+// for an empty walk (its block writes the zeros).
+__device__ __forceinline__ int walk_splits(int steps, int chunk) {
+  return steps ? (steps + chunk - 1) / chunk : 1;
+}
+
+// The block's KV tile: tiles in order of blockIdx.y, from the end whose
+// first tile has the longer walk in sequence 0 (the causal triangle's first
+// KV tiles; a ring step's last), so that the longest walks start first.
+__device__ __forceinline__ int kv_tile(const Args& a, int bkv, int bq, bool causal, bool band) {
+  const int nkt = gridDim.y;
+  const bool up = kv_walk(a, 0, 0, bkv, bq, causal, band).nq >= kv_walk(a, 0, nkt - 1, bkv, bq, causal, band).nq;
+  return up ? blockIdx.y : nkt - 1 - blockIdx.y;
 }
 
 template <int D, bool CAUSAL, bool SOFTCAP, bool BAND>
-__global__ void __launch_bounds__(KvGeom<D>::THREADS, KvGeom<D>::MIN_BLOCKS)
-    flash_bwd_dkdv_kernel(const Args a, bf16* __restrict__ dk, bf16* __restrict__ dv) {
+__global__ void __launch_bounds__(KvGeom<D>::THREADS, 1)
+    flash_bwd_dkdv_kernel(const Args a, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                          float* __restrict__ ws, int chunk, int splits) {
   using GM = KvGeom<D>;
-  constexpr int ST = GM::ST;
-  constexpr int KT = D / 16;
-  constexpr int DP = GM::DP;
-  constexpr int NP = DP / 8;  // n-tiles of this warp's columns
+  constexpr int BKV = GM::BKV, BQ = GM::BQ, ST = GM::ST, PT = GM::PT, QW = GM::QW, DW = GM::DW;
+  constexpr int WC = GM::WC, STAGES = GM::STAGES, THREADS = GM::THREADS;
+  constexpr int NQ = QW / 8;  // n-tiles of a warp's S^T / dP^T
+  constexpr int ND = DW / 8;  // n-tiles of a warp's dK / dV
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);           // (BKV, ST)
-  bf16* v_s = k_s + BKV * ST;                              // (BKV, ST)
-  bf16* q_s = v_s + BKV * ST;                              // (BQ, ST)
-  bf16* do_s = q_s + BQ * ST;                              // (BQ, ST)
-  float* lse_s = reinterpret_cast<float*>(do_s + BQ * ST);  // (BQ,)
-  float* dl_s = lse_s + BQ;                                // (BQ,)
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);              // (BKV, ST)
+  bf16* v_s = k_s + BKV * ST;                                 // (BKV, ST)
+  unsigned char* stages = reinterpret_cast<unsigned char*>(v_s + BKV * ST);
+  bf16* p_s = reinterpret_cast<bf16*>(stages + STAGES * GM::STAGE);  // (BKV, PT) P^T
+  bf16* ds_s = p_s + BKV * PT;                                       // (BKV, PT) dS^T
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ds_s + BKV * PT);
 
   const Options o = a.opt;
-  const int Sq = a.Sq, Skv = a.Skv;
-  const int kt = blockIdx.y, kvh = blockIdx.x, b = blockIdx.z;  // the first KV tiles (the longest walks) first
-  const int G = a.Hq / a.Hkv;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rg = warp % KV_WARPS, part = warp / KV_WARPS;  // row group; column part (D = 256)
+  const int Sq = a.Sq, Skv = a.Skv, G = a.Hq / a.Hkv;
+  const int split = blockIdx.x % splits, kvh = (blockIdx.x / splits) % a.Hkv;
+  const int b = blockIdx.x / (splits * a.Hkv);
+  const int kt = kv_tile(a, BKV, BQ, CAUSAL, BAND);
+  const Walk wk = kv_walk(a, b, kt, BKV, BQ, CAUSAL, BAND);
+  const int steps = G * wk.nq;  // (head, q tile) steps, head-major
+  const int nsplit = walk_splits(steps, chunk);
+  if (split >= nsplit) return;
+  const int t_begin = split * chunk;
+  const int n_steps = max(0, min(steps, t_begin + chunk) - t_begin);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
+  const int wr = warp / WC, wc = warp % WC;  // row group; the warp's q / D columns in it
   const int j0 = kt * BKV;
+  const int w0 = j0 + wr * 32;  // the row group's first KV row
   const int len = min(a.lengths[b], Skv);
   const int qoff = a.q_offsets[b];
-  const int w0 = j0 + rg * 16;             // this warp's first KV row
-  const int ja = w0 + g, jb = w0 + g + 8;  // this lane's two KV rows
-  const int W = o.window, SK = o.sinks;    // read only with BAND
+  const int W = o.window, SK = o.sinks;  // read only with BAND
+  const size_t kv_base = ((size_t)b * a.Hkv + kvh) * (size_t)Skv * D;
 
-  const size_t kv_base = ((size_t)b * a.Hkv + kvh) * (size_t)Skv * D + (size_t)j0 * D;
-  stage_rows<D, ST>(k_s, a.k + kv_base, BKV, Skv - j0, threadIdx.x, blockDim.x);
-  stage_rows<D, ST>(v_s, a.v + kv_base, BKV, Skv - j0, threadIdx.x, blockDim.x);
-
-  float dk_acc[NP][4], dv_acc[NP][4];
+  float dk_acc[2][ND][4], dv_acc[2][ND][4];
 #pragma unroll
-  for (int n = 0; n < NP; ++n) {
-    dk_acc[n][0] = dk_acc[n][1] = dk_acc[n][2] = dk_acc[n][3] = 0.f;
-    dv_acc[n][0] = dv_acc[n][1] = dv_acc[n][2] = dv_acc[n][3] = 0.f;
-  }
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      dk_acc[mt][n][0] = dk_acc[mt][n][1] = dk_acc[mt][n][2] = dk_acc[mt][n][3] = 0.f;
+      dv_acc[mt][n][0] = dv_acc[mt][n][1] = dv_acc[mt][n][2] = dv_acc[mt][n][3] = 0.f;
+    }
 
-  // q rows in band: none past the valid length; causal, from the first row
-  // whose position reaches this tile; with a window, up to the last row
-  // whose band reaches the tile's last row, unless the tile holds sinks
-  const int i_begin = CAUSAL ? max(0, j0 - qoff) / BQ * BQ : 0;
-  int i_end = j0 < len ? Sq : 0;
-  if (BAND && j0 >= SK) i_end = min(i_end, max(0, j0 + BKV - 1 + W - 1 - qoff + 1));
-  for (int h = 0; h < G; ++h) {
-    const size_t row0 = ((size_t)b * a.Hq + kvh * G + h) * (size_t)Sq;
-    for (int i0 = i_begin; i0 < i_end; i0 += BQ) {
-      __syncthreads();  // the previous tile's readers are done (first pass: K/V staged)
-      stage_rows<D, ST>(q_s, a.q + (row0 + i0) * D, BQ, Sq - i0, threadIdx.x, blockDim.x);
-      stage_rows<D, ST>(do_s, a.dout + (row0 + i0) * D, BQ, Sq - i0, threadIdx.x, blockDim.x);
-      for (int i = threadIdx.x; i < BQ; i += blockDim.x) {
-        lse_s[i] = i0 + i < Sq ? a.lse[row0 + i0 + i] : LSE_EMPTY;
-        dl_s[i] = i0 + i < Sq ? a.delta[row0 + i0 + i] : 0.f;
+  if (n_steps > 0) {
+    if (tid == 0) {
+#pragma unroll
+      for (int s = 0; s < STAGES; ++s) mbar_init(&bars[s], THREADS);
+    }
+    __syncthreads();
+    // the block's K/V rows (past Skv zero-filled), covered by the first stage's barrier
+#pragma unroll
+    for (int c = 0; c < BKV * D / 8 / THREADS; ++c) {
+      const int i = tid + c * THREADS;
+      const int row = i / (D / 8), col = (i % (D / 8)) * 8;
+      const bool ok = j0 + row < Skv;
+      const size_t off = kv_base + (ok ? (size_t)(j0 + row) * D + col : 0);
+      cp_async16(k_s + row * ST + col, a.k + off, ok);
+      cp_async16(v_s + row * ST + col, a.v + off, ok);
+    }
+    // Fill a stage with step `step`'s Q, dO, LSE and delta rows (rows past Sq
+    // zero-filled), then arrive on its barrier.
+    auto issue = [&](int step, int stage) {
+      const int h = step / wk.nq, i0 = (wk.qt0 + step % wk.nq) * BQ;
+      const size_t row0 = ((size_t)b * a.Hq + kvh * G + h) * (size_t)Sq + i0;
+      bf16* qs = reinterpret_cast<bf16*>(stages + stage * GM::STAGE);
+      bf16* dos = qs + BQ * ST;
+      float* ls = reinterpret_cast<float*>(dos + BQ * ST);
+#pragma unroll
+      for (int c = 0; c < BQ * D / 8 / THREADS; ++c) {
+        const int i = tid + c * THREADS;
+        const int row = i / (D / 8), col = (i % (D / 8)) * 8;
+        const bool ok = i0 + row < Sq;
+        const size_t off = ok ? (row0 + row) * D + col : 0;
+        cp_async16(qs + row * ST + col, a.q + off, ok);
+        cp_async16(dos + row * ST + col, a.dout + off, ok);
       }
-      __syncthreads();
+      if (tid < 2 * BQ) {  // the LSE (threads 0..BQ-1), then delta
+        const int r = tid % BQ;
+        const bool ok = i0 + r < Sq;
+        cp_async4(ls + tid, (tid < BQ ? a.lse : a.delta) + (ok ? row0 + r : 0), ok);
+      }
+      mbar_arrive_cp_async(&bars[stage]);
+    };
+    for (int s = 0; s < STAGES && s < n_steps; ++s) issue(t_begin + s, s);
 
+    // the lane's ldmatrix addresses (bytes): K, V, P^T, dS^T, and Q / dO of
+    // stage 0 as S^T's B operand (qb0) and as dK's (qv0)
+    constexpr int E = sizeof(bf16);
+    const uint32_t kp = smem_u32(k_s + (wr * 32 + a_row(lane)) * ST + a_col(lane));
+    const uint32_t vp = kp + BKV * ST * E;
+    const uint32_t pp = smem_u32(p_s + (wr * 32 + a_row(lane)) * PT + a_col(lane));
+    const uint32_t dsp = pp + BKV * PT * E;
+    const uint32_t qb0 = smem_u32(stages) + ((wc * QW + b_row(lane)) * ST + b_col(lane)) * E;
+    const uint32_t qv0 = smem_u32(stages) + (a_row(lane) * ST + wc * DW + a_col(lane)) * E;
+    for (int it = 0; it < n_steps; ++it) {
+      const int stage = it % STAGES;
+      const uint32_t par = (it / STAGES) & 1;
+      const int i0 = (wk.qt0 + (t_begin + it) % wk.nq) * BQ;
       const int i_last = min(i0 + BQ, Sq) - 1;
-      if (w0 >= len || (CAUSAL && qoff + i_last < w0)) continue;  // warp-uniform
-      if (BAND && w0 >= SK && qoff + i0 > w0 + 15 + W - 1) continue;  // the tile is past the warp's band
-#pragma unroll 1
-      for (int c = 0; c < BQ / 16; ++c) {  // 16 q rows at a time
-        float s[2][4], dp[2][4];
+      // Every thread waits for the stage, also where its row group skips the
+      // step: the walk can hold a step that no row group takes (a band or a
+      // q offset that ends inside the KV tile), and a phase nobody waited on
+      // could still have copies in flight when the stage is refilled.
+      mbar_wait(&bars[stage], par);
+      // the same for the row group's warps: it has rows below the length,
+      // the q tile reaches its first row (causal) and is not past its band
+      if (w0 < len && (!CAUSAL || qoff + i_last >= w0) &&
+          (!BAND || w0 < SK || qoff + i0 <= w0 + 31 + W - 1)) {
+        const float* ls = reinterpret_cast<const float*>(stages + stage * GM::STAGE + 2 * BQ * ST * E);
+        const float* dls = ls + BQ;
+
+        // S^T = K Q^T and dP^T = V dO^T: the row group's 32 KV rows (each K /
+        // V fragment serves the warp's QW q columns, each Q / dO fragment its
+        // two m-tiles), the q fragments a step ahead
+        float s[2][NQ][4], dp[2][NQ][4];
 #pragma unroll
-        for (int nn = 0; nn < 2; ++nn) {
-          s[nn][0] = s[nn][1] = s[nn][2] = s[nn][3] = 0.f;
-          dp[nn][0] = dp[nn][1] = dp[nn][2] = dp[nn][3] = 0.f;
-        }
+        for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-        for (int kq = 0; kq < KT; ++kq) {
-          uint32_t ka[4], va[4];
-          load_a(ka, k_s + rg * 16 * ST + kq * 16, ST, g, t);
-          load_a(va, v_s + rg * 16 * ST + kq * 16, ST, g, t);
+          for (int n = 0; n < NQ; ++n) {
+            s[mt][n][0] = s[mt][n][1] = s[mt][n][2] = s[mt][n][3] = 0.f;
+            dp[mt][n][0] = dp[mt][n][1] = dp[mt][n][2] = dp[mt][n][3] = 0.f;
+          }
+        const uint32_t qp = qb0 + stage * GM::STAGE;
+        const uint32_t op = qp + BQ * ST * E;
 #pragma unroll
-          for (int nn = 0; nn < 2; ++nn) {
-            const bf16* qrow = q_s + (c * 16 + nn * 8 + g) * ST + kq * 16 + 2 * t;
-            const bf16* drow = do_s + (c * 16 + nn * 8 + g) * ST + kq * 16 + 2 * t;
-            mma_bf16(s[nn], ka, ld32(qrow), ld32(qrow + 8));   // S^T = K Q^T
-            mma_bf16(dp[nn], va, ld32(drow), ld32(drow + 8));  // dP^T = V dO^T
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t ka[2][4], va[2][4], qb[2][4], db[2][4];
+          ldmatrix_x4(ka[0], kp + kk * 16 * E);
+          ldmatrix_x4(ka[1], kp + (16 * ST + kk * 16) * E);
+          ldmatrix_x4(va[0], vp + kk * 16 * E);
+          ldmatrix_x4(va[1], vp + (16 * ST + kk * 16) * E);
+          ldmatrix_x4(qb[0], qp + kk * 16 * E);
+          ldmatrix_x4(db[0], op + kk * 16 * E);
+#pragma unroll
+          for (int np = 0; np < QW / 16; ++np) {
+            if (np + 1 < QW / 16) {
+              ldmatrix_x4(qb[(np + 1) & 1], qp + ((np + 1) * 16 * ST + kk * 16) * E);
+              ldmatrix_x4(db[(np + 1) & 1], op + ((np + 1) * 16 * ST + kk * 16) * E);
+            }
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              mma_bf16(s[mt][2 * np], ka[mt], qb[np & 1][0], qb[np & 1][1]);
+              mma_bf16(s[mt][2 * np + 1], ka[mt], qb[np & 1][2], qb[np & 1][3]);
+              mma_bf16(dp[mt][2 * np], va[mt], db[np & 1][0], db[np & 1][1]);
+              mma_bf16(dp[mt][2 * np + 1], va[mt], db[np & 1][2], db[np & 1][3]);
+            }
           }
         }
-        // P^T and dS^T: rows are KV positions, columns q rows
+        // P^T and dS^T (rows KV positions, columns q rows), rounded to bf16
+        // into shared memory for the row group's warps; the mask tests only
+        // where the step crosses Sq, the length, the diagonal or the band of
+        // the row group's rows
+        const bool need_mask = i0 + BQ > Sq || w0 + 32 > len || (CAUSAL && w0 + 31 > qoff + i0) ||
+                               (BAND && w0 <= qoff + i0 + BQ - 1 - W);
+        auto p_ds_tile = [&](auto mask) {
+          constexpr bool M = decltype(mask)::value;
 #pragma unroll
-        for (int nn = 0; nn < 2; ++nn) {
+          for (int n = 0; n < NQ; ++n) {
+            const int qi = wc * QW + n * 8 + 2 * t;  // the lane's first q column in the tile
+            const float lq[2] = {ls[qi], ls[qi + 1]}, dl[2] = {dls[qi], dls[qi + 1]};
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int qi = c * 16 + nn * 8 + 2 * t + (e & 1);
-            const int i = i0 + qi;
-            p_ds<CAUSAL, SOFTCAP, BAND>(s[nn][e], dp[nn][e], i < Sq, e < 2 ? ja : jb, qoff + i, len,
-                                        lse_s[qi], dl_s[qi], o, s[nn][e], dp[nn][e]);
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int i = i0 + qi + (e & 1);
+                const int j = w0 + mt * 16 + g + (e >= 2 ? 8 : 0);
+                p_ds<CAUSAL, SOFTCAP, BAND, M>(s[mt][n][e], dp[mt][n][e], i < Sq, j, qoff + i, len,
+                                               lq[e & 1], dl[e & 1], o, s[mt][n][e], dp[mt][n][e]);
+              }
+          }
+        };
+        if (need_mask) p_ds_tile(std::true_type{});
+        else p_ds_tile(std::false_type{});
+#pragma unroll
+        for (int n = 0; n < NQ; ++n) {
+          const int qi = wc * QW + n * 8 + 2 * t;
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            const int r = (wr * 32 + mt * 16 + g) * PT + qi;
+            *reinterpret_cast<uint32_t*>(p_s + r) = pack_bf16(s[mt][n][0], s[mt][n][1]);
+            *reinterpret_cast<uint32_t*>(p_s + r + 8 * PT) = pack_bf16(s[mt][n][2], s[mt][n][3]);
+            *reinterpret_cast<uint32_t*>(ds_s + r) = pack_bf16(dp[mt][n][0], dp[mt][n][1]);
+            *reinterpret_cast<uint32_t*>(ds_s + r + 8 * PT) = pack_bf16(dp[mt][n][2], dp[mt][n][3]);
           }
         }
-        const uint32_t pf[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
-                                pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
-        const uint32_t df[4] = {pack_bf16(dp[0][0], dp[0][1]), pack_bf16(dp[0][2], dp[0][3]),
-                                pack_bf16(dp[1][0], dp[1][1]), pack_bf16(dp[1][2], dp[1][3])};
-        mma_a_by_rows<DP>(dv_acc, pf, do_s + c * 16 * ST + part * DP, ST, lane);  // dV += P^T dO
-        mma_a_by_rows<DP>(dk_acc, df, q_s + c * 16 * ST + part * DP, ST, lane);   // dK += dS^T Q
+        named_barrier(1 + wr, 32 * WC);
+
+        // dV += P^T dO and dK += dS^T Q on the warp's DW columns: each dO / Q
+        // fragment serves both m-tiles
+        const uint32_t qv = qv0 + stage * GM::STAGE;
+        const uint32_t ob = qv + BQ * ST * E;
+#pragma unroll
+        for (int kq = 0; kq < BQ / 16; ++kq) {
+          uint32_t pa[2][4], sa[2][4], bo[2][4], bq_[2][4];
+          ldmatrix_x4(pa[0], pp + kq * 16 * E);
+          ldmatrix_x4(pa[1], pp + (16 * PT + kq * 16) * E);
+          ldmatrix_x4(sa[0], dsp + kq * 16 * E);
+          ldmatrix_x4(sa[1], dsp + (16 * PT + kq * 16) * E);
+          ldmatrix_x4_trans(bo[0], ob + kq * 16 * ST * E);
+          ldmatrix_x4_trans(bq_[0], qv + kq * 16 * ST * E);
+#pragma unroll
+          for (int np = 0; np < DW / 16; ++np) {
+            if (np + 1 < DW / 16) {
+              ldmatrix_x4_trans(bo[(np + 1) & 1], ob + (kq * 16 * ST + (np + 1) * 16) * E);
+              ldmatrix_x4_trans(bq_[(np + 1) & 1], qv + (kq * 16 * ST + (np + 1) * 16) * E);
+            }
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              mma_bf16(dv_acc[mt][2 * np], pa[mt], bo[np & 1][0], bo[np & 1][1]);
+              mma_bf16(dv_acc[mt][2 * np + 1], pa[mt], bo[np & 1][2], bo[np & 1][3]);
+              mma_bf16(dk_acc[mt][2 * np], sa[mt], bq_[np & 1][0], bq_[np & 1][1]);
+              mma_bf16(dk_acc[mt][2 * np + 1], sa[mt], bq_[np & 1][2], bq_[np & 1][3]);
+            }
+          }
+        }
+      }
+      __syncthreads();  // every reader of this stage and of P^T / dS^T is done: refill
+      if (it + STAGES < n_steps) issue(t_begin + it + STAGES, stage);
+    }
+    // every stage's last phase has completed before the shared memory is released
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s)
+      if (n_steps > s) mbar_wait(&bars[s], ((n_steps - 1 - s) / STAGES) & 1);
+  }
+
+  // One split: bf16 dk (scaled) and dv. Several: this split's fp32 sums to
+  // the workspace, (splits, 2, B, Hkv, Skv, D), summed by flash_bwd_dkdv_sum.
+  const bool direct = nsplit == 1;
+  const size_t plane = (size_t)a.B * a.Hkv * Skv * D;
+  float* ws_dk = ws + (size_t)split * 2 * plane;
+  float* ws_dv = ws_dk + plane;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int j = w0 + mt * 16 + g + hf * 8;
+      if (j >= Skv) continue;
+      const size_t rowo = kv_base + (size_t)j * D + wc * DW + 2 * t;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        const float k0 = dk_acc[mt][n][2 * hf], k1 = dk_acc[mt][n][2 * hf + 1];
+        const float v0 = dv_acc[mt][n][2 * hf], v1 = dv_acc[mt][n][2 * hf + 1];
+        if (direct) {
+          *reinterpret_cast<__nv_bfloat162*>(dk + rowo + n * 8) =
+              __floats2bfloat162_rn(k0 * o.sm_scale, k1 * o.sm_scale);
+          *reinterpret_cast<__nv_bfloat162*>(dv + rowo + n * 8) = __floats2bfloat162_rn(v0, v1);
+        } else {
+          *reinterpret_cast<float2*>(ws_dk + rowo + n * 8) = make_float2(k0, k1);
+          *reinterpret_cast<float2*>(ws_dv + rowo + n * 8) = make_float2(v0, v1);
+        }
       }
     }
   }
+}
 
-  const size_t out_base = ((size_t)b * a.Hkv + kvh) * (size_t)Skv * D;
+// The split walks' second pass: for each KV row of a tile walked in more
+// than one split, dk = sm_scale * (((0 + w[0]) + w[1]) + ...) and dv likewise,
+// summed in split order in fp32 and rounded once to bf16; 8 columns a
+// thread. Rows of tiles walked in one split were written by their block.
+template <int D>
+__global__ void __launch_bounds__(256)
+    flash_bwd_dkdv_sum(const Args a, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                       const float* __restrict__ ws, int chunk) {
+  using GM = KvGeom<D>;
+  const size_t plane = (size_t)a.B * a.Hkv * a.Skv * D;
+  const bool band = a.opt.window < NO_WINDOW;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < plane / 8;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t e = i * 8;
+    const int row = static_cast<int>((e / D) % a.Skv);
+    const int b = static_cast<int>(e / ((size_t)a.Hkv * a.Skv * D));
+    const Walk wk = kv_walk(a, b, row / GM::BKV, GM::BKV, GM::BQ, a.causal, band);
+    const int nsplit = walk_splits((a.Hq / a.Hkv) * wk.nq, chunk);
+    if (nsplit == 1) continue;
+    float acc[2][8];
 #pragma unroll
-  for (int n = 0; n < NP; ++n) {
-    const int c = part * DP + n * 8 + 2 * t;
-    if (ja < Skv) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + out_base + (size_t)ja * D + c) =
-          __floats2bfloat162_rn(dk_acc[n][0] * o.sm_scale, dk_acc[n][1] * o.sm_scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + out_base + (size_t)ja * D + c) =
-          __floats2bfloat162_rn(dv_acc[n][0], dv_acc[n][1]);
+    for (int w = 0; w < 2; ++w)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[w][c] = 0.f;
+    for (int s = 0; s < nsplit; ++s) {
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+        const float4* p = reinterpret_cast<const float4*>(ws + ((size_t)s * 2 + w) * plane + e);
+        const float4 x = p[0], y = p[1];
+        acc[w][0] += x.x, acc[w][1] += x.y, acc[w][2] += x.z, acc[w][3] += x.w;
+        acc[w][4] += y.x, acc[w][5] += y.y, acc[w][6] += y.z, acc[w][7] += y.w;
+      }
     }
-    if (jb < Skv) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + out_base + (size_t)jb * D + c) =
-          __floats2bfloat162_rn(dk_acc[n][2] * o.sm_scale, dk_acc[n][3] * o.sm_scale);
-      *reinterpret_cast<__nv_bfloat162*>(dv + out_base + (size_t)jb * D + c) =
-          __floats2bfloat162_rn(dv_acc[n][2], dv_acc[n][3]);
+    uint4 pk, pv;
+    uint32_t* k32 = reinterpret_cast<uint32_t*>(&pk);
+    uint32_t* v32 = reinterpret_cast<uint32_t*>(&pv);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      k32[c] = pack_bf16(acc[0][2 * c] * a.opt.sm_scale, acc[0][2 * c + 1] * a.opt.sm_scale);
+      v32[c] = pack_bf16(acc[1][2 * c], acc[1][2 * c + 1]);
     }
+    *reinterpret_cast<uint4*>(dk + e) = pk;
+    *reinterpret_cast<uint4*>(dv + e) = pv;
   }
 }
 
@@ -538,16 +749,27 @@ struct DqLaunch {
 };
 
 struct DkdvLaunch {
-  void *dk, *dv;
+  void *dk, *dv, *ws;
+  int chunk, splits;
   cudaStream_t stream;
   template <int D, bool CAUSAL, bool SOFTCAP, bool BAND>
   cudaError_t run(const Args& a) const {
-    constexpr int smem = dkdv_smem_bytes<D>();
+    using GM = KvGeom<D>;
+    if (chunk < 1 || splits < 1 || (splits > 1 && ws == nullptr)) return cudaErrorInvalidValue;
     auto kernel = flash_bwd_dkdv_kernel<D, CAUSAL, SOFTCAP, BAND>;
-    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(GM::SMEM));
     if (e != cudaSuccess) return e;
-    dim3 grid(a.Hkv, (a.Skv + BKV - 1) / BKV, a.B);
-    kernel<<<grid, KvGeom<D>::THREADS, smem, stream>>>(a, static_cast<bf16*>(dk), static_cast<bf16*>(dv));
+    // x: (split, KV head, sequence); y: KV tiles, in kv_tile's order
+    dim3 grid(splits * a.Hkv * a.B, (a.Skv + GM::BKV - 1) / GM::BKV);
+    kernel<<<grid, GM::THREADS, GM::SMEM, stream>>>(a, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                                                     static_cast<float*>(ws), chunk, splits);
+    e = cudaGetLastError();
+    if (e != cudaSuccess || splits == 1) return e;
+    const size_t n8 = (size_t)a.B * a.Hkv * a.Skv * D / 8;
+    const int blocks = static_cast<int>((n8 + 255) / 256 < 4096 ? (n8 + 255) / 256 : 4096);
+    flash_bwd_dkdv_sum<D><<<blocks, 256, 0, stream>>>(a, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                                                       static_cast<const float*>(ws), chunk);
     return cudaGetLastError();
   }
 };
@@ -613,15 +835,38 @@ int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout, 
   return static_cast<int>(by_dim(D, a, DqLaunch{dq, static_cast<cudaStream_t>(stream)}));
 }
 
-// The same inputs; dk, dv (B, Hkv, Skv, D) bf16, contiguous.
+// The same inputs; dk, dv (B, Hkv, Skv, D) bf16, contiguous. Each KV tile's
+// q walk is cut into pieces of `chunk` (head, q tile) steps, one block each,
+// for at most `splits` pieces (ops/flash_bwd.py's dkdv_split_plan); with
+// splits > 1, ws is an fp32 workspace of (splits, 2, B, Hkv, Skv, D).
 int flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                    const void* delta, const void* lengths, const void* q_offsets, void* dk,
-                   void* dv, int B, int Hq, int Hkv, int Sq, int Skv, int D, int causal,
-                   float sm_scale, float scale_log2, int window, int sinks, float softcap,
-                   void* stream) {
+                   void* dv, void* ws, int B, int Hq, int Hkv, int Sq, int Skv, int D, int causal,
+                   int chunk, int splits, float sm_scale, float scale_log2, int window, int sinks,
+                   float softcap, void* stream) {
   const Args a = make_args(q, k, v, dout, lse, delta, lengths, q_offsets, B, Hq, Hkv, Sq, Skv, causal,
                            sm_scale, scale_log2, window, sinks, softcap);
-  return static_cast<int>(by_dim(D, a, DkdvLaunch{dk, dv, static_cast<cudaStream_t>(stream)}));
+  return static_cast<int>(
+      by_dim(D, a, DkdvLaunch{dk, dv, ws, chunk, splits, static_cast<cudaStream_t>(stream)}));
+}
+
+// The dk/dv kernel's tiles at head_dim D: {KV rows a block, q rows a step,
+// dynamic shared memory bytes}; 0 for a head_dim it does not take.
+int flash_bwd_dkdv_geometry(int D, int* out) {
+  switch (D) {
+#define SFA_GEOMETRY(DD)                                  \
+  case DD:                                                \
+    out[0] = KvGeom<DD>::BKV;                             \
+    out[1] = KvGeom<DD>::BQ;                              \
+    out[2] = static_cast<int>(KvGeom<DD>::SMEM);          \
+    return 0;
+    SFA_GEOMETRY(64)
+    SFA_GEOMETRY(128)
+    SFA_GEOMETRY(256)
+#undef SFA_GEOMETRY
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

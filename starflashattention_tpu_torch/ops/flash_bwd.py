@@ -20,7 +20,12 @@ t^2``. ``delta`` is a torch reduction (:func:`bwd_delta`), as XLA computes
 it outside Pallas; then :func:`flash_bwd_dq` and :func:`flash_bwd_dkdv`
 launch the two kernels of ``csrc/flash_bwd.cu`` (which replace the TPU
 kernels ``_dq_kernel`` and ``_dkdv_kernel``) on CUDA tensors, each counting
-its launches, and run their plain versions on CPU tensors.
+its launches, and run their plain versions on CPU tensors. The dk/dv kernel
+cuts each KV tile's walk of (head, q tile) steps into pieces across blocks
+when the static shapes call for it (:func:`dkdv_split_plan`, on the built
+kernel's tiles, :func:`dkdv_geometry`; the walk's twins :func:`dkdv_walk`
+and :func:`dkdv_split_steps`), and a second pass adds the pieces' fp32 sums
+in a fixed order.
 
 :func:`flash_attention` is the training entry: a ``torch.autograd.Function``
 whose forward is ``flash_prefill(return_lse=True)`` and whose backward is
@@ -33,6 +38,10 @@ exact zeros. The variants with ``causal=False`` raise
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+import math
 
 import torch
 
@@ -47,8 +56,81 @@ _ARGS = [_build.P] * 8
 _OPTIONS = [_build.F, _build.F, _build.I, _build.I, _build.F, _build.P]  # scales, window, sinks, cap, stream
 _SIGNATURES = {
     "flash_bwd_dq": _ARGS + [_build.P] + [_build.I] * 7 + _OPTIONS,
-    "flash_bwd_dkdv": _ARGS + [_build.P, _build.P] + [_build.I] * 7 + _OPTIONS,
+    "flash_bwd_dkdv": _ARGS + [_build.P] * 3 + [_build.I] * 9 + _OPTIONS,
+    "flash_bwd_dkdv_geometry": [_build.I, _build.P],
 }
+
+DKDV_MIN_CHUNK = 8  # the fewest (head, q tile) steps a split piece takes
+
+
+def dkdv_walk(kt, *, bkv, bq, sq, length, q_offset, causal, window=None, sinks=0) -> tuple[int, int]:
+    """The q walk of KV tile ``kt`` (rows ``kt * bkv`` on) of one sequence
+    in the dk/dv kernel -> (first q tile, number of q tiles): the q tiles in
+    band (JAX ``flash_bwd._in_band``): none when the tile starts at or past
+    ``length``; causal, from the first q tile whose last row reaches the
+    tile; with a ``window``, up to the last q tile whose first row's band
+    reaches the tile's last row, unless the tile holds sinks (``sinks`` is
+    the kernel's bound, ``max(sinks - kv_offset, 0)``). Twin of
+    ``csrc/flash_bwd.cu``'s ``kv_walk``."""
+    j0 = kt * bkv
+    i_begin = max(0, j0 - q_offset) // bq * bq if causal else 0
+    i_end = sq if j0 < length else 0
+    if window is not None and j0 >= sinks:
+        i_end = min(i_end, max(0, j0 + bkv - 1 + window - 1 - q_offset + 1))
+    return i_begin // bq, -(-(i_end - i_begin) // bq) if i_end > i_begin else 0
+
+
+def dkdv_walk_splits(steps: int, chunk: int) -> int:
+    """Pieces of a walk of ``steps`` (head, q tile) steps, ``chunk`` a
+    piece; 1 for an empty walk (its block writes the zeros)."""
+    return -(-steps // chunk) if steps else 1
+
+
+def dkdv_split_steps(nq: int, g: int, chunk: int, split: int) -> list[tuple[int, int]]:
+    """The steps that piece ``split`` of a KV tile's walk of ``nq`` q tiles
+    takes: (head in the group, q tile offset from the walk's first), in the
+    kernel's order (head-major); [] past the tile's pieces."""
+    steps = g * nq
+    if split >= dkdv_walk_splits(steps, chunk):
+        return []
+    return [(t // nq, t % nq) for t in range(split * chunk, min(steps, (split + 1) * chunk))]
+
+
+@functools.lru_cache(maxsize=256)
+def dkdv_split_plan(b, hkv, g, sq, skv, causal, window, sinks, sms, bkv, bq) -> tuple[int, int]:
+    """(chunk, splits) of a dk/dv launch on tiles of ``bkv`` KV rows and
+    ``bq`` q rows (:func:`dkdv_geometry`), from the static shapes alone: the
+    KV tiles' walks estimated with full lengths and the queries at the
+    keys' last ``sq`` positions (a training step's, where ``sq == skv``).
+    When the longest walk is no longer than the steps a block slot takes on
+    average (``sms`` slots, one block an SM), the blocks balance unsplit:
+    one piece of every walk (chunk = the longest possible walk). Else each
+    piece takes at most half a slot's average, and ``splits`` is the most
+    pieces any walk of these shapes can need."""
+    full = g * -(-sq // bq)
+    walks = [g * dkdv_walk(kt, bkv=bkv, bq=bq, sq=sq, length=skv, q_offset=max(skv - sq, 0),
+                           causal=causal, window=window, sinks=sinks)[1] for kt in range(-(-skv // bkv))]
+    per_slot = b * hkv * sum(walks) / sms
+    if max(walks, default=0) <= per_slot:
+        return max(full, 1), 1
+    chunk = max(math.ceil(per_slot / 2), DKDV_MIN_CHUNK)
+    return chunk, dkdv_walk_splits(full, chunk)
+
+
+@functools.cache
+def dkdv_geometry(d: int) -> tuple[int, int, int]:
+    """(KV rows a block, q rows a step, dynamic shared memory bytes) of the
+    built dk/dv kernel at head_dim ``d`` (loads the library)."""
+    lib = _build.load("flash_bwd", _SIGNATURES)
+    out = (ctypes.c_int * 3)()
+    _build.check(lib, lib.flash_bwd_dkdv_geometry(d, out), "flash_bwd_dkdv_geometry")
+    return tuple(out)
+
+
+def dkdv_longest_walk(q: torch.Tensor, k: torch.Tensor) -> int:
+    """The (head, q tile) steps of the longest walk a dk/dv launch can have
+    on the built kernel's tiles: every q tile of the group's heads."""
+    return q.shape[1] // k.shape[1] * -(-q.shape[2] // dkdv_geometry(q.shape[3])[1])
 
 
 def _group_sum(x: torch.Tensor, hkv: int) -> torch.Tensor:
@@ -121,15 +203,15 @@ def _card_args(what, q, k, v, lse, do, delta, lengths, q_offsets):
     return [x.contiguous() for x in (q, k, v, do, lse, delta, lengths, q_offsets)]
 
 
-def _launch(entry, ins, outs, causal, sm_scale, opts):
+def _launch(entry, ins, outs, causal, sm_scale, opts, split=()):
     q, k = ins[0], ins[1]
     b, hq, sq, d = q.shape
     _, hkv, skv, _ = k.shape
     lib = _build.load("flash_bwd", _SIGNATURES)
     with torch.cuda.device(q.device):
-        err = getattr(lib, entry)(*[_build.ptr(x) for x in ins + outs], b, hq, hkv, sq, skv, d,
-                                  int(causal), *scales(d, sm_scale), *kernel_options(**opts),
-                                  _build.stream_ptr(q.device))
+        err = getattr(lib, entry)(*[None if x is None else _build.ptr(x) for x in ins + outs],
+                                  b, hq, hkv, sq, skv, d, int(causal), *split, *scales(d, sm_scale),
+                                  *kernel_options(**opts), _build.stream_ptr(q.device))
     _build.check(lib, err, entry)
 
 
@@ -158,18 +240,45 @@ def flash_bwd_dkdv(q, k, v, lse, do, delta, lengths=None, q_offsets=None, *, cau
                    sm_scale=None, window=None, sinks=0, softcap=None,
                    kv_offset=0) -> tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) (B, Hkv, Skv, D) in k's / v's dtype: the dk/dv kernel of
-    ``csrc/flash_bwd.cu`` on CUDA tensors (replaces ``_dkdv_kernel``),
-    :func:`flash_bwd_dkdv_plain` on CPU tensors."""
+    ``csrc/flash_bwd.cu`` on CUDA tensors (replaces ``_dkdv_kernel``), its
+    walks split as :func:`dkdv_split_plan` says; :func:`flash_bwd_dkdv_plain`
+    on CPU tensors."""
     opts = prefill_options(window, sinks, softcap, kv_offset, causal)
     if q.device.type == "cpu":
         return flash_bwd_dkdv_plain(q, k, v, lse, do, delta, lengths, q_offsets, causal=causal,
                                     sm_scale=sm_scale, **opts)
+    b, hq, sq, d = q.shape
+    _, hkv, skv, _ = k.shape
+    check_card_inputs("flash_bwd_dkdv", q, k, v)  # a head_dim the kernel takes, before its geometry
+    bkv, bq, _ = dkdv_geometry(d)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = dkdv_split_plan(b, hkv, hq // hkv, sq, skv, bool(causal), opts["window"], opts["sinks"], sms, bkv, bq)
+    return flash_bwd_dkdv_split(q, k, v, lse, do, delta, lengths, q_offsets, plan=plan, causal=causal,
+                                sm_scale=sm_scale, window=window, sinks=sinks, softcap=softcap,
+                                kv_offset=kv_offset)
+
+
+def flash_bwd_dkdv_split(q, k, v, lse, do, delta, lengths=None, q_offsets=None, *, plan, causal=True,
+                         sm_scale=None, window=None, sinks=0, softcap=None,
+                         kv_offset=0) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_bwd_dkdv` on CUDA tensors with its walks cut as ``plan``
+    = (chunk, splits) says: pieces of ``chunk`` (head, q tile) steps, at
+    most ``splits`` a walk (``splits`` 1: every walk in one block, bf16
+    written directly; else an fp32 workspace of ``splits`` pieces and the
+    second pass). Counts its launches on :func:`flash_bwd_dkdv`."""
+    opts = prefill_options(window, sinks, softcap, kv_offset, causal)
     ins = _card_args("flash_bwd_dkdv", q, k, v, lse, do, delta, lengths, q_offsets)
     dk, dv = torch.empty_like(ins[1]), torch.empty_like(ins[2])
     if not (dk.numel() and q.numel()):
         return dk.zero_(), dv.zero_()
-    _launch("flash_bwd_dkdv", ins, [dk, dv], causal, sm_scale, opts)
+    chunk, splits = plan
+    if chunk < 1 or chunk * splits < dkdv_longest_walk(q, k):
+        raise ValueError(f"flash_bwd_dkdv: a plan of {splits} pieces of {chunk} steps does not cover the "
+                         f"longest walk, {dkdv_longest_walk(q, k)} (head, q tile) steps")
+    ws = None if splits == 1 else torch.empty((splits, 2, *k.shape), dtype=torch.float32, device=q.device)
+    _launch("flash_bwd_dkdv", ins, [dk, dv, ws], causal, sm_scale, opts, split=(chunk, splits))
     flash_bwd_dkdv.launches += 1
+    flash_bwd_dkdv.launches_split += splits > 1
     flash_bwd_dkdv.launches_kv_offset += int(kv_offset) > 0
     flash_bwd_dkdv.launches_banded += opts["window"] is not None
     return dk, dv
@@ -181,6 +290,7 @@ flash_bwd_dq.launches_banded = 0  # the launches with a window (a sliding layer'
 flash_bwd_dkdv.launches_banded = 0
 flash_bwd_dq.launches_kv_offset = 0  # the launches on a chunk past position 0 (ring context parallelism)
 flash_bwd_dkdv.launches_kv_offset = 0
+flash_bwd_dkdv.launches_split = 0  # the launches whose walks were cut into pieces (a second pass sums them)
 
 
 def flash_prefill_bwd(

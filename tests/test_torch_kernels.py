@@ -28,9 +28,12 @@ Tolerances, each against the plain twin on the same card and inputs:
 Paged tests use a shuffled page table (physical page != logical page), a
 row of length 0 and a row that fills all ``pages_per_seq`` pages.
 
-Training: K5 with the LSE (causal and not) and the two K12 kernels at G in
-{1, 4, 8} and D in {64, 128}, lengths that are no tile multiple, q offsets
-and a zero-length sequence, K12's bytes across two runs, gradients through
+Training: K5 with the LSE (causal and not) at G in {1, 2, 4, 8} and D in
+{64, 128, 256}, the two K12 kernels at G in {1, 2, 4, 8} and D in {64, 128}
+(and 256 below), lengths that are no tile multiple, q offsets and a
+zero-length sequence, K12's bytes across two runs; K12's dk/dv with each KV
+tile's q walk split across blocks and with none split; a band whose first
+tile follows 1-3 sink tiles in K5's K/V ring; gradients through
 ``flash_attention`` against autograd of the plain forward, and a bf16
 training step of a 2-layer model (launch counts, falling loss); with the
 attention variants, K5's LSE and K12 under the window, sinks and softcap
@@ -448,7 +451,8 @@ def test_append_rows_paged_kernel_moves_one_byte_rows(cuda, dtype, page_size):
     assert torch.equal(v.view(torch.uint8), v2.view(torch.uint8))
 
 
-@pytest.mark.parametrize("hq,hkv,d", [(8, 2, 128), (8, 8, 64), (16, 2, 128)])
+@pytest.mark.parametrize("hq,hkv,d", [(8, 2, 128), (8, 8, 64), (16, 2, 128), (4, 2, 64), (16, 16, 256),
+                                      (16, 2, 256)])
 def test_flash_prefill_kernel_matches_plain(cuda, hq, hkv, d):
     gen = _gen(cuda)
     q = torch.randn((2, hq, 100, d), generator=gen, device=cuda, dtype=torch.bfloat16)
@@ -703,8 +707,8 @@ def _rel_peak(out, ref):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
 def test_flash_prefill_lse_kernel_matches_plain(cuda, g, d, causal):
     """K5 with the LSE (Sq = 100 and Skv = 200, not tile multiples; q
     offsets; a zero-length row): the output as K5's other test holds it, the
@@ -725,7 +729,7 @@ def test_flash_prefill_lse_kernel_matches_plain(cuda, g, d, causal):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
 def test_flash_bwd_kernels_match_plain(cuda, g, d, causal):
     """K12 against its plain version on the same o, lse and do: the kernels
     round P and dS to bf16 before their products (as the TPU kernels do)
@@ -1029,7 +1033,8 @@ def test_d256_paged_edge_cases_match_plain(cuda, case, kv, page_size):
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
-@pytest.mark.parametrize("hq,hkv,d", [(8, 2, 128), (8, 4, 256), (4, 4, 256), (16, 2, 64)])
+@pytest.mark.parametrize("hq,hkv,d", [(8, 2, 128), (8, 4, 256), (4, 4, 256), (16, 2, 64), (8, 1, 128),
+                                      (4, 4, 64), (16, 2, 256)])
 def test_flash_prefill_variants_match_plain(cuda, variant, hq, hkv, d):
     """K5 with the variants (D 256 stages Q in shared memory); the rows
     below every chunk row's band hold NaN and change no bit."""
@@ -1134,7 +1139,8 @@ def _variant_train_inputs(cuda, hq, hkv, d, cap, sq=200, skv=512, scale=1.0):
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
-@pytest.mark.parametrize("hq,hkv,d", [(8, 2, 128), (8, 4, 256), (4, 4, 256), (16, 2, 64)])
+@pytest.mark.parametrize("hq,hkv,d", [(8, 2, 128), (8, 4, 256), (4, 4, 256), (16, 2, 64), (8, 1, 128),
+                                      (4, 4, 64), (16, 2, 256)])
 def test_flash_prefill_lse_variants_match_plain(cuda, variant, hq, hkv, d):
     """K5 with the LSE and the variants: the output within 2e-2 (P rounded
     to bf16 for PV) and bit for bit the call without the LSE; the LSE of the
@@ -1157,7 +1163,8 @@ def test_flash_prefill_lse_variants_match_plain(cuda, variant, hq, hkv, d):
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
-@pytest.mark.parametrize("hq,hkv,d", [(8, 2, 128), (8, 4, 256), (4, 4, 256), (16, 2, 64)])
+@pytest.mark.parametrize("hq,hkv,d", [(8, 2, 128), (8, 4, 256), (4, 4, 256), (16, 2, 64), (8, 1, 128),
+                                      (4, 4, 64), (16, 2, 256)])
 def test_flash_bwd_variant_kernels_match_plain(cuda, variant, hq, hkv, d):
     """K12 with the variants against its plain version on the same o, lse
     and do: 2e-2 of each gradient's peak (P and dS rounded to bf16 before
@@ -1190,7 +1197,7 @@ def test_flash_bwd_variant_kernels_match_plain(cuda, variant, hq, hkv, d):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("g", [1, 2, 8])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
 def test_flash_bwd_head_dim_256_matches_plain(cuda, g, causal):
     """K12 at head_dim 256 without options (Gemma-7B's G 1, Gemma-2's 2,
     and 8) on the ragged inputs of the D 64 / 128 test: 2e-2 of each peak,
@@ -1205,6 +1212,113 @@ def test_flash_bwd_head_dim_256_matches_plain(cuda, g, causal):
     assert float(got[0][2].abs().max()) == 0.0
     assert all(torch.equal(a, b) for a, b in zip(got, flash_bwd.flash_prefill_bwd(q, k, v, o, lse, do,
                                                                                    lengths, **kw)))
+
+
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_bwd_dkdv_split_walk_matches_plain(cuda, d, split):
+    """K12's dk/dv with each KV tile's q walk cut into pieces across blocks
+    (one KV head of 8 query heads at S 1500: a few long walks, which the
+    plan splits, summed in piece order by a second pass) and with every
+    walk in one block (B 4, 16 KV heads of 1 at S 600: enough blocks to
+    balance unsplit, bf16 written directly): 2e-2 of each peak against the
+    twin, the same bytes on two runs, and the split counted on the wrapper."""
+    b, hkv, g, s = (1, 1, 8, 1500) if split else (4, 16, 1, 600)
+    gen = _gen(cuda)
+    q, do = (torch.randn((b, hkv * g, s, d), generator=gen, device=cuda, dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((b, hkv, s, d), generator=gen, device=cuda, dtype=torch.bfloat16) for _ in range(2))
+    lengths = torch.full((b,), s - 37, dtype=torch.int32, device=cuda)
+    bkv, bq, _ = flash_bwd.dkdv_geometry(d)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    chunk, splits = flash_bwd.dkdv_split_plan(b, hkv, g, s, s, True, None, 0, sms, bkv, bq)
+    assert (splits > 1) == split
+    o, lse = flash_prefill.flash_prefill(q, k, v, lengths, return_lse=True)
+    delta = flash_bwd.bwd_delta(o, do)
+    before = flash_bwd.flash_bwd_dkdv.launches_split
+    got = flash_bwd.flash_bwd_dkdv(q, k, v, lse, do, delta, lengths)
+    assert flash_bwd.flash_bwd_dkdv.launches_split - before == int(split)
+    ref = flash_bwd.flash_bwd_dkdv_plain(q, k, v, lse, do, delta, lengths)
+    for name, a, r in zip(("dk", "dv"), got, ref):
+        assert _rel_peak(a, r) <= 2e-2, (name, _rel_peak(a, r))
+    again = flash_bwd.flash_bwd_dkdv(q, k, v, lse, do, delta, lengths)
+    assert all(torch.equal(a, r) for a, r in zip(got, again))
+    if split:  # the same walks in one block each: the twin's tolerance, and a plan too short is refused
+        full = flash_bwd.dkdv_longest_walk(q, k)
+        whole = flash_bwd.flash_bwd_dkdv_split(q, k, v, lse, do, delta, lengths, plan=(full, 1))
+        for name, a, r in zip(("dk", "dv"), whole, ref):
+            assert _rel_peak(a, r) <= 2e-2, (name, _rel_peak(a, r))
+        with pytest.raises(ValueError, match="does not cover"):
+            flash_bwd.flash_bwd_dkdv_split(q, k, v, lse, do, delta, lengths, plan=(chunk, 1))
+
+
+@pytest.mark.parametrize("case", ["band_past_length", "q_offset_before_tile"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_bwd_dkdv_steps_no_row_group_takes(cuda, d, case):
+    """Walks that hold a step no row group of the block takes, so that no
+    warp needs that ring stage's data: a window of 70 with the length 20
+    rows into the KV tile at row 128 (the walk reaches the q tile at 256
+    by the tile's last row, the rows below the length stop at 228), and a
+    q offset of 40 with Sq 80 (the KV tile at 128 walks q tile 1, whose
+    last position is 119). Every thread still waits on each stage before
+    it is refilled: dk / dv within 2e-2 of each peak, the same bytes on
+    two runs, as many times as it takes a race to show."""
+    gen = _gen(cuda)
+    hq, hkv = 8, 2
+    if case == "band_past_length":
+        sq = skv = 512
+        q_off, lengths, kw = [0], [148], dict(window=70)
+    else:
+        sq, skv = 80, 300
+        q_off, lengths, kw = [40], [300], {}
+    q, do = (torch.randn((1, hq, sq, d), generator=gen, device=cuda, dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((1, hkv, skv, d), generator=gen, device=cuda, dtype=torch.bfloat16) for _ in range(2))
+    q_off = torch.tensor(q_off, dtype=torch.int32, device=cuda)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    kw = dict(q_offsets=q_off, **kw)
+    o, lse = flash_prefill.flash_prefill(q, k, v, lengths, return_lse=True, **kw)
+    delta = flash_bwd.bwd_delta(o, do)
+    ref = flash_bwd.flash_bwd_dkdv_plain(q, k, v, lse, do, delta, lengths, **kw)
+    got = flash_bwd.flash_bwd_dkdv(q, k, v, lse, do, delta, lengths, **kw)
+    for name, a, r in zip(("dk", "dv"), got, ref):
+        assert _rel_peak(a, r) <= 2e-2, (name, _rel_peak(a, r))
+    for _ in range(20):
+        again = flash_bwd.flash_bwd_dkdv(q, k, v, lse, do, delta, lengths, **kw)
+        assert all(torch.equal(a, r) for a, r in zip(got, again))
+
+
+@pytest.mark.parametrize("sinks", [20, 40, 70])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_band_after_sink_tiles_mid_ring(cuda, d, sinks):
+    """A q chunk far past its sinks: K5 stages 1-3 sink tiles, then jumps to
+    the band, whose first tile lands in another slot of the K/V ring (K5's
+    ring has 2 stages of 64 rows at D 64, 3 of 32 at D 128, 2 of 32 at D
+    256). K5 (with and without the LSE), dq and dk/dv against the twins;
+    K/V rows below the band that are not sinks hold NaN and change no bit
+    of the output, the LSE, dq, or dk / dv outside those rows."""
+    gen = _gen(cuda)
+    hq, hkv, sq, skv, w = 8, 2, 150, 800, 100
+    q, do = (torch.randn((1, hq, sq, d), generator=gen, device=cuda, dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((1, hkv, skv, d), generator=gen, device=cuda, dtype=torch.bfloat16) for _ in range(2))
+    q_off = torch.tensor([600], dtype=torch.int32, device=cuda)
+    lengths = torch.tensor([750], dtype=torch.int32, device=cuda)
+    kw = dict(q_offsets=q_off, window=w, sinks=sinks)
+    out, lse = flash_prefill.flash_prefill(q, k, v, lengths, return_lse=True, **kw)
+    ref, lse_ref = flash_prefill.flash_prefill_plain(q, k, v, lengths, return_lse=True, **kw)
+    assert torch.equal(out, flash_prefill.flash_prefill(q, k, v, lengths, **kw))
+    assert _max_err(out, ref) <= 2e-2 and _max_err(lse, lse_ref) <= 1e-4
+    got = flash_bwd.flash_prefill_bwd(q, k, v, out, lse, do, lengths, **kw)
+    want = flash_bwd.flash_prefill_bwd_plain(q, k, v, out, lse, do, lengths, **kw)
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        assert _rel_peak(a, r) <= 2e-2, (name, _rel_peak(a, r))
+    below = torch.zeros(skv, dtype=torch.bool, device=cuda)
+    below[sinks:600 - w + 1] = True  # below the first row's band, not a sink
+    kp, vp = k.clone(), v.clone()
+    kp[:, :, below], vp[:, :, below] = float("nan"), float("nan")
+    out_p, lse_p = flash_prefill.flash_prefill(q, kp, vp, lengths, return_lse=True, **kw)
+    assert torch.equal(out_p, out) and torch.equal(lse_p, lse)
+    dq, dk, dv = flash_bwd.flash_prefill_bwd(q, kp, vp, out, lse, do, lengths, **kw)
+    assert torch.equal(dq, got[0])
+    assert torch.equal(dk[:, :, ~below], got[1][:, :, ~below]) and torch.equal(dv[:, :, ~below], got[2][:, :, ~below])
 
 
 @pytest.mark.parametrize("drop", ["softcap", "sinks", "window"])
