@@ -38,9 +38,14 @@ Phases (any failure raises and the script exits non-zero):
    256 with 4 splits (Gemma-7B), K7 on both families' rows in 128-row pages
    and K5 on 2048-row chunks (PagedEngine's) at offsets 4608 and 6144, each
    within 2 (decode) or 3 (K5) bf16 ulps of each element of its twin. The
-   head_dim 256 rows run ``csrc/flash_decode_d256.cu`` (the KV walk split
-   into chunks, one block each, merged by the last block) and print their
-   GB/s, share of the bound and chunk grid; the tiled int4 and int8 rows
+   decode rows at head_dim 64, 128 and 256 run ``csrc/flash_decode_split.cu``
+   (the KV walk split into chunks, one block each, merged by the last block;
+   the quantized KV's scales folded in the kernel) and print their GB/s,
+   share of the bound and chunk grid; each merging row at head_dim 128 is
+   also timed on a coarser grid (chunks twice as long), and the plain
+   decode once more in the kernel's VARIANTS form (a window as long as the
+   table, which masks nothing: bit for bit the plain form's output), the
+   cost of the variants as runtime arguments; the tiled int4 and int8 rows
    print TFLOP/s and share of the bound per shape, the W8A8 / W4A8 rows TOPS
    of the kernel alone, and a split of their entry time into the row
    quantization and the kernel; the tiled int8 matmul is also timed on fp8
@@ -520,8 +525,8 @@ def bound_ms(n_bytes, n_ops, ops_per_s=PEAK_BF16_OPS_PER_S):
 def log_rate(entry, ms, n_bytes, n_ops, chunks=None, int8=False):
     """A phase 2 row's achieved rate and share of its bound: GB/s for a row
     the bytes bound, TFLOP/s (TOPS on the int8 tensor cores, ``int8``) for
-    one the operations bound; ``chunks`` = (N, C) of a D 256 decode call's
-    chunk grid."""
+    one the operations bound; ``chunks`` = (N, C) of a split-KV decode
+    call's chunk grid."""
     bnd, by = bound_ms(n_bytes, n_ops, PEAK_INT8_OPS_PER_S if int8 else PEAK_BF16_OPS_PER_S)
     unit = "TOPS" if int8 else "TFLOP/s"
     rate = f"{n_bytes / ms / 1e6:.1f} GB/s" if by == "bytes" else f"{n_ops / ms / 1e9:.1f} {unit}"
@@ -583,14 +588,14 @@ def _latent_label(name):
     if "latent" in name:
         return "flash_prefill_latent_kernel (D 640)"
     if "Li640E" in name:
-        return f"flash_decode_kernel<bf16, bf16, 640, {'paged' if 'Lb1ELb0E' in name else 'contiguous'}>"
+        return f"flash_decode_kernel<bf16, bf16, 640, {'paged' if 'Li640ELb1E' in name else 'contiguous'}>"
     return None
 
 
 def _redesign_label(name):
-    """The redesigned kernels by mangled name: the D 256 decode and the tiled
-    int4, int8 / fp8 and W4A8 matmuls."""
-    return name if any(k in name for k in ("decode_d256_kernel", "qmm_int4_tiled", "qmm_8bit_tiled",
+    """The redesigned kernels by mangled name: the split-KV decode and the
+    tiled int4, int8 / fp8 and W4A8 matmuls."""
+    return name if any(k in name for k in ("decode_split_kernel", "qmm_int4_tiled", "qmm_8bit_tiled",
                                             "qmm_w4a8_tiled")) else None
 
 
@@ -706,11 +711,18 @@ def phase_kernels(dev, timer):
                (out.float() - ref.float()).abs().max().item(), tol)
         _check_ulps(entry, out, ref, 1)
         bnd, by = bound_ms(dec_bytes, dec_ops)  # the wrapper's inputs and output
+        run = lambda: flash_decode(q, k_tab, v_tab, lengths, **kw)  # noqa: E731
         res[entry] = dict(
             max_abs_err=(out.float() - ref.float()).abs().max().item(),
-            ms=timer(lambda: flash_decode(q, k_tab, v_tab, lengths, **kw)),
+            ms=timer(run),
             plain_ms=timer(lambda: flash_decode_plain(q, k_tab, v_tab, lengths, **kw), iters=5),
             bound_ms=bnd, bound_by=by, library_ms=lib_ms)
+        log_rate(entry, res[entry]["ms"], dec_bytes, dec_ops,
+                 split_grid(b, hkv, s) if splits == 1 else (splits, s // splits))
+        if splits == 1:
+            coarser_grid(entry, run, b, hkv, s, timer, res[entry]["ms"])
+            _variants_form(entry, run, lambda: flash_decode(q, k_tab, v_tab, lengths, window=s, **kw), out,
+                           timer, res[entry]["ms"])
     got = flash_decode_with_stats(q, k_tab, v_tab, lengths, layer=layer, num_splits=4, block_k=256)
     want = flash_decode_with_stats_plain(q, k_tab, v_tab, lengths, layer=layer, num_splits=4, block_k=256)
     for name, err in _partial_errors(got, want).items():
@@ -1623,12 +1635,16 @@ def _paged_kernels(dev, timer, gen, q, k_tab, v_tab, lengths, layer, dec_bytes, 
     _check_ulps("paged_flash_decode", out, ref, 1)
     bnd, by = bound_ms(dec_bytes + table.numel() * 4, dec_ops)
     yard = timer(lambda: flash_decode(q, k_tab, v_tab, lengths, layer=layer, num_splits=1, block_k=256))
+    run = lambda: paged_flash_decode(q, k_pool, v_pool, table, lengths, layer=layer)  # noqa: E731
     res["paged_flash_decode"] = dict(
         max_abs_err=err,
-        ms=timer(lambda: paged_flash_decode(q, k_pool, v_pool, table, lengths, layer=layer)),
+        ms=timer(run),
         plain_ms=timer(lambda: paged_flash_decode_plain(q, k_pool, v_pool, table, lengths, layer=layer),
                        iters=5),
         bound_ms=bnd, bound_by=by, library_ms=sdpa_ms)
+    log_rate("paged_flash_decode", res["paged_flash_decode"]["ms"], dec_bytes + table.numel() * 4, dec_ops,
+             split_grid(b, hkv, s))
+    coarser_grid("paged_flash_decode", run, b, hkv, s, timer, res["paged_flash_decode"]["ms"])
     log(f"[time] paged_flash_decode yardstick: flash_decode (1 split) on the same rows laid out "
         f"contiguously {yard:.4f} ms")
 
@@ -1705,11 +1721,14 @@ def _spec_kernels(dev, timer, gen):
         bnd, by = bound_ms(n_bytes, 4 * hq * d * n_pairs)
         deq = [repeat_kv((x[layer].float() * (KV_SCALE["int8"] if mode == "int8" else 1.0)).to(bf16),
                          hq // hkv) for x in (kq, vq)]
+        run = lambda: flash_verify(q, kq, vq, lengths, **kw)  # noqa: E731
         res[entry] = dict(
-            max_abs_err=err, ms=timer(lambda: flash_verify(q, kq, vq, lengths, **kw)),
+            max_abs_err=err, ms=timer(run),
             plain_ms=timer(lambda: flash_verify_plain(q, kq, vq, lengths, **kw), iters=5),
             bound_ms=bnd, bound_by=by,
             library_ms=timer(lambda: F.scaled_dot_product_attention(q, deq[0], deq[1], attn_mask=mask)))
+        log_rate(entry, res[entry]["ms"], n_bytes, 4 * hq * d * n_pairs, split_grid(b, hkv, s))
+        coarser_grid(entry, run, b, hkv, s, timer, res[entry]["ms"])
         if mode == "bf16":  # the same table's one-token decode, at the longest token's length
             q0, last = q[:, :, 0].contiguous(), lengths + t - 1
             yard = timer(lambda: flash_decode(q0, kq, vq, last, num_splits=1, **kw))
@@ -1850,13 +1869,45 @@ def _flex_call(q, k, v, base, window, sinks, softcap, scale):
     return lambda: _FLEX[0](q, k, v, score_mod=score_mod, block_mask=mask, scale=scale, enable_gqa=True)
 
 
-def d256_grid(b, hkv, s):
-    """(N, C) of a merging D 256 decode call on this card: the chunk count
-    and the rows each block walks (ops/flash_decode.d256_chunking)."""
-    from starflashattention_tpu_torch.ops.flash_decode import d256_chunking, sm_count
+def _variants_form(entry, run, run_variants, out, timer, ms):
+    """The plain decode (``run``, timed at ``ms``) once more in the split
+    kernel's VARIANTS form (``run_variants``: a window as long as the table,
+    which masks nothing): bit for bit the plain form's ``out``; logs the
+    time of both forms."""
+    same = torch.equal(run_variants(), out)
+    _check(f"{entry} in the VARIANTS form (window = S), bit for bit the plain form", 0.0 if same else
+           float("inf"), 0.0, what="mismatch")
+    t = timer(run_variants)
+    log(f"[variants] {entry}: plain form {ms:.4f} ms, VARIANTS form (window, sinks and softcap as runtime "
+        f"arguments) {t:.4f} ms ({t / ms - 1:+.1%})")
 
-    c, n = d256_chunking(s, b, hkv, sm_count(torch.device("cuda", 0)))
+
+def split_grid(b, hkv, s):
+    """(N, C) of a merging split-KV decode call on this card: the chunk
+    count and the rows each block walks (ops/flash_decode.split_chunking)."""
+    from starflashattention_tpu_torch.ops.flash_decode import sm_count, split_chunking
+
+    c, n = split_chunking(s, b, hkv, sm_count(torch.device("cuda", 0)))
     return n, c
+
+
+def coarser_grid(entry, fn, b, hkv, s, timer, ms):
+    """Log the chunk grid a merging split-KV row ran at ``ms`` and time the
+    row once more on a coarser grid, chunks twice as long (the minimum
+    chunk set to twice the row's own); returns that time."""
+    from starflashattention_tpu_torch.ops import flash_decode as fd
+
+    n, c = split_grid(b, hkv, s)
+    keep = fd.SPLIT_MIN_CHUNK
+    fd.SPLIT_MIN_CHUNK = 2 * c
+    try:
+        n2, c2 = split_grid(b, hkv, s)
+        coarse = timer(fn)
+    finally:
+        fd.SPLIT_MIN_CHUNK = keep
+    log(f"[grid] {entry}: {n} chunks of {c} rows a (sequence, KV head), {ms:.4f} ms; coarser grid, "
+        f"{n2} chunks of {c2} rows: {coarse:.4f} ms ({coarse / ms - 1:+.1%})")
+    return coarse
 
 
 def _variant_kernels(dev, timer, gen):
@@ -1923,13 +1974,15 @@ def _variant_kernels(dev, timer, gen):
             vp, _ = _poison_below(v_tab, lens - band[0], band[1])
             _band_check(entry, out, flash_decode(q, kp, vp, lens, **kw), n)
             del kp, vp
-        res[entry] = dict(max_abs_err=err, ms=timer(lambda: flash_decode(q, k_tab, v_tab, lens, **kw)),
+        run = lambda: flash_decode(q, k_tab, v_tab, lens, **kw)  # noqa: E731
+        res[entry] = dict(max_abs_err=err, ms=timer(run),
                           plain_ms=timer(lambda: flash_decode_plain(q, k_tab, v_tab, lens, **kw), iters=5),
                           bound_ms=bnd, bound_by=by, library_ms=library(ref) if library else None)
-        if d == 256:
-            splits = kw["num_splits"]
-            grid = d256_grid(b, hkv, s) if splits == 1 else (splits, s // splits)
-            log_rate(entry, res[entry]["ms"], n_bytes, n_ops, grid)
+        splits = kw["num_splits"]
+        grid = split_grid(b, hkv, s) if splits == 1 else (splits, s // splits)
+        log_rate(entry, res[entry]["ms"], n_bytes, n_ops, grid)
+        if d == 128 and splits == 1:
+            coarser_grid(entry, run, b, hkv, s, timer, res[entry]["ms"])
 
     def band_mask(lens, window, sinks):  # (B, 1, 1, S): the decode row's attended rows
         m = (kpos[None, :] < lens[:, None]) & (kpos[None, :] >= lens[:, None] - window)
@@ -1957,13 +2010,15 @@ def _variant_kernels(dev, timer, gen):
         rows = int(_attended_rows(lens, *band).sum())
         n_bytes = 2 * q.numel() * 2 + 2 * rows * hkv * d * 2 + b * 4 + table.numel() * 4
         bnd, by = bound_ms(n_bytes, 4 * hq * d * rows)
+        run = lambda: paged_flash_decode(q, kpool, vpool, table, lens, layer=0, **kw)  # noqa: E731
         res[entry] = dict(
-            max_abs_err=err, ms=timer(lambda: paged_flash_decode(q, kpool, vpool, table, lens, layer=0, **kw)),
+            max_abs_err=err, ms=timer(run),
             plain_ms=timer(lambda: paged_flash_decode_plain(q, kpool, vpool, table, lens, layer=0, **kw),
                            iters=5),
             bound_ms=bnd, bound_by=by, library_ms=library(ref) if library else None)
-        if d == 256:
-            log_rate(entry, res[entry]["ms"], n_bytes, 4 * hq * d * rows, d256_grid(b, hkv, s))
+        log_rate(entry, res[entry]["ms"], n_bytes, 4 * hq * d * rows, split_grid(b, hkv, s))
+        if d == 128:
+            coarser_grid(entry, run, b, hkv, s, timer, res[entry]["ms"])
         del kpool, vpool
 
     # -- Mistral-7B: window 4096 + 4 sinks, D 128
@@ -2027,7 +2082,7 @@ def _variant_kernels(dev, timer, gen):
                       plain_ms=timer(lambda: flash_verify_plain(qv, k_tab, v_tab, vlens, **kw), iters=5),
                       bound_ms=bnd, bound_by=by,
                       library_ms=flex_library(entry, qv, k_tab[0], v_tab[0], vlens, kw, ref))
-    log_rate(entry, res[entry]["ms"], n_bytes, 4 * hq * d * n_pairs, d256_grid(b, hkv, s))
+    log_rate(entry, res[entry]["ms"], n_bytes, 4 * hq * d * n_pairs, split_grid(b, hkv, s))
     del k_tab, v_tab, qv
 
     # -- Gemma-7B: D 256, Hq = Hkv = 16, 4 splits (K2), no band
@@ -2287,9 +2342,14 @@ def _quantized_kv_kernels(dev, timer, q, k_tab, v_tab, lengths, layer, k_new, v_
             log(f"[kernel] {entry}: max_abs_err {err:.3e}")
             _check_ulps(f"{entry} B={b} Hq={hq} Hkv={hkv} S={s} D={d} scale {KV_SCALE[mode]:.5f}", out, ref,
                         2 if splits == 1 else 1)
-            res[entry] = dict(max_abs_err=err, ms=timer(lambda: flash_decode(q, kq, vq, lengths, **kws)),
+            run = lambda: flash_decode(q, kq, vq, lengths, **kws)  # noqa: E731
+            res[entry] = dict(max_abs_err=err, ms=timer(run),
                               plain_ms=timer(lambda: flash_decode_plain(q, kq, vq, lengths, **kws), iters=5),
                               bound_ms=bnd, bound_by=by, library_ms=lib_ms)
+            log_rate(entry, res[entry]["ms"], n_bytes, 4 * hq * d * n_valid,
+                     split_grid(b, hkv, s) if splits == 1 else (splits, s // splits))
+            if splits == 1:
+                coarser_grid(entry, run, b, hkv, s, timer, res[entry]["ms"])
         kp, vp = _pools_from(kq, table, ps), _pools_from(vq, table, ps)
         out = paged_flash_decode(q, kp, vp, table, lengths, **kw)
         ref = paged_flash_decode_plain(q, kp, vp, table, lengths, **kw)
@@ -2298,10 +2358,14 @@ def _quantized_kv_kernels(dev, timer, q, k_tab, v_tab, lengths, layer, k_new, v_
         log(f"[kernel] {entry}: max_abs_err {err:.3e}")
         _check_ulps(f"{entry} page_size={ps} shuffled table", out, ref, 1)
         bnd_p, by_p = bound_ms(n_bytes + table.numel() * 4, 4 * hq * d * n_valid)
-        res[entry] = dict(max_abs_err=err, ms=timer(lambda: paged_flash_decode(q, kp, vp, table, lengths, **kw)),
+        run = lambda: paged_flash_decode(q, kp, vp, table, lengths, **kw)  # noqa: E731
+        res[entry] = dict(max_abs_err=err, ms=timer(run),
                           plain_ms=timer(lambda: paged_flash_decode_plain(q, kp, vp, table, lengths, **kw),
                                          iters=5),
                           bound_ms=bnd_p, bound_by=by_p, library_ms=lib_ms)
+        log_rate(entry, res[entry]["ms"], n_bytes + table.numel() * 4, 4 * hq * d * n_valid,
+                 split_grid(b, hkv, s))
+        coarser_grid(entry, run, b, hkv, s, timer, res[entry]["ms"])
 
         # the appends move 1-byte rows: whole tables and pools equal
         kn = quantize_value(k_new, scales, mode, head_axis=1)
@@ -4985,16 +5049,17 @@ def phase_tensor_parallel(smi):
 # ---------------------------------------------------------------- main
 
 REPLACES = {
-    "flash_decode (1 split, fused)": ("starflashattention_tpu/ops/flash_decode.py:213", "flash_decode.cu"),
-    "flash_decode (split-KV partials)": ("starflashattention_tpu/ops/flash_decode.py:141", "flash_decode.cu"),
+    "flash_decode (1 split, fused)": ("starflashattention_tpu/ops/flash_decode.py:213", "flash_decode_split.cu"),
+    "flash_decode (split-KV partials)": ("starflashattention_tpu/ops/flash_decode.py:141",
+                                         "flash_decode_split.cu"),
     "append_rows_kv": ("starflashattention_tpu/ops/cache_append.py:86", "cache_append.cu"),
     "quant_matmul (small-M, decode rows)": ("starflashattention_tpu/ops/quant_matmul.py:35", "quant_matmul.cu"),
     "quant_matmul (tiled, prefill rows)": ("starflashattention_tpu/ops/quant_matmul.py:35", "quant_matmul.cu"),
     "flash_prefill": ("starflashattention_tpu/ops/flash_prefill.py:67", "flash_prefill.cu"),
-    "paged_flash_decode": ("starflashattention_tpu/ops/paged_decode.py:74", "flash_decode.cu"),
+    "paged_flash_decode": ("starflashattention_tpu/ops/paged_decode.py:74", "flash_decode_split.cu"),
     "append_rows_paged_kv": ("starflashattention_tpu/ops/cache_append.py:219", "cache_append.cu"),
-    "flash_verify": ("starflashattention_tpu/ops/flash_decode.py:213", "flash_decode.cu"),
-    "flash_verify int8 KV": ("starflashattention_tpu/ops/flash_decode.py:213", "flash_decode.cu"),
+    "flash_verify": ("starflashattention_tpu/ops/flash_decode.py:213", "flash_decode_split.cu"),
+    "flash_verify int8 KV": ("starflashattention_tpu/ops/flash_decode.py:213", "flash_decode_split.cu"),
     "append_block_kv": ("starflashattention_tpu/ops/cache_append.py:331", "cache_append.cu"),
     "flash_prefill (return_lse, training)": ("starflashattention_tpu/ops/flash_prefill.py:67", "flash_prefill.cu"),
     "flash_bwd_dq": ("starflashattention_tpu/ops/flash_bwd.py:173", "flash_bwd.cu"),
@@ -5007,19 +5072,16 @@ REPLACES = {
     "quant_matmul_w8a8 (prefill rows)": ("starflashattention_tpu/ops/quant_matmul.py:500", "quant_matmul_a8.cu"),
     "quant_matmul_w4a8 (prefill rows)": ("starflashattention_tpu/ops/quant_matmul.py:346", "quant_matmul_a8.cu"),
     **{f"flash_decode {m} KV (1 split, fused)": ("starflashattention_tpu/ops/flash_decode.py:213",
-                                                 "flash_decode.cu") for m in ("int8", "fp8")},
+                                                 "flash_decode_split.cu") for m in ("int8", "fp8")},
     **{f"flash_decode {m} KV (split-KV partials)": ("starflashattention_tpu/ops/flash_decode.py:141",
-                                                    "flash_decode.cu") for m in ("int8", "fp8")},
-    **{f"paged_flash_decode {m} KV": ("starflashattention_tpu/ops/paged_decode.py:74", "flash_decode.cu")
+                                                    "flash_decode_split.cu") for m in ("int8", "fp8")},
+    **{f"paged_flash_decode {m} KV": ("starflashattention_tpu/ops/paged_decode.py:74", "flash_decode_split.cu")
        for m in ("int8", "fp8")},
-    VARIANT_ENTRIES["mistral_decode"]: ("starflashattention_tpu/ops/flash_decode.py:213",
-                                        "flash_decode_variants.cu"),
-    **{VARIANT_ENTRIES[k]: ("starflashattention_tpu/ops/flash_decode.py:213", "flash_decode_d256.cu")
-       for k in ("gemma2_decode", "gemma2_decode_full", "gemma2_verify")},
-    VARIANT_ENTRIES["gemma_split"]: ("starflashattention_tpu/ops/flash_decode.py:141", "flash_decode_d256.cu"),
-    VARIANT_ENTRIES["mistral_paged"]: ("starflashattention_tpu/ops/paged_decode.py:74",
-                                       "flash_decode_variants.cu"),
-    VARIANT_ENTRIES["gemma2_paged"]: ("starflashattention_tpu/ops/paged_decode.py:74", "flash_decode_d256.cu"),
+    **{VARIANT_ENTRIES[k]: ("starflashattention_tpu/ops/flash_decode.py:213", "flash_decode_split.cu")
+       for k in ("mistral_decode", "gemma2_decode", "gemma2_decode_full", "gemma2_verify")},
+    VARIANT_ENTRIES["gemma_split"]: ("starflashattention_tpu/ops/flash_decode.py:141", "flash_decode_split.cu"),
+    **{VARIANT_ENTRIES[k]: ("starflashattention_tpu/ops/paged_decode.py:74", "flash_decode_split.cu")
+       for k in ("mistral_paged", "gemma2_paged")},
     **{VARIANT_ENTRIES[k]: ("starflashattention_tpu/ops/flash_prefill.py:67", "flash_prefill.cu")
        for k in ("gemma2_prefill", "mistral_prefill")},
     LATENT_ENTRIES["decode"]: ("starflashattention_tpu/ops/flash_decode.py:213", "flash_decode.cu"),

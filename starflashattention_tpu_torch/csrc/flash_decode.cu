@@ -1,5 +1,3 @@
-// Decode attention (K1, K2, K7) without the attention variants: the
-// kernel of flash_decode.cuh built with SFA_DECODE_VARIANTS 0. A call with a
-// window, sinks or a softcap goes to flash_decode_variants.cu.
-#define SFA_DECODE_VARIANTS 0
+// Decode attention (K1, K7) over MLA's 640-lane latent row: the kernel of
+// flash_decode.cuh. Head_dims 64, 128 and 256 build flash_decode_split.cu.
 #include "flash_decode.cuh"

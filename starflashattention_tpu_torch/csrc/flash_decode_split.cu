@@ -1,22 +1,22 @@
-// Decode attention at head_dim 256 for Hopper (sm_90a): the contiguous
-// decode and its verify span (K1), the split-KV partials (K2) and the paged
-// decode (K7), with the window, sinks and softcap as runtime arguments.
+// Decode attention at head_dim 64, 128 and 256 for Hopper (sm_90a): the
+// contiguous decode and its verify span (K1), the split-KV partials (K2) and
+// the paged decode (K7), on bf16, int8 or fp8-e4m3 KV, with the window,
+// sinks and softcap, and the quantized KV's scales folded in.
 //
-// Replaces, at D 256: starflashattention_tpu/ops/flash_decode.py::
-// _decode_kernel_fused (entries flash_decode with num_splits = 1 and
-// flash_verify), ::_decode_kernel (entry flash_decode_with_stats) and
+// Replaces: starflashattention_tpu/ops/flash_decode.py::_decode_kernel_fused
+// (entries flash_decode with num_splits = 1 and flash_verify),
+// ::_decode_kernel (entry flash_decode_with_stats) and
 // starflashattention_tpu/ops/paged_decode.py::_paged_decode_kernel (entry
-// paged_flash_decode). D 64 / 128 (and MLA's 640) stay in flash_decode.cuh,
-// whose 128-byte parameter block this kernel does not share.
+// paged_flash_decode). MLA's 640-lane latent row stays in flash_decode.cuh.
 //
-// Bound: the K/V bytes the walk reads, 2 tables x 512 bytes a row and KV
-// head in bf16 (256 in int8 / fp8); the 4 * D operations a (query row, key
-// row) pair are far below the CUDA cores' rate. Gemma-2-9B decodes B = 8
-// sequences on Hkv = 8 heads: one block per (sequence, KV head) is 64
-// blocks on 132 SMs, each walking up to 8,192 rows alone. So the walk is
-// split (flash-decoding): block (chunk i, kv head, b) walks only the tiles
-// of rows [i C, (i + 1) C) that the single-pass walk visits - the sink
-// tiles below the band's first tile, then the band from the tile holding
+// Bound: the K/V bytes the walk reads, 2 tables x D x 2 bytes a row and KV
+// head in bf16 (D bytes in int8 / fp8); the 4 * D operations a (query row,
+// key row) pair are far below the tensor cores' rate. One block per
+// (sequence, KV head) is 64-128 blocks on 132 SMs at the serving shapes (B 8
+// or 16 on Hkv 8), each walking its whole length alone. So the walk is split
+// (flash-decoding): block (chunk i, kv head, b) walks only the tiles of rows
+// [i C, (i + 1) C) that the single-pass walk visits - the sink tiles below
+// the band's first tile, then the band from the tile holding
 // max(len - W, 0) - and writes fp32 (o, m, l) for its R = G * T query rows.
 // The wrapper picks C (a multiple of the 32-row tile) from the table's S
 // and B * Hkv alone, never from the lengths, so that B * Hkv * ceil(S / C)
@@ -30,33 +30,61 @@
 // decode at lengths + j, and the paged and contiguous forms share the
 // chunk grid.
 //
-// Inside a block (256 threads): K and V tiles of 32 rows double-buffered in
-// dynamic shared memory by 16-byte cp.async (rows below the band that are
-// not sinks, and rows past the chunk, are zero-filled and never read, so a
-// reclaimed page or a row below the band is never loaded; a paged row is
-// resolved through the page table by the thread that copies it). Scores are
-// split over D: warp w takes dimensions 32w .. 32w + 31 and writes its
-// partial dot product of every (query row, key row). For bf16 q the warp
-// runs them on the tensor cores (mma.sync m16n8k16 on 16-row blocks of q
-// staged in bf16, K's bf16, int8 or fp8 values converted exactly; the
-// products are exact and the sums fp32); for fp32 q on the CUDA cores, lane
-// l taking key row l. K rows are padded by 16 bytes, so neither reads with
-// bank conflicts; every thread works at G = 1 or 2, with no shuffles. The
-// online softmax takes one warp a query row (a lane a key) and sums the
-// eight partials in a fixed order as it reads them. P @ V: for bf16 q on
-// bf16 V on the tensor cores too (P as two bf16 parts that hold it to about
-// 16 bits, V by ldmatrix.trans from rows padded like K's); otherwise one
-// output column a thread, each V element converted once for all R rows,
-// four rows at a time in independent FMA chains. Scores, softmax and
-// accumulators are fp32.
+// Inside a block (D threads, D / 32 warps): K and V tiles of 32 rows
+// double-buffered in dynamic shared memory by 16-byte cp.async (rows below
+// the band that are not sinks, and rows past the chunk, are zero-filled and
+// never read, so a reclaimed page or a row below the band is never loaded; a
+// paged row is resolved through the page table by the thread that copies
+// it). Scores are split over D: warp w takes dimensions 32w .. 32w + 31 and
+// writes its partial dot product of every (query row, key row). For bf16 q
+// the warp runs them on the tensor cores (mma.sync m16n8k16 on 16-row
+// blocks of q staged in bf16, K's bf16, int8 or fp8 values converted
+// exactly; the products are exact and the sums fp32); for fp32 q on the
+// CUDA cores, lane l taking key row l. K rows are padded by 16 bytes, so
+// neither reads with bank conflicts; every thread works at G = 1 or 2, with
+// no shuffles. The online softmax takes one warp a query row (a lane a key)
+// and sums the D / 32 partials in a fixed pairwise order as it reads them.
+// P @ V: for bf16 q on bf16 V on the tensor cores too (P as two bf16 parts
+// that hold it to about 16 bits, V by ldmatrix.trans from rows padded like
+// K's); otherwise one output column a thread, each V element converted once
+// for all R rows, four rows at a time in independent FMA chains. Scores,
+// softmax and accumulators are fp32.
+//
+// Why D threads at D 64 / 128 (128 at 7B-GQA's D 128, G 4; the verify block
+// holds G * T = 20 rows): the work a tile is R x 32 x D products, a few
+// hundred mma.sync a block, so the tile's wait on device memory, not the
+// block's width, sets the time; what fills the card is the number of blocks,
+// and the chunk grid supplies them (B 16 x Hkv 8 x 8 chunks at S 1024: 1,024
+// blocks). A block of D threads keeps one split of the work at every D -
+// a warp a 32-dimension slice of the scores and of P @ V, a thread an output
+// column on the CUDA cores - and its shared memory (46 KB at D 128 in bf16,
+// 35 KB of it the two K/V stages) lets 4 blocks share an SM (7 on 1-byte
+// KV), each with one tile in flight while it computes on the other. A wider block would add
+// warps with no slice of their own. At G 4 the m16n8k16 score tile wastes 12
+// of its 16 rows (and 11 of 32 at verify's 20); the kernel is bound by
+// bytes, and the tensor cores finish a tile's scores in a few dozen cycles,
+// so packing two KV heads' groups into one m-tile would save nothing the
+// clock can see.
 //
 // Partials mode (out null): the blocks write the caller's (o, m, l) at the
 // caller's split geometry (C = split_len, N = num_splits) and do not merge.
 //
-// Quantized KV (int8 / fp8-e4m3 tables or pools): converted to float where
-// read; the wrappers fold sm_scale * k_scale into q and apply v_scale
-// outside, as for D 64 / 128. Paged (fold_scale): q * scale is rounded to
-// q's dtype before the dot products, as the JAX wrapper does.
+// Quantized KV (int8 / fp8-e4m3 tables or pools, with (Hkv,) k_scales and
+// v_scales): values are converted to float where read (exact: they are
+// bf16 values). As the JAX wrappers do (flash_decode.py:400-409,
+// paged_decode.py:341-346), sm_scale * k_scale[h] is folded into q in fp32
+// and rounded to q's dtype where q is staged (the scores are then scaled by
+// 1), and v_scale[h] is applied after the merge with JAX's roundings: the
+// contiguous forms (decode, verify) round the normalized output to q's
+// dtype, multiply by v_scale and round again (flash_decode.py:662-666); the
+// paged form multiplies the fp32 output by v_scale and rounds once
+// (paged_decode.py:404-406); the partials carry v_scale in their fp32 o.
+// The paged form folds sm_scale into q and rounds it to q's dtype on any KV,
+// as the JAX wrapper does.
+//
+// VARIANTS: the window, sinks and softcap are runtime arguments of the
+// VARIANTS form; the plain form (no window, no sinks, no softcap) compiles
+// them away. Both read the same parameter block.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -67,14 +95,18 @@
 
 namespace {
 
-constexpr int D = 256;
-constexpr int BK = 32;         // KV rows a tile
-constexpr int THREADS = 256;   // P @ V: one output column a thread
-constexpr int NWARPS = THREADS / 32;
-constexpr int RG = 4;  // query rows a pass of the score and P @ V loops
+constexpr int BK = 32;  // KV rows a tile
+constexpr int RG = 4;   // query rows a pass of the CUDA-core P @ V loop
 constexpr int STAGES = 2;
 constexpr float NEG_INF = -0.7f * 3.4028234663852886e38f;
-static_assert(THREADS == D && D == 32 * NWARPS && BK == 32, "a column a thread, 32 dimensions a warp, a key a lane");
+constexpr int NO_WINDOW = 1 << 30;  // the window argument without a window
+
+// D threads a block: a warp a 32-dimension slice of the scores and of
+// P @ V, a thread an output column (see above)
+template <int D>
+__host__ __device__ constexpr int block_threads() {
+  return D;
+}
 
 struct Args {
   const void* q;  // (B, Hq, T, D) in q's dtype
@@ -82,18 +114,37 @@ struct Args {
   const void* v;
   const int* lengths;     // (B,): valid KV of query token 0
   const int* page_table;  // paged: (B, pages_per_seq)
-  void* out;              // merged output (q's shape) in q's dtype, or fp32 with out_f32; null: partials
+  void* out;              // merged output (q's shape) in q's dtype; null: partials
   float* o_part;          // (B, Hq, T, n_chunks, D): the workspace, or the caller's partials
   float* m_part;          // (B, Hq, T, n_chunks)
   float* l_part;
   int* arrivals;          // (B, Hkv) counters, 0 between calls (merging mode)
+  const float* k_scales;  // (Hkv,) of an int8 / fp8 cache, else null
+  const float* v_scales;
   int Hq, Hkv, S, qspan, chunk, n_chunks;
   int pages_per_seq, page_size, num_pages;
   float scale;
-  int fold_scale, out_f32;
   int window, sinks;
   float softcap;
 };
+
+// The variant arguments of the VARIANTS form, their "none" values in the
+// plain form.
+template <bool VARIANTS>
+__device__ __forceinline__ int window_of(const Args& a) {
+  if constexpr (VARIANTS) return a.window;
+  else return NO_WINDOW;
+}
+template <bool VARIANTS>
+__device__ __forceinline__ int sinks_of(const Args& a) {
+  if constexpr (VARIANTS) return a.sinks;
+  else return 0;
+}
+template <bool VARIANTS>
+__device__ __forceinline__ float softcap_of(const Args& a) {
+  if constexpr (VARIANTS) return a.softcap;
+  else return 0.f;
+}
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -101,6 +152,7 @@ __device__ __forceinline__ float to_f(int8_t v) { return static_cast<float>(v); 
 __device__ __forceinline__ float to_f(__nv_fp8_e4m3 v) { return static_cast<float>(v); }
 __device__ __forceinline__ void from_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void from_f(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+// v rounded to T's precision (the tag pointer picks the overload)
 __device__ __forceinline__ float round_to(float v, const float*) { return v; }
 __device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(v));
@@ -132,6 +184,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
+// p[0] + p[stride] + ... + p[(N - 1) stride], summed pairwise: the same
+// order for every row
+template <int N>
+__device__ __forceinline__ float tree_sum(const float* p, int stride) {
+  if constexpr (N == 1) return p[0];
+  else return tree_sum<N / 2>(p, stride) + tree_sum<N / 2>(p + N / 2 * stride, stride);
+}
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
@@ -142,14 +201,14 @@ __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wai
 
 // A K row in shared memory takes 16 bytes more than its data, so that the
 // 32 lanes of a warp, one key row each, read a column without bank
-// conflicts; V rows are read along D and stay dense.
-template <typename KV>
+// conflicts (the row stride is 4 banks past a multiple of 32 at every D).
+template <typename KV, int D>
 __host__ __device__ constexpr int k_row_bytes() {
   return D * static_cast<int>(sizeof(KV)) + 16;
 }
-template <typename KV>
+template <typename KV, int D>
 __host__ __device__ constexpr int stage_bytes() {
-  return 2 * BK * k_row_bytes<KV>();  // V rows are padded alike, for ldmatrix.trans
+  return 2 * BK * k_row_bytes<KV, D>();  // V rows are padded alike, for ldmatrix.trans
 }
 
 // bf16 q: the scores run on the tensor cores (mma.sync, bf16 products are
@@ -166,13 +225,17 @@ template <typename T, typename KV>
 __host__ __device__ constexpr bool mma_pv() {
   return std::is_same_v<T, __nv_bfloat16> && std::is_same_v<KV, __nv_bfloat16>;
 }
-constexpr int QB_ROW = D + 8;  // bf16 elements a row of the staged q
+template <int D>
+__host__ __device__ constexpr int qb_row() {
+  return D + 8;  // bf16 elements a row of the staged q
+}
 
 // R: query rows a block holds (G, or G * T to verify)
-template <typename T, typename KV>
+template <typename T, typename KV, int D>
 size_t smem_bytes(int R) {
-  const size_t q_bf16 = mma_scores<T>() ? (size_t)(R + 15) / 16 * 16 * QB_ROW * 2 : 0;
-  return (size_t)STAGES * stage_bytes<KV>() + q_bf16 +
+  constexpr int NWARPS = block_threads<D>() / 32;
+  const size_t q_bf16 = mma_scores<T>() ? (size_t)(R + 15) / 16 * 16 * qb_row<D>() * 2 : 0;
+  return (size_t)STAGES * stage_bytes<KV, D>() + q_bf16 +
          sizeof(float) * ((size_t)2 * R * D + (size_t)(NWARPS + 1) * R * BK + 4 * (size_t)R);
 }
 
@@ -212,11 +275,13 @@ __device__ __forceinline__ uint32_t pair_bf16(const B8* p) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <typename T, typename KV, bool PAGED>
-__global__ void __launch_bounds__(THREADS) decode_d256_kernel(const Args a) {
+template <typename T, typename KV, int D, bool PAGED, bool VARIANTS>
+__global__ void __launch_bounds__(block_threads<D>()) decode_split_kernel(const Args a) {
+  constexpr int THREADS = block_threads<D>(), NWARPS = THREADS / 32;
+  static_assert(THREADS == D && D == 32 * NWARPS && BK == 32, "a column a thread, 32 dimensions a warp, a key a lane");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int is_last;
-  constexpr int KROW = k_row_bytes<KV>(), KT = BK * KROW, SB = stage_bytes<KV>();
+  constexpr int KROW = k_row_bytes<KV, D>(), KT = BK * KROW, SB = stage_bytes<KV, D>(), QB_ROW = qb_row<D>();
   constexpr int PIECES_ROW = D * sizeof(KV) / 16;  // 16-byte pieces a KV row
   const int chunk = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int G = a.Hq / a.Hkv, span = a.qspan, R = G * span;  // row r = g * T + j
@@ -224,6 +289,8 @@ __global__ void __launch_bounds__(THREADS) decode_d256_kernel(const Args a) {
   const T* q = static_cast<const T*>(a.q);
   const KV* kbase = static_cast<const KV*>(a.k);
   const KV* vbase = static_cast<const KV*>(a.v);
+  const int window = window_of<VARIANTS>(a), sinks = sinks_of<VARIANTS>(a);
+  const float softcap = softcap_of<VARIANTS>(a);
 
   const int RP = (R + 15) / 16 * 16;  // R in 16-row blocks
   __nv_bfloat16* q_bf = reinterpret_cast<__nv_bfloat16*>(smem + STAGES * SB);  // [RP][QB_ROW] (bf16 q)
@@ -243,9 +310,9 @@ __global__ void __launch_bounds__(THREADS) decode_d256_kernel(const Args a) {
   const int cs = chunk * a.chunk, ce = min(cs + a.chunk, len);       // this chunk's rows
   // The band walk: token 0 has the lowest band start lo; the sink tiles below
   // the band's first tile come first, then the band (skip() jumps the gap).
-  const int lo = max(len0 - a.window, 0);
+  const int lo = VARIANTS ? max(len0 - window, 0) : 0;
   const int band0 = lo / BK * BK;
-  const int sink_end = (min(a.sinks, band0) + BK - 1) / BK * BK;
+  const int sink_end = (min(sinks, band0) + BK - 1) / BK * BK;
   auto skip = [&](int j0) { return j0 >= sink_end && j0 < band0 ? band0 : j0; };
 
   // Stage the tile at j0 into buffer buf: rows past the chunk, and rows below
@@ -255,7 +322,7 @@ __global__ void __launch_bounds__(THREADS) decode_d256_kernel(const Args a) {
     for (int i = tid; i < BK * PIECES_ROW; i += THREADS) {
       const int row = i / PIECES_ROW, piece = i % PIECES_ROW;
       const int p = j0 + row;
-      const bool ok = p < ce && (p >= lo || p < a.sinks);
+      const bool ok = p < ce && (!VARIANTS || p >= lo || p < sinks);
       size_t off = 0;  // element offset of KV row p
       if (ok) {
         if constexpr (PAGED) {
@@ -271,7 +338,11 @@ __global__ void __launch_bounds__(THREADS) decode_d256_kernel(const Args a) {
     }
   };
 
-  const bool fold = a.fold_scale != 0;
+  // q is scaled by sm_scale (times k_scale[h] on quantized KV) and rounded
+  // to its dtype where it is staged, on the paged form and on quantized KV;
+  // otherwise the scores are scaled by sm_scale
+  const bool fold = PAGED || a.k_scales != nullptr;
+  const float q_scale = a.k_scales != nullptr ? a.scale * a.k_scales[kvh] : a.scale;
   const float s_scale = fold ? 1.f : a.scale;
   int j0 = skip(cs);
   if (j0 < ce) {
@@ -279,7 +350,7 @@ __global__ void __launch_bounds__(THREADS) decode_d256_kernel(const Args a) {
     cp_async_commit();
     for (int i = tid; i < R * D; i += THREADS) {
       const float x = to_f(q[row0 * D + i]);
-      q_s[i] = fold ? round_to(x * a.scale, q) : x;
+      q_s[i] = fold ? round_to(x * q_scale, q) : x;
     }
     if constexpr (mma_scores<T>()) {
       for (int i = tid; i < RP * D; i += THREADS)  // rows past R are zeros
@@ -357,19 +428,16 @@ __global__ void __launch_bounds__(THREADS) decode_d256_kernel(const Args a) {
     }
     __syncthreads();
 
-    // online softmax: a warp a row, a lane a key; the score is the eight
-    // warps' partials summed in a fixed order, the same for every row
+    // online softmax: a warp a row, a lane a key; the score is the warps'
+    // partials summed in a fixed order, the same for every row
     for (int r = warp; r < R; r += NWARPS) {
-      const float* pr = part + r * BK + lane;
-      const int RB = R * BK;
-      const float dot = ((pr[0] + pr[RB]) + (pr[2 * RB] + pr[3 * RB])) +
-                        ((pr[4 * RB] + pr[5 * RB]) + (pr[6 * RB] + pr[7 * RB]));
+      const float dot = tree_sum<NWARPS>(part + r * BK + lane, R * BK);
       // the row's own valid rows: its length, the chunk's end, its band
       const int len_r = len_s[r];
       const int p = j0 + lane;
-      const bool ok = p < min(ce, len_r) && (p >= len_r - a.window || p < a.sinks);
+      const bool ok = p < min(ce, len_r) && (!VARIANTS || p >= len_r - window || p < sinks);
       float s = dot * s_scale;
-      if (a.softcap > 0.f) s = a.softcap * tanhf(s / a.softcap);
+      if (softcap > 0.f) s = softcap * tanhf(s / softcap);
       s = ok ? s : NEG_INF;
       const float m_old = m_s[r];
       const float m_new = fmaxf(m_old, warp_max(s));
@@ -466,10 +534,12 @@ __global__ void __launch_bounds__(THREADS) decode_d256_kernel(const Args a) {
   }
   __syncthreads();
 
-  // this chunk's partials, at (row0 + r) * n_chunks + chunk
+  // this chunk's partials, at (row0 + r) * n_chunks + chunk; the caller's
+  // partials of quantized V carry v_scale (linear: it commutes with the merge)
   const int n = a.n_chunks;
+  const float o_scale = a.out == nullptr && a.v_scales != nullptr ? a.v_scales[kvh] : 1.f;
   for (int i = tid; i < R * D; i += THREADS)
-    a.o_part[((row0 + i / D) * n + chunk) * D + i % D] = acc[i];
+    a.o_part[((row0 + i / D) * n + chunk) * D + i % D] = acc[i] * o_scale;
   for (int r = tid; r < R; r += THREADS) {
     a.m_part[(row0 + r) * n + chunk] = m_s[r];
     a.l_part[(row0 + r) * n + chunk] = l_s[r];
@@ -487,6 +557,7 @@ __global__ void __launch_bounds__(THREADS) decode_d256_kernel(const Args a) {
   __syncthreads();
   if (!is_last) return;
   __threadfence();
+  const float v_scale = a.v_scales != nullptr ? a.v_scales[kvh] : 1.f;
   for (int i = tid; i < R * D; i += THREADS) {
     const size_t h = row0 + i / D;
     const float* mh = a.m_part + h * n;
@@ -500,31 +571,40 @@ __global__ void __launch_bounds__(THREADS) decode_d256_kernel(const Args a) {
       lg += alpha * __ldcg(lh + c);
       o += alpha * __ldcg(oh + (size_t)c * D);
     }
-    const float res = o / (lg == 0.f ? 1.f : lg);
-    if (a.out_f32) {
-      static_cast<float*>(a.out)[h * D + i % D] = res;
-    } else {
-      from_f(static_cast<T*>(a.out) + h * D + i % D, res);
-    }
+    float res = o / (lg == 0.f ? 1.f : lg);
+    if (a.v_scales != nullptr)  // JAX's roundings: paged once, contiguous twice (q's dtype, then times v_scale)
+      res = PAGED ? res * v_scale : round_to(res, q) * v_scale;
+    from_f(static_cast<T*>(a.out) + h * D + i % D, res);
   }
 }
 
-template <typename T, typename KV, bool PAGED>
+template <typename T, typename KV, int D, bool PAGED, bool VARIANTS>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T, KV>(a.Hq / a.Hkv * a.qspan);
-  auto kernel = decode_d256_kernel<T, KV, PAGED>;
+  const size_t smem = smem_bytes<T, KV, D>(a.Hq / a.Hkv * a.qspan);
+  auto kernel = decode_split_kernel<T, KV, D, PAGED, VARIANTS>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  kernel<<<dim3(a.n_chunks, a.Hkv, B), THREADS, smem, stream>>>(a);
+  kernel<<<dim3(a.n_chunks, a.Hkv, B), block_threads<D>(), smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+template <typename T, typename KV, int D>
+cudaError_t run_d(const Args& a, int B, int paged, int variants, cudaStream_t s) {
+  if (variants) return paged ? launch<T, KV, D, true, true>(a, B, s) : launch<T, KV, D, false, true>(a, B, s);
+  return paged ? launch<T, KV, D, true, false>(a, B, s) : launch<T, KV, D, false, false>(a, B, s);
+}
+
 template <typename T, typename KV>
-cudaError_t run(const Args& a, int B, int paged, cudaStream_t s) {
-  return paged ? launch<T, KV, true>(a, B, s) : launch<T, KV, false>(a, B, s);
+cudaError_t run(const Args& a, int B, int D, int paged, int variants, cudaStream_t s) {
+  switch (D) {
+    case 64: return run_d<T, KV, 64>(a, B, paged, variants, s);
+    case 128: return run_d<T, KV, 128>(a, B, paged, variants, s);
+    case 256: return run_d<T, KV, 256>(a, B, paged, variants, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -533,42 +613,48 @@ extern "C" {
 
 const char* error_string(int e) { return cudaGetErrorString(static_cast<cudaError_t>(e)); }
 
-// q (B, Hq, qspan, D); k, v: one layer's (B, Hkv, S, D) table (paged 0) or
-// (Hkv, num_pages, page_size, D) pool slice (paged 1, with page_table
-// (B, pages_per_seq) and S = pages_per_seq * page_size); lengths (B,).
-// Merging mode: out non-null (q's dtype, or fp32 with out_f32), o/m/l_part
+// q (B, Hq, qspan, D), D 64, 128 or 256; k, v: one layer's (B, Hkv, S, D)
+// table (paged 0) or (Hkv, num_pages, page_size, D) pool slice (paged 1,
+// with page_table (B, pages_per_seq) and S = pages_per_seq * page_size);
+// lengths (B,). Merging mode: out non-null (q's shape and dtype), o/m/l_part
 // a workspace of (B, Hq, qspan, n_chunks[, D]) fp32 and arrivals (B, Hkv)
 // int32 zeros (left at zero). Partials mode: out null, arrivals null,
 // o/m/l_part the caller's (B, Hq, n_chunks[, D]), chunk = split_len.
 // dtype: 0 = fp32 q, 1 = bf16 q; kv_dtype: 0 = q's dtype, 1 = int8, 2 =
-// fp8-e4m3. window (1 << 30 for none), sinks, softcap (0 for none).
-int flash_decode_d256(const void* q, const void* k, const void* v, const void* lengths,
-                      const void* page_table, void* out, void* o_part, void* m_part, void* l_part,
-                      void* arrivals, int B, int Hq, int Hkv, int S, int qspan, int chunk,
-                      int n_chunks, int pages_per_seq, int page_size, int num_pages, float scale,
-                      int fold_scale, int out_f32, int dtype, int kv_dtype, int paged, int window,
-                      int sinks, float softcap, void* stream) {
+// fp8-e4m3, which take k_scales and v_scales (Hkv,) fp32 (null otherwise).
+// variants 0: the plain form (window 1 << 30, sinks 0, softcap 0 required);
+// 1: window (1 << 30 for none), sinks, softcap (0 for none) at run time.
+int flash_decode_split(const void* q, const void* k, const void* v, const void* lengths,
+                       const void* page_table, void* out, void* o_part, void* m_part, void* l_part,
+                       void* arrivals, const void* k_scales, const void* v_scales, int B, int Hq,
+                       int Hkv, int S, int D, int qspan, int chunk, int n_chunks, int pages_per_seq,
+                       int page_size, int num_pages, float scale, int dtype, int kv_dtype, int paged,
+                       int variants, int window, int sinks, float softcap, void* stream) {
   if (qspan < 1 || chunk < 1 || n_chunks < 1 || window < 1 || sinks < 0 || Hkv < 1 || Hq % Hkv)
     return cudaErrorInvalidValue;
   if ((out == nullptr) != (arrivals == nullptr) || (paged && qspan > 1)) return cudaErrorInvalidValue;
+  if ((kv_dtype != 0) != (k_scales != nullptr) || (k_scales == nullptr) != (v_scales == nullptr))
+    return cudaErrorInvalidValue;
+  if (!variants && (window != NO_WINDOW || sinks || softcap > 0.f)) return cudaErrorInvalidValue;
   const Args a{q, k, v, static_cast<const int*>(lengths), static_cast<const int*>(page_table), out,
                static_cast<float*>(o_part), static_cast<float*>(m_part), static_cast<float*>(l_part),
-               static_cast<int*>(arrivals), Hq, Hkv, S, qspan, chunk, n_chunks, pages_per_seq,
-               page_size, num_pages, scale, fold_scale, out_f32, window, sinks, softcap};
+               static_cast<int*>(arrivals), static_cast<const float*>(k_scales),
+               static_cast<const float*>(v_scales), Hq, Hkv, S, qspan, chunk, n_chunks,
+               pages_per_seq, page_size, num_pages, scale, window, sinks, softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 1) {
     switch (kv_dtype) {
-      case 0: e = run<__nv_bfloat16, __nv_bfloat16>(a, B, paged, s); break;
-      case 1: e = run<__nv_bfloat16, int8_t>(a, B, paged, s); break;
-      case 2: e = run<__nv_bfloat16, __nv_fp8_e4m3>(a, B, paged, s); break;
+      case 0: e = run<__nv_bfloat16, __nv_bfloat16>(a, B, D, paged, variants, s); break;
+      case 1: e = run<__nv_bfloat16, int8_t>(a, B, D, paged, variants, s); break;
+      case 2: e = run<__nv_bfloat16, __nv_fp8_e4m3>(a, B, D, paged, variants, s); break;
       default: e = cudaErrorInvalidValue;
     }
   } else {
     switch (kv_dtype) {
-      case 0: e = run<float, float>(a, B, paged, s); break;
-      case 1: e = run<float, int8_t>(a, B, paged, s); break;
-      case 2: e = run<float, __nv_fp8_e4m3>(a, B, paged, s); break;
+      case 0: e = run<float, float>(a, B, D, paged, variants, s); break;
+      case 1: e = run<float, int8_t>(a, B, D, paged, variants, s); break;
+      case 2: e = run<float, __nv_fp8_e4m3>(a, B, D, paged, variants, s); break;
       default: e = cudaErrorInvalidValue;
     }
   }

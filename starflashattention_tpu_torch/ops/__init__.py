@@ -1,6 +1,6 @@
 """Ops with a hand-written Hopper kernel each (sources in ``csrc/``) and a
 plain PyTorch twin: ``cache_append`` (contiguous and paged), ``quant_matmul``,
-``flash_decode``, ``paged_decode`` (the paged mode of ``csrc/flash_decode.cu``),
+``flash_decode``, ``paged_decode`` (the paged form of the same kernels),
 ``flash_prefill``, ``flash_bwd`` (the FA2 backward, and ``flash_attention``,
 the differentiable attention of the training path) and ``fused_mlp`` (the
 quantized SwiGLU MLP in one kernel, exported here). A CPU tensor takes the

@@ -7,24 +7,26 @@ partials ``(o, m, l)`` that :func:`lse_combine_splits` merges;
 ``flash_verify`` attends T consecutive query tokens per sequence under the
 staircase mask of speculative decoding's verify step (token j sees
 ``lengths[b] + j`` rows). On CUDA tensors all three launch
-``csrc/flash_decode.cu``, one kernel with two output modes and a verify
-span (it replaces the TPU kernels ``_decode_kernel_fused``, in both its
-modes, and ``_decode_kernel``), or its build with the attention variants,
-``csrc/flash_decode_variants.cu``; at head_dim 256 they launch
-``csrc/flash_decode_d256.cu`` instead (:func:`launch_d256`: the KV walk
-split across blocks and merged by the last block, in one launch); on CPU
-tensors they run the plain versions below. The split boundaries come from
-:func:`_split_geometry`, a copy of the JAX one, so the partials compare one
-to one.
+``csrc/flash_decode_split.cu`` at head_dim 64, 128 and 256 (it replaces the
+TPU kernels ``_decode_kernel_fused``, in both its modes, and
+``_decode_kernel``): :func:`launch_split` splits the KV walk into chunks
+across blocks (:func:`split_chunking`) and the last block of each
+(sequence, KV head) merges them, in one launch; the split partials run the
+same kernel at the caller's split geometry. MLA's latent row (head_dim 640)
+launches ``csrc/flash_decode.cu``. On CPU tensors they run the plain
+versions below. The split boundaries come from :func:`_split_geometry`, a
+copy of the JAX one, so the partials compare one to one.
 
 Quantized caches (int8 / fp8 tables with (Hkv,) ``k_scales`` /
-``v_scales``) take the JAX wrapper's scale handling, outside the kernel:
-``sm_scale * k_scale[h]`` is folded into q in fp32 and rounded to q's dtype,
-and the kernel scales its scores by 1. The single-split output comes back
-in q's dtype and is multiplied by ``v_scale[h]`` and rounded again (two
-roundings, as in JAX); with splits, ``v_scale`` multiplies the fp32
-partials before the merge. The verify path takes the single-split handling
-on its (B, Hq, T, D) q and output.
+``v_scales``) take the JAX wrapper's scale handling: ``sm_scale *
+k_scale[h]`` is folded into q in fp32 and rounded to q's dtype, and the
+scores are scaled by 1. The single-split output is rounded to q's dtype,
+multiplied by ``v_scale[h]`` and rounded again (two roundings, as in JAX);
+with splits, ``v_scale`` multiplies the fp32 partials before the merge. The
+verify path takes the single-split handling on its (B, Hq, T, D) q and
+output. The kernel does all of this itself (the scale pointers go to it);
+the plain route folds the scales around its attention with torch ops
+(:func:`fold_k_scale`, :func:`scale_heads`), in JAX's order.
 
 The single-split forms (decode and verify) take the attention variants of
 the JAX kernel: a sliding ``window`` (the query at position ``len - 1``
@@ -46,12 +48,11 @@ import torch
 from starflashattention_tpu_torch.core.reference import NEG_INF, repeat_kv
 from starflashattention_tpu_torch.ops import _build
 
-_SIGNATURES = {
-    "flash_decode": [_build.P] * 8 + [_build.I] * 8 + [_build.F, _build.I, _build.I, _build.I,
-                                                       _build.I, _build.F, _build.P],
+_LATENT_SIGNATURES = {
+    "flash_decode": [_build.P] * 8 + [_build.I] * 6 + [_build.F, _build.P],
 }
-_D256_SIGNATURES = {
-    "flash_decode_d256": [_build.P] * 10 + [_build.I] * 10 + [_build.F] + [_build.I] * 7
+_SPLIT_SIGNATURES = {
+    "flash_decode_split": [_build.P] * 12 + [_build.I] * 11 + [_build.F] + [_build.I] * 6
     + [_build.F, _build.P],
 }
 _CUDA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -107,24 +108,23 @@ def _split_geometry(s: int, num_splits: int, block_k: int) -> tuple[int, int, in
 
 
 NO_WINDOW = 1 << 30  # the kernels' window without one: every row below the length is in band
-KERNEL_HEAD_DIMS = (64, 128, 256)
-D256 = 256  # the head_dim csrc/flash_decode_d256.cu serves (the others: flash_decode.cuh)
+KERNEL_HEAD_DIMS = (64, 128, 256)  # the head_dims csrc/flash_decode_split.cu serves
 TILE = 32  # KV rows a tile of the decode kernels
-D256_MIN_CHUNK = 128  # fewest KV rows a block of the D 256 kernel walks
-D256_BLOCKS_PER_SM = 8  # the D 256 chunk grid aims at about this many blocks an SM
+SPLIT_MIN_CHUNK = 128  # fewest KV rows a block of the split kernel walks
+SPLIT_BLOCKS_PER_SM = 8  # the chunk grid aims at about this many blocks an SM
 LATENT_HEAD_DIM = 640  # MLA's cache row: kv_lora_rank 512 + qk_rope 64, padded to 128 lanes
 
 
-def check_head_dim(what, d, q_dtype, kv_dtype, plain_build=True, one_split=True, verify=False):
+def check_head_dim(what, d, q_dtype, kv_dtype, plain=True, one_split=True, verify=False):
     """The head_dims the decode kernels take: 64, 128 or 256, and the latent
-    row's 640 only in its one form (bf16 q and KV, the plain build, one
-    split, no verify span); raises ``ValueError`` naming what is missing."""
+    row's 640 only in its one form (bf16 q and KV, no variant, one split,
+    no verify span); raises ``ValueError`` naming what is missing."""
     if d in KERNEL_HEAD_DIMS:
         return
     if d != LATENT_HEAD_DIM:
         raise ValueError(f"{what}: the CUDA kernel takes head_dim 64, 128, 256 or "
                          f"{LATENT_HEAD_DIM}, got {d}")
-    if not (q_dtype == kv_dtype == torch.bfloat16 and plain_build and one_split and not verify):
+    if not (q_dtype == kv_dtype == torch.bfloat16 and plain and one_split and not verify):
         raise ValueError(f"{what}: head_dim {LATENT_HEAD_DIM} (MLA's latent row) takes bf16 q and KV, "
                          "one split, no window, sinks, softcap or verify span (ROADMAP Queue 2: K1 "
                          "verify and K2 at D 640)")
@@ -165,12 +165,10 @@ def cap_scores(scores, softcap):
     return scores if softcap is None else softcap * torch.tanh(scores / softcap)
 
 
-def library(window, sinks, softcap) -> str:
-    """The decode kernel's build: ``flash_decode_variants`` for a call with
-    a window, sinks or softcap, else ``flash_decode`` (the same kernel
-    without their tests in its loops)."""
-    plain = window is None and not sinks and softcap is None
-    return "flash_decode" if plain else "flash_decode_variants"
+def has_variants(window, sinks, softcap) -> bool:
+    """Whether a call takes a window, sinks or a softcap (the split
+    kernel's VARIANTS form; the plain form compiles them away)."""
+    return window is not None or bool(sinks) or softcap is not None
 
 
 def kernel_options(window, sinks, softcap) -> tuple[int, int, float]:
@@ -196,25 +194,25 @@ def _as_table(k_cache, v_cache, layer):
     return k_cache, v_cache, int(layer)
 
 
-# ----------------------------------------------------------------- the D 256 chunk grid
+# ----------------------------------------------------------------- the chunk grid
 
 
-def d256_chunking(s: int, b: int, hkv: int, sms: int) -> tuple[int, int]:
-    """(C, N): the KV rows each block of a merging D 256 call walks and the
-    chunk count, N = ceil(S / C). C is a multiple of the 32-row tile, at
-    least ``D256_MIN_CHUNK``, and as small as that allows while B * Hkv * N
-    stays near ``D256_BLOCKS_PER_SM`` blocks an SM. It depends on the
-    table's S and on B * Hkv, never on the lengths, so a verify token and
-    the decode at its length see the same chunks."""
-    target = -(-D256_BLOCKS_PER_SM * sms // (b * hkv))
+def split_chunking(s: int, b: int, hkv: int, sms: int) -> tuple[int, int]:
+    """(C, N): the KV rows each block of a merging call of the split kernel
+    walks and the chunk count, N = ceil(S / C). C is a multiple of the
+    32-row tile, at least ``SPLIT_MIN_CHUNK``, and as small as that allows
+    while B * Hkv * N stays near ``SPLIT_BLOCKS_PER_SM`` blocks an SM. It
+    depends on the table's S and on B * Hkv, never on the lengths, so a
+    verify token and the decode at its length see the same chunks."""
+    target = -(-SPLIT_BLOCKS_PER_SM * sms // (b * hkv))
     c = -(-s // target)
-    c = max(D256_MIN_CHUNK, -(-c // TILE) * TILE)
+    c = max(SPLIT_MIN_CHUNK, -(-c // TILE) * TILE)
     return c, -(-s // c)
 
 
-def d256_chunk_walk(length: int, *, s: int, chunk: int, qspan: int = 1, window=None,
-                    sinks: int = 0) -> list[list[tuple[int, list[int]]]]:
-    """Each chunk's walk in ``csrc/flash_decode_d256.cu``, as the kernel
+def split_chunk_walk(length: int, *, s: int, chunk: int, qspan: int = 1, window=None,
+                     sinks: int = 0) -> list[list[tuple[int, list[int]]]]:
+    """Each chunk's walk in ``csrc/flash_decode_split.cu``, as the kernel
     computes it, for a sequence whose token 0 has ``length`` valid rows:
     per chunk, [(tile start, KV rows the tile reads)]. The walk visits the
     sink tiles below the band's first tile, then the band from the tile of
@@ -241,7 +239,7 @@ def d256_chunk_walk(length: int, *, s: int, chunk: int, qspan: int = 1, window=N
 
 
 _SM_COUNT: dict[int, int] = {}
-_D256_WORKSPACE: dict[tuple[int, int], dict] = {}
+_SPLIT_WORKSPACE: dict[tuple[int, int], dict] = {}
 
 
 def sm_count(device: torch.device) -> int:
@@ -252,57 +250,78 @@ def sm_count(device: torch.device) -> int:
     return _SM_COUNT[index]
 
 
-def _d256_workspace(device, rows, n, pairs):
-    """fp32 (o, m, l) for ``rows`` query rows of ``n`` chunks and ``pairs``
-    arrival counters (zeros; the kernel leaves them at zero), cached per
-    device and stream and grown when a call needs more. The kernel's
-    launches on one stream run in order, so one workspace serves them all."""
+def _split_workspace(device, rows, n, d, pairs):
+    """fp32 (o, m, l) for ``rows`` query rows of ``n`` chunks at head_dim
+    ``d`` and ``pairs`` arrival counters (zeros; the kernel leaves them at
+    zero), cached per device and stream and grown when a call needs more.
+    The kernel's launches on one stream run in order, so one workspace
+    serves them all."""
     stream = torch.cuda.current_stream(device).cuda_stream
     key = (device.index, stream)
-    ws = _D256_WORKSPACE.get(key)
-    if ws is None or ws["o"].numel() < rows * n * D256 or ws["arrivals"].numel() < pairs:
-        old_o = 0 if ws is None else ws["o"].numel() // D256
+    ws = _SPLIT_WORKSPACE.get(key)
+    if (ws is None or ws["o"].numel() < rows * n * d or ws["m"].numel() < rows * n
+            or ws["arrivals"].numel() < pairs):
+        old_o = 0 if ws is None else ws["o"].numel()
+        old_cells = 0 if ws is None else ws["m"].numel()
         old_pairs = 0 if ws is None else ws["arrivals"].numel()
-        cells = max(rows * n, old_o)
-        ws = {"o": torch.empty(cells * D256, dtype=torch.float32, device=device),
+        cells = max(rows * n, old_cells)
+        ws = {"o": torch.empty(max(rows * n * d, old_o), dtype=torch.float32, device=device),
               "m": torch.empty(cells, dtype=torch.float32, device=device),
               "l": torch.empty(cells, dtype=torch.float32, device=device),
               "arrivals": torch.zeros(max(pairs, old_pairs), dtype=torch.int32, device=device)}
-        _D256_WORKSPACE[key] = ws
+        _SPLIT_WORKSPACE[key] = ws
     return ws["o"], ws["m"], ws["l"], ws["arrivals"]
 
 
-def launch_d256(q, k_ptr, v_ptr, lengths, *, hkv, s, scale, kv_code, out=None, parts=None,
-                split_len=None, pages=None, out_f32=False, window=None, sinks=0, softcap=None):
-    """Launch ``csrc/flash_decode_d256.cu`` on checked, contiguous inputs:
-    q (B, Hq, D) or (B, Hq, T, D), one layer's K/V pointers, int32 lengths.
-    Merging mode (``out``, q's shape): the chunk grid of
-    :func:`d256_chunking` on the cached workspace, one launch. Partials mode
-    (``parts`` = (o, m, l), ``split_len``): the caller's split geometry.
-    ``pages`` = (page_table, num_pages, page_size) selects the paged form,
-    which folds ``scale`` into q and rounds it to q's dtype."""
+def _scale_vectors(scales, hkv, device):
+    """The (Hkv,) fp32 k / v scale vectors of a quantized call as the
+    kernel reads them (no copy when they already are), or (None, None)."""
+    if scales is None:
+        return None, None
+    out = []
+    for x in scales:
+        if x.shape != (hkv,):
+            raise ValueError(f"KV scales must have shape ({hkv},), got {tuple(x.shape)}")
+        out.append(x.to(device=device, dtype=torch.float32).contiguous())
+    return tuple(out)
+
+
+def launch_split(q, k_ptr, v_ptr, lengths, *, hkv, s, scale, kv_code, scales=None, out=None,
+                 parts=None, split_len=None, pages=None, window=None, sinks=0, softcap=None):
+    """Launch ``csrc/flash_decode_split.cu`` on checked, contiguous inputs:
+    q (B, Hq, D) or (B, Hq, T, D), one layer's K/V pointers, int32 lengths,
+    ``scales`` = (k_scales, v_scales) on a quantized cache. Merging mode
+    (``out``, q's shape): the chunk grid of :func:`split_chunking` on the
+    cached workspace, one launch. Partials mode (``parts`` = (o, m, l),
+    ``split_len``): the caller's split geometry. ``pages`` =
+    (page_table, num_pages, page_size) selects the paged form, which folds
+    ``scale`` into q and rounds it to q's dtype."""
     b, hq = q.shape[:2]
+    d = q.shape[-1]
     qspan = q.shape[2] if q.dim() == 4 else 1
     if out is not None:
-        chunk, n = d256_chunking(s, b, hkv, sm_count(q.device))
-        o, m, l, arrivals = _d256_workspace(q.device, b * hq * qspan, n, b * hkv)
+        chunk, n = split_chunking(s, b, hkv, sm_count(q.device))
+        o, m, l, arrivals = _split_workspace(q.device, b * hq * qspan, n, d, b * hkv)
     else:
         (o, m, l), arrivals = parts, None
         chunk, n = split_len, o.shape[2]
     table, num_pages, page_size = pages if pages is not None else (None, 0, 1)
-    lib = _build.load("flash_decode_d256", _D256_SIGNATURES)
+    k_scales, v_scales = _scale_vectors(scales, hkv, q.device)
+    lib = _build.load("flash_decode_split", _SPLIT_SIGNATURES)
     with torch.cuda.device(q.device):
-        err = lib.flash_decode_d256(
+        err = lib.flash_decode_split(
             _build.ptr(q), k_ptr, v_ptr, _build.ptr(lengths),
             None if table is None else _build.ptr(table), None if out is None else _build.ptr(out),
             _build.ptr(o), _build.ptr(m), _build.ptr(l),
             None if arrivals is None else _build.ptr(arrivals),
-            b, hq, hkv, s, qspan, chunk, n, 0 if table is None else table.shape[1], page_size,
-            num_pages, scale, int(table is not None), int(out_f32), _CUDA_DTYPES[q.dtype], kv_code,
-            int(table is not None), *kernel_options(window, sinks, softcap),
+            None if k_scales is None else _build.ptr(k_scales),
+            None if v_scales is None else _build.ptr(v_scales),
+            b, hq, hkv, s, d, qspan, chunk, n, 0 if table is None else table.shape[1], page_size,
+            num_pages, scale, _CUDA_DTYPES[q.dtype], kv_code, int(table is not None),
+            int(has_variants(window, sinks, softcap)), *kernel_options(window, sinks, softcap),
             _build.stream_ptr(q.device),
         )
-    _build.check(lib, err, "flash_decode_d256")
+    _build.check(lib, err, "flash_decode_split")
 
 
 # ----------------------------------------------------------------- plain versions
@@ -378,12 +397,15 @@ def flash_decode_plain(q, k_cache, v_cache, lengths, *, layer=None, sm_scale=Non
 
 
 def _decode(q, k_cache, v_cache, lengths, layer, sm_scale, num_splits, block_k, k_scales,
-            v_scales, fused, stats, partials=False, opts=None):
+            v_scales, fused, stats, partials=False, opts=None, kernel=False):
     """The wrapper logic shared by the kernel and the plain route: the split
-    choice and, for a quantized cache, the scale folding around ``fused`` /
+    choice and, for a quantized cache, the scales around ``fused`` /
     ``stats`` (functions of q, tables, lengths, layer=, sm_scale=[,
-    num_splits=, block_k=]; ``fused`` also takes the variant ``opts``).
-    A window or softcap needs one split, as in JAX."""
+    num_splits=, block_k=]; ``fused`` also takes the variant ``opts``). On
+    the ``kernel`` route both take ``scales=`` (k_scales, v_scales) or None
+    and apply them in the kernel; on the plain route they are folded around
+    the call in JAX's order. A window or softcap needs one split, as in
+    JAX."""
     k_cache, v_cache, layer = _as_table(k_cache, v_cache, layer)
     opts = opts or variant_options(None, 0, None)
     n = _split_geometry(k_cache.shape[3], num_splits, block_k)[0]
@@ -394,7 +416,14 @@ def _decode(q, k_cache, v_cache, lengths, layer, sm_scale, num_splits, block_k, 
         if opts["softcap"] is not None:
             raise ValueError("attention softcapping requires num_splits=1 (the fused kernel); "
                              "use num_splits=1 for Gemma-2-class models")
-    if _quantized(k_cache, k_scales, v_scales):
+    quantized = _quantized(k_cache, k_scales, v_scales)
+    if kernel:
+        kw = dict(layer=layer, sm_scale=sm_scale, scales=(k_scales, v_scales) if quantized else None)
+        if n == 1 and not partials:
+            return fused(q, k_cache, v_cache, lengths, **kw, **opts)
+        o, m, l = stats(q, k_cache, v_cache, lengths, num_splits=num_splits, block_k=block_k, **kw)
+        return (o, m, l) if partials else lse_combine_splits(o, m, l, dtype=q.dtype)
+    if quantized:
         q, sm_scale = fold_k_scale(q, sm_scale, k_scales), 1.0
     else:
         v_scales = None
@@ -424,11 +453,11 @@ def lse_combine_splits(o_parts, m_parts, l_parts, dtype=None):
 # ----------------------------------------------------------------- kernel
 
 
-def _launch(q, k_cache, v_cache, lengths, layer, sm_scale, n, split_len, fused, window=None,
-            sinks=0, softcap=None):
-    """Run csrc/flash_decode.cu (csrc/flash_decode_d256.cu at head_dim 256)
-    on one layer of the table; returns the normalized output (fused; q (B,
-    Hq, D), or (B, Hq, T, D) to verify) or the (o, m, l) partials."""
+def _launch(q, k_cache, v_cache, lengths, layer, sm_scale, n, split_len, fused, scales=None,
+            window=None, sinks=0, softcap=None):
+    """Run csrc/flash_decode_split.cu (csrc/flash_decode.cu at MLA's head_dim
+    640) on one layer of the table; returns the normalized output (fused; q
+    (B, Hq, D), or (B, Hq, T, D) to verify) or the (o, m, l) partials."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
     l_, b, hkv, s, d = k_cache.shape
@@ -443,7 +472,7 @@ def _launch(q, k_cache, v_cache, lengths, layer, sm_scale, n, split_len, fused, 
                          f"{q.dtype} / {k_cache.dtype} / {v_cache.dtype}")
     kv_code = kv_dtype_code(q.dtype, k_cache.dtype)
     check_head_dim("flash_decode", d, q.dtype, k_cache.dtype,
-                   library(window, sinks, softcap) == "flash_decode", fused, qspan > 1)
+                   not has_variants(window, sinks, softcap), fused, qspan > 1)
     if v_cache.shape != k_cache.shape or not (k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError("K and V tables must be contiguous and of one shape")
     if not 0 <= layer < l_:
@@ -463,37 +492,36 @@ def _launch(q, k_cache, v_cache, lengths, layer, sm_scale, n, split_len, fused, 
         l = torch.empty((b, hq, n), dtype=torch.float32, device=q.device)
         parts = (o, m, l)
     scale = 1.0 / d**0.5 if sm_scale is None else float(sm_scale)
-    if d == D256:
-        launch_d256(q, k_ptr, v_ptr, lengths, hkv=hkv, s=s, scale=scale, kv_code=kv_code, out=out,
-                    parts=None if fused else parts, split_len=split_len, window=window, sinks=sinks,
-                    softcap=softcap)
+    if d != LATENT_HEAD_DIM:
+        launch_split(q, k_ptr, v_ptr, lengths, hkv=hkv, s=s, scale=scale, kv_code=kv_code,
+                     scales=scales, out=out, parts=None if fused else parts, split_len=split_len,
+                     window=window, sinks=sinks, softcap=softcap)
         return out if fused else parts
-    lib = _build.load(library(window, sinks, softcap), _SIGNATURES)
+    lib = _build.load("flash_decode", _LATENT_SIGNATURES)
     with torch.cuda.device(q.device):
         err = lib.flash_decode(
-            _build.ptr(q), k_ptr, v_ptr, _build.ptr(lengths),
-            _build.ptr(out) if fused else None,
-            *(None if t is None else _build.ptr(t) for t in parts),
-            b, hq, hkv, s, d, n, split_len, qspan, scale, _CUDA_DTYPES[q.dtype], kv_code,
-            *kernel_options(window, sinks, softcap), _build.stream_ptr(q.device),
+            _build.ptr(q), k_ptr, v_ptr, _build.ptr(lengths), _build.ptr(out), None, None, None,
+            b, hq, hkv, s, n, split_len, scale, _build.stream_ptr(q.device),
         )
     _build.check(lib, err, "flash_decode")
-    return out if fused else parts
+    return out
 
 
-def _fused_kernel(q, k_cache, v_cache, lengths, *, layer, sm_scale, **opts):
+def _fused_kernel(q, k_cache, v_cache, lengths, *, layer, sm_scale, scales, **opts):
     s = k_cache.shape[3]
-    out = _launch(q, k_cache, v_cache, lengths, layer, sm_scale, 1, s, fused=True, **opts)
+    out = _launch(q, k_cache, v_cache, lengths, layer, sm_scale, 1, s, fused=True, scales=scales,
+                  **opts)
     flash_decode.launches += 1
     if opts["window"] is not None and opts["window"] < s:
         flash_decode.launches_banded += 1
     return out
 
 
-def _stats_kernel(q, k_cache, v_cache, lengths, *, layer, sm_scale, num_splits, block_k):
+def _stats_kernel(q, k_cache, v_cache, lengths, *, layer, sm_scale, num_splits, block_k, scales):
     s = k_cache.shape[3]
     n, _, _ = _split_geometry(s, num_splits, block_k)
-    parts = _launch(q, k_cache, v_cache, lengths, layer, sm_scale, n, s // n, fused=False)
+    parts = _launch(q, k_cache, v_cache, lengths, layer, sm_scale, n, s // n, fused=False,
+                    scales=scales)
     flash_decode.launches += 1
     return parts
 
@@ -519,7 +547,7 @@ def flash_decode_with_stats(
             q, k_cache, v_cache, lengths, layer=layer, sm_scale=sm_scale,
             num_splits=num_splits, block_k=block_k, k_scales=k_scales, v_scales=v_scales)
     return _decode(q, k_cache, v_cache, lengths, layer, sm_scale, num_splits, block_k, k_scales,
-                   v_scales, None, _stats_kernel, partials=True)
+                   v_scales, None, _stats_kernel, partials=True, kernel=True)
 
 
 def flash_decode(
@@ -556,7 +584,7 @@ def flash_decode(
                                   v_scales=v_scales, window=window, sinks=sinks, softcap=softcap)
     return _decode(q, k_cache, v_cache, lengths, layer, sm_scale, num_splits, block_k, k_scales,
                    v_scales, _fused_kernel, _stats_kernel,
-                   opts=variant_options(window, sinks, softcap))
+                   opts=variant_options(window, sinks, softcap), kernel=True)
 
 
 flash_decode.launches = 0
@@ -566,9 +594,10 @@ flash_decode.launches_banded = 0  # those whose window band is narrower than the
 # ----------------------------------------------------------------- verify
 
 
-def _verify_kernel(q, k_cache, v_cache, lengths, *, layer, sm_scale, **opts):
+def _verify_kernel(q, k_cache, v_cache, lengths, *, layer, sm_scale, scales, **opts):
     s = k_cache.shape[3]
-    out = _launch(q, k_cache, v_cache, lengths, layer, sm_scale, 1, s, fused=True, **opts)
+    out = _launch(q, k_cache, v_cache, lengths, layer, sm_scale, 1, s, fused=True, scales=scales,
+                  **opts)
     flash_verify.launches += 1
     return out
 
@@ -614,9 +643,10 @@ def flash_verify(
     ``flash_verify.launches``."""
     del max_len_hint
     _check_span(q)
-    fused = _fused_plain if q.device.type == "cpu" else _verify_kernel
+    kernel = q.device.type != "cpu"
     return _decode(q, k_cache, v_cache, lengths, layer, sm_scale, 1, block_k, k_scales, v_scales,
-                   fused, None, opts=variant_options(window, sinks, softcap))
+                   _verify_kernel if kernel else _fused_plain, None,
+                   opts=variant_options(window, sinks, softcap), kernel=kernel)
 
 
 flash_verify.launches = 0

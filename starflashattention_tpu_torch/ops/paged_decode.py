@@ -3,29 +3,28 @@
 ``paged_flash_decode`` attends one query token per sequence against the
 first ``lengths[b]`` positions of its sequence, read from the
 (L, Hkv, P, page_size, D) page pools through the (B, pages_per_seq) page
-table. On CUDA tensors it launches the paged mode of
-``csrc/flash_decode.cu`` (or, with a window, sinks or softcap, of its
-variants build ``csrc/flash_decode_variants.cu``; at head_dim 256 the paged
-form of ``csrc/flash_decode_d256.cu``, on the contiguous decode's chunk
-grid; it replaces the TPU kernel ``_paged_decode_kernel``): the same tile
-loop and online softmax as the contiguous decode (K1), with each KV row's
-address resolved through the table. On CPU tensors it runs
-:func:`paged_flash_decode_plain`.
+table. On CUDA tensors it launches the paged form of
+``csrc/flash_decode_split.cu`` at head_dim 64, 128 and 256 (it replaces the
+TPU kernel ``_paged_decode_kernel``): the contiguous decode's (K1's) split
+KV walk on its chunk grid, with each KV row's address resolved through the
+table, merged by the last block in the same launch; MLA's latent row
+(head_dim 640) launches the paged mode of ``csrc/flash_decode.cu``. On CPU
+tensors it runs :func:`paged_flash_decode_plain`.
 
 As the JAX wrapper does, ``sm_scale`` is folded into q and the scaled q is
 rounded to q's dtype before the dot products. Int8 / fp8 pools fold
-``sm_scale * k_scale[h]`` into q the same way (in the wrapper, the kernel
-then multiplies by 1); the kernel writes its output in fp32, which is
+``sm_scale * k_scale[h]`` into q the same way, and the fp32 output is
 multiplied by ``v_scale[h]`` and cast to q's dtype once (JAX
-paged_decode.py:341-346, :404-406). A row of length 0 gives exactly 0 (the
-JAX kernel also gives 0 there). ``window``, ``sinks`` and ``softcap`` act as
-in ``ops/flash_decode.py`` (the softcap on the scaled, rounded q's scores);
-the kernel never reads a page table entry below a row's band that is not a
-sink, so pages the engine has reclaimed (entries set to the null page 0)
-are never read. ``pages_per_compute_block`` and ``max_len_hint`` size the
-TPU grid and are accepted and unused (each block walks its own row's
-length). head_dim as in ``ops/flash_decode.py``: 640 (MLA's latent row) in
-bf16 without the variants.
+paged_decode.py:341-346, :404-406): the kernel does both itself; the plain
+route does them around its attention with torch ops. A row of length 0
+gives exactly 0 (the JAX kernel also gives 0 there). ``window``, ``sinks``
+and ``softcap`` act as in ``ops/flash_decode.py`` (the softcap on the
+scaled, rounded q's scores); the kernel never reads a page table entry below
+a row's band that is not a sink, so pages the engine has reclaimed (entries
+set to the null page 0) are never read. ``pages_per_compute_block`` and
+``max_len_hint`` size the TPU grid and are accepted and unused. head_dim as
+in ``ops/flash_decode.py``: 640 (MLA's latent row) in bf16 without the
+variants.
 """
 
 from __future__ import annotations
@@ -34,15 +33,13 @@ import torch
 
 from starflashattention_tpu_torch.core.reference import NEG_INF, repeat_kv
 from starflashattention_tpu_torch.ops import _build
-from starflashattention_tpu_torch.ops.flash_decode import (D256, _quantized, cap_scores,
-                                                           check_head_dim, fold_k_scale, in_band,
-                                                           kernel_options, kv_dtype_code,
-                                                           launch_d256, library, scale_heads,
-                                                           variant_options)
+from starflashattention_tpu_torch.ops.flash_decode import (LATENT_HEAD_DIM, _quantized, cap_scores,
+                                                           check_head_dim, fold_k_scale, has_variants,
+                                                           in_band, kv_dtype_code, launch_split,
+                                                           scale_heads, variant_options)
 
-_SIGNATURES = {
-    "paged_flash_decode": [_build.P] * 6 + [_build.I] * 7 + [_build.F] + [_build.I] * 5
-    + [_build.F, _build.P],
+_LATENT_SIGNATURES = {
+    "paged_flash_decode": [_build.P] * 6 + [_build.I] * 6 + [_build.F, _build.P],
 }
 _CUDA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -86,17 +83,17 @@ def _core_plain(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, windo
     return torch.einsum("bhk,bhkd->bhd", p, v) / torch.where(l == 0, torch.ones_like(l), l)
 
 
-def _paged(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, k_scales, v_scales, core,
-           opts):
-    """Shared by the kernel and the plain route: ``core(q, pools, table,
-    lengths, layer, sm_scale, out_f32, **opts)`` attends; quantized pools
-    fold their scales around it as the JAX wrapper does."""
+def _paged_plain(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, k_scales, v_scales,
+                 opts):
+    """The plain route: quantized pools fold their scales around
+    :func:`_core_plain` as the JAX wrapper does (q * sm_scale * k_scale
+    rounded to q's dtype, the fp32 output times v_scale, one cast)."""
     k_pages, v_pages, layer = _as_stack(k_pages, v_pages, layer)
     if not _quantized(k_pages, k_scales, v_scales):
-        return core(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, False,
-                    **opts).to(q.dtype)
-    o = core(fold_k_scale(q, sm_scale, k_scales), k_pages, v_pages, page_table, lengths, layer,
-             1.0, True, **opts)
+        return _core_plain(q, k_pages, v_pages, page_table, lengths, layer, sm_scale,
+                           **opts).to(q.dtype)
+    o = _core_plain(fold_k_scale(q, sm_scale, k_scales), k_pages, v_pages, page_table, lengths,
+                    layer, 1.0, **opts)
     return scale_heads(o, v_scales).to(q.dtype)  # one cast
 
 
@@ -105,15 +102,16 @@ def paged_flash_decode_plain(q, k_pages, v_pages, page_table, lengths, *, layer=
                              softcap=None):
     """Plain PyTorch version -> (B, Hq, D) in q's dtype (quantized pools and
     the variants included)."""
-    return _paged(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, k_scales, v_scales,
-                  lambda *a, **kw: _core_plain(*a[:-1], **kw),
-                  variant_options(window, sinks, softcap))
+    return _paged_plain(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, k_scales,
+                        v_scales, variant_options(window, sinks, softcap))
 
 
-def _core_kernel(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, out_f32, window=None,
-                 sinks=0, softcap=None):
+def _paged_kernel(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, k_scales, v_scales,
+                  window=None, sinks=0, softcap=None):
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_decode: unsupported device {q.device}")
+    k_pages, v_pages, layer = _as_stack(k_pages, v_pages, layer)
+    scales = (k_scales, v_scales) if _quantized(k_pages, k_scales, v_scales) else None
     l_, hkv, num_pages, ps, d = k_pages.shape
     b, hq, _ = q.shape
     if q.shape != (b, hq, d) or hq % hkv:
@@ -123,7 +121,7 @@ def _core_kernel(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, out_
                          f"{q.dtype} / {k_pages.dtype} / {v_pages.dtype}")
     kv_code = kv_dtype_code(q.dtype, k_pages.dtype)
     check_head_dim("paged_flash_decode", d, q.dtype, k_pages.dtype,
-                   library(window, sinks, softcap) == "flash_decode")
+                   not has_variants(window, sinks, softcap))
     if v_pages.shape != k_pages.shape or not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ValueError("K and V pools must be contiguous and of one shape")
     if page_table.dim() != 2 or page_table.shape[0] != b or lengths.shape != (b,):
@@ -135,21 +133,20 @@ def _core_kernel(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, out_
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
     layer_bytes = hkv * num_pages * ps * d * k_pages.element_size()
-    out = torch.empty(q.shape, dtype=torch.float32 if out_f32 else q.dtype, device=q.device)
+    out = torch.empty_like(q)
     scale = 1.0 / d**0.5 if sm_scale is None else float(sm_scale)
     k_ptr = _build.P(k_pages.data_ptr() + layer * layer_bytes)
     v_ptr = _build.P(v_pages.data_ptr() + layer * layer_bytes)
-    if d == D256:
-        launch_d256(q, k_ptr, v_ptr, lengths, hkv=hkv, s=table.shape[1] * ps, scale=scale,
-                    kv_code=kv_code, out=out, pages=(table, num_pages, ps), out_f32=out_f32,
-                    window=window, sinks=sinks, softcap=softcap)
+    if d != LATENT_HEAD_DIM:
+        launch_split(q, k_ptr, v_ptr, lengths, hkv=hkv, s=table.shape[1] * ps, scale=scale,
+                     kv_code=kv_code, scales=scales, out=out, pages=(table, num_pages, ps),
+                     window=window, sinks=sinks, softcap=softcap)
     else:
-        lib = _build.load(library(window, sinks, softcap), _SIGNATURES)
+        lib = _build.load("flash_decode", _LATENT_SIGNATURES)
         with torch.cuda.device(q.device):
             err = lib.paged_flash_decode(
                 _build.ptr(q), k_ptr, v_ptr, _build.ptr(lengths), _build.ptr(table), _build.ptr(out),
-                b, hq, hkv, num_pages, ps, table.shape[1], d, scale, _CUDA_DTYPES[q.dtype], kv_code,
-                int(out_f32), *kernel_options(window, sinks, softcap), _build.stream_ptr(q.device),
+                b, hq, hkv, num_pages, ps, table.shape[1], scale, _build.stream_ptr(q.device),
             )
         _build.check(lib, err, "paged_flash_decode")
     paged_flash_decode.launches += 1
@@ -181,8 +178,8 @@ def paged_flash_decode(
         return paged_flash_decode_plain(q, k_pages, v_pages, page_table, lengths, layer=layer,
                                         sm_scale=sm_scale, k_scales=k_scales, v_scales=v_scales,
                                         window=window, sinks=sinks, softcap=softcap)
-    return _paged(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, k_scales, v_scales,
-                  _core_kernel, variant_options(window, sinks, softcap))
+    return _paged_kernel(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, k_scales,
+                         v_scales, **variant_options(window, sinks, softcap))
 
 
 paged_flash_decode.launches = 0

@@ -11,9 +11,10 @@ groups that end inside a stage), K4's tiled form on int8 and fp8 weights at
 partial tiles and a TP shard's K, K10 / K11 (W8A8 / W4A8; K11 also at
 phase 14's TP-4 shard shapes), the int8 / fp8 options of K1, K2 and K7, and
 K8 on 1-byte pools; quantized deployments
-through ``generate`` and both engines. Head_dim 256 (its own kernel, the KV
-walk split across blocks): decode, verify and paged decode at the edge
-cases of ``tests/test_torch_split_decode.py``, on bf16, int8 and fp8 KV.
+through ``generate`` and both engines. Decode at head_dim 64, 128 and 256
+(one kernel, the KV walk split across blocks, the quantized KV's scales
+folded in it): decode, verify and paged decode at the edge cases of
+``tests/test_torch_split_decode.py``, on bf16, int8 and fp8 KV.
 
 Tolerances, each against the plain twin on the same card and inputs:
 - bf16 attention outputs: both sides compute in fp32 and round once to
@@ -395,8 +396,8 @@ def _quantized(t, mode, scales, head_axis):
 @pytest.mark.parametrize("num_splits", [1, 4])
 @pytest.mark.parametrize("d", [64, 128])
 def test_flash_decode_quantized_kernel_matches_plain(cuda, mode, num_splits, d):
-    """K1 / K2 on int8 / fp8 tables: the kernel reads 1-byte values; the
-    scale folding is the wrapper's, shared with the plain route."""
+    """K1 / K2 on int8 / fp8 tables: the kernel reads 1-byte values and
+    folds the scales itself, in the order the plain route folds them."""
     gen = _gen(cuda)
     b, hq, hkv, s = 4, 8, 2, 512
     qmax = 127.0 if mode == "int8" else 448.0
@@ -925,8 +926,9 @@ def test_paged_flash_decode_variants_match_plain(cuda, variant, d, page_size):
         assert torch.equal(paged_decode.paged_flash_decode(q, kp, vp, nulled, lengths, **kw), out)
 
 
-# head_dim 256 (csrc/flash_decode_d256.cu): tests/test_torch_split_decode.py's
-# edge cases, name: (lengths of token 0, window, sinks, softcap, tokens T)
+# the split-KV kernel (csrc/flash_decode_split.cu) at head_dim 64, 128 and
+# 256: tests/test_torch_split_decode.py's edge cases, name: (lengths of token
+# 0, window, sinks, softcap, tokens T)
 D256_CASES = {
     "length-0-and-below-a-tile": ((0, 17, 200, 256), None, 0, None, 1),
     "window-below-a-tile": ((5, 17, 150, 256), 20, 0, None, 1),
@@ -939,23 +941,25 @@ D256_CASES = {
 
 
 def _arrivals_at_rest():
-    """The D 256 kernel's arrival counters are back at 0 after its calls."""
+    """The split kernel's arrival counters are back at 0 after its calls."""
     torch.cuda.synchronize()
-    return all(int(ws["arrivals"].abs().sum()) == 0 for ws in flash_decode._D256_WORKSPACE.values())
+    return all(int(ws["arrivals"].abs().sum()) == 0 for ws in flash_decode._SPLIT_WORKSPACE.values())
 
 
 @pytest.mark.parametrize("case", sorted(D256_CASES))
 @pytest.mark.parametrize("kv", ["bf16", "int8", "fp8"])
-def test_d256_decode_and_verify_edge_cases_match_plain(cuda, case, kv):
-    """The D 256 kernel (split KV walk, one merging launch) on the CPU test's
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_d256_decode_and_verify_edge_cases_match_plain(cuda, case, kv, d):
+    """The split kernel (split KV walk, one merging launch) on the CPU test's
     edge cases at S 512 (at least 4 chunks: a band across chunk boundaries,
-    chunks the walk misses, a row of length 0): against the plain twin;
-    verify token j bit for bit the decode at lengths + j; rows below every
-    band poisoned with NaN change no bit; the arrival counters end at 0."""
+    chunks the walk misses, a row of length 0), at every head_dim: against
+    the plain twin; verify token j bit for bit the decode at lengths + j;
+    rows below every band poisoned with NaN change no bit; the arrival
+    counters end at 0."""
     lens, w, sk, cap, t = D256_CASES[case]
     gen = _gen(cuda)
-    b, hq, hkv, s, d = 4, 8, 2, 512, 256
-    assert flash_decode.d256_chunking(s, b, hkv, flash_decode.sm_count(cuda))[1] >= 4
+    b, hq, hkv, s = 4, 8, 2, 512
+    assert flash_decode.split_chunking(s, b, hkv, flash_decode.sm_count(cuda))[1] >= 4
     q = torch.randn((b, hq, t, d), generator=gen, device=cuda, dtype=torch.bfloat16)
     k = torch.randn((1, b, hkv, s, d), generator=gen, device=cuda)
     v = torch.randn((1, b, hkv, s, d), generator=gen, device=cuda)
@@ -997,13 +1001,15 @@ def test_d256_decode_and_verify_edge_cases_match_plain(cuda, case, kv):
 @pytest.mark.parametrize("case", sorted(c for c in D256_CASES if D256_CASES[c][4] == 1))
 @pytest.mark.parametrize("kv", ["bf16", "int8", "fp8"])
 @pytest.mark.parametrize("page_size", [16, 128])
-def test_d256_paged_edge_cases_match_plain(cuda, case, kv, page_size):
-    """K7 at D 256 through the same kernel on a shuffled page table, on the
-    contiguous decode's chunk grid; with a window, the entries below each
-    band (past the sink pages) become the null page, which holds NaN."""
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_d256_paged_edge_cases_match_plain(cuda, case, kv, page_size, d):
+    """K7 through the same kernel on a shuffled page table, on the
+    contiguous decode's chunk grid, at every head_dim; with a window, the
+    entries below each band (past the sink pages) become the null page,
+    which holds NaN."""
     lens, w, sk, cap, _ = D256_CASES[case]
     dtype = torch.bfloat16 if kv == "bf16" else torch.float32
-    k, v, table, _ = _paged_setup(cuda, dtype, page_size, d=256, pages_per_seq=512 // page_size,
+    k, v, table, _ = _paged_setup(cuda, dtype, page_size, d=d, pages_per_seq=512 // page_size,
                                   layers=1)
     kw = dict(layer=0, window=w, sinks=sk, softcap=cap)
     if kv != "bf16":
@@ -1012,7 +1018,7 @@ def test_d256_paged_edge_cases_match_plain(cuda, case, kv, page_size):
         k, v = _quantized(k, kv, ks, 1), _quantized(v, kv, ks, 1)
         kw.update(k_scales=ks, v_scales=ks)
     lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
-    q = torch.randn((4, 8, 256), generator=_gen(cuda), device=cuda, dtype=torch.bfloat16)
+    q = torch.randn((4, 8, d), generator=_gen(cuda), device=cuda, dtype=torch.bfloat16)
     before = paged_decode.paged_flash_decode.launches
     out = paged_decode.paged_flash_decode(q, k, v, table, lengths, **kw)
     assert paged_decode.paged_flash_decode.launches == before + 1

@@ -298,7 +298,7 @@ def test_latent_forms_the_card_refuses():
     for args in ((bf16, torch.int8), (torch.float32, torch.float32)):
         with pytest.raises(ValueError, match="640"):
             flash_decode.check_head_dim("k", 640, *args)
-    for kw in (dict(plain_build=False), dict(one_split=False), dict(verify=True)):
+    for kw in (dict(plain=False), dict(one_split=False), dict(verify=True)):
         with pytest.raises(ValueError, match="K2 at D 640"):
             flash_decode.check_head_dim("k", 640, bf16, bf16, **kw)
     with pytest.raises(ValueError, match="head_dim"):
