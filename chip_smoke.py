@@ -75,8 +75,11 @@ Phases (any failure raises and the script exits non-zero):
    Gemma-7B), the bounds counting the in-band pairs; the banded K12's
    time is printed beside the unbanded one's at Mistral's shape. MLA's
    latent geometry (DeepSeek-V2-Lite: 16 query heads on one 640-lane latent
-   KV head, sm_scale 192 ** -0.5): K1 at B 4, S 4096, lengths 2,000-4,064,
-   K7 on the same rows in 128-row shuffled pages and K5 on 2048-row causal
+   KV head, sm_scale 192 ** -0.5): K1 at B 4, S 4096, lengths 2,000-4,064
+   (with ``[grid]`` and ``[merge]`` lines: chunks half and twice the grid's,
+   and a partials-only launch at its grid), K2 with 4 splits on the same
+   rows (its partials held to the twin's), K7 on the same rows in 128-row
+   shuffled pages and K5 on 2048-row causal
    chunks at offsets 0 and 2048, each within 2 (decode) or 3 (K5) bf16
    ulps of each element of its twin, and each shown to see the shape (with
    q's rope lanes zeroed, or its heads rolled by 8, the kernel lies over 4x
@@ -242,8 +245,9 @@ Phases (any failure raises and the script exits non-zero):
    the engines' streams equal generate's, or pass phase 8's teacher-forced
    tie check; TTFT and launches a step. (b) The JAX package's decode chain
    (benchmarks/bench_suite.py:1180-1212): B 4 at 4096 - 33 rows, 32 greedy
-   steps on the host clock, then 8 traced (device busy and idle shares),
-   beside its byte accounting's bound; peak memory. Then 4 full-width
+   steps on the host clock, then 8 traced (device busy and idle shares,
+   K1's device ms a step), beside its byte accounting's bound; peak
+   memory. Then 4 full-width
    layers against the plain route (phase 4's check). (c)
    ``ModelConfig.mixtral_8x7b`` at full width cut to 2 layers, int8
    weights, experts (K4 at lidx * E + e) and lm_head, bf16 KV: ``generate``
@@ -421,9 +425,11 @@ DSV2_TRACED_STEPS = 8
 DSV2_CHECK_PROMPTS = (1500, 2500)  # phase 12a's 4-layer check against the plain route
 LATENT_SEQ = 4096  # phase 12's max_seq_len
 LATENT_CHUNK = 2048  # PagedEngine's prefill chunk in phase 12a
+LATENT_GROUP = 16  # DeepSeek-V2-Lite's query heads on its one latent KV head
 LATENT_ENTRIES = {
     "decode": "flash_decode D640 G16 (MLA latent row, DeepSeek-V2-Lite)",
     "paged": "paged_flash_decode D640 G16 (MLA latent row, DeepSeek-V2-Lite)",
+    "split": "flash_decode D640 G16 (split-KV partials, 4 splits, MLA latent row)",
     "prefill": "flash_prefill D640 G16 causal (MLA latent row, DeepSeek-V2-Lite)",
     "int4_experts": "quant_matmul_int4 experts at lidx*E+e (DeepSeek-V2-Lite int4 g128, 4 rows)",
     "int8_experts": "quant_matmul experts at lidx*E+e (Mixtral-8x7B int8, 4 rows)",
@@ -563,7 +569,9 @@ def phase_device_and_build():
                         + (f", {smem} bytes of dynamic shared memory" if smem else ""))
         for label in (_latent_label, _redesign_label):
             for kernel, regs, spill in _entry_resources(r["ptxas"], label):
-                log(f"[build]   {kernel}: {regs} registers, spill stores {spill} bytes")
+                smem = _latent_decode_smem(kernel)
+                log(f"[build]   {kernel}: {regs} registers, spill stores {spill} bytes"
+                    + (f", {smem} bytes of dynamic shared memory at {LATENT_GROUP} rows" if smem else ""))
     return smi
 
 
@@ -584,19 +592,33 @@ def _attention_smem(kernel):
 
 
 def _latent_label(name):
-    """The display name of an MLA latent-row form (head_dim 640), else None."""
+    """The display name of an MLA latent-row form (head_dim 640), else None:
+    K5's and the split-KV decode kernel's two D 640 instantiations."""
     if "latent" in name:
         return "flash_prefill_latent_kernel (D 640)"
-    if "Li640E" in name:
-        return f"flash_decode_kernel<bf16, bf16, 640, {'paged' if 'Li640ELb1E' in name else 'contiguous'}>"
+    if "decode_split_kernel" in name and "Li640E" in name:
+        return f"decode_split_kernel<bf16, bf16, 640, {'paged' if 'Li640ELb1E' in name else 'contiguous'}>"
     return None
 
 
+def _latent_decode_smem(kernel):
+    """The dynamic shared memory (bytes) of a D 640 decode block of
+    LATENT_GROUP rows as its library reports it, for a split-KV decode
+    kernel's D 640 label, else None."""
+    if not kernel.startswith("decode_split_kernel<bf16, bf16, 640"):
+        return None
+    from starflashattention_tpu_torch.ops import _build
+
+    lib = _build.load("flash_decode_split", {"flash_decode_split_smem_bytes": [_build.I] * 2})
+    return lib.flash_decode_split_smem_bytes(640, LATENT_GROUP)
+
+
 def _redesign_label(name):
-    """The redesigned kernels by mangled name: the split-KV decode and the
-    tiled int4, int8 / fp8 and W4A8 matmuls."""
+    """The redesigned kernels by mangled name: the split-KV decode (its D
+    640 forms are _latent_label's) and the tiled int4, int8 / fp8 and W4A8
+    matmuls."""
     return name if any(k in name for k in ("decode_split_kernel", "qmm_int4_tiled", "qmm_8bit_tiled",
-                                            "qmm_w4a8_tiled")) else None
+                                            "qmm_w4a8_tiled")) and "Li640E" not in name else None
 
 
 def _entry_resources(ptxas, label):
@@ -1882,31 +1904,39 @@ def _variants_form(entry, run, run_variants, out, timer, ms):
         f"arguments) {t:.4f} ms ({t / ms - 1:+.1%})")
 
 
-def split_grid(b, hkv, s):
-    """(N, C) of a merging split-KV decode call on this card: the chunk
-    count and the rows each block walks (ops/flash_decode.split_chunking)."""
+def split_grid(b, hkv, s, d=128):
+    """(N, C) of a merging split-KV decode call on this card at head_dim d
+    (one grid for D 64, 128 and 256): the chunk count and the rows each
+    block walks (ops/flash_decode.split_chunking)."""
     from starflashattention_tpu_torch.ops.flash_decode import sm_count, split_chunking
 
-    c, n = split_chunking(s, b, hkv, sm_count(torch.device("cuda", 0)))
+    c, n = split_chunking(s, b, hkv, sm_count(torch.device("cuda", 0)), d)
     return n, c
+
+
+@contextlib.contextmanager
+def forced_chunk(c):
+    """Inside the block, merging split-KV decode calls take chunks of ``c``
+    rows (ops/flash_decode.split_chunking patched)."""
+    from starflashattention_tpu_torch.ops import flash_decode as fd
+
+    keep = fd.split_chunking
+    fd.split_chunking = lambda s, *_: (c, -(-s // c))
+    try:
+        yield
+    finally:
+        fd.split_chunking = keep
 
 
 def coarser_grid(entry, fn, b, hkv, s, timer, ms):
     """Log the chunk grid a merging split-KV row ran at ``ms`` and time the
-    row once more on a coarser grid, chunks twice as long (the minimum
-    chunk set to twice the row's own); returns that time."""
-    from starflashattention_tpu_torch.ops import flash_decode as fd
-
+    row once more on a coarser grid, chunks twice as long; returns that
+    time."""
     n, c = split_grid(b, hkv, s)
-    keep = fd.SPLIT_MIN_CHUNK
-    fd.SPLIT_MIN_CHUNK = 2 * c
-    try:
-        n2, c2 = split_grid(b, hkv, s)
+    with forced_chunk(2 * c):
         coarse = timer(fn)
-    finally:
-        fd.SPLIT_MIN_CHUNK = keep
     log(f"[grid] {entry}: {n} chunks of {c} rows a (sequence, KV head), {ms:.4f} ms; coarser grid, "
-        f"{n2} chunks of {c2} rows: {coarse:.4f} ms ({coarse / ms - 1:+.1%})")
+        f"{-(-s // (2 * c))} chunks of {2 * c} rows: {coarse:.4f} ms ({coarse / ms - 1:+.1%})")
     return coarse
 
 
@@ -2146,12 +2176,16 @@ def _variant_kernels(dev, timer, gen):
 def _latent_kernels(dev, timer, gen):
     """MLA's latent geometry (DeepSeek-V2-Lite: 16 query heads on one
     640-lane latent KV head, sm_scale 192 ** -0.5, bf16): K1 at B 4, S 4096,
-    lengths 2,000-4,064; K7 on the same rows in 128-row shuffled pages; K5
-    on 2048-row causal chunks at offsets 0 and 2048. Each within 1 (decode)
-    or 2 (K5) roundings of each element of its twin, and each shown to see
-    the shape: with q's rope lanes (512-575) zeroed, or its heads rolled by
-    8, the kernel lies over 4x that tolerance from the twin. Library: SDPA
-    with the length (causal) mask on the rows repeated to 16 heads. Then the
+    lengths 2,000-4,064; K2 (4 splits) on the same rows, its partials held
+    to flash_decode_with_stats_plain; K7 on the same rows in 128-row
+    shuffled pages; K5 on 2048-row causal chunks at offsets 0 and 2048. Each
+    within 1 (decode) or 2 (K5) roundings of each element of its twin, and
+    each shown to see the shape: with q's rope lanes (512-575) zeroed, or
+    its heads rolled by 8, the kernel lies over 4x that tolerance from the
+    twin. K1 is also timed on chunks half and twice the grid's (``[grid]``)
+    and against a partials-only launch at its grid (``[merge]``: the
+    in-launch merge's share). Library: SDPA with the length (causal) mask
+    on the rows repeated to 16 heads. Then the
     expert stacks at decode rows (4), through the free (L * E, ...) view at
     index lidx * E + e: K6 on DeepSeek-V2-Lite's int4 g128 experts (gate_up
     2048 -> 2816 written in bf16, down 1408 -> 2048 in fp32) and K4 on
@@ -2162,12 +2196,14 @@ def _latent_kernels(dev, timer, gen):
     from starflashattention_tpu_torch.core.quant import dequantize_weight
     from starflashattention_tpu_torch.core.reference import repeat_kv
     from starflashattention_tpu_torch.ops import quant_matmul as qmm
-    from starflashattention_tpu_torch.ops.flash_decode import flash_decode, flash_decode_plain
+    from starflashattention_tpu_torch.ops.flash_decode import (flash_decode, flash_decode_plain,
+                                                               flash_decode_with_stats,
+                                                               flash_decode_with_stats_plain)
     from starflashattention_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_plain
     from starflashattention_tpu_torch.ops.paged_decode import paged_flash_decode, paged_flash_decode_plain
 
     bf16, e = torch.bfloat16, LATENT_ENTRIES
-    b, hq, s, d, sm = LATENT_BATCH, 16, LATENT_SEQ, 640, 192.0**-0.5
+    b, hq, s, d, sm = LATENT_BATCH, LATENT_GROUP, LATENT_SEQ, 640, 192.0**-0.5
     res = {}
 
     def shape_checks(entry, run, q, ref, roundings):
@@ -2187,17 +2223,38 @@ def _latent_kernels(dev, timer, gen):
     mask = (torch.arange(s, device=dev)[None, :] < lengths[:, None])[:, None, None]
     lib_ms = timer(lambda: F.scaled_dot_product_attention(q[:, :, None], kr, vr, attn_mask=mask, scale=sm))
     del kr, vr
+    dec_bytes, dec_ops = 2 * q.numel() * 2 + 2 * n_valid * d * 2 + b * 4, 4 * hq * d * n_valid
     kw = dict(layer=0, num_splits=1, sm_scale=sm)
     out = flash_decode(q, k_tab, v_tab, lengths, **kw)
     ref = flash_decode_plain(q, k_tab, v_tab, lengths, **kw)
     _check_ulps(f"{e['decode']} B={b} Hq={hq} Hkv=1 S={s} lengths {lengths.tolist()}", out, ref, 1)
     shape_checks(e["decode"], lambda qq: flash_decode(qq, k_tab, v_tab, lengths, **kw), q, ref, 1)
-    bnd, by = bound_ms(2 * q.numel() * 2 + 2 * n_valid * d * 2 + b * 4, 4 * hq * d * n_valid)
+    bnd, by = bound_ms(dec_bytes, dec_ops)
+    run = lambda: flash_decode(q, k_tab, v_tab, lengths, **kw)  # noqa: E731
     res[e["decode"]] = dict(
-        max_abs_err=(out.float() - ref.float()).abs().max().item(),
-        ms=timer(lambda: flash_decode(q, k_tab, v_tab, lengths, **kw)),
+        max_abs_err=(out.float() - ref.float()).abs().max().item(), ms=timer(run),
         plain_ms=timer(lambda: flash_decode_plain(q, k_tab, v_tab, lengths, **kw), iters=5),
         bound_ms=bnd, bound_by=by, library_ms=lib_ms)
+    log_rate(e["decode"], res[e["decode"]]["ms"], dec_bytes, dec_ops, split_grid(b, 1, s, d))
+    _latent_grid(e["decode"], run, out, q, k_tab, v_tab, lengths, sm, timer, res[e["decode"]]["ms"])
+
+    # K2: the caller's 4 splits (the ModelConfig default), merged by lse_combine_splits
+    kw4 = dict(layer=0, num_splits=4, sm_scale=sm)
+    out = flash_decode(q, k_tab, v_tab, lengths, **kw4)
+    ref = flash_decode_plain(q, k_tab, v_tab, lengths, **kw4)
+    _check_ulps(f"{e['split']} B={b} Hq={hq} Hkv=1 S={s}", out, ref, 1)
+    shape_checks(e["split"], lambda qq: flash_decode(qq, k_tab, v_tab, lengths, **kw4), q, ref, 1)
+    parts = flash_decode_with_stats(q, k_tab, v_tab, lengths, **kw4)
+    for name, err in _partial_errors(parts, flash_decode_with_stats_plain(q, k_tab, v_tab, lengths,
+                                                                          **kw4)).items():
+        _check(f"{e['split']}: flash_decode_with_stats {name}", err, 0.0 if name == "dead splits" else 1e-4)
+    del parts
+    res[e["split"]] = dict(
+        max_abs_err=(out.float() - ref.float()).abs().max().item(),
+        ms=timer(lambda: flash_decode(q, k_tab, v_tab, lengths, **kw4)),
+        plain_ms=timer(lambda: flash_decode_plain(q, k_tab, v_tab, lengths, **kw4), iters=5),
+        bound_ms=bnd, bound_by=by, library_ms=lib_ms)
+    log_rate(e["split"], res[e["split"]]["ms"], dec_bytes, dec_ops, (4, s // 4))
 
     pps = s // PAGE_SIZE
     perm = torch.randperm(b * pps, generator=torch.Generator().manual_seed(SEED)) + 1
@@ -2208,13 +2265,14 @@ def _latent_kernels(dev, timer, gen):
     ref = paged_flash_decode_plain(q, kpool, vpool, table, lengths, **kw)
     _check_ulps(f"{e['paged']} page_size={PAGE_SIZE} pages_per_seq={pps} shuffled", out, ref, 1)
     shape_checks(e["paged"], lambda qq: paged_flash_decode(qq, kpool, vpool, table, lengths, **kw), q, ref, 1)
-    bnd, by = bound_ms(2 * q.numel() * 2 + 2 * n_valid * d * 2 + b * 4 + table.numel() * 4,
-                       4 * hq * d * n_valid)
+    n_bytes = dec_bytes + table.numel() * 4
+    bnd, by = bound_ms(n_bytes, dec_ops)
     res[e["paged"]] = dict(
         max_abs_err=(out.float() - ref.float()).abs().max().item(),
         ms=timer(lambda: paged_flash_decode(q, kpool, vpool, table, lengths, **kw)),
         plain_ms=timer(lambda: paged_flash_decode_plain(q, kpool, vpool, table, lengths, **kw), iters=5),
         bound_ms=bnd, bound_by=by, library_ms=lib_ms)
+    log_rate(e["paged"], res[e["paged"]]["ms"], n_bytes, dec_ops, split_grid(b, 1, s, d))
     del kpool, vpool
 
     sq = LATENT_CHUNK
@@ -2281,6 +2339,40 @@ def _latent_kernels(dev, timer, gen):
         res[entry] = agg
     torch.cuda.empty_cache()
     return res
+
+
+def _latent_grid(entry, run, out, q, k_tab, v_tab, lengths, sm, timer, ms):
+    """K1 at D 640 on its grid beside chunks half and twice as long
+    (``[grid]``), and beside one launch of the same kernel in partials mode
+    at its grid, which writes the chunks' (o, m, l) and merges nothing
+    (``[merge]``: the merge's share of the call). The partials, merged by
+    lse_combine_splits, are held to the merged call's output."""
+    from starflashattention_tpu_torch.ops import _build
+    from starflashattention_tpu_torch.ops import flash_decode as fd
+
+    b, hq, d = q.shape
+    s = k_tab.shape[3]
+    n, c = split_grid(b, 1, s, d)
+    times = {}
+    for c2 in (c // 2, 2 * c):
+        with forced_chunk(c2):
+            times[c2] = timer(run)
+    log(f"[grid] {entry}: {n} chunks of {c} rows a sequence, {ms:.4f} ms; half ({-(-s // (c // 2))} of "
+        f"{c // 2}): {times[c // 2]:.4f} ms ({times[c // 2] / ms - 1:+.1%}); twice ({-(-s // (2 * c))} of "
+        f"{2 * c}): {times[2 * c]:.4f} ms ({times[2 * c] / ms - 1:+.1%})")
+    parts = tuple(torch.empty(shape, dtype=torch.float32, device=q.device)
+                  for shape in ((b, hq, n, d), (b, hq, n), (b, hq, n)))
+    ptr = _build.P(k_tab.data_ptr()), _build.P(v_tab.data_ptr())
+
+    def partials():
+        fd.launch_split(q, *ptr, lengths, hkv=1, s=s, scale=sm, kv_code=0, parts=parts, split_len=c)
+
+    partials()
+    _check_ulps(f"{entry} partials at its grid, merged by lse_combine_splits, against the merged call",
+                fd.lse_combine_splits(*parts, dtype=q.dtype), out, 1)
+    t = timer(partials)
+    log(f"[merge] {entry}: merging call {ms:.4f} ms; partials only at the same grid ({n} chunks of {c} "
+        f"rows, no merge) {t:.4f} ms; the merge's share {(ms - t) / ms:.1%}")
 
 
 def _pools_from(tab, table, ps):
@@ -3982,6 +4074,11 @@ def phase_deepseek(dev, smi):
         f"{bound:.3f} ms at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s, {bound / step_ms:.3f} of it; {smi}")
     cache.lengths.fill_(start)
     traced = _traced_steps("deepseek", "(b) decode chain", lambda: chain(DSV2_TRACED_STEPS, tok), DSV2_TRACED_STEPS)
+    if traced:
+        k1 = [v for name, v in traced["kernels"].items() if "decode_split_kernel" in name]
+        log(f"[deepseek] (b) K1 (decode_split_kernel at D 640) in the traced window: "
+            f"{sum(ms for ms, _ in k1):.3f} device ms a step in {sum(n for _, n in k1):.0f} launches, of "
+            f"{traced['busy_ms']:.3f} busy")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[deepseek] (b): {time.perf_counter() - t0:.1f} s; (a)-(b) peak memory {peak:.1f} GiB; {smi}")
     ds["chain"] = dict(step_ms=step_ms, bound_ms=bound, bytes=step_bytes, traced=traced, peak_gib=peak)
@@ -4073,7 +4170,8 @@ def phase_decode_profile(dev):
 def _traced_steps(tag, label, run, steps):
     """``run()`` (``steps`` decode steps) under torch.profiler: logs the wall
     and device-busy ms a step, the launches a step, the device's idle share
-    and the 12 costliest kernels; returns them, or None where the profiler
+    and the 12 costliest kernels; returns them (``kernels``: {name: (device
+    ms, launches) a step}), or None where the profiler
     saw no device time. It records device activity only: with the host's
     op events too, phase 12b's 8 traced MoE steps (12,850 launches each)
     took some 70 s more to summarize (an H100 80GB HBM3 at 700 W)."""
@@ -4103,7 +4201,7 @@ def _traced_steps(tag, label, run, steps):
         f"device busy {busy:.3f} ms/step in {launches:.0f} kernel launches/step, idle share {idle:.3f}")
     for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"[{tag}]   {ms:8.3f} ms/step  {n:6.1f} launches/step  {name[:110]}")
-    return dict(wall_ms=wall_ms / steps, busy_ms=busy, launches=launches, idle_share=idle)
+    return dict(wall_ms=wall_ms / steps, busy_ms=busy, launches=launches, idle_share=idle, kernels=kernels)
 
 
 # ---------------------------------------------------------------- phase 13
@@ -5084,8 +5182,8 @@ REPLACES = {
        for k in ("mistral_paged", "gemma2_paged")},
     **{VARIANT_ENTRIES[k]: ("starflashattention_tpu/ops/flash_prefill.py:67", "flash_prefill.cu")
        for k in ("gemma2_prefill", "mistral_prefill")},
-    LATENT_ENTRIES["decode"]: ("starflashattention_tpu/ops/flash_decode.py:213", "flash_decode.cu"),
-    LATENT_ENTRIES["paged"]: ("starflashattention_tpu/ops/paged_decode.py:74", "flash_decode.cu"),
+    LATENT_ENTRIES["decode"]: ("starflashattention_tpu/ops/flash_decode.py:213", "flash_decode_split.cu"),
+    LATENT_ENTRIES["paged"]: ("starflashattention_tpu/ops/paged_decode.py:74", "flash_decode_split.cu"),
     LATENT_ENTRIES["prefill"]: ("starflashattention_tpu/ops/flash_prefill.py:67", "flash_prefill.cu"),
     LATENT_ENTRIES["int4_experts"]: ("starflashattention_tpu/ops/quant_matmul.py:178", "quant_matmul.cu"),
     LATENT_ENTRIES["int8_experts"]: ("starflashattention_tpu/ops/quant_matmul.py:35", "quant_matmul.cu"),
@@ -5101,8 +5199,10 @@ REPLACES = {
 }
 # measured in phase 2 but launched by no main-path run (the quantized slice
 # runs the fp8 cache only in split mode and pages only in int8; no path
-# serves fp8 weights): logged, not in the kernels line
-OFF_PATH = ("flash_decode fp8 KV (1 split, fused)", "paged_flash_decode fp8 KV", QMM_FP8_TILED, K5_TRAIN_NO_LSE)
+# serves fp8 weights; DeepSeek-V2-Lite decodes its latent row in one split):
+# logged, not in the kernels line
+OFF_PATH = ("flash_decode fp8 KV (1 split, fused)", "paged_flash_decode fp8 KV", QMM_FP8_TILED, K5_TRAIN_NO_LSE,
+            LATENT_ENTRIES["split"])
 
 
 def main(argv=None):

@@ -1,30 +1,37 @@
-// Decode attention at head_dim 64, 128 and 256 for Hopper (sm_90a): the
-// contiguous decode and its verify span (K1), the split-KV partials (K2) and
-// the paged decode (K7), on bf16, int8 or fp8-e4m3 KV, with the window,
-// sinks and softcap, and the quantized KV's scales folded in.
+// Decode attention at head_dim 64, 128, 256 and 640 for Hopper (sm_90a):
+// the contiguous decode and its verify span (K1), the split-KV partials (K2)
+// and the paged decode (K7), on bf16, int8 or fp8-e4m3 KV, with the window,
+// sinks and softcap, and the quantized KV's scales folded in. D 640 is MLA's
+// latent row (DeepSeek-V2: one 640-lane KV head that all query heads of the
+// group attend), built for bf16 q on bf16 KV in the plain form only.
 //
 // Replaces: starflashattention_tpu/ops/flash_decode.py::_decode_kernel_fused
 // (entries flash_decode with num_splits = 1 and flash_verify),
 // ::_decode_kernel (entry flash_decode_with_stats) and
 // starflashattention_tpu/ops/paged_decode.py::_paged_decode_kernel (entry
-// paged_flash_decode). MLA's 640-lane latent row stays in flash_decode.cuh.
+// paged_flash_decode).
 //
 // Bound: the K/V bytes the walk reads, 2 tables x D x 2 bytes a row and KV
 // head in bf16 (D bytes in int8 / fp8); the 4 * D operations a (query row,
 // key row) pair are far below the tensor cores' rate. One block per
 // (sequence, KV head) is 64-128 blocks on 132 SMs at the serving shapes (B 8
-// or 16 on Hkv 8), each walking its whole length alone. So the walk is split
+// or 16 on Hkv 8), and only B at MLA's one latent head, each walking its
+// whole length alone. So the walk is split
 // (flash-decoding): block (chunk i, kv head, b) walks only the tiles of rows
 // [i C, (i + 1) C) that the single-pass walk visits - the sink tiles below
 // the band's first tile, then the band from the tile holding
 // max(len - W, 0) - and writes fp32 (o, m, l) for its R = G * T query rows.
-// The wrapper picks C (a multiple of the 32-row tile) from the table's S
-// and B * Hkv alone, never from the lengths, so that B * Hkv * ceil(S / C)
-// is about 8 blocks an SM. A chunk the walk misses writes the empty partial
+// The wrapper picks C (a multiple of the 32-row tile) from the table's S,
+// B * Hkv and D alone, never from the lengths, so that B * Hkv * ceil(S / C)
+// is about as many blocks as the card holds at once (8 an SM up to D 256,
+// 1 at D 640). A chunk the walk misses writes the empty partial
 // (m = NEG_INF, l = 0, o = 0). The last block of a (b, kv head) to arrive
 // (an arrival counter bumped after __threadfence, reset by that block, so
 // no memset launch) merges the chunks in chunk order with the natural-log
 // rescale, applies the l == 0 -> 1 guard and rounds once: one launch a call.
+// It computes each row's chunk weights exp(m_c - max m) and its sum l once,
+// then reads the chunks' o 16 bytes a thread with 8 chunks in flight; every
+// element is the same chain of the same products in chunk order.
 // Because C is fixed in absolute positions and an empty chunk or a tile a
 // row does not see adds exact zeros, verify token j is bit for bit the
 // decode at lengths + j, and the paged and contiguous forms share the
@@ -66,6 +73,22 @@
 // so packing two KV heads' groups into one m-tile would save nothing the
 // clock can see.
 //
+// MLA's latent row (D 640: 640 threads, 20 warps, at most 16 rows, which
+// fill one m16 tile at DeepSeek-V2-Lite's G 16): the template's layout would
+// take 311,808 bytes of shared memory, over the 232,448 a block may have.
+// Here q is staged straight to bf16 (the paged form's sm_scale fold is
+// computed in fp32 and rounded once, as at every D), so there is no fp32
+// copy of q, and the P @ V accumulators stay in registers across the tiles,
+// rescaled by each tile's alpha and written out once, so there is no fp32
+// accumulator array: 229,888 bytes at 16 rows (the 165,888-byte K/V ring,
+// q in bf16, the partial scores), one block an SM. The bound of 640
+// threads leaves at most 96 registers a thread (65,536 / 640, rounded down
+// to 8), as __launch_bounds__(640, 1) would; the lane's 4 x 4 accumulators
+// fit beside the score fragments with no spill. The bound states no
+// minimum of blocks: stated for every D, it let ptxas take 81-131
+// registers at D 64-256 (48-80 without), which would cut the blocks an SM
+// holds there.
+//
 // Partials mode (out null): the blocks write the caller's (o, m, l) at the
 // caller's split geometry (C = split_len, N = num_splits) and do not merge.
 //
@@ -100,6 +123,9 @@ constexpr int RG = 4;   // query rows a pass of the CUDA-core P @ V loop
 constexpr int STAGES = 2;
 constexpr float NEG_INF = -0.7f * 3.4028234663852886e38f;
 constexpr int NO_WINDOW = 1 << 30;  // the window argument without a window
+constexpr int LATENT_D = 640;       // MLA's latent row
+constexpr int LATENT_ROWS = 16;     // the most query rows a D 640 block holds: one m16 tile
+constexpr int MERGE_AHEAD = 8;      // chunks of o in flight a thread in the merge
 
 // D threads a block: a warp a 32-dimension slice of the scores and of
 // P @ V, a thread an output column (see above)
@@ -189,7 +215,7 @@ __device__ __forceinline__ float warp_sum(float v) {
 template <int N>
 __device__ __forceinline__ float tree_sum(const float* p, int stride) {
   if constexpr (N == 1) return p[0];
-  else return tree_sum<N / 2>(p, stride) + tree_sum<N / 2>(p + N / 2 * stride, stride);
+  else return tree_sum<N / 2>(p, stride) + tree_sum<N - N / 2>(p + N / 2 * stride, stride);
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
@@ -229,14 +255,22 @@ template <int D>
 __host__ __device__ constexpr int qb_row() {
   return D + 8;  // bf16 elements a row of the staged q
 }
+// MLA's latent row (built for bf16 q on bf16 KV, at most LATENT_ROWS rows):
+// q staged straight to bf16 and the P @ V accumulators in registers, so
+// neither q nor the accumulators have an fp32 array in shared memory
+template <int D>
+__host__ __device__ constexpr bool register_acc() {
+  return D == LATENT_D;
+}
 
 // R: query rows a block holds (G, or G * T to verify)
 template <typename T, typename KV, int D>
 size_t smem_bytes(int R) {
   constexpr int NWARPS = block_threads<D>() / 32;
   const size_t q_bf16 = mma_scores<T>() ? (size_t)(R + 15) / 16 * 16 * qb_row<D>() * 2 : 0;
+  const size_t q_acc = register_acc<D>() ? 0 : (size_t)2 * R * D;  // q_s and acc, fp32
   return (size_t)STAGES * stage_bytes<KV, D>() + q_bf16 +
-         sizeof(float) * ((size_t)2 * R * D + (size_t)(NWARPS + 1) * R * BK + 4 * (size_t)R);
+         sizeof(float) * (q_acc + (size_t)(NWARPS + 1) * R * BK + 4 * (size_t)R);
 }
 
 // D = A(16x16, row) * B(16x8, col) + D, bf16 inputs, fp32 accumulators.
@@ -279,6 +313,7 @@ template <typename T, typename KV, int D, bool PAGED, bool VARIANTS>
 __global__ void __launch_bounds__(block_threads<D>()) decode_split_kernel(const Args a) {
   constexpr int THREADS = block_threads<D>(), NWARPS = THREADS / 32;
   static_assert(THREADS == D && D == 32 * NWARPS && BK == 32, "a column a thread, 32 dimensions a warp, a key a lane");
+  static_assert(!register_acc<D>() || mma_pv<T, KV>(), "the latent row's accumulators are mma fragments");
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int is_last;
   constexpr int KROW = k_row_bytes<KV, D>(), KT = BK * KROW, SB = stage_bytes<KV, D>(), QB_ROW = qb_row<D>();
@@ -294,9 +329,10 @@ __global__ void __launch_bounds__(block_threads<D>()) decode_split_kernel(const 
 
   const int RP = (R + 15) / 16 * 16;  // R in 16-row blocks
   __nv_bfloat16* q_bf = reinterpret_cast<__nv_bfloat16*>(smem + STAGES * SB);  // [RP][QB_ROW] (bf16 q)
-  float* q_s = reinterpret_cast<float*>(smem + STAGES * SB + (mma_scores<T>() ? RP * QB_ROW * 2 : 0));  // [R][D]
-  float* acc = q_s + R * D;                                   // [R][D]
-  float* part = acc + R * D;                                  // [NWARPS][R][BK] partial scores
+  constexpr int QD = register_acc<D>() ? 0 : D;  // the fp32 arrays' row: none at D 640
+  float* q_s = reinterpret_cast<float*>(smem + STAGES * SB + (mma_scores<T>() ? RP * QB_ROW * 2 : 0));  // [R][QD]
+  float* acc = q_s + R * QD;                                  // [R][QD]
+  float* part = acc + R * QD;                                 // [NWARPS][R][BK] partial scores
   float* s_s = part + NWARPS * R * BK;                        // [R][BK] P
   float* m_s = s_s + R * BK;
   float* l_s = m_s + R;
@@ -348,16 +384,27 @@ __global__ void __launch_bounds__(block_threads<D>()) decode_split_kernel(const 
   if (j0 < ce) {
     stage(j0, 0);
     cp_async_commit();
-    for (int i = tid; i < R * D; i += THREADS) {
-      const float x = to_f(q[row0 * D + i]);
-      q_s[i] = fold ? round_to(x * q_scale, q) : x;
-    }
-    if constexpr (mma_scores<T>()) {
-      for (int i = tid; i < RP * D; i += THREADS)  // rows past R are zeros
-        q_bf[i / D * QB_ROW + i % D] = __float2bfloat16(i < R * D ? q_s[i] : 0.f);
+    if constexpr (register_acc<D>()) {
+      for (int i = tid; i < RP * D; i += THREADS) {  // rows past R are zeros; one rounding to bf16
+        const float x = i < R * D ? to_f(q[row0 * D + i]) : 0.f;
+        q_bf[i / D * QB_ROW + i % D] = __float2bfloat16(fold ? x * q_scale : x);
+      }
+    } else {
+      for (int i = tid; i < R * D; i += THREADS) {
+        const float x = to_f(q[row0 * D + i]);
+        q_s[i] = fold ? round_to(x * q_scale, q) : x;
+      }
+      if constexpr (mma_scores<T>()) {
+        for (int i = tid; i < RP * D; i += THREADS)  // rows past R are zeros
+          q_bf[i / D * QB_ROW + i % D] = __float2bfloat16(i < R * D ? q_s[i] : 0.f);
+      }
     }
   }
-  for (int i = tid; i < R * D; i += THREADS) acc[i] = 0.f;
+  for (int i = tid; i < R * QD; i += THREADS) acc[i] = 0.f;
+  // D 640: lane (g, t) of warp w holds rows g, g + 8 and dimensions
+  // 32w + 8i + 2t, + 1 of the P @ V accumulators (racc[i][2h + e]: row
+  // g + 8h, dimension 32w + 8i + 2t + e), in registers across the tiles
+  float racc[4][4] = {};
   for (int r = tid; r < R; r += THREADS) {
     m_s[r] = NEG_INF;
     l_s[r] = 0.f;
@@ -459,8 +506,7 @@ __global__ void __launch_bounds__(block_threads<D>()) decode_split_kernel(const 
       // holds rows g, g + 8 and dimensions 32w + 8i + 2t, + 1
       const int g = lane >> 2, t = lane & 3;
       const uint32_t v_addr = kv_s + buf * SB + KT;
-      for (int rb = 0; rb < R; rb += 16) {
-        float c[4][4] = {};
+      auto pv_rows = [&](float (&c)[4][4], int rb) {  // c += P[rb .. rb + 15] @ V (this warp's dimensions)
 #pragma unroll
         for (int ks = 0; ks < 2; ++ks) {
           const int k0 = 16 * ks;
@@ -484,16 +530,32 @@ __global__ void __launch_bounds__(block_threads<D>()) decode_split_kernel(const 
             mma_bf16(c[2 * np + 1], alo, b1);
           }
         }
+      };
+      if constexpr (register_acc<D>()) {  // one m16 tile: rescale the registers, add this tile
+        const float al0 = g < R ? al_s[g] : 0.f, al1 = g + 8 < R ? al_s[g + 8] : 0.f;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = rb + g + 8 * h;
-          if (r < R) {
-            const float al = al_s[r];
+        for (int i = 0; i < 4; ++i) {
+          racc[i][0] *= al0;
+          racc[i][1] *= al0;
+          racc[i][2] *= al1;
+          racc[i][3] *= al1;
+        }
+        pv_rows(racc, 0);
+      } else {
+        for (int rb = 0; rb < R; rb += 16) {
+          float c[4][4] = {};
+          pv_rows(c, rb);
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              float2* ap = reinterpret_cast<float2*>(acc + r * D + 32 * warp + 8 * i + 2 * t);
-              const float2 o = *ap;
-              *ap = make_float2(o.x * al + c[i][2 * h], o.y * al + c[i][2 * h + 1]);
+          for (int h = 0; h < 2; ++h) {
+            const int r = rb + g + 8 * h;
+            if (r < R) {
+              const float al = al_s[r];
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                float2* ap = reinterpret_cast<float2*>(acc + r * D + 32 * warp + 8 * i + 2 * t);
+                const float2 o = *ap;
+                *ap = make_float2(o.x * al + c[i][2 * h], o.y * al + c[i][2 * h + 1]);
+              }
             }
           }
         }
@@ -538,8 +600,22 @@ __global__ void __launch_bounds__(block_threads<D>()) decode_split_kernel(const 
   // partials of quantized V carry v_scale (linear: it commutes with the merge)
   const int n = a.n_chunks;
   const float o_scale = a.out == nullptr && a.v_scales != nullptr ? a.v_scales[kvh] : 1.f;
-  for (int i = tid; i < R * D; i += THREADS)
-    a.o_part[((row0 + i / D) * n + chunk) * D + i % D] = acc[i] * o_scale;
+  if constexpr (register_acc<D>()) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = g + 8 * h;
+      if (r < R) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          *reinterpret_cast<float2*>(a.o_part + ((row0 + r) * n + chunk) * D + 32 * warp + 8 * i + 2 * t) =
+              make_float2(racc[i][2 * h] * o_scale, racc[i][2 * h + 1] * o_scale);
+      }
+    }
+  } else {
+    for (int i = tid; i < R * D; i += THREADS)
+      a.o_part[((row0 + i / D) * n + chunk) * D + i % D] = acc[i] * o_scale;
+  }
   for (int r = tid; r < R; r += THREADS) {
     a.m_part[(row0 + r) * n + chunk] = m_s[r];
     a.l_part[(row0 + r) * n + chunk] = l_s[r];
@@ -557,24 +633,65 @@ __global__ void __launch_bounds__(block_threads<D>()) decode_split_kernel(const 
   __syncthreads();
   if (!is_last) return;
   __threadfence();
-  const float v_scale = a.v_scales != nullptr ? a.v_scales[kvh] : 1.f;
-  for (int i = tid; i < R * D; i += THREADS) {
-    const size_t h = row0 + i / D;
-    const float* mh = a.m_part + h * n;
-    const float* lh = a.l_part + h * n;
-    const float* oh = a.o_part + h * n * D + i % D;
+  // each row's chunk weights exp(m_c - max m), written over its m (the
+  // workspace), and the divisor: its sum l (1 where l == 0), in chunk order,
+  // a warp a row, every lane running the same chain
+  for (int r = warp; r < R; r += NWARPS) {
+    float* mh = a.m_part + (row0 + r) * n;
+    const float* lh = a.l_part + (row0 + r) * n;
     float mg = NEG_INF;
-    for (int c = 0; c < n; ++c) mg = fmaxf(mg, __ldcg(mh + c));
-    float lg = 0.f, o = 0.f;
-    for (int c = 0; c < n; ++c) {
-      const float alpha = expf(__ldcg(mh + c) - mg);
-      lg += alpha * __ldcg(lh + c);
-      o += alpha * __ldcg(oh + (size_t)c * D);
+    for (int c = lane; c < n; c += 32) mg = fmaxf(mg, __ldcg(mh + c));
+    mg = warp_max(mg);
+    float lg = 0.f;
+    for (int c0 = 0; c0 < n; c0 += 32) {
+      const int c = c0 + lane;
+      const float alpha = c < n ? expf(__ldcg(mh + c) - mg) : 0.f;
+      const float l = c < n ? __ldcg(lh + c) : 0.f;
+      if (c < n) mh[c] = alpha;
+      for (int j = 0; j < min(32, n - c0); ++j)
+        lg += __shfl_sync(0xffffffffu, alpha, j) * __shfl_sync(0xffffffffu, l, j);
     }
-    float res = o / (lg == 0.f ? 1.f : lg);
-    if (a.v_scales != nullptr)  // JAX's roundings: paged once, contiguous twice (q's dtype, then times v_scale)
-      res = PAGED ? res * v_scale : round_to(res, q) * v_scale;
-    from_f(static_cast<T*>(a.out) + h * D + i % D, res);
+    if (lane == 0) l_s[r] = lg == 0.f ? 1.f : lg;
+  }
+  __syncthreads();
+  // o = sum over chunks of weight * o_c in chunk order, 4 columns a thread,
+  // MERGE_AHEAD chunks' 16-byte loads in flight
+  const float v_scale = a.v_scales != nullptr ? a.v_scales[kvh] : 1.f;
+  constexpr int D4 = D / 4;
+  for (int i = tid; i < R * D4; i += THREADS) {
+    const int r = i / D4, c4 = i % D4;
+    const size_t h = row0 + r;
+    const float* wh = a.m_part + h * n;
+    const float4* oh = reinterpret_cast<const float4*>(a.o_part + h * n * D) + c4;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int c0 = 0; c0 < n; c0 += MERGE_AHEAD) {
+      float w[MERGE_AHEAD];
+      float4 x[MERGE_AHEAD];
+#pragma unroll
+      for (int u = 0; u < MERGE_AHEAD; ++u) {
+        const bool ok = c0 + u < n;
+        w[u] = ok ? __ldcg(wh + c0 + u) : 0.f;
+        x[u] = ok ? __ldcg(oh + (size_t)(c0 + u) * D4) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < MERGE_AHEAD; ++u) {
+        if (c0 + u < n) {
+          o.x += w[u] * x[u].x;
+          o.y += w[u] * x[u].y;
+          o.z += w[u] * x[u].z;
+          o.w += w[u] * x[u].w;
+        }
+      }
+    }
+    const float div = l_s[r];
+    const float res[4] = {o.x / div, o.y / div, o.z / div, o.w / div};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float y = res[e];
+      if (a.v_scales != nullptr)  // JAX's roundings: paged once, contiguous twice (q's dtype, then times v_scale)
+        y = PAGED ? y * v_scale : round_to(y, q) * v_scale;
+      from_f(static_cast<T*>(a.out) + h * D + 4 * c4 + e, y);
+    }
   }
 }
 
@@ -603,6 +720,12 @@ cudaError_t run(const Args& a, int B, int D, int paged, int variants, cudaStream
     case 64: return run_d<T, KV, 64>(a, B, paged, variants, s);
     case 128: return run_d<T, KV, 128>(a, B, paged, variants, s);
     case 256: return run_d<T, KV, 256>(a, B, paged, variants, s);
+    case LATENT_D:  // bf16 q on bf16 KV, the plain form, one m16 tile of rows
+      if constexpr (mma_pv<T, KV>()) {
+        if (!variants && a.Hq / a.Hkv * a.qspan <= LATENT_ROWS)
+          return paged ? launch<T, KV, LATENT_D, true, false>(a, B, s) : launch<T, KV, LATENT_D, false, false>(a, B, s);
+      }
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }
@@ -613,7 +736,8 @@ extern "C" {
 
 const char* error_string(int e) { return cudaGetErrorString(static_cast<cudaError_t>(e)); }
 
-// q (B, Hq, qspan, D), D 64, 128 or 256; k, v: one layer's (B, Hkv, S, D)
+// q (B, Hq, qspan, D), D 64, 128, 256 or 640 (bf16 q and KV, plain form,
+// G * qspan <= 16); k, v: one layer's (B, Hkv, S, D)
 // table (paged 0) or (Hkv, num_pages, page_size, D) pool slice (paged 1,
 // with page_table (B, pages_per_seq) and S = pages_per_seq * page_size);
 // lengths (B,). Merging mode: out non-null (q's shape and dtype), o/m/l_part
@@ -659,6 +783,19 @@ int flash_decode_split(const void* q, const void* k, const void* v, const void* 
     }
   }
   return static_cast<int>(e);
+}
+
+// The dynamic shared memory (bytes) of a block of `rows` query rows at
+// head_dim d, bf16 q on bf16 KV (-1 for a head_dim without a kernel).
+int flash_decode_split_smem_bytes(int d, int rows) {
+  using BF = __nv_bfloat16;
+  switch (d) {
+    case 64: return static_cast<int>(smem_bytes<BF, BF, 64>(rows));
+    case 128: return static_cast<int>(smem_bytes<BF, BF, 128>(rows));
+    case 256: return static_cast<int>(smem_bytes<BF, BF, 256>(rows));
+    case LATENT_D: return static_cast<int>(smem_bytes<BF, BF, LATENT_D>(rows));
+    default: return -1;
+  }
 }
 
 }  // extern "C"

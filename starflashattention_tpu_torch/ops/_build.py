@@ -27,7 +27,7 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("cache_append", "quant_matmul", "quant_matmul_a8", "flash_decode", "flash_decode_split",
+SOURCES = ("cache_append", "quant_matmul", "quant_matmul_a8", "flash_decode_split",
            "flash_prefill", "flash_bwd", "fused_mlp")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 

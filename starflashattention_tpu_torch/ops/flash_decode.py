@@ -7,14 +7,12 @@ partials ``(o, m, l)`` that :func:`lse_combine_splits` merges;
 ``flash_verify`` attends T consecutive query tokens per sequence under the
 staircase mask of speculative decoding's verify step (token j sees
 ``lengths[b] + j`` rows). On CUDA tensors all three launch
-``csrc/flash_decode_split.cu`` at head_dim 64, 128 and 256 (it replaces the
-TPU kernels ``_decode_kernel_fused``, in both its modes, and
-``_decode_kernel``): :func:`launch_split` splits the KV walk into chunks
-across blocks (:func:`split_chunking`) and the last block of each
-(sequence, KV head) merges them, in one launch; the split partials run the
-same kernel at the caller's split geometry. MLA's latent row (head_dim 640)
-launches ``csrc/flash_decode.cu``. On CPU tensors they run the plain
-versions below. The split boundaries come from :func:`_split_geometry`, a
+``csrc/flash_decode_split.cu`` (it replaces the TPU kernels
+``_decode_kernel_fused``, in both its modes, and ``_decode_kernel``):
+:func:`launch_split` splits the KV walk into chunks across blocks
+(:func:`split_chunking`) and the last block of each (sequence, KV head)
+merges them, in one launch; the split partials run the same kernel at the
+caller's split geometry. On CPU tensors they run the plain versions below. The split boundaries come from :func:`_split_geometry`, a
 copy of the JAX one, so the partials compare one to one.
 
 Quantized caches (int8 / fp8 tables with (Hkv,) ``k_scales`` /
@@ -37,8 +35,8 @@ is a Python int per call, so a model whose window differs from layer to
 layer passes each layer's own. As in JAX, a window or softcap with more
 than one split raises ``ValueError``. head_dim is 64, 128 or 256, and on
 the card also 640 (MLA's latent row, DeepSeek-V2's 16 query heads on one
-latent KV head) for bf16 q and KV, one split, no variant and no verify span
-(:func:`check_head_dim`).
+latent KV head) for bf16 q and KV, at most 16 query heads a KV head, no
+variant and no verify span, at any number of splits (:func:`check_head_dim`).
 """
 
 from __future__ import annotations
@@ -48,9 +46,6 @@ import torch
 from starflashattention_tpu_torch.core.reference import NEG_INF, repeat_kv
 from starflashattention_tpu_torch.ops import _build
 
-_LATENT_SIGNATURES = {
-    "flash_decode": [_build.P] * 8 + [_build.I] * 6 + [_build.F, _build.P],
-}
 _SPLIT_SIGNATURES = {
     "flash_decode_split": [_build.P] * 12 + [_build.I] * 11 + [_build.F] + [_build.I] * 6
     + [_build.F, _build.P],
@@ -108,26 +103,32 @@ def _split_geometry(s: int, num_splits: int, block_k: int) -> tuple[int, int, in
 
 
 NO_WINDOW = 1 << 30  # the kernels' window without one: every row below the length is in band
-KERNEL_HEAD_DIMS = (64, 128, 256)  # the head_dims csrc/flash_decode_split.cu serves
+KERNEL_HEAD_DIMS = (64, 128, 256)  # the head_dims csrc/flash_decode_split.cu serves in every form
 TILE = 32  # KV rows a tile of the decode kernels
 SPLIT_MIN_CHUNK = 128  # fewest KV rows a block of the split kernel walks
-SPLIT_BLOCKS_PER_SM = 8  # the chunk grid aims at about this many blocks an SM
+SPLIT_BLOCKS_PER_SM = 8  # the chunk grid aims at about this many blocks an SM (up to D 256)
 LATENT_HEAD_DIM = 640  # MLA's cache row: kv_lora_rank 512 + qk_rope 64, padded to 128 lanes
+LATENT_BLOCKS_PER_SM = 1  # a D 640 block takes 229,888 bytes of shared memory: one an SM
+LATENT_MAX_GROUP = 16  # query heads a KV head at D 640: one m16 tile of rows
 
 
-def check_head_dim(what, d, q_dtype, kv_dtype, plain=True, one_split=True, verify=False):
+def check_head_dim(what, d, q_dtype, kv_dtype, plain=True, verify=False, group=1):
     """The head_dims the decode kernels take: 64, 128 or 256, and the latent
-    row's 640 only in its one form (bf16 q and KV, no variant, one split,
-    no verify span); raises ``ValueError`` naming what is missing."""
+    row's 640 in its one form (bf16 q and KV, no variant, no verify span, at
+    most ``LATENT_MAX_GROUP`` query heads a KV head), at any number of
+    splits; raises ``ValueError`` naming what is missing."""
     if d in KERNEL_HEAD_DIMS:
         return
     if d != LATENT_HEAD_DIM:
         raise ValueError(f"{what}: the CUDA kernel takes head_dim 64, 128, 256 or "
                          f"{LATENT_HEAD_DIM}, got {d}")
-    if not (q_dtype == kv_dtype == torch.bfloat16 and plain and one_split and not verify):
+    if not (q_dtype == kv_dtype == torch.bfloat16 and plain and not verify):
         raise ValueError(f"{what}: head_dim {LATENT_HEAD_DIM} (MLA's latent row) takes bf16 q and KV, "
-                         "one split, no window, sinks, softcap or verify span (ROADMAP Queue 2: K1 "
-                         "verify and K2 at D 640)")
+                         "no window, sinks, softcap or verify span (ROADMAP Queue 2a: K1 verify at "
+                         "D 640)")
+    if group > LATENT_MAX_GROUP:
+        raise ValueError(f"{what}: head_dim {LATENT_HEAD_DIM} takes at most {LATENT_MAX_GROUP} query "
+                         f"heads a KV head (one m16 tile of rows), got {group}")
 
 
 def variant_options(window, sinks, softcap) -> dict:
@@ -197,14 +198,17 @@ def _as_table(k_cache, v_cache, layer):
 # ----------------------------------------------------------------- the chunk grid
 
 
-def split_chunking(s: int, b: int, hkv: int, sms: int) -> tuple[int, int]:
+def split_chunking(s: int, b: int, hkv: int, sms: int, d: int) -> tuple[int, int]:
     """(C, N): the KV rows each block of a merging call of the split kernel
     walks and the chunk count, N = ceil(S / C). C is a multiple of the
     32-row tile, at least ``SPLIT_MIN_CHUNK``, and as small as that allows
-    while B * Hkv * N stays near ``SPLIT_BLOCKS_PER_SM`` blocks an SM. It
-    depends on the table's S and on B * Hkv, never on the lengths, so a
-    verify token and the decode at its length see the same chunks."""
-    target = -(-SPLIT_BLOCKS_PER_SM * sms // (b * hkv))
+    while B * Hkv * N stays near the blocks an SM holds at head_dim ``d``
+    (``SPLIT_BLOCKS_PER_SM`` up to D 256, ``LATENT_BLOCKS_PER_SM`` at D
+    640). It depends on the table's S, on B * Hkv and on D, never on the
+    lengths, so a verify token and the decode at its length see the same
+    chunks."""
+    per_sm = LATENT_BLOCKS_PER_SM if d == LATENT_HEAD_DIM else SPLIT_BLOCKS_PER_SM
+    target = -(-per_sm * sms // (b * hkv))
     c = -(-s // target)
     c = max(SPLIT_MIN_CHUNK, -(-c // TILE) * TILE)
     return c, -(-s // c)
@@ -300,7 +304,7 @@ def launch_split(q, k_ptr, v_ptr, lengths, *, hkv, s, scale, kv_code, scales=Non
     d = q.shape[-1]
     qspan = q.shape[2] if q.dim() == 4 else 1
     if out is not None:
-        chunk, n = split_chunking(s, b, hkv, sm_count(q.device))
+        chunk, n = split_chunking(s, b, hkv, sm_count(q.device), d)
         o, m, l, arrivals = _split_workspace(q.device, b * hq * qspan, n, d, b * hkv)
     else:
         (o, m, l), arrivals = parts, None
@@ -455,9 +459,9 @@ def lse_combine_splits(o_parts, m_parts, l_parts, dtype=None):
 
 def _launch(q, k_cache, v_cache, lengths, layer, sm_scale, n, split_len, fused, scales=None,
             window=None, sinks=0, softcap=None):
-    """Run csrc/flash_decode_split.cu (csrc/flash_decode.cu at MLA's head_dim
-    640) on one layer of the table; returns the normalized output (fused; q
-    (B, Hq, D), or (B, Hq, T, D) to verify) or the (o, m, l) partials."""
+    """Run csrc/flash_decode_split.cu on one layer of the table; returns the
+    normalized output (fused; q (B, Hq, D), or (B, Hq, T, D) to verify) or
+    the (o, m, l) partials."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
     l_, b, hkv, s, d = k_cache.shape
@@ -471,8 +475,8 @@ def _launch(q, k_cache, v_cache, lengths, layer, sm_scale, n, split_len, fused, 
         raise ValueError(f"the CUDA kernel takes fp32 or bf16 q and one cache dtype, got "
                          f"{q.dtype} / {k_cache.dtype} / {v_cache.dtype}")
     kv_code = kv_dtype_code(q.dtype, k_cache.dtype)
-    check_head_dim("flash_decode", d, q.dtype, k_cache.dtype,
-                   not has_variants(window, sinks, softcap), fused, qspan > 1)
+    check_head_dim("flash_decode", d, q.dtype, k_cache.dtype, not has_variants(window, sinks, softcap),
+                   qspan > 1, hq // hkv)
     if v_cache.shape != k_cache.shape or not (k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError("K and V tables must be contiguous and of one shape")
     if not 0 <= layer < l_:
@@ -492,19 +496,10 @@ def _launch(q, k_cache, v_cache, lengths, layer, sm_scale, n, split_len, fused, 
         l = torch.empty((b, hq, n), dtype=torch.float32, device=q.device)
         parts = (o, m, l)
     scale = 1.0 / d**0.5 if sm_scale is None else float(sm_scale)
-    if d != LATENT_HEAD_DIM:
-        launch_split(q, k_ptr, v_ptr, lengths, hkv=hkv, s=s, scale=scale, kv_code=kv_code,
-                     scales=scales, out=out, parts=None if fused else parts, split_len=split_len,
-                     window=window, sinks=sinks, softcap=softcap)
-        return out if fused else parts
-    lib = _build.load("flash_decode", _LATENT_SIGNATURES)
-    with torch.cuda.device(q.device):
-        err = lib.flash_decode(
-            _build.ptr(q), k_ptr, v_ptr, _build.ptr(lengths), _build.ptr(out), None, None, None,
-            b, hq, hkv, s, n, split_len, scale, _build.stream_ptr(q.device),
-        )
-    _build.check(lib, err, "flash_decode")
-    return out
+    launch_split(q, k_ptr, v_ptr, lengths, hkv=hkv, s=s, scale=scale, kv_code=kv_code,
+                 scales=scales, out=out, parts=None if fused else parts, split_len=split_len,
+                 window=window, sinks=sinks, softcap=softcap)
+    return out if fused else parts
 
 
 def _fused_kernel(q, k_cache, v_cache, lengths, *, layer, sm_scale, scales, **opts):

@@ -4,12 +4,11 @@
 first ``lengths[b]`` positions of its sequence, read from the
 (L, Hkv, P, page_size, D) page pools through the (B, pages_per_seq) page
 table. On CUDA tensors it launches the paged form of
-``csrc/flash_decode_split.cu`` at head_dim 64, 128 and 256 (it replaces the
-TPU kernel ``_paged_decode_kernel``): the contiguous decode's (K1's) split
-KV walk on its chunk grid, with each KV row's address resolved through the
-table, merged by the last block in the same launch; MLA's latent row
-(head_dim 640) launches the paged mode of ``csrc/flash_decode.cu``. On CPU
-tensors it runs :func:`paged_flash_decode_plain`.
+``csrc/flash_decode_split.cu`` (it replaces the TPU kernel
+``_paged_decode_kernel``): the contiguous decode's (K1's) split KV walk on
+its chunk grid, with each KV row's address resolved through the table,
+merged by the last block in the same launch. On CPU tensors it runs
+:func:`paged_flash_decode_plain`.
 
 As the JAX wrapper does, ``sm_scale`` is folded into q and the scaled q is
 rounded to q's dtype before the dot products. Int8 / fp8 pools fold
@@ -24,7 +23,7 @@ a row's band that is not a sink, so pages the engine has reclaimed (entries
 set to the null page 0) are never read. ``pages_per_compute_block`` and
 ``max_len_hint`` size the TPU grid and are accepted and unused. head_dim as
 in ``ops/flash_decode.py``: 640 (MLA's latent row) in bf16 without the
-variants.
+variants, at most 16 query heads a KV head.
 """
 
 from __future__ import annotations
@@ -33,14 +32,11 @@ import torch
 
 from starflashattention_tpu_torch.core.reference import NEG_INF, repeat_kv
 from starflashattention_tpu_torch.ops import _build
-from starflashattention_tpu_torch.ops.flash_decode import (LATENT_HEAD_DIM, _quantized, cap_scores,
-                                                           check_head_dim, fold_k_scale, has_variants,
-                                                           in_band, kv_dtype_code, launch_split,
-                                                           scale_heads, variant_options)
+from starflashattention_tpu_torch.ops.flash_decode import (_quantized, cap_scores, check_head_dim,
+                                                           fold_k_scale, has_variants, in_band,
+                                                           kv_dtype_code, launch_split, scale_heads,
+                                                           variant_options)
 
-_LATENT_SIGNATURES = {
-    "paged_flash_decode": [_build.P] * 6 + [_build.I] * 6 + [_build.F, _build.P],
-}
 _CUDA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -121,7 +117,7 @@ def _paged_kernel(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, k_s
                          f"{q.dtype} / {k_pages.dtype} / {v_pages.dtype}")
     kv_code = kv_dtype_code(q.dtype, k_pages.dtype)
     check_head_dim("paged_flash_decode", d, q.dtype, k_pages.dtype,
-                   not has_variants(window, sinks, softcap))
+                   not has_variants(window, sinks, softcap), group=hq // hkv)
     if v_pages.shape != k_pages.shape or not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ValueError("K and V pools must be contiguous and of one shape")
     if page_table.dim() != 2 or page_table.shape[0] != b or lengths.shape != (b,):
@@ -137,18 +133,9 @@ def _paged_kernel(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, k_s
     scale = 1.0 / d**0.5 if sm_scale is None else float(sm_scale)
     k_ptr = _build.P(k_pages.data_ptr() + layer * layer_bytes)
     v_ptr = _build.P(v_pages.data_ptr() + layer * layer_bytes)
-    if d != LATENT_HEAD_DIM:
-        launch_split(q, k_ptr, v_ptr, lengths, hkv=hkv, s=table.shape[1] * ps, scale=scale,
-                     kv_code=kv_code, scales=scales, out=out, pages=(table, num_pages, ps),
-                     window=window, sinks=sinks, softcap=softcap)
-    else:
-        lib = _build.load("flash_decode", _LATENT_SIGNATURES)
-        with torch.cuda.device(q.device):
-            err = lib.paged_flash_decode(
-                _build.ptr(q), k_ptr, v_ptr, _build.ptr(lengths), _build.ptr(table), _build.ptr(out),
-                b, hq, hkv, num_pages, ps, table.shape[1], scale, _build.stream_ptr(q.device),
-            )
-        _build.check(lib, err, "paged_flash_decode")
+    launch_split(q, k_ptr, v_ptr, lengths, hkv=hkv, s=table.shape[1] * ps, scale=scale,
+                 kv_code=kv_code, scales=scales, out=out, pages=(table, num_pages, ps),
+                 window=window, sinks=sinks, softcap=softcap)
     paged_flash_decode.launches += 1
     return out
 

@@ -51,7 +51,7 @@ def attention_decode_step(
     ``lengths``, append into the layer's cache IN PLACE, attend over
     ``lengths + 1`` positions. Returns ``(o (B, Hq, D), cache)``. An int8 /
     fp8 cache quantizes the new rows against its scales and attends with
-    them folded around the kernel."""
+    them: the decode kernel folds them in itself."""
     if cfg.sliding_window is not None:
         raise NotImplementedError(
             "attention_decode_step with a sliding window: the JAX step attends the whole cache "

@@ -41,8 +41,9 @@ attention variants, K5's LSE and K12 under the window, sinks and softcap
 at D 64, 128 and 256 (K/V rows below every band set to NaN change no bit
 of dq), K12 at D 256 without options, each option's visible effect on the
 gradients, and training steps of narrow Gemma-2, Mistral with sinks and
-Gemma models. MLA's latent row (D 640, 16 query heads on one KV head): K1,
-K7 and K5 against their twins, the forms they refuse, and a narrow
+Gemma models. MLA's latent row (D 640, 4 or 16 query heads on one KV head):
+K1, K7, K2 and K5 against their twins on the split kernel's chunk edges,
+the forms they refuse, and a narrow
 DeepSeek-style model (MLA, int4 experts) through ``generate`` and both
 engines. Ring context parallelism's ``kv_offset``: K5 with the LSE and K12
 on a chunk whose sinks' boundary the offset moves, with a KV chunk in the
@@ -959,7 +960,7 @@ def test_d256_decode_and_verify_edge_cases_match_plain(cuda, case, kv, d):
     lens, w, sk, cap, t = D256_CASES[case]
     gen = _gen(cuda)
     b, hq, hkv, s = 4, 8, 2, 512
-    assert flash_decode.split_chunking(s, b, hkv, flash_decode.sm_count(cuda))[1] >= 4
+    assert flash_decode.split_chunking(s, b, hkv, flash_decode.sm_count(cuda), d)[1] >= 4
     q = torch.randn((b, hq, t, d), generator=gen, device=cuda, dtype=torch.bfloat16)
     k = torch.randn((1, b, hkv, s, d), generator=gen, device=cuda)
     v = torch.randn((1, b, hkv, s, d), generator=gen, device=cuda)
@@ -1388,19 +1389,27 @@ def test_variant_training_steps_run_on_the_kernels(cuda):
 # ----------------------------------------------------------------- MLA's latent row, MoE
 
 
-@pytest.mark.parametrize("paged", [False, True])
-def test_latent_decode_kernels_match_plain(cuda, paged):
-    """K1 and K7 at MLA's latent row (D 640, 16 query heads on one KV head),
-    lengths 0, a tile's remainder and the full table: within 4 bf16 ulps of
-    |o| <= 4 of the twin (both round once); a row of length 0 gives 0."""
+@pytest.mark.parametrize("hq", [4, 16])
+@pytest.mark.parametrize("mode", ["decode", "paged", "partials"])
+def test_latent_decode_kernels_match_plain(cuda, mode, hq):
+    """K1, K7 and K2 (4 splits) at MLA's latent row (D 640, one KV head; 16
+    query heads fill the kernel's m16 tile, DeepSeek-style tests run 4) on
+    the D 640 grid's 128-row chunks: lengths 0, 1, 127, 128, 129 and the
+    full table, pages shuffled. The merged output within one bf16 rounding
+    of each element on either side (2 ulps) and 4 bf16 ulps of |o| <= 4 of
+    the twin; a row of length 0 gives 0; K2's partials within 1e-4 of the
+    twin's (fp32 sums in another order), l = 0 where a split holds no row;
+    the arrival counters end at 0."""
     gen = _gen(cuda)
-    b, hq, s, d, ps = 4, 16, 384, 640, 128
+    lens = (0, 1, 127, 128, 129, 384)
+    b, s, d, ps = len(lens), 384, 640, 128
+    assert flash_decode.split_chunking(s, b, 1, flash_decode.sm_count(cuda), d)[0] == 128
     q = torch.randn((b, hq, d), generator=gen, device=cuda, dtype=torch.bfloat16)
     k = torch.randn((1, b, 1, s, d), generator=gen, device=cuda, dtype=torch.bfloat16)
     v = torch.randn_like(k)
-    lengths = torch.tensor([0, 45, 384, 200], dtype=torch.int32, device=cuda)
-    sm = 192.0**-0.5
-    if paged:
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    kw = dict(layer=0, sm_scale=192.0**-0.5)
+    if mode == "paged":
         pps = s // ps
         table = (torch.randperm(b * pps, generator=torch.Generator().manual_seed(0)) + 1).reshape(b, pps)
         table = table.to(device=cuda, dtype=torch.int32)
@@ -1409,13 +1418,29 @@ def test_latent_decode_kernels_match_plain(cuda, paged):
             pool = torch.zeros((1, 1, b * pps + 1, ps, d), dtype=x.dtype, device=cuda)
             pool[0, 0, table.reshape(-1).long()] = x[0, :, 0].reshape(b * pps, ps, d)
             pools.append(pool)
-        out = paged_decode.paged_flash_decode(q, *pools, table, lengths, layer=0, sm_scale=sm)
-        ref = paged_decode.paged_flash_decode_plain(q, *pools, table, lengths, layer=0, sm_scale=sm)
+        before = paged_decode.paged_flash_decode.launches
+        out = paged_decode.paged_flash_decode(q, *pools, table, lengths, **kw)
+        assert paged_decode.paged_flash_decode.launches == before + 1
+        ref = paged_decode.paged_flash_decode_plain(q, *pools, table, lengths, **kw)
     else:
-        out = flash_decode.flash_decode(q, k, v, lengths, layer=0, num_splits=1, sm_scale=sm)
-        ref = flash_decode.flash_decode_plain(q, k, v, lengths, layer=0, num_splits=1, sm_scale=sm)
+        kw["num_splits"] = 1 if mode == "decode" else 4
+        before = flash_decode.flash_decode.launches
+        out = flash_decode.flash_decode(q, k, v, lengths, **kw)
+        assert flash_decode.flash_decode.launches == before + 1
+        ref = flash_decode.flash_decode_plain(q, k, v, lengths, **kw)
     assert _max_err(out, ref) <= 4 * BF16_ULP
+    assert _ulps(out, ref) <= 2
     assert torch.all(out[0] == 0)
+    if mode == "partials":
+        o, m, l = flash_decode.flash_decode_with_stats(q, k, v, lengths, **kw)
+        o_r, m_r, l_r = flash_decode.flash_decode_with_stats_plain(q, k, v, lengths, **kw)
+        live = m_r > -1e30
+        assert torch.equal(live, m > -1e30)
+        assert (m - m_r)[live].abs().max().item() <= 1e-4
+        assert ((l - l_r) / l_r.clamp(min=1))[live].abs().max().item() <= 1e-4
+        assert ((o - o_r) / l_r.clamp(min=1)[..., None])[live].abs().max().item() <= 1e-4
+        assert torch.all(l[~live] == 0) and torch.all(o[~live] == 0)
+    assert _arrivals_at_rest()
 
 
 @pytest.mark.parametrize("hq", [2, 16])
@@ -1438,15 +1463,23 @@ def test_latent_prefill_kernel_matches_plain(cuda, hq):
 
 
 def test_latent_forms_the_kernels_refuse(cuda):
-    """D 640 takes bf16, one split, no verify span and no LSE; the others
+    """D 640 takes bf16 q and KV, at most 16 query heads a KV head, no
+    variant, no verify span and no LSE, at any number of splits; the others
     raise before a launch."""
-    q = torch.zeros((1, 16, 640), device=cuda, dtype=torch.bfloat16)
-    k = torch.zeros((1, 1, 1, 64, 640), device=cuda, dtype=torch.bfloat16)
+    q = torch.randn((1, 16, 640), generator=_gen(cuda), device=cuda, dtype=torch.bfloat16)
+    k = torch.randn((1, 1, 1, 64, 640), generator=_gen(cuda), device=cuda, dtype=torch.bfloat16)
     lengths = torch.tensor([3], dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="640"):
-        flash_decode.flash_decode(q, k, k, lengths, layer=0, num_splits=2, block_k=32)
+    out = flash_decode.flash_decode(q, k, k, lengths, layer=0, num_splits=2, block_k=32)
+    ref = flash_decode.flash_decode_plain(q, k, k, lengths, layer=0, num_splits=2, block_k=32)
+    assert _max_err(out, ref) <= 4 * BF16_ULP
     with pytest.raises(ValueError, match="640"):
         flash_decode.flash_verify(q[:, :, None].expand(1, 16, 3, 640).contiguous(), k, k, lengths, layer=0)
+    with pytest.raises(ValueError, match="640"):
+        flash_decode.flash_decode(q, k, k, lengths, layer=0, num_splits=1, window=16)
+    with pytest.raises(ValueError, match="640"):
+        flash_decode.flash_decode(q.float(), k.float(), k.float(), lengths, layer=0, num_splits=1)
+    with pytest.raises(ValueError, match="at most 16"):
+        flash_decode.flash_decode(q.repeat(1, 2, 1), k, k, lengths, layer=0, num_splits=1)
     with pytest.raises(ValueError, match="640"):
         flash_prefill.flash_prefill(q[:, :, None], k[0], k[0], lengths, return_lse=True)
 

@@ -8,10 +8,12 @@ latent KV head, a 128-lane latent row), with the low-rank q projection
 dense, int8 and int4 expert stacks. Held to JAX: ``_mla_qkv`` /
 ``_mla_out``, the prefill and decode logits, greedy streams of
 ``generate``, ``Engine`` and ``PagedEngine`` (and the JAX ``PagedEngine``'s
-page tables after every round), and the bridge on the MLA trees. The
-plain twins of the decode (K1), paged decode (K7) and prefill (K5)
-kernels at the card's latent geometry (D 640, 16 query heads a KV head)
-are held to the JAX package's ``core/reference``. The refusals JAX has
+page tables after every round), and the bridge on the MLA trees; the
+decode also at 4 splits (K2's partials and their merge). The plain twins
+of the decode (K1), paged decode (K7) and prefill (K5) kernels at the
+card's latent geometry (D 640, 16 query heads a KV head) are held to the
+JAX package's ``core/reference``, and the split partials there (K2) to
+JAX's ``flash_decode_with_stats`` and its merge. The refusals JAX has
 (mesh, spec decoding and LoRA with MLA, quantized KV) and training's.
 
 Tolerances: token streams and page tables exactly; fp32 logits and
@@ -19,6 +21,7 @@ projections within 1e-5 of their largest magnitude.
 """
 
 import functools
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +44,8 @@ from starflashattention_tpu_torch.runtime import params as t_params
 from starflashattention_tpu_torch.serving import Engine, PagedEngine, Request
 from starflashattention_tpu_torch.utils import bridge
 
+j_fd = importlib.import_module("starflashattention_tpu.ops.flash_decode")  # ops/__init__ shadows the module
+
 torch.set_num_threads(1)
 
 REL_TOL = 1e-5  # of the largest magnitude
@@ -53,6 +58,7 @@ TINY_MLA = dict(vocab_size=64, hidden_size=32, intermediate_size=64, num_layers=
                 v_head_dim=16, query_scale=24.0)
 CONFIGS = {
     "mla": {},
+    "mla_4_splits": dict(num_splits=4),  # the decode's split-KV partials (K2) and their merge
     "mla_q_lora": dict(q_lora_rank=16),
     "deepseek_v2": dict(num_experts=4, num_experts_per_tok=2, n_shared_experts=1, first_k_dense=1,
                         dense_inter_size=48, router_pre_softmax=True, routed_scaling_factor=1.5),
@@ -175,7 +181,7 @@ def _serve(eng, request_cls, prompts):
     return [r.output for r in reqs]
 
 
-@pytest.mark.parametrize("name,experts", [("mla", "dense"), ("mla_q_lora", "dense"),
+@pytest.mark.parametrize("name,experts", [("mla", "dense"), ("mla_4_splits", "dense"), ("mla_q_lora", "dense"),
                                           ("deepseek_v2", "dense"), ("deepseek_v2", "int8"),
                                           ("deepseek_v2", "int4")])
 def test_streams_match_jax(name, experts):
@@ -266,6 +272,33 @@ def test_latent_kernel_twins_match_reference():
     _close(got, want)
 
 
+def test_latent_split_partials_match_jax():
+    """K2 at the card's latent geometry: the port's
+    ``flash_decode_with_stats`` (4 splits) against JAX's (o, m, l), in
+    interpret mode, and ``lse_combine_splits`` of them against JAX's merged
+    output; a split past a row's length holds m = NEG_INF, l = 0, o = 0."""
+    rng = np.random.default_rng(7)
+    b, hq, s, d, sm = 3, 16, 256, flash_decode.LATENT_HEAD_DIM, 192.0**-0.5
+    q = rng.standard_normal((b, hq, d)).astype(np.float32)
+    k = rng.standard_normal((1, b, 1, s, d)).astype(np.float32)
+    v = rng.standard_normal((1, b, 1, s, d)).astype(np.float32)
+    lens = np.array([37, 129, 256], np.int32)
+    kw = dict(layer=0, sm_scale=sm, num_splits=4, block_k=32)
+    want = j_fd.flash_decode_with_stats(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lens), **kw)
+    got = flash_decode.flash_decode_with_stats(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                                               torch.from_numpy(lens), **kw)
+    assert got[0].shape == (b, hq, 4, d) and got[1].shape == got[2].shape == (b, hq, 4)
+    dead = np.asarray(want[1]) < -1e30  # splits that hold no row of their sequence
+    assert dead.any() and np.all(got[1].numpy()[dead] < -1e30) and np.all(got[2].numpy()[dead] == 0)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy()[~dead], w[~dead], rtol=0, atol=REL_TOL * np.abs(w[~dead]).max())
+    _close(flash_decode.lse_combine_splits(*got), j_fd.lse_combine_splits(*want))
+    _close(flash_decode.flash_decode(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                                     torch.from_numpy(lens), **kw),
+           j_fd.flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lens), **kw))
+
+
 # ----------------------------------------------------------------- refusals
 
 
@@ -291,16 +324,20 @@ def test_mla_refusals():
 
 
 def test_latent_forms_the_card_refuses():
-    """D 640 runs on the card only in the forms MLA uses; the others raise
-    before a launch, naming their ROADMAP entries."""
+    """D 640 runs on the card in the forms MLA uses, at any number of
+    splits and up to 16 query heads a KV head; the others raise before a
+    launch, naming what is left in the ROADMAP."""
     bf16 = torch.bfloat16
     flash_decode.check_head_dim("k", 640, bf16, bf16)
+    flash_decode.check_head_dim("k", 640, bf16, bf16, group=16)
     for args in ((bf16, torch.int8), (torch.float32, torch.float32)):
         with pytest.raises(ValueError, match="640"):
             flash_decode.check_head_dim("k", 640, *args)
-    for kw in (dict(plain=False), dict(one_split=False), dict(verify=True)):
-        with pytest.raises(ValueError, match="K2 at D 640"):
+    for kw in (dict(plain=False), dict(verify=True)):
+        with pytest.raises(ValueError, match="K1 verify at D 640"):
             flash_decode.check_head_dim("k", 640, bf16, bf16, **kw)
+    with pytest.raises(ValueError, match="at most 16"):
+        flash_decode.check_head_dim("k", 640, bf16, bf16, group=32)
     with pytest.raises(ValueError, match="head_dim"):
         flash_decode.check_head_dim("k", 512, bf16, bf16)
     q = torch.zeros((1, 16, 4, 640), dtype=bf16)
