@@ -21,7 +21,11 @@ Phases (any failure raises and the script exits non-zero):
    five 7B shapes with g128 scales, W8A8 and W4A8 at 2048 rows on the four
    layer shapes (bound at the int8 tensor-core rate), decode attention
    (fused and split) and paged decode on int8 and on fp8 KV (scales 5/127
-   and 5/448), and the appends on 1-byte rows. Speculative decoding's
+   and 5/448), and the appends on 1-byte rows. The decode-row matmuls (K4
+   int8 and fp8, K6; their split-K form) run each call twice for the same
+   bits, and ``[grid]`` lines time ``wo``, ``w_down`` and DeepSeek-V2-Lite's
+   expert ``down`` at their default splits beside half and twice as many.
+   Speculative decoding's
    kernels at its verify step's shapes (B=8, T=5): the verify mode of the
    decode attention on bf16 and int8 KV, each query token also held bit for
    bit to the fused decode at lengths + j, and the block append. The
@@ -393,6 +397,7 @@ LORA_NEW_TOKENS = 16
 TRAIN_GRAD_TOL = 5e-2
 QMM_ENTRY = {16: "quant_matmul (small-M, decode rows)", 2048: "quant_matmul (tiled, prefill rows)"}
 QMM_FP8_TILED = "quant_matmul fp8 (tiled, prefill rows)"
+QMM_FP8_SMALL = "quant_matmul fp8 (small-M, decode rows)"
 K5_TRAIN_NO_LSE = "flash_prefill without the LSE (training shape)"  # phase 2 only: the LSE's own cost
 K12_SPLIT = "flash_bwd_dkdv (split walks + flash_bwd_dkdv_sum, TP x DP shard)"  # phase 14e's launches
 INT4_ENTRY = {16: "quant_matmul_int4 (small-M, decode rows)",
@@ -569,9 +574,9 @@ def phase_device_and_build():
                         + (f", {smem} bytes of dynamic shared memory" if smem else ""))
         for label in (_latent_label, _redesign_label):
             for kernel, regs, spill in _entry_resources(r["ptxas"], label):
-                smem = _latent_decode_smem(kernel)
+                smem = _latent_decode_smem(kernel) or _split_k_smem(kernel)
                 log(f"[build]   {kernel}: {regs} registers, spill stores {spill} bytes"
-                    + (f", {smem} bytes of dynamic shared memory at {LATENT_GROUP} rows" if smem else ""))
+                    + (f", {smem[0]} bytes of dynamic shared memory at {smem[1]}" if smem else ""))
     return smi
 
 
@@ -602,7 +607,7 @@ def _latent_label(name):
 
 
 def _latent_decode_smem(kernel):
-    """The dynamic shared memory (bytes) of a D 640 decode block of
+    """(dynamic shared memory bytes, what) of a D 640 decode block of
     LATENT_GROUP rows as its library reports it, for a split-KV decode
     kernel's D 640 label, else None."""
     if not kernel.startswith("decode_split_kernel<bf16, bf16, 640"):
@@ -610,15 +615,30 @@ def _latent_decode_smem(kernel):
     from starflashattention_tpu_torch.ops import _build
 
     lib = _build.load("flash_decode_split", {"flash_decode_split_smem_bytes": [_build.I] * 2})
-    return lib.flash_decode_split_smem_bytes(640, LATENT_GROUP)
+    return lib.flash_decode_split_smem_bytes(640, LATENT_GROUP), f"{LATENT_GROUP} rows"
+
+
+def _split_k_smem(kernel):
+    """(dynamic shared memory bytes, what) of a split-K matmul form,
+    qmm_split_k<weights, n8 tiles, out>, from its mangled name as its
+    library reports it, else None."""
+    m = re.search(r"qmm_split_k(I.*?)Li(\d)E", kernel)
+    if not m:
+        return None
+    from starflashattention_tpu_torch.ops import _build
+
+    int4, nt = "Int4" in m.group(1), int(m.group(2))
+    lib = _build.load("quant_matmul", {"quant_matmul_split_k_smem": [_build.I] * 2})
+    return (lib.quant_matmul_split_k_smem(int(int4), nt),
+            f"up to {8 * nt} rows ({'int4' if int4 else 'int8 / fp8'})")
 
 
 def _redesign_label(name):
     """The redesigned kernels by mangled name: the split-KV decode (its D
-    640 forms are _latent_label's) and the tiled int4, int8 / fp8 and W4A8
-    matmuls."""
-    return name if any(k in name for k in ("decode_split_kernel", "qmm_int4_tiled", "qmm_8bit_tiled",
-                                            "qmm_w4a8_tiled")) and "Li640E" not in name else None
+    640 forms are _latent_label's), the split-K int8 / fp8 / int4 matmul of
+    up to 64 rows and the tiled int4, int8 / fp8 and W4A8 matmuls."""
+    return name if any(k in name for k in ("decode_split_kernel", "qmm_split_k", "qmm_int4_tiled",
+                                            "qmm_8bit_tiled", "qmm_w4a8_tiled")) and "Li640E" not in name else None
 
 
 def _entry_resources(ptxas, label):
@@ -688,6 +708,40 @@ def _check_ulps(name, out, ref, roundings):
     _check(name, _ulps(out, ref), roundings + 1.0, what="largest error in bf16 ulps of each element")
 
 
+def _same_bits(name, fn):
+    """Two runs of ``fn`` give the same bits (the split-K matmuls sum their
+    splits in split order, whichever block arrives last)."""
+    a, b = fn(), fn()
+    bits = torch.int32 if a.dtype == torch.float32 else torch.int16
+    same = torch.equal(a.view(bits), b.view(bits))
+    _check(f"{name} twice", 0.0 if same else 1.0, 0.0, what="runs that differ in a bit")
+
+
+def _split_k_grid(entry, fn, x, w, scale, layer, out_dtype, half, timer):
+    """A ``[grid]`` line: the split-K matmul at its default splits beside
+    about half and twice as many (``ops/quant_matmul._launch``'s
+    ``splits``; int4 splits hold whole groups, so twice may be as many)."""
+    from starflashattention_tpu_torch.ops import quant_matmul as qmm
+    from starflashattention_tpu_torch.utils.device import sm_count
+
+    (m, k), n, group = x.shape, w.shape[-1], 2 * half or None
+    default = qmm.small_m_grid(m, k, n, group, sm_count(x.device))[1]
+    parts = []
+    for label, want in (("default", default), ("half", max(1, default // 2)), ("twice", 2 * default)):
+        bands, splits, split = qmm.small_m_grid(m, k, n, group, splits=want)
+        ms = timer(lambda: qmm._launch(fn, x, w, scale, layer, out_dtype, half, want))
+        parts.append(f"{label} {splits} splits of {split} rows ({bands * splits} blocks) {ms:.4f} ms")
+    log(f"[grid] {entry} K={k} N={n}: " + "; ".join(parts))
+
+
+def _arrivals_at_zero():
+    """Every split-K workspace's arrival counters are back at zero."""
+    from starflashattention_tpu_torch.ops import quant_matmul as qmm
+
+    left = sum(int(ws["arrivals"].abs().sum()) for ws in qmm._SMALL_M_WORKSPACE.values())
+    _check("split-K arrival counters after phase 2's matmuls", float(left), 0.0, what="sum")
+
+
 def phase_kernels(dev, timer):
     """Each kernel against its plain twin at main-path shapes; returns
     {entry name: measurements} for the kernels line."""
@@ -698,6 +752,7 @@ def phase_kernels(dev, timer):
     from starflashattention_tpu_torch.ops.flash_decode import (
         flash_decode, flash_decode_plain, flash_decode_with_stats, flash_decode_with_stats_plain)
     from starflashattention_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_plain
+    from starflashattention_tpu_torch.ops import quant_matmul as qmm
     from starflashattention_tpu_torch.ops.quant_matmul import quant_matmul, quant_matmul_plain
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -822,9 +877,12 @@ def phase_kernels(dev, timer):
                 rel = 2.0**-7 if out_dtype == bf16 else 1e-4
                 _check(f"quant_matmul {mode} {name} rows={rows} K={kdim} N={ndim} out={out_dtype}",
                        err, rel * peak)
-                if mode != "int8" and rows <= 64:  # fp8 is timed on the tiled form only
-                    continue
                 fn = lambda: quant_matmul(x, w, scale, layer=3, out_dtype=out_dtype)  # noqa: E731
+                if rows <= 64:
+                    _same_bits(f"quant_matmul {mode} {name} rows={rows}", fn)
+                    if mode == "int8" and name in ("wo", "w_down"):
+                        _split_k_grid(f"quant_matmul int8 {name} rows={rows}", qmm.quant_matmul, x, w, scale, 3,
+                                      out_dtype, 0, timer)
                 t = timer(fn)
                 t_plain = timer(lambda: quant_matmul_plain(x, w, scale, layer=3, out_dtype=out_dtype), iters=5)
                 t_lib = timer(lambda: torch.matmul(x, w_deq))
@@ -835,7 +893,7 @@ def phase_kernels(dev, timer):
                     f"torch.matmul(bf16 dequantized) {t_lib:.4f} ms, bound {bnd:.4f} ms ({by})")
                 if rows > 64:
                     log_rate(f"quant_matmul {mode} tiled {name} rows={rows} K={kdim} N={ndim}", t, n_bytes, n_ops)
-                key = QMM_ENTRY[rows] if mode == "int8" else QMM_FP8_TILED
+                key = QMM_ENTRY[rows] if mode == "int8" else QMM_FP8_TILED if rows > 64 else QMM_FP8_SMALL
                 agg = res.setdefault(key, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
                                                n_bytes=0, n_ops=0))
                 agg["max_abs_err"] = max(agg["max_abs_err"], err)
@@ -845,13 +903,13 @@ def phase_kernels(dev, timer):
                 agg["n_bytes"] += n_bytes
                 agg["n_ops"] += n_ops
             del w, scale, w_deq, wq
-    for key in (QMM_ENTRY[16], QMM_ENTRY[2048], QMM_FP8_TILED):
+    for key in (QMM_ENTRY[16], QMM_FP8_SMALL, QMM_ENTRY[2048], QMM_FP8_TILED):
         agg = res[key]
         n_bytes, n_ops = agg.pop("n_bytes"), agg.pop("n_ops")
         agg["bound_ms"], agg["bound_by"] = bound_ms(n_bytes, n_ops)
-        if key != QMM_ENTRY[16]:
-            log_rate(f"{key}, the five shapes", agg["ms"], n_bytes, n_ops)
+        log_rate(f"{key}, the five shapes", agg["ms"], n_bytes, n_ops)
     res.update(_quantized_matmuls(dev, timer, gen, shapes))
+    _arrivals_at_zero()
 
     # -- prefill attention: B=2, Sq=512, Skv=1024, q_offsets [0, 300]
     b, sq, skv = 2, 512, 1024
@@ -2329,6 +2387,10 @@ def _latent_kernels(dev, timer, gen):
             _check(f"{entry} {name} index {eidx} of {n_stack} K={kdim} N={ndim} out={out_dtype or torch.float32}",
                    err, (2.0**-7 if out_dtype == bf16 else 1e-4) * ref.float().abs().max().item())
             agg["max_abs_err"] = max(agg["max_abs_err"], err)
+            _same_bits(f"{entry} {name}", lambda: fn(x, w, scale, layer=eidx, out_dtype=out_dtype))
+            if mode == "int4" and name == "down":
+                _split_k_grid(f"{entry} {name}", fn, x, w, scale, eidx, out_dtype or torch.float32,
+                              w.shape[1] // scale.shape[1], timer)
             agg["ms"] += timer(lambda: fn(x, w, scale, layer=eidx, out_dtype=out_dtype))
             agg["plain_ms"] += timer(lambda: plain(x, w, scale, layer=eidx, out_dtype=out_dtype), iters=5)
             agg["library_ms"] += timer(lambda: torch.matmul(x, deq))
@@ -2539,6 +2601,9 @@ def _quantized_matmuls(dev, timer, gen, shapes):
             rel = 2.0**-7 if out_dtype == bf16 else 1e-4
             _check(f"quant_matmul_int4 g128 {name} rows={rows} K={kdim} N={ndim} out={out_dtype}",
                    err, rel * peak)
+            if rows <= 64:
+                _same_bits(f"quant_matmul_int4 g128 {name} rows={rows}",
+                           lambda: qmm.quant_matmul_int4(x, w4["w"], w4["scale"], layer=1, out_dtype=out_dtype))
             t = timer(lambda: qmm.quant_matmul_int4(x, w4["w"], w4["scale"], layer=1, out_dtype=out_dtype))
             t_plain = timer(lambda: qmm.quant_matmul_int4_plain(x, w4["w"], w4["scale"], layer=1,
                                                                 out_dtype=out_dtype), iters=5)
@@ -2602,7 +2667,7 @@ def _quantized_matmuls(dev, timer, gen, shapes):
         int8 = entry in A8_ENTRY.values()
         n_bytes, n_ops = r.pop("n_bytes"), r.pop("n_ops")
         r["bound_ms"], r["bound_by"] = bound_ms(n_bytes, n_ops, PEAK_INT8_OPS_PER_S if int8 else PEAK_BF16_OPS_PER_S)
-        if entry == INT4_ENTRY[2048]:
+        if entry in INT4_ENTRY.values():
             log_rate(f"{entry}, the five shapes", r["ms"], n_bytes, n_ops)
         if int8:
             entry_ms, quant_ms = r.pop("entry_ms"), r.pop("quantize_rows_ms")
@@ -4074,6 +4139,7 @@ def phase_deepseek(dev, smi):
         f"{bound:.3f} ms at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s, {bound / step_ms:.3f} of it; {smi}")
     cache.lengths.fill_(start)
     traced = _traced_steps("deepseek", "(b) decode chain", lambda: chain(DSV2_TRACED_STEPS, tok), DSV2_TRACED_STEPS)
+    _split_k_share("deepseek", "(b) decode chain", traced)
     if traced:
         k1 = [v for name, v in traced["kernels"].items() if "decode_split_kernel" in name]
         log(f"[deepseek] (b) K1 (decode_split_kernel at D 640) in the traced window: "
@@ -4162,7 +4228,7 @@ def phase_decode_profile(dev):
             f"({batch / step_ms * 1e3:.1f} tok/s), host clock over {steps} steps")
 
         cache.lengths.fill_(start_len)
-        _traced_steps("profile", label, lambda: run(traced, tok), traced)
+        _split_k_share("profile", label, _traced_steps("profile", label, lambda: run(traced, tok), traced))
         del params, cache
         torch.cuda.empty_cache()
 
@@ -4202,6 +4268,17 @@ def _traced_steps(tag, label, run, steps):
     for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"[{tag}]   {ms:8.3f} ms/step  {n:6.1f} launches/step  {name[:110]}")
     return dict(wall_ms=wall_ms / steps, busy_ms=busy, launches=launches, idle_share=idle, kernels=kernels)
+
+
+def _split_k_share(tag, label, traced):
+    """Log the split-K matmuls' (K4 / K6 at up to 64 rows) device ms a step
+    in a traced window of ``_traced_steps``."""
+    if not traced:
+        return
+    rows = [v for name, v in traced["kernels"].items() if "qmm_split_k" in name]
+    log(f"[{tag}] {label}: split-K matmuls (K4 / K6 at decode rows, qmm_split_k) "
+        f"{sum(ms for ms, _ in rows):.3f} device ms a step in {sum(n for _, n in rows):.0f} launches, of "
+        f"{traced['busy_ms']:.3f} busy")
 
 
 # ---------------------------------------------------------------- phase 13
@@ -5201,8 +5278,8 @@ REPLACES = {
 # runs the fp8 cache only in split mode and pages only in int8; no path
 # serves fp8 weights; DeepSeek-V2-Lite decodes its latent row in one split):
 # logged, not in the kernels line
-OFF_PATH = ("flash_decode fp8 KV (1 split, fused)", "paged_flash_decode fp8 KV", QMM_FP8_TILED, K5_TRAIN_NO_LSE,
-            LATENT_ENTRIES["split"])
+OFF_PATH = ("flash_decode fp8 KV (1 split, fused)", "paged_flash_decode fp8 KV", QMM_FP8_TILED, QMM_FP8_SMALL,
+            K5_TRAIN_NO_LSE, LATENT_ENTRIES["split"])
 
 
 def main(argv=None):

@@ -1,6 +1,8 @@
-// Pieces shared by the tiled matmuls of quant_matmul.cu and quant_matmul_a8.cu:
-// 16-byte cp.async into shared memory, ldmatrix, bf16 packing and the
-// 8-column stores of a thread's permuted output columns.
+// Pieces shared by the matmuls of quant_matmul.cu and quant_matmul_a8.cu:
+// 16-byte cp.async into shared memory, ldmatrix, bf16 packing, the 8-column
+// stores of a thread's permuted output columns, and the register
+// conversions of int8, float8_e4m3fn and packed int4 weight words to bf16
+// pairs (the tiled and the split-K forms read the weights as 32-bit words).
 
 #pragma once
 
@@ -34,10 +36,80 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
 }
 
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
+}
+
+// int8: byte I of words a and b -> one bf16x2 (a's value in the low half),
+// exact. prmt puts byte I of each word in the low byte of its 16-bit half;
+// lop3 makes L = 0x4300 | (byte & 0x7F), bf16 128 + the 7 low bits, and C =
+// 0x4300 | (byte & 0x80), bf16 128 or (sign bit set) 256; one bf16x2 FMA
+// gives L - C, the int8 value: an integer in [-128, 127], exact in bf16.
+template <int I>
+__device__ __forceinline__ uint32_t s8x2_bf16(uint32_t a, uint32_t b) {
+  constexpr uint32_t sel = I | (I << 4) | ((4 + I) << 8) | ((4 + I) << 12);
+  uint32_t x, l, c, r;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(x) : "r"(a), "r"(b), "n"(sel));
+  asm("lop3.b32 %0, %1, %2, %3, 0xea;\n" : "=r"(l) : "r"(x), "n"(0x007F007Fu), "n"(0x43004300u));
+  asm("lop3.b32 %0, %1, %2, %3, 0xea;\n" : "=r"(c) : "r"(x), "n"(0x00800080u), "n"(0x43004300u));
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(c), "r"(0xBF80BF80u), "r"(l));
+  return r;
+}
+
+// float8_e4m3fn: byte I of words a and b -> one bf16x2. prmt gives each
+// byte a 16-bit half, the byte low and its sign replicated high; shifted
+// left by 4 and masked with 0x87F0, a half holds the sign in bit 15 and the
+// byte's 4 exponent and 3 mantissa bits in bits 7-10 and 4-6: the bf16 of
+// the e4m3 value times 2^-120 (a bf16 subnormal for an e4m3 subnormal).
+// One bf16x2 multiply by 2^120 (0x7B80) restores it, exact for every
+// finite value.
+template <int I>
+__device__ __forceinline__ uint32_t e4m3x2_bf16(uint32_t a, uint32_t b) {
+  constexpr uint32_t sel = I | ((I | 8) << 4) | ((4 + I) << 8) | ((12 + I) << 12);
+  uint32_t x, r;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(x) : "r"(a), "r"(b), "n"(sel));
+  const uint32_t y = (x << 4) & 0x87F087F0u;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(y), "r"(0x7B807B80u));
+  return r;
+}
+
+// Byte I of word a and byte I of word b -> one bf16x2 (a's value in the low
+// half), of their low nibbles (HIGH false: stored biased +8) or of their
+// high nibbles already shifted into bits 0-3 (HIGH true: signed, so bit 3
+// is flipped to give the same +8 bias). prmt gathers the two bytes; lop3
+// computes (x & 0x000f000f) ^ magic, which puts the biased nibble n into
+// the mantissa of bf16 128.0 (0x4300 | n = 128 + n, exact); one bf16x2 FMA
+// subtracts 136. Exact for every value in [-8, 7].
+template <int I, bool HIGH>
+__device__ __forceinline__ uint32_t nib2_bf16(uint32_t a, uint32_t b) {
+  constexpr uint32_t sel = I | (I << 4) | ((4 + I) << 8) | ((4 + I) << 12);
+  constexpr uint32_t magic = HIGH ? 0x43084308u : 0x43004300u;
+  uint32_t x, y, z;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(x) : "r"(a), "r"(b), "n"(sel));
+  asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n" : "=r"(y) : "r"(x), "n"(0x000f000fu), "n"(magic));
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(z) : "r"(y), "r"(0x3f803f80u), "r"(0xc308c308u));
+  return z;
+}
+
+// The int4 fragments of byte I of one chunk's words: w0, w1, w8, w9 hold
+// packed rows 2t, 2t + 1, 2t + 8, 2t + 9; lo/hi[I] are the bf16 pairs
+// (rows 2t, 2t + 1) and (rows 2t + 8, 2t + 9) of the low and the high
+// nibbles.
+template <int I>
+__device__ __forceinline__ void unpack_tile(uint32_t (&lo)[4][2], uint32_t (&hi)[4][2],
+                                            uint32_t w0, uint32_t w1, uint32_t w8, uint32_t w9) {
+  lo[I][0] = nib2_bf16<I, false>(w0, w1);
+  lo[I][1] = nib2_bf16<I, false>(w8, w9);
+  hi[I][0] = nib2_bf16<I, true>(w0 >> 4, w1 >> 4);
+  hi[I][1] = nib2_bf16<I, true>(w8 >> 4, w9 >> 4);
 }
 
 // Eight consecutive output columns of one row, as two (fp32) or one (bf16)

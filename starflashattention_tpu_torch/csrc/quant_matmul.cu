@@ -25,24 +25,25 @@
 // it. The weights are never dequantized into a bf16 copy in device memory
 // (that copy is what the kernel exists to avoid): each 8-bit weight or
 // nibble is converted to bf16 in registers right before it feeds an mma
-// (both nibbles are small integers, exact in bf16).
+// (both nibbles are small integers, exact in bf16). The weights are read
+// from shared memory as 32-bit words and converted a bf16 pair at a time
+// (qmm_tiles.cuh), in every form.
 //
-// Two variants each, picked by M:
-//  * small-M (M <= 64): one block per 32 output columns, 8 warps that
-//    split K between them (each warp loads 16 rows x 32 columns of weight
-//    bytes per step, 16 bytes per thread, coalesced), then a deterministic
-//    cross-warp sum in shared memory. The x rows (<= 64) are read straight
-//    from L1/L2 as mma A fragments. int4 splits K by whole groups.
+// Two forms each, picked by M:
+//  * split K (M <= 64, int8 / fp8 and int4): bands of 128 output columns x
+//    K ranges, one wave of three blocks an SM, the weights in the mma's A slot
+//    streamed through a 4-stage cp.async ring with x's rows beside them, the
+//    splits' fp32 partials summed in split order by the band's last block
+//    (see qmm_split_k).
 //  * tiled (M > 64), int8 / fp8: 128 x 256 output tiles, 8 warps of 64 x
 //    64, a 4-buffer cp.async ring of 64 rows a stage, A fragments by
-//    ldmatrix from a swizzled layout, the weight bytes read as 32-bit words
-//    and converted to bf16 in registers (see qmm_8bit_tiled).
+//    ldmatrix from a swizzled layout (see qmm_8bit_tiled).
 //  * tiled (M > 64), int4: 64 x 256 output tiles, 8 warps, a 4-buffer
 //    cp.async ring of 64 packed rows a stage (one g128 group), A fragments
-//    by ldmatrix from a swizzled layout, the packed bytes read as 32-bit
-//    words and unpacked in registers by the magic-number conversion (see
-//    qmm_int4_tiled). Bound at prefill rows by the operations: 2048 rows
-//    through 7B's five shapes are 1.26 TFLOP, 1.28 ms at 989 TFLOP/s.
+//    by ldmatrix from a swizzled layout, the nibbles unpacked by the
+//    magic-number conversion (see qmm_int4_tiled). Bound at prefill rows by
+//    the operations: 2048 rows through 7B's five shapes are 1.26 TFLOP,
+//    1.28 ms at 989 TFLOP/s.
 //
 // Requirements checked by the wrapper: K % 32 == 0, N % 32 == 0 (int4:
 // group / 2 % 16 == 0), x, w, scale and out contiguous and 16-byte aligned.
@@ -59,27 +60,6 @@
 namespace {
 
 using namespace qmm;
-
-template <typename WT>
-__device__ __forceinline__ float w2f(uint8_t b);
-
-template <>
-__device__ __forceinline__ float w2f<int8_t>(uint8_t b) {
-  return static_cast<float>(static_cast<int8_t>(b));
-}
-
-template <>
-__device__ __forceinline__ float w2f<__nv_fp8_e4m3>(uint8_t b) {
-  __nv_fp8_e4m3 v;
-  v.__x = b;
-  return static_cast<float>(v);
-}
-
-// The two signed nibbles of a packed int4 byte, as floats (exact).
-__device__ __forceinline__ float lo_nib(uint8_t b) { return static_cast<float>((b & 15) - 8); }
-__device__ __forceinline__ float hi_nib(uint8_t b) {
-  return static_cast<float>(static_cast<int8_t>(b) >> 4);
-}
 
 // D = A(16x16, row) * B(16x8, col) + D, bf16 inputs, fp32 accumulators.
 __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
@@ -100,217 +80,330 @@ __device__ __forceinline__ void zero_acc(float (&acc)[MT][4][4]) {
       for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
 }
 
-// int4: acc += gacc * the group's scale (scale row srow) for the output
-// columns cbase + j * 8 + 2t and the next one.
-template <int MT>
-__device__ __forceinline__ void add_group(float (&acc)[MT][4][4], const float (&gacc)[MT][4][4],
-                                          const float* __restrict__ srow, int cbase, int t, int N) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = cbase + j * 8 + 2 * t;
-    if (c < N) {
-      const float s0 = srow[c], s1 = srow[c + 1];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        acc[mt][j][0] += gacc[mt][j][0] * s0;
-        acc[mt][j][1] += gacc[mt][j][1] * s1;
-        acc[mt][j][2] += gacc[mt][j][2] * s0;
-        acc[mt][j][3] += gacc[mt][j][3] * s1;
-      }
-    }
+// byte I of words a and b (two k of one column) -> one bf16x2, by format
+template <typename WT, int I>
+__device__ __forceinline__ uint32_t bytes2_bf16(uint32_t a, uint32_t b) {
+  if constexpr (std::is_same<WT, int8_t>::value) {
+    return s8x2_bf16<I>(a, b);
+  } else {
+    return e4m3x2_bf16<I>(a, b);
   }
 }
 
-// ---------------------------------------------------------------- small M
-constexpr int SM_WARPS = 8;
-constexpr int SM_BN = 32;
-constexpr int SM_UNROLL = 4;
+// ---------------------------------------------------------------- small M: split K
+// M <= 64 rows (decode steps, verify spans, MoE experts). The weight stream
+// bounds these calls, so the design is about bytes in flight: enough blocks
+// and enough stages. A block computes one band of SK_BN = 128 output
+// columns over one K range ("split") of `split` rows; the wrapper picks the
+// splits (ops/quant_matmul.small_m_grid) from the shapes and the SM count:
+// as many as fit one wave of three blocks an SM.
+//  * The weights sit in the mma's A slot and x in its B slot: an
+//    m16n8k16 product has its 16 rows over output columns and its 8 columns
+//    over x rows, so M <= 8 runs one n8 tile rather than a mostly empty m16
+//    one. Each of the 8 warps owns 16 columns of the band over the whole
+//    split, so no sum crosses warps. Lane (g, t) reads 32-bit words (4
+//    columns) at rows 2t, 2t + 1, 2t + 8, 2t + 9 of column quad g / 2,
+//    shifted right by 8 (g & 1) bits: bytes 0 and 2 are the fragment's rows
+//    g and g + 8, i.e. columns 4 (g / 2) + (g & 1) and that + 2
+//    (`small_m_fragment` in ops/quant_matmul.py spells it out). Two lanes
+//    read each word. The bytes become bf16 pairs by qmm_tiles.cuh's
+//    s8x2_bf16 / e4m3x2_bf16 / nib2_bf16, as in the tiled forms.
+//  * The weight tiles (SK_BK rows, int4 packed rows, x 128 columns) stream
+//    through a ring of SK_STAGES stages in dynamic shared memory, filled by
+//    16-byte cp.async with one barrier a stage: three stages (24 KB of
+//    weights a block) are in flight while one is multiplied. x's rows (zeros
+//    past M) ride in the same stages, the columns the stage's rows meet, and
+//    are read by ldmatrix from an XOR-swizzled layout; x is not staged
+//    whole, since a split's x at 64 rows can pass 300 KB. int4 brings, with
+//    each stage, the scale row of every group that ends in it.
+//  * int8 / fp8: fp32 sums over the split, the column scale applied once to
+//    the full sum. int4: each group's fp32 partial (its low- and high-nibble
+//    k16 steps) times its scale, added when the group ends; splits hold
+//    whole groups.
+//  * More than one split: each block writes its fp32 partial to a workspace
+//    in its threads' register order (16-byte stores), and the last block of
+//    a band to arrive (an arrival counter bumped after __threadfence, reset
+//    to 0 by that block) sums the partials in split order, SK_MERGE loads in
+//    flight at a time, so every run gives the same bits. The band goes out
+//    through shared memory in 16-byte stores.
+// What bounds it on the H100: the weight loads, at under half the byte
+// bound (PERF.md). In trial builds a copy of the kernel that only loaded
+// took nearly all of its time, and deeper rings (6, 8 stages), 128-row
+// stages, 256-column bands, more blocks an SM, an L2 prefetch ahead of the
+// ring, one bulk copy (cp.async.bulk on an mbarrier) a weight row and one
+// 2D tensor copy a stage each ran slower or within a few percent.
+constexpr int SK_WARPS = 8;
+constexpr int SK_THREADS = SK_WARPS * 32;
+constexpr int SK_BN = SK_WARPS * 16;    // output columns a band
+constexpr int SK_BK = 64;               // weight rows (int4: packed rows) a stage
+constexpr int SK_STAGES = 4;
+constexpr int SK_W_ROW = SK_BN + 16;    // bytes: 128 weight bytes + padding (conflict-free words)
+constexpr int SK_W_BYTES = SK_BK * SK_W_ROW;
+constexpr int SK_OUT_ROW = SK_BN + 4;   // floats: a row of the epilogue's tile
+constexpr int SK_MERGE = 8;             // partials the last block loads at a time
 
-// The small-M epilogue: a deterministic cross-warp sum of the warps'
-// accumulators in shared memory (warps add in a fixed order), then rows < M
-// of the block's SM_BN columns stored, times scale[col] unless scale is null.
-template <int MT, typename OutT>
-__device__ __forceinline__ void reduce_store(const float (&acc)[MT][4][4], float (*red)[SM_BN],
-                                             OutT* __restrict__ out, int M, int N, int n0,
-                                             const float* __restrict__ scale) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  for (int wi = 0; wi < SM_WARPS; ++wi) {
-    if (warp == wi) {
+struct Int4 {};  // the weight tag of the int4 form
+
+template <typename WT, int NT>
+struct SplitK {
+  static constexpr bool INT4 = std::is_same<WT, Int4>::value;
+  static constexpr int ROWS = 8 * NT;             // x rows (M <= ROWS): NT n8 tiles
+  static constexpr int X_PIECES = INT4 ? SK_BK / 4 : SK_BK / 8;  // 16-byte pieces of an x row a stage
+  static constexpr int X_ROW = X_PIECES * 16;
+  static constexpr int X_BYTES = ROWS * X_ROW;
+  static constexpr int S_BYTES = INT4 ? (SK_BK / 16) * SK_BN * 4 : 0;
+  static constexpr int STAGE = SK_W_BYTES + X_BYTES + S_BYTES;
+  static constexpr int SMEM = SK_STAGES * STAGE;
+  static_assert(X_PIECES % 8 == 0, "x's swizzle permutes 8 pieces of a row");
+  static_assert(ROWS * SK_OUT_ROW * 4 <= SMEM, "the epilogue tile reuses the ring");
+};
+
+template <typename WT, int NT, typename OutT>
+__global__ void __launch_bounds__(SK_THREADS)
+    qmm_split_k(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
+                const float* __restrict__ scale, OutT* __restrict__ out, float* __restrict__ part,
+                int* __restrict__ arrivals, int M, int K, int N, int half, int split) {
+  using G = SplitK<WT, NT>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int last;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, e = g & 1;
+  const int band = blockIdx.x, sp = blockIdx.y, splits = gridDim.y;
+  const int n0 = band * SK_BN;
+  // the block's weight rows [r0, r1): K rows, or packed rows (int4)
+  const int per = G::INT4 ? split / 2 : split;
+  const int r0 = sp * per, r1 = min(r0 + per, G::INT4 ? K / 2 : K);
+  const int nstages = (r1 - r0 + SK_BK - 1) / SK_BK;
+  const uint32_t smem0 = smem_addr(smem);
+
+  auto load_stage = [&](int s, int buf) {
+    const uint32_t w_s = smem0 + buf * G::STAGE, x_s = w_s + SK_W_BYTES, s_s = x_s + G::X_BYTES;
+    const int row0 = r0 + s * SK_BK;
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+    for (int i = 0; i < SK_BK * (SK_BN / 16) / SK_THREADS; ++i) {
+      const int idx = tid + i * SK_THREADS, row = idx / (SK_BN / 16), piece = idx % (SK_BN / 16);
+      const int col = n0 + 16 * piece;
+      const bool ok = row0 + row < r1 && col < N;
+      cp_async16(w_s + row * SK_W_ROW + 16 * piece, ok ? w + (size_t)(row0 + row) * N + col : w,
+                 ok ? 16 : 0);
+    }
+    for (int idx = tid; idx < G::ROWS * G::X_PIECES; idx += SK_THREADS) {
+      const int row = idx / G::X_PIECES, piece = idx % G::X_PIECES;
+      int col;
+      bool ok;
+      if constexpr (G::INT4) {
+        // piece 4c + 2h + q: chunk c's 8 activation columns q of its low (h
+        // 0) or its high (h 1) nibble half
+        const int p = row0 + 16 * (piece >> 2);  // the chunk's first packed row
+        const int grp = p / half;
+        col = grp * 2 * half + ((piece >> 1) & 1) * half + (p - grp * half) + 8 * (piece & 1);
+        ok = p < r1;
+      } else {
+        col = row0 + 8 * piece;
+        ok = col < r1;
+      }
+      ok = ok && row < M;
+      cp_async16(x_s + row * G::X_ROW + ((piece ^ (row & 7)) << 4), ok ? x + (size_t)row * K + col : x,
+                 ok ? 16 : 0);
+    }
+    if constexpr (G::INT4) {
+      // the scale row of each group that ends in the stage, in the slot of
+      // the chunk that ends it
+      if (tid < (SK_BK / 16) * (SK_BN / 4)) {
+        const int c = tid / (SK_BN / 4), q = tid % (SK_BN / 4);
+        const int p = row0 + 16 * c;
+        if (p < r1 && (p + 16) % half == 0 && n0 + 4 * q < N)
+          cp_async16(s_s + (c * SK_BN + 4 * q) * 4, scale + (size_t)((p + 16) / half - 1) * N + n0 + 4 * q,
+                     16);
+      }
+    }
+  };
+
+  // the B fragments of every n8 tile (x rows 8 jn .. + 7) at x pieces p0
+  // and p0 + 1 (16 columns) of a stage, by ldmatrix
+  auto load_b = [&](uint32_t (&b)[NT][2], uint32_t x_s, int p0) {
+    if constexpr (NT == 1) {
+      const int row = lane & 7, piece = p0 + ((lane >> 3) & 1);
+      ldmatrix_x2(b[0], x_s + row * G::X_ROW + ((piece ^ row) << 4));
+    } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r0 = mt * 16 + g, c = j * 8 + 2 * t;
-          if (wi == 0) {
-            red[r0][c] = acc[mt][j][0];
-            red[r0][c + 1] = acc[mt][j][1];
-            red[r0 + 8][c] = acc[mt][j][2];
-            red[r0 + 8][c + 1] = acc[mt][j][3];
-          } else {
-            red[r0][c] += acc[mt][j][0];
-            red[r0][c + 1] += acc[mt][j][1];
-            red[r0 + 8][c] += acc[mt][j][2];
-            red[r0 + 8][c + 1] += acc[mt][j][3];
+      for (int q = 0; q < NT / 2; ++q) {
+        const int row = 16 * q + (lane & 7) + 8 * (lane >> 4), piece = p0 + ((lane >> 3) & 1);
+        uint32_t r[4];
+        ldmatrix_x4(r, x_s + row * G::X_ROW + ((piece ^ (row & 7)) << 4));
+        b[2 * q][0] = r[0], b[2 * q][1] = r[1], b[2 * q + 1][0] = r[2], b[2 * q + 1][1] = r[3];
+      }
+    }
+  };
+
+  float acc[NT][4], gacc[NT][4];
+#pragma unroll
+  for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[jn][i] = gacc[jn][i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < SK_STAGES - 1; ++s) {
+    if (s < nstages) load_stage(s, s);
+    cp_async_commit();
+  }
+  const int word = warp * 16 + 4 * (g >> 1);  // the byte offset of the lane's word in a weight row
+  for (int s = 0; s < nstages; ++s) {
+    // stage s has landed, and every warp is past stage s - 1, whose buffer
+    // takes stage s + SK_STAGES - 1
+    cp_async_wait<SK_STAGES - 2>();
+    __syncthreads();
+    if (s + SK_STAGES - 1 < nstages) load_stage(s + SK_STAGES - 1, (s + SK_STAGES - 1) % SK_STAGES);
+    cp_async_commit();
+    const int buf = s % SK_STAGES;
+    const unsigned char* w_s = smem + buf * G::STAGE;
+    const uint32_t x_s = smem0 + buf * G::STAGE + SK_W_BYTES;
+    const float* s_s = reinterpret_cast<const float*>(w_s + SK_W_BYTES + G::X_BYTES);
+    const int row0 = r0 + s * SK_BK;
+    const int steps = min(SK_BK, r1 - row0) / 16;  // k16 steps (int4: chunks) in the stage
+#pragma unroll
+    for (int j = 0; j < SK_BK / 16; ++j) {
+      if (j >= steps) break;  // uniform across the block
+      const unsigned char* bp = w_s + (16 * j + 2 * t) * SK_W_ROW + word;
+      const int sh = 8 * e;
+      const uint32_t w0 = *reinterpret_cast<const uint32_t*>(bp) >> sh;
+      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(bp + SK_W_ROW) >> sh;
+      const uint32_t w8 = *reinterpret_cast<const uint32_t*>(bp + 8 * SK_W_ROW) >> sh;
+      const uint32_t w9 = *reinterpret_cast<const uint32_t*>(bp + 9 * SK_W_ROW) >> sh;
+      if constexpr (G::INT4) {
+        uint32_t lo[4][2], hi[4][2];
+        unpack_tile<0>(lo, hi, w0, w1, w8, w9);
+        unpack_tile<2>(lo, hi, w0, w1, w8, w9);
+        const uint32_t alo[4] = {lo[0][0], lo[2][0], lo[0][1], lo[2][1]};
+        const uint32_t ahi[4] = {hi[0][0], hi[2][0], hi[0][1], hi[2][1]};
+        uint32_t blo[NT][2], bhi[NT][2];
+        load_b(blo, x_s, 4 * j);
+        load_b(bhi, x_s, 4 * j + 2);
+#pragma unroll
+        for (int jn = 0; jn < NT; ++jn) {
+          mma_bf16(gacc[jn], alo, blo[jn]);
+          mma_bf16(gacc[jn], ahi, bhi[jn]);
+        }
+        if ((row0 + 16 * j + 16) % half == 0) {  // the chunk ends its group: flush it times its scale
+          const float* sc = s_s + j * SK_BN + word + e;
+          const float s0 = sc[0], s1 = sc[2];
+#pragma unroll
+          for (int jn = 0; jn < NT; ++jn) {
+            acc[jn][0] += gacc[jn][0] * s0;
+            acc[jn][1] += gacc[jn][1] * s0;
+            acc[jn][2] += gacc[jn][2] * s1;
+            acc[jn][3] += gacc[jn][3] * s1;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) gacc[jn][i] = 0.f;
           }
         }
+      } else {
+        const uint32_t a[4] = {bytes2_bf16<WT, 0>(w0, w1), bytes2_bf16<WT, 2>(w0, w1),
+                               bytes2_bf16<WT, 0>(w8, w9), bytes2_bf16<WT, 2>(w8, w9)};
+        uint32_t b[NT][2];
+        load_b(b, x_s, 2 * j);
+#pragma unroll
+        for (int jn = 0; jn < NT; ++jn) mma_bf16(acc[jn], a, b[jn]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the epilogue's tile reuses it
+
+  if (splits > 1) {
+    // the partial, 16 bytes a thread per n8 tile, then the arrival; the last
+    // block of the band sums all partials in split order
+    float4* mine = reinterpret_cast<float4*>(part) + (size_t)(band * splits + sp) * NT * SK_THREADS;
+#pragma unroll
+    for (int jn = 0; jn < NT; ++jn)
+      __stcg(mine + jn * SK_THREADS + tid, make_float4(acc[jn][0], acc[jn][1], acc[jn][2], acc[jn][3]));
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+      int* counter = arrivals + band;
+      last = atomicAdd(counter, 1) == splits - 1;
+      if (last) *counter = 0;  // every split of the band has arrived: ready for the next call
     }
     __syncthreads();
+    if (!last) return;
+    __threadfence();
+    // SK_MERGE splits' loads in flight at a time, added in split order
+    const float4* parts = reinterpret_cast<const float4*>(part) + (size_t)band * splits * NT * SK_THREADS + tid;
+#pragma unroll
+    for (int jn = 0; jn < NT; ++jn) {
+      float4 v = __ldcg(parts + jn * SK_THREADS);
+      for (int q0 = 1; q0 < splits; q0 += SK_MERGE) {
+        float4 u[SK_MERGE];
+#pragma unroll
+        for (int i = 0; i < SK_MERGE; ++i)
+          if (q0 + i < splits) u[i] = __ldcg(parts + ((q0 + i) * NT + jn) * SK_THREADS);
+#pragma unroll
+        for (int i = 0; i < SK_MERGE; ++i)
+          if (q0 + i < splits) v.x += u[i].x, v.y += u[i].y, v.z += u[i].z, v.w += u[i].w;
+      }
+      acc[jn][0] = v.x, acc[jn][1] = v.y, acc[jn][2] = v.z, acc[jn][3] = v.w;
+    }
   }
-  for (int idx = threadIdx.x; idx < MT * 16 * SM_BN; idx += blockDim.x) {
-    const int r = idx / SM_BN, c = idx % SM_BN;
-    if (r < M) store_out(out + (size_t)r * N + n0 + c, scale ? red[r][c] * scale[n0 + c] : red[r][c]);
+
+  // accumulator (jn, i): x row 8 jn + 2t + (i & 1), column word + e + 2 (i >> 1)
+  float* tile = reinterpret_cast<float*>(smem);
+  const int col = word + e;
+#pragma unroll
+  for (int jn = 0; jn < NT; ++jn) {
+    float* r = tile + (8 * jn + 2 * t) * SK_OUT_ROW + col;
+    r[0] = acc[jn][0];
+    r[SK_OUT_ROW] = acc[jn][1];
+    r[2] = acc[jn][2];
+    r[SK_OUT_ROW + 2] = acc[jn][3];
+  }
+  __syncthreads();
+  // rows < M of the band, 8 columns a thread at a time, times the column
+  // scale (int8 / fp8)
+  for (int idx = tid; idx < M * (SK_BN / 8); idx += SK_THREADS) {
+    const int r = idx / (SK_BN / 8), c = idx % (SK_BN / 8) * 8;
+    if (n0 + c >= N) continue;
+    const float4* src = reinterpret_cast<const float4*>(tile + r * SK_OUT_ROW + c);
+    const float4 v0 = src[0], v1 = src[1];
+    float v[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+    if constexpr (!G::INT4) {
+      const float4 s0 = __ldg(reinterpret_cast<const float4*>(scale + n0 + c));
+      const float4 s1 = __ldg(reinterpret_cast<const float4*>(scale + n0 + c + 4));
+      v[0] *= s0.x, v[1] *= s0.y, v[2] *= s0.z, v[3] *= s0.w;
+      v[4] *= s1.x, v[5] *= s1.y, v[6] *= s1.z, v[7] *= s1.w;
+    }
+    store8(out + (size_t)r * N + n0 + c, v);
   }
 }
 
-template <typename WT, int MT, typename OutT>
-__global__ void __launch_bounds__(SM_WARPS * 32)
-    qmm_small_m(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
-                const float* __restrict__ scale, OutT* __restrict__ out, int M, int K, int N) {
-  __shared__ __align__(16) uint8_t wt[SM_WARPS][SM_UNROLL][16][SM_BN];
-  __shared__ float red[MT * 16][SM_BN];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int n0 = blockIdx.x * SM_BN;
-  const int kchunks = K / 16;
-  const int k2 = K / 2;
-  const uint32_t* x32 = reinterpret_cast<const uint32_t*>(x);
-
-  float acc[MT][4][4];
-  zero_acc(acc);
-
-  for (int kc0 = warp * SM_UNROLL; kc0 < kchunks; kc0 += SM_WARPS * SM_UNROLL) {
-    // Each lane loads row (lane / 2) of the 16-row chunk, 16 columns.
-    uint4 wv[SM_UNROLL];
-#pragma unroll
-    for (int u = 0; u < SM_UNROLL; ++u) {
-      const int kc = kc0 + u;
-      if (kc < kchunks) {
-        const uint8_t* src = w + (size_t)(kc * 16 + (lane >> 1)) * N + n0 + (lane & 1) * 16;
-        wv[u] = __ldg(reinterpret_cast<const uint4*>(src));
-      } else {
-        wv[u] = make_uint4(0u, 0u, 0u, 0u);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < SM_UNROLL; ++u)
-      *reinterpret_cast<uint4*>(&wt[warp][u][lane >> 1][(lane & 1) * 16]) = wv[u];
-    __syncwarp();
-#pragma unroll
-    for (int u = 0; u < SM_UNROLL; ++u) {
-      const int kc = kc0 + u;
-      if (kc < kchunks) {  // uniform across the warp
-        uint32_t bf[4][2];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = j * 8 + g;
-          bf[j][0] = pack_bf16(w2f<WT>(wt[warp][u][2 * t][col]), w2f<WT>(wt[warp][u][2 * t + 1][col]));
-          bf[j][1] = pack_bf16(w2f<WT>(wt[warp][u][2 * t + 8][col]), w2f<WT>(wt[warp][u][2 * t + 9][col]));
-        }
-        const int kb2 = kc * 8;  // k offset in bf16 pairs
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const int r0 = mt * 16 + g, r1 = r0 + 8;
-          uint32_t af[4];
-          af[0] = r0 < M ? x32[(size_t)r0 * k2 + kb2 + t] : 0u;
-          af[1] = r1 < M ? x32[(size_t)r1 * k2 + kb2 + t] : 0u;
-          af[2] = r0 < M ? x32[(size_t)r0 * k2 + kb2 + t + 4] : 0u;
-          af[3] = r1 < M ? x32[(size_t)r1 * k2 + kb2 + t + 4] : 0u;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) mma_bf16(acc[mt][j], af, bf[j]);
-        }
-      }
-    }
-    __syncwarp();
-  }
-
-  reduce_store<MT>(acc, red, out, M, N, n0, scale);
+template <typename WT, int NT, typename OutT>
+cudaError_t run_split_k(dim3 grid, const void* x, const void* w, const void* scale, void* out,
+                        void* part, void* arrivals, int M, int K, int N, int half, int split,
+                        cudaStream_t stream) {
+  auto kernel = qmm_split_k<WT, NT, OutT>;
+  constexpr int smem = SplitK<WT, NT>::SMEM;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, SK_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(w), static_cast<const float*>(scale),
+      static_cast<OutT*>(out), static_cast<float*>(part), static_cast<int*>(arrivals), M, K, N, half, split);
+  return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------- int4
-constexpr int I4_UNROLL = 4;  // packed 16-row chunks a warp loads per step
-
-template <int MT, typename OutT>
-__global__ void __launch_bounds__(SM_WARPS * 32)
-    qmm_int4_small_m(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
-                     const float* __restrict__ scale, OutT* __restrict__ out, int M, int K, int N,
-                     int half) {
-  __shared__ __align__(16) uint8_t wt[SM_WARPS][I4_UNROLL][16][SM_BN];
-  __shared__ float red[MT * 16][SM_BN];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int n0 = blockIdx.x * SM_BN;
-  const int groups = K / (2 * half);
-  const int nch = half / 16;  // packed 16-row chunks per group
-  const int k2 = K / 2;
-  const uint32_t* x32 = reinterpret_cast<const uint32_t*>(x);
-
-  float acc[MT][4][4];
-  zero_acc(acc);
-
-  for (int grp = warp; grp < groups; grp += SM_WARPS) {
-    float gacc[MT][4][4];
-    zero_acc(gacc);
-    const uint8_t* wg = w + (size_t)grp * half * N;
-    const int xlo = grp * 2 * half;  // first activation column of the group
-    for (int c0 = 0; c0 < nch; c0 += I4_UNROLL) {
-      uint4 wv[I4_UNROLL];
-#pragma unroll
-      for (int u = 0; u < I4_UNROLL; ++u) {
-        const int c = c0 + u;
-        if (c < nch) {
-          const uint8_t* src = wg + (size_t)(c * 16 + (lane >> 1)) * N + n0 + (lane & 1) * 16;
-          wv[u] = __ldg(reinterpret_cast<const uint4*>(src));
-        } else {
-          wv[u] = make_uint4(0u, 0u, 0u, 0u);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < I4_UNROLL; ++u)
-        *reinterpret_cast<uint4*>(&wt[warp][u][lane >> 1][(lane & 1) * 16]) = wv[u];
-      __syncwarp();
-#pragma unroll
-      for (int u = 0; u < I4_UNROLL; ++u) {
-        const int c = c0 + u;
-        if (c < nch) {  // uniform across the warp
-          uint32_t blo[4][2], bhi[4][2];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int col = j * 8 + g;
-            const uint8_t b0 = wt[warp][u][2 * t][col], b1 = wt[warp][u][2 * t + 1][col];
-            const uint8_t b2 = wt[warp][u][2 * t + 8][col], b3 = wt[warp][u][2 * t + 9][col];
-            blo[j][0] = pack_bf16(lo_nib(b0), lo_nib(b1));
-            blo[j][1] = pack_bf16(lo_nib(b2), lo_nib(b3));
-            bhi[j][0] = pack_bf16(hi_nib(b0), hi_nib(b1));
-            bhi[j][1] = pack_bf16(hi_nib(b2), hi_nib(b3));
-          }
-          const int kb_lo = (xlo + c * 16) / 2, kb_hi = (xlo + half + c * 16) / 2;  // bf16 pairs
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) {
-            const int r0 = mt * 16 + g, r1 = r0 + 8;
-            uint32_t alo[4], ahi[4];
-            alo[0] = r0 < M ? x32[(size_t)r0 * k2 + kb_lo + t] : 0u;
-            alo[1] = r1 < M ? x32[(size_t)r1 * k2 + kb_lo + t] : 0u;
-            alo[2] = r0 < M ? x32[(size_t)r0 * k2 + kb_lo + t + 4] : 0u;
-            alo[3] = r1 < M ? x32[(size_t)r1 * k2 + kb_lo + t + 4] : 0u;
-            ahi[0] = r0 < M ? x32[(size_t)r0 * k2 + kb_hi + t] : 0u;
-            ahi[1] = r1 < M ? x32[(size_t)r1 * k2 + kb_hi + t] : 0u;
-            ahi[2] = r0 < M ? x32[(size_t)r0 * k2 + kb_hi + t + 4] : 0u;
-            ahi[3] = r1 < M ? x32[(size_t)r1 * k2 + kb_hi + t + 4] : 0u;
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              mma_bf16(gacc[mt][j], alo, blo[j]);
-              mma_bf16(gacc[mt][j], ahi, bhi[j]);
-            }
-          }
-        }
-      }
-      __syncwarp();
-    }
-    add_group(acc, gacc, scale + (size_t)grp * N, n0, t, N);  // the group's partial times its scale
-  }
-
-  reduce_store<MT>(acc, red, out, M, N, n0, static_cast<const float*>(nullptr));
+// The split-K launch: bands of SK_BN columns x ceil(K / split) splits; a
+// split is a multiple of 16 rows (int4: of the group, 2 half), the last
+// one may be shorter. part / arrivals: the workspace (more than one split).
+template <typename WT, typename OutT>
+cudaError_t launch_split_k(const void* x, const void* w, const void* scale, void* out, void* part,
+                           void* arrivals, int M, int K, int N, int half, int split, cudaStream_t stream) {
+  const int unit = std::is_same<WT, Int4>::value ? 2 * half : 16;
+  if (split <= 0 || split % unit) return cudaErrorInvalidValue;
+  const dim3 grid((N + SK_BN - 1) / SK_BN, (K + split - 1) / split);
+  if (grid.y > 1 && (part == nullptr || arrivals == nullptr)) return cudaErrorInvalidValue;
+  auto run = M <= 8    ? run_split_k<WT, 1, OutT>
+              : M <= 16 ? run_split_k<WT, 2, OutT>
+              : M <= 32 ? run_split_k<WT, 4, OutT>
+                        : run_split_k<WT, 8, OutT>;
+  return run(grid, x, w, scale, out, part, arrivals, M, K, N, half, split, stream);
 }
 
 // ---------------------------------------------------------------- int4 tiled
@@ -368,36 +461,6 @@ constexpr int I4_B_BYTES = I4_SP * I4_B_ROW;
 constexpr int I4_S_BYTES = I4_CHUNKS * I4_BN * 4;
 constexpr int I4_STAGE_BYTES = I4_A_BYTES + I4_B_BYTES + I4_S_BYTES;
 constexpr int I4_SMEM = I4_STAGES * I4_STAGE_BYTES;  // 151,552 bytes
-
-// Byte I of word a and byte I of word b -> one bf16x2 (a's value in the low
-// half), of their low nibbles (HIGH false: stored biased +8) or of their
-// high nibbles already shifted into bits 0-3 (HIGH true: signed, so bit 3
-// is flipped to give the same +8 bias). prmt gathers the two bytes; lop3
-// computes (x & 0x000f000f) ^ magic, which puts the biased nibble n into
-// the mantissa of bf16 128.0 (0x4300 | n = 128 + n, exact); one bf16x2 FMA
-// subtracts 136. Exact for every value in [-8, 7].
-template <int I, bool HIGH>
-__device__ __forceinline__ uint32_t nib2_bf16(uint32_t a, uint32_t b) {
-  constexpr uint32_t sel = I | (I << 4) | ((4 + I) << 8) | ((4 + I) << 12);
-  constexpr uint32_t magic = HIGH ? 0x43084308u : 0x43004300u;
-  uint32_t x, y, z;
-  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(x) : "r"(a), "r"(b), "n"(sel));
-  asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n" : "=r"(y) : "r"(x), "n"(0x000f000fu), "n"(magic));
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(z) : "r"(y), "r"(0x3f803f80u), "r"(0xc308c308u));
-  return z;
-}
-
-// The B fragments of one chunk: words w0, w1, w8, w9 hold packed rows 2t,
-// 2t + 1, 2t + 8, 2t + 9 of the thread's 4 columns; lo/hi[i] are the
-// (b0, b1) fragments of n8 tile i for the low and the high nibbles.
-template <int I>
-__device__ __forceinline__ void unpack_tile(uint32_t (&lo)[4][2], uint32_t (&hi)[4][2],
-                                            uint32_t w0, uint32_t w1, uint32_t w8, uint32_t w9) {
-  lo[I][0] = nib2_bf16<I, false>(w0, w1);
-  lo[I][1] = nib2_bf16<I, false>(w8, w9);
-  hi[I][0] = nib2_bf16<I, true>(w0 >> 4, w1 >> 4);
-  hi[I][1] = nib2_bf16<I, true>(w8 >> 4, w9 >> 4);
-}
 
 // D = A(16x16, row) * B(16x8, col): mma_bf16 with C = 0, a group's first product.
 __device__ __forceinline__ void mma_bf16_first(float* c, const uint32_t* a, const uint32_t* b) {
@@ -573,26 +636,18 @@ __global__ void __launch_bounds__(I4_THREADS, 1)
 }
 
 template <typename OutT>
-cudaError_t launch_int4(const void* x, const void* w, const void* scale, void* out, int M,
-                        int K, int N, int half, cudaStream_t stream) {
-  const auto* xp = static_cast<const __nv_bfloat16*>(x);
-  const auto* wp = static_cast<const uint8_t*>(w);
-  const auto* sp = static_cast<const float*>(scale);
-  auto* op = static_cast<OutT*>(out);
-  if (M <= 16) {
-    qmm_int4_small_m<1, OutT><<<N / SM_BN, SM_WARPS * 32, 0, stream>>>(xp, wp, sp, op, M, K, N, half);
-  } else if (M <= 32) {
-    qmm_int4_small_m<2, OutT><<<N / SM_BN, SM_WARPS * 32, 0, stream>>>(xp, wp, sp, op, M, K, N, half);
-  } else if (M <= 64) {
-    qmm_int4_small_m<4, OutT><<<N / SM_BN, SM_WARPS * 32, 0, stream>>>(xp, wp, sp, op, M, K, N, half);
-  } else {
-    auto kernel = half == I4_SP ? qmm_int4_tiled<OutT, true> : qmm_int4_tiled<OutT, false>;
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, I4_SMEM);
-    if (e != cudaSuccess) return e;
-    const int tiles = ((M + I4_BM - 1) / I4_BM) * ((N + I4_BN - 1) / I4_BN);
-    kernel<<<tiles, I4_THREADS, I4_SMEM, stream>>>(xp, wp, sp, op, M, K, N, half);
-  }
+cudaError_t launch_int4(const void* x, const void* w, const void* scale, void* out, void* part,
+                        void* arrivals, int M, int K, int N, int half, int split, cudaStream_t stream) {
+  if (M <= 64)
+    return launch_split_k<Int4, OutT>(x, w, scale, out, part, arrivals, M, K, N, half, split, stream);
+  auto kernel = half == I4_SP ? qmm_int4_tiled<OutT, true> : qmm_int4_tiled<OutT, false>;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, I4_SMEM);
+  if (e != cudaSuccess) return e;
+  const int tiles = ((M + I4_BM - 1) / I4_BM) * ((N + I4_BN - 1) / I4_BN);
+  kernel<<<tiles, I4_THREADS, I4_SMEM, stream>>>(static_cast<const __nv_bfloat16*>(x),
+                                                 static_cast<const uint8_t*>(w),
+                                                 static_cast<const float*>(scale), static_cast<OutT*>(out),
+                                                 M, K, N, half);
   return cudaGetLastError();
 }
 
@@ -638,49 +693,6 @@ constexpr int W8_A_BYTES = W8_BM * W8_A_ROW;
 constexpr int W8_B_BYTES = W8_BK * W8_B_ROW;
 constexpr int W8_STAGE_BYTES = W8_A_BYTES + W8_B_BYTES;
 constexpr int W8_SMEM = W8_STAGES * W8_STAGE_BYTES;  // 135,168 bytes
-
-// int8: byte I of words a and b -> one bf16x2 (a's value in the low half),
-// exact. prmt puts byte I of each word in the low byte of its 16-bit half;
-// lop3 makes L = 0x4300 | (byte & 0x7F), bf16 128 + the 7 low bits, and C =
-// 0x4300 | (byte & 0x80), bf16 128 or (sign bit set) 256; one bf16x2 FMA
-// gives L - C, the int8 value: an integer in [-128, 127], exact in bf16.
-template <int I>
-__device__ __forceinline__ uint32_t s8x2_bf16(uint32_t a, uint32_t b) {
-  constexpr uint32_t sel = I | (I << 4) | ((4 + I) << 8) | ((4 + I) << 12);
-  uint32_t x, l, c, r;
-  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(x) : "r"(a), "r"(b), "n"(sel));
-  asm("lop3.b32 %0, %1, %2, %3, 0xea;\n" : "=r"(l) : "r"(x), "n"(0x007F007Fu), "n"(0x43004300u));
-  asm("lop3.b32 %0, %1, %2, %3, 0xea;\n" : "=r"(c) : "r"(x), "n"(0x00800080u), "n"(0x43004300u));
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(c), "r"(0xBF80BF80u), "r"(l));
-  return r;
-}
-
-// float8_e4m3fn: byte I of words a and b -> one bf16x2. prmt gives each
-// byte a 16-bit half, the byte low and its sign replicated high; shifted
-// left by 4 and masked with 0x87F0, a half holds the sign in bit 15 and the
-// byte's 4 exponent and 3 mantissa bits in bits 7-10 and 4-6: the bf16 of
-// the e4m3 value times 2^-120 (a bf16 subnormal for an e4m3 subnormal).
-// One bf16x2 multiply by 2^120 (0x7B80) restores it, exact for every
-// finite value.
-template <int I>
-__device__ __forceinline__ uint32_t e4m3x2_bf16(uint32_t a, uint32_t b) {
-  constexpr uint32_t sel = I | ((I | 8) << 4) | ((4 + I) << 8) | ((12 + I) << 12);
-  uint32_t x, r;
-  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(x) : "r"(a), "r"(b), "n"(sel));
-  const uint32_t y = (x << 4) & 0x87F087F0u;
-  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(y), "r"(0x7B807B80u));
-  return r;
-}
-
-// byte I of words a and b (two k of one column) -> one bf16x2, by format
-template <typename WT, int I>
-__device__ __forceinline__ uint32_t bytes2_bf16(uint32_t a, uint32_t b) {
-  if constexpr (std::is_same<WT, int8_t>::value) {
-    return s8x2_bf16<I>(a, b);
-  } else {
-    return e4m3x2_bf16<I>(a, b);
-  }
-}
 
 // The B fragments of n8 tile I from words w[0..3] (rows 2t, 2t + 1, 2t + 8,
 // 2t + 9 of the thread's 4 columns).
@@ -845,26 +857,17 @@ __global__ void __launch_bounds__(W8_THREADS, 1)
 }
 
 template <typename WT, typename OutT>
-cudaError_t launch(const void* x, const void* w, const void* scale, void* out, int M, int K,
-                   int N, cudaStream_t stream) {
-  const auto* xp = static_cast<const __nv_bfloat16*>(x);
-  const auto* wp = static_cast<const uint8_t*>(w);
-  const auto* sp = static_cast<const float*>(scale);
-  auto* op = static_cast<OutT*>(out);
-  if (M <= 16) {
-    qmm_small_m<WT, 1, OutT><<<N / SM_BN, SM_WARPS * 32, 0, stream>>>(xp, wp, sp, op, M, K, N);
-  } else if (M <= 32) {
-    qmm_small_m<WT, 2, OutT><<<N / SM_BN, SM_WARPS * 32, 0, stream>>>(xp, wp, sp, op, M, K, N);
-  } else if (M <= 64) {
-    qmm_small_m<WT, 4, OutT><<<N / SM_BN, SM_WARPS * 32, 0, stream>>>(xp, wp, sp, op, M, K, N);
-  } else {
-    auto kernel = qmm_8bit_tiled<WT, OutT>;
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W8_SMEM);
-    if (e != cudaSuccess) return e;
-    const int tiles = ((M + W8_BM - 1) / W8_BM) * ((N + W8_BN - 1) / W8_BN);
-    kernel<<<tiles, W8_THREADS, W8_SMEM, stream>>>(xp, wp, sp, op, M, K, N);
-  }
+cudaError_t launch(const void* x, const void* w, const void* scale, void* out, void* part, void* arrivals,
+                   int M, int K, int N, int split, cudaStream_t stream) {
+  if (M <= 64) return launch_split_k<WT, OutT>(x, w, scale, out, part, arrivals, M, K, N, 0, split, stream);
+  auto kernel = qmm_8bit_tiled<WT, OutT>;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W8_SMEM);
+  if (e != cudaSuccess) return e;
+  const int tiles = ((M + W8_BM - 1) / W8_BM) * ((N + W8_BN - 1) / W8_BN);
+  kernel<<<tiles, W8_THREADS, W8_SMEM, stream>>>(static_cast<const __nv_bfloat16*>(x),
+                                                 static_cast<const uint8_t*>(w),
+                                                 static_cast<const float*>(scale), static_cast<OutT*>(out),
+                                                 M, K, N);
   return cudaGetLastError();
 }
 
@@ -875,30 +878,49 @@ extern "C" {
 const char* error_string(int e) { return cudaGetErrorString(static_cast<cudaError_t>(e)); }
 
 // x (M, K) bf16; w (K, N) 8-bit, one layer; scale (N,) fp32; out (M, N).
-// w_fp8: 0 = int8, 1 = float8_e4m3fn. out_bf16: 0 = fp32 out, 1 = bf16 out.
-int quant_matmul(const void* x, const void* w, const void* scale, void* out, int M, int K,
-                 int N, int w_fp8, int out_bf16, void* stream) {
+// M <= 64: the split-K form over splits of `split` rows (a multiple of 16),
+// with part (fp32, ceil(N / 128) * splits * 128 * the rows rounded up to 8,
+// 16, 32 or 64) and arrivals (ceil(N / 128) int32 zeros, left at zero) when
+// there is more than one split; M > 64: the tiled form (part, arrivals and
+// split unused). w_fp8: 0 = int8, 1 = float8_e4m3fn. out_bf16: 0 = fp32
+// out, 1 = bf16 out.
+int quant_matmul(const void* x, const void* w, const void* scale, void* out, void* part, void* arrivals,
+                 int M, int K, int N, int split, int w_fp8, int out_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (w_fp8) {
-    e = out_bf16 ? launch<__nv_fp8_e4m3, __nv_bfloat16>(x, w, scale, out, M, K, N, s)
-                 : launch<__nv_fp8_e4m3, float>(x, w, scale, out, M, K, N, s);
+    e = out_bf16 ? launch<__nv_fp8_e4m3, __nv_bfloat16>(x, w, scale, out, part, arrivals, M, K, N, split, s)
+                 : launch<__nv_fp8_e4m3, float>(x, w, scale, out, part, arrivals, M, K, N, split, s);
   } else {
-    e = out_bf16 ? launch<int8_t, __nv_bfloat16>(x, w, scale, out, M, K, N, s)
-                 : launch<int8_t, float>(x, w, scale, out, M, K, N, s);
+    e = out_bf16 ? launch<int8_t, __nv_bfloat16>(x, w, scale, out, part, arrivals, M, K, N, split, s)
+                 : launch<int8_t, float>(x, w, scale, out, part, arrivals, M, K, N, split, s);
   }
   return static_cast<int>(e);
 }
 
 // x (M, K) bf16; w (K/2, N) packed int4 bytes, one layer; scale (K / (2 *
 // half), N) fp32 group scales; half = group / 2 (a multiple of 16); out
-// (M, N). out_bf16 as above.
-int quant_matmul_int4(const void* x, const void* w, const void* scale, void* out, int M, int K,
-                      int N, int half, int out_bf16, void* stream) {
+// (M, N). part, arrivals, split (a multiple of the group) and out_bf16 as
+// above.
+int quant_matmul_int4(const void* x, const void* w, const void* scale, void* out, void* part,
+                      void* arrivals, int M, int K, int N, int half, int split, int out_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = out_bf16 ? launch_int4<__nv_bfloat16>(x, w, scale, out, M, K, N, half, s)
-                           : launch_int4<float>(x, w, scale, out, M, K, N, half, s);
+  cudaError_t e = out_bf16
+                      ? launch_int4<__nv_bfloat16>(x, w, scale, out, part, arrivals, M, K, N, half, split, s)
+                      : launch_int4<float>(x, w, scale, out, part, arrivals, M, K, N, half, split, s);
   return static_cast<int>(e);
+}
+
+// The dynamic shared memory of the split-K form with nt n8 tiles (1, 2, 4
+// or 8) on int4 (int4 = 1) or 8-bit weights; 0 for another nt.
+int quant_matmul_split_k_smem(int int4, int nt) {
+  switch (nt) {
+    case 1: return int4 ? SplitK<Int4, 1>::SMEM : SplitK<int8_t, 1>::SMEM;
+    case 2: return int4 ? SplitK<Int4, 2>::SMEM : SplitK<int8_t, 2>::SMEM;
+    case 4: return int4 ? SplitK<Int4, 4>::SMEM : SplitK<int8_t, 4>::SMEM;
+    case 8: return int4 ? SplitK<Int4, 8>::SMEM : SplitK<int8_t, 8>::SMEM;
+    default: return 0;
+  }
 }
 
 }  // extern "C"

@@ -51,6 +51,7 @@ from starflashattention_tpu_torch.ops.flash_decode import kernel_options
 from starflashattention_tpu_torch.ops.flash_prefill import (_defaults, attention_mask, check_card_inputs,
                                                             flash_prefill, prefill_options, scales,
                                                             scores_log2)
+from starflashattention_tpu_torch.utils.device import sm_count
 
 _ARGS = [_build.P] * 8
 _OPTIONS = [_build.F, _build.F, _build.I, _build.I, _build.F, _build.P]  # scales, window, sinks, cap, stream
@@ -251,8 +252,8 @@ def flash_bwd_dkdv(q, k, v, lse, do, delta, lengths=None, q_offsets=None, *, cau
     _, hkv, skv, _ = k.shape
     check_card_inputs("flash_bwd_dkdv", q, k, v)  # a head_dim the kernel takes, before its geometry
     bkv, bq, _ = dkdv_geometry(d)
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    plan = dkdv_split_plan(b, hkv, hq // hkv, sq, skv, bool(causal), opts["window"], opts["sinks"], sms, bkv, bq)
+    plan = dkdv_split_plan(b, hkv, hq // hkv, sq, skv, bool(causal), opts["window"], opts["sinks"],
+                           sm_count(q.device), bkv, bq)
     return flash_bwd_dkdv_split(q, k, v, lse, do, delta, lengths, q_offsets, plan=plan, causal=causal,
                                 sm_scale=sm_scale, window=window, sinks=sinks, softcap=softcap,
                                 kv_offset=kv_offset)

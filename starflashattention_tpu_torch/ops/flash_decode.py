@@ -45,6 +45,7 @@ import torch
 
 from starflashattention_tpu_torch.core.reference import NEG_INF, repeat_kv
 from starflashattention_tpu_torch.ops import _build
+from starflashattention_tpu_torch.utils.device import sm_count
 
 _SPLIT_SIGNATURES = {
     "flash_decode_split": [_build.P] * 12 + [_build.I] * 11 + [_build.F] + [_build.I] * 6
@@ -242,16 +243,7 @@ def split_chunk_walk(length: int, *, s: int, chunk: int, qspan: int = 1, window=
     return walks
 
 
-_SM_COUNT: dict[int, int] = {}
 _SPLIT_WORKSPACE: dict[tuple[int, int], dict] = {}
-
-
-def sm_count(device: torch.device) -> int:
-    """The card's streaming multiprocessors (cached per device)."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _SM_COUNT:
-        _SM_COUNT[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    return _SM_COUNT[index]
 
 
 def _split_workspace(device, rows, n, d, pairs):

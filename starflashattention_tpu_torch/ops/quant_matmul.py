@@ -5,12 +5,20 @@
   it launches ``csrc/quant_matmul.cu`` (replaces the TPU kernel
   ``_qmm_kernel``): the layer is a pointer offset into the (L, H, O) stack
   and the 8-bit weights are converted in registers, never into a
-  dequantized copy. Past 64 rows the tiled form (128 x 256 tiles on a
+  dequantized copy. Up to 64 rows (decode steps, verify spans, MoE experts)
+  the split-K form runs: bands of 128 output columns times K ranges, the
+  grid from :func:`small_m_grid` (shapes and SM count only), the weights
+  streamed through a ``cp.async`` ring into the mma's A slot
+  (:func:`small_m_fragment` gives the (k, column) each register holds), and
+  the splits' fp32 partials summed in split order by each band's last block
+  on a workspace cached per device and stream; the column scale is applied
+  once to the full sum. Past 64 rows the tiled form (128 x 256 tiles on a
   ``cp.async`` ring) reads the weights as 32-bit words of 4 columns;
   :func:`k4_b_fragment` gives the (k, column) each register holds.
 - ``quant_matmul_int4``: nibble-packed int4 weights with grouped scales
   (``core/quant.quantize_weight_int4``); the int4 mode of the same source
-  (replaces ``_qmm_int4_kernel``). Both nibbles of a byte are unpacked in
+  (replaces ``_qmm_int4_kernel``), with the same two forms: the split-K
+  splits hold whole groups. Both nibbles of a byte are unpacked in
   registers, and each group's fp32 partial product is multiplied by its
   scale before it joins the accumulator.
 - ``quant_matmul_w8a8`` / ``quant_matmul_w4a8``: the activations are
@@ -39,15 +47,17 @@ import torch
 
 from starflashattention_tpu_torch.core.quant import unpack_int4
 from starflashattention_tpu_torch.ops import _build
+from starflashattention_tpu_torch.utils.device import sm_count
 
 _SIGNATURES = {
-    "quant_matmul": [_build.P, _build.P, _build.P, _build.P, _build.I, _build.I,
-                     _build.I, _build.I, _build.I, _build.P],
-    "quant_matmul_int4": [_build.P] * 4 + [_build.I] * 5 + [_build.P],
+    "quant_matmul": [_build.P] * 6 + [_build.I] * 6 + [_build.P],
+    "quant_matmul_int4": [_build.P] * 6 + [_build.I] * 6 + [_build.P],
 }
 _A8_SIGNATURES = {"quant_matmul_a8": [_build.P] * 5 + [_build.I] * 5 + [_build.P]}
 _WEIGHT_DTYPES = (torch.int8, torch.float8_e4m3fn)
-SMALL_M_MAX = 64  # rows up to which csrc/quant_matmul.cu runs its small-M kernels
+SMALL_M_MAX = 64  # rows up to which csrc/quant_matmul.cu runs its split-K form
+SMALL_M_BAND = 128  # output columns a split-K block (the kernel's SK_BN)
+SMALL_M_BLOCKS_PER_SM = 3  # the grid's aim: one wave of this many blocks an SM
 
 
 def _stack(w, scale, layer):
@@ -170,6 +180,82 @@ def k11_b_fragment(lane: int) -> dict:
     return {"b": b, "store": k4_b_fragment(lane)["store"]}
 
 
+# ----------------------------------------------------------------- the split-K grid (M <= 64)
+
+
+def small_m_rows(m: int) -> int:
+    """The x rows a split-K block stages for ``m`` rows (8, 16, 32 or 64: its
+    n8 tiles times 8); its fp32 partial is that many rows of SMALL_M_BAND."""
+    return next(r for r in (8, 16, 32, 64) if m <= r)
+
+
+def small_m_grid(m: int, k: int, n: int, group: int | None = None, sms: int = 132,
+                 splits: int | None = None) -> tuple[int, int, int]:
+    """The split-K form's grid for ``m`` rows of x (m, k) @ w (k, n):
+    ``(bands, splits, split)``, ``bands`` of SMALL_M_BAND output columns (the
+    last may be partial) times ``splits`` K ranges of ``split`` rows (the last
+    may be shorter). ``split`` is a multiple of 16 rows (one k16 step) or,
+    for int4 (``group``), of the group: a split holds whole groups.
+
+    By default the most splits whose blocks fit SMALL_M_BLOCKS_PER_SM *
+    ``sms`` (one wave of three blocks an SM), none shorter than 4 weight
+    rows (int4: packed rows) per x row the block stages, so that a split's
+    fp32 partial is never larger than its weights. ``splits`` asks for about
+    that many instead (whole units). Depends on the shapes and the SM count
+    only, never on the data."""
+    bands = -(-n // SMALL_M_BAND)
+    unit = group or 16
+    steps = k // unit
+    if splits is None:
+        shortest = -(-4 * small_m_rows(m) // (unit // 2 if group else unit))
+        fit = max(1, SMALL_M_BLOCKS_PER_SM * sms // bands)
+        per = min(steps, max(shortest, -(-steps // fit)))
+    else:
+        per = -(-steps // max(1, min(splits, steps)))
+    return bands, -(-steps // per), per * unit
+
+
+def small_m_fragment(lane: int) -> dict:
+    """The split-K form (``qmm_split_k``): what lane ``lane`` holds in one
+    k16 step (int4: one chunk of 16 packed rows) of its warp's 16 columns.
+    Returns ``{"a": {(register r, half h): (k, column)}, "b": {(register r,
+    half h): (k, x row)}, "acc": {accumulator i: (x row, column)}}``: k
+    within the step (int4: the chunk's packed row, whose low nibble meets
+    the group's low x columns and whose high nibble those half a group on),
+    columns within the warp's 16, x rows within an n8 tile.
+
+    The weights are the m16n8k16 product's A. Lane (g, t) reads 32-bit
+    words at rows 2t, 2t + 1, 2t + 8, 2t + 9 of columns 4 (g // 2) .. + 3,
+    shifted right by 8 (g % 2) bits; bytes 0 and 2 of them are A's rows g
+    and g + 8, the columns 4 (g // 2) + g % 2 and that + 2. The mma sees
+    half h of A register r at row g + 8 (r % 2), k 2t + 8 (r // 2) + h; of
+    B register r (x, by ldmatrix) at k 2t + 8 r + h, column (x row) g; and
+    accumulator i at C's row g + 8 (i // 2), column 2t + i % 2."""
+    g, t = lane >> 2, lane & 3
+    col = 4 * (g >> 1) + (g & 1)
+    return {"a": {(r, h): (2 * t + 8 * (r >> 1) + h, col + 2 * (r & 1)) for r in range(4) for h in range(2)},
+            "b": {(r, h): (2 * t + 8 * r + h, g) for r in range(2) for h in range(2)},
+            "acc": {i: (2 * t + (i & 1), col + 2 * (i >> 1)) for i in range(4)}}
+
+
+_SMALL_M_WORKSPACE: dict[tuple[int, int], dict] = {}
+
+
+def _small_m_workspace(device, floats, bands):
+    """fp32 partials (at least ``floats``) and ``bands`` int32 arrival
+    counters (zeros; the kernel leaves them at zero) for a split-K launch,
+    cached per device and stream and grown when a call needs more. The
+    launches on one stream run in order, so one workspace serves them all."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    ws = _SMALL_M_WORKSPACE.get(key)
+    if ws is None or ws["part"].numel() < floats or ws["arrivals"].numel() < bands:
+        old_part, old_bands = (0, 0) if ws is None else (ws["part"].numel(), ws["arrivals"].numel())
+        ws = {"part": torch.empty(max(floats, old_part), dtype=torch.float32, device=device),
+              "arrivals": torch.zeros(max(bands, old_bands), dtype=torch.int32, device=device)}
+        _SMALL_M_WORKSPACE[key] = ws
+    return ws["part"], ws["arrivals"]
+
+
 # ----------------------------------------------------------------- kernels
 
 
@@ -203,8 +289,43 @@ def _layer_ptrs(w, scale, layer):
     return _build.P(w.data_ptr() + layer * per_w), _build.P(scale.data_ptr() + layer * per_s)
 
 
-def quant_matmul(
-    x: torch.Tensor,  # (M, H) activations
+def _launch(entry, x, w, scale, layer, out_dtype, half=0, splits=None):
+    """``csrc/quant_matmul.cu`` on inputs the entry checked (``w`` /
+    ``scale`` stacked): ``half`` 0 for 8-bit weights, else the packed rows
+    of an int4 half group. Up to SMALL_M_MAX rows the split-K form on
+    :func:`small_m_grid`'s grid (``splits``: about that many K splits
+    instead, as ``chip_smoke.py`` times other grids), else the tiled form.
+    Counts the launch in ``entry.launches`` (and ``launches_tiled``)."""
+    (m, k), n = x.shape, w.shape[-1]
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0:
+        return out
+    part = arrivals = None
+    split = 0
+    if m <= SMALL_M_MAX:
+        bands, n_splits, split = small_m_grid(m, k, n, 2 * half or None, sm_count(x.device), splits)
+        if n_splits > 1:
+            part, arrivals = _small_m_workspace(x.device, bands * n_splits * small_m_rows(m) * SMALL_M_BAND,
+                                                bands)
+    args = (_build.ptr(x), *_layer_ptrs(w, scale, layer), _build.ptr(out),
+            None if part is None else _build.ptr(part), None if arrivals is None else _build.ptr(arrivals),
+            m, k, n)
+    out_bf16 = int(out_dtype == torch.bfloat16)
+    lib = _build.load("quant_matmul", _SIGNATURES)
+    with torch.cuda.device(x.device):
+        if half:
+            err = lib.quant_matmul_int4(*args, half, split, out_bf16, _build.stream_ptr(x.device))
+        else:
+            err = lib.quant_matmul(*args, split, int(w.dtype == torch.float8_e4m3fn), out_bf16,
+                                   _build.stream_ptr(x.device))
+    _build.check(lib, err, entry.__name__)
+    entry.launches += 1
+    if m > SMALL_M_MAX:
+        entry.launches_tiled += 1
+    return out
+
+
+def quant_matmul(    x: torch.Tensor,  # (M, H) activations
     w: torch.Tensor,  # (H, O) or (L, H, O) int8 / float8_e4m3fn
     scale: torch.Tensor,  # (O,) or (L, O) fp32 per-output-channel scales
     *,
@@ -218,32 +339,17 @@ def quant_matmul(
         return quant_matmul_plain(x, w, scale, layer=layer, out_dtype=out_dtype)
     x, w, scale, layer, out_dtype = _prepare("quant_matmul", x, w, scale, layer, out_dtype)
     n_layers, h, o = w.shape
-    m = x.shape[0]
     if x.shape[1] != h:
         raise ValueError(f"x {tuple(x.shape)} does not match weights {tuple(w.shape)}")
     if h % 32 or o % 32:
         raise ValueError(f"the CUDA kernel needs H and O multiples of 32, got H={h}, O={o}")
     if scale.shape != (n_layers, o):
         raise ValueError(f"scale {tuple(scale.shape)} does not match weights {tuple(w.shape)}")
-    out = torch.empty((m, o), dtype=out_dtype, device=x.device)
-    if m == 0:
-        return out
-    lib = _build.load("quant_matmul", _SIGNATURES)
-    with torch.cuda.device(x.device):
-        err = lib.quant_matmul(
-            _build.ptr(x), *_layer_ptrs(w, scale, layer), _build.ptr(out), m, h, o,
-            int(w.dtype == torch.float8_e4m3fn), int(out_dtype == torch.bfloat16),
-            _build.stream_ptr(x.device),
-        )
-    _build.check(lib, err, "quant_matmul")
-    quant_matmul.launches += 1
-    if m > SMALL_M_MAX:
-        quant_matmul.launches_tiled += 1
-    return out
+    return _launch(quant_matmul, x, w, scale, layer, out_dtype)
 
 
 quant_matmul.launches = 0  # every launch
-quant_matmul.launches_tiled = 0  # those that took the tiled (prefill-row) kernel
+quant_matmul.launches_tiled = 0  # those that took the tiled (prefill-row) form
 
 
 def _int4_geometry(name, x, w, scale, multiple):
@@ -272,25 +378,12 @@ def quant_matmul_int4(
     out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """``x @ dequant_int4(w[layer])`` -> (M, O) in ``out_dtype`` (default
-    fp32): kernel K6, small-M (<= 64 rows) or tiled."""
+    fp32): kernel K6, split-K (<= 64 rows) or tiled."""
     if x.device.type == "cpu":
         return quant_matmul_int4_plain(x, w, scale, layer=layer, out_dtype=out_dtype)
     x, w, scale, layer, out_dtype = _prepare("quant_matmul_int4", x, w, scale, layer, out_dtype)
-    m, h, o, half = _int4_geometry("quant_matmul_int4", x, w, scale, 16)
-    out = torch.empty((m, o), dtype=out_dtype, device=x.device)
-    if m == 0:
-        return out
-    lib = _build.load("quant_matmul", _SIGNATURES)
-    with torch.cuda.device(x.device):
-        err = lib.quant_matmul_int4(
-            _build.ptr(x), *_layer_ptrs(w, scale, layer), _build.ptr(out), m, h, o, half,
-            int(out_dtype == torch.bfloat16), _build.stream_ptr(x.device),
-        )
-    _build.check(lib, err, "quant_matmul_int4")
-    quant_matmul_int4.launches += 1
-    if m > SMALL_M_MAX:
-        quant_matmul_int4.launches_tiled += 1
-    return out
+    half = _int4_geometry("quant_matmul_int4", x, w, scale, 16)[3]
+    return _launch(quant_matmul_int4, x, w, scale, layer, out_dtype, half)
 
 
 quant_matmul_int4.launches = 0

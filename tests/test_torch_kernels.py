@@ -6,8 +6,10 @@ nor the JAX package, so on a machine with a card and no JAX it runs alone::
 
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -o addopts="" -p no:cacheprovider
 
-Quantized cases: K6 (int4 weight-only; its tiled form at partial tiles and
-groups that end inside a stage), K4's tiled form on int8 and fp8 weights at
+Quantized cases: K4 and K6's split-K forms (up to 64 rows: ragged splits,
+partial bands, every n8 tile count, the same bits on two runs and the
+arrival counters back at zero), K6 (int4 weight-only; its tiled form at
+partial tiles and groups that end inside a stage), K4's tiled form on int8 and fp8 weights at
 partial tiles and a TP shard's K, K10 / K11 (W8A8 / W4A8; K11 also at
 phase 14's TP-4 shard shapes), the int8 / fp8 options of K1, K2 and K7, and
 K8 on 1-byte pools; quantized deployments
@@ -233,6 +235,82 @@ def test_quant_matmul_int4_kernel_matches_plain(cuda, rows, out_dtype, group):
     assert out.dtype == out_dtype and out.shape == (rows, 96)
     rel = 1e-5 if out_dtype == torch.float32 else BF16_ULP
     assert _max_err(out, ref) <= rel * ref.float().abs().max().item()
+
+
+def _split_k_call(fn, x, w, scale, out_dtype, half, splits):
+    """Two launches of the split-K form (``splits`` None: the default grid)
+    -> (out, out again); asserts that both counted as split-K launches, gave
+    the same bits and left every arrival counter at zero, and that ``splits``
+    gives a ragged last split."""
+    if splits is not None:
+        k, unit = x.shape[1], 2 * half or 16
+        _, n_splits, split = quant_matmul.small_m_grid(x.shape[0], k, w.shape[-1], 2 * half or None,
+                                                       splits=splits)
+        assert n_splits > 1 and k % split and split % unit == 0
+    before = (fn.launches, fn.launches_tiled)
+    outs = [quant_matmul._launch(fn, x, w, scale, 1, out_dtype, half, splits) for _ in range(2)]
+    assert (fn.launches, fn.launches_tiled) == (before[0] + 2, before[1])
+    torch.cuda.synchronize()
+    bits = torch.int32 if out_dtype == torch.float32 else torch.int16
+    assert torch.equal(outs[0].view(bits), outs[1].view(bits))
+    assert all(not ws["arrivals"].any() for ws in quant_matmul._SMALL_M_WORKSPACE.values())
+    return outs[0]
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+@pytest.mark.parametrize("rows", [1, 4, 16, 17, 33, 64])
+@pytest.mark.parametrize("k,n", [(11008, 96), (1408, 2816)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", [None, 5])
+def test_quant_matmul_split_k_matches_plain(cuda, mode, rows, k, n, out_dtype, splits):
+    """K4's split-K form (up to 64 rows): every n8 tile count (1, 2, 4, 8
+    for 1-8, 9-16, 17-32, 33-64 rows), one band of 96 columns (a partial
+    band) or 22 bands, on the default grid and on 5 splits whose last is
+    shorter. Two runs give the same bits and leave the arrival counters at
+    zero (``_split_k_call``); the output is within 1e-5 of the plain twin's
+    peak (fp32 sums in another order), one bf16 ulp more for bf16 out."""
+    gen = _gen(cuda)
+    wq = quant.quantize_weight(torch.randn((2, k, n), generator=gen, device=cuda), mode)
+    x = torch.randn((rows, k), generator=gen, device=cuda, dtype=torch.bfloat16)
+    out = _split_k_call(quant_matmul.quant_matmul, x, wq["w"], wq["scale"], out_dtype, 0, splits)
+    ref = quant_matmul.quant_matmul_plain(x, wq["w"], wq["scale"], layer=1, out_dtype=out_dtype)
+    assert out.dtype == out_dtype and out.shape == (rows, n)
+    rel = 1e-5 if out_dtype == torch.float32 else BF16_ULP
+    assert _max_err(out, ref) <= rel * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("group", [32, 64, 96, 128])
+@pytest.mark.parametrize("rows", [1, 4, 16, 17, 33, 64])
+@pytest.mark.parametrize("n", [96, 2816])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("splits", [None, 5])
+def test_quant_matmul_int4_split_k_matches_plain(cuda, group, rows, n, out_dtype, splits):
+    """K6's split-K form: K = 11 groups (K 1408 at g128, as DeepSeek-V2-Lite's
+    expert down projection; at g96 the groups end inside the ring's 64-row
+    stages), on the default grid and on splits of 3, 3, 3 and 2 groups (5
+    asked for, whole groups); the checks of the K4 case above."""
+    gen = _gen(cuda)
+    k = 11 * group
+    wq = quant.quantize_weight_int4(torch.randn((2, k, n), generator=gen, device=cuda), group)
+    x = torch.randn((rows, k), generator=gen, device=cuda, dtype=torch.bfloat16)
+    out = _split_k_call(quant_matmul.quant_matmul_int4, x, wq["w"], wq["scale"], out_dtype, group // 2, splits)
+    ref = quant_matmul.quant_matmul_int4_plain(x, wq["w"], wq["scale"], layer=1, out_dtype=out_dtype)
+    assert out.dtype == out_dtype and out.shape == (rows, n)
+    rel = 1e-5 if out_dtype == torch.float32 else BF16_ULP
+    assert _max_err(out, ref) <= rel * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_quant_matmul_65_rows_take_the_tiled_form(cuda, mode):
+    """65 rows is one past the split-K form: the entry counts a tiled launch."""
+    gen = _gen(cuda)
+    w = torch.randn((2, 512, 384), generator=gen, device=cuda)
+    wq = quant.quantize_weight_int4(w, 128) if mode == "int4" else quant.quantize_weight(w, "int8")
+    fn = quant_matmul.quant_matmul_int4 if mode == "int4" else quant_matmul.quant_matmul
+    x = torch.randn((65, 512), generator=gen, device=cuda, dtype=torch.bfloat16)
+    before = (fn.launches, fn.launches_tiled)
+    fn(x, wq["w"], wq["scale"], layer=1)
+    assert (fn.launches, fn.launches_tiled) == (before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.parametrize("rows", [65, 127, 300, 2048])

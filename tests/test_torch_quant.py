@@ -340,6 +340,177 @@ def test_k11_fragment_mma_matches_plain_and_jax(rng, group):
         np.testing.assert_allclose(out, want, atol=REL_F32 * np.abs(want).max(), rtol=0)
 
 
+# ------------------------------------------------------------------ the split-K form (M <= 64)
+
+# (m, k, n, group) at the main path's decode rows: 7B's five shapes (int8 and
+# int4 g128), their TP-4 shards (int4 at g64), DeepSeek-V2-Lite's int4 experts
+# and wo, Mixtral's int8 experts, ModelConfig.tiny's projections
+SMALL_M_SHAPES = {
+    **{f"7b_{name}{'_int4' if g else ''}": (16, k, n, g) for name, k, n in (
+        ("wqkv", 4096, 6144), ("wo", 4096, 4096), ("w_gate_up", 4096, 22016), ("w_down", 11008, 4096),
+        ("lm_head", 4096, 32000)) for g in (None, 128)},
+    **{f"tp4_{name}{'_int4' if g else ''}": (16, k, n, g) for name, k, n in (
+        ("wqkv", 4096, 1536), ("wo", 1024, 4096), ("w_gate_up", 4096, 5504), ("w_down", 2752, 4096))
+       for g in (None, 64)},
+    "tp4_lm_head": (16, 4096, 8000, None),
+    "dsv2_gate_up": (4, 2048, 2816, 128), "dsv2_down": (4, 1408, 2048, 128), "dsv2_wo": (4, 2048, 2048, 128),
+    "mixtral_gate_up": (4, 4096, 28672, None), "mixtral_down": (4, 14336, 4096, None),
+    **{f"tiny_{name}{'_int4' if g else ''}": (16, k, n, g and t_quant.default_int4_group(k))
+       for name, k, n in (("wqkv", 64, 128), ("wo", 64, 64), ("w_gate_up", 64, 256), ("w_down", 128, 64),
+                          ("lm_head", 64, 256)) for g in (None, 1)},
+}
+
+
+@pytest.mark.parametrize("name", sorted(SMALL_M_SHAPES))
+def test_small_m_grid_covers_k_and_reaches_its_target(name):
+    """At every main-path shape, with 132 SMs: the bands cover the columns;
+    every k16 step (int4: every whole group) falls in exactly one split; the
+    blocks fit one wave of three an SM (one split where the bands alone fill
+    it), and no more splits would, unless each split is already one unit or
+    the shortest a split may be (4 weight rows a staged x row); the splits
+    are as even as whole units allow."""
+    m, k, n, group = SMALL_M_SHAPES[name]
+    bands, splits, split = t_qmm.small_m_grid(m, k, n, group, sms=132)
+    unit = group or 16
+    assert (bands - 1) * t_qmm.SMALL_M_BAND < n <= bands * t_qmm.SMALL_M_BAND
+    assert split % unit == 0 and k % unit == 0
+    owner = np.full(k // unit, -1)
+    for sp in range(splits):
+        units = range(sp * split // unit, min((sp + 1) * split, k) // unit)
+        assert len(units) > 0 and (owner[units.start:units.stop] == -1).all()
+        owner[units.start:units.stop] = sp
+    assert (owner >= 0).all()
+    per, steps, target = split // unit, k // unit, 3 * 132
+    shortest = min(steps, -(-4 * t_qmm.small_m_rows(m) // (unit // 2 if group else unit)))
+    assert per >= shortest
+    assert bands * splits <= max(target, bands)
+    if per > shortest:
+        assert bands * -(-steps // (per - 1)) > target
+    assert per == -(-steps // splits)  # the splits as even as whole units allow
+
+
+def _split_k_tables():
+    """The split-K form's fragment maps as the mma's own tables: a[row, k] =
+    (k, column) of the weights, b[k, n] = (k, x row), c[row, n] = (x row,
+    column), each cell filled by exactly one (lane, register, half)."""
+    a, b, c = np.full((16, 16, 2), -1), np.full((16, 8, 2), -1), np.full((16, 8, 2), -1)
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        frag = t_qmm.small_m_fragment(lane)
+        cells = ([(a, g + 8 * (r & 1), 2 * t + 8 * (r >> 1) + h, v) for (r, h), v in frag["a"].items()]
+                 + [(b, 2 * t + 8 * r + h, g, v) for (r, h), v in frag["b"].items()]
+                 + [(c, g + 8 * (i >> 1), 2 * t + (i & 1), v) for i, v in frag["acc"].items()])
+        for table, i, j, v in cells:
+            assert (table[i, j] == -1).all()
+            table[i, j] = v
+    return a, b, c
+
+
+def test_small_m_fragment_map_covers_each_element_once():
+    """Over the 32 lanes the split-K form's A registers hold each (k, column)
+    of a k16 x 16 weight tile once, its B registers each (k, x row) of a k16
+    x 8 tile once, and its accumulators each (x row, column) once. Each A
+    row is one column at every k, and C's row is that column: the kernel's
+    column permutation is one permutation throughout."""
+    a, b, c = _split_k_tables()
+    assert sorted(map(tuple, a.reshape(-1, 2))) == [(k, col) for k in range(16) for col in range(16)]
+    assert sorted(map(tuple, b.reshape(-1, 2))) == [(k, r) for k in range(16) for r in range(8)]
+    assert sorted(map(tuple, c.reshape(-1, 2))) == [(r, col) for r in range(8) for col in range(16)]
+    assert (a[:, :, 0] == np.arange(16)).all() and (b[:, :, 0] == np.arange(16)[:, None]).all()
+    perm = a[:, 0, 1]
+    assert (a[:, :, 1] == perm[:, None]).all() and (c[:, :, 1] == perm[:, None]).all()
+    assert (b[:, :, 1] == np.arange(8)).all() and (c[:, :, 0] == np.arange(8)).all()
+
+
+def _emulate_split_k(x, w, scale, group, splits):
+    """The split-K kernel in numpy through ``small_m_fragment``: for each
+    band, split and warp (16 columns), each k16 step's (int4: each
+    chunk's low and high) m16n8k16 products on the mma's tables in fp32;
+    int4 flushes each group's partial times its scale at the group's end.
+    Each band sums its splits' fp32 partials in split order; int8 / fp8 then
+    multiply by the column scale. ``w``: the weight values (K, N), or for
+    int4 the (lo, hi) nibble matrices (K/2, N)."""
+    a, b, c = _split_k_tables()
+    m, k = x.shape
+    n = scale.shape[-1]
+    rows = t_qmm.small_m_rows(m)
+    xp = np.zeros((rows, k), np.float32)
+    xp[:m] = x
+    band_n = t_qmm.SMALL_M_BAND
+    bands, n_splits, split = t_qmm.small_m_grid(m, k, n, group, splits=splits)
+    out = np.zeros((m, bands * band_n), np.float32)
+
+    def b_tile(col0):  # B of every n8 tile at x columns col0 .. + 15: (16, rows)
+        return np.concatenate([xp[8 * jn + b[:, :, 1], col0 + b[:, :, 0]] for jn in range(rows // 8)], axis=1)
+
+    for band in range(bands):
+        parts = []
+        for sp in range(n_splits):
+            acc = np.zeros((rows, band_n), np.float32)
+            for w0 in range(0, band_n, 16):
+                c0 = band * band_n + w0
+                if c0 >= n:
+                    continue
+                wacc = np.zeros((16, rows), np.float32)  # C: (the A row's column, x row)
+                if group is None:
+                    for k0 in range(sp * split, min((sp + 1) * split, k), 16):
+                        wacc += w[k0 + a[:, :, 0], c0 + a[:, :, 1]] @ b_tile(k0)
+                else:
+                    lo, hi = w
+                    half = group // 2
+                    gacc = np.zeros((16, rows), np.float32)
+                    for p0 in range(sp * split // 2, min((sp + 1) * split, k) // 2, 16):
+                        grp = p0 // half
+                        xlo = grp * group + p0 - grp * half
+                        gacc += lo[p0 + a[:, :, 0], c0 + a[:, :, 1]] @ b_tile(xlo)
+                        gacc += hi[p0 + a[:, :, 0], c0 + a[:, :, 1]] @ b_tile(xlo + half)
+                        if (p0 + 16) % half == 0:
+                            wacc += gacc * scale[grp, c0 + a[:, 0, 1]][:, None]
+                            gacc[:] = 0
+                for jn in range(rows // 8):
+                    acc[8 * jn + c[:, :, 0], w0 + c[:, :, 1]] = wacc[:, 8 * jn:8 * jn + 8]
+            parts.append(acc)
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p
+        cols = slice(band * band_n, (band + 1) * band_n)
+        out[:, cols] = total[:m]
+        if group is None:
+            out[:, cols] *= np.pad(scale, (0, bands * band_n - n))[cols]
+    return out[:, :n]
+
+
+@pytest.mark.parametrize("m", [1, 4, 16, 40, 64])
+@pytest.mark.parametrize("mode,group,k", [("int8", None, 352), ("fp8", None, 352), ("int4", 32, 352),
+                                          ("int4", 128, 1408)])
+def test_split_k_emulation_matches_plain_and_jax(rng, m, mode, group, k):
+    """The split-K form's order, emulated in numpy (``_emulate_split_k``) at
+    3 splits with a ragged last one (K 352: 22 k16 steps as 8 + 8 + 6, or
+    11 g32 groups as 4 + 4 + 3; K 1408: 11 g128 groups) over a full and a
+    partial band (N 160): within 1e-5 of the peak (fp32 sums of the same
+    exact products in another order) of the plain twin and of JAX's
+    ``quant_matmul`` / ``quant_matmul_int4`` in interpret mode."""
+    n = 160
+    x = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)).to(torch.bfloat16).float()
+    w = rng.standard_normal((k, n), dtype=np.float32)
+    if mode == "int4":
+        wq = t_quant.quantize_weight_int4(_t(w), group)
+        vals = tuple(v.float().numpy() for v in t_quant.unpack_int4(wq["w"]))
+        plain = t_qmm.quant_matmul_int4_plain(x, wq["w"], wq["scale"]).numpy()
+        jw = j_quant.quantize_weight_int4(jnp.asarray(w), group)
+        ref = np.asarray(j_qmm.quant_matmul_int4(jnp.asarray(x.numpy()), jw["w"], jw["scale"]))
+    else:
+        wq = t_quant.quantize_weight(_t(w), mode)
+        vals = wq["w"].float().numpy()
+        plain = t_qmm.quant_matmul_plain(x, wq["w"], wq["scale"]).numpy()
+        jw = j_quant.quantize_weight(jnp.asarray(w), mode)
+        ref = np.asarray(j_qmm.quant_matmul(jnp.asarray(x.numpy()), jw["w"], jw["scale"]))
+    assert t_qmm.small_m_grid(m, k, n, group, splits=3)[1:] == (3, (k // (group or 16) + 2) // 3 * (group or 16))
+    out = _emulate_split_k(x.numpy(), vals, wq["scale"].numpy(), group, 3)
+    for want in (plain, ref):
+        np.testing.assert_allclose(out, want, atol=REL_F32 * np.abs(want).max(), rtol=0)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_quantize_rows_bytes_identical(rng, dtype):
     x = (rng.standard_normal((7, 96), dtype=np.float32) * np.array([[1e-3], [1], [30], [0], [1],
