@@ -19,7 +19,8 @@ Phases (any failure raises and the script exits non-zero):
    enqueues it) beside the byte / operation bound. The quantized kernels
    too: int4 weight-only matmul (small-M at 16 rows, tiled at 2048) on the
    five 7B shapes with g128 scales, W8A8 and W4A8 at 2048 rows on the four
-   layer shapes (bound at the int8 tensor-core rate), decode attention
+   layer shapes (bound at the int8 tensor-core rate; W8A8 byte for byte
+   its twin, there and at a TP-4 rank's four shapes), decode attention
    (fused and split) and paged decode on int8 and on fp8 KV (scales 5/127
    and 5/448), and the appends on 1-byte rows. The decode-row matmuls (K4
    int8 and fp8, K6; their split-K form) run each call twice for the same
@@ -34,7 +35,8 @@ Phases (any failure raises and the script exits non-zero):
    offsets, then timed at phase 9a's shapes against SDPA's forward) and the
    two FA2 backward kernels (dq; dk/dv), checked on the same inputs and at
    B=2, S=2048, run twice for equal bytes, timed against SDPA's backward
-   (its forward + backward less its forward). The attention variants at
+   (its forward + backward less its forward); dq also at head_dim 64 and
+   256 on the ragged inputs (G 1, 2, 4, 8). The attention variants at
    S = 8192 with lengths 5,000-8,000 (past the 4096 window): K1 with the
    window and 4 sinks at Mistral-7B's shapes, K1 at head_dim 256 with
    softcap 50 on a sliding and a full Gemma-2-9B layer, K1's verify mode
@@ -574,7 +576,7 @@ def phase_device_and_build():
                         + (f", {smem} bytes of dynamic shared memory" if smem else ""))
         for label in (_latent_label, _redesign_label):
             for kernel, regs, spill in _entry_resources(r["ptxas"], label):
-                smem = _latent_decode_smem(kernel) or _split_k_smem(kernel)
+                smem = _latent_decode_smem(kernel) or _split_k_smem(kernel) or _w8a8_smem(kernel)
                 log(f"[build]   {kernel}: {regs} registers, spill stores {spill} bytes"
                     + (f", {smem[0]} bytes of dynamic shared memory at {smem[1]}" if smem else ""))
     return smi
@@ -582,7 +584,8 @@ def phase_device_and_build():
 
 def _attention_smem(kernel):
     """The dynamic shared memory (bytes) of a redesigned attention kernel
-    (K5's flash_prefill_kernel, K12's flash_bwd_dkdv_kernel) as its library
+    (K5's flash_prefill_kernel, K12's flash_bwd_dq_kernel and
+    flash_bwd_dkdv_kernel) as its library
     reports it for the head_dim in its label, else None."""
     from starflashattention_tpu_torch.ops import _build, flash_bwd
 
@@ -593,6 +596,8 @@ def _attention_smem(kernel):
         return lib.flash_prefill_smem_bytes(d)
     if name == "flash_bwd_dkdv_kernel":
         return flash_bwd.dkdv_geometry(d)[2]
+    if name == "flash_bwd_dq_kernel":
+        return flash_bwd.dq_built_geometry(d, 1)[2]
     return None
 
 
@@ -633,12 +638,24 @@ def _split_k_smem(kernel):
             f"up to {8 * nt} rows ({'int4' if int4 else 'int8 / fp8'})")
 
 
+def _w8a8_smem(kernel):
+    """(dynamic shared memory bytes, what) of K10's qmm_w8a8_tiled as its
+    library reports it, else None."""
+    if "qmm_w8a8_tiled" not in kernel:
+        return None
+    from starflashattention_tpu_torch.ops import quant_matmul as qmm
+
+    rows, cols, stage, smem = qmm.w8a8_built_geometry()
+    return smem, f"{rows} x {cols} tiles, stages of {stage} K columns"
+
+
 def _redesign_label(name):
     """The redesigned kernels by mangled name: the split-KV decode (its D
     640 forms are _latent_label's), the split-K int8 / fp8 / int4 matmul of
-    up to 64 rows and the tiled int4, int8 / fp8 and W4A8 matmuls."""
-    return name if any(k in name for k in ("decode_split_kernel", "qmm_split_k", "qmm_int4_tiled",
-                                            "qmm_8bit_tiled", "qmm_w4a8_tiled")) and "Li640E" not in name else None
+    up to 64 rows and the tiled int4, int8 / fp8, W8A8 and W4A8 matmuls."""
+    kernels = ("decode_split_kernel", "qmm_split_k", "qmm_int4_tiled", "qmm_8bit_tiled", "qmm_w8a8_tiled",
+               "qmm_w4a8_tiled")
+    return name if any(k in name for k in kernels) and "Li640E" not in name else None
 
 
 def _entry_resources(ptxas, label):
@@ -946,9 +963,9 @@ def phase_kernels(dev, timer):
         log(f"[time] {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
             f"{'none' if r['library_ms'] is None else format(r['library_ms'], '.4f') + ' ms'}, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max_abs_err {r['max_abs_err']:.3e}")
-    for name, r in res.items():  # the redesigned attention rows (K5 but MLA's latent row, K12 dk/dv)
+    for name, r in res.items():  # the redesigned attention rows (K5 but MLA's latent row, K12)
         if (name.startswith("flash_prefill") and name != LATENT_ENTRIES["prefill"]
-                or name.startswith("flash_bwd_dkdv")) and r["bound_by"] == "operations":
+                or name.startswith("flash_bwd")) and r["bound_by"] == "operations":
             log(f"[rate] {name}: {r['ms']:.4f} ms, {r['bound_ms'] * PEAK_BF16_OPS_PER_S / r['ms'] / 1e12:.1f} "
                 f"TFLOP/s, {r['bound_ms'] / r['ms']:.1%} of its bound (operations)")
     return res
@@ -1129,6 +1146,8 @@ def _train_kernels(dev, timer, gen):
         _check("flash_prefill_bwd dq of the zero-length sequence is 0", dq[2].abs().max().item(), 0.0)
     del q, k, v, do
 
+    _dq_head_dims(dev, q_off, lens)
+
     # -- phase 9a's step shapes: B=2, S=2048, causal
     b, s = TRAIN_BATCH, TRAIN_SEQ
     q, k, v, do = inputs(b, s, s)
@@ -1198,6 +1217,34 @@ def _train_kernels(dev, timer, gen):
     torch.cuda.empty_cache()
     res[K12_SPLIT] = _split_dkdv_row(dev, timer)
     return res
+
+
+def _dq_head_dims(dev, q_off, lens):
+    """K12's dq at head_dim 64 (G 4, 8) and 256 (G 1, 2) on the ragged
+    inputs of ``_train_kernels``' checks (Sq 384, Skv 1024, a zero-length
+    sequence), causal and not: within 2e-2 of the plain twin's peak, zeros
+    on the empty sequence, the same bytes twice (the other tiles of the
+    kernel: 128 rows of 32 or 16 a head, and 64 rows at D 256). Its inputs
+    come from a generator of its own, so the rows after it keep theirs."""
+    from starflashattention_tpu_torch.ops.flash_bwd import bwd_delta, flash_bwd_dq, flash_bwd_dq_plain
+    from starflashattention_tpu_torch.ops.flash_prefill import flash_prefill
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    for d, hq, hkv in ((64, 32, 8), (64, 16, 2), (256, 16, 16), (256, 16, 8)):
+        q, do = (torch.randn((3, hq, 384, d), generator=gen, device=dev, dtype=bf16) for _ in range(2))
+        k, v = (torch.randn((3, hkv, 1024, d), generator=gen, device=dev, dtype=bf16) for _ in range(2))
+        for causal in (True, False):
+            kw = dict(causal=causal, q_offsets=q_off)
+            o, lse = flash_prefill(q, k, v, lens, return_lse=True, **kw)
+            args = (q, k, v, lse, do, bwd_delta(o, do), lens)
+            dq, ref = flash_bwd_dq(*args, **kw), flash_bwd_dq_plain(*args, **kw)
+            tag = f"D={d} Hq={hq} Hkv={hkv} ragged causal={causal}"
+            _check(f"flash_bwd_dq {tag}", (dq.float() - ref.float()).abs().max().item()
+                   / ref.float().abs().max().item(), 2e-2, what="max abs error over the peak")
+            _check(f"flash_bwd_dq {tag}: the zero-length sequence", dq[2].abs().max().item(), 0.0)
+            _check_equal(f"flash_bwd_dq {tag}: two runs", flash_bwd_dq(*args, **kw), dq)
+        del q, do, k, v, o, lse, args, dq, ref
 
 
 def _split_dkdv_row(dev, timer):
@@ -2628,10 +2675,11 @@ def _quantized_matmuls(dev, timer, gen, shapes):
             ref = plain(x, w["w"], w["scale"], layer=1, out_dtype=out_dtype)
             err = (out.float() - ref.float()).abs().max().item()
             peak = ref.float().abs().max().item()
-            # exact int32 sums on both sides; fp32 epilogues in another
-            # order (K11's group sums); one bf16 rounding each side
-            rel = 2.0**-7 if out_dtype == bf16 else 1e-5
-            _check(f"quant_matmul_{entry} {name} rows=2048 K={kdim} N={ndim} out={out_dtype}", err, rel * peak)
+            if entry == "w8a8":  # exact int32 sums and the same two fp32 multiplies: the same bytes
+                _check_equal(f"quant_matmul_w8a8 {name} rows=2048 K={kdim} N={ndim} out={out_dtype}", out, ref)
+            else:  # exact int32 sums; the fp32 group sums in another order; one bf16 rounding each side
+                rel = 2.0**-7 if out_dtype == bf16 else 1e-5
+                _check(f"quant_matmul_{entry} {name} rows=2048 K={kdim} N={ndim} out={out_dtype}", err, rel * peak)
             half = 0 if entry == "w8a8" else w["w"].shape[1] // w["scale"].shape[1]
             alone = lambda: qmm._launch_a8(fn, x8, rs, w["w"], w["scale"], 1, out_dtype, half)  # noqa: E731
             if not torch.equal(alone(), out):
@@ -2663,6 +2711,7 @@ def _quantized_matmuls(dev, timer, gen, shapes):
             split["quantize_rows_ms"] = split.get("quantize_rows_ms", 0.0) + t_quant
         del w8, x8, rs
         del w4, deq
+    _w8a8_shards(dev)
     for entry, r in res.items():
         int8 = entry in A8_ENTRY.values()
         n_bytes, n_ops = r.pop("n_bytes"), r.pop("n_ops")
@@ -2676,6 +2725,34 @@ def _quantized_matmuls(dev, timer, gen, shapes):
                 f"({quant_ms / entry_ms:.1%}) + kernel alone {r['ms']:.4f} ms (sum of parts "
                 f"{quant_ms + r['ms']:.4f} ms)")
     return res
+
+
+def _check_equal(name, out, ref):
+    """``out`` and ``ref`` hold the same bytes (the count of elements that differ must be 0)."""
+    bits = torch.int32 if out.dtype == torch.float32 else torch.int16
+    _check(name, float((out.view(bits) != ref.view(bits)).sum()), 0.0, what="elements whose bytes differ")
+
+
+def _w8a8_shards(dev):
+    """K10 at a TP-4 rank's W8A8 shapes (phase 14: the column shards of
+    wqkv and w_gate_up, N 1536 and 5504, the second 21.5 tiles of 256; the
+    row shards of wo and w_down, K 1024 and 2752, the second's last stage
+    half), 2048 and 300 rows, fp32 and bf16 out: the plain twin's bytes.
+    Its inputs come from a generator of their own."""
+    from starflashattention_tpu_torch.core.quant import quantize_weight
+    from starflashattention_tpu_torch.ops import quant_matmul as qmm
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+
+    for kdim, ndim in ((4096, 1536), (1024, 4096), (4096, 5504), (2752, 4096)):
+        w8 = quantize_weight(torch.randn((2, kdim, ndim), generator=gen, device=dev), "int8")
+        for rows in (2048, 300):
+            x = torch.randn((rows, kdim), generator=gen, device=dev, dtype=torch.bfloat16)
+            for out_dtype in (torch.float32, torch.bfloat16):
+                kw = dict(layer=1, out_dtype=out_dtype)
+                _check_equal(f"quant_matmul_w8a8 TP-4 shard rows={rows} K={kdim} N={ndim} out={out_dtype}",
+                             qmm.quant_matmul_w8a8(x, w8["w"], w8["scale"], **kw),
+                             qmm.quant_matmul_w8a8_plain(x, w8["w"], w8["scale"], **kw))
 
 
 # ---------------------------------------------------------------- phase 3

@@ -41,21 +41,29 @@
 // recomputed products and the three gradient products: 5 matmuls of 2 * D
 // each) at the tensor-core rate; the bytes are a few times the forward's.
 // Design: both kernels run mma.sync.m16n8k16 with bf16 inputs and fp32
-// accumulators, and skip tiles out of band (causal, ragged length, q
-// offset, window) before any arithmetic, as the TPU's _in_band does.
-// - dq: one block per (q tile, KV head, sequence) holds the G query heads
-//   of the group, 16 rows a warp, A fragments straight from registers or
-//   shared memory and ldmatrix.trans for the transposed B operands; each warp walks the K/V tiles in band, 16
-//   keys at a time, with its dq accumulator in registers, so S, dP and dS
-//   never leave registers. The walk is K5's: with BAND the sink tiles below
-//   the block's band first, then the band from the tile that holds its
-//   first row's band start; rows below the band that are not sinks are
-//   zero-filled and never read. At D <= 128 the warp keeps its 16 rows' Q
-//   and dO fragments in registers. At D = 256 the accumulator alone takes
-//   128 registers a thread and the two fragment sets would take 128 more,
-//   past the 255 limit, so (as K5's QSMEM) each warp stages its Q and dO
-//   rows in its own slice of shared memory and reads one fragment of each
-//   a k-step; the K/V tile is 32 rows (169 KB of shared memory a block).
+// accumulators, 32 rows a warp (two m16 tiles share each fragment of the
+// other operand), all operands by ldmatrix from rows padded to D + 8, and
+// skip tiles out of band (causal, ragged length, q offset, window) before
+// any arithmetic, as the TPU's _in_band does. Each streams its moving
+// operand through a cp.async ring with an mbarrier a stage and one block
+// barrier a stage (attn_tiles.cuh), and each computes S and dP once per
+// (q row, key) and shares P / dS through shared memory as bf16.
+// - dq (flash_bwd_dq_kernel): one block per (q tile, KV head, sequence)
+//   owns ROWS rows (128, 64 at D = 256): the q tile's bq = ROWS / G rows of
+//   each of the G query heads of the group, head-major (rows past G * bq
+//   idle), so the G heads share every K/V tile. Its Q and dO rows go to
+//   shared memory once (rows past Sq zero-filled), its LSE and delta to
+//   registers, and K/V tiles of 64 keys stream through the ring (3 stages,
+//   2 at D = 256). The walk is dq_walk below (ops/flash_bwd.py: dq_walk):
+//   with BAND the sink tiles below the block's band first, then the band
+//   from the tile that holds its first row's band start; rows below the
+//   band that are not sinks are zero-filled and never read. The warps of a
+//   32-row group (2 at D <= 128, 4 at D = 256) first split the tile's keys:
+//   S = Q K^T and dP = dO V^T (each K / V fragment serves both m16 tiles),
+//   dS into shared memory as bf16 (a barrier of the row group); then the
+//   same warps split the D columns of dq += dS K (the accumulator, 32 rows x
+//   D / 2 or D / 4 a warp, stays in registers for the walk: 64 fp32 a thread
+//   at D 128 and 256).
 // - dk/dv (flash_bwd_dkdv_kernel): one block per (KV tile, KV head,
 //   sequence, split): 128 KV rows (64 at D = 256) in row groups of 32, 8
 //   warps. The block walks the (head, q tile) steps in band of all G heads
@@ -81,9 +89,9 @@
 //   same bytes on every run). The blocks take the KV tiles from the end
 //   whose first tile has the longer walk (the causal triangle's first KV
 //   tiles; a ring step whose rows lie past the window, its last).
-// dq blocks are numbered so that the longest walks start first (the causal
-// triangle's last q tiles): blocks start in index order, and a long block
-// started in the last wave sets the kernel's time.
+// dq blocks take the q tiles from the end whose tile has the longer walk in
+// sequence 0 (the causal triangle's last q tiles): blocks start in index
+// order, and a long block started in the last wave sets the kernel's time.
 // Not yet: wgmma and TMA.
 
 #include <cuda_bf16.h>
@@ -98,7 +106,6 @@ namespace {
 
 using namespace attn;
 
-constexpr int DQ_MAX_THREADS = 256;      // dq: 8 warps, up to 255 registers a thread
 constexpr float LSE_EMPTY = 3e38f;       // the LSE of a row with no valid position
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int NO_WINDOW = 1 << 30;       // the window argument without a window
@@ -121,55 +128,10 @@ struct Args {
   Options opt;
 };
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// The A fragment (16 rows x 16 columns, row-major) at `p`, row stride `st`:
-// lane (g, t) holds rows g and g + 8, columns 2t, 2t + 1 and 2t + 8, 2t + 9.
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* p, int st, int g, int t) {
-  a[0] = ld32(p + g * st + 2 * t);
-  a[1] = ld32(p + (g + 8) * st + 2 * t);
-  a[2] = ld32(p + g * st + 2 * t + 8);
-  a[3] = ld32(p + (g + 8) * st + 2 * t + 8);
-}
-
-// acc (16 x N) += A (16 x 16, a fragment) @ M[0:16, 0:N], M row-major in
-// shared memory at `m` with row stride `st` (its rows are the k index).
-template <int N>
-__device__ __forceinline__ void mma_a_by_rows(float (*acc)[4], const uint32_t* a, const bf16* m, int st,
-                                              int lane) {
-  const int mi = lane >> 3, rr = lane & 7;
-  const bf16* row = m + (rr + (mi & 1) * 8) * st + (mi >> 1) * 8;
-#pragma unroll
-  for (int np = 0; np < N / 16; ++np) {
-    uint32_t bb[4];
-    ldmatrix_x4_trans(bb, row + np * 16);
-    mma_bf16(acc[2 * np], a, bb[0], bb[1]);
-    mma_bf16(acc[2 * np + 1], a, bb[2], bb[3]);
-  }
-}
-
-// Stage `rows` rows of D bf16 from `src` (row-major) into shared memory at
-// `dst` with row stride ST, by every thread of the block (`nthreads` from
-// `tid`). Rows at or past `valid`, and rows in [gap_lo, gap_hi), are
-// zero-filled and never read.
-template <int D, int ST>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, int rows, int valid, int tid,
-                                           int nthreads, int gap_lo = 0, int gap_hi = 0) {
-  for (int i = tid; i < rows * D / 8; i += nthreads) {
-    const int row = i / (D / 8), col = (i % (D / 8)) * 8;
-    uint4 x = make_uint4(0u, 0u, 0u, 0u);
-    if (row < valid && (row < gap_lo || row >= gap_hi))
-      x = *reinterpret_cast<const uint4*>(src + (size_t)row * D + col);
-    *reinterpret_cast<uint4*>(dst + row * ST + col) = x;
-  }
-}
-
 // P and dS of one score: `s` is the raw fp32 q.k and `dp` the fp32 dout.v
 // of (query at position `pos`, key `col`); `live` is false for a query row
-// past Sq. The mask and the scores are the forward's (see the header);
-// !MASK: a tile where the mask holds everywhere, not tested.
+// past Sq (or an idle row). The mask and the scores are the forward's (see
+// the header); !MASK: a tile where the mask holds everywhere, not tested.
 template <bool CAUSAL, bool SOFTCAP, bool BAND, bool MASK = true>
 __device__ __forceinline__ void p_ds(float s, float dp, bool live, int col, int pos, int len, float lse,
                                      float dl, const Options& o, float& p, float& ds) {
@@ -185,180 +147,296 @@ __device__ __forceinline__ void p_ds(float s, float dp, bool live, int col, int 
   }
 }
 
-// dq: K/V rows per shared-memory tile, 32 at D = 256; Q and dO in shared
-// memory at D = 256.
+// dq tiles (see the header): a block owns ROWS rows, the q tile's bq = ROWS
+// / G rows of each of the G heads of its KV head, in WR row groups of 32
+// (two m16 tiles); the WC warps of a row group split the BK keys of S and
+// dP between them, then the D columns of dq. ops/flash_bwd.py's
+// dq_geometry is its twin.
 template <int D>
 struct DqGeom {
-  static constexpr bool QSMEM = D > 128;
-  static constexpr int BK = D > 128 ? 32 : 64;
-  static constexpr int ST = D + 8;  // padded smem row (elements): conflict-free fragment loads
+  static constexpr int ROWS = D > 128 ? 64 : 128;
+  static constexpr int BK = 64;
+  static constexpr int WR = ROWS / 32;
+  static constexpr int WC = 8 / WR;
+  static constexpr int THREADS = 256;
+  static constexpr int KW = BK / WC;  // keys of a warp's S / dP
+  static constexpr int DW = D / WC;   // columns of a warp's dq
+  static constexpr int ST = D + 8;    // padded smem row (elements): conflict-free ldmatrix
+  static constexpr int PT = BK + 8;   // padded row of dS
+  static constexpr int STAGES = D > 128 ? 2 : 3;
+  // a stage: K, then V (BK, ST) bf16
+  static constexpr size_t STAGE = (size_t)2 * BK * ST * sizeof(bf16);
+  static constexpr size_t SMEM = (size_t)2 * ROWS * ST * sizeof(bf16) + STAGES * STAGE +
+                                 (size_t)ROWS * PT * sizeof(bf16) + STAGES * sizeof(uint64_t);
+  static_assert(KW % 16 == 0 && DW % 16 == 0 && STAGE % 16 == 0, "whole ldmatrix tiles");
+  static_assert(BK * D / 8 % THREADS == 0 && ROWS * D / 8 % THREADS == 0, "whole copies a thread");
 };
 
-template <int D>
-size_t dq_smem_bytes(int threads) {
-  using GM = DqGeom<D>;
-  const size_t kv = 2 * (size_t)GM::BK * GM::ST;
-  const size_t qs = GM::QSMEM ? (size_t)(threads / 32) * 32 * GM::ST : 0;  // Q and dO, 16 rows each
-  return (kv + qs) * sizeof(bf16);
+// The KV walk of q tile qt (rows qt * bq .. of each head) of sequence b
+// (JAX _in_band): the tiles of BK keys below the length and, causal, below
+// the tile's last row (qt * bq + bq - 1, not clipped to Sq); with a window,
+// the sink tiles below the tile's first row's band start first (`ns` tiles
+// from 0), then the tiles from the one that holds that band start (`bt`).
+// ops/flash_bwd.py's dq_walk is its twin.
+struct KvWalk {
+  int ns, bt, n;  // sink tiles, first band tile, tiles in all
+  __device__ __forceinline__ int tile(int it) const { return it < ns ? it : bt + it - ns; }
+};
+
+template <int BK>
+__device__ __forceinline__ KvWalk dq_walk(const Args& a, int b, int qt, int bq, bool causal, bool band) {
+  const int len = min(a.lengths[b], a.Skv), qoff = a.q_offsets[b];
+  const int end = causal ? min(len, qoff + (qt + 1) * bq) : len;
+  const int nk = end > 0 ? (end + BK - 1) / BK : 0;
+  int ns = 0, bt = 0;
+  if (band) {
+    bt = max(qoff + qt * bq - a.opt.window + 1, 0) / BK;
+    ns = min((min(a.opt.sinks, bt * BK) + BK - 1) / BK, nk);
+  }
+  return KvWalk{ns, bt, ns + max(nk - bt, 0)};
+}
+
+// The block's q tile: tiles in order of blockIdx.y, from the end whose tile
+// has the longer walk in sequence 0 (the causal triangle's last q tiles; a
+// ring step past the window, its first), so that the longest walks start
+// first.
+template <int BK>
+__device__ __forceinline__ int dq_tile(const Args& a, int bq, bool causal, bool band) {
+  const int nqt = gridDim.y;
+  const bool last_first =
+      dq_walk<BK>(a, 0, nqt - 1, bq, causal, band).n >= dq_walk<BK>(a, 0, 0, bq, causal, band).n;
+  return last_first ? nqt - 1 - blockIdx.y : blockIdx.y;
 }
 
 template <int D, bool CAUSAL, bool SOFTCAP, bool BAND>
-__global__ void __launch_bounds__(DQ_MAX_THREADS)
+__global__ void __launch_bounds__(DqGeom<D>::THREADS, 1)
     flash_bwd_dq_kernel(const Args a, bf16* __restrict__ dq, int bq) {
   using GM = DqGeom<D>;
-  constexpr int BK = GM::BK;
-  constexpr int ST = GM::ST;
-  constexpr int KT = D / 16;
-  constexpr int NT = D / 8;
+  constexpr int ROWS = GM::ROWS, BK = GM::BK, ST = GM::ST, PT = GM::PT, KW = GM::KW, DW = GM::DW;
+  constexpr int WC = GM::WC, STAGES = GM::STAGES, THREADS = GM::THREADS;
+  constexpr int NK = KW / 8;  // n-tiles of a warp's S / dP
+  constexpr int ND = DW / 8;  // n-tiles of a warp's dq
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);  // [BK][ST]
-  bf16* v_s = k_s + BK * ST;                      // [BK][ST]
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);                               // (ROWS, ST) Q
+  bf16* do_s = q_s + ROWS * ST;                                                // (ROWS, ST) dO
+  unsigned char* stages = reinterpret_cast<unsigned char*>(do_s + ROWS * ST);  // K, V (BK, ST) a stage
+  bf16* ds_s = reinterpret_cast<bf16*>(stages + STAGES * GM::STAGE);           // (ROWS, PT) dS
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ds_s + ROWS * PT);
 
   const Options o = a.opt;
-  const int Hq = a.Hq, Sq = a.Sq, Skv = a.Skv;
-  const int qt = gridDim.y - 1 - blockIdx.y, kvh = blockIdx.x, b = blockIdx.z;  // the longest walks first
-  const int G = Hq / a.Hkv;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int Sq = a.Sq, Skv = a.Skv, G = a.Hq / a.Hkv;
+  const int kvh = blockIdx.x % a.Hkv, b = blockIdx.x / a.Hkv;
+  const int qt = dq_tile<BK>(a, bq, CAUSAL, BAND);
+  const KvWalk wk = dq_walk<BK>(a, b, qt, bq, CAUSAL, BAND);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int warps_per_head = bq / 16;
-  const int head = kvh * G + warp / warps_per_head;
-  const int r0 = qt * bq + (warp % warps_per_head) * 16;  // this warp's first q row
-  const int ra = r0 + g, rb = r0 + g + 8;                  // this lane's two rows
+  const int wr = warp / WC, wc = warp % WC;  // row group; the warp's keys / D columns in it
+  const int r0 = wr * 32;                    // the row group's first block row
   const int len = min(a.lengths[b], Skv);
   const int qoff = a.q_offsets[b];
-  const int pa = qoff + ra, pb = qoff + rb;                // their absolute positions
-  const int warp_last = qoff + min(r0 + 15, Sq - 1);       // last position of the warp
-  const int W = o.window, SK = o.sinks;                    // read only with BAND
-
-  // This warp's Q and dO fragments for the whole walk: in registers, or (D =
-  // 256) its 16 rows of each in its own slice of shared memory.
-  const size_t row0 = ((size_t)b * Hq + head) * (size_t)Sq;
-  const bf16* qh = a.q + row0 * D;
-  const bf16* dh = a.dout + row0 * D;
-  uint32_t qa[GM::QSMEM ? 1 : KT][4], da[GM::QSMEM ? 1 : KT][4];
-  bf16* q_s = v_s + BK * ST + (size_t)warp * 32 * ST;  // [16][ST] Q, then [16][ST] dO; QSMEM only
-  bf16* do_s = q_s + 16 * ST;
-  if constexpr (GM::QSMEM) {
-    const int valid = max(min(16, Sq - r0), 0);
-    stage_rows<D, ST>(q_s, qh + (size_t)r0 * D, 16, valid, lane, 32);
-    stage_rows<D, ST>(do_s, dh + (size_t)r0 * D, 16, valid, lane, 32);
-    __syncwarp();
-  } else {
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-      const int c = kk * 16 + 2 * t;
-      qa[kk][0] = ra < Sq ? ld32(qh + (size_t)ra * D + c) : 0u;
-      qa[kk][1] = rb < Sq ? ld32(qh + (size_t)rb * D + c) : 0u;
-      qa[kk][2] = ra < Sq ? ld32(qh + (size_t)ra * D + c + 8) : 0u;
-      qa[kk][3] = rb < Sq ? ld32(qh + (size_t)rb * D + c + 8) : 0u;
-      da[kk][0] = ra < Sq ? ld32(dh + (size_t)ra * D + c) : 0u;
-      da[kk][1] = rb < Sq ? ld32(dh + (size_t)rb * D + c) : 0u;
-      da[kk][2] = ra < Sq ? ld32(dh + (size_t)ra * D + c + 8) : 0u;
-      da[kk][3] = rb < Sq ? ld32(dh + (size_t)rb * D + c + 8) : 0u;
-    }
-  }
-  const float lse_a = ra < Sq ? a.lse[row0 + ra] : LSE_EMPTY;
-  const float lse_b = rb < Sq ? a.lse[row0 + rb] : LSE_EMPTY;
-  const float dl_a = ra < Sq ? a.delta[row0 + ra] : 0.f;
-  const float dl_b = rb < Sq ? a.delta[row0 + rb] : 0.f;
-
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
+  const int W = o.window, SK = o.sinks;  // read only with BAND
   const size_t kv_base = ((size_t)b * a.Hkv + kvh) * (size_t)Skv * D;
-  const int block_first = qoff + qt * bq;  // first position of the block's rows
-  const int block_last_row = min(qt * bq + bq, Sq) - 1;
-  const int kv_end = CAUSAL ? min(len, qoff + block_last_row + 1) : len;
-  // Window: the block's lowest band start is its first row's; tiles wholly
-  // below it are skipped, except the sink tiles, which come first.
-  const int lo = BAND ? max(block_first - W + 1, 0) : 0;
-  const int band0 = lo / BK * BK;
-  const int sink_tiles_end = BAND ? (min(SK, band0) + BK - 1) / BK * BK : 0;
-  const int warp_lo = qoff + r0 - W + 1;  // this warp's lowest band start
+  const size_t head0 = (size_t)b * a.Hq + (size_t)kvh * G;  // the block's first query head
+  const int lo = BAND ? qoff + qt * bq - W + 1 : 0;          // the block's lowest band start
 
-  for (int j0 = sink_tiles_end ? 0 : band0; j0 < kv_end;
-       j0 = j0 + BK < sink_tiles_end ? j0 + BK : max(j0 + BK, band0)) {
-    if constexpr (BAND) {  // rows below the band that are not sinks stay unread
-      stage_rows<D, ST>(k_s, a.k + kv_base + (size_t)j0 * D, BK, Skv - j0, threadIdx.x, blockDim.x,
-                        SK - j0, lo - j0);
-      stage_rows<D, ST>(v_s, a.v + kv_base + (size_t)j0 * D, BK, Skv - j0, threadIdx.x, blockDim.x,
-                        SK - j0, lo - j0);
-    } else {
-      stage_rows<D, ST>(k_s, a.k + kv_base + (size_t)j0 * D, BK, Skv - j0, threadIdx.x, blockDim.x);
-      stage_rows<D, ST>(v_s, a.v + kv_base + (size_t)j0 * D, BK, Skv - j0, threadIdx.x, blockDim.x);
+  // Block row r is q row qt * bq + r % bq of head r / bq: live when that head
+  // is in the group and the row below Sq (rows past G * bq are idle).
+  auto q_row = [&](int r) { return qt * bq + r % bq; };
+  auto live = [&](int r) { return r / bq < G && q_row(r) < Sq; };
+  auto row_index = [&](int r) { return (head0 + r / bq) * (size_t)Sq + q_row(r); };  // into lse, delta
+
+  // the row group's live rows (warp-uniform): any, all, lowest and highest position
+  const bool lane_live = live(r0 + lane);
+  const unsigned live_rows = __ballot_sync(~0u, lane_live);
+  const bool grp_any = live_rows != 0u, grp_all = live_rows == ~0u;
+  const int grp_lo = qoff + __reduce_min_sync(~0u, lane_live ? q_row(r0 + lane) : 1 << 30);
+  const int grp_hi = qoff + __reduce_max_sync(~0u, lane_live ? q_row(r0 + lane) : -(1 << 30));
+
+  // the lane's four rows (g, g + 8 of each m16 tile): position, LSE, delta
+  bool row_live[2][2];
+  int pos[2][2];
+  float lse[2][2], dl[2][2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = r0 + mt * 16 + g + 8 * hf;
+      row_live[mt][hf] = live(r);
+      pos[mt][hf] = qoff + q_row(r);
+      lse[mt][hf] = row_live[mt][hf] ? a.lse[row_index(r)] : LSE_EMPTY;
+      dl[mt][hf] = row_live[mt][hf] ? a.delta[row_index(r)] : 0.f;
+    }
+
+  float acc[2][ND][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int n = 0; n < ND; ++n) acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.f;
+
+  if (wk.n > 0) {
+    if (tid == 0) {
+#pragma unroll
+      for (int s = 0; s < STAGES; ++s) mbar_init(&bars[s], THREADS);
     }
     __syncthreads();
-
-    // warp-uniform: the warp has rows, the tile is not wholly above its
-    // diagonal, and not wholly below its band unless it holds sinks
-    if (r0 < Sq && (!CAUSAL || j0 <= warp_last) && (!BAND || j0 + BK - 1 >= warp_lo || j0 < SK)) {
-#pragma unroll 1
-      for (int kk = 0; kk < BK / 16; ++kk) {  // 16 keys at a time
-        float s[2][4], dp[2][4];
+    // the block's Q and dO rows (rows not live zero-filled), covered by the first stage's barrier
 #pragma unroll
-        for (int nn = 0; nn < 2; ++nn) {
-          s[nn][0] = s[nn][1] = s[nn][2] = s[nn][3] = 0.f;
-          dp[nn][0] = dp[nn][1] = dp[nn][2] = dp[nn][3] = 0.f;
-        }
-        if constexpr (GM::QSMEM) {  // one Q and one dO fragment from shared memory a k-step
+    for (int c = 0; c < ROWS * D / 8 / THREADS; ++c) {
+      const int i = tid + c * THREADS;
+      const int row = i / (D / 8), col = (i % (D / 8)) * 8;
+      const bool ok = live(row);
+      const size_t off = ok ? row_index(row) * D + col : 0;
+      cp_async16(q_s + row * ST + col, a.q + off, ok);
+      cp_async16(do_s + row * ST + col, a.dout + off, ok);
+    }
+    // Fill a stage with walk step `it`'s K and V rows (past Skv, and with a
+    // window below the block's band unless sinks, zero-filled and unread),
+    // then arrive on its barrier.
+    auto issue = [&](int it, int stage) {
+      const int j0 = wk.tile(it) * BK;
+      bf16* ks = reinterpret_cast<bf16*>(stages + stage * GM::STAGE);
+      bf16* vs = ks + BK * ST;
 #pragma unroll
-          for (int kq = 0; kq < KT; ++kq) {
-            uint32_t af[4], df[4];
-            load_a(af, q_s + kq * 16, ST, g, t);
-            load_a(df, do_s + kq * 16, ST, g, t);
-#pragma unroll
-            for (int nn = 0; nn < 2; ++nn) {
-              const bf16* krow = k_s + (kk * 16 + nn * 8 + g) * ST + 2 * t + kq * 16;
-              const bf16* vrow = v_s + (kk * 16 + nn * 8 + g) * ST + 2 * t + kq * 16;
-              mma_bf16(s[nn], af, ld32(krow), ld32(krow + 8));
-              mma_bf16(dp[nn], df, ld32(vrow), ld32(vrow + 8));
-            }
-          }
-        } else {
-#pragma unroll
-          for (int nn = 0; nn < 2; ++nn) {
-            const bf16* krow = k_s + (kk * 16 + nn * 8 + g) * ST + 2 * t;
-            const bf16* vrow = v_s + (kk * 16 + nn * 8 + g) * ST + 2 * t;
-#pragma unroll
-            for (int kq = 0; kq < KT; ++kq) {
-              mma_bf16(s[nn], qa[kq], ld32(krow + kq * 16), ld32(krow + kq * 16 + 8));
-              mma_bf16(dp[nn], da[kq], ld32(vrow + kq * 16), ld32(vrow + kq * 16 + 8));
-            }
-          }
-        }
-        // dS in place of the scores
-#pragma unroll
-        for (int nn = 0; nn < 2; ++nn) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = j0 + kk * 16 + nn * 8 + 2 * t + (e & 1);
-            const bool hi = e >= 2;
-            float p;
-            p_ds<CAUSAL, SOFTCAP, BAND>(s[nn][e], dp[nn][e], true, col, hi ? pb : pa, len,
-                                        hi ? lse_b : lse_a, hi ? dl_b : dl_a, o, p, s[nn][e]);
-          }
-        }
-        const uint32_t af[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
-                                pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
-        mma_a_by_rows<D>(acc, af, k_s + kk * 16 * ST, ST, lane);  // dq += dS @ K
+      for (int c = 0; c < BK * D / 8 / THREADS; ++c) {
+        const int i = tid + c * THREADS;
+        const int row = i / (D / 8), col = (i % (D / 8)) * 8;
+        const int j = j0 + row;
+        const bool ok = j < Skv && (!BAND || j < SK || j >= lo);
+        const size_t off = ok ? kv_base + (size_t)j * D + col : 0;
+        cp_async16(ks + row * ST + col, a.k + off, ok);
+        cp_async16(vs + row * ST + col, a.v + off, ok);
       }
+      mbar_arrive_cp_async(&bars[stage]);
+    };
+    for (int s = 0; s < STAGES && s < wk.n; ++s) issue(s, s);
+
+    // the lane's ldmatrix addresses (bytes): Q / dO as A (qa0, da0), dS as A
+    // (dsa), and K / V of stage 0 as S's and dP's B (kb0) and K as dq's (kt0)
+    constexpr int E = sizeof(bf16);
+    const uint32_t qa0 = smem_u32(q_s + (r0 + a_row(lane)) * ST + a_col(lane));
+    const uint32_t da0 = qa0 + ROWS * ST * E;
+    const uint32_t dsa = smem_u32(ds_s + (r0 + a_row(lane)) * PT + a_col(lane));
+    const uint32_t kb0 = smem_u32(stages) + ((wc * KW + b_row(lane)) * ST + b_col(lane)) * E;
+    const uint32_t kt0 = smem_u32(stages) + (a_row(lane) * ST + wc * DW + a_col(lane)) * E;
+    for (int it = 0; it < wk.n; ++it) {
+      const int stage = it % STAGES;
+      const uint32_t par = (it / STAGES) & 1;
+      const int j0 = wk.tile(it) * BK;
+      // Every thread waits for the stage, also where its row group skips the
+      // tile, so that no phase is left with copies in flight at a refill.
+      mbar_wait(&bars[stage], par);
+      // the same for the row group's warps: it has live rows, the tile is not
+      // wholly above its diagonal, and not wholly below its band unless sinks
+      if (grp_any && (!CAUSAL || j0 <= grp_hi) && (!BAND || j0 + BK - 1 >= grp_lo - W + 1 || j0 < SK)) {
+        // S = Q K^T and dP = dO V^T on the warp's KW keys: each K / V
+        // fragment serves both m16 tiles
+        float s[2][NK][4], dp[2][NK][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int n = 0; n < NK; ++n) {
+            s[mt][n][0] = s[mt][n][1] = s[mt][n][2] = s[mt][n][3] = 0.f;
+            dp[mt][n][0] = dp[mt][n][1] = dp[mt][n][2] = dp[mt][n][3] = 0.f;
+          }
+        const uint32_t kp = kb0 + stage * GM::STAGE;
+        const uint32_t vp = kp + BK * ST * E;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t qa[2][4], da[2][4];
+          ldmatrix_x4(qa[0], qa0 + kk * 16 * E);
+          ldmatrix_x4(qa[1], qa0 + (16 * ST + kk * 16) * E);
+          ldmatrix_x4(da[0], da0 + kk * 16 * E);
+          ldmatrix_x4(da[1], da0 + (16 * ST + kk * 16) * E);
+#pragma unroll
+          for (int np = 0; np < KW / 16; ++np) {
+            uint32_t kb[4], vb[4];
+            ldmatrix_x4(kb, kp + (np * 16 * ST + kk * 16) * E);
+            ldmatrix_x4(vb, vp + (np * 16 * ST + kk * 16) * E);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              mma_bf16(s[mt][2 * np], qa[mt], kb[0], kb[1]);
+              mma_bf16(s[mt][2 * np + 1], qa[mt], kb[2], kb[3]);
+              mma_bf16(dp[mt][2 * np], da[mt], vb[0], vb[1]);
+              mma_bf16(dp[mt][2 * np + 1], da[mt], vb[2], vb[3]);
+            }
+          }
+        }
+        // dS (rows the block's, columns the tile's keys), rounded to bf16 into
+        // shared memory for the row group's warps; the mask tests only where
+        // the tile crosses a dead row, the length, the diagonal or the band
+        const bool need_mask = !grp_all || j0 + BK > len || (CAUSAL && j0 + BK - 1 > grp_lo) ||
+                               (BAND && j0 < grp_hi - W + 1);
+        auto ds_tile = [&](auto mask) {
+          constexpr bool M = decltype(mask)::value;
+#pragma unroll
+          for (int n = 0; n < NK; ++n)
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int hf = e >> 1;
+                const int j = j0 + wc * KW + n * 8 + 2 * t + (e & 1);
+                float p;
+                p_ds<CAUSAL, SOFTCAP, BAND, M>(s[mt][n][e], dp[mt][n][e], row_live[mt][hf], j, pos[mt][hf],
+                                               len, lse[mt][hf], dl[mt][hf], o, p, s[mt][n][e]);
+              }
+        };
+        if (need_mask) ds_tile(std::true_type{});
+        else ds_tile(std::false_type{});
+#pragma unroll
+        for (int n = 0; n < NK; ++n) {
+          const int c = wc * KW + n * 8 + 2 * t;
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            const int r = (r0 + mt * 16 + g) * PT + c;
+            *reinterpret_cast<uint32_t*>(ds_s + r) = pack_bf16(s[mt][n][0], s[mt][n][1]);
+            *reinterpret_cast<uint32_t*>(ds_s + r + 8 * PT) = pack_bf16(s[mt][n][2], s[mt][n][3]);
+          }
+        }
+        named_barrier(1 + wr, 32 * WC);
+
+        // dq += dS K on the warp's DW columns: each K fragment serves both m-tiles
+        const uint32_t kq = kt0 + stage * GM::STAGE;
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          uint32_t sa[2][4], kb[2][4];
+          ldmatrix_x4(sa[0], dsa + kk * 16 * E);
+          ldmatrix_x4(sa[1], dsa + (16 * PT + kk * 16) * E);
+          ldmatrix_x4_trans(kb[0], kq + kk * 16 * ST * E);
+#pragma unroll
+          for (int np = 0; np < DW / 16; ++np) {
+            if (np + 1 < DW / 16) ldmatrix_x4_trans(kb[(np + 1) & 1], kq + (kk * 16 * ST + (np + 1) * 16) * E);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              mma_bf16(acc[mt][2 * np], sa[mt], kb[np & 1][0], kb[np & 1][1]);
+              mma_bf16(acc[mt][2 * np + 1], sa[mt], kb[np & 1][2], kb[np & 1][3]);
+            }
+          }
+        }
+      }
+      __syncthreads();  // every reader of this stage and of dS is done: refill
+      if (it + STAGES < wk.n) issue(it + STAGES, stage);
     }
-    __syncthreads();
+    // every stage's last phase has completed before the shared memory is released
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s)
+      if (wk.n > s) mbar_wait(&bars[s], ((wk.n - 1 - s) / STAGES) & 1);
   }
 
-  if (r0 >= Sq) return;
-  bf16* oh = dq + row0 * D;
+  // sm_scale at the store; rows not live are never written, a row with
+  // nothing in band gets zeros
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int c = n * 8 + 2 * t;
-    if (ra < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)ra * D + c) =
-          __floats2bfloat162_rn(acc[n][0] * o.sm_scale, acc[n][1] * o.sm_scale);
-    if (rb < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)rb * D + c) =
-          __floats2bfloat162_rn(acc[n][2] * o.sm_scale, acc[n][3] * o.sm_scale);
-  }
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = r0 + mt * 16 + g + 8 * hf;
+      if (!row_live[mt][hf]) continue;
+      bf16* out = dq + row_index(r) * D + wc * DW + 2 * t;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(out + n * 8) =
+            __floats2bfloat162_rn(acc[mt][n][2 * hf] * o.sm_scale, acc[mt][n][2 * hf + 1] * o.sm_scale);
+    }
 }
 
 // dk/dv tiles (see the header): a block owns BKV KV rows in WR row groups of
@@ -731,19 +809,17 @@ struct DqLaunch {
   cudaStream_t stream;
   template <int D, bool CAUSAL, bool SOFTCAP, bool BAND>
   cudaError_t run(const Args& a) const {
+    using GM = DqGeom<D>;
     const int G = a.Hq / a.Hkv;
-    const int bq = G >= 8 ? 16 : 16 * (8 / G);  // K5's tiling: about 8 warps a block
-    const int threads = 32 * G * (bq / 16);
-    if (threads > DQ_MAX_THREADS) return cudaErrorInvalidConfiguration;
+    if (G < 1 || G > 8) return cudaErrorInvalidConfiguration;
+    const int bq = GM::ROWS / G;  // q rows of each head a block
     auto kernel = flash_bwd_dq_kernel<D, CAUSAL, SOFTCAP, BAND>;
-    const size_t smem = dq_smem_bytes<D>(threads);
-    if (smem > 48 * 1024) {
-      cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-      if (e != cudaSuccess) return e;
-    }
-    dim3 grid(a.Hkv, (a.Sq + bq - 1) / bq, a.B);
-    kernel<<<grid, threads, smem, stream>>>(a, static_cast<bf16*>(dq), bq);
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(GM::SMEM));
+    if (e != cudaSuccess) return e;
+    // x: (KV head, sequence); y: q tiles, in dq_tile's order
+    dim3 grid(a.Hkv * a.B, (a.Sq + bq - 1) / bq);
+    kernel<<<grid, GM::THREADS, GM::SMEM, stream>>>(a, static_cast<bf16*>(dq), bq);
     return cudaGetLastError();
   }
 };
@@ -859,6 +935,27 @@ int flash_bwd_dkdv_geometry(int D, int* out) {
     out[0] = KvGeom<DD>::BKV;                             \
     out[1] = KvGeom<DD>::BQ;                              \
     out[2] = static_cast<int>(KvGeom<DD>::SMEM);          \
+    return 0;
+    SFA_GEOMETRY(64)
+    SFA_GEOMETRY(128)
+    SFA_GEOMETRY(256)
+#undef SFA_GEOMETRY
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The dq kernel's tiles at head_dim D and G query heads a KV head: {q rows
+// of each head a block, keys a ring stage, dynamic shared memory bytes}; 0
+// for a geometry it does not take.
+int flash_bwd_dq_geometry(int D, int G, int* out) {
+  if (G < 1 || G > 8) return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+#define SFA_GEOMETRY(DD)                                  \
+  case DD:                                                \
+    out[0] = DqGeom<DD>::ROWS / G;                        \
+    out[1] = DqGeom<DD>::BK;                              \
+    out[2] = static_cast<int>(DqGeom<DD>::SMEM);          \
     return 0;
     SFA_GEOMETRY(64)
     SFA_GEOMETRY(128)

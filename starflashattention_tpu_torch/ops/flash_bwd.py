@@ -20,7 +20,11 @@ t^2``. ``delta`` is a torch reduction (:func:`bwd_delta`), as XLA computes
 it outside Pallas; then :func:`flash_bwd_dq` and :func:`flash_bwd_dkdv`
 launch the two kernels of ``csrc/flash_bwd.cu`` (which replace the TPU
 kernels ``_dq_kernel`` and ``_dkdv_kernel``) on CUDA tensors, each counting
-its launches, and run their plain versions on CPU tensors. The dk/dv kernel
+its launches, and run their plain versions on CPU tensors. The dq kernel
+keeps a block's Q and dO rows (the q tile of every head of a KV head) in
+shared memory and streams K and V past them; its tiles are
+:func:`dq_geometry`, its walk of KV tiles :func:`dq_walk` and its block
+order :func:`dq_tile_order` (the longest walks first). The dk/dv kernel
 cuts each KV tile's walk of (head, q tile) steps into pieces across blocks
 when the static shapes call for it (:func:`dkdv_split_plan`, on the built
 kernel's tiles, :func:`dkdv_geometry`; the walk's twins :func:`dkdv_walk`
@@ -59,9 +63,65 @@ _SIGNATURES = {
     "flash_bwd_dq": _ARGS + [_build.P] + [_build.I] * 7 + _OPTIONS,
     "flash_bwd_dkdv": _ARGS + [_build.P] * 3 + [_build.I] * 9 + _OPTIONS,
     "flash_bwd_dkdv_geometry": [_build.I, _build.P],
+    "flash_bwd_dq_geometry": [_build.I, _build.I, _build.P],
 }
 
 DKDV_MIN_CHUNK = 8  # the fewest (head, q tile) steps a split piece takes
+DQ_KEYS = 64  # keys a K/V tile of the dq kernel's ring
+
+
+def dq_geometry(d: int, g: int) -> tuple[int, int, int]:
+    """(q rows of each head a block, keys a ring stage, dynamic shared
+    memory bytes) of the dq kernel at head_dim ``d`` with ``g`` query heads
+    a KV head. A block holds 128 rows (64 at D 256) of Q and dO, the q
+    tile's ``128 // g`` rows of each head (rows past ``g`` times that idle),
+    a ring of 3 stages (2 at D 256) of K and V tiles, dS and an mbarrier a
+    stage; rows padded to D + 8 and 64 + 8 elements. Twin of
+    ``csrc/flash_bwd.cu``'s ``DqGeom`` (its ``flash_bwd_dq_geometry``
+    reports the same)."""
+    if d not in (64, 128, 256) or not 1 <= g <= 8:
+        raise ValueError(f"the dq kernel takes head_dim 64, 128 or 256 and 1-8 query heads a KV head, "
+                         f"got {d} and {g}")
+    rows, stages = (64, 2) if d > 128 else (128, 3)
+    st = d + 8
+    smem = 2 * rows * st * 2 + stages * 2 * DQ_KEYS * st * 2 + rows * (DQ_KEYS + 8) * 2 + stages * 8
+    return rows // g, DQ_KEYS, smem
+
+
+def dq_walk(qt, *, bq, bk, length, q_offset, causal, window=None, sinks=0) -> list[int]:
+    """The KV tiles (of ``bk`` keys) that q tile ``qt`` (rows ``qt * bq`` ..
+    of each head) of one sequence walks in the dq kernel, in walk order: the
+    tiles in band (JAX ``flash_bwd._in_band``) below ``length``, causal up
+    to the tile holding the q tile's last position (its last row, not
+    clipped to Sq); with a ``window``, first the sink tiles below the tile
+    that holds the q tile's first band start, then the tiles from that one
+    (``sinks`` is the kernel's bound, ``max(sinks - kv_offset, 0)``). Twin
+    of ``csrc/flash_bwd.cu``'s ``dq_walk``."""
+    end = min(length, q_offset + (qt + 1) * bq) if causal else length
+    nk = -(-end // bk) if end > 0 else 0
+    if window is None:
+        return list(range(nk))
+    bt = max(q_offset + qt * bq - window + 1, 0) // bk
+    ns = min(-(-min(sinks, bt * bk) // bk), nk)
+    return list(range(ns)) + list(range(bt, nk))
+
+
+def dq_tile_order(nqt: int, walk_len) -> list[int]:
+    """The q tiles of a dq launch in block order (``blockIdx.y``; each
+    takes every (KV head, sequence) before the next): from the end whose
+    tile has the longer walk in sequence 0 (``walk_len(qt)``: its number of
+    KV tiles), so that the longest walks start first. Twin of
+    ``csrc/flash_bwd.cu``'s ``dq_tile``."""
+    return list(range(nqt - 1, -1, -1)) if walk_len(nqt - 1) >= walk_len(0) else list(range(nqt))
+
+
+@functools.cache
+def dq_built_geometry(d: int, g: int) -> tuple[int, int, int]:
+    """:func:`dq_geometry` as the built library reports it (loads it)."""
+    lib = _build.load("flash_bwd", _SIGNATURES)
+    out = (ctypes.c_int * 3)()
+    _build.check(lib, lib.flash_bwd_dq_geometry(d, g, out), "flash_bwd_dq_geometry")
+    return tuple(out)
 
 
 def dkdv_walk(kt, *, bkv, bq, sq, length, q_offset, causal, window=None, sinks=0) -> tuple[int, int]:

@@ -25,9 +25,10 @@
   quantized per row (:func:`quantize_rows`, plain torch, as XLA computed it
   outside any kernel), then int8 x int8 products accumulate in int32 on the
   tensor cores' int8 path: ``csrc/quant_matmul_a8.cu`` (replaces
-  ``_qmm_w8a8_kernel`` and ``_qmm_w4a8_kernel``). W4A8's kernel transposes
-  4 x 4 blocks of packed bytes in registers; :func:`k11_b_fragment` gives
-  the (k, column) each register byte holds.
+  ``_qmm_w8a8_kernel`` and ``_qmm_w4a8_kernel``). Both kernels read the
+  weight rows as 32-bit words and transpose 4 x 4 blocks of bytes in
+  registers; :func:`k10_b_fragment` and :func:`k11_b_fragment` give the
+  (k, column) each register byte holds, :func:`w8a8_grid` W8A8's tiles.
 
 On CPU tensors every entry runs its ``*_plain`` twin. Each launch counts
 once in the entry's ``launches``; ``launches_tiled`` counts the launches of
@@ -43,6 +44,8 @@ change.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from starflashattention_tpu_torch.core.quant import unpack_int4
@@ -53,11 +56,13 @@ _SIGNATURES = {
     "quant_matmul": [_build.P] * 6 + [_build.I] * 6 + [_build.P],
     "quant_matmul_int4": [_build.P] * 6 + [_build.I] * 6 + [_build.P],
 }
-_A8_SIGNATURES = {"quant_matmul_a8": [_build.P] * 5 + [_build.I] * 5 + [_build.P]}
+_A8_SIGNATURES = {"quant_matmul_a8": [_build.P] * 5 + [_build.I] * 5 + [_build.P],
+                  "quant_matmul_w8a8_geometry": [_build.P]}
 _WEIGHT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 SMALL_M_MAX = 64  # rows up to which csrc/quant_matmul.cu runs its split-K form
 SMALL_M_BAND = 128  # output columns a split-K block (the kernel's SK_BN)
 SMALL_M_BLOCKS_PER_SM = 3  # the grid's aim: one wave of this many blocks an SM
+W8A8_TILE = (128, 256, 128)  # W8A8's output rows and columns a block, K columns a ring stage
 
 
 def _stack(w, scale, layer):
@@ -162,15 +167,13 @@ def k4_b_fragment(lane: int) -> dict:
     return {"b": b, "store": store}
 
 
-def k11_b_fragment(lane: int) -> dict:
-    """K11's W4A8 kernel (``qmm_w4a8_tiled``): what lane ``lane`` holds in
-    one chunk (32 packed rows) of a warp's 32 columns. Returns ``{"b":
-    {(tile i, register r, byte q): (packed row, column)}, "store": {(tile i,
-    accumulator j): (row, column)}}``. The low nibble of the byte is
-    contraction row ``packed row`` of the chunk's low half, the high nibble
-    the same row of its high half.
+def k10_b_fragment(lane: int) -> dict:
+    """K10's W8A8 kernel (``qmm_w8a8_tiled``): what lane ``lane`` holds in
+    one k32 step of one 32-column band of a warp. Returns ``{"b": {(tile i,
+    register r, byte q): (k, column)}, "store": {(tile i, accumulator j):
+    (row, column)}}``, k within the step (0-31), columns within the band.
 
-    The lane (g, t) reads the words of packed rows 16r + 4t + q (q = 0..3),
+    The lane (g, t) reads the words of weight rows 16r + 4t + q (q = 0..3),
     columns 4g .. 4g + 3, and transposes each 4 x 4 byte block: register r
     of tile i holds column 4g + i of the four rows, row q in byte q, which
     the m16n8k32 mma sees at column g and k 16r + 4t + q. The store is
@@ -178,6 +181,28 @@ def k11_b_fragment(lane: int) -> dict:
     g, t = lane >> 2, lane & 3
     b = {(i, r, q): (16 * r + 4 * t + q, 4 * g + i) for i in range(4) for r in range(2) for q in range(4)}
     return {"b": b, "store": k4_b_fragment(lane)["store"]}
+
+
+def k11_b_fragment(lane: int) -> dict:
+    """K11's W4A8 kernel (``qmm_w4a8_tiled``): what lane ``lane`` holds in
+    one chunk (32 packed rows) of a warp's 32 columns, in K10's layout
+    (:func:`k10_b_fragment`) with packed rows for k: ``{"b": {(tile i,
+    register r, byte q): (packed row, column)}, "store": ...}``. The low
+    nibble of the byte is contraction row ``packed row`` of the chunk's low
+    half, the high nibble the same row of its high half."""
+    return k10_b_fragment(lane)
+
+
+def w8a8_grid(m: int, k: int, n: int) -> tuple[int, int, int]:
+    """(row tiles, column tiles, ring stages) of K10 for x8 (m, k) @ w (k,
+    n): W8A8_TILE's 128 x 256 tiles, the last row and column tiles partial
+    (rows past m and columns past n zero-filled), stages of 128 K columns,
+    the last one half when k % 128 == 64. Raises for a geometry the kernel
+    does not take (k % 64, n % 32)."""
+    bm, bn, sk = W8A8_TILE
+    if k % 64 or n % 32:
+        raise ValueError(f"the CUDA kernel needs H a multiple of 64 and O of 32, got H={k}, O={n}")
+    return -(-m // bm), -(-n // bn), -(-k // sk)
 
 
 # ----------------------------------------------------------------- the split-K grid (M <= 64)
@@ -433,12 +458,20 @@ def quant_matmul_w8a8(
     if x.shape[1] != h or scale.shape != (n_layers, o):
         raise ValueError(f"x {tuple(x.shape)} / scale {tuple(scale.shape)} do not match weights "
                          f"{tuple(w.shape)}")
-    if h % 64 or o % 32:
-        raise ValueError(f"the CUDA kernel needs H a multiple of 64 and O of 32, got H={h}, O={o}")
+    w8a8_grid(x.shape[0], h, o)
     return _launch_a8(quant_matmul_w8a8, *quantize_rows(x, axis=axis), w, scale, layer, out_dtype, 0)
 
 
 quant_matmul_w8a8.launches = 0
+
+
+def w8a8_built_geometry() -> tuple[int, int, int, int]:
+    """K10's (rows, columns, K columns a stage, dynamic shared memory bytes)
+    as the built library reports them (loads it)."""
+    lib = _build.load("quant_matmul_a8", _A8_SIGNATURES)
+    out = (ctypes.c_int * 4)()
+    _build.check(lib, lib.quant_matmul_w8a8_geometry(out), "quant_matmul_w8a8_geometry")
+    return tuple(out)
 
 
 def quant_matmul_w4a8(

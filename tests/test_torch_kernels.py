@@ -10,8 +10,8 @@ Quantized cases: K4 and K6's split-K forms (up to 64 rows: ragged splits,
 partial bands, every n8 tile count, the same bits on two runs and the
 arrival counters back at zero), K6 (int4 weight-only; its tiled form at
 partial tiles and groups that end inside a stage), K4's tiled form on int8 and fp8 weights at
-partial tiles and a TP shard's K, K10 / K11 (W8A8 / W4A8; K11 also at
-phase 14's TP-4 shard shapes), the int8 / fp8 options of K1, K2 and K7, and
+partial tiles and a TP shard's K, K10 / K11 (W8A8 / W4A8; both also at
+phase 14's TP-4 shard shapes, K10 byte for byte its twin at ragged tiles), the int8 / fp8 options of K1, K2 and K7, and
 K8 on 1-byte pools; quantized deployments
 through ``generate`` and both engines. Decode at head_dim 64, 128 and 256
 (one kernel, the KV walk split across blocks, the quantized KV's scales
@@ -34,7 +34,8 @@ row of length 0 and a row that fills all ``pages_per_seq`` pages.
 Training: K5 with the LSE (causal and not) at G in {1, 2, 4, 8} and D in
 {64, 128, 256}, the two K12 kernels at G in {1, 2, 4, 8} and D in {64, 128}
 (and 256 below), lengths that are no tile multiple, q offsets and a
-zero-length sequence, K12's bytes across two runs; K12's dk/dv with each KV
+zero-length sequence, K12's bytes across two runs; K12's dq at groups
+that leave rows of its block idle (G 3, 5, 6, 7); K12's dk/dv with each KV
 tile's q walk split across blocks and with none split; a band whose first
 tile follows 1-3 sink tiles in K5's K/V ring; gradients through
 ``flash_attention`` against autograd of the plain forward, and a bf16
@@ -409,6 +410,24 @@ def test_quant_matmul_a8_kernels_match_plain(cuda, entry, rows, out_dtype):
                                                                 out_dtype=out_dtype)
     rel = 1e-5 if out_dtype == torch.float32 else BF16_ULP
     assert out.dtype == out_dtype and _max_err(out, ref) <= rel * ref.float().abs().max().item()
+
+
+@pytest.mark.parametrize("rows,k,n", [(200, 192, 384), (300, 2752, 1536), (129, 1024, 5504), (64, 128, 160),
+                                      (2048, 4096, 5504)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_quant_matmul_w8a8_kernel_equals_plain_bytes(cuda, rows, k, n, out_dtype):
+    """K10 (128 x 256 tiles, stages of 128 K columns) at ragged row tiles,
+    half column tiles (N 384, 5504), a half last stage (K 192, 2752) and a
+    TP-4 rank's shapes: exact int32 sums and the same two fp32 multiplies,
+    so the plain twin's bytes; and its built tiles are ``W8A8_TILE``."""
+    gen = _gen(cuda)
+    wq = quant.quantize_weight(torch.randn((2, k, n), generator=gen, device=cuda), "int8")
+    x = torch.randn((rows, k), generator=gen, device=cuda, dtype=torch.bfloat16)
+    kw = dict(layer=1, out_dtype=out_dtype)
+    out = quant_matmul.quant_matmul_w8a8(x, wq["w"], wq["scale"], **kw)
+    assert torch.equal(out, quant_matmul.quant_matmul_w8a8_plain(x, wq["w"], wq["scale"], **kw))
+    built = quant_matmul.w8a8_built_geometry()
+    assert built[:3] == quant_matmul.W8A8_TILE and built[3] <= 232_448
 
 
 @pytest.mark.parametrize("entry", ["quant_matmul", "quant_matmul_int4", "quant_matmul_w8a8",
@@ -829,6 +848,24 @@ def test_flash_bwd_kernels_match_plain(cuda, g, d, causal):
     assert float(got[0][2].abs().max()) == 0.0  # the zero-length sequence
     again = flash_bwd.flash_prefill_bwd(q, k, v, o, lse, do, lengths, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("g", [3, 5, 6, 7])
+def test_flash_bwd_dq_groups_with_idle_rows(cuda, g, d, causal):
+    """K12's dq where the group does not divide the block's rows (128, 64
+    at D 256): rows past G * (rows // G) idle; 2e-2 of the plain twin's
+    peak, 0 on the zero-length sequence, the same bytes twice; and the
+    built tiles are ``dq_geometry``'s."""
+    q, k, v, do, lengths, q_off = _train_inputs(cuda, g, d)
+    kw = dict(causal=causal, q_offsets=q_off)
+    o, lse = flash_prefill.flash_prefill(q, k, v, lengths, return_lse=True, **kw)
+    args = (q, k, v, lse, do, flash_bwd.bwd_delta(o, do), lengths)
+    dq = flash_bwd.flash_bwd_dq(*args, **kw)
+    assert _rel_peak(dq, flash_bwd.flash_bwd_dq_plain(*args, **kw)) <= 2e-2
+    assert float(dq[2].abs().max()) == 0.0 and torch.equal(dq, flash_bwd.flash_bwd_dq(*args, **kw))
+    assert flash_bwd.dq_built_geometry(d, g) == flash_bwd.dq_geometry(d, g)
 
 
 @pytest.mark.parametrize("causal", [True, False])

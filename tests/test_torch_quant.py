@@ -229,10 +229,12 @@ def test_w4a8_transpose_and_widen_equal_unpack_int4(rng, i):
 
 def test_fragment_maps_cover_each_element_once():
     """Over the 32 lanes, K4's B registers hold each (k, column) of a k16 x
-    32 band once, K11's each (packed row, column) of a 32 x 32 chunk once,
-    and both stores write each (row, column) of a 16 x 32 tile once, with
-    every lane storing 8 consecutive columns."""
-    for fragment, k_rows in ((t_qmm.k4_b_fragment, 16), (t_qmm.k11_b_fragment, 32)):
+    32 band once, K10's each (k, column) of a k32 x 32 band once, K11's each
+    (packed row, column) of a 32 x 32 chunk once, and the stores write each
+    (row, column) of a 16 x 32 tile once, with every lane storing 8
+    consecutive columns."""
+    for fragment, k_rows in ((t_qmm.k4_b_fragment, 16), (t_qmm.k10_b_fragment, 32),
+                             (t_qmm.k11_b_fragment, 32)):
         b = [v for lane in range(32) for v in fragment(lane)["b"].values()]
         assert sorted(b) == [(k, c) for k in range(k_rows) for c in range(32)]
         stores = [fragment(lane)["store"] for lane in range(32)]
@@ -338,6 +340,99 @@ def test_k11_fragment_mma_matches_plain_and_jax(rng, group):
     ref = np.asarray(j_qmm.quant_matmul_w4a8(jnp.asarray(x), jw["w"], jw["scale"]))
     for want in (plain, ref):
         np.testing.assert_allclose(out, want, atol=REL_F32 * np.abs(want).max(), rtol=0)
+
+
+def _emulate_w8a8(x8, rs, w8, scale):
+    """K10's kernel (``qmm_w8a8_tiled``) in numpy, in fp32 out: each 128 x
+    256 tile's ring stages of 128 K columns filled as its copies fill them
+    (zeros past M, N and K), each k32 step's B registers through
+    ``k10_b_fragment`` (the m16n8k32 product on the mma's layout, exact in
+    int64), the steps past K skipped, the accumulators stored through the
+    store map, then ``f32(acc) * rs[row] * s[col]`` in that order."""
+    m, k = x8.shape
+    n = w8.shape[1]
+    bm, bn, sk = t_qmm.W8A8_TILE
+    tiles_m, tiles_n, stages = t_qmm.w8a8_grid(m, k, n)
+    # the mma's B (n8 tile i, k, column g) <- (row, column) of the step's band
+    src_k, src_c = np.zeros((4, 32, 8), np.int64), np.zeros((4, 32, 8), np.int64)
+    dst_r, dst_c = np.zeros((4, 16, 8), np.int64), np.zeros((4, 16, 8), np.int64)
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        frag = t_qmm.k10_b_fragment(lane)
+        for (i, r, q), (kk, col) in frag["b"].items():
+            src_k[i, 16 * r + 4 * t + q, g], src_c[i, 16 * r + 4 * t + q, g] = kk, col
+        for (i, j), (row, col) in frag["store"].items():  # accumulator j: the mma's row g + 8 (j // 2), column 2t + j % 2
+            dst_r[i, g + 8 * (j // 2), 2 * t + j % 2], dst_c[i, g + 8 * (j // 2), 2 * t + j % 2] = row, col
+    out = np.zeros((m, n), np.float32)
+    for tm in range(tiles_m):
+        for tn in range(tiles_n):
+            m0, n0 = tm * bm, tn * bn
+            acc = np.zeros((bm // 16, bn // 32, 4, 16, 8), np.int64)  # (m16 tile, band, n8 tile, row, column)
+            for s in range(stages):
+                a, b = np.zeros((bm, sk), np.int64), np.zeros((sk, bn), np.int64)
+                rows, ks, cols = min(bm, m - m0), min(sk, k - s * sk), min(bn, n - n0)
+                a[:rows, :ks] = x8[m0:m0 + rows, s * sk:s * sk + ks]
+                b[:ks, :cols] = w8[s * sk:s * sk + ks, n0:n0 + cols]
+                for j in range(sk // 32):
+                    if s * sk + 32 * j >= k:
+                        break
+                    at = a[:, 32 * j:32 * j + 32].reshape(bm // 16, 16, 32)
+                    for band in range(bn // 32):
+                        bv = b[32 * j:32 * j + 32, 32 * band:32 * band + 32][src_k, src_c]
+                        acc[:, band] += np.einsum("mrk,ikn->mirn", at, bv)
+            tile = np.zeros((bm, bn), np.int64)
+            for mt in range(bm // 16):
+                for band in range(bn // 32):
+                    tile[16 * mt + dst_r, 32 * band + dst_c] = acc[mt, band]
+            rows, cols = min(bm, m - m0), min(bn, n - n0)
+            out[m0:m0 + rows, n0:n0 + cols] = (tile[:rows, :cols].astype(np.float32) * rs[m0:m0 + rows]
+                                               * scale[n0:n0 + cols])
+    return out
+
+
+@pytest.mark.parametrize("shape", [(200, 192, 384),  # a ragged row tile, half a column tile, K % 128 == 64
+                                   (72, 256, 160)])  # one partial row tile, 5 of 8 column bands
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_k10_fragment_mma_matches_plain_and_jax(rng, shape, out_dtype):
+    """K10 emulated in numpy (``_emulate_w8a8``) on the rows JAX's
+    ``quantize_rows`` gives: byte for byte JAX's ``quant_matmul_w8a8`` (in
+    interpret mode) and the plain twin, in fp32 and in bf16 out."""
+    m, k, n = shape
+    x = rng.standard_normal((m, k), dtype=np.float32)
+    w = rng.standard_normal((k, n), dtype=np.float32)
+    wq = t_quant.quantize_weight(_t(w), "int8")
+    x8, rs = (v.numpy() for v in t_qmm.quantize_rows(_t(x)))
+    out = torch.from_numpy(_emulate_w8a8(x8.astype(np.int64), rs, wq["w"].numpy().astype(np.int64),
+                                         wq["scale"].numpy())).to(getattr(torch, out_dtype))
+    jw = j_quant.quantize_weight(jnp.asarray(w), "int8")
+    ref = j_qmm.quant_matmul_w8a8(jnp.asarray(x), jw["w"], jw["scale"], out_dtype=jnp.dtype(out_dtype))
+    plain = t_qmm.quant_matmul_w8a8_plain(_t(x), wq["w"], wq["scale"], out_dtype=getattr(torch, out_dtype))
+    bits = torch.int32 if out_dtype == "float32" else torch.int16
+    assert torch.equal(out.view(bits), plain.view(bits))
+    assert torch.equal(out.view(bits), bridge.tensor_from_numpy(np.asarray(ref)).view(bits))
+
+
+# (K, N) of the W8A8 projections: 7B-GQA's four layer shapes and a TP-4
+# rank's shards of them (phase 14: column shards N 1536 and 5504, row shards
+# K 1024 and 2752)
+W8A8_SHAPES = [(4096, 6144), (4096, 4096), (4096, 22016), (11008, 4096),
+               (4096, 1536), (1024, 4096), (4096, 5504), (2752, 4096)]
+
+
+@pytest.mark.parametrize("k,n", W8A8_SHAPES)
+def test_w8a8_grid_takes_the_main_path_shapes(k, n):
+    """The wrapper's geometry takes every main-path and phase-14 shape at
+    2048 and 300 rows: the tiles cover the output with at most one partial
+    row and column tile, and the stages cover K (half the last one when K %
+    128 == 64, as N 5504's last column tile is half)."""
+    bm, bn, sk = t_qmm.W8A8_TILE
+    for m in (2048, 300):
+        tiles_m, tiles_n, stages = t_qmm.w8a8_grid(m, k, n)
+        assert (tiles_m - 1) * bm < m <= tiles_m * bm and (tiles_n - 1) * bn < n <= tiles_n * bn
+        assert (stages - 1) * sk < k <= stages * sk
+    for bad in ((96, 64), (128, 48)):
+        with pytest.raises(ValueError, match="multiple"):
+            t_qmm.w8a8_grid(16, *bad)
 
 
 # ------------------------------------------------------------------ the split-K form (M <= 64)
