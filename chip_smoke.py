@@ -89,7 +89,9 @@ Phases (any failure raises and the script exits non-zero):
    chunks at offsets 0 and 2048, each within 2 (decode) or 3 (K5) bf16
    ulps of each element of its twin, and each shown to see the shape (with
    q's rope lanes zeroed, or its heads rolled by 8, the kernel lies over 4x
-   that tolerance from the twin); library SDPA with the mask. The expert
+   that tolerance from the twin); library SDPA with the mask; then K5 at
+   D 640 with 2, 4 and 6 query heads a KV head on lengths and offsets off
+   its 32-key tiles (``LATENT_GROUP_ROWS``), each within 3 ulps. The expert
    stacks at 4 decode rows through the (L * E, ...) view at index lidx * E
    + e: K6 on DeepSeek-V2-Lite's int4 g128 experts and K4 on Mixtral-8x7B's
    int8 experts, against their twins (``EXPERT_STACKS``). Ring context
@@ -249,7 +251,9 @@ Phases (any failure raises and the script exits non-zero):
    (per step 27 K1 or K7 and K3 or K8 launches and 3,355 K6 launches: ``wo``
    and gate_up and down of each of the 64 experts of the 26 MoE layers);
    the engines' streams equal generate's, or pass phase 8's teacher-forced
-   tie check; TTFT and launches a step. (b) The JAX package's decode chain
+   tie check; TTFT and launches a step, and K5's device ms a prefill (its
+   launches a prefill times one K5 call at generate's prefill shape, CUDA
+   events). (b) The JAX package's decode chain
    (benchmarks/bench_suite.py:1180-1212): B 4 at 4096 - 33 rows, 32 greedy
    steps on the host clock, then 8 traced (device busy and idle shares,
    K1's device ms a step), beside its byte accounting's bound; peak
@@ -576,7 +580,8 @@ def phase_device_and_build():
                         + (f", {smem} bytes of dynamic shared memory" if smem else ""))
         for label in (_latent_label, _redesign_label):
             for kernel, regs, spill in _entry_resources(r["ptxas"], label):
-                smem = _latent_decode_smem(kernel) or _split_k_smem(kernel) or _w8a8_smem(kernel)
+                smem = (_latent_decode_smem(kernel) or _latent_prefill_smem(kernel) or _split_k_smem(kernel)
+                        or _w8a8_smem(kernel))
                 log(f"[build]   {kernel}: {regs} registers, spill stores {spill} bytes"
                     + (f", {smem[0]} bytes of dynamic shared memory at {smem[1]}" if smem else ""))
     return smi
@@ -611,6 +616,17 @@ def _latent_label(name):
     return None
 
 
+def _latent_prefill_smem(kernel):
+    """(dynamic shared memory bytes, what) of K5's D 640 block as its
+    library reports it, for its label, else None."""
+    if kernel != "flash_prefill_latent_kernel (D 640)":
+        return None
+    from starflashattention_tpu_torch.ops import flash_prefill as fp
+
+    rows, keys, _, _, _, ctas, smem = fp.latent_built_geometry(LATENT_GROUP)
+    return smem, f"a block of a {ctas}-block cluster, {rows} rows, {keys}-key tiles"
+
+
 def _latent_decode_smem(kernel):
     """(dynamic shared memory bytes, what) of a D 640 decode block of
     LATENT_GROUP rows as its library reports it, for a split-KV decode
@@ -625,14 +641,18 @@ def _latent_decode_smem(kernel):
 
 def _split_k_smem(kernel):
     """(dynamic shared memory bytes, what) of a split-K matmul form,
-    qmm_split_k<weights, n8 tiles, out>, from its mangled name as its
-    library reports it, else None."""
-    m = re.search(r"qmm_split_k(I.*?)Li(\d)E", kernel)
-    if not m:
+    qmm_split_k<weights, n8 tiles, out> or K13's fused_mlp_split_k<weights,
+    n8 tiles> (the same ring), from its mangled name as its library reports
+    it, else None."""
+    m = re.search(r"(?:qmm|fused_mlp)_split_k(I.*?)Li(\d)E", kernel)
+    if m:
+        int4, nt = "Int4" in m.group(1), int(m.group(2))
+    elif "qmm_split_k_int4_m8" in kernel:  # the int4 form at one n8 tile
+        int4, nt = True, 1
+    else:
         return None
     from starflashattention_tpu_torch.ops import _build
 
-    int4, nt = "Int4" in m.group(1), int(m.group(2))
     lib = _build.load("quant_matmul", {"quant_matmul_split_k_smem": [_build.I] * 2})
     return (lib.quant_matmul_split_k_smem(int(int4), nt),
             f"up to {8 * nt} rows ({'int4' if int4 else 'int8 / fp8'})")
@@ -652,9 +672,10 @@ def _w8a8_smem(kernel):
 def _redesign_label(name):
     """The redesigned kernels by mangled name: the split-KV decode (its D
     640 forms are _latent_label's), the split-K int8 / fp8 / int4 matmul of
-    up to 64 rows and the tiled int4, int8 / fp8, W8A8 and W4A8 matmuls."""
+    up to 64 rows, K13's bf16-x form on it (fused_mlp_split_k) and the
+    tiled int4, int8 / fp8, W8A8 and W4A8 matmuls."""
     kernels = ("decode_split_kernel", "qmm_split_k", "qmm_int4_tiled", "qmm_8bit_tiled", "qmm_w8a8_tiled",
-               "qmm_w4a8_tiled")
+               "qmm_w4a8_tiled", "fused_mlp_split_k")
     return name if any(k in name for k in kernels) and "Li640E" not in name else None
 
 
@@ -2406,6 +2427,7 @@ def _latent_kernels(dev, timer, gen):
         library_ms=timer(lambda: F.scaled_dot_product_attention(qp, kk, vv, attn_mask=cmask, scale=sm)))
     del qp, k, v, kk, vv, cmask, out, ref
     torch.cuda.empty_cache()
+    _latent_group_rows(dev, timer, sm)
 
     # -- the expert stacks: (L * E, ...) views, expert e of layer lidx at lidx * E + e
     rows = LATENT_BATCH
@@ -2448,6 +2470,35 @@ def _latent_kernels(dev, timer, gen):
         res[entry] = agg
     torch.cuda.empty_cache()
     return res
+
+
+# K5 at D 640 beside DeepSeek's 16 heads: (G, Hkv, Sq, Skv, q_offsets, lengths), the
+# offsets and lengths off the 32-key tiles (the second sequence's length short of its rows)
+LATENT_GROUP_ROWS = ((2, 4, 1000, 3000, (37, 1111), (1037, 2001)),
+                     (4, 2, 777, 2500, (5, 1500), (782, 2207)),
+                     (6, 1, 1500, 2048, (0, 333), (1500, 1700)))
+
+
+def _latent_group_rows(dev, timer, sm):
+    """K5 at D 640 with G 2, 4 and 6 (its tiles then hold 64, 32 and 21
+    positions, 6 x 21 leaving 2 rows idle) against its twin, within 2
+    roundings (3 ulps) of each element; a ``[time]`` line each."""
+    from starflashattention_tpu_torch.ops.flash_prefill import flash_prefill, flash_prefill_plain
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    for g, hkv, sq, skv, q_off, lens in LATENT_GROUP_ROWS:
+        q = torch.randn((2, g * hkv, sq, 640), generator=gen, device=dev, dtype=torch.bfloat16)
+        k, v = (torch.randn((2, hkv, skv, 640), generator=gen, device=dev, dtype=torch.bfloat16) for _ in range(2))
+        q_off_t = torch.tensor(q_off, dtype=torch.int32, device=dev)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        kw = dict(q_offsets=q_off_t, sm_scale=sm)
+        out = flash_prefill(q, k, v, lens_t, **kw)
+        ref = flash_prefill_plain(q, k, v, lens_t, **kw)
+        tag = f"flash_prefill D640 G{g} Hkv={hkv} Sq={sq} Skv={skv} q_offsets={list(q_off)} lengths={list(lens)}"
+        _check_ulps(tag, out, ref, 2)
+        log(f"[time] {tag}: kernel {timer(lambda: flash_prefill(q, k, v, lens_t, **kw)):.4f} ms")
+        del q, k, v, out, ref
+    torch.cuda.empty_cache()
 
 
 def _latent_grid(entry, run, out, q, k_tab, v_tab, lengths, sm, timer, ms):
@@ -4127,6 +4178,25 @@ def _streams_or_ties(tag, params, cfg, prompts, dev, want, runs):
             _tie_check(f"{tag} {name}", params, cfg, prompts, streams, dev, label="deepseek")
 
 
+def _latent_prefill_ms(dev, cfg, prompts):
+    """One K5 call at generate's prefill shape for ``prompts`` (the model's
+    query heads on its latent KV head, the cache's rows, q_offsets 0), on
+    seeded random rows: ms by CUDA events."""
+    from starflashattention_tpu_torch.ops.flash_prefill import flash_prefill
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    hkv, d = cfg.kv_cache_dims()
+    b, sq = len(prompts), max(map(len, prompts))
+    q = torch.randn((b, cfg.num_q_heads, sq, d), generator=gen, device=dev, dtype=torch.bfloat16)
+    k, v = (torch.randn((b, hkv, cfg.max_seq_len, d), generator=gen, device=dev, dtype=torch.bfloat16)
+            for _ in range(2))
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32, device=dev)
+    ms = Timer(dev)(lambda: flash_prefill(q, k, v, lens, causal=True, sm_scale=cfg.sm_scale()))
+    del q, k, v
+    torch.cuda.empty_cache()
+    return ms
+
+
 def phase_deepseek(dev, smi):
     """DeepSeek-V2-Lite and Mixtral-8x7B at full width (see the module doc)."""
     from starflashattention_tpu_torch.cache import contiguous
@@ -4181,6 +4251,12 @@ def phase_deepseek(dev, smi):
         f"{pg['paged_flash_decode'] / p_steps:.0f}, K8 {pg['append_rows_paged_kv'] / p_steps:.0f}; TTFT p50 "
         f"{ds['engine']['stats']['p50_ttft_ms']} ms (Engine), {ds['paged']['stats']['p50_ttft_ms']} ms "
         f"(PagedEngine), generate {ds['generate']['wall_s']:.2f} s; {smi}")
+    k5_ms = _latent_prefill_ms(dev, cfg, prompts)
+    ds["k5_prefill_ms"] = g["flash_prefill"] * k5_ms
+    log(f"[deepseek] (a) K5 at D 640: {g['flash_prefill']} launches a prefill x {k5_ms:.4f} ms = "
+        f"{ds['k5_prefill_ms']:.2f} device ms a prefill (generate's: B {len(prompts)}, Sq "
+        f"{max(map(len, prompts))}, Skv {cfg.max_seq_len}; CUDA events, L2 flushed, median of 20); TTFT p50 "
+        f"{ds['engine']['stats']['p50_ttft_ms']} ms (Engine); {smi}")
 
     # (b) JAX's decode chain (bench_suite.py:1180-1212): B 4 at 4096 - 33 rows, greedy
     t0 = time.perf_counter()

@@ -91,19 +91,43 @@
 //
 // MLA's latent row (flash_prefill_latent_kernel: D = 640, causal, no LSE,
 // no window / sinks / softcap): DeepSeek-V2's 16 query heads attend one
-// 640-lane latent KV head. One warp's 16 rows x 640 fp32 accumulators
-// would be 320 registers a thread, and a block of all 16 heads 512
-// threads; so the output columns are cut into five 128-lane slices, one
-// warp each, and a block holds 16 query rows of HB = 2 heads: 10 warps, 320
-// threads. The 16 x 32 score tile of a head is computed once between its
-// five warps: each takes a 128-deep slice of the 640-deep contraction
-// (its Q fragments stay in registers), writes its partial scores to shared
-// memory, and after a barrier every warp sums the five partials in slice
-// order, so all five hold the same fp32 scores bit for bit and run the
-// same online softmax; each then accumulates P @ V on its own 128 columns
-// (64 accumulator registers a thread). Grid: (q tiles of 16 rows,
-// Hkv * G / 2, B); the K/V tile staged in shared memory serves the block's
-// 2 heads x 16 rows.
+// 640-lane latent KV head; the kernel computes general D 640 attention on
+// any k and v (it uses no structure of MLA's rows). Bound: 4 * 640
+// operations per (query, key) pair under the mask, at the tensor-core rate.
+// What stands in the way is the width: a 64-row tile's fp32 accumulators
+// over 640 columns take 160 KB of registers, and a K/V tile of 32 keys 80
+// KB of shared memory beside Q's 80 KB. Design:
+// - A cluster of two blocks (two SMs) owns a tile of 128 rows, the (position,
+//   head) pairs of one KV head, position-major: at G 16, 8 positions x 16
+//   heads (latent::Rows: hb = min(G, 128) heads by 128 / hb positions; a G
+//   that does not divide 128 leaves rows idle, a G past 128 splits its heads
+//   over tiles). Block `rank` holds all 128 rows but only its half of the 640
+//   lanes: Q's 320 columns, K's and V's, and the output's. So each K/V byte
+//   is read from L2 once for 128 rows (four times fewer reads than the first
+//   design's 32-row blocks), and a block's 128 x 320 fp32 accumulators are
+//   the 160 registers a thread of its 8 warps can hold.
+// - Both products run on wgmma (two warpgroups of 64 rows, a warp 16 of
+//   them). S = Q K^T: m64n32k16 from shared memory, Q and K in the 128-byte
+//   swizzle. P @ V: the warp's P (bf16, in registers as the A operand, its own
+//   rows) against V (MN-major, swizzled) in two products of 192 and 128
+//   columns, into the warp's 16 rows x 320 fp32. A warp's rows are its own
+//   from the scores to the output: no P, rescale factor or row sum passes
+//   between warps.
+// - Scores once a row, over the full 640-deep contraction: a warp's 16 x 32
+//   partial over its block's 320 lanes goes into the peer block's shared
+//   memory by st.async (counted on the peer's mbarrier, double-buffered, the
+//   warp does not wait for it) and the peer's comes back; both blocks add
+//   the same two partials (a + b == b + a), so both hold the same bits and
+//   run the same online softmax. Tile it + 1's scores are computed and sent
+//   before tile it's P @ V, which hides the exchange.
+// - K/V tiles of 32 keys (the block's 320 lanes) stream by cp.async (a warp
+//   copies a row's 512 contiguous bytes) with an mbarrier a ring slot
+//   (attn_tiles.cuh): K in 3 slots, since the scores run a tile ahead, V in
+//   2; one block barrier a tile precedes the refills. Rows past the length
+//   are zero-filled.
+// - The walk runs to the tile's last position (causal); a warpgroup whose
+//   rows all precede a tile skips its arithmetic (both blocks decide alike).
+//   Tiles are numbered longest walk first (latent_tile).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -187,15 +211,16 @@ __device__ __forceinline__ void scale_mask(float (&s)[ST_N][4], int col0, int pa
 }
 
 // The online softmax step of one m-tile (a lane's rows g and g + 8, at
-// positions pa and pa + 8): scale and mask the tile's scores, fold them into
+// positions pa and pb): scale and mask the tile's scores, fold them into
 // the row maxima (quad shuffles), exponentiate in place and update the
 // lane's share of the row sums (reduced over the quad at the end); alpha
 // gets the two rows' rescale factors.
 template <int NN, bool CAUSAL, bool SOFTCAP, bool BAND, bool MASK>
-__device__ __forceinline__ void softmax_tile(float (&s)[NN][4], int col0, int pa, int len, const Options& opt,
-                                             float (&m)[2], float (&l)[2], float (&alpha)[2]) {
+__device__ __forceinline__ void softmax_rows(float (&s)[NN][4], int col0, int pa, int pb, int len,
+                                             const Options& opt, float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2]) {
   float mx_a = NEG_INF, mx_b = NEG_INF;
-  scale_mask<NN, CAUSAL, SOFTCAP, BAND, MASK>(s, col0, pa, pa + 8, len, opt, mx_a, mx_b);
+  scale_mask<NN, CAUSAL, SOFTCAP, BAND, MASK>(s, col0, pa, pb, len, opt, mx_a, mx_b);
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
     mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
@@ -218,6 +243,13 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NN][4], int col0, int pa
   }
   l[0] = l[0] * alpha[0] + sum_a;
   l[1] = l[1] * alpha[1] + sum_b;
+}
+
+// softmax_rows of an m-tile whose rows sit at positions pa and pa + 8
+template <int NN, bool CAUSAL, bool SOFTCAP, bool BAND, bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&s)[NN][4], int col0, int pa, int len, const Options& opt,
+                                             float (&m)[2], float (&l)[2], float (&alpha)[2]) {
+  softmax_rows<NN, CAUSAL, SOFTCAP, BAND, MASK>(s, col0, pa, pa + 8, len, opt, m, l, alpha);
 }
 
 // o *= the rows' rescale factors. (Skipping it when no row of the m-tile
@@ -615,195 +647,478 @@ __global__ void __launch_bounds__(Geom<D>::THREADS, Geom<D>::MIN_BLOCKS)
 }
 
 namespace latent {
-constexpr int D = 640;       // the latent row
-constexpr int SC = 128;      // output columns (and contraction depth) of one warp's slice
-constexpr int SLICES = D / SC;
-constexpr int HB = 2;        // query heads a block
-constexpr int WARPS = SLICES * HB;
+constexpr int D = 640;        // the latent row
+constexpr int CTAS = 2;       // blocks a cluster, each holding HALF of the lanes of every row
+constexpr int HALF = D / CTAS;
+constexpr int ROWS = 128;     // (position, head) rows a tile
+constexpr int BK = 32;        // keys a ring slot
+constexpr int KSTAGES = 3;    // K tiles in flight or in use (the scores run a tile ahead of P @ V)
+constexpr int VSTAGES = 2;
+constexpr int WARPS = 8;      // two warpgroups of 64 rows, a warp 16 of them
 constexpr int THREADS = 32 * WARPS;
-constexpr int BK = 32;       // KV rows a tile
-constexpr int ST = D + 8;    // padded smem row (elements)
-constexpr int SP = BK + 8;   // padded row of a warp's partial scores (floats): conflict-free float2
-constexpr size_t SMEM = 2 * (size_t)BK * ST * sizeof(__nv_bfloat16) + (size_t)WARPS * 16 * SP * sizeof(float);
+constexpr int WG_ROWS = 64;   // rows of a warpgroup
+constexpr int KC = HALF / 8;  // 16-byte chunks of a row's block lanes
+constexpr int XF = 16 * BK;   // floats of a warp's partial scores, lane-major
+constexpr int NOPOS = -(1 << 30);  // the position of an idle row: every key masked
+constexpr int XBYTES = XF * sizeof(float);  // one exchange: a warp's partial scores
+// Q and K in wgmma's 128-byte-swizzle K-major layout: a block of 64 lanes
+// (128 bytes) of R rows takes R * 128 bytes, row r at r * 128, its 16-byte
+// chunk c at (c ^ (r % 8)) * 16 (the XOR of address bits 4-6 with 7-9, so
+// each 1024 bytes start 1024-aligned); the five blocks of a row's 320 lanes
+// follow each other. A warp's copy of one row's 512 contiguous bytes then
+// writes every bank once. Q a warpgroup's 64 rows at a time (that 40 KB is
+// its O's staging after the walk), K and V a tile's 32 keys.
+constexpr int SW = 64;  // lanes of a swizzled block
+constexpr size_t Q_BYTES = (size_t)ROWS * HALF * sizeof(bf16);
+constexpr size_t K_BYTES = (size_t)BK * HALF * sizeof(bf16);   // a K tile
+constexpr size_t V_BYTES = K_BYTES;                              // a V tile, swizzled as K
+constexpr size_t SMEM = 1024 /* the 1024-byte alignment of the swizzled blocks */ + Q_BYTES + KSTAGES * K_BYTES +
+                        VSTAGES * V_BYTES + (size_t)2 * WARPS * XBYTES +
+                        (size_t)(KSTAGES + VSTAGES + 2 * WARPS) * sizeof(uint64_t);
+static_assert(Q_BYTES % 1024 == 0 && K_BYTES % 1024 == 0, "swizzled blocks stay 1024-aligned");
+constexpr int N_A = 3 * SW, N_B = HALF - N_A;  // P @ V's two products: 192 and 128 columns, atom-aligned
+static_assert(SMEM <= 232448, "a block's shared memory on the H100");
+static_assert(BK * KC % THREADS == 0 && ROWS * KC % THREADS == 0, "whole copies a thread");
+
+// The row map of a tile (ops/flash_prefill.py: latent_rows): hb heads by bq
+// positions, nhg head groups a position tile.
+struct Rows {
+  int hb, bq, nhg;
+  __device__ __forceinline__ Rows(int G) : hb(min(G, ROWS)), bq(ROWS / min(G, ROWS)), nhg((G + hb - 1) / hb) {}
+};
+
+// The walk's tiles of position tile qt in sequence b: BK keys each, below the
+// length and the tile's last position (its last row clipped to Sq).
+__device__ __forceinline__ int walk_tiles(const int* lengths, const int* q_offsets, int b, int qt, int bq,
+                                          int Sq, int Skv) {
+  const int end = min(min(lengths[b], Skv), q_offsets[b] + min(qt * bq + bq, Sq));
+  return end > 0 ? (end + BK - 1) / BK : 0;
+}
+
+// The cluster's tile from its place y in launch order: from the end whose
+// tile has the longer walk in sequence 0, so that the longest walks start
+// first (ops/flash_prefill.py: latent_tile_order).
+__device__ __forceinline__ int latent_tile(int y, int nT, const Rows& R, const int* lengths,
+                                           const int* q_offsets, int Sq, int Skv) {
+  const bool last_first = walk_tiles(lengths, q_offsets, 0, (nT - 1) / R.nhg, R.bq, Sq, Skv) >=
+                          walk_tiles(lengths, q_offsets, 0, 0, R.bq, Sq, Skv);
+  return last_first ? nT - 1 - y : y;
+}
+
+// Clusters, distributed shared memory and the mbarriers other blocks arrive on.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address in block `rank`'s shared memory of this block's `addr`.
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// A wgmma shared-memory descriptor of a K-major operand in the 128-byte
+// swizzle (layout type 1): 1024 bytes between 8-row groups; `addr` the
+// operand's first row at its k16 step (32 bytes a step into a block).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// The same for an MN-major operand (V: keys along K, columns along N), 128-
+// byte swizzle: 1024 bytes between 8-key groups, `atom` bytes between
+// 64-column blocks.
+__device__ __forceinline__ uint64_t gmma_desc_mn(uint32_t addr, uint32_t atom) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(atom >> 4) << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+// d (this warp's 16 rows x 192 fp32, n-tile j at d[j] in mma.sync's
+// accumulator order) += A (the warpgroup's 64 x 16 bf16 in registers, a
+// warp's 16 rows as an mma.sync A fragment) B (16 x 192 from shared memory,
+// MN-major, 128-byte swizzle).
+__device__ __forceinline__ void wgmma_m64n192k16_ra(float (&d)[24][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (this warp's 16 rows x 128 fp32, n-tile j at d[j] in mma.sync's
+// accumulator order) += A (the warpgroup's 64 x 16 bf16 in registers, a
+// warp's 16 rows as an mma.sync A fragment) B (16 x 128 from shared memory,
+// MN-major, 128-byte swizzle).
+__device__ __forceinline__ void wgmma_m64n128k16_ra(float (&d)[16][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The byte offset of row r's 16-byte chunk c (of HALF / 8) in a swizzled
+// operand of `rows` rows.
+__device__ __forceinline__ uint32_t sw_offset(int r, int c, int rows) {
+  return (c / 8) * rows * 128 + r * 128 + (((c % 8) ^ (r % 8)) << 4);
+}
+
+// d (64 x 32 fp32 of the warpgroup; a warp's 16 rows in mma.sync's m16n8
+// accumulator order, n-tile j at d[j]) += A (64 x 16) B (16 x 32), bf16 from
+// shared memory.
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[4][4], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]),
+        "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]),
+        "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// 16 bytes into the peer block's shared memory at `addr`, asynchronously:
+// the store counts its bytes on the peer's mbarrier at `bar` when it lands,
+// and this thread does not wait for it.
+__device__ __forceinline__ void st_async_peer(uint32_t addr, const float (&x)[4], uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(
+                   addr),
+               "f"(x[0]), "f"(x[1]), "f"(x[2]), "f"(x[3]), "r"(bar)
+               : "memory");
+}
+
+// This block's arrival on its mbarrier, expecting `bytes` more to land in
+// the phase (the peer's st_async_peer stores, which may land first).
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
 }  // namespace latent
 
-__global__ void __launch_bounds__(latent::THREADS, 1)
-    flash_prefill_latent_kernel(const __nv_bfloat16* __restrict__ q,
-                                const __nv_bfloat16* __restrict__ k,
-                                const __nv_bfloat16* __restrict__ v, const int* __restrict__ lengths,
-                                const int* __restrict__ q_offsets, __nv_bfloat16* __restrict__ out,
-                                int Hq, int Hkv, int Sq, int Skv, const Options opt) {
+__global__ void __cluster_dims__(latent::CTAS, 1, 1) __launch_bounds__(latent::THREADS, 1)
+    flash_prefill_latent_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                const bf16* __restrict__ v, const int* __restrict__ lengths,
+                                const int* __restrict__ q_offsets, bf16* __restrict__ out, int B, int Hq,
+                                int Hkv, int Sq, int Skv, const Options opt) {
   using namespace latent;
-  constexpr int KT = SC / 16;    // k-steps of the slice's QK product
-  constexpr int NT = SC / 8;     // n-tiles of the slice's PV product
-  constexpr int ST_N = BK / 8;   // n-tiles of the QK product
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BK][ST]
-  __nv_bfloat16* v_s = k_s + BK * ST;                                 // [BK][ST]
-  float* s_part = reinterpret_cast<float*>(v_s + BK * ST);            // [WARPS][16][SP]
+  constexpr int NN = BK / 8;     // n-tiles of the scores
+  constexpr int NP = BK / 16;    // k-steps of P @ V
+  constexpr int KS = HALF / 16;  // k-steps of the block's share of Q K^T
+  extern __shared__ __align__(16) unsigned char smem_base[];
+  unsigned char* smem_raw = smem_base + ((1024 - (smem_u32(smem_base) & 1023)) & 1023);
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);                   // 2 x swizzled (64, HALF): Q's lanes, then O's
+  bf16* k_ring = reinterpret_cast<bf16*>(smem_raw + Q_BYTES);     // KSTAGES x swizzled (BK, HALF)
+  bf16* v_ring = k_ring + KSTAGES * BK * HALF;                     // VSTAGES x swizzled (BK, HALF)
+  float* xs = reinterpret_cast<float*>(v_ring + VSTAGES * BK * HALF);  // [2][WARPS][XF]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(xs + 2 * WARPS * XF);  // K's slots, V's; then [2][WARPS] exchanges
+  uint64_t* xbars = bars + KSTAGES + VSTAGES;
 
-  const int qt = blockIdx.x, b = blockIdx.z;
-  const int G = Hq / Hkv, groups = G / HB;
-  const int kvh = blockIdx.y / groups;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t rank = cluster_rank();
+  const int G = Hq / Hkv;
+  const Rows R(G);
+  const int nT = (Sq + R.bq - 1) / R.bq * R.nhg;
+  const int ci = blockIdx.x / CTAS;
+  const int y = ci / (Hkv * B), xb = ci % (Hkv * B);
+  const int kvh = xb % Hkv, b = xb / Hkv;
+  const int T = latent_tile(y, nT, R, lengths, q_offsets, Sq, Skv);
+  const int qt = T / R.nhg, hg = T % R.nhg;
+  const int len = min(lengths[b], Skv), qoff = q_offsets[b];
+  const int n_tiles = walk_tiles(lengths, q_offsets, b, qt, R.bq, Sq, Skv);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int hl = warp / SLICES, slice = warp % SLICES;  // the warp's head in the block, its columns
-  const int head = kvh * G + (blockIdx.y % groups) * HB + hl;
-  const int col0 = slice * SC;
-  const int r0 = qt * 16;  // the block's first q row (every warp holds the same 16)
-  const int ra = r0 + g, rb = r0 + g + 8;
-  const int len = min(lengths[b], Skv);
-  const int qoff = q_offsets[b];
-  const int pa = qoff + ra, pb = qoff + rb;
-  const int kv_end = min(len, qoff + min(r0 + 15, Sq - 1) + 1);  // causal: through the last row
+  // row r: head hg * hb + r % hb of the KV head, position qt * bq + r / hb
+  auto live = [&](int r) {
+    const int p = r / R.hb, h = hg * R.hb + r % R.hb;
+    return p < R.bq && h < G && qt * R.bq + p < Sq;
+  };
+  auto pos = [&](int r) { return live(r) ? qoff + qt * R.bq + r / R.hb : NOPOS; };
+  auto row_index = [&](int r) {  // into (B, Hq, Sq)
+    return ((size_t)b * Hq + (size_t)kvh * G + hg * R.hb + r % R.hb) * Sq + qt * R.bq + r / R.hb;
+  };
+  // the warpgroup's last position (the same in its warps and in both blocks)
+  const int wg = warp / 4, w0 = wg * WG_ROWS;
+  const int grp_hi = max(__reduce_max_sync(~0u, pos(w0 + lane)), __reduce_max_sync(~0u, pos(w0 + 32 + lane)));
+  const int pa = pos(16 * warp + g), pb = pos(16 * warp + g + 8);  // the lane's two rows
 
-  const __nv_bfloat16* qh = q + ((size_t)b * Hq + head) * (size_t)Sq * D + col0;
-  uint32_t qa[KT][4];
+  if (tid == 0) {
 #pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qa[kk][0] = ra < Sq ? *reinterpret_cast<const uint32_t*>(qh + (size_t)ra * D + c) : 0u;
-    qa[kk][1] = rb < Sq ? *reinterpret_cast<const uint32_t*>(qh + (size_t)rb * D + c) : 0u;
-    qa[kk][2] = ra < Sq ? *reinterpret_cast<const uint32_t*>(qh + (size_t)ra * D + c + 8) : 0u;
-    qa[kk][3] = rb < Sq ? *reinterpret_cast<const uint32_t*>(qh + (size_t)rb * D + c + 8) : 0u;
+    for (int i = 0; i < KSTAGES + VSTAGES; ++i) mbar_init(&bars[i], THREADS);
+#pragma unroll
+    for (int i = 0; i < 2 * WARPS; ++i) mbar_init(&xbars[i], 1);  // the warp's own expect_tx
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  float o[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
-  const size_t kv_base = ((size_t)b * Hkv + kvh) * (size_t)Skv * D;
-  float* my_part = s_part + warp * 16 * SP;
-  const float* head_parts = s_part + hl * SLICES * 16 * SP;
+  cluster_sync();  // both blocks' barriers are initialized before either arrives on the other's
 
-  for (int j0 = 0; j0 < kv_end; j0 += BK) {
-    for (int i = threadIdx.x; i < BK * D / 8; i += THREADS) {  // rows past the length zero-filled
-      const int row = i / (D / 8), col = (i % (D / 8)) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (j0 + row < len) {
-        kv = *reinterpret_cast<const uint4*>(k + kv_base + (size_t)(j0 + row) * D + col);
-        vv = *reinterpret_cast<const uint4*>(v + kv_base + (size_t)(j0 + row) * D + col);
-      }
-      *reinterpret_cast<uint4*>(k_s + row * ST + col) = kv;
-      *reinterpret_cast<uint4*>(v_s + row * ST + col) = vv;
+  const size_t kv_base = ((size_t)b * Hkv + kvh) * (size_t)Skv * D + rank * HALF;
+  // Copy walk tile j's K (V) rows, the block's lanes, into its ring slot
+  // (swizzled; a warp copies one row's 512 contiguous bytes), then arrive
+  // on the slot's barrier; rows past the length zero-filled.
+  auto issue = [&](int j, const bf16* src, bf16* dst, uint64_t* bar) {
+#pragma unroll
+    for (int c = 0; c < BK * KC / THREADS; ++c) {
+      const int i = tid + c * THREADS;
+      const int row = i / KC, ch = i % KC;
+      const bool ok = j * BK + row < len;
+      cp_async16(reinterpret_cast<unsigned char*>(dst) + sw_offset(row, ch, BK),
+                 src + kv_base + (ok ? (size_t)(j * BK + row) * D + ch * 8 : 0), ok);
     }
-    __syncthreads();
+    mbar_arrive_cp_async(bar);
+  };
+  auto issue_k = [&](int j) { issue(j, k, k_ring + (j % KSTAGES) * BK * HALF, &bars[j % KSTAGES]); };
+  auto issue_v = [&](int j) { issue(j, v, v_ring + (j % VSTAGES) * BK * HALF, &bars[KSTAGES + j % VSTAGES]); };
+  auto wait_k = [&](int j) { mbar_wait(&bars[j % KSTAGES], (j / KSTAGES) & 1); };
+  auto wait_v = [&](int j) { mbar_wait(&bars[KSTAGES + j % VSTAGES], (j / VSTAGES) & 1); };
+  if (n_tiles > 0) {  // Q's lanes of the live rows (others zero-filled), covered by the first K barrier
+#pragma unroll 4
+    for (int c = 0; c < ROWS * KC / THREADS; ++c) {
+      const int i = tid + c * THREADS;
+      const int row = i / KC, ch = i % KC;
+      const bool ok = live(row);
+      cp_async16(reinterpret_cast<unsigned char*>(q_s) + row / WG_ROWS * (WG_ROWS * HALF * 2) +
+                     sw_offset(row % WG_ROWS, ch, WG_ROWS),
+                 q + (ok ? row_index(row) * D + rank * HALF + ch * 8 : 0), ok);
+    }
+  }
+  // K and V of the first tiles, in the order the walk reads them
+  for (int j = 0; j < KSTAGES && j < n_tiles; ++j) {
+    issue_k(j);
+    if (j < VSTAGES) issue_v(j);
+  }
+  int k_next = min(n_tiles, KSTAGES);  // the next K tile to copy
 
-    // this warp's 128-deep share of the head's scores
-    float s[ST_N][4];
+  // the warp's 16 rows of O over the block's HALF lanes: P @ V's 192- and
+  // 128-column products
+  float oa[N_A / 8][4], ob[N_B / 8][4];
 #pragma unroll
-    for (int n = 0; n < ST_N; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const __nv_bfloat16* krow = k_s + (n * 8 + g) * ST + col0 + 2 * t;
+  for (int n = 0; n < N_A / 8; ++n) oa[n][0] = oa[n][1] = oa[n][2] = oa[n][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
-        mma_bf16(s[n], qa[kk], *reinterpret_cast<const uint32_t*>(krow + kk * 16),
-                 *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8));
-      }
-      *reinterpret_cast<float2*>(my_part + g * SP + n * 8 + 2 * t) = make_float2(s[n][0], s[n][1]);
-      *reinterpret_cast<float2*>(my_part + (g + 8) * SP + n * 8 + 2 * t) = make_float2(s[n][2], s[n][3]);
+  for (int n = 0; n < N_B / 8; ++n) ob[n][0] = ob[n][1] = ob[n][2] = ob[n][3] = 0.f;
+  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};  // rows g, g + 8 of the warp's m-tile
+
+  // the warpgroup's Q block, K and V of slot 0 (bytes)
+  const uint32_t qa = smem_u32(q_s + wg * WG_ROWS * HALF);
+  const uint32_t ka = smem_u32(k_ring);
+  const uint32_t va = smem_u32(v_ring);
+  const uint32_t peer = rank ^ 1u;
+  // The warpgroup takes a prefix of the walk: the tiles that start at or
+  // below its last position (the same in its warps and in both blocks).
+  const int n_take = grp_hi >= 0 ? min(n_tiles, grp_hi / BK + 1) : 0;
+
+  // The warpgroup's 64 x 32 S for walk tile `it` over the block's HALF lanes
+  // (its K landed), on wgmma from shared memory: a warp gets its m-tile
+  // (rows 16 warp ..) in mma.sync's accumulator order. The cp.async copies
+  // are made visible to wgmma's proxy first.
+  auto scores = [&](int it, float (&s)[NN][4]) {
+#pragma unroll
+    for (int n = 0; n < NN; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    const uint32_t kp = ka + (it % KSTAGES) * (uint32_t)K_BYTES;
+    asm volatile("fence.proxy.async.shared::cta;\nwgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_m64n32k16(s, gmma_desc(qa + kk * 16 / SW * WG_ROWS * 128 + kk * 16 % SW * 2),
+                      gmma_desc(kp + kk * 16 / SW * BK * 128 + kk * 16 % SW * 2));
+    asm volatile("wgmma.commit_group.sync.aligned;\nwgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  };
+  // The exchange of tile `it`'s partial scores with the peer warp (the same
+  // m-tile over the other 320 lanes): store this one into the peer's buffer
+  // it & 1 (st.async, counted on the peer's barrier of that buffer); later,
+  // expect ours, wait for it and add the peer's (a + b in both blocks: the
+  // same bits). The peer stores tile it + 2 only after this warp's tile
+  // it + 1, which follows its read of tile it.
+  auto push = [&](int it, const float (&s)[NN][4]) {
+    const int slot = (it & 1) * WARPS + warp;
+    const uint32_t remote = peer_addr(smem_u32(xs + slot * XF), peer);
+    const uint32_t remote_bar = peer_addr(smem_u32(&xbars[slot]), peer);
+#pragma unroll
+    for (int n = 0; n < NN; ++n) st_async_peer(remote + (n * 32 + lane) * 16, s[n], remote_bar);
+  };
+  auto pull = [&](int it, float (&s)[NN][4]) {
+    const int slot = (it & 1) * WARPS + warp;
+    if (lane == 0) mbar_expect_tx(&xbars[slot], XBYTES);
+    mbar_wait(&xbars[slot], (it >> 1) & 1);
+#pragma unroll
+    for (int n = 0; n < NN; ++n) {
+      const float4 x = *reinterpret_cast<const float4*>(xs + slot * XF + (n * 32 + lane) * 4);
+      s[n][0] += x.x;
+      s[n][1] += x.y;
+      s[n][2] += x.z;
+      s[n][3] += x.w;
     }
+  };
+
+  // The pipeline: tile it + 1's scores are computed and pushed before tile
+  // it's P @ V, so the exchange's latency hides behind that product.
+  // Every thread waits for each K and V tile of the walk, also where its
+  // warpgroup skips the tile, so no slot has copies in flight at a refill.
+  float s[NN][4];
+  if (n_take > 0) {
+    wait_k(0);
+    scores(0, s);
+    push(0, s);
+  } else if (n_tiles > 0) {
+    wait_k(0);
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it < n_take) {
+      pull(it, s);
+      // the softmax of the warp's m-tile: its P is the warpgroup's A of P @ V,
+      // and it rescales only its own rows of O
+      float alpha[2];
+      softmax_rows<NN, true, false, false, true>(s, it * BK + 2 * t, pa, pb, len, opt, m_r, l_r, alpha);
+      uint32_t pf[NP][4];
+      pack_p<NN>(pf, s);
+      rescale<N_A / 8>(oa, alpha);
+      rescale<N_B / 8>(ob, alpha);
+      if (it + 1 < n_take) {
+        wait_k(it + 1);
+        scores(it + 1, s);
+        push(it + 1, s);
+      } else if (it + 1 < n_tiles) {
+        wait_k(it + 1);
+      }
+      // O += P V on wgmma: 16 keys a step, V MN-major from its slot
+      wait_v(it);
+      const uint32_t vp = va + (it % VSTAGES) * (uint32_t)V_BYTES;
+      asm volatile("fence.proxy.async.shared::cta;\nwgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < NP; ++kk) {
+        wgmma_m64n192k16_ra(oa, pf[kk], gmma_desc_mn(vp + kk * 16 * 128, BK * 128));
+        wgmma_m64n128k16_ra(ob, pf[kk], gmma_desc_mn(vp + N_A / SW * BK * 128 + kk * 16 * 128, BK * 128));
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\nwgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    } else {
+      if (it + 1 < n_tiles) wait_k(it + 1);
+      wait_v(it);
+    }
+    // every reader of K tiles through it + 1 and of V tile it is done: refill
+    // their slots
     __syncthreads();
-    // the full scores: the head's five partials summed in slice order
-#pragma unroll
-    for (int n = 0; n < ST_N; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int sl = 0; sl < SLICES; ++sl) {
-        const float* part = head_parts + sl * 16 * SP + n * 8 + 2 * t;
-        const float2 a = *reinterpret_cast<const float2*>(part + g * SP);
-        const float2 c = *reinterpret_cast<const float2*>(part + (g + 8) * SP);
-        s[n][0] += a.x;
-        s[n][1] += a.y;
-        s[n][2] += c.x;
-        s[n][3] += c.y;
-      }
-    }
-    float mx_a = NEG_INF, mx_b = NEG_INF;
-    scale_mask<ST_N, true, false, false>(s, j0 + 2 * t, pa, pb, len, opt, mx_a, mx_b);
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
-    }
-    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    const float alpha_a = exp2f(m_a - mn_a), alpha_b = exp2f(m_b - mn_b);
-    m_a = mn_a;
-    m_b = mn_b;
-    float sum_a = 0.f, sum_b = 0.f;
-#pragma unroll
-    for (int n = 0; n < ST_N; ++n) {
-      s[n][0] = s[n][0] == NEG_INF ? 0.f : exp2f(s[n][0] - mn_a);
-      s[n][1] = s[n][1] == NEG_INF ? 0.f : exp2f(s[n][1] - mn_a);
-      s[n][2] = s[n][2] == NEG_INF ? 0.f : exp2f(s[n][2] - mn_b);
-      s[n][3] = s[n][3] == NEG_INF ? 0.f : exp2f(s[n][3] - mn_b);
-      sum_a += s[n][0] + s[n][1];
-      sum_b += s[n][2] + s[n][3];
-    }
-    l_a = l_a * alpha_a + sum_a;
-    l_b = l_b * alpha_b + sum_b;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      o[n][0] *= alpha_a;
-      o[n][1] *= alpha_a;
-      o[n][2] *= alpha_b;
-      o[n][3] *= alpha_b;
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {  // O[:, slice] += P @ V[:, slice]
-      uint32_t pf[4];
-      pf[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pf[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pf[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pf[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const int mi = lane >> 3, rr = lane & 7;
-      const __nv_bfloat16* vrow = v_s + (kk * 16 + rr + (mi & 1) * 8) * ST + col0 + (mi >> 1) * 8;
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, vrow + np * 16);
-        mma_bf16(o[2 * np], pf, vb[0], vb[1]);
-        mma_bf16(o[2 * np + 1], pf, vb[2], vb[3]);
-      }
-    }
-    __syncthreads();
+    for (; k_next < n_tiles && k_next <= it + KSTAGES + 1; ++k_next) issue_k(k_next);
+    if (it + VSTAGES < n_tiles) issue_v(it + VSTAGES);
   }
 
+  // the row sums over the quad
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
-    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
-    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+    l_r[0] += __shfl_xor_sync(0xffffffffu, l_r[0], off);
+    l_r[1] += __shfl_xor_sync(0xffffffffu, l_r[1], off);
   }
-  const float inv_a = 1.f / (l_a == 0.f ? 1.f : l_a);
-  const float inv_b = 1.f / (l_b == 0.f ? 1.f : l_b);
-  __nv_bfloat16* oh = out + ((size_t)b * Hq + head) * (size_t)Sq * D + col0;
+  // O, normalised, into the warp's own 16 rows of its warpgroup's Q block
+  // (64 rows of HALF; no warp reads Q after the walk's last block barrier),
+  // then out in 16-byte rows
+  constexpr int OS = HALF;
+  bf16* os = q_s + (wg * WG_ROWS + (warp % 4) * 16) * OS;
+  const float inv_a = 1.f / (l_r[0] == 0.f ? 1.f : l_r[0]);
+  const float inv_b = 1.f / (l_r[1] == 0.f ? 1.f : l_r[1]);
+  auto stage = [&](const auto& o, int col0) {
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int c = n * 8 + 2 * t;
-    if (ra < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)ra * D + c) =
-          __floats2bfloat162_rn(o[n][0] * inv_a, o[n][1] * inv_a);
-    if (rb < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(oh + (size_t)rb * D + c) =
-          __floats2bfloat162_rn(o[n][2] * inv_b, o[n][3] * inv_b);
+    for (int n = 0; n < static_cast<int>(sizeof(o) / sizeof(o[0])); ++n) {
+      bf16* p = os + g * OS + col0 + n * 8 + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(o[n][0] * inv_a, o[n][1] * inv_a);
+      *reinterpret_cast<__nv_bfloat162*>(p + 8 * OS) = __floats2bfloat162_rn(o[n][2] * inv_b, o[n][3] * inv_b);
+    }
+  };
+  stage(oa, 0);
+  stage(ob, N_A);
+  __syncwarp();
+  const int r16 = wg * WG_ROWS + (warp % 4) * 16;  // the warp's first row
+#pragma unroll 4
+  for (int c = 0; c < 16 * KC / 32; ++c) {
+    const int i = lane + c * 32;
+    const int row = i / KC, col = (i % KC) * 8;
+    if (live(r16 + row))
+      *reinterpret_cast<uint4*>(out + row_index(r16 + row) * D + rank * HALF + col) =
+          *reinterpret_cast<const uint4*>(os + row * OS + col);
   }
+  cluster_sync();  // no block leaves while its peer may still write to it
 }
 
 cudaError_t launch_latent(const void* q, const void* k, const void* v, const void* lengths,
                           const void* q_offsets, void* out, void* lse, int B, int Hq, int Hkv, int Sq,
                           int Skv, int causal, const Options& opt, cudaStream_t stream) {
-  // the one form: causal, no LSE, no window / sinks / softcap, G a multiple of HB
+  // the one form: causal, no LSE, no window / sinks / softcap, an even group
   if (!causal || lse != nullptr || opt.window < NO_WINDOW || opt.sinks || opt.softcap > 0.f ||
-      Hq % Hkv || (Hq / Hkv) % latent::HB)
+      Hq % Hkv || (Hq / Hkv) % 2)
     return cudaErrorInvalidValue;
+  if (B == 0 || Hq == 0 || Sq == 0) return cudaSuccess;
   cudaError_t e = cudaFuncSetAttribute(flash_prefill_latent_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(latent::SMEM));
   if (e != cudaSuccess) return e;
-  dim3 grid((Sq + 15) / 16, Hq / latent::HB, B);
-  flash_prefill_latent_kernel<<<grid, latent::THREADS, latent::SMEM, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lengths),
-      static_cast<const int*>(q_offsets), static_cast<__nv_bfloat16*>(out), Hq, Hkv, Sq, Skv, opt);
+  const int G = Hq / Hkv, hb = G < latent::ROWS ? G : latent::ROWS, bq = latent::ROWS / hb;
+  const long long tiles = (long long)(Sq + bq - 1) / bq * ((G + hb - 1) / hb);
+  const long long blocks = tiles * Hkv * B * latent::CTAS;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  // x: clusters in launch order, each over (KV head, sequence) before the next tile
+  flash_prefill_latent_kernel<<<dim3(static_cast<unsigned>(blocks)), latent::THREADS, latent::SMEM, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const int*>(lengths), static_cast<const int*>(q_offsets), static_cast<bf16*>(out), B, Hq,
+      Hkv, Sq, Skv, opt);
   return cudaGetLastError();
 }
 
@@ -866,6 +1181,19 @@ int flash_prefill_smem_bytes(int D) {
     default:
       return 0;
   }
+}
+
+// The D 640 kernel's tiles at G query heads a KV head: {rows a tile,
+// keys a ring stage, heads a tile (hb), positions a tile (bq), head groups
+// a position tile, blocks a cluster, dynamic shared memory bytes a block}
+// (ops/flash_prefill.py: latent_geometry is its twin).
+int flash_prefill_latent_geometry(int G, int* out) {
+  if (G < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int hb = G < latent::ROWS ? G : latent::ROWS;
+  const int vals[7] = {latent::ROWS, latent::BK, hb, latent::ROWS / hb, (G + hb - 1) / hb, latent::CTAS,
+                       static_cast<int>(latent::SMEM)};
+  for (int i = 0; i < 7; ++i) out[i] = vals[i];
+  return 0;
 }
 
 // q (B, Hq, Sq, D), k/v (B, Hkv, Skv, D), out (B, Hq, Sq, D): bf16,

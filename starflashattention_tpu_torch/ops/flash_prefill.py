@@ -31,10 +31,14 @@ head_dim is 64, 128 or 256 with at most 8 query heads a KV head, and on the
 card also 640 (MLA's latent row: DeepSeek-V2's 16 query heads on one
 latent KV head) in its one form, causal, without the LSE or the variants,
 with an even number of query heads a KV head (:func:`check_card_inputs`).
+The D 640 kernel's tiles, walk and block order have Python twins
+(:func:`latent_geometry`, :func:`latent_rows`, :func:`latent_walk`,
+:func:`latent_takes`, :func:`latent_tile_order`, :func:`latent_clusters`).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -50,7 +54,15 @@ LSE_EMPTY = 3e38  # the LSE of a row with no valid KV position
 _SIGNATURES = {
     "flash_prefill": [_build.P] * 7 + [_build.I] * 7 + [_build.F, _build.F, _build.I, _build.I,
                                                       _build.F, _build.P],
+    "flash_prefill_latent_geometry": [_build.I, _build.P],
 }
+
+# K5 at D 640 (``flash_prefill_latent_kernel``): a cluster of LATENT_CTAS
+# blocks owns a tile of LATENT_ROWS (position, head) rows of one KV head,
+# each block half of the 640 lanes; K/V tiles of LATENT_KEYS keys; the
+# warpgroups of LATENT_GROUP_ROWS rows skip the tiles that lie wholly past
+# their last position.
+LATENT_ROWS, LATENT_KEYS, LATENT_CTAS, LATENT_GROUP_ROWS = 128, 32, 2, 64
 
 
 def prefill_options(window, sinks, softcap, kv_offset, causal) -> dict:
@@ -137,6 +149,95 @@ def flash_prefill_plain(q, k, v, lengths=None, *, causal=True, q_offsets=None, s
     if not return_lse:
         return out
     return out, prefill_lse_plain(q, k, lengths, q_offsets, causal=causal, sm_scale=sm_scale, **opts)
+
+
+# ----------------------------------------------------------------- K5 at D 640: its tiles and walk
+
+
+def latent_geometry(g: int) -> tuple[int, int, int, int]:
+    """(heads a tile ``hb``, positions a tile ``bq``, head groups a position
+    tile ``nhg``, dynamic shared memory bytes a block) of the D 640 kernel at
+    ``g`` query heads a KV head: ``hb = min(g, 128)`` heads by ``128 // hb``
+    positions (rows past ``hb * bq`` idle; a group past 128 heads takes
+    ``nhg`` tiles a position tile). A block holds Q's 320 lanes of the 128
+    rows, K tiles of 32 keys in a ring of 3 slots and V tiles in one of 2
+    (all in wgmma's 128-byte swizzle, 1024-aligned) and two buffers of
+    every warp's partial scores. Twin of ``csrc/flash_prefill.cu``'s
+    ``latent::Rows`` and ``latent::SMEM`` (``flash_prefill_latent_geometry``
+    reports the same)."""
+    if g < 1:
+        raise ValueError(f"the D 640 kernel takes at least one query head a KV head, got {g}")
+    hb = min(g, LATENT_ROWS)
+    half, warps, k_slots, v_slots = LATENT_HEAD_DIM // LATENT_CTAS, 8, 3, 2
+    smem = (1024 + LATENT_ROWS * half * 2 + (k_slots + v_slots) * LATENT_KEYS * half * 2
+            + 2 * warps * 16 * LATENT_KEYS * 4 + (k_slots + v_slots + 2 * warps) * 8)
+    return hb, LATENT_ROWS // hb, -(-g // hb), smem
+
+
+def latent_rows(g: int, sq: int, qt: int, hg: int) -> list:
+    """The rows of tile (position tile ``qt``, head group ``hg``), position
+    major: row r is ``(head within the KV head, q row)`` = ``(hg * hb + r %
+    hb, qt * bq + r // hb)``, or None for an idle row (past ``hb * bq``,
+    past the group or past ``sq``)."""
+    hb, bq, _, _ = latent_geometry(g)
+    rows = []
+    for r in range(LATENT_ROWS):
+        p, h = r // hb, hg * hb + r % hb
+        rows.append((h, qt * bq + p) if p < bq and h < g and qt * bq + p < sq else None)
+    return rows
+
+
+def latent_walk(qt: int, *, bq: int, sq: int, length: int, q_offset: int) -> int:
+    """The number of K/V tiles (of LATENT_KEYS keys, from key 0) position
+    tile ``qt`` walks: below ``length`` and, causal, through its last
+    position (its last row clipped to ``sq``). Twin of
+    ``csrc/flash_prefill.cu``'s ``latent::walk_tiles``."""
+    end = min(length, q_offset + min(qt * bq + bq, sq))
+    return -(-end // LATENT_KEYS) if end > 0 else 0
+
+
+def latent_tile_order(n_tiles: int, walk_len) -> list[int]:
+    """The tiles of a launch in cluster order (each over every (KV head,
+    sequence) before the next): from the end whose tile has the longer walk
+    in sequence 0 (``walk_len(tile)``), so that the longest walks start
+    first. Twin of ``csrc/flash_prefill.cu``'s ``latent_tile``."""
+    return list(range(n_tiles - 1, -1, -1)) if walk_len(n_tiles - 1) >= walk_len(0) else list(range(n_tiles))
+
+
+def latent_clusters(b: int, hkv: int, sq: int, skv: int, g: int, lengths, q_offsets) -> list:
+    """The clusters of a D 640 launch in order (``blockIdx.x // 2``): each
+    ``(sequence, KV head, position tile, head group)``. Tile ``T`` is
+    position tile ``T // nhg``, head group ``T % nhg``."""
+    _, bq, nhg, _ = latent_geometry(g)
+    n_tiles = -(-sq // bq) * nhg
+
+    def walk_len(tile):
+        return latent_walk(tile // nhg, bq=bq, sq=sq, length=min(int(lengths[0]), skv), q_offset=int(q_offsets[0]))
+
+    order = latent_tile_order(n_tiles, walk_len)
+    return [(xb // hkv, xb % hkv, order[y] // nhg, order[y] % nhg)
+            for y in range(n_tiles) for xb in range(hkv * b)]
+
+
+def latent_takes(rows: list, q_offset: int, n_tiles: int) -> list[int]:
+    """The walk tiles each warpgroup of a tile computes: the prefix of the
+    ``n_tiles`` tiles that start at or below its last live position (its
+    rows ``rows[64 w: 64 w + 64]``, as :func:`latent_rows` gives them; none
+    for a warpgroup with no live row). Twin of the kernel's ``n_take``."""
+    takes = []
+    for w0 in range(0, LATENT_ROWS, LATENT_GROUP_ROWS):
+        hi = max((q_offset + r[1] for r in rows[w0:w0 + LATENT_GROUP_ROWS] if r is not None), default=-1)
+        takes.append(min(n_tiles, hi // LATENT_KEYS + 1) if hi >= 0 else 0)
+    return takes
+
+
+def latent_built_geometry(g: int) -> tuple[int, ...]:
+    """The built library's D 640 tiles at ``g``: (rows, keys, hb, bq, nhg,
+    blocks a cluster, shared memory bytes) (loads it)."""
+    lib = _build.load("flash_prefill", _SIGNATURES)
+    out = (ctypes.c_int * 7)()
+    _build.check(lib, lib.flash_prefill_latent_geometry(g, out), "flash_prefill_latent_geometry")
+    return tuple(out)
 
 
 def check_card_inputs(what, q, k, v, head_dims=KERNEL_HEAD_DIMS, latent=None) -> None:

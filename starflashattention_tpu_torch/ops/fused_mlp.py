@@ -7,7 +7,12 @@ to x's dtype, ``out = (act @ w2) * s2`` in fp32. On CUDA tensors it is one
 launch of ``csrc/fused_mlp.cu`` (replaces the TPU kernel
 ``_fused_mlp_kernel``): both weights stream back to back in one kernel,
 the two phases split by a grid-wide barrier; on CPU tensors it runs the
-plain twin :func:`fused_mlp_plain`. ``block_h`` / ``block_o`` are the TPU
+plain twin :func:`fused_mlp_plain`. With bf16 x each phase is K4's
+split-K matmul (``csrc/qmm_split_k.cuh``) on :func:`split_plan`'s grid:
+phase 1's bands pair 64 gate columns with their 64 up columns
+(:func:`band_columns`) and write ``act``, phase 2 splits I over blocks;
+the splits' partials go to ``ops/quant_matmul``'s split-K workspace. fp32
+x runs the CUDA-core form (its ``act`` is fp32). ``block_h`` / ``block_o`` are the TPU
 kernel's tiling, accepted for the JAX signature; the result does not depend
 on them. Each launch counts once in ``fused_mlp.launches``.
 
@@ -26,11 +31,14 @@ import torch
 import torch.nn.functional as F
 
 from starflashattention_tpu_torch.ops import _build
+from starflashattention_tpu_torch.ops import quant_matmul as qmm
+from starflashattention_tpu_torch.utils.device import sm_count
 
-_SIGNATURES = {"fused_mlp": [_build.P] * 8 + [_build.I] * 5 + [_build.P]}
+_SIGNATURES = {"fused_mlp": [_build.P] * 11 + [_build.I] * 8 + [_build.P]}
 _WEIGHT_DTYPES = (torch.int8, torch.float8_e4m3fn)
 _X_DTYPES = (torch.bfloat16, torch.float32)
-_BARRIERS: dict[int, torch.Tensor] = {}  # device index -> the kernel's barrier counter
+_BARRIERS: dict[int, torch.Tensor] = {}  # device index -> the fp32-x kernel's barrier counter
+_READY: dict[int, dict] = {}  # device index -> the bf16-x kernel's band flags and the last epoch
 
 
 def _stack(w1, s1, w2, s2, layer):
@@ -53,12 +61,48 @@ def fused_mlp_plain(x, w1, s1, w2, s2, *, layer=None, block_h: int = 512, block_
     return torch.matmul(act.float(), w2[layer].float()) * s2[layer].float()
 
 
+def split_plan(b: int, h: int, inter: int, sms: int = 132) -> dict:
+    """The bf16-x kernel's grid for ``b`` rows at hidden ``h`` and
+    intermediate ``inter``: x in ``row_tiles`` tiles of ``rows`` (8, 16, 32
+    or 64: ``quant_matmul.small_m_rows``), and for each phase ``(bands,
+    splits, split)`` from ``quant_matmul.small_m_grid`` on the SM count:
+    phase 1 (``gate_up``) multiplies K = h by 2 ``inter`` columns in bands of
+    128 (:func:`band_columns`), phase 2 (``down``) K = ``inter`` by ``h``.
+    Depends on the shapes and the SM count only."""
+    m = min(b, qmm.SMALL_M_MAX)
+    return {"rows": qmm.small_m_rows(m), "row_tiles": -(-b // qmm.small_m_rows(m)),
+            "gate_up": qmm.small_m_grid(m, h, 2 * inter, sms=sms), "down": qmm.small_m_grid(m, inter, h, sms=sms)}
+
+
+def band_columns(band: int, inter: int) -> list[int]:
+    """The w1 columns of phase-1 band ``band``, in the band's order (warp w
+    owns positions 16 w .. 16 w + 15, ``quant_matmul.small_m_fragment``
+    maps them to registers): 64 gate columns from 64 ``band``, then the 64
+    up columns ``inter`` on, so the band's last block holds both halves of
+    its 64 activations."""
+    half = qmm.SMALL_M_BAND // 2
+    c0 = band * half
+    return list(range(c0, c0 + half)) + list(range(inter + c0, inter + c0 + half))
+
+
 def _barrier(device: torch.device) -> torch.Tensor:
     idx = device.index if device.index is not None else torch.cuda.current_device()
     bar = _BARRIERS.get(idx)
     if bar is None:
         bar = _BARRIERS[idx] = torch.zeros(4, dtype=torch.int32, device=device)  # 16 bytes, aligned
     return bar
+
+
+def _ready(device: torch.device, flags: int) -> tuple[torch.Tensor, int]:
+    """The bf16-x kernel's phase-1 band flags (at least ``flags``) and a new
+    epoch: a value no earlier call wrote to them, which the call's bands set
+    and its phase 2 waits for."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    r = _READY.get(idx)
+    if r is None or r["flags"].numel() < flags:
+        r = _READY[idx] = {"flags": torch.zeros(flags, dtype=torch.int32, device=device), "epoch": 0}
+    r["epoch"] += 1
+    return r["flags"], r["epoch"]
 
 
 def fused_mlp(
@@ -104,14 +148,26 @@ def fused_mlp(
     if b == 0:
         return out
     act = torch.empty((b, inter), dtype=x.dtype, device=x.device)  # phase 1's output, phase 2's input
+    part = arrivals = ready = None
+    split1 = split2 = epoch = 0
+    if x.dtype == torch.bfloat16:
+        plan = split_plan(b, h, inter, sm_count(x.device))
+        (bands1, splits1, split1), (bands2, splits2, split2) = plan["gate_up"], plan["down"]
+        # phase 1's slots, then phase 2's: the phases overlap in time
+        part, arrivals = qmm._small_m_workspace(
+            x.device, plan["row_tiles"] * (bands1 * splits1 + bands2 * splits2) * plan["rows"] * qmm.SMALL_M_BAND,
+            plan["row_tiles"] * (bands1 + bands2))
+        ready, epoch = _ready(x.device, plan["row_tiles"] * bands1)
     per_w1, per_w2 = h * two_i, inter * h  # bytes a layer (8-bit weights)
     lib = _build.load("fused_mlp", _SIGNATURES)
     with torch.cuda.device(x.device):
         err = lib.fused_mlp(
             _build.ptr(x), _build.P(w1.data_ptr() + layer * per_w1), _build.P(s1.data_ptr() + layer * two_i * 4),
             _build.P(w2.data_ptr() + layer * per_w2), _build.P(s2.data_ptr() + layer * h * 4),
-            _build.ptr(act), _build.ptr(out), _build.ptr(_barrier(x.device)), b, h, inter,
-            int(x.dtype == torch.bfloat16), int(w1.dtype == torch.float8_e4m3fn), _build.stream_ptr(x.device),
+            _build.ptr(act), _build.ptr(out), _build.ptr(_barrier(x.device)),
+            *(None if t is None else _build.ptr(t) for t in (part, arrivals, ready)),
+            epoch, b, h, inter, split1, split2, int(x.dtype == torch.bfloat16), int(w1.dtype == torch.float8_e4m3fn),
+            _build.stream_ptr(x.device),
         )
     _build.check(lib, err, "fused_mlp")
     fused_mlp.launches += 1

@@ -451,11 +451,12 @@ def test_quant_matmul_int4_refuses_geometry(cuda):
 
 @pytest.mark.parametrize("mode", ["int8", "fp8"])
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows", [1, 8, 9, 16, 17, 40, 64])
+@pytest.mark.parametrize("rows", [1, 8, 9, 16, 17, 40, 64, 100])
 def test_fused_mlp_kernel_matches_plain(cuda, mode, x_dtype, rows):
     """K13, one launch a call, on a stacked (L, ...) pair at layer 1 (I 320,
     an odd number of 64-row chunks of w2), at row counts on both sides of
-    the 8-, 16- and 32-row tiles. fp32 x: the same exact
+    the 8-, 16- and 32-row tiles (bf16 x: the split-K form's 8- to 64-row
+    tiles, two of 64 at 100 rows). fp32 x: the same exact
     products summed in another order, 2e-5 of the peak; bf16 x: ``act`` is
     rounded to bf16 between the matmuls and may land on the other side of a
     tie, 4e-3 of the peak."""
@@ -473,7 +474,9 @@ def test_fused_mlp_kernel_matches_plain(cuda, mode, x_dtype, rows):
     ref = fused_mlp_plain(x, w1["w"], w1["scale"], w2["w"], w2["scale"], layer=1)
     rel = 2e-5 if x_dtype == torch.float32 else 4e-3
     assert out.dtype == torch.float32 and _max_err(out, ref) <= rel * ref.abs().max().item()
-    again = fused_mlp(x, w1["w"], w1["scale"], w2["w"], w2["scale"], layer=1)  # the barrier reset itself
+    # the barrier counter (fp32 x) or the split-K counters (bf16 x) were left at rest, the bands' flags wait
+    # for the next call's epoch
+    again = fused_mlp(x, w1["w"], w1["scale"], w2["w"], w2["scale"], layer=1)
     assert torch.equal(again, out)
 
 
@@ -1558,11 +1561,12 @@ def test_latent_decode_kernels_match_plain(cuda, mode, hq):
     assert _arrivals_at_rest()
 
 
-@pytest.mark.parametrize("hq", [2, 16])
+@pytest.mark.parametrize("hq", [2, 4, 6, 16, 128])
 def test_latent_prefill_kernel_matches_plain(cuda, hq):
     """K5's D 640 form, causal: lengths that are no tile multiple, q offsets
     and a zero-length sequence; 2e-2 absolute on the valid rows (the kernel
-    rounds P to bf16), 0 for the empty sequence."""
+    rounds P to bf16), 0 for the empty sequence. G 6 leaves 2 of a tile's
+    128 rows idle; G 128 is one position a tile."""
     gen = _gen(cuda)
     d = 640
     q = torch.randn((3, hq, 70, d), generator=gen, device=cuda, dtype=torch.bfloat16)
