@@ -12,7 +12,14 @@ Phases (any failure raises and the script exits non-zero):
    every kernel in ``starflashattention_tpu_torch/csrc`` with ``nvcc`` for
    sm_90a, one process per source, all at once.
 2. Kernel vs plain: each kernel against its plain PyTorch twin on the card
-   (the paged decode and the paged append on a shuffled page table),
+   (the paged decode and the paged append on a shuffled page table; the
+   decode paths' row append folded into the decode launch, ``[fold]``
+   lines: bit for bit the standalone append then the decode, output and
+   whole tables, at the decode shape and in 93 forms of the kernel (D 64,
+   128, 256 and 640; fp32 / bf16 q; fp32, bf16, int8 and fp8 KV; 1 and 4
+   splits, paged; plain and with the window, sinks and softcap; inactive,
+   clamped and chunk-edge rows), timed beside the decode alone and beside
+   the append followed by the decode),
    in bf16 at the shapes the 7B-GQA path gives it, with the error printed
    beside its tolerance; kernel, plain and library-call times (CUDA events,
    L2 flushed before each launch, the device kept busy while the host
@@ -137,7 +144,7 @@ Phases (any failure raises and the script exits non-zero):
    steps a round), then through ``PagedEngine`` (page_size 128,
    prefill_chunk 256, prefix cache, a pool small enough to preempt). Launch
    counters are zeroed before and checked after each run (the paged run
-   launches the paged decode and the paged append once per layer and decode
+   launches the paged decode, its row append folded in, once per layer and decode
    step, the contiguous run neither); every request must finish, the paged
    run must preempt and hit the prefix cache at least once. Prints both
    ``EngineStats`` summaries, the share of streams the two engines agree on
@@ -155,7 +162,7 @@ Phases (any failure raises and the script exits non-zero):
    prefill 128 W4A8 / W8A8 or tiled launches); prefill and decode are
    timed apart. Then ``PagedEngine`` with int8 pages and int4 weights on
    phase 6's 24 requests: every request finishes, the paged decode and
-   append launch on the int8 pools.
+   append (folded into the decode's launch) run on the int8 pools.
 8. Speculative decoding: full-width ``ModelConfig.llama_7b_gqa`` (32
    layers, max_seq_len 1024, seeded int8 weights + int8 lm_head, bf16 KV,
    one split), 16 structured requests (a 24-token motif, an 8-token body,
@@ -328,6 +335,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -410,6 +418,17 @@ INT4_ENTRY = {16: "quant_matmul_int4 (small-M, decode rows)",
               2048: "quant_matmul_int4 (tiled, prefill rows)"}
 A8_ENTRY = {"w8a8": "quant_matmul_w8a8 (prefill rows)", "w4a8": "quant_matmul_w4a8 (prefill rows)"}
 KV_SCALE = {"int8": 5.0 / 127.0, "fp8": 5.0 / 448.0}  # ModelConfig.kv_calibration_scale / qmax
+# the decode paths' launches with the row append folded in (K3 into K1 / K2,
+# K8 into K7): the kernels line's rows of K3 and K8. Each carries the
+# append's part of the launch (the fused launch less the decode alone) and
+# the decode's row the rest, so a launch counted on both rows is timed once.
+FOLD_ENTRIES = {
+    1: "flash_decode_append (K3 folded into K1, 1 split)",
+    4: "flash_decode_append (K3 folded into K2, split-KV partials)",
+    "paged": "paged_flash_decode_append (K8 folded into K7)",
+}
+FOLD_ROUNDS = 5  # interleaved timer rounds of the [fold] rows
+FOLD_SEQ, FOLD_ROWS = 512, ((0, 1), (37, 0), (512 + 5, 512), (128, 129), (0, 0), (127, 128))  # _fold_forms
 VARIANT_SEQ = 8192  # the families' max_seq_len
 VARIANT_WINDOW = 4096  # Mistral-7B's window, Gemma-2's sliding layers'
 VARIANT_SINKS = 4
@@ -780,6 +799,167 @@ def _arrivals_at_zero():
     _check("split-K arrival counters after phase 2's matmuls", float(left), 0.0, what="sum")
 
 
+def _bit_equal(a, b):
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().view(ints[a.element_size()]), b.contiguous().view(ints[b.element_size()])))
+
+
+def _fold_check(name, tables, fused, sequence, quiet=False):
+    """The fused launch on clones of ``tables`` against the standalone
+    append followed by the decode on other clones: the output and every
+    table bit for bit (``quiet``: no line unless they differ)."""
+    a, b = [t.clone() for t in tables], [t.clone() for t in tables]
+    same = _bit_equal(fused(*a), sequence(*b)) and all(_bit_equal(x, y) for x, y in zip(a, b))
+    if not (quiet and same):
+        _check(f"{name}: fused launch vs the append then the decode, output and whole tables",
+               0.0 if same else 1.0, 0.0, what="results that differ in a bit")
+
+
+def _fold_forms(dev):
+    """The fold in every form of the decode kernel, held bit for bit (output
+    and whole tables or pools) to the standalone append (K3 / K8) followed
+    by the decode (K1, K2 or K7): D 64, 128 and 256 with fp32 and bf16 q on
+    a cache in q's dtype, int8 and fp8; MLA's D 640 (bf16, 16 query heads
+    on one KV head); the merging mode, the partials mode (4 splits) and
+    the paged form on a shuffled table, each plain and, but at 4 splits and
+    D 640, in the VARIANTS form (window 64, 4 sinks, softcap 30). The rows
+    (``FOLD_ROWS``, S 512): a first token, an inactive row (a stale write,
+    0 rows), a write clamped to S - 1, writes on each side of the 128-row
+    chunk edge, a length-0 row; the inactive and length-0 rows' table rows
+    point at the null page 0 in the paged form, as the engines leave them."""
+    from starflashattention_tpu_torch.core.quant import quantize_value
+    from starflashattention_tpu_torch.ops.cache_append import append_rows_kv, append_rows_paged_kv
+    from starflashattention_tpu_torch.ops.flash_decode import flash_decode, flash_decode_append
+    from starflashattention_tpu_torch.ops.paged_decode import paged_flash_decode, paged_flash_decode_append
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    f32, bf16 = torch.float32, torch.bfloat16
+    s, ps, layer = FOLD_SEQ, 16, 1
+    wpos = torch.tensor([p for p, _ in FOLD_ROWS], dtype=torch.int32, device=dev)
+    lengths = torch.tensor([n for _, n in FOLD_ROWS], dtype=torch.int32, device=dev)
+    pos = torch.clamp(wpos, max=s - 1)
+    b = wpos.shape[0]
+    full = (torch.randperm(b * s // ps, generator=torch.Generator().manual_seed(SEED)) + 1).reshape(b, s // ps)
+    full = full.to(device=dev, dtype=torch.int32)
+    table = full.clone()
+    table[(lengths == 0).nonzero().flatten()] = 0
+    variants = dict(window=64, sinks=4, softcap=30.0)
+    checks = 0
+    for d in (64, 128, 256, 640):
+        hq, hkv = (16, 1) if d == 640 else (8, 2)
+        combos = ((bf16, None),) if d == 640 else ((f32, None), (bf16, None), (f32, "int8"), (bf16, "int8"),
+                                                   (f32, "fp8"), (bf16, "fp8"))
+        for q_dtype, mode in combos:
+            q = torch.randn((b, hq, d), generator=gen, device=dev, dtype=q_dtype)
+            rows = [torch.randn(shape, generator=gen, device=dev, dtype=q_dtype)
+                    for shape in ((2, b, hkv, s, d),) * 2 + ((b, hkv, d),) * 2]
+            sc = {}
+            if mode is not None:
+                scales = torch.full((hkv,), KV_SCALE[mode], dtype=f32, device=dev)
+                rows = [quantize_value(t, scales, mode, head_axis=2 if t.dim() == 5 else 1) for t in rows]
+                sc = dict(k_scales=scales, v_scales=scales)
+            k_tab, v_tab, kn, vn = rows
+            kv = mode or str(q_dtype).replace("torch.", "")
+            forms = [("1 split", dict(num_splits=1)), ("4 splits", dict(num_splits=4))]
+            if d != 640:
+                forms.append(("window 64 + 4 sinks + softcap 30", dict(num_splits=1, **variants)))
+            for label, opts in forms:
+                kw = dict(layer=layer, block_k=256, **sc, **opts)
+                _fold_check(f"fold D={d} q {q_dtype} KV {kv} {label}", (k_tab, v_tab),
+                            lambda k, v: flash_decode_append(q, k, v, kn, vn, wpos, lengths, **kw),
+                            lambda k, v: (append_rows_kv(k, v, kn, vn, layer, pos),
+                                          flash_decode(q, k, v, lengths, **kw))[1], quiet=True)
+                checks += 1
+            pools = (_pools_from(k_tab, full, ps), _pools_from(v_tab, full, ps))
+            for label, opts in [("paged", {})] + ([] if d == 640 else [("paged, window 64 + 4 sinks + softcap 30",
+                                                                        variants)]):
+                kw = dict(layer=layer, **sc, **opts)
+                _fold_check(f"fold D={d} q {q_dtype} KV {kv} {label}", pools,
+                            lambda k, v: paged_flash_decode_append(q, k, v, table, kn, vn, wpos, lengths, **kw),
+                            lambda k, v: (append_rows_paged_kv(k, v, kn, vn, layer, table, pos),
+                                          paged_flash_decode(q, k, v, table, lengths, **kw))[1], quiet=True)
+                checks += 1
+            del rows, k_tab, v_tab, pools
+    log(f"[fold] {checks} forms of the fused launch equal the append then the decode, bit for bit")
+
+
+def _fold_times(timer, fused, alone, seq):
+    """The fused launch, the decode alone and the append then the decode,
+    each the median of ``FOLD_ROUNDS`` interleaved timer rounds, and the
+    append's part of the fused launch: the median of the rounds' fused less
+    alone (the kernels line's ms of a ``FOLD_ENTRIES`` row)."""
+    rounds = [(timer(fused), timer(alone), timer(seq)) for _ in range(FOLD_ROUNDS)]
+
+    def median(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    return (*(median([r[i] for r in rounds]) for i in range(3)), median([r[0] - r[1] for r in rounds]))
+
+
+def _tables_err(got, want):
+    """Largest absolute difference over whole K and V tables (or pools)."""
+    return max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+
+
+def _fold_rows(dev, timer, q, k_tab, v_tab, lengths, layer):
+    """K3 folded into K1 (1 split) and K2 (4 splits) at the decode shape:
+    each row of the step writes its new row at lengths - 1, the last row it
+    attends. The fused launch against K3 then the decode (bit for bit),
+    timed beside the decode alone and beside K3 followed by the decode, in
+    one call. Its kernels-line row is the append's part of the launch, so
+    that K1's (K2's) row, which counts the same launches, keeps the decode's
+    time: ms the fused launch less the decode alone, its bound the rows
+    written and the write positions read (the fused launch reads the new
+    row in place of the table row the decode reads), its plain twin
+    ``append_rows_kv_plain`` and its library call an index assignment a
+    table, both at the same positions, its error over the whole tables
+    against the plain twins'. Its new rows come from a generator of its own,
+    so the rows after it in phase 2 draw what they drew before it was
+    added."""
+    from starflashattention_tpu_torch.ops.cache_append import append_rows_kv, append_rows_kv_plain
+    from starflashattention_tpu_torch.ops.flash_decode import flash_decode, flash_decode_append, flash_decode_append_plain
+
+    _, b, hkv, s, d = k_tab.shape
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    k_new = torch.randn((b, hkv, d), generator=gen, device=dev, dtype=q.dtype)
+    v_new = torch.randn((b, hkv, d), generator=gen, device=dev, dtype=q.dtype)
+    wpos = lengths - 1
+    bnd, by = bound_ms(2 * b * hkv * d * q.element_size() + b * 4, 0)
+    bidx, wpos_l = torch.arange(b, device=dev), wpos.long()
+    res = {}
+    ka, va = k_tab.clone(), v_tab.clone()
+    kp, vp = k_tab.clone(), v_tab.clone()
+
+    def index_put_kv():  # the library call: one advanced-index assignment a table
+        kp[layer, bidx, :, wpos_l] = k_new
+        vp[layer, bidx, :, wpos_l] = v_new
+
+    for splits in (1, 4):
+        entry = FOLD_ENTRIES[splits]
+        kw = dict(layer=layer, num_splits=splits, block_k=256)
+        fused = lambda k, v: flash_decode_append(q, k, v, k_new, v_new, wpos, lengths, **kw)  # noqa: E731
+        seq = lambda k, v: (append_rows_kv(k, v, k_new, v_new, layer, wpos), flash_decode(q, k, v, lengths, **kw))[1]  # noqa: E731
+        _fold_check(f"{entry} B={b} Hq={q.shape[1]} Hkv={hkv} S={s} D={d}", (k_tab, v_tab), fused, seq)
+        out = fused(ka, va)
+        ref = flash_decode_append_plain(q, kp, vp, k_new, v_new, wpos, lengths, **kw)
+        _check(f"{entry} against its plain twin", (out.float() - ref.float()).abs().max().item(), 2.0**-8 * 4)
+        err = _tables_err((ka, va), (kp, vp))
+        _check(f"{entry} whole tables against the plain twin's", err, 0.0)
+        t_fused, t_alone, t_seq, share = _fold_times(timer, lambda: fused(ka, va),
+                                                     lambda: flash_decode(q, ka, va, lengths, **kw),
+                                                     lambda: seq(ka, va))
+        res[entry] = dict(max_abs_err=err, ms=share,
+                          plain_ms=timer(lambda: append_rows_kv_plain(kp, vp, k_new, v_new, layer, wpos)),
+                          bound_ms=bnd, bound_by=by, library_ms=timer(index_put_kv))
+        decode = "K1" if splits == 1 else "K2"
+        log(f"[fold] {entry}: fused {t_fused:.4f} ms, {decode} alone {t_alone:.4f} ms, K3 then {decode} "
+            f"{t_seq:.4f} ms (medians of {FOLD_ROUNDS} interleaved rounds); the append's part of the fused "
+            f"launch {share:+.4f} ms (its bound {bnd:.6f} ms); fused {'below' if t_fused < t_seq else 'NOT below'} "
+            f"K3 then {decode}")
+    return res
+
+
 def phase_kernels(dev, timer):
     """Each kernel against its plain twin at main-path shapes; returns
     {entry name: measurements} for the kernels line."""
@@ -881,6 +1061,8 @@ def phase_kernels(dev, timer):
         f"{k3b['plain_ms']:.4f} ms, library (index assignment) {k3b['library_ms']:.4f} ms, "
         f"bound {bnd:.6f} ms ({by}), max_abs_err 0.000e+00")
     del one, one_plain
+    res.update(_fold_rows(dev, timer, q, k_tab, v_tab, lengths, layer))
+    _fold_forms(dev)
 
     res.update(_paged_kernels(dev, timer, gen, q, k_tab, v_tab, lengths, layer, dec_bytes, dec_ops,
                               k_new, v_new, lib_ms))
@@ -1759,11 +1941,14 @@ def _paged_kernels(dev, timer, gen, q, k_tab, v_tab, lengths, layer, dec_bytes, 
     """K7 and K8 at the decode shapes: the rows of the contiguous table laid
     out in pages of 128 rows under a shuffled page table (pages_per_seq 8),
     so K1 on the table is the yardstick for K7 on the pools. K7's library
-    call is SDPA on the same rows laid out contiguously (``sdpa_ms``)."""
+    call is SDPA on the same rows laid out contiguously (``sdpa_ms``). Then
+    K8 folded into K7, as ``_fold_rows`` does for K3."""
     from starflashattention_tpu_torch.ops.cache_append import (
         append_rows_paged_kv, append_rows_paged_kv_plain)
     from starflashattention_tpu_torch.ops.flash_decode import flash_decode
-    from starflashattention_tpu_torch.ops.paged_decode import paged_flash_decode, paged_flash_decode_plain
+    from starflashattention_tpu_torch.ops.paged_decode import (paged_flash_decode, paged_flash_decode_append,
+                                                               paged_flash_decode_append_plain,
+                                                               paged_flash_decode_plain)
 
     n_layers, b, hkv, s, d = k_tab.shape
     ps = PAGE_SIZE
@@ -1816,6 +2001,41 @@ def _paged_kernels(dev, timer, gen, q, k_tab, v_tab, lengths, layer, dec_bytes, 
         ms=timer(lambda: append_rows_paged_kv(ka, va, k_new, v_new, layer, table, pos)),
         plain_ms=timer(lambda: append_rows_paged_kv_plain(kp, vp, k_new, v_new, layer, table, pos)),
         bound_ms=bnd, bound_by=by, library_ms=timer(index_put_paged))
+
+    # K8 folded into K7: each row writes at lengths - 1, the last row it
+    # attends; its row is the append's part of the launch, as in _fold_rows
+    entry = FOLD_ENTRIES["paged"]
+    wpos = lengths - 1
+    wpos_l = wpos.long()
+    fused = lambda k, v: paged_flash_decode_append(q, k, v, table, k_new, v_new, wpos, lengths,  # noqa: E731
+                                                   layer=layer)
+    seq = lambda k, v: (append_rows_paged_kv(k, v, k_new, v_new, layer, table, wpos),  # noqa: E731
+                        paged_flash_decode(q, k, v, table, lengths, layer=layer))[1]
+    _fold_check(f"{entry} shuffled table", (k_pool, v_pool), fused, seq)
+    out = fused(ka, va)
+    ref = paged_flash_decode_append_plain(q, kp, vp, table, k_new, v_new, wpos, lengths, layer=layer)
+    _check(f"{entry} against its plain twin", (out.float() - ref.float()).abs().max().item(), 2.0**-8 * 4)
+    err = _tables_err((ka, va), (kp, vp))
+    _check(f"{entry} whole pools against the plain twin's", err, 0.0)
+    t_fused, t_alone, t_seq, share = _fold_times(
+        timer, lambda: fused(ka, va), lambda: paged_flash_decode(q, ka, va, table, lengths, layer=layer),
+        lambda: seq(ka, va))
+    # the rows written and the write positions read (the table lookup and
+    # the new row's read are the decode's own)
+    bnd, by = bound_ms(2 * b * hkv * d * 2 + b * 4, 0)
+
+    def index_put_fold():  # the library call: one advanced-index assignment a pool
+        phys = table[bidx, wpos_l // ps].long()
+        kp[layer, :, phys, wpos_l % ps] = k_new.transpose(0, 1)
+        vp[layer, :, phys, wpos_l % ps] = v_new.transpose(0, 1)
+
+    res[entry] = dict(
+        max_abs_err=err, ms=share,
+        plain_ms=timer(lambda: append_rows_paged_kv_plain(kp, vp, k_new, v_new, layer, table, wpos)),
+        bound_ms=bnd, bound_by=by, library_ms=timer(index_put_fold))
+    log(f"[fold] {entry}: fused {t_fused:.4f} ms, K7 alone {t_alone:.4f} ms, K8 then K7 {t_seq:.4f} ms "
+        f"(medians of {FOLD_ROUNDS} interleaved rounds); the append's part of the fused launch {share:+.4f} ms "
+        f"(its bound {bnd:.6f} ms); fused {'below' if t_fused < t_seq else 'NOT below'} K8 then K7")
     return res
 
 
@@ -2814,12 +3034,17 @@ def _counters():
     from starflashattention_tpu_torch.ops.cache_append import (append_block_kv, append_rows_kv,
                                                                append_rows_paged_kv)
     from starflashattention_tpu_torch.ops.flash_bwd import flash_bwd_dkdv, flash_bwd_dq
-    from starflashattention_tpu_torch.ops.flash_decode import flash_decode, flash_verify
+    from starflashattention_tpu_torch.ops.flash_decode import flash_decode, flash_decode_append, flash_verify
     from starflashattention_tpu_torch.ops.flash_prefill import flash_prefill
     from starflashattention_tpu_torch.ops.fused_mlp import fused_mlp
-    from starflashattention_tpu_torch.ops.paged_decode import paged_flash_decode
+    from starflashattention_tpu_torch.ops.paged_decode import paged_flash_decode, paged_flash_decode_append
 
+    # the decode paths fold their row append into the decode launch: the
+    # standalone appends (K3, K8) must read 0 there, the fold's counters
+    # steps x layers
     return {"append_rows_kv": append_rows_kv, "flash_decode": flash_decode,
+            "flash_decode_append": flash_decode_append,
+            "paged_flash_decode_append": paged_flash_decode_append,
             "flash_prefill": flash_prefill, "quant_matmul": qmm.quant_matmul,
             "append_rows_paged_kv": append_rows_paged_kv, "paged_flash_decode": paged_flash_decode,
             "quant_matmul_int4": qmm.quant_matmul_int4, "quant_matmul_w8a8": qmm.quant_matmul_w8a8,
@@ -2913,6 +3138,12 @@ def time_prefill_decode(params, cfg, prompts, lengths, dev, steps):
                 prefill_tok_s=int(lengths.sum()) / prefill_ms * 1e3)
 
 
+def stream_digest(toks):
+    """The first 16 hex digits of the sha256 of a token tensor's int32
+    bytes: two runs print the same digest only for the same streams."""
+    return hashlib.sha256(toks.to(torch.int32).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
 def run_generate(params, cfg, prompts, lengths, dev, expected, tag):
     """Greedy ``generate`` with the counters zeroed just before and checked
     just after; returns (tokens, counts)."""
@@ -2926,6 +3157,7 @@ def run_generate(params, cfg, prompts, lengths, dev, expected, tag):
     wall = time.perf_counter() - t0
     counts = read_counts()
     log(f"[{tag}] generate {wall * 1e3:.1f} ms; launches {counts}")
+    log(f"[{tag}] greedy streams sha256 {stream_digest(toks)}")
     if counts != expected:
         raise AssertionError(f"launch counts {counts} != expected {expected}")
     if toks.shape != (SLICE_BATCH, SLICE_NEW_TOKENS) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
@@ -2949,7 +3181,7 @@ def phase_slice(dev):
     # per prefill: one attention and four projections a layer, plus the
     # lm_head (8 rows: the small-M kernel); per decode step: one append,
     # one attention and four projections a layer, plus the lm_head
-    expected = zero_counts(flash_prefill=n_layers, append_rows_kv=steps * n_layers,
+    expected = zero_counts(flash_prefill=n_layers, flash_decode_append=steps * n_layers,
                            flash_decode=steps * n_layers,
                            quant_matmul=(4 * n_layers + 1) * (steps + 1),
                            quant_matmul_tiled=4 * n_layers)
@@ -2987,7 +3219,7 @@ def phase_quant_slice(dev):
     log(f"[quant] llama_7b_gqa L={n} max_seq_len={base.max_seq_len}: int4 g128 weights + int4 lm_head, "
         f"int8 KV (calibration {base.kv_calibration_scale}), built in {time.perf_counter() - t0:.1f} s")
     prompts, lengths = _prompts(base, dev, gen)
-    attend = dict(flash_prefill=n, append_rows_kv=steps * n, flash_decode=steps * n)
+    attend = dict(flash_prefill=n, flash_decode_append=steps * n, flash_decode=steps * n)
     # per decode step 4 projections a layer + the lm_head (small-M); per
     # prefill 4 projections a layer at 2048 rows, and the lm_head at 8 rows
     per_run = (4 * n + 1) * steps + 1
@@ -3030,7 +3262,7 @@ def _quant_paged_serving(params, cfg, dev, engine_cls):
         dec = st.decode_rounds * steps * n
         # every prefill call holds 8 slots of >= 16 rows: the tiled kernel
         return zero_counts(flash_prefill=st.prefill_rounds * n, paged_flash_decode=dec,
-                           append_rows_paged_kv=dec,
+                           paged_flash_decode_append=dec,
                            quant_matmul_int4=(st.prefill_rounds + st.decode_rounds * steps) * (4 * n + 1),
                            quant_matmul_int4_tiled=st.prefill_rounds * 4 * n)
 
@@ -3054,11 +3286,10 @@ def plain_ops():
     """Route the model's op calls to the plain PyTorch twins (on the card)."""
     from starflashattention_tpu_torch.cache import contiguous
     from starflashattention_tpu_torch.models import llama
-    from starflashattention_tpu_torch.ops import cache_append, flash_decode, flash_prefill, quant_matmul
+    from starflashattention_tpu_torch.ops import flash_decode, flash_prefill, quant_matmul
 
-    swaps = [(llama, "flash_decode", flash_decode.flash_decode_plain),
-             (llama, "flash_prefill", flash_prefill.flash_prefill_plain),
-             (contiguous, "append_rows_kv", cache_append.append_rows_kv_plain)]
+    swaps = [(contiguous, "flash_decode_append", flash_decode.flash_decode_append_plain),
+             (llama, "flash_prefill", flash_prefill.flash_prefill_plain)]
     swaps += [(llama, name, getattr(quant_matmul, name + "_plain"))
               for name in ("quant_matmul", "quant_matmul_int4", "quant_matmul_w8a8", "quant_matmul_w4a8")]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
@@ -3078,7 +3309,7 @@ def phase_path_vs_path(dev):
     ``w8a8_prefill`` on: the 2048-row prefill on W4A8)."""
     from starflashattention_tpu_torch.runtime.params import ModelConfig
 
-    attend = ("flash_prefill", "flash_decode", "append_rows_kv")
+    attend = ("flash_prefill", "flash_decode", "flash_decode_append")
     for tag, mode, overrides, kernels in (
             ("int8 weights, bf16 KV", "int8", {}, attend + ("quant_matmul",)),
             ("int4 weights, int8 KV, W4A8 prefill", "int4", dict(quant_mode="int8", w8a8_prefill=True),
@@ -3217,8 +3448,9 @@ def phase_serving(dev):
         def counts(st):
             dec = st.decode_rounds * steps * n_layers
             return {"flash_prefill": st.prefill_rounds * n_layers,
-                    "flash_decode": 0 if paged else dec, "append_rows_kv": 0 if paged else dec,
-                    "paged_flash_decode": dec if paged else 0, "append_rows_paged_kv": dec if paged else 0,
+                    "flash_decode": 0 if paged else dec, "flash_decode_append": 0 if paged else dec,
+                    "paged_flash_decode": dec if paged else 0, "paged_flash_decode_append": dec if paged else 0,
+                    "append_rows_kv": 0, "append_rows_paged_kv": 0,
                     "quant_matmul": (st.prefill_rounds + st.decode_rounds * steps) * (4 * n_layers + 1)}
         return counts
 
@@ -3361,14 +3593,14 @@ def phase_spec(dev):
             steps = st.decode_rounds * SPEC_STEPS  # decode or verify steps
             pre = st.prefill_rounds
             if kind == "plain":
-                return zero_counts(flash_prefill=pre * n, flash_decode=steps * n, append_rows_kv=steps * n,
+                return zero_counts(flash_prefill=pre * n, flash_decode=steps * n, flash_decode_append=steps * n,
                                    quant_matmul=(pre + steps) * proj, quant_matmul_tiled=pre * 4 * n)
             want = zero_counts(flash_prefill=pre * n, flash_verify=steps * n, append_block_kv=steps * n,
                                quant_matmul=(pre + steps) * proj, quant_matmul_tiled=pre * 4 * n)
             if kind == "draft":  # the draft prefills beside the target and decodes k+1 steps a verify step
                 dsteps = steps * (k + 1)
                 want.update(flash_prefill=pre * (n + dn), flash_decode=dsteps * dn,
-                            append_rows_kv=dsteps * dn,
+                            flash_decode_append=dsteps * dn,
                             quant_matmul=(pre + steps) * proj + (pre + dsteps) * (4 * dn + 1),
                             quant_matmul_tiled=pre * 4 * (n + dn))
             return want
@@ -3463,12 +3695,13 @@ def _engine_counts(n_layers, steps, banded_layers, kind, lm_head, projections=No
         proj = (st.prefill_rounds + dec) * projections
         want = {"flash_prefill": st.prefill_rounds * n_layers, qmm: proj,
                 "flash_decode": 0, "flash_decode_banded": 0, "append_rows_kv": 0, "paged_flash_decode": 0,
-                "append_rows_paged_kv": 0, "flash_verify": 0, "append_block_kv": 0}
+                "append_rows_paged_kv": 0, "flash_decode_append": 0, "paged_flash_decode_append": 0,
+                "flash_verify": 0, "append_block_kv": 0}
         if kind == "contiguous":
             want.update(flash_decode=dec * n_layers, flash_decode_banded=dec * banded_layers,
-                        append_rows_kv=dec * n_layers)
+                        flash_decode_append=dec * n_layers)
         elif kind == "paged":
-            want.update(paged_flash_decode=dec * n_layers, append_rows_paged_kv=dec * n_layers)
+            want.update(paged_flash_decode=dec * n_layers, paged_flash_decode_append=dec * n_layers)
         else:
             want.update(flash_verify=dec * n_layers, append_block_kv=dec * n_layers)
         return want
@@ -3508,7 +3741,7 @@ def _variant_generate(tag, params, cfg, prompts, dev, banded_layers, lm_head):
     """Greedy ``generate`` with its launch counts checked."""
     n, steps = cfg.num_layers, VAR_NEW_TOKENS - 1
     expected = zero_counts(flash_prefill=n, flash_decode=steps * n, flash_decode_banded=steps * banded_layers,
-                           append_rows_kv=steps * n, quant_matmul=(4 * n + lm_head) * (steps + 1),
+                           flash_decode_append=steps * n, quant_matmul=(4 * n + lm_head) * (steps + 1),
                            quant_matmul_tiled=4 * n)
     return _checked_generate(tag, params, cfg, prompts, dev, expected, VAR_NEW_TOKENS)
 
@@ -3540,23 +3773,23 @@ def _checked_generate(tag, params, cfg, prompts, dev, expected, new_tokens, labe
 
 @contextlib.contextmanager
 def _k1_on_rounded_q():
-    """Inside: the model's contiguous decode attention (K1) takes q *
-    sm_scale rounded to q's dtype and an sm_scale of 1, the paged kernel
-    K7's scale fold (in fp32, then rounded), so both routes score the same
-    rounded q."""
-    from starflashattention_tpu_torch.models import llama
+    """Inside: the model's contiguous decode attention (K1, its append
+    folded in) takes q * sm_scale rounded to q's dtype and an sm_scale of
+    1, the paged kernel K7's scale fold (in fp32, then rounded), so both
+    routes score the same rounded q."""
+    from starflashattention_tpu_torch.cache import contiguous
 
-    k1 = llama.flash_decode
+    k1 = contiguous.flash_decode_append
 
     def rounded(q, *args, sm_scale=None, **kw):
         scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
         return k1((q.float() * scale).to(q.dtype), *args, sm_scale=1.0, **kw)
 
-    llama.flash_decode = rounded
+    contiguous.flash_decode_append = rounded
     try:
         yield
     finally:
-        llama.flash_decode = k1
+        contiguous.flash_decode_append = k1
 
 
 def _variant_serve(tag, make, prompts, expect, new_tokens=VAR_NEW_TOKENS, label="variants"):
@@ -3694,7 +3927,7 @@ def phase_variants(dev):
     # (d) 4 Gemma-2 layers: kernels against the plain twins, past the window
     t0 = time.perf_counter()
     _path_vs_path(dev, ModelConfig.gemma2_9b(num_layers=4), "int8", "gemma2 4 layers, int8 weights, bf16 KV",
-                  ("flash_prefill", "flash_decode", "append_rows_kv", "quant_matmul"),
+                  ("flash_prefill", "flash_decode", "flash_decode_append", "quant_matmul"),
                   prompt_lengths=[4500, 4700])
     log(f"[variants] gemma2 (d): {time.perf_counter() - t0:.1f} s; phase 10 {time.perf_counter() - t_phase:.1f} s")
     return out
@@ -3809,7 +4042,7 @@ def phase_training(dev):
     toks = llama.generate(merged, cfg, prompts, lengths, LORA_NEW_TOKENS, device=dev)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
-    want_counts = zero_counts(flash_prefill=n, flash_decode=steps * n, append_rows_kv=steps * n)
+    want_counts = zero_counts(flash_prefill=n, flash_decode=steps * n, flash_decode_append=steps * n)
     if read_counts() != want_counts:
         raise AssertionError(f"merged generate: launch counts {read_counts()} != expected {want_counts}")
     if toks.shape != (len(lengths), LORA_NEW_TOKENS) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
@@ -4096,7 +4329,7 @@ def phase_train_variants(dev):
     torch.cuda.synchronize()
     steps = 8 - 1
     want = zero_counts(flash_prefill=n, flash_decode=steps * n, flash_decode_banded=steps * sliding,
-                       append_rows_kv=steps * n)
+                       flash_decode_append=steps * n)
     if read_counts() != want:
         raise AssertionError(f"Gemma-2-9B merged generate: launch counts {read_counts()} != expected {want}")
     if toks.shape != (2, 8) or not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
@@ -4157,7 +4390,7 @@ def _moe_step_projections(cfg, lm_head):
 def _moe_generate_counts(cfg, qmm_name, lm_head, new_tokens):
     n, steps, p = cfg.num_layers, new_tokens - 1, _moe_step_projections(cfg, lm_head)
     # the prefill's rows take the tiled kernel, but for the lm_head's (one a prompt)
-    return zero_counts(flash_prefill=n, flash_decode=steps * n, append_rows_kv=steps * n,
+    return zero_counts(flash_prefill=n, flash_decode=steps * n, flash_decode_append=steps * n,
                        **{qmm_name: (steps + 1) * p, qmm_name + "_tiled": p - lm_head})
 
 
@@ -4245,10 +4478,10 @@ def phase_deepseek(dev, smi):
     log(f"[deepseek] (a): {t1 - t0:.1f} s, then the stream checks {time.perf_counter() - t1:.1f} s")
     g, pg = ds["generate"]["counts"], ds["paged"]["counts"]
     steps, p_steps = DSV2_NEW_TOKENS - 1, ds["paged"]["stats"]["decode_rounds"] * VAR_STEPS
-    log(f"[deepseek] (a) launches a step: K1 {g['flash_decode'] / steps:.0f}, K3 {g['append_rows_kv'] / steps:.0f}, "
+    log(f"[deepseek] (a) launches a step: K1 {g['flash_decode'] / steps:.0f}, K3 folded into K1 {g['flash_decode_append'] / steps:.0f}, "
         f"K6 {(g['quant_matmul_int4'] - g['quant_matmul_int4_tiled']) / steps:.0f} (decode), K5 "
         f"{g['flash_prefill']} and K6 tiled {g['quant_matmul_int4_tiled']} a prefill; PagedEngine: K7 "
-        f"{pg['paged_flash_decode'] / p_steps:.0f}, K8 {pg['append_rows_paged_kv'] / p_steps:.0f}; TTFT p50 "
+        f"{pg['paged_flash_decode'] / p_steps:.0f}, K8 folded into K7 {pg['paged_flash_decode_append'] / p_steps:.0f}; TTFT p50 "
         f"{ds['engine']['stats']['p50_ttft_ms']} ms (Engine), {ds['paged']['stats']['p50_ttft_ms']} ms "
         f"(PagedEngine), generate {ds['generate']['wall_s']:.2f} s; {smi}")
     k5_ms = _latent_prefill_ms(dev, cfg, prompts)
@@ -4309,7 +4542,7 @@ def phase_deepseek(dev, smi):
     t0 = time.perf_counter()
     _path_vs_path(dev, ModelConfig.deepseek_v2_lite(num_layers=4, max_seq_len=LATENT_SEQ), "int4",
                   "deepseek_v2_lite 4 layers, int4 experts + wo + lm_head, bf16 latent KV",
-                  ("flash_prefill", "flash_decode", "append_rows_kv", "quant_matmul_int4"),
+                  ("flash_prefill", "flash_decode", "flash_decode_append", "quant_matmul_int4"),
                   prompt_lengths=list(DSV2_CHECK_PROMPTS))
     log(f"[deepseek] 4 layers against the plain route: {time.perf_counter() - t0:.1f} s")
 
@@ -4937,7 +5170,7 @@ def _decode_counts(n_layers, steps, projections, prefill_rows, lm_head=1):
     decode attention; the prefill's projections tiled past 64 rows, its
     head on the last positions' rows)."""
     proj = projections * n_layers + lm_head
-    return zero_counts(flash_prefill=n_layers, flash_decode=steps * n_layers, append_rows_kv=steps * n_layers,
+    return zero_counts(flash_prefill=n_layers, flash_decode=steps * n_layers, flash_decode_append=steps * n_layers,
                        quant_matmul=proj * (steps + 1),
                        quant_matmul_tiled=projections * n_layers if prefill_rows > 64 else 0)
 
@@ -5037,7 +5270,7 @@ def _tp_dense_paths(r, meshes, dev):
         ms = (time.perf_counter() - t0) * 1e3 / PP_DECODE_STEPS
         per_step = stage_layers * m  # each layer of the stage on each microbatch
         r.counts(f"14d {name}", read_counts(), zero_counts(
-            flash_decode=PP_DECODE_STEPS * per_step, append_rows_kv=PP_DECODE_STEPS * per_step,
+            flash_decode=PP_DECODE_STEPS * per_step, flash_decode_append=PP_DECODE_STEPS * per_step,
             quant_matmul=PP_DECODE_STEPS * (4 * per_step + (m if last else 0))))
         r.rec[f"14d {name}"] = dict(step_ms=ms, host_bytes_per_step=(comm.host_bytes - h0) / PP_DECODE_STEPS)
         if ref is not None:
@@ -5381,6 +5614,8 @@ REPLACES = {
     "flash_decode (split-KV partials)": ("starflashattention_tpu/ops/flash_decode.py:141",
                                          "flash_decode_split.cu"),
     "append_rows_kv": ("starflashattention_tpu/ops/cache_append.py:86", "cache_append.cu"),
+    **{FOLD_ENTRIES[n]: ("starflashattention_tpu/ops/cache_append.py:86", "flash_decode_split.cu") for n in (1, 4)},
+    FOLD_ENTRIES["paged"]: ("starflashattention_tpu/ops/cache_append.py:219", "flash_decode_split.cu"),
     "quant_matmul (small-M, decode rows)": ("starflashattention_tpu/ops/quant_matmul.py:35", "quant_matmul.cu"),
     "quant_matmul (tiled, prefill rows)": ("starflashattention_tpu/ops/quant_matmul.py:35", "quant_matmul.cu"),
     "flash_prefill": ("starflashattention_tpu/ops/flash_prefill.py:67", "flash_prefill.cu"),
@@ -5429,10 +5664,12 @@ REPLACES = {
 }
 # measured in phase 2 but launched by no main-path run (the quantized slice
 # runs the fp8 cache only in split mode and pages only in int8; no path
-# serves fp8 weights; DeepSeek-V2-Lite decodes its latent row in one split):
-# logged, not in the kernels line
+# serves fp8 weights; DeepSeek-V2-Lite decodes its latent row in one split;
+# the decode paths run K3's and K8's work folded into the decode launch, the
+# FOLD_ENTRIES rows, and the standalone K3 / K8 on no path): logged, not in
+# the kernels line
 OFF_PATH = ("flash_decode fp8 KV (1 split, fused)", "paged_flash_decode fp8 KV", QMM_FP8_TILED, QMM_FP8_SMALL,
-            K5_TRAIN_NO_LSE, LATENT_ENTRIES["split"])
+            K5_TRAIN_NO_LSE, LATENT_ENTRIES["split"], "append_rows_kv", "append_rows_paged_kv")
 
 
 def main(argv=None):
@@ -5479,14 +5716,15 @@ def main(argv=None):
         fused, split = runs[1]["counts"], runs[max(runs)]["counts"]
         launches = {"flash_decode (1 split, fused)": fused["flash_decode"],
                     "flash_decode (split-KV partials)": split["flash_decode"],
-                    "append_rows_kv": split["append_rows_kv"],
+                    FOLD_ENTRIES[1]: fused["flash_decode_append"],
+                    FOLD_ENTRIES[4]: split["flash_decode_append"],
                     "quant_matmul (small-M, decode rows)": split["quant_matmul"] - split["quant_matmul_tiled"],
                     "quant_matmul (tiled, prefill rows)": split["quant_matmul_tiled"],
                     "flash_prefill": split["flash_prefill"]}
     if serving:
         paged = serving["paged"]["counts"]
         launches.update({"paged_flash_decode": paged["paged_flash_decode"],
-                         "append_rows_paged_kv": paged["append_rows_paged_kv"]})
+                         FOLD_ENTRIES["paged"]: paged["paged_flash_decode_append"]})
     if quant:
         off, w4a8, w8a8 = (quant[key]["counts"] for key in ("off", "w4a8", "w8a8"))
         launches.update({
@@ -5553,12 +5791,12 @@ def main(argv=None):
     if tensor_parallel:  # phase 14's paths add their launches over the ranks to the kernels they run
         tot = tensor_parallel["totals"]
         for entry, n in (("flash_decode (1 split, fused)", tot["flash_decode"]),
-                         ("append_rows_kv", tot["append_rows_kv"]),
+                         (FOLD_ENTRIES[1], tot["flash_decode_append"]),
                          ("quant_matmul (small-M, decode rows)", tot["quant_matmul"] - tot["quant_matmul_tiled"]),
                          ("quant_matmul (tiled, prefill rows)", tot["quant_matmul_tiled"]),
                          ("flash_prefill", tot["flash_prefill"] - tot["flash_prefill_lse"]),
                          ("paged_flash_decode", tot["paged_flash_decode"]),
-                         ("append_rows_paged_kv", tot["append_rows_paged_kv"]),
+                         (FOLD_ENTRIES["paged"], tot["paged_flash_decode_append"]),
                          ("flash_verify", tot["flash_verify"]), ("append_block_kv", tot["append_block_kv"]),
                          ("quant_matmul_w8a8 (prefill rows)", tot["quant_matmul_w8a8"]),
                          ("quant_matmul_w4a8 (prefill rows)", tot["quant_matmul_w4a8"]),

@@ -18,6 +18,7 @@ import torch
 
 from starflashattention_tpu_torch.core import quant
 from starflashattention_tpu_torch.ops.cache_append import append_rows_kv
+from starflashattention_tpu_torch.ops.flash_decode import flash_decode_append
 from starflashattention_tpu_torch.utils.device import resolve_device
 
 
@@ -139,6 +140,24 @@ def append_decode(cache: KVCache, layer: int, k_new: torch.Tensor, v_new: torch.
     append_rows_kv(cache.k, cache.v, quantize_new(k_new, ks, cache.k.dtype),
                    quantize_new(v_new, vs, cache.v.dtype), layer, pos)
     return cache
+
+
+def append_decode_attend(cache: KVCache, layer: int, q: torch.Tensor, k_new: torch.Tensor,
+                         v_new: torch.Tensor, lengths: torch.Tensor, *, sm_scale=None,
+                         num_splits: int = 4, block_k: int = 256, **opts) -> torch.Tensor:
+    """:func:`append_decode` and the decode attention over ``lengths`` in
+    one launch (``ops.flash_decode.flash_decode_append``, the decode
+    kernel with K3 folded in): one token's K/V rows (B, Hkv, D) go to each
+    sequence's ``lengths[b]`` slot of ``layer`` (clamped to the last slot),
+    IN PLACE, quantized against the cache's scales first, and q (B, Hq, D)
+    attends the first ``lengths`` rows (the new one included) -> (B, Hq, D).
+    ``opts``: the attention variants (``window``, ``sinks``, ``softcap``).
+    ``cache.lengths`` is not advanced."""
+    ks, vs = cache.layer_scales(layer)
+    return flash_decode_append(q, cache.k, cache.v, quantize_new(k_new, ks, cache.k.dtype).contiguous(),
+                               quantize_new(v_new, vs, cache.v.dtype).contiguous(), cache.lengths,
+                               lengths, layer=layer, sm_scale=sm_scale, num_splits=num_splits,
+                               block_k=block_k, k_scales=ks, v_scales=vs, **opts)
 
 
 def check_prefill_window(cache: KVCache, sq: int, rows: torch.Tensor | None = None) -> None:

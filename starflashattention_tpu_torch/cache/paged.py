@@ -13,7 +13,10 @@ scales fixed at allocation, as the contiguous cache does.
 
 The port updates the pools IN PLACE (the JAX package donates them to its
 jitted step instead). :func:`append_decode_paged` goes through the K8
-kernel (``ops/cache_append.append_rows_paged_kv``); the prompt-chunk
+kernel (``ops/cache_append.append_rows_paged_kv``);
+:func:`append_decode_attend_paged`, the decode step's, folds that append
+into the paged decode's launch (``ops/paged_decode.
+paged_flash_decode_append``); the prompt-chunk
 scatter and the prefix gather are plain tensor indexing, as they are XLA
 ops outside any Pallas kernel in the JAX package.
 """
@@ -26,6 +29,7 @@ import torch
 
 from starflashattention_tpu_torch.cache.contiguous import kv_storage, quantize_new
 from starflashattention_tpu_torch.ops.cache_append import append_rows_paged_kv
+from starflashattention_tpu_torch.ops.paged_decode import paged_flash_decode_append
 from starflashattention_tpu_torch.utils.device import resolve_device
 
 
@@ -209,6 +213,24 @@ def append_decode_paged(cache: PagedKVCache, layer: int, k_new: torch.Tensor,
     append_rows_paged_kv(cache.k_pages, cache.v_pages, quantize_new(k_new, ks, cache.k_pages.dtype),
                          quantize_new(v_new, vs, cache.v_pages.dtype), layer, cache.page_table, pos)
     return cache
+
+
+def append_decode_attend_paged(cache: PagedKVCache, layer: int, q: torch.Tensor,
+                               k_new: torch.Tensor, v_new: torch.Tensor, lengths: torch.Tensor, *,
+                               sm_scale=None, **opts) -> torch.Tensor:
+    """:func:`append_decode_paged` and the paged decode attention over
+    ``lengths`` in one launch (K7 with K8 folded in,
+    ``ops.paged_decode.paged_flash_decode_append``): the rows (B, Hkv, D)
+    go to each sequence's ``lengths[b]`` slot through its page table
+    (clamped to the last logical slot), IN PLACE, quantized against the
+    pools' scales first; returns (B, Hq, D). ``opts``: the attention
+    variants. ``cache.lengths`` is not advanced."""
+    ks, vs = cache.layer_scales(layer)
+    return paged_flash_decode_append(
+        q, cache.k_pages, cache.v_pages, cache.page_table,
+        quantize_new(k_new, ks, cache.k_pages.dtype).contiguous(),
+        quantize_new(v_new, vs, cache.v_pages.dtype).contiguous(), cache.lengths, lengths,
+        layer=layer, sm_scale=sm_scale, k_scales=ks, v_scales=vs, **opts)
 
 
 @dataclasses.dataclass

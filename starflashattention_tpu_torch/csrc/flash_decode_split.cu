@@ -108,6 +108,32 @@
 // VARIANTS: the window, sinks and softcap are runtime arguments of the
 // VARIANTS form; the plain form (no window, no sinks, no softcap) compiles
 // them away. Both read the same parameter block.
+//
+// The folded append (replaces starflashattention_tpu/ops/cache_append.py::
+// _append_kernel_kv, entry append_rows_kv, and ::_append_kernel_paged, entry
+// append_rows_paged_kv, on the decode paths; the reference's
+// flash_decoder_kernel writes the new K/V in its own launch too): with
+// k_new / v_new (B, Hkv, D) in the cache's dtype and wpos (B,), the launch
+// first writes each sequence's new K and V row at p = min(wpos[b], S - 1)
+// (paged: S = pages_per_seq * page_size, through the page table), then
+// attends as without it. On its own that row write moves 64 KiB at B 16,
+// Hkv 8, D 128 in bf16 and costs a launch; here it costs a few 16-byte
+// stores. In each (b, kv head) the one block whose chunk [cs, cs + chunk)
+// holds p owns the row: the merging grid's ceil(S / C) chunks and the
+// partials mode's split geometry both cover [0, S), so every p has exactly
+// one owner. The owner writes the row with 16-byte stores once its first
+// tile's copies are in flight (their wait hides the stores' loads), before
+// its walk and whether or not the walk is empty (an inactive sequence
+// attends 0 rows and still writes at its stale position, as JAX's decode
+// step does), and the stage() of the tile that holds p takes row p's 16-byte
+// pieces from k_new / v_new instead of the table (every other tile is
+// staged by a loop without that test). No block reads a row another block of the
+// launch writes (a walk reads only rows of its own chunk; inactive paged
+// rows write into the null page 0, which no active row reads), so nothing
+// orders the blocks, and the stores are never read back through cp.async.
+// The output and the tables are bit for bit those of the standalone append
+// followed by the decode. A position below 0 writes nothing, as the
+// standalone kernel skips it. The verify span takes no append.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -147,6 +173,9 @@ struct Args {
   int* arrivals;          // (B, Hkv) counters, 0 between calls (merging mode)
   const float* k_scales;  // (Hkv,) of an int8 / fp8 cache, else null
   const float* v_scales;
+  const void* k_new;  // the folded append: (B, Hkv, D) rows in the cache's dtype, or null
+  const void* v_new;
+  const int* wpos;    // (B,) write positions, clamped to S - 1 here
   int Hq, Hkv, S, qspan, chunk, n_chunks;
   int pages_per_seq, page_size, num_pages;
   float scale;
@@ -350,28 +379,49 @@ __global__ void __launch_bounds__(block_threads<D>()) decode_split_kernel(const 
   const int band0 = lo / BK * BK;
   const int sink_end = (min(sinks, band0) + BK - 1) / BK * BK;
   auto skip = [&](int j0) { return j0 >= sink_end && j0 < band0 ? band0 : j0; };
+  // element offset of KV row p of this (b, kv head) in the layer
+  auto row_offset = [&](int p) -> size_t {
+    if constexpr (PAGED) {
+      const long long page = a.page_table[(size_t)b * a.pages_per_seq + p / a.page_size];
+      return (((size_t)kvh * a.num_pages + page) * a.page_size + p % a.page_size) * D;
+    } else {
+      return (((size_t)b * a.Hkv + kvh) * a.S + p) * D;
+    }
+  };
+
+  // The folded append: row wp of this (b, kv head) is the new row, at
+  // new_byte in k_new / v_new; the block whose chunk holds it writes it to
+  // the table (below, once its first tile is in flight)
+  const int wp = a.wpos != nullptr ? min(a.wpos[b], a.S - 1) : -1;
+  const size_t new_byte = ((size_t)b * a.Hkv + kvh) * D * sizeof(KV);
 
   // Stage the tile at j0 into buffer buf: rows past the chunk, and rows below
-  // the band that are not sinks, are zero-filled and not read.
-  auto stage = [&](int j0, int buf) {
+  // the band that are not sinks, are zero-filled and not read. The tile that
+  // holds row wp takes it from the new rows; every other tile runs the loop
+  // without that test (holds_new false).
+  auto stage_tile = [&](int j0, int buf, auto holds_new) {
     const uint32_t kd = kv_s + buf * SB, vd = kd + KT;
     for (int i = tid; i < BK * PIECES_ROW; i += THREADS) {
       const int row = i / PIECES_ROW, piece = i % PIECES_ROW;
       const int p = j0 + row;
       const bool ok = p < ce && (!VARIANTS || p >= lo || p < sinks);
-      size_t off = 0;  // element offset of KV row p
-      if (ok) {
-        if constexpr (PAGED) {
-          const long long page = a.page_table[(size_t)b * a.pages_per_seq + p / a.page_size];
-          off = (((size_t)kvh * a.num_pages + page) * a.page_size + p % a.page_size) * D;
-        } else {
-          off = (((size_t)b * a.Hkv + kvh) * a.S + p) * D;
-        }
+      const char* ks = reinterpret_cast<const char*>(kbase);
+      const char* vs = reinterpret_cast<const char*>(vbase);
+      size_t byte = piece * 16;
+      if (decltype(holds_new)::value && p == wp) {
+        ks = static_cast<const char*>(a.k_new);
+        vs = static_cast<const char*>(a.v_new);
+        byte += new_byte;
+      } else if (ok) {
+        byte += row_offset(p) * sizeof(KV);
       }
-      const size_t byte = off * sizeof(KV) + piece * 16;
-      cp_async16(kd + row * KROW + piece * 16, reinterpret_cast<const char*>(kbase) + byte, ok ? 16 : 0);
-      cp_async16(vd + row * KROW + piece * 16, reinterpret_cast<const char*>(vbase) + byte, ok ? 16 : 0);
+      cp_async16(kd + row * KROW + piece * 16, ks + byte, ok ? 16 : 0);
+      cp_async16(vd + row * KROW + piece * 16, vs + byte, ok ? 16 : 0);
     }
+  };
+  auto stage = [&](int j0, int buf) {
+    if (wp >= j0 && wp < j0 + BK) stage_tile(j0, buf, std::true_type{});
+    else stage_tile(j0, buf, std::false_type{});
   };
 
   // q is scaled by sm_scale (times k_scale[h] on quantized KV) and rounded
@@ -399,6 +449,16 @@ __global__ void __launch_bounds__(block_threads<D>()) decode_split_kernel(const 
           q_bf[i / D * QB_ROW + i % D] = __float2bfloat16(i < R * D ? q_s[i] : 0.f);
       }
     }
+  }
+  // the owner writes the new row with 16-byte stores, whether or not its
+  // walk is empty (an inactive row still writes at its stale position);
+  // no block of the launch reads that row of the table
+  if (wp >= cs && wp < cs + a.chunk && tid < PIECES_ROW) {
+    const size_t dst = row_offset(wp) * sizeof(KV) + tid * 16, src = new_byte + tid * 16;
+    *reinterpret_cast<uint4*>(static_cast<char*>(const_cast<void*>(a.k)) + dst) =
+        *reinterpret_cast<const uint4*>(static_cast<const char*>(a.k_new) + src);
+    *reinterpret_cast<uint4*>(static_cast<char*>(const_cast<void*>(a.v)) + dst) =
+        *reinterpret_cast<const uint4*>(static_cast<const char*>(a.v_new) + src);
   }
   for (int i = tid; i < R * QD; i += THREADS) acc[i] = 0.f;
   // D 640: lane (g, t) of warp w holds rows g, g + 8 and dimensions
@@ -748,9 +808,12 @@ const char* error_string(int e) { return cudaGetErrorString(static_cast<cudaErro
 // fp8-e4m3, which take k_scales and v_scales (Hkv,) fp32 (null otherwise).
 // variants 0: the plain form (window 1 << 30, sinks 0, softcap 0 required);
 // 1: window (1 << 30 for none), sinks, softcap (0 for none) at run time.
+// k_new, v_new (B, Hkv, D) in the cache's dtype, 16-byte aligned, and wpos
+// (B,) int32: the folded append (all three null for none; qspan 1 only).
 int flash_decode_split(const void* q, const void* k, const void* v, const void* lengths,
                        const void* page_table, void* out, void* o_part, void* m_part, void* l_part,
-                       void* arrivals, const void* k_scales, const void* v_scales, int B, int Hq,
+                       void* arrivals, const void* k_scales, const void* v_scales,
+                       const void* k_new, const void* v_new, const void* wpos, int B, int Hq,
                        int Hkv, int S, int D, int qspan, int chunk, int n_chunks, int pages_per_seq,
                        int page_size, int num_pages, float scale, int dtype, int kv_dtype, int paged,
                        int variants, int window, int sinks, float softcap, void* stream) {
@@ -760,10 +823,14 @@ int flash_decode_split(const void* q, const void* k, const void* v, const void* 
   if ((kv_dtype != 0) != (k_scales != nullptr) || (k_scales == nullptr) != (v_scales == nullptr))
     return cudaErrorInvalidValue;
   if (!variants && (window != NO_WINDOW || sinks || softcap > 0.f)) return cudaErrorInvalidValue;
+  if ((k_new == nullptr) != (wpos == nullptr) || (v_new == nullptr) != (wpos == nullptr) ||
+      (wpos != nullptr && qspan > 1))
+    return cudaErrorInvalidValue;
   const Args a{q, k, v, static_cast<const int*>(lengths), static_cast<const int*>(page_table), out,
                static_cast<float*>(o_part), static_cast<float*>(m_part), static_cast<float*>(l_part),
                static_cast<int*>(arrivals), static_cast<const float*>(k_scales),
-               static_cast<const float*>(v_scales), Hq, Hkv, S, qspan, chunk, n_chunks,
+               static_cast<const float*>(v_scales), k_new, v_new, static_cast<const int*>(wpos),
+               Hq, Hkv, S, qspan, chunk, n_chunks,
                pages_per_seq, page_size, num_pages, scale, window, sinks, softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;

@@ -73,9 +73,8 @@ from starflashattention_tpu_torch.core import drafting, quant
 from starflashattention_tpu_torch.core import sampling as core_sampling
 from starflashattention_tpu_torch.core.rope import apply_rope, rope_table
 from starflashattention_tpu_torch.ops.cache_append import append_block_kv
-from starflashattention_tpu_torch.ops.flash_decode import flash_decode, flash_verify
+from starflashattention_tpu_torch.ops.flash_decode import flash_verify
 from starflashattention_tpu_torch.ops.flash_prefill import flash_prefill
-from starflashattention_tpu_torch.ops.paged_decode import paged_flash_decode
 from starflashattention_tpu_torch.ops.quant_matmul import (quant_matmul, quant_matmul_int4,
                                                           quant_matmul_w4a8, quant_matmul_w8a8)
 from starflashattention_tpu_torch.runtime.params import ModelConfig
@@ -736,12 +735,10 @@ def decode_step(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor,
         active = _as_mask(active, cache.lengths.device)
     pos, lengths_now, att_lengths = _step_lengths(cache.lengths, active)
 
-    def attend(lidx, q, k_new, v_new):
-        contiguous.append_decode(cache, lidx, k_new, v_new)  # at lengths, clamped below S
-        ks, vs = cache.layer_scales(lidx)
-        return flash_decode(q, cache.k, cache.v, att_lengths, layer=lidx, sm_scale=cfg.sm_scale(),
-                            num_splits=cfg.num_splits, block_k=cfg.block_k, k_scales=ks,
-                            v_scales=vs, **_attn_options(cfg, lidx))
+    def attend(lidx, q, k_new, v_new):  # the append at lengths, clamped below S, in the attention's launch
+        return contiguous.append_decode_attend(cache, lidx, q, k_new, v_new, att_lengths,
+                                               sm_scale=cfg.sm_scale(), num_splits=cfg.num_splits,
+                                               block_k=cfg.block_k, **_attn_options(cfg, lidx))
 
     logits = _decode_run(params, tokens, pos, cos, sin, cfg, attend, axis_name)
     cache.lengths.copy_(lengths_now)
@@ -826,23 +823,19 @@ def decode_step_paged(params: Params, cache: paged.PagedKVCache, tokens: torch.T
                       cos: torch.Tensor, sin: torch.Tensor, cfg: ModelConfig,
                       active: torch.Tensor | None = None, axis_name=None):
     """One decode step against the page pools (JAX llama.py:1632-1747): each
-    layer appends through the page table with kernel K8 at
-    ``min(pos, S_logical - 1)`` (``cache.paged.append_decode_paged``) and
-    attends with kernel K7. Inactive rows' table rows point at the null
-    page 0, so their appends land there harmlessly. Updates the pools and
-    ``cache.lengths`` IN PLACE."""
+    layer appends through the page table at ``min(pos, S_logical - 1)`` and
+    attends, in one launch of kernel K7 with K8 folded in
+    (``cache.paged.append_decode_attend_paged``). Inactive rows' table rows
+    point at the null page 0, so their appends land there harmlessly.
+    Updates the pools and ``cache.lengths`` IN PLACE."""
     check_supported(cfg)
     if active is not None:
         active = _as_mask(active, cache.lengths.device)
     pos, lengths_now, att_lengths = _step_lengths(cache.lengths, active)
 
-    def attend(lidx, q, k_new, v_new):
-        paged.append_decode_paged(cache, lidx, k_new, v_new)  # at lengths, clamped below S
-        ks, vs = cache.layer_scales(lidx)
-        return paged_flash_decode(q, cache.k_pages, cache.v_pages, cache.page_table, att_lengths,
-                                  layer=lidx, sm_scale=cfg.sm_scale(),
-                                  pages_per_compute_block=cfg.pages_per_compute_block,
-                                  k_scales=ks, v_scales=vs, **_attn_options(cfg, lidx))
+    def attend(lidx, q, k_new, v_new):  # the append at lengths, clamped below S, in the attention's launch
+        return paged.append_decode_attend_paged(cache, lidx, q, k_new, v_new, att_lengths,
+                                                sm_scale=cfg.sm_scale(), **_attn_options(cfg, lidx))
 
     logits = _decode_run(params, tokens, pos, cos, sin, cfg, attend, axis_name)
     cache.lengths.copy_(lengths_now)

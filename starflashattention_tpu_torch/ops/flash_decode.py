@@ -15,6 +15,14 @@ merges them, in one launch; the split partials run the same kernel at the
 caller's split geometry. On CPU tensors they run the plain versions below. The split boundaries come from :func:`_split_geometry`, a
 copy of the JAX one, so the partials compare one to one.
 
+``flash_decode_append`` is the decode step's row append (``append_rows_kv``,
+kernel K3) folded into that launch, as the reference's
+``flash_decoder_kernel`` does: the block whose chunk holds the write
+position writes the new K/V row and reads it from the new rows, so one
+launch gives the tables and the output of K3 followed by ``flash_decode``,
+bit for bit. Its plain twin is :func:`append_rows_kv_plain` then
+:func:`flash_decode_plain`.
+
 Quantized caches (int8 / fp8 tables with (Hkv,) ``k_scales`` /
 ``v_scales``) take the JAX wrapper's scale handling: ``sm_scale *
 k_scale[h]`` is folded into q in fp32 and rounded to q's dtype, and the
@@ -45,10 +53,11 @@ import torch
 
 from starflashattention_tpu_torch.core.reference import NEG_INF, repeat_kv
 from starflashattention_tpu_torch.ops import _build
+from starflashattention_tpu_torch.ops.cache_append import append_rows_kv_plain
 from starflashattention_tpu_torch.utils.device import sm_count
 
 _SPLIT_SIGNATURES = {
-    "flash_decode_split": [_build.P] * 12 + [_build.I] * 11 + [_build.F] + [_build.I] * 6
+    "flash_decode_split": [_build.P] * 15 + [_build.I] * 11 + [_build.F] + [_build.I] * 6
     + [_build.F, _build.P],
 }
 _CUDA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -187,6 +196,25 @@ def _quantized(k_cache, k_scales, v_scales) -> bool:
     return True
 
 
+def check_append(what, q, k_new, v_new, pos, kv_dtype, hkv, d):
+    """The folded append's inputs as the kernel takes them: one query token
+    a sequence, q (B, Hq, D) (a verify span takes no append); ``k_new`` /
+    ``v_new`` (B, Hkv, D) in the cache's dtype, contiguous and 16-byte
+    aligned; ``pos`` (B,) integer write positions. Raises ``ValueError`` on
+    anything else: no row is copied to make it fit."""
+    if q.dim() != 3:
+        raise ValueError(f"{what}: a verify span takes no folded append, q {tuple(q.shape)}")
+    b = q.shape[0]
+    for name, new in (("k_new", k_new), ("v_new", v_new)):
+        if new.shape != (b, hkv, d) or new.dtype != kv_dtype:
+            raise ValueError(f"{what}: {name} {tuple(new.shape)} {new.dtype} does not match the "
+                             f"cache's ({b}, {hkv}, {d}) {kv_dtype} rows")
+        if not new.is_contiguous() or new.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be contiguous and 16-byte aligned")
+    if pos.shape != (b,) or pos.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"{what}: pos must be ({b},) int32, got {tuple(pos.shape)} {pos.dtype}")
+
+
 def _as_table(k_cache, v_cache, layer):
     """(B, Hkv, S, D) caches become a one-layer table at layer 0."""
     if k_cache.dim() == 4:
@@ -283,7 +311,8 @@ def _scale_vectors(scales, hkv, device):
 
 
 def launch_split(q, k_ptr, v_ptr, lengths, *, hkv, s, scale, kv_code, scales=None, out=None,
-                 parts=None, split_len=None, pages=None, window=None, sinks=0, softcap=None):
+                 parts=None, split_len=None, pages=None, window=None, sinks=0, softcap=None,
+                 append=None):
     """Launch ``csrc/flash_decode_split.cu`` on checked, contiguous inputs:
     q (B, Hq, D) or (B, Hq, T, D), one layer's K/V pointers, int32 lengths,
     ``scales`` = (k_scales, v_scales) on a quantized cache. Merging mode
@@ -291,7 +320,10 @@ def launch_split(q, k_ptr, v_ptr, lengths, *, hkv, s, scale, kv_code, scales=Non
     cached workspace, one launch. Partials mode (``parts`` = (o, m, l),
     ``split_len``): the caller's split geometry. ``pages`` =
     (page_table, num_pages, page_size) selects the paged form, which folds
-    ``scale`` into q and rounds it to q's dtype."""
+    ``scale`` into q and rounds it to q's dtype. ``append`` = (k_new, v_new,
+    wpos), checked by :func:`check_append`, folds the decode step's row
+    append into the launch (wpos of any integer dtype, taken to int32 on
+    q's device here; the kernel clamps it to the last slot)."""
     b, hq = q.shape[:2]
     d = q.shape[-1]
     qspan = q.shape[2] if q.dim() == 4 else 1
@@ -303,6 +335,9 @@ def launch_split(q, k_ptr, v_ptr, lengths, *, hkv, s, scale, kv_code, scales=Non
         chunk, n = split_len, o.shape[2]
     table, num_pages, page_size = pages if pages is not None else (None, 0, 1)
     k_scales, v_scales = _scale_vectors(scales, hkv, q.device)
+    k_new, v_new, wpos = append if append is not None else (None, None, None)
+    if wpos is not None:
+        wpos = wpos.to(device=q.device, dtype=torch.int32).contiguous()
     lib = _build.load("flash_decode_split", _SPLIT_SIGNATURES)
     with torch.cuda.device(q.device):
         err = lib.flash_decode_split(
@@ -312,6 +347,7 @@ def launch_split(q, k_ptr, v_ptr, lengths, *, hkv, s, scale, kv_code, scales=Non
             None if arrivals is None else _build.ptr(arrivals),
             None if k_scales is None else _build.ptr(k_scales),
             None if v_scales is None else _build.ptr(v_scales),
+            *(None if t is None else _build.ptr(t) for t in (k_new, v_new, wpos)),
             b, hq, hkv, s, d, qspan, chunk, n, 0 if table is None else table.shape[1], page_size,
             num_pages, scale, _CUDA_DTYPES[q.dtype], kv_code, int(table is not None),
             int(has_variants(window, sinks, softcap)), *kernel_options(window, sinks, softcap),
@@ -392,8 +428,21 @@ def flash_decode_plain(q, k_cache, v_cache, lengths, *, layer=None, sm_scale=Non
                    v_scales, _fused_plain, _stats_plain, opts=variant_options(window, sinks, softcap))
 
 
+def flash_decode_append_plain(q, k_cache, v_cache, k_new, v_new, pos, lengths, *, layer=None,
+                              sm_scale=None, num_splits=4, block_k=256, k_scales=None,
+                              v_scales=None, window=None, sinks=0, softcap=None):
+    """Plain twin of :func:`flash_decode_append`: :func:`append_rows_kv_plain`
+    at ``min(pos, S - 1)``, then :func:`flash_decode_plain`."""
+    k_cache, v_cache, layer = _as_table(k_cache, v_cache, layer)
+    append_rows_kv_plain(k_cache, v_cache, k_new, v_new, layer,
+                         torch.clamp(pos, max=k_cache.shape[3] - 1))
+    return flash_decode_plain(q, k_cache, v_cache, lengths, layer=layer, sm_scale=sm_scale,
+                              num_splits=num_splits, block_k=block_k, k_scales=k_scales,
+                              v_scales=v_scales, window=window, sinks=sinks, softcap=softcap)
+
+
 def _decode(q, k_cache, v_cache, lengths, layer, sm_scale, num_splits, block_k, k_scales,
-            v_scales, fused, stats, partials=False, opts=None, kernel=False):
+            v_scales, fused, stats, partials=False, opts=None, kernel=False, append=None):
     """The wrapper logic shared by the kernel and the plain route: the split
     choice and, for a quantized cache, the scales around ``fused`` /
     ``stats`` (functions of q, tables, lengths, layer=, sm_scale=[,
@@ -401,7 +450,8 @@ def _decode(q, k_cache, v_cache, lengths, layer, sm_scale, num_splits, block_k, 
     the ``kernel`` route both take ``scales=`` (k_scales, v_scales) or None
     and apply them in the kernel; on the plain route they are folded around
     the call in JAX's order. A window or softcap needs one split, as in
-    JAX."""
+    JAX. ``append`` (kernel route only) is the folded append's (k_new,
+    v_new, pos), handed to whichever launch runs."""
     k_cache, v_cache, layer = _as_table(k_cache, v_cache, layer)
     opts = opts or variant_options(None, 0, None)
     n = _split_geometry(k_cache.shape[3], num_splits, block_k)[0]
@@ -414,7 +464,8 @@ def _decode(q, k_cache, v_cache, lengths, layer, sm_scale, num_splits, block_k, 
                              "use num_splits=1 for Gemma-2-class models")
     quantized = _quantized(k_cache, k_scales, v_scales)
     if kernel:
-        kw = dict(layer=layer, sm_scale=sm_scale, scales=(k_scales, v_scales) if quantized else None)
+        kw = dict(layer=layer, sm_scale=sm_scale, scales=(k_scales, v_scales) if quantized else None,
+                  append=append)
         if n == 1 and not partials:
             return fused(q, k_cache, v_cache, lengths, **kw, **opts)
         o, m, l = stats(q, k_cache, v_cache, lengths, num_splits=num_splits, block_k=block_k, **kw)
@@ -450,10 +501,11 @@ def lse_combine_splits(o_parts, m_parts, l_parts, dtype=None):
 
 
 def _launch(q, k_cache, v_cache, lengths, layer, sm_scale, n, split_len, fused, scales=None,
-            window=None, sinks=0, softcap=None):
+            window=None, sinks=0, softcap=None, append=None):
     """Run csrc/flash_decode_split.cu on one layer of the table; returns the
     normalized output (fused; q (B, Hq, D), or (B, Hq, T, D) to verify) or
-    the (o, m, l) partials."""
+    the (o, m, l) partials. ``append`` = (k_new, v_new, pos): the folded
+    row append."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
     l_, b, hkv, s, d = k_cache.shape
@@ -490,26 +542,33 @@ def _launch(q, k_cache, v_cache, lengths, layer, sm_scale, n, split_len, fused, 
     scale = 1.0 / d**0.5 if sm_scale is None else float(sm_scale)
     launch_split(q, k_ptr, v_ptr, lengths, hkv=hkv, s=s, scale=scale, kv_code=kv_code,
                  scales=scales, out=out, parts=None if fused else parts, split_len=split_len,
-                 window=window, sinks=sinks, softcap=softcap)
+                 window=window, sinks=sinks, softcap=softcap, append=append)
     return out if fused else parts
 
 
-def _fused_kernel(q, k_cache, v_cache, lengths, *, layer, sm_scale, scales, **opts):
+def _count_launch(append):
+    flash_decode.launches += 1
+    if append is not None:
+        flash_decode_append.launches += 1
+
+
+def _fused_kernel(q, k_cache, v_cache, lengths, *, layer, sm_scale, scales, append=None, **opts):
     s = k_cache.shape[3]
     out = _launch(q, k_cache, v_cache, lengths, layer, sm_scale, 1, s, fused=True, scales=scales,
-                  **opts)
-    flash_decode.launches += 1
+                  append=append, **opts)
+    _count_launch(append)
     if opts["window"] is not None and opts["window"] < s:
         flash_decode.launches_banded += 1
     return out
 
 
-def _stats_kernel(q, k_cache, v_cache, lengths, *, layer, sm_scale, num_splits, block_k, scales):
+def _stats_kernel(q, k_cache, v_cache, lengths, *, layer, sm_scale, num_splits, block_k, scales,
+                  append=None):
     s = k_cache.shape[3]
     n, _, _ = _split_geometry(s, num_splits, block_k)
     parts = _launch(q, k_cache, v_cache, lengths, layer, sm_scale, n, s // n, fused=False,
-                    scales=scales)
-    flash_decode.launches += 1
+                    scales=scales, append=append)
+    _count_launch(append)
     return parts
 
 
@@ -576,6 +635,51 @@ def flash_decode(
 
 flash_decode.launches = 0
 flash_decode.launches_banded = 0  # those whose window band is narrower than the table
+
+
+def flash_decode_append(
+    q: torch.Tensor,  # (B, Hq, D)
+    k_cache: torch.Tensor,  # (B, Hkv, S, D) or (L, B, Hkv, S, D) with `layer`
+    v_cache: torch.Tensor,
+    k_new: torch.Tensor,  # (B, Hkv, D) in the cache's dtype, contiguous, 16-byte aligned
+    v_new: torch.Tensor,
+    pos: torch.Tensor,  # (B,) int32 write positions, clamped to S - 1
+    lengths: torch.Tensor,  # (B,) int32 attended rows, the new one included
+    *,
+    layer: int | None = None,
+    sm_scale: float | None = None,
+    num_splits: int = 4,
+    block_k: int = 256,
+    k_scales: torch.Tensor | None = None,
+    v_scales: torch.Tensor | None = None,
+    window=None,
+    sinks: int = 0,
+    softcap: float | None = None,
+) -> torch.Tensor:
+    """The decode step's append and attention in one launch: writes
+    ``table[layer, b, :, min(pos[b], S - 1)] = new[b]`` for K and V IN
+    PLACE, then returns :func:`flash_decode` over ``lengths`` -> (B, Hq, D),
+    bit for bit ``append_rows_kv`` followed by ``flash_decode`` (the kernel
+    writes the row from the block whose chunk holds it and reads it from
+    the new rows; see ``csrc/flash_decode_split.cu``). A quantized cache
+    takes its rows already quantized. ``pos`` and ``lengths`` are never
+    read back to the host. Each launch counts in ``flash_decode.launches``
+    and in ``flash_decode_append.launches``. Raises ``ValueError`` on rows
+    the kernel does not take (:func:`check_append`) on either route."""
+    k_tab, _, _ = _as_table(k_cache, v_cache, layer)
+    check_append("flash_decode_append", q, k_new, v_new, pos, k_tab.dtype, k_tab.shape[2], k_tab.shape[4])
+    if q.device.type == "cpu":
+        return flash_decode_append_plain(q, k_cache, v_cache, k_new, v_new, pos, lengths, layer=layer,
+                                         sm_scale=sm_scale, num_splits=num_splits, block_k=block_k,
+                                         k_scales=k_scales, v_scales=v_scales, window=window,
+                                         sinks=sinks, softcap=softcap)
+    return _decode(q, k_cache, v_cache, lengths, layer, sm_scale, num_splits, block_k, k_scales,
+                   v_scales, _fused_kernel, _stats_kernel,
+                   opts=variant_options(window, sinks, softcap), kernel=True,
+                   append=(k_new, v_new, pos))
+
+
+flash_decode_append.launches = 0  # the launches that folded an append (all also in flash_decode's)
 
 
 # ----------------------------------------------------------------- verify

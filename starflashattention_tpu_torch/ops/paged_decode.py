@@ -8,7 +8,10 @@ table. On CUDA tensors it launches the paged form of
 ``_paged_decode_kernel``): the contiguous decode's (K1's) split KV walk on
 its chunk grid, with each KV row's address resolved through the table,
 merged by the last block in the same launch. On CPU tensors it runs
-:func:`paged_flash_decode_plain`.
+:func:`paged_flash_decode_plain`. ``paged_flash_decode_append`` folds the
+decode step's paged row append (``append_rows_paged_kv``, kernel K8) into
+that launch, bit for bit K8 followed by K7 (see
+``ops/flash_decode.flash_decode_append``).
 
 As the JAX wrapper does, ``sm_scale`` is folded into q and the scaled q is
 rounded to q's dtype before the dot products. Int8 / fp8 pools fold
@@ -32,10 +35,11 @@ import torch
 
 from starflashattention_tpu_torch.core.reference import NEG_INF, repeat_kv
 from starflashattention_tpu_torch.ops import _build
-from starflashattention_tpu_torch.ops.flash_decode import (_quantized, cap_scores, check_head_dim,
-                                                           fold_k_scale, has_variants, in_band,
-                                                           kv_dtype_code, launch_split, scale_heads,
-                                                           variant_options)
+from starflashattention_tpu_torch.ops.cache_append import append_rows_paged_kv_plain
+from starflashattention_tpu_torch.ops.flash_decode import (_quantized, cap_scores, check_append,
+                                                           check_head_dim, fold_k_scale, has_variants,
+                                                           in_band, kv_dtype_code, launch_split,
+                                                           scale_heads, variant_options)
 
 _CUDA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -103,7 +107,7 @@ def paged_flash_decode_plain(q, k_pages, v_pages, page_table, lengths, *, layer=
 
 
 def _paged_kernel(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, k_scales, v_scales,
-                  window=None, sinks=0, softcap=None):
+                  window=None, sinks=0, softcap=None, append=None):
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_decode: unsupported device {q.device}")
     k_pages, v_pages, layer = _as_stack(k_pages, v_pages, layer)
@@ -135,8 +139,10 @@ def _paged_kernel(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, k_s
     v_ptr = _build.P(v_pages.data_ptr() + layer * layer_bytes)
     launch_split(q, k_ptr, v_ptr, lengths, hkv=hkv, s=table.shape[1] * ps, scale=scale,
                  kv_code=kv_code, scales=scales, out=out, pages=(table, num_pages, ps),
-                 window=window, sinks=sinks, softcap=softcap)
+                 window=window, sinks=sinks, softcap=softcap, append=append)
     paged_flash_decode.launches += 1
+    if append is not None:
+        paged_flash_decode_append.launches += 1
     return out
 
 
@@ -170,3 +176,61 @@ def paged_flash_decode(
 
 
 paged_flash_decode.launches = 0
+
+
+def paged_flash_decode_append_plain(q, k_pages, v_pages, page_table, k_new, v_new, pos, lengths, *,
+                                    layer=None, sm_scale=None, k_scales=None, v_scales=None,
+                                    window=None, sinks=0, softcap=None):
+    """Plain twin of :func:`paged_flash_decode_append`:
+    :func:`append_rows_paged_kv_plain` at ``min(pos, pages_per_seq *
+    page_size - 1)``, then :func:`paged_flash_decode_plain`."""
+    k_stack, v_stack, lidx = _as_stack(k_pages, v_pages, layer)
+    last = page_table.shape[1] * k_stack.shape[3] - 1
+    append_rows_paged_kv_plain(k_stack, v_stack, k_new, v_new, lidx, page_table,
+                               torch.clamp(pos, max=last))
+    return paged_flash_decode_plain(q, k_pages, v_pages, page_table, lengths, layer=layer,
+                                    sm_scale=sm_scale, k_scales=k_scales, v_scales=v_scales,
+                                    window=window, sinks=sinks, softcap=softcap)
+
+
+def paged_flash_decode_append(
+    q: torch.Tensor,  # (B, Hq, D)
+    k_pages: torch.Tensor,  # (Hkv, P, ps, D) or (L, Hkv, P, ps, D) with `layer`
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,  # (B, pages_per_seq) int32
+    k_new: torch.Tensor,  # (B, Hkv, D) in the pools' dtype, contiguous, 16-byte aligned
+    v_new: torch.Tensor,
+    pos: torch.Tensor,  # (B,) int32 logical write positions, clamped to pages_per_seq * ps - 1
+    lengths: torch.Tensor,  # (B,) int32 attended rows, the new one included
+    *,
+    layer: int | None = None,
+    sm_scale: float | None = None,
+    k_scales: torch.Tensor | None = None,
+    v_scales: torch.Tensor | None = None,
+    window=None,
+    sinks: int = 0,
+    softcap: float | None = None,
+) -> torch.Tensor:
+    """The paged decode step's append (``append_rows_paged_kv``, K8) folded
+    into K7's launch: writes ``pool[layer, :, page_table[b, p // ps], p %
+    ps] = new[b]`` at ``p = min(pos[b], pages_per_seq * ps - 1)`` for K and
+    V IN PLACE, then returns :func:`paged_flash_decode` over ``lengths``,
+    bit for bit K8 followed by K7. A row whose table entry is the null page
+    0 writes there, as K8 does. Each launch counts in
+    ``paged_flash_decode.launches`` and ``paged_flash_decode_append.launches``;
+    ``pos`` and ``lengths`` are never read back to the host. Raises
+    ``ValueError`` on rows the kernel does not take
+    (``ops.flash_decode.check_append``) on either route."""
+    k_stack, _, _ = _as_stack(k_pages, v_pages, layer)
+    check_append("paged_flash_decode_append", q, k_new, v_new, pos, k_stack.dtype, k_stack.shape[1],
+                 k_stack.shape[4])
+    opts = variant_options(window, sinks, softcap)
+    if q.device.type == "cpu":
+        return paged_flash_decode_append_plain(q, k_pages, v_pages, page_table, k_new, v_new, pos,
+                                               lengths, layer=layer, sm_scale=sm_scale,
+                                               k_scales=k_scales, v_scales=v_scales, **opts)
+    return _paged_kernel(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, k_scales,
+                         v_scales, **opts, append=(k_new, v_new, pos))
+
+
+paged_flash_decode_append.launches = 0  # the launches that folded an append (all also in paged_flash_decode's)

@@ -34,7 +34,6 @@ import torch
 from starflashattention_tpu_torch.cache import contiguous
 from starflashattention_tpu_torch.cache.contiguous import KVCache
 from starflashattention_tpu_torch.models import llama
-from starflashattention_tpu_torch.ops.flash_decode import flash_decode
 from starflashattention_tpu_torch.parallel import comm
 from starflashattention_tpu_torch.parallel import tp as tp_mod
 from starflashattention_tpu_torch.runtime.params import ModelConfig
@@ -159,11 +158,9 @@ def make_pp_decode_step(mesh, cfg: ModelConfig, params_example: dict | None = No
 
             def attend(lidx, q, k_new, v_new, j=j, mcache=mcache, att=att):
                 li = lidx * m + j
-                contiguous.append_decode(mcache, li, k_new, v_new)
-                ks, vs = mcache.layer_scales(li)
-                return flash_decode(q, mcache.k, mcache.v, att, layer=li, sm_scale=scfg.sm_scale(),
-                                    num_splits=scfg.num_splits, block_k=scfg.block_k, k_scales=ks,
-                                    v_scales=vs, **llama._attn_options(scfg, stage * l_local + lidx))
+                return contiguous.append_decode_attend(
+                    mcache, li, q, k_new, v_new, att, sm_scale=scfg.sm_scale(), num_splits=scfg.num_splits,
+                    block_k=scfg.block_k, **llama._attn_options(scfg, stage * l_local + lidx))
 
             if stage == 0:
                 x = llama._embed_tokens(params, tokens[rows], scfg)

@@ -3,8 +3,8 @@
 
 ``mha_fwd`` is the reference's ``mha_fwd_cuda`` API (a fused QKV row per
 sequence in, one layer's attention out) and rides the same kernels as the
-model: ``append_rows_kv`` for the append and ``flash_decode`` for the
-attention. The cache is updated IN PLACE; call
+model: ``flash_decode_append``, the decode attention with the append
+folded into its launch. The cache is updated IN PLACE; call
 :func:`cache.contiguous.advance` once after all layers ran.
 """
 
@@ -14,7 +14,6 @@ import torch
 
 from starflashattention_tpu_torch.cache import contiguous
 from starflashattention_tpu_torch.core.rope import apply_rope, rope_table
-from starflashattention_tpu_torch.ops.flash_decode import flash_decode
 from starflashattention_tpu_torch.runtime.params import AttentionConfig
 from starflashattention_tpu_torch.utils.device import resolve_device
 
@@ -59,11 +58,9 @@ def attention_decode_step(
     pos = cache.lengths
     q = apply_rope(q, pos, cos_table, sin_table, style=cfg.rope_style)
     k_new = apply_rope(k_new, pos, cos_table, sin_table, style=cfg.rope_style)
-    contiguous.append_decode(cache, layer, k_new, v_new)
-    ks, vs = cache.layer_scales(layer)
-    o = flash_decode(q, cache.k, cache.v, cache.lengths + 1, layer=layer,
-                     sm_scale=cfg.sm_scale, num_splits=cfg.num_splits, block_k=cfg.block_k,
-                     k_scales=ks, v_scales=vs)
+    o = contiguous.append_decode_attend(cache, layer, q, k_new, v_new, cache.lengths + 1,
+                                        sm_scale=cfg.sm_scale, num_splits=cfg.num_splits,
+                                        block_k=cfg.block_k)
     return o, cache
 
 

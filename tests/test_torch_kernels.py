@@ -12,7 +12,11 @@ arrival counters back at zero), K6 (int4 weight-only; its tiled form at
 partial tiles and groups that end inside a stage), K4's tiled form on int8 and fp8 weights at
 partial tiles and a TP shard's K, K10 / K11 (W8A8 / W4A8; both also at
 phase 14's TP-4 shard shapes, K10 byte for byte its twin at ragged tiles), the int8 / fp8 options of K1, K2 and K7, and
-K8 on 1-byte pools; quantized deployments
+K8 on 1-byte pools; the decode step's append folded into K1, K2 and K7
+(bit for bit the standalone K3 / K8 followed by the decode, output and
+whole tables, at D 64, 128, 256 and 640, on fp32, bf16, int8 and fp8 KV,
+plain and with the variants, and at Mistral's and Gemma-2's variant
+shapes); quantized deployments
 through ``generate`` and both engines. Decode at head_dim 64, 128 and 256
 (one kernel, the KV walk split across blocks, the quantized KV's scales
 folded in it): decode, verify and paged decode at the edge cases of
@@ -205,6 +209,137 @@ def test_append_rows_paged_kernel_matches_plain(cuda, dtype, page_size):
     assert cache_append.append_rows_paged_kv.launches == before + 1
     cache_append.append_rows_paged_kv_plain(k2, v2, kn, vn, 1, table, pos)
     assert torch.equal(k, k2) and torch.equal(v, v2)
+
+
+# ----------------------------------------------------------------- the folded append
+
+# (write position, attended rows) at S 512: a first token, an inactive row
+# (a stale write, 0 rows), a write clamped to S - 1, writes on each side of
+# the 128-row chunk edge, a length-0 row
+FOLD_S, FOLD_ROWS = 512, ((0, 1), (37, 0), (517, 512), (128, 129), (0, 0), (127, 128))
+FOLD_VARIANTS = dict(window=64, sinks=4, softcap=30.0)
+
+
+def _bits_equal(a, b):
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+    return a.shape == b.shape and torch.equal(a.contiguous().view(ints[a.element_size()]),
+                                              b.contiguous().view(ints[b.element_size()]))
+
+
+def _fold_case(dev, d, kv, s=FOLD_S, rows=FOLD_ROWS, hq=None, hkv=None):
+    """q, the (2, B, Hkv, S, D) tables, the new rows, write positions,
+    lengths and the scales keyword arguments of one fold case: bf16 q on
+    bf16 / int8 / fp8 KV (quantized against 5 / qmax), fp32 q on fp32 KV."""
+    from starflashattention_tpu_torch.core.quant import quantize_value
+
+    gen = _gen(dev)
+    hq, hkv = hq or (16 if d == 640 else 8), hkv or (1 if d == 640 else 2)
+    b = len(rows)
+    q_dtype = torch.float32 if kv == "float32" else torch.bfloat16
+    q = torch.randn((b, hq, d), generator=gen, device=dev, dtype=q_dtype)
+    tensors = [torch.randn(shape, generator=gen, device=dev, dtype=q_dtype)
+               for shape in ((2, b, hkv, s, d),) * 2 + ((b, hkv, d),) * 2]
+    sc = {}
+    if kv in ("int8", "fp8"):
+        scales = torch.full((hkv,), 5.0 / (127.0 if kv == "int8" else 448.0), device=dev)
+        tensors = [quantize_value(t, scales, kv, head_axis=2 if t.dim() == 5 else 1) for t in tensors]
+        sc = dict(k_scales=scales, v_scales=scales)
+    wpos = torch.tensor([p for p, _ in rows], dtype=torch.int32, device=dev)
+    lengths = torch.tensor([n for _, n in rows], dtype=torch.int32, device=dev)
+    return q, *tensors, wpos, lengths, sc
+
+
+def _fold_matches(tables, fused, sequence):
+    """The fused launch and the standalone append then the decode, each on
+    its own clones of ``tables``: equal output and tables, bit for bit."""
+    a, b = [t.clone() for t in tables], [t.clone() for t in tables]
+    out_f, out_s = fused(*a), sequence(*b)
+    assert _bits_equal(out_f, out_s)
+    assert all(_bits_equal(x, y) for x, y in zip(a, b))
+    return out_f
+
+
+def _fold_modes(d):
+    modes = ["merging", "partials", "paged"]
+    return modes if d == 640 else modes + ["variants", "paged variants"]
+
+
+@pytest.mark.parametrize("d,kv,mode", [(d, kv, mode) for d in (64, 128, 256, 640)
+                                       for kv in (("bfloat16",) if d == 640 else
+                                                  ("bfloat16", "float32", "int8", "fp8"))
+                                       for mode in _fold_modes(d)])
+def test_folded_append_equals_append_then_decode(cuda, d, kv, mode):
+    """K3 folded into K1 (merging), K2 (4 splits) and K8 into K7 (a
+    shuffled table; the inactive and length-0 rows' entries the null page
+    0), plain and with window 64, 4 sinks and softcap 30: bit for bit the
+    standalone append followed by the decode, output and whole tables;
+    one launch, counted by both counters."""
+    q, k, v, kn, vn, wpos, lengths, sc = _fold_case(cuda, d, kv)
+    opts = FOLD_VARIANTS if "variants" in mode else {}
+    pos = torch.clamp(wpos, max=FOLD_S - 1)
+    if mode.startswith("paged"):
+        ps = 16
+        b = q.shape[0]
+        full = (torch.randperm(b * FOLD_S // ps, generator=torch.Generator().manual_seed(2)) + 1).reshape(b, -1)
+        full = full.to(device=cuda, dtype=torch.int32)
+        pools = []
+        for t in (k, v):
+            pool = torch.zeros((2, t.shape[2], b * FOLD_S // ps + 1, ps, d), dtype=t.dtype, device=cuda)
+            pool.view(torch.uint8)[:, :, full.reshape(-1).long()] = t.view(torch.uint8).reshape(
+                2, b, t.shape[2], FOLD_S // ps, ps, d * t.element_size()).transpose(1, 2).reshape(
+                2, t.shape[2], -1, ps, d * t.element_size())
+            pools.append(pool)
+        table = full.clone()
+        table[lengths == 0] = 0
+        kw = dict(layer=1, **sc, **opts)
+        before = (paged_decode.paged_flash_decode.launches, paged_decode.paged_flash_decode_append.launches)
+        _fold_matches(pools, lambda a, b_: paged_decode.paged_flash_decode_append(q, a, b_, table, kn, vn, wpos,
+                                                                                  lengths, **kw),
+                      lambda a, b_: (cache_append.append_rows_paged_kv(a, b_, kn, vn, 1, table, pos),
+                                     paged_decode.paged_flash_decode(q, a, b_, table, lengths, **kw))[1])
+        assert (paged_decode.paged_flash_decode.launches - before[0],
+                paged_decode.paged_flash_decode_append.launches - before[1]) == (2, 1)
+        return
+    kw = dict(layer=1, num_splits=4 if mode == "partials" else 1, block_k=256, **sc, **opts)
+    before = (flash_decode.flash_decode.launches, flash_decode.flash_decode_append.launches)
+    out = _fold_matches((k, v), lambda a, b_: flash_decode.flash_decode_append(q, a, b_, kn, vn, wpos, lengths, **kw),
+                        lambda a, b_: (cache_append.append_rows_kv(a, b_, kn, vn, 1, pos),
+                                       flash_decode.flash_decode(q, a, b_, lengths, **kw))[1])
+    assert (flash_decode.flash_decode.launches - before[0],
+            flash_decode.flash_decode_append.launches - before[1]) == (2, 1)
+    assert torch.all(out[lengths == 0] == 0)
+
+
+@pytest.mark.parametrize("family", ["mistral", "gemma2"])
+def test_folded_append_at_the_variant_shapes(cuda, family):
+    """Mistral-7B's window 4096 + 4 sinks (D 128, G 4) and Gemma-2-9B's
+    softcap 50 on a sliding (window 4096) layer at D 256 (G 2), S 8192,
+    writes past the window, inside the sink tile and at the table's end:
+    bit for bit K3 then K1."""
+    d, hq, hkv, opts = ((128, 32, 8, dict(window=4096, sinks=4)) if family == "mistral"
+                        else (256, 16, 8, dict(window=4096, softcap=50.0)))
+    rows = ((6000, 6001), (20, 21), (8191, 8192), (5000, 0))
+    q, k, v, kn, vn, wpos, lengths, _ = _fold_case(cuda, d, "bfloat16", s=8192, rows=rows, hq=hq, hkv=hkv)
+    kw = dict(layer=1, num_splits=1, **opts)
+    _fold_matches((k, v), lambda a, b_: flash_decode.flash_decode_append(q, a, b_, kn, vn, wpos, lengths, **kw),
+                  lambda a, b_: (cache_append.append_rows_kv(a, b_, kn, vn, 1, wpos),
+                                 flash_decode.flash_decode(q, a, b_, lengths, **kw))[1])
+
+
+def test_folded_append_refusals(cuda):
+    """A verify span and rows the kernel does not take raise; nothing is
+    copied to fit."""
+    q, k, v, kn, vn, wpos, lengths, _ = _fold_case(cuda, 128, "bfloat16")
+    run = lambda *a: flash_decode.flash_decode_append(*a, layer=1, num_splits=1)  # noqa: E731
+    with pytest.raises(ValueError, match="verify span"):
+        run(q[:, :, None].expand(-1, -1, 3, -1).contiguous(), k, v, kn, vn, wpos, lengths)
+    with pytest.raises(ValueError, match="contiguous"):
+        run(q, k, v, kn, vn.transpose(1, 2).contiguous().transpose(1, 2), wpos, lengths)
+    unaligned = torch.empty(vn.numel() + 1, dtype=vn.dtype, device=cuda)[1:].view(vn.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        run(q, k, v, kn, unaligned, wpos, lengths)
+    with pytest.raises(ValueError, match="does not match"):
+        run(q, k, v, kn.float(), vn, wpos, lengths)
 
 
 @pytest.mark.parametrize("mode", ["int8", "fp8"])
@@ -582,14 +717,15 @@ def test_generate_runs_on_the_kernels(cuda):
     prompts = torch.randint(0, cfg.vocab_size, (3, 40), generator=_gen(cuda), device=cuda,
                             dtype=torch.int32)
     lengths = torch.tensor([40, 17, 1], dtype=torch.int32, device=cuda)
-    counters = (cache_append.append_rows_kv, flash_decode.flash_decode,
+    # the decode step's append runs in the decode launch: the standalone K3 never
+    counters = (cache_append.append_rows_kv, flash_decode.flash_decode_append, flash_decode.flash_decode,
                 flash_prefill.flash_prefill, quant_matmul.quant_matmul)
     before = [fn.launches for fn in counters]
     toks = llama.generate(params, cfg, prompts, lengths, 4, device=cuda)
     assert toks.shape == (3, 4) and toks.dtype == torch.int32
     grew = [fn.launches - b for fn, b in zip(counters, before)]
     n_layers, steps = cfg.num_layers, 3
-    assert grew == [steps * n_layers, steps * n_layers, n_layers, (4 * n_layers + 1) * (steps + 1)]
+    assert grew == [0, steps * n_layers, steps * n_layers, n_layers, (4 * n_layers + 1) * (steps + 1)]
 
     def to(tree, dev):
         return {k: to(v, dev) for k, v in tree.items()} if isinstance(tree, dict) else tree.to(dev)
@@ -657,9 +793,10 @@ def test_quantized_generate_runs_on_the_kernels(cuda, weights, overrides):
 
 def test_serving_engines_run_on_the_kernels(cuda):
     """Both engines serve a narrow bf16 model on the card: the paged engine
-    launches the paged decode and the paged append once per layer and decode
-    step (and the contiguous ones never), preempts, hits its prefix cache
-    and replays sampled streams exactly; every request finishes."""
+    launches the paged decode, its append folded in, once per layer and
+    decode step (and the contiguous ones never), preempts, hits its prefix
+    cache and replays sampled streams exactly; every request finishes. The
+    standalone appends (K3, K8) launch on neither."""
     cfg = ModelConfig.tiny(hidden_size=256, intermediate_size=512, num_q_heads=4, num_kv_heads=2,
                            head_dim=64, max_seq_len=256, dtype="bfloat16")
     params = llama.quantize_model_weights(
@@ -667,8 +804,9 @@ def test_serving_engines_run_on_the_kernels(cuda):
     g = torch.Generator().manual_seed(3)
     prefix = torch.randint(0, cfg.vocab_size, (32,), generator=g).tolist()
     prompts = [prefix + torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist() for n in (5, 40, 9, 70, 17)]
-    counters = (cache_append.append_rows_kv, flash_decode.flash_decode,
-                cache_append.append_rows_paged_kv, paged_decode.paged_flash_decode)
+    counters = (cache_append.append_rows_kv, cache_append.append_rows_paged_kv,
+                flash_decode.flash_decode_append, flash_decode.flash_decode,
+                paged_decode.paged_flash_decode_append, paged_decode.paged_flash_decode)
 
     def run(engine):
         before = [fn.launches for fn in counters]
@@ -678,7 +816,7 @@ def test_serving_engines_run_on_the_kernels(cuda):
 
     samp = [SamplingParams(temperature=0.9, top_p=0.9, seed=i) for i in range(len(prompts))]
     _, grew = run(Engine(params, cfg, num_slots=2, steps_per_round=4, device=cuda))
-    assert grew[2:] == [0, 0] and grew[0] == grew[1] > 0
+    assert grew[:2] == [0, 0] and grew[4:] == [0, 0] and grew[2] == grew[3] > 0
 
     def paged(**kw):
         return PagedEngine(params, cfg, num_slots=2, steps_per_round=4, page_size=16, num_pages=10,
@@ -687,7 +825,7 @@ def test_serving_engines_run_on_the_kernels(cuda):
     eng = paged()
     _, grew = run(eng)
     steps = eng.stats.decode_rounds * 4 * cfg.num_layers
-    assert grew == [0, 0, steps, steps]
+    assert grew == [0, 0, 0, 0, steps, steps]
     assert eng.stats.preemptions > 0 and eng.stats.prefix_hits > 0
     assert run(paged(enable_sampling=True))[0] == run(paged(enable_sampling=True))[0]
 
@@ -763,8 +901,8 @@ def test_flash_verify_kernel_matches_plain_and_decode(cuda, kv, t, d):
 def test_spec_engines_run_on_the_kernels(cuda):
     """Both draft sources serve a narrow bf16 model on the card: every verify
     step launches K9 and K1's verify mode once a layer and the one-row
-    append never (the draft model's decode steps do, on its own cache);
-    every request finishes."""
+    append never (the draft model's decode steps append, folded into their
+    decode launches, on its own cache); every request finishes."""
     cfg = ModelConfig.tiny(hidden_size=256, intermediate_size=512, num_q_heads=4, num_kv_heads=2,
                            head_dim=64, max_seq_len=256, dtype="bfloat16", num_splits=1)
     params = llama.quantize_model_weights(
@@ -774,7 +912,8 @@ def test_spec_engines_run_on_the_kernels(cuda):
     dparams = llama.init_params(dcfg, torch.Generator(device=cuda).manual_seed(1), device=cuda)
     motif = torch.randint(0, cfg.vocab_size, (12,), generator=torch.Generator().manual_seed(3)).tolist()
     prompts = [motif + [i, i + 1] + motif for i in range(5)]
-    counters = (flash_decode.flash_verify, cache_append.append_block_kv, cache_append.append_rows_kv)
+    counters = (flash_decode.flash_verify, cache_append.append_block_kv, cache_append.append_rows_kv,
+                flash_decode.flash_decode_append)
     for draft, k in ((None, 3), ((dparams, dcfg), 2)):
         eng = Engine(params, cfg, num_slots=2, steps_per_round=3, spec_decode=k, draft_model=draft,
                      device=cuda)
@@ -783,7 +922,7 @@ def test_spec_engines_run_on_the_kernels(cuda):
         grew = [fn.launches - b for fn, b in zip(counters, before)]
         steps = eng.stats.decode_rounds * 3
         draft_rows = 0 if draft is None else steps * (k + 1) * dcfg.num_layers
-        assert grew == [steps * cfg.num_layers, steps * cfg.num_layers, draft_rows]
+        assert grew == [steps * cfg.num_layers, steps * cfg.num_layers, 0, draft_rows]
         assert eng.stats.finished == len(prompts) and all(len(o) == 12 for o in out)
         assert eng.stats.spec_steps > 0
 
