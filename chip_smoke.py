@@ -13,13 +13,16 @@ Phases (any failure raises and the script exits non-zero):
    sm_90a, one process per source, all at once.
 2. Kernel vs plain: each kernel against its plain PyTorch twin on the card
    (the paged decode and the paged append on a shuffled page table; the
-   decode paths' row append folded into the decode launch, ``[fold]``
-   lines: bit for bit the standalone append then the decode, output and
-   whole tables, at the decode shape and in 93 forms of the kernel (D 64,
-   128, 256 and 640; fp32 / bf16 q; fp32, bf16, int8 and fp8 KV; 1 and 4
-   splits, paged; plain and with the window, sinks and softcap; inactive,
-   clamped and chunk-edge rows), timed beside the decode alone and beside
-   the append followed by the decode),
+   decode paths' row append folded into the decode launch and the verify
+   path's block append into the verify launch, ``[fold]`` lines: bit for
+   bit the standalone append then the decode or the verify, output and
+   whole tables, at the decode and verify shapes and in 129 forms of the
+   kernel (D 64, 128, 256 and 640; fp32 / bf16 q; fp32, bf16, int8 and fp8
+   KV; 1 and 4 splits, paged, verify spans of T 5; plain and with the
+   window, sinks and softcap; inactive, clamped, chunk-edge and
+   tile-straddling rows), timed beside the attention alone and beside the
+   append followed by the attention; an empty kernel's launch, the floor
+   of the launch-bound appends),
    in bf16 at the shapes the 7B-GQA path gives it, with the error printed
    beside its tolerance; kernel, plain and library-call times (CUDA events,
    L2 flushed before each launch, the device kept busy while the host
@@ -36,7 +39,8 @@ Phases (any failure raises and the script exits non-zero):
    Speculative decoding's
    kernels at its verify step's shapes (B=8, T=5): the verify mode of the
    decode attention on bf16 and int8 KV, each query token also held bit for
-   bit to the fused decode at lengths + j, and the block append. The
+   bit to the fused decode at lengths + j, and the block append, standalone
+   and folded into the verify launch. The
    training kernels: the prefill attention with the base-2 LSE (checked
    causal and not, on ragged lengths with a zero-length sequence and q
    offsets, then timed at phase 9a's shapes against SDPA's forward) and the
@@ -171,9 +175,13 @@ Phases (any failure raises and the script exits non-zero):
    spec_ngram=4)``, the same with a 2-layer draft model of the same width
    (int8, another seed), and ``spec_decode=4`` on an int8 KV cache. Launch
    counters are zeroed before and checked after each run (per verify step
-   32 verify attentions, 32 block appends and 129 small-M projections; no
-   one-row append from the target); every request finishes and every spec
-   run takes speculative steps. A teacher-forced tie check feeds each spec
+   32 verify attentions, each with the block append folded in, and 129
+   small-M projections; no standalone block append and no one-row append
+   from the target); every request finishes and every spec run takes
+   speculative steps; each run's greedy streams print a sha256 digest; 4
+   prompt-lookup verify steps of 8 requests run under torch.profiler
+   (launches, device busy and idle share a verify step). A
+   teacher-forced tie check feeds each spec
    run's streams to the plain decode route on the kernels: every emitted
    token's logit lies within 2% of its row's logit range of the row's
    maximum. Prints the stats, the accept-per-step, the share of streams
@@ -376,6 +384,7 @@ SPEC_NEW_TOKENS = 64
 SPEC_SLOTS = 8
 SPEC_STEPS = 4
 SPEC_DRAFTS = 4  # T = 5 query tokens a verify step
+SPEC_TRACED_STEPS = 4  # phase 8's prompt-lookup verify steps under torch.profiler
 SPEC_NGRAM = 4
 SPEC_DRAFT_LAYERS = 2
 # Random weights give near-tied logits, and the verify step's projections
@@ -419,16 +428,24 @@ INT4_ENTRY = {16: "quant_matmul_int4 (small-M, decode rows)",
 A8_ENTRY = {"w8a8": "quant_matmul_w8a8 (prefill rows)", "w4a8": "quant_matmul_w4a8 (prefill rows)"}
 KV_SCALE = {"int8": 5.0 / 127.0, "fp8": 5.0 / 448.0}  # ModelConfig.kv_calibration_scale / qmax
 # the decode paths' launches with the row append folded in (K3 into K1 / K2,
-# K8 into K7): the kernels line's rows of K3 and K8. Each carries the
-# append's part of the launch (the fused launch less the decode alone) and
-# the decode's row the rest, so a launch counted on both rows is timed once.
+# K8 into K7) and the verify path's with the block append folded in (K9
+# into K1's verify mode): the kernels line's rows of K3, K8 and K9. Each
+# carries the append's part of the launch (the fused launch less the
+# attention alone) and the attention's row the rest, so a launch counted on
+# both rows is timed once.
 FOLD_ENTRIES = {
     1: "flash_decode_append (K3 folded into K1, 1 split)",
     4: "flash_decode_append (K3 folded into K2, split-KV partials)",
     "paged": "paged_flash_decode_append (K8 folded into K7)",
+    "verify": "flash_verify_append (K9 folded into K1 verify)",
 }
 FOLD_ROUNDS = 5  # interleaved timer rounds of the [fold] rows
 FOLD_SEQ, FOLD_ROWS = 512, ((0, 1), (37, 0), (512 + 5, 512), (128, 129), (0, 0), (127, 128))  # _fold_forms
+# _fold_forms' verify spans of T = SPEC_DRAFTS + 1 at FOLD_SEQ, (first write
+# position, rows to write): across the 32-row tile edge, across the 128-row
+# chunk edge, at the table's start, clamped to S - T from S - 2 and from S,
+# a partial span, an inactive row; token 0 attends position + 1 rows
+VERIFY_FOLD_ROWS = ((30, 5), (126, 5), (0, 5), (510, 5), (512, 5), (200, 3), (40, 0))
 VARIANT_SEQ = 8192  # the families' max_seq_len
 VARIANT_WINDOW = 4096  # Mistral-7B's window, Gemma-2's sliding layers'
 VARIANT_SINKS = 4
@@ -807,12 +824,12 @@ def _bit_equal(a, b):
 
 def _fold_check(name, tables, fused, sequence, quiet=False):
     """The fused launch on clones of ``tables`` against the standalone
-    append followed by the decode on other clones: the output and every
-    table bit for bit (``quiet``: no line unless they differ)."""
+    append followed by the decode or the verify on other clones: the output
+    and every table bit for bit (``quiet``: no line unless they differ)."""
     a, b = [t.clone() for t in tables], [t.clone() for t in tables]
     same = _bit_equal(fused(*a), sequence(*b)) and all(_bit_equal(x, y) for x, y in zip(a, b))
     if not (quiet and same):
-        _check(f"{name}: fused launch vs the append then the decode, output and whole tables",
+        _check(f"{name}: fused launch vs the append then the attention, output and whole tables",
                0.0 if same else 1.0, 0.0, what="results that differ in a bit")
 
 
@@ -881,7 +898,52 @@ def _fold_forms(dev):
                                           paged_flash_decode(q, k, v, table, lengths, **kw))[1], quiet=True)
                 checks += 1
             del rows, k_tab, v_tab, pools
-    log(f"[fold] {checks} forms of the fused launch equal the append then the decode, bit for bit")
+    checks += _verify_fold_forms(dev, variants)
+    log(f"[fold] {checks} forms of the fused launch equal the append then the decode or the verify, bit for bit")
+
+
+def _verify_fold_forms(dev, variants):
+    """K9 folded into K1's verify launch in every form the verify takes,
+    held bit for bit (output and whole tables) to the standalone block
+    append at min(pos, S - T) followed by the verify: D 64, 128 and 256,
+    fp32 and bf16 q on a cache in q's dtype, int8 and fp8, plain and in the
+    VARIANTS form (``variants``), at the spans of ``VERIFY_FOLD_ROWS`` (Hq
+    8, Hkv 2, S ``FOLD_SEQ``, 128-row chunks). Its inputs come from a
+    generator of its own. -> the number of forms."""
+    from starflashattention_tpu_torch.core.quant import quantize_value
+    from starflashattention_tpu_torch.ops.cache_append import append_block_kv
+    from starflashattention_tpu_torch.ops.flash_decode import flash_verify, flash_verify_append
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    f32, bf16 = torch.float32, torch.bfloat16
+    s, t, layer, hq, hkv = FOLD_SEQ, SPEC_DRAFTS + 1, 1, 8, 2
+    pos = torch.tensor([p for p, _ in VERIFY_FOLD_ROWS], dtype=torch.int32, device=dev)
+    n_valid = torch.tensor([n for _, n in VERIFY_FOLD_ROWS], dtype=torch.int32, device=dev)
+    lengths, clamped = pos + 1, torch.clamp(pos, max=s - t)
+    b = pos.shape[0]
+    checks = 0
+    for d in (64, 128, 256):
+        for q_dtype, mode in ((f32, None), (bf16, None), (f32, "int8"), (bf16, "int8"), (f32, "fp8"),
+                              (bf16, "fp8")):
+            q = torch.randn((b, hq, t, d), generator=gen, device=dev, dtype=q_dtype)
+            rows = [torch.randn(shape, generator=gen, device=dev, dtype=q_dtype)
+                    for shape in ((2, b, hkv, s, d),) * 2 + ((b, hkv, t, d),) * 2]
+            sc = {}
+            if mode is not None:
+                scales = torch.full((hkv,), KV_SCALE[mode], dtype=f32, device=dev)
+                rows = [quantize_value(x, scales, mode, head_axis=2 if x.dim() == 5 else 1) for x in rows]
+                sc = dict(k_scales=scales, v_scales=scales)
+            k_tab, v_tab, kn, vn = rows
+            kv = mode or str(q_dtype).replace("torch.", "")
+            for label, opts in (("verify", {}), ("verify, window 64 + 4 sinks + softcap 30", variants)):
+                kw = dict(layer=layer, **sc, **opts)
+                _fold_check(f"fold D={d} q {q_dtype} KV {kv} {label}", (k_tab, v_tab),
+                            lambda k, v: flash_verify_append(q, k, v, kn, vn, pos, n_valid, lengths, **kw),
+                            lambda k, v: (append_block_kv(k, v, kn, vn, layer, clamped, n_valid),
+                                          flash_verify(q, k, v, lengths, **kw))[1], quiet=True)
+                checks += 1
+            del rows, k_tab, v_tab
+    return checks
 
 
 def _fold_times(timer, fused, alone, seq):
@@ -958,6 +1020,15 @@ def _fold_rows(dev, timer, q, k_tab, v_tab, lengths, layer):
             f"launch {share:+.4f} ms (its bound {bnd:.6f} ms); fused {'below' if t_fused < t_seq else 'NOT below'} "
             f"K3 then {decode}")
     return res
+
+
+def _launch_floor_ms(dev, timer):
+    """The time of one launch of an empty kernel with the kernels' timer:
+    the floor a launch-bound kernel sits on."""
+    from starflashattention_tpu_torch.ops import _build
+
+    lib = _build.load("cache_append", {"launch_floor": [_build.P]})
+    return timer(lambda: _build.check(lib, lib.launch_floor(_build.stream_ptr(dev)), "launch_floor"))
 
 
 def phase_kernels(dev, timer):
@@ -1061,6 +1132,8 @@ def phase_kernels(dev, timer):
         f"{k3b['plain_ms']:.4f} ms, library (index assignment) {k3b['library_ms']:.4f} ms, "
         f"bound {bnd:.6f} ms ({by}), max_abs_err 0.000e+00")
     del one, one_plain
+    log(f"[time] launch floor: an empty kernel (one block of 32 threads, csrc/cache_append.cu launch_floor) "
+        f"{_launch_floor_ms(dev, timer):.4f} ms, beside K3b's and the standalone K9's")
     res.update(_fold_rows(dev, timer, q, k_tab, v_tab, lengths, layer))
     _fold_forms(dev)
 
@@ -2135,11 +2208,76 @@ def _spec_kernels(dev, timer, gen):
             tabs[3][layer][bi, :, rows] = vn[bi, :, ji]
 
         bnd, by = bound_ms(2 * 2 * int(n_valid.sum()) * hkv * d * 2 + 2 * b * 4, 0)
-        res["append_block_kv"] = dict(
+        k9 = res["append_block_kv"] = dict(
             max_abs_err=0.0, ms=ms,
             plain_ms=timer(lambda: append_block_kv_plain(tabs[2], tabs[3], kn, vn, layer, pos, n_valid)),
             bound_ms=bnd, bound_by=by, library_ms=timer(index_put_block))
+        log(f"[time] append_block_kv (K9 standalone, on no path since its fold): kernel {k9['ms']:.4f} ms, plain "
+            f"{k9['plain_ms']:.4f} ms, library (index assignment) {k9['library_ms']:.4f} ms, bound {bnd:.6f} ms "
+            f"({by})")
         del tabs
+    res.update(_verify_fold_row(dev, timer, q, k_tab, v_tab, lengths, layer, n_valid))
+    return res
+
+
+def _verify_fold_row(dev, timer, q, k_tab, v_tab, lengths, layer, n_valid):
+    """K9 folded into K1's verify mode at the verify step's shape: each row
+    writes its span at min(lengths - 1, S - T), as ``_verify_core`` passes
+    it (its start, lengths - 1), the inactive row (``n_valid`` 0) none. The
+    fused launch against K9 then the verify (bit for bit), timed beside the
+    verify alone and beside K9 then the verify, in one call. Its
+    kernels-line row is the append's part of the launch, so that the
+    verify's row, which counts the same launches, keeps the verify's time:
+    ms the fused launch less the verify alone, its bound the rows written
+    and the positions and counts read (the fused launch reads the new rows
+    in place of the table rows the verify reads), its plain twin
+    ``append_block_kv_plain`` and its library call an index assignment a
+    table, both at the same positions, its error over the whole tables
+    against the plain twin's. Its new rows come from a generator of its
+    own, so the rows after it in phase 2 draw what they drew before it was
+    added."""
+    from starflashattention_tpu_torch.ops.cache_append import append_block_kv, append_block_kv_plain
+    from starflashattention_tpu_torch.ops.flash_decode import (flash_verify, flash_verify_append,
+                                                               flash_verify_append_plain)
+
+    entry = FOLD_ENTRIES["verify"]
+    b, hq, t, d = q.shape
+    hkv, s = k_tab.shape[2], k_tab.shape[3]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    k_new, v_new = (torch.randn((b, hkv, t, d), generator=gen, device=dev, dtype=q.dtype) for _ in range(2))
+    start = lengths - 1
+    pos = torch.clamp(start, max=s - t)
+    kw = dict(layer=layer)
+    fused = lambda k, v: flash_verify_append(q, k, v, k_new, v_new, start, n_valid, lengths, **kw)  # noqa: E731
+    seq = lambda k, v: (append_block_kv(k, v, k_new, v_new, layer, pos, n_valid),  # noqa: E731
+                        flash_verify(q, k, v, lengths, **kw))[1]
+    _fold_check(f"{entry} B={b} Hq={hq} Hkv={hkv} S={s} D={d} T={t}", (k_tab, v_tab), fused, seq)
+    ka, va = k_tab.clone(), v_tab.clone()
+    kp, vp = k_tab.clone(), v_tab.clone()
+    out = fused(ka, va)
+    ref = flash_verify_append_plain(q, kp, vp, k_new, v_new, start, n_valid, lengths, **kw)
+    _check_ulps(f"{entry} against its plain twin", out, ref, 1)
+    err = _tables_err((ka, va), (kp, vp))
+    _check(f"{entry} whole tables against the plain twin's", err, 0.0)
+    t_fused, t_alone, t_seq, share = _fold_times(timer, lambda: fused(ka, va),
+                                                 lambda: flash_verify(q, ka, va, lengths, **kw),
+                                                 lambda: seq(ka, va))
+    jj = torch.arange(t, device=dev)[None, :]
+    bi, ji = (jj < n_valid[:, None]).nonzero(as_tuple=True)
+    rows = (pos[:, None].long() + jj)[bi, ji]
+
+    def index_put_block():  # the library call: one advanced-index assignment a table
+        kp[layer][bi, :, rows] = k_new[bi, :, ji]
+        vp[layer][bi, :, rows] = v_new[bi, :, ji]
+
+    bnd, by = bound_ms(2 * int(n_valid.sum()) * hkv * d * q.element_size() + 2 * b * 4, 0)
+    res = {entry: dict(max_abs_err=err, ms=share,
+                       plain_ms=timer(lambda: append_block_kv_plain(kp, vp, k_new, v_new, layer, pos, n_valid)),
+                       bound_ms=bnd, bound_by=by, library_ms=timer(index_put_block))}
+    log(f"[fold] {entry}: fused {t_fused:.4f} ms, K1 verify alone {t_alone:.4f} ms, K9 then K1 verify "
+        f"{t_seq:.4f} ms (medians of {FOLD_ROUNDS} interleaved rounds); the append's part of the fused launch "
+        f"{share:+.4f} ms (its bound {bnd:.6f} ms); fused {'below' if t_fused < t_seq else 'NOT below'} K9 then "
+        f"K1 verify")
     return res
 
 
@@ -3034,14 +3172,15 @@ def _counters():
     from starflashattention_tpu_torch.ops.cache_append import (append_block_kv, append_rows_kv,
                                                                append_rows_paged_kv)
     from starflashattention_tpu_torch.ops.flash_bwd import flash_bwd_dkdv, flash_bwd_dq
-    from starflashattention_tpu_torch.ops.flash_decode import flash_decode, flash_decode_append, flash_verify
+    from starflashattention_tpu_torch.ops.flash_decode import (flash_decode, flash_decode_append, flash_verify,
+                                                               flash_verify_append)
     from starflashattention_tpu_torch.ops.flash_prefill import flash_prefill
     from starflashattention_tpu_torch.ops.fused_mlp import fused_mlp
     from starflashattention_tpu_torch.ops.paged_decode import paged_flash_decode, paged_flash_decode_append
 
-    # the decode paths fold their row append into the decode launch: the
-    # standalone appends (K3, K8) must read 0 there, the fold's counters
-    # steps x layers
+    # the decode and verify paths fold their row append into the attention's
+    # launch: the standalone appends (K3, K8, K9) must read 0 there, the
+    # fold's counters steps x layers
     return {"append_rows_kv": append_rows_kv, "flash_decode": flash_decode,
             "flash_decode_append": flash_decode_append,
             "paged_flash_decode_append": paged_flash_decode_append,
@@ -3049,8 +3188,8 @@ def _counters():
             "append_rows_paged_kv": append_rows_paged_kv, "paged_flash_decode": paged_flash_decode,
             "quant_matmul_int4": qmm.quant_matmul_int4, "quant_matmul_w8a8": qmm.quant_matmul_w8a8,
             "quant_matmul_w4a8": qmm.quant_matmul_w4a8, "flash_verify": flash_verify,
-            "append_block_kv": append_block_kv, "flash_bwd_dq": flash_bwd_dq,
-            "flash_bwd_dkdv": flash_bwd_dkdv, "fused_mlp": fused_mlp}
+            "flash_verify_append": flash_verify_append, "append_block_kv": append_block_kv,
+            "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkdv": flash_bwd_dkdv, "fused_mlp": fused_mlp}
 
 
 # entries that also count a subset of their launches: (entry, attribute, count name)
@@ -3565,6 +3704,43 @@ def _teacher_forced(params, cfg, prompts, streams, dev):
     return torch.stack(gaps).max().item(), torch.stack(hits).float().mean().item()
 
 
+def _verify_trace(params, cfg, prompts, dev):
+    """``SPEC_TRACED_STEPS`` prompt-lookup verify steps (``spec_decode_multi``,
+    k = ``SPEC_DRAFTS``) of the phase's first ``SPEC_SLOTS`` requests after
+    their prefill, under torch.profiler (``_traced_steps``): launches,
+    device busy and idle share a verify step."""
+    from starflashattention_tpu_torch.cache import contiguous
+    from starflashattention_tpu_torch.models import llama
+
+    b = min(SPEC_SLOTS, len(prompts))
+    hkv, d = cfg.kv_cache_dims()
+    cache = contiguous.init_cache(cfg.num_layers, b, hkv, cfg.max_seq_len, d, quant_mode=cfg.quant_mode,
+                                  calibration_scale=cfg.kv_calibration_scale, device=dev)
+    cos, sin = llama.rope_tables(cfg, device=dev)
+    plens = torch.tensor([len(p) for p in prompts[:b]], dtype=torch.int32, device=dev)
+    history = torch.zeros((b, cfg.max_seq_len), dtype=torch.int32, device=dev)  # the prompts, as the engine writes them
+    for i, p in enumerate(prompts[:b]):
+        history[i, : len(p)] = torch.tensor(p, dtype=torch.int32)
+    logits, cache = llama.prefill(params, cache, history[:, : int(plens.max())].contiguous(), plens, cos, sin, cfg)
+    state = dict(tok=torch.argmax(logits, dim=-1).to(torch.int32), history=history)
+    active = torch.ones((b,), dtype=torch.bool, device=dev)
+
+    def run(n):
+        _, _, state["tok"], _, state["history"] = llama.spec_decode_multi(
+            params, cache, state["history"], state["tok"], cos, sin, active, cfg, n, num_draft=SPEC_DRAFTS,
+            ngram=SPEC_NGRAM)
+
+    run(1)  # warm-up
+    return _traced_steps("spec", f"prompt-lookup verify steps (spec_decode_multi) at B={b}, k={SPEC_DRAFTS}",
+                         lambda: run(SPEC_TRACED_STEPS), SPEC_TRACED_STEPS)
+
+
+def _streams_digest(streams):
+    """A short sha256 of a run's token streams (a list of token lists):
+    two runs print the same digest only for the same streams."""
+    return hashlib.sha256(json.dumps(streams).encode()).hexdigest()[:16]
+
+
 def phase_spec(dev):
     """Speculative decoding at full 7B-GQA width (see the module doc)."""
     from starflashattention_tpu_torch.models import llama
@@ -3595,7 +3771,7 @@ def phase_spec(dev):
             if kind == "plain":
                 return zero_counts(flash_prefill=pre * n, flash_decode=steps * n, flash_decode_append=steps * n,
                                    quant_matmul=(pre + steps) * proj, quant_matmul_tiled=pre * 4 * n)
-            want = zero_counts(flash_prefill=pre * n, flash_verify=steps * n, append_block_kv=steps * n,
+            want = zero_counts(flash_prefill=pre * n, flash_verify=steps * n, flash_verify_append=steps * n,
                                quant_matmul=(pre + steps) * proj, quant_matmul_tiled=pre * 4 * n)
             if kind == "draft":  # the draft prefills beside the target and decodes k+1 steps a verify step
                 dsteps = steps * (k + 1)
@@ -3627,14 +3803,15 @@ def phase_spec(dev):
                          decode_tok_s=eng.stats.decode_tokens_per_s(), spec_steps=eng.stats.spec_steps)
         log(f"[spec] {tag}: {wall:.2f} s, {json.dumps(st)}")
         log(f"[spec] {tag}: launches {counts}")
+        log(f"[spec] {tag}: greedy streams sha256 {_streams_digest(streams[key])}")
         if key != "plain":
             if eng.stats.spec_steps <= 0:
                 raise AssertionError(f"{tag}: no speculative step")
             steps = eng.stats.decode_rounds * SPEC_STEPS
             log(f"[spec] {tag}: accept-per-step {st['spec_accept_per_step']} ({eng.stats.decode_tokens} "
                 f"tokens over {eng.stats.spec_steps} slot verify steps); per verify step "
-                f"{counts['flash_verify'] / steps:.0f} flash_verify, {counts['append_block_kv'] / steps:.0f} "
-                f"append_block_kv launches")
+                f"{counts['flash_verify'] / steps:.0f} flash_verify, {counts['flash_verify_append'] / steps:.0f} "
+                f"flash_verify_append, {counts['append_block_kv'] / steps:.0f} append_block_kv launches")
         del eng
         torch.cuda.empty_cache()
 
@@ -3653,6 +3830,7 @@ def phase_spec(dev):
             f"{plain_tok_s:.1f} ({runs[key]['decode_tok_s'] / plain_tok_s:.3f}x)")
         if not ok:
             raise AssertionError(f"{tag}: an emitted token is {gap:.4f} of its row's range below the maximum")
+    runs["verify_trace"] = _verify_trace(params, cfg, prompts, dev)
     del params, dparams
     torch.cuda.empty_cache()
     return runs
@@ -3696,14 +3874,14 @@ def _engine_counts(n_layers, steps, banded_layers, kind, lm_head, projections=No
         want = {"flash_prefill": st.prefill_rounds * n_layers, qmm: proj,
                 "flash_decode": 0, "flash_decode_banded": 0, "append_rows_kv": 0, "paged_flash_decode": 0,
                 "append_rows_paged_kv": 0, "flash_decode_append": 0, "paged_flash_decode_append": 0,
-                "flash_verify": 0, "append_block_kv": 0}
+                "flash_verify": 0, "flash_verify_append": 0, "append_block_kv": 0}
         if kind == "contiguous":
             want.update(flash_decode=dec * n_layers, flash_decode_banded=dec * banded_layers,
                         flash_decode_append=dec * n_layers)
         elif kind == "paged":
             want.update(paged_flash_decode=dec * n_layers, paged_flash_decode_append=dec * n_layers)
         else:
-            want.update(flash_verify=dec * n_layers, append_block_kv=dec * n_layers)
+            want.update(flash_verify=dec * n_layers, flash_verify_append=dec * n_layers)
         return want
     return counts
 
@@ -4650,7 +4828,7 @@ def _traced_steps(tag, label, run, steps):
     launches = sum(n for _, n in kernels.values())
     idle = 1 - busy * steps / wall_ms
     log(f"[{tag}] {label}: traced {steps} steps, {wall_ms / steps:.3f} ms/step wall, "
-        f"device busy {busy:.3f} ms/step in {launches:.0f} kernel launches/step, idle share {idle:.3f}")
+        f"device busy {busy:.3f} ms/step in {launches:.2f} kernel launches/step, idle share {idle:.3f}")
     for name, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"[{tag}]   {ms:8.3f} ms/step  {n:6.1f} launches/step  {name[:110]}")
     return dict(wall_ms=wall_ms / steps, busy_ms=busy, launches=launches, idle_share=idle, kernels=kernels)
@@ -5616,6 +5794,7 @@ REPLACES = {
     "append_rows_kv": ("starflashattention_tpu/ops/cache_append.py:86", "cache_append.cu"),
     **{FOLD_ENTRIES[n]: ("starflashattention_tpu/ops/cache_append.py:86", "flash_decode_split.cu") for n in (1, 4)},
     FOLD_ENTRIES["paged"]: ("starflashattention_tpu/ops/cache_append.py:219", "flash_decode_split.cu"),
+    FOLD_ENTRIES["verify"]: ("starflashattention_tpu/ops/cache_append.py:331", "flash_decode_split.cu"),
     "quant_matmul (small-M, decode rows)": ("starflashattention_tpu/ops/quant_matmul.py:35", "quant_matmul.cu"),
     "quant_matmul (tiled, prefill rows)": ("starflashattention_tpu/ops/quant_matmul.py:35", "quant_matmul.cu"),
     "flash_prefill": ("starflashattention_tpu/ops/flash_prefill.py:67", "flash_prefill.cu"),
@@ -5665,11 +5844,11 @@ REPLACES = {
 # measured in phase 2 but launched by no main-path run (the quantized slice
 # runs the fp8 cache only in split mode and pages only in int8; no path
 # serves fp8 weights; DeepSeek-V2-Lite decodes its latent row in one split;
-# the decode paths run K3's and K8's work folded into the decode launch, the
-# FOLD_ENTRIES rows, and the standalone K3 / K8 on no path): logged, not in
-# the kernels line
+# the decode and verify paths run K3's, K8's and K9's work folded into the
+# attention's launch, the FOLD_ENTRIES rows, and the standalone K3 / K8 / K9
+# on no path): logged, not in the kernels line
 OFF_PATH = ("flash_decode fp8 KV (1 split, fused)", "paged_flash_decode fp8 KV", QMM_FP8_TILED, QMM_FP8_SMALL,
-            K5_TRAIN_NO_LSE, LATENT_ENTRIES["split"], "append_rows_kv", "append_rows_paged_kv")
+            K5_TRAIN_NO_LSE, LATENT_ENTRIES["split"], "append_rows_kv", "append_rows_paged_kv", "append_block_kv")
 
 
 def main(argv=None):
@@ -5738,7 +5917,7 @@ def main(argv=None):
             "paged_flash_decode int8 KV": quant["paged"]["counts"]["paged_flash_decode"]})
     if spec:
         launches.update({"flash_verify": spec["lookup"]["counts"]["flash_verify"],
-                         "append_block_kv": spec["lookup"]["counts"]["append_block_kv"],
+                         FOLD_ENTRIES["verify"]: spec["lookup"]["counts"]["flash_verify_append"],
                          "flash_verify int8 KV": spec["int8_kv"]["counts"]["flash_verify"]})
     if training:
         full = training["full"]["counts"]
@@ -5797,7 +5976,8 @@ def main(argv=None):
                          ("flash_prefill", tot["flash_prefill"] - tot["flash_prefill_lse"]),
                          ("paged_flash_decode", tot["paged_flash_decode"]),
                          (FOLD_ENTRIES["paged"], tot["paged_flash_decode_append"]),
-                         ("flash_verify", tot["flash_verify"]), ("append_block_kv", tot["append_block_kv"]),
+                         ("flash_verify", tot["flash_verify"]),
+                         (FOLD_ENTRIES["verify"], tot["flash_verify_append"]),
                          ("quant_matmul_w8a8 (prefill rows)", tot["quant_matmul_w8a8"]),
                          ("quant_matmul_w4a8 (prefill rows)", tot["quant_matmul_w4a8"]),
                          ("flash_prefill (return_lse, training)",

@@ -84,10 +84,12 @@
 // q in bf16, the partial scores), one block an SM. The bound of 640
 // threads leaves at most 96 registers a thread (65,536 / 640, rounded down
 // to 8), as __launch_bounds__(640, 1) would; the lane's 4 x 4 accumulators
-// fit beside the score fragments with no spill. The bound states no
-// minimum of blocks: stated for every D, it let ptxas take 81-131
-// registers at D 64-256 (48-80 without), which would cut the blocks an SM
-// holds there.
+// fit beside the score fragments with no spill. The bound states a
+// minimum of blocks only for bf16 q at D 256 (min_blocks()): two, which
+// its shared memory allows, so ptxas may take up to 128 registers; without
+// it those forms took 64-80 and the paged VARIANTS form spilled 24 bytes.
+// Stated for every D, a minimum let ptxas take 81-131 registers at D
+// 64-128, which would cut the blocks an SM holds there.
 //
 // Partials mode (out null): the blocks write the caller's (o, m, l) at the
 // caller's split geometry (C = split_len, N = num_splits) and do not merge.
@@ -111,29 +113,35 @@
 //
 // The folded append (replaces starflashattention_tpu/ops/cache_append.py::
 // _append_kernel_kv, entry append_rows_kv, and ::_append_kernel_paged, entry
-// append_rows_paged_kv, on the decode paths; the reference's
+// append_rows_paged_kv, on the decode paths, and ::_append_block_kernel_kv,
+// entry append_block_kv, on the verify path; the reference's
 // flash_decoder_kernel writes the new K/V in its own launch too): with
-// k_new / v_new (B, Hkv, D) in the cache's dtype and wpos (B,), the launch
-// first writes each sequence's new K and V row at p = min(wpos[b], S - 1)
-// (paged: S = pages_per_seq * page_size, through the page table), then
-// attends as without it. On its own that row write moves 64 KiB at B 16,
-// Hkv 8, D 128 in bf16 and costs a launch; here it costs a few 16-byte
-// stores. In each (b, kv head) the one block whose chunk [cs, cs + chunk)
-// holds p owns the row: the merging grid's ceil(S / C) chunks and the
-// partials mode's split geometry both cover [0, S), so every p has exactly
-// one owner. The owner writes the row with 16-byte stores once its first
-// tile's copies are in flight (their wait hides the stores' loads), before
-// its walk and whether or not the walk is empty (an inactive sequence
-// attends 0 rows and still writes at its stale position, as JAX's decode
-// step does), and the stage() of the tile that holds p takes row p's 16-byte
-// pieces from k_new / v_new instead of the table (every other tile is
-// staged by a loop without that test). No block reads a row another block of the
-// launch writes (a walk reads only rows of its own chunk; inactive paged
-// rows write into the null page 0, which no active row reads), so nothing
-// orders the blocks, and the stores are never read back through cp.async.
-// The output and the tables are bit for bit those of the standalone append
-// followed by the decode. A position below 0 writes nothing, as the
-// standalone kernel skips it. The verify span takes no append.
+// k_new / v_new (B, Hkv, T, D) in the cache's dtype (T = qspan, so the
+// decode's (B, Hkv, D)), wpos (B,) and nvalid (B,) or null, the launch first
+// writes rows j < nv of each sequence's new K and V at p = wp + j, wp =
+// min(wpos[b], S - T) (paged: S = pages_per_seq * page_size, through the
+// page table; at T = 1 that is S - 1), then attends as without it. nv is
+// min(nvalid[b], T), 0 for an inactive verify row; a null nvalid writes
+// all T rows (the decode's one row, written whether the row is active or
+// not, as JAX's decode step does). Rows outside [0, S) are skipped. On its
+// own that write moves 64 KiB at B 16, Hkv 8, D 128 in bf16 (160 KiB at
+// verify's B 8, T 5) and costs a launch; here it costs a few 16-byte
+// stores. In each (b, kv head) every block whose chunk [cs, cs + chunk)
+// holds rows of [wp, wp + nv) owns those rows, and only those: the merging
+// grid's ceil(S / C) chunks and the partials mode's split geometry both
+// cover [0, S), so every row has exactly one owner, and a span that
+// straddles a chunk edge has two. An owner writes its rows with 16-byte
+// stores, a strided loop over the block, once its first tile's copies are
+// in flight (their wait hides the stores' loads), before its walk and
+// whether or not the walk is empty, and the stage() of a tile that holds
+// rows of the span takes each of them from k_new / v_new (row p from the
+// new rows' p - wp; a span can touch two 32-row tiles; every other tile is
+// staged by a loop without that test). No block reads a row another block
+// of the launch writes (a walk reads only rows of its own chunk; inactive
+// paged rows write into the null page 0, which no active row reads), so
+// nothing orders the blocks, and the stores are never read back through
+// cp.async. The output and the tables are bit for bit those of the
+// standalone append followed by the decode or the verify.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -173,9 +181,10 @@ struct Args {
   int* arrivals;          // (B, Hkv) counters, 0 between calls (merging mode)
   const float* k_scales;  // (Hkv,) of an int8 / fp8 cache, else null
   const float* v_scales;
-  const void* k_new;  // the folded append: (B, Hkv, D) rows in the cache's dtype, or null
+  const void* k_new;   // the folded append: (B, Hkv, qspan, D) rows in the cache's dtype, or null
   const void* v_new;
-  const int* wpos;    // (B,) write positions, clamped to S - 1 here
+  const int* wpos;     // (B,) first write positions, clamped to S - qspan here
+  const int* nvalid;   // (B,) rows to write (at most qspan), or null: all qspan
   int Hq, Hkv, S, qspan, chunk, n_chunks;
   int pages_per_seq, page_size, num_pages;
   float scale;
@@ -284,6 +293,12 @@ template <int D>
 __host__ __device__ constexpr int qb_row() {
   return D + 8;  // bf16 elements a row of the staged q
 }
+// The fewest blocks an SM that the kernel's __launch_bounds__ states (0:
+// none): two for bf16 q at D 256 (see above)
+template <typename T, int D>
+__host__ __device__ constexpr int min_blocks() {
+  return D == 256 && mma_scores<T>() ? 2 : 0;
+}
 // MLA's latent row (built for bf16 q on bf16 KV, at most LATENT_ROWS rows):
 // q staged straight to bf16 and the P @ V accumulators in registers, so
 // neither q nor the accumulators have an fp32 array in shared memory
@@ -339,7 +354,7 @@ __device__ __forceinline__ uint32_t pair_bf16(const B8* p) {
 }
 
 template <typename T, typename KV, int D, bool PAGED, bool VARIANTS>
-__global__ void __launch_bounds__(block_threads<D>()) decode_split_kernel(const Args a) {
+__global__ void __launch_bounds__(block_threads<D>(), min_blocks<T, D>()) decode_split_kernel(const Args a) {
   constexpr int THREADS = block_threads<D>(), NWARPS = THREADS / 32;
   static_assert(THREADS == D && D == 32 * NWARPS && BK == 32, "a column a thread, 32 dimensions a warp, a key a lane");
   static_assert(!register_acc<D>() || mma_pv<T, KV>(), "the latent row's accumulators are mma fragments");
@@ -389,16 +404,24 @@ __global__ void __launch_bounds__(block_threads<D>()) decode_split_kernel(const 
     }
   };
 
-  // The folded append: row wp of this (b, kv head) is the new row, at
-  // new_byte in k_new / v_new; the block whose chunk holds it writes it to
-  // the table (below, once its first tile is in flight)
-  const int wp = a.wpos != nullptr ? min(a.wpos[b], a.S - 1) : -1;
-  const size_t new_byte = ((size_t)b * a.Hkv + kvh) * D * sizeof(KV);
+  // The folded append: rows [w0, w1) of this (b, kv head) are new rows,
+  // row p at new_row + (p - wp) rows of k_new / v_new; the blocks whose
+  // chunks hold them write them to the table (below, once their first tile
+  // is in flight)
+  int wp = 0, w0 = 0, w1 = 0;
+  if (a.wpos != nullptr) {
+    wp = min(a.wpos[b], a.S - span);
+    const int nv = a.nvalid != nullptr ? min(max(a.nvalid[b], 0), span) : span;
+    w0 = max(wp, 0);
+    w1 = min(wp + nv, a.S);
+  }
+  const size_t new_row = ((size_t)b * a.Hkv + kvh) * span;
+  auto new_byte = [&](int p) { return (new_row + (p - wp)) * D * sizeof(KV); };
 
   // Stage the tile at j0 into buffer buf: rows past the chunk, and rows below
-  // the band that are not sinks, are zero-filled and not read. The tile that
-  // holds row wp takes it from the new rows; every other tile runs the loop
-  // without that test (holds_new false).
+  // the band that are not sinks, are zero-filled and not read. A tile that
+  // holds rows of [w0, w1) takes them from the new rows; every other tile
+  // runs the loop without that test (holds_new false).
   auto stage_tile = [&](int j0, int buf, auto holds_new) {
     const uint32_t kd = kv_s + buf * SB, vd = kd + KT;
     for (int i = tid; i < BK * PIECES_ROW; i += THREADS) {
@@ -408,10 +431,10 @@ __global__ void __launch_bounds__(block_threads<D>()) decode_split_kernel(const 
       const char* ks = reinterpret_cast<const char*>(kbase);
       const char* vs = reinterpret_cast<const char*>(vbase);
       size_t byte = piece * 16;
-      if (decltype(holds_new)::value && p == wp) {
+      if (decltype(holds_new)::value && p >= w0 && p < w1) {
         ks = static_cast<const char*>(a.k_new);
         vs = static_cast<const char*>(a.v_new);
-        byte += new_byte;
+        byte += new_byte(p);
       } else if (ok) {
         byte += row_offset(p) * sizeof(KV);
       }
@@ -420,7 +443,7 @@ __global__ void __launch_bounds__(block_threads<D>()) decode_split_kernel(const 
     }
   };
   auto stage = [&](int j0, int buf) {
-    if (wp >= j0 && wp < j0 + BK) stage_tile(j0, buf, std::true_type{});
+    if (w0 < j0 + BK && w1 > j0) stage_tile(j0, buf, std::true_type{});
     else stage_tile(j0, buf, std::false_type{});
   };
 
@@ -450,15 +473,20 @@ __global__ void __launch_bounds__(block_threads<D>()) decode_split_kernel(const 
       }
     }
   }
-  // the owner writes the new row with 16-byte stores, whether or not its
-  // walk is empty (an inactive row still writes at its stale position);
-  // no block of the launch reads that row of the table
-  if (wp >= cs && wp < cs + a.chunk && tid < PIECES_ROW) {
-    const size_t dst = row_offset(wp) * sizeof(KV) + tid * 16, src = new_byte + tid * 16;
-    *reinterpret_cast<uint4*>(static_cast<char*>(const_cast<void*>(a.k)) + dst) =
-        *reinterpret_cast<const uint4*>(static_cast<const char*>(a.k_new) + src);
-    *reinterpret_cast<uint4*>(static_cast<char*>(const_cast<void*>(a.v)) + dst) =
-        *reinterpret_cast<const uint4*>(static_cast<const char*>(a.v_new) + src);
+  // the owner writes its rows of the span with 16-byte stores, whether or
+  // not its walk is empty (a decode's inactive row still writes at its
+  // stale position); no block of the launch reads those rows of the table
+  {
+    const int r0 = max(w0, cs), r1 = min(w1, cs + a.chunk);
+    for (int i = tid; i < (r1 - r0) * PIECES_ROW; i += THREADS) {
+      const int p = r0 + i / PIECES_ROW;
+      const size_t piece = (size_t)(i % PIECES_ROW) * 16;
+      const size_t dst = row_offset(p) * sizeof(KV) + piece, src = new_byte(p) + piece;
+      *reinterpret_cast<uint4*>(static_cast<char*>(const_cast<void*>(a.k)) + dst) =
+          *reinterpret_cast<const uint4*>(static_cast<const char*>(a.k_new) + src);
+      *reinterpret_cast<uint4*>(static_cast<char*>(const_cast<void*>(a.v)) + dst) =
+          *reinterpret_cast<const uint4*>(static_cast<const char*>(a.v_new) + src);
+    }
   }
   for (int i = tid; i < R * QD; i += THREADS) acc[i] = 0.f;
   // D 640: lane (g, t) of warp w holds rows g, g + 8 and dimensions
@@ -808,12 +836,14 @@ const char* error_string(int e) { return cudaGetErrorString(static_cast<cudaErro
 // fp8-e4m3, which take k_scales and v_scales (Hkv,) fp32 (null otherwise).
 // variants 0: the plain form (window 1 << 30, sinks 0, softcap 0 required);
 // 1: window (1 << 30 for none), sinks, softcap (0 for none) at run time.
-// k_new, v_new (B, Hkv, D) in the cache's dtype, 16-byte aligned, and wpos
-// (B,) int32: the folded append (all three null for none; qspan 1 only).
+// k_new, v_new (B, Hkv, qspan, D) in the cache's dtype, 16-byte aligned,
+// wpos (B,) int32 and nvalid (B,) int32 or null (all qspan rows): the folded
+// append (k_new, v_new, wpos null for none, and nvalid then null too).
 int flash_decode_split(const void* q, const void* k, const void* v, const void* lengths,
                        const void* page_table, void* out, void* o_part, void* m_part, void* l_part,
                        void* arrivals, const void* k_scales, const void* v_scales,
-                       const void* k_new, const void* v_new, const void* wpos, int B, int Hq,
+                       const void* k_new, const void* v_new, const void* wpos, const void* nvalid,
+                       int B, int Hq,
                        int Hkv, int S, int D, int qspan, int chunk, int n_chunks, int pages_per_seq,
                        int page_size, int num_pages, float scale, int dtype, int kv_dtype, int paged,
                        int variants, int window, int sinks, float softcap, void* stream) {
@@ -824,13 +854,13 @@ int flash_decode_split(const void* q, const void* k, const void* v, const void* 
     return cudaErrorInvalidValue;
   if (!variants && (window != NO_WINDOW || sinks || softcap > 0.f)) return cudaErrorInvalidValue;
   if ((k_new == nullptr) != (wpos == nullptr) || (v_new == nullptr) != (wpos == nullptr) ||
-      (wpos != nullptr && qspan > 1))
+      (nvalid != nullptr && wpos == nullptr))
     return cudaErrorInvalidValue;
   const Args a{q, k, v, static_cast<const int*>(lengths), static_cast<const int*>(page_table), out,
                static_cast<float*>(o_part), static_cast<float*>(m_part), static_cast<float*>(l_part),
                static_cast<int*>(arrivals), static_cast<const float*>(k_scales),
                static_cast<const float*>(v_scales), k_new, v_new, static_cast<const int*>(wpos),
-               Hq, Hkv, S, qspan, chunk, n_chunks,
+               static_cast<const int*>(nvalid), Hq, Hkv, S, qspan, chunk, n_chunks,
                pages_per_seq, page_size, num_pages, scale, window, sinks, softcap};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;

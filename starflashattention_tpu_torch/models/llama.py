@@ -72,8 +72,7 @@ from starflashattention_tpu_torch.cache import contiguous, paged
 from starflashattention_tpu_torch.core import drafting, quant
 from starflashattention_tpu_torch.core import sampling as core_sampling
 from starflashattention_tpu_torch.core.rope import apply_rope, rope_table
-from starflashattention_tpu_torch.ops.cache_append import append_block_kv
-from starflashattention_tpu_torch.ops.flash_decode import flash_verify
+from starflashattention_tpu_torch.ops.flash_decode import flash_verify_append
 from starflashattention_tpu_torch.ops.flash_prefill import flash_prefill
 from starflashattention_tpu_torch.ops.quant_matmul import (quant_matmul, quant_matmul_int4,
                                                           quant_matmul_w4a8, quant_matmul_w8a8)
@@ -974,11 +973,12 @@ def _verify_core(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor
     """T consecutive tokens per sequence in one step (JAX llama.py:1237-1328)
     -> fp32 logits at EVERY position (B, T, V); the cache gains T rows per
     active row, IN PLACE. Structurally the prefill layer (``_prefill_layer``)
-    with an ``attend`` that appends the T rows with kernel K9 at ``pos_w =
-    min(start, S - T)`` (the JAX clamp, copied) and attends them with K1's
-    verify mode at ``start + 1``. Inactive rows write no row and keep their
-    length; their attention output is discarded. The caller rolls
-    ``cache.lengths`` back to the accepted prefix."""
+    with an ``attend`` that appends the T rows at ``min(start, S - T)`` (the
+    JAX clamp, made in the kernel) and attends them at ``start + 1``, in one
+    launch of K1's verify mode with K9 folded in
+    (``ops.flash_decode.flash_verify_append``). Inactive rows write no row
+    and keep their length; their attention output is discarded. The caller
+    rolls ``cache.lengths`` back to the accepted prefix."""
     check_supported(cfg)
     _check_axis(axis_name)
     b, t = tokens.shape
@@ -987,16 +987,16 @@ def _verify_core(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor
         n_valid = torch.full_like(start, t)
     else:
         n_valid = torch.where(active, torch.full_like(start, t), torch.zeros_like(start))
-    pos_w = torch.clamp(start, max=cache.max_seq_len - t)
     att_lengths = start + 1
 
-    def attend(lidx, q, k_new, v_new):
+    def attend(lidx, q, k_new, v_new):  # the block append at start, clamped to S - T, in the attention's launch
         ks, vs = cache.layer_scales(lidx)
-        append_block_kv(cache.k, cache.v, contiguous.quantize_new(k_new, ks, cache.k.dtype),
-                        contiguous.quantize_new(v_new, vs, cache.v.dtype), lidx, pos_w, n_valid)
-        return flash_verify(q, cache.k, cache.v, att_lengths, layer=lidx, sm_scale=cfg.sm_scale(),
-                            block_k=cfg.block_k, k_scales=ks, v_scales=vs,
-                            **_attn_options(cfg, lidx))  # (B, Hq, T, D)
+        return flash_verify_append(q, cache.k, cache.v,
+                                   contiguous.quantize_new(k_new, ks, cache.k.dtype).contiguous(),
+                                   contiguous.quantize_new(v_new, vs, cache.v.dtype).contiguous(), start,
+                                   n_valid, att_lengths, layer=lidx, sm_scale=cfg.sm_scale(),
+                                   block_k=cfg.block_k, k_scales=ks, v_scales=vs,
+                                   **_attn_options(cfg, lidx))  # (B, Hq, T, D)
 
     pos = start[:, None] + torch.arange(t, device=start.device, dtype=torch.int32)[None, :]
     rope_pos = _rope_positions(pos, cos)

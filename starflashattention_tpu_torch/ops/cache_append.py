@@ -9,7 +9,12 @@ writes the first ``n_valid[b]`` of T rows ``table[layer, b, :, pos[b] + j,
 all four launch ``csrc/cache_append.cu`` (which replaces the TPU kernels
 ``_append_kernel_kv``, ``_append_kernel_one``, ``_append_kernel_paged`` and
 ``_append_block_kernel_kv``); on CPU tensors they run the plain versions
-below.
+below. The model's decode and verify steps launch none of them: their
+appends are folded into the attention's launch
+(``ops/flash_decode.flash_decode_append`` and ``flash_verify_append``,
+``ops/paged_decode.paged_flash_decode_append``), whose plain twins are
+these plain versions followed by the attention's. They stay as the ports
+of JAX's public entries.
 """
 
 from __future__ import annotations

@@ -21,7 +21,13 @@ kernel K3) folded into that launch, as the reference's
 position writes the new K/V row and reads it from the new rows, so one
 launch gives the tables and the output of K3 followed by ``flash_decode``,
 bit for bit. Its plain twin is :func:`append_rows_kv_plain` then
-:func:`flash_decode_plain`.
+:func:`flash_decode_plain`. ``flash_verify_append`` does the same for the
+verify step's block append (``append_block_kv``, kernel K9): the T new
+rows of each sequence at ``min(pos, S - T)``, the first ``n_valid`` of
+them, written by the blocks whose chunks hold them (a span across a chunk
+edge has two) and read from the new rows, bit for bit K9 then
+:func:`flash_verify`; its twin is :func:`append_block_kv_plain` then
+:func:`flash_verify_plain`.
 
 Quantized caches (int8 / fp8 tables with (Hkv,) ``k_scales`` /
 ``v_scales``) take the JAX wrapper's scale handling: ``sm_scale *
@@ -53,11 +59,11 @@ import torch
 
 from starflashattention_tpu_torch.core.reference import NEG_INF, repeat_kv
 from starflashattention_tpu_torch.ops import _build
-from starflashattention_tpu_torch.ops.cache_append import append_rows_kv_plain
+from starflashattention_tpu_torch.ops.cache_append import append_block_kv_plain, append_rows_kv_plain
 from starflashattention_tpu_torch.utils.device import sm_count
 
 _SPLIT_SIGNATURES = {
-    "flash_decode_split": [_build.P] * 15 + [_build.I] * 11 + [_build.F] + [_build.I] * 6
+    "flash_decode_split": [_build.P] * 16 + [_build.I] * 11 + [_build.F] + [_build.I] * 6
     + [_build.F, _build.P],
 }
 _CUDA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -196,23 +202,28 @@ def _quantized(k_cache, k_scales, v_scales) -> bool:
     return True
 
 
-def check_append(what, q, k_new, v_new, pos, kv_dtype, hkv, d):
-    """The folded append's inputs as the kernel takes them: one query token
-    a sequence, q (B, Hq, D) (a verify span takes no append); ``k_new`` /
-    ``v_new`` (B, Hkv, D) in the cache's dtype, contiguous and 16-byte
-    aligned; ``pos`` (B,) integer write positions. Raises ``ValueError`` on
-    anything else: no row is copied to make it fit."""
-    if q.dim() != 3:
-        raise ValueError(f"{what}: a verify span takes no folded append, q {tuple(q.shape)}")
+def check_append(what, q, k_new, v_new, pos, kv_dtype, hkv, d, n_valid=None, span=False):
+    """The folded append's inputs as the kernel takes them: ``k_new`` /
+    ``v_new`` in the cache's dtype, contiguous and 16-byte aligned, (B,
+    Hkv, D) rows for one query token a sequence, q (B, Hq, D) (a verify span
+    takes no such append), or with ``span`` (B, Hkv, T, D) rows for q (B,
+    Hq, T, D); ``pos`` (B,) integer first write positions; ``n_valid`` (B,)
+    integer rows to write, or None. Raises ``ValueError`` on anything else:
+    no row is copied to make it fit."""
+    if q.dim() != (4 if span else 3):
+        raise ValueError(f"{what}: takes q (B, Hq, T, D), got {tuple(q.shape)}" if span else
+                         f"{what}: a verify span takes no folded append, q {tuple(q.shape)}")
     b = q.shape[0]
+    rows = (b, hkv, *q.shape[2:-1], d)
     for name, new in (("k_new", k_new), ("v_new", v_new)):
-        if new.shape != (b, hkv, d) or new.dtype != kv_dtype:
+        if new.shape != rows or new.dtype != kv_dtype:
             raise ValueError(f"{what}: {name} {tuple(new.shape)} {new.dtype} does not match the "
-                             f"cache's ({b}, {hkv}, {d}) {kv_dtype} rows")
+                             f"cache's {rows} {kv_dtype} rows")
         if not new.is_contiguous() or new.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be contiguous and 16-byte aligned")
-    if pos.shape != (b,) or pos.dtype not in (torch.int32, torch.int64):
-        raise ValueError(f"{what}: pos must be ({b},) int32, got {tuple(pos.shape)} {pos.dtype}")
+    for name, x in (("pos", pos), ("n_valid", n_valid)):
+        if x is not None and (x.shape != (b,) or x.dtype not in (torch.int32, torch.int64)):
+            raise ValueError(f"{what}: {name} must be ({b},) int32, got {tuple(x.shape)} {x.dtype}")
 
 
 def _as_table(k_cache, v_cache, layer):
@@ -321,9 +332,11 @@ def launch_split(q, k_ptr, v_ptr, lengths, *, hkv, s, scale, kv_code, scales=Non
     ``split_len``): the caller's split geometry. ``pages`` =
     (page_table, num_pages, page_size) selects the paged form, which folds
     ``scale`` into q and rounds it to q's dtype. ``append`` = (k_new, v_new,
-    wpos), checked by :func:`check_append`, folds the decode step's row
-    append into the launch (wpos of any integer dtype, taken to int32 on
-    q's device here; the kernel clamps it to the last slot)."""
+    wpos, n_valid), checked by :func:`check_append`, folds the step's row
+    append into the launch: the decode's one row, or a verify span's T rows
+    of which the first ``n_valid`` (None: all) are written (wpos and
+    n_valid of any integer dtype, taken to int32 on q's device here; the
+    kernel clamps wpos to S - T)."""
     b, hq = q.shape[:2]
     d = q.shape[-1]
     qspan = q.shape[2] if q.dim() == 4 else 1
@@ -335,9 +348,9 @@ def launch_split(q, k_ptr, v_ptr, lengths, *, hkv, s, scale, kv_code, scales=Non
         chunk, n = split_len, o.shape[2]
     table, num_pages, page_size = pages if pages is not None else (None, 0, 1)
     k_scales, v_scales = _scale_vectors(scales, hkv, q.device)
-    k_new, v_new, wpos = append if append is not None else (None, None, None)
-    if wpos is not None:
-        wpos = wpos.to(device=q.device, dtype=torch.int32).contiguous()
+    k_new, v_new, wpos, n_valid = append if append is not None else (None,) * 4
+    wpos, n_valid = (None if x is None else x.to(device=q.device, dtype=torch.int32).contiguous()
+                     for x in (wpos, n_valid))
     lib = _build.load("flash_decode_split", _SPLIT_SIGNATURES)
     with torch.cuda.device(q.device):
         err = lib.flash_decode_split(
@@ -347,7 +360,7 @@ def launch_split(q, k_ptr, v_ptr, lengths, *, hkv, s, scale, kv_code, scales=Non
             None if arrivals is None else _build.ptr(arrivals),
             None if k_scales is None else _build.ptr(k_scales),
             None if v_scales is None else _build.ptr(v_scales),
-            *(None if t is None else _build.ptr(t) for t in (k_new, v_new, wpos)),
+            *(None if t is None else _build.ptr(t) for t in (k_new, v_new, wpos, n_valid)),
             b, hq, hkv, s, d, qspan, chunk, n, 0 if table is None else table.shape[1], page_size,
             num_pages, scale, _CUDA_DTYPES[q.dtype], kv_code, int(table is not None),
             int(has_variants(window, sinks, softcap)), *kernel_options(window, sinks, softcap),
@@ -451,7 +464,7 @@ def _decode(q, k_cache, v_cache, lengths, layer, sm_scale, num_splits, block_k, 
     and apply them in the kernel; on the plain route they are folded around
     the call in JAX's order. A window or softcap needs one split, as in
     JAX. ``append`` (kernel route only) is the folded append's (k_new,
-    v_new, pos), handed to whichever launch runs."""
+    v_new, pos, n_valid), handed to whichever launch runs."""
     k_cache, v_cache, layer = _as_table(k_cache, v_cache, layer)
     opts = opts or variant_options(None, 0, None)
     n = _split_geometry(k_cache.shape[3], num_splits, block_k)[0]
@@ -504,8 +517,8 @@ def _launch(q, k_cache, v_cache, lengths, layer, sm_scale, n, split_len, fused, 
             window=None, sinks=0, softcap=None, append=None):
     """Run csrc/flash_decode_split.cu on one layer of the table; returns the
     normalized output (fused; q (B, Hq, D), or (B, Hq, T, D) to verify) or
-    the (o, m, l) partials. ``append`` = (k_new, v_new, pos): the folded
-    row append."""
+    the (o, m, l) partials. ``append`` = (k_new, v_new, pos, n_valid): the
+    folded row append."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
     l_, b, hkv, s, d = k_cache.shape
@@ -676,7 +689,7 @@ def flash_decode_append(
     return _decode(q, k_cache, v_cache, lengths, layer, sm_scale, num_splits, block_k, k_scales,
                    v_scales, _fused_kernel, _stats_kernel,
                    opts=variant_options(window, sinks, softcap), kernel=True,
-                   append=(k_new, v_new, pos))
+                   append=(k_new, v_new, pos, None))
 
 
 flash_decode_append.launches = 0  # the launches that folded an append (all also in flash_decode's)
@@ -685,11 +698,13 @@ flash_decode_append.launches = 0  # the launches that folded an append (all also
 # ----------------------------------------------------------------- verify
 
 
-def _verify_kernel(q, k_cache, v_cache, lengths, *, layer, sm_scale, scales, **opts):
+def _verify_kernel(q, k_cache, v_cache, lengths, *, layer, sm_scale, scales, append=None, **opts):
     s = k_cache.shape[3]
     out = _launch(q, k_cache, v_cache, lengths, layer, sm_scale, 1, s, fused=True, scales=scales,
-                  **opts)
+                  append=append, **opts)
     flash_verify.launches += 1
+    if append is not None:
+        flash_verify_append.launches += 1
     return out
 
 
@@ -741,3 +756,63 @@ def flash_verify(
 
 
 flash_verify.launches = 0
+
+
+def flash_verify_append_plain(q, k_cache, v_cache, k_new, v_new, pos, n_valid, lengths, *, layer=None,
+                              sm_scale=None, block_k=256, k_scales=None, v_scales=None, window=None,
+                              sinks=0, softcap=None):
+    """Plain twin of :func:`flash_verify_append`: :func:`append_block_kv_plain`
+    at ``min(pos, S - T)`` with ``n_valid``, then :func:`flash_verify_plain`."""
+    k_cache, v_cache, layer = _as_table(k_cache, v_cache, layer)
+    append_block_kv_plain(k_cache, v_cache, k_new, v_new, layer,
+                          torch.clamp(pos, max=k_cache.shape[3] - q.shape[2]), n_valid)
+    return flash_verify_plain(q, k_cache, v_cache, lengths, layer=layer, sm_scale=sm_scale,
+                              block_k=block_k, k_scales=k_scales, v_scales=v_scales, window=window,
+                              sinks=sinks, softcap=softcap)
+
+
+def flash_verify_append(
+    q: torch.Tensor,  # (B, Hq, T, D)
+    k_cache: torch.Tensor,  # (B, Hkv, S, D) or (L, B, Hkv, S, D) with `layer`
+    v_cache: torch.Tensor,
+    k_new: torch.Tensor,  # (B, Hkv, T, D) in the cache's dtype, contiguous, 16-byte aligned
+    v_new: torch.Tensor,
+    pos: torch.Tensor,  # (B,) int32 first write positions, clamped to S - T
+    n_valid: torch.Tensor | None,  # (B,) int32 rows to write (None: all T; 0: an inactive row)
+    lengths: torch.Tensor,  # (B,) int32 valid KV for query token 0
+    *,
+    layer: int | None = None,
+    sm_scale: float | None = None,
+    block_k: int = 256,
+    k_scales: torch.Tensor | None = None,
+    v_scales: torch.Tensor | None = None,
+    window=None,
+    sinks: int = 0,
+    softcap: float | None = None,
+) -> torch.Tensor:
+    """The verify step's block append and attention in one launch: writes
+    ``table[layer, b, :, p + j] = new[b, :, j]`` for ``j < n_valid[b]`` at
+    ``p = min(pos[b], S - T)`` for K and V IN PLACE (rows outside the
+    table skipped), then returns :func:`flash_verify` over ``lengths`` ->
+    (B, Hq, T, D), bit for bit ``append_block_kv`` followed by
+    ``flash_verify`` (the blocks whose chunks hold the span's rows write
+    them and read them from the new rows; see ``csrc/flash_decode_split.cu``).
+    A quantized cache takes its rows already quantized. ``pos``,
+    ``n_valid`` and ``lengths`` are never read back to the host. Each
+    launch counts in ``flash_verify.launches`` and in
+    ``flash_verify_append.launches``. Raises ``ValueError`` on rows the
+    kernel does not take (:func:`check_append`) on either route."""
+    k_tab, _, _ = _as_table(k_cache, v_cache, layer)
+    check_append("flash_verify_append", q, k_new, v_new, pos, k_tab.dtype, k_tab.shape[2], k_tab.shape[4],
+                 n_valid=n_valid, span=True)
+    if q.device.type == "cpu":
+        return flash_verify_append_plain(q, k_cache, v_cache, k_new, v_new, pos, n_valid, lengths,
+                                         layer=layer, sm_scale=sm_scale, block_k=block_k,
+                                         k_scales=k_scales, v_scales=v_scales, window=window,
+                                         sinks=sinks, softcap=softcap)
+    return _decode(q, k_cache, v_cache, lengths, layer, sm_scale, 1, block_k, k_scales, v_scales,
+                   _verify_kernel, None, opts=variant_options(window, sinks, softcap), kernel=True,
+                   append=(k_new, v_new, pos, n_valid))
+
+
+flash_verify_append.launches = 0  # the launches that folded an append (all also in flash_verify's)

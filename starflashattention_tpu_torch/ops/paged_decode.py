@@ -230,7 +230,7 @@ def paged_flash_decode_append(
                                                lengths, layer=layer, sm_scale=sm_scale,
                                                k_scales=k_scales, v_scales=v_scales, **opts)
     return _paged_kernel(q, k_pages, v_pages, page_table, lengths, layer, sm_scale, k_scales,
-                         v_scales, **opts, append=(k_new, v_new, pos))
+                         v_scales, **opts, append=(k_new, v_new, pos, None))
 
 
 paged_flash_decode_append.launches = 0  # the launches that folded an append (all also in paged_flash_decode's)

@@ -16,7 +16,11 @@ K8 on 1-byte pools; the decode step's append folded into K1, K2 and K7
 (bit for bit the standalone K3 / K8 followed by the decode, output and
 whole tables, at D 64, 128, 256 and 640, on fp32, bf16, int8 and fp8 KV,
 plain and with the variants, and at Mistral's and Gemma-2's variant
-shapes); quantized deployments
+shapes); the verify step's block append folded into K1's verify launch
+(bit for bit K9 followed by the verify, output and whole tables, at D 64,
+128 and 256, fp32 and bf16 q, on fp32, bf16, int8 and fp8 KV, plain and
+with the variants, spans across tile and chunk edges, clamped and inactive
+rows, and at Gemma-2's verify shape; D 640 refuses a span); quantized deployments
 through ``generate`` and both engines. Decode at head_dim 64, 128 and 256
 (one kernel, the KV walk split across blocks, the quantized KV's scales
 folded in it): decode, verify and paged decode at the edge cases of
@@ -340,6 +344,105 @@ def test_folded_append_refusals(cuda):
         run(q, k, v, kn, unaligned, wpos, lengths)
     with pytest.raises(ValueError, match="does not match"):
         run(q, k, v, kn.float(), vn, wpos, lengths)
+
+
+# (first write position, rows to write) of a verify span of T 5 at S 512:
+# across the 32-row tile edge, across the 128-row chunk edge, at the
+# table's start, clamped to S - T from S - 2 and from S, a partial span, an
+# inactive row (n_valid 0); token 0 attends pos + 1 rows
+VERIFY_FOLD_T = 5
+VERIFY_FOLD_ROWS = ((30, 5), (126, 5), (0, 5), (FOLD_S - 2, 5), (FOLD_S, 5), (200, 3), (40, 0))
+VERIFY_FOLD_KV = [(torch.float32, "float32"), (torch.bfloat16, "bfloat16"), (torch.float32, "int8"),
+                  (torch.bfloat16, "int8"), (torch.float32, "fp8"), (torch.bfloat16, "fp8")]
+
+
+def _verify_fold_case(dev, d, q_dtype, kv):
+    """q (B, Hq, T, D), the (2, B, Hkv, S, D) tables, the new (B, Hkv, T, D)
+    rows, write positions, n_valid, lengths and the scales keyword
+    arguments of one verify fold case (Hq 8, Hkv 2): K / V in q's dtype, or
+    int8 / fp8 quantized against 5 / qmax."""
+    from starflashattention_tpu_torch.core.quant import quantize_value
+
+    gen = _gen(dev)
+    b, hq, hkv, t = len(VERIFY_FOLD_ROWS), 8, 2, VERIFY_FOLD_T
+    q = torch.randn((b, hq, t, d), generator=gen, device=dev, dtype=q_dtype)
+    tensors = [torch.randn(shape, generator=gen, device=dev, dtype=q_dtype)
+               for shape in ((2, b, hkv, FOLD_S, d),) * 2 + ((b, hkv, t, d),) * 2]
+    sc = {}
+    if kv in ("int8", "fp8"):
+        scales = torch.full((hkv,), 5.0 / (127.0 if kv == "int8" else 448.0), device=dev)
+        tensors = [quantize_value(x, scales, kv, head_axis=2 if x.dim() == 5 else 1) for x in tensors]
+        sc = dict(k_scales=scales, v_scales=scales)
+    pos = torch.tensor([p for p, _ in VERIFY_FOLD_ROWS], dtype=torch.int32, device=dev)
+    n_valid = torch.tensor([n for _, n in VERIFY_FOLD_ROWS], dtype=torch.int32, device=dev)
+    return q, *tensors, pos, n_valid, pos + 1, sc
+
+
+def _verify_fold_matches(q, k, v, kn, vn, pos, n_valid, lengths, **kw):
+    """The fused verify launch against K9 at min(pos, S - T) then the
+    verify, each on its own clones of the tables (``_fold_matches``)."""
+    clamped = torch.clamp(pos, max=k.shape[3] - q.shape[2])
+    return _fold_matches((k, v), lambda a, b_: flash_decode.flash_verify_append(q, a, b_, kn, vn, pos, n_valid,
+                                                                                lengths, **kw),
+                         lambda a, b_: (cache_append.append_block_kv(a, b_, kn, vn, kw["layer"], clamped, n_valid),
+                                        flash_decode.flash_verify(q, a, b_, lengths, **kw))[1])
+
+
+@pytest.mark.parametrize("variants", [False, True])
+@pytest.mark.parametrize("q_dtype,kv", VERIFY_FOLD_KV, ids=[f"{str(q)[6:]}-{kv}" for q, kv in VERIFY_FOLD_KV])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_folded_block_append_equals_append_then_verify(cuda, d, q_dtype, kv, variants):
+    """K9 folded into K1's verify launch (the chunk grid of S 512, 128-row
+    chunks), plain and in the VARIANTS form (window 64 + 4 sinks, and a
+    softcap of 30 at D 256): bit for bit the standalone block append at
+    min(pos, S - T) followed by the verify, output and whole tables; one
+    launch, counted by both counters."""
+    q, k, v, kn, vn, pos, n_valid, lengths, sc = _verify_fold_case(cuda, d, q_dtype, kv)
+    opts = {}
+    if variants:
+        opts = dict(window=64, sinks=4, **(dict(softcap=30.0) if d == 256 else {}))
+    counters = (flash_decode.flash_verify, flash_decode.flash_verify_append, cache_append.append_block_kv)
+    before = [c.launches for c in counters]
+    out = _verify_fold_matches(q, k, v, kn, vn, pos, n_valid, lengths, layer=1, **sc, **opts)
+    assert [c.launches - b_ for c, b_ in zip(counters, before)] == [2, 1, 1]
+    assert out.shape == q.shape and bool(torch.isfinite(out.float()).all())
+
+
+def test_folded_block_append_without_n_valid_writes_every_row(cuda):
+    """n_valid None writes all T rows, as K9 does without it."""
+    q, k, v, kn, vn, pos, _, lengths, _ = _verify_fold_case(cuda, 128, torch.bfloat16, "bfloat16")
+    _verify_fold_matches(q, k, v, kn, vn, pos, None, lengths, layer=1)
+
+
+def test_folded_block_append_at_gemma2_verify_shape(cuda):
+    """Gemma-2-9B's verify step (D 256, Hq 16, Hkv 8, softcap 50, window
+    4096) at S 8192: spans past the window, at the table's start, across a
+    chunk edge (256-row chunks) and clamped at the table's end."""
+    gen = _gen(cuda)
+    b, hq, hkv, d, s, t = 4, 16, 8, 256, 8192, VERIFY_FOLD_T
+    q = torch.randn((b, hq, t, d), generator=gen, device=cuda, dtype=torch.bfloat16)
+    k, v = (torch.randn((2, b, hkv, s, d), generator=gen, device=cuda, dtype=torch.bfloat16) for _ in range(2))
+    kn, vn = (torch.randn((b, hkv, t, d), generator=gen, device=cuda, dtype=torch.bfloat16) for _ in range(2))
+    pos = torch.tensor([6000, 2, 510, s - 3], dtype=torch.int32, device=cuda)
+    n_valid = torch.tensor([t, t, t, t], dtype=torch.int32, device=cuda)
+    _verify_fold_matches(q, k, v, kn, vn, pos, n_valid, pos + 1, layer=1, window=4096, softcap=50.0)
+
+
+def test_folded_block_append_refusals(cuda):
+    """D 640 takes no verify span, and rows the kernel does not take raise;
+    nothing is copied to fit."""
+    q, k, v, kn, vn, pos, n_valid, lengths, _ = _verify_fold_case(cuda, 128, torch.bfloat16, "bfloat16")
+    run = lambda *a: flash_decode.flash_verify_append(*a, layer=1)  # noqa: E731
+    with pytest.raises(ValueError, match="contiguous"):
+        run(q, k, v, kn, vn.transpose(2, 3).contiguous().transpose(2, 3), pos, n_valid, lengths)
+    with pytest.raises(ValueError, match="does not match"):
+        run(q, k, v, kn[:, :, 0].contiguous(), vn, pos, n_valid, lengths)
+    b, t = q.shape[0], VERIFY_FOLD_T
+    ql = torch.zeros((b, 16, t, 640), dtype=torch.bfloat16, device=cuda)
+    kl = torch.zeros((2, b, 1, FOLD_S, 640), dtype=torch.bfloat16, device=cuda)
+    nl = torch.zeros((b, 1, t, 640), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="verify span"):
+        run(ql, kl, kl.clone(), nl, nl.clone(), pos, n_valid, lengths)
 
 
 @pytest.mark.parametrize("mode", ["int8", "fp8"])
@@ -900,9 +1003,10 @@ def test_flash_verify_kernel_matches_plain_and_decode(cuda, kv, t, d):
 
 def test_spec_engines_run_on_the_kernels(cuda):
     """Both draft sources serve a narrow bf16 model on the card: every verify
-    step launches K9 and K1's verify mode once a layer and the one-row
-    append never (the draft model's decode steps append, folded into their
-    decode launches, on its own cache); every request finishes."""
+    step launches K1's verify mode with K9 folded in once a layer, and the
+    standalone block append and one-row append never (the draft model's
+    decode steps append, folded into their decode launches, on its own
+    cache); every request finishes."""
     cfg = ModelConfig.tiny(hidden_size=256, intermediate_size=512, num_q_heads=4, num_kv_heads=2,
                            head_dim=64, max_seq_len=256, dtype="bfloat16", num_splits=1)
     params = llama.quantize_model_weights(
@@ -912,8 +1016,8 @@ def test_spec_engines_run_on_the_kernels(cuda):
     dparams = llama.init_params(dcfg, torch.Generator(device=cuda).manual_seed(1), device=cuda)
     motif = torch.randint(0, cfg.vocab_size, (12,), generator=torch.Generator().manual_seed(3)).tolist()
     prompts = [motif + [i, i + 1] + motif for i in range(5)]
-    counters = (flash_decode.flash_verify, cache_append.append_block_kv, cache_append.append_rows_kv,
-                flash_decode.flash_decode_append)
+    counters = (flash_decode.flash_verify, flash_decode.flash_verify_append, cache_append.append_block_kv,
+                cache_append.append_rows_kv, flash_decode.flash_decode_append)
     for draft, k in ((None, 3), ((dparams, dcfg), 2)):
         eng = Engine(params, cfg, num_slots=2, steps_per_round=3, spec_decode=k, draft_model=draft,
                      device=cuda)
@@ -922,7 +1026,7 @@ def test_spec_engines_run_on_the_kernels(cuda):
         grew = [fn.launches - b for fn, b in zip(counters, before)]
         steps = eng.stats.decode_rounds * 3
         draft_rows = 0 if draft is None else steps * (k + 1) * dcfg.num_layers
-        assert grew == [steps * cfg.num_layers, steps * cfg.num_layers, 0, draft_rows]
+        assert grew == [steps * cfg.num_layers, steps * cfg.num_layers, 0, 0, draft_rows]
         assert eng.stats.finished == len(prompts) and all(len(o) == 12 for o in out)
         assert eng.stats.spec_steps > 0
 
