@@ -332,6 +332,24 @@ Phases (any failure raises and the script exits non-zero):
    the first step's loss and every rank's gradients within 5e-2 of one
    process's, 3 steps lower the loss. Launch counts checked on every rank;
    step times, peak memory and bytes through the host printed.
+15. Checkpoints (``models/checkpoint``). (a) ``ModelConfig.llama_7b_gqa``
+   at full width and depth (32 layers, ``max_seq_len`` 1024): a seeded
+   dense bf16 tree on the card (norms perturbed from 1), written out as
+   the HF state dict a Llama checkpoint holds ((out, in) views of the
+   tree, ``_hf_state``), converted back by ``load_hf_state_dict`` and held
+   bit for bit, leaf by leaf; both trees quantized to int8 (lm_head too)
+   and run through ``generate`` on phase 3's prompt lengths with phase 3's
+   launch counts: equal sha256 digests; the converted int8 tree saved by
+   ``save_checkpoint`` into a temporary directory and restored by
+   ``load_checkpoint`` onto the card: an equal, hashable config, the same
+   bits and digest; the GB written. (b) The other routes at published
+   widths, 2 layers each: ``qwen2_7b`` (QKV bias), ``phi3_medium`` (fused
+   ``qkv_proj`` / ``gate_up_proj``, longrope), ``gemma2_9b`` (norms stored
+   as w - 1, four norms, tied head), ``mixtral_8x7b`` (experts) and
+   ``deepseek_v2_lite`` (MLA's ``kv_b_proj`` split, shared experts, a
+   dense first layer): each bit for bit its source, int8, and ``generate``
+   with equal digests and launch counts. Seconds of each step and the peak
+   device memory printed.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device,
@@ -349,7 +367,9 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -3304,6 +3324,18 @@ def run_generate(params, cfg, prompts, lengths, dev, expected, tag):
     return toks, counts
 
 
+def slice_counts(n_layers):
+    """Phase 3's launches of one greedy ``generate`` (int8 weights and
+    lm_head): per prefill one attention and four projections a layer, plus
+    the lm_head (8 rows: the small-M kernel); per decode step one attention
+    with its append folded in and four projections a layer, plus the
+    lm_head."""
+    steps = SLICE_NEW_TOKENS - 1
+    return zero_counts(flash_prefill=n_layers, flash_decode_append=steps * n_layers,
+                       flash_decode=steps * n_layers, quant_matmul=(4 * n_layers + 1) * (steps + 1),
+                       quant_matmul_tiled=4 * n_layers)
+
+
 def phase_slice(dev):
     from starflashattention_tpu_torch.runtime.params import ModelConfig
 
@@ -3316,14 +3348,8 @@ def phase_slice(dev):
         f"int8 weights + int8 lm_head, built in {time.perf_counter() - t0:.1f} s")
     prompts, lengths = _prompts(base, dev, gen)
     log(f"[slice] prompt lengths {lengths.tolist()}, {SLICE_NEW_TOKENS} greedy tokens")
-    n_layers, steps = base.num_layers, SLICE_NEW_TOKENS - 1
-    # per prefill: one attention and four projections a layer, plus the
-    # lm_head (8 rows: the small-M kernel); per decode step: one append,
-    # one attention and four projections a layer, plus the lm_head
-    expected = zero_counts(flash_prefill=n_layers, flash_decode_append=steps * n_layers,
-                           flash_decode=steps * n_layers,
-                           quant_matmul=(4 * n_layers + 1) * (steps + 1),
-                           quant_matmul_tiled=4 * n_layers)
+    steps = SLICE_NEW_TOKENS - 1
+    expected = slice_counts(base.num_layers)
     runs, streams = {}, {}
     for splits in (1, base.num_splits):
         cfg = ModelConfig.llama_7b_gqa(num_layers=SLICE_LAYERS, max_seq_len=SLICE_SEQ, num_splits=splits)
@@ -5785,6 +5811,238 @@ def phase_tensor_parallel(smi):
     return dict(records=recs, totals=totals, seconds=secs)
 
 
+# ---------------------------------------------------------------- phase 15
+
+CKPT_FAMILY_LAYERS = 2  # (b)'s depth
+CKPT_SEQ = 1024  # (b)'s max_seq_len
+# Phi-3's longrope (su) scaling at Phi-3-medium-128k's positions, 64 factors
+# a list (made up here: only the route matters)
+PHI3_LONGROPE = ("longrope", 4096, 131072, tuple(1.0 + 0.01 * i for i in range(64)),
+                 tuple(1.0 + 0.5 * i for i in range(64)))
+# (b)'s presets: (overrides, HF names with Phi-3's fused projections)
+CKPT_FAMILIES = {"qwen2_7b": ({}, False), "phi3_medium": (dict(rope_scaling=PHI3_LONGROPE), True),
+                 "gemma2_9b": ({}, False), "mixtral_8x7b": ({}, False), "deepseek_v2_lite": ({}, False)}
+
+
+def _perturbed_norms(params, gen):
+    """Every norm weight of ``params`` set in place to 1 + 0.1 N(0, 1),
+    within [0.6, 1.4], so that each norm's route shows in the bits (and
+    Gemma's w - 1 is exact in fp32)."""
+    for tree in (params, params["layers"]):
+        for name, w in tree.items():
+            if name.endswith("norm"):
+                noise = torch.randn(w.shape, generator=gen, device=w.device, dtype=torch.float32)
+                w.copy_((1.0 + 0.1 * noise).clamp(0.6, 1.4))
+
+
+def _zero_dense_first_experts(params, cfg):
+    """DeepSeek's dense first layers never select an expert; HF stores no
+    expert weights for them and the loader leaves those slices zero, so the
+    source tree zeroes them too."""
+    for name in ("moe_router", "moe_gate_up", "moe_down", "moe_shared_gate_up", "moe_shared_down"):
+        if cfg.num_experts and name in params["layers"]:
+            params["layers"][name][:cfg.first_k_dense].zero_()
+
+
+def _hf_state(params, cfg, fused=False):
+    """The HF state dict a checkpoint of ``cfg``'s family holds, made of
+    (out, in) views of ``params`` (the inverse of
+    ``models/checkpoint.load_hf_state_dict``): Llama-family names, Qwen2's
+    biases, Phi-3's fused ``qkv_proj`` / ``gate_up_proj`` (``fused``),
+    Gemma's norms as w - 1 in fp32 and Gemma-2's four norms, Mixtral's
+    ``block_sparse_moe`` experts, DeepSeek's MLA (``kv_b_proj`` built from
+    W_uk and W_uv), experts, shared experts and dense first layers."""
+    lay, sd = params["layers"], {"model.embed_tokens.weight": params["embed"]}
+    hq, hkv, d = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def norm(w):
+        return w.float() - 1.0 if cfg.norm_plus_one else w
+
+    def gate_up(prefix, w, names=("gate_proj", "up_proj")):
+        g, u = w.chunk(2, dim=-1)
+        sd[prefix + f"{names[0]}.weight"], sd[prefix + f"{names[1]}.weight"] = g.T, u.T
+
+    sd["model.norm.weight"] = norm(params["final_norm"])
+    if not cfg.tie_embeddings:
+        sd["lm_head.weight"] = params["lm_head"].T
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        sa = p + "self_attn."
+        if cfg.mla:
+            if cfg.q_lora_rank is not None:
+                sd[sa + "q_a_proj.weight"], sd[sa + "q_b_proj.weight"] = lay["mla_wq_a"][i].T, lay["mla_wq_b"][i].T
+                sd[sa + "q_a_layernorm.weight"] = lay["mla_q_a_norm"][i]
+            else:
+                sd[sa + "q_proj.weight"] = lay["mla_wq"][i].T
+            sd[sa + "kv_a_proj_with_mqa.weight"] = lay["mla_wkv_a"][i].T
+            sd[sa + "kv_a_layernorm.weight"] = lay["mla_kv_a_norm"][i]
+            sd[sa + "kv_b_proj.weight"] = torch.cat([lay["mla_wuk"][i], lay["mla_wuv"][i].transpose(1, 2)],
+                                                    dim=1).reshape(-1, cfg.kv_lora_rank)
+        elif fused:
+            sd[sa + "qkv_proj.weight"] = lay["wqkv"][i].T
+        else:
+            for n, w in zip("qkv", lay["wqkv"][i].split([hq * d, hkv * d, hkv * d], dim=1)):
+                sd[sa + f"{n}_proj.weight"] = w.T
+        if cfg.attention_bias:
+            for n, b in zip("qkv", lay["bqkv"][i].split([hq * d, hkv * d, hkv * d])):
+                sd[sa + f"{n}_proj.bias"] = b
+        if cfg.qk_norm:
+            sd[sa + "q_norm.weight"], sd[sa + "k_norm.weight"] = lay["q_norm"][i], lay["k_norm"][i]
+        sd[sa + "o_proj.weight"] = lay["wo"][i].T
+        if cfg.num_experts and i < cfg.first_k_dense:
+            gate_up(p + "mlp.", lay["dense_mlp"]["w_gate_up"][i])
+            sd[p + "mlp.down_proj.weight"] = lay["dense_mlp"]["w_down"][i].T
+        elif cfg.num_experts:
+            deepseek = cfg.mla
+            sd[p + ("mlp.gate.weight" if deepseek else "block_sparse_moe.gate.weight")] = lay["moe_router"][i].T
+            for e in range(cfg.num_experts):
+                ep = p + (f"mlp.experts.{e}." if deepseek else f"block_sparse_moe.experts.{e}.")
+                gate_up(ep, lay["moe_gate_up"][i, e], ("gate_proj", "up_proj") if deepseek else ("w1", "w3"))
+                sd[ep + ("down_proj.weight" if deepseek else "w2.weight")] = lay["moe_down"][i, e].T
+            if cfg.n_shared_experts:
+                gate_up(p + "mlp.shared_experts.", lay["moe_shared_gate_up"][i])
+                sd[p + "mlp.shared_experts.down_proj.weight"] = lay["moe_shared_down"][i].T
+        elif fused:
+            sd[p + "mlp.gate_up_proj.weight"] = lay["w_gate_up"][i].T
+            sd[p + "mlp.down_proj.weight"] = lay["w_down"][i].T
+        else:
+            gate_up(p + "mlp.", lay["w_gate_up"][i])
+            sd[p + "mlp.down_proj.weight"] = lay["w_down"][i].T
+        sd[p + "input_layernorm.weight"] = norm(lay["attn_norm"][i])
+        if cfg.post_norms:
+            sd[p + "post_attention_layernorm.weight"] = norm(lay["post_attn_norm"][i])
+            sd[p + "pre_feedforward_layernorm.weight"] = norm(lay["mlp_norm"][i])
+            sd[p + "post_feedforward_layernorm.weight"] = norm(lay["post_mlp_norm"][i])
+        else:
+            sd[p + "post_attention_layernorm.weight"] = norm(lay["mlp_norm"][i])
+    return sd
+
+
+def _same_tree(tag, got, want):
+    """Every leaf of ``got`` bit for bit ``want``'s (same names, dtypes and
+    shapes); raises at the first that differs."""
+    a, b = dict(_named_leaves(got)), dict(_named_leaves(want))
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"[checkpoint] {tag}: leaves {sorted(a)} != {sorted(b)}")
+    for name in a:
+        if not _bit_equal(a[name], b[name]):
+            raise AssertionError(f"[checkpoint] {tag}: {name} differs from the source tree")
+    log(f"[checkpoint] {tag}: {len(a)} leaves, {_param_bytes(got) / 1e9:.3f} GB, bit for bit the source tree")
+
+
+def _timed_step(secs, name, fn):
+    """fn's result, its host-clock seconds stored as ``secs[name]``."""
+    out, ms = _timed(fn)
+    secs[name] = ms / 1e3
+    return out
+
+
+def _converted(tag, cfg, dev, gen, fused=False):
+    """A seeded dense bf16 tree of ``cfg`` on the card (norms perturbed),
+    its HF state dict, and ``load_hf_state_dict`` of it held bit for bit to
+    the tree: (source, converted, seconds)."""
+    from starflashattention_tpu_torch.models import checkpoint, llama
+
+    secs = {}
+    src = _timed_step(secs, "init", lambda: llama.init_params(cfg, gen, device=dev))
+    _perturbed_norms(src, gen)
+    _zero_dense_first_experts(src, cfg)
+    state = _hf_state(src, cfg, fused)
+    got = _timed_step(secs, "convert", lambda: checkpoint.load_hf_state_dict(state, cfg, device=dev))
+    del state
+    _same_tree(f"{tag} load_hf_state_dict", got, src)
+    return src, got, secs
+
+
+def _checkpoint_7b(dev):
+    """(a): 7B-GQA at full depth through the HF conversion, int8, greedy
+    streams, the native save and load."""
+    from starflashattention_tpu_torch.models import checkpoint, llama
+    from starflashattention_tpu_torch.runtime.params import ModelConfig
+
+    cfg = ModelConfig.llama_7b_gqa(num_layers=SLICE_LAYERS, max_seq_len=SLICE_SEQ)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    src, got, secs = _converted("7B-GQA", cfg, dev, gen)
+    quantize = lambda tree: llama.quantize_model_weights(tree, "int8", lm_head=True, consume=True)  # noqa: E731
+    qsrc = _timed_step(secs, "quantize source", lambda: quantize(src))
+    qgot = _timed_step(secs, "quantize converted", lambda: quantize(got))
+    del src, got
+    _same_tree("7B-GQA int8", qgot, qsrc)
+    prompts, lengths = _prompts(cfg, dev, gen)
+    expected = slice_counts(cfg.num_layers)
+    toks = {}
+    for name, tree in (("source", qsrc), ("converted", qgot)):
+        toks[name], _ = run_generate(tree, cfg, prompts, lengths, dev, expected, f"checkpoint 7B-GQA {name}")
+    del qsrc
+    with tempfile.TemporaryDirectory() as tmp:
+        _timed_step(secs, "save", lambda: checkpoint.save_checkpoint(tmp, qgot, cfg))
+        written = sum(f.stat().st_size for f in Path(tmp).iterdir())
+        cfg2, back = _timed_step(secs, "load", lambda: checkpoint.load_checkpoint(tmp, device=dev))
+    if cfg2 != cfg or hash(cfg2) != hash(cfg):
+        raise AssertionError("[checkpoint] the restored config differs from the saved one")
+    _same_tree("7B-GQA int8 load_checkpoint", back, qgot)
+    del qgot
+    toks["restored"], _ = run_generate(back, cfg2, prompts, lengths, dev, expected, "checkpoint 7B-GQA restored")
+    digests = {name: stream_digest(t) for name, t in toks.items()}
+    if len(set(digests.values())) != 1:
+        raise AssertionError(f"[checkpoint] 7B-GQA streams differ: {digests}")
+    del back
+    log(f"[checkpoint] 7B-GQA L={cfg.num_layers}: streams equal by digest {digests['source']} "
+        f"(source, converted, restored); {written / 1e9:.3f} GB written by save_checkpoint")
+    return dict(seconds=secs, bytes_written=written, digest=digests["source"])
+
+
+def _checkpoint_family(name, dev):
+    """(b): one preset at published widths and CKPT_FAMILY_LAYERS layers
+    through its HF route, int8, and greedy streams equal by digest."""
+    from starflashattention_tpu_torch.models import llama
+    from starflashattention_tpu_torch.runtime.params import ModelConfig
+
+    overrides, fused = CKPT_FAMILIES[name]
+    cfg = getattr(ModelConfig, name)(num_layers=CKPT_FAMILY_LAYERS, max_seq_len=CKPT_SEQ, **overrides)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    src, got, secs = _converted(name, cfg, dev, gen, fused)
+    qsrc = llama.quantize_model_weights(src, "int8", lm_head=True, consume=True)
+    qgot = llama.quantize_model_weights(got, "int8", lm_head=True, consume=True)
+    del src, got
+    _same_tree(f"{name} int8", qgot, qsrc)
+    prompts, lengths = _prompts(cfg, dev, gen)
+    runs = {}
+    for tag, tree in (("source", qsrc), ("converted", qgot)):
+        torch.cuda.synchronize()
+        reset_counts()
+        toks = llama.generate(tree, cfg, prompts, lengths, SLICE_NEW_TOKENS, device=dev)
+        torch.cuda.synchronize()
+        runs[tag] = (stream_digest(toks), {k: v for k, v in read_counts().items() if v})
+    counts = runs["source"][1]
+    if runs["converted"] != runs["source"] or not all(counts.get(k) for k in ("flash_prefill", "flash_decode")):
+        raise AssertionError(f"[checkpoint] {name}: {runs}")
+    log(f"[checkpoint] {name} L={cfg.num_layers} H={cfg.hidden_size} V={cfg.vocab_size}: streams equal by "
+        f"digest {runs['source'][0]}; launches {counts}")
+    return dict(seconds=secs, digest=runs["source"][0])
+
+
+def phase_checkpoint(dev, smi):
+    """Phase 15 (see the module doc). Returns the seconds, bytes and peak
+    memory of each part."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = {"7b": _checkpoint_7b(dev)}
+    peak = {"7b": torch.cuda.max_memory_allocated() / 2**30}
+    for name in CKPT_FAMILIES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out[name] = _checkpoint_family(name, dev)
+        peak[name] = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    for name, rec in out.items():
+        log(f"[checkpoint] {name}: " + ", ".join(f"{k} {v:.2f} s" for k, v in rec["seconds"].items())
+            + f"; peak {peak[name]:.1f} GiB ({smi})")
+    log(f"[checkpoint] phase 15 took {time.perf_counter() - t0:.1f} s")
+    return dict(out, peak_gib=peak)
+
+
 # ---------------------------------------------------------------- main
 
 REPLACES = {
@@ -5853,8 +6111,8 @@ OFF_PATH = ("flash_decode fp8 KV (1 split, fused)", "paged_flash_decode fp8 KV",
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11,12,13,14",
-                        help="comma-separated phases to run (default 1,2,3,4,6,7,8,9,10,11,12,13,14; phase 5, "
+    parser.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11,12,13,14,15",
+                        help="comma-separated phases to run (default 1,2,3,4,6,7,8,9,10,11,12,13,14,15; phase 5, "
                              "a profile of bench.py's decode chains, runs only when named)")
     args = parser.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -5887,6 +6145,8 @@ def main(argv=None):
     deepseek = phase_deepseek(dev, smi) if 12 in phases else {}
     seq_parallel = phase_seq_parallel(smi) if 13 in phases else {}
     tensor_parallel = phase_tensor_parallel(smi) if 14 in phases else {}
+    if 15 in phases:
+        phase_checkpoint(dev, smi)
     if 5 in phases:
         phase_decode_profile(dev)
 

@@ -496,7 +496,9 @@ __global__ void __launch_bounds__(block_threads<D>(), min_blocks<T, D>()) decode
   for (int r = tid; r < R; r += THREADS) {
     m_s[r] = NEG_INF;
     l_s[r] = 0.f;
-    len_s[r] = min(len0 + r % span, a.S);  // token j = r % T sees len0 + j rows
+    // token j = r % T sees len0 + j rows; unclamped, so that its band starts
+    // at len0 + j - window (ce <= S stops the rows past the table)
+    len_s[r] = len0 + r % span;
   }
 
   int buf = 0;

@@ -156,6 +156,14 @@ def quantize_model_weights(params: Params, mode: str = "int8", lm_head: bool = F
     return out
 
 
+def param_count(params: Params) -> int:
+    """Elements of every leaf of the tree; a quantized ``{"w", "scale"}``
+    leaf counts the elements of both, as the JAX package counts them."""
+    if isinstance(params, dict):
+        return sum(param_count(v) for v in params.values())
+    return params.numel()
+
+
 def init_params(
     cfg: ModelConfig,
     generator: torch.Generator | None = None,

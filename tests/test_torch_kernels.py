@@ -20,7 +20,8 @@ shapes); the verify step's block append folded into K1's verify launch
 (bit for bit K9 followed by the verify, output and whole tables, at D 64,
 128 and 256, fp32 and bf16 q, on fp32, bf16, int8 and fp8 KV, plain and
 with the variants, spans across tile and chunk edges, clamped and inactive
-rows, and at Gemma-2's verify shape; D 640 refuses a span); quantized deployments
+rows, and at Gemma-2's verify shape; windowed spans clamped past S held
+to the plain twins; D 640 refuses a span); quantized deployments
 through ``generate`` and both engines. Decode at head_dim 64, 128 and 256
 (one kernel, the KV walk split across blocks, the quantized KV's scales
 folded in it): decode, verify and paged decode at the edge cases of
@@ -426,6 +427,30 @@ def test_folded_block_append_at_gemma2_verify_shape(cuda):
     pos = torch.tensor([6000, 2, 510, s - 3], dtype=torch.int32, device=cuda)
     n_valid = torch.tensor([t, t, t, t], dtype=torch.int32, device=cuda)
     _verify_fold_matches(q, k, v, kn, vn, pos, n_valid, pos + 1, layer=1, window=4096, softcap=50.0)
+
+
+@pytest.mark.parametrize("window", [8, 64])
+@pytest.mark.parametrize("q_dtype,kv", [(torch.float32, "float32"), (torch.bfloat16, "bfloat16"),
+                                        (torch.bfloat16, "int8")], ids=["fp32", "bf16", "bf16-int8"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_folded_block_append_past_the_table_matches_plain(cuda, d, q_dtype, kv, window):
+    """Windowed verify spans clamped past S (start S - 2 and S: token j
+    attends pos + 1 + j rows, up to S + 4) with 4 sinks (and a softcap of 30
+    at D 256): ``flash_verify_append`` and ``flash_verify`` against their
+    plain twins, every row of every span. Each token's rows stop at S and
+    its band starts at the unclamped pos + 1 + j - window; a band started
+    at the clamped length takes up to T - 1 rows more."""
+    q, k, v, kn, vn, pos, n_valid, lengths, sc = _verify_fold_case(cuda, d, q_dtype, kv)
+    assert bool((lengths + VERIFY_FOLD_T - 1 > FOLD_S).any())
+    kw = dict(layer=1, window=window, sinks=4, **sc, **(dict(softcap=30.0) if d == 256 else {}))
+    tables, plain_tables = [t.clone() for t in (k, v)], [t.clone() for t in (k, v)]
+    out = flash_decode.flash_verify_append(q, *tables, kn, vn, pos, n_valid, lengths, **kw)
+    ref = flash_decode.flash_verify_append_plain(q, *plain_tables, kn, vn, pos, n_valid, lengths, **kw)
+    assert all(_bits_equal(a, b_) for a, b_ in zip(tables, plain_tables))
+    tol = 1e-5 if q_dtype == torch.float32 else 4 * BF16_ULP
+    assert _max_err(out, ref) <= tol
+    alone = flash_decode.flash_verify(q, *tables, lengths, **kw)
+    assert _max_err(alone, flash_decode.flash_verify_plain(q, *tables, lengths, **kw)) <= tol
 
 
 def test_folded_block_append_refusals(cuda):

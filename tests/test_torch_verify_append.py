@@ -14,7 +14,8 @@ Here:
   window, sinks and a softcap: spans across a 32-row tile edge and a
   128-row chunk edge, a span at the table's start, clamped spans (``pos >
   S - T`` and ``pos = S``), a partial span and an inactive row (``n_valid``
-  0);
+  0); with the variants, the clamped spans (whose later tokens attend past
+  S) against JAX's ``core/reference`` instead, token by token;
 - a model of the kernel's owner rule on ``split_chunking`` (a verify
   launch merges; it takes no partials mode) and ``split_chunk_walk``: for
   spans on each side of every chunk edge every written row has exactly
@@ -41,6 +42,7 @@ import torch
 
 from split_decode_cases import split_merge
 from starflashattention_tpu.core import quant as j_quant
+from starflashattention_tpu.core import reference as j_ref
 from starflashattention_tpu_torch.core.reference import NEG_INF
 from starflashattention_tpu_torch.models import llama as t_llama
 from starflashattention_tpu_torch.ops import cache_append as t_append
@@ -60,10 +62,12 @@ S, T, LAYER = 256, 5, 1
 # S - T from S - 2 and from S, a partial span, an inactive row
 ROWS = ((30, T), (126, T), (0, T), (S - 2, T), (S, T), (60, 3), (40, 0))
 # the rows whose last token attends at most S rows, JAX's contract for a
-# windowed verify (past S its interpret-mode walk and the port's band
-# differ; the verify step's clamp keeps the engines' rows inside it), with
-# a span that ends at the table's last row
+# windowed verify (past S its interpret-mode walk steps beyond the table's
+# last block; the verify step's clamp keeps the engines' rows inside it),
+# with a span that ends at the table's last row
 IN_TABLE = tuple(r for r in ROWS if r[0] + T <= S) + ((S - T, T),)
+# the spans whose later tokens attend past S, held to JAX's reference
+PAST_S = tuple(r for r in ROWS if r not in IN_TABLE)
 QMAX = {"int8": 127.0, "fp8": 448.0}
 
 
@@ -126,6 +130,37 @@ def test_flash_verify_append_matches_jax(rng, kv, variants):
     tol = ATOL if kv == "float32" else 4 * 2.0**-8 * np.abs(ref).max()
     assert out.shape == q.shape
     np.testing.assert_allclose(tensor_to_numpy(out), ref, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("kv", ["float32", "bfloat16"])
+def test_windowed_verify_past_the_table_matches_jax_reference(rng, kv):
+    """Spans clamped past S (``PAST_S``: token j attends ``pos + 1 + j``
+    rows, up to S + T - 1) with a window of 40, 4 sinks and a softcap of 30:
+    each token against JAX's ``core/reference.decode_reference`` at ``pos +
+    1 + j`` on the table JAX's block append wrote, so its rows stop at S and
+    its band starts at the unclamped ``pos + 1 + j - 40``. JAX's
+    interpret-mode verify is no oracle there: its banded walk fetches a block
+    past the table."""
+    b, hq, hkv, d = len(PAST_S), 4, 2, 16
+    q, k, v, kn, vn, _ = _draws(rng, kv, b, hq, hkv, d)
+    pos = np.array([p for p, _ in PAST_S], np.int32)
+    n_valid = np.array([n for _, n in PAST_S], np.int32)
+    lengths = pos + 1
+    assert (lengths + T - 1 > S).all()
+    jk, jv = j_append.append_block_kv(jnp.asarray(k), jnp.asarray(v), jnp.asarray(kn), jnp.asarray(vn),
+                                      LAYER, jnp.asarray(np.minimum(pos, S - T)), jnp.asarray(n_valid))
+    out = t_fd.flash_verify_append(tensor_from_numpy(q), tensor_from_numpy(k), tensor_from_numpy(v),
+                                   tensor_from_numpy(kn), tensor_from_numpy(vn), torch.from_numpy(pos),
+                                   torch.from_numpy(n_valid), torch.from_numpy(lengths), layer=LAYER,
+                                   window=40, sinks=4, softcap=30.0)
+    out = tensor_to_numpy(out)
+    kl, vl = (jnp.asarray(np.asarray(x[LAYER]).astype(np.float32)) for x in (jk, jv))
+    for j in range(T):
+        ref = np.asarray(j_ref.decode_reference(jnp.asarray(np.asarray(q[:, :, j]).astype(np.float32)), kl, vl,
+                                                jnp.asarray(lengths + j), sliding_window=40, attention_sinks=4,
+                                                softcap=30.0))
+        tol = ATOL if kv == "float32" else 4 * 2.0**-8 * np.abs(ref).max()
+        np.testing.assert_allclose(out[:, :, j], ref, atol=tol, rtol=0)
 
 
 # ----------------------------------------------------------------- the owner rule
