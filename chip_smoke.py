@@ -316,7 +316,7 @@ Phases (any failure raises and the script exits non-zero):
    the machine has one card).
 14. Tensor, expert and pipeline parallelism: a world of 4 processes on
    this one card over gloo, as phase 13. (a) ``ModelConfig.llama_7b_gqa``
-   at full width and depth (int8 weights + int8 lm_head, bf16 KV, one
+   at full width cut to 8 layers (int8 weights + int8 lm_head, bf16 KV, one
    split), TP 4 (``parallel.tp``): prefill and 31 decode steps of phase
    3's prompts, every rank's streams equal bit for bit and teacher-forced
    on one process (rank 0); 4 layers against one process (phase 4's 5%);
@@ -330,8 +330,14 @@ Phases (any failure raises and the script exits non-zero):
    layers, int8 experts, 2 experts a rank: tie-checked. (e) TP x DP (B=2,
    S=2048) and TP x CP (S=8192) training of 7B-GQA widths cut to 2 layers:
    the first step's loss and every rank's gradients within 5e-2 of one
-   process's, 3 steps lower the loss. Launch counts checked on every rank;
-   step times, peak memory and bytes through the host printed.
+   process's, 3 steps lower the loss. (f) MoE training, expert-parallel:
+   ``mixtral_8x7b`` at full width cut to 2 layers, bf16, TP 4 (2 whole
+   experts a rank) through ``make_tp_dp_train_step`` (B=2, S=2048): the
+   first step's loss and every rank's gradients within 5e-2 of one
+   process's (the ranks build the whole model for it one at a time), 3
+   steps lower the loss. Launch counts checked on every rank; step times,
+   peak memory and bytes through the host printed; each sub-phase's
+   seconds.
 15. Checkpoints (``models/checkpoint``). (a) ``ModelConfig.llama_7b_gqa``
    at full width and depth (32 layers, ``max_seq_len`` 1024): a seeded
    dense bf16 tree on the card (norms perturbed from 1), written out as
@@ -350,6 +356,30 @@ Phases (any failure raises and the script exits non-zero):
    dense first layer): each bit for bit its source, int8, and ``generate``
    with equal digests and launch counts. Seconds of each step and the peak
    device memory printed.
+16. MoE training (``models/train._moe_mlp_train``: Mixtral's routing, the
+   experts dense as batched products; bf16, seeded random init, SGD with
+   momentum 0.9 at lr 1.0, remat). (a) ``ModelConfig.mixtral_8x7b`` at
+   published widths cut to 2 layers, one seeded (2, 2049) batch: three
+   ``train.train_step``, finite losses that fall, per step exactly 4 K5
+   forwards with the LSE, 2 dq and 2 dk/dv launches and nothing else of the
+   port's, every expert of every layer and every router a non-zero
+   gradient; ms a step, tokens/s, peak memory; one step under
+   torch.profiler: device ms of the expert products (the GEMMs over the
+   expert axis, by the ops' input shapes), the other matmuls, the attention
+   forward and backward and the rest (routing and glue), the idle share.
+   (b) At B=1: every gradient through the kernels against plain attention's
+   (``use_flash=False``) within 5e-2 of its peak (phase 9b's rule). (c)
+   ``forward_train``'s logits at the last positions of prompts of 2,048
+   and 1,536 tokens against the serving ``llama.prefill`` of the same bf16
+   tree, within 5% of the largest logit (phase 9c's rule), and the share of
+   tokens whose top-2 experts agree between the two routes. (d)
+   Qwen3-30B-A3B's geometry (``checkpoint.config_from_hf`` of its published
+   config.json's fields, written in the script: hidden 2048, 32 / 4 heads
+   of 128, QK-norm, 128 experts top 8 of 768, vocab 151,936) cut to 2
+   layers: one step with (a)'s checks, then (b). Each line with a time
+   carries the card's name and power limit; each sub-phase's seconds.
+
+The line ``[done] seconds by phase`` gives each phase's seconds.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 is ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA device,
@@ -5299,6 +5329,7 @@ def phase_seq_parallel(smi):
 # ---------------------------------------------------------------- phase 14
 
 TP_WORLD = 4  # phase 14's ranks, all on this one card
+TP_DENSE_LAYERS = 8  # 14a, 14b, 14d: 7B-GQA at full width, depth cut (the default run's time limit)
 TP_CHECK_LAYERS = 4  # (a)'s path-vs-path checks
 TP_SERVE = dict(requests=12, slots=4, steps=8, chunk=256, new_tokens=32)
 EP_NEW_TOKENS = 16
@@ -5380,7 +5411,7 @@ def _decode_counts(n_layers, steps, projections, prefill_rows, lm_head=1):
 
 
 def _tp_dense_paths(r, meshes, dev):
-    """14a, 14d, 14b on this rank: 7B-GQA at full width and depth (int8
+    """14a, 14d, 14b on this rank: 7B-GQA at full width, TP_DENSE_LAYERS deep (int8
     weights + lm_head, bf16 KV, one split): TP 4 generate with phase 4's
     check at 4 layers and the W8A8 / W4A8 row scales; PP 4 and PP 2 x TP 2
     decode against one process; then Engine / PagedEngine on the 2 x 2
@@ -5393,7 +5424,7 @@ def _tp_dense_paths(r, meshes, dev):
     from starflashattention_tpu_torch.runtime.params import ModelConfig
     from starflashattention_tpu_torch.serving import Engine, PagedEngine
 
-    cfg = ModelConfig.llama_7b_gqa(num_layers=SLICE_LAYERS, max_seq_len=SLICE_SEQ, num_splits=1)
+    cfg = ModelConfig.llama_7b_gqa(num_layers=TP_DENSE_LAYERS, max_seq_len=SLICE_SEQ, num_splits=1)
     t0 = time.perf_counter()
     params, gen = build_model(cfg, dev)  # the same seeded model on every rank
     prompts, lengths = _prompts(cfg, dev, gen)
@@ -5742,9 +5773,98 @@ def _tp_training_path(r, meshes, dev):
     del params
 
 
+def _moe_tp_training_path(r, meshes, dev):
+    """14f: Mixtral-8x7B at full width cut to 2 layers (bf16), TP x DP
+    training on the model-4 mesh (2 whole experts a rank; data axis of 1),
+    B=2, S=2048: 3 SGD steps at lr 1.0 lower the loss; the first step's
+    loss and every rank's gradients within 5e-2 (of each gradient's peak)
+    of one process's through the kernels, cut to the rank's shard, that
+    process pinned to the TP step's routing (:func:`_pinned_routes`). The
+    ranks share the card's memory, so one rank at a time holds the whole
+    model."""
+    import torch.distributed as dist
+
+    from starflashattention_tpu_torch.models import llama, train
+    from starflashattention_tpu_torch.ops import flash_bwd
+    from starflashattention_tpu_torch.parallel import comm, init_opt_state, make_tp_dp_train_step, tp
+    from starflashattention_tpu_torch.runtime.params import ModelConfig
+
+    t = TP_TRAIN
+    b, s = t["batch"], t["seq"]
+    cfg = ModelConfig.mixtral_8x7b(num_layers=t["layers"], max_seq_len=s)
+    mesh, n = meshes["tp4"], cfg.num_layers
+    cos, sin = llama.rope_tables(cfg, device=dev)
+    batch = torch.randint(0, cfg.vocab_size, (b, s + 1), generator=torch.Generator(device=dev).manual_seed(SEED + 19),
+                          device=dev)
+
+    def full_model():
+        return llama.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 18), device=dev)
+
+    torch.cuda.empty_cache()
+    local = None
+    for k in range(TP_WORLD):
+        if r.rank == k:
+            params = full_model()
+            local = train.tree_map(torch.clone, tp.shard_params(params, mesh, cfg))
+            del params
+            torch.cuda.empty_cache()
+        dist.barrier()
+    e_local = local["layers"]["moe_gate_up"].shape[1]
+    want = zero_counts(flash_prefill=2 * n, flash_prefill_lse=2 * n, flash_bwd_dq=n, flash_bwd_dkdv=n)
+    want["flash_bwd_dkdv_split"] = n * _dkdv_splits(b, cfg.num_kv_heads // mesh.axis("model").size,
+                                                    cfg.num_q_heads // cfg.num_kv_heads, s, cfg.head_dim, dev)
+    state = init_opt_state(local)
+    step = make_tp_dp_train_step(mesh, cfg, TRAIN_LR)
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, host = [], [], []
+    for i in range(t["steps"]):
+        reset_counts()
+        flash_bwd.flash_bwd_dkdv.launches_split = 0
+        h0 = comm.host_bytes
+        with _recorded_routes(llama) as recorded:
+            (_, _, loss), ms = _timed(lambda: step(local, state, batch, cos, sin))
+        losses.append(float(loss))
+        step_ms.append(ms)
+        host.append(comm.host_bytes - h0)
+        r.counts(f"14f MoE TP x DP step {i}",
+                 dict(read_counts(), flash_bwd_dkdv_split=flash_bwd.flash_bwd_dkdv.launches_split), want)
+        if i == 0:  # momentum from 0 after one step: the gradients
+            routes, got = recorded, [(key, g.clone()) for key, g in _named_leaves(state)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del local, state
+    torch.cuda.empty_cache()
+    for k in range(TP_WORLD):  # one process's loss and gradients on the first step's routing, a rank at a time
+        if r.rank == k:
+            params = full_model()
+            with _pinned_routes(llama, routes) as flips:
+                (loss_ref, grads_ref), ref_ms = _timed(lambda: train.loss_and_grads(params, batch, cfg, cos, sin))
+            want_grads = train.tree_leaves(tp.shard_params(grads_ref, mesh, cfg))
+            loss_err = abs(losses[0] - float(loss_ref))
+            worst = max((_rel(g, gr), key) for (key, g), gr in zip(got, want_grads))
+            del params, grads_ref, want_grads, got
+            torch.cuda.empty_cache()
+        dist.barrier()
+    r.check("14f MoE first loss vs one process's", loss_err, TRAIN_GRAD_TOL, what="abs error")
+    r.check(f"14f MoE every gradient vs one process's (worst: {worst[1]})", worst[0], TRAIN_GRAD_TOL)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"rank {r.rank}: 14f MoE: the loss did not fall: {losses}")
+    tokens = b * s
+    r.rec["14f MoE TP x DP"] = dict(losses=losses, step_ms=step_ms, tokens_per_s=tokens / step_ms[-1] * 1e3,
+                                    peak_gib=peak, host_bytes_per_step=host[-1], single_ms=ref_ms,
+                                    route_flips=max(flips))
+    r.log(f"[tensor-parallel] 14f MoE TP x DP, Mixtral-8x7B width, {n} layers, {e_local} of {cfg.num_experts} experts "
+          f"a rank, bf16, B={b} S={s}: losses {losses}; ms a step {[round(x, 1) for x in step_ms]} (host clock); "
+          f"{tokens / step_ms[-1] * 1e3:.0f} tokens/s; peak memory {peak:.1f} GiB on rank 0; "
+          f"{host[-1] / 2**30:.2f} GiB through the host a step by rank 0; one process's loss and gradients "
+          f"{ref_ms:.1f} ms (rank 0's), pinned to the TP step's routing, where its own top "
+          f"{cfg.num_experts_per_tok} would differ for a share of the tokens of "
+          + ", ".join(f"{f:.4f}" for f in flips) + " (in call order)")
+    dist.barrier()
+
+
 def _tensor_parallel_rank(rank, world, port, out_dir):
     """One rank of phase 14: joins the gloo world on this card, runs
-    14a-14e and writes its record to ``out_dir/rank<r>.json``."""
+    14a-14f and writes its record to ``out_dir/rank<r>.json``."""
     import torch.distributed as dist
 
     from starflashattention_tpu_torch.parallel import init_distributed, make_mesh
@@ -5756,7 +5876,8 @@ def _tensor_parallel_rank(rank, world, port, out_dir):
     r = _Rank(rank, "tensor-parallel")
     for name, fn in (("14a-b-d", lambda: _tp_dense_paths(r, meshes, dev)),
                      ("14c", lambda: _expert_parallel_path(r, meshes, dev)),
-                     ("14e", lambda: _tp_training_path(r, meshes, dev))):
+                     ("14e", lambda: _tp_training_path(r, meshes, dev)),
+                     ("14f", lambda: _moe_tp_training_path(r, meshes, dev))):
         t0 = time.perf_counter()
         fn()
         r.rec.setdefault("seconds", {})[name] = time.perf_counter() - t0
@@ -6043,6 +6164,274 @@ def phase_checkpoint(dev, smi):
     return dict(out, peak_gib=peak)
 
 
+# ---------------------------------------------------------------- phase 16
+
+MOE_TRAIN_LAYERS = 2  # (a)-(d): published widths, depth cut to 2 layers
+MOE_CHECK_LENGTHS = (TRAIN_SEQ, 1536)  # (c)'s two prompts
+# Qwen3-30B-A3B's published config.json, the fields config_from_hf reads
+# (written here: nothing is downloaded)
+QWEN3_30B_A3B = dict(model_type="qwen3_moe", vocab_size=151936, hidden_size=2048, intermediate_size=6144,
+                     moe_intermediate_size=768, num_hidden_layers=48, num_attention_heads=32, num_key_value_heads=4,
+                     head_dim=128, num_experts=128, num_experts_per_tok=8, norm_topk_prob=True,
+                     decoder_sparse_step=1, mlp_only_layers=[], hidden_act="silu", rms_norm_eps=1e-6,
+                     rope_theta=1e6, rope_scaling=None, max_position_embeddings=40960, tie_word_embeddings=False,
+                     attention_bias=False, sliding_window=None, use_sliding_window=False)
+GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
+
+
+def _moe_trace_split(prof, n_local):
+    """One traced MoE step's device ms by part (phase 9's kinds by kernel
+    name), with the expert products apart: the GEMMs whose two operands are
+    stacks over the expert axis, forward and backward (each launch charged
+    to the op that issued it; None where the trace carries no shapes)."""
+    split = _device_split(_kernel_times(prof))
+    expert = None
+    for evt in prof.events():
+        shapes = getattr(evt, "input_shapes", None)
+        if evt.name not in GEMM_OPS or not shapes or not getattr(evt, "kernels", None):
+            continue
+        if len(shapes) >= 2 and all(len(s) == 3 and s[0] == n_local for s in shapes[:2]):
+            expert = (expert or 0.0) + sum(k.duration for k in evt.kernels) / 1e3
+    out = {"expert matmuls": expert, "other matmuls": None if expert is None else split["matmuls"] - expert,
+           "attention forward": split["attention forward"], "attention backward": split["attention backward"],
+           "routing and glue": split["other"]}
+    return out, sum(split.values())
+
+
+def _expert_grads_nonzero(tag, grads, cfg):
+    """Every expert of every layer and every layer's router got a gradient."""
+    layers = grads["layers"]
+    dead = [(name, i, e) for name in ("moe_gate_up", "moe_down") for i in range(cfg.num_layers)
+            for e in range(layers[name].shape[1]) if not bool(layers[name][i, e].abs().amax() > 0)]
+    dead += [("moe_router", i, None) for i in range(cfg.num_layers) if not bool(layers["moe_router"][i].abs().amax() > 0)]
+    if dead:
+        raise AssertionError(f"[moe-train] {tag}: zero gradients at {dead[:8]} ({len(dead)} in all)")
+
+
+def _moe_steps(tag, cfg, params, batch, cos, sin, smi, steps=TRAIN_STEPS):
+    """``steps`` SGD steps (lr TRAIN_LR, remat) with the launch counts of
+    each, the experts' and routers' gradients (the momentum after the first
+    step from 0), then one step under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from starflashattention_tpu_torch.models import train
+
+    momentum = train.tree_map(torch.zeros_like, params)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, counts = [], [], {}
+    for i in range(steps):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        params, momentum, loss = train.train_step(params, momentum, batch, cfg, cos, sin, TRAIN_LR)
+        losses.append(float(loss))  # synchronizes
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        _train_counts_ok(read_counts(), cfg.num_layers)
+        counts = {k: counts.get(k, 0) + v for k, v in read_counts().items()}
+        if i == 0:
+            _expert_grads_nonzero(tag, momentum, cfg)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tokens = batch.shape[0] * (batch.shape[1] - 1)
+    log(f"[moe-train] {tag}: losses {losses}; ms a step {[round(t, 1) for t in step_ms]} (host clock; the first "
+        f"includes allocation); {tokens / step_ms[-1] * 1e3:.0f} tokens/s at the last step; peak memory {peak:.1f} "
+        f"GiB; launches a step as expected ({2 * cfg.num_layers} K5 with the LSE, {cfg.num_layers} dq, "
+        f"{cfg.num_layers} dk/dv, nothing else); every expert and router got a gradient ({smi})")
+    if not all(np.isfinite(losses)) or (steps > 1 and not losses[-1] < losses[0]):
+        raise AssertionError(f"[moe-train] {tag}: the loss did not fall: {losses}")
+    rec = dict(losses=losses, step_ms=step_ms, tokens_per_s=tokens / step_ms[-1] * 1e3, peak_gib=peak,
+               counts=counts)
+    if steps > 1:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+            t0 = time.perf_counter()
+            params, momentum, loss = train.train_step(params, momentum, batch, cfg, cos, sin, TRAIN_LR)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        split, busy = _moe_trace_split(prof, params["layers"]["moe_gate_up"].shape[1])
+        del prof
+        if busy == 0:
+            log(f"[moe-train] {tag}: the profiler saw no device time; the device split is not measured")
+        else:
+            log(f"[moe-train] {tag}: one step under torch.profiler: {wall_ms:.1f} ms wall, device busy {busy:.1f} "
+                f"ms, idle share {1 - busy / wall_ms:.3f}; device ms: "
+                + ", ".join(f"{k} {'not measured' if v is None else f'{v:.1f}'}" for k, v in split.items())
+                + f" ({smi})")
+        rec.update(profile=split, busy_ms=busy, profile_wall_ms=wall_ms)
+    del momentum
+    torch.cuda.empty_cache()
+    return params, rec
+
+
+def _moe_grads_vs_plain(tag, cfg, params, batch, cos, sin):
+    """(b): every gradient at B=1 through the kernels against plain
+    attention's, within TRAIN_GRAD_TOL of each gradient's peak, the plain
+    route pinned to the kernels' routing (:func:`_pinned_routes`)."""
+    from starflashattention_tpu_torch.models import llama, train
+
+    reset_counts()
+    with _recorded_routes(llama) as routes:
+        l_k, g_k = train.loss_and_grads(params, batch[:1], cfg, cos, sin, use_flash=True)
+    _train_counts_ok(read_counts(), cfg.num_layers)
+    with _pinned_routes(llama, routes) as flips:
+        l_p, g_p = train.loss_and_grads(params, batch[:1], cfg, cos, sin, use_flash=False)
+    worst = ("", 0.0)
+    for (name, a), b in zip(_named_leaves(g_k), train.tree_leaves(g_p)):
+        worst = max(worst, (name, _rel(a, b)), key=lambda x: x[1])
+    router = max(_rel(a, b) for a, b in zip(g_k["layers"]["moe_router"], g_p["layers"]["moe_router"]))
+    log(f"[moe-train] {tag}, B=1, S={batch.shape[1] - 1}: loss through the kernels {float(l_k):.6f}, plain attention "
+        f"{float(l_p):.6f}; the routers' gradients {router:.3e} of their peaks apart; plain attention pinned to the "
+        f"kernels' routing, where its own top {cfg.num_experts_per_tok} would differ for a share of the tokens of "
+        + ", ".join(f"{f:.4f}" for f in flips) + " (in call order: each layer's forward, then the remat reruns "
+        "from the last layer)")
+    _check(f"{tag}: gradients through the kernels against plain attention, worst leaf {worst[0]} (max abs error "
+           "over its peak)", worst[1], TRAIN_GRAD_TOL)
+    del g_k, g_p
+    torch.cuda.empty_cache()
+    return dict(worst_leaf=worst[0], worst_rel=worst[1], router_rel=router, flips=flips)
+
+
+@contextlib.contextmanager
+def _recorded_routes(llama):
+    """Every ``llama._top_k`` call's indices, in call order: the training
+    MoE and the serving router both take their top k through it."""
+    calls, top_k = [], llama._top_k
+
+    def recording(x, k):
+        vals, idx = top_k(x, k)
+        calls.append(idx.clone())
+        return vals, idx
+
+    llama._top_k = recording
+    try:
+        yield calls
+    finally:
+        llama._top_k = top_k
+
+
+def _same_experts(a, b):
+    """Per token (row of the flattened leading dims): whether two top-k
+    index tensors pick the same set of experts."""
+    k = a.shape[-1]
+    return (a.reshape(-1, k).sort(dim=-1).values == b.reshape(-1, k).sort(dim=-1).values).all(dim=-1)
+
+
+@contextlib.contextmanager
+def _pinned_routes(llama, routes):
+    """``llama._top_k`` replaying ``routes`` (recorded by
+    :func:`_recorded_routes` on a run of the same calls) in call order: each
+    call takes the recorded experts, their values gathered from its own
+    logits (so the gradient reaches the router as through the top k), and
+    logs the share of tokens whose own top k would have picked other
+    experts. Two routes that differ by rounding may flip a token whose
+    k-th and (k+1)-th logits nearly tie; pinned, they compare the same
+    function."""
+    flips, top_k, it = [], llama._top_k, iter(routes)
+
+    def pinned(x, k):
+        idx = next(it)
+        if idx.shape != x.shape[:-1] + (k,):
+            raise AssertionError(f"a pinned route of shape {tuple(idx.shape)} for logits {tuple(x.shape)}")
+        flips.append(1.0 - _same_experts(top_k(x, k)[1], idx).float().mean().item())
+        return x.gather(-1, idx), idx
+
+    llama._top_k = pinned
+    try:
+        yield flips
+    finally:
+        llama._top_k = top_k
+    if len(flips) != len(routes):
+        raise AssertionError(f"{len(flips)} routings replayed of {len(routes)} recorded")
+
+
+def _moe_vs_prefill(tag, cfg, params, dev, gen, cos, sin):
+    """(c): forward_train's logits at each prompt's last position against
+    the serving ``llama.prefill`` of the same bf16 tree (fp32 projections,
+    the dense MoE in fp32), within 5% of the largest logit; the share of
+    tokens whose top-k experts agree between the two routes."""
+    from starflashattention_tpu_torch.cache import contiguous
+    from starflashattention_tpu_torch.models import llama, train
+
+    lengths = torch.tensor(MOE_CHECK_LENGTHS, dtype=torch.int32, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (len(MOE_CHECK_LENGTHS), max(MOE_CHECK_LENGTHS)), generator=gen,
+                            device=dev, dtype=torch.int32)
+    rows = torch.arange(len(MOE_CHECK_LENGTHS), device=dev), lengths.long() - 1
+    valid = (torch.arange(prompts.shape[1], device=dev)[None, :] < lengths[:, None]).reshape(-1)
+    with torch.no_grad():
+        with _recorded_routes(llama) as train_routes:
+            want = train.forward_train(params, prompts, cfg, cos, sin, remat=False)[rows]
+        cache = contiguous.init_cache(cfg.num_layers, len(MOE_CHECK_LENGTHS), cfg.num_kv_heads, cfg.max_seq_len,
+                                      cfg.head_dim, device=dev)
+        with _recorded_routes(llama) as serve_routes:
+            got, _ = llama.prefill(params, cache, prompts, lengths, cos, sin, cfg)
+        del cache
+    if len(train_routes) != cfg.num_layers or len(serve_routes) != cfg.num_layers:
+        raise AssertionError(f"[moe-train] {tag}: {len(train_routes)} / {len(serve_routes)} routings recorded, "
+                             f"not {cfg.num_layers}")
+    agree = [_same_experts(a, b)[valid].float().mean().item() for a, b in zip(train_routes, serve_routes)]
+    err, peak = (got - want).abs().max().item(), want.abs().max().item()
+    log(f"[moe-train] {tag}: prompts of {list(MOE_CHECK_LENGTHS)} tokens; tokens whose top-{cfg.num_experts_per_tok} "
+        f"experts agree between forward_train (bf16 projections) and the serving prefill (fp32), by layer: "
+        + ", ".join(f"{a:.4f}" for a in agree))
+    _check(f"{tag}: serving prefill logits against forward_train at the last positions (max |logit| {peak:.2f})",
+           err, 0.05 * peak)
+    return dict(logit_err=err, logit_peak=peak, route_agreement=agree)
+
+
+def _qwen3_moe_config():
+    """Qwen3-30B-A3B's geometry through ``checkpoint.config_from_hf``, cut
+    to MOE_TRAIN_LAYERS layers."""
+    import types
+
+    from starflashattention_tpu_torch.models import checkpoint
+
+    cfg = checkpoint.config_from_hf(types.SimpleNamespace(**QWEN3_30B_A3B))
+    return dataclasses.replace(cfg, num_layers=MOE_TRAIN_LAYERS)
+
+
+def phase_moe_training(dev, smi):
+    """Phase 16 (see the module doc): MoE training at Mixtral-8x7B's and
+    Qwen3-30B-A3B's published widths, 2 layers each."""
+    from starflashattention_tpu_torch.models import llama, train
+    from starflashattention_tpu_torch.runtime.params import ModelConfig
+
+    out, secs = {}, {}
+    t_phase = time.perf_counter()
+    for key, make in (("mixtral", lambda: ModelConfig.mixtral_8x7b(num_layers=MOE_TRAIN_LAYERS,
+                                                                   max_seq_len=TRAIN_SEQ)),
+                      ("qwen3", _qwen3_moe_config)):
+        t0 = time.perf_counter()
+        cfg = make()
+        gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+        params = llama.init_params(cfg, gen, device=dev)
+        batch = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1), generator=gen, device=dev)
+        cos, sin = llama.rope_tables(cfg, device=dev)
+        torch.cuda.synchronize()
+        name = "Mixtral-8x7B" if key == "mixtral" else "Qwen3-30B-A3B"
+        n_params = sum(p.numel() for p in train.tree_leaves(params))
+        log(f"[moe-train] {name} at published widths cut to {cfg.num_layers} layers: hidden {cfg.hidden_size}, "
+            f"{cfg.num_q_heads} / {cfg.num_kv_heads} heads of {cfg.head_dim}, {cfg.num_experts} experts top "
+            f"{cfg.num_experts_per_tok} of {cfg.intermediate_size}, vocab {cfg.vocab_size}, qk_norm {cfg.qk_norm}; "
+            f"{n_params / 1e9:.3f} B parameters bf16, seeded random init, batch ({TRAIN_BATCH}, {TRAIN_SEQ + 1}); "
+            f"built in {time.perf_counter() - t0:.1f} s")
+        tag = "16a" if key == "mixtral" else "16d"
+        params, out[key] = _moe_steps(f"{tag} {name}", cfg, params, batch, cos, sin, smi,
+                                      steps=TRAIN_STEPS if key == "mixtral" else 1)
+        secs[tag] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out[key]["grads"] = _moe_grads_vs_plain(f"16b {name}", cfg, params, batch, cos, sin)
+        secs[f"16b {name}"] = time.perf_counter() - t0
+        if key == "mixtral":
+            t0 = time.perf_counter()
+            out[key]["prefill"] = _moe_vs_prefill(f"16c {name}", cfg, params, dev, gen, cos, sin)
+            secs["16c"] = time.perf_counter() - t0
+        del params, batch
+        torch.cuda.empty_cache()
+    log(f"[moe-train] phase 16 took {time.perf_counter() - t_phase:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()) + f" ({smi})")
+    return dict(out, seconds=secs)
+
+
 # ---------------------------------------------------------------- main
 
 REPLACES = {
@@ -6111,8 +6500,8 @@ OFF_PATH = ("flash_decode fp8 KV (1 split, fused)", "paged_flash_decode fp8 KV",
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11,12,13,14,15",
-                        help="comma-separated phases to run (default 1,2,3,4,6,7,8,9,10,11,12,13,14,15; phase 5, "
+    parser.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11,12,13,14,15,16",
+                        help="comma-separated phases to run (default 1,2,3,4,6,7,8,9,10,11,12,13,14,15,16; phase 5, "
                              "a profile of bench.py's decode chains, runs only when named)")
     args = parser.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -6130,25 +6519,35 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    seconds = {}
+
+    def run(phase, fn):
+        """fn() if ``phase`` was asked for (else {}), its seconds kept."""
+        if phase not in phases:
+            return {}
+        t0 = time.perf_counter()
+        result = fn()
+        seconds[phase] = time.perf_counter() - t0
+        return result
+
     smi = phase_device_and_build()
+    seconds[1] = time.perf_counter() - t_start
     timer = Timer(dev)
-    kernels = phase_kernels(dev, timer) if 2 in phases else {}
-    runs = phase_slice(dev) if 3 in phases else {}
-    if 4 in phases:
-        phase_path_vs_path(dev)
-    serving = phase_serving(dev) if 6 in phases else {}
-    quant = phase_quant_slice(dev) if 7 in phases else {}
-    spec = phase_spec(dev) if 8 in phases else {}
-    training = phase_training(dev) if 9 in phases else {}
-    variants = phase_variants(dev) if 10 in phases else {}
-    train_variants = phase_train_variants(dev) if 11 in phases else {}
-    deepseek = phase_deepseek(dev, smi) if 12 in phases else {}
-    seq_parallel = phase_seq_parallel(smi) if 13 in phases else {}
-    tensor_parallel = phase_tensor_parallel(smi) if 14 in phases else {}
-    if 15 in phases:
-        phase_checkpoint(dev, smi)
-    if 5 in phases:
-        phase_decode_profile(dev)
+    kernels = run(2, lambda: phase_kernels(dev, timer))
+    runs = run(3, lambda: phase_slice(dev))
+    run(4, lambda: phase_path_vs_path(dev))
+    serving = run(6, lambda: phase_serving(dev))
+    quant = run(7, lambda: phase_quant_slice(dev))
+    spec = run(8, lambda: phase_spec(dev))
+    training = run(9, lambda: phase_training(dev))
+    variants = run(10, lambda: phase_variants(dev))
+    train_variants = run(11, lambda: phase_train_variants(dev))
+    deepseek = run(12, lambda: phase_deepseek(dev, smi))
+    seq_parallel = run(13, lambda: phase_seq_parallel(smi))
+    tensor_parallel = run(14, lambda: phase_tensor_parallel(smi))
+    run(15, lambda: phase_checkpoint(dev, smi))
+    moe_training = run(16, lambda: phase_moe_training(dev, smi))
+    run(5, lambda: phase_decode_profile(dev))
 
     launches = {}
     if runs:
@@ -6246,6 +6645,11 @@ def main(argv=None):
                          ("flash_bwd_dkdv", tot["flash_bwd_dkdv"] - tot["flash_bwd_dkdv_kv_offset"])):
             launches[entry] = (launches.get(entry) or 0) + n
         launches[K12_SPLIT] = tot["flash_bwd_dkdv_split"]  # of phase 14e's dk/dv launches, the split ones
+    for key in ("mixtral", "qwen3") if moe_training else ():  # phase 16's training steps
+        counts = moe_training[key]["counts"]
+        for entry, n in (("flash_prefill (return_lse, training)", counts["flash_prefill_lse"]),
+                         ("flash_bwd_dq", counts["flash_bwd_dq"]), ("flash_bwd_dkdv", counts["flash_bwd_dkdv"])):
+            launches[entry] = (launches.get(entry) or 0) + n
     line = []
     for name, r in kernels.items():
         if name in OFF_PATH:
@@ -6255,6 +6659,7 @@ def main(argv=None):
                      "replaces": replaces, "launches": launches.get(name),
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    log("[done] seconds by phase: " + ", ".join(f"{p} {t:.1f}" for p, t in seconds.items()))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 """Training forward, loss and SGD step — twin of the JAX ``models/train.py``
-(single device, dense-GQA Llama; full fine-tuning and LoRA).
+(dense-GQA Llama and Mixtral-routed MoE; full fine-tuning and LoRA).
 
 ``forward_train`` gives fp32 logits at every position, built from the
 serving model's blocks (``models/llama``: ``rms_norm``, the fused-QKV
@@ -49,15 +49,24 @@ The replicated parameters' gradients come out whole and equal on every
 rank of the axis; the sharded ones stay with their shard.
 Composes with ``seq_axis_name``: the ring rotates head-sharded KV chunks.
 
-Not ported, each raising ``NotImplementedError``: MoE (``_moe_mlp_train``,
-item 14b-train, with or without ``axis_name``), MLA (item 14c-train: JAX's
-training path reads ``wqkv`` and has no MLA form) and every config field
-``llama.check_supported`` refuses.
+MoE (:func:`_moe_mlp_train`, JAX ``train.py:262-297``): Mixtral's routing
+(Qwen3-MoE's ``norm_topk_prob`` form is the same math), every local expert
+run densely on every token as batched ``torch.bmm`` in the params'
+dtype, under ``axis_name`` expert-parallel (the stacks hold this rank's
+whole experts, the replicated router routes over all of them). LoRA, CP
+and TP take it with no other change.
+
+Not ported, each raising ``NotImplementedError``: DeepSeek's routing knobs
+(``router_pre_softmax``, ``n_shared_experts``, ``first_k_dense``: JAX's
+``_moe_mlp_train`` ignores them, so it is no oracle there; ROADMAP Queue
+3), MLA (item 14c-train: JAX's training path reads ``wqkv`` and has no MLA
+form) and every config field ``llama.check_supported`` refuses.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from starflashattention_tpu_torch.core.rope import apply_rope
@@ -66,6 +75,9 @@ from starflashattention_tpu_torch.ops.flash_bwd import flash_attention
 from starflashattention_tpu_torch.runtime.params import ModelConfig
 
 MOMENTUM = 0.9
+DEEPSEEK_ROUTING = ("training with DeepSeek's routing ({knobs}) is not ported: the JAX package's "
+                    "_moe_mlp_train ignores these knobs and trains Mixtral's routing, so it is no oracle "
+                    "for them (ROADMAP Queue 3)")
 
 
 def _comm():
@@ -127,8 +139,10 @@ def _check_trainable(params, cfg: ModelConfig, axis_name, seq_axis_name, use_fla
         raise ValueError("context-parallel training requires the flash path (use_flash=True): the plain "
                          "attention twin is single-device")
     if cfg.num_experts:
-        raise NotImplementedError("MoE training (_moe_mlp_train) is not ported yet "
-                                  "(ROADMAP Queue 1 item 14b-train)")
+        knobs = [name for name in ("router_pre_softmax", "n_shared_experts", "first_k_dense")
+                 if getattr(cfg, name)]
+        if knobs:
+            raise NotImplementedError(DEEPSEEK_ROUTING.format(knobs=", ".join(knobs)))
     if cfg.mla:
         raise NotImplementedError(_lora.MLA_TRAINING)
     llama.check_supported(cfg)
@@ -214,11 +228,50 @@ def _layer(x, i: int, layers: dict, adapters: dict, lscale, pos, cos, sin, cfg: 
     attn_out = _comm().reduce_from_axis(_proj(o, layers, ll, i, "wo", lscale), axis)
     x = llama._residual_add(x, attn_out, layers, i, "post_attn_norm", eps)
     h = _comm().copy_to_axis(llama.rms_norm(x, layers["mlp_norm"][i], eps), axis)
-    gu = _proj(h, layers, ll, i, "w_gate_up", lscale)
-    inter = gu.shape[-1] // 2
-    act = llama._GATE_ACTS[cfg.mlp_activation](gu[..., :inter]) * gu[..., inter:]
-    mlp_out = _comm().reduce_from_axis(_proj(act, layers, ll, i, "w_down", lscale), axis)
+    if cfg.num_experts:
+        mlp = _moe_mlp_train(h, layers, i, cfg, axis)
+    else:
+        gu = _proj(h, layers, ll, i, "w_gate_up", lscale)
+        inter = gu.shape[-1] // 2
+        act = llama._GATE_ACTS[cfg.mlp_activation](gu[..., :inter]) * gu[..., inter:]
+        mlp = _proj(act, layers, ll, i, "w_down", lscale)
+    mlp_out = _comm().reduce_from_axis(mlp, axis)
     return llama._residual_add(x, mlp_out, layers, i, "post_mlp_norm", eps)
+
+
+def _moe_mlp_train(h, layers: dict, i: int, cfg: ModelConfig, axis=None):
+    """Layer ``i``'s top-k routed MoE on (B, S, H) activations, the twin of
+    JAX's ``_moe_mlp_train``: fp32 router logits, the top k (ties to the
+    lower expert, ``llama._top_k``), their softmax cast to h's dtype and
+    scattered into dense (B, S, E) weights; then every local expert on
+    every token, gate_up, silu (whatever ``mlp_activation`` says, as JAX
+    has it) times up, down, as batched products over the expert axis in the
+    params' dtype, mixed by the local slice of the weights. (The serving
+    ``llama._moe_mlp`` upcasts each expert stack to fp32, which autograd
+    would keep for the backward.)
+
+    With ``axis`` the stacks hold this rank's ``E_l`` whole experts, global
+    experts ``index * E_l + e``: Megatron's f sits on the router weight (its
+    gradient is each rank's partial over its experts; on ``h``, whose f is
+    at the norm, it would count the router path twice) and the caller's g
+    completes the routed sum."""
+    router = _comm().copy_to_axis(layers["moe_router"][i], axis)
+    logits = torch.matmul(h.float(), router.float())  # (B, S, E), every expert of the model
+    top_logit, top_idx = llama._top_k(logits, cfg.num_experts_per_tok)
+    top_w = torch.softmax(top_logit, dim=-1).to(h.dtype)
+    weights = torch.zeros(logits.shape, dtype=h.dtype, device=h.device).scatter(-1, top_idx, top_w)
+    w_gate_up, w_down = layers["moe_gate_up"][i], layers["moe_down"][i]  # (E_l, H, 2I), (E_l, I, H)
+    e_local = w_gate_up.shape[0]
+    if axis is not None:
+        weights = weights[..., axis.index * e_local:(axis.index + 1) * e_local]
+    flat = h.reshape(-1, h.shape[-1])
+    # bmm on the activations expanded over the experts (a view): torch.matmul
+    # would fold the (N, H) x (E_l, H, 2I) product into one mm on a
+    # transposed copy of the stack
+    gate, up = torch.bmm(flat.expand(e_local, -1, -1), w_gate_up).chunk(2, dim=-1)  # (E_l, N, I) each
+    down = torch.bmm(F.silu(gate) * up, w_down)  # (E_l, N, H)
+    out = torch.einsum("enh,ne->nh", down, weights.reshape(-1, e_local))
+    return out.reshape(h.shape[:-1] + out.shape[-1:])
 
 
 def forward_train(

@@ -24,8 +24,11 @@ gradients whole and equal over ``model``); the loss and the gradients are
 then averaged over ``data`` (and ``seq``) only, in the gradients' own
 dtype: :func:`make_tp_dp_value_and_grad`, :func:`make_tp_dp_train_step`
 (TP x DP) and :func:`make_tp_cp_train_step` (TP x CP x optional DP, the
-ring rotating head-sharded KV chunks). MoE under TP training still raises
-(item 14b-train), as all MoE training does.
+ring rotating head-sharded KV chunks). An MoE model trains expert-parallel
+under them as it is: each rank holds whole experts (``tp.shard_params``),
+routes over all of them with the replicated router, and Megatron's f on
+the router weight and g after the MoE make its gradients exact
+(``models.train._moe_mlp_train``).
 """
 
 from __future__ import annotations

@@ -1187,6 +1187,56 @@ def test_training_step_runs_on_the_kernels(cuda):
     assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0]
 
 
+def test_moe_training_step_runs_on_the_kernels(cuda, monkeypatch):
+    """A narrow 2-layer bf16 Mixtral-routed MoE: each SGD step launches K5
+    with the LSE 2 L times and each K12 kernel L times; the loss falls over
+    3 steps (lr 1.0); its gradients, the router's and the experts' among
+    them, agree with plain attention's within 5e-2 of each gradient's peak,
+    the plain route replaying the kernels' routing (a token whose k-th and
+    (k+1)-th logits nearly tie may take other experts when the attention's
+    rounding moves them)."""
+    cfg = ModelConfig.tiny(hidden_size=256, intermediate_size=256, num_q_heads=4, num_kv_heads=2, head_dim=64,
+                           max_seq_len=256, dtype="bfloat16", num_experts=4, num_experts_per_tok=2)
+    params = llama.init_params(cfg, _gen(cuda), device=cuda)
+    cos, sin = llama.rope_tables(cfg, device=cuda)
+    batch = torch.randint(0, cfg.vocab_size, (2, 129), generator=_gen(cuda), device=cuda)
+    top_k, routes = llama._top_k, []
+
+    def recording(x, k):
+        vals, idx = top_k(x, k)
+        routes.append(idx)
+        return vals, idx
+
+    monkeypatch.setattr(llama, "_top_k", recording)
+    _, g_kernels = train.loss_and_grads(params, batch, cfg, cos, sin, use_flash=True)
+    replay = iter(routes)
+
+    def pinned(x, k):
+        idx = next(replay)
+        return x.gather(-1, idx), idx
+
+    monkeypatch.setattr(llama, "_top_k", pinned)
+    _, g_plain = train.loss_and_grads(params, batch, cfg, cos, sin, use_flash=False)
+    assert next(replay, None) is None and len(routes) == 2 * cfg.num_layers  # each layer's forward and rerun
+    monkeypatch.setattr(llama, "_top_k", top_k)
+    for a, b in zip(train.tree_leaves(g_kernels), train.tree_leaves(g_plain)):
+        assert _rel_peak(a, b) <= 5e-2
+    for name in ("moe_router", "moe_gate_up", "moe_down"):
+        assert float(g_kernels["layers"][name].abs().max()) > 0
+    momentum = train.tree_map(torch.zeros_like, params)
+    counters = (flash_prefill.flash_prefill, flash_bwd.flash_bwd_dq, flash_bwd.flash_bwd_dkdv)
+    losses = []
+    for _ in range(3):
+        before = [flash_prefill.flash_prefill.launches_lse] + [fn.launches for fn in counters]
+        params, momentum, loss = train.train_step(params, momentum, batch, cfg, cos, sin, 1.0)
+        grew = [flash_prefill.flash_prefill.launches_lse - before[0]] + [
+            fn.launches - b for fn, b in zip(counters, before[1:])]
+        n = cfg.num_layers
+        assert grew == [2 * n, 2 * n, n, n]
+        losses.append(float(loss))
+    assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0]
+
+
 # ------------------------------------------------------------ attention variants
 
 # (window, sinks, softcap): a band, a band with sinks (inside and past the

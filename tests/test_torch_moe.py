@@ -201,7 +201,10 @@ def test_bridge_carries_moe_trees(experts):
 
 
 def test_moe_is_served_not_trained():
+    """DeepSeek's routing is served, not trained (JAX's training ignores
+    it: ROADMAP Queue 3); Mixtral's is both (tests/test_torch_moe_train.py)."""
     _, tc = _cfgs("deepseek")
     t_llama.check_supported(tc)
-    with pytest.raises(NotImplementedError, match="14b-train"):
+    with pytest.raises(NotImplementedError, match="DeepSeek's routing.*Queue 3"):
         t_train._check_trainable({"layers": {}}, tc, None, None)
+    t_train._check_trainable({"layers": {}}, _cfgs()[1], None, None)

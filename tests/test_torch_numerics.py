@@ -216,11 +216,11 @@ def test_config_fields_and_validation_match_jax():
 
 @pytest.mark.parametrize("preset", ["mixtral_8x7b", "deepseek_v2_lite", "gemma2_9b", "mistral_7b"])
 def test_unported_config_fields_raise(preset):
-    """MoE and MLA are served but not trained; Gemma-2 and Mistral are
-    both."""
+    """MLA and DeepSeek's routing are served but not trained; Mixtral's
+    MoE, Gemma-2 and Mistral are both."""
     cfg = getattr(t_params.ModelConfig, preset)()
     t_llama.check_supported(cfg)
-    if preset in ("gemma2_9b", "mistral_7b"):
+    if preset in ("mixtral_8x7b", "gemma2_9b", "mistral_7b"):
         t_train._check_trainable({"layers": {}}, cfg, None, None)
     else:
         with pytest.raises(NotImplementedError):

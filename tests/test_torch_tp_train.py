@@ -5,16 +5,18 @@ The port runs one world of 4 gloo processes for the file
 its TP shard of JAX's ``init_params`` (fp32, crossing as numpy); JAX runs
 on 4 of conftest's 8 virtual CPU devices.
 
-Twins of ``tests/test_train_parallel.py``'s dense cases: the TP x DP loss
-and gradients against single-device autodiff (the oracle's gradients
-permuted into the TP layout and cut as JAX places them), ``grad_accum``,
+Twins of ``tests/test_train_parallel.py``'s cases: the TP x DP loss and
+gradients against single-device autodiff (the oracle's gradients permuted
+into the TP layout and cut as JAX places them), dense and MoE (2 whole
+experts a rank, the router's gradient equal on every rank), ``grad_accum``,
 six steps that lower the loss, and the trained shards served by the TP
-decode step; its MoE case asserts the refusal (ROADMAP item 14b-train).
-And a TP x CP step (``model`` 2 x ``seq`` 2, the ring) against JAX's
-``make_tp_cp_train_step`` on the same mesh. JAX's steps run an optax
-transformation that is SGD at ``worker.LR`` keeping the gradients as its
-state; the port's SGD with momentum starts from zero, so after one step its
-momentum is the reduced gradients and its update plain SGD's.
+decode step. And a TP x CP step (``model`` 2 x ``seq`` 2, the ring) against
+JAX's ``make_tp_cp_train_step`` on the same mesh, and one MoE step of
+``make_tp_dp_train_step`` and of ``make_tp_cp_train_step`` against JAX's.
+JAX's steps run an optax transformation that is SGD at ``worker.LR``
+keeping the gradients as its state; the port's SGD with momentum starts
+from zero, so after one step its momentum is the reduced gradients and its
+update plain SGD's.
 
 Tolerances: fp32, sums in another order: losses, gradients and params
 within 2e-5 of each leaf's peak; every rank's loss equal bit for bit.
@@ -34,10 +36,6 @@ from starflashattention_tpu.parallel import tp as j_tp
 from starflashattention_tpu.parallel.train import make_tp_cp_train_step as j_make_tp_cp_train_step
 from starflashattention_tpu.parallel.train import make_tp_dp_train_step as j_make_tp_dp_train_step
 from starflashattention_tpu.runtime.params import ModelConfig as JConfig
-from starflashattention_tpu_torch import parallel as t_parallel
-from starflashattention_tpu_torch.models import llama as t_llama
-from starflashattention_tpu_torch.parallel.mesh import Axis, Mesh
-from starflashattention_tpu_torch.runtime.params import ModelConfig as TConfig
 
 import torch_parallel_worker as worker
 
@@ -53,8 +51,8 @@ def _close(got, want):
     assert np.abs(got - want).max() <= RTOL * max(np.abs(want).max(), 1e-12), np.abs(got - want).max()
 
 
-def _setup():
-    cfg = JConfig.tiny(**worker.TP_CFG)
+def _setup(moe=False):
+    cfg = JConfig.tiny(**worker.TP_CFG, **(worker.TPT_MOE if moe else {}))
     params = j_llama.init_params(cfg, jax.random.PRNGKey(0))
     cos, sin = j_llama.rope_tables(cfg)
     rng = np.random.default_rng(0)
@@ -84,7 +82,9 @@ def _keep_grads_sgd(lr):
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     _, params, _, _, batch = _setup()
-    inputs = {**worker.encode(jax.tree.map(np.asarray, params), "params"), "batch": batch}
+    _, moe_params, _, _, _ = _setup(moe=True)
+    inputs = {**worker.encode(jax.tree.map(np.asarray, params), "params"),
+              **worker.encode(jax.tree.map(np.asarray, moe_params), "moe_params"), "batch": batch}
     return worker.run_world("tp_train", inputs, tmp_path_factory.mktemp("tp_train_world"))
 
 
@@ -157,15 +157,37 @@ def test_tp_cp_step_matches_jax(world):
     _check_shards(world, "tp_cp/params", new)
 
 
-def test_tp_training_refuses_moe():
-    """The MoE case of ``test_sharded_grads_match_single_device``: MoE
-    training is not ported (ROADMAP item 14b-train), under TP as alone; it
-    raises before any collective."""
-    cfg = TConfig.tiny(**worker.TP_CFG, num_experts=4, num_experts_per_tok=2)
-    params = t_llama.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    axes = {"data": 1, "model": 1}
-    mesh = Mesh({name: Axis(name, 1, 0, (0,), None, "gloo") for name in axes}, torch.device("cpu"))
-    vg, _ = t_parallel.make_tp_dp_value_and_grad(mesh, cfg)
-    cos, sin = t_llama.rope_tables(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="14b-train"):
-        vg(t_parallel.shard_params(params, mesh, cfg), torch.zeros((2, 9), dtype=torch.int64), cos, sin)
+def test_tp_training_refuses_moe(world):
+    """Once the MoE case's refusal, now the ``moe=True`` twin of
+    ``test_sharded_grads_match_single_device``: the TP x DP loss and every
+    rank's gradients (2 whole experts a rank of ``model``) against
+    ``jax.value_and_grad`` on one device, cut as JAX places them; the
+    replicated router's gradient, each rank's partial summed by Megatron's
+    f on the router weight, equal bit for bit on every rank."""
+    cfg, params, cos, sin, batch = _setup(moe=True)
+    loss, grads = jax.value_and_grad(j_loss_fn)(params, jnp.asarray(batch), cfg, cos, sin)
+    for res in world:
+        assert res["moe_vg/loss"] == world[0]["moe_vg/loss"]
+        np.testing.assert_array_equal(res["moe_vg/grads/layers/moe_router"],
+                                      world[0]["moe_vg/grads/layers/moe_router"])
+    _close(world[0]["moe_vg/loss"], loss)
+    _check_shards(world, "moe_vg/grads", j_tp.shard_params(grads, _jax_mesh("dp2_tp2"), cfg))
+    assert np.abs(world[0]["moe_vg/grads/layers/moe_router"]).max() > 0
+
+
+@pytest.mark.parametrize("name", ["moe_step", "moe_tp_cp"])
+def test_moe_tp_steps_match_jax(world, name):
+    """One MoE step of ``make_tp_dp_train_step`` (data 2 x model 2) and of
+    ``make_tp_cp_train_step`` (model 2 x seq 2, the ring) against JAX's on
+    the same mesh: the loss, every rank's gradients and params."""
+    cfg, params, cos, sin, batch = _setup(moe=True)
+    mesh = _jax_mesh("dp2_tp2" if name == "moe_step" else "tp2_sp2")
+    opt = _keep_grads_sgd(worker.LR)
+    p_n = j_tp.shard_params(params, mesh, cfg)
+    make = j_make_tp_dp_train_step if name == "moe_step" else j_make_tp_cp_train_step
+    new, grads, loss = make(mesh, cfg, opt, donate=False)(p_n, opt.init(p_n), jnp.asarray(batch), cos, sin)
+    for res in world:
+        assert res[f"{name}/loss"] == world[0][f"{name}/loss"]
+    _close(world[0][f"{name}/loss"], loss)
+    _check_shards(world, f"{name}/grads", grads)
+    _check_shards(world, f"{name}/params", new)

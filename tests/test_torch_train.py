@@ -412,9 +412,10 @@ def test_training_refuses_unported_paths():
         t_train.forward_train(params, tokens, tc, cos, sin, use_flash=False, seq_axis_name=object())
     with pytest.raises(TypeError, match="parallel.mesh.Axis"):
         t_train.forward_train(params, tokens, tc, cos, sin, seq_axis_name="seq")
-    moe = t_params.ModelConfig.tiny(dtype="float32", num_experts=4, num_experts_per_tok=2)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        t_train.forward_train(params, tokens, moe, cos, sin)
+    deepseek = t_params.ModelConfig.tiny(dtype="float32", num_experts=4, num_experts_per_tok=2,
+                                         router_pre_softmax=True, n_shared_experts=1)
+    with pytest.raises(NotImplementedError, match="router_pre_softmax, n_shared_experts.*Queue 3"):
+        t_train.forward_train(params, tokens, deepseek, cos, sin)
     mla = t_params.ModelConfig.tiny(dtype="float32", mla=True, head_dim=24, qk_nope_head_dim=16,
                                     qk_rope_head_dim=8, kv_lora_rank=32, v_head_dim=16, num_kv_heads=1)
     with pytest.raises(NotImplementedError, match="14c"):

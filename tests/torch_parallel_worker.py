@@ -49,6 +49,8 @@ TRAIN_CONFIGS = {
     "gemma2": ("gemma2_9b", dict(vocab_size=64, hidden_size=32, intermediate_size=64, num_layers=4,
                                  num_q_heads=2, num_kv_heads=1, head_dim=16, max_seq_len=128,
                                  dtype="float32", block_k=16, sliding_window=16), 2, 64),
+    "moe": ("tiny", dict(dtype="float32", num_q_heads=8, num_kv_heads=4, num_experts=4, num_experts_per_tok=2),
+            4, 32),
 }
 TRAIN_CASES = {  # name: (config, mesh axes, step keyword arguments)
     "cp": ("tiny", {"seq": 4}, dict()),
@@ -57,6 +59,7 @@ TRAIN_CASES = {  # name: (config, mesh axes, step keyword arguments)
     "window": ("window", {"seq": 4}, dict()),
     "sinks": ("sinks", {"seq": 4}, dict()),
     "gemma2": ("gemma2", {"seq": 4}, dict()),
+    "cp_moe": ("moe", {"seq": 4}, dict()),
 }
 LR = 1e-2
 
@@ -121,6 +124,7 @@ PP_BATCH, PP_PROMPT, PP_STEPS = 8, 5, 4
 # ---- tensor-parallel training (tests/test_torch_tp_train.py)
 TPT_MESHES = {"dp2_tp2": {"data": 2, "model": 2}, "tp2_sp2": {"model": 2, "seq": 2}}
 TPT_BATCH, TPT_SEQ, TPT_STEPS = 4, 16, 6
+TPT_MOE = dict(num_experts=4, num_experts_per_tok=2)  # the MoE cases: 2 whole experts a rank of model 2
 
 
 def free_port() -> int:
@@ -464,6 +468,22 @@ def _tp_train_suite(inp):
     out["tp_cp/loss"] = loss
     out.update(flatten(params, "tp_cp/params"))
     out.update(flatten(state, "tp_cp/grads"))
+    # MoE, expert-parallel over model: the loss and gradients, one TP x DP step, one TP x CP step
+    cfg = ModelConfig.tiny(**TP_CFG, **TPT_MOE)
+    full = decode_params(inp, "moe_params")
+    mesh = meshes["dp2_tp2"]
+    vg, _ = parallel.make_tp_dp_value_and_grad(mesh, cfg)
+    loss, grads = vg(tp.shard_params(full, mesh, cfg), batch, cos, sin)
+    out["moe_vg/loss"] = loss
+    out.update(flatten(grads, "moe_vg/grads"))
+    for name, make in (("moe_step", parallel.make_tp_dp_train_step), ("moe_tp_cp", parallel.make_tp_cp_train_step)):
+        mesh = meshes["dp2_tp2" if name == "moe_step" else "tp2_sp2"]
+        params = tp.shard_params(full, mesh, cfg)
+        state = parallel.init_opt_state(params)
+        params, state, loss = make(mesh, cfg, LR)(params, state, batch, cos, sin)
+        out[f"{name}/loss"] = loss
+        out.update(flatten(params, f"{name}/params"))
+        out.update(flatten(state, f"{name}/grads"))
     return out
 
 
