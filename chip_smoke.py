@@ -335,7 +335,11 @@ Phases (any failure raises and the script exits non-zero):
    experts a rank) through ``make_tp_dp_train_step`` (B=2, S=2048): the
    first step's loss and every rank's gradients within 5e-2 of one
    process's (the ranks build the whole model for it one at a time), 3
-   steps lower the loss. Launch counts checked on every rank; step times,
+   steps lower the loss. (g) Multi-LoRA serving under the mesh: (b)'s
+   ``Engine`` and ``PagedEngine`` with phase 17's 4 adapters (seeded at (a)'s
+   8 layers), the requests on adapters 0, 1, 2, 3 and None in turn; streams
+   equal one process's multi-LoRA engines or pass the tie check on the
+   adapted decode route. Launch counts checked on every rank; step times,
    peak memory and bytes through the host printed; each sub-phase's
    seconds.
 15. Checkpoints (``models/checkpoint``). (a) ``ModelConfig.llama_7b_gqa``
@@ -378,7 +382,30 @@ Phases (any failure raises and the script exits non-zero):
    of 128, QK-norm, 128 experts top 8 of 768, vocab 151,936) cut to 2
    layers: one step with (a)'s checks, then (b). Each line with a time
    carries the card's name and power limit; each sub-phase's seconds.
+17. Multi-LoRA serving (``lora_adapters``, ``Request.adapter``): phase 6's
+   model (32 layers, int8 weights and lm_head, bf16 KV) with 4 fp32
+   adapters of ranks 8, 16, 32 and 64 on all four projections (``a`` from
+   ``lora.init_lora``, ``b`` drawn at ``LORA_B_STD``), stacked once by each
+   engine (1.95 GB padded to rank 64). Phase 6's 24 requests on adapters
+   0, 1, 2, 3 and None in turn, through a base ``Engine``, then ``Engine``
+   and ``PagedEngine`` (phase 6's settings, prefix cache on, the preempting
+   pool) with the adapters: (a) every request finishes with phase 6's
+   launch counts (the deltas launch none of the port's kernels); (b) the
+   base rows' streams equal the base engine's bit for bit (sha256 digests
+   printed); (c) 4 layers at full width, one prefill and 4 decode steps of
+   5 rows (each adapter and the base) through the kernels and
+   ``delta_multi`` against the plain route on the dequantized weights with
+   each row's ``a @ b`` merged in fp32, within 5% of the largest logit;
+   (d) every adapter changes some of its streams (the shares printed); (e)
+   prefix hits only within an adapter (every hit's pages audited against
+   the adapter that published them), and the share of equal streams
+   between the engines; both engines' streams pass phase 8's tie check on
+   the adapted decode route. TTFT p50 and decode tok/s of the three runs beside
+   phase 6's when it ran; one traced decode round of 8 steps at B 8 with
+   and without the adapters: launches, device busy and idle share a step,
+   and the deltas' device time.
 
+Each phase is run alone with ``--phases 1,N`` (17: ``--phases 1,17``).
 The line ``[done] seconds by phase`` gives each phase's seconds.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
@@ -3591,17 +3618,19 @@ def _serving_prompts(vocab):
     return [system + rng.integers(0, vocab, int(n)).tolist() for n in lens]
 
 
-def _serve(make_engine, prompts, expect, sampling=None, new_tokens=SERVE_NEW_TOKENS):
+def _serve(make_engine, prompts, expect, sampling=None, new_tokens=SERVE_NEW_TOKENS, adapters=None):
     """One engine run with the counters zeroed just before and read just
     after; checks the counts against ``expect(stats)`` and that every
-    request finished with its full budget."""
+    request finished with its full budget. ``adapters``: each request's
+    adapter (multi-LoRA engines)."""
     from starflashattention_tpu_torch.serving import GREEDY, Request
 
     torch.cuda.synchronize()
     reset_counts()
     eng = make_engine()
-    reqs = [Request(uid=i, prompt=p, max_new_tokens=new_tokens, sampling=s)
-            for i, (p, s) in enumerate(zip(prompts, sampling or [GREEDY] * len(prompts)))]
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=new_tokens, sampling=s, adapter=a)
+            for i, (p, s, a) in enumerate(zip(prompts, sampling or [GREEDY] * len(prompts),
+                                              adapters or [None] * len(prompts)))]
     t0 = time.perf_counter()
     for r in reqs:
         eng.submit(r)
@@ -3621,6 +3650,19 @@ def _serve(make_engine, prompts, expect, sampling=None, new_tokens=SERVE_NEW_TOK
     return eng, reqs, wall, counts
 
 
+def _serving_counts(n_layers, paged, steps=SERVE_STEPS):
+    """Phase 6's launch counts of one engine run, from its stats (int8
+    weights and lm_head: four projections a layer and the head a step)."""
+    def counts(st):
+        dec = st.decode_rounds * steps * n_layers
+        return {"flash_prefill": st.prefill_rounds * n_layers,
+                "flash_decode": 0 if paged else dec, "flash_decode_append": 0 if paged else dec,
+                "paged_flash_decode": dec if paged else 0, "paged_flash_decode_append": dec if paged else 0,
+                "append_rows_kv": 0, "append_rows_paged_kv": 0,
+                "quant_matmul": (st.prefill_rounds + st.decode_rounds * steps) * (4 * n_layers + 1)}
+    return counts
+
+
 def phase_serving(dev):
     """Full-width 7B-GQA serving through both engines (see the module doc)."""
     from starflashattention_tpu_torch.runtime.params import ModelConfig
@@ -3637,17 +3679,10 @@ def phase_serving(dev):
     log(f"[serve] {len(prompts)} requests, prompt lengths {min(map(len, prompts))}.."
         f"{max(map(len, prompts))} ({sum(map(len, prompts))} tokens, shared prefix {SERVE_PREFIX}), "
         f"{SERVE_NEW_TOKENS} new tokens each, {SERVE_SLOTS} slots, {SERVE_STEPS} steps a round")
-    n_layers, steps = cfg.num_layers, SERVE_STEPS
+    steps = SERVE_STEPS
 
     def expect(paged):
-        def counts(st):
-            dec = st.decode_rounds * steps * n_layers
-            return {"flash_prefill": st.prefill_rounds * n_layers,
-                    "flash_decode": 0 if paged else dec, "flash_decode_append": 0 if paged else dec,
-                    "paged_flash_decode": dec if paged else 0, "paged_flash_decode_append": dec if paged else 0,
-                    "append_rows_kv": 0, "append_rows_paged_kv": 0,
-                    "quant_matmul": (st.prefill_rounds + st.decode_rounds * steps) * (4 * n_layers + 1)}
-        return counts
+        return _serving_counts(cfg.num_layers, paged)
 
     def contiguous_engine():
         return Engine(params, cfg, num_slots=SERVE_SLOTS, steps_per_round=steps, return_logprobs=True,
@@ -3730,13 +3765,18 @@ def _spec_prompts(vocab):
     return out
 
 
-def _teacher_forced(params, cfg, prompts, streams, dev):
+def _teacher_forced(params, cfg, prompts, streams, dev, lora=None, adapters=None):
     """Feed each stream to the plain decode route on the kernels (prefill,
     then one ``decode_step`` a token) -> (largest gap between a row's
     maximum logit and the emitted token's, as a share of the row's logit
-    range; the share of emitted tokens that are the row's argmax)."""
+    range; the share of emitted tokens that are the row's argmax). With a
+    stacked ``lora``, row i runs on ``adapters[i]``."""
     from starflashattention_tpu_torch.cache import contiguous
     from starflashattention_tpu_torch.models import llama
+    from starflashattention_tpu_torch.models import lora as lora_lib
+
+    ad = {} if lora is None else dict(lora=lora, lora_sel=lora_lib.adapter_onehot(
+        [-1 if a is None else a for a in adapters], lora_lib.num_adapters(lora), device=dev))
 
     b, n_new = len(prompts), len(streams[0])
     hkv, d = cfg.kv_cache_dims()
@@ -3748,7 +3788,7 @@ def _teacher_forced(params, cfg, prompts, streams, dev):
     padded = torch.zeros((b, int(plens.max())), dtype=torch.int32, device=dev)
     for i, p in enumerate(prompts):
         padded[i, : len(p)] = torch.tensor(p, dtype=torch.int32)
-    logits, cache = llama.prefill(params, cache, padded, plens, cos, sin, cfg)
+    logits, cache = llama.prefill(params, cache, padded, plens, cos, sin, cfg, **ad)
     gaps, hits = [], []
     for i in range(n_new):
         row_max, row_min = logits.amax(dim=-1), logits.amin(dim=-1)
@@ -3756,7 +3796,7 @@ def _teacher_forced(params, cfg, prompts, streams, dev):
         gaps.append((row_max - chosen) / (row_max - row_min))
         hits.append(chosen == row_max)
         if i + 1 < n_new:
-            logits, cache = llama.decode_step(params, cache, toks[:, i], cos, sin, cfg)
+            logits, cache = llama.decode_step(params, cache, toks[:, i], cos, sin, cfg, **ad)
     return torch.stack(gaps).max().item(), torch.stack(hits).float().mean().item()
 
 
@@ -3959,9 +3999,10 @@ def _greedy_agreement(tag, a_reqs, b_reqs, label="variants"):
     return same
 
 
-def _tie_check(tag, params, cfg, prompts, streams, dev, label="variants"):
-    """Phase 8's teacher-forced check on the plain decode route."""
-    gap, exact = _teacher_forced(params, cfg, prompts, streams, dev)
+def _tie_check(tag, params, cfg, prompts, streams, dev, label="variants", lora=None, adapters=None):
+    """Phase 8's teacher-forced check on the plain decode route (with
+    ``lora``, each row on its adapter)."""
+    gap, exact = _teacher_forced(params, cfg, prompts, streams, dev, lora, adapters)
     ok = gap <= SPEC_TIE_TOL
     log(f"[{label}] {tag}: teacher-forced on the contiguous decode route: exact-argmax share {exact:.4f}, "
         f"largest gap below the row maximum {gap:.4e} of the row's logit range (tolerance "
@@ -5411,11 +5452,12 @@ def _decode_counts(n_layers, steps, projections, prefill_rows, lm_head=1):
 
 
 def _tp_dense_paths(r, meshes, dev):
-    """14a, 14d, 14b on this rank: 7B-GQA at full width, TP_DENSE_LAYERS deep (int8
+    """14a, 14d, 14b, 14g on this rank: 7B-GQA at full width, TP_DENSE_LAYERS deep (int8
     weights + lm_head, bf16 KV, one split): TP 4 generate with phase 4's
     check at 4 layers and the W8A8 / W4A8 row scales; PP 4 and PP 2 x TP 2
     decode against one process; then Engine / PagedEngine on the 2 x 2
-    (data, model) mesh against one process's engines."""
+    (data, model) mesh against one process's engines, without and with
+    adapters."""
     import torch.distributed as dist
 
     from starflashattention_tpu_torch.cache import contiguous
@@ -5557,8 +5599,56 @@ def _tp_dense_paths(r, meshes, dev):
             if same != len(reqs):
                 _tie_check(f"14b {name}", params, cfg, serve_prompts, streams_b, dev, label="tensor-parallel")
         dist.barrier()
+    _tp_multi_lora(r, mesh, cfg, params, serve_prompts, kw, dev)
     del params
     torch.cuda.empty_cache()
+
+
+def _tp_multi_lora(r, mesh, cfg, params, prompts, kw, dev):
+    """14g on this rank: (b)'s ``Engine`` and ``PagedEngine`` on (data 2,
+    model 2) with phase 17's 4 adapters, the requests on adapters 0, 1, 2, 3
+    and None in turn, against one process's multi-LoRA engines (rank 0):
+    equal streams, or the tie check on the adapted decode route."""
+    import torch.distributed as dist
+
+    from starflashattention_tpu_torch.models import lora as lora_lib
+    from starflashattention_tpu_torch.parallel import comm
+    from starflashattention_tpu_torch.serving import Engine, PagedEngine
+
+    t0 = time.perf_counter()
+    loras = _serving_adapters(cfg, dev)  # the same draw on every rank
+    adapters = _request_adapters(len(prompts))
+    s, n = TP_SERVE, cfg.num_layers
+    makers = {"Engine": (Engine, {}, "contiguous"), "PagedEngine": (PagedEngine, dict(page_size=PAGE_SIZE), "paged")}
+    for name, (cls, extra, kind) in makers.items():
+        h0 = comm.host_bytes
+        eng, reqs, wall, counts = _serve(lambda: cls(params, cfg, mesh=mesh, lora_adapters=loras, **extra, **kw),
+                                         prompts, _engine_counts(n, s["steps"], 0, kind, 1),
+                                         new_tokens=s["new_tokens"], adapters=adapters)
+        r.rec.setdefault("counts", {})[f"14g {name}"] = counts
+        streams = [q.output for q in reqs]
+        r.rec[f"14g {name} streams"] = streams
+        r.rec[f"14g {name}"] = dict(wall_s=wall, decode_tok_s=eng.stats.decode_tokens_per_s(),
+                                    host_bytes=comm.host_bytes - h0, rounds=eng.stats.decode_rounds)
+        r.log(f"[tensor-parallel] 14g multi-LoRA {name} on (data 2, model 2), {len(loras)} adapters of ranks "
+              f"{LORA_RANKS}: {len(reqs)} requests in {wall:.1f} s, {eng.stats.decode_tokens_per_s():.1f} decode "
+              f"tokens/s, {(comm.host_bytes - h0) / 2**20:.1f} MiB through the host (gloo); {eng.stats.summary()}")
+        del eng
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if r.rank == 0:
+            _, one_reqs, _, _ = _serve(lambda: cls(params, cfg, lora_adapters=loras, **extra, **kw), prompts,
+                                       _engine_counts(n, s["steps"], 0, kind, 1), new_tokens=s["new_tokens"],
+                                       adapters=adapters)
+            same = sum(a == q.output for a, q in zip(streams, one_reqs))
+            r.log(f"[tensor-parallel] 14g {name}: streams equal one process's multi-LoRA {name} {same}/{len(reqs)}")
+            if same != len(reqs):
+                _tie_check(f"14g {name}", params, cfg, prompts, streams, dev, label="tensor-parallel",
+                           lora=lora_lib.stack_adapters(loras, device=dev), adapters=adapters)
+        dist.barrier()
+    del loras
+    torch.cuda.empty_cache()
+    r.log(f"[tensor-parallel] 14g: {time.perf_counter() - t0:.1f} s")
 
 
 def _tp_logits(mesh, cfg, local, cache, prompts, lengths, streams):
@@ -5864,7 +5954,7 @@ def _moe_tp_training_path(r, meshes, dev):
 
 def _tensor_parallel_rank(rank, world, port, out_dir):
     """One rank of phase 14: joins the gloo world on this card, runs
-    14a-14f and writes its record to ``out_dir/rank<r>.json``."""
+    14a-14g and writes its record to ``out_dir/rank<r>.json``."""
     import torch.distributed as dist
 
     from starflashattention_tpu_torch.parallel import init_distributed, make_mesh
@@ -5874,7 +5964,7 @@ def _tensor_parallel_rank(rank, world, port, out_dir):
     dev = init_distributed(f"tcp://localhost:{port}", backend="gloo", world_size=world, rank=rank)
     meshes = {name: make_mesh(axes, device=dev) for name, axes in TP_MESHES.items()}
     r = _Rank(rank, "tensor-parallel")
-    for name, fn in (("14a-b-d", lambda: _tp_dense_paths(r, meshes, dev)),
+    for name, fn in (("14a-b-d-g", lambda: _tp_dense_paths(r, meshes, dev)),
                      ("14c", lambda: _expert_parallel_path(r, meshes, dev)),
                      ("14e", lambda: _tp_training_path(r, meshes, dev)),
                      ("14f", lambda: _moe_tp_training_path(r, meshes, dev))):
@@ -6434,6 +6524,261 @@ def phase_moe_training(dev, smi):
 
 # ---------------------------------------------------------------- main
 
+# ---------------------------------------------------------------- phase 17
+
+LORA_RANKS = (8, 16, 32, 64)  # S-LoRA's range of serving ranks; unequal, so the stack pads to 64
+# b's seeded draw: with a ~ N(0, 1/in) and scale 2, a delta is about 2 * LORA_B_STD * sqrt(r) of a unit
+# projection output, 0.11 at rank 8 and 0.32 at rank 64: enough that every adapter changes most streams
+LORA_B_STD = 0.02
+LORA_ADAPTERS = (0, 1, 2, 3, None)  # request i's adapter LORA_ADAPTERS[i % 5]: every batch mixes them
+LORA_SEED = SEED + 17  # the adapters' own generator
+LORA_CHECK_LAYERS = 4  # (c)'s depth
+
+
+def _serving_adapters(cfg, dev):
+    """The 4 fp32 adapters of ranks ``LORA_RANKS`` on all four projections
+    of ``cfg``: ``init_lora``'s ``a`` and a seeded ``b``, from one generator
+    on the card seeded with ``LORA_SEED`` (every rank of phase 14 draws the
+    same)."""
+    from starflashattention_tpu_torch.models import lora
+
+    gen = torch.Generator(device=dev).manual_seed(LORA_SEED)
+    loras = []
+    for rank in LORA_RANKS:
+        lr = lora.init_lora(cfg, gen, rank=rank, device=dev)
+        for ab in lr["layers"].values():
+            ab["b"] = torch.randn(ab["b"].shape, generator=gen, device=dev) * LORA_B_STD
+        loras.append(lr)
+    return loras
+
+
+def _request_adapters(n):
+    return [LORA_ADAPTERS[i % len(LORA_ADAPTERS)] for i in range(n)]
+
+
+def _audit_prefix(eng):
+    """Record, in the paged engine's prefix store, the adapter each page was
+    published under, and check each hit's pages against the requester's
+    adapter: -> {"hits": {adapter: hits}, "cross": pages matched across
+    adapters}."""
+    store, audit, owner = eng._prefix, {"hits": {}, "cross": 0}, {}
+    insert, match = store.insert, store.match
+
+    def audited_insert(tokens, n_cached, pages, adapter=-1):
+        adopted = insert(tokens, n_cached, pages, adapter)
+        owner.update({p: adapter for p in adopted})
+        return adopted
+
+    def audited_match(tokens, adapter=-1):
+        pages, n = match(tokens, adapter)
+        if pages:
+            audit["hits"][adapter] = audit["hits"].get(adapter, 0) + 1
+            audit["cross"] += sum(owner.get(p) != adapter for p in pages)
+        return pages, n
+
+    store.insert, store.match = audited_insert, audited_match
+    return audit
+
+
+def _lora_round_trace(params, cfg, prompts, stack, dev):
+    """One decode round (``SERVE_STEPS`` steps, ``decode_multi``) of the
+    first ``SERVE_SLOTS`` requests after their prefill, under torch.profiler,
+    without and then with the adapters (each row on its phase adapter): the
+    two ``_traced_steps`` records."""
+    from starflashattention_tpu_torch.cache import contiguous
+    from starflashattention_tpu_torch.models import llama
+    from starflashattention_tpu_torch.models import lora as lora_lib
+
+    b = SERVE_SLOTS
+    plens = torch.tensor([len(p) for p in prompts[:b]], dtype=torch.int32, device=dev)
+    padded = torch.zeros((b, int(plens.max())), dtype=torch.int32, device=dev)
+    for i, p in enumerate(prompts[:b]):
+        padded[i, : len(p)] = torch.tensor(p, dtype=torch.int32)
+    cos, sin = llama.rope_tables(cfg, device=dev)
+    active = torch.ones((b,), dtype=torch.bool, device=dev)
+    sel = lora_lib.adapter_onehot([-1 if a is None else a for a in _request_adapters(b)],
+                                  lora_lib.num_adapters(stack), device=dev)
+    traced = {}
+    for key, ad in (("base", {}), ("adapters", dict(lora=stack, lora_sel=sel))):
+        hkv, d = cfg.kv_cache_dims()
+        cache = contiguous.init_cache(cfg.num_layers, b, hkv, cfg.max_seq_len, d, device=dev)
+        logits, cache = llama.prefill(params, cache, padded, plens, cos, sin, cfg, **ad)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        llama.decode_multi(params, cache, tok, cos, sin, active, cfg, 1, **ad)  # warm-up
+        traced[key] = _traced_steps(
+            "multi-lora", f"decode round {'with' if ad else 'without'} the adapters (decode_multi, B={b})",
+            lambda: llama.decode_multi(params, cache, tok, cos, sin, active, cfg, SERVE_STEPS, **ad), SERVE_STEPS)
+        del cache
+    base, with_ad = traced["base"], traced["adapters"]
+    if base and with_ad:
+        extra = {name: (ms - base["kernels"].get(name, (0.0, 0.0))[0], n - base["kernels"].get(name, (0.0, 0.0))[1])
+                 for name, (ms, n) in with_ad["kernels"].items()}
+        log(f"[multi-lora] the adapters' deltas a decode step: {with_ad['launches'] - base['launches']:.2f} more "
+            f"launches ({base['launches']:.2f} -> {with_ad['launches']:.2f}), {with_ad['busy_ms'] - base['busy_ms']:.3f} "
+            f"more device ms ({base['busy_ms']:.3f} -> {with_ad['busy_ms']:.3f}), idle share {base['idle_share']:.3f} "
+            f"-> {with_ad['idle_share']:.3f}, wall {base['wall_ms']:.3f} -> {with_ad['wall_ms']:.3f} ms a step")
+        for name, (ms, n) in sorted(extra.items(), key=lambda kv: -kv[1][0])[:8]:
+            if n > 0.5:
+                log(f"[multi-lora]   +{ms:8.3f} ms/step  +{n:6.1f} launches/step  {name[:110]}")
+    return traced
+
+
+def _merged_rows_vs_kernels(dev, cfg, params, loras, prompts, lengths):
+    """(c): ``LORA_CHECK_LAYERS`` layers at full width, a prefill and 4 decode
+    steps of one row per adapter and one base row, through the kernels with
+    the stacked adapters, against the plain route on the dequantized
+    weights with each row's ``a @ b`` merged in fp32 (one plain run a row
+    group), both decoding the kernel route's greedy tokens."""
+    from starflashattention_tpu_torch.cache import contiguous
+    from starflashattention_tpu_torch.core import quant
+    from starflashattention_tpu_torch.models import llama
+    from starflashattention_tpu_torch.models import lora as lora_lib
+
+    k = LORA_CHECK_LAYERS
+    short = dataclasses.replace(cfg, num_layers=k)
+    p4 = _first_layers(params, k)
+    l4 = [{"layers": {n: {"a": ab["a"][:k], "b": ab["b"][:k]} for n, ab in lr["layers"].items()},
+           "scale": lr["scale"]} for lr in loras]
+    stack = lora_lib.stack_adapters(l4, device=dev)
+    rows_ad = list(LORA_ADAPTERS)  # one row a phase adapter and a base row
+    b = len(rows_ad)
+    prompts, lengths = prompts[:b], lengths[:b]
+    cos, sin = llama.rope_tables(short, device=dev)
+
+    def run(p, tok_rows, lens, feed=None, **ad):
+        cache = contiguous.init_cache(k, tok_rows.shape[0], short.num_kv_heads, short.max_seq_len, short.head_dim,
+                                      device=dev)
+        logits, cache = llama.prefill(p, cache, tok_rows, lens, cos, sin, short, **ad)
+        out, fed = [logits], []
+        for i in range(4):
+            fed.append(llama.sample(logits) if feed is None else feed[i])
+            logits, cache = llama.decode_step(p, cache, fed[-1], cos, sin, short, **ad)
+            out.append(logits)
+        return torch.stack(out), fed
+
+    sel = lora_lib.adapter_onehot([-1 if a is None else a for a in rows_ad], len(loras), device=dev)
+    reset_counts()
+    kern, fed = run(p4, prompts, lengths, lora=stack, lora_sel=sel)
+    counts = read_counts()
+    need = ("flash_prefill", "flash_decode", "flash_decode_append", "quant_matmul")
+    if not all(counts[n] for n in need):
+        raise AssertionError(f"(c): the kernel route launched {counts}, not each of {need}")
+    dense = {key: (quant.dequantize_weight(w) if isinstance(w, dict) else w) for key, w in p4.items()
+             if key != "layers"}
+    dense["layers"] = {n: (quant.dequantize_weight(w) if isinstance(w, dict) else w) for n, w in p4["layers"].items()}
+    plain = torch.empty_like(kern)
+    with plain_ops():
+        for aid in LORA_ADAPTERS:
+            rows = [i for i, a in enumerate(rows_ad) if a == aid]
+            merged = dense if aid is None else lora_lib.merge(dense, l4[aid], short)
+            idx = torch.tensor(rows, device=dev)
+            got, _ = run(merged, prompts[idx], lengths[idx], feed=[f[idx] for f in fed])
+            plain[:, idx] = got
+            del merged
+    if read_counts() != counts:
+        raise AssertionError("(c): the plain route launched a kernel")
+    err, peak = (kern - plain).abs().max().item(), plain.abs().max().item()
+    _check(f"multi-LoRA path vs path ({k} layers, prefill + 4 decode steps, rows on adapters "
+           f"{rows_ad}) logits (max |logit| {peak:.2f})", err, 0.05 * peak)
+    per_row = [((kern[:, i] - plain[:, i]).abs().max() / plain[:, i].abs().max()).item() for i in range(b)]
+    same_argmax = (kern.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    log(f"[multi-lora] (c) each row's error over its peak {[round(e, 4) for e in per_row]}, argmax agreement "
+        f"{same_argmax:.3f}; kernel launches {counts}")
+    del p4, stack, dense
+    torch.cuda.empty_cache()
+    return dict(err=err, peak=peak, per_row=per_row)
+
+
+def phase_multi_lora(dev, serving, smi):
+    """Multi-LoRA serving at full 7B-GQA width (see the module doc)."""
+    from starflashattention_tpu_torch.models import lora as lora_lib
+    from starflashattention_tpu_torch.runtime.params import ModelConfig
+    from starflashattention_tpu_torch.serving import Engine, PagedEngine
+
+    cfg = ModelConfig.llama_7b_gqa(num_layers=SLICE_LAYERS, max_seq_len=SLICE_SEQ)
+    t0 = time.perf_counter()
+    params, gen = build_model(cfg, dev)
+    loras = _serving_adapters(cfg, dev)
+    torch.cuda.synchronize()
+    # the engines' stack: (L, N, in, r_max) and (L, N, r_max, out) fp32 a target
+    stack_gb = sum(ab["a"].shape[0] * len(loras) * max(LORA_RANKS) * (ab["a"].shape[1] + ab["b"].shape[2]) * 4
+                   for ab in loras[0]["layers"].values()) / 1e9
+    log(f"[multi-lora] llama_7b_gqa L={cfg.num_layers} int8 weights + int8 lm_head, bf16 KV; {len(loras)} fp32 "
+        f"adapters of ranks {LORA_RANKS} on {sorted(loras[0]['layers'])}, b drawn at {LORA_B_STD}; the "
+        f"padded stack {stack_gb:.3f} GB; built in {time.perf_counter() - t0:.1f} s ({smi})")
+    prompts = _serving_prompts(cfg.vocab_size)
+    adapters = _request_adapters(len(prompts))
+    kw = dict(num_slots=SERVE_SLOTS, steps_per_round=SERVE_STEPS, device=dev)
+    paged_kw = dict(page_size=PAGE_SIZE, prefill_chunk=SERVE_CHUNK, prefix_cache=True, num_pages=SERVE_PAGES)
+    runs, reqs, audit = {}, {}, {}
+
+    def audited_paged():
+        eng = PagedEngine(params, cfg, lora_adapters=loras, **paged_kw, **kw)
+        audit.update(_audit_prefix(eng))
+        return eng
+
+    plan = (("base Engine", lambda: Engine(params, cfg, **kw), False, None),
+            ("multi-LoRA Engine", lambda: Engine(params, cfg, lora_adapters=loras, **kw), False, adapters),
+            ("multi-LoRA PagedEngine", audited_paged, True, adapters))
+    for name, make, paged, ad in plan:
+        eng, reqs[name], wall, counts = _serve(make, prompts, _serving_counts(cfg.num_layers, paged), adapters=ad)
+        st = eng.stats
+        runs[name] = dict(wall_s=wall, stats=st.summary(), counts=counts)
+        log(f"[multi-lora] {name}: {wall:.2f} s, TTFT p50 {st.p50_ttft_ms():.1f} ms, decode "
+            f"{st.decode_tokens_per_s():.1f} tok/s, {json.dumps(st.summary())} ({smi})")
+        log(f"[multi-lora] {name} launches {counts} (a): phase 6's expected counts")
+        del eng
+        torch.cuda.empty_cache()
+    for name in ("contiguous", "paged") if serving else ():
+        st = serving[name]["stats"]
+        log(f"[multi-lora] phase 6's {name} run in this call (no adapters, logprobs on): TTFT p50 "
+            f"{st['p50_ttft_ms']} ms, decode {st['decode_tokens_per_s']} tok/s")
+    base = [r.output for r in reqs["base Engine"]]
+    streams = {name: [r.output for r in reqs[name]] for name in ("multi-LoRA Engine", "multi-LoRA PagedEngine")}
+
+    # (b) the base rows: bit for bit the engine without adapters
+    base_rows = [i for i, a in enumerate(adapters) if a is None]
+    want = _streams_digest([base[i] for i in base_rows])
+    for name, got in streams.items():
+        digest = _streams_digest([got[i] for i in base_rows])
+        same = sum(got[i] == base[i] for i in base_rows)
+        log(f"[multi-lora] (b) {name}: base rows' streams sha256 {digest}, the base Engine's {want}; equal "
+            f"{same}/{len(base_rows)}")
+        if name == "multi-LoRA Engine" and digest != want:
+            raise AssertionError("(b): a base row's stream moved under the adapters")
+    # (d) every adapter changes some of its streams
+    shares = {}
+    for aid in range(len(loras)):
+        rows = [i for i, a in enumerate(adapters) if a == aid]
+        shares[aid] = sum(streams["multi-LoRA Engine"][i] != base[i] for i in rows) / len(rows)
+    log(f"[multi-lora] (d) share of each adapter's streams that differ from the base model's: "
+        + ", ".join(f"adapter {a} (rank {LORA_RANKS[a]}) {s:.3f}" for a, s in shares.items()))
+    if not all(s > 0 for s in shares.values()):
+        raise AssertionError(f"(d): an adapter changed none of its streams: {shares}")
+    # (e) prefix hits only within an adapter
+    same = sum(a == b for a, b in zip(*streams.values()))
+    log(f"[multi-lora] (e) prefix hits by adapter (-1 the base) {audit['hits']}, pages matched across adapters "
+        f"{audit['cross']}; streams equal between the multi-LoRA Engine and PagedEngine {same}/{len(prompts)} "
+        f"({same / len(prompts):.3f})")
+    if audit["cross"] or not audit["hits"]:
+        raise AssertionError(f"(e): prefix hits {audit['hits']}, {audit['cross']} pages across adapters")
+    # both engines' streams, teacher-forced on the adapted contiguous decode route: near-ties, not errors
+    stack = lora_lib.stack_adapters(loras, device=dev)
+    for name, got in streams.items():
+        _tie_check(f"{name} streams", params, cfg, prompts, got, dev, label="multi-lora", lora=stack,
+                   adapters=adapters)
+    traced = _lora_round_trace(params, cfg, prompts, stack, dev)
+    del stack
+    torch.cuda.empty_cache()
+    p_prompts, p_lengths = _prompts(cfg, dev, gen)
+    check = _merged_rows_vs_kernels(dev, cfg, params, loras, p_prompts, p_lengths)
+    del params, loras
+    torch.cuda.empty_cache()
+    return dict(runs=runs, shares=shares, audit=audit, check=check,
+                traced={k: v and {f: v[f] for f in ("wall_ms", "busy_ms", "launches", "idle_share")}
+                        for k, v in traced.items()})
+
+
 REPLACES = {
     "flash_decode (1 split, fused)": ("starflashattention_tpu/ops/flash_decode.py:213", "flash_decode_split.cu"),
     "flash_decode (split-KV partials)": ("starflashattention_tpu/ops/flash_decode.py:141",
@@ -6500,9 +6845,9 @@ OFF_PATH = ("flash_decode fp8 KV (1 split, fused)", "paged_flash_decode fp8 KV",
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11,12,13,14,15,16",
-                        help="comma-separated phases to run (default 1,2,3,4,6,7,8,9,10,11,12,13,14,15,16; phase 5, "
-                             "a profile of bench.py's decode chains, runs only when named)")
+    parser.add_argument("--phases", default="1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17",
+                        help="comma-separated phases to run (default 1,2,3,4,6,7,8,9,10,11,12,13,14,15,16,17; phase "
+                             "5, a profile of bench.py's decode chains, runs only when named)")
     args = parser.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
@@ -6547,6 +6892,7 @@ def main(argv=None):
     tensor_parallel = run(14, lambda: phase_tensor_parallel(smi))
     run(15, lambda: phase_checkpoint(dev, smi))
     moe_training = run(16, lambda: phase_moe_training(dev, smi))
+    multi_lora = run(17, lambda: phase_multi_lora(dev, serving, smi))
     run(5, lambda: phase_decode_profile(dev))
 
     launches = {}
@@ -6649,6 +6995,16 @@ def main(argv=None):
         counts = moe_training[key]["counts"]
         for entry, n in (("flash_prefill (return_lse, training)", counts["flash_prefill_lse"]),
                          ("flash_bwd_dq", counts["flash_bwd_dq"]), ("flash_bwd_dkdv", counts["flash_bwd_dkdv"])):
+            launches[entry] = (launches.get(entry) or 0) + n
+    for key in ("multi-LoRA Engine", "multi-LoRA PagedEngine", "base Engine") if multi_lora else ():
+        counts = multi_lora["runs"][key]["counts"]  # phase 17's engines at 4 splits
+        for entry, n in (("flash_decode (split-KV partials)", counts["flash_decode"]),
+                         (FOLD_ENTRIES[4], counts["flash_decode_append"]),
+                         ("paged_flash_decode", counts["paged_flash_decode"]),
+                         (FOLD_ENTRIES["paged"], counts["paged_flash_decode_append"]),
+                         ("quant_matmul (small-M, decode rows)", counts["quant_matmul"] - counts["quant_matmul_tiled"]),
+                         ("quant_matmul (tiled, prefill rows)", counts["quant_matmul_tiled"]),
+                         ("flash_prefill", counts["flash_prefill"])):
             launches[entry] = (launches.get(entry) or 0) + n
     line = []
     for name, r in kernels.items():

@@ -58,6 +58,15 @@ layer), the W8A8 / W4A8 row-parallel projections quantize with the full
 row's scale, the vocab-sharded head's logits are all-gathered, MoE
 experts shard whole (global expert ``index * E_local + e``) and
 DeepSeek's shared experts and dense first layers count on index 0 only.
+
+Multi-LoRA serving: the serving entries (``prefill``, ``decode_step``,
+``prefill_serving(_paged)``, ``decode_step_paged``, ``decode_multi(_paged)``)
+take ``lora`` (``models/lora.stack_adapters``, under TP this rank's shard,
+``parallel.tp.shard_lora``) and ``lora_sel`` (the (B, N) one-hot of each
+row's adapter, zero for the base model). Each layer adds the row's adapter
+to ``wqkv`` (in x's dtype, before the bias), ``wo`` (to the fp32 output,
+before the TP sum) and, in a dense MLP, ``w_gate_up`` / ``w_down``, where
+and in the dtypes the JAX package adds them (llama.py:411-424, :851-898).
 """
 
 from __future__ import annotations
@@ -72,6 +81,7 @@ from starflashattention_tpu_torch.cache import contiguous, paged
 from starflashattention_tpu_torch.core import drafting, quant
 from starflashattention_tpu_torch.core import sampling as core_sampling
 from starflashattention_tpu_torch.core.rope import apply_rope, rope_table
+from starflashattention_tpu_torch.models import lora as lora_lib
 from starflashattention_tpu_torch.ops.flash_decode import flash_verify_append
 from starflashattention_tpu_torch.ops.flash_prefill import flash_prefill
 from starflashattention_tpu_torch.ops.quant_matmul import (quant_matmul, quant_matmul_int4,
@@ -371,12 +381,22 @@ def _apply_qk_norm(q, k, layers, lidx, cfg):
             rms_norm(k, layers["k_norm"][lidx], cfg.rms_norm_eps))
 
 
-def _swiglu(x: torch.Tensor, proj, cfg: ModelConfig) -> torch.Tensor:
+def _adapted(out: torch.Tensor, x: torch.Tensor, name: str, lora_l, lora_sel) -> torch.Tensor:
+    """``out``, the projection ``name`` of ``x``, plus each row's adapter
+    delta (``lora.delta_multi``, in x's dtype) when the layer's stacked
+    adapters ``lora_l`` target it."""
+    d = lora_lib.delta_multi(x, lora_l, name, lora_sel) if lora_l is not None else None
+    return out if d is None else out + d
+
+
+def _swiglu(x: torch.Tensor, proj, cfg: ModelConfig, lora_l=None, lora_sel=None) -> torch.Tensor:
     """Gated MLP -> fp32: gate_up written in x's dtype, ``act(gate) * up``
     cast to x's dtype (SwiGLU's silu, or Gemma's GeGLU), w_down written in
-    fp32."""
-    act = _gated(proj(x, "w_gate_up", out_dtype=x.dtype), _GATE_ACTS[cfg.mlp_activation], x.dtype)
-    return proj(act, "w_down")
+    fp32; the adapters' deltas on gate_up before the gate and on w_down's
+    output."""
+    gu = _adapted(proj(x, "w_gate_up", out_dtype=x.dtype), x, "w_gate_up", lora_l, lora_sel)
+    act = _gated(gu, _GATE_ACTS[cfg.mlp_activation], x.dtype)
+    return _adapted(proj(act, "w_down"), act, "w_down", lora_l, lora_sel)
 
 
 def _split_heads_decode(qkv: torch.Tensor, cfg: ModelConfig):
@@ -395,8 +415,8 @@ def _split_heads_prefill(qkv: torch.Tensor, cfg: ModelConfig):
     return qkv[:, :hq], qkv[:, hq:hq + hkv], qkv[:, hq + hkv:]
 
 
-def _qkv(h, layers, lidx, proj, cfg, x_dtype):
-    qkv = proj(h, "wqkv", out_dtype=x_dtype).to(x_dtype)
+def _qkv(h, layers, lidx, proj, cfg, x_dtype, lora_l=None, lora_sel=None):
+    qkv = _adapted(proj(h, "wqkv", out_dtype=x_dtype).to(x_dtype), h, "wqkv", lora_l, lora_sel)
     if "bqkv" in layers:
         qkv = qkv + layers["bqkv"][lidx]
     return qkv
@@ -528,13 +548,16 @@ def _moe_mlp(x: torch.Tensor, layers: Params, lidx: int, cfg: ModelConfig, axis_
     return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
-def _mlp_block(x: torch.Tensor, layers: Params, lidx: int, proj, cfg: ModelConfig, axis_name=None):
+def _mlp_block(x: torch.Tensor, layers: Params, lidx: int, proj, cfg: ModelConfig, axis_name=None,
+               lora_l=None, lora_sel=None):
     """The layer's MLP -> fp32: the gated dense MLP, or the MoE, with
     DeepSeek's dense first layers (``lidx < first_k_dense``, a plain Python
     test where JAX's scan takes a ``lax.cond``; JAX llama.py:579-616).
-    Under TP it is this rank's partial sum; the caller reduces it."""
+    Under TP it is this rank's partial sum; the caller reduces it. Adapters
+    apply to the dense MLP only (a MoE config's adapters have no MLP
+    targets, JAX lora.py:32-42)."""
     if not cfg.num_experts:
-        return _swiglu(x, proj, cfg)
+        return _swiglu(x, proj, cfg, lora_l, lora_sel)
     if cfg.first_k_dense:
         if "dense_mlp" not in layers:
             raise ValueError("cfg.first_k_dense is set but layers['dense_mlp'] is missing")
@@ -554,9 +577,9 @@ def _reduce(out: torch.Tensor, axis_name) -> torch.Tensor:
     return all_reduce(out, axis_name)
 
 
-def _mlp_residual(x, layers, lidx, proj, cfg, axis_name=None):
+def _mlp_residual(x, layers, lidx, proj, cfg, axis_name=None, lora_l=None, lora_sel=None):
     h = rms_norm(x, layers["mlp_norm"][lidx], cfg.rms_norm_eps)
-    out = _reduce(_mlp_block(h, layers, lidx, proj, cfg, axis_name), axis_name)
+    out = _reduce(_mlp_block(h, layers, lidx, proj, cfg, axis_name, lora_l, lora_sel), axis_name)
     return _residual_add(x, out, layers, lidx, "post_mlp_norm", cfg.rms_norm_eps)
 
 
@@ -627,48 +650,58 @@ def _rope_positions(pos: torch.Tensor, cos: torch.Tensor) -> torch.Tensor:
     return torch.clamp(pos, max=cos.shape[0] - 1)
 
 
+def _attn_residual(x, o, layers, lidx, proj, cfg, axis_name, lora_l, lora_sel):
+    """x plus the attention's ``wo`` output (fp32, the adapters' delta added
+    before the TP sum, JAX llama.py:894-898)."""
+    out = _reduce(_adapted(proj(o, "wo"), o, "wo", lora_l, lora_sel), axis_name)
+    return _residual_add(x, out, layers, lidx, "post_attn_norm", cfg.rms_norm_eps)
+
+
 def _decode_layer(x, lidx: int, layers: Params, cfg: ModelConfig, cos, sin, pos,
-                  attend, axis_name=None) -> torch.Tensor:
+                  attend, axis_name=None, lora_l=None, lora_sel=None) -> torch.Tensor:
     """One decoder layer of the decode step; ``attend(lidx, q, k_new,
     v_new)`` appends this token's K/V to the cache in place and returns the
     attention output (B, Hq, D). Under TP (``axis_name``, a
     ``parallel.mesh.Axis``) ``layers`` and ``cfg`` are this rank's shard
     (its heads, its MLP columns) and the outputs of ``wo`` and of the MLP
-    are summed over the axis (JAX llama.py:897-906)."""
+    are summed over the axis (JAX llama.py:897-906). ``lora_l`` (this
+    layer of a stacked adapter tree, ``lora.layer_slice``) and ``lora_sel``
+    add each row's adapter."""
     proj = _make_proj(layers, lidx, cfg, axis_name)
     h = rms_norm(x, layers["attn_norm"][lidx], cfg.rms_norm_eps)
     if cfg.mla:  # one shared latent row a token, absorbed queries
         q, k_new, v_new = _mla_qkv(h, layers, lidx, cfg, cos, sin, pos)
     else:
-        q, k_new, v_new = _split_heads_decode(_qkv(h, layers, lidx, proj, cfg, x.dtype), cfg)
+        q, k_new, v_new = _split_heads_decode(_qkv(h, layers, lidx, proj, cfg, x.dtype, lora_l, lora_sel), cfg)
         q, k_new = _apply_qk_norm(q, k_new, layers, lidx, cfg)
         q = apply_rope(q, pos, cos, sin, style=cfg.rope_style)
         k_new = apply_rope(k_new, pos, cos, sin, style=cfg.rope_style)
     o = attend(lidx, q, k_new, v_new)
     o = _mla_out(o, layers, lidx, cfg) if cfg.mla else o.reshape(o.shape[0], -1)
-    x = _residual_add(x, _reduce(proj(o, "wo"), axis_name), layers, lidx, "post_attn_norm", cfg.rms_norm_eps)
-    return _mlp_residual(x, layers, lidx, proj, cfg, axis_name)
+    x = _attn_residual(x, o, layers, lidx, proj, cfg, axis_name, lora_l, lora_sel)
+    return _mlp_residual(x, layers, lidx, proj, cfg, axis_name, lora_l, lora_sel)
 
 
 def _prefill_layer(x, lidx: int, layers: Params, cfg: ModelConfig, cos, sin, pos,
-                   attend, axis_name=None) -> torch.Tensor:
+                   attend, axis_name=None, lora_l=None, lora_sel=None) -> torch.Tensor:
     """One decoder layer of the prefill; ``attend(lidx, q, k_new, v_new)``
     writes the chunk's K/V into the cache in place and returns the attention
-    output (B, Hq, Sq, D). ``axis_name`` as in :func:`_decode_layer`."""
+    output (B, Hq, Sq, D). ``axis_name`` and the adapters as in
+    :func:`_decode_layer`."""
     b, sq = pos.shape
     proj = _make_proj(layers, lidx, cfg, axis_name)
     h = rms_norm(x, layers["attn_norm"][lidx], cfg.rms_norm_eps)
     if cfg.mla:  # (B, Sq, H*, D) from the helper; the kernels take heads first
         q, k_new, v_new = (t.transpose(1, 2) for t in _mla_qkv(h, layers, lidx, cfg, cos, sin, pos))
     else:
-        q, k_new, v_new = _split_heads_prefill(_qkv(h, layers, lidx, proj, cfg, x.dtype), cfg)
+        q, k_new, v_new = _split_heads_prefill(_qkv(h, layers, lidx, proj, cfg, x.dtype, lora_l, lora_sel), cfg)
         q, k_new = _apply_qk_norm(q, k_new, layers, lidx, cfg)
         q = apply_rope(q, pos[:, None, :], cos, sin, style=cfg.rope_style)
         k_new = apply_rope(k_new, pos[:, None, :], cos, sin, style=cfg.rope_style)
     o = attend(lidx, q, k_new, v_new).transpose(1, 2)  # (B, Sq, Hq, D)
     o = _mla_out(o, layers, lidx, cfg) if cfg.mla else o.reshape(b, sq, -1)
-    x = _residual_add(x, _reduce(proj(o, "wo"), axis_name), layers, lidx, "post_attn_norm", cfg.rms_norm_eps)
-    return _mlp_residual(x, layers, lidx, proj, cfg, axis_name)
+    x = _attn_residual(x, o, layers, lidx, proj, cfg, axis_name, lora_l, lora_sel)
+    return _mlp_residual(x, layers, lidx, proj, cfg, axis_name, lora_l, lora_sel)
 
 
 def _step_lengths(lengths: torch.Tensor, active: torch.Tensor | None):
@@ -689,29 +722,42 @@ def _check_axis(axis_name) -> None:
         raise TypeError("axis_name takes a parallel.mesh.Axis (mesh.axis(name)), not an axis's name")
 
 
+def _check_lora(lora, lora_sel, rows: int) -> None:
+    if (lora is None) != (lora_sel is None):
+        raise ValueError("lora and lora_sel go together: the stacked adapters and each row's one-hot selector")
+    if lora is not None and tuple(lora_sel.shape) != (rows, lora_lib.num_adapters(lora)):
+        raise ValueError(f"lora_sel is {tuple(lora_sel.shape)}, expected (rows {rows}, adapters "
+                         f"{lora_lib.num_adapters(lora)})")
+
+
 def _decode_run(params: Params, tokens: torch.Tensor, pos: torch.Tensor, cos, sin,
-                cfg: ModelConfig, attend, axis_name=None) -> torch.Tensor:
+                cfg: ModelConfig, attend, axis_name=None, lora=None, lora_sel=None) -> torch.Tensor:
     _check_axis(axis_name)
+    _check_lora(lora, lora_sel, tokens.shape[0])
     x = _embed_tokens(params, tokens, cfg)  # (B, H)
     rope_pos = _rope_positions(pos, cos)
     layers = params["layers"]
     for lidx in range(cfg.num_layers):
-        x = _decode_layer(x, lidx, layers, cfg, cos, sin, rope_pos, attend, axis_name)
+        x = _decode_layer(x, lidx, layers, cfg, cos, sin, rope_pos, attend, axis_name,
+                          lora_lib.layer_slice(lora, lidx), lora_sel)
     return _logits(x, params, cfg, axis_name)
 
 
 def _prefill_run(params: Params, tokens: torch.Tensor, new_lengths: torch.Tensor,
-                 start: torch.Tensor, cos, sin, cfg: ModelConfig, attend, axis_name=None) -> torch.Tensor:
+                 start: torch.Tensor, cos, sin, cfg: ModelConfig, attend, axis_name=None, lora=None,
+                 lora_sel=None) -> torch.Tensor:
     """Every layer over a (B, Sq) chunk at positions ``start[b] + i`` ->
     (B, V) fp32 logits at each row's last valid token."""
     _check_axis(axis_name)
+    _check_lora(lora, lora_sel, tokens.shape[0])
     b, sq = tokens.shape
     pos = start[:, None] + torch.arange(sq, device=start.device, dtype=torch.int32)[None, :]
     rope_pos = _rope_positions(pos, cos)
     x = _embed_tokens(params, tokens, cfg)  # (B, Sq, H)
     layers = params["layers"]
     for lidx in range(cfg.num_layers):
-        x = _prefill_layer(x, lidx, layers, cfg, cos, sin, rope_pos, attend, axis_name)
+        x = _prefill_layer(x, lidx, layers, cfg, cos, sin, rope_pos, attend, axis_name,
+                           lora_lib.layer_slice(lora, lidx), lora_sel)
     last = torch.clamp(new_lengths - 1, min=0).long()
     x_last = x[torch.arange(b, device=x.device), last]
     return _logits(x_last, params, cfg, axis_name)
@@ -728,7 +774,7 @@ def _as_mask(mask, device) -> torch.Tensor:
 
 def decode_step(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor,
                 cos: torch.Tensor, sin: torch.Tensor, cfg: ModelConfig,
-                active: torch.Tensor | None = None, axis_name=None):
+                active: torch.Tensor | None = None, axis_name=None, lora=None, lora_sel=None):
     """One decode step: (B,) token ids -> (B, V) fp32 logits. Writes each
     layer's new K/V row into ``cache`` and advances ``cache.lengths`` IN
     PLACE; returns ``(logits, cache)``. ``active`` (B,) bool: rows that
@@ -736,7 +782,8 @@ def decode_step(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor,
     their valid rows) but neither advance nor attend. Runs on the device of
     the tensors. ``axis_name`` (a ``parallel.mesh.Axis``): this rank's
     tensor-parallel shard of the params, the cache and ``cfg``
-    (``parallel.tp``), two all-reduces a layer."""
+    (``parallel.tp``), two all-reduces a layer. ``lora`` / ``lora_sel``:
+    the stacked adapters and each row's (B, N) one-hot (module doc)."""
     check_supported(cfg)
     if active is not None:
         active = _as_mask(active, cache.lengths.device)
@@ -747,7 +794,7 @@ def decode_step(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor,
                                                sm_scale=cfg.sm_scale(), num_splits=cfg.num_splits,
                                                block_k=cfg.block_k, **_attn_options(cfg, lidx))
 
-    logits = _decode_run(params, tokens, pos, cos, sin, cfg, attend, axis_name)
+    logits = _decode_run(params, tokens, pos, cos, sin, cfg, attend, axis_name, lora, lora_sel)
     cache.lengths.copy_(lengths_now)
     return logits, cache
 
@@ -758,7 +805,7 @@ def decode_step(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor,
 
 
 def _prefill_contiguous(params, cache: contiguous.KVCache, tokens, new_lengths, cos, sin,
-                        cfg: ModelConfig, active, axis_name=None):
+                        cfg: ModelConfig, active, axis_name=None, lora=None, lora_sel=None):
     check_supported(cfg)
     b, sq = tokens.shape
     start = cache.lengths.clone()
@@ -784,14 +831,14 @@ def _prefill_contiguous(params, cache: contiguous.KVCache, tokens, new_lengths, 
         return flash_prefill(q, k, v, lengths=kv_lengths, causal=True, q_offsets=start,
                              sm_scale=cfg.sm_scale(), **_attn_options(cfg, lidx))  # (B, Hq, Sq, D)
 
-    logits = _prefill_run(params, tokens, new_lengths, start, cos, sin, cfg, attend, axis_name)
+    logits = _prefill_run(params, tokens, new_lengths, start, cos, sin, cfg, attend, axis_name, lora, lora_sel)
     cache.lengths.copy_(kv_lengths)
     return logits, cache
 
 
 def prefill(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor,
             new_lengths: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-            cfg: ModelConfig, axis_name=None):
+            cfg: ModelConfig, axis_name=None, lora=None, lora_sel=None):
     """Prompt ingestion: (B, Sq) right-padded tokens with ``new_lengths``
     valid per row -> (B, V) fp32 logits at each row's last valid token.
     Writes the whole Sq-row window of every layer into ``cache`` at
@@ -800,14 +847,15 @@ def prefill(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor,
 
     Raises if ``cache.lengths + Sq`` exceeds the cache: the JAX package's
     ``dynamic_update_slice`` would shift such a window left over valid rows
-    instead. ``axis_name`` as in :func:`decode_step`."""
+    instead. ``axis_name``, ``lora`` and ``lora_sel`` as in
+    :func:`decode_step`."""
     return _prefill_contiguous(params, cache, tokens, new_lengths, cos, sin, cfg, active=None,
-                               axis_name=axis_name)
+                               axis_name=axis_name, lora=lora, lora_sel=lora_sel)
 
 
 def prefill_serving(params: Params, cache: contiguous.KVCache, tokens: torch.Tensor,
                     new_lengths: torch.Tensor, active, reset, cos: torch.Tensor,
-                    sin: torch.Tensor, cfg: ModelConfig, axis_name=None):
+                    sin: torch.Tensor, cfg: ModelConfig, axis_name=None, lora=None, lora_sel=None):
     """Masked prefill for admission (JAX llama.py:1182-1229): ``reset``
     rows restart their cache at length 0 first; ``active`` rows append this
     chunk's tokens; every other row's cache and length stay exactly as they
@@ -818,7 +866,7 @@ def prefill_serving(params: Params, cache: contiguous.KVCache, tokens: torch.Ten
     cache."""
     cache.lengths.masked_fill_(_as_mask(reset, cache.lengths.device), 0)
     return _prefill_contiguous(params, cache, tokens, new_lengths, cos, sin, cfg, active=active,
-                               axis_name=axis_name)
+                               axis_name=axis_name, lora=lora, lora_sel=lora_sel)
 
 
 # ---------------------------------------------------------------------------
@@ -828,7 +876,7 @@ def prefill_serving(params: Params, cache: contiguous.KVCache, tokens: torch.Ten
 
 def decode_step_paged(params: Params, cache: paged.PagedKVCache, tokens: torch.Tensor,
                       cos: torch.Tensor, sin: torch.Tensor, cfg: ModelConfig,
-                      active: torch.Tensor | None = None, axis_name=None):
+                      active: torch.Tensor | None = None, axis_name=None, lora=None, lora_sel=None):
     """One decode step against the page pools (JAX llama.py:1632-1747): each
     layer appends through the page table at ``min(pos, S_logical - 1)`` and
     attends, in one launch of kernel K7 with K8 folded in
@@ -844,14 +892,15 @@ def decode_step_paged(params: Params, cache: paged.PagedKVCache, tokens: torch.T
         return paged.append_decode_attend_paged(cache, lidx, q, k_new, v_new, att_lengths,
                                                 sm_scale=cfg.sm_scale(), **_attn_options(cfg, lidx))
 
-    logits = _decode_run(params, tokens, pos, cos, sin, cfg, attend, axis_name)
+    logits = _decode_run(params, tokens, pos, cos, sin, cfg, attend, axis_name, lora, lora_sel)
     cache.lengths.copy_(lengths_now)
     return logits, cache
 
 
 def prefill_serving_paged(params: Params, cache: paged.PagedKVCache, tokens: torch.Tensor,
                           new_lengths: torch.Tensor, active, reset, cos: torch.Tensor,
-                          sin: torch.Tensor, cfg: ModelConfig, prefix_len: int = 0, axis_name=None):
+                          sin: torch.Tensor, cfg: ModelConfig, prefix_len: int = 0, axis_name=None,
+                          lora=None, lora_sel=None):
     """Paged admission prefill (JAX llama.py:1750-1890, 1973-2020); masks as
     in :func:`prefill_serving`. Each active row's chunk is scattered into
     its pages first (inactive rows write nothing). With ``prefix_len == 0``
@@ -889,7 +938,7 @@ def prefill_serving_paged(params: Params, cache: paged.PagedKVCache, tokens: tor
         return flash_prefill(q, kv[0], kv[1], lengths=kv_lengths, causal=True, q_offsets=start,
                              sm_scale=cfg.sm_scale(), **_attn_options(cfg, lidx))
 
-    logits = _prefill_run(params, tokens, new_lengths, start, cos, sin, cfg, attend, axis_name)
+    logits = _prefill_run(params, tokens, new_lengths, start, cos, sin, cfg, attend, axis_name, lora, lora_sel)
     cache.lengths.copy_(kv_lengths)
     return logits, cache
 
@@ -943,7 +992,7 @@ def _decode_rounds(step, tok, cache, n_steps, sampling, with_logprobs, topk_logp
 def decode_multi(params: Params, cache: contiguous.KVCache, tok: torch.Tensor, cos, sin, active,
                  cfg: ModelConfig, n_steps: int, sampling: dict | None = None,
                  with_logprobs: bool = False, topk_logprobs: int = 0,
-                 max_len_hint: int | None = None, axis_name=None) -> tuple:
+                 max_len_hint: int | None = None, axis_name=None, lora=None, lora_sel=None) -> tuple:
     """``n_steps`` decode steps (JAX llama.py:1071-1179) -> (tokens (B, n)
     int32, next pending token (B,), cache[, chosen-token logprobs (B, n)]
     [, top-k logprobs (B, n, K), top-k ids (B, n, K)]), all on the device:
@@ -951,23 +1000,26 @@ def decode_multi(params: Params, cache: contiguous.KVCache, tok: torch.Tensor, c
     ``core.sampling.state_tensors``) switches argmax to per-slot sampling
     keyed on (seed, position); logprobs are under the unmodified
     distribution. ``max_len_hint`` sizes the TPU grid and is unused here
-    (the kernels walk each row's own length)."""
+    (the kernels walk each row's own length). ``lora`` / ``lora_sel`` as in
+    :func:`decode_step`, the same selector every step."""
     del max_len_hint
     active = _as_mask(active, cache.lengths.device)
     return _decode_rounds(
-        lambda t: decode_step(params, cache, t, cos, sin, cfg, active=active, axis_name=axis_name)[0],
+        lambda t: decode_step(params, cache, t, cos, sin, cfg, active=active, axis_name=axis_name, lora=lora,
+                              lora_sel=lora_sel)[0],
         tok, cache, n_steps, sampling, with_logprobs, topk_logprobs)
 
 
 def decode_multi_paged(params: Params, cache: paged.PagedKVCache, tok: torch.Tensor, cos, sin,
                        active, cfg: ModelConfig, n_steps: int, sampling: dict | None = None,
                        with_logprobs: bool = False, topk_logprobs: int = 0,
-                       max_len_hint: int | None = None, axis_name=None) -> tuple:
+                       max_len_hint: int | None = None, axis_name=None, lora=None, lora_sel=None) -> tuple:
     """Paged twin of :func:`decode_multi` (JAX llama.py:1893-1970)."""
     del max_len_hint
     active = _as_mask(active, cache.lengths.device)
     return _decode_rounds(
-        lambda t: decode_step_paged(params, cache, t, cos, sin, cfg, active=active, axis_name=axis_name)[0],
+        lambda t: decode_step_paged(params, cache, t, cos, sin, cfg, active=active, axis_name=axis_name,
+                                    lora=lora, lora_sel=lora_sel)[0],
         tok, cache, n_steps, sampling, with_logprobs, topk_logprobs)
 
 

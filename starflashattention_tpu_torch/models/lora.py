@@ -10,14 +10,20 @@ checkpoint.
 
 An adapter tree is ``{"layers": {name: {"a": (L, in, r), "b": (L, r,
 out)}}, "scale": alpha / r}`` (a 0-d tensor, as in the JAX package, where it
-is a leaf that ``jax.grad`` differentiates too). Multi-LoRA serving
-(``stack_adapters``, ``delta_multi``, ``adapter_onehot``) is not ported
-(ROADMAP Queue 1 item 14).
+is a leaf that ``jax.grad`` differentiates too).
+
+Multi-LoRA serving (S-LoRA style, JAX lora.py:133-205): :func:`stack_adapters`
+stacks N trained adapters into one tree, :func:`adapter_onehot` turns each
+batch row's adapter id into a (B, N) selector, and :func:`delta_multi` adds
+each row's own adapter to a projection, which the serving entries of
+``models/llama`` and both engines (``lora_adapters``, ``Request.adapter``) do.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from starflashattention_tpu_torch.runtime.params import ModelConfig
 from starflashattention_tpu_torch.utils.device import resolve_device
@@ -124,3 +130,95 @@ def loss_and_grads(base_params, lora, batch, cfg: ModelConfig, cos, sin, *, use_
     return train.value_and_grad(
         lambda ad: loss_fn(base_params, ad, batch, cfg, cos, sin, use_flash=use_flash, remat=remat),
         lora)
+
+
+# ---------------------------------------------------------------------------
+# Multi-LoRA serving: N adapters resident, one picked per request
+# ---------------------------------------------------------------------------
+
+
+def serving_layout(a: torch.Tensor) -> torch.Tensor:
+    """A stacked ``a`` (..., N, in, r) with the same shape and values, stored
+    as (..., in, N, r): :func:`delta_multi` then reads layer ``l``'s ``a``
+    as one (in, N * r) matrix without a copy."""
+    return a.transpose(-3, -2).contiguous().transpose(-3, -2)
+
+
+def stack_adapters(loras: list[dict], device: torch.device | str | None = None) -> dict:
+    """Stack N trained adapters for serving -> ``{"layers": {name: {"a": (L,
+    N, in, r_max), "b": (L, N, r_max, out)}}}`` on ``device`` (default: the
+    adapters' own). Ranks below the largest are zero-padded (a padded rank
+    adds exact zeros), and each adapter's ``scale`` is folded into its ``b``
+    in the adapter's dtype before stacking, so the values equal the JAX
+    package's. ``a`` is stored in :func:`serving_layout`. Every adapter must
+    target the same projections."""
+    if not loras:
+        raise ValueError("stack_adapters needs at least one adapter")
+    names = sorted(loras[0]["layers"])
+    for lr in loras[1:]:
+        if sorted(lr["layers"]) != names:
+            raise ValueError(f"adapters target different projections: {names} vs {sorted(lr['layers'])}")
+    r_max = max(lr["layers"][names[0]]["a"].shape[-1] for lr in loras)
+    dev = torch.device(device) if device is not None else loras[0]["layers"][names[0]]["a"].device
+    layers = {}
+    for name in names:
+        a_s, b_s = [], []
+        for lr in loras:
+            a, b = lr["layers"][name]["a"].to(dev), lr["layers"][name]["b"].to(dev)
+            pad = r_max - a.shape[-1]
+            a_s.append(F.pad(a, (0, pad)))
+            b_s.append(F.pad(b, (0, 0, 0, pad)) * torch.as_tensor(lr["scale"], dtype=b.dtype, device=dev))
+        layers[name] = {"a": torch.stack(a_s, dim=2).transpose(1, 2),  # stored (L, in, N, r)
+                        "b": torch.stack(b_s, dim=1)}
+    return {"layers": layers}
+
+
+def num_adapters(stack: dict) -> int:
+    "N of a stacked tree (axis 1 of any factor)."
+    return next(iter(stack["layers"].values()))["a"].shape[1]
+
+
+def layer_slice(stack: dict | None, lidx: int) -> dict | None:
+    """Layer ``lidx`` of a stacked tree, ``{name: {"a": (N, in, r), "b": (N,
+    r, out)}}`` (views), or None without adapters."""
+    if stack is None:
+        return None
+    return {name: {"a": ab["a"][lidx], "b": ab["b"][lidx]} for name, ab in stack["layers"].items()}
+
+
+def delta_multi(x: torch.Tensor, ml: dict | None, name: str, sel: torch.Tensor):
+    """Each row's own adapter's contribution to projection ``name`` -> x's
+    shape with ``out`` features in x's dtype, or None when the projection
+    has no adapter. ``x`` is (B, in) or (B, S, in); ``ml`` one layer of a
+    stacked tree (:func:`layer_slice`); ``sel`` the (B, N) one-hot selector,
+    whose all-zero row (the base model) gives exactly 0.
+
+    Every adapter's ``x @ a`` runs in the adapter's dtype as one product
+    with the (in, N * r) matrix of all N (a view of the stack in
+    :func:`serving_layout`; another layout is copied each call), the
+    selector zeroes the other adapters' rank columns, and one product with
+    ``b`` over the N * r rank rows sums the row's adapter alone: each row
+    gets its adapter's ``(x @ a) @ b`` (up to fp32 summation order; the JAX
+    package's einsums compute all N and then select), without JAX's (rows,
+    N, out) intermediate."""
+    if ml is None or name not in ml:
+        return None
+    a, b = ml[name]["a"], ml[name]["b"]  # (N, in, r), (N, r, out)
+    n, fan_in, r = a.shape
+    lead = x.shape[:-1]  # (B,) or (B, S)
+    y = x.reshape(-1, fan_in).to(a.dtype) @ a.transpose(0, 1).reshape(fan_in, n * r)  # (M, N * r)
+    w = sel.to(a.dtype).view(sel.shape[0], *([1] * (len(lead) - 1)), n, 1)
+    z = y.view(*lead, n, r) * w  # the row's adapter kept, the others' rank columns zero
+    d = z.view(-1, n * r) @ b.reshape(n * r, b.shape[-1])
+    return d.view(*lead, b.shape[-1]).to(x.dtype)
+
+
+def adapter_onehot(idx, n: int, device: torch.device | str | None = None) -> torch.Tensor:
+    """(B,) adapter ids (-1: the base model) -> (B, N) fp32 one-hot
+    selector. A tensor is compared on its own device; a list or array on
+    the host, then copied to ``device`` (default: the CPU) at once."""
+    if torch.is_tensor(idx):
+        idx = idx.to(torch.int32)
+        return (idx[:, None] == torch.arange(n, device=idx.device, dtype=torch.int32)[None, :]).float()
+    onehot = np.asarray(idx, np.int32)[:, None] == np.arange(n, dtype=np.int32)[None, :]
+    return torch.from_numpy(onehot.astype(np.float32)).to("cpu" if device is None else device)

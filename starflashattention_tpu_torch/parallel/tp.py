@@ -34,8 +34,18 @@ updated in place.
 
 The builders take none of the flags JAX uses to pick its specs
 (``quantized``, ``weight_quant``, ``lm_head_quant``, the draft's): the
-port's params and caches carry their own structure. Multi-LoRA under TP
-(``shard_lora``, ``lora_stack``) is not ported (ROADMAP item 14e).
+port's params and caches carry their own structure.
+
+Multi-LoRA under TP (JAX tp.py:100-146): :func:`shard_lora` cuts a stacked
+adapter tree (``models/lora.stack_adapters``) as the weights it adapts.
+Column-parallel targets (``wqkv``, ``w_gate_up``) keep ``a`` whole and take
+their shard of ``b``'s output columns in the permuted fused order, so each
+rank's delta lands on its own columns; row-parallel targets (``wo``,
+``w_down``) take their shard of ``a``'s input rows and keep ``b`` whole,
+and the layer's sum over ``model`` completes the delta (it is added before
+that sum). The serving builders given ``lora_stack`` take the rank's stack
+and the global (B, N) selector as trailing operands, the selector's rows
+cut over ``data`` like every per-slot input.
 """
 
 from __future__ import annotations
@@ -53,8 +63,6 @@ from starflashattention_tpu_torch.parallel import comm
 from starflashattention_tpu_torch.runtime.params import ModelConfig
 
 DATA, MODEL = "data", "model"
-LORA_UNPORTED = ("multi-LoRA under tensor parallelism (shard_lora, lora_stack) is not ported yet (ROADMAP "
-                 "Queue 1 item 14e)")
 
 
 def _wqkv_perm(cfg: ModelConfig, tp: int) -> np.ndarray:
@@ -297,8 +305,34 @@ def shard_paged_cache(cache: PagedKVCache, mesh) -> PagedKVCache:
     return _shard_fields(cache, paged_cache_specs(), mesh)
 
 
+_LORA_COL = {"a": (), "b": (None, None, None, MODEL)}  # (L, N, r, out): the output columns sharded
+_LORA_ROW = {"a": (None, None, MODEL, None), "b": ()}  # (L, N, in, r): the input rows sharded
+_LORA_KIND = {"wqkv": _LORA_COL, "w_gate_up": _LORA_COL, "wo": _LORA_ROW, "w_down": _LORA_ROW}
+
+
+def lora_specs(stack: dict) -> dict:
+    """The spec tree of a stacked adapter tree (JAX tp.py:122-125)."""
+    return {"layers": {name: _LORA_KIND[name] for name in stack["layers"]}}
+
+
 def shard_lora(stack: dict, mesh, cfg: ModelConfig) -> dict:
-    raise NotImplementedError(LORA_UNPORTED)
+    """This rank's shard of a FULL stacked adapter tree (the same on every
+    rank): ``b`` of a column-parallel target takes its columns of the fused
+    permutation the base weight got (:func:`_wqkv_perm`,
+    :func:`_gate_up_perm`), ``a`` of a row-parallel one its input rows.
+    Fresh tensors, ``a`` in ``lora.serving_layout``; the full tree is not
+    modified."""
+    from starflashattention_tpu_torch.models.lora import serving_layout
+
+    model = _axis(mesh, MODEL)
+    tp = 1 if model is None else model.size
+    specs = lora_specs(stack)["layers"]
+    layers = {}
+    for name, ab in stack["layers"].items():
+        perm = _PERMS[name](cfg, tp) if name in _PERMS and tp > 1 else None
+        layers[name] = {"a": serving_layout(_local(ab["a"], specs[name]["a"], mesh)),
+                        "b": _local(ab["b"], specs[name]["b"], mesh, perm)}
+    return {"layers": layers}
 
 
 def _check(cfg: ModelConfig, mesh) -> None:
@@ -393,16 +427,26 @@ def make_tp_prefill(mesh, cfg: ModelConfig):
     return fn
 
 
+def _lora_operands(rest: list, lora_stack, data) -> tuple:
+    """(this rank's stack, this data shard's selector rows) from a builder's
+    trailing operands, or (None, None) when it was built without adapters."""
+    if lora_stack is None:
+        return None, None
+    stack, sel = rest
+    return stack, _rows(sel, data)
+
+
 def _decode_multi_fn(mesh, cfg, n_steps, sampling, with_logprobs, topk_logprobs, lora_stack, entry):
-    if lora_stack is not None:
-        raise NotImplementedError(LORA_UNPORTED)
     _check(cfg, mesh)
     scfg, model, data = _shard_cfg(cfg, mesh), _axis(mesh, MODEL), _axis(mesh, DATA)
 
     def fn(params, cache, tok, cos, sin, active, *rest):
-        samp = _rows(rest[0], data) if sampling else None
+        rest = list(rest)
+        samp = _rows(rest.pop(0), data) if sampling else None
+        lora, sel = _lora_operands(rest, lora_stack, data)
         out = entry(params, cache, _rows(tok, data), cos, sin, _rows(active, data), scfg, n_steps,
-                    sampling=samp, with_logprobs=with_logprobs, topk_logprobs=topk_logprobs, axis_name=model)
+                    sampling=samp, with_logprobs=with_logprobs, topk_logprobs=topk_logprobs, axis_name=model,
+                    lora=lora, lora_sel=sel)
         toks, pending, cache, extra = out[0], out[1], out[2], out[3:]
         toks, pending, *extra = _gathered((toks, pending, *extra), data)
         return (toks, pending, cache, *extra)
@@ -416,7 +460,10 @@ def make_tp_decode_multi(mesh, cfg: ModelConfig, n_steps: int, sampling: bool = 
     active[, sampling state]) -> (tokens (B, n), pending (B,), cache[,
     logprobs (B, n)][, top-k logprobs, ids])``, the TP + DP twin of
     ``llama.decode_multi``. Each data shard samples its own rows (keyed on
-    (seed, position): the same draw on every rank of its model group)."""
+    (seed, position): the same draw on every rank of its model group).
+    ``lora_stack`` (its structure only) builds the multi-LoRA form: ``fn``
+    then takes two more operands, this rank's stack (:func:`shard_lora`) and
+    the global (B, N) one-hot selector."""
     return _decode_multi_fn(mesh, cfg, n_steps, sampling, with_logprobs, topk_logprobs, lora_stack,
                             llama.decode_multi)
 
@@ -431,15 +478,16 @@ def make_tp_decode_multi_paged(mesh, cfg: ModelConfig, n_steps: int, sampling: b
 
 def make_tp_prefill_serving(mesh, cfg: ModelConfig, lora_stack: dict | None = None):
     """The sharded admission prefill: ``fn(params, cache, tokens,
-    new_lengths, active, reset, cos, sin) -> (logits (B, V), cache)``."""
-    if lora_stack is not None:
-        raise NotImplementedError(LORA_UNPORTED)
+    new_lengths, active, reset, cos, sin) -> (logits (B, V), cache)``;
+    ``lora_stack`` as in :func:`make_tp_decode_multi`."""
     _check(cfg, mesh)
     scfg, model, data = _shard_cfg(cfg, mesh), _axis(mesh, MODEL), _axis(mesh, DATA)
 
-    def fn(params, cache, tokens, new_lengths, active, reset, cos, sin):
+    def fn(params, cache, tokens, new_lengths, active, reset, cos, sin, *rest):
         r = [_rows(t, data) for t in (tokens, new_lengths, active, reset)]
-        logits, cache = llama.prefill_serving(params, cache, *r, cos, sin, scfg, axis_name=model)
+        lora, sel = _lora_operands(list(rest), lora_stack, data)
+        logits, cache = llama.prefill_serving(params, cache, *r, cos, sin, scfg, axis_name=model, lora=lora,
+                                              lora_sel=sel)
         return _gathered((logits,), data)[0], cache
 
     return fn
@@ -447,16 +495,16 @@ def make_tp_prefill_serving(mesh, cfg: ModelConfig, lora_stack: dict | None = No
 
 def make_tp_prefill_serving_paged(mesh, cfg: ModelConfig, prefix_len: int = 0, lora_stack: dict | None = None):
     """The sharded paged admission prefill; ``prefix_len`` > 0 is the chunked
-    continuation (each shard gathers its prefix from its own partition)."""
-    if lora_stack is not None:
-        raise NotImplementedError(LORA_UNPORTED)
+    continuation (each shard gathers its prefix from its own partition);
+    ``lora_stack`` as in :func:`make_tp_decode_multi`."""
     _check(cfg, mesh)
     scfg, model, data = _shard_cfg(cfg, mesh), _axis(mesh, MODEL), _axis(mesh, DATA)
 
-    def fn(params, cache, tokens, new_lengths, active, reset, cos, sin):
+    def fn(params, cache, tokens, new_lengths, active, reset, cos, sin, *rest):
         r = [_rows(t, data) for t in (tokens, new_lengths, active, reset)]
+        lora, sel = _lora_operands(list(rest), lora_stack, data)
         logits, cache = llama.prefill_serving_paged(params, cache, *r, cos, sin, scfg, prefix_len=prefix_len,
-                                                    axis_name=model)
+                                                    axis_name=model, lora=lora, lora_sel=sel)
         return _gathered((logits,), data)[0], cache
 
     return fn

@@ -41,9 +41,19 @@ data axis; slot ``s`` lives on data shard ``s // (num_slots / data)``.
 ids are local to that shard's pool partition, and preempts within the
 shard that ran out.
 
+Multi-LoRA serving (S-LoRA style, JAX engine.py:217-237): with
+``lora_adapters`` (a list of trained adapter trees, ``models/lora``) both
+engines hold the N adapters stacked on their device (under ``mesh`` each
+rank its shard, ``parallel.tp.shard_lora``), and each request picks one by
+``Request.adapter`` (or ``generate(..., adapters=)``), None for the base
+model; requests on different adapters share every batch. Each prefill and
+decode call takes the (B, N) one-hot of the slots' adapters. A preempted
+request resumes on its adapter, and the paged engine's prefix cache matches
+pages only within one adapter (``serving/prefix_cache.py``).
+``spec_decode`` with adapters raises, as in JAX.
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: ``lora_adapters`` / request adapters (item 14; with ``mesh`` item
-14e), ``run_resilient`` / ``recover_device_state`` (item 17). As in JAX, an
+item: ``run_resilient`` / ``recover_device_state`` (item 17). As in JAX, an
 MLA model (DeepSeek-V2) takes none of ``mesh``, ``spec_decode`` and
 ``lora_adapters``, and ``prefix_cache`` does not compose with ``mesh``.
 
@@ -68,6 +78,7 @@ import torch
 from starflashattention_tpu_torch.cache import contiguous, paged
 from starflashattention_tpu_torch.core import sampling as core_sampling
 from starflashattention_tpu_torch.models import llama
+from starflashattention_tpu_torch.models import lora as lora_lib
 from starflashattention_tpu_torch.runtime.params import ModelConfig
 from starflashattention_tpu_torch.serving.scheduler import Request, Scheduler
 from starflashattention_tpu_torch.utils.device import resolve_device
@@ -149,8 +160,6 @@ class Engine:
             raise NotImplementedError(
                 "MLA serves on the single-device contiguous and paged engines for now: no mesh, "
                 "spec_decode or lora_adapters with it (ROADMAP Queue 2, K1 verify at D 640)")
-        if lora_adapters is not None:
-            raise _unported("multi-LoRA serving (lora_adapters)", "14" if mesh is None else "14e")
         llama.check_supported(cfg)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
@@ -186,6 +195,18 @@ class Engine:
                                  "stream to be bit-identical")
             if topk_logprobs:
                 raise ValueError("topk_logprobs does not compose with spec_decode")
+        # Multi-LoRA serving: the N adapters stacked once on the engine's
+        # device; each slot's adapter id (-1: the base model) picks its row
+        # of the one-hot selector every prefill and decode call takes.
+        self.lora = None
+        self._n_adapters = 0
+        if lora_adapters is not None:
+            if spec_decode is not None:
+                raise NotImplementedError("multi-LoRA does not compose with spec_decode (the verify program has "
+                                          "no adapter operands)")
+            self.lora = lora_lib.stack_adapters(lora_adapters, device=self.device)
+            self._n_adapters = lora_lib.num_adapters(self.lora)
+        self._slot_adapter = np.full((num_slots,), -1, np.int32)
         self.cfg = cfg
         self.params = params
         self.num_slots = num_slots
@@ -239,6 +260,9 @@ class Engine:
         if data is not None and self.num_slots % data.size:
             raise ValueError(f"num_slots {self.num_slots} not divisible by data axis {data.size}")
         self._build_sharded_fns(tp)
+        if self.lora is not None:
+            # b column-permuted and sharded like the weight it adapts, a row-sharded (tp.shard_lora)
+            self.lora = tp.shard_lora(self.lora, self.mesh, self.cfg)
         return tp.shard_params(params, self.mesh, self.cfg)
 
     def _build_sharded_fns(self, tp) -> None:
@@ -252,8 +276,8 @@ class Engine:
                 self.mesh, self.cfg, self.steps_per_round, num_draft=self.spec_decode, ngram=self.spec_ngram)
         self._tp_decode_multi = tp.make_tp_decode_multi(
             self.mesh, self.cfg, self.steps_per_round, sampling=self.enable_sampling,
-            with_logprobs=self.return_logprobs, topk_logprobs=self.topk_logprobs)
-        self._tp_prefill = tp.make_tp_prefill_serving(self.mesh, self.cfg)
+            with_logprobs=self.return_logprobs, topk_logprobs=self.topk_logprobs, lora_stack=self.lora)
+        self._tp_prefill = tp.make_tp_prefill_serving(self.mesh, self.cfg, lora_stack=self.lora)
 
     # -- cache-backend hooks (overridden by PagedEngine) ----------------------
 
@@ -312,7 +336,7 @@ class Engine:
         # matters to the paged backend only
         if self.mesh is not None:
             logits, self.cache = self._tp_prefill(self.params, self.cache, toks, new_lengths, admit_mask,
-                                                  reset_mask, self.cos, self.sin)
+                                                  reset_mask, self.cos, self.sin, *self._lora_args())
             if self.draft_cache is not None:
                 _, self.draft_cache = self._tp_draft_prefill(self.draft_params, self.draft_cache, toks,
                                                              new_lengths, admit_mask, reset_mask, self.dcos,
@@ -320,7 +344,7 @@ class Engine:
             return logits
         logits, self.cache = llama.prefill_serving(
             self.params, self.cache, toks, new_lengths, admit_mask, reset_mask,
-            self.cos, self.sin, self.cfg,
+            self.cos, self.sin, self.cfg, lora=self.lora, lora_sel=self._lora_sel(),
         )
         if self.draft_cache is not None:
             # the draft ingests the same windows; only its cache matters
@@ -335,6 +359,7 @@ class Engine:
             self.params, self.cache, self.pending_tok, self.cos, self.sin, active, self.cfg, n,
             sampling=self._sampling_state(), with_logprobs=self.return_logprobs,
             topk_logprobs=self.topk_logprobs, max_len_hint=max_len_hint,
+            lora=self.lora, lora_sel=self._lora_sel(),
         )
         return self._unpack_decode(out)
 
@@ -342,7 +367,20 @@ class Engine:
         args = (self.params, self.cache, self.pending_tok, self.cos, self.sin, active)
         if self.enable_sampling:
             args = args + (self._sampling_state(),)
-        return self._tp_decode_multi(*args)
+        return self._tp_decode_multi(*args, *self._lora_args())
+
+    # -- multi-LoRA (JAX engine.py:425-432) --------------------------------------
+
+    def _lora_sel(self) -> torch.Tensor | None:
+        """(B, N) one-hot of the slots' adapters (a zero row: the base
+        model), built on the host and copied once; None without adapters."""
+        if self.lora is None:
+            return None
+        return lora_lib.adapter_onehot(self._slot_adapter, self._n_adapters, device=self.device)
+
+    def _lora_args(self) -> tuple:
+        """The sharded builders' trailing adapter operands (stack, selector)."""
+        return () if self.lora is None else (self.lora, self._lora_sel())
 
     _HINT_QUANTUM = 512
 
@@ -459,12 +497,17 @@ class Engine:
             )
 
     def _admit_and_prefill(self) -> None:
-        admitted = self._prepare_admit(self.sched.admit())
+        admitted = self.sched.admit()
+        for _slot, req in admitted:  # before any page is allocated for them
+            if req.adapter is not None and not 0 <= req.adapter < self._n_adapters:
+                raise ValueError(f"request {req.uid}: adapter {req.adapter} out of range: the engine holds "
+                                 f"{self._n_adapters} adapters")
+        admitted = self._prepare_admit(admitted)
         if not admitted:
             return
         for slot, req in admitted:
-            if req.adapter is not None:
-                raise _unported(f"request {req.uid}: LoRA adapters", "14")
+            # every admission sets it: a re-admitted (preempted) request re-prefills on its own adapter
+            self._slot_adapter[slot] = -1 if req.adapter is None else req.adapter
             self._slot_sampling[slot] = req.sampling
         # A re-admitted (preempted) request prefills prompt + generated-so-far.
         texts = [(slot, r, r.prompt + r.output) for slot, r in admitted]
@@ -670,9 +713,12 @@ class Engine:
         """Submit + run + collect outputs in order. ``sampling`` is one
         SamplingParams for all prompts or a per-prompt list; ``stop``
         sequences apply to every prompt (matched tokens are truncated);
-        ``on_token(request, token)`` streams tokens as they are recorded."""
-        if adapters is not None and any(a is not None for a in adapters):
-            raise _unported("multi-LoRA serving (adapters)", "14")
+        ``on_token(request, token)`` streams tokens as they are recorded.
+        ``adapters``: one adapter index (or None, the base model) a prompt."""
+        if adapters is None:
+            adapters = [None] * len(prompts)
+        elif len(adapters) != len(prompts):
+            raise ValueError(f"adapters has {len(adapters)} entries for {len(prompts)} prompts")
         if sampling is None:
             samp = [core_sampling.GREEDY] * len(prompts)
         elif isinstance(sampling, core_sampling.SamplingParams):
@@ -683,8 +729,8 @@ class Engine:
             raise ValueError(f"sampling has {len(samp)} entries for {len(prompts)} prompts")
         reqs = [
             Request(uid=i, prompt=list(p), max_new_tokens=max_new_tokens, eos_token=eos_token,
-                    sampling=s, stop=stop, on_token=on_token)
-            for i, (p, s) in enumerate(zip(prompts, samp))
+                    sampling=s, stop=stop, on_token=on_token, adapter=a)
+            for i, (p, s, a) in enumerate(zip(prompts, samp, adapters))
         ]
         for r in reqs:
             self.submit(r)
@@ -798,12 +844,13 @@ class PagedEngine(Engine):
     def _build_sharded_fns(self, tp) -> None:
         self._tp_decode_multi = tp.make_tp_decode_multi_paged(
             self.mesh, self.cfg, self.steps_per_round, sampling=self.enable_sampling,
-            with_logprobs=self.return_logprobs, topk_logprobs=self.topk_logprobs)
+            with_logprobs=self.return_logprobs, topk_logprobs=self.topk_logprobs, lora_stack=self.lora)
         fns = {}
 
         def tp_prefill_for(prefix_len: int):  # one function a chunk index, as JAX's programs
             if prefix_len not in fns:
-                fns[prefix_len] = tp.make_tp_prefill_serving_paged(self.mesh, self.cfg, prefix_len=prefix_len)
+                fns[prefix_len] = tp.make_tp_prefill_serving_paged(self.mesh, self.cfg, prefix_len=prefix_len,
+                                                                   lora_stack=self.lora)
             return fns[prefix_len]
 
         self._tp_prefill = tp_prefill_for
@@ -926,7 +973,7 @@ class PagedEngine(Engine):
             if not exhausted:
                 text = req.prompt + req.output
                 if self._prefix is not None:
-                    pages, matched = self._prefix.match(text)
+                    pages, matched = self._prefix.match(text, self._adapter_key(req))
                     self._cached_pages[slot] = pages
                     self._cached_len[slot] = matched
                 self._handles[slot] = self._pool_for(slot).seq_new()
@@ -949,6 +996,12 @@ class PagedEngine(Engine):
         self.stats.prefix_tokens_reused = self._prefix.tokens_reused if self._prefix else 0
         return accepted
 
+    @staticmethod
+    def _adapter_key(req: Request) -> int:
+        """The prefix cache's salt: a page's KV holds its writer's adapter's
+        ``wqkv`` delta, so pages match within one adapter (-1: the base)."""
+        return -1 if req.adapter is None else int(req.adapter)
+
     def _admission_offsets(self, texts) -> np.ndarray:
         """Prefix-cache hits skip their cached tokens at prefill; their device
         length must equal the cached token count BEFORE the (reset=False)
@@ -967,7 +1020,8 @@ class PagedEngine(Engine):
     def _after_prefill(self, texts) -> None:
         """Publish each admitted prompt's freshly written full pages to the
         prefix store (ownership moves out of the slot's handle; the slot keeps
-        a reference). Keys cover PROMPT tokens only."""
+        a reference). Keys cover PROMPT tokens only, salted with the
+        request's adapter."""
         if self._prefix is None:
             return
         for slot, req, _text in texts:
@@ -975,11 +1029,11 @@ class PagedEngine(Engine):
                 continue
             have = len(self._cached_pages[slot])
             n_full = len(req.prompt) // self.page_size
-            run = self._prefix.insert_run(req.prompt, have, n_full - have)
+            run = self._prefix.insert_run(req.prompt, have, n_full - have, self._adapter_key(req))
             if run <= 0:
                 continue
             transfer = self._pool_for(slot).seq_release_prefix(self._handles[slot], run)
-            adopted = self._prefix.insert(req.prompt, have, transfer)
+            adopted = self._prefix.insert(req.prompt, have, transfer, self._adapter_key(req))
             assert len(adopted) == run, "insert_run promised these keys were new"
             self._cached_pages[slot].extend(adopted)
             self._cached_len[slot] += run * self.page_size
@@ -1068,11 +1122,12 @@ class PagedEngine(Engine):
         self._sync_table()
         if self.mesh is not None:
             logits, self.cache = self._tp_prefill(prefix_len)(self.params, self.cache, toks, new_lengths,
-                                                              admit_mask, reset_mask, self.cos, self.sin)
+                                                              admit_mask, reset_mask, self.cos, self.sin,
+                                                              *self._lora_args())
             return logits
         logits, self.cache = llama.prefill_serving_paged(
             self.params, self.cache, toks, new_lengths, admit_mask, reset_mask,
-            self.cos, self.sin, self.cfg, prefix_len=prefix_len,
+            self.cos, self.sin, self.cfg, prefix_len=prefix_len, lora=self.lora, lora_sel=self._lora_sel(),
         )
         return logits
 
@@ -1083,5 +1138,6 @@ class PagedEngine(Engine):
             self.params, self.cache, self.pending_tok, self.cos, self.sin, active, self.cfg, n,
             sampling=self._sampling_state(), with_logprobs=self.return_logprobs,
             topk_logprobs=self.topk_logprobs, max_len_hint=max_len_hint,
+            lora=self.lora, lora_sel=self._lora_sel(),
         )
         return self._unpack_decode(out)

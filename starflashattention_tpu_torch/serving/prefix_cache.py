@@ -24,6 +24,12 @@ host-side store that makes that safe:
   handle, which keeps only its private tail) and leave it only through
   ``evict_lru`` → ``free_raw``.
 
+- **Adapter salt.** Under multi-LoRA serving a page's KV depends on the
+  request's adapter (its ``wqkv`` delta), so the chain's root is salted with
+  the adapter id (-1 for the base model): a page matches only requests on
+  the same adapter. The JAX package keys by tokens alone, so there a request
+  on adapter 1 reuses pages written under adapter 0.
+
 Sharing deliberately stops at ``len(prompt) // page_size`` full pages:
 partially-filled pages would be appended into by their owner. Matching
 additionally stops at ``(len(text) - 1) // page_size`` so every admission
@@ -37,10 +43,11 @@ import hashlib
 from collections import OrderedDict
 
 
-def _page_keys(tokens: list[int], page_size: int, n_pages: int) -> list[bytes]:
-    """Chain keys for the first ``n_pages`` full pages of ``tokens``."""
+def _page_keys(tokens: list[int], page_size: int, n_pages: int, adapter: int = -1) -> list[bytes]:
+    """Chain keys for the first ``n_pages`` full pages of ``tokens`` under
+    ``adapter`` (-1: the base model), the root salted with it."""
     keys = []
-    h = b""
+    h = f"adapter {int(adapter)}".encode()
     for i in range(n_pages):
         chunk = tokens[i * page_size : (i + 1) * page_size]
         m = hashlib.sha1(h)
@@ -80,13 +87,14 @@ class PrefixCache:
 
     # -- core ops ---------------------------------------------------------------
 
-    def match(self, tokens: list[int]) -> tuple[list[int], int]:
-        """Longest cached chain over ``tokens`` → (pages acquired, tokens
-        covered). Caps at len(tokens)-1 so the caller always prefills >= 1
-        token. Acquired pages are pinned (caller must release())."""
+    def match(self, tokens: list[int], adapter: int = -1) -> tuple[list[int], int]:
+        """Longest cached chain over ``tokens`` under ``adapter`` → (pages
+        acquired, tokens covered). Caps at len(tokens)-1 so the caller always
+        prefills >= 1 token. Acquired pages are pinned (caller must
+        release())."""
         max_pages = max(len(tokens) - 1, 0) // self.page_size
         pages: list[int] = []
-        for key in _page_keys(tokens, self.page_size, max_pages):
+        for key in _page_keys(tokens, self.page_size, max_pages, adapter):
             page = self._page_of.get(key)
             if page is None:
                 break
@@ -100,14 +108,14 @@ class PrefixCache:
             self.misses += 1
         return pages, len(pages) * self.page_size
 
-    def insert_run(self, tokens: list[int], start: int, avail: int) -> int:
+    def insert_run(self, tokens: list[int], start: int, avail: int, adapter: int = -1) -> int:
         """How many pages from chain index ``start`` can be adopted as a
         contiguous run of NEW keys (stops at the first already-present key —
         a concurrent identical prompt published first). Presence is checked
         key-by-key because eviction can punch holes in a stored chain."""
         if avail <= 0:
             return 0
-        keys = _page_keys(tokens, self.page_size, start + avail)
+        keys = _page_keys(tokens, self.page_size, start + avail, adapter)
         run = 0
         for key in keys[start:]:
             if key in self._page_of:
@@ -116,15 +124,15 @@ class PrefixCache:
         return run
 
     def insert(
-        self, tokens: list[int], n_already_cached: int, new_pages: list[int]
+        self, tokens: list[int], n_already_cached: int, new_pages: list[int], adapter: int = -1
     ) -> list[int]:
         """Register freshly-written full pages ``n_already_cached ..`` of
-        ``tokens``'s prefix. Returns the subset actually adopted (pinned for
+        ``tokens``'s prefix, written under ``adapter``. Returns the subset actually adopted (pinned for
         the caller); pages whose key is already present are NOT adopted — the
         caller keeps owning those duplicates (they stay in its handle and are
         freed with it)."""
         total = n_already_cached + len(new_pages)
-        keys = _page_keys(tokens, self.page_size, total)
+        keys = _page_keys(tokens, self.page_size, total, adapter)
         adopted = []
         for key, page in zip(keys[n_already_cached:], new_pages):
             if key in self._page_of:

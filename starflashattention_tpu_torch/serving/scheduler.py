@@ -33,8 +33,8 @@ class Request:
     # each token is recorded (once per token, in order, before any stop
     # truncation). Exceptions propagate to the engine's run().
     on_token: Optional[object] = None
-    # Multi-LoRA serving: index into the engine's stacked adapters; not
-    # ported yet (ROADMAP Queue 1 item 14), so engines take only None.
+    # Multi-LoRA serving: index into the engine's stacked adapters
+    # (``lora_adapters``), or None for the base model.
     adapter: Optional[int] = None
 
     # filled by the engine

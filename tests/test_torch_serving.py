@@ -34,6 +34,7 @@ from starflashattention_tpu.serving import Scheduler as JScheduler
 from starflashattention_tpu_torch.cache import contiguous as t_cache
 from starflashattention_tpu_torch.core import sampling as t_sampling
 from starflashattention_tpu_torch.models import llama as t_llama
+from starflashattention_tpu_torch.models import lora as t_lora
 from starflashattention_tpu_torch.runtime import params as t_params
 from starflashattention_tpu_torch.serving import Engine, PagedEngine, Request, SamplingParams, Scheduler
 from starflashattention_tpu_torch.utils import bridge
@@ -382,18 +383,24 @@ def _data3_mesh():
 
 
 def test_engine_refuses_what_is_not_ported():
-    """What the port still refuses, and the two ``mesh`` cases, which the
-    port now serves: there it refuses what JAX refuses, 8 slots over a data
-    axis of 3, with and without ``spec_decode`` (JAX engine.py:286-290)."""
+    """What the port still refuses (failure recovery), and what it now
+    serves: ``mesh``, where it refuses what JAX refuses, 8 slots over a
+    data axis of 3, with and without ``spec_decode`` (JAX
+    engine.py:286-290); and ``lora_adapters``, where an engine holding a
+    freshly initialized adapter (``b = 0``) serves a request on it exactly
+    as the base model."""
     _, tc = _cfgs()
     _, tp = _models()
-    for kw, exc, match in ((dict(mesh=_data3_mesh()), ValueError, "divisible by data axis"),
-                           (dict(mesh=_data3_mesh(), spec_decode=2), ValueError, "divisible by data axis"),
-                           (dict(lora_adapters=[{}]), NotImplementedError, "item 14")):
+    for kw in (dict(mesh=_data3_mesh()), dict(mesh=_data3_mesh(), spec_decode=2)):
         if "spec_decode" in kw:
             tc = dataclasses.replace(tc, num_splits=1)
-        with pytest.raises(exc, match=match):
+        with pytest.raises(ValueError, match="divisible by data axis"):
             Engine(tp, tc, device="cpu", **kw)
+    adapter = t_lora.init_lora(tc, torch.Generator().manual_seed(0), rank=4, device="cpu")
+    prompts = _prompts((5, 9))
+    served = Engine(tp, tc, num_slots=2, lora_adapters=[adapter], device="cpu").generate(
+        prompts, 4, adapters=[0, None])
+    assert served == Engine(tp, tc, num_slots=2, device="cpu").generate(prompts, 4)
     eng = Engine(tp, tc, device="cpu")
     with pytest.raises(NotImplementedError, match="item 17"):
         eng.recover_device_state()

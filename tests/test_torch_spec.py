@@ -454,5 +454,6 @@ def test_spec_engine_validation_matches_jax():
                                                                               dict(device="cpu"))):
         with pytest.raises(ValueError, match="divisible by data axis"):
             eng_cls(params, cfg, num_slots=3, spec_decode=2, mesh=mesh, **extra)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Engine(tp, tc, num_slots=2, spec_decode=2, lora_adapters=[{}], device="cpu")
+    for eng_cls, cfg, params, extra in ((JEngine, jc, jp, {}), (Engine, tc, tp, dict(device="cpu"))):
+        with pytest.raises(NotImplementedError, match="the verify program has no adapter operands"):
+            eng_cls(params, cfg, num_slots=2, spec_decode=2, lora_adapters=[{}], **extra)

@@ -27,6 +27,7 @@ from starflashattention_tpu.serving import Engine as JEngine
 from starflashattention_tpu.serving import PagedEngine as JPagedEngine
 from starflashattention_tpu_torch.core import sampling as t_sampling
 from starflashattention_tpu_torch.models import llama as t_llama
+from starflashattention_tpu_torch.models import lora as t_lora
 from starflashattention_tpu_torch.runtime.params import ModelConfig as TConfig
 from starflashattention_tpu_torch.serving import Engine as TEngine
 from starflashattention_tpu_torch.serving import PagedEngine as TPagedEngine
@@ -163,7 +164,10 @@ def test_tp_engine_matches_one_process(world, case):
 def test_tp_engine_refusals():
     """JAX's refusals, kept: ``num_slots`` not divisible by the data axis,
     ``prefix_cache`` with a mesh (``ValueError``) and an MLA model with a
-    mesh; and multi-LoRA with a mesh raises, citing ROADMAP item 14e."""
+    mesh. Multi-LoRA with a mesh is served now: the engine constructs on
+    rank 1's view of the mesh and holds that rank's shard of the stacked
+    adapters (``tp.shard_lora``); ``tests/test_torch_multi_lora.py``
+    serves it over the 4 ranks."""
     tcfg = TConfig.tiny(**worker.TP_CFG)
     params = t_llama.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
     mesh = worker.fake_mesh({"data": 2, "model": 2}, 0)
@@ -174,7 +178,14 @@ def test_tp_engine_refusals():
     mla = TConfig.deepseek_v2_lite(num_layers=1, vocab_size=256, max_seq_len=64)
     with pytest.raises(NotImplementedError, match="MLA"):
         TEngine({}, mla, mesh=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="14e"):
-        TEngine(params, tcfg, num_slots=2, mesh=mesh, lora_adapters=[{}], device="cpu")
+    adapter = t_lora.init_lora(tcfg, torch.Generator().manual_seed(0), rank=4, device="cpu")
+    eng = TEngine(params, tcfg, num_slots=2, mesh=worker.fake_mesh({"data": 2, "model": 2}, 1),
+                  lora_adapters=[adapter], device="cpu")
+    hd = tcfg.head_dim
+    layers = eng.lora["layers"]
+    assert layers["wqkv"]["b"].shape[-1] == (tcfg.num_q_heads + 2 * tcfg.num_kv_heads) * hd // 2
+    assert layers["wo"]["a"].shape[2] == tcfg.num_q_heads * hd // 2
+    assert layers["w_gate_up"]["b"].shape[-1] == tcfg.intermediate_size
+    assert layers["w_down"]["a"].shape[2] == tcfg.intermediate_size // 2
 
 

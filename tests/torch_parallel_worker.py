@@ -1,9 +1,9 @@
 """One rank of the port's parallel tests: a world of processes on the CPU
 over gloo, spawned by ``tests/test_torch_ring.py``,
 ``tests/test_torch_parallel.py``, ``tests/test_torch_tp.py``,
-``tests/test_torch_tp_serving.py``, ``tests/test_torch_pp.py`` and
-``tests/test_torch_tp_train.py`` (one world per file, through
-:func:`run_world`).
+``tests/test_torch_tp_serving.py``, ``tests/test_torch_pp.py``,
+``tests/test_torch_tp_train.py`` and ``tests/test_torch_multi_lora.py`` (one
+world per file, through :func:`run_world`).
 
 Each rank reads the seeded numpy inputs the test wrote (``inputs.npz``),
 joins the group, runs every case of its suite on its shard through the
@@ -125,6 +125,17 @@ PP_BATCH, PP_PROMPT, PP_STEPS = 8, 5, 4
 TPT_MESHES = {"dp2_tp2": {"data": 2, "model": 2}, "tp2_sp2": {"model": 2, "seq": 2}}
 TPT_BATCH, TPT_SEQ, TPT_STEPS = 4, 16, 6
 TPT_MOE = dict(num_experts=4, num_experts_per_tok=2)  # the MoE cases: 2 whole experts a rank of model 2
+
+# ---- multi-LoRA serving under TP x DP (tests/test_torch_multi_lora.py): JAX's tests' model and adapters
+LORA_TP_CFG = dict(TP_CFG, num_splits=1)
+LORA_TP_RANKS = (4, 8)
+LORA_TP_PROMPTS = (5, 9, 12, 7)
+# (engine, keyword arguments, each prompt's adapter, new tokens)
+LORA_TP_CASES = {
+    "engine": ("Engine", dict(num_slots=4, steps_per_round=3), (0, 1, None, 0), 5),
+    "paged_topk": ("PagedEngine", dict(num_slots=4, steps_per_round=3, page_size=16, topk_logprobs=3),
+                   (0, 1, None, 1), 5),
+}
 
 
 def free_port() -> int:
@@ -487,6 +498,47 @@ def _tp_train_suite(inp):
     return out
 
 
+def lora_requests(prompts, adapters, n_new):
+    """One request a prompt, on its adapter (None: the base model)."""
+    from starflashattention_tpu_torch.serving import Request
+
+    return [Request(uid=i, prompt=list(p), max_new_tokens=n_new, adapter=a)
+            for i, (p, a) in enumerate(zip(prompts, adapters))]
+
+
+def lora_outputs(reqs, prefix: str) -> dict:
+    """Each request's stream (-1 after each) and, where recorded, its top-k
+    ids and logprobs a token."""
+    out = {f"{prefix}/streams": np.array([t for r in reqs for t in r.output + [-1]])}
+    if reqs[0].topk:
+        out[f"{prefix}/topk_ids"] = np.array([ids for r in reqs for ids, _ in r.topk])
+        out[f"{prefix}/topk_vals"] = np.array([vals for r in reqs for _, vals in r.topk])
+    return out
+
+
+def _multi_lora_suite(inp):
+    from starflashattention_tpu_torch import parallel
+    from starflashattention_tpu_torch.runtime.params import ModelConfig
+    from starflashattention_tpu_torch.serving import Engine, PagedEngine
+
+    mesh = parallel.make_mesh(TP_MESHES["dp2_tp2"], device="cpu")
+    cfg = ModelConfig.tiny(**LORA_TP_CFG)
+    params = decode_params(inp, "lora_tp/params")
+    loras = [decode_params(inp, f"lora_tp/lora{i}") for i in range(len(LORA_TP_RANKS))]
+    prompts = _prompts(inp, "lora_tp")
+    out = {}
+    for case, (eng_name, kw, adapters, n_new) in LORA_TP_CASES.items():
+        cls = Engine if eng_name == "Engine" else PagedEngine
+        eng = cls(params, cfg, mesh=mesh, lora_adapters=loras, device="cpu", **kw)
+        reqs = lora_requests(prompts, adapters, n_new)
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        out.update(lora_outputs(reqs, case))
+        out[f"{case}/finished"] = np.array(eng.stats.finished)
+    return out
+
+
 def fake_mesh(axes: dict, rank: int):
     """A ``parallel.mesh.Mesh`` as rank ``rank`` sees it, without a process
     group: enough for what raises before any collective."""
@@ -512,7 +564,7 @@ def mesh_coords(axes: dict, rank: int) -> dict:
 
 
 SUITES = {"ring": _ring_suite, "parallel": _parallel_suite, "tp": _tp_suite, "tp_serving": _tp_serving_suite,
-          "pp": _pp_suite, "tp_train": _tp_train_suite}
+          "pp": _pp_suite, "tp_train": _tp_train_suite, "multi_lora": _multi_lora_suite}
 
 
 def main(suite, rank, world, port, workdir):
